@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``fedtpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero before the result line:
+
+1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
+2. build: compile the kernels from fedtpu_torch/csrc (nvcc, sm_90a).
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and at edge shapes, and timed (CUDA events).
+4. main path: ``run_experiment`` on income-8 (synthetic data at the income
+   CSV's 10,000 rows), counting each kernel's launches.
+5. card vs CPU: the same run on the CPU (plain versions), same init.
+6. profile: a steady-state round's host time against its device time.
+
+The line before the last is the ``kernels`` JSON; the last line is the
+result JSON. Imports nothing of JAX or of the ``fedtpu`` package.
+"""
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM published peaks (NVIDIA data sheet, at the 700 W power limit):
+# HBM bytes/s and fp32 CUDA-core flop/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+INCOME_DIMS = (14, 50, 200, 2)
+TIMING_REPS = 60
+NEAR_TIE_REL = 1e-5
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def time_ms(fn) -> float:
+    """Median device time of one call over TIMING_REPS runs after warm-up.
+    A sleep kernel queued ahead of each run keeps the host's enqueue time
+    out of the measured window, so the events bracket device work only."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(TIMING_REPS):
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mlp_flops(dims, rows: float) -> float:
+    # One multiply-add (2 flops) per weight per row, plus the bias adds.
+    return rows * sum(2 * i * o + o for i, o in zip(dims[:-1], dims[1:]))
+
+
+def phase_device() -> str:
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  device "
+          f"{torch.cuda.get_device_name(0)}  count "
+          f"{torch.cuda.device_count()}", flush=True)
+    return torch.cuda.get_device_name(0)
+
+
+def phase_build() -> None:
+    from fedtpu_torch.ops._build import build, load_library
+    info = build()
+    load_library()
+    print(f"build: {info['seconds']:.1f} s -> {info['path']}", flush=True)
+    for line in info["compiler_output"].splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"  ptxas: {line.strip()}", flush=True)
+
+
+def near_tie_rows(logits: torch.Tensor) -> torch.Tensor:
+    """Rows whose top-two logit gap is below NEAR_TIE_REL * max|logit|: an
+    fp32 sum taken in another order may flip their argmax."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    scale = logits.abs().amax(dim=-1).clamp_min(1e-30)
+    return (top2[..., 0] - top2[..., 1]) < NEAR_TIE_REL * scale
+
+
+def phase_kernels(gen: torch.Generator) -> dict:
+    from fedtpu_torch.models.mlp import (mlp_apply, mlp_init, param_count,
+                                         unflatten)
+    from fedtpu_torch.ops import cuda_kernels as ck
+    dev = torch.device("cuda")
+    results = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def stacked_params(c, dims):
+        return torch.stack([mlp_init(gen, dims[0], dims[1:-1], dims[-1])
+                            for _ in range(c)]).to(dev)
+
+    # K1 weighted_average_clients: the income-8 FedAvg, and an edge shape
+    # with one zero weight.
+    k1_err = 0.0
+    for c, d, w in ((8, param_count(INCOME_DIMS), [1000.0] * 8),
+                    (2, 97, [0.0, 37.0])):
+        x = randn(c, d)
+        wt = torch.tensor(w, device=dev)
+        out = ck.weighted_average_clients(x, wt)
+        ref = ck.weighted_average_clients_reference(x, wt)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(err <= 1e-5, f"K1 at ({c}, {d}): max abs err {err} > 1e-5")
+        print(f"K1 weighted_average_clients ({c}, {d}): max abs err {err:.3e}",
+              flush=True)
+        k1_err = max(k1_err, err)
+    x = randn(8, param_count(INCOME_DIMS))
+    wt = torch.full((8,), 1000.0, device=dev)
+    wn = wt / wt.sum()
+    nbytes = 4 * (x.numel() + wt.numel() + x.shape[1])
+    b, by = bound_ms(nbytes, 2.0 * x.numel())
+    results["weighted_average_clients"] = {
+        "max_abs_err": k1_err,
+        "ms": time_ms(lambda: ck.weighted_average_clients(x, wt)),
+        "plain_ms": time_ms(
+            lambda: ck.weighted_average_clients_reference(x, wt)),
+        "library_ms": time_ms(lambda: torch.matmul(wn, x)),
+        "bound_ms": b, "bound_by": by}
+
+    # K2 fused_eval_confusion: counts equal except on near-tie rows.
+    def k2_case(c, n, dims, masked_tail):
+        k = dims[-1]
+        params = stacked_params(c, dims)
+        x = randn(c, n, dims[0])
+        y = torch.randint(0, k, (c, n), generator=gen,
+                          dtype=torch.int32).to(dev)
+        mask = torch.ones(c, n)
+        mask[-1, n - masked_tail:] = 0.0
+        mask = mask.to(dev)
+        conf = ck.fused_eval_confusion(params, dims, x, y, mask, k)
+        ref = ck.fused_eval_confusion_reference(params, dims, x, y, mask, k)
+        logits = mlp_apply(unflatten(params, dims), x)
+        ties = near_tie_rows(logits) & (mask > 0)
+        torch.cuda.synchronize()
+        moved = (conf - ref).abs().sum(dim=(1, 2)) / 2   # rows per client
+        allowed = ties.sum(dim=1).to(torch.float32)
+        tie_rows = [tuple(ix) for ix in ties.nonzero().tolist()]
+        check(bool((moved <= allowed).all()),
+              f"K2 C={c} N={n} dims={dims}: counts differ on "
+              f"{moved.tolist()} rows per client; near ties {tie_rows}")
+        print(f"K2 fused_eval_confusion C={c} N={n} dims={dims}: "
+              f"rows differing {int(moved.sum())}, near-tie rows "
+              f"(client, row) {tie_rows}", flush=True)
+        return params, x, y, mask, float((conf - ref).abs().max())
+
+    k2_err = 0.0
+    for c, n, dims, tail in ((8, 1000, INCOME_DIMS, 0),
+                             (8, 100, INCOME_DIMS, 13),
+                             (8, 1000, (14, 2), 0),
+                             (4, 1000, (14, 50, 400, 2), 0),
+                             (8, 1000, (14, 50, 200, 8), 0)):
+        k2_err = max(k2_err, k2_case(c, n, dims, tail)[-1])
+    params, x, y, mask, _ = k2_case(8, 1000, INCOME_DIMS, 0)
+    nbytes = 4 * (params.numel() + x.numel() + y.numel() + mask.numel()
+                  + 8 * 2 * 2)
+    b, by = bound_ms(nbytes, mlp_flops(INCOME_DIMS, float(mask.sum())))
+    results["fused_eval_confusion"] = {
+        "max_abs_err": k2_err,
+        "ms": time_ms(lambda: ck.fused_eval_confusion(
+            params, INCOME_DIMS, x, y, mask, 2)),
+        "plain_ms": time_ms(lambda: ck.fused_eval_confusion_reference(
+            params, INCOME_DIMS, x, y, mask, 2)),
+        "library_ms": None, "bound_ms": b, "bound_by": by}
+
+    # K3 fused_mlp_forward: the held-out split (2,000 rows), ragged N, N=1.
+    k3_err = 0.0
+    flat = stacked_params(1, INCOME_DIMS)[0].contiguous()
+    for n in (2000, 100, 1):
+        xt = randn(n, INCOME_DIMS[0])
+        out = ck.fused_mlp_forward(flat, INCOME_DIMS, xt)
+        ref = ck.fused_mlp_forward_reference(flat, INCOME_DIMS, xt)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(out.shape == ref.shape and err <= 1e-4,
+              f"K3 at N={n}: max abs err {err} > 1e-4")
+        print(f"K3 fused_mlp_forward N={n}: max abs err {err:.3e}", flush=True)
+        k3_err = max(k3_err, err)
+    xt = randn(2000, INCOME_DIMS[0])
+    nbytes = 4 * (flat.numel() + xt.numel() + 2000 * INCOME_DIMS[-1])
+    b, by = bound_ms(nbytes, mlp_flops(INCOME_DIMS, 2000))
+    results["fused_mlp_forward"] = {
+        "max_abs_err": k3_err,
+        "ms": time_ms(lambda: ck.fused_mlp_forward(flat, INCOME_DIMS, xt)),
+        "plain_ms": time_ms(lambda: ck.fused_mlp_forward_reference(
+            flat, INCOME_DIMS, xt)),
+        "library_ms": None, "bound_ms": b, "bound_by": by}
+    for name, r in results.items():
+        print(f"time {name}: kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library {r['library_ms']}  bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+    return results
+
+
+def main_path_config():
+    from fedtpu_torch.config import get_preset
+    cfg = get_preset("income-8")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, synthetic_rows=10000),
+        fed=dataclasses.replace(cfg.fed, rounds=100),
+        run=dataclasses.replace(cfg.run, eval_test_every=10))
+
+
+def phase_main_path(cfg):
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration.loop import run_experiment
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    n_evals = len(res.test_metrics["accuracy"])
+    print(f"main path launches: {launches}  test evals {n_evals}", flush=True)
+    check(not res.diverged, "main path diverged")
+    check(launches["weighted_average_clients"] == res.rounds_run,
+          "K1 launches != rounds run")
+    check(launches["fused_eval_confusion"] == res.rounds_run,
+          "K2 launches != rounds run")
+    check(launches["fused_mlp_forward"] >= max(n_evals, 1),
+          "K3 launches fewer than the held-out evals")
+    for hist in (res.global_metrics, res.pooled_metrics, res.test_metrics):
+        for k, v in hist.items():
+            check(bool(np.all(np.isfinite(v))), f"non-finite {k} history")
+    check(all(np.all(np.isfinite(l)) for l in res.loss), "non-finite loss")
+    acc = res.global_metrics["accuracy"][-1]
+    check(acc > 0.9, f"final client-mean accuracy {acc} <= 0.9")
+    steady = res.sec_per_round[1:] or res.sec_per_round
+    print(f"main path: rounds run {res.rounds_run}, early stop at round "
+          f"{res.rounds_run if res.stopped_early else None}, final "
+          f"client-mean accuracy {acc:.4f}, test accuracy "
+          f"{res.test_metrics['accuracy'][-1] if n_evals else None}, "
+          f"s/round {statistics.mean(steady):.6e} (mean of rounds 2..), "
+          f"wall {wall:.3f} s", flush=True)
+    return res, launches
+
+
+def replay_near_ties(cfg, rounds: set) -> dict:
+    """Near-tie rows per client of the CPU run's trained (pre-average)
+    models at the given 0-based rounds, by replaying the round on the CPU
+    from its public pieces."""
+    from fedtpu_torch.models.mlp import mlp_apply, unflatten
+    from fedtpu_torch.ops.cuda_kernels import weighted_average_clients
+    from fedtpu_torch.ops.optim import build_optimizer
+    from fedtpu_torch.orchestration.loop import build_experiment
+    from fedtpu_torch.training.client import make_local_train_step
+    exp = build_experiment(cfg, device="cpu")
+    train = make_local_train_step(exp.dims, build_optimizer(cfg.optim))
+    x, y, mask = exp.batch["x"], exp.batch["y"], exp.batch["mask"]
+    params, opt = exp.state["params"], exp.state["opt_state"]
+    out = {}
+    for r in range(max(rounds) + 1):
+        params, opt, _ = train(params, opt, x, y, mask)
+        if r in rounds:
+            logits = mlp_apply(unflatten(params, exp.dims), x)
+            out[r] = (near_tie_rows(logits) & (mask > 0)).sum(dim=1).numpy()
+        params = weighted_average_clients(params, mask.sum(dim=1)) \
+            .expand_as(params).contiguous()
+    return out
+
+
+def phase_card_vs_cpu(cfg, gpu) -> None:
+    from fedtpu_torch.orchestration.loop import run_experiment
+    cpu = run_experiment(cfg, verbose=False, device="cpu")
+    check(cpu.rounds_run == gpu.rounds_run
+          and cpu.stopped_early == gpu.stopped_early,
+          f"early stop differs: card {gpu.rounds_run} vs cpu "
+          f"{cpu.rounds_run}")
+    loss_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(gpu.loss, cpu.loss))
+    check(loss_err <= 1e-4, f"card vs CPU loss max abs err {loss_err}")
+    moved = {r: np.abs(a - b).sum(axis=(1, 2)) / 2
+             for r, (a, b) in enumerate(zip(gpu.confusion, cpu.confusion))
+             if not np.array_equal(a, b)}
+    ties = replay_near_ties(cfg, set(moved)) if moved else {}
+    for r, rows in moved.items():
+        check(bool(np.all(rows <= ties[r])),
+              f"round {r + 1}: confusion counts differ on {rows.tolist()} "
+              f"rows per client, near-tie rows {ties[r].tolist()}")
+    print(f"card vs CPU: same stop round {cpu.rounds_run}, loss max abs err "
+          f"{loss_err:.3e}, rounds with near-tie count differences "
+          f"{sorted(r + 1 for r in moved)}", flush=True)
+
+
+def phase_profile(cfg, rounds: int = 20) -> None:
+    """Where a steady-state round's time goes: the round step plus its
+    metrics fetch, timed on the host clock, against the device time of each
+    kernel in it (torch.profiler) — the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fedtpu_torch.orchestration.loop import build_experiment
+    exp = build_experiment(cfg, device="cuda")
+    step = exp.make_step(1)
+    state = exp.state
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, raw = step(state, exp.batch)
+            raw["loss"].cpu(), raw["conf"].cpu()
+        torch.cuda.synchronize()
+
+    run(3)
+    t0 = time.perf_counter()
+    run(rounds)
+    wall_ms = (time.perf_counter() - t0) / rounds * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(rounds)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / rounds / 1e3
+    print(f"profile: round step + fetch {wall_ms:.4f} ms/round on the host "
+          f"clock; device busy {busy_ms:.4f} ms/round in "
+          f"{sum(e.count for e in dev) / rounds:.1f} device ops; idle share "
+          f"{1 - busy_ms / wall_ms:.3f}", flush=True)
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / rounds / 1e3:.4f} ms/round "
+              f"x{e.count / rounds:.0f}  {e.key[:90]}", flush=True)
+
+
+def main() -> None:
+    import fedtpu_torch  # noqa: F401  (fails outside a checkout)
+    kind = phase_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    timings = phase_kernels(torch.Generator().manual_seed(0))
+    cfg = main_path_config()
+    gpu, launches = phase_main_path(cfg)
+    phase_card_vs_cpu(cfg, gpu)
+    phase_profile(cfg)
+    sources = {"weighted_average_clients": ("weighted_average.cu", 233),
+               "fused_eval_confusion": ("eval_confusion.cu", 163),
+               "fused_mlp_forward": ("mlp_forward.cu", 78)}
+    kernels = []
+    for name, (src, line) in sources.items():
+        t = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fedtpu_torch/csrc/{src}",
+            "replaces": f"fedtpu/ops/pallas_kernels.py:{line}",
+            "launches": launches[name], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,46 @@
+"""fedtpu_torch — the PyTorch/CUDA port of fedtpu, for one NVIDIA H100.
+
+A second package beside ``fedtpu`` (the JAX reference, which it never
+imports). It mirrors ``fedtpu``'s module paths and function names; this
+slice runs the synchronous FedAvg main path of the income presets, with
+hand-written CUDA kernels for the three Pallas ops on it
+(``fedtpu_torch.ops.cuda_kernels``).
+
+    fedtpu_torch.config         — configs + the income presets
+    fedtpu_torch.data           — synthetic income data, client sharding
+    fedtpu_torch.models         — the MLP on a flat parameter buffer
+    fedtpu_torch.ops            — losses, metrics, optimizers, CUDA kernels
+    fedtpu_torch.parallel       — the federated round
+    fedtpu_torch.orchestration  — host round loop, early stopping
+    fedtpu_torch.convert        — params / Adam state to and from fedtpu
+
+Entry points resolve lazily: a bare ``import fedtpu_torch`` builds no kernel
+and touches no CUDA.
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "run_experiment": ("fedtpu_torch.orchestration.loop", "run_experiment"),
+    "build_experiment": ("fedtpu_torch.orchestration.loop",
+                         "build_experiment"),
+    "build_round_fn": ("fedtpu_torch.parallel.round", "build_round_fn"),
+    "init_federated_state": ("fedtpu_torch.parallel.round",
+                             "init_federated_state"),
+    "PRESETS": ("fedtpu_torch.config", "PRESETS"),
+    "get_preset": ("fedtpu_torch.config", "get_preset"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        module, attr = _LAZY[name]
+        value = getattr(importlib.import_module(module), attr)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module 'fedtpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

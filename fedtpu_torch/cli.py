@@ -1,0 +1,95 @@
+"""``python -m fedtpu_torch.cli run``: the port's counterpart of
+``fedtpu run``, for the synchronous FedAvg path.
+
+Every flag is one that ``fedtpu.cli``'s parser also has, with the same
+meaning; ``--platform default`` means the GPU, ``--platform cpu`` the plain
+versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+from fedtpu_torch.config import PRESETS, get_preset
+
+
+def _hidden_sizes(text: str):
+    return tuple(int(t) for t in text.split(",") if t.strip())
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="fedtpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("run", help="run the synchronous FedAvg loop")
+    p.add_argument("--preset", default="income-8", choices=sorted(PRESETS))
+    p.add_argument("--csv", default=None,
+                   help="dataset CSV path ('' = synthetic; a path is not "
+                        "supported yet)")
+    p.add_argument("--synthetic-rows", type=int, default=None)
+    p.add_argument("--num-clients", type=int, default=None)
+    p.add_argument("--rounds", type=int, default=None)
+    p.add_argument("--hidden-sizes", type=_hidden_sizes, default=None,
+                   help="comma-separated, e.g. 50,200")
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--weighting", choices=["data_size", "uniform"],
+                   default=None)
+    p.add_argument("--rounds-per-step", type=int, default=None)
+    p.add_argument("--eval-test-every", type=int, default=None)
+    p.add_argument("--platform", choices=["default", "cpu"], default="default",
+                   help="'default' runs on the GPU, 'cpu' on the CPU")
+    p.add_argument("--log-per-client", action="store_true")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--json", action="store_true",
+                   help="print the result summary as one JSON line")
+    return parser
+
+
+def config_from_args(args):
+    cfg = get_preset(args.preset)
+    data, shard, model = cfg.data, cfg.shard, cfg.model
+    optim, fed, run = cfg.optim, cfg.fed, cfg.run
+    if args.csv is not None:
+        data = dataclasses.replace(data, csv_path=args.csv or None)
+    if args.synthetic_rows is not None:
+        data = dataclasses.replace(data, synthetic_rows=args.synthetic_rows)
+    if args.num_clients is not None:
+        shard = dataclasses.replace(shard, num_clients=args.num_clients)
+    if args.hidden_sizes is not None:
+        model = dataclasses.replace(model, hidden_sizes=args.hidden_sizes)
+    if args.learning_rate is not None:
+        optim = dataclasses.replace(optim, learning_rate=args.learning_rate)
+    if args.rounds is not None:
+        fed = dataclasses.replace(fed, rounds=args.rounds)
+    if args.weighting is not None:
+        fed = dataclasses.replace(fed, weighting=args.weighting)
+    if args.rounds_per_step is not None:
+        run = dataclasses.replace(run, rounds_per_step=args.rounds_per_step)
+    if args.eval_test_every is not None:
+        run = dataclasses.replace(run, eval_test_every=args.eval_test_every)
+    if args.log_per_client:
+        run = dataclasses.replace(run, log_per_client=True)
+    return cfg.replace(data=data, shard=shard, model=model, optim=optim,
+                       fed=fed, run=run)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    from fedtpu_torch.orchestration.loop import run_experiment
+    cfg = config_from_args(args)
+    device = "cpu" if args.platform == "cpu" else "cuda"
+    result = run_experiment(cfg, verbose=not args.quiet, device=device)
+    summary = result.summary()
+    if args.json:
+        print(json.dumps(summary))
+    elif not args.quiet:
+        print(f"\nrounds run: {summary['rounds_run']}  stopped early: "
+              f"{summary['stopped_early']}  mean s/round: "
+              f"{summary['mean_sec_per_round']:.3e}")
+    return 1 if result.diverged else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

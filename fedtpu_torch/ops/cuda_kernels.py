@@ -1,0 +1,205 @@
+"""The port's three hand-written CUDA kernels (``fedtpu.ops.pallas_kernels``).
+
+Each wrapper checks its tensors and then:
+
+* on CPU tensors, runs its plain PyTorch version (``*_reference``), which
+  the CPU tests and the card-vs-plain checks use as the oracle;
+* on CUDA tensors, launches its kernel (``fedtpu_torch/csrc``) on the current
+  stream, or raises. There is no fallback from the card to the plain version.
+
+``LAUNCHES`` counts kernel launches per wrapper (never plain-version calls),
+so a run can show that its main path went through the kernels.
+
+The parameters of a model are a flat float32 buffer with ``dims =
+(input_dim, *hidden_sizes, num_classes)`` (``fedtpu_torch.models.mlp``);
+client-stacked as ``(C, D)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from fedtpu_torch.models.mlp import mlp_apply, param_count, unflatten
+from fedtpu_torch.ops.metrics import confusion_matrix
+
+LAUNCHES = {"weighted_average_clients": 0, "fused_eval_confusion": 0,
+            "fused_mlp_forward": 0}
+
+# Dynamic shared memory one block may opt into on sm_90 (227 KB).
+SMEM_BYTES_MAX = 232_448
+MAX_LAYERS = 16           # FT_MAX_LAYERS in csrc/mlp_forward.cuh
+MAX_CLASSES = 8
+_ROW_TILES = (32, 16, 8, 4, 2, 1)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _device(*tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and "
+                             f"{t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_dims(flat: torch.Tensor, dims: Sequence[int]) -> tuple:
+    dims = tuple(int(d) for d in dims)
+    if not 1 <= len(dims) - 1 <= MAX_LAYERS or min(dims) < 1:
+        raise ValueError(f"dims {dims}: need 1..{MAX_LAYERS} layers of "
+                         "positive width")
+    if flat.shape[-1] != param_count(dims):
+        raise ValueError(f"params have {flat.shape[-1]} entries, dims {dims} "
+                         f"need {param_count(dims)}")
+    return dims
+
+
+def _rows_per_block(num_params: int, dims: tuple, extra: int) -> int:
+    """Largest row tile whose parameters + two activation buffers fit in a
+    block's shared memory (ft_tile_smem_bytes in mlp_forward.cuh)."""
+    for rows in _ROW_TILES:
+        if 4 * (num_params + 2 * rows * max(dims) + extra) <= SMEM_BYTES_MAX:
+            return rows
+    raise ValueError(
+        f"one model's {num_params} parameters do not fit in a block's "
+        f"{SMEM_BYTES_MAX} bytes of shared memory")
+
+
+def _launch(entry: str, device: torch.device, *args) -> None:
+    from fedtpu_torch.ops._build import load_library
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(load_library(), entry)(*args, stream)
+    if err:
+        raise RuntimeError(f"{entry}: kernel launch failed with "
+                           f"cudaError_t {err}")
+
+
+def _dims_arg(dims: tuple):
+    return (ctypes.c_int * len(dims))(*dims)
+
+
+# ---------------------------------------------------------------- K1: FedAvg
+def weighted_average_clients_reference(stacked: torch.Tensor,
+                                       weights: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1: ``sum_c (w_c / max(sum w, 1e-30)) * x_c``."""
+    wn = weights / weights.sum().clamp_min(1e-30)
+    return (wn[:, None] * stacked).sum(dim=0)
+
+
+def weighted_average_clients(stacked: torch.Tensor,
+                             weights: torch.Tensor) -> torch.Tensor:
+    """Weighted average over the clients axis of ``stacked (C, D)`` with
+    ``weights (C,)`` -> ``(D,)``: the FedAvg aggregation."""
+    dev = _device(stacked, weights)
+    c, d = stacked.shape
+    _check(stacked, "stacked", torch.float32, (c, d))
+    _check(weights, "weights", torch.float32, (c,))
+    if dev.type == "cpu":
+        return weighted_average_clients_reference(stacked, weights)
+    if 4 * (c + 1) > 48 * 1024:
+        raise ValueError(f"{c} clients: the normalised weights must fit in "
+                         "48 KB of shared memory")
+    out = torch.empty(d, dtype=torch.float32, device=dev)
+    if d == 0:
+        return out
+    _launch("ft_weighted_average", dev, stacked.data_ptr(),
+            weights.data_ptr(), c, d, out.data_ptr())
+    LAUNCHES["weighted_average_clients"] += 1
+    return out
+
+
+# ------------------------------------------------ K2: fused eval -> confusion
+def fused_eval_confusion_reference(flat: torch.Tensor, dims: Sequence[int],
+                                   x: torch.Tensor, y: torch.Tensor,
+                                   mask: torch.Tensor,
+                                   num_classes: int) -> torch.Tensor:
+    """Plain version of K2: per-client forward, first-max argmax, masked
+    confusion counts ``(C, K, K)``."""
+    logits = mlp_apply(unflatten(flat, dims), x)
+    return confusion_matrix(y, torch.argmax(logits, dim=-1), mask,
+                            num_classes)
+
+
+def fused_eval_confusion(flat: torch.Tensor, dims: Sequence[int],
+                         x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                         num_classes: int) -> torch.Tensor:
+    """Batched-over-clients fused eval: ``(C, K, K)`` confusion matrices of
+    client-stacked params ``flat (C, D)`` on ``x (C, N, dims[0])``,
+    ``y (C, N)`` int32, ``mask (C, N)`` float32. ``num_classes <= 8``."""
+    if num_classes > MAX_CLASSES:
+        raise ValueError(f"num_classes={num_classes} > {MAX_CLASSES} "
+                         "unsupported (per-block confusion tile)")
+    dev = _device(flat, x, y, mask)
+    dims = _check_dims(flat, dims)
+    if dims[-1] != num_classes:
+        raise ValueError(f"last layer width {dims[-1]} != num_classes "
+                         f"{num_classes}")
+    c, n = y.shape
+    _check(flat, "params", torch.float32, (c, param_count(dims)))
+    _check(x, "x", torch.float32, (c, n, dims[0]))
+    _check(y, "y", torch.int32, (c, n))
+    _check(mask, "mask", torch.float32, (c, n))
+    if dev.type == "cpu":
+        return fused_eval_confusion_reference(flat, dims, x, y, mask,
+                                              num_classes)
+    conf = torch.zeros((c, num_classes, num_classes), dtype=torch.float32,
+                       device=dev)
+    if c == 0 or n == 0:
+        return conf
+    k = num_classes
+    rows = _rows_per_block(param_count(dims), dims, k * k)
+    dims_arg = _dims_arg(dims)
+    _launch("ft_eval_confusion", dev, flat.data_ptr(), param_count(dims),
+            ctypes.addressof(dims_arg), len(dims) - 1, x.data_ptr(),
+            y.data_ptr(), mask.data_ptr(), c, n, rows, conf.data_ptr())
+    LAUNCHES["fused_eval_confusion"] += 1
+    return conf
+
+
+# -------------------------------------------------------- K3: fused forward
+def fused_mlp_forward_reference(flat: torch.Tensor, dims: Sequence[int],
+                                x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: ``mlp_apply`` of one model."""
+    return mlp_apply(unflatten(flat, dims), x)
+
+
+def fused_mlp_forward(flat: torch.Tensor, dims: Sequence[int],
+                      x: torch.Tensor) -> torch.Tensor:
+    """Logits ``(N, K)`` of one model ``flat (D,)`` on ``x (N, dims[0])``;
+    any N."""
+    dev = _device(flat, x)
+    dims = _check_dims(flat, dims)
+    n = x.shape[0]
+    _check(flat, "params", torch.float32, (param_count(dims),))
+    _check(x, "x", torch.float32, (n, dims[0]))
+    if dev.type == "cpu":
+        return fused_mlp_forward_reference(flat, dims, x)
+    out = torch.empty((n, dims[-1]), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    rows = _rows_per_block(param_count(dims), dims, 0)
+    dims_arg = _dims_arg(dims)
+    _launch("ft_mlp_forward", dev, flat.data_ptr(), param_count(dims),
+            ctypes.addressof(dims_arg), len(dims) - 1, x.data_ptr(), n, rows,
+            out.data_ptr())
+    LAUNCHES["fused_mlp_forward"] += 1
+    return out

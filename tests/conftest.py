@@ -275,6 +275,19 @@ QUICK_TESTS = {
     "test_fuzz.py::test_judge_net_row_matches_legacy_mp_torn_frame_bar",
     "test_fuzz.py::test_restart_backoff_is_a_pure_function_of_exit"
     "_and_streak",
+    # PyTorch/CUDA port (fedtpu_torch): numpy/torch-CPU parity picks,
+    # seconds; the whole-slice parity run stays full-tier.
+    "test_torch_data.py::test_pack_clients_bitwise_matches_fedtpu"
+    "[num_clients=8]",
+    "test_torch_data.py::test_csv_path_waits_for_the_income_csv",
+    "test_torch_ops.py::test_masked_cross_entropy_and_grad_match_fedtpu",
+    "test_torch_ops.py::test_port_imports_nothing_of_jax_or_fedtpu",
+    "test_torch_ops.py::test_cuda_entry_points_raise_without_a_gpu",
+    "test_torch_kernels.py::test_weighted_average_plain_matches_pallas"
+    "[8-96-False]",
+    "test_torch_kernels.py::"
+    "test_fused_eval_confusion_rejects_wide_class_counts",
+    "test_torch_round.py::test_cli_flags_are_fedtpu_cli_flags",
 }
 
 

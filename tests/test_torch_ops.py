@@ -1,0 +1,243 @@
+"""fedtpu_torch's model, loss, metrics and optimizers against fedtpu's on
+the same numpy inputs; the converter; the no-fallback and no-JAX rules."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import ast  # noqa: E402
+import os  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import optax  # noqa: E402
+
+import fedtpu.config as jcfg  # noqa: E402
+from fedtpu.models.mlp import mlp_apply as j_apply, mlp_init as j_init  # noqa: E402
+from fedtpu.ops import build_optimizer as j_build_optimizer  # noqa: E402
+from fedtpu.ops.losses import masked_cross_entropy as j_ce  # noqa: E402
+from fedtpu.ops.metrics import (confusion_matrix as j_conf,  # noqa: E402
+                                metrics_from_confusion as j_metrics)
+
+import fedtpu_torch.config as tcfg  # noqa: E402
+from fedtpu_torch import convert  # noqa: E402
+from fedtpu_torch.models.mlp import (flatten, layer_dims, mlp_apply,  # noqa: E402
+                                     mlp_init, param_count, unflatten)
+from fedtpu_torch.ops.losses import masked_cross_entropy  # noqa: E402
+from fedtpu_torch.ops.metrics import (METRIC_NAMES,  # noqa: E402
+                                      confusion_matrix,
+                                      metrics_from_confusion)
+from fedtpu_torch.ops.optim import build_optimizer  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+INCOME_DIMS = (14, 50, 200, 2)
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _stacked_jax_params(key, c, dims):
+    keys = jax.random.split(jax.random.key(key), c)
+    batched = jax.jit(jax.vmap(
+        lambda k: j_init(k, dims[0], dims[1:-1], dims[-1])))
+    return _np_tree(batched(keys))
+
+
+@pytest.mark.parametrize("dims", [INCOME_DIMS, (6, 16, 3), (14, 2)])
+def test_mlp_apply_matches_fedtpu(dims):
+    rng = np.random.default_rng(0)
+    params = _np_tree(j_init(jax.random.key(1), dims[0], dims[1:-1],
+                             dims[-1]))
+    x = rng.normal(size=(64, dims[0])).astype(np.float32)
+    ref = np.asarray(j_apply(params, jnp.asarray(x)))
+    flat = convert.params_from_jax(params)
+    out = mlp_apply(unflatten(flat, dims), torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def test_client_stacked_apply_matches_per_client_fedtpu():
+    rng = np.random.default_rng(1)
+    params = _stacked_jax_params(2, 4, INCOME_DIMS)
+    x = rng.normal(size=(4, 40, 14)).astype(np.float32)
+    ref = np.asarray(jax.vmap(j_apply)(params, jnp.asarray(x)))
+    out = mlp_apply(unflatten(convert.params_from_jax(params), INCOME_DIMS),
+                    torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def test_mlp_init_follows_the_linear_law():
+    dims = layer_dims(14, (50, 200), 2)
+    flat = mlp_init(torch.Generator().manual_seed(0), 14, (50, 200), 2)
+    assert flat.shape == (param_count(dims),) == (11352,)
+    for lyr in unflatten(flat, dims)["layers"]:
+        bound = 1.0 / np.sqrt(lyr["w"].shape[0])
+        for t in (lyr["w"], lyr["b"]):
+            assert float(t.abs().max()) <= bound
+            if t.numel() >= 50:      # the max of many draws nears the bound
+                assert float(t.abs().max()) > 0.9 * bound
+    again = mlp_init(torch.Generator().manual_seed(0), 14, (50, 200), 2)
+    assert torch.equal(flat, again)
+
+
+def test_masked_cross_entropy_and_grad_match_fedtpu():
+    rng = np.random.default_rng(2)
+    logits = rng.normal(size=(48, 3)).astype(np.float32) * 3
+    labels = rng.integers(0, 3, size=48).astype(np.int32)
+    mask = (rng.random(48) < 0.8).astype(np.float32)
+    jl, jg = jax.value_and_grad(j_ce)(jnp.asarray(logits),
+                                      jnp.asarray(labels), jnp.asarray(mask))
+    lt = torch.from_numpy(logits).requires_grad_(True)
+    tl = masked_cross_entropy(lt, torch.from_numpy(labels),
+                              torch.from_numpy(mask))
+    (tg,) = torch.autograd.grad(tl, lt)
+    np.testing.assert_allclose(float(tl.detach()), float(jl), atol=1e-6)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6)
+    # Padded rows get exactly zero gradient.
+    assert np.all(tg.numpy()[mask == 0] == 0)
+
+
+@pytest.mark.parametrize("k", [2, 3, 8])
+def test_confusion_and_metrics_match_fedtpu(k):
+    rng = np.random.default_rng(k)
+    labels = rng.integers(0, k, size=300).astype(np.int32)
+    preds = rng.integers(0, k, size=300).astype(np.int32)
+    preds[:40] = labels[:40]
+    mask = (rng.random(300) < 0.9).astype(np.float32)
+    jc = np.asarray(j_conf(jnp.asarray(labels), jnp.asarray(preds),
+                           jnp.asarray(mask), k))
+    tc = confusion_matrix(torch.from_numpy(labels), torch.from_numpy(preds),
+                          torch.from_numpy(mask), k)
+    np.testing.assert_array_equal(tc.numpy(), jc)
+    jm, tm = j_metrics(jnp.asarray(jc)), metrics_from_confusion(tc)
+    for name in METRIC_NAMES:
+        np.testing.assert_allclose(float(tm[name]), float(jm[name]), atol=1e-6)
+
+
+def test_metrics_zero_division_matches_fedtpu():
+    # A class never predicted and a class never present.
+    conf = np.array([[5, 0, 0], [3, 0, 0], [0, 0, 0]], np.float32)
+    jm = j_metrics(jnp.asarray(conf))
+    tm = metrics_from_confusion(torch.from_numpy(conf))
+    for name in METRIC_NAMES:
+        np.testing.assert_allclose(float(tm[name]), float(jm[name]), atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_optimizer_70_steps_across_steplr_boundaries_matches_optax(name):
+    """70 updates cross the StepLR boundaries at 30 and 60."""
+    cfg_kw = dict(name=name, learning_rate=0.004 if name == "adam" else 0.05)
+    j_tx = j_build_optimizer(jcfg.OptimConfig(**cfg_kw))
+    t_tx = build_optimizer(tcfg.OptimConfig(**cfg_kw))
+    rng = np.random.default_rng(3)
+    p0 = rng.normal(size=(3, 40)).astype(np.float32)
+    grads = rng.normal(size=(70, 3, 40)).astype(np.float32)
+    jp, js = jnp.asarray(p0), j_tx.init(jnp.asarray(p0))
+    tp = torch.from_numpy(p0.copy())
+    ts = t_tx.init(tp)
+    for g in grads:
+        upd, js = j_tx.update(jnp.asarray(g), js, jp)
+        jp = optax.apply_updates(jp, upd)
+        tp, ts = t_tx.update(torch.from_numpy(g), ts, tp)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=2e-5)
+    assert ts["count"] == 70
+
+
+def test_convert_round_trip_is_exact():
+    params = _stacked_jax_params(4, 3, INCOME_DIMS)
+    flat = convert.params_from_jax(params)
+    assert flat.shape == (3, 11352) and flat.dtype == torch.float32
+    back = convert.params_to_numpy(flat, INCOME_DIMS)
+    for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(a, b)
+    # The flat buffer's views are fedtpu's leaves, (in, out) layout.
+    view = unflatten(flat, INCOME_DIMS)
+    np.testing.assert_array_equal(view["layers"][1]["w"].numpy(),
+                                  params["layers"][1]["w"])
+    assert torch.equal(flatten(view), flat)
+
+
+def test_adam_state_round_trip_and_resume_matches_optax():
+    """optax state after 3 steps -> the port -> 2 more steps on both."""
+    tx = j_build_optimizer(jcfg.OptimConfig())
+    t_tx = build_optimizer(tcfg.OptimConfig())
+    params = _stacked_jax_params(5, 2, (6, 8, 3))
+    rng = np.random.default_rng(5)
+    grads = [jax.tree.map(lambda p: rng.normal(size=p.shape)
+                          .astype(np.float32), params) for _ in range(5)]
+    init = jax.jit(jax.vmap(tx.init))
+    jp, js = params, init(params)
+
+    def jstep(p, s, g):
+        u, s = tx.update(g, s, p)
+        return optax.apply_updates(p, u), s
+
+    jstep = jax.jit(jax.vmap(jstep))
+    for g in grads[:3]:
+        jp, js = jstep(jp, js, g)
+    adam = js[0]
+    state = convert.adam_state_from_jax(_np_tree(adam.mu), _np_tree(adam.nu),
+                                        np.asarray(adam.count))
+    mu, nu, count = convert.adam_state_to_numpy(state, (6, 8, 3), 2)
+    for a, b in zip(jax.tree.leaves(_np_tree(adam.mu)), jax.tree.leaves(mu)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(jax.tree.leaves(_np_tree(adam.nu)), jax.tree.leaves(nu)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(count, np.asarray(adam.count))
+    tp = convert.params_from_jax(_np_tree(jp))
+    for g in grads[3:]:
+        jp, js = jstep(jp, js, g)
+        tp, state = t_tx.update(convert.params_from_jax(g), state, tp)
+    np.testing.assert_allclose(tp.numpy(),
+                               convert.params_from_jax(_np_tree(jp)).numpy(),
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="counts differ"):
+        convert.adam_state_from_jax(mu, nu, np.array([3, 4]))
+
+
+def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
+    from fedtpu_torch.orchestration.loop import (build_experiment,
+                                                 run_experiment)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tcfg.ExperimentConfig(data=tcfg.DataConfig(synthetic_rows=64),
+                                fed=tcfg.FedConfig(rounds=1))
+    for entry in (run_experiment, build_experiment):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(cfg)
+    from fedtpu_torch.cli import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["run", "--rounds", "1", "--synthetic-rows", "64", "--quiet"])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(participation_rate=0.5), dict(local_steps=2), dict(prox_mu=0.1),
+    dict(scaffold=True), dict(server_opt="fedadam"), dict(dp_clip_norm=1.0),
+    dict(robust_aggregation="median"), dict(compress="int8"),
+    dict(async_mode=True), dict(cohort_size=4)])
+def test_unported_knobs_raise_naming_their_roadmap_item(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        tcfg.FedConfig(**kw)
+
+
+_FORBIDDEN = {"jax", "jaxlib", "optax", "pandas", "sklearn", "fedtpu"}
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_nothing_of_jax_or_fedtpu():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(REPO, "fedtpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    bad = {(os.path.relpath(f, REPO), root) for f in files
+           for root in _imported_roots(f) if root in _FORBIDDEN}
+    assert not bad, f"forbidden imports in the port: {sorted(bad)}"
