@@ -6,13 +6,23 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: compile the kernels from fedtpu_torch/csrc (nvcc, sm_90a).
+2. build: compile the kernels from fedtpu_torch/csrc (one nvcc per source,
+   all at once, sm_90a).
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at edge shapes, and timed (CUDA events).
-4. main path: ``run_experiment`` on income-8 (synthetic data at the income
-   CSV's 10,000 rows), counting each kernel's launches.
+   the main paths' shapes and at edge shapes, and timed (CUDA events). The
+   ring kernel (K4) must equal its plain version bit for bit and leave its
+   flags at zero after every launch; a broken protocol must raise.
+4. main path: ``run_experiment`` on income-8 (psum; synthetic data at the
+   income CSV's 10,000 rows), counting each kernel's launches.
 5. card vs CPU: the same run on the CPU (plain versions), same init.
 6. profile: a steady-state round's host time against its device time.
+7. sharded round: income-32-noniid at 10,000 rows over a clients mesh of 8
+   shards on the one card: ``aggregation="ring"`` (K4 once per round, K1
+   never), then two shorter runs, ``ring-rsag`` (K4 never) and ``ring``
+   under client sampling (participation_rate=0.5); then income-8 on the psum
+   path under the same sampling (K1 once per round). Each run's launches
+   are counted from zero, each run is held against the same config on the
+   CPU, and the ring run is profiled as in phase 6.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package.
@@ -33,6 +43,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 INCOME_DIMS = (14, 50, 200, 2)
+SHARDS = 8                # mesh_devices of the sharded round
 TIMING_REPS = 60
 NEAR_TIE_REL = 1e-5
 
@@ -218,11 +229,70 @@ def phase_kernels(gen: torch.Generator) -> dict:
         "plain_ms": time_ms(lambda: ck.fused_mlp_forward_reference(
             flat, INCOME_DIMS, xt)),
         "library_ms": None, "bound_ms": b, "bound_by": by}
+    results["ring_all_reduce_sum"] = k4_checks(gen, dev)
     for name, r in results.items():
         print(f"time {name}: kernel {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  library {r['library_ms']}  bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
     return results
+
+
+def k4_checks(gen: torch.Generator, dev: torch.device) -> dict:
+    """K4 ring_all_reduce_sum: bitwise equal to its plain version, flags
+    back at zero after every launch, at the sharded round's payload (8
+    shards x income's 11,352 params + the weight total) and at edge shapes
+    (2, 3 and 16 shards; lengths that are not a multiple of the kernel's
+    float4 width); a protocol fault raises within its timeout."""
+    from fedtpu_torch.models.mlp import param_count
+    from fedtpu_torch.ops import cuda_kernels as ck
+    payload = param_count(INCOME_DIMS) + 1
+    for s, p in ((SHARDS, payload), (2, payload), (3, 1001), (16, payload),
+                 (SHARDS, 7), (SHARDS, 4096)):
+        x = torch.randn(s, p, generator=gen).to(dev)
+        out = ck.ring_all_reduce_sum(x)
+        ref = ck.ring_all_reduce_sum_reference(x)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and torch.equal(out, ref),
+              f"K4 at ({s}, {p}): not bitwise equal to the plain version "
+              f"(max abs diff {float((out - ref).abs().max())})")
+        check(ck.ring_flags_clear(dev), f"K4 at ({s}, {p}): flags not zero "
+              "after the launch")
+        print(f"K4 ring_all_reduce_sum ({s}, {p}): bitwise equal, flags "
+              "zero", flush=True)
+    # A broken protocol (one block skips its receive signal) must raise
+    # within its spin-wait budget, and the next launch must be clean.
+    x = torch.randn(SHARDS, payload, generator=gen).to(dev)
+    t0 = time.perf_counter()
+    try:
+        ck.ring_all_reduce_sum(x, timeout_cycles=20_000_000, _fault=2)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised is not None and "timed out" in raised,
+          f"K4 with a dropped signal did not raise: {raised}")
+    print(f"K4 fault check: raised in {time.perf_counter() - t0:.3f} s: "
+          f"{raised}", flush=True)
+    check(ck.ring_flags_clear(dev), "K4 flags not zero after a fault")
+    check(torch.equal(ck.ring_all_reduce_sum(x),
+                      ck.ring_all_reduce_sum_reference(x)),
+          "K4 wrong after a fault")
+    with_many = torch.zeros(ck.RING_MAX_SHARDS + 1, 8, device=dev)
+    try:
+        ck.ring_all_reduce_sum(with_many)
+        check(False, "K4 took more shards than its pointer table holds")
+    except ValueError:
+        pass
+    nbytes = 2 * x.numel() * 4
+    b, by = bound_ms(nbytes, float((SHARDS - 1) * x.numel()))
+    out = {"max_abs_err": 0.0,
+           "ms": time_ms(lambda: ck.ring_all_reduce_sum(x, check=False)),
+           "plain_ms": time_ms(
+               lambda: ck.ring_all_reduce_sum_reference(x)),
+           "library_ms": time_ms(lambda: x.sum(dim=0)),
+           "bound_ms": b, "bound_by": by}
+    ck.ring_check(dev)
+    check(ck.ring_flags_clear(dev), "K4 flags not zero after timing")
+    return out
 
 
 def main_path_config():
@@ -234,7 +304,11 @@ def main_path_config():
         run=dataclasses.replace(cfg.run, eval_test_every=10))
 
 
-def phase_main_path(cfg):
+def phase_run(label: str, cfg, expect: dict):
+    """One run of ``run_experiment`` on the card with every launch count set
+    to 0 just before it and read just after. ``expect`` maps a kernel to
+    its launches: "rounds" (one per round), "evals" (at least one per
+    held-out eval, and at least one), or an exact number."""
     from fedtpu_torch.ops import cuda_kernels as ck
     from fedtpu_torch.orchestration.loop import run_experiment
     torch.cuda.synchronize()
@@ -245,22 +319,29 @@ def phase_main_path(cfg):
     wall = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
     n_evals = len(res.test_metrics["accuracy"])
-    print(f"main path launches: {launches}  test evals {n_evals}", flush=True)
-    check(not res.diverged, "main path diverged")
-    check(launches["weighted_average_clients"] == res.rounds_run,
-          "K1 launches != rounds run")
-    check(launches["fused_eval_confusion"] == res.rounds_run,
-          "K2 launches != rounds run")
-    check(launches["fused_mlp_forward"] >= max(n_evals, 1),
-          "K3 launches fewer than the held-out evals")
+    print(f"{label} launches: {launches}  test evals {n_evals}", flush=True)
+    check(not res.diverged, f"{label} diverged")
+    for name, want in expect.items():
+        got = launches[name]
+        if want == "rounds":
+            check(got == res.rounds_run,
+                  f"{label}: {name} launches {got} != rounds run "
+                  f"{res.rounds_run}")
+        elif want == "evals":
+            check(got >= max(n_evals, 1),
+                  f"{label}: {name} launches {got} fewer than the held-out "
+                  f"evals ({n_evals}) or none")
+        else:
+            check(got == want, f"{label}: {name} launches {got} != {want}")
     for hist in (res.global_metrics, res.pooled_metrics, res.test_metrics):
         for k, v in hist.items():
-            check(bool(np.all(np.isfinite(v))), f"non-finite {k} history")
-    check(all(np.all(np.isfinite(l)) for l in res.loss), "non-finite loss")
+            check(bool(np.all(np.isfinite(v))), f"{label}: non-finite {k}")
+    check(all(np.all(np.isfinite(l)) for l in res.loss),
+          f"{label}: non-finite loss")
     acc = res.global_metrics["accuracy"][-1]
-    check(acc > 0.9, f"final client-mean accuracy {acc} <= 0.9")
+    check(acc > 0.9, f"{label}: final client-mean accuracy {acc} <= 0.9")
     steady = res.sec_per_round[1:] or res.sec_per_round
-    print(f"main path: rounds run {res.rounds_run}, early stop at round "
+    print(f"{label}: rounds run {res.rounds_run}, early stop at round "
           f"{res.rounds_run if res.stopped_early else None}, final "
           f"client-mean accuracy {acc:.4f}, test accuracy "
           f"{res.test_metrics['accuracy'][-1] if n_evals else None}, "
@@ -271,29 +352,35 @@ def phase_main_path(cfg):
 
 def replay_near_ties(cfg, rounds: set) -> dict:
     """Near-tie rows per client of the CPU run's trained (pre-average)
-    models at the given 0-based rounds, by replaying the round on the CPU
-    from its public pieces."""
+    models at the given 0-based rounds, by replaying the run on the CPU
+    from its public pieces: the round step, and the train step alone (with
+    the round's participation mask) for the pre-average models."""
     from fedtpu_torch.models.mlp import mlp_apply, unflatten
-    from fedtpu_torch.ops.cuda_kernels import weighted_average_clients
     from fedtpu_torch.ops.optim import build_optimizer
     from fedtpu_torch.orchestration.loop import build_experiment
+    from fedtpu_torch.parallel.round import participation_mask
     from fedtpu_torch.training.client import make_local_train_step
     exp = build_experiment(cfg, device="cpu")
     train = make_local_train_step(exp.dims, build_optimizer(cfg.optim))
+    step = exp.make_step(1)
     x, y, mask = exp.batch["x"], exp.batch["y"], exp.batch["mask"]
-    params, opt = exp.state["params"], exp.state["opt_state"]
+    state = exp.state
     out = {}
     for r in range(max(rounds) + 1):
-        params, opt, _ = train(params, opt, x, y, mask)
         if r in rounds:
+            part = (participation_mask(
+                cfg.shard.num_clients, cfg.fed.participation_rate,
+                cfg.fed.participation_seed, r)
+                if cfg.fed.participation_rate < 1.0 else None)
+            params, _, _ = train(state["params"], state["opt_state"], x, y,
+                                 mask, part)
             logits = mlp_apply(unflatten(params, exp.dims), x)
             out[r] = (near_tie_rows(logits) & (mask > 0)).sum(dim=1).numpy()
-        params = weighted_average_clients(params, mask.sum(dim=1)) \
-            .expand_as(params).contiguous()
+        state, _ = step(state, exp.batch)
     return out
 
 
-def phase_card_vs_cpu(cfg, gpu) -> None:
+def phase_card_vs_cpu(cfg, gpu, label: str = "card vs CPU") -> None:
     from fedtpu_torch.orchestration.loop import run_experiment
     cpu = run_experiment(cfg, verbose=False, device="cpu")
     check(cpu.rounds_run == gpu.rounds_run
@@ -311,12 +398,12 @@ def phase_card_vs_cpu(cfg, gpu) -> None:
         check(bool(np.all(rows <= ties[r])),
               f"round {r + 1}: confusion counts differ on {rows.tolist()} "
               f"rows per client, near-tie rows {ties[r].tolist()}")
-    print(f"card vs CPU: same stop round {cpu.rounds_run}, loss max abs err "
+    print(f"{label}: same stop round {cpu.rounds_run}, loss max abs err "
           f"{loss_err:.3e}, rounds with near-tie count differences "
           f"{sorted(r + 1 for r in moved)}", flush=True)
 
 
-def phase_profile(cfg, rounds: int = 20) -> None:
+def phase_profile(cfg, rounds: int = 20, label: str = "profile") -> None:
     """Where a steady-state round's time goes: the round step plus its
     metrics fetch, timed on the host clock, against the device time of each
     kernel in it (torch.profiler) — the device's idle share."""
@@ -344,13 +431,55 @@ def phase_profile(cfg, rounds: int = 20) -> None:
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / rounds / 1e3
-    print(f"profile: round step + fetch {wall_ms:.4f} ms/round on the host "
+    print(f"{label}: round step + fetch {wall_ms:.4f} ms/round on the host "
           f"clock; device busy {busy_ms:.4f} ms/round in "
           f"{sum(e.count for e in dev) / rounds:.1f} device ops; idle share "
           f"{1 - busy_ms / wall_ms:.3f}", flush=True)
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / rounds / 1e3:.4f} ms/round "
               f"x{e.count / rounds:.0f}  {e.key[:90]}", flush=True)
+
+
+def sharded_config(aggregation: str, rate: float, rounds: int):
+    from fedtpu_torch.config import get_preset
+    cfg = get_preset("income-32-noniid")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, synthetic_rows=10000),
+        fed=dataclasses.replace(cfg.fed, rounds=rounds,
+                                aggregation=aggregation,
+                                participation_rate=rate),
+        run=dataclasses.replace(cfg.run, eval_test_every=10,
+                                mesh_devices=SHARDS))
+
+
+def sampled_psum_config():
+    cfg = main_path_config()
+    return cfg.replace(fed=dataclasses.replace(cfg.fed, rounds=30,
+                                               participation_rate=0.5))
+
+
+def phase_sharded() -> dict:
+    """Phase 7: the sharded round's three runs, then client sampling on the
+    psum path (K1 under sampling); returns each run's launches by label."""
+    ring = {"ring_all_reduce_sum": "rounds", "fused_eval_confusion": "rounds",
+            "fused_mlp_forward": "evals", "weighted_average_clients": 0}
+    by_path = {}
+    for label, cfg, expect in (
+            ("income-32-noniid ring", sharded_config("ring", 1.0, 100), ring),
+            ("income-32-noniid ring-rsag",
+             sharded_config("ring-rsag", 1.0, 30),
+             {**ring, "ring_all_reduce_sum": 0}),
+            ("income-32-noniid ring sampled 0.5",
+             sharded_config("ring", 0.5, 30), ring),
+            ("income-8 psum sampled 0.5", sampled_psum_config(),
+             {**ring, "ring_all_reduce_sum": 0,
+              "weighted_average_clients": "rounds"})):
+        gpu, launches = phase_run(label, cfg, expect)
+        phase_card_vs_cpu(cfg, gpu, label=f"{label} card vs CPU")
+        if label == "income-32-noniid ring":
+            phase_profile(cfg, label=f"{label} profile")
+        by_path[label] = launches
+    return by_path
 
 
 def main() -> None:
@@ -361,20 +490,36 @@ def main() -> None:
     phase_build()
     timings = phase_kernels(torch.Generator().manual_seed(0))
     cfg = main_path_config()
-    gpu, launches = phase_main_path(cfg)
+    gpu, launches = phase_run("main path income-8", cfg, {
+        "weighted_average_clients": "rounds",
+        "fused_eval_confusion": "rounds", "fused_mlp_forward": "evals"})
     phase_card_vs_cpu(cfg, gpu)
     phase_profile(cfg)
-    sources = {"weighted_average_clients": ("weighted_average.cu", 233),
-               "fused_eval_confusion": ("eval_confusion.cu", 163),
-               "fused_mlp_forward": ("mlp_forward.cu", 78)}
+    by_path = {"income-8 psum": launches, **phase_sharded()}
+    # Each kernel's launches come from the path it was ported for: K1-K3
+    # from income-8, K4 from the sharded ring run.
+    sources = {
+        "weighted_average_clients": ("weighted_average.cu",
+                                     "fedtpu/ops/pallas_kernels.py:233",
+                                     "income-8 psum"),
+        "fused_eval_confusion": ("eval_confusion.cu",
+                                 "fedtpu/ops/pallas_kernels.py:163",
+                                 "income-8 psum"),
+        "fused_mlp_forward": ("mlp_forward.cu",
+                              "fedtpu/ops/pallas_kernels.py:78",
+                              "income-8 psum"),
+        "ring_all_reduce_sum": ("ring_all_reduce.cu",
+                                "fedtpu/parallel/ring_pallas.py:116",
+                                "income-32-noniid ring")}
     kernels = []
-    for name, (src, line) in sources.items():
+    for name, (src, replaces, path) in sources.items():
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"fedtpu_torch/csrc/{src}",
-            "replaces": f"fedtpu/ops/pallas_kernels.py:{line}",
-            "launches": launches[name], "max_abs_err": t["max_abs_err"],
+            "source": f"fedtpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": by_path[path][name],
+            "launches_by_path": {p: l[name] for p, l in by_path.items()},
+            "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

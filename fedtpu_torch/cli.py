@@ -13,7 +13,15 @@ import dataclasses
 import json
 import sys
 
-from fedtpu_torch.config import PRESETS, get_preset
+from fedtpu_torch.config import AGGREGATIONS, PRESETS, get_preset
+
+
+def _participation_rate(text: str) -> float:
+    rate = float(text)
+    if not 0.0 < rate <= 1.0:
+        raise argparse.ArgumentTypeError(
+            f"participation rate must be in (0, 1], got {rate}")
+    return rate
 
 
 def _hidden_sizes(text: str):
@@ -36,6 +44,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--learning-rate", type=float, default=None)
     p.add_argument("--weighting", choices=["data_size", "uniform"],
                    default=None)
+    p.add_argument("--participation-rate", type=_participation_rate,
+                   default=None,
+                   help="per-round client sampling probability in (0, 1] "
+                        "(default 1.0)")
+    p.add_argument("--aggregation", choices=list(AGGREGATIONS), default=None,
+                   help="FedAvg reduction backend (default psum; ring = "
+                        "rotate-and-accumulate over the clients mesh, the "
+                        "ring kernel on the GPU)")
     p.add_argument("--rounds-per-step", type=int, default=None)
     p.add_argument("--eval-test-every", type=int, default=None)
     p.add_argument("--platform", choices=["default", "cpu"], default="default",
@@ -65,6 +81,11 @@ def config_from_args(args):
         fed = dataclasses.replace(fed, rounds=args.rounds)
     if args.weighting is not None:
         fed = dataclasses.replace(fed, weighting=args.weighting)
+    if args.participation_rate is not None:
+        fed = dataclasses.replace(fed,
+                                  participation_rate=args.participation_rate)
+    if args.aggregation is not None:
+        fed = dataclasses.replace(fed, aggregation=args.aggregation)
     if args.rounds_per_step is not None:
         run = dataclasses.replace(run, rounds_per_step=args.rounds_per_step)
     if args.eval_test_every is not None:

@@ -17,6 +17,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 
+AGGREGATIONS = ("psum", "ring", "ring-rsag")
+
+
 def _not_ported(knob: str, item: str):
     raise NotImplementedError(
         f"{knob} is not ported to fedtpu_torch yet (ROADMAP {item}); "
@@ -94,8 +97,16 @@ class FedConfig:
     tolerance: float = 1e-4
     same_init: bool = False
     init_seed: int = 0
-    # Not ported yet: each must stay at its default (see __post_init__).
+    # Client sampling: each client trains in a round with this probability,
+    # deterministic in (participation_seed, round, client); absentees keep
+    # their params and optimizer state. 1.0 == every client every round.
     participation_rate: float = 1.0
+    participation_seed: int = 0
+    # Reduction backend of the parameter average: 'psum' (K1 over the whole
+    # client stack) | 'ring' (rotate-and-accumulate over the mesh's shards,
+    # K4 on the card) | 'ring-rsag' (reduce-scatter + all-gather).
+    aggregation: str = "psum"
+    # Not ported yet: each must stay at its default (see __post_init__).
     local_steps: int = 1
     prox_mu: float = 0.0
     scaffold: bool = False
@@ -105,7 +116,6 @@ class FedConfig:
     robust_aggregation: str = "none"
     byzantine_clients: int = 0
     compress: str = "none"
-    aggregation: str = "psum"
     async_mode: bool = False
     cohort_size: int = 0
     personalize_steps: int = 0
@@ -113,10 +123,12 @@ class FedConfig:
     def __post_init__(self):
         if self.weighting not in ("data_size", "uniform"):
             raise ValueError(f"unknown weighting {self.weighting!r}")
-        if self.participation_rate != 1.0:
-            # Sampled clients skip rounds, so their Adam step counts
-            # diverge; the port keeps one shared count.
-            _not_ported("participation_rate < 1", "A4")
+        if not 0.0 < self.participation_rate <= 1.0:
+            raise ValueError(f"participation_rate must be in (0, 1], got "
+                             f"{self.participation_rate}")
+        if self.aggregation not in AGGREGATIONS:
+            raise ValueError(f"unknown aggregation {self.aggregation!r}; "
+                             f"available: {AGGREGATIONS}")
         if self.local_steps != 1 or self.prox_mu:
             _not_ported("local_steps > 1 / prox_mu", "A3")
         if self.scaffold:
@@ -126,8 +138,8 @@ class FedConfig:
             _not_ported("server optimizers / DP", "A6")
         if self.robust_aggregation != "none" or self.byzantine_clients:
             _not_ported("robust aggregation", "A6")
-        if self.compress != "none" or self.aggregation != "psum":
-            _not_ported("compressed / ring aggregation", "A6")
+        if self.compress != "none":
+            _not_ported("compressed aggregation", "A6")
         if self.async_mode:
             _not_ported("async_mode", "A8")
         if self.cohort_size:
@@ -147,12 +159,17 @@ class RunConfig:
     rounds_per_step: int = 1
     eval_test_every: int = 0             # 0 = disabled
     halt_on_nonfinite: bool = True
+    # Shards of the clients axis (fedtpu_torch.parallel.mesh.make_mesh);
+    # 0 = one shard per visible device of the run's type.
+    mesh_devices: int = 0
     # Not ported yet: must stay at its default.
     model_parallel: int = 1
 
     def __post_init__(self):
         if self.rounds_per_step < 1:
             raise ValueError("rounds_per_step must be >= 1")
+        if self.mesh_devices < 0:
+            raise ValueError("mesh_devices must be >= 0")
         if self.model_parallel != 1:
             _not_ported("model_parallel > 1", "A10")
 
@@ -179,6 +196,11 @@ PRESETS = {
                                  fed=FedConfig(rounds=300)),
     "income-8": ExperimentConfig(shard=ShardConfig(num_clients=8),
                                  fed=FedConfig(rounds=300)),
+    # Non-IID label-skewed income shards, 32 clients.
+    "income-32-noniid": ExperimentConfig(
+        shard=ShardConfig(num_clients=32, strategy="dirichlet",
+                          dirichlet_alpha=0.5),
+        fed=FedConfig(rounds=300)),
 }
 
 

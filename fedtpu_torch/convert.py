@@ -41,20 +41,15 @@ def params_to_numpy(flat: torch.Tensor, dims: Sequence[int]) -> dict:
 
 def adam_state_from_jax(mu, nu, count) -> dict:
     """optax ``ScaleByAdamState`` leaves (numpy) -> the port's Adam state.
-    ``count`` is the per-client update count; the port keeps one shared
-    count, so every client's must agree."""
-    counts = np.unique(np.asarray(count))
-    if counts.size != 1:
-        raise ValueError(f"per-client Adam counts differ ({counts}); the "
-                         "port's optimizer shares one count across clients")
+    ``count`` is the per-client update count ``(C,)``; the clients' counts
+    may differ (client sampling), and each keeps its own."""
     return {"mu": _tree_to_flat(mu), "nu": _tree_to_flat(nu),
-            "count": int(counts[0])}
+            "count": torch.from_numpy(np.array(count, dtype=np.int32))}
 
 
-def adam_state_to_numpy(state: dict, dims: Sequence[int],
-                        num_clients: int):
+def adam_state_to_numpy(state: dict, dims: Sequence[int]):
     """The port's Adam state -> ``(mu, nu, count)`` in optax's layout, with
     ``count`` as the ``(C,)`` int32 vector a vmapped optax state holds."""
     return (params_to_numpy(state["mu"], dims),
             params_to_numpy(state["nu"], dims),
-            np.full((num_clients,), state["count"], dtype=np.int32))
+            state["count"].detach().cpu().numpy().astype(np.int32))

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``fedtpu_torch/csrc/*.cu``).
 
-One ``nvcc`` call compiles every source into a shared library with a plain C
-interface, for ``sm_90a`` (Hopper), which ``ctypes`` loads. The library goes
+One ``nvcc`` process per source compiles them all at once, in parallel, for
+``sm_90a`` (Hopper); one more links the objects into a shared library with a
+plain C interface, which ``ctypes`` loads. The library goes
 into ``build/fedtpu_torch_kernels/`` beside the package, named by a hash of
 the sources, the flags and the compiler, so an edited source is rebuilt and
 an unchanged one is built once. Nothing here runs at import: the first
@@ -21,16 +22,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" \
     / "fedtpu_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point -> argtypes; every one returns its launch's cudaError_t.
+_L = ctypes.c_longlong
+# C entry point -> argtypes; every one returns a cudaError_t.
 SIGNATURES = {
     "ft_weighted_average": (_P, _P, _I, _I, _P, _P),
     "ft_eval_confusion": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P),
     "ft_mlp_forward": (_P, _I, _P, _I, _P, _I, _I, _P, _P),
+    "ft_ring_all_reduce": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _L,
+                           _I, _P),
+    "ft_ring_max_blocks": (_P,),
 }
 
 
@@ -57,17 +63,34 @@ def build(force: bool = False) -> dict:
     if lib.exists() and not force:
         return {"path": str(lib), "seconds": 0.0, "compiler_output": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    outputs = [proc.communicate()[0] for proc in procs]
+    tmp = lib.with_suffix(f".{tag}")
+    try:
+        for proc, src, out in zip(procs, sources, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                                   f"{src.name}:\n{' '.join(proc.args)}\n"
+                                   f"{out}")
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)   # atomic: a concurrent loader never sees half a file
-    return {"path": str(lib), "seconds": seconds,
-            "compiler_output": proc.stdout + proc.stderr}
+    return {"path": str(lib), "seconds": time.perf_counter() - t0,
+            "compiler_output": "".join(outputs)}
 
 
 @functools.cache

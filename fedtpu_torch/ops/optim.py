@@ -7,20 +7,23 @@ count. The update is written in optax's order (``optax.adam`` with
 ``m_hat / (sqrt(v_hat) + eps)`` scaled by ``-lr(t)`` and added to the params.
 SGD with momentum is optax's ``trace`` then the same scaling.
 
-The optimizer steps the whole client-stacked ``(C, D)`` buffer at once. That
-is exact per client because every client steps every round, so all clients
-share one update count; client sampling would need one count per client
-(not ported yet, see ``FedConfig``). FedAvg never touches this state: each
-client's moments persist un-averaged.
+The optimizer steps the whole client-stacked ``(C, D)`` buffer at once, with
+one update count per client (``count``, a ``(C,)`` int32 tensor beside the
+params, as a vmapped optax state holds it): under client sampling a client
+that sits a round out keeps its count, so the clients' schedules and bias
+corrections drift apart. Both are computed per client on the device as
+``(C, 1)`` float32 columns, with no host sync. ``update`` takes an optional
+``(C,)`` participation mask; a client whose entry is 0 keeps its params and
+every state tensor, count included, bit for bit (``fedtpu.parallel.round``'s
+``select``). FedAvg never touches this state: each client's moments persist
+un-averaged.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Callable
+from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from fedtpu_torch.config import OptimConfig
@@ -28,51 +31,79 @@ from fedtpu_torch.config import OptimConfig
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """``init(params) -> state`` and ``update(grads, state, params) ->
-    (new_params, new_state)``; pure functions of tensors, as optax's."""
+    """``init(params) -> state`` and ``update(grads, state, params,
+    part=None) -> (new_params, new_state)``; pure functions of tensors, as
+    optax's."""
 
     init: Callable
     update: Callable
 
 
-def step_lr(cfg: OptimConfig, count: int) -> float:
-    """The staircase schedule at update ``count``, in float32 as optax
-    computes it (the gamma power is exact for gamma = 0.5)."""
-    p = math.floor(count / cfg.steplr_step_size)
-    return float(np.float32(cfg.learning_rate)
-                 * np.float32(cfg.steplr_gamma) ** np.float32(p))
+def step_lr(cfg: OptimConfig, count: torch.Tensor) -> torch.Tensor:
+    """The staircase schedule at each client's update ``count``, in float32
+    as optax computes it: ``lr0 * gamma ** floor(count / step_size)``."""
+    p = torch.floor(count.to(torch.float32) / cfg.steplr_step_size)
+    return cfg.learning_rate * torch.pow(cfg.steplr_gamma, p)
 
 
-def _bias_correction(decay: float, count: int) -> float:
+def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
     # 1 - decay**count in float32, as optax's tree_bias_correction.
-    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+    return 1.0 - torch.pow(decay, count.to(torch.float32))
+
+
+def _init_count(params: torch.Tensor) -> torch.Tensor:
+    # One count per client: the leading axes of the stacked buffer.
+    return torch.zeros(params.shape[:-1], dtype=torch.int32,
+                       device=params.device)
+
+
+def _col(t: torch.Tensor) -> torch.Tensor:
+    """A per-client ``(C,)`` value as a ``(C, 1)`` column over the params."""
+    return t[..., None]
+
+
+def _select(part: Optional[torch.Tensor], new: dict, old: dict) -> dict:
+    """Participants take ``new``, absentees keep ``old`` (every entry)."""
+    if part is None:
+        return new
+    keep = part > 0
+    return {k: torch.where(keep if new[k].dim() == keep.dim() else
+                           _col(keep), new[k], old[k]) for k in new}
 
 
 def build_optimizer(cfg: OptimConfig) -> Optimizer:
     if cfg.name == "adam":
         def init(params):
             return {"mu": torch.zeros_like(params),
-                    "nu": torch.zeros_like(params), "count": 0}
+                    "nu": torch.zeros_like(params),
+                    "count": _init_count(params)}
 
-        def update(grads, state, params):
+        def update(grads, state, params, part=None):
             mu = (1 - cfg.b1) * grads + cfg.b1 * state["mu"]
             nu = (1 - cfg.b2) * (grads * grads) + cfg.b2 * state["nu"]
             count = state["count"] + 1
-            mu_hat = mu / _bias_correction(cfg.b1, count)
-            nu_hat = nu / _bias_correction(cfg.b2, count)
+            mu_hat = mu / _col(_bias_correction(cfg.b1, count))
+            nu_hat = nu / _col(_bias_correction(cfg.b2, count))
             upd = mu_hat / (torch.sqrt(nu_hat) + cfg.eps)
-            new = params + (-step_lr(cfg, state["count"])) * upd
-            return new, {"mu": mu, "nu": nu, "count": count}
+            new = params + _col(-step_lr(cfg, state["count"])) * upd
+            out = _select(part, {"params": new, "mu": mu, "nu": nu,
+                                 "count": count},
+                          {"params": params, **state})
+            return out.pop("params"), out
 
         return Optimizer(init, update)
     if cfg.name == "sgd":
         def init(params):
-            return {"trace": torch.zeros_like(params), "count": 0}
+            return {"trace": torch.zeros_like(params),
+                    "count": _init_count(params)}
 
-        def update(grads, state, params):
+        def update(grads, state, params, part=None):
             trace = grads + cfg.momentum * state["trace"]
-            new = params + (-step_lr(cfg, state["count"])) * trace
-            return new, {"trace": trace, "count": state["count"] + 1}
+            new = params + _col(-step_lr(cfg, state["count"])) * trace
+            out = _select(part, {"params": new, "trace": trace,
+                                 "count": state["count"] + 1},
+                          {"params": params, **state})
+            return out.pop("params"), out
 
         return Optimizer(init, update)
     raise ValueError(f"unknown optimizer {cfg.name!r}")

@@ -28,6 +28,7 @@ from fedtpu_torch.data.tabular import Dataset, load_tabular_dataset
 from fedtpu_torch.models.mlp import layer_dims
 from fedtpu_torch.ops.metrics import METRIC_NAMES
 from fedtpu_torch.ops.optim import build_optimizer
+from fedtpu_torch.parallel.mesh import ClientMesh, make_mesh
 from fedtpu_torch.parallel.round import (assemble_metrics, build_eval_fn,
                                          build_round_fn, global_params,
                                          init_federated_state)
@@ -94,14 +95,18 @@ class Experiment:
     dataset: Dataset
     device: torch.device
     dims: tuple
+    mesh: ClientMesh
 
 
 def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
-                     device="cuda", init_params=None) -> Experiment:
-    """Wire data -> device -> model -> optimizer -> round factory.
+                     device="cuda", init_params=None,
+                     participation_masks=None) -> Experiment:
+    """Wire data -> device -> mesh -> model -> optimizer -> round factory.
 
     ``init_params``: a ``fedtpu`` client-stacked params pytree (numpy
-    leaves) to start from instead of the seeded init."""
+    leaves) to start from instead of the seeded init.
+    ``participation_masks``: round index -> ``(C,)`` mask, replacing the
+    port's own client-sampling draws (``build_round_fn``)."""
     dev = resolve_device(device)
     ds = dataset if dataset is not None else load_tabular_dataset(cfg.data)
     dims = layer_dims(ds.input_dim, cfg.model.hidden_sizes, ds.num_classes)
@@ -120,11 +125,16 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                if cfg.fed.weighting == "data_size"
                else np.ones(cfg.shard.num_clients, np.float32))
     client_weights = torch.from_numpy(weights).to(dev)
-    make_step = lambda r: build_round_fn(dims, tx, ds.num_classes,
-                                         client_weights, rounds_per_step=r)
+    mesh = make_mesh(cfg.run.mesh_devices, cfg.shard.num_clients, dev)
+    make_step = lambda r: build_round_fn(
+        dims, tx, ds.num_classes, client_weights, rounds_per_step=r,
+        mesh=mesh, aggregation=cfg.fed.aggregation,
+        participation_rate=cfg.fed.participation_rate,
+        participation_seed=cfg.fed.participation_seed,
+        participation_masks=participation_masks)
     return Experiment(make_step=make_step, state=state, batch=batch,
                       eval_step=build_eval_fn(dims, ds.num_classes),
-                      dataset=ds, device=dev, dims=dims)
+                      dataset=ds, device=dev, dims=dims, mesh=mesh)
 
 
 def _state_finite(state: dict) -> bool:
@@ -135,11 +145,12 @@ def _state_finite(state: dict) -> bool:
 
 
 def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
-                   verbose: bool = True, device="cuda",
-                   init_params=None) -> ExperimentResult:
+                   verbose: bool = True, device="cuda", init_params=None,
+                   participation_masks=None) -> ExperimentResult:
     """Run the federated loop (see module docstring)."""
     exp = build_experiment(cfg, dataset, device=device,
-                           init_params=init_params)
+                           init_params=init_params,
+                           participation_masks=participation_masks)
     ds, state, batch = exp.dataset, exp.state, exp.batch
     mask_host = batch["mask"].cpu()
     x_test = torch.from_numpy(ds.x_test).to(exp.device)

@@ -1,13 +1,30 @@
-"""The synchronous federated round on one device (``fedtpu.parallel.round``,
-averaging path).
+"""The synchronous federated round (``fedtpu.parallel.round``, averaging
+path).
 
 Per round, in the reference's order (FL_CustomMLP...:145-198):
 
-    train        one full-batch step per client (batched over clients)
+    sample       under client sampling, a (C,) participation mask
+    train        one full-batch step per client (batched over clients);
+                 absentees keep their params and optimizer state
     eval         each client's TRAINED, not yet averaged model on its own
                  shard -> (C, K, K) confusion counts (K2 on the card)
-    average      data-size- or uniformly-weighted FedAvg of the params
-                 (K1 on the card), broadcast back into every client slot
+    average      data-size- or uniformly-weighted FedAvg of the params over
+                 the round's participants, broadcast back into every client
+                 slot; a round whose weight total is 0 carries the params
+                 over (decided on the device)
+
+The average has three backends (``FedConfig.aggregation``):
+
+- ``psum``: K1 (``weighted_average_clients``) over the whole ``(C, D)``
+  stack, whatever the mesh. Neither this nor XLA's psum has a shard order
+  to honour.
+- ``ring`` / ``ring-rsag``: ``fedtpu``'s formula over the clients mesh
+  (``fedtpu_torch.parallel.mesh``). Each shard's partial sum
+  ``sum_{i in shard} w_i p_i`` (one batched matmul) with the shard's weight
+  total appended as one extra float is all-reduced in one call
+  (``fedtpu_torch.parallel.ring``: K4 on the card for ``ring``), then each
+  shard divides by its own total and broadcasts its own global into its
+  own clients' slots.
 
 Per-client Adam moments are never averaged. ``fedtpu`` scans
 ``rounds_per_step`` rounds inside one compiled program; here they are a
@@ -16,8 +33,9 @@ Python loop, and the host fetches the chunk's metrics once.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from fedtpu_torch.models.mlp import mlp_init
@@ -25,6 +43,8 @@ from fedtpu_torch.ops.cuda_kernels import (fused_mlp_forward,
                                            weighted_average_clients)
 from fedtpu_torch.ops.metrics import confusion_matrix, metrics_from_confusion
 from fedtpu_torch.ops.optim import Optimizer
+from fedtpu_torch.parallel.mesh import ClientMesh
+from fedtpu_torch.parallel.ring import make_all_reduce
 from fedtpu_torch.training.client import (make_local_eval_step,
                                           make_local_train_step)
 
@@ -54,35 +74,101 @@ def init_federated_state(generator: torch.Generator, num_clients: int,
     return {"params": params, "opt_state": tx.init(params), "round": 0}
 
 
+def participation_mask(num_clients: int, rate: float, seed: int,
+                       rnd: int) -> torch.Tensor:
+    """Round ``rnd``'s ``(C,)`` float32 mask: client c participates when its
+    uniform draw is below ``rate``. Deterministic in (seed, round, client),
+    from an explicit ``torch.Generator`` (not ``fedtpu``'s ``jax.random``
+    stream, which torch cannot replay)."""
+    key = np.random.SeedSequence([seed, rnd]).generate_state(1, np.uint64)[0]
+    gen = torch.Generator().manual_seed(int(key))
+    return (torch.rand(num_clients, generator=gen) < rate).to(torch.float32)
+
+
 def build_round_fn(dims: Sequence[int], tx: Optimizer, num_classes: int,
                    client_weights: torch.Tensor,
-                   rounds_per_step: int = 1) -> Callable:
+                   rounds_per_step: int = 1,
+                   mesh: Optional[ClientMesh] = None,
+                   aggregation: str = "psum",
+                   participation_rate: float = 1.0,
+                   participation_seed: int = 0,
+                   participation_masks: Optional[Callable] = None
+                   ) -> Callable:
     """Returns ``round_step(state, batch) -> (state, raw)`` running
     ``rounds_per_step`` rounds; ``raw`` holds the stacked per-round
     ``loss (R, C)`` and ``conf (R, C, K, K)`` on the device (see
     ``assemble_metrics``).
 
-    ``client_weights (C,)`` are the FedAvg weights: true shard sizes under
-    ``weighting='data_size'``, ones under 'uniform'. Full participation keeps
-    them fixed for the run, so whether their total is 0 (no client has data:
-    params carry over, as in fedtpu) is decided once here, on the host."""
+    ``client_weights (C,)`` are the FedAvg base weights: true shard sizes
+    under ``weighting='data_size'``, ones under 'uniform'; under sampling a
+    round weighs them by its mask. ``mesh`` (default: one shard) cuts the
+    clients into the shards the ring backends reduce over.
+    ``participation_rate < 1`` samples clients each round
+    (``participation_mask``); ``participation_masks`` (round index ->
+    ``(C,)`` float32 mask) replaces those draws, e.g. with ``fedtpu``'s."""
+    if not 0.0 < participation_rate <= 1.0:
+        raise ValueError(f"participation_rate must be in (0, 1], got "
+                         f"{participation_rate}")
+    num_clients = client_weights.shape[0]
+    dev = client_weights.device
+    if mesh is None:
+        mesh = ClientMesh(1, num_clients, (dev,))
+    if mesh.num_shards * mesh.clients_per_shard != num_clients:
+        raise ValueError(f"a mesh of {mesh.num_shards} x "
+                         f"{mesh.clients_per_shard} clients for "
+                         f"{num_clients} clients")
+    if aggregation != "psum" and any(d != dev for d in mesh.devices):
+        raise NotImplementedError(
+            "a ring over shards on several devices is not ported to "
+            "fedtpu_torch yet (ROADMAP A10): it needs the ring kernel over "
+            "peer-mapped buffers")
+    sampling = participation_rate < 1.0 or participation_masks is not None
     local_train = make_local_train_step(dims, tx)
     local_eval = make_local_eval_step(dims, num_classes)
-    average = bool(client_weights.sum() > 0)
+    all_reduce = make_all_reduce(aggregation, mesh.num_shards)
+    shards, cb = mesh.num_shards, mesh.clients_per_shard
+
+    def masks_for(first_round: int) -> torch.Tensor:
+        def one(r):
+            if participation_masks is not None:
+                return torch.as_tensor(np.array(participation_masks(r),
+                                                dtype=np.float32))
+            return participation_mask(num_clients, participation_rate,
+                                      participation_seed, r)
+        return torch.stack([one(first_round + j)
+                            for j in range(rounds_per_step)]).to(dev)
+
+    def psum_average(params, w):
+        glob = weighted_average_clients(params, w)
+        return torch.where(w.sum() > 0, glob.expand_as(params), params)
+
+    def ring_average(params, w):
+        d = params.shape[1]
+        blocks = params.view(shards, cb, d)
+        partial = torch.bmm(w.view(shards, 1, cb), blocks).view(shards, d)
+        total = w.view(shards, cb).sum(dim=1, keepdim=True)
+        acc = all_reduce(torch.cat((partial, total), dim=1))
+        tot = acc[:, d:]
+        glob = acc[:, :d] / tot.clamp_min(1.0)
+        # Zero participants in the round: params carry over unchanged.
+        return torch.where(tot[:, :, None] > 0, glob[:, None, :],
+                           blocks).reshape(num_clients, d)
+
+    average = psum_average if aggregation == "psum" else ring_average
 
     def round_step(state, batch):
         x, y, mask = batch["x"], batch["y"], batch["mask"]
         params, opt_state = state["params"], state["opt_state"]
+        masks = masks_for(state["round"]) if sampling else None
         losses, confs = [], []
-        for _ in range(rounds_per_step):
+        for j in range(rounds_per_step):
+            part = masks[j] if sampling else None
             params, opt_state, loss = local_train(params, opt_state, x, y,
-                                                  mask)
+                                                  mask, part)
             confs.append(local_eval(params, x, y, mask))
             losses.append(loss)
-            if average:
-                glob = weighted_average_clients(params, client_weights)
-                # In place: params is the optimizer's fresh output.
-                params.copy_(glob.expand_as(params))
+            params = average(params, client_weights * part if sampling
+                             else client_weights)
         new_state = {"params": params, "opt_state": opt_state,
                      "round": state["round"] + rounds_per_step}
         return new_state, {"loss": torch.stack(losses),

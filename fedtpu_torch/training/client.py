@@ -25,17 +25,19 @@ from fedtpu_torch.ops.optim import Optimizer
 
 
 def make_local_train_step(dims: Sequence[int], tx: Optimizer) -> Callable:
-    """Returns ``step(params, opt_state, x, y, mask) -> (params, opt_state,
-    loss)``: params ``(C, D)``, x ``(C, N, in)``; ``loss (C,)`` is each
-    client's masked CE before the step."""
+    """Returns ``step(params, opt_state, x, y, mask, part=None) -> (params,
+    opt_state, loss)``: params ``(C, D)``, x ``(C, N, in)``; ``loss (C,)``
+    is each client's masked CE before the step. Under client sampling
+    ``part (C,)`` is the round's participation mask: a client at 0 keeps
+    its params and optimizer state (its loss is still reported)."""
 
-    def step(params, opt_state, x, y, mask):
+    def step(params, opt_state, x, y, mask, part=None):
         p = params.detach().requires_grad_(True)
         with torch.enable_grad():
             loss = masked_cross_entropy(mlp_apply(unflatten(p, dims), x), y,
                                         mask)
             (grads,) = torch.autograd.grad(loss.sum(), p)
-        new_params, opt_state = tx.update(grads, opt_state, params)
+        new_params, opt_state = tx.update(grads, opt_state, params, part)
         return new_params, opt_state, loss.detach()
 
     return step

@@ -288,6 +288,7 @@ QUICK_TESTS = {
     "test_torch_kernels.py::"
     "test_fused_eval_confusion_rejects_wide_class_counts",
     "test_torch_round.py::test_cli_flags_are_fedtpu_cli_flags",
+    "test_torch_ring.py::test_residual_credits_are_fedtpus[8]",
 }
 
 

@@ -141,7 +141,66 @@ def test_optimizer_70_steps_across_steplr_boundaries_matches_optax(name):
         jp = optax.apply_updates(jp, upd)
         tp, ts = t_tx.update(torch.from_numpy(g), ts, tp)
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=2e-5)
-    assert ts["count"] == 70
+    assert torch.equal(ts["count"], torch.full((3,), 70, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_sampled_per_client_update_matches_vmapped_optax_with_select(name):
+    """Client sampling: each round only the masked-in clients step, as
+    fedtpu's round selects them (round.py:576-583). 40 rounds cross the
+    StepLR boundary at 30 for some clients only, so counts, schedules and
+    bias corrections differ per client. Params and moments to 1e-6, counts
+    exactly; absentees keep every state tensor bit for bit."""
+    cfg_kw = dict(name=name, learning_rate=0.004 if name == "adam" else 0.05)
+    j_tx = j_build_optimizer(jcfg.OptimConfig(**cfg_kw))
+    t_tx = build_optimizer(tcfg.OptimConfig(**cfg_kw))
+    rng = np.random.default_rng(7)
+    c = 5
+    p0 = rng.normal(size=(c, 24)).astype(np.float32)
+    grads = rng.normal(size=(40, c, 24)).astype(np.float32)
+    parts = (rng.random((40, c)) < 0.6).astype(np.float32)
+    parts[3] = 0.0                                   # a round nobody joins
+
+    def jstep(p, s, g, part):
+        u, s2 = j_tx.update(g, s, p)
+        p2 = optax.apply_updates(p, u)
+        keep = part > 0                      # a scalar under vmap
+        return (jnp.where(keep, p2, p),
+                jax.tree.map(lambda a, b: jnp.where(keep, a, b), s2, s))
+
+    jstep = jax.jit(jax.vmap(jstep))
+    jp = jnp.asarray(p0)
+    js = jax.vmap(j_tx.init)(jp)
+    tp = torch.from_numpy(p0.copy())
+    ts = t_tx.init(tp)
+    for g, part in zip(grads, parts):
+        jp, js = jstep(jp, js, jnp.asarray(g), jnp.asarray(part))
+        before = {k: v.clone() for k, v in ts.items()}
+        prev = tp
+        tp, ts = t_tx.update(torch.from_numpy(g), ts, tp,
+                             torch.from_numpy(part))
+        out = part == 0
+        assert torch.equal(tp[out], prev[out])
+        for k in ts:
+            assert torch.equal(ts[k][out], before[k][out])
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-6)
+    leaves = {type(l).__name__: l for l in js}
+    counts = np.asarray(js[-1].count)
+    np.testing.assert_array_equal(ts["count"].numpy(), counts)
+    np.testing.assert_array_equal(counts, parts.sum(axis=0))
+    assert len(set(counts.tolist())) > 1
+    if name == "adam":
+        adam = leaves["ScaleByAdamState"]
+        np.testing.assert_allclose(ts["mu"].numpy(), np.asarray(adam.mu),
+                                   atol=1e-6)
+        np.testing.assert_allclose(ts["nu"].numpy(), np.asarray(adam.nu),
+                                   atol=1e-6)
+        np.testing.assert_array_equal(ts["count"].numpy(),
+                                      np.asarray(adam.count))
+    else:
+        trace = leaves["TraceState"]
+        np.testing.assert_allclose(ts["trace"].numpy(),
+                                   np.asarray(trace.trace), atol=1e-6)
 
 
 def test_convert_round_trip_is_exact():
@@ -179,7 +238,7 @@ def test_adam_state_round_trip_and_resume_matches_optax():
     adam = js[0]
     state = convert.adam_state_from_jax(_np_tree(adam.mu), _np_tree(adam.nu),
                                         np.asarray(adam.count))
-    mu, nu, count = convert.adam_state_to_numpy(state, (6, 8, 3), 2)
+    mu, nu, count = convert.adam_state_to_numpy(state, (6, 8, 3))
     for a, b in zip(jax.tree.leaves(_np_tree(adam.mu)), jax.tree.leaves(mu)):
         np.testing.assert_array_equal(a, b)
     for a, b in zip(jax.tree.leaves(_np_tree(adam.nu)), jax.tree.leaves(nu)):
@@ -192,8 +251,11 @@ def test_adam_state_round_trip_and_resume_matches_optax():
     np.testing.assert_allclose(tp.numpy(),
                                convert.params_from_jax(_np_tree(jp)).numpy(),
                                atol=1e-6)
-    with pytest.raises(ValueError, match="counts differ"):
-        convert.adam_state_from_jax(mu, nu, np.array([3, 4]))
+    # Clients whose counts differ (client sampling) keep their own.
+    state = convert.adam_state_from_jax(mu, nu, np.array([3, 4]))
+    assert state["count"].dtype == torch.int32
+    np.testing.assert_array_equal(
+        convert.adam_state_to_numpy(state, (6, 8, 3))[2], [3, 4])
 
 
 def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
@@ -211,13 +273,31 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(participation_rate=0.5), dict(local_steps=2), dict(prox_mu=0.1),
+    dict(personalize_steps=1), dict(local_steps=2), dict(prox_mu=0.1),
     dict(scaffold=True), dict(server_opt="fedadam"), dict(dp_clip_norm=1.0),
     dict(robust_aggregation="median"), dict(compress="int8"),
     dict(async_mode=True), dict(cohort_size=4)])
 def test_unported_knobs_raise_naming_their_roadmap_item(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         tcfg.FedConfig(**kw)
+
+
+def test_sampling_ring_and_mesh_knobs_construct():
+    assert tcfg.FedConfig(participation_rate=0.5,
+                          participation_seed=3).participation_rate == 0.5
+    for kind in ("psum", "ring", "ring-rsag"):
+        assert tcfg.FedConfig(aggregation=kind).aggregation == kind
+    assert tcfg.RunConfig(mesh_devices=8).mesh_devices == 8
+    preset = tcfg.get_preset("income-32-noniid")
+    assert (preset.shard.num_clients, preset.shard.strategy,
+            preset.shard.dirichlet_alpha, preset.fed.rounds) == (
+                32, "dirichlet", 0.5, 300)
+    for bad in (dict(participation_rate=0.0), dict(participation_rate=1.5),
+                dict(aggregation="allgather")):
+        with pytest.raises(ValueError):
+            tcfg.FedConfig(**bad)
+    with pytest.raises(ValueError):
+        tcfg.RunConfig(mesh_devices=-1)
 
 
 _FORBIDDEN = {"jax", "jaxlib", "optax", "pandas", "sklearn", "fedtpu"}
