@@ -10,8 +10,10 @@ Phases, in order; any failure exits non-zero before the result line:
    all at once, sm_90a).
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at edge shapes, and timed (CUDA events). The
-   ring kernel (K4) must equal its plain version bit for bit and leave its
-   flags at zero after every launch; a broken protocol must raise.
+   eval kernel (K2) is timed at income-8's (8, 1000) batch and at
+   income-32-noniid's tail-padded (32, 1104) one, and must equal the counts
+   built from K3's logits exactly; the ring kernel (K4) must equal its plain
+   version bit for bit, with one allocation and no host sync per call.
 4. main path: ``run_experiment`` on income-8 (psum; synthetic data at the
    income CSV's 10,000 rows), counting each kernel's launches.
 5. card vs CPU: the same run on the CPU (plain versions), same init.
@@ -45,6 +47,7 @@ PEAK_FP32_FLOPS = 67e12
 INCOME_DIMS = (14, 50, 200, 2)
 SHARDS = 8                # mesh_devices of the sharded round
 TIMING_REPS = 60
+K2_REPEATS = 20
 NEAR_TIE_REL = 1e-5
 
 
@@ -108,7 +111,7 @@ def phase_build() -> None:
     load_library()
     print(f"build: {info['seconds']:.1f} s -> {info['path']}", flush=True)
     for line in info["compiler_output"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "spill")):
             print(f"  ptxas: {line.strip()}", flush=True)
 
 
@@ -124,6 +127,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     from fedtpu_torch.models.mlp import (mlp_apply, mlp_init, param_count,
                                          unflatten)
     from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.ops.metrics import confusion_matrix
     dev = torch.device("cuda")
     results = {}
 
@@ -162,50 +166,95 @@ def phase_kernels(gen: torch.Generator) -> dict:
         "library_ms": time_ms(lambda: torch.matmul(wn, x)),
         "bound_ms": b, "bound_by": by}
 
-    # K2 fused_eval_confusion: counts equal except on near-tie rows.
-    def k2_case(c, n, dims, masked_tail):
+    # K2 fused_eval_confusion: counts equal to those built from K3's logits
+    # (same FMA order) exactly, and to the plain version's except on
+    # near-tie rows.
+    def k2_case(label, params, dims, x, y, mask):
+        c, n = y.shape
         k = dims[-1]
-        params = stacked_params(c, dims)
-        x = randn(c, n, dims[0])
-        y = torch.randint(0, k, (c, n), generator=gen,
-                          dtype=torch.int32).to(dev)
-        mask = torch.ones(c, n)
-        mask[-1, n - masked_tail:] = 0.0
-        mask = mask.to(dev)
-        conf = ck.fused_eval_confusion(params, dims, x, y, mask, k)
+        # Back-to-back launches, each held exactly: a race shows here.
+        confs = [ck.fused_eval_confusion(params, dims, x, y, mask, k)
+                 for _ in range(K2_REPEATS)]
+        conf = confs[0]
         ref = ck.fused_eval_confusion_reference(params, dims, x, y, mask, k)
+        k3_logits = torch.stack([ck.fused_mlp_forward(params[i], dims, x[i])
+                                 for i in range(c)])
+        from_k3 = confusion_matrix(y, torch.argmax(k3_logits, dim=-1), mask,
+                                   k)
         logits = mlp_apply(unflatten(params, dims), x)
         ties = near_tie_rows(logits) & (mask > 0)
         torch.cuda.synchronize()
+        for i, out in enumerate(confs):
+            check(torch.equal(out, from_k3),
+                  f"K2 {label}, launch {i}: counts differ from K3's logits' "
+                  f"counts on {int((out - from_k3).abs().sum()) // 2} rows")
         moved = (conf - ref).abs().sum(dim=(1, 2)) / 2   # rows per client
         allowed = ties.sum(dim=1).to(torch.float32)
         tie_rows = [tuple(ix) for ix in ties.nonzero().tolist()]
         check(bool((moved <= allowed).all()),
-              f"K2 C={c} N={n} dims={dims}: counts differ on "
-              f"{moved.tolist()} rows per client; near ties {tie_rows}")
-        print(f"K2 fused_eval_confusion C={c} N={n} dims={dims}: "
-              f"rows differing {int(moved.sum())}, near-tie rows "
-              f"(client, row) {tie_rows}", flush=True)
-        return params, x, y, mask, float((conf - ref).abs().max())
+              f"K2 {label}: counts differ on {moved.tolist()} rows per "
+              f"client; near ties {tie_rows}")
+        print(f"K2 fused_eval_confusion {label} C={c} N={n} dims={dims}: "
+              f"{K2_REPEATS} launches equal to K3's counts; rows differing "
+              f"from plain {int(moved.sum())}, near-tie rows (client, row) "
+              f"{tie_rows}",
+              flush=True)
+        return float((conf - ref).abs().max())
 
-    k2_err = 0.0
-    for c, n, dims, tail in ((8, 1000, INCOME_DIMS, 0),
-                             (8, 100, INCOME_DIMS, 13),
+    def random_case(c, n, dims, masked_tail):
+        params = stacked_params(c, dims)
+        x = randn(c, n, dims[0])
+        y = torch.randint(0, dims[-1], (c, n), generator=gen,
+                          dtype=torch.int32).to(dev)
+        mask = torch.ones(c, n)
+        mask[-1, n - masked_tail:] = 0.0
+        return params, x, y, mask.to(dev)
+
+    # income-32-noniid's own batch: 32 Dirichlet shards (1 to ~1,100 rows)
+    # padded at the tail to the longest, with random weights.
+    batch = noniid_batch()
+    noniid = (stacked_params(batch["x"].shape[0], INCOME_DIMS),
+              batch["x"].to(dev), batch["y"].to(dev), batch["mask"].to(dev))
+    income8 = random_case(8, 1000, INCOME_DIMS, 0)
+    k2_err = max(k2_case("income-8", income8[0], INCOME_DIMS, *income8[1:]),
+                 k2_case("income-32-noniid", noniid[0], INCOME_DIMS,
+                         *noniid[1:]))
+    for c, n, dims, tail in ((8, 100, INCOME_DIMS, 13),
                              (8, 1000, (14, 2), 0),
                              (4, 1000, (14, 50, 400, 2), 0),
-                             (8, 1000, (14, 50, 200, 8), 0)):
-        k2_err = max(k2_err, k2_case(c, n, dims, tail)[-1])
-    params, x, y, mask, _ = k2_case(8, 1000, INCOME_DIMS, 0)
-    nbytes = 4 * (params.numel() + x.numel() + y.numel() + mask.numel()
-                  + 8 * 2 * 2)
-    b, by = bound_ms(nbytes, mlp_flops(INCOME_DIMS, float(mask.sum())))
+                             (8, 1000, (14, 50, 200, 8), 0),
+                             (3, 1, INCOME_DIMS, 0)):
+        case = random_case(c, n, dims, tail)
+        k2_err = max(k2_err, k2_case("edge", case[0], dims, *case[1:]))
+    # All-padding tiles inside the shards (every third 32-row tile) and a
+    # ragged tail: the kernel reads the mask, it does not assume a tail.
+    params, x, y, mask = random_case(2, 5000, INCOME_DIMS, 13)
+    mask[:, (torch.arange(5000, device=dev) // 32) % 3 == 1] = 0.0
+    k2_err = max(k2_err, k2_case("holes", params, INCOME_DIMS, x, y, mask))
+    by_shape = []
+    for label, (params, x, y, mask) in (("income-8", income8),
+                                        ("income-32-noniid", noniid)):
+        live = float(mask.sum())
+        din = x.shape[-1]
+        nbytes = 4 * (params.numel() + live * (din + 1) + mask.numel()
+                      + params.shape[0] * 2 * 2)
+        b, by = bound_ms(nbytes, mlp_flops(INCOME_DIMS, live))
+        by_shape.append({
+            "shape": label, "clients": x.shape[0], "rows": x.shape[1],
+            "real_rows": int(live),
+            "ms": time_ms(lambda: ck.fused_eval_confusion(
+                params, INCOME_DIMS, x, y, mask, 2)),
+            "plain_ms": time_ms(lambda: ck.fused_eval_confusion_reference(
+                params, INCOME_DIMS, x, y, mask, 2)),
+            "bound_ms": b, "bound_by": by})
+        print(f"time fused_eval_confusion {label} {tuple(x.shape[:2])}, "
+              f"{int(live)} real rows: kernel {by_shape[-1]['ms']:.4f} ms  "
+              f"plain {by_shape[-1]['plain_ms']:.4f} ms  bound {b:.5f} ms "
+              f"({by})", flush=True)
     results["fused_eval_confusion"] = {
-        "max_abs_err": k2_err,
-        "ms": time_ms(lambda: ck.fused_eval_confusion(
-            params, INCOME_DIMS, x, y, mask, 2)),
-        "plain_ms": time_ms(lambda: ck.fused_eval_confusion_reference(
-            params, INCOME_DIMS, x, y, mask, 2)),
-        "library_ms": None, "bound_ms": b, "bound_by": by}
+        "max_abs_err": k2_err, **{key: by_shape[0][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "by_shape": by_shape}
 
     # K3 fused_mlp_forward: the held-out split (2,000 rows), ragged N, N=1.
     k3_err = 0.0
@@ -238,61 +287,54 @@ def phase_kernels(gen: torch.Generator) -> dict:
 
 
 def k4_checks(gen: torch.Generator, dev: torch.device) -> dict:
-    """K4 ring_all_reduce_sum: bitwise equal to its plain version, flags
-    back at zero after every launch, at the sharded round's payload (8
-    shards x income's 11,352 params + the weight total) and at edge shapes
-    (2, 3 and 16 shards; lengths that are not a multiple of the kernel's
-    float4 width); a protocol fault raises within its timeout."""
+    """K4 ring_all_reduce_sum: bitwise equal to its plain version at the
+    sharded round's payload (8 shards x income's 11,352 params + the weight
+    total) and at edge shapes (2, 3 and 16 shards; lengths that are not a
+    multiple of 4). Each call makes one allocation (its output: no padded
+    copy) and no host synchronisation."""
     from fedtpu_torch.models.mlp import param_count
     from fedtpu_torch.ops import cuda_kernels as ck
     payload = param_count(INCOME_DIMS) + 1
     for s, p in ((SHARDS, payload), (2, payload), (3, 1001), (16, payload),
                  (SHARDS, 7), (SHARDS, 4096)):
         x = torch.randn(s, p, generator=gen).to(dev)
-        out = ck.ring_all_reduce_sum(x)
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = ck.ring_all_reduce_sum(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
         ref = ck.ring_all_reduce_sum_reference(x)
         torch.cuda.synchronize()
         check(out.shape == ref.shape and torch.equal(out, ref),
               f"K4 at ({s}, {p}): not bitwise equal to the plain version "
               f"(max abs diff {float((out - ref).abs().max())})")
-        check(ck.ring_flags_clear(dev), f"K4 at ({s}, {p}): flags not zero "
-              "after the launch")
-        print(f"K4 ring_all_reduce_sum ({s}, {p}): bitwise equal, flags "
-              "zero", flush=True)
-    # A broken protocol (one block skips its receive signal) must raise
-    # within its spin-wait budget, and the next launch must be clean.
-    x = torch.randn(SHARDS, payload, generator=gen).to(dev)
-    t0 = time.perf_counter()
-    try:
-        ck.ring_all_reduce_sum(x, timeout_cycles=20_000_000, _fault=2)
-        raised = None
-    except RuntimeError as e:
-        raised = str(e)
-    check(raised is not None and "timed out" in raised,
-          f"K4 with a dropped signal did not raise: {raised}")
-    print(f"K4 fault check: raised in {time.perf_counter() - t0:.3f} s: "
-          f"{raised}", flush=True)
-    check(ck.ring_flags_clear(dev), "K4 flags not zero after a fault")
-    check(torch.equal(ck.ring_all_reduce_sum(x),
-                      ck.ring_all_reduce_sum_reference(x)),
-          "K4 wrong after a fault")
+        check(allocs == 1, f"K4 at ({s}, {p}): {allocs} allocations, not 1")
+        print(f"K4 ring_all_reduce_sum ({s}, {p}): bitwise equal, one "
+              "allocation, no host sync", flush=True)
     with_many = torch.zeros(ck.RING_MAX_SHARDS + 1, 8, device=dev)
     try:
         ck.ring_all_reduce_sum(with_many)
         check(False, "K4 took more shards than its pointer table holds")
     except ValueError:
         pass
+    x = torch.randn(SHARDS, payload, generator=gen).to(dev)
     nbytes = 2 * x.numel() * 4
     b, by = bound_ms(nbytes, float((SHARDS - 1) * x.numel()))
-    out = {"max_abs_err": 0.0,
-           "ms": time_ms(lambda: ck.ring_all_reduce_sum(x, check=False)),
-           "plain_ms": time_ms(
-               lambda: ck.ring_all_reduce_sum_reference(x)),
-           "library_ms": time_ms(lambda: x.sum(dim=0)),
-           "bound_ms": b, "bound_by": by}
-    ck.ring_check(dev)
-    check(ck.ring_flags_clear(dev), "K4 flags not zero after timing")
-    return out
+    return {"max_abs_err": 0.0,
+            "ms": time_ms(lambda: ck.ring_all_reduce_sum(x)),
+            "plain_ms": time_ms(lambda: ck.ring_all_reduce_sum_reference(x)),
+            "library_ms": time_ms(lambda: x.sum(dim=0)),
+            "bound_ms": b, "bound_by": by}
+
+
+def noniid_batch() -> dict:
+    """income-32-noniid's packed batch (CPU tensors) at 10,000 rows."""
+    from fedtpu_torch.orchestration.loop import build_experiment
+    return build_experiment(sharded_config("ring", 1.0, 1),
+                            device="cpu").batch
 
 
 def main_path_config():
@@ -522,7 +564,8 @@ def main() -> None:
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            **({"by_shape": t["by_shape"]} if "by_shape" in t else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

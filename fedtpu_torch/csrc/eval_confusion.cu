@@ -5,53 +5,128 @@
 // MLP forward on its own shard, first-max argmax, masked one-hot confusion
 // (C, K, K).
 //
-// Bound on the card: fp32 CUDA-core work, 2 * C * N * sum(in*out) flops
-// (income-8: 2 * 8 * 1000 * 11,100 ~ 178 MFLOP, ~2.7 us at 67 TFLOP/s); the
-// bytes are small (x is 448 KB). At these sizes a launch costs more than
-// either, so the design aims at one launch with no intermediate in device
-// memory.
+// Bound on the card: fp32 CUDA-core work on the real (unmasked) rows,
+// 2 * rows * sum(in*out) flops (8,000 rows of income at 14->50->200->2:
+// ~180 MFLOP, ~2.7 us at 67 TFLOP/s); the bytes are small (x is 448 KB at
+// income-8). Padded rows are no work: the clients' shards are padded to the
+// longest one, and at income-32-noniid 77 % of the batch's rows are padding.
 //
-// Design: grid (row tiles, clients), so the C = 8 clients spread over many
-// SMs. Each block copies its client's whole flat parameter block (45 KB at
-// 14->50->200->2; 88 KB at (50, 400)) and its row tile into dynamic shared
-// memory, runs the shared forward (mlp_forward.cuh) with fp32 accumulation,
-// takes the first maximum of each row (strict '>', NaN counts as the
-// maximum, as torch.argmax), and counts (label, prediction) pairs of
-// unmasked rows in shared memory. One global atomicAdd per non-zero cell per
-// block folds the tile into conf. Masks are 0/1 and counts stay below 2^24,
-// so the float sums are exact whatever order the atomics land in. No
-// limit on N: rows are tiled, unlike the Pallas kernel's one-pass VMEM
-// budget. The host wrapper (fedtpu_torch/ops/cuda_kernels.py) zeroes conf
-// and picks rows_per_block so the tile fits in shared memory.
+// Why fp32 on the CUDA cores and not the tensor cores: TF32 keeps 10
+// mantissa bits. The card's counts may differ from the plain version's only
+// on near-tie rows (top-two logit gap below 1e-5 relative), and the run's
+// early-stop round must equal the CPU's; TF32, or a split-TF32 scheme, would
+// move argmaxes far from any tie and break both.
+//
+// Design: grid (row tiles, clients), one row tile per block.
+// - The block first reads its tile's mask (one row per thread) and exits if
+//   it is all zero: padding adds nothing to the counts. The mask is read,
+//   not assumed to be padded at the tail.
+// - A live block stages its client's parameters (45 KB at 14->50->200->2)
+//   global -> shared with one bulk asynchronous copy (cp.async.bulk,
+//   completion on an mbarrier; plain loads for a head and tail that are not
+//   16-byte aligned), while its x tile comes in with cp.async.
+// - The forward is register-tiled (ft_mlp_tile_forward_regs in
+//   mlp_forward.cuh) with the FMA order of K3's forward, so its logits, and
+//   the counts, are bit for bit those built from K3's logits.
+// - First maximum of each row (strict '>', NaN counts as the maximum, as
+//   torch.argmax); (label, prediction) pairs of unmasked rows are counted in
+//   shared memory, then one global atomicAdd per non-zero cell. Masks are
+//   0/1 and counts stay below 2^24, so the float sums are exact whatever
+//   order the atomics land in.
+//
+// Shared memory (floats): a 4-float header (the mbarrier), the parameters
+// with 3 floats of alignment slack rounded up to 4, one x tile of rows x
+// dims[0], two activation tiles of rows x the widest layer output at an odd
+// stride, and K x K counts. The wrapper's _eval_plan
+// (fedtpu_torch/ops/cuda_kernels.py) picks the tile and the byte count;
+// ft_eval_confusion refuses a byte count that does not hold this layout.
+#include <algorithm>
+#include <cstdint>
+
 #include "mlp_forward.cuh"
 
-__global__ void ft_eval_confusion_kernel(const float* __restrict__ params,
-                                         int num_params, MlpDims md,
-                                         const float* __restrict__ x,
-                                         const int* __restrict__ y,
-                                         const float* __restrict__ mask, int n,
-                                         int rows_per_block, int widest,
-                                         float* __restrict__ conf) {
-  extern __shared__ float smem[];
+__host__ __device__ inline int ft_round4(int v) { return (v + 3) & ~3; }
+
+__device__ __forceinline__ uint32_t ft_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__global__ void __launch_bounds__(FT_THREADS, 2)
+ft_eval_confusion_kernel(const float* __restrict__ params, int num_params,
+                         MlpDims md, const float* __restrict__ x,
+                         const int* __restrict__ y,
+                         const float* __restrict__ mask, int n, int rows_per,
+                         int ldmax, float* __restrict__ conf) {
+  extern __shared__ __align__(16) float smem[];
   const int k = md.dims[md.n_layers];
   const int din = md.dims[0];
   const int c = blockIdx.y;
-  const int row0 = blockIdx.x * rows_per_block;
-  const int rows = min(rows_per_block, n - row0);
-  float* p = smem;
-  float* buf0 = p + num_params;
-  float* buf1 = buf0 + rows_per_block * widest;
-  float* counts = buf1 + rows_per_block * widest;
+  const long long row0 = (long long)blockIdx.x * rows_per;
+  const int rows = (int)min((long long)rows_per, n - row0);
+  const size_t g0 = (size_t)c * n + row0;   // the tile's first row in (C, n)
+  if (!__syncthreads_or(threadIdx.x < rows && mask[g0 + threadIdx.x] != 0.f))
+    return;
 
-  ft_copy_to_shared(p, params + (size_t)c * num_params, num_params);
-  ft_copy_to_shared(buf0, x + ((size_t)c * n + row0) * din, rows * din);
+  // Parameters: [0, head) and [head + bulk, num_params) by plain loads, the
+  // 16-byte aligned middle by one bulk copy. p is placed so that p + head is
+  // 16-byte aligned in shared memory, as the source is in global memory.
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const float* src = params + (size_t)c * num_params;
+  const int head =
+      min(num_params, (int)((16 - ((uintptr_t)src & 15)) & 15) / 4);
+  const int bulk = (num_params - head) & ~3;
+  float* p = smem + 4 + ((4 - head) & 3);
+  float* xt = smem + 4 + ft_round4(num_params + 3);
+  float* act0 = xt + rows_per * din;
+  float* act1 = act0 + rows_per * ldmax;
+  float* counts = act1 + rows_per * ldmax;
+  if (threadIdx.x == 0 && bulk > 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     ft_smem_addr(bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                     "r"(ft_smem_addr(bar)),
+                 "r"(bulk * 4)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(ft_smem_addr(p + head)),
+        "l"(src + head), "r"(bulk * 4), "r"(ft_smem_addr(bar))
+        : "memory");
+  }
+  // The x tile, 4 bytes per cp.async (its rows have any alignment).
+  const float* xg = x + g0 * din;
+  for (int i = threadIdx.x; i < rows * din; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     ft_smem_addr(xt + i)),
+                 "l"(xg + i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = threadIdx.x; i < head; i += blockDim.x) p[i] = src[i];
+  for (int i = head + bulk + threadIdx.x; i < num_params; i += blockDim.x)
+    p[i] = src[i];
   for (int i = threadIdx.x; i < k * k; i += blockDim.x) counts[i] = 0.f;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  // Every thread's x, head, tail and counts are in place, and the mbarrier
+  // is initialised before any thread waits on it.
   __syncthreads();
+  if (bulk > 0) {
+    uint32_t done = 0;
+    while (!done)
+      asm volatile(
+          "{\n .reg .pred r;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 r, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, r;\n}\n"
+          : "=r"(done)
+          : "r"(ft_smem_addr(bar))
+          : "memory");
+  }
 
-  const float* logits = ft_mlp_tile_forward(p, md, rows, buf0, buf1);
-
+  const float* logits = ft_mlp_tile_forward_regs(p, md, rows, xt, act0, act1);
+  const int ldk = ft_act_stride(k);
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const float* h = logits + r * k;
+    const float* h = logits + r * ldk;
     float best = h[0];
     int pred = 0;
     for (int j = 1; j < k; ++j) {
@@ -61,11 +136,10 @@ __global__ void ft_eval_confusion_kernel(const float* __restrict__ params,
         pred = j;
       }
     }
-    const size_t g = (size_t)c * n + row0 + r;
-    const int label = y[g];
-    const float m = mask[g];
-    if (m != 0.f && label >= 0 && label < k)
-      atomicAdd(&counts[label * k + pred], m);
+    const int label = y[g0 + r];
+    const float mk = mask[g0 + r];
+    if (mk != 0.f && label >= 0 && label < k)
+      atomicAdd(&counts[label * k + pred], mk);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < k * k; i += blockDim.x)
@@ -74,23 +148,35 @@ __global__ void ft_eval_confusion_kernel(const float* __restrict__ params,
 
 // params (C, num_params), x (C, n, dims[0]), y (C, n) int32, mask (C, n),
 // conf (C, K, K) zeroed by the caller; dims is a host array of n_layers + 1.
-// Returns the cudaError_t of the launch.
+// rows_per_block and smem_bytes are the wrapper's plan (_eval_plan); a byte
+// count that does not hold the layout above is refused. Grid: (row tiles,
+// clients), one tile per block. Returns the cudaError_t of the launch.
 extern "C" int ft_eval_confusion(const float* params, int num_params,
                                  const int* dims, int n_layers, const float* x,
                                  const int* y, const float* mask, int clients,
-                                 int n, int rows_per_block, float* conf,
-                                 void* stream) {
+                                 int n, int rows_per_block, int smem_bytes,
+                                 float* conf, void* stream) {
+  if (rows_per_block < 1 || rows_per_block > FT_THREADS)
+    return (int)cudaErrorInvalidValue;
   int widest;
   const MlpDims md = ft_make_dims(dims, n_layers, &widest);
+  int ldmax = 0;
+  for (int l = 1; l <= n_layers; ++l)
+    ldmax = std::max(ldmax, ft_act_stride(dims[l]));
   const int k = dims[n_layers];
-  const size_t smem = ft_tile_smem_bytes(num_params, rows_per_block, widest,
-                                         k * k);
+  const size_t need =
+      sizeof(float) * (4 + (size_t)ft_round4(num_params + 3) +
+                       (size_t)rows_per_block * (dims[0] + 2 * ldmax) +
+                       (size_t)k * k);
+  if (smem_bytes < 0 || need > (size_t)smem_bytes)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       ft_eval_confusion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + rows_per_block - 1) / rows_per_block, clients);
-  ft_eval_confusion_kernel<<<grid, FT_THREADS, smem, (cudaStream_t)stream>>>(
-      params, num_params, md, x, y, mask, n, rows_per_block, widest, conf);
+  ft_eval_confusion_kernel<<<grid, FT_THREADS, smem_bytes,
+                             (cudaStream_t)stream>>>(
+      params, num_params, md, x, y, mask, n, rows_per_block, ldmax, conf);
   return (int)cudaGetLastError();
 }

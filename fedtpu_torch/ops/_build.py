@@ -32,11 +32,10 @@ _L = ctypes.c_longlong
 # C entry point -> argtypes; every one returns a cudaError_t.
 SIGNATURES = {
     "ft_weighted_average": (_P, _P, _I, _I, _P, _P),
-    "ft_eval_confusion": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P),
+    "ft_eval_confusion": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                          _P),
     "ft_mlp_forward": (_P, _I, _P, _I, _P, _I, _I, _P, _P),
-    "ft_ring_all_reduce": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _L,
-                           _I, _P),
-    "ft_ring_max_blocks": (_P,),
+    "ft_ring_all_reduce": (_P, _P, _I, _L, _P),
 }
 
 

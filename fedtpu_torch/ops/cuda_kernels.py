@@ -36,14 +36,6 @@ MAX_LAYERS = 16           # FT_MAX_LAYERS in csrc/mlp_forward.cuh
 MAX_CLASSES = 8
 _ROW_TILES = (32, 16, 8, 4, 2, 1)
 RING_MAX_SHARDS = 64      # FT_RING_MAX_SHARDS in csrc/ring_all_reduce.cu
-RING_THREADS = 256        # FT_RING_THREADS
-RING_VEC = 4              # floats per float4 access of the ring kernel
-RING_FLAGS_PER_BLOCK = 5  # FT_FLAGS
-# The budget of one spin-wait: about 1 s of SM clock at the H100's
-# 1.98 GHz boost clock.
-RING_TIMEOUT_CYCLES = 2_000_000_000
-RING_WAITS = {1: "start barrier", 2: "capacity credit", 3: "receive flag",
-              4: "residual-credit drain"}
 
 
 def reset_launch_counts() -> None:
@@ -83,15 +75,32 @@ def _check_dims(flat: torch.Tensor, dims: Sequence[int]) -> tuple:
     return dims
 
 
-def _rows_per_block(num_params: int, dims: tuple, extra: int) -> int:
-    """Largest row tile whose parameters + two activation buffers fit in a
-    block's shared memory (ft_tile_smem_bytes in mlp_forward.cuh)."""
+def _rows_per_block(num_params: int, dims: tuple) -> int:
+    """K3's row tile: the largest whose parameters + two activation buffers
+    fit in a block's shared memory (ft_tile_smem_bytes in mlp_forward.cuh)."""
     for rows in _ROW_TILES:
-        if 4 * (num_params + 2 * rows * max(dims) + extra) <= SMEM_BYTES_MAX:
+        if 4 * (num_params + 2 * rows * max(dims)) <= SMEM_BYTES_MAX:
             return rows
     raise ValueError(
         f"one model's {num_params} parameters do not fit in a block's "
         f"{SMEM_BYTES_MAX} bytes of shared memory")
+
+
+def _eval_plan(num_params: int, dims: tuple) -> tuple:
+    """K2's row tile and shared memory: ``(rows, bytes)`` for the largest
+    row tile whose block fits. The layout is the one eval_confusion.cu
+    carves, which refuses a byte count that does not hold it: a 4-float
+    header, the parameters with alignment slack, one x tile, two activation
+    tiles at an odd stride, and the K x K counts."""
+    params = (num_params + 3 + 3) // 4 * 4
+    ld = max(d | 1 for d in dims[1:])
+    for rows in _ROW_TILES:
+        floats = 4 + params + rows * (dims[0] + 2 * ld) + dims[-1] ** 2
+        if 4 * floats <= SMEM_BYTES_MAX:
+            return rows, 4 * floats
+    raise ValueError(
+        f"one model's {num_params} parameters and a one-row tile do not fit "
+        f"in a block's {SMEM_BYTES_MAX} bytes of shared memory")
 
 
 def _launch(entry: str, device: torch.device, *args) -> None:
@@ -180,12 +189,12 @@ def fused_eval_confusion(flat: torch.Tensor, dims: Sequence[int],
                        device=dev)
     if c == 0 or n == 0:
         return conf
-    k = num_classes
-    rows = _rows_per_block(param_count(dims), dims, k * k)
+    rows, nbytes = _eval_plan(param_count(dims), dims)
     dims_arg = _dims_arg(dims)
     _launch("ft_eval_confusion", dev, flat.data_ptr(), param_count(dims),
             ctypes.addressof(dims_arg), len(dims) - 1, x.data_ptr(),
-            y.data_ptr(), mask.data_ptr(), c, n, rows, conf.data_ptr())
+            y.data_ptr(), mask.data_ptr(), c, n, rows, nbytes,
+            conf.data_ptr())
     LAUNCHES["fused_eval_confusion"] += 1
     return conf
 
@@ -211,7 +220,7 @@ def fused_mlp_forward(flat: torch.Tensor, dims: Sequence[int],
     out = torch.empty((n, dims[-1]), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    rows = _rows_per_block(param_count(dims), dims, 0)
+    rows = _rows_per_block(param_count(dims), dims)
     dims_arg = _dims_arg(dims)
     _launch("ft_mlp_forward", dev, flat.data_ptr(), param_count(dims),
             ctypes.addressof(dims_arg), len(dims) - 1, x.data_ptr(), n, rows,
@@ -221,29 +230,6 @@ def fused_mlp_forward(flat: torch.Tensor, dims: Sequence[int],
 
 
 # ------------------------------------------------ K4: ring all-reduce (sum)
-# Per device: the error word, and per (shards, blocks, slice) the
-# communication slots and flags, kept across launches. The kernel leaves
-# every flag at zero, so a launch needs no memset; only a failed launch
-# leaves them dirty, and ring_check zeroes them before it raises. One
-# all-reduce at a time per device: launches go to the current stream.
-_RING_ERR: dict = {}
-_RING_SCRATCH: dict = {}
-_RING_MAX_BLOCKS: dict = {}
-
-
-def _residual_credits(axis_size: int) -> list:
-    """Capacity credits left un-consumed per slot parity at the end of the
-    ring (ring_pallas.py:52-62): each is drained so the flags end at zero."""
-    n = axis_size
-    received = [0, 0]
-    consumed = [0, 0]
-    for s in range(n - 1):
-        received[s % 2] += 1              # right neighbour frees slot s%2
-        if s >= 2:
-            consumed[(s + 1) % 2] += 1    # we waited before writing it
-    return [received[p] - consumed[p] for p in (0, 1)]
-
-
 def ring_all_reduce_sum_reference(stack: torch.Tensor) -> torch.Tensor:
     """Plain version of K4: rotate-and-accumulate over the shards axis,
     ``acc_d = x_d + x_{d-1} + ... + x_{d-S+1}`` in that order."""
@@ -254,80 +240,14 @@ def ring_all_reduce_sum_reference(stack: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _ring_max_blocks(dev: torch.device) -> int:
-    if dev not in _RING_MAX_BLOCKS:
-        from fedtpu_torch.ops._build import load_library
-        out = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            err = load_library().ft_ring_max_blocks(ctypes.byref(out))
-        _raise_on("ft_ring_max_blocks", err)
-        _RING_MAX_BLOCKS[dev] = out.value
-    return _RING_MAX_BLOCKS[dev]
-
-
-def _ring_scratch(dev: torch.device, shards: int, blocks: int, slice_: int):
-    key = (dev, shards, blocks, slice_)
-    if key not in _RING_SCRATCH:
-        comm = torch.empty(shards * blocks * 2 * slice_ * RING_VEC,
-                           dtype=torch.float32, device=dev)
-        flags = torch.zeros(shards * blocks * RING_FLAGS_PER_BLOCK,
-                            dtype=torch.int32, device=dev)
-        _RING_SCRATCH[key] = (comm, flags)
-    if dev not in _RING_ERR:
-        _RING_ERR[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return _RING_SCRATCH[key][0], _RING_SCRATCH[key][1], _RING_ERR[dev]
-
-
-def _cuda_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-def ring_flags_clear(device) -> bool:
-    """True when every ring flag and the error word on ``device`` read zero
-    (the state every launch must leave). Synchronises."""
-    dev = _cuda_device(device)
-    words = [f for key, (_, f) in _RING_SCRATCH.items() if key[0] == dev]
-    words += [_RING_ERR[dev]] if dev in _RING_ERR else []
-    return all(int(w.abs().sum()) == 0 for w in words)
-
-
-def ring_check(device) -> None:
-    """Raise if a ring launch on ``device`` timed out in a spin-wait (reads
-    the error word: synchronises with the device). The flags are zeroed
-    first, so the next launch starts clean."""
-    dev = _cuda_device(device)
-    if dev not in _RING_ERR:
-        return
-    code = int(_RING_ERR[dev].item())
-    if not code:
-        return
-    for key, (_, flags) in _RING_SCRATCH.items():
-        if key[0] == dev:
-            flags.zero_()
-    _RING_ERR[dev].zero_()
-    raise RuntimeError(
-        f"ring_all_reduce_sum: block {(code & 0xFFFFFF) - 1} timed out "
-        f"waiting on its {RING_WAITS.get(code >> 24, code >> 24)}: the "
-        "ring's synchronisation failed")
-
-
-def ring_all_reduce_sum(stack: torch.Tensor, *, check: bool = True,
-                        timeout_cycles: int = RING_TIMEOUT_CYCLES,
-                        _fault: int = 0) -> torch.Tensor:
+def ring_all_reduce_sum(stack: torch.Tensor) -> torch.Tensor:
     """Ring all-reduce of ``stack (S, P)`` float32, one row per shard of the
     clients mesh: row d of the result is ``x_d + x_{d-1} + ... +
     x_{d-S+1}``, summed in that order (each shard in its own order, as the
     TPU kernel does).
 
-    On the card: one cooperative launch of S x B blocks, which raises when
-    the grid cannot be co-resident. ``check`` reads the kernel's error word
-    after the launch (one sync) and raises if a spin-wait ran out of its
-    ``timeout_cycles`` budget; with ``check=False`` the caller calls
-    ``ring_check`` itself. ``_fault=k`` makes one block skip its signal at
-    hop k-1, to prove that a broken protocol raises instead of hanging."""
+    On the card: one ordinary launch over the payload columns, any P, with
+    no host read after it and no padded copy."""
     dev = _device(stack)
     if stack.dim() != 2:
         raise ValueError(f"stack must be (shards, payload), got shape "
@@ -339,33 +259,13 @@ def ring_all_reduce_sum(stack: torch.Tensor, *, check: bool = True,
     if not 2 <= s <= RING_MAX_SHARDS:
         raise ValueError(f"{s} shards: the ring kernel takes 2.."
                          f"{RING_MAX_SHARDS}")
-    vecs = -(-p // RING_VEC)
-    x = stack
-    if p % RING_VEC or x.data_ptr() % (4 * RING_VEC):
-        # float4 accesses: rows padded to the vector width, 16-byte aligned.
-        x = stack.new_zeros(s, vecs * RING_VEC)
-        x[:, :p] = stack
-    out = torch.empty_like(x)
+    out = torch.empty_like(stack)
     if p == 0:
         return out
-    fit = _ring_max_blocks(dev) // s
-    if fit < 1:
-        raise RuntimeError(
-            f"{s} shards need {s} co-resident blocks; the device holds "
-            f"{_ring_max_blocks(dev)} of the ring kernel")
-    blocks = min(-(-vecs // RING_THREADS), fit)
-    slice_ = -(-vecs // blocks)
-    comm, flags, err = _ring_scratch(dev, s, blocks, slice_)
-    row = x.stride(0) * x.element_size()
-    xs = (ctypes.c_void_p * s)(*(x.data_ptr() + d * row for d in range(s)))
-    accs = (ctypes.c_void_p * s)(*(out.data_ptr() + d * row
-                                   for d in range(s)))
-    residual = _residual_credits(s)
+    row = 4 * p
+    xs = (ctypes.c_void_p * s)(*(stack.data_ptr() + d * row for d in range(s)))
+    accs = (ctypes.c_void_p * s)(*(out.data_ptr() + d * row for d in range(s)))
     _launch("ft_ring_all_reduce", dev, ctypes.addressof(xs),
-            ctypes.addressof(accs), s, blocks, vecs, slice_,
-            comm.data_ptr(), flags.data_ptr(), err.data_ptr(), residual[0],
-            residual[1], int(timeout_cycles), int(_fault))
+            ctypes.addressof(accs), s, p)
     LAUNCHES["ring_all_reduce_sum"] += 1
-    if check:
-        ring_check(dev)
-    return out if p % RING_VEC == 0 else out[:, :p]
+    return out

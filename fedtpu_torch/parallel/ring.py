@@ -10,7 +10,8 @@ the results equal ``fedtpu``'s bit for bit:
 - ``ring_all_reduce_sum``: rotate-and-accumulate, S-1 hops of the whole
   payload. Shard d adds ``x_d + x_{d-1} + ...``, in its own order, so the
   rows differ from each other in the last bits. On a CUDA stack it is K4
-  (``fedtpu_torch.ops.cuda_kernels.ring_all_reduce_sum``), one launch.
+  (``fedtpu_torch.ops.cuda_kernels.ring_all_reduce_sum``): one launch, no
+  host read and no padded copy.
 - ``ring_all_reduce_sum_rsag``: reduce-scatter then all-gather, 2(S-1) hops
   of 1/S of the payload each. Each chunk is summed once, on its owner, and
   gathered verbatim, so every row is identical. ``fedtpu`` has no Pallas

@@ -1,8 +1,9 @@
 """The plain versions of fedtpu_torch's CUDA kernels against fedtpu's Pallas
 kernels (interpret mode, as tests/test_pallas.py runs them). On the CPU each
-wrapper takes its plain version. The kernels themselves are held against
-these plain versions on the card by chip_smoke.py: this suite needs JAX,
-which the card's machine does not have."""
+wrapper takes its plain version. The tests marked ``cuda`` hold K2 itself on
+the card and skip without one; chip_smoke.py holds every kernel against its
+plain version at the main paths' shapes (this suite needs JAX, which the
+card's machine does not have)."""
 
 import pytest
 
@@ -18,7 +19,9 @@ from fedtpu.ops.pallas_kernels import (fused_eval_confusion as pl_eval,  # noqa:
                                        weighted_average_clients as pl_wavg)
 
 from fedtpu_torch import convert  # noqa: E402
+from fedtpu_torch.models.mlp import mlp_init  # noqa: E402
 from fedtpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from fedtpu_torch.ops.metrics import confusion_matrix  # noqa: E402
 
 INCOME_DIMS = (14, 50, 200, 2)
 
@@ -68,6 +71,102 @@ def test_fused_eval_confusion_plain_matches_pallas(dims, n, k):
                                   torch.from_numpy(x), torch.from_numpy(y),
                                   torch.from_numpy(mask), k)
     np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("dims,k,sizes", [
+    ((6, 16, 2), 2, [0, 3, 40, 17, 0, 9]),
+    (INCOME_DIMS, 2, [1, 0, 197, 33, 64]),
+    ((6, 5), 5, [0, 70, 0, 5, 12, 1, 33, 0]),
+    (INCOME_DIMS, 2, [120, 0, 0, 7]),
+])
+def test_fused_eval_confusion_plain_matches_pallas_on_tail_padded_shards(
+        dims, k, sizes):
+    """Non-IID shards padded at the tail to the longest, as pack_clients
+    lays them out: empty clients, ragged tails, and most 32-row tiles of
+    the batch all padding (the tiles K2 skips on the card)."""
+    c, n = len(sizes), max(sizes)
+    rng = np.random.default_rng(sum(sizes))
+    params = _jax_params(c, dims, clients=c)
+    x = rng.normal(size=(c, n, dims[0])).astype(np.float32)
+    y = rng.integers(0, k, size=(c, n)).astype(np.int32)
+    mask = (np.arange(n)[None, :] < np.array(sizes)[:, None]).astype(
+        np.float32)
+    tiles = -(-n // 32)
+    live = sum(-(-s // 32) for s in sizes)
+    assert live < c * tiles / 2
+    ref = np.asarray(pl_eval(jax.tree.map(jnp.asarray, params),
+                             jnp.asarray(x), jnp.asarray(y),
+                             jnp.asarray(mask), k, interpret=True))
+    out = ck.fused_eval_confusion(convert.params_from_jax(params), dims,
+                                  torch.from_numpy(x), torch.from_numpy(y),
+                                  torch.from_numpy(mask), k)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(out.numpy().sum(axis=(1, 2)), sizes)
+
+
+@pytest.mark.parametrize("dims,rows", [(INCOME_DIMS, 32),
+                                       ((14, 50, 400, 2), 32),
+                                       ((14, 220, 200, 2), 16),
+                                       ((14, 60000, 2), None)])
+def test_eval_plan_picks_the_largest_fitting_tile_or_raises(dims, rows):
+    """K2's host-side plan: the largest row tile whose parameters, x and
+    activation tiles and counts fit in a block's shared memory; a model
+    whose parameters alone do not fit raises."""
+    num_params = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    if rows is None:
+        with pytest.raises(ValueError, match="do not fit"):
+            ck._eval_plan(num_params, dims)
+        return
+    got, nbytes = ck._eval_plan(num_params, dims)
+    assert got == rows and nbytes <= ck.SMEM_BYTES_MAX
+    if rows < ck._ROW_TILES[0]:
+        ld = max(d | 1 for d in dims[1:])
+        bigger = 2 * rows
+        assert nbytes + 4 * (bigger - rows) * (dims[0] + 2 * ld) \
+            > ck.SMEM_BYTES_MAX
+    if dims == INCOME_DIMS:
+        # 4 + 11,356 + 32*14 + 2*32*201 + 2*2 floats.
+        assert nbytes == 98_704
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,holes", [([1000] * 8, False),
+                                         ([0, 3, 1097, 40, 0, 512], False),
+                                         ([1, 33, 64, 65], False),
+                                         ([3000, 2000], True)])
+def test_eval_kernel_equals_counts_from_k3_logits(cuda, sizes, holes):
+    """K2 on tail-padded shards equals, exactly, the counts built from K3's
+    logits of each client (the same FMA order), launch after launch. With
+    ``holes`` every third 32-row tile is all padding inside the shards: the
+    kernel reads the mask, it does not assume padding at the tail."""
+    c, n = len(sizes), max(sizes)
+    gen = torch.Generator().manual_seed(n)
+    params = torch.stack([mlp_init(gen, 14, (50, 200), 2)
+                          for _ in range(c)]).to(cuda)
+    x = torch.randn(c, n, 14, generator=gen).to(cuda)
+    y = torch.randint(0, 2, (c, n), generator=gen, dtype=torch.int32).to(cuda)
+    mask = (torch.arange(n)[None, :] < torch.tensor(sizes)[:, None]).to(
+        torch.float32)
+    if holes:
+        mask[:, (torch.arange(n) // 32) % 3 == 1] = 0.0
+    mask = mask.to(cuda)
+    logits = torch.stack([ck.fused_mlp_forward(params[i], INCOME_DIMS, x[i])
+                          for i in range(c)])
+    want = confusion_matrix(y, torch.argmax(logits, dim=-1), mask, 2)
+    before = ck.LAUNCHES["fused_eval_confusion"]
+    for _ in range(5):
+        got = ck.fused_eval_confusion(params, INCOME_DIMS, x, y, mask, 2)
+        assert torch.equal(got, want)
+    assert ck.LAUNCHES["fused_eval_confusion"] == before + 5
+    np.testing.assert_array_equal(got.sum(dim=(1, 2)).cpu().numpy(),
+                                  mask.sum(dim=1).cpu().numpy())
 
 
 def test_fused_eval_confusion_rejects_wide_class_counts():

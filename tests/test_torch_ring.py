@@ -5,7 +5,8 @@ Every add happens in fedtpu's order, so the tolerance is none: the plain
 ring equals both fedtpu's XLA ring (ppermute) and its Pallas ring (interpret
 mode, as tests/test_ring.py runs it) bit for bit, and ring-rsag equals
 fedtpu's rsag bit for bit, identical on every shard. K4 itself is held
-against this plain version on the card by chip_smoke.py."""
+against this plain version on the card by the test marked ``cuda`` (skips
+without a card) and by chip_smoke.py."""
 
 import pytest
 
@@ -20,7 +21,7 @@ from fedtpu.parallel.mesh import trim_to_divisor as j_trim  # noqa: E402
 from fedtpu.parallel.ring import (ring_all_reduce_sum as j_ring,  # noqa: E402
                                   ring_all_reduce_sum_rsag as j_rsag)
 from fedtpu.parallel.ring_pallas import (  # noqa: E402
-    _residual_credits as j_residual, pallas_ring_all_reduce_sum as j_pallas)
+    pallas_ring_all_reduce_sum as j_pallas)
 
 from fedtpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from fedtpu_torch.parallel.mesh import (CLIENTS_AXIS, make_mesh,  # noqa: E402
@@ -34,10 +35,12 @@ SHAPES = [(4,), (8, 128), (3, 7, 5), (11353,)]
 
 
 def _fedtpu_reduce(fn, x, pallas=False):
-    """``fn`` run per shard of the 8-device mesh over the rows of ``x``."""
-    mesh = jax.make_mesh((8,), (CLIENTS_AXIS,))
+    """``fn`` run per shard over the rows of ``x``, one row to each of the
+    first ``len(x)`` devices of the 8-device CPU mesh."""
+    n = x.shape[0]
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:n]), (CLIENTS_AXIS,))
     kw = dict(check_vma=False) if pallas else {}
-    body = jax.shard_map(lambda xb: fn(xb[0], CLIENTS_AXIS, 8)[None],
+    body = jax.shard_map(lambda xb: fn(xb[0], CLIENTS_AXIS, n)[None],
                          mesh=mesh, in_specs=P(CLIENTS_AXIS),
                          out_specs=P(CLIENTS_AXIS), **kw)
     return np.asarray(jax.jit(body)(jnp.asarray(x)))  # fedtpu: noqa[FTP006] one-shot test launch
@@ -46,6 +49,17 @@ def _fedtpu_reduce(fn, x, pallas=False):
 def _stack(shape, seed=0):
     return np.random.default_rng(seed).normal(size=(8,) + shape) \
         .astype(np.float32)
+
+
+def _ring_fold(x):
+    """The ring's order in numpy float32: acc_d = x_d, then += x_{(d-k) % S}
+    for k = 1..S-1."""
+    s = x.shape[0]
+    want = x.copy()
+    for d in range(s):
+        for k in range(1, s):
+            want[d] += x[(d - k) % s]
+    return want
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -69,9 +83,63 @@ def test_rsag_is_bitwise_fedtpus_and_identical_on_every_shard(shape):
         np.testing.assert_array_equal(out[d], out[0])
 
 
+@pytest.mark.parametrize("p", [7, 1001])
+@pytest.mark.parametrize("s", [2, 3, 5, 16])
+def test_ring_wrapper_folds_each_shard_in_ring_order(s, p):
+    """K4's order at shard counts other than fedtpu's 8 and payloads that
+    are not a multiple of 4: acc_d = x_d, then += x_{(d-k) % S} for k = 1..
+    S-1, in float32. The card's kernel folds in this order too, so it is
+    held bitwise to the same plain version."""
+    x = np.random.default_rng(100 * s + p).normal(size=(s, p)) \
+        .astype(np.float32)
+    out = ck.ring_all_reduce_sum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(out, _ring_fold(x))
+
+
 @pytest.mark.parametrize("n", [2, 3, 4, 5, 8, 16])
 def test_residual_credits_are_fedtpus(n):
-    assert ck._residual_credits(n) == j_residual(n)
+    """fedtpu's Pallas ring drains its ``_residual_credits(n)`` capacity
+    credits at the end of each launch, so that the launch leaves no state
+    behind. The port's K4 is one pass with no credits, flags or scratch, so
+    what is held at each n is the result: bitwise fedtpu's XLA and Pallas
+    rings run on n of the CPU devices (at 16, more than the mesh has, the
+    ring's numpy fold), the same bits from a second call, the input
+    untouched."""
+    assert not hasattr(ck, "_residual_credits")
+    x = np.random.default_rng(n).normal(size=(n, 1001)).astype(np.float32)
+    before = x.copy()
+    out = ck.ring_all_reduce_sum(torch.from_numpy(x)).numpy()
+    if n <= len(jax.devices()):
+        np.testing.assert_array_equal(out, _fedtpu_reduce(j_ring, x))
+        np.testing.assert_array_equal(out, _fedtpu_reduce(j_pallas, x,
+                                                          pallas=True))
+    else:
+        np.testing.assert_array_equal(out, _ring_fold(x))
+    np.testing.assert_array_equal(
+        ck.ring_all_reduce_sum(torch.from_numpy(x)).numpy(), out)
+    np.testing.assert_array_equal(x, before)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: K4 runs only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,p", [(8, 11353), (2, 11353), (3, 1001),
+                                 (16, 11353), (8, 7), (8, 4096)])
+def test_ring_kernel_is_bitwise_its_plain_version(cuda, s, p):
+    """K4 on the card: one launch, bitwise its plain version, at the sharded
+    round's payload (income's 11,352 parameters plus the weight total) and
+    at edge shapes."""
+    x = torch.randn(s, p, generator=torch.Generator().manual_seed(s * p)) \
+        .to(cuda)
+    before = ck.LAUNCHES["ring_all_reduce_sum"]
+    out = ck.ring_all_reduce_sum(x)
+    assert ck.LAUNCHES["ring_all_reduce_sum"] == before + 1
+    assert torch.equal(out, ck.ring_all_reduce_sum_reference(x))
 
 
 @pytest.mark.parametrize("n,clients", [(8, 32), (8, 12), (5, 16), (3, 0),
