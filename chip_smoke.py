@@ -25,6 +25,13 @@ Phases, in order; any failure exits non-zero before the result line:
    path under the same sampling (K1 once per round). Each run's launches
    are counted from zero, each run is held against the same config on the
    CPU, and the ring run is profiled as in phase 6.
+8. fused round (K5): the whole-round kernel against its plain version on the
+   card at income-8's experiment state and at edge shapes, twice on the same
+   inputs (bitwise equal); then the benchmark
+   ``fedtpu_torch.benchmarks.mega_kernel_attempt.run`` on income-8 at 10,000
+   rows (round 1 and 100 rounds against the composed round, launches
+   counted from zero around it, marginal s/round of both loops); K5 timed
+   beside its plain version and bound; a profile of 20 fused rounds.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package.
@@ -48,7 +55,6 @@ INCOME_DIMS = (14, 50, 200, 2)
 SHARDS = 8                # mesh_devices of the sharded round
 TIMING_REPS = 60
 K2_REPEATS = 20
-NEAR_TIE_REL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -115,19 +121,11 @@ def phase_build() -> None:
             print(f"  ptxas: {line.strip()}", flush=True)
 
 
-def near_tie_rows(logits: torch.Tensor) -> torch.Tensor:
-    """Rows whose top-two logit gap is below NEAR_TIE_REL * max|logit|: an
-    fp32 sum taken in another order may flip their argmax."""
-    top2 = torch.topk(logits, 2, dim=-1).values
-    scale = logits.abs().amax(dim=-1).clamp_min(1e-30)
-    return (top2[..., 0] - top2[..., 1]) < NEAR_TIE_REL * scale
-
-
 def phase_kernels(gen: torch.Generator) -> dict:
     from fedtpu_torch.models.mlp import (mlp_apply, mlp_init, param_count,
                                          unflatten)
     from fedtpu_torch.ops import cuda_kernels as ck
-    from fedtpu_torch.ops.metrics import confusion_matrix
+    from fedtpu_torch.ops.metrics import confusion_matrix, near_tie_rows
     dev = torch.device("cuda")
     results = {}
 
@@ -398,6 +396,7 @@ def replay_near_ties(cfg, rounds: set) -> dict:
     from its public pieces: the round step, and the train step alone (with
     the round's participation mask) for the pre-average models."""
     from fedtpu_torch.models.mlp import mlp_apply, unflatten
+    from fedtpu_torch.ops.metrics import near_tie_rows
     from fedtpu_torch.ops.optim import build_optimizer
     from fedtpu_torch.orchestration.loop import build_experiment
     from fedtpu_torch.parallel.round import participation_mask
@@ -445,22 +444,36 @@ def phase_card_vs_cpu(cfg, gpu, label: str = "card vs CPU") -> None:
           f"{sorted(r + 1 for r in moved)}", flush=True)
 
 
-def phase_profile(cfg, rounds: int = 20, label: str = "profile") -> None:
-    """Where a steady-state round's time goes: the round step plus its
-    metrics fetch, timed on the host clock, against the device time of each
-    kernel in it (torch.profiler) — the device's idle share."""
+def composed_round(exp):
+    """One composed round of ``exp`` as ``step(state) -> (state, loss,
+    conf)``."""
+    step = exp.make_step(1)
+
+    def go(state):
+        state, raw = step(state, exp.batch)
+        return state, raw["loss"], raw["conf"]
+
+    return go
+
+
+def phase_profile(cfg, rounds: int = 20, label: str = "profile",
+                  make_round=composed_round) -> dict:
+    """Where a steady-state round's time goes: the round step (``make_round
+    (exp)``) plus its metrics fetch, timed on the host clock, against the
+    device time of each kernel in it (torch.profiler) — the device's idle
+    share. Returns the per-round host and device milliseconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from fedtpu_torch.orchestration.loop import build_experiment
     exp = build_experiment(cfg, device="cuda")
-    step = exp.make_step(1)
+    step = make_round(exp)
     state = exp.state
 
     def run(n):
         nonlocal state
         for _ in range(n):
-            state, raw = step(state, exp.batch)
-            raw["loss"].cpu(), raw["conf"].cpu()
+            state, loss, conf = step(state)
+            loss.cpu(), conf.cpu()
         torch.cuda.synchronize()
 
     run(3)
@@ -473,13 +486,15 @@ def phase_profile(cfg, rounds: int = 20, label: str = "profile") -> None:
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / rounds / 1e3
+    ops = sum(e.count for e in dev) / rounds
     print(f"{label}: round step + fetch {wall_ms:.4f} ms/round on the host "
-          f"clock; device busy {busy_ms:.4f} ms/round in "
-          f"{sum(e.count for e in dev) / rounds:.1f} device ops; idle share "
-          f"{1 - busy_ms / wall_ms:.3f}", flush=True)
+          f"clock; device busy {busy_ms:.4f} ms/round in {ops:.1f} device "
+          f"ops; idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / rounds / 1e3:.4f} ms/round "
               f"x{e.count / rounds:.0f}  {e.key[:90]}", flush=True)
+    return {"host_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_ops": ops, "idle_share": 1 - busy_ms / wall_ms}
 
 
 def sharded_config(aggregation: str, rate: float, rounds: int):
@@ -523,6 +538,156 @@ def phase_sharded() -> dict:
         by_path[label] = launches
     return by_path
 
+def k5_case(label: str, args: tuple, dims, optim) -> float:
+    """K5 against its plain version on the card at one shape, and twice on
+    the same inputs (bitwise equal). Loss within 1e-5; params within 1e-4
+    on all but 0.1 % of entries and within 2 * lr everywhere (Adam's first
+    step sends a gradient that is rounding noise to +-lr); every entry of mu
+    and nu within 1e-5 of its tensor's largest magnitude (the fused-round
+    benchmark's ``state_faults``); counts equal; confusion counts equal but
+    on near-tie rows of the plain trained models. Returns the largest abs
+    error of the float outputs."""
+    from fedtpu_torch.benchmarks import mega_kernel_attempt as mega
+    from fedtpu_torch.models.mlp import mlp_apply, unflatten
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.ops.metrics import near_tie_rows
+    from fedtpu_torch.ops.optim import build_optimizer
+    from fedtpu_torch.training.client import make_local_train_step
+    params, mu, nu, count, x, y, mask, _ = args
+    out = ck.fused_round(*args, dims, optim)
+    again = ck.fused_round(*args, dims, optim)
+    ref = ck.fused_round_reference(*args, dims, optim)
+    trained, _, _ = make_local_train_step(dims, build_optimizer(optim))(
+        params, {"mu": mu, "nu": nu, "count": count}, x, y, mask)
+    ties = (near_tie_rows(mlp_apply(unflatten(trained, dims), x))
+            & (mask > 0)).sum(dim=1)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          f"K5 {label}: two launches on the same inputs differ")
+    names = ("params", "mu", "nu")
+    state = mega.state_errors(dict(zip(names, out)), dict(zip(names, ref)))
+    faults = mega.state_faults(state, optim.learning_rate)
+    check(not faults, f"K5 {label}: {faults}")
+    errs = {name: state[name]["max_abs"] for name in names}
+    errs["loss"] = float((out[4] - ref[4]).abs().max())
+    check(errs["loss"] <= mega.LOSS_ATOL, f"K5 {label}: loss max abs err "
+          f"{errs['loss']} > {mega.LOSS_ATOL}")
+    check(torch.equal(out[3], ref[3]), f"K5 {label}: counts differ")
+    moved = (out[5] - ref[5]).abs().sum(dim=(1, 2)) / 2
+    check(bool((moved <= ties).all()),
+          f"K5 {label}: confusion counts differ on {moved.tolist()} rows "
+          f"per client; near-tie rows {ties.tolist()}")
+    check(torch.equal(out[5].sum(dim=(1, 2)), mask.sum(dim=1)),
+          f"K5 {label}: confusion counts do not sum to the real rows")
+    print(f"K5 fused_round {label} C={x.shape[0]} N={x.shape[1]} "
+          f"dims={tuple(dims)}: max abs err {errs}, largest moments mu "
+          f"{state['mu']['ref_max_abs']:.3e} nu "
+          f"{state['nu']['ref_max_abs']:.3e}, rows differing "
+          f"{int(moved.sum())}, near-tie rows {ties.tolist()}; two launches "
+          "bitwise equal", flush=True)
+    return max(errs.values())
+
+
+def k5_edge_args(gen: torch.Generator, dev, dims, sizes, n):
+    """Random fused-round inputs of len(sizes) clients with mid-run state
+    (moments, and counts around the StepLR boundaries at 30 and 60): rows
+    tail-padded to ``sizes``, labels in range, data-size weights."""
+    from fedtpu_torch.models.mlp import mlp_init
+    c = len(sizes)
+    params = torch.stack([mlp_init(gen, dims[0], dims[1:-1], dims[-1])
+                          for _ in range(c)])
+    mu = torch.randn(params.shape, generator=gen) * 1e-3
+    nu = torch.rand(params.shape, generator=gen) * 1e-6
+    count = torch.tensor([(0, 29, 30, 61)[i % 4] for i in range(c)],
+                         dtype=torch.int32)
+    x = torch.randn(c, n, dims[0], generator=gen)
+    y = torch.randint(0, dims[-1], (c, n), generator=gen, dtype=torch.int32)
+    mask = (torch.arange(n)[None, :] < torch.tensor(sizes)[:, None]).to(
+        torch.float32)
+    return tuple(t.to(dev) for t in (params, mu, nu, count, x, y, mask,
+                                      mask.sum(dim=1)))
+
+
+def phase_fused_round(gen: torch.Generator, composed: dict):
+    """Phase 8: K5 against its plain version, then the benchmark's run on
+    income-8 (its launches counted from zero around it), K5's time and
+    bound, a profile of 20 fused rounds. ``composed`` is phase 6's profile
+    of the composed round. Returns (K5's timing row, the run's launches)."""
+    from fedtpu_torch.benchmarks import mega_kernel_attempt as mega
+    from fedtpu_torch.models.mlp import param_count
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration.loop import build_experiment
+    dev = torch.device("cuda")
+    cfg = main_path_config()
+    exp = build_experiment(cfg, device="cuda")
+    opt = exp.state["opt_state"]
+    income8 = (exp.state["params"], opt["mu"], opt["nu"], opt["count"],
+               exp.batch["x"], exp.batch["y"], exp.batch["mask"],
+               exp.client_weights)
+    err = k5_case("income-8", income8, INCOME_DIMS, cfg.optim)
+    for dims, sizes, n in ((INCOME_DIMS, [1000, 1000], 1000),
+                           (INCOME_DIMS, [333, 100, 0], 333),
+                           ((14, 50, 200, 8), [700, 650, 200, 1], 700),
+                           ((6, 8, 5, 3), [130, 57, 0], 130),
+                           (INCOME_DIMS, [1], 1)):
+        args = k5_edge_args(gen, dev, dims, sizes, n)
+        err = max(err, k5_case("edge", args, dims, cfg.optim))
+
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    res = mega.run(cfg, device="cuda", rounds=cfg.fed.rounds)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    one, traj, timing = res["one_round"], res["trajectory"], res["timing"]
+    rounds = res["rounds"]
+    print(f"income-8 fused round launches: {launches}; by loop "
+          f"{res['launches']}", flush=True)
+    # run() raises where round 1 breaks a limit of k5_case, where any round's
+    # losses differ by more than 1e-4, where the client-mean accuracies after
+    # the last round differ by 0.01 or more, or where the fused loop's Adam
+    # counts did not grow by one a round; here they are only printed.
+    fused, comp = res["launches"]["fused"], res["launches"]["composed"]
+    check(fused["fused_round"] == rounds and comp["fused_round"] == 0,
+          f"K5 launches {fused['fused_round']} in {rounds} fused rounds, "
+          f"{comp['fused_round']} in the composed loop")
+    for name in ("weighted_average_clients", "fused_eval_confusion"):
+        check(fused[name] == 0 and comp[name] == rounds,
+              f"{name}: {fused[name]} launches in the fused loop, "
+              f"{comp[name]} in {rounds} composed rounds")
+    print(f"income-8 fused vs composed: round 1 {json.dumps(one)}; after "
+          f"{rounds} rounds client-mean accuracy fused "
+          f"{traj['fused_accuracy']:.6f} composed "
+          f"{traj['composed_accuracy']:.6f}, largest per-round loss "
+          f"difference {traj['max_loss_diff']:.3e}; marginal "
+          f"{timing['fused_s_per_round'] * 1e6:.2f} us/round fused, "
+          f"{timing['composed_s_per_round'] * 1e6:.2f} us/round composed "
+          f"(lens {timing['lens']}, {timing['reps']} reps)", flush=True)
+
+    c, n = exp.batch["y"].shape
+    real = float(exp.batch["mask"].sum())
+    d = param_count(INCOME_DIMS)
+    nbytes = 4 * (6 * c * d + 2 * c + c * n * (INCOME_DIMS[0] + 2)
+                  + 2 * c + c * INCOME_DIMS[-1] ** 2)
+    b, by = bound_ms(nbytes, mega.round_flops(INCOME_DIMS, real, c))
+    row = {"max_abs_err": err,
+           "ms": time_ms(lambda: ck.fused_round(*income8, INCOME_DIMS,
+                                                cfg.optim)),
+           "plain_ms": time_ms(lambda: ck.fused_round_reference(
+               *income8, INCOME_DIMS, cfg.optim)),
+           "bound_ms": b, "bound_by": by, "library_ms": None,
+           "composed_round_device_ms": composed["device_busy_ms"],
+           "marginal_us_per_round": {
+               "fused": timing["fused_s_per_round"] * 1e6,
+               "composed": timing["composed_s_per_round"] * 1e6}}
+    print(f"time fused_round income-8 ({c}, {n}), {int(real)} real rows: "
+          f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+          f"bound {b:.5f} ms ({by}); composed round step device busy "
+          f"{composed['device_busy_ms']:.4f} ms/round", flush=True)
+    row["profile"] = phase_profile(
+        cfg, label="income-8 fused round profile",
+        make_round=lambda e: mega.make_fused_step(e, cfg.optim))
+    return row, launches
+
 
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
@@ -536,10 +701,13 @@ def main() -> None:
         "weighted_average_clients": "rounds",
         "fused_eval_confusion": "rounds", "fused_mlp_forward": "evals"})
     phase_card_vs_cpu(cfg, gpu)
-    phase_profile(cfg)
+    composed = phase_profile(cfg)
     by_path = {"income-8 psum": launches, **phase_sharded()}
+    timings["fused_round"], by_path["income-8 fused round"] = \
+        phase_fused_round(torch.Generator().manual_seed(1), composed)
     # Each kernel's launches come from the path it was ported for: K1-K3
-    # from income-8, K4 from the sharded ring run.
+    # from income-8, K4 from the sharded ring run, K5 from the fused-round
+    # benchmark.
     sources = {
         "weighted_average_clients": ("weighted_average.cu",
                                      "fedtpu/ops/pallas_kernels.py:233",
@@ -552,7 +720,10 @@ def main() -> None:
                               "income-8 psum"),
         "ring_all_reduce_sum": ("ring_all_reduce.cu",
                                 "fedtpu/parallel/ring_pallas.py:116",
-                                "income-32-noniid ring")}
+                                "income-32-noniid ring"),
+        "fused_round": ("fused_round.cu",
+                        "benchmarks/mega_kernel_attempt.py:138",
+                        "income-8 fused round")}
     kernels = []
     for name, (src, replaces, path) in sources.items():
         t = timings[name]
@@ -565,7 +736,9 @@ def main() -> None:
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            **({"by_shape": t["by_shape"]} if "by_shape" in t else {})})
+            **{key: t[key] for key in ("by_shape", "composed_round_device_ms",
+                                       "marginal_us_per_round", "profile")
+               if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

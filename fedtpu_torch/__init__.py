@@ -1,9 +1,9 @@
 """fedtpu_torch — the PyTorch/CUDA port of fedtpu, for one NVIDIA H100.
 
 A second package beside ``fedtpu`` (the JAX reference, which it never
-imports). It mirrors ``fedtpu``'s module paths and function names; this
-slice runs the synchronous FedAvg main path of the income presets, with
-hand-written CUDA kernels for the three Pallas ops on it
+imports). It mirrors ``fedtpu``'s module paths and function names; it runs
+the synchronous FedAvg path of the income presets, with hand-written CUDA
+kernels in place of the JAX package's Pallas kernels
 (``fedtpu_torch.ops.cuda_kernels``).
 
     fedtpu_torch.config         — configs + the income presets
@@ -13,6 +13,8 @@ hand-written CUDA kernels for the three Pallas ops on it
     fedtpu_torch.parallel       — the federated round
     fedtpu_torch.orchestration  — host round loop, early stopping
     fedtpu_torch.convert        — params / Adam state to and from fedtpu
+    fedtpu_torch.utils          — timing
+    fedtpu_torch.benchmarks     — the fused whole round vs the composed one
 
 Entry points resolve lazily: a bare ``import fedtpu_torch`` builds no kernel
 and touches no CUDA.

@@ -45,8 +45,6 @@
 
 #include "mlp_forward.cuh"
 
-__host__ __device__ inline int ft_round4(int v) { return (v + 3) & ~3; }
-
 __device__ __forceinline__ uint32_t ft_smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

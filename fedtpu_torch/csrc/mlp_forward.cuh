@@ -2,8 +2,8 @@
 // Linear stack of one model over a tile of rows, with the model's flat
 // parameters and the activation buffers in shared memory.
 // ft_mlp_tile_forward (K3, mlp_forward.cu) computes one output per thread;
-// ft_mlp_tile_forward_regs (K2, eval_confusion.cu) is register-tiled, with
-// the same arithmetic.
+// ft_mlp_tile_forward_regs (K2, eval_confusion.cu; K5's eval, fused_round.cu)
+// is register-tiled, with the same arithmetic.
 //
 // Flat parameter layout (fedtpu_torch/models/mlp.py): for each layer, w as
 // (in, out) row-major, then b (out).
@@ -84,6 +84,11 @@ __device__ __forceinline__ float* ft_mlp_tile_forward(const float* p,
 // banks.
 __host__ __device__ __forceinline__ int ft_act_stride(int o) { return o | 1; }
 
+// v rounded up to a multiple of 4 (floats: 16 bytes).
+__host__ __device__ __forceinline__ int ft_round4(int v) {
+  return (v + 3) & ~3;
+}
+
 template <int TR, int TJ>
 __device__ __forceinline__ void ft_layer_microtiled(const float* h, int ldh,
                                                     int in, const float* w,
@@ -130,13 +135,28 @@ __device__ __forceinline__ void ft_layer_microtiled(const float* h, int ldh,
   }
 }
 
+// One layer of the register-tiled forward: the largest micro-tile that still
+// gives every thread work, 4 x 4, then 2 x 2, then 1 x 1. The tile changes
+// the schedule only, never an output's FMA order.
+__device__ __forceinline__ void ft_layer_regs(const float* h, int ldh, int in,
+                                              const float* w, const float* b,
+                                              int out, bool relu, int rows,
+                                              float* o, int ldo) {
+  const int threads = blockDim.x;
+  if (((rows + 3) / 4) * ((out + 3) / 4) >= threads)
+    ft_layer_microtiled<4, 4>(h, ldh, in, w, b, out, relu, rows, o, ldo);
+  else if (((rows + 1) / 2) * ((out + 1) / 2) >= threads)
+    ft_layer_microtiled<2, 2>(h, ldh, in, w, b, out, relu, rows, o, ldo);
+  else
+    ft_layer_microtiled<1, 1>(h, ldh, in, w, b, out, relu, rows, o, ldo);
+}
+
 // Forward of `rows` rows of x (in shared memory, stride dims[0]) through the
 // model at `p`, through the activation buffers act0 and act1 (each rows x
 // ft_act_stride(widest output)); returns the buffer that holds the logits
 // (stride ft_act_stride(dims[n_layers])). The caller must __syncthreads()
 // after filling `p` and `x`; the result is visible to the whole block on
-// return. Each layer takes the largest micro-tile that still gives every
-// thread work: 4 x 4, then 2 x 2, then 1 x 1.
+// return.
 __device__ __forceinline__ const float* ft_mlp_tile_forward_regs(
     const float* p, const MlpDims& md, int rows, const float* x, float* act0,
     float* act1) {
@@ -151,15 +171,9 @@ __device__ __forceinline__ const float* ft_mlp_tile_forward_regs(
     off += in * out;
     const float* b = p + off;
     off += out;
-    const bool relu = l < md.n_layers - 1;
     const int ldo = ft_act_stride(out);
-    const int threads = blockDim.x;
-    if (((rows + 3) / 4) * ((out + 3) / 4) >= threads)
-      ft_layer_microtiled<4, 4>(cur, ldc, in, w, b, out, relu, rows, nxt, ldo);
-    else if (((rows + 1) / 2) * ((out + 1) / 2) >= threads)
-      ft_layer_microtiled<2, 2>(cur, ldc, in, w, b, out, relu, rows, nxt, ldo);
-    else
-      ft_layer_microtiled<1, 1>(cur, ldc, in, w, b, out, relu, rows, nxt, ldo);
+    ft_layer_regs(cur, ldc, in, w, b, out, l < md.n_layers - 1, rows, nxt,
+                  ldo);
     __syncthreads();
     cur = nxt;
     ldc = ldo;

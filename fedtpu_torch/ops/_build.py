@@ -36,6 +36,8 @@ SIGNATURES = {
                           _P),
     "ft_mlp_forward": (_P, _I, _P, _I, _P, _I, _I, _P, _P),
     "ft_ring_all_reduce": (_P, _P, _I, _L, _P),
+    "ft_fused_round": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P,
+                       _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 

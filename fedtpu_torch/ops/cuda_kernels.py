@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels: the three of
-``fedtpu.ops.pallas_kernels`` and the ring all-reduce of
-``fedtpu.parallel.ring_pallas``.
+``fedtpu.ops.pallas_kernels``, the ring all-reduce of
+``fedtpu.parallel.ring_pallas`` and the whole-round mega-kernel of
+``benchmarks/mega_kernel_attempt.py``.
 
 Each wrapper checks its tensors and then:
 
@@ -24,11 +25,15 @@ from typing import Sequence
 
 import torch
 
+from fedtpu_torch.config import OptimConfig
 from fedtpu_torch.models.mlp import mlp_apply, param_count, unflatten
-from fedtpu_torch.ops.metrics import confusion_matrix
+from fedtpu_torch.ops.losses import masked_cross_entropy
+from fedtpu_torch.ops.metrics import confusion_matrix, one_hot
+from fedtpu_torch.ops.optim import build_optimizer
 
 LAUNCHES = {"weighted_average_clients": 0, "fused_eval_confusion": 0,
-            "fused_mlp_forward": 0, "ring_all_reduce_sum": 0}
+            "fused_mlp_forward": 0, "ring_all_reduce_sum": 0,
+            "fused_round": 0}
 
 # Dynamic shared memory one block may opt into on sm_90 (227 KB).
 SMEM_BYTES_MAX = 232_448
@@ -36,6 +41,7 @@ MAX_LAYERS = 16           # FT_MAX_LAYERS in csrc/mlp_forward.cuh
 MAX_CLASSES = 8
 _ROW_TILES = (32, 16, 8, 4, 2, 1)
 RING_MAX_SHARDS = 64      # FT_RING_MAX_SHARDS in csrc/ring_all_reduce.cu
+_ROUND_ROWS = (64, 32, 16, 8, 4, 2, 1)   # FT_ROUND_MAX_ROWS in fused_round.cu
 
 
 def reset_launch_counts() -> None:
@@ -101,6 +107,25 @@ def _eval_plan(num_params: int, dims: tuple) -> tuple:
     raise ValueError(
         f"one model's {num_params} parameters and a one-row tile do not fit "
         f"in a block's {SMEM_BYTES_MAX} bytes of shared memory")
+
+
+def _fused_round_plan(num_params: int, dims: tuple) -> tuple:
+    """K5's row chunk and shared memory: ``(rows, bytes)`` for the largest
+    chunk whose block fits. The layout is the one fused_round.cu carves,
+    which refuses a byte count that does not hold it: the parameters rounded
+    up to 4 floats, the x tile, every layer's output and two dz buffers (odd
+    strides), the tile's mask and labels, 32 floats of reduction scratch and
+    the K x K counts."""
+    lds = [d | 1 for d in dims[1:]]
+    fixed = (num_params + 3) // 4 * 4 + 32 + dims[-1] ** 2
+    for rows in _ROUND_ROWS:
+        floats = fixed + rows * (dims[0] + sum(lds) + 2 * max(lds) + 2)
+        if 4 * floats <= SMEM_BYTES_MAX:
+            return rows, 4 * floats
+    raise ValueError(
+        f"model.hidden_sizes={list(dims[1:-1])}: one model's {num_params} "
+        f"parameters and a one-row chunk do not fit in a block's "
+        f"{SMEM_BYTES_MAX} bytes of shared memory")
 
 
 def _launch(entry: str, device: torch.device, *args) -> None:
@@ -269,3 +294,108 @@ def ring_all_reduce_sum(stack: torch.Tensor) -> torch.Tensor:
             ctypes.addressof(accs), s, p)
     LAUNCHES["ring_all_reduce_sum"] += 1
     return out
+
+
+# ------------------------------------------- K5: one whole round, fused
+def fused_round_reference(params: torch.Tensor, mu: torch.Tensor,
+                          nu: torch.Tensor, count: torch.Tensor,
+                          x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                          weights: torch.Tensor, dims: Sequence[int],
+                          optim: OptimConfig) -> tuple:
+    """Plain version of K5, step by step (benchmarks/mega_kernel_attempt.py
+    ``kernel``): what the kernel computes, in the composed round's order."""
+    layers = unflatten(params, dims)["layers"]
+    k = dims[-1]
+    # 1. Forward, keeping each layer's input (hs[0] = x), and the masked CE
+    #    of the logits before the step.
+    hs = [x]
+    for i, lyr in enumerate(layers):
+        z = torch.matmul(hs[-1], lyr["w"]) + lyr["b"].unsqueeze(-2)
+        hs.append(torch.relu(z) if i < len(layers) - 1 else z)
+    loss = masked_cross_entropy(hs[-1], y, mask)
+    # 2. Backward by hand (:84-95): dz = (softmax * m - onehot * m) / denom,
+    #    gW = a^T dz, gB = sum over rows of dz, dz <- (dz W^T) * (h > 0).
+    m = mask.unsqueeze(-1)
+    denom = mask.sum(dim=-1).clamp_min(1.0)[:, None, None]
+    p = torch.exp(torch.log_softmax(hs[-1], dim=-1))
+    dz = (p * m - one_hot(y, k) * m) / denom
+    grads = []
+    for i in reversed(range(len(layers))):
+        grads[:0] = [torch.matmul(hs[i].transpose(-1, -2), dz).flatten(-2),
+                     dz.sum(dim=-2)]
+        if i > 0:
+            dz = torch.matmul(dz, layers[i]["w"].transpose(-1, -2)) \
+                * (hs[i] > 0).to(dz.dtype)
+    # 3. Adam on each client's own moments and count.
+    trained, state = build_optimizer(optim).update(
+        torch.cat(grads, dim=-1), {"mu": mu, "nu": nu, "count": count},
+        params)
+    # 4. The eval of the trained, not yet averaged models.
+    conf = fused_eval_confusion_reference(trained, dims, x, y, mask, k)
+    # 5. The weighted average into every slot; trained params carry over
+    #    when the weights sum to 0.
+    glob = weighted_average_clients_reference(trained, weights)
+    new = torch.where(weights.sum() > 0, glob.expand_as(trained), trained)
+    return new, state["mu"], state["nu"], state["count"], loss, conf
+
+
+def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                count: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                mask: torch.Tensor, weights: torch.Tensor,
+                dims: Sequence[int], optim: OptimConfig) -> tuple:
+    """One whole FedAvg round of Adam clients: ``params``, ``mu``, ``nu``
+    ``(C, D)``, ``count (C,)`` int32, ``x (C, N, dims[0])``, ``y (C, N)``
+    int32, ``mask (C, N)``, FedAvg ``weights (C,)`` -> ``(params, mu, nu,
+    count, loss (C,), conf (C, K, K))``. ``params`` is the weighted average
+    of the trained models in every slot; ``conf`` is the eval of the
+    trained, not yet averaged models; ``loss`` is each client's masked CE
+    before the step. Every output is freshly allocated; no input is
+    written. ``num_classes <= 8``.
+
+    On the card: one cooperative launch of K5 (``csrc/fused_round.cu``)."""
+    if optim.name != "adam":
+        raise ValueError(f"optim.name={optim.name!r}: the fused round "
+                         "computes Adam only")
+    dev = _device(params, mu, nu, count, x, y, mask, weights)
+    dims = _check_dims(params, dims)
+    if dims[-1] > MAX_CLASSES:
+        raise ValueError(f"num_classes={dims[-1]} > {MAX_CLASSES} "
+                         "unsupported (per-block confusion tile)")
+    c, n = y.shape
+    d = param_count(dims)
+    # The plain version refuses what the kernel cannot hold, too.
+    rows, nbytes = _fused_round_plan(d, dims)
+    for t, name in ((params, "params"), (mu, "mu"), (nu, "nu")):
+        _check(t, name, torch.float32, (c, d))
+    _check(count, "count", torch.int32, (c,))
+    _check(x, "x", torch.float32, (c, n, dims[0]))
+    _check(y, "y", torch.int32, (c, n))
+    _check(mask, "mask", torch.float32, (c, n))
+    _check(weights, "weights", torch.float32, (c,))
+    if dev.type == "cpu":
+        return fused_round_reference(params, mu, nu, count, x, y, mask,
+                                     weights, dims, optim)
+    if c == 0 or n == 0:
+        raise ValueError(f"the fused round needs clients and rows, got "
+                         f"C={c}, N={n}")
+    chunks = -(-n // rows)
+    scratch = torch.empty(chunks * c * d + chunks * c + c + c * d,
+                          dtype=torch.float32, device=dev)
+    outs = [torch.empty_like(params) for _ in range(3)]
+    count_out = torch.empty_like(count)
+    loss = torch.empty(c, dtype=torch.float32, device=dev)
+    conf = torch.empty((c, dims[-1], dims[-1]), dtype=torch.float32,
+                       device=dev)
+    adam = (ctypes.c_float * 8)(
+        optim.learning_rate, optim.steplr_gamma, optim.steplr_step_size,
+        optim.b1, 1 - optim.b1, optim.b2, 1 - optim.b2, optim.eps)
+    dims_arg = _dims_arg(dims)
+    _launch("ft_fused_round", dev, params.data_ptr(), mu.data_ptr(),
+            nu.data_ptr(), count.data_ptr(), x.data_ptr(), y.data_ptr(),
+            mask.data_ptr(), weights.data_ptr(), c, n,
+            ctypes.addressof(dims_arg), len(dims) - 1, ctypes.addressof(adam),
+            rows, nbytes, scratch.data_ptr(),
+            *(t.data_ptr() for t in outs), count_out.data_ptr(),
+            loss.data_ptr(), conf.data_ptr())
+    LAUNCHES["fused_round"] += 1
+    return (*outs, count_out, loss, conf)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 METRIC_NAMES = ("accuracy", "precision", "recall", "f1")
+NEAR_TIE_REL = 1e-5
 
 
 def one_hot(v: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -53,3 +54,12 @@ def metrics_from_confusion(conf: torch.Tensor) -> dict:
         "recall": (support * rec_c).sum(dim=-1) / wsum,
         "f1": (support * f1_c).sum(dim=-1) / wsum,
     }
+
+
+def near_tie_rows(logits: torch.Tensor) -> torch.Tensor:
+    """Rows whose top-two logit gap is below ``NEAR_TIE_REL * max|logit|``:
+    an fp32 sum taken in another order may flip their argmax, so two
+    implementations may count them in different cells."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    scale = logits.abs().amax(dim=-1).clamp_min(1e-30)
+    return (top2[..., 0] - top2[..., 1]) < NEAR_TIE_REL * scale

@@ -96,6 +96,7 @@ class Experiment:
     device: torch.device
     dims: tuple
     mesh: ClientMesh
+    client_weights: torch.Tensor           # (C,) FedAvg base weights
 
 
 def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
@@ -134,7 +135,8 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         participation_masks=participation_masks)
     return Experiment(make_step=make_step, state=state, batch=batch,
                       eval_step=build_eval_fn(dims, ds.num_classes),
-                      dataset=ds, device=dev, dims=dims, mesh=mesh)
+                      dataset=ds, device=dev, dims=dims, mesh=mesh,
+                      client_weights=client_weights)
 
 
 def _state_finite(state: dict) -> bool:

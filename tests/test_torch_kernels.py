@@ -1,9 +1,10 @@
 """The plain versions of fedtpu_torch's CUDA kernels against fedtpu's Pallas
-kernels (interpret mode, as tests/test_pallas.py runs them). On the CPU each
-wrapper takes its plain version. The tests marked ``cuda`` hold K2 itself on
-the card and skip without one; chip_smoke.py holds every kernel against its
-plain version at the main paths' shapes (this suite needs JAX, which the
-card's machine does not have)."""
+kernels (interpret mode, as tests/test_pallas.py runs them), and the fused
+whole round's plain version (K5) against fedtpu's own round components. On
+the CPU each wrapper takes its plain version. The tests marked ``cuda`` hold
+K2 and K5 themselves on the card and skip without one; chip_smoke.py holds
+every kernel against its plain version at the main paths' shapes (this
+suite needs JAX, which the card's machine does not have)."""
 
 import pytest
 
@@ -13,15 +14,20 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from fedtpu.models.mlp import mlp_init as j_init  # noqa: E402
+import fedtpu.config as jcfg  # noqa: E402
+from fedtpu.models.mlp import mlp_apply as j_apply, mlp_init as j_init  # noqa: E402
+from fedtpu.ops import build_optimizer as j_build_optimizer  # noqa: E402
 from fedtpu.ops.pallas_kernels import (fused_eval_confusion as pl_eval,  # noqa: E402
                                        fused_mlp_forward as pl_mlp,
                                        weighted_average_clients as pl_wavg)
+from fedtpu.training.client import (make_local_eval_step,  # noqa: E402
+                                    make_local_train_step)
 
+import fedtpu_torch.config as tcfg  # noqa: E402
 from fedtpu_torch import convert  # noqa: E402
-from fedtpu_torch.models.mlp import mlp_init  # noqa: E402
+from fedtpu_torch.models.mlp import mlp_apply, mlp_init, unflatten  # noqa: E402
 from fedtpu_torch.ops import cuda_kernels as ck  # noqa: E402
-from fedtpu_torch.ops.metrics import confusion_matrix  # noqa: E402
+from fedtpu_torch.ops.metrics import confusion_matrix, near_tie_rows  # noqa: E402
 
 INCOME_DIMS = (14, 50, 200, 2)
 
@@ -169,6 +175,55 @@ def test_eval_kernel_equals_counts_from_k3_logits(cuda, sizes, holes):
                                   mask.sum(dim=1).cpu().numpy())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,sizes", [(INCOME_DIMS, [64] * 8),
+                                        ((6, 8, 5, 3), [40, 23, 0]),
+                                        ((4, 7, 2), [33, 33])])
+def test_fused_round_kernel_matches_its_plain_version(cuda, dims, sizes):
+    """K5 on the card against its plain version from mid-run state, at
+    chip_smoke.py's tolerances: loss 1e-5; params within 1e-4 on all but
+    0.1 % of entries and within 2 * lr everywhere; every entry of mu and nu
+    within 1e-5 of its tensor's largest magnitude; counts equal; confusion
+    counts equal but on near-tie rows of the plain trained models; a second
+    launch bitwise equal to the first."""
+    from fedtpu_torch.benchmarks import mega_kernel_attempt as mega
+    from fedtpu_torch.ops.optim import build_optimizer
+    from fedtpu_torch.training.client import make_local_train_step
+    c, n, k = len(sizes), max(sizes), dims[-1]
+    gen = torch.Generator().manual_seed(n)
+    params = torch.stack([mlp_init(gen, dims[0], dims[1:-1], k)
+                          for _ in range(c)])
+    mu = torch.randn(params.shape, generator=gen) * 1e-3
+    nu = torch.rand(params.shape, generator=gen) * 1e-6
+    count = torch.tensor([(0, 29, 61)[i % 3] for i in range(c)],
+                         dtype=torch.int32)
+    x = torch.randn(c, n, dims[0], generator=gen)
+    y = torch.randint(0, k, (c, n), generator=gen, dtype=torch.int32)
+    mask = (torch.arange(n)[None, :] < torch.tensor(sizes)[:, None]).to(
+        torch.float32)
+    args = tuple(t.to(cuda) for t in (params, mu, nu, count, x, y, mask,
+                                      mask.sum(dim=1)))
+    optim = tcfg.OptimConfig()
+    before = ck.LAUNCHES["fused_round"]
+    out = ck.fused_round(*args, dims, optim)
+    again = ck.fused_round(*args, dims, optim)
+    assert ck.LAUNCHES["fused_round"] == before + 2
+    ref = ck.fused_round_reference(*args, dims, optim)
+    trained, _, _ = make_local_train_step(dims, build_optimizer(optim))(
+        args[0], {"mu": args[1], "nu": args[2], "count": args[3]}, *args[4:7])
+    ties = near_tie_rows(mlp_apply(unflatten(trained, dims), args[4])) \
+        & (args[6] > 0)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    names = ("params", "mu", "nu")
+    assert mega.state_faults(mega.state_errors(dict(zip(names, out)),
+                                               dict(zip(names, ref))),
+                             optim.learning_rate) == []
+    assert float((out[4] - ref[4]).abs().max()) <= 1e-5
+    assert torch.equal(out[3], ref[3])
+    moved = (out[5] - ref[5]).abs().sum(dim=(1, 2)) / 2
+    assert bool((moved <= ties.sum(dim=1)).all())
+
+
 def test_fused_eval_confusion_rejects_wide_class_counts():
     dims = (4, 9)
     flat = torch.zeros((2, 4 * 9 + 9))
@@ -176,6 +231,39 @@ def test_fused_eval_confusion_rejects_wide_class_counts():
         ck.fused_eval_confusion(flat, dims, torch.zeros((2, 8, 4)),
                                 torch.zeros((2, 8), dtype=torch.int32),
                                 torch.ones((2, 8)), 9)
+
+
+def _round_inputs(c=2, n=5, dims=(4, 3, 2)):
+    """Valid inputs of the fused round: params, mu, nu, count, x, y, mask,
+    weights."""
+    d = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    return [torch.zeros((c, d)), torch.zeros((c, d)), torch.zeros((c, d)),
+            torch.zeros(c, dtype=torch.int32), torch.zeros((c, n, dims[0])),
+            torch.zeros((c, n), dtype=torch.int32), torch.ones((c, n)),
+            torch.ones(c)]
+
+
+def _bad_round_inputs():
+    """(what is wrong, inputs, dims, exception, message) of fused_round."""
+    dims = (4, 3, 2)
+    cases = []
+    for i, name in enumerate(("params", "mu", "nu", "count", "x", "y",
+                              "mask", "weights")):
+        args = _round_inputs()
+        good = args[i]
+        args[i] = good.to(torch.float64 if good.is_floating_point()
+                          else torch.int64)
+        cases.append((f"{name} dtype", args, dims, TypeError, name))
+        args = _round_inputs()
+        args[i] = torch.cat([good, good])
+        cases.append((f"{name} shape", args, dims, ValueError, "shape"))
+    args = _round_inputs()
+    args[4] = torch.zeros((2, 4, 5)).transpose(1, 2)
+    cases.append(("x not contiguous", args, dims, ValueError, "contiguous"))
+    args = _round_inputs(dims=(4, 9))
+    cases.append(("K > 8", args, (4, 9), ValueError, "> 8"))
+    cases.append(("dims", _round_inputs(), (4, 5, 2), ValueError, "need"))
+    return cases
 
 
 def test_wrappers_check_shapes_and_types():
@@ -188,6 +276,81 @@ def test_wrappers_check_shapes_and_types():
         ck.fused_eval_confusion(flat[None], (14, 2), torch.zeros((1, 4, 14)),
                                 torch.zeros((1, 4), dtype=torch.int64),
                                 torch.ones((1, 4)), 2)
+    # K5's wrapper: every input's dtype and shape, contiguity, K > 8, dims
+    # that do not match the params, an optimizer other than Adam.
+    for _, args, dims, exc, msg in _bad_round_inputs():
+        with pytest.raises(exc, match=msg):
+            ck.fused_round(*args, dims, tcfg.OptimConfig())
+    with pytest.raises(ValueError, match="Adam only"):
+        ck.fused_round(*_round_inputs(), (4, 3, 2),
+                       tcfg.OptimConfig(name="sgd"))
+    assert "fused_round" in ck.LAUNCHES
+    # The plain version ran on the CPU: no launch counted.
+    before = ck.LAUNCHES["fused_round"]
+    ck.fused_round(*_round_inputs(), (4, 3, 2), tcfg.OptimConfig())
+    assert ck.LAUNCHES["fused_round"] == before
+
+
+@pytest.mark.parametrize("dims,c,n,sizes", [
+    (INCOME_DIMS, 8, 64, None),
+    # One client tail-padded, one all padding (denom 1, loss 0, zero grads).
+    ((6, 8, 5, 3), 3, 40, [40, 23, 0]),
+    ((4, 7, 2), 2, 33, None),
+])
+def test_fused_round_plain_matches_fedtpu_round_components(dims, c, n, sizes):
+    """K5's plain version, one round from fedtpu's init, against fedtpu's
+    own round components on the same numpy inputs: the vmapped train step
+    (loss before the step, Adam), the vmapped eval of the trained models and
+    the data-size-weighted average (as tests/test_torch_round.py composes
+    them). Loss 1e-5, counts equal, params 1e-4, moments 1e-6, count + 1."""
+    k = dims[-1]
+    rng = np.random.default_rng(n)
+    jp = _jax_params(n, dims, clients=c)
+    x = rng.normal(size=(c, n, dims[0])).astype(np.float32)
+    y = rng.integers(0, k, size=(c, n)).astype(np.int32)
+    sizes = sizes or [n] * c
+    mask = (np.arange(n)[None, :] < np.array(sizes)[:, None]).astype(
+        np.float32)
+    w = mask.sum(axis=1)
+    tx = j_build_optimizer(jcfg.OptimConfig())
+    train = jax.jit(jax.vmap(make_local_train_step(j_apply, tx)))
+    evaluate = jax.jit(jax.vmap(make_local_eval_step(j_apply, k)))
+    trained, js, jloss = train(jp, jax.vmap(tx.init)(jp), x, y, mask)
+    jconf = np.asarray(evaluate(trained, x, y, mask))
+    avg = jax.tree.map(lambda l: np.broadcast_to(
+        np.tensordot(w, np.asarray(l), axes=1) / max(w.sum(), 1.0), l.shape),
+        trained)
+    adam = js[0]
+
+    d = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    params = convert.params_from_jax(jp)
+    zeros = torch.zeros((c, d))
+    count = torch.zeros(c, dtype=torch.int32)
+    args = (params, zeros, zeros.clone(), count, torch.from_numpy(x),
+            torch.from_numpy(y), torch.from_numpy(mask), torch.from_numpy(w))
+    before = [a.clone() for a in args]
+    p2, mu, nu, count2, loss, conf = ck.fused_round(*args, dims,
+                                                    tcfg.OptimConfig())
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)          # no input is written
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jloss), atol=1e-5)
+    np.testing.assert_array_equal(conf.numpy(), jconf)
+    np.testing.assert_array_equal(conf.numpy().sum(axis=(1, 2)), sizes)
+    np.testing.assert_allclose(p2.numpy(),
+                               convert.params_from_jax(avg).numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(
+        mu.numpy(), convert.params_from_jax(jax.tree.map(
+            np.asarray, adam.mu)).numpy(), atol=1e-6)
+    np.testing.assert_allclose(
+        nu.numpy(), convert.params_from_jax(jax.tree.map(
+            np.asarray, adam.nu)).numpy(), atol=1e-6)
+    np.testing.assert_array_equal(count2.numpy(), np.asarray(adam.count))
+    np.testing.assert_array_equal(count2.numpy(), 1)
+    if 0 in sizes:
+        empty = sizes.index(0)
+        assert float(loss[empty]) == 0.0
+        assert not mu[empty].any() and not nu[empty].any()
 
 
 @pytest.mark.parametrize("dims,n", [(INCOME_DIMS, 64), ((6, 8, 3), 1024),

@@ -259,17 +259,20 @@ def test_adam_state_round_trip_and_resume_matches_optax():
 
 
 def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
+    from fedtpu_torch.benchmarks import mega_kernel_attempt as mega
     from fedtpu_torch.orchestration.loop import (build_experiment,
                                                  run_experiment)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tcfg.ExperimentConfig(data=tcfg.DataConfig(synthetic_rows=64),
                                 fed=tcfg.FedConfig(rounds=1))
-    for entry in (run_experiment, build_experiment):
+    for entry in (run_experiment, build_experiment, mega.run):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(cfg)
     from fedtpu_torch.cli import main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["run", "--rounds", "1", "--synthetic-rows", "64", "--quiet"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mega.main(["--rounds", "1", "--synthetic-rows", "64"])
 
 
 @pytest.mark.parametrize("kw", [
@@ -298,6 +301,38 @@ def test_sampling_ring_and_mesh_knobs_construct():
             tcfg.FedConfig(**bad)
     with pytest.raises(ValueError):
         tcfg.RunConfig(mesh_devices=-1)
+
+
+def test_marginal_slope_recovers_a_linear_cost(monkeypatch):
+    """fedtpu_torch.utils.timing.marginal_slope on a fake program of fixed
+    cost 0.5 s plus 2 ms an iteration, on a fake clock: the slope is the
+    per-iteration cost, the fixed cost cancels, and each length runs one
+    warm-up and ``reps`` timed calls."""
+    from fedtpu_torch.utils import timing
+    clock, calls = [0.0], []
+    monkeypatch.setattr(timing.time, "perf_counter", lambda: clock[0])
+
+    def make_fn(length):
+        def fn():
+            calls.append(length)
+            clock[0] += 0.5 + 2e-3 * length
+            return torch.ones(3)
+        return fn
+
+    assert timing.marginal_slope(make_fn) == pytest.approx(2e-3, rel=1e-9)
+    assert calls == [1000] * 5 + [4000] * 5
+    assert timing.marginal_slope(make_fn, lens=(10, 40), reps=2) == \
+        pytest.approx(2e-3, rel=1e-9)
+
+
+def test_flops_floor_and_force_fetch():
+    from fedtpu_torch.utils.timing import assert_above_flops_floor, force_fetch
+    # 1e9 flops at a 1e12 FLOP/s peak: the floor is 0.5 ms.
+    assert assert_above_flops_floor(1e-3, 1e9, 1e12) == pytest.approx(5e-4)
+    with pytest.raises(RuntimeError, match="methodology broken"):
+        assert_above_flops_floor(4e-4, 1e9, 1e12, label="fused")
+    assert force_fetch(torch.arange(4.0).reshape(2, 2)) == 3.0
+    assert force_fetch(torch.zeros(0)) == 0.0
 
 
 _FORBIDDEN = {"jax", "jaxlib", "optax", "pandas", "sklearn", "fedtpu"}

@@ -1,8 +1,10 @@
 """The port's whole slice against fedtpu on the CPU: an income-8-shaped run
 (8 clients, 14->50->200->2) from fedtpu's own init must give the same
 per-round confusion counts, losses, metrics, early-stop round, held-out
-metrics and final params; and the sharded (ring, ring-rsag over the 8-device
-mesh) and sampled rounds must match fedtpu's round for round."""
+metrics and final params; the sharded (ring, ring-rsag over the 8-device
+mesh) and sampled rounds must match fedtpu's round for round; and the fused
+whole round (K5's plain version) must match both fedtpu's round and the
+port's composed one."""
 
 import pytest
 
@@ -26,7 +28,11 @@ from fedtpu.training.client import (make_local_eval_step,  # noqa: E402
 
 import fedtpu_torch.config as tcfg  # noqa: E402
 from fedtpu_torch import convert  # noqa: E402
-from fedtpu_torch.ops.metrics import METRIC_NAMES  # noqa: E402
+from fedtpu_torch.benchmarks import mega_kernel_attempt as mega  # noqa: E402
+from fedtpu_torch.models.mlp import mlp_init  # noqa: E402
+from fedtpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from fedtpu_torch.ops.metrics import (METRIC_NAMES,  # noqa: E402
+                                      metrics_from_confusion)
 from fedtpu_torch.orchestration.loop import (build_experiment as t_build,  # noqa: E402
                                              run_experiment as t_run)
 
@@ -329,3 +335,127 @@ def test_income32_noniid_ring_run_matches_fedtpu():
         for hist in ("global_metrics", "pooled_metrics", "test_metrics"):
             np.testing.assert_allclose(getattr(rt, hist)[name],
                                        getattr(rj, hist)[name], atol=1e-4)
+
+
+# ------------------------------------------- the fused whole round (K5)
+def test_fused_round_20_rounds_match_fedtpu_and_the_composed_round():
+    """20 rounds of K5's plain version (the benchmark's fused step) from
+    fedtpu's init against fedtpu's build_round_fn with rounds_per_step=20,
+    the script's own oracle (benchmarks/mega_kernel_attempt.py:188, :251),
+    and against the port's composed round: losses within 1e-5 every round,
+    confusion counts equal (fedtpu's per-client metrics, which derive from
+    them, within 1e-6), final params within 1e-4, Adam counts 20."""
+    j_cfg, t_cfg = _configs()
+    j_exp = j_build(j_cfg)
+    init = _np(j_exp.state["params"])
+    j_state, j_metrics = j_exp.make_step(20)(j_exp.state, j_exp.batch)
+    t_exp = t_build(t_cfg, device="cpu", init_params=init)
+    fused, composed = mega.make_fused_step(t_exp, t_cfg.optim), \
+        t_exp.make_step(1)
+    f_state = c_state = t_exp.state
+    losses, confs = [], []
+    for _ in range(20):
+        f_state, loss, conf = fused(f_state)
+        c_state, raw = composed(c_state, t_exp.batch)
+        np.testing.assert_allclose(loss.numpy(), raw["loss"][0].numpy(),
+                                   atol=1e-5)
+        np.testing.assert_array_equal(conf.numpy(), raw["conf"][0].numpy())
+        losses.append(loss.numpy())
+        confs.append(conf)
+    np.testing.assert_allclose(np.stack(losses), np.asarray(j_metrics["loss"]),
+                               atol=1e-5)
+    per_client = metrics_from_confusion(torch.stack(confs))
+    for name in METRIC_NAMES:
+        np.testing.assert_allclose(per_client[name].numpy(),
+                                   np.asarray(j_metrics["per_client"][name]),
+                                   atol=1e-6)
+    np.testing.assert_allclose(f_state["params"].numpy(),
+                               c_state["params"].numpy(), atol=1e-4)
+    np.testing.assert_allclose(
+        f_state["params"].numpy(),
+        convert.params_from_jax(_np(j_state["params"])).numpy(), atol=1e-4)
+    assert f_state["round"] == 20
+    assert torch.equal(f_state["opt_state"]["count"],
+                       torch.full((8,), 20, dtype=torch.int32))
+
+
+def test_fused_round_benchmark_on_cpu_refuses_what_k5_does_not_compute(
+        capsys):
+    """The benchmark on the CPU (plain versions, no timing: a CPU time is not a
+    device time) returns its comparisons; its CLI prints them as one JSON
+    line; each config K5 does not compute raises, naming the field."""
+    _, t_cfg = _configs()
+    out = mega.run(t_cfg, device="cpu", rounds=5)
+    assert (out["device"], out["rounds"], out["timing"]) == ("cpu", 5, None)
+    one = out["one_round"]
+    assert one["count_equal"] and one["loss_max_abs"] <= 1e-5
+    assert one["params"]["max_abs"] <= 1e-4
+    assert one["conf_rows_differing"] == [0.0] * 8
+    assert out["trajectory"]["accuracy_diff"] < 0.01
+    # On the CPU the wrappers take their plain versions: no launch counted.
+    assert not any(out["launches"]["fused"].values())
+    assert mega.main(["--platform", "cpu", "--rounds", "2",
+                      "--synthetic-rows", "256"]) == 0
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed["rounds"] == 2 and printed["clients"] == 8
+    fed, data = t_cfg.fed, t_cfg.data
+    for bad, field in (
+            (dict(fed=dataclasses.replace(fed, participation_rate=0.5)),
+             "participation_rate"),
+            (dict(fed=dataclasses.replace(fed, aggregation="ring")),
+             "aggregation"),
+            (dict(optim=tcfg.OptimConfig(name="sgd")), "optim.name"),
+            (dict(data=dataclasses.replace(data, synthetic_classes=9)),
+             "num_classes"),
+            (dict(model=tcfg.ModelConfig(hidden_sizes=(60000,))),
+             "hidden_sizes")):
+        with pytest.raises(ValueError, match=field):
+            mega.run(t_cfg.replace(**bad), device="cpu", rounds=1)
+
+
+@pytest.mark.parametrize("fault", ["nu zero", "nu unchanged", "nu b2 0.99",
+                                   "mu unchanged", "mu x1.001",
+                                   "params 3 lr", "params 0.2 % off"])
+def test_fused_round_state_limits_catch_a_wrong_state(fault):
+    """The limits the benchmark and chip_smoke hold K5 to (state_faults) pass
+    the plain round against itself and a rounding-sized change, and catch a
+    kernel that writes a wrong moment or param: nu zero, unchanged or
+    decayed at the wrong rate; mu unchanged or scaled by 1.001; one param
+    3 * lr off; 0.2 % of the params 2e-4 off."""
+    dims, c, n = (6, 8, 5, 3), 3, 40
+    gen = torch.Generator().manual_seed(7)
+    params = torch.stack([mlp_init(gen, dims[0], dims[1:-1], dims[-1])
+                          for _ in range(c)])
+    mu = torch.randn(params.shape, generator=gen) * 1e-3
+    nu = torch.rand(params.shape, generator=gen) * 1e-6
+    count = torch.tensor([0, 29, 61], dtype=torch.int32)
+    x = torch.randn(c, n, dims[0], generator=gen)
+    y = torch.randint(0, dims[-1], (c, n), generator=gen, dtype=torch.int32)
+    mask = torch.ones(c, n)
+    optim = tcfg.OptimConfig()
+    lr = optim.learning_rate
+    out = ck.fused_round(params, mu, nu, count, x, y, mask, mask.sum(dim=1),
+                         dims, optim)
+    ref = dict(zip(("params", "mu", "nu"), out[:3]))
+    assert mega.state_faults(mega.state_errors(ref, ref), lr) == []
+    near = {k: v * (1 + 1e-7) for k, v in ref.items()}
+    assert mega.state_faults(mega.state_errors(near, ref), lr) == []
+    bad = dict(ref)
+    if fault == "nu zero":
+        bad["nu"] = torch.zeros_like(nu)
+    elif fault == "nu unchanged":
+        bad["nu"] = nu
+    elif fault == "nu b2 0.99":
+        bad["nu"] = ref["nu"] - (optim.b2 - 0.99) * nu
+    elif fault == "mu unchanged":
+        bad["mu"] = mu
+    elif fault == "mu x1.001":
+        bad["mu"] = ref["mu"] * 1.001
+    elif fault == "params 3 lr":
+        bad["params"] = ref["params"].clone()
+        bad["params"][1, 5] += 3 * lr
+    else:
+        bad["params"] = ref["params"].clone()
+        off = max(2, int(0.002 * bad["params"].numel()) + 1)
+        bad["params"].view(-1)[:off] += 2e-4
+    assert mega.state_faults(mega.state_errors(bad, ref), lr) != []
