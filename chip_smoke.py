@@ -9,15 +9,22 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build: compile the kernels from fedtpu_torch/csrc (one nvcc per source,
    all at once, sm_90a).
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and at edge shapes, and timed (CUDA events). The
-   eval kernel (K2) is timed at income-8's (8, 1000) batch and at
-   income-32-noniid's tail-padded (32, 1104) one, and must equal the counts
-   built from K3's logits exactly; the ring kernel (K4) must equal its plain
-   version bit for bit, with one allocation and no host sync per call.
+   the main paths' shapes and at edge shapes, two launches bitwise equal,
+   and timed (CUDA events). K1 in both modes, the (D,) average and the
+   broadcast into every slot with the carry-over (every weight 0: the input
+   bit for bit), timed beside ``torch.matmul`` and beside the chain the
+   broadcast mode replaces; K3 at N = 2,000 (its plan printed), 100, 1,
+   2,001 and 100,000 and on two other models, timed under its plan and
+   its nearest tiles. The eval kernel (K2) is timed at income-8's (8, 1000) batch
+   and at income-32-noniid's tail-padded (32, 1104) one, and must equal the
+   counts built from K3's logits exactly; the ring kernel (K4) must equal
+   its plain version bit for bit, with one allocation and no host sync per
+   call.
 4. main path: ``run_experiment`` on income-8 (psum; synthetic data at the
    income CSV's 10,000 rows), counting each kernel's launches.
 5. card vs CPU: the same run on the CPU (plain versions), same init.
-6. profile: a steady-state round's host time against its device time.
+6. profile: a steady-state round's host time against its device time and
+   device-op count.
 7. sharded round: income-32-noniid at 10,000 rows over a clients mesh of 8
    shards on the one card: ``aggregation="ring"`` (K4 once per round, K1
    never), then two shorter runs, ``ring-rsag`` (K4 never) and ``ring``
@@ -67,7 +74,7 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def time_ms(fn) -> float:
+def time_ms(fn, sleep_cycles: int = 1_000_000) -> float:
     """Median device time of one call over TIMING_REPS runs after warm-up.
     A sleep kernel queued ahead of each run keeps the host's enqueue time
     out of the measured window, so the events bracket device work only."""
@@ -76,7 +83,7 @@ def time_ms(fn) -> float:
     torch.cuda.synchronize()
     pairs = []
     for _ in range(TIMING_REPS):
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -85,6 +92,13 @@ def time_ms(fn) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def time_back_to_back_ms(fn, k: int = 10) -> float:
+    """Device time a call of ``k`` calls queued back to back in one window
+    (behind a longer sleep): what a call adds to a stream of launches,
+    without the fixed cost of a lone launch between two events."""
+    return time_ms(lambda: [fn() for _ in range(k)], 8_000_000) / k
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -136,33 +150,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
         return torch.stack([mlp_init(gen, dims[0], dims[1:-1], dims[-1])
                             for _ in range(c)]).to(dev)
 
-    # K1 weighted_average_clients: the income-8 FedAvg, and an edge shape
-    # with one zero weight.
-    k1_err = 0.0
-    for c, d, w in ((8, param_count(INCOME_DIMS), [1000.0] * 8),
-                    (2, 97, [0.0, 37.0])):
-        x = randn(c, d)
-        wt = torch.tensor(w, device=dev)
-        out = ck.weighted_average_clients(x, wt)
-        ref = ck.weighted_average_clients_reference(x, wt)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        check(err <= 1e-5, f"K1 at ({c}, {d}): max abs err {err} > 1e-5")
-        print(f"K1 weighted_average_clients ({c}, {d}): max abs err {err:.3e}",
-              flush=True)
-        k1_err = max(k1_err, err)
-    x = randn(8, param_count(INCOME_DIMS))
-    wt = torch.full((8,), 1000.0, device=dev)
-    wn = wt / wt.sum()
-    nbytes = 4 * (x.numel() + wt.numel() + x.shape[1])
-    b, by = bound_ms(nbytes, 2.0 * x.numel())
-    results["weighted_average_clients"] = {
-        "max_abs_err": k1_err,
-        "ms": time_ms(lambda: ck.weighted_average_clients(x, wt)),
-        "plain_ms": time_ms(
-            lambda: ck.weighted_average_clients_reference(x, wt)),
-        "library_ms": time_ms(lambda: torch.matmul(wn, x)),
-        "bound_ms": b, "bound_by": by}
+    results["weighted_average_clients"] = k1_checks(gen, dev)
 
     # K2 fused_eval_confusion: counts equal to those built from K3's logits
     # (same FMA order) exactly, and to the plain version's except on
@@ -254,34 +242,177 @@ def phase_kernels(gen: torch.Generator) -> dict:
             "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "by_shape": by_shape}
 
-    # K3 fused_mlp_forward: the held-out split (2,000 rows), ragged N, N=1.
-    k3_err = 0.0
-    flat = stacked_params(1, INCOME_DIMS)[0].contiguous()
-    for n in (2000, 100, 1):
-        xt = randn(n, INCOME_DIMS[0])
-        out = ck.fused_mlp_forward(flat, INCOME_DIMS, xt)
-        ref = ck.fused_mlp_forward_reference(flat, INCOME_DIMS, xt)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        check(out.shape == ref.shape and err <= 1e-4,
-              f"K3 at N={n}: max abs err {err} > 1e-4")
-        print(f"K3 fused_mlp_forward N={n}: max abs err {err:.3e}", flush=True)
-        k3_err = max(k3_err, err)
-    xt = randn(2000, INCOME_DIMS[0])
-    nbytes = 4 * (flat.numel() + xt.numel() + 2000 * INCOME_DIMS[-1])
-    b, by = bound_ms(nbytes, mlp_flops(INCOME_DIMS, 2000))
-    results["fused_mlp_forward"] = {
-        "max_abs_err": k3_err,
-        "ms": time_ms(lambda: ck.fused_mlp_forward(flat, INCOME_DIMS, xt)),
-        "plain_ms": time_ms(lambda: ck.fused_mlp_forward_reference(
-            flat, INCOME_DIMS, xt)),
-        "library_ms": None, "bound_ms": b, "bound_by": by}
+    results["fused_mlp_forward"] = k3_checks(gen, dev)
     results["ring_all_reduce_sum"] = k4_checks(gen, dev)
+    # The yardstick under every kernel time: one empty kernel, timed alike.
+    empty = time_ms(lambda: torch.cuda._sleep(0))
+    empty_b2b = time_back_to_back_ms(lambda: torch.cuda._sleep(0))
+    print(f"time of an empty kernel launch, same method: {empty:.4f} ms; "
+          f"back to back {empty_b2b:.4f} ms", flush=True)
     for name, r in results.items():
+        r["empty_launch_ms"] = empty
+        r["empty_back_to_back_ms"] = empty_b2b
         print(f"time {name}: kernel {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  library {r['library_ms']}  bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
     return results
+
+
+def k1_checks(gen: torch.Generator, dev: torch.device) -> dict:
+    """K1 weighted_average_clients in both modes against its plain version
+    (1e-5): the income-8 FedAvg and edge shapes (an odd width with a zero
+    weight, 32 clients, one column, client counts below, at and past a
+    multiple of the 8-row unroll, every weight 0, where the broadcast mode
+    must return x bit for bit);
+    two launches bitwise equal. Then both modes timed at income-8 beside
+    their plain versions and bounds, the (D,) mode beside ``torch.matmul``,
+    the broadcast mode beside the chain it replaces in the round (the
+    average, ``w.sum() > 0``, ``torch.where``), and the plan's block size
+    beside a warp fewer and a warp more."""
+    from fedtpu_torch.models.mlp import param_count
+    from fedtpu_torch.ops import cuda_kernels as ck
+    d8 = param_count(INCOME_DIMS)
+    err = 0.0
+    for c, d, w in ((8, d8, [1000.0] * 8), (2, 97, [0.0, 37.0]),
+                    (32, d8, [300.0 + i for i in range(32)]),
+                    (3, 1, [1.0, 2.0, 3.0]), (5, 1001, [1.0, 0.0, 2.0, 3.0,
+                                                        4.0]),
+                    (41, 4096, [float(i % 7) for i in range(41)]),
+                    (8, d8, [0.0] * 8)):
+        x = torch.randn(c, d, generator=gen).to(dev)
+        wt = torch.tensor(w, device=dev)
+        for broadcast in (False, True):
+            out = ck.weighted_average_clients(x, wt, broadcast)
+            again = ck.weighted_average_clients(x, wt, broadcast)
+            ref = ck.weighted_average_clients_reference(x, wt, broadcast)
+            torch.cuda.synchronize()
+            e = float((out - ref).abs().max())
+            mode = "broadcast" if broadcast else "(D,)"
+            check(out.shape == ref.shape and e <= 1e-5,
+                  f"K1 {mode} at ({c}, {d}): max abs err {e} > 1e-5")
+            check(torch.equal(out, again),
+                  f"K1 {mode} at ({c}, {d}): two launches differ")
+            if broadcast and not any(w):
+                check(torch.equal(out, x), f"K1 broadcast at ({c}, {d}), "
+                      "every weight 0: not the input bit for bit")
+            print(f"K1 weighted_average_clients {mode} ({c}, {d}): max abs "
+                  f"err {e:.3e}, two launches bitwise equal", flush=True)
+            err = max(err, e)
+    x = torch.randn(8, d8, generator=gen).to(dev)
+    wt = torch.full((8,), 1000.0, device=dev)
+    wn = wt / wt.sum()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    threads, blocks = ck._wavg_plan(d8, sms)
+    print(f"K1 plan at (8, {d8}): {threads} threads x {blocks} blocks on "
+          f"{sms} SMs", flush=True)
+
+    def composed():
+        glob = ck.weighted_average_clients(x, wt)
+        return torch.where(wt.sum() > 0, glob.expand_as(x), x)
+
+    modes = {}
+    for mode, broadcast, nbytes in (
+            ("average", False, 4 * (x.numel() + 8 + d8)),
+            ("broadcast", True, 4 * (2 * x.numel() + 8))):
+        b, by = bound_ms(nbytes, 2.0 * x.numel())
+        modes[mode] = {
+            "ms": time_ms(lambda: ck.weighted_average_clients(x, wt,
+                                                              broadcast)),
+            "plain_ms": time_ms(lambda: ck.weighted_average_clients_reference(
+                x, wt, broadcast)),
+            "back_to_back_ms": time_back_to_back_ms(
+                lambda: ck.weighted_average_clients(x, wt, broadcast)),
+            "bound_ms": b, "bound_by": by}
+        out = torch.empty((8, d8) if broadcast else (d8,), device=dev)
+        # The plan beside its neighbours, a warp fewer and a warp more.
+        modes[mode]["ms_by_threads"] = {
+            t: time_ms(lambda: ck._launch_wavg(x, wt, out, broadcast, t))
+            for t in (threads - 32, threads, threads + 32)
+            if 32 <= t <= ck.WAVG_MAX_THREADS}
+    avg, bc = modes["average"], modes["broadcast"]
+    avg["library_ms"] = time_ms(lambda: torch.matmul(wn, x))
+    bc["composed_ms"] = time_ms(composed)
+    for mode, r in modes.items():
+        print(f"time K1 {mode} (8, {d8}): kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library {r.get('library_ms')}  "
+              f"composed {r.get('composed_ms')}  back to back "
+              f"{r['back_to_back_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}); by threads a block "
+              f"{json.dumps(r['ms_by_threads'])}", flush=True)
+    # The row's own numbers are the (D,) mode's, as in every earlier
+    # kernels line; the broadcast mode and the chain it replaces in the
+    # round sit beside them.
+    return {"max_abs_err": err, **avg, "composed_ms": bc.pop("composed_ms"),
+            "modes": {"broadcast": bc},
+            "plan": {"threads": threads, "blocks": blocks}}
+
+
+def k3_checks(gen: torch.Generator, dev: torch.device) -> dict:
+    """K3 fused_mlp_forward against its plain version (1e-4) at the
+    held-out split (2,000 rows), N = 100 and 1, a ragged 2,001, 100,000
+    (several waves), a one-layer model and a wide one (the plan falls to a
+    smaller tile at 100,000); two launches bitwise equal. Then timed at
+    2,000 rows under its plan and its nearest tiles and block sizes."""
+    from fedtpu_torch.models.mlp import mlp_init, param_count
+    from fedtpu_torch.ops import cuda_kernels as ck
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    models = {}
+    err = 0.0
+    for dims, n in ((INCOME_DIMS, 2000), (INCOME_DIMS, 100), (INCOME_DIMS, 1),
+                    (INCOME_DIMS, 2001), (INCOME_DIMS, 100_000),
+                    ((14, 2), 2000), ((14, 50, 400, 2), 2000),
+                    ((14, 50, 400, 2), 100_000)):
+        if dims not in models:
+            models[dims] = mlp_init(gen, dims[0], dims[1:-1], dims[-1]).to(dev)
+        flat = models[dims]
+        xt = torch.randn(n, dims[0], generator=gen).to(dev)
+        out = ck.fused_mlp_forward(flat, dims, xt)
+        again = ck.fused_mlp_forward(flat, dims, xt)
+        ref = ck.fused_mlp_forward_reference(flat, dims, xt)
+        torch.cuda.synchronize()
+        e = float((out - ref).abs().max())
+        check(out.shape == ref.shape and e <= 1e-4,
+              f"K3 {dims} at N={n}: max abs err {e} > 1e-4")
+        check(torch.equal(out, again),
+              f"K3 {dims} at N={n}: two launches differ")
+        rows, threads, nbytes, blocks = ck._forward_plan(
+            n, param_count(dims), dims, sms)
+        print(f"K3 fused_mlp_forward {dims} N={n}: max abs err {e:.3e}, two "
+              f"launches bitwise equal; plan {rows}-row tiles, {threads} "
+              f"threads, {blocks} blocks, {nbytes} bytes", flush=True)
+        err = max(err, e)
+    flat = models[INCOME_DIMS]
+    xt = torch.randn(2000, INCOME_DIMS[0], generator=gen).to(dev)
+    d = param_count(INCOME_DIMS)
+    rows, threads, nbytes, blocks = ck._forward_plan(2000, d, INCOME_DIMS,
+                                                     sms)
+    check(blocks >= 125, f"K3 plan at N=2000: {blocks} blocks < 125")
+    nb = 4 * (flat.numel() + xt.numel() + 2000 * INCOME_DIMS[-1])
+    b, by = bound_ms(nb, mlp_flops(INCOME_DIMS, 2000))
+    out = torch.empty(2000, INCOME_DIMS[-1], device=dev)
+    by_tile = {}
+    # The plan beside its neighbours: half and twice the tile, and two
+    # warps fewer and more.
+    for r, t in ((rows, threads), (rows // 2, threads), (rows * 2, threads),
+                 (rows, threads - 64), (rows, threads + 64)):
+        if r >= 1 and 32 <= t <= ck.THREADS_MAX:
+            by_tile[f"{r}x{t}"] = time_ms(lambda: ck._launch_forward(
+                flat, INCOME_DIMS, xt, out, r, t,
+                ck._forward_bytes(d, INCOME_DIMS, r)))
+    row = {"max_abs_err": err,
+           "ms": time_ms(lambda: ck.fused_mlp_forward(flat, INCOME_DIMS, xt)),
+           "plain_ms": time_ms(lambda: ck.fused_mlp_forward_reference(
+               flat, INCOME_DIMS, xt)),
+           "library_ms": None, "bound_ms": b, "bound_by": by,
+           "back_to_back_ms": time_back_to_back_ms(
+               lambda: ck.fused_mlp_forward(flat, INCOME_DIMS, xt)),
+           "plan": {"rows": rows, "threads": threads, "blocks": blocks,
+                    "smem_bytes": nbytes},
+           "ms_by_tile_x_threads": by_tile}
+    print(f"K3 plan at N=2000: {rows}-row tiles, {threads} threads, {blocks} "
+          f"blocks on {sms} SMs; kernel time by tile x threads "
+          f"{json.dumps(by_tile)}", flush=True)
+    return row
 
 
 def k4_checks(gen: torch.Generator, dev: torch.device) -> dict:
@@ -736,9 +867,11 @@ def main() -> None:
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            **{key: t[key] for key in ("by_shape", "composed_round_device_ms",
-                                       "marginal_us_per_round", "profile")
-               if key in t}})
+            **{key: t[key] for key in (
+                "by_shape", "modes", "composed_ms", "plan", "back_to_back_ms",
+                "empty_launch_ms", "empty_back_to_back_ms", "ms_by_threads",
+                "ms_by_tile_x_threads", "composed_round_device_ms",
+                "marginal_us_per_round", "profile") if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

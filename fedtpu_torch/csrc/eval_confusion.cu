@@ -22,12 +22,12 @@
 //   it is all zero: padding adds nothing to the counts. The mask is read,
 //   not assumed to be padded at the tail.
 // - A live block stages its client's parameters (45 KB at 14->50->200->2)
-//   global -> shared with one bulk asynchronous copy (cp.async.bulk,
-//   completion on an mbarrier; plain loads for a head and tail that are not
-//   16-byte aligned), while its x tile comes in with cp.async.
+//   global -> shared with one bulk asynchronous copy on an mbarrier, while
+//   its x tile comes in with cp.async (ft_stage_begin / ft_stage_end in
+//   mlp_forward.cuh, shared with K3).
 // - The forward is register-tiled (ft_mlp_tile_forward_regs in
-//   mlp_forward.cuh) with the FMA order of K3's forward, so its logits, and
-//   the counts, are bit for bit those built from K3's logits.
+//   mlp_forward.cuh), K3's forward, so its logits, and the counts, are bit
+//   for bit those built from K3's logits.
 // - First maximum of each row (strict '>', NaN counts as the maximum, as
 //   torch.argmax); (label, prediction) pairs of unmasked rows are counted in
 //   shared memory, then one global atomicAdd per non-zero cell. Masks are
@@ -41,13 +41,8 @@
 // (fedtpu_torch/ops/cuda_kernels.py) picks the tile and the byte count;
 // ft_eval_confusion refuses a byte count that does not hold this layout.
 #include <algorithm>
-#include <cstdint>
 
 #include "mlp_forward.cuh"
-
-__device__ __forceinline__ uint32_t ft_smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __global__ void __launch_bounds__(FT_THREADS, 2)
 ft_eval_confusion_kernel(const float* __restrict__ params, int num_params,
@@ -65,63 +60,18 @@ ft_eval_confusion_kernel(const float* __restrict__ params, int num_params,
   if (!__syncthreads_or(threadIdx.x < rows && mask[g0 + threadIdx.x] != 0.f))
     return;
 
-  // Parameters: [0, head) and [head + bulk, num_params) by plain loads, the
-  // 16-byte aligned middle by one bulk copy. p is placed so that p + head is
-  // 16-byte aligned in shared memory, as the source is in global memory.
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  const float* src = params + (size_t)c * num_params;
-  const int head =
-      min(num_params, (int)((16 - ((uintptr_t)src & 15)) & 15) / 4);
-  const int bulk = (num_params - head) & ~3;
-  float* p = smem + 4 + ((4 - head) & 3);
-  float* xt = smem + 4 + ft_round4(num_params + 3);
+  float* xt = smem + ft_stage_floats(num_params);
   float* act0 = xt + rows_per * din;
   float* act1 = act0 + rows_per * ldmax;
   float* counts = act1 + rows_per * ldmax;
-  if (threadIdx.x == 0 && bulk > 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                     ft_smem_addr(bar))
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                     "r"(ft_smem_addr(bar)),
-                 "r"(bulk * 4)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(ft_smem_addr(p + head)),
-        "l"(src + head), "r"(bulk * 4), "r"(ft_smem_addr(bar))
-        : "memory");
-  }
-  // The x tile, 4 bytes per cp.async (its rows have any alignment).
-  const float* xg = x + g0 * din;
-  for (int i = threadIdx.x; i < rows * din; i += blockDim.x)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     ft_smem_addr(xt + i)),
-                 "l"(xg + i)
-                 : "memory");
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  for (int i = threadIdx.x; i < head; i += blockDim.x) p[i] = src[i];
-  for (int i = head + bulk + threadIdx.x; i < num_params; i += blockDim.x)
-    p[i] = src[i];
+  const FtStage st =
+      ft_stage_begin(smem, params + (size_t)c * num_params, num_params, xt,
+                     x + g0 * din, rows * din);
   for (int i = threadIdx.x; i < k * k; i += blockDim.x) counts[i] = 0.f;
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  // Every thread's x, head, tail and counts are in place, and the mbarrier
-  // is initialised before any thread waits on it.
-  __syncthreads();
-  if (bulk > 0) {
-    uint32_t done = 0;
-    while (!done)
-      asm volatile(
-          "{\n .reg .pred r;\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 r, [%1], 0;\n"
-          " selp.u32 %0, 1, 0, r;\n}\n"
-          : "=r"(done)
-          : "r"(ft_smem_addr(bar))
-          : "memory");
-  }
+  ft_stage_end(smem, st);
 
-  const float* logits = ft_mlp_tile_forward_regs(p, md, rows, xt, act0, act1);
+  const float* logits =
+      ft_mlp_tile_forward_regs(st.p, md, rows, xt, act0, act1);
   const int ldk = ft_act_stride(k);
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     const float* h = logits + r * ldk;
@@ -163,7 +113,7 @@ extern "C" int ft_eval_confusion(const float* params, int num_params,
     ldmax = std::max(ldmax, ft_act_stride(dims[l]));
   const int k = dims[n_layers];
   const size_t need =
-      sizeof(float) * (4 + (size_t)ft_round4(num_params + 3) +
+      sizeof(float) * ((size_t)ft_stage_floats(num_params) +
                        (size_t)rows_per_block * (dims[0] + 2 * ldmax) +
                        (size_t)k * k);
   if (smem_bytes < 0 || need > (size_t)smem_bytes)

@@ -1,59 +1,97 @@
-// K3: fused MLP forward of one model -> logits.
+// K3: fused MLP forward of one model -> logits, over the whole card.
 //
 // Replaces: fedtpu/ops/pallas_kernels.py::fused_mlp_forward (_mlp_kernel),
 // the held-out eval's forward of the global model.
 //
-// Bound on the card: fp32 CUDA-core work, 2 * N * sum(in*out) flops (the
-// held-out split, N = 2,000 at 14->50->200->2: ~44 MFLOP, ~0.7 us at
-// 67 TFLOP/s); it reads 112 KB of x and writes 16 KB of logits. Launch
-// latency is larger than both, so the design is one launch that keeps every
-// hidden activation out of device memory.
+// Bound on the card: fp32 CUDA-core work, 2 * N * sum(in*out) + N * sum(out)
+// flops (the held-out split, N = 2,000 at 14->50->200->2: 44.9 MFLOP,
+// 0.67 us at 67 TFLOP/s); it reads 112 KB of x and 45 KB of parameters and
+// writes 16 KB of logits. Launch latency and one pass of parameter staging
+// are larger than both, so the design keeps every hidden activation on
+// chip, fills the card with row tiles, and stages the parameters without
+// spending threads on the copy.
 //
-// Design: one block per tile of rows. Each block copies the model's flat
-// parameters and its row tile into dynamic shared memory, runs the forward
-// shared with K2 (mlp_forward.cuh), and writes the tile's logits. A ragged N
-// is masked in the kernel (the last tile runs fewer rows); no padding
-// copies, unlike the Pallas pad-and-slice.
+// Design: one block per row tile.
+// - The tile plan is the wrapper's (_forward_plan in
+//   fedtpu_torch/ops/cuda_kernels.py): of the tiles whose block fits in
+//   shared memory, the one that gives the busiest SM the least work, with
+//   one block's parameter copy counted as 8 rows; threads per block, whole
+//   warps up to 256, enough to run the widest layer's 4 x 4 micro-tiles in
+//   two passes. At N = 2,000 that is 16-row tiles, 125 blocks on 132 SMs,
+//   128 threads each (the fastest of 16 tile x thread pairs that
+//   chip_smoke.py times).
+// - A block stages the model's parameters global -> shared with one bulk
+//   asynchronous copy on an mbarrier and its x tile with cp.async
+//   (ft_stage_begin / ft_stage_end in mlp_forward.cuh, shared with K2).
+// - The forward is register-tiled (ft_mlp_tile_forward_regs): every output
+//   is a sequential fp32 FMA chain from i = 0, then + b, then ReLU, so the
+//   logits are bit for bit those of K2's forward (chip_smoke.py holds K2's
+//   counts equal to the counts built from K3's logits).
+// - A ragged N is masked in the kernel (the last tile runs fewer rows); no
+//   padding copies, unlike the Pallas pad-and-slice.
+//
+// Shared memory (floats): the staging layout of mlp_forward.cuh
+// (ft_stage_floats: a 4-float header and the parameters), one x tile of
+// rows x dims[0], and two activation tiles of rows x the widest layer
+// output at an odd stride. ft_mlp_forward refuses a byte count that does
+// not hold it.
+#include <algorithm>
+
 #include "mlp_forward.cuh"
 
-__global__ void ft_mlp_forward_kernel(const float* __restrict__ params,
-                                      int num_params, MlpDims md,
-                                      const float* __restrict__ x, int n,
-                                      int rows_per_block, int widest,
-                                      float* __restrict__ out) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(FT_THREADS)
+ft_mlp_forward_kernel(const float* __restrict__ params, int num_params,
+                      MlpDims md, const float* __restrict__ x, int n,
+                      int rows_per, int ldmax, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
   const int k = md.dims[md.n_layers];
   const int din = md.dims[0];
-  const int row0 = blockIdx.x * rows_per_block;
-  const int rows = min(rows_per_block, n - row0);
-  float* p = smem;
-  float* buf0 = p + num_params;
-  float* buf1 = buf0 + rows_per_block * widest;
+  const long long row0 = (long long)blockIdx.x * rows_per;
+  const int rows = (int)min((long long)rows_per, n - row0);
+  float* xt = smem + ft_stage_floats(num_params);
+  float* act0 = xt + rows_per * din;
+  float* act1 = act0 + rows_per * ldmax;
+  const FtStage st =
+      ft_stage_begin(smem, params, num_params, xt, x + row0 * din, rows * din);
+  ft_stage_end(smem, st);
 
-  ft_copy_to_shared(p, params, num_params);
-  ft_copy_to_shared(buf0, x + (size_t)row0 * din, rows * din);
-  __syncthreads();
-
-  const float* logits = ft_mlp_tile_forward(p, md, rows, buf0, buf1);
-  for (int i = threadIdx.x; i < rows * k; i += blockDim.x)
-    out[(size_t)row0 * k + i] = logits[i];
+  const float* logits =
+      ft_mlp_tile_forward_regs(st.p, md, rows, xt, act0, act1);
+  const int ldk = ft_act_stride(k);
+  for (int i = threadIdx.x; i < rows * k; i += blockDim.x) {
+    const int r = i / k;
+    out[row0 * k + i] = logits[r * ldk + (i - r * k)];
+  }
 }
 
 // params (num_params,), x (n, dims[0]), out (n, K); dims is a host array of
-// n_layers + 1. Returns the cudaError_t of the launch.
+// n_layers + 1. rows_per_block, threads and smem_bytes are the wrapper's
+// plan (_forward_plan); threads must be whole warps up to FT_THREADS, and a
+// byte count that does not hold the layout above is refused. Grid: one
+// block per row tile. Returns the cudaError_t of the launch.
 extern "C" int ft_mlp_forward(const float* params, int num_params,
                               const int* dims, int n_layers, const float* x,
-                              int n, int rows_per_block, float* out,
-                              void* stream) {
+                              int n, int rows_per_block, int threads,
+                              int smem_bytes, float* out, void* stream) {
+  if (n < 1 || rows_per_block < 1 || threads < 32 || threads > FT_THREADS ||
+      threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
   int widest;
   const MlpDims md = ft_make_dims(dims, n_layers, &widest);
-  const size_t smem = ft_tile_smem_bytes(num_params, rows_per_block, widest, 0);
+  int ldmax = 0;
+  for (int l = 1; l <= n_layers; ++l)
+    ldmax = std::max(ldmax, ft_act_stride(dims[l]));
+  const size_t need =
+      sizeof(float) * ((size_t)ft_stage_floats(num_params) +
+                       (size_t)rows_per_block * (dims[0] + 2 * ldmax));
+  if (smem_bytes < 0 || need > (size_t)smem_bytes)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       ft_mlp_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + rows_per_block - 1) / rows_per_block);
-  ft_mlp_forward_kernel<<<grid, FT_THREADS, smem, (cudaStream_t)stream>>>(
-      params, num_params, md, x, n, rows_per_block, widest, out);
+  ft_mlp_forward_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      params, num_params, md, x, n, rows_per_block, ldmax, out);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,17 @@
-// Device-side MLP forwards for the eval kernels: the Linear -> ReLU -> ... ->
-// Linear stack of one model over a tile of rows, with the model's flat
-// parameters and the activation buffers in shared memory.
-// ft_mlp_tile_forward (K3, mlp_forward.cu) computes one output per thread;
-// ft_mlp_tile_forward_regs (K2, eval_confusion.cu; K5's eval, fused_round.cu)
-// is register-tiled, with the same arithmetic.
+// Device-side pieces of the eval kernels: the Linear -> ReLU -> ... ->
+// Linear stack of one model over a tile of rows, register-tiled
+// (ft_mlp_tile_forward_regs: K2 eval_confusion.cu, K3 mlp_forward.cu, K5's
+// train forward and eval, fused_round.cu), and the staging of one model's
+// parameters and one x tile into shared memory (ft_stage_begin /
+// ft_stage_end: K2 and K3).
 //
 // Flat parameter layout (fedtpu_torch/models/mlp.py): for each layer, w as
 // (in, out) row-major, then b (out).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #define FT_MAX_LAYERS 16
 #define FT_THREADS 256
@@ -27,52 +29,12 @@ __device__ __forceinline__ void ft_copy_to_shared(float* dst,
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
-// Forward of `rows` rows held in `buf0` (stride dims[0]) through the model
-// whose parameters are at `p`; returns the buffer (buf0 or buf1) that holds
-// the logits. Activations of a layer with width o are stored row-major at
-// stride o, the logits at stride dims[n_layers]. The caller must
-// __syncthreads() after filling `p` and `buf0`; the result is visible to the
-// whole block on return.
-// Each output is a sequential fp32 FMA chain over the inputs, plus the bias,
-// then ReLU on hidden layers (NaN passes through ReLU, as torch.relu).
-__device__ __forceinline__ float* ft_mlp_tile_forward(const float* p,
-                                                      const MlpDims& md,
-                                                      int rows, float* buf0,
-                                                      float* buf1) {
-  float* cur = buf0;
-  float* nxt = buf1;
-  int off = 0;
-  for (int l = 0; l < md.n_layers; ++l) {
-    const int in = md.dims[l];
-    const int out = md.dims[l + 1];
-    const float* w = p + off;
-    off += in * out;
-    const float* b = p + off;
-    off += out;
-    const bool relu = l < md.n_layers - 1;
-    for (int idx = threadIdx.x; idx < rows * out; idx += blockDim.x) {
-      const int r = idx / out;
-      const int j = idx - r * out;
-      const float* h = cur + r * in;
-      float acc = 0.f;
-      for (int i = 0; i < in; ++i) acc = fmaf(h[i], w[i * out + j], acc);
-      acc += b[j];
-      nxt[idx] = (relu && acc < 0.f) ? 0.f : acc;
-    }
-    __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  return cur;
-}
-
-// Register-tiled forward, used by K2 (eval_confusion.cu).
+// Register-tiled forward.
 //
-// Same arithmetic as ft_mlp_tile_forward, output by output: a fp32 FMA chain
-// over the inputs from i = 0 up, starting at 0, then + bias, then ReLU on
-// hidden layers. So its logits are bit for bit those of ft_mlp_tile_forward
-// (K3) on the same rows. What differs is the schedule: each thread owns a
+// Each output is a sequential fp32 FMA chain over the inputs from i = 0 up,
+// starting at 0, then + bias, then ReLU on hidden layers (NaN passes through
+// ReLU, as torch.relu). So K2's and K3's logits of the same rows are bit
+// for bit equal, whatever tile either runs. The schedule: each thread owns a
 // micro-tile of TR rows x TJ outputs with TR * TJ independent accumulators,
 // so one shared-memory load of an activation feeds TJ FMAs and one load of a
 // weight feeds TR. A thread's outputs are interleaved (j = jt + q * groups),
@@ -182,12 +144,87 @@ __device__ __forceinline__ const float* ft_mlp_tile_forward_regs(
   return cur;
 }
 
-// Shared memory one tile needs: the parameters, two activation buffers of
-// rows x widest, and `extra` floats.
-static inline size_t ft_tile_smem_bytes(int num_params, int rows, int widest,
-                                        int extra) {
-  return sizeof(float) *
-         ((size_t)num_params + 2 * (size_t)rows * widest + (size_t)extra);
+// Staging of one model's parameters and one x tile into shared memory, for
+// a block that then runs ft_mlp_tile_forward_regs on the tile.
+//
+// Layout at `smem` (16-byte aligned): a 4-float header (the mbarrier), then
+// ft_round4(count + 3) floats that hold the `count` parameters, placed so
+// that their 16-byte aligned middle lies on a 16-byte boundary as it does
+// in global memory. The 16-byte aligned middle comes in with one bulk
+// asynchronous copy (cp.async.bulk, completion on the mbarrier), the head
+// and tail that are not 16-byte aligned with plain loads, the x tile with
+// cp.async (4 bytes each: its rows may have any alignment). No thread
+// spends registers on the bulk of the copy.
+// Floats the staging layout takes ahead of whatever follows it (the x
+// tile): the header and the parameters with their alignment slack.
+__host__ __device__ __forceinline__ int ft_stage_floats(int count) {
+  return 4 + ft_round4(count + 3);
+}
+
+__device__ __forceinline__ uint32_t ft_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+struct FtStage {
+  float* p;    // the parameters in shared memory
+  bool bulk;   // a bulk copy is in flight on the mbarrier
+};
+
+// Issues the copies; every thread of the block must call it, then
+// ft_stage_end. Between the two the block may write other shared memory.
+__device__ __forceinline__ FtStage ft_stage_begin(float* smem,
+                                                  const float* src, int count,
+                                                  float* xt, const float* xg,
+                                                  int xcount) {
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const int head = min(count, (int)((16 - ((uintptr_t)src & 15)) & 15) / 4);
+  const int bulk = (count - head) & ~3;
+  float* p = smem + 4 + ((4 - head) & 3);
+  if (threadIdx.x == 0 && bulk > 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     ft_smem_addr(bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                     "r"(ft_smem_addr(bar)),
+                 "r"(bulk * 4)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(ft_smem_addr(p + head)),
+        "l"(src + head), "r"(bulk * 4), "r"(ft_smem_addr(bar))
+        : "memory");
+  }
+  for (int i = threadIdx.x; i < xcount; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     ft_smem_addr(xt + i)),
+                 "l"(xg + i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = threadIdx.x; i < head; i += blockDim.x) p[i] = src[i];
+  for (int i = head + bulk + threadIdx.x; i < count; i += blockDim.x)
+    p[i] = src[i];
+  return {p, bulk > 0};
+}
+
+// Waits for ft_stage_begin's copies. On return the parameters, the x tile
+// and whatever the block wrote to shared memory in between are visible to
+// the whole block. The __syncthreads() also puts the mbarrier's init before
+// any thread's wait on it, which the wait needs.
+__device__ __forceinline__ void ft_stage_end(float* smem, const FtStage& st) {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if (st.bulk) {
+    uint32_t done = 0;
+    while (!done)
+      asm volatile(
+          "{\n .reg .pred r;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 r, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, r;\n}\n"
+          : "=r"(done)
+          : "r"(ft_smem_addr(smem))
+          : "memory");
+  }
 }
 
 static inline MlpDims ft_make_dims(const int* dims, int n_layers,

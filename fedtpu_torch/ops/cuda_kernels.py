@@ -21,6 +21,7 @@ client-stacked as ``(C, D)``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -39,7 +40,15 @@ LAUNCHES = {"weighted_average_clients": 0, "fused_eval_confusion": 0,
 SMEM_BYTES_MAX = 232_448
 MAX_LAYERS = 16           # FT_MAX_LAYERS in csrc/mlp_forward.cuh
 MAX_CLASSES = 8
-_ROW_TILES = (32, 16, 8, 4, 2, 1)
+_ROW_TILES = (32, 16, 8, 4, 2, 1)          # K2's row tiles
+_FORWARD_TILES = (64, 32, 16, 8, 4, 2, 1)  # K3's
+# K3's plan counts one block's parameter copy as this many rows of its
+# forward: both grow with the parameter count (4 bytes a parameter over an
+# SM's ~64 bytes/clock of L2 reads, against 2 flops a parameter a row over
+# its 256 fp32 flops/clock).
+_STAGING_ROWS = 8
+WAVG_MAX_THREADS = 256    # FT_WAVG_MAX_THREADS in csrc/weighted_average.cu
+THREADS_MAX = 256         # FT_THREADS in csrc/mlp_forward.cuh
 RING_MAX_SHARDS = 64      # FT_RING_MAX_SHARDS in csrc/ring_all_reduce.cu
 _ROUND_ROWS = (64, 32, 16, 8, 4, 2, 1)   # FT_ROUND_MAX_ROWS in fused_round.cu
 
@@ -81,29 +90,75 @@ def _check_dims(flat: torch.Tensor, dims: Sequence[int]) -> tuple:
     return dims
 
 
-def _rows_per_block(num_params: int, dims: tuple) -> int:
-    """K3's row tile: the largest whose parameters + two activation buffers
-    fit in a block's shared memory (ft_tile_smem_bytes in mlp_forward.cuh)."""
-    for rows in _ROW_TILES:
-        if 4 * (num_params + 2 * rows * max(dims)) <= SMEM_BYTES_MAX:
-            return rows
-    raise ValueError(
-        f"one model's {num_params} parameters do not fit in a block's "
-        f"{SMEM_BYTES_MAX} bytes of shared memory")
+def _wavg_plan(d: int, sms: int) -> tuple:
+    """K1's launch: ``(threads, blocks)``, one column a thread. A block is
+    whole warps (every warp reduces the weights with shuffles), as few as
+    spread the columns over the most SMs, at most 256."""
+    per_sm = -(-d // sms)
+    threads = min(WAVG_MAX_THREADS, max(32, -(-per_sm // 32) * 32))
+    return threads, -(-d // threads)
+
+
+def _forward_plan(n: int, num_params: int, dims: tuple, sms: int) -> tuple:
+    """K3's schedule for N rows: ``(rows, threads, bytes, blocks)``.
+
+    Of the row tiles whose block fits in shared memory (the layout
+    mlp_forward.cu carves, which refuses a byte count that does not hold
+    it: a 4-float header, the parameters with alignment slack, one x tile
+    and two activation tiles at an odd stride), the one whose busiest SM
+    does the least work, ``ceil(blocks / sms) * (rows + _STAGING_ROWS)``,
+    and the largest of equals. Threads: whole warps, at most 256, enough to
+    run the widest layer's 4 x 4 micro-tiles in two passes (128 at 16 rows
+    of 14->50->200->2: measured fastest there, ``chip_smoke.py``); below 4
+    rows, one output a thread of the widest layer."""
+    fits = [r for r in _FORWARD_TILES
+            if _forward_bytes(num_params, dims, r) <= SMEM_BYTES_MAX]
+    if not fits:
+        raise ValueError(
+            f"one model's {num_params} parameters and a one-row tile do not "
+            f"fit in a block's {SMEM_BYTES_MAX} bytes of shared memory")
+
+    def busiest(rows):
+        blocks = -(-n // rows)
+        return -(-blocks // sms) * (rows + _STAGING_ROWS)
+
+    rows = min(fits, key=lambda r: (busiest(r), -r))
+    widest = max(dims[1:])
+    if rows >= 4:
+        # Two passes of the widest layer's 4 x 4 micro-tiles (ft_layer_regs
+        # takes 4 x 4 only when there are at least as many as threads).
+        micro_tiles = -(-rows // 4) * -(-widest // 4)
+        want = -(-micro_tiles // 2)
+    else:
+        want = rows * widest   # one output a thread: no 4-row micro-tile
+    threads = min(THREADS_MAX, max(32, -(-want // 32) * 32))
+    return (rows, threads, _forward_bytes(num_params, dims, rows),
+            -(-n // rows))
+
+
+def _forward_bytes(num_params: int, dims: tuple, rows: int) -> int:
+    """Shared memory of one K3 block at a row tile of ``rows``: the staging
+    layout of mlp_forward.cuh (a 4-float header, the parameters with 3
+    floats of alignment slack rounded up to 4), one x tile and two
+    activation tiles at the widest layer's odd stride."""
+    ld = max(d | 1 for d in dims[1:])
+    return 4 * (4 + (num_params + 6) // 4 * 4 + rows * (dims[0] + 2 * ld))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _eval_plan(num_params: int, dims: tuple) -> tuple:
     """K2's row tile and shared memory: ``(rows, bytes)`` for the largest
     row tile whose block fits. The layout is the one eval_confusion.cu
-    carves, which refuses a byte count that does not hold it: a 4-float
-    header, the parameters with alignment slack, one x tile, two activation
-    tiles at an odd stride, and the K x K counts."""
-    params = (num_params + 3 + 3) // 4 * 4
-    ld = max(d | 1 for d in dims[1:])
+    carves, which refuses a byte count that does not hold it: K3's
+    (``_forward_bytes``) and the K x K counts."""
     for rows in _ROW_TILES:
-        floats = 4 + params + rows * (dims[0] + 2 * ld) + dims[-1] ** 2
-        if 4 * floats <= SMEM_BYTES_MAX:
-            return rows, 4 * floats
+        nbytes = _forward_bytes(num_params, dims, rows) + 4 * dims[-1] ** 2
+        if nbytes <= SMEM_BYTES_MAX:
+            return rows, nbytes
     raise ValueError(
         f"one model's {num_params} parameters and a one-row tile do not fit "
         f"in a block's {SMEM_BYTES_MAX} bytes of shared memory")
@@ -148,32 +203,55 @@ def _dims_arg(dims: tuple):
 
 # ---------------------------------------------------------------- K1: FedAvg
 def weighted_average_clients_reference(stacked: torch.Tensor,
-                                       weights: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: ``sum_c (w_c / max(sum w, 1e-30)) * x_c``."""
+                                       weights: torch.Tensor,
+                                       broadcast: bool = False
+                                       ) -> torch.Tensor:
+    """Plain version of K1: ``sum_c (w_c / max(sum w, 1e-30)) * x_c``; with
+    ``broadcast``, that average in every row of a fresh ``(C, D)``, or a
+    copy of ``stacked`` where ``sum w`` is not > 0."""
     wn = weights / weights.sum().clamp_min(1e-30)
-    return (wn[:, None] * stacked).sum(dim=0)
+    glob = (wn[:, None] * stacked).sum(dim=0)
+    if not broadcast:
+        return glob
+    return torch.where(weights.sum() > 0, glob.expand_as(stacked), stacked)
 
 
-def weighted_average_clients(stacked: torch.Tensor,
-                             weights: torch.Tensor) -> torch.Tensor:
+def weighted_average_clients(stacked: torch.Tensor, weights: torch.Tensor,
+                             broadcast: bool = False) -> torch.Tensor:
     """Weighted average over the clients axis of ``stacked (C, D)`` with
-    ``weights (C,)`` -> ``(D,)``: the FedAvg aggregation."""
+    ``weights (C,)``: the FedAvg aggregation, as a fresh ``(D,)``; or, with
+    ``broadcast``, a fresh ``(C, D)`` that holds it in every client slot, or
+    the zero-participant carry-over (``stacked`` itself, bit for bit) when
+    the weights sum to 0 or less, decided on the device.
+
+    On the card: one launch of K1 in either mode, no host read."""
     dev = _device(stacked, weights)
+    if stacked.dim() != 2:
+        raise ValueError(f"stacked must be (clients, D), got shape "
+                         f"{tuple(stacked.shape)}")
     c, d = stacked.shape
     _check(stacked, "stacked", torch.float32, (c, d))
     _check(weights, "weights", torch.float32, (c,))
     if dev.type == "cpu":
-        return weighted_average_clients_reference(stacked, weights)
-    if 4 * (c + 1) > 48 * 1024:
-        raise ValueError(f"{c} clients: the normalised weights must fit in "
-                         "48 KB of shared memory")
-    out = torch.empty(d, dtype=torch.float32, device=dev)
-    if d == 0:
+        return weighted_average_clients_reference(stacked, weights, broadcast)
+    out = torch.empty((c, d) if broadcast else (d,), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
         return out
-    _launch("ft_weighted_average", dev, stacked.data_ptr(),
-            weights.data_ptr(), c, d, out.data_ptr())
-    LAUNCHES["weighted_average_clients"] += 1
+    threads, _ = _wavg_plan(d, _sm_count(dev.index or 0))
+    _launch_wavg(stacked, weights, out, broadcast, threads)
     return out
+
+
+def _launch_wavg(stacked: torch.Tensor, weights: torch.Tensor,
+                 out: torch.Tensor, broadcast: bool, threads: int) -> None:
+    """K1's launch at a given block size (the wrapper's plan, or another
+    for timing); every launch counts."""
+    c, d = stacked.shape
+    _launch("ft_weighted_average", stacked.device, stacked.data_ptr(),
+            weights.data_ptr(), c, d, int(broadcast), threads,
+            out.data_ptr())
+    LAUNCHES["weighted_average_clients"] += 1
 
 
 # ------------------------------------------------ K2: fused eval -> confusion
@@ -234,7 +312,9 @@ def fused_mlp_forward_reference(flat: torch.Tensor, dims: Sequence[int],
 def fused_mlp_forward(flat: torch.Tensor, dims: Sequence[int],
                       x: torch.Tensor) -> torch.Tensor:
     """Logits ``(N, K)`` of one model ``flat (D,)`` on ``x (N, dims[0])``;
-    any N."""
+    any N.
+
+    On the card: one launch of K3 over the row tiles of ``_forward_plan``."""
     dev = _device(flat, x)
     dims = _check_dims(flat, dims)
     n = x.shape[0]
@@ -245,13 +325,22 @@ def fused_mlp_forward(flat: torch.Tensor, dims: Sequence[int],
     out = torch.empty((n, dims[-1]), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    rows = _rows_per_block(param_count(dims), dims)
-    dims_arg = _dims_arg(dims)
-    _launch("ft_mlp_forward", dev, flat.data_ptr(), param_count(dims),
-            ctypes.addressof(dims_arg), len(dims) - 1, x.data_ptr(), n, rows,
-            out.data_ptr())
-    LAUNCHES["fused_mlp_forward"] += 1
+    plan = _forward_plan(n, param_count(dims), dims,
+                         _sm_count(dev.index or 0))
+    _launch_forward(flat, dims, x, out, *plan[:3])
     return out
+
+
+def _launch_forward(flat: torch.Tensor, dims: tuple, x: torch.Tensor,
+                    out: torch.Tensor, rows: int, threads: int,
+                    nbytes: int) -> None:
+    """K3's launch at a given tile, threads and shared memory (the
+    wrapper's plan, or another for timing); every launch counts."""
+    dims_arg = _dims_arg(dims)
+    _launch("ft_mlp_forward", x.device, flat.data_ptr(), param_count(dims),
+            ctypes.addressof(dims_arg), len(dims) - 1, x.data_ptr(),
+            x.shape[0], rows, threads, nbytes, out.data_ptr())
+    LAUNCHES["fused_mlp_forward"] += 1
 
 
 # ------------------------------------------------ K4: ring all-reduce (sum)
@@ -334,8 +423,8 @@ def fused_round_reference(params: torch.Tensor, mu: torch.Tensor,
     conf = fused_eval_confusion_reference(trained, dims, x, y, mask, k)
     # 5. The weighted average into every slot; trained params carry over
     #    when the weights sum to 0.
-    glob = weighted_average_clients_reference(trained, weights)
-    new = torch.where(weights.sum() > 0, glob.expand_as(trained), trained)
+    new = weighted_average_clients_reference(trained, weights,
+                                             broadcast=True)
     return new, state["mu"], state["nu"], state["count"], loss, conf
 
 

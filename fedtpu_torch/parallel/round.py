@@ -15,9 +15,10 @@ Per round, in the reference's order (FL_CustomMLP...:145-198):
 
 The average has three backends (``FedConfig.aggregation``):
 
-- ``psum``: K1 (``weighted_average_clients``) over the whole ``(C, D)``
-  stack, whatever the mesh. Neither this nor XLA's psum has a shard order
-  to honour.
+- ``psum``: K1 (``weighted_average_clients`` in broadcast mode) over the
+  whole ``(C, D)`` stack, whatever the mesh: one launch writes the average
+  into every slot and decides the carry-over. Neither this nor XLA's psum
+  has a shard order to honour.
 - ``ring`` / ``ring-rsag``: ``fedtpu``'s formula over the clients mesh
   (``fedtpu_torch.parallel.mesh``). Each shard's partial sum
   ``sum_{i in shard} w_i p_i`` (one batched matmul) with the shard's weight
@@ -139,8 +140,7 @@ def build_round_fn(dims: Sequence[int], tx: Optimizer, num_classes: int,
                             for j in range(rounds_per_step)]).to(dev)
 
     def psum_average(params, w):
-        glob = weighted_average_clients(params, w)
-        return torch.where(w.sum() > 0, glob.expand_as(params), params)
+        return weighted_average_clients(params, w, broadcast=True)
 
     def ring_average(params, w):
         d = params.shape[1]

@@ -1,8 +1,9 @@
 """The plain versions of fedtpu_torch's CUDA kernels against fedtpu's Pallas
 kernels (interpret mode, as tests/test_pallas.py runs them), and the fused
-whole round's plain version (K5) against fedtpu's own round components. On
-the CPU each wrapper takes its plain version. The tests marked ``cuda`` hold
-K2 and K5 themselves on the card and skip without one; chip_smoke.py holds
+whole round's plain version (K5) against fedtpu's own round components; the
+host-side launch plans of K1, K2 and K3. On the CPU each wrapper takes its
+plain version. The tests marked ``cuda`` hold K1, K2, K3 and K5 themselves
+on the card and skip without one; chip_smoke.py holds
 every kernel against its plain version at the main paths' shapes (this
 suite needs JAX, which the card's machine does not have)."""
 
@@ -57,6 +58,82 @@ def test_weighted_average_plain_matches_pallas(c, d, zero):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
     # The plain version ran: no kernel launch was counted.
     assert ck.LAUNCHES["weighted_average_clients"] == before
+
+
+@pytest.mark.parametrize("c,d,zeros", [(8, 11352, 0), (2, 97, 1),
+                                       (8, 11352, 8), (3, 1, 3)])
+def test_weighted_average_broadcast_plain_matches_fedtpu_formula(c, d, zeros):
+    """K1's broadcast mode against fedtpu's Pallas average (interpret mode)
+    followed by the round's ``jnp.where(total > 0, broadcast, p)``
+    (fedtpu/parallel/round.py:874): the average in every slot, a zero
+    weight included; with every weight 0, the input bit for bit."""
+    rng = np.random.default_rng(c * d + zeros)
+    stacked = rng.normal(size=(c, d)).astype(np.float32)
+    w = rng.integers(1, 40, size=c).astype(np.float32)
+    w[:zeros] = 0.0
+    p = jnp.asarray(stacked)
+    avg = pl_wavg(p, jnp.asarray(w), interpret=True)
+    ref = np.asarray(jnp.where(jnp.asarray(w).sum() > 0,
+                               jnp.broadcast_to(avg, p.shape), p))
+    before = ck.LAUNCHES["weighted_average_clients"]
+    x = torch.from_numpy(stacked)
+    out = ck.weighted_average_clients(x, torch.from_numpy(w), broadcast=True)
+    assert ck.LAUNCHES["weighted_average_clients"] == before
+    assert out.shape == (c, d) and out.data_ptr() != x.data_ptr()
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    if zeros == c:
+        assert torch.equal(out, x)
+    else:
+        assert bool((out == out[0]).all())
+
+
+@pytest.mark.parametrize("d,plan", [(11352, (96, 119)), (97, (32, 4)),
+                                    (1, (32, 1)), (1_000_000, (256, 3907))])
+def test_wavg_plan_spreads_the_columns_over_the_sms(d, plan):
+    """K1's block: whole warps, as few as spread the columns (one a thread)
+    over the 132 SMs, at most 256 threads."""
+    threads, blocks = ck._wavg_plan(d, 132)
+    assert (threads, blocks) == plan
+    assert threads % 32 == 0 and threads * blocks >= d
+
+
+@pytest.mark.parametrize("dims,n,plan", [
+    (INCOME_DIMS, 1, (1, 224, 1)),
+    (INCOME_DIMS, 2000, (16, 128, 125)),
+    (INCOME_DIMS, 2001, (16, 128, 126)),
+    (INCOME_DIMS, 100_000, (64, 256, 1563)),
+    ((14, 2), 2000, (16, 32, 125)),
+    ((14, 50, 400, 2), 100_000, (32, 256, 3125)),
+    ((14, 220, 200, 2), 100_000, (16, 128, 6250)),
+    ((14, 60000, 2), 2000, None),
+])
+def test_forward_plan_fills_the_card_or_raises(dims, n, plan):
+    """K3's host-side plan: of the row tiles whose block fits in shared
+    memory, the one that gives the busiest of 132 SMs the least work (a
+    block's parameter copy counted as 8 rows), the largest of equals; whole
+    warps of threads, at most 256, for two passes of the widest layer's
+    4 x 4 micro-tiles, or one output a thread below 4 rows.
+    At the held-out split's N = 2,000 the grid has at least 125 blocks; a
+    wide model falls to a smaller tile; a model whose parameters do not fit
+    raises."""
+    num_params = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    if plan is None:
+        with pytest.raises(ValueError, match="do not fit"):
+            ck._forward_plan(n, num_params, dims, 132)
+        return
+    rows, threads, nbytes, blocks = ck._forward_plan(n, num_params, dims, 132)
+    assert (rows, threads, blocks) == plan
+    assert blocks == -(-n // rows) and nbytes <= ck.SMEM_BYTES_MAX
+    ld = max(d | 1 for d in dims[1:])
+    # 4-float header + parameters with alignment slack + x and two
+    # activation tiles: the layout mlp_forward.cu refuses to go below.
+    assert nbytes == 4 * (4 + (num_params + 6) // 4 * 4
+                          + rows * (dims[0] + 2 * ld))
+    bigger = [r for r in ck._FORWARD_TILES if r > rows]
+    if n == 100_000 and bigger:
+        r = min(bigger)
+        assert 4 * (4 + (num_params + 6) // 4 * 4
+                    + r * (dims[0] + 2 * ld)) > ck.SMEM_BYTES_MAX
 
 
 @pytest.mark.parametrize("dims,n,k", [((6, 16, 2), 64, 2),
@@ -176,6 +253,51 @@ def test_eval_kernel_equals_counts_from_k3_logits(cuda, sizes, holes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,d,zeros", [(8, 11352, 0), (2, 97, 1),
+                                       (32, 11352, 0), (3, 1, 0),
+                                       (5, 1001, 0), (8, 11352, 8)])
+def test_weighted_average_kernel_matches_its_plain_version(cuda, c, d, zeros):
+    """K1 on the card, both modes, against the plain version at 1e-5: odd
+    widths, client counts below, at and past the 8-row unroll; with
+    every weight 0 the broadcast mode returns its input bit for bit; two
+    launches are bitwise equal."""
+    gen = torch.Generator().manual_seed(c * d)
+    x = torch.randn(c, d, generator=gen).to(cuda)
+    w = torch.randint(1, 40, (c,), generator=gen).to(torch.float32)
+    w[:zeros] = 0.0
+    w = w.to(cuda)
+    for broadcast in (False, True):
+        before = ck.LAUNCHES["weighted_average_clients"]
+        out = ck.weighted_average_clients(x, w, broadcast)
+        again = ck.weighted_average_clients(x, w, broadcast)
+        assert ck.LAUNCHES["weighted_average_clients"] == before + 2
+        ref = ck.weighted_average_clients_reference(x, w, broadcast)
+        assert out.shape == ref.shape and torch.equal(out, again)
+        assert float((out - ref).abs().max()) <= 1e-5
+        if broadcast and zeros == c:
+            assert torch.equal(out, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,n", [(INCOME_DIMS, 2000), (INCOME_DIMS, 2001),
+                                    (INCOME_DIMS, 1), ((14, 2), 2000),
+                                    ((14, 50, 400, 2), 5000)])
+def test_forward_kernel_matches_its_plain_version(cuda, dims, n):
+    """K3 on the card against its plain version at 1e-4, ragged N included;
+    two launches bitwise equal."""
+    gen = torch.Generator().manual_seed(n)
+    flat = mlp_init(gen, dims[0], dims[1:-1], dims[-1]).to(cuda)
+    x = torch.randn(n, dims[0], generator=gen).to(cuda)
+    before = ck.LAUNCHES["fused_mlp_forward"]
+    out = ck.fused_mlp_forward(flat, dims, x)
+    again = ck.fused_mlp_forward(flat, dims, x)
+    assert ck.LAUNCHES["fused_mlp_forward"] == before + 2
+    ref = ck.fused_mlp_forward_reference(flat, dims, x)
+    assert out.shape == (n, dims[-1]) and torch.equal(out, again)
+    assert float((out - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dims,sizes", [(INCOME_DIMS, [64] * 8),
                                         ((6, 8, 5, 3), [40, 23, 0]),
                                         ((4, 7, 2), [33, 33])])
@@ -268,6 +390,11 @@ def _bad_round_inputs():
 
 def test_wrappers_check_shapes_and_types():
     flat = torch.zeros(14 * 2 + 2)
+    with pytest.raises(ValueError, match="clients, D"):
+        ck.weighted_average_clients(torch.zeros(8), torch.ones(8))
+    with pytest.raises(ValueError, match="shape"):
+        ck.weighted_average_clients(torch.zeros((3, 8)), torch.ones(4),
+                                    broadcast=True)
     with pytest.raises(ValueError, match="shape"):
         ck.fused_mlp_forward(flat, (14, 2), torch.zeros((5, 13)))
     with pytest.raises(ValueError, match="need"):

@@ -312,6 +312,27 @@ def test_round_with_no_participants_carries_everything_over(aggregation):
         assert not t_state["opt_state"]["count"].any()
 
 
+@pytest.mark.parametrize("rate", [1.0, 0.5, 1e-9])
+def test_psum_average_is_one_broadcast_k1_call_per_round(monkeypatch, rate):
+    """The psum path averages with one call of K1 in broadcast mode a
+    round, which also decides the carry-over (rate 1e-9: no participant in
+    any round), and the rounds still match fedtpu's, masks injected."""
+    import fedtpu_torch.parallel.round as t_round
+    calls = []
+    real = t_round.weighted_average_clients
+
+    def spy(stacked, weights, broadcast=False):
+        calls.append(broadcast)
+        return real(stacked, weights, broadcast)
+
+    monkeypatch.setattr(t_round, "weighted_average_clients", spy)
+    j_cfg, t_cfg = _sharded_configs("psum", rate=rate)
+    masks = _fedtpu_masks(j_cfg) if rate < 1.0 else None
+    for j_state, t_state, raw, j_conf in _step_both(j_cfg, t_cfg, 3, masks):
+        _assert_round_matches(j_state, t_state, raw, j_conf)
+    assert calls == [True] * 3
+
+
 def test_income32_noniid_ring_run_matches_fedtpu():
     """The whole loop on a small income-32-noniid (2,048 synthetic rows,
     Dirichlet(0.5) shards) with ring aggregation over 8 shards: the same
