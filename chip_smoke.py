@@ -14,12 +14,15 @@ Phases, in order; any failure exits non-zero before the result line:
    broadcast into every slot with the carry-over (every weight 0: the input
    bit for bit), timed beside ``torch.matmul`` and beside the chain the
    broadcast mode replaces; K3 at N = 2,000 (its plan printed), 100, 1,
-   2,001 and 100,000 and on two other models, timed under its plan and
-   its nearest tiles. The eval kernel (K2) is timed at income-8's (8, 1000) batch
-   and at income-32-noniid's tail-padded (32, 1104) one, and must equal the
-   counts built from K3's logits exactly; the ring kernel (K4) must equal
-   its plain version bit for bit, with one allocation and no host sync per
-   call.
+   2,001 and 100,000, on two other models and on two whose parameters do
+   not fit in a block ((256, 256) and (200, 200, 200): the streamed path),
+   timed under its plan and its nearest tiles. The eval kernel (K2) at
+   income-8's (8, 1000) batch, income-32-noniid's tail-padded (32, 1104)
+   one, ten classes, a class count whose K x K tile goes to global memory
+   and the two streamed models, each equal to the counts built from K3's
+   logits exactly, and timed on the income and streamed shapes; the ring
+   kernel (K4) must equal its plain version bit for bit, with one
+   allocation and no host sync per call.
 4. main path: ``run_experiment`` on income-8 (psum; synthetic data at the
    income CSV's 10,000 rows), counting each kernel's launches.
 5. card vs CPU: the same run on the CPU (plain versions), same init.
@@ -31,14 +34,18 @@ Phases, in order; any failure exits non-zero before the result line:
    under client sampling (participation_rate=0.5); then income-8 on the psum
    path under the same sampling (K1 once per round). Each run's launches
    are counted from zero, each run is held against the same config on the
-   CPU, and the ring run is profiled as in phase 6.
+   CPU, and the ring run is profiled as in phase 6. Then income-2 at
+   hidden_sizes=(256, 256), where K2 and K3 stream the weights, against
+   the CPU.
 8. fused round (K5): the whole-round kernel against its plain version on the
-   card at income-8's experiment state and at edge shapes, twice on the same
-   inputs (bitwise equal); then the benchmark
+   card at income-8's experiment state, at edge shapes and at
+   income-32-noniid's (32, 1104) batch, twice on the same inputs (bitwise
+   equal); its launch plan; then the benchmark
    ``fedtpu_torch.benchmarks.mega_kernel_attempt.run`` on income-8 at 10,000
    rows (round 1 and 100 rounds against the composed round, launches
    counted from zero around it, marginal s/round of both loops); K5 timed
-   beside its plain version and bound; a profile of 20 fused rounds.
+   beside its plain version and bound at both batches, with its per-phase
+   windows beside the PR 4 design's; a profile of 20 fused rounds.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package.
@@ -59,6 +66,9 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 INCOME_DIMS = (14, 50, 200, 2)
+# Models whose parameters do not fit in one block: K2 and K3 stream them.
+WIDE_DIMS = (14, 256, 256, 2)
+DEEP_WIDE_DIMS = (14, 200, 200, 200, 2)
 SHARDS = 8                # mesh_devices of the sharded round
 TIMING_REPS = 60
 K2_REPEATS = 20
@@ -180,7 +190,10 @@ def phase_kernels(gen: torch.Generator) -> dict:
         check(bool((moved <= allowed).all()),
               f"K2 {label}: counts differ on {moved.tolist()} rows per "
               f"client; near ties {tie_rows}")
-        print(f"K2 fused_eval_confusion {label} C={c} N={n} dims={dims}: "
+        plan = ck._eval_plan(param_count(dims), tuple(dims))
+        print(f"K2 fused_eval_confusion {label} C={c} N={n} dims={dims} "
+              f"({'streamed' if plan.cap else 'resident'}, counts in "
+              f"{'shared' if plan.shared_counts else 'global'} memory): "
               f"{K2_REPEATS} launches equal to K3's counts; rows differing "
               f"from plain {int(moved.sum())}, near-tie rows (client, row) "
               f"{tie_rows}",
@@ -209,7 +222,15 @@ def phase_kernels(gen: torch.Generator) -> dict:
                              (8, 1000, (14, 2), 0),
                              (4, 1000, (14, 50, 400, 2), 0),
                              (8, 1000, (14, 50, 200, 8), 0),
-                             (3, 1, INCOME_DIMS, 0)):
+                             (3, 1, INCOME_DIMS, 0),
+                             # Ten classes, and a K x K tile too large for
+                             # shared memory (counts in global memory).
+                             (8, 1000, (14, 50, 200, 10), 7),
+                             (4, 1000, (14, 50, 250), 0),
+                             # The streamed path: parameters too large for
+                             # one block (income-2's batch at (256, 256)).
+                             (2, 4000, WIDE_DIMS, 5),
+                             (3, 700, DEEP_WIDE_DIMS, 0)):
         case = random_case(c, n, dims, tail)
         k2_err = max(k2_err, k2_case("edge", case[0], dims, *case[1:]))
     # All-padding tiles inside the shards (every third 32-row tile) and a
@@ -218,20 +239,26 @@ def phase_kernels(gen: torch.Generator) -> dict:
     mask[:, (torch.arange(5000, device=dev) // 32) % 3 == 1] = 0.0
     k2_err = max(k2_err, k2_case("holes", params, INCOME_DIMS, x, y, mask))
     by_shape = []
-    for label, (params, x, y, mask) in (("income-8", income8),
-                                        ("income-32-noniid", noniid)):
+    for label, dims, (params, x, y, mask) in (
+            ("income-8", INCOME_DIMS, income8),
+            ("income-32-noniid", INCOME_DIMS, noniid),
+            ("income-2 (256, 256), streamed", WIDE_DIMS,
+             random_case(2, 4000, WIDE_DIMS, 0)),
+            ("(200, 200, 200), streamed", DEEP_WIDE_DIMS,
+             random_case(2, 4000, DEEP_WIDE_DIMS, 0))):
         live = float(mask.sum())
         din = x.shape[-1]
+        k = dims[-1]
         nbytes = 4 * (params.numel() + live * (din + 1) + mask.numel()
-                      + params.shape[0] * 2 * 2)
-        b, by = bound_ms(nbytes, mlp_flops(INCOME_DIMS, live))
+                      + params.shape[0] * k * k)
+        b, by = bound_ms(nbytes, mlp_flops(dims, live))
         by_shape.append({
-            "shape": label, "clients": x.shape[0], "rows": x.shape[1],
-            "real_rows": int(live),
+            "shape": label, "dims": list(dims), "clients": x.shape[0],
+            "rows": x.shape[1], "real_rows": int(live),
             "ms": time_ms(lambda: ck.fused_eval_confusion(
-                params, INCOME_DIMS, x, y, mask, 2)),
+                params, dims, x, y, mask, k)),
             "plain_ms": time_ms(lambda: ck.fused_eval_confusion_reference(
-                params, INCOME_DIMS, x, y, mask, 2)),
+                params, dims, x, y, mask, k)),
             "bound_ms": b, "bound_by": by})
         print(f"time fused_eval_confusion {label} {tuple(x.shape[:2])}, "
               f"{int(live)} real rows: kernel {by_shape[-1]['ms']:.4f} ms  "
@@ -361,7 +388,9 @@ def k3_checks(gen: torch.Generator, dev: torch.device) -> dict:
     for dims, n in ((INCOME_DIMS, 2000), (INCOME_DIMS, 100), (INCOME_DIMS, 1),
                     (INCOME_DIMS, 2001), (INCOME_DIMS, 100_000),
                     ((14, 2), 2000), ((14, 50, 400, 2), 2000),
-                    ((14, 50, 400, 2), 100_000)):
+                    ((14, 50, 400, 2), 100_000), (WIDE_DIMS, 2000),
+                    (WIDE_DIMS, 2001), (DEEP_WIDE_DIMS, 2000),
+                    (DEEP_WIDE_DIMS, 1)):
         if dims not in models:
             models[dims] = mlp_init(gen, dims[0], dims[1:-1], dims[-1]).to(dev)
         flat = models[dims]
@@ -375,17 +404,19 @@ def k3_checks(gen: torch.Generator, dev: torch.device) -> dict:
               f"K3 {dims} at N={n}: max abs err {e} > 1e-4")
         check(torch.equal(out, again),
               f"K3 {dims} at N={n}: two launches differ")
-        rows, threads, nbytes, blocks = ck._forward_plan(
+        rows, threads, nbytes, blocks, cap = ck._forward_plan(
             n, param_count(dims), dims, sms)
         print(f"K3 fused_mlp_forward {dims} N={n}: max abs err {e:.3e}, two "
               f"launches bitwise equal; plan {rows}-row tiles, {threads} "
-              f"threads, {blocks} blocks, {nbytes} bytes", flush=True)
+              f"threads, {blocks} blocks, {nbytes} bytes, "
+              f"{f'streamed, {cap}-float buffers' if cap else 'resident'}",
+              flush=True)
         err = max(err, e)
     flat = models[INCOME_DIMS]
     xt = torch.randn(2000, INCOME_DIMS[0], generator=gen).to(dev)
     d = param_count(INCOME_DIMS)
-    rows, threads, nbytes, blocks = ck._forward_plan(2000, d, INCOME_DIMS,
-                                                     sms)
+    rows, threads, nbytes, blocks, _ = ck._forward_plan(2000, d, INCOME_DIMS,
+                                                        sms)
     check(blocks >= 125, f"K3 plan at N=2000: {blocks} blocks < 125")
     nb = 4 * (flat.numel() + xt.numel() + 2000 * INCOME_DIMS[-1])
     b, by = bound_ms(nb, mlp_flops(INCOME_DIMS, 2000))
@@ -412,6 +443,23 @@ def k3_checks(gen: torch.Generator, dev: torch.device) -> dict:
     print(f"K3 plan at N=2000: {rows}-row tiles, {threads} threads, {blocks} "
           f"blocks on {sms} SMs; kernel time by tile x threads "
           f"{json.dumps(by_tile)}", flush=True)
+    # The streamed path at the held-out split's 2,000 rows.
+    row["by_shape"] = []
+    for label, dims in (("(256, 256), streamed", WIDE_DIMS),
+                        ("(200, 200, 200), streamed", DEEP_WIDE_DIMS)):
+        flat = models[dims]
+        nb = 4 * (flat.numel() + xt.numel() + 2000 * dims[-1])
+        b, by = bound_ms(nb, mlp_flops(dims, 2000))
+        row["by_shape"].append({
+            "shape": label, "dims": list(dims), "rows": 2000,
+            "ms": time_ms(lambda: ck.fused_mlp_forward(flat, dims, xt)),
+            "plain_ms": time_ms(lambda: ck.fused_mlp_forward_reference(
+                flat, dims, xt)),
+            "bound_ms": b, "bound_by": by})
+        r = row["by_shape"][-1]
+        print(f"time fused_mlp_forward {label} N=2000: kernel "
+              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+              f"{b:.5f} ms ({by})", flush=True)
     return row
 
 
@@ -640,6 +688,17 @@ def sharded_config(aggregation: str, rate: float, rounds: int):
                                 mesh_devices=SHARDS))
 
 
+def wide_config():
+    """income-2 at hidden_sizes=(256, 256): a model K2 and K3 stream."""
+    from fedtpu_torch.config import get_preset
+    cfg = get_preset("income-2")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, synthetic_rows=10000),
+        model=dataclasses.replace(cfg.model, hidden_sizes=WIDE_DIMS[1:-1]),
+        fed=dataclasses.replace(cfg.fed, rounds=60),
+        run=dataclasses.replace(cfg.run, eval_test_every=10))
+
+
 def sampled_psum_config():
     cfg = main_path_config()
     return cfg.replace(fed=dataclasses.replace(cfg.fed, rounds=30,
@@ -739,6 +798,73 @@ def k5_edge_args(gen: torch.Generator, dev, dims, sizes, n):
                                       mask.sum(dim=1)))
 
 
+# K5's phases in the order its blocks stamp them (ft_fused_round's
+# phase_ns): phase i runs from stamp 2i to stamp 2i + 1 of a block.
+K5_PHASES = ("A forward + backward", "B partials + Adam", "C average + eval")
+# The PR 4 design's windows at income-8, us after the first block's start
+# (PERF.md section 6: this function on that kernel with the stamp hook,
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside the current ones.
+K5_PR4_PHASES_US = {"A forward + backward": (0.00, 53.10),
+                    "B partials + Adam": (54.00, 59.55),
+                    "C average + eval": (60.45, 82.24),
+                    "whole": (0.00, 82.24)}
+K5_PHASE_REPS = 20
+
+
+def k5_phase_times(args: tuple, dims, optim, names=K5_PHASES,
+                   reps: int = K5_PHASE_REPS) -> dict:
+    """Per-phase windows of K5 on ``args``, from the %globaltimer stamps
+    each block writes when ``phase_ns`` is given: for each phase, the first
+    block's start and the last block's end, in us after the first block's
+    start, and the whole launch; medians over ``reps`` launches."""
+    from fedtpu_torch.ops import cuda_kernels as ck
+    stamps = torch.zeros((4096, 8), dtype=torch.int64, device="cuda")
+    windows = {name: [] for name in (*names, "whole")}
+    for _ in range(reps):
+        stamps.zero_()
+        ck.fused_round(*args, dims, optim, phase_ns=stamps)
+        torch.cuda.synchronize()
+        t = stamps.cpu()
+        t = t[(t != 0).any(dim=1)]
+        t0 = int(t[:, 0][t[:, 0] != 0].min())
+        last = t0
+        for i, name in enumerate(names):
+            start, end = t[:, 2 * i], t[:, 2 * i + 1]
+            start, end = start[start != 0], end[end != 0]
+            if len(start) and len(end):
+                windows[name].append(((int(start.min()) - t0) / 1e3,
+                                      (int(end.max()) - t0) / 1e3))
+                last = max(last, int(end.max()))
+        windows["whole"].append((0.0, (last - t0) / 1e3))
+    out = {}
+    for name, w in windows.items():
+        if w:
+            out[name] = {"start_us": statistics.median(a for a, _ in w),
+                         "end_us": statistics.median(b for _, b in w)}
+    print("K5 per-phase windows (us after the first block's start, median "
+          f"of {reps} launches): " + "; ".join(
+              f"{n} {v['start_us']:.2f}-{v['end_us']:.2f}"
+              for n, v in out.items()), flush=True)
+    return out
+
+
+def k5_noniid_args(gen: torch.Generator, dev):
+    """Fused-round inputs at income-32-noniid's (32, 1104) tail-padded batch
+    with mid-run state (as k5_edge_args) and data-size weights."""
+    from fedtpu_torch.models.mlp import mlp_init
+    batch = noniid_batch()
+    c = batch["x"].shape[0]
+    params = torch.stack([mlp_init(gen, 14, INCOME_DIMS[1:-1], 2)
+                          for _ in range(c)])
+    mu = torch.randn(params.shape, generator=gen) * 1e-3
+    nu = torch.rand(params.shape, generator=gen) * 1e-6
+    count = torch.tensor([(0, 29, 30, 61)[i % 4] for i in range(c)],
+                         dtype=torch.int32)
+    return tuple(t.to(dev) for t in (
+        params, mu, nu, count, batch["x"], batch["y"], batch["mask"],
+        batch["mask"].sum(dim=1)))
+
+
 def phase_fused_round(gen: torch.Generator, composed: dict):
     """Phase 8: K5 against its plain version, then the benchmark's run on
     income-8 (its launches counted from zero around it), K5's time and
@@ -763,6 +889,17 @@ def phase_fused_round(gen: torch.Generator, composed: dict):
                            (INCOME_DIMS, [1], 1)):
         args = k5_edge_args(gen, dev, dims, sizes, n)
         err = max(err, k5_case("edge", args, dims, cfg.optim))
+    noniid = k5_noniid_args(gen, dev)
+    err = max(err, k5_case("income-32-noniid", noniid, INCOME_DIMS,
+                           cfg.optim))
+    d = param_count(INCOME_DIMS)
+    for label, (c, n) in (("income-8", (8, 1000)),
+                          ("income-32-noniid", noniid[5].shape)):
+        nbytes = ck._fused_round_rows(d, INCOME_DIMS)[1]
+        resident = ck._round_resident(0, nbytes)
+        print(f"K5 plan {label}: "
+              f"{ck._fused_round_plan(d, INCOME_DIMS, c, n, resident)}; "
+              f"blocks resident at once {resident}", flush=True)
 
     torch.cuda.synchronize()
     ck.reset_launch_counts()
@@ -814,6 +951,29 @@ def phase_fused_round(gen: torch.Generator, composed: dict):
           f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
           f"bound {b:.5f} ms ({by}); composed round step device busy "
           f"{composed['device_busy_ms']:.4f} ms/round", flush=True)
+    row["phases_us"] = k5_phase_times(income8, INCOME_DIMS, cfg.optim)
+    print("K5 per-phase windows of the PR 4 design at income-8 (PERF.md): "
+          + "; ".join(f"{name} {a:.2f}-{z:.2f}"
+                      for name, (a, z) in K5_PR4_PHASES_US.items()),
+          flush=True)
+    c32, n32 = noniid[5].shape
+    real32 = float(noniid[6].sum())
+    nb32 = 4 * (6 * c32 * d + 2 * c32 + c32 * n32 * (INCOME_DIMS[0] + 2)
+                + 2 * c32 + c32 * INCOME_DIMS[-1] ** 2)
+    b32, by32 = bound_ms(nb32, mega.round_flops(INCOME_DIMS, real32, c32))
+    row["by_shape"] = [{
+        "shape": "income-32-noniid", "clients": c32, "rows": n32,
+        "real_rows": int(real32),
+        "ms": time_ms(lambda: ck.fused_round(*noniid, INCOME_DIMS,
+                                             cfg.optim)),
+        "plain_ms": time_ms(lambda: ck.fused_round_reference(
+            *noniid, INCOME_DIMS, cfg.optim)),
+        "bound_ms": b32, "bound_by": by32,
+        "phases_us": k5_phase_times(noniid, INCOME_DIMS, cfg.optim)}]
+    r = row["by_shape"][0]
+    print(f"time fused_round income-32-noniid ({c32}, {n32}), {int(real32)} "
+          f"real rows: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
+          f"  bound {b32:.5f} ms ({by32})", flush=True)
     row["profile"] = phase_profile(
         cfg, label="income-8 fused round profile",
         make_round=lambda e: mega.make_fused_step(e, cfg.optim))
@@ -834,6 +994,13 @@ def main() -> None:
     phase_card_vs_cpu(cfg, gpu)
     composed = phase_profile(cfg)
     by_path = {"income-8 psum": launches, **phase_sharded()}
+    # K2 and K3 on the streamed path inside a whole run.
+    wide = wide_config()
+    gpu, by_path["income-2 (256, 256)"] = phase_run(
+        "income-2 (256, 256)", wide, {
+            "weighted_average_clients": "rounds",
+            "fused_eval_confusion": "rounds", "fused_mlp_forward": "evals"})
+    phase_card_vs_cpu(wide, gpu, label="income-2 (256, 256) card vs CPU")
     timings["fused_round"], by_path["income-8 fused round"] = \
         phase_fused_round(torch.Generator().manual_seed(1), composed)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -871,7 +1038,8 @@ def main() -> None:
                 "by_shape", "modes", "composed_ms", "plan", "back_to_back_ms",
                 "empty_launch_ms", "empty_back_to_back_ms", "ms_by_threads",
                 "ms_by_tile_x_threads", "composed_round_device_ms",
-                "marginal_us_per_round", "profile") if key in t}})
+                "marginal_us_per_round", "profile", "phases_us")
+                if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,12 +1,12 @@
 """Typed configuration for the PyTorch port's synchronous FedAvg path.
 
-The port's own copies of ``fedtpu.config``'s data, shard, model and optimizer
-configs, plus the subset of ``FedConfig`` / ``RunConfig`` that the averaging
-path reads. Field names and defaults are ``fedtpu``'s, so one preset reads the
-same on both sides. A knob of ``fedtpu`` that this port does not run yet is
-still a field, at its neutral default; any other value raises
-``NotImplementedError`` naming the ROADMAP item that will port it, instead of
-being silently ignored.
+The port's own copies of ``fedtpu.config``'s dataclasses that
+``ExperimentConfig`` holds (data, shard, model, optimizer, federation, run,
+and the run's telemetry). Every field of ``fedtpu``'s is a field here, with
+``fedtpu``'s name and default, so one config reads the same on both sides.
+A knob that this port does not run yet stays at its neutral default; any
+other value raises ``NotImplementedError`` naming the ROADMAP item that will
+port it, instead of being silently ignored.
 
 All config dataclasses are frozen (hashable), as in ``fedtpu``.
 """
@@ -26,21 +26,39 @@ def _not_ported(knob: str, item: str):
         "run it with fedtpu")
 
 
+def _refuse_unported(cfg, items: dict) -> None:
+    """Raise for the first field named in ``items`` (field -> ROADMAP
+    item) whose value is not its default."""
+    for f in dataclasses.fields(cfg):
+        value = getattr(cfg, f.name)
+        if f.name in items and value != f.default:
+            _not_ported(f"{type(cfg).__name__}.{f.name}={value!r}",
+                        items[f.name])
+
+
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     """Host-side data pipeline settings (``fedtpu.config.DataConfig``)."""
 
     csv_path: Optional[str] = None       # None => synthetic income-like data
+    # 'cifar10' selects fedtpu's image loader; None = tabular.
+    dataset_name: Optional[str] = None
     label_column: str = "income"
     test_size: float = 0.2
     split_seed: int = 42                 # random_state=42 everywhere in the reference
     scale_with_mean: bool = True
+    # fedtpu's C++ CSV loader (True) or pandas (False); both read the CSV,
+    # whose path is A1.
+    native_loader: bool = True
     # The reference fits its scaler on the FULL dataset before splitting —
     # train/test leakage kept as the parity default, as in fedtpu.
     scaler_leakage_parity: bool = True
     synthetic_rows: int = 2048
     synthetic_features: int = 14         # balanced_income_data.csv has 14 features + label
     synthetic_classes: int = 2
+
+    def __post_init__(self):
+        _refuse_unported(self, {"dataset_name": "A7", "native_loader": "A1"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +72,13 @@ class ShardConfig:
     unseeded_per_client_bug: bool = False
     strategy: str = "contiguous"         # 'contiguous' | 'label_sort' | 'dirichlet'
     dirichlet_alpha: float = 0.5
+    # fedtpu's partition view for elastic-reshard runs; 0 = off.
+    partition_clients: int = 0
+    partition_offset: int = 0
+
+    def __post_init__(self):
+        _refuse_unported(self, {"partition_clients": "A10",
+                                "partition_offset": "A10"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +90,19 @@ class ModelConfig:
     hidden_sizes: Tuple[int, ...] = (50, 200)
     num_classes: int = 2
     input_dim: int = 14
+    image_shape: Tuple[int, int, int] = (32, 32, 3)  # convnet only (HWC)
+    conv_channels: Tuple[int, ...] = (32, 64)
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    # fedtpu's opt-in Pallas forward for the held-out eval. The port's
+    # held-out eval always runs that kernel's counterpart (K3 on the card),
+    # so either value takes the same path.
+    use_pallas: bool = False
 
     def __post_init__(self):
-        if self.kind != "mlp":
-            _not_ported(f"ModelConfig.kind={self.kind!r}", "A7")
+        _refuse_unported(self, {"kind": "A7", "image_shape": "A7",
+                                "conv_channels": "A7", "param_dtype": "A7",
+                                "compute_dtype": "A7"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,19 +140,42 @@ class FedConfig:
     # client stack) | 'ring' (rotate-and-accumulate over the mesh's shards,
     # K4 on the card) | 'ring-rsag' (reduce-scatter + all-gather).
     aggregation: str = "psum"
-    # Not ported yet: each must stay at its default (see __post_init__).
+    # Not ported yet: each must stay at its default (_FED_ITEMS).
     local_steps: int = 1
     prox_mu: float = 0.0
     scaffold: bool = False
     server_opt: str = "none"
+    server_lr: float = 1.0
+    server_momentum: float = 0.9
+    server_b1: float = 0.9
+    server_b2: float = 0.99
+    server_tau: float = 1e-3
     dp_clip_norm: float = 0.0
     dp_noise_multiplier: float = 0.0
+    dp_seed: int = 0
+    dp_adaptive_clip: bool = False
+    dp_target_quantile: float = 0.5
+    dp_clip_lr: float = 0.2
+    dp_count_noise_multiplier: float = 0.0
+    dp_delta: float = 1e-5
     robust_aggregation: str = "none"
+    trim_ratio: float = 0.1
+    krum_f: int = 0
     byzantine_clients: int = 0
     compress: str = "none"
-    async_mode: bool = False
-    cohort_size: int = 0
     personalize_steps: int = 0
+    init_weights_npz: Optional[str] = None
+    async_mode: bool = False
+    async_arrival_rate: float = 0.5
+    async_arrival_seed: int = 0
+    async_staleness_power: float = 0.5
+    async_buffer_size: int = 0
+    cohort_size: int = 0
+    client_store: str = "memory"
+    client_store_path: Optional[str] = None
+    cohort_sampling: str = "uniform"
+    cohort_seed: int = 0
+    cohort_trace: Optional[str] = None
 
     def __post_init__(self):
         if self.weighting not in ("data_size", "uniform"):
@@ -129,23 +186,36 @@ class FedConfig:
         if self.aggregation not in AGGREGATIONS:
             raise ValueError(f"unknown aggregation {self.aggregation!r}; "
                              f"available: {AGGREGATIONS}")
-        if self.local_steps != 1 or self.prox_mu:
-            _not_ported("local_steps > 1 / prox_mu", "A3")
-        if self.scaffold:
-            _not_ported("scaffold", "A6")
-        if self.server_opt != "none" or self.dp_clip_norm \
-                or self.dp_noise_multiplier:
-            _not_ported("server optimizers / DP", "A6")
-        if self.robust_aggregation != "none" or self.byzantine_clients:
-            _not_ported("robust aggregation", "A6")
-        if self.compress != "none":
-            _not_ported("compressed aggregation", "A6")
-        if self.async_mode:
-            _not_ported("async_mode", "A8")
-        if self.cohort_size:
-            _not_ported("cohort_size", "A9")
-        if self.personalize_steps:
-            _not_ported("personalize_steps", "A7")
+        _refuse_unported(self, _FED_ITEMS)
+
+
+# FedConfig's knobs of paths not ported yet -> the ROADMAP item of each.
+_FED_ITEMS = {
+    **dict.fromkeys(("local_steps", "prox_mu"), "A3"),
+    "init_weights_npz": "A5",
+    **dict.fromkeys((
+        "scaffold", "server_opt", "server_lr", "server_momentum", "server_b1",
+        "server_b2", "server_tau", "dp_clip_norm", "dp_noise_multiplier",
+        "dp_seed", "dp_adaptive_clip", "dp_target_quantile", "dp_clip_lr",
+        "dp_count_noise_multiplier", "dp_delta", "robust_aggregation",
+        "trim_ratio", "krum_f", "byzantine_clients", "compress"), "A6"),
+    "personalize_steps": "A7",
+    **dict.fromkeys(("async_mode", "async_arrival_rate", "async_arrival_seed",
+                     "async_staleness_power", "async_buffer_size"), "A8"),
+    **dict.fromkeys(("cohort_size", "client_store", "client_store_path",
+                     "cohort_sampling", "cohort_seed", "cohort_trace"), "A9"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Structured-telemetry knobs (``fedtpu.config.TelemetryConfig``); the
+    port has no telemetry yet (ROADMAP A11), so a ``RunConfig`` takes only
+    the default one."""
+
+    events_path: Optional[str] = None
+    manifest: bool = True
+    log_level: str = "info"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,16 +232,45 @@ class RunConfig:
     # Shards of the clients axis (fedtpu_torch.parallel.mesh.make_mesh);
     # 0 = one shard per visible device of the run's type.
     mesh_devices: int = 0
-    # Not ported yet: must stay at its default.
+    # Not ported yet: each must stay at its default (_RUN_ITEMS).
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    keep_checkpoints: int = 0
+    profile_dir: Optional[str] = None
+    profile_rounds: int = 0
+    metrics_jsonl: Optional[str] = None
+    pipelined_stop: bool = False
+    mpmd: bool = False
     model_parallel: int = 1
+    compilation_cache: Optional[str] = None
+    overlap_compile: bool = False
+    telemetry: TelemetryConfig = TelemetryConfig()
+    fault_plan: Optional[str] = None
+    on_divergence: str = "halt"
+    rollback_retries: int = 2
+    rollback_exclude: bool = False
+    rollback_perturb: float = 1e-6
+    heartbeat_file: Optional[str] = None
+    collective_timeout: Optional[float] = None
 
     def __post_init__(self):
         if self.rounds_per_step < 1:
             raise ValueError("rounds_per_step must be >= 1")
         if self.mesh_devices < 0:
             raise ValueError("mesh_devices must be >= 0")
-        if self.model_parallel != 1:
-            _not_ported("model_parallel > 1", "A10")
+        _refuse_unported(self, _RUN_ITEMS)
+
+
+# RunConfig's knobs of paths not ported yet -> the ROADMAP item of each.
+_RUN_ITEMS = {
+    **dict.fromkeys(("checkpoint_dir", "checkpoint_every", "keep_checkpoints",
+                     "metrics_jsonl", "pipelined_stop"), "A5"),
+    **dict.fromkeys(("mpmd", "model_parallel", "collective_timeout"), "A10"),
+    **dict.fromkeys(("profile_dir", "profile_rounds", "compilation_cache",
+                     "overlap_compile", "telemetry", "fault_plan",
+                     "on_divergence", "rollback_retries", "rollback_exclude",
+                     "rollback_perturb", "heartbeat_file"), "A11"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

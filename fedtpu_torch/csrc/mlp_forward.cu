@@ -23,6 +23,9 @@
 // - A block stages the model's parameters global -> shared with one bulk
 //   asynchronous copy on an mbarrier and its x tile with cp.async
 //   (ft_stage_begin / ft_stage_end in mlp_forward.cuh, shared with K2).
+//   A model that does not fit in a block (the plan says so from the shapes)
+//   streams each layer's weights through two shared buffers instead
+//   (ft_mlp_tile_forward_streamed), with the same bits.
 // - The forward is register-tiled (ft_mlp_tile_forward_regs): every output
 //   is a sequential fp32 FMA chain from i = 0, then + b, then ReLU, so the
 //   logits are bit for bit those of K2's forward (chip_smoke.py holds K2's
@@ -31,32 +34,42 @@
 //   padding copies, unlike the Pallas pad-and-slice.
 //
 // Shared memory (floats): the staging layout of mlp_forward.cuh
-// (ft_stage_floats: a 4-float header and the parameters), one x tile of
-// rows x dims[0], and two activation tiles of rows x the widest layer
-// output at an odd stride. ft_mlp_forward refuses a byte count that does
-// not hold it.
+// (ft_stage_floats: a 4-float header and the parameters), or the streamed
+// one (ft_stream_floats: a 4-float header and two weight buffers); one x
+// tile of rows x dims[0], and two activation tiles of rows x the widest
+// layer output at an odd stride. ft_mlp_forward refuses a byte count that
+// does not hold it.
 #include <algorithm>
 
 #include "mlp_forward.cuh"
 
+template <bool STREAMED>
 __global__ void __launch_bounds__(FT_THREADS)
 ft_mlp_forward_kernel(const float* __restrict__ params, int num_params,
                       MlpDims md, const float* __restrict__ x, int n,
-                      int rows_per, int ldmax, float* __restrict__ out) {
+                      int rows_per, int ldmax, int cap,
+                      float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const int k = md.dims[md.n_layers];
   const int din = md.dims[0];
   const long long row0 = (long long)blockIdx.x * rows_per;
   const int rows = (int)min((long long)rows_per, n - row0);
-  float* xt = smem + ft_stage_floats(num_params);
+  float* xt = smem + (STREAMED ? ft_stream_floats(cap)
+                               : ft_stage_floats(num_params));
   float* act0 = xt + rows_per * din;
   float* act1 = act0 + rows_per * ldmax;
-  const FtStage st =
-      ft_stage_begin(smem, params, num_params, xt, x + row0 * din, rows * din);
-  ft_stage_end(smem, st);
-
-  const float* logits =
-      ft_mlp_tile_forward_regs(st.p, md, rows, xt, act0, act1);
+  const float* logits;
+  if (STREAMED) {
+    ft_stream_begin(smem, params, md, cap, xt, x + row0 * din, rows * din);
+    ft_stage_end(smem, {nullptr, false});
+    logits = ft_mlp_tile_forward_streamed(smem, params, md, cap, rows, xt,
+                                          act0, act1);
+  } else {
+    const FtStage st = ft_stage_begin(smem, params, num_params, xt,
+                                      x + row0 * din, rows * din);
+    ft_stage_end(smem, st);
+    logits = ft_mlp_tile_forward_regs(st.p, md, rows, xt, act0, act1);
+  }
   const int ldk = ft_act_stride(k);
   for (int i = threadIdx.x; i < rows * k; i += blockDim.x) {
     const int r = i / k;
@@ -65,33 +78,41 @@ ft_mlp_forward_kernel(const float* __restrict__ params, int num_params,
 }
 
 // params (num_params,), x (n, dims[0]), out (n, K); dims is a host array of
-// n_layers + 1. rows_per_block, threads and smem_bytes are the wrapper's
-// plan (_forward_plan); threads must be whole warps up to FT_THREADS, and a
-// byte count that does not hold the layout above is refused. Grid: one
-// block per row tile. Returns the cudaError_t of the launch.
+// n_layers + 1. rows_per_block, threads, cap (floats in each weight buffer
+// of the streamed path; 0 for the resident one) and smem_bytes are the
+// wrapper's plan (_forward_plan); threads must be whole warps up to
+// FT_THREADS, and a byte count that does not hold the layout above, or a
+// buffer that does not hold one input row of the widest layer, is refused.
+// Grid: one block per row tile. Returns the cudaError_t of the launch.
 extern "C" int ft_mlp_forward(const float* params, int num_params,
                               const int* dims, int n_layers, const float* x,
-                              int n, int rows_per_block, int threads,
+                              int n, int rows_per_block, int threads, int cap,
                               int smem_bytes, float* out, void* stream) {
   if (n < 1 || rows_per_block < 1 || threads < 32 || threads > FT_THREADS ||
-      threads % 32 != 0)
+      threads % 32 != 0 || n_layers < 1 || n_layers > FT_MAX_LAYERS ||
+      cap < 0 || cap % 4 != 0)
     return (int)cudaErrorInvalidValue;
   int widest;
   const MlpDims md = ft_make_dims(dims, n_layers, &widest);
-  int ldmax = 0;
-  for (int l = 1; l <= n_layers; ++l)
+  int ldmax = 0, outmax = 0;
+  for (int l = 1; l <= n_layers; ++l) {
     ldmax = std::max(ldmax, ft_act_stride(dims[l]));
+    outmax = std::max(outmax, dims[l]);
+  }
+  if (cap > 0 && cap - 3 < outmax) return (int)cudaErrorInvalidValue;
   const size_t need =
-      sizeof(float) * ((size_t)ft_stage_floats(num_params) +
-                       (size_t)rows_per_block * (dims[0] + 2 * ldmax));
+      sizeof(float) *
+      ((size_t)(cap > 0 ? ft_stream_floats(cap) : ft_stage_floats(num_params)) +
+       (size_t)rows_per_block * (dims[0] + 2 * ldmax));
   if (smem_bytes < 0 || need > (size_t)smem_bytes)
     return (int)cudaErrorInvalidValue;
+  auto kernel = cap > 0 ? ft_mlp_forward_kernel<true>
+                        : ft_mlp_forward_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ft_mlp_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + rows_per_block - 1) / rows_per_block);
-  ft_mlp_forward_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      params, num_params, md, x, n, rows_per_block, ldmax, out);
+  kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      params, num_params, md, x, n, rows_per_block, ldmax, cap, out);
   return (int)cudaGetLastError();
 }

@@ -32,12 +32,13 @@ _L = ctypes.c_longlong
 # C entry point -> argtypes; every one returns a cudaError_t.
 SIGNATURES = {
     "ft_weighted_average": (_P, _P, _I, _I, _I, _I, _P, _P),
-    "ft_eval_confusion": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
-                          _P),
-    "ft_mlp_forward": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P),
+    "ft_eval_confusion": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P, _P),
+    "ft_mlp_forward": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P),
     "ft_ring_all_reduce": (_P, _P, _I, _L, _P),
     "ft_fused_round": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P,
-                       _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+                       _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "ft_fused_round_resident": (_I, _P),
 }
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -38,8 +38,8 @@ LAUNCHES = {"weighted_average_clients": 0, "fused_eval_confusion": 0,
 
 # Dynamic shared memory one block may opt into on sm_90 (227 KB).
 SMEM_BYTES_MAX = 232_448
-MAX_LAYERS = 16           # FT_MAX_LAYERS in csrc/mlp_forward.cuh
-MAX_CLASSES = 8
+MAX_LAYERS = 16           # FT_MAX_LAYERS in csrc/mlp_forward.cuh (card only)
+MAX_CLASSES = 8           # K5's confusion tile, as in its JAX original
 _ROW_TILES = (32, 16, 8, 4, 2, 1)          # K2's row tiles
 _FORWARD_TILES = (64, 32, 16, 8, 4, 2, 1)  # K3's
 # K3's plan counts one block's parameter copy as this many rows of its
@@ -50,7 +50,6 @@ _STAGING_ROWS = 8
 WAVG_MAX_THREADS = 256    # FT_WAVG_MAX_THREADS in csrc/weighted_average.cu
 THREADS_MAX = 256         # FT_THREADS in csrc/mlp_forward.cuh
 RING_MAX_SHARDS = 64      # FT_RING_MAX_SHARDS in csrc/ring_all_reduce.cu
-_ROUND_ROWS = (64, 32, 16, 8, 4, 2, 1)   # FT_ROUND_MAX_ROWS in fused_round.cu
 
 
 def reset_launch_counts() -> None:
@@ -81,13 +80,21 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
 
 def _check_dims(flat: torch.Tensor, dims: Sequence[int]) -> tuple:
     dims = tuple(int(d) for d in dims)
-    if not 1 <= len(dims) - 1 <= MAX_LAYERS or min(dims) < 1:
-        raise ValueError(f"dims {dims}: need 1..{MAX_LAYERS} layers of "
-                         "positive width")
+    if len(dims) < 2 or min(dims) < 1:
+        raise ValueError(f"dims {dims}: need at least one layer, every width "
+                         "positive")
     if flat.shape[-1] != param_count(dims):
         raise ValueError(f"params have {flat.shape[-1]} entries, dims {dims} "
                          f"need {param_count(dims)}")
     return dims
+
+
+def _check_depth(dims: tuple) -> None:
+    """The kernels' limit on depth (their by-value ``MlpDims``); the plain
+    versions take any depth."""
+    if len(dims) - 1 > MAX_LAYERS:
+        raise ValueError(f"{len(dims) - 1} layers: the kernels take at most "
+                         f"{MAX_LAYERS} on the card")
 
 
 def _wavg_plan(d: int, sms: int) -> tuple:
@@ -99,24 +106,80 @@ def _wavg_plan(d: int, sms: int) -> tuple:
     return threads, -(-d // threads)
 
 
-def _forward_plan(n: int, num_params: int, dims: tuple, sms: int) -> tuple:
-    """K3's schedule for N rows: ``(rows, threads, bytes, blocks)``.
+class ForwardPlan(NamedTuple):
+    """K3's launch: row tile, threads, shared bytes, blocks, and the floats
+    of each weight buffer of the streamed path (0: the resident path)."""
+    rows: int
+    threads: int
+    nbytes: int
+    blocks: int
+    cap: int
 
-    Of the row tiles whose block fits in shared memory (the layout
+
+class EvalPlan(NamedTuple):
+    """K2's launch: row tile, shared bytes, the floats of each weight buffer
+    of the streamed path (0: the resident path), and whether the K x K
+    counts sit in shared memory (else each row adds into global memory)."""
+    rows: int
+    nbytes: int
+    cap: int
+    shared_counts: bool
+
+
+def _resident_floats(num_params: int) -> int:
+    """The staging layout of mlp_forward.cuh (``ft_stage_floats``): a
+    4-float header and the parameters with 3 floats of alignment slack,
+    rounded up to 4."""
+    return 4 + (num_params + 6) // 4 * 4
+
+
+def _tile_floats(dims: tuple, rows: int) -> int:
+    """One x tile and two activation tiles at the widest layer's odd
+    stride."""
+    return rows * (dims[0] + 2 * max(d | 1 for d in dims[1:]))
+
+
+def _stream_cap(free: int, dims: tuple) -> int:
+    """The floats of each of the streamed path's two weight buffers in
+    ``free`` floats (after its 4-float header): a multiple of 4 that holds
+    one input row of the widest layer (``ft_chunk_rows``), or 0."""
+    cap = free // 2 // 4 * 4
+    return cap if cap - 3 >= max(dims[1:]) else 0
+
+
+def _too_wide(dims: tuple) -> ValueError:
+    return ValueError(
+        f"a layer {max(dims[1:])} wide: a one-row tile of activations and two "
+        f"buffers of one weight row each do not fit in a block's "
+        f"{SMEM_BYTES_MAX} bytes of shared memory")
+
+
+def _forward_plan(n: int, num_params: int, dims: tuple,
+                  sms: int) -> ForwardPlan:
+    """K3's schedule for N rows.
+
+    The resident path (the whole model staged in shared memory) when one
+    model and a one-row tile fit in a block, else the streamed path, chosen
+    from the shapes. Of the row tiles whose block fits (the layout
     mlp_forward.cu carves, which refuses a byte count that does not hold
-    it: a 4-float header, the parameters with alignment slack, one x tile
-    and two activation tiles at an odd stride), the one whose busiest SM
-    does the least work, ``ceil(blocks / sms) * (rows + _STAGING_ROWS)``,
-    and the largest of equals. Threads: whole warps, at most 256, enough to
-    run the widest layer's 4 x 4 micro-tiles in two passes (128 at 16 rows
-    of 14->50->200->2: measured fastest there, ``chip_smoke.py``); below 4
-    rows, one output a thread of the widest layer."""
+    it), the one whose busiest SM does the least work,
+    ``ceil(blocks / sms) * (rows + _STAGING_ROWS)`` (both a block's
+    parameter copy and its forward grow with the parameters), and the
+    largest of equals. Threads: whole warps, at most 256, enough to run the
+    widest layer's 4 x 4 micro-tiles in two passes (128 at 16 rows of
+    14->50->200->2: measured fastest there, ``chip_smoke.py``); below 4
+    rows, one output a thread of the widest layer. On the streamed path the
+    buffers take the rest of the block's shared memory."""
+    limit = SMEM_BYTES_MAX // 4
+    resident = _resident_floats(num_params)
     fits = [r for r in _FORWARD_TILES
-            if _forward_bytes(num_params, dims, r) <= SMEM_BYTES_MAX]
-    if not fits:
-        raise ValueError(
-            f"one model's {num_params} parameters and a one-row tile do not "
-            f"fit in a block's {SMEM_BYTES_MAX} bytes of shared memory")
+            if resident + _tile_floats(dims, r) <= limit]
+    streamed = not fits
+    if streamed:
+        fits = [r for r in _FORWARD_TILES
+                if _stream_cap(limit - 4 - _tile_floats(dims, r), dims)]
+        if not fits:
+            raise _too_wide(dims)
 
     def busiest(rows):
         blocks = -(-n // rows)
@@ -132,17 +195,16 @@ def _forward_plan(n: int, num_params: int, dims: tuple, sms: int) -> tuple:
     else:
         want = rows * widest   # one output a thread: no 4-row micro-tile
     threads = min(THREADS_MAX, max(32, -(-want // 32) * 32))
-    return (rows, threads, _forward_bytes(num_params, dims, rows),
-            -(-n // rows))
+    cap = _stream_cap(limit - 4 - _tile_floats(dims, rows), dims) \
+        if streamed else 0
+    head = 4 + 2 * cap if streamed else resident
+    return ForwardPlan(rows, threads, 4 * (head + _tile_floats(dims, rows)),
+                       -(-n // rows), cap)
 
 
 def _forward_bytes(num_params: int, dims: tuple, rows: int) -> int:
-    """Shared memory of one K3 block at a row tile of ``rows``: the staging
-    layout of mlp_forward.cuh (a 4-float header, the parameters with 3
-    floats of alignment slack rounded up to 4), one x tile and two
-    activation tiles at the widest layer's odd stride."""
-    ld = max(d | 1 for d in dims[1:])
-    return 4 * (4 + (num_params + 6) // 4 * 4 + rows * (dims[0] + 2 * ld))
+    """Shared memory of one resident K3 block at a row tile of ``rows``."""
+    return 4 * (_resident_floats(num_params) + _tile_floats(dims, rows))
 
 
 @functools.cache
@@ -150,37 +212,98 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _eval_plan(num_params: int, dims: tuple) -> tuple:
-    """K2's row tile and shared memory: ``(rows, bytes)`` for the largest
-    row tile whose block fits. The layout is the one eval_confusion.cu
-    carves, which refuses a byte count that does not hold it: K3's
-    (``_forward_bytes``) and the K x K counts."""
+def _eval_plan(num_params: int, dims: tuple) -> EvalPlan:
+    """K2's row tile, path and shared memory: the resident path (K3's
+    layout) at the largest row tile whose block fits, else the streamed
+    path at the largest row tile whose block fits with a buffer of at least
+    one weight row; at that tile the K x K counts in shared memory when
+    they fit beside it, else in global memory. The layout is the one
+    eval_confusion.cu carves, which refuses a byte count that does not
+    hold it; on the streamed path the buffers take the rest."""
+    limit = SMEM_BYTES_MAX // 4
+    kk = dims[-1] ** 2
+    resident = _resident_floats(num_params)
     for rows in _ROW_TILES:
-        nbytes = _forward_bytes(num_params, dims, rows) + 4 * dims[-1] ** 2
-        if nbytes <= SMEM_BYTES_MAX:
-            return rows, nbytes
-    raise ValueError(
-        f"one model's {num_params} parameters and a one-row tile do not fit "
-        f"in a block's {SMEM_BYTES_MAX} bytes of shared memory")
+        for counts in (kk, 0):
+            floats = resident + _tile_floats(dims, rows) + counts
+            if floats <= limit:
+                return EvalPlan(rows, 4 * floats, 0, counts > 0)
+    for rows in _ROW_TILES:
+        for counts in (kk, 0):
+            rest = 4 + _tile_floats(dims, rows) + counts
+            cap = _stream_cap(limit - rest, dims)
+            if cap:
+                return EvalPlan(rows, 4 * (rest + 2 * cap), cap, counts > 0)
+    raise _too_wide(dims)
 
 
-def _fused_round_plan(num_params: int, dims: tuple) -> tuple:
+class RoundPlan(NamedTuple):
+    """K5's launch: rows a chunk, shared bytes, chunks a client, work items
+    (one a (chunk, client)), and the grid's blocks."""
+    rows: int
+    nbytes: int
+    chunks: int
+    items: int
+    blocks: int
+
+
+_ROUND_ROWS = (64, 32, 16, 8, 4, 2, 1)   # FT_ROUND_MAX_ROWS in fused_round.cu
+ROUND_THREADS = 512                      # FT_ROUND_THREADS
+
+
+def _round_ldr(rows: int) -> int:
+    """K5's stride of its feature-major x tile and layer outputs at a chunk
+    of ``rows`` (``ft_round_ldr`` in fused_round.cu)."""
+    return -(-rows // 16) * 16 + 4
+
+
+def _fused_round_rows(num_params: int, dims: tuple) -> tuple:
     """K5's row chunk and shared memory: ``(rows, bytes)`` for the largest
     chunk whose block fits. The layout is the one fused_round.cu carves,
-    which refuses a byte count that does not hold it: the parameters rounded
-    up to 4 floats, the x tile, every layer's output and two dz buffers (odd
-    strides), the tile's mask and labels, 32 floats of reduction scratch and
-    the K x K counts."""
-    lds = [d | 1 for d in dims[1:]]
-    fixed = (num_params + 3) // 4 * 4 + 32 + dims[-1] ** 2
+    which refuses a byte count that does not hold it: K3's staging layout
+    (a 4-float header, the parameters with alignment slack), the x tile and
+    every layer's output feature-major (``_round_ldr`` floats a feature),
+    two dz buffers (the widest odd stride), the tile's mask and labels, 32
+    floats of reduction scratch and the K x K counts."""
+    ldmax = max(d | 1 for d in dims[1:])
+    fixed = _resident_floats(num_params) + 32 + dims[-1] ** 2
     for rows in _ROUND_ROWS:
-        floats = fixed + rows * (dims[0] + sum(lds) + 2 * max(lds) + 2)
+        floats = (fixed + sum(dims) * _round_ldr(rows)
+                  + rows * (2 * ldmax + 2))
         if 4 * floats <= SMEM_BYTES_MAX:
             return rows, 4 * floats
     raise ValueError(
         f"model.hidden_sizes={list(dims[1:-1])}: one model's {num_params} "
         f"parameters and a one-row chunk do not fit in a block's "
         f"{SMEM_BYTES_MAX} bytes of shared memory")
+
+
+def _fused_round_plan(num_params: int, dims: tuple, clients: int, n: int,
+                      resident: int) -> RoundPlan:
+    """K5's launch for ``clients`` clients of ``n`` rows when ``resident``
+    blocks fit on the card at once: the chunk of ``_fused_round_rows``, a
+    work item per (chunk, client), and enough blocks for every item and
+    for phase B's (C, D) elements (one a thread), never more than can be
+    resident (a grid barrier needs all of them)."""
+    rows, nbytes = _fused_round_rows(num_params, dims)
+    chunks = -(-n // rows)
+    items = chunks * clients
+    elems = -(-clients * num_params // ROUND_THREADS)
+    return RoundPlan(rows, nbytes, chunks, items,
+                     min(resident, max(items, elems)))
+
+
+@functools.cache
+def _round_resident(index: int, nbytes: int) -> int:
+    """How many K5 blocks of ``nbytes`` of shared memory the card ``index``
+    holds at once (the occupancy API, asked once)."""
+    from fedtpu_torch.ops._build import load_library
+    blocks = ctypes.c_int()
+    with torch.cuda.device(index):
+        err = load_library().ft_fused_round_resident(
+            nbytes, ctypes.addressof(blocks))
+    _raise_on("ft_fused_round_resident", err)
+    return blocks.value
 
 
 def _launch(entry: str, device: torch.device, *args) -> None:
@@ -271,10 +394,11 @@ def fused_eval_confusion(flat: torch.Tensor, dims: Sequence[int],
                          num_classes: int) -> torch.Tensor:
     """Batched-over-clients fused eval: ``(C, K, K)`` confusion matrices of
     client-stacked params ``flat (C, D)`` on ``x (C, N, dims[0])``,
-    ``y (C, N)`` int32, ``mask (C, N)`` float32. ``num_classes <= 8``."""
-    if num_classes > MAX_CLASSES:
-        raise ValueError(f"num_classes={num_classes} > {MAX_CLASSES} "
-                         "unsupported (per-block confusion tile)")
+    ``y (C, N)`` int32, ``mask (C, N)`` float32; any class count, width
+    and depth (on the card: up to ``MAX_LAYERS`` layers and the width
+    ``_eval_plan`` takes).
+
+    On the card: one launch of K2 under ``_eval_plan``."""
     dev = _device(flat, x, y, mask)
     dims = _check_dims(flat, dims)
     if dims[-1] != num_classes:
@@ -288,16 +412,17 @@ def fused_eval_confusion(flat: torch.Tensor, dims: Sequence[int],
     if dev.type == "cpu":
         return fused_eval_confusion_reference(flat, dims, x, y, mask,
                                               num_classes)
+    _check_depth(dims)
+    plan = _eval_plan(param_count(dims), dims)
     conf = torch.zeros((c, num_classes, num_classes), dtype=torch.float32,
                        device=dev)
     if c == 0 or n == 0:
         return conf
-    rows, nbytes = _eval_plan(param_count(dims), dims)
     dims_arg = _dims_arg(dims)
     _launch("ft_eval_confusion", dev, flat.data_ptr(), param_count(dims),
             ctypes.addressof(dims_arg), len(dims) - 1, x.data_ptr(),
-            y.data_ptr(), mask.data_ptr(), c, n, rows, nbytes,
-            conf.data_ptr())
+            y.data_ptr(), mask.data_ptr(), c, n, plan.rows, plan.cap,
+            int(plan.shared_counts), plan.nbytes, conf.data_ptr())
     LAUNCHES["fused_eval_confusion"] += 1
     return conf
 
@@ -312,7 +437,8 @@ def fused_mlp_forward_reference(flat: torch.Tensor, dims: Sequence[int],
 def fused_mlp_forward(flat: torch.Tensor, dims: Sequence[int],
                       x: torch.Tensor) -> torch.Tensor:
     """Logits ``(N, K)`` of one model ``flat (D,)`` on ``x (N, dims[0])``;
-    any N.
+    any N, width and depth (on the card: up to ``MAX_LAYERS`` layers and
+    the width ``_forward_plan`` takes).
 
     On the card: one launch of K3 over the row tiles of ``_forward_plan``."""
     dev = _device(flat, x)
@@ -322,24 +448,27 @@ def fused_mlp_forward(flat: torch.Tensor, dims: Sequence[int],
     _check(x, "x", torch.float32, (n, dims[0]))
     if dev.type == "cpu":
         return fused_mlp_forward_reference(flat, dims, x)
+    _check_depth(dims)
     out = torch.empty((n, dims[-1]), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     plan = _forward_plan(n, param_count(dims), dims,
                          _sm_count(dev.index or 0))
-    _launch_forward(flat, dims, x, out, *plan[:3])
+    _launch_forward(flat, dims, x, out, plan.rows, plan.threads, plan.nbytes,
+                    plan.cap)
     return out
 
 
 def _launch_forward(flat: torch.Tensor, dims: tuple, x: torch.Tensor,
                     out: torch.Tensor, rows: int, threads: int,
-                    nbytes: int) -> None:
-    """K3's launch at a given tile, threads and shared memory (the
-    wrapper's plan, or another for timing); every launch counts."""
+                    nbytes: int, cap: int = 0) -> None:
+    """K3's launch at a given tile, threads, shared memory and weight
+    buffers (the wrapper's plan, or another for timing); every launch
+    counts."""
     dims_arg = _dims_arg(dims)
     _launch("ft_mlp_forward", x.device, flat.data_ptr(), param_count(dims),
             ctypes.addressof(dims_arg), len(dims) - 1, x.data_ptr(),
-            x.shape[0], rows, threads, nbytes, out.data_ptr())
+            x.shape[0], rows, threads, cap, nbytes, out.data_ptr())
     LAUNCHES["fused_mlp_forward"] += 1
 
 
@@ -431,7 +560,8 @@ def fused_round_reference(params: torch.Tensor, mu: torch.Tensor,
 def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                 count: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 mask: torch.Tensor, weights: torch.Tensor,
-                dims: Sequence[int], optim: OptimConfig) -> tuple:
+                dims: Sequence[int], optim: OptimConfig,
+                phase_ns: torch.Tensor = None) -> tuple:
     """One whole FedAvg round of Adam clients: ``params``, ``mu``, ``nu``
     ``(C, D)``, ``count (C,)`` int32, ``x (C, N, dims[0])``, ``y (C, N)``
     int32, ``mask (C, N)``, FedAvg ``weights (C,)`` -> ``(params, mu, nu,
@@ -441,19 +571,23 @@ def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     before the step. Every output is freshly allocated; no input is
     written. ``num_classes <= 8``.
 
-    On the card: one cooperative launch of K5 (``csrc/fused_round.cu``)."""
+    On the card: one cooperative launch of K5 (``csrc/fused_round.cu``)
+    under ``_fused_round_plan``. ``phase_ns``, an int64 CUDA tensor of at
+    least ``(blocks, 8)`` rows, takes each block's %globaltimer stamps of
+    the round's three phases (for measurement only)."""
     if optim.name != "adam":
         raise ValueError(f"optim.name={optim.name!r}: the fused round "
                          "computes Adam only")
     dev = _device(params, mu, nu, count, x, y, mask, weights)
     dims = _check_dims(params, dims)
+    _check_depth(dims)
     if dims[-1] > MAX_CLASSES:
         raise ValueError(f"num_classes={dims[-1]} > {MAX_CLASSES} "
                          "unsupported (per-block confusion tile)")
     c, n = y.shape
     d = param_count(dims)
     # The plain version refuses what the kernel cannot hold, too.
-    rows, nbytes = _fused_round_plan(d, dims)
+    nbytes = _fused_round_rows(d, dims)[1]
     for t, name in ((params, "params"), (mu, "mu"), (nu, "nu")):
         _check(t, name, torch.float32, (c, d))
     _check(count, "count", torch.int32, (c,))
@@ -467,8 +601,15 @@ def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     if c == 0 or n == 0:
         raise ValueError(f"the fused round needs clients and rows, got "
                          f"C={c}, N={n}")
-    chunks = -(-n // rows)
-    scratch = torch.empty(chunks * c * d + chunks * c + c + c * d,
+    plan = _fused_round_plan(d, dims, c, n,
+                             _round_resident(dev.index or 0, nbytes))
+    if phase_ns is not None and (
+            phase_ns.dtype != torch.int64 or phase_ns.device != dev
+            or phase_ns.dim() != 2 or phase_ns.shape[0] < plan.blocks
+            or phase_ns.shape[1] != 8 or not phase_ns.is_contiguous()):
+        raise ValueError(f"phase_ns must be a contiguous int64 tensor of "
+                         f"({plan.blocks}, 8) or more rows on {dev}")
+    scratch = torch.empty(plan.chunks * c * d + plan.chunks * c + c + c * d,
                           dtype=torch.float32, device=dev)
     outs = [torch.empty_like(params) for _ in range(3)]
     count_out = torch.empty_like(count)
@@ -483,8 +624,9 @@ def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
             nu.data_ptr(), count.data_ptr(), x.data_ptr(), y.data_ptr(),
             mask.data_ptr(), weights.data_ptr(), c, n,
             ctypes.addressof(dims_arg), len(dims) - 1, ctypes.addressof(adam),
-            rows, nbytes, scratch.data_ptr(),
+            plan.rows, plan.nbytes, plan.blocks, scratch.data_ptr(),
             *(t.data_ptr() for t in outs), count_out.data_ptr(),
-            loss.data_ptr(), conf.data_ptr())
+            loss.data_ptr(), conf.data_ptr(),
+            None if phase_ns is None else phase_ns.data_ptr())
     LAUNCHES["fused_round"] += 1
     return (*outs, count_out, loss, conf)

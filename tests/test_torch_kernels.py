@@ -114,15 +114,17 @@ def test_forward_plan_fills_the_card_or_raises(dims, n, plan):
     warps of threads, at most 256, for two passes of the widest layer's
     4 x 4 micro-tiles, or one output a thread below 4 rows.
     At the held-out split's N = 2,000 the grid has at least 125 blocks; a
-    wide model falls to a smaller tile; a model whose parameters do not fit
-    raises."""
+    wide model falls to a smaller tile; every model that fits is resident;
+    a layer too wide for a one-row tile and two one-row weight buffers
+    raises, naming its width."""
     num_params = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
     if plan is None:
-        with pytest.raises(ValueError, match="do not fit"):
+        with pytest.raises(ValueError, match=f"a layer {max(dims[1:])} wide"):
             ck._forward_plan(n, num_params, dims, 132)
         return
-    rows, threads, nbytes, blocks = ck._forward_plan(n, num_params, dims, 132)
-    assert (rows, threads, blocks) == plan
+    rows, threads, nbytes, blocks, cap = ck._forward_plan(n, num_params, dims,
+                                                          132)
+    assert (rows, threads, blocks, cap) == (*plan, 0)
     assert blocks == -(-n // rows) and nbytes <= ck.SMEM_BYTES_MAX
     ld = max(d | 1 for d in dims[1:])
     # 4-float header + parameters with alignment slack + x and two
@@ -134,6 +136,60 @@ def test_forward_plan_fills_the_card_or_raises(dims, n, plan):
         r = min(bigger)
         assert 4 * (4 + (num_params + 6) // 4 * 4
                     + r * (dims[0] + 2 * ld)) > ck.SMEM_BYTES_MAX
+
+
+_INCOME_SHAPES = [INCOME_DIMS, (14, 50, 400, 2), (14, 2), (14, 50, 200, 8)]
+_WIDE_SHAPES = [(14, 256, 256, 2), (14, 200, 200, 200, 2),
+                (14, 1024, 1024, 2)]
+
+
+@pytest.mark.parametrize("dims", _INCOME_SHAPES + _WIDE_SHAPES)
+def test_plans_stream_only_models_that_do_not_fit(dims):
+    """K2's and K3's plans pick the path from the shapes: every income
+    shape (and the sklearn-parity (50, 400) one) stays resident with
+    today's tiles; (256, 256), (200, 200, 200) and (1024, 1024), whose
+    parameters do not fit in a block, stream their weights through two
+    buffers that each hold at least one input row of the widest layer,
+    the layout (header, two buffers, x tile, two activation tiles, the
+    K x K counts) filling the block's shared memory."""
+    num_params = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    k3 = ck._forward_plan(2000, num_params, dims, 132)
+    k2 = ck._eval_plan(num_params, dims)
+    if dims in _INCOME_SHAPES:
+        assert k3.cap == 0 and k2.cap == 0 and k2.shared_counts
+        if dims == INCOME_DIMS:
+            assert (k3.rows, k3.threads, k3.blocks) == (16, 128, 125)
+            assert (k2.rows, k2.nbytes) == (32, 98_704)
+        return
+    assert 4 * (4 + (num_params + 6) // 4 * 4) > ck.SMEM_BYTES_MAX
+    widest = max(dims[1:])
+    for plan, counts in ((k3, 0), (k2, dims[-1] ** 2)):
+        assert plan.cap % 4 == 0 and plan.cap - 3 >= widest
+        used = 4 * (4 + 2 * plan.cap + ck._tile_floats(dims, plan.rows)
+                    + counts)
+        assert plan.nbytes == used <= ck.SMEM_BYTES_MAX
+        assert ck.SMEM_BYTES_MAX - used < 4 * 8   # the buffers take the rest
+    assert k2.shared_counts and k2.rows == (16 if widest > 1000 else 32)
+    assert k3.blocks == -(-2000 // k3.rows)
+
+
+@pytest.mark.parametrize("dims,shared", [((14, 50, 250), False),
+                                         ((14, 50, 120), True),
+                                         ((14, 256, 256, 240), False)])
+def test_eval_plan_keeps_the_counts_in_shared_memory_while_they_fit(
+        dims, shared):
+    """Past the K x K tile that fits beside the row tile, K2 counts
+    straight into global memory (exact: 0/1 masks, counts below 2^24)."""
+    num_params = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    plan = ck._eval_plan(num_params, dims)
+    assert plan.shared_counts == shared
+    extra = dims[-1] ** 2 if shared else 0
+    if plan.cap == 0:
+        assert plan.nbytes == 4 * (ck._resident_floats(num_params)
+                                   + ck._tile_floats(dims, plan.rows) + extra)
+    else:
+        assert plan.nbytes == 4 * (4 + 2 * plan.cap + extra
+                                   + ck._tile_floats(dims, plan.rows))
 
 
 @pytest.mark.parametrize("dims,n,k", [((6, 16, 2), 64, 2),
@@ -193,15 +249,18 @@ def test_fused_eval_confusion_plain_matches_pallas_on_tail_padded_shards(
                                        ((14, 60000, 2), None)])
 def test_eval_plan_picks_the_largest_fitting_tile_or_raises(dims, rows):
     """K2's host-side plan: the largest row tile whose parameters, x and
-    activation tiles and counts fit in a block's shared memory; a model
-    whose parameters alone do not fit raises."""
+    activation tiles and counts fit in a block's shared memory; a layer too
+    wide for a one-row tile and two one-row weight buffers raises, naming
+    its width (a model whose parameters alone do not fit streams them:
+    test_plans_stream_only_models_that_do_not_fit)."""
     num_params = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
     if rows is None:
-        with pytest.raises(ValueError, match="do not fit"):
+        with pytest.raises(ValueError, match=f"a layer {max(dims[1:])} wide"):
             ck._eval_plan(num_params, dims)
         return
-    got, nbytes = ck._eval_plan(num_params, dims)
+    got, nbytes, cap, shared_counts = ck._eval_plan(num_params, dims)
     assert got == rows and nbytes <= ck.SMEM_BYTES_MAX
+    assert cap == 0 and shared_counts
     if rows < ck._ROW_TILES[0]:
         ld = max(d | 1 for d in dims[1:])
         bigger = 2 * rows
@@ -347,12 +406,97 @@ def test_fused_round_kernel_matches_its_plain_version(cuda, dims, sizes):
 
 
 def test_fused_eval_confusion_rejects_wide_class_counts():
-    dims = (4, 9)
-    flat = torch.zeros((2, 4 * 9 + 9))
-    with pytest.raises(ValueError, match="> 8"):
-        ck.fused_eval_confusion(flat, dims, torch.zeros((2, 8, 4)),
-                                torch.zeros((2, 8), dtype=torch.int32),
-                                torch.ones((2, 8)), 9)
+    """More than 8 classes were refused here, on the CPU too, though
+    fedtpu's default in-round eval (its XLA chain) takes any K. Now the
+    wrapper refuses only a last layer that is not K wide, and at K = 9, 10
+    and 17 its counts equal fedtpu's eval step's on the same inputs."""
+    for k in (9, 10, 17):
+        dims = (4, 9, k)
+        c, n = 3, 50
+        rng = np.random.default_rng(k)
+        params = _jax_params(k, dims, clients=c)
+        x = rng.normal(size=(c, n, 4)).astype(np.float32)
+        y = rng.integers(0, k, size=(c, n)).astype(np.int32)
+        mask = (rng.random((c, n)) < 0.8).astype(np.float32)
+        ref = np.asarray(jax.vmap(make_local_eval_step(j_apply, k))(
+            params, x, y, mask))
+        flat = convert.params_from_jax(params)
+        out = ck.fused_eval_confusion(flat, dims, torch.from_numpy(x),
+                                      torch.from_numpy(y),
+                                      torch.from_numpy(mask), k)
+        np.testing.assert_array_equal(out.numpy(), ref)
+        with pytest.raises(ValueError, match="num_classes"):
+            ck.fused_eval_confusion(flat, dims, torch.from_numpy(x),
+                                    torch.from_numpy(y),
+                                    torch.from_numpy(mask), k + 1)
+
+
+@pytest.mark.parametrize("layers", [17, 65])
+def test_eval_and_forward_take_any_depth_on_the_cpu(layers):
+    """A deep MLP (4 wide) was refused before the CPU branch; the plain
+    versions now take any depth and match fedtpu's forward and eval step,
+    and only the card keeps the kernels' MAX_LAYERS."""
+    dims = (4,) * layers + (2,)
+    c, n = 2, 40
+    rng = np.random.default_rng(layers)
+    params = _jax_params(layers, dims, clients=c)
+    x = rng.normal(size=(c, n, 4)).astype(np.float32)
+    y = rng.integers(0, 2, size=(c, n)).astype(np.int32)
+    mask = np.ones((c, n), np.float32)
+    flat = convert.params_from_jax(params)
+    conf = ck.fused_eval_confusion(flat, dims, torch.from_numpy(x),
+                                   torch.from_numpy(y),
+                                   torch.from_numpy(mask), 2)
+    np.testing.assert_array_equal(conf.numpy(), np.asarray(jax.vmap(
+        make_local_eval_step(j_apply, 2))(params, x, y, mask)))
+    logits = ck.fused_mlp_forward(flat[0], dims, torch.from_numpy(x[0]))
+    np.testing.assert_allclose(
+        logits.numpy(),
+        np.asarray(j_apply(jax.tree.map(lambda a: a[0], params), x[0])),
+        atol=1e-5)
+    if layers <= ck.MAX_LAYERS:
+        ck._check_depth(dims)
+    else:
+        with pytest.raises(ValueError, match=f"{layers} layers"):
+            ck._check_depth(dims)
+
+
+@pytest.mark.parametrize("dims,c,n,resident,plan", [
+    # income-8: 128 items, one a block; phase B's 90,816 elements take
+    # every SM.
+    (INCOME_DIMS, 8, 1000, 132, (64, 16, 128, 132)),
+    # income-32-noniid's tail-padded batch: 576 items over every SM.
+    (INCOME_DIMS, 32, 1104, 132, (64, 18, 576, 132)),
+    # chip_smoke's K5 edge shapes.
+    (INCOME_DIMS, 2, 1000, 132, (64, 16, 32, 45)),
+    (INCOME_DIMS, 3, 333, 132, (64, 6, 18, 67)),
+    ((14, 50, 200, 8), 4, 700, 132, (64, 11, 44, 99)),
+    ((6, 8, 5, 3), 3, 130, 132, (64, 3, 9, 9)),
+    (INCOME_DIMS, 1, 1, 132, (64, 1, 1, 23)),
+    # A card that holds fewer blocks: the grid shrinks, blocks loop.
+    (INCOME_DIMS, 8, 1000, 60, (64, 16, 128, 60)),
+])
+def test_fused_round_plan_sizes_chunks_items_and_grid(dims, c, n, resident,
+                                                      plan):
+    """K5's launch arithmetic: the largest row chunk whose block fits (the
+    layout fused_round.cu carves), a work item per (chunk, client), and a
+    grid with a block for every item or for every 512 of phase B's (C, D)
+    elements, whichever is more, but never more blocks than the card holds
+    at once (its grid barriers need every block resident)."""
+    d = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    p = ck._fused_round_plan(d, dims, c, n, resident)
+    assert (p.rows, p.chunks, p.items, p.blocks) == plan
+    assert p.chunks == -(-n // p.rows) and p.items == c * p.chunks
+    assert p.blocks == min(resident, max(p.items, -(-c * d // 512)))
+    ldmax = max(w | 1 for w in dims[1:])
+
+    def floats(rows):   # feature-major tiles at -(-rows // 16) * 16 + 4
+        return (4 + (d + 6) // 4 * 4 + 32 + dims[-1] ** 2
+                + sum(dims) * (-(-rows // 16) * 16 + 4)
+                + rows * (2 * ldmax + 2))
+    assert p.nbytes == 4 * floats(p.rows) <= ck.SMEM_BYTES_MAX
+    if p.rows < 64:
+        assert 4 * floats(2 * p.rows) > ck.SMEM_BYTES_MAX
 
 
 def _round_inputs(c=2, n=5, dims=(4, 3, 2)):

@@ -6,6 +6,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import ast  # noqa: E402
+import dataclasses  # noqa: E402
 import os  # noqa: E402
 
 import jax  # noqa: E402
@@ -283,6 +284,125 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
 def test_unported_knobs_raise_naming_their_roadmap_item(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         tcfg.FedConfig(**kw)
+
+
+_CONFIGS = ("DataConfig", "ShardConfig", "ModelConfig", "OptimConfig",
+            "FedConfig", "RunConfig", "TelemetryConfig")
+# The knobs of fedtpu that the port does not run yet, and the ROADMAP item
+# of each.
+_UNPORTED = {
+    "DataConfig": {"dataset_name": "A7", "native_loader": "A1"},
+    "ShardConfig": {"partition_clients": "A10", "partition_offset": "A10"},
+    "ModelConfig": {k: "A7" for k in ("kind", "image_shape", "conv_channels",
+                                      "param_dtype", "compute_dtype")},
+    "FedConfig": {
+        "local_steps": "A3", "prox_mu": "A3", "init_weights_npz": "A5",
+        "personalize_steps": "A7",
+        **{k: "A6" for k in (
+            "scaffold", "server_opt", "server_lr", "server_momentum",
+            "server_b1", "server_b2", "server_tau", "dp_clip_norm",
+            "dp_noise_multiplier", "dp_seed", "dp_adaptive_clip",
+            "dp_target_quantile", "dp_clip_lr", "dp_count_noise_multiplier",
+            "dp_delta", "robust_aggregation", "trim_ratio", "krum_f",
+            "byzantine_clients", "compress")},
+        **{k: "A8" for k in ("async_mode", "async_arrival_rate",
+                             "async_arrival_seed", "async_staleness_power",
+                             "async_buffer_size")},
+        **{k: "A9" for k in ("cohort_size", "client_store",
+                             "client_store_path", "cohort_sampling",
+                             "cohort_seed", "cohort_trace")}},
+    "RunConfig": {
+        **{k: "A5" for k in ("checkpoint_dir", "checkpoint_every",
+                             "keep_checkpoints", "metrics_jsonl",
+                             "pipelined_stop")},
+        **{k: "A10" for k in ("mpmd", "model_parallel",
+                              "collective_timeout")},
+        **{k: "A11" for k in (
+            "profile_dir", "profile_rounds", "compilation_cache",
+            "overlap_compile", "telemetry", "fault_plan", "on_divergence",
+            "rollback_retries", "rollback_exclude", "rollback_perturb",
+            "heartbeat_file")}},
+}
+
+
+def _default(field):
+    if field.default is not dataclasses.MISSING:
+        return field.default
+    return field.default_factory()
+
+
+@pytest.mark.parametrize("name", _CONFIGS)
+def test_every_fedtpu_knob_is_a_port_field_with_its_default(name):
+    """Each field of the dataclasses fedtpu's ExperimentConfig holds is a
+    field of the port's, with fedtpu's name and default (a sub-config is
+    the port's own copy, equal field for field)."""
+    j = {f.name: _default(f) for f in dataclasses.fields(getattr(jcfg, name))}
+    t = {f.name: _default(f) for f in dataclasses.fields(getattr(tcfg, name))}
+    assert set(t) == set(j)
+    for key, value in j.items():
+        if dataclasses.is_dataclass(value):
+            assert type(t[key]).__module__ == "fedtpu_torch.config"
+            assert dataclasses.asdict(t[key]) == dataclasses.asdict(value)
+        else:
+            assert t[key] == value and type(t[key]) is type(value), key
+    # The defaults construct, and so does every preset's config.
+    getattr(tcfg, name)()
+
+
+def _other_value(value):
+    if isinstance(value, bool):
+        return not value
+    if isinstance(value, (int, float)):
+        return value + 1
+    if isinstance(value, tuple):
+        return value + value[-1:]
+    if dataclasses.is_dataclass(value):
+        return dataclasses.replace(value, events_path="events.jsonl")
+    return "x"      # a string, or None for an optional path
+
+
+@pytest.mark.parametrize("name,knob,item", [
+    (name, knob, item) for name, knobs in _UNPORTED.items()
+    for knob, item in knobs.items()])
+def test_unported_knob_off_its_default_raises_naming_its_item(name, knob,
+                                                              item):
+    cls = getattr(tcfg, name)
+    field = {f.name: f for f in dataclasses.fields(cls)}[knob]
+    value = _other_value(_default(field))
+    with pytest.raises(NotImplementedError,
+                       match=rf"{name}\.{knob}=.*\(ROADMAP {item}\)"):
+        cls(**{knob: value})
+
+
+def test_ported_knobs_take_other_values():
+    """Every field the port runs takes another value; use_pallas selects
+    the fused held-out forward, which the port always runs."""
+    for name in _CONFIGS:
+        cls = getattr(tcfg, name)
+        for field in dataclasses.fields(cls):
+            if field.name in _UNPORTED.get(name, {}) or name == \
+                    "TelemetryConfig":
+                continue
+            assert field.name in {
+                "DataConfig": {"csv_path", "label_column", "test_size",
+                               "split_seed", "scale_with_mean",
+                               "scaler_leakage_parity", "synthetic_rows",
+                               "synthetic_features", "synthetic_classes"},
+                "ShardConfig": {"num_clients", "shuffle", "shard_seed",
+                                "unseeded_per_client_bug", "strategy",
+                                "dirichlet_alpha"},
+                "ModelConfig": {"hidden_sizes", "num_classes", "input_dim",
+                                "use_pallas"},
+                "OptimConfig": {f.name for f in dataclasses.fields(cls)},
+                "FedConfig": {"rounds", "weighting", "termination_patience",
+                              "tolerance", "same_init", "init_seed",
+                              "participation_rate", "participation_seed",
+                              "aggregation"},
+                "RunConfig": {"log_every", "log_per_client",
+                              "rounds_per_step", "eval_test_every",
+                              "halt_on_nonfinite", "mesh_devices"},
+            }[name], (name, field.name)
+    assert tcfg.ModelConfig(use_pallas=True).use_pallas
 
 
 def test_sampling_ring_and_mesh_knobs_construct():
