@@ -7,11 +7,12 @@ kernels in place of the JAX package's Pallas kernels
 (``fedtpu_torch.ops.cuda_kernels``).
 
     fedtpu_torch.config         — configs + the income presets
-    fedtpu_torch.data           — synthetic income data, client sharding
+    fedtpu_torch.data           — the CSV and synthetic income data, sharding
     fedtpu_torch.models         — the MLP on a flat parameter buffer
     fedtpu_torch.ops            — losses, metrics, optimizers, CUDA kernels
-    fedtpu_torch.parallel       — the federated round
-    fedtpu_torch.orchestration  — host round loop, early stopping
+    fedtpu_torch.parallel       — the federated round, its CUDA graph
+    fedtpu_torch.orchestration  — host round loop, early stopping, checkpoints
+    fedtpu_torch.sweep          — the sweep's weights artifact (.npz)
     fedtpu_torch.convert        — params / Adam state to and from fedtpu
     fedtpu_torch.utils          — timing
     fedtpu_torch.benchmarks     — the fused whole round vs the composed one

@@ -78,9 +78,11 @@ def round_flops(dims: Sequence[int], real_rows: float, clients: int) -> float:
 
 def check_config(cfg: ExperimentConfig) -> None:
     """Refuse what this benchmark cannot hand to K5, naming the field: client
-    sampling, another aggregation, and an optimizer state without Adam's
-    moments. The model's limits are the wrapper's own (``fused_round``
-    raises a ``ValueError`` that names the field on any device)."""
+    sampling, another aggregation, more than one local step, FedProx, and
+    an optimizer state without Adam's moments. The model's limits are the
+    wrapper's own (``fused_round`` raises a ``ValueError`` that names the
+    field on any device)."""
+    ck.check_fused_round_training(cfg.fed.local_steps, cfg.fed.prox_mu)
     if cfg.fed.participation_rate < 1.0:
         raise ValueError(f"fed.participation_rate="
                          f"{cfg.fed.participation_rate}: the fused round "

@@ -24,6 +24,20 @@ def _participation_rate(text: str) -> float:
     return rate
 
 
+def _positive_int(text: str) -> int:
+    value = int(text)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {value}")
+    return value
+
+
+def _nonnegative_float(text: str) -> float:
+    value = float(text)
+    if value < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0, got {value}")
+    return value
+
+
 def _hidden_sizes(text: str):
     return tuple(int(t) for t in text.split(",") if t.strip())
 
@@ -34,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("run", help="run the synchronous FedAvg loop")
     p.add_argument("--preset", default="income-8", choices=sorted(PRESETS))
     p.add_argument("--csv", default=None,
-                   help="dataset CSV path ('' = synthetic; a path is not "
-                        "supported yet)")
+                   help="dataset CSV path ('' = synthetic rows, the "
+                        "presets' default)")
     p.add_argument("--synthetic-rows", type=int, default=None)
     p.add_argument("--num-clients", type=int, default=None)
     p.add_argument("--rounds", type=int, default=None)
@@ -52,7 +66,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="FedAvg reduction backend (default psum; ring = "
                         "rotate-and-accumulate over the clients mesh, the "
                         "ring kernel on the GPU)")
+    p.add_argument("--local-steps", type=_positive_int, default=None,
+                   help="full-batch steps per client per round (classic "
+                        "FedAvg E >= 1; reference does 1)")
+    p.add_argument("--prox-mu", type=_nonnegative_float, default=None,
+                   help="FedProx proximal coefficient >= 0 (0 = plain "
+                        "FedAvg; meaningful with --local-steps > 1)")
     p.add_argument("--rounds-per-step", type=int, default=None)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None)
+    p.add_argument("--keep-checkpoints", type=int, default=None,
+                   help="retain only the k newest complete checkpoints "
+                        "plus the best-accuracy round (0 = keep all)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in "
+                        "--checkpoint-dir")
+    p.add_argument("--init-weights", default=None, metavar="NPZ",
+                   help="warm-start every client from a saved weights "
+                        "artifact (the sweep's --save-weights output); "
+                        "architecture must match")
+    p.add_argument("--metrics-jsonl", default=None,
+                   help="append one JSON line of metrics per round")
+    p.add_argument("--pipelined-stop", action="store_true",
+                   help="overlap metric processing with the next chunk; "
+                        "stop decisions lag one chunk (the recorded history "
+                        "stays identical)")
     p.add_argument("--eval-test-every", type=int, default=None)
     p.add_argument("--platform", choices=["default", "cpu"], default="default",
                    help="'default' runs on the GPU, 'cpu' on the CPU")
@@ -86,8 +124,20 @@ def config_from_args(args):
                                   participation_rate=args.participation_rate)
     if args.aggregation is not None:
         fed = dataclasses.replace(fed, aggregation=args.aggregation)
+    if args.local_steps is not None:
+        fed = dataclasses.replace(fed, local_steps=args.local_steps)
+    if args.prox_mu is not None:
+        fed = dataclasses.replace(fed, prox_mu=args.prox_mu)
+    if args.init_weights is not None:
+        fed = dataclasses.replace(fed, init_weights_npz=args.init_weights)
     if args.rounds_per_step is not None:
         run = dataclasses.replace(run, rounds_per_step=args.rounds_per_step)
+    for flag in ("checkpoint_dir", "checkpoint_every", "keep_checkpoints",
+                 "metrics_jsonl"):
+        if getattr(args, flag) is not None:
+            run = dataclasses.replace(run, **{flag: getattr(args, flag)})
+    if args.pipelined_stop:
+        run = dataclasses.replace(run, pipelined_stop=True)
     if args.eval_test_every is not None:
         run = dataclasses.replace(run, eval_test_every=args.eval_test_every)
     if args.log_per_client:
@@ -101,7 +151,8 @@ def main(argv=None) -> int:
     from fedtpu_torch.orchestration.loop import run_experiment
     cfg = config_from_args(args)
     device = "cpu" if args.platform == "cpu" else "cuda"
-    result = run_experiment(cfg, verbose=not args.quiet, device=device)
+    result = run_experiment(cfg, verbose=not args.quiet, device=device,
+                            resume=args.resume)
     summary = result.summary()
     if args.json:
         print(json.dumps(summary))

@@ -47,8 +47,9 @@ class DataConfig:
     test_size: float = 0.2
     split_seed: int = 42                 # random_state=42 everywhere in the reference
     scale_with_mean: bool = True
-    # fedtpu's C++ CSV loader (True) or pandas (False); both read the CSV,
-    # whose path is A1.
+    # fedtpu's C++ CSV loader (True) or pandas (False), which fedtpu pins to
+    # identical output; the port's one loader equals both, so either value
+    # takes it.
     native_loader: bool = True
     # The reference fits its scaler on the FULL dataset before splitting —
     # train/test leakage kept as the parity default, as in fedtpu.
@@ -58,7 +59,7 @@ class DataConfig:
     synthetic_classes: int = 2
 
     def __post_init__(self):
-        _refuse_unported(self, {"dataset_name": "A7", "native_loader": "A1"})
+        _refuse_unported(self, {"dataset_name": "A7"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,9 +141,14 @@ class FedConfig:
     # client stack) | 'ring' (rotate-and-accumulate over the mesh's shards,
     # K4 on the card) | 'ring-rsag' (reduce-scatter + all-gather).
     aggregation: str = "psum"
-    # Not ported yet: each must stay at its default (_FED_ITEMS).
+    # E full-batch local updates a round (FedAvg's local epochs), and the
+    # FedProx term mu/2 * ||w - w_round_start||^2 in their objective.
     local_steps: int = 1
     prox_mu: float = 0.0
+    # Warm start: a weights artifact (fedtpu_torch.sweep.grid's .npz,
+    # fedtpu's format) broadcast into every client slot.
+    init_weights_npz: Optional[str] = None
+    # Not ported yet: each must stay at its default (_FED_ITEMS).
     scaffold: bool = False
     server_opt: str = "none"
     server_lr: float = 1.0
@@ -164,7 +170,6 @@ class FedConfig:
     byzantine_clients: int = 0
     compress: str = "none"
     personalize_steps: int = 0
-    init_weights_npz: Optional[str] = None
     async_mode: bool = False
     async_arrival_rate: float = 0.5
     async_arrival_seed: int = 0
@@ -186,13 +191,18 @@ class FedConfig:
         if self.aggregation not in AGGREGATIONS:
             raise ValueError(f"unknown aggregation {self.aggregation!r}; "
                              f"available: {AGGREGATIONS}")
+        if self.local_steps < 1:
+            raise ValueError(f"local_steps must be >= 1, got "
+                             f"{self.local_steps}")
+        if self.prox_mu < 0:
+            raise ValueError(f"prox_mu must be >= 0, got {self.prox_mu} "
+                             "(negative mu amplifies drift instead of "
+                             "bounding it)")
         _refuse_unported(self, _FED_ITEMS)
 
 
 # FedConfig's knobs of paths not ported yet -> the ROADMAP item of each.
 _FED_ITEMS = {
-    **dict.fromkeys(("local_steps", "prox_mu"), "A3"),
-    "init_weights_npz": "A5",
     **dict.fromkeys((
         "scaffold", "server_opt", "server_lr", "server_momentum", "server_b1",
         "server_b2", "server_tau", "dp_clip_norm", "dp_noise_multiplier",
@@ -232,14 +242,21 @@ class RunConfig:
     # Shards of the clients axis (fedtpu_torch.parallel.mesh.make_mesh);
     # 0 = one shard per visible device of the run's type.
     mesh_devices: int = 0
-    # Not ported yet: each must stay at its default (_RUN_ITEMS).
+    # Round checkpoints <checkpoint_dir>/round_<step>/{state,meta} every
+    # checkpoint_every rounds (at chunk ends), keeping the keep_checkpoints
+    # newest plus the best-accuracy round (0 = all); fedtpu_torch.
+    # orchestration.checkpoint.
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
     keep_checkpoints: int = 0
+    # One JSON line of metrics per round, appended to this path.
+    metrics_jsonl: Optional[str] = None
+    # Dispatch chunk k+1 before reading chunk k's metrics: the history is
+    # the synchronous run's, the final state carries one chunk past a stop.
+    pipelined_stop: bool = False
+    # Not ported yet: each must stay at its default (_RUN_ITEMS).
     profile_dir: Optional[str] = None
     profile_rounds: int = 0
-    metrics_jsonl: Optional[str] = None
-    pipelined_stop: bool = False
     mpmd: bool = False
     model_parallel: int = 1
     compilation_cache: Optional[str] = None
@@ -263,8 +280,6 @@ class RunConfig:
 
 # RunConfig's knobs of paths not ported yet -> the ROADMAP item of each.
 _RUN_ITEMS = {
-    **dict.fromkeys(("checkpoint_dir", "checkpoint_every", "keep_checkpoints",
-                     "metrics_jsonl", "pipelined_stop"), "A5"),
     **dict.fromkeys(("mpmd", "model_parallel", "collective_timeout"), "A10"),
     **dict.fromkeys(("profile_dir", "profile_rounds", "compilation_cache",
                      "overlap_compile", "telemetry", "fault_plan",

@@ -1,18 +1,39 @@
-"""Host-side tabular data pipeline (``fedtpu.data.tabular``), numpy only.
+"""Host-side tabular data pipeline (``fedtpu.data.tabular``), numpy and the
+``csv`` module only.
 
-Produces bitwise the same train/test arrays as ``fedtpu``'s pipeline for a
-synthetic config. ``fedtpu`` takes its split from sklearn's
+Produces bitwise the same train/test arrays as ``fedtpu``'s pipeline, from a
+synthetic config or from a CSV. ``fedtpu`` takes its split from sklearn's
 ``train_test_split(test_size, random_state)``; that is a
 ``RandomState(seed).permutation(n)`` whose first ``ceil(test_size * n)``
 indices are the test rows and the rest, in order, the train rows, which is
 what ``_train_test_split`` computes here without sklearn.
+
+A CSV is read as ``fedtpu``'s two loaders read it (its C++ loader and
+pandas, which it pins to identical output), with one loader for both values
+of ``DataConfig.native_loader``:
+
+* a column is numeric when every cell that is not missing parses as a float
+  (spaces around the number allowed, as pandas parses it); otherwise every
+  cell is a string, kept as written, leading spaces included (the income
+  data's label is ``" <=50K"``), and the column is encoded to the indices of
+  its sorted unique values (sklearn's ``LabelEncoder``);
+* the missing cells are pandas' default ``na_values`` (``_NA_TOKENS``: the
+  empty cell, ``NA``, ``nan``, ``NULL``, ``None``, ...), matched against the
+  cell as written. A missing cell reads as NaN in a numeric column, as
+  pandas reads it (``fedtpu``'s C++ loader reads the non-empty tokens as
+  strings). A string column with a missing cell raises, naming the column:
+  pandas gives it a NaN among strings, which ``fedtpu``'s encoder cannot
+  sort either;
+* RFC-4180 quoting; blank lines skipped; a row with another field count
+  than the header raises.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -55,6 +76,60 @@ def _train_test_split(x, y, test_size: float, seed: int):
     return x[train], x[test], y[train], y[test]
 
 
+# pandas.read_csv's default na_values: the cells read as missing.
+_NA_TOKENS = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"))
+
+
+def _parse_float(cell: str) -> Optional[float]:
+    """The cell as a float, or None where pandas would not read one."""
+    text = cell.strip(" \t")
+    if not text or "_" in text:     # float() takes "1_0"; pandas does not
+        return None
+    try:
+        return float(text)
+    except ValueError:
+        return None
+
+
+def _load_encoded(csv_path: str):
+    """``(column names, float64 matrix, classes)`` of a CSV: string columns
+    hold their codes in the matrix, and ``classes`` maps each to its sorted
+    unique values (``fedtpu.data.tabular._load_encoded``)."""
+    with open(csv_path, newline="", encoding="utf-8") as f:
+        rows = [r for r in csv.reader(f) if r]
+    if not rows:
+        raise ValueError(f"{csv_path!r}: no header row")
+    header, body = rows[0], rows[1:]
+    for i, r in enumerate(body):
+        if len(r) != len(header):
+            raise ValueError(f"{csv_path!r}: row {i + 2} has {len(r)} "
+                             f"fields, the header {len(header)}")
+    mat = np.empty((len(body), len(header)), np.float64)
+    classes: Dict[str, np.ndarray] = {}
+    for c, name in enumerate(header):
+        cells = [r[c] for r in body]
+        missing = [cell in _NA_TOKENS for cell in cells]
+        values = [None if m else _parse_float(cell)
+                  for cell, m in zip(cells, missing)]
+        if all(v is not None or m for v, m in zip(values, missing)):
+            mat[:, c] = [math.nan if v is None else v for v in values]
+            continue
+        if any(missing):
+            raise ValueError(
+                f"column {name!r} holds strings and a missing cell (row "
+                f"{missing.index(True) + 2}): a string column is encoded by "
+                "sorting its values, and a missing one has no place in "
+                "that order")
+        uniq, codes = np.unique(np.array(cells, dtype=object),
+                                return_inverse=True)
+        mat[:, c] = codes
+        classes[name] = uniq
+    return list(header), mat, classes
+
+
 def synthetic_income_like(rows: int, features: int, classes: int,
                           seed: int = 7):
     """A balanced, linearly-separable-ish stand-in for
@@ -68,16 +143,28 @@ def synthetic_income_like(rows: int, features: int, classes: int,
 
 
 def load_tabular_dataset(cfg: DataConfig) -> Dataset:
-    """Load + preprocess per the reference pipeline (synthetic data only)."""
-    if cfg.csv_path is not None:
-        raise NotImplementedError(
-            "fedtpu_torch reads no CSV yet: the income CSV is not in the "
-            "repository, so the port runs on synthetic income-like data "
-            "(csv_path=None)")
-    x, y = synthetic_income_like(cfg.synthetic_rows, cfg.synthetic_features,
-                                 cfg.synthetic_classes)
-    label_classes = np.arange(cfg.synthetic_classes)
-    feature_names = tuple(f"f{i}" for i in range(x.shape[1]))
+    """Load + preprocess per the reference pipeline: the synthetic rows, or
+    the CSV at ``cfg.csv_path`` (see module docstring)."""
+    if cfg.csv_path is None:
+        x, y = synthetic_income_like(cfg.synthetic_rows,
+                                     cfg.synthetic_features,
+                                     cfg.synthetic_classes)
+        label_classes = np.arange(cfg.synthetic_classes)
+        feature_names = tuple(f"f{i}" for i in range(x.shape[1]))
+    else:
+        columns, mat, encoders = _load_encoded(cfg.csv_path)
+        if cfg.label_column not in columns:
+            raise KeyError(
+                f"'{cfg.label_column}' not found in dataset columns. "
+                f"Available columns: {list(columns)}")
+        li = columns.index(cfg.label_column)
+        y = mat[:, li]
+        x = np.delete(mat, li, axis=1)
+        # Labels re-encoded to 0..K-1 whatever their type: a numeric label
+        # column such as {1, 2} is no class index as it stands.
+        original_classes, y = np.unique(y, return_inverse=True)
+        label_classes = encoders.get(cfg.label_column, original_classes)
+        feature_names = tuple(c for c in columns if c != cfg.label_column)
     num_classes = int(len(np.unique(y)))
 
     if cfg.scaler_leakage_parity:

@@ -11,7 +11,9 @@ Each wrapper checks its tensors and then:
   stream, or raises. There is no fallback from the card to the plain version.
 
 ``LAUNCHES`` counts kernel launches per wrapper (never plain-version calls),
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels. A wrapper
+called under CUDA-graph capture launches nothing then; the capture records
+what it counted and each replay adds it (``count_replay``).
 
 The parameters of a model are a flat float32 buffer with ``dims =
 (input_dim, *hidden_sizes, num_classes)`` (``fedtpu_torch.models.mlp``);
@@ -55,6 +57,14 @@ RING_MAX_SHARDS = 64      # FT_RING_MAX_SHARDS in csrc/ring_all_reduce.cu
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_replay(launches: dict) -> None:
+    """Add one replay of a CUDA graph to ``LAUNCHES``: ``launches`` are the
+    launches its capture recorded (a wrapper counts on the host, so inside
+    a graph it counts once, at capture, and never at replay)."""
+    for name, n in launches.items():
+        LAUNCHES[name] += n
 
 
 def _device(*tensors: torch.Tensor) -> torch.device:
@@ -557,11 +567,23 @@ def fused_round_reference(params: torch.Tensor, mu: torch.Tensor,
     return new, state["mu"], state["nu"], state["count"], loss, conf
 
 
+def check_fused_round_training(local_steps: int, prox_mu: float) -> None:
+    """K5 computes one local step of plain Adam a round: refuse more steps
+    and FedProx, naming the field."""
+    if local_steps != 1:
+        raise ValueError(f"fed.local_steps={local_steps}: the fused round "
+                         "takes one local step a round")
+    if prox_mu != 0:
+        raise ValueError(f"fed.prox_mu={prox_mu}: the fused round has no "
+                         "FedProx term")
+
+
 def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                 count: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 mask: torch.Tensor, weights: torch.Tensor,
                 dims: Sequence[int], optim: OptimConfig,
-                phase_ns: torch.Tensor = None) -> tuple:
+                phase_ns: torch.Tensor = None, local_steps: int = 1,
+                prox_mu: float = 0.0) -> tuple:
     """One whole FedAvg round of Adam clients: ``params``, ``mu``, ``nu``
     ``(C, D)``, ``count (C,)`` int32, ``x (C, N, dims[0])``, ``y (C, N)``
     int32, ``mask (C, N)``, FedAvg ``weights (C,)`` -> ``(params, mu, nu,
@@ -574,7 +596,10 @@ def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     On the card: one cooperative launch of K5 (``csrc/fused_round.cu``)
     under ``_fused_round_plan``. ``phase_ns``, an int64 CUDA tensor of at
     least ``(blocks, 8)`` rows, takes each block's %globaltimer stamps of
-    the round's three phases (for measurement only)."""
+    the round's three phases (for measurement only). ``local_steps`` and
+    ``prox_mu`` are the round's local training: K5 takes only 1 and 0
+    (``check_fused_round_training``)."""
+    check_fused_round_training(local_steps, prox_mu)
     if optim.name != "adam":
         raise ValueError(f"optim.name={optim.name!r}: the fused round "
                          "computes Adam only")

@@ -1,6 +1,7 @@
 """Optimizers with the reference's torch-driver semantics (``fedtpu.ops.optim``).
 
-Adam(lr0) under StepLR(step_size, gamma), one optimizer step per round: the
+Adam(lr0) under StepLR(step_size, gamma), the schedule stepped once per
+optimizer update (once a round, or ``local_steps`` times): the
 staircase schedule ``lr(t) = lr0 * gamma^floor(t / step_size)`` on the update
 count. The update is written in optax's order (``optax.adam`` with
 ``eps_root=0``): moments ``(1-b)*g + b*m``, bias correction by division, then
@@ -12,11 +13,11 @@ one update count per client (``count``, a ``(C,)`` int32 tensor beside the
 params, as a vmapped optax state holds it): under client sampling a client
 that sits a round out keeps its count, so the clients' schedules and bias
 corrections drift apart. Both are computed per client on the device as
-``(C, 1)`` float32 columns, with no host sync. ``update`` takes an optional
-``(C,)`` participation mask; a client whose entry is 0 keeps its params and
-every state tensor, count included, bit for bit (``fedtpu.parallel.round``'s
-``select``). FedAvg never touches this state: each client's moments persist
-un-averaged.
+``(C, 1)`` float32 columns, with no host sync. ``select_participants`` takes
+a ``(C,)`` participation mask: a client whose entry is 0 keeps its params
+and every state tensor, count included, bit for bit (``fedtpu.parallel.
+round``'s ``select``). FedAvg never touches this state: each client's
+moments persist un-averaged.
 """
 
 from __future__ import annotations
@@ -31,9 +32,8 @@ from fedtpu_torch.config import OptimConfig
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """``init(params) -> state`` and ``update(grads, state, params,
-    part=None) -> (new_params, new_state)``; pure functions of tensors, as
-    optax's."""
+    """``init(params) -> state`` and ``update(grads, state, params) ->
+    (new_params, new_state)``; pure functions of tensors, as optax's."""
 
     init: Callable
     update: Callable
@@ -62,7 +62,8 @@ def _col(t: torch.Tensor) -> torch.Tensor:
     return t[..., None]
 
 
-def _select(part: Optional[torch.Tensor], new: dict, old: dict) -> dict:
+def select_participants(part: Optional[torch.Tensor], new: dict,
+                        old: dict) -> dict:
     """Participants take ``new``, absentees keep ``old`` (every entry)."""
     if part is None:
         return new
@@ -78,7 +79,7 @@ def build_optimizer(cfg: OptimConfig) -> Optimizer:
                     "nu": torch.zeros_like(params),
                     "count": _init_count(params)}
 
-        def update(grads, state, params, part=None):
+        def update(grads, state, params):
             mu = (1 - cfg.b1) * grads + cfg.b1 * state["mu"]
             nu = (1 - cfg.b2) * (grads * grads) + cfg.b2 * state["nu"]
             count = state["count"] + 1
@@ -86,10 +87,7 @@ def build_optimizer(cfg: OptimConfig) -> Optimizer:
             nu_hat = nu / _col(_bias_correction(cfg.b2, count))
             upd = mu_hat / (torch.sqrt(nu_hat) + cfg.eps)
             new = params + _col(-step_lr(cfg, state["count"])) * upd
-            out = _select(part, {"params": new, "mu": mu, "nu": nu,
-                                 "count": count},
-                          {"params": params, **state})
-            return out.pop("params"), out
+            return new, {"mu": mu, "nu": nu, "count": count}
 
         return Optimizer(init, update)
     if cfg.name == "sgd":
@@ -97,13 +95,10 @@ def build_optimizer(cfg: OptimConfig) -> Optimizer:
             return {"trace": torch.zeros_like(params),
                     "count": _init_count(params)}
 
-        def update(grads, state, params, part=None):
+        def update(grads, state, params):
             trace = grads + cfg.momentum * state["trace"]
             new = params + _col(-step_lr(cfg, state["count"])) * trace
-            out = _select(part, {"params": new, "trace": trace,
-                                 "count": state["count"] + 1},
-                          {"params": params, **state})
-            return out.pop("params"), out
+            return new, {"trace": trace, "count": state["count"] + 1}
 
         return Optimizer(init, update)
     raise ValueError(f"unknown optimizer {cfg.name!r}")

@@ -3,10 +3,22 @@
 
 ``run_experiment`` keeps ``fedtpu``'s semantics for this path: chunks of
 ``rounds_per_step`` rounds with one metrics fetch each; the client-mean,
-pooled, per-client, loss and held-out test histories; the non-finite halt;
-and early stopping with exactly the reference logic (``np.allclose`` of the
-client-mean metrics, ``atol=tolerance``, ``termination_patience`` rounds).
-Checkpointing, fault injection, telemetry and pipelining are not ported.
+pooled, per-client, loss and held-out test histories; the non-finite halt
+with an emergency checkpoint; early stopping with exactly the reference
+logic (``np.allclose`` of the client-mean metrics, ``atol=tolerance``,
+``termination_patience`` rounds); periodic checkpoints with retention,
+resume (elastic to another client count too), the ``init_weights_npz``
+warm start, the ``metrics_jsonl`` log and ``pipelined_stop``.
+
+On the card each chunk is one replay of a CUDA graph of the round step
+(``fedtpu_torch.parallel.round.capture_round_step``; one graph per chunk
+width), the counterpart of ``fedtpu``'s jitted scan, and the host reads one
+buffer per chunk: its losses, confusion counts and the state's finiteness
+flag, computed on the device. ``capture=False`` runs the same step
+uncaptured (for comparison); on the CPU there is no graph.
+
+Not ported (ROADMAP A11): fault injection, telemetry, the SIGTERM drain,
+``on_divergence='rollback'`` and multi-process resume agreement.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
 with no GPU and no such request they raise rather than fall back.
@@ -15,6 +27,9 @@ with no GPU and no such request they raise rather than fall back.
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -27,11 +42,17 @@ from fedtpu_torch.data.sharding import pack_clients
 from fedtpu_torch.data.tabular import Dataset, load_tabular_dataset
 from fedtpu_torch.models.mlp import layer_dims
 from fedtpu_torch.ops.metrics import METRIC_NAMES
-from fedtpu_torch.ops.optim import build_optimizer
+from fedtpu_torch.ops.optim import Optimizer, build_optimizer
+from fedtpu_torch.orchestration.checkpoint import (
+    complete_steps, latest_step, load_checkpoint_fallback,
+    load_checkpoint_raw, load_meta, retain_checkpoints, save_checkpoint,
+    saved_num_clients)
 from fedtpu_torch.parallel.mesh import ClientMesh, make_mesh
 from fedtpu_torch.parallel.round import (assemble_metrics, build_eval_fn,
-                                         build_round_fn, global_params,
-                                         init_federated_state)
+                                         build_round_fn, capture_round_step,
+                                         global_params, init_federated_state,
+                                         pack_outputs, unpack_outputs,
+                                         warm_up_round)
 
 
 def resolve_device(device) -> torch.device:
@@ -69,6 +90,14 @@ class ExperimentResult:
     # (C, K, K) in-round confusion counts per round, the currency every
     # metric above derives from (fedtpu keeps them on the device).
     confusion: List[np.ndarray] = dataclasses.field(default_factory=list)
+    # The state's own round counter: what final_params trained through
+    # (> rounds_run after a pipelined stop's overshoot chunk).
+    rounds_trained: int = 0
+    # Rounds the CUDA graphs' warm-up ran (one eager round before the first
+    # capture, result dropped); its kernel launches are real and counted.
+    warmup_rounds: int = 0
+    # Chunk width -> the kernel launches one replay of its graph makes.
+    graph_launches: Dict[int, dict] = dataclasses.field(default_factory=dict)
 
     def summary(self) -> dict:
         warm = max(1, self.config.run.rounds_per_step)
@@ -97,6 +126,25 @@ class Experiment:
     dims: tuple
     mesh: ClientMesh
     client_weights: torch.Tensor           # (C,) FedAvg base weights
+    tx: Optimizer
+
+
+def warm_start_params(path: str, dims: tuple) -> torch.Tensor:
+    """The global model ``(D,)`` of a weights artifact
+    (``fedtpu_torch.sweep.grid.save_best_weights``, fedtpu's format), held
+    to the model's architecture with ``fedtpu``'s ``ValueError``."""
+    from fedtpu_torch.sweep.grid import load_best_weights
+    layers = load_best_weights(path)["weights"]["layers"]
+    # fedtpu lists the leaves in its pytree's order: per layer, b then w.
+    artifact = [tuple(np.shape(l[k])) for l in layers for k in ("b", "w")]
+    model = [shape for i, o in zip(dims[:-1], dims[1:])
+             for shape in ((o,), (i, o))]
+    if artifact != model:
+        raise ValueError(
+            f"init_weights_npz architecture mismatch: artifact leaves "
+            f"{artifact} vs model (per-client) {model} — the artifact "
+            "was saved for a different hidden_sizes/input_dim")
+    return params_from_jax({"layers": layers})
 
 
 def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
@@ -105,7 +153,8 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     """Wire data -> device -> mesh -> model -> optimizer -> round factory.
 
     ``init_params``: a ``fedtpu`` client-stacked params pytree (numpy
-    leaves) to start from instead of the seeded init.
+    leaves) to start from instead of the seeded init; ``FedConfig.
+    init_weights_npz`` then broadcasts its model into every slot over it.
     ``participation_masks``: round index -> ``(C,)`` mask, replacing the
     port's own client-sampling draws (``build_round_fn``)."""
     dev = resolve_device(device)
@@ -113,51 +162,144 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     dims = layer_dims(ds.input_dim, cfg.model.hidden_sizes, ds.num_classes)
     tx = build_optimizer(cfg.optim)
     packed = pack_clients(ds.x_train, ds.y_train, cfg.shard)
+    num_clients = cfg.shard.num_clients
 
+    params = None if init_params is None else params_from_jax(init_params)
+    if cfg.fed.init_weights_npz:
+        params = warm_start_params(cfg.fed.init_weights_npz, dims).expand(
+            num_clients, -1)
     gen = torch.Generator().manual_seed(cfg.fed.init_seed)
     state = init_federated_state(
-        gen, cfg.shard.num_clients, dims, tx, same_init=cfg.fed.same_init,
-        device=dev,
-        params=None if init_params is None else params_from_jax(init_params))
+        gen, num_clients, dims, tx, same_init=cfg.fed.same_init,
+        device=dev, params=params)
     batch = {"x": torch.from_numpy(packed.x).to(dev),
              "y": torch.from_numpy(packed.y).to(dev),
              "mask": torch.from_numpy(packed.mask).to(dev)}
     weights = (packed.counts.astype(np.float32)
                if cfg.fed.weighting == "data_size"
-               else np.ones(cfg.shard.num_clients, np.float32))
+               else np.ones(num_clients, np.float32))
     client_weights = torch.from_numpy(weights).to(dev)
-    mesh = make_mesh(cfg.run.mesh_devices, cfg.shard.num_clients, dev)
+    mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev)
     make_step = lambda r: build_round_fn(
         dims, tx, ds.num_classes, client_weights, rounds_per_step=r,
         mesh=mesh, aggregation=cfg.fed.aggregation,
         participation_rate=cfg.fed.participation_rate,
         participation_seed=cfg.fed.participation_seed,
-        participation_masks=participation_masks)
+        participation_masks=participation_masks,
+        local_steps=cfg.fed.local_steps, prox_mu=cfg.fed.prox_mu)
     return Experiment(make_step=make_step, state=state, batch=batch,
                       eval_step=build_eval_fn(dims, ds.num_classes),
                       dataset=ds, device=dev, dims=dims, mesh=mesh,
-                      client_weights=client_weights)
+                      client_weights=client_weights, tx=tx)
 
 
-def _state_finite(state: dict) -> bool:
-    """Every float tensor of params and optimizer state entirely finite."""
-    leaves = [state["params"]] + [v for v in state["opt_state"].values()
-                                  if isinstance(v, torch.Tensor)]
-    return bool(torch.stack([torch.isfinite(t).all() for t in leaves]).all())
+class _Fetch:
+    """One chunk's packed outputs on their way to the host: on the card a
+    non-blocking copy into pinned memory and an event, queued right after
+    the chunk (before the next replay overwrites the graph's outputs);
+    ``get`` waits on the event."""
+
+    def __init__(self, out: torch.Tensor):
+        self.event = None
+        if out.is_cuda:
+            self.host = torch.empty(out.shape, dtype=out.dtype,
+                                    pin_memory=True)
+            self.host.copy_(out, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = out
+
+    def get(self) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
+
+    def finite(self) -> bool:
+        """The chunk-end state's finiteness flag (``pack_outputs``' last
+        entry)."""
+        return bool(self.get()[-1] > 0)
+
+
+def _restore_state(raw: dict, like: dict, device: torch.device) -> dict:
+    """A saved state at the live client count onto ``device``, held to the
+    live state's layout (optimizer kind, shapes)."""
+    opt, live = raw["opt_state"], like["opt_state"]
+    if set(opt) != set(live) or any(
+            tuple(opt[k].shape) != tuple(live[k].shape) for k in live) or \
+            tuple(raw["params"].shape) != tuple(like["params"].shape):
+        raise ValueError(
+            "resume mismatch: the checkpoint holds params "
+            f"{tuple(raw['params'].shape)} and optimizer state "
+            f"{sorted(opt)}; the config builds params "
+            f"{tuple(like['params'].shape)} and {sorted(live)}")
+    return {"params": raw["params"].to(device).contiguous(),
+            "opt_state": {k: v.to(device).contiguous()
+                          for k, v in opt.items()},
+            "round": int(raw["round"])}
 
 
 def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                    verbose: bool = True, device="cuda", init_params=None,
-                   participation_masks=None) -> ExperimentResult:
-    """Run the federated loop (see module docstring)."""
+                   participation_masks=None, resume: bool = False,
+                   capture: Optional[bool] = None) -> ExperimentResult:
+    """Run the federated loop (see module docstring). ``resume``: continue
+    from the newest checkpoint under ``run.checkpoint_dir`` (a fresh run
+    into a directory that holds rounds raises). ``capture``: None runs
+    every chunk as a CUDA graph replay on the card and the plain step on
+    the CPU; False runs the step uncaptured on the card too."""
     exp = build_experiment(cfg, dataset, device=device,
                            init_params=init_params,
                            participation_masks=participation_masks)
+    dev = exp.device
+    graphs_on = dev.type == "cuda" if capture is None else bool(capture)
+    if graphs_on and dev.type != "cuda":
+        raise ValueError(f"capture=True needs the card; the run is on {dev}")
     ds, state, batch = exp.dataset, exp.state, exp.batch
+    num_clients, num_classes = cfg.shard.num_clients, ds.num_classes
     mask_host = batch["mask"].cpu()
-    x_test = torch.from_numpy(ds.x_test).to(exp.device)
-    y_test = torch.from_numpy(ds.y_test).to(exp.device)
-    steps: Dict[int, Callable] = {}
+    x_test = torch.from_numpy(ds.x_test).to(dev)
+    y_test = torch.from_numpy(ds.y_test).to(dev)
+    ckpt_dir = cfg.run.checkpoint_dir
+
+    def say(line: str) -> None:
+        if verbose:
+            print(line, flush=True)
+
+    start_round = 0
+    restored_history = None
+    if (not resume and ckpt_dir and cfg.run.checkpoint_every
+            and complete_steps(ckpt_dir)):
+        # A fresh run here would let a later resume restore the stale
+        # higher round over its work, and retention would delete its
+        # rounds as the older ones.
+        raise ValueError(
+            f"checkpoint dir {ckpt_dir!r} already holds round checkpoints "
+            f"(latest: {complete_steps(ckpt_dir)[-1]}). Pass resume=True "
+            "(--resume) to continue that run, or point checkpoint_dir at a "
+            "clean directory.")
+    if resume and ckpt_dir and latest_step(ckpt_dir) is not None:
+        saved_c = int(load_meta(ckpt_dir)["num_clients"])
+        if saved_c == num_clients:
+            raw, restored_history, start_round = load_checkpoint_fallback(
+                ckpt_dir)
+            state = _restore_state(raw, state, dev)
+            say(f"Resumed from checkpoint at round {start_round}.")
+        else:
+            # Elastic resume: a periodic checkpoint holds a post-average
+            # state, every slot the global model; its mean over the slots
+            # goes into every slot of the new count, and each client starts
+            # fresh optimizer state (moments cannot be re-shaped across
+            # counts).
+            raw, restored_history, start_round = load_checkpoint_raw(ckpt_dir)
+            g = raw["params"].numpy().mean(axis=0)
+            params = torch.from_numpy(np.ascontiguousarray(
+                np.broadcast_to(g, (num_clients, g.shape[0])))).to(dev)
+            state = {"params": params, "opt_state": exp.tx.init(params),
+                     "round": start_round}
+            say(f"Elastic resume at round {start_round}: "
+                f"{saved_num_clients(raw)} -> {num_clients} clients (global "
+                "model carried over, fresh client optimizer state).")
 
     history = {k: [] for k in METRIC_NAMES}
     pooled_hist = {k: [] for k in METRIC_NAMES}
@@ -168,25 +310,104 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     sec_per_round: List[float] = []
     prev_metric = None
     termination_count = cfg.fed.termination_patience
-    stopped_early = diverged = False
-    rounds_run = rnd = 0
+    flags = {"stopped_early": False, "diverged": False}
+    rounds_run = 0
+    if restored_history is not None:
+        for k in METRIC_NAMES:
+            history[k] = list(restored_history.get(k, []))
+        if history[METRIC_NAMES[0]]:
+            prev_metric = [history[k][-1] for k in METRIC_NAMES]
+        rounds_run = start_round
 
-    def say(line: str) -> None:
-        if verbose:
-            print(line, flush=True)
+    # Retention protects the best client-mean-accuracy round this run (and,
+    # on resume, the run before it) saved.
+    best_saved = None
+    if (cfg.run.keep_checkpoints > 0 and ckpt_dir
+            and restored_history is not None):
+        acc_hist = history["accuracy"]
+        for s in complete_steps(ckpt_dir):
+            if 0 < s <= len(acc_hist) and (best_saved is None
+                                           or acc_hist[s - 1] > best_saved[0]):
+                best_saved = (acc_hist[s - 1], s)
 
-    while rnd < cfg.fed.rounds:
-        take = min(cfg.run.rounds_per_step, cfg.fed.rounds - rnd)
-        if take not in steps:
-            steps[take] = exp.make_step(take)
-        t0 = time.perf_counter()
-        state, raw = steps[take](state, batch)
-        loss_c, conf_c = raw["loss"].cpu(), raw["conf"].cpu()   # syncs
-        dt = (time.perf_counter() - t0) / take
+    def save(directory: str, step: int) -> None:
+        save_checkpoint(directory, state, history, step)
+
+    def retain_after_save(step: int) -> None:
+        nonlocal best_saved
+        if cfg.run.keep_checkpoints <= 0:
+            return
+        acc = history["accuracy"][-1] if history["accuracy"] else -math.inf
+        if best_saved is None or acc > best_saved[0]:
+            best_saved = (acc, step)
+        retain_checkpoints(ckpt_dir, cfg.run.keep_checkpoints,
+                           protect=(best_saved[1],))
+
+    def halt_diverged(reason: str, label_round: int) -> None:
+        """Stop the run; with a checkpoint dir, save the current state
+        (labelled with the round it holds) under ``diverged/``, where resume
+        does not look."""
+        say(f"Non-finite {reason}; halting (diverged run).")
+        if ckpt_dir:
+            save(os.path.join(ckpt_dir, "diverged"), label_round)
+        flags["stopped_early"] = flags["diverged"] = True
+
+    chunk = cfg.run.rounds_per_step
+    steps: Dict[int, Callable] = {}
+    graphs: Dict[int, Callable] = {}
+    warmup_rounds = 0
+
+    def get_step(width: int):
+        if width not in steps:
+            steps[width] = exp.make_step(width)
+        return steps[width]
+
+    # Client sampling: every round's mask on the device up front, so a
+    # chunk's masks are a device-to-device copy (into the graph's buffer).
+    draw = get_step(chunk).draw_masks
+    mask_table = (draw(0, cfg.fed.rounds).to(dev)
+                  if draw is not None and cfg.fed.rounds > 0 else None)
+
+    def dispatch(rnd: int, take: int) -> _Fetch:
+        nonlocal state, warmup_rounds
+        masks = None if mask_table is None else mask_table[rnd:rnd + take]
+        if graphs_on:
+            if take not in graphs:
+                if not graphs:
+                    warm_up_round(get_step(1), state, batch)
+                    warmup_rounds = 1
+                graphs[take] = capture_round_step(get_step(take), state,
+                                                  batch)
+            out = graphs[take](masks)
+            state["round"] = rnd + take
+        else:
+            state, raw = get_step(take)(state, batch, masks)
+            out = pack_outputs(raw)
+        return _Fetch(out)
+
+    jsonl = open(cfg.run.metrics_jsonl, "a") if cfg.run.metrics_jsonl \
+        else None
+    lap = [time.perf_counter()]
+
+    def process_chunk(rnd0: int, take: int, fetched: _Fetch,
+                      state_round: int) -> None:
+        """History, logs, JSONL, the metric divergence guard and early
+        stopping of one chunk, from its one host buffer. ``state_round``:
+        the round the current ``state`` holds (one chunk further on when
+        pipelined), the label of an emergency checkpoint."""
+        nonlocal prev_metric, termination_count, rounds_run
+        raw = unpack_outputs(fetched.get(), take, num_clients, num_classes)
+        # s/round is fedtpu's lap (its ``timer.lap()`` at the chunk fetch):
+        # the time from one chunk's read to the next over the chunk's
+        # rounds, so the host work between them (history, logs, held-out
+        # eval, checkpoints, a capture) counts too.
+        now = time.perf_counter()
+        dt = (now - lap[0]) / take
+        lap[0] = now
+        loss_c, conf_c = raw["loss"], raw["conf"]
         m_all = assemble_metrics(loss_c, conf_c, mask_host)
-
         for j in range(take):
-            r = rnd + j
+            r = rnd0 + j
             client_mean = {k: float(m_all["client_mean"][k][j])
                            for k in METRIC_NAMES}
             per_client = {k: m_all["per_client"][k][j].numpy()
@@ -199,11 +420,19 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 history[k].append(client_mean[k])
                 pooled_hist[k].append(float(m_all["pooled"][k][j]))
                 per_client_hist[k].append(per_client[k])
+            loss_mean = float(np.mean(losses[-1]))
+            if jsonl is not None:
+                jsonl.write(json.dumps({
+                    "round": r + 1, "sec_per_round": dt,
+                    "client_mean": client_mean,
+                    "pooled": {k: pooled_hist[k][-1] for k in METRIC_NAMES},
+                    "loss_mean": loss_mean}) + "\n")
+                jsonl.flush()
 
             if r % cfg.run.log_every == 0:
                 say(f"\nRound {r + 1}:\n")
                 if cfg.run.log_per_client:
-                    for c in range(cfg.shard.num_clients):
+                    for c in range(num_clients):
                         vals = ", ".join(f"{k}: {per_client[k][c]:.4f}"
                                          for k in METRIC_NAMES)
                         say(f"  CLIENT {c} - Local Metrics "
@@ -217,10 +446,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             if cfg.run.halt_on_nonfinite and not (
                     np.all(np.isfinite(cur))
                     and np.all(np.isfinite(losses[-1]))):
-                say(f"Non-finite loss/metrics at round {r + 1}; halting "
-                    "(diverged run).")
-                stopped_early = diverged = True
-                break
+                halt_diverged(f"loss/metrics at round {r + 1}", state_round)
+                return
 
             # Early stopping — exact reference logic (FL_CustomMLP...:181-192).
             if prev_metric is not None and np.allclose(
@@ -231,38 +458,90 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                         f"metrics for {cfg.fed.termination_patience} rounds.")
                     if r + 1 < cfg.fed.rounds:
                         say(f"Training stopped early at round {r + 1}.")
-                    stopped_early = True
-                    break
+                    flags["stopped_early"] = True
+                    return
             else:
                 prev_metric = cur
                 termination_count = cfg.fed.termination_patience
-        rnd += take
-        # Chunk-end state check, early stop included: metrics can stay
-        # finite for a round after params go non-finite (the reported loss
-        # is pre-update).
-        if not diverged and cfg.run.halt_on_nonfinite \
-                and not _state_finite(state):
-            say(f"Non-finite params/optimizer state after round {rnd}; "
-                "halting (diverged run).")
-            stopped_early = diverged = True
-        if stopped_early:
-            break
 
-        # Held-out eval at chunk ends; every due round inside the chunk gets
-        # an entry (they share the chunk-end params), as in fedtpu.
-        eval_due = cfg.run.eval_test_every and sum(
-            1 for j in range(take) if (rnd - j) % cfg.run.eval_test_every == 0)
-        if eval_due:
-            tm = exp.eval_step(global_params(state), x_test, y_test)
-            tm = {k: float(v) for k, v in tm.items()}
-            for _ in range(eval_due):
-                for k in METRIC_NAMES:
-                    test_hist[k].append(tm[k])
+    ckpt_every = cfg.run.checkpoint_every
+    # Pipelined stop: chunk k+1 is dispatched before chunk k's outputs are
+    # read. The history is the synchronous run's; a stop leaves the state one
+    # (dropped) chunk further on; the state's finiteness flag is acted on
+    # only at checkpoint and held-out-eval boundaries and at the end.
+    pipelined = cfg.run.pipelined_stop
+    pending = None
+    last: Optional[_Fetch] = None       # the newest dispatched chunk
+    rnd = start_round
+    try:
+        while rnd < cfg.fed.rounds and not flags["stopped_early"]:
+            take = min(chunk, cfg.fed.rounds - rnd)
+            last = dispatch(rnd, take)
+            if pipelined:
+                if pending is not None:
+                    process_chunk(*pending, state_round=rnd + take)
+                pending = (rnd, take, last)
+            else:
+                process_chunk(rnd, take, last, state_round=rnd + take)
+            rnd += take
+            if flags["stopped_early"]:
+                # The overshoot chunk (pending) is dropped: no checkpoint or
+                # eval of it.
+                pending = None
+                break
+
+            # Held-out eval and checkpoints at chunk ends, every due round
+            # inside the chunk counted (they share the chunk-end state), as
+            # in fedtpu.
+            eval_due = cfg.run.eval_test_every and sum(
+                1 for j in range(take)
+                if (rnd - j) % cfg.run.eval_test_every == 0)
+            ckpt_due = bool(ckpt_every and ckpt_dir and any(
+                (rnd - j) % ckpt_every == 0 for j in range(take)))
+            if pipelined and pending is not None and (eval_due or ckpt_due):
+                process_chunk(*pending, state_round=rnd)
+                pending = None
+                if flags["stopped_early"]:
+                    break
+            # The chunk-end state check: metrics can stay finite for a
+            # round after params go non-finite (the reported loss is
+            # pre-update), so no checkpoint or eval takes a poisoned state.
+            if cfg.run.halt_on_nonfinite and (
+                    not pipelined or ckpt_due or eval_due) \
+                    and not last.finite():
+                halt_diverged(f"params/optimizer state after round {rnd}",
+                              rnd)
+                break
+            if eval_due:
+                tm = exp.eval_step(global_params(state), x_test, y_test)
+                tm = torch.stack([tm[k] for k in METRIC_NAMES]).tolist()
+                for _ in range(eval_due):
+                    for k, v in zip(METRIC_NAMES, tm):
+                        test_hist[k].append(v)
+            if ckpt_due:
+                # Labelled with, and holding, the chunk-end round.
+                save(ckpt_dir, rnd)
+                retain_after_save(rnd)
+
+        if pending is not None and not flags["stopped_early"]:
+            process_chunk(*pending, state_round=rnd)
+        # The deferred state check: when pipelined, and after an early
+        # stop (the stopped chunk's state, or the overshoot's, is checked
+        # nowhere else).
+        if (pipelined or flags["stopped_early"]) and not flags["diverged"] \
+                and cfg.run.halt_on_nonfinite and last is not None \
+                and not last.finite():
+            halt_diverged(f"params/optimizer state after round {rnd}", rnd)
+    finally:
+        if jsonl is not None:
+            jsonl.close()
 
     return ExperimentResult(
         global_metrics=history, pooled_metrics=pooled_hist,
         per_client_metrics=per_client_hist, test_metrics=test_hist,
         loss=losses, sec_per_round=sec_per_round, rounds_run=rounds_run,
-        stopped_early=stopped_early,
+        stopped_early=flags["stopped_early"],
         final_params=params_to_numpy(global_params(state), exp.dims),
-        config=cfg, diverged=diverged, confusion=confusion)
+        config=cfg, diverged=flags["diverged"], confusion=confusion,
+        rounds_trained=int(state["round"]), warmup_rounds=warmup_rounds,
+        graph_launches={w: dict(g.launches) for w, g in graphs.items()})

@@ -3,11 +3,13 @@
 
 * ``make_local_train_step`` is the reference's ``train_one_epoch``: ONE
   full-batch forward/backward/optimizer step on each client's whole shard per
-  round. ``fedtpu`` vmaps a per-client step; here the client axis is a batch
-  dimension of the ``(C, D)`` parameter buffer. Clients' losses do not
-  interact, so the gradient of their sum is each client's own gradient. The
-  forward and backward are plain matrix products (``torch.matmul`` and
-  autograd), as ``fedtpu`` leaves them to XLA.
+  round, or ``local_steps`` of them (FedAvg's E local epochs: full batch, so
+  an epoch is a step), with FedProx's ``prox_mu`` term. ``fedtpu`` vmaps a
+  per-client step; here the client axis is a batch dimension of the
+  ``(C, D)`` parameter buffer. Clients' losses do not interact, so the
+  gradient of their sum is each client's own gradient. The forward and
+  backward are plain matrix products (``torch.matmul`` and autograd), as
+  ``fedtpu`` leaves them to XLA.
 * ``make_local_eval_step`` is ``evaluate_local``: each client's confusion
   matrix on its own shard, through K2 (``fused_eval_confusion``) on the card.
 """
@@ -21,24 +23,56 @@ import torch
 from fedtpu_torch.models.mlp import mlp_apply, unflatten
 from fedtpu_torch.ops.cuda_kernels import fused_eval_confusion
 from fedtpu_torch.ops.losses import masked_cross_entropy
-from fedtpu_torch.ops.optim import Optimizer
+from fedtpu_torch.ops.optim import Optimizer, select_participants
 
 
-def make_local_train_step(dims: Sequence[int], tx: Optimizer) -> Callable:
+def make_local_train_step(dims: Sequence[int], tx: Optimizer,
+                          local_steps: int = 1,
+                          prox_mu: float = 0.0) -> Callable:
     """Returns ``step(params, opt_state, x, y, mask, part=None) -> (params,
-    opt_state, loss)``: params ``(C, D)``, x ``(C, N, in)``; ``loss (C,)``
-    is each client's masked CE before the step. Under client sampling
-    ``part (C,)`` is the round's participation mask: a client at 0 keeps
-    its params and optimizer state (its loss is still reported)."""
+    opt_state, loss)``: params ``(C, D)``, x ``(C, N, in)``.
 
-    def step(params, opt_state, x, y, mask, part=None):
+    ``local_steps`` full-batch updates (``fedtpu.training.client``): the
+    optimizer's count, and with it the StepLR schedule and Adam's bias
+    correction, advances once per update. ``prox_mu`` adds FedProx's
+    ``mu/2 * ||w - w0||^2`` to each client's objective, ``w0`` its params
+    at the round's start (a constant: no gradient flows into it); its
+    gradient is 0 at ``w0``, so it only acts from the second update on.
+    ``loss (C,)`` is the last update's plain masked CE, taken before that
+    update, without the prox term. Under client sampling ``part (C,)`` is
+    the round's participation mask: a client at 0 keeps its params and
+    optimizer state, count included, bit for bit across the E updates (its
+    loss is still reported: as in ``fedtpu``, absentees train all E
+    steps and the result is dropped)."""
+    if local_steps < 1:
+        raise ValueError(f"local_steps must be >= 1, got {local_steps}")
+    if prox_mu < 0:
+        raise ValueError(f"prox_mu must be >= 0, got {prox_mu} "
+                         "(negative mu amplifies drift instead of bounding "
+                         "it)")
+
+    def one(params, opt_state, x, y, mask, anchor):
         p = params.detach().requires_grad_(True)
         with torch.enable_grad():
-            loss = masked_cross_entropy(mlp_apply(unflatten(p, dims), x), y,
-                                        mask)
-            (grads,) = torch.autograd.grad(loss.sum(), p)
-        new_params, opt_state = tx.update(grads, opt_state, params, part)
-        return new_params, opt_state, loss.detach()
+            ce = masked_cross_entropy(mlp_apply(unflatten(p, dims), x), y,
+                                      mask)
+            objective = ce.sum()
+            if prox_mu:
+                objective = objective + 0.5 * prox_mu * torch.sum(
+                    torch.square(p - anchor))
+            (grads,) = torch.autograd.grad(objective, p)
+        new_params, opt_state = tx.update(grads, opt_state, params)
+        return new_params, opt_state, ce.detach()
+
+    def step(params, opt_state, x, y, mask, part=None):
+        anchor = params.detach()
+        new_params, new_opt = params, opt_state
+        for _ in range(local_steps):
+            new_params, new_opt, loss = one(new_params, new_opt, x, y, mask,
+                                            anchor)
+        kept = select_participants(part, {"params": new_params, **new_opt},
+                                   {"params": params, **opt_state})
+        return kept.pop("params"), kept, loss
 
     return step
 

@@ -65,9 +65,99 @@ def test_pack_clients_bitwise_matches_fedtpu(kw):
         assert getattr(a, f).dtype == getattr(b, f).dtype
 
 
-def test_csv_path_waits_for_the_income_csv():
-    with pytest.raises(NotImplementedError, match="CSV"):
-        t_load(tcfg.DataConfig(csv_path="balanced_income_data.csv"))
+def test_csv_path_waits_for_the_income_csv(tmp_path):
+    """The income CSV is not in the repository: every preset runs on the
+    synthetic rows (csv_path None), and a CSV path is read, so a path that
+    does not exist raises naming it."""
+    for name in tcfg.PRESETS:
+        assert tcfg.get_preset(name).data.csv_path is None
+    missing = str(tmp_path / "balanced_income_data.csv")
+    with pytest.raises(FileNotFoundError, match="balanced_income_data"):
+        t_load(tcfg.DataConfig(csv_path=missing))
+
+
+def _write_csv(path, rows=300, seed=3):
+    """A CSV of the income data's kinds of column, from a seed: integers, a
+    float column written with spaces around its numbers, strings with
+    leading spaces (as adult-income's), a string label ``" <=50K"`` /
+    ``" >50K"``, a numeric label ``{1, 2}``, and a quoted field holding a
+    comma."""
+    rng = np.random.default_rng(seed)
+    work = np.array([" Private", " Self-emp", " State-gov", "Never"])
+    with open(path, "w") as f:
+        f.write("age,workclass,hours,city,grade,income\n")
+        for _ in range(rows):
+            f.write(",".join((
+                str(int(rng.integers(17, 90))),
+                str(rng.choice(work)),
+                f" {rng.normal(40, 12):.6g} ",
+                '"Paris, FR"' if rng.random() < 0.3 else "Lyon",
+                str(int(rng.integers(1, 3))),
+                " >50K" if rng.random() < 0.4 else " <=50K")) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("native_loader", [True, False],
+                         ids=["fedtpu-native", "fedtpu-pandas"])
+@pytest.mark.parametrize("kw", [
+    dict(label_column="income"), dict(label_column="grade"),
+    dict(label_column="income", scaler_leakage_parity=False),
+    dict(label_column="income", scale_with_mean=False, test_size=0.3)],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_csv_loader_bitwise_matches_both_fedtpu_loaders(tmp_path, kw,
+                                                        native_loader):
+    """The port's one CSV loader against each of fedtpu's (its C++ loader
+    and pandas): the same arrays bit for bit, the same feature names and
+    label classes (the string label keeps its leading space; the numeric
+    label {1, 2} is re-encoded to 0..1)."""
+    path = _write_csv(tmp_path / "income.csv")
+    a = j_load(jcfg.DataConfig(csv_path=path, native_loader=native_loader,
+                               **kw))
+    b = t_load(tcfg.DataConfig(csv_path=path, native_loader=native_loader,
+                               **kw))
+    _assert_datasets_equal(a, b)
+    assert b.num_classes == 2
+    assert set(b.y_train.tolist()) == {0, 1}
+    if kw["label_column"] == "income":
+        assert list(b.label_classes) == [" <=50K", " >50K"]
+    else:
+        assert list(b.label_classes) == [1.0, 2.0]
+        assert "income" in b.feature_names
+
+
+def test_csv_loader_reads_missing_numbers_as_pandas_does(tmp_path):
+    """pandas' missing-value tokens in a numeric column read as NaN, as
+    fedtpu's pandas loader reads them."""
+    path = tmp_path / "na.csv"
+    path.write_text("a,b,label\n1,NA,x\n2,,y\n3,2.5,x\n4,nan,y\n"
+                    "5,1,x\n")
+    a = j_load(jcfg.DataConfig(csv_path=str(path), label_column="label",
+                               native_loader=False, test_size=0.4))
+    b = t_load(tcfg.DataConfig(csv_path=str(path), label_column="label",
+                               test_size=0.4))
+    _assert_datasets_equal(a, b)
+    assert np.isnan(b.x_train).any()
+
+
+def test_csv_loader_refuses_what_it_cannot_encode(tmp_path):
+    """A missing label column raises fedtpu's KeyError, naming the columns;
+    a string column with a missing cell, a ragged row and dataset_name
+    'cifar10' raise too."""
+    path = _write_csv(tmp_path / "income.csv", rows=20)
+    with pytest.raises(KeyError, match="Available columns"):
+        t_load(tcfg.DataConfig(csv_path=path, label_column="salary"))
+    with pytest.raises(KeyError, match="Available columns"):
+        j_load(jcfg.DataConfig(csv_path=path, label_column="salary"))
+    holes = tmp_path / "holes.csv"
+    holes.write_text("a,b,label\n1,x,0\n2,,1\n3,y,0\n")
+    with pytest.raises(ValueError, match="column 'b'"):
+        t_load(tcfg.DataConfig(csv_path=str(holes), label_column="label"))
+    ragged = tmp_path / "ragged.csv"
+    ragged.write_text("a,b,label\n1,2,0\n1,2\n")
+    with pytest.raises(ValueError, match="row 3"):
+        t_load(tcfg.DataConfig(csv_path=str(ragged), label_column="label"))
+    with pytest.raises(NotImplementedError, match="A7"):
+        tcfg.DataConfig(dataset_name="cifar10")
 
 
 def test_preset_fields_match_fedtpu():

@@ -4,6 +4,10 @@ the same numpy inputs; the converter; the no-fallback and no-JAX rules."""
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs several pytest workers on the cores,
+# and torch's default of a thread per core oversubscribes them (its small
+# ops then wait on each other's threads).
+torch.set_num_threads(1)
 
 import ast  # noqa: E402
 import dataclasses  # noqa: E402
@@ -29,7 +33,8 @@ from fedtpu_torch.ops.losses import masked_cross_entropy  # noqa: E402
 from fedtpu_torch.ops.metrics import (METRIC_NAMES,  # noqa: E402
                                       confusion_matrix,
                                       metrics_from_confusion)
-from fedtpu_torch.ops.optim import build_optimizer  # noqa: E402
+from fedtpu_torch.ops.optim import (build_optimizer,  # noqa: E402
+                                    select_participants)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INCOME_DIMS = (14, 50, 200, 2)
@@ -178,8 +183,11 @@ def test_sampled_per_client_update_matches_vmapped_optax_with_select(name):
         jp, js = jstep(jp, js, jnp.asarray(g), jnp.asarray(part))
         before = {k: v.clone() for k, v in ts.items()}
         prev = tp
-        tp, ts = t_tx.update(torch.from_numpy(g), ts, tp,
-                             torch.from_numpy(part))
+        new_p, new_s = t_tx.update(torch.from_numpy(g), ts, tp)
+        ts = select_participants(torch.from_numpy(part),
+                                 {"params": new_p, **new_s},
+                                 {"params": tp, **ts})
+        tp = ts.pop("params")
         out = part == 0
         assert torch.equal(tp[out], prev[out])
         for k in ts:
@@ -277,7 +285,8 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(personalize_steps=1), dict(local_steps=2), dict(prox_mu=0.1),
+    dict(personalize_steps=1), dict(byzantine_clients=1),
+    dict(dp_noise_multiplier=1.0),
     dict(scaffold=True), dict(server_opt="fedadam"), dict(dp_clip_norm=1.0),
     dict(robust_aggregation="median"), dict(compress="int8"),
     dict(async_mode=True), dict(cohort_size=4)])
@@ -291,12 +300,11 @@ _CONFIGS = ("DataConfig", "ShardConfig", "ModelConfig", "OptimConfig",
 # The knobs of fedtpu that the port does not run yet, and the ROADMAP item
 # of each.
 _UNPORTED = {
-    "DataConfig": {"dataset_name": "A7", "native_loader": "A1"},
+    "DataConfig": {"dataset_name": "A7"},
     "ShardConfig": {"partition_clients": "A10", "partition_offset": "A10"},
     "ModelConfig": {k: "A7" for k in ("kind", "image_shape", "conv_channels",
                                       "param_dtype", "compute_dtype")},
     "FedConfig": {
-        "local_steps": "A3", "prox_mu": "A3", "init_weights_npz": "A5",
         "personalize_steps": "A7",
         **{k: "A6" for k in (
             "scaffold", "server_opt", "server_lr", "server_momentum",
@@ -312,9 +320,6 @@ _UNPORTED = {
                              "client_store_path", "cohort_sampling",
                              "cohort_seed", "cohort_trace")}},
     "RunConfig": {
-        **{k: "A5" for k in ("checkpoint_dir", "checkpoint_every",
-                             "keep_checkpoints", "metrics_jsonl",
-                             "pipelined_stop")},
         **{k: "A10" for k in ("mpmd", "model_parallel",
                               "collective_timeout")},
         **{k: "A11" for k in (
@@ -386,6 +391,7 @@ def test_ported_knobs_take_other_values():
             assert field.name in {
                 "DataConfig": {"csv_path", "label_column", "test_size",
                                "split_seed", "scale_with_mean",
+                               "native_loader",
                                "scaler_leakage_parity", "synthetic_rows",
                                "synthetic_features", "synthetic_classes"},
                 "ShardConfig": {"num_clients", "shuffle", "shard_seed",
@@ -397,12 +403,45 @@ def test_ported_knobs_take_other_values():
                 "FedConfig": {"rounds", "weighting", "termination_patience",
                               "tolerance", "same_init", "init_seed",
                               "participation_rate", "participation_seed",
-                              "aggregation"},
+                              "aggregation", "local_steps", "prox_mu",
+                              "init_weights_npz"},
                 "RunConfig": {"log_every", "log_per_client",
                               "rounds_per_step", "eval_test_every",
-                              "halt_on_nonfinite", "mesh_devices"},
+                              "halt_on_nonfinite", "mesh_devices",
+                              "checkpoint_dir", "checkpoint_every",
+                              "keep_checkpoints", "metrics_jsonl",
+                              "pipelined_stop"},
             }[name], (name, field.name)
     assert tcfg.ModelConfig(use_pallas=True).use_pallas
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("DataConfig", dict(native_loader=False)),
+    ("FedConfig", dict(local_steps=5)), ("FedConfig", dict(prox_mu=0.01)),
+    ("FedConfig", dict(init_weights_npz="best.npz")),
+    ("RunConfig", dict(checkpoint_dir="ck", checkpoint_every=10,
+                       keep_checkpoints=2)),
+    ("RunConfig", dict(metrics_jsonl="m.jsonl")),
+    ("RunConfig", dict(pipelined_stop=True))])
+def test_knobs_of_the_synchronous_run_construct(name, kw):
+    """The CSV loader's, local training's and the host loop's knobs take
+    other values, as fedtpu's do."""
+    cfg = getattr(tcfg, name)(**kw)
+    assert all(getattr(cfg, k) == v for k, v in kw.items())
+
+
+@pytest.mark.parametrize("kw,message", [
+    (dict(local_steps=0), "local_steps must be >= 1"),
+    (dict(prox_mu=-0.1), "prox_mu must be >= 0")])
+def test_local_training_knobs_refuse_what_fedtpu_refuses(kw, message):
+    with pytest.raises(ValueError, match=message):
+        tcfg.FedConfig(**kw)
+
+
+def test_rollback_stays_refused_naming_a11():
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        tcfg.RunConfig(on_divergence="rollback", checkpoint_dir="ck",
+                       checkpoint_every=1)
 
 
 def test_sampling_ring_and_mesh_knobs_construct():

@@ -11,6 +11,10 @@ without a card) and by chip_smoke.py."""
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs several pytest workers on the cores,
+# and torch's default of a thread per core oversubscribes them (its small
+# ops then wait on each other's threads).
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

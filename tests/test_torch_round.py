@@ -2,13 +2,19 @@
 (8 clients, 14->50->200->2) from fedtpu's own init must give the same
 per-round confusion counts, losses, metrics, early-stop round, held-out
 metrics and final params; the sharded (ring, ring-rsag over the 8-device
-mesh) and sampled rounds must match fedtpu's round for round; and the fused
-whole round (K5's plain version) must match both fedtpu's round and the
-port's composed one."""
+mesh) and sampled rounds must match fedtpu's round for round, with E local
+steps and FedProx too; the fused whole round (K5's plain version) must match
+both fedtpu's round and the port's composed one; and the rest of the
+synchronous run (a CSV, the pipelined stop, the warm start, checkpoints and
+resume, the metrics log, the CLI flags) must do what fedtpu's does."""
 
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs several pytest workers on the cores,
+# and torch's default of a thread per core oversubscribes them (its small
+# ops then wait on each other's threads).
+torch.set_num_threads(1)
 
 import argparse  # noqa: E402
 import dataclasses  # noqa: E402
@@ -254,21 +260,24 @@ def test_any_class_count_width_and_depth_match_fedtpu(classes, hidden):
 
 # ----------------------------------------- sharded and sampled averaging
 def _sharded_configs(aggregation, rate=1.0, rounds=3, rows=512,
-                     clients=16, hidden=(16, 8)):
-    """16 clients over fedtpu's 8-device CPU mesh: 2 clients per shard."""
+                     clients=16, hidden=(16, 8), **local):
+    """16 clients over fedtpu's 8-device CPU mesh: 2 clients per shard;
+    ``local``: local_steps / prox_mu."""
     j = jcfg.ExperimentConfig(
         data=jcfg.DataConfig(csv_path=None, synthetic_rows=rows),
         shard=jcfg.ShardConfig(num_clients=clients),
         model=jcfg.ModelConfig(hidden_sizes=hidden),
         fed=jcfg.FedConfig(rounds=rounds, aggregation=aggregation,
-                           participation_rate=rate, participation_seed=5),
+                           participation_rate=rate, participation_seed=5,
+                           **local),
         run=jcfg.RunConfig(mesh_devices=8))
     t = tcfg.ExperimentConfig(
         data=tcfg.DataConfig(synthetic_rows=rows),
         shard=tcfg.ShardConfig(num_clients=clients),
         model=tcfg.ModelConfig(hidden_sizes=hidden),
         fed=tcfg.FedConfig(rounds=rounds, aggregation=aggregation,
-                           participation_rate=rate, participation_seed=5),
+                           participation_rate=rate, participation_seed=5,
+                           **local),
         run=tcfg.RunConfig(mesh_devices=8))
     return j, t
 
@@ -299,14 +308,16 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _step_both(j_cfg, t_cfg, rounds, masks=None):
+def _step_both(j_cfg, t_cfg, rounds, masks=None, j_losses=None):
     """Step fedtpu's and the port's round side by side; yields per round
     (fedtpu state, port state, port raw, fedtpu's pre-average confusion
-    recomputed from its own train/eval steps)."""
+    recomputed from its own train/eval steps). ``j_losses``: a list that
+    takes fedtpu's per-round losses."""
     j_exp = j_build(j_cfg)
     _, apply_fn = build_model(jcfg.ModelConfig(hidden_sizes=(16, 8)))
     train = jax.jit(jax.vmap(make_local_train_step(
-        apply_fn, build_optimizer(jcfg.OptimConfig()))))
+        apply_fn, build_optimizer(jcfg.OptimConfig()),
+        local_steps=j_cfg.fed.local_steps, prox_mu=j_cfg.fed.prox_mu)))
     evaluate = jax.jit(jax.vmap(make_local_eval_step(apply_fn, 2)))
     xb, yb, mb = (j_exp.batch[k] for k in ("x", "y", "mask"))
     j_state, j_step = j_exp.state, j_exp.make_step(1)
@@ -318,7 +329,9 @@ def _step_both(j_cfg, t_cfg, rounds, masks=None):
         prev_p, prev_s = _np(j_state["params"]), _np(j_state["opt_state"])
         j_state, _ = j_step(j_state, j_exp.batch)
         t_state, raw = t_step(t_state, t_exp.batch)
-        trained, _, _ = train(prev_p, prev_s, xb, yb, mb)
+        trained, _, j_loss = train(prev_p, prev_s, xb, yb, mb)
+        if j_losses is not None:
+            j_losses.append(np.asarray(j_loss))
         if masks is not None:
             keep = masks(r) > 0
             trained = jax.tree.map(
@@ -380,6 +393,53 @@ def test_round_with_no_participants_carries_everything_over(aggregation):
         assert torch.equal(t_state["params"], start)
         assert not t_state["opt_state"]["mu"].any()
         assert not t_state["opt_state"]["count"].any()
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["all", "sampled"])
+@pytest.mark.parametrize("aggregation", ["psum", "ring"])
+@pytest.mark.parametrize("prox_mu", [0.0, 0.1])
+@pytest.mark.parametrize("local_steps", [1, 3])
+def test_local_steps_and_fedprox_rounds_match_fedtpu(local_steps, prox_mu,
+                                                     aggregation, sampled):
+    """E local steps with FedProx's term, against fedtpu's build_round_fn
+    (its masks injected under sampling): params within 1e-5, Adam counts
+    and confusion counts equal, losses (the last step's plain CE) within
+    1e-4; each count grows by E a round a participant; an absentee keeps
+    its moments and count bit for bit through all E steps (as in
+    tests/test_local_steps.py)."""
+    j_cfg, t_cfg = _sharded_configs(aggregation, rate=0.5 if sampled else 1.0,
+                                    rounds=2, local_steps=local_steps,
+                                    prox_mu=prox_mu)
+    masks = _fedtpu_masks(j_cfg) if sampled else None
+    j_losses = []
+    prev = None
+    for r, (j_state, t_state, raw, j_conf) in enumerate(
+            _step_both(j_cfg, t_cfg, 2, masks, j_losses)):
+        np.testing.assert_array_equal(raw["conf"][0].numpy(), j_conf)
+        np.testing.assert_allclose(
+            t_state["params"].numpy(),
+            convert.params_from_jax(_np(j_state["params"])).numpy(),
+            atol=1e-5)
+        mu, nu, count = _adam_leaves(j_state["opt_state"])
+        np.testing.assert_allclose(t_state["opt_state"]["mu"].numpy(),
+                                   mu.numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(t_state["opt_state"]["nu"].numpy(),
+                                   nu.numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(t_state["opt_state"]["count"].numpy(),
+                                      count)
+        np.testing.assert_allclose(raw["loss"][0].numpy(), j_losses[-1],
+                                   atol=1e-4)
+        part = (masks(r) > 0) if sampled else np.ones(16, bool)
+        before = (prev["opt_state"] if prev is not None else
+                  {"count": torch.zeros(16, dtype=torch.int32)})
+        grew = (t_state["opt_state"]["count"] - before["count"]).numpy()
+        np.testing.assert_array_equal(grew, np.where(part, local_steps, 0))
+        if prev is not None and not part.all():
+            keep = torch.from_numpy(~part)
+            for k in ("mu", "nu", "count"):
+                assert torch.equal(t_state["opt_state"][k][keep],
+                                   prev["opt_state"][k][keep])
+        prev = t_state
 
 
 @pytest.mark.parametrize("rate", [1.0, 0.5, 1e-9])
@@ -550,3 +610,508 @@ def test_fused_round_state_limits_catch_a_wrong_state(fault):
         off = max(2, int(0.002 * bad["params"].numel()) + 1)
         bad["params"].view(-1)[:off] += 2e-4
     assert mega.state_faults(mega.state_errors(bad, ref), lr) != []
+
+
+# -------------------------------------------- K5 refuses local training
+@pytest.mark.parametrize("field,kw", [
+    ("local_steps", dict(local_steps=2)), ("prox_mu", dict(prox_mu=0.01))])
+def test_fused_round_refuses_local_steps_and_fedprox(field, kw):
+    """K5 computes one plain Adam step a round: its wrapper and its
+    benchmark (``mega_kernel_attempt.run``) refuse more local steps and
+    FedProx, naming the field, on the CPU as on the card."""
+    _, t_cfg = _configs()
+    exp = t_build(t_cfg.replace(data=tcfg.DataConfig(synthetic_rows=128)),
+                  device="cpu")
+    opt = exp.state["opt_state"]
+    args = (exp.state["params"], opt["mu"], opt["nu"], opt["count"],
+            exp.batch["x"], exp.batch["y"], exp.batch["mask"],
+            exp.client_weights, exp.dims, t_cfg.optim)
+    with pytest.raises(ValueError, match=f"fed.{field}="):
+        ck.fused_round(*args, **kw)
+    with pytest.raises(ValueError, match=f"fed.{field}="):
+        mega.run(t_cfg.replace(fed=dataclasses.replace(t_cfg.fed, **kw)),
+                 device="cpu", rounds=1)
+    ck.fused_round(*args)      # the defaults are what K5 computes
+
+
+# ------------------------------------------------------ the CSV, end to end
+def _write_learnable_csv(path, rows=600, seed=11):
+    """A CSV with numeric and string columns (leading spaces kept) and a
+    string label that follows a noisy score of them."""
+    rng = np.random.default_rng(seed)
+    jobs = np.array([" Sales", " Tech-support", " Craft-repair"])
+    job = rng.integers(0, 3, rows)
+    hours = rng.normal(40, 10, rows)
+    edu = rng.integers(1, 17, rows)
+    score = 0.3 * (edu - 9) + 0.05 * (hours - 40) + 0.8 * (job == 1) \
+        + rng.normal(0, 0.3, rows)
+    cut = np.median(score)
+    with open(path, "w") as f:
+        f.write("hours,job,edu,income\n")
+        for i in range(rows):
+            f.write(f" {hours[i]:.3f},{jobs[job[i]]},{edu[i]},"
+                    f"{' >50K' if score[i] > cut else ' <=50K'}\n")
+    return str(path)
+
+
+def test_csv_run_matches_fedtpu(tmp_path):
+    """A whole run from a CSV (fedtpu's init injected): the same stop round
+    as fedtpu's run of the same CSV, losses within 1e-4, confusion-derived
+    metrics within 1e-6."""
+    path = _write_learnable_csv(tmp_path / "income.csv")
+    j_cfg, t_cfg = _configs()
+    j_cfg = j_cfg.replace(data=jcfg.DataConfig(csv_path=path))
+    t_cfg = t_cfg.replace(data=tcfg.DataConfig(csv_path=path))
+    rj = j_run(j_cfg, verbose=False)
+    rt = t_run(t_cfg, verbose=False, device="cpu",
+               init_params=_fedtpu_init(j_cfg))
+    assert (rt.rounds_run, rt.stopped_early) == (rj.rounds_run,
+                                                 rj.stopped_early)
+    np.testing.assert_allclose(np.stack(rt.loss), np.stack(rj.loss),
+                               atol=1e-4)
+    for name in METRIC_NAMES:
+        np.testing.assert_allclose(rt.global_metrics[name],
+                                   rj.global_metrics[name], atol=1e-6)
+
+
+# ------------------------------------------------------- pipelined stop
+@pytest.mark.parametrize("rounds_per_step", [1, 4])
+def test_pipelined_stop_history_equals_the_synchronous_run(rounds_per_step):
+    """pipelined_stop dispatches chunk k+1 before reading chunk k: its
+    history is the synchronous run's bit for bit, it stops at fedtpu's
+    pipelined round, and its state carries the overshoot chunk (the
+    state's round counter, as fedtpu's rounds_trained)."""
+    j_cfg, t_cfg = _configs()
+    init = _fedtpu_init(j_cfg)
+    piped_run = dict(pipelined_stop=True, rounds_per_step=rounds_per_step)
+    sync = t_run(t_cfg.replace(run=tcfg.RunConfig(
+        rounds_per_step=rounds_per_step)), verbose=False, device="cpu",
+        init_params=init)
+    piped = t_run(t_cfg.replace(run=tcfg.RunConfig(**piped_run)),
+                  verbose=False, device="cpu", init_params=init)
+    rj = j_run(j_cfg.replace(run=jcfg.RunConfig(**piped_run)), verbose=False)
+    assert piped.stopped_early and sync.stopped_early
+    assert piped.rounds_run == sync.rounds_run == rj.rounds_run
+    assert piped.global_metrics == sync.global_metrics
+    assert piped.pooled_metrics == sync.pooled_metrics
+    np.testing.assert_array_equal(np.stack(piped.loss), np.stack(sync.loss))
+    np.testing.assert_array_equal(np.stack(piped.confusion),
+                                  np.stack(sync.confusion))
+    assert piped.rounds_trained == rj.rounds_trained
+    assert sync.rounds_trained == sync.rounds_run + (
+        -sync.rounds_run % rounds_per_step)
+    assert piped.rounds_trained > sync.rounds_trained
+    for a, b in zip(jax.tree.leaves(piped.final_params),
+                    jax.tree.leaves(_np(rj.final_params))):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_plateau_stops_at_the_reference_round(pipelined, capsys):
+    """tests/test_stop_lag.py's plateau (lr 0, one shared init): detection
+    at round 4 with patience 3, both of the reference's messages, and
+    with pipelined_stop the same history."""
+    cfg = tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(synthetic_rows=256),
+        shard=tcfg.ShardConfig(num_clients=8),
+        optim=tcfg.OptimConfig(learning_rate=0.0),
+        fed=tcfg.FedConfig(rounds=20, termination_patience=3,
+                           same_init=True),
+        run=tcfg.RunConfig(pipelined_stop=pipelined))
+    res = t_run(cfg, verbose=True, device="cpu")
+    out = capsys.readouterr().out
+    assert res.stopped_early and res.rounds_run == 4
+    assert all(len(v) == 4 for v in res.global_metrics.values())
+    assert "Early stopping triggered" in out
+    assert "Training stopped early at round 4." in out
+    assert res.rounds_trained == (5 if pipelined else 4)
+
+
+# ------------------------------------------------ warm start from an .npz
+def _best(final_params):
+    return {"weights": final_params,
+            "params": {"hidden_layer_sizes": [50, 200],
+                       "learning_rate": 0.004},
+            "metrics": {"accuracy": 0.9, "f1": 0.9}, "accuracy": 0.9}
+
+
+def test_warm_start_reads_fedtpus_artifact_and_fedtpu_reads_the_ports(
+        tmp_path):
+    """init_weights_npz: the port warm-starts from an artifact that
+    fedtpu.sweep.grid.save_best_weights wrote, every slot bitwise fedtpu's
+    own warm start, and the first rounds match fedtpu's run from it;
+    fedtpu reads the port's artifact back bit for bit."""
+    from fedtpu.sweep.grid import load_best_weights as j_read
+    from fedtpu.sweep.grid import save_best_weights as j_write
+    from fedtpu_torch.sweep.grid import load_best_weights as t_read
+    from fedtpu_torch.sweep.grid import save_best_weights as t_write
+    j_cfg, t_cfg = _configs()
+    trained = _np(j_run(j_cfg.replace(fed=jcfg.FedConfig(rounds=3)),
+                        verbose=False).final_params)
+    path = str(tmp_path / "best.npz")
+    j_write(path, _best(trained))
+    j_cfg = j_cfg.replace(fed=dataclasses.replace(
+        j_cfg.fed, rounds=5, init_weights_npz=path))
+    t_cfg = t_cfg.replace(fed=dataclasses.replace(
+        t_cfg.fed, rounds=5, init_weights_npz=path))
+    t_exp = t_build(t_cfg, device="cpu")
+    want = convert.params_from_jax(trained).expand(8, -1)
+    assert torch.equal(t_exp.state["params"], want)
+    assert torch.equal(
+        t_exp.state["params"],
+        convert.params_from_jax(_np(j_build(j_cfg).state["params"])))
+    rj, rt = j_run(j_cfg, verbose=False), t_run(t_cfg, verbose=False,
+                                                device="cpu")
+    np.testing.assert_allclose(np.stack(rt.loss), np.stack(rj.loss),
+                               atol=1e-5)
+    back = str(tmp_path / "port.npz")
+    t_write(back, _best(rt.final_params))
+    for a, b in ((j_read(back), t_read(back)), (t_read(path), j_read(path))):
+        assert {k: v for k, v in a.items() if k != "weights"} == \
+            {k: v for k, v in b.items() if k != "weights"}
+        for x, y in zip(jax.tree.leaves(a["weights"]),
+                        jax.tree.leaves(b["weights"])):
+            np.testing.assert_array_equal(x, y)
+    for x, y in zip(jax.tree.leaves(j_read(back)["weights"]),
+                    jax.tree.leaves(rt.final_params)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_warm_start_architecture_mismatch_is_fedtpus_error(tmp_path):
+    """An artifact of another architecture: both packages raise the same
+    ValueError, word for word."""
+    from fedtpu.sweep.grid import save_best_weights as j_write
+    gen = torch.Generator().manual_seed(0)
+    other = convert.params_to_numpy(mlp_init(gen, 14, (16,), 2), (14, 16, 2))
+    path = str(tmp_path / "small.npz")
+    j_write(path, _best(other))
+    j_cfg, t_cfg = _configs()
+    with pytest.raises(ValueError) as j_err:
+        j_build(j_cfg.replace(fed=dataclasses.replace(
+            j_cfg.fed, init_weights_npz=path)))
+    with pytest.raises(ValueError) as t_err:
+        t_build(t_cfg.replace(fed=dataclasses.replace(
+            t_cfg.fed, init_weights_npz=path)), device="cpu")
+    assert str(t_err.value) == str(j_err.value)
+    assert "architecture mismatch" in str(t_err.value)
+
+
+# ----------------------------------------- checkpoint and resume (A5)
+from fedtpu_torch.orchestration.checkpoint import (  # noqa: E402
+    complete_steps, latest_step, load_checkpoint_raw, retain_checkpoints,
+    save_checkpoint)
+
+
+def _ck_config(tmp, rounds, clients=8, every=10, **run_kw):
+    return tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(synthetic_rows=ROWS),
+        shard=tcfg.ShardConfig(num_clients=clients),
+        fed=tcfg.FedConfig(rounds=rounds, termination_patience=1000),
+        run=tcfg.RunConfig(checkpoint_dir=str(tmp), checkpoint_every=every,
+                           **run_kw))
+
+
+def test_checkpoint_roundtrip_and_bitwise_resume(tmp_path):
+    """save/load of a 3-round state: tensors, history and step back as
+    saved, and one more round from the restored state bitwise the round
+    from the live one (tests/test_checkpoint.py)."""
+    _, t_cfg = _configs()
+    exp = t_build(t_cfg, device="cpu")
+    step = exp.make_step(1)
+    state = exp.state
+    for _ in range(3):
+        state, _ = step(state, exp.batch)
+    history = {"accuracy": [0.5, 0.6, 0.7], "f1": []}
+    save_checkpoint(str(tmp_path), state, history, step=3)
+    assert latest_step(str(tmp_path)) == 3
+    raw, hist, at = load_checkpoint_raw(str(tmp_path))
+    assert at == 3 and hist == {"accuracy": [0.5, 0.6, 0.7]}
+    assert torch.equal(raw["params"], state["params"])
+    for k, v in state["opt_state"].items():
+        assert torch.equal(raw["opt_state"][k], v)
+    assert raw["round"] == 3
+    live, _ = step(state, exp.batch)
+    restored, _ = step(raw, exp.batch)
+    assert torch.equal(restored["params"], live["params"])
+    assert restored["round"] == 4
+
+
+@pytest.mark.parametrize("run_kw", [{}, dict(pipelined_stop=True,
+                                             rounds_per_step=5)],
+                         ids=["synchronous", "pipelined"])
+def test_resume_is_bitwise_the_uninterrupted_run(tmp_path, run_kw):
+    """20 rounds with checkpoints, then resumed to 40: the client-mean
+    history and the final params equal the uninterrupted 40 rounds bit for
+    bit, and the resumed rounds' losses too. (The early-stop countdown is
+    not checkpointed, as in fedtpu, so these runs do not stop early.)"""
+    full = t_run(_ck_config(tmp_path / "a", 40, **run_kw).replace(
+        run=tcfg.RunConfig(**run_kw)), verbose=False, device="cpu")
+    ck = tmp_path / "b"
+    first = t_run(_ck_config(ck, 20, **run_kw), verbose=False, device="cpu")
+    assert first.rounds_run == 20 and complete_steps(str(ck)) == [10, 20]
+    resumed = t_run(_ck_config(ck, 40, **run_kw), verbose=False,
+                    device="cpu", resume=True)
+    assert complete_steps(str(ck)) == [10, 20, 30, 40]
+    assert resumed.rounds_run == 40 and len(resumed.loss) == 20
+    assert resumed.global_metrics == full.global_metrics
+    np.testing.assert_array_equal(np.stack(resumed.loss),
+                                  np.stack(full.loss[20:]))
+    for a, b in zip(jax.tree.leaves(resumed.final_params),
+                    jax.tree.leaves(full.final_params)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("new_clients", [4, 16])
+def test_elastic_resume_matches_fedtpus_elastic_global_model(tmp_path,
+                                                            new_clients):
+    """An 8-client run checkpointed at round 4, resumed at another client
+    count by both packages: the carried-over global model within 1e-6 of
+    fedtpu's (resume at the saved round trains nothing), and two more
+    rounds under the new count within 1e-5 (tests/test_checkpoint.py)."""
+    def cfgs(mod, data, ck, clients, rounds):
+        return mod.ExperimentConfig(
+            data=data, shard=mod.ShardConfig(num_clients=clients,
+                                             shuffle=False),
+            model=mod.ModelConfig(input_dim=6, hidden_sizes=(8,)),
+            fed=mod.FedConfig(rounds=rounds),
+            run=mod.RunConfig(checkpoint_dir=str(ck), checkpoint_every=2))
+
+    j_data = jcfg.DataConfig(csv_path=None, synthetic_rows=256,
+                             synthetic_features=6)
+    t_data = tcfg.DataConfig(synthetic_rows=256, synthetic_features=6)
+    jd, td = tmp_path / "j", tmp_path / "t"
+    j_first = cfgs(jcfg, j_data, jd, 8, 4)
+    j_run(j_first, verbose=False)
+    t_run(cfgs(tcfg, t_data, td, 8, 4), verbose=False, device="cpu",
+          init_params=_fedtpu_init(j_first))
+    for rounds, atol in ((4, 1e-6), (6, 1e-5)):
+        for d in (jd, td):
+            for s in complete_steps(str(d)):
+                if s > 4:
+                    import shutil
+                    shutil.rmtree(d / f"round_{s:06d}")
+        rj = j_run(cfgs(jcfg, j_data, jd, new_clients, rounds),
+                   verbose=False, resume=True)
+        rt = t_run(cfgs(tcfg, t_data, td, new_clients, rounds),
+                   verbose=False, device="cpu", resume=True)
+        assert rt.rounds_run == rj.rounds_run == rounds
+        assert len(rt.global_metrics["accuracy"]) == rounds
+        for a, b in zip(jax.tree.leaves(rt.final_params),
+                        jax.tree.leaves(_np(rj.final_params))):
+            np.testing.assert_allclose(a, b, atol=atol)
+
+
+def _fake_round(root, step, files):
+    d = root / f"round_{step:06d}"
+    d.mkdir()
+    for name in files:
+        (d / name).write_bytes(b"")
+
+
+def test_latest_step_skips_half_written_rounds(tmp_path):
+    """A crash mid-save leaves a round with only its state (meta is
+    written last) or only a temporary file: resume sees neither."""
+    _fake_round(tmp_path, 2, ["state", "meta"])
+    _fake_round(tmp_path, 4, ["state"])
+    _fake_round(tmp_path, 6, ["state.tmp-123"])
+    assert latest_step(str(tmp_path)) == 2
+    assert complete_steps(str(tmp_path)) == [2]
+
+
+def test_retention_keeps_k_newest_plus_protected(tmp_path):
+    for s in (2, 4, 6, 8, 10):
+        _fake_round(tmp_path, s, ["state", "meta"])
+    _fake_round(tmp_path, 5, ["state"])       # a crash remnant: reclaimed
+    _fake_round(tmp_path, 12, ["state"])      # may be mid-commit: kept
+    removed = retain_checkpoints(str(tmp_path), keep=2, protect=(4,))
+    assert removed == [2, 5, 6]
+    assert complete_steps(str(tmp_path)) == [4, 8, 10]
+    assert (tmp_path / "round_000012").is_dir()
+    assert retain_checkpoints(str(tmp_path), keep=0) == []
+
+
+def test_run_experiment_retention_bounds_disk_and_resumes(tmp_path):
+    """keep_checkpoints=2 with a save every round: at most k + 1 rounds on
+    disk (the k newest and the best-accuracy round), and a resume keeps
+    the earlier history and the rule."""
+    def cfg(rounds):
+        return tcfg.ExperimentConfig(
+            data=tcfg.DataConfig(synthetic_rows=256),
+            shard=tcfg.ShardConfig(num_clients=4),
+            fed=tcfg.FedConfig(rounds=rounds),
+            run=tcfg.RunConfig(checkpoint_dir=str(tmp_path),
+                               checkpoint_every=1, keep_checkpoints=2))
+
+    res = t_run(cfg(6), verbose=False, device="cpu")
+    steps = complete_steps(str(tmp_path))
+    assert len(steps) <= 3 and steps[-1] == 6
+    assert int(np.argmax(res.global_metrics["accuracy"])) + 1 in steps
+    res2 = t_run(cfg(10), verbose=False, device="cpu", resume=True)
+    assert res2.rounds_run == 10
+    assert res2.global_metrics["accuracy"][:6] == \
+        res.global_metrics["accuracy"]
+    steps2 = complete_steps(str(tmp_path))
+    assert len(steps2) <= 3 and steps2[-1] == 10
+    assert int(np.argmax(res2.global_metrics["accuracy"])) + 1 in steps2
+
+
+def test_fresh_run_refuses_dir_with_existing_rounds(tmp_path):
+    cfg = _ck_config(tmp_path, 2, every=1)
+    t_run(cfg, verbose=False, device="cpu")
+    with pytest.raises(ValueError, match="already holds"):
+        t_run(cfg, verbose=False, device="cpu")
+    assert t_run(cfg, verbose=False, device="cpu",
+                 resume=True).rounds_run == 2
+
+
+def test_divergence_saves_an_emergency_checkpoint_under_diverged(tmp_path):
+    """A runaway learning rate with checkpoints on: the run halts at
+    fedtpu's round and saves the poisoned state under diverged/, labelled
+    as fedtpu labels it; resume still sees only the good periodic
+    rounds."""
+    j_cfg, t_cfg = _configs()
+    sgd = dict(name="sgd", learning_rate=1e30)
+    jd, td = tmp_path / "j", tmp_path / "t"
+    j_cfg = j_cfg.replace(optim=jcfg.OptimConfig(**sgd), run=jcfg.RunConfig(
+        checkpoint_dir=str(jd), checkpoint_every=1))
+    t_cfg = t_cfg.replace(optim=tcfg.OptimConfig(**sgd), run=tcfg.RunConfig(
+        checkpoint_dir=str(td), checkpoint_every=1))
+    rj = j_run(j_cfg, verbose=False)
+    rt = t_run(t_cfg, verbose=False, device="cpu",
+               init_params=_fedtpu_init(j_cfg))
+    from fedtpu.orchestration.checkpoint import complete_steps as j_steps
+    assert rj.diverged and rt.diverged and rt.rounds_run == rj.rounds_run
+    assert complete_steps(str(td / "diverged")) == \
+        j_steps(str(jd / "diverged")) == [rt.rounds_run]
+    assert complete_steps(str(td)) == j_steps(str(jd))
+    raw, _, at = load_checkpoint_raw(str(td / "diverged"))
+    assert at == complete_steps(str(td / "diverged"))[-1]
+    assert not bool(torch.isfinite(raw["params"]).all() and all(
+        torch.isfinite(v).all() for v in raw["opt_state"].values()
+        if v.is_floating_point()))
+
+
+def test_resume_walks_back_past_an_unreadable_round(tmp_path):
+    """A committed round whose state file is corrupt: resume warns and
+    restores the round before it."""
+    cfg = _ck_config(tmp_path, 20)
+    t_run(cfg, verbose=False, device="cpu")
+    (tmp_path / "round_000020" / "state").write_bytes(b"not a checkpoint")
+    with pytest.warns(RuntimeWarning, match="round 20 failed to restore"):
+        res = t_run(_ck_config(tmp_path, 20), verbose=False, device="cpu",
+                    resume=True)
+    assert res.rounds_run == 20 and len(res.loss) == 10
+
+
+def test_metrics_jsonl_lines_have_fedtpus_keys(tmp_path):
+    """metrics_jsonl: one line a round with fedtpu's keys and values
+    (fedtpu's init injected: client means within 1e-6)."""
+    j_cfg, t_cfg = _configs()
+    jp, tp = tmp_path / "j.jsonl", tmp_path / "t.jsonl"
+    j_cfg = j_cfg.replace(fed=jcfg.FedConfig(rounds=4),
+                          run=jcfg.RunConfig(metrics_jsonl=str(jp)))
+    t_cfg = t_cfg.replace(fed=tcfg.FedConfig(rounds=4),
+                          run=tcfg.RunConfig(metrics_jsonl=str(tp)))
+    j_run(j_cfg, verbose=False)
+    res = t_run(t_cfg, verbose=False, device="cpu",
+                init_params=_fedtpu_init(j_cfg))
+    j_lines = [json.loads(l) for l in jp.read_text().splitlines()]
+    t_lines = [json.loads(l) for l in tp.read_text().splitlines()]
+    assert len(t_lines) == len(j_lines) == 4
+    for a, b in zip(t_lines, j_lines):
+        assert set(a) == set(b) and a["round"] == b["round"]
+        for k in METRIC_NAMES:
+            assert abs(a["client_mean"][k] - b["client_mean"][k]) <= 1e-6
+            assert abs(a["pooled"][k] - b["pooled"][k]) <= 1e-6
+        assert abs(a["loss_mean"] - b["loss_mean"]) <= 1e-5
+    assert [l["client_mean"]["accuracy"] for l in t_lines] == \
+        res.global_metrics["accuracy"]
+
+
+def test_cli_local_training_checkpoint_resume_and_pipelined_flags(
+        tmp_path, capsys):
+    """fedtpu's flags on the port's CLI, on the CPU: local steps, FedProx,
+    checkpoints, resume, the warm start, the metrics log and the pipelined
+    stop."""
+    from fedtpu_torch.cli import main
+    from fedtpu_torch.sweep.grid import save_best_weights
+    ck, log = tmp_path / "ck", tmp_path / "m.jsonl"
+    gen = torch.Generator().manual_seed(0)
+    best = convert.params_to_numpy(mlp_init(gen, 14, (50, 200), 2),
+                                   (14, 50, 200, 2))
+    npz = str(tmp_path / "best.npz")
+    save_best_weights(npz, _best(best))
+    common = ["run", "--preset", "income-2", "--platform", "cpu",
+              "--synthetic-rows", "256", "--json", "--quiet",
+              "--local-steps", "2", "--prox-mu", "0.01",
+              "--checkpoint-dir", str(ck), "--checkpoint-every", "1",
+              "--keep-checkpoints", "2", "--metrics-jsonl", str(log),
+              "--pipelined-stop", "--init-weights", npz]
+    assert main(common + ["--rounds", "2"]) == 0
+    assert main(common + ["--rounds", "4", "--resume"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["rounds_run"] == 4
+    assert complete_steps(str(ck))[-1] == 4
+    assert len(log.read_text().splitlines()) == 4
+
+
+# ------------------------------------------------------ CUDA graphs
+def test_capture_needs_the_card():
+    """On the CPU there is no graph: run_experiment(capture=True) and
+    capture_round_step refuse CPU tensors rather than run something
+    else."""
+    from fedtpu_torch.parallel.round import capture_round_step
+    _, t_cfg = _configs()
+    with pytest.raises(ValueError, match="needs the card"):
+        t_run(t_cfg, verbose=False, device="cpu", capture=True)
+    exp = t_build(t_cfg, device="cpu")
+    with pytest.raises(ValueError, match="CUDA graph needs CUDA tensors"):
+        capture_round_step(exp.make_step(1), exp.state, exp.batch)
+
+
+def test_packed_outputs_round_trip():
+    """The one buffer a chunk hands the host: loss, counts and the state's
+    finiteness flag, unpacked exactly."""
+    from fedtpu_torch.parallel.round import pack_outputs, unpack_outputs
+    loss = torch.randn(3, 8)
+    conf = torch.randint(0, 1000, (3, 8, 2, 2)).to(torch.float32)
+    for finite in (True, False):
+        raw = {"loss": loss, "conf": conf, "finite": torch.tensor(finite)}
+        out = unpack_outputs(pack_outputs(raw), 3, 8, 2)
+        assert torch.equal(out["loss"], loss)
+        assert torch.equal(out["conf"], conf)
+        assert out["finite"] is finite
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds_per_step,aggregation,rate", [
+    (1, "psum", 1.0), (4, "psum", 1.0), (4, "ring", 1.0), (4, "psum", 0.5)])
+def test_captured_run_is_bitwise_the_uncaptured_run(cuda, rounds_per_step,
+                                                    aggregation, rate):
+    """On the card every chunk is a graph replay: the history, the stop
+    round and the final params equal the uncaptured loop's bit for bit,
+    and each replay launches K1 (or K4) and K2 once a round."""
+    _, t_cfg = _sharded_configs(aggregation, rate=rate, rounds=18)
+    t_cfg = t_cfg.replace(run=dataclasses.replace(
+        t_cfg.run, rounds_per_step=rounds_per_step))
+    plain = t_run(t_cfg, verbose=False, device="cuda", capture=False)
+    graph = t_run(t_cfg, verbose=False, device="cuda")
+    assert graph.global_metrics == plain.global_metrics
+    np.testing.assert_array_equal(np.stack(graph.loss), np.stack(plain.loss))
+    np.testing.assert_array_equal(np.stack(graph.confusion),
+                                  np.stack(plain.confusion))
+    for a, b in zip(jax.tree.leaves(graph.final_params),
+                    jax.tree.leaves(plain.final_params)):
+        np.testing.assert_array_equal(a, b)
+    average = ("weighted_average_clients" if aggregation == "psum"
+               else "ring_all_reduce_sum")
+    for width, launches in graph.graph_launches.items():
+        assert launches[average] == launches["fused_eval_confusion"] == width
+    assert graph.warmup_rounds == 1 and plain.warmup_rounds == 0
