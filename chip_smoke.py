@@ -37,6 +37,16 @@ Phases, in order; any failure exits non-zero before the result line:
    CPU, and the ring run is profiled as in phase 6. Then income-2 at
    hidden_sizes=(256, 256), where K2 and K3 stream the weights, against
    the CPU.
+   Then (a)-(d): income-8 from a 10,000-row CSV of the income schema;
+   5 local steps with FedProx on psum and ring; captured against
+   uncaptured runs, bitwise; resume 20 -> 40 bitwise the uninterrupted run.
+   (e) the rest of the synchronous round on income-32-noniid: fedadam,
+   DP-FedAvg (clip, noise, sampling, adaptive clip with count noise), the
+   median and Krum with 3 Byzantine clients, SCAFFOLD, the int8 exchange
+   over 8 shards, fedavgm and the trimmed mean, each against the CPU; DP
+   and SCAFFOLD captured against uncaptured at R = 10, bitwise; DP resumed
+   20 -> 40 bitwise with the same privacy spend; the noise draw's host
+   cost; K1's (D,) mode at the delta path's shape.
 8. fused round (K5): the whole-round kernel against its plain version on the
    card at income-8's experiment state, at edge shapes and at
    income-32-noniid's (32, 1104) batch, twice on the same inputs (bitwise
@@ -605,8 +615,9 @@ def replay_near_ties(cfg, rounds: set) -> dict:
     """Near-tie rows per client of the trained (pre-average) models at the
     given 0-based rounds, by replaying the run from its public pieces (the
     round step, and the train step alone with the round's participation
-    mask for the pre-average models) on the CPU and, in lockstep, on the
-    card (the uncaptured step, bitwise the captured one). Returns round ->
+    mask and SCAFFOLD's correction for the pre-average models) on the CPU
+    and, in lockstep, on the card (the uncaptured step, bitwise the
+    captured one). Returns round ->
     (rows whose CPU-model top-two logit gap is below ``NEAR_TIE_REL`` of
     its largest logit, rows whose gap is below that or below twice the
     drift, the drift): the drift is the largest card-vs-CPU logit
@@ -637,9 +648,12 @@ def replay_near_ties(cfg, rounds: set) -> dict:
             for side in sides:
                 b = side["exp"].batch
                 p = None if part is None else part.to(b["x"].device)
-                params, _, _ = side["train"](side["state"]["params"],
-                                             side["state"]["opt_state"],
-                                             b["x"], b["y"], b["mask"], p)
+                st = side["state"]
+                corr = (st["server_cv"][None] - st["client_cv"]
+                        if "client_cv" in st else None)
+                params, _, _ = side["train"](st["params"], st["opt_state"],
+                                             b["x"], b["y"], b["mask"], p,
+                                             corr)
                 logits.append(mlp_apply(unflatten(params, side["exp"].dims),
                                         b["x"]).cpu())
             mask = sides[0]["exp"].batch["mask"] > 0
@@ -684,7 +698,7 @@ def phase_card_vs_cpu(cfg, gpu, label: str = "card vs CPU",
               f"vs CPU logit drift {drift:.3e})")
         check(drift_cap is None or drift <= drift_cap,
               f"round {r + 1}: card vs CPU logit drift {drift:.3e} above "
-              f"{drift_cap:.1e}")
+              f"{drift_cap}")
     print(f"{label}: same stop round {cpu.rounds_run}, loss max abs err "
           f"{loss_err:.3e}, rounds with near-tie count differences "
           f"{sorted(r + 1 for r in moved)}, rows moved "
@@ -1040,58 +1054,213 @@ def phase_capture(composed: dict) -> dict:
     return by_path
 
 
-def phase_resume() -> None:
-    """Phase (d): income-8 with checkpoints for 20 rounds, then resumed to
-    round 40, bitwise the uninterrupted 40 rounds (history, losses,
-    confusion counts, final params); synchronous at R = 1 and pipelined at
-    R = 5, whose history also equals the synchronous run's. The early-stop
-    countdown is not part of a checkpoint (as in fedtpu), so these runs
-    keep early stopping out of their 40 rounds."""
+def resume_is_bitwise(label: str, cfg):
+    """``cfg`` checkpointed every 10 rounds for 20 rounds, then resumed to
+    round 40, against the uninterrupted 40 rounds: bitwise the same
+    client-mean history, losses, confusion counts, held-out metrics (one
+    eval every 10 rounds) and final params. Returns the uninterrupted and
+    the resumed run."""
     import tempfile
     from fedtpu_torch.orchestration.checkpoint import complete_steps
     from fedtpu_torch.orchestration.loop import run_experiment
+    full = run_experiment(with_fed(cfg, rounds=40), verbose=False,
+                          device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        ck_cfg = with_run(cfg, checkpoint_dir=d, checkpoint_every=10)
+        first = run_experiment(with_fed(ck_cfg, rounds=20), verbose=False,
+                               device="cuda")
+        check(complete_steps(d) == [10, 20] and first.rounds_run == 20,
+              f"resume {label}: checkpoints {complete_steps(d)}")
+        resumed = run_experiment(with_fed(ck_cfg, rounds=40), verbose=False,
+                                 device="cuda", resume=True)
+        check(complete_steps(d) == [10, 20, 30, 40],
+              f"resume {label}: checkpoints {complete_steps(d)}")
+    # The resumed run holds the first leg's client-mean history and its
+    # own 20 rounds of everything else.
+    check(resumed.global_metrics == full.global_metrics,
+          f"resume {label}: client-mean history differs")
+    tail = dataclasses.replace(
+        full, loss=full.loss[20:], confusion=full.confusion[20:],
+        pooled_metrics={k: v[20:] for k, v in full.pooled_metrics.items()},
+        test_metrics={k: v[2:] for k, v in full.test_metrics.items()})
+    diffs = [d for d in same_history(resumed, tail)
+             if d not in ("global_metrics",)]
+    check(not diffs, f"resume {label}: differs from the uninterrupted run "
+          f"in {diffs}")
+    print(f"resume {label}: 20 rounds, checkpoint, resume to 40 == the "
+          "uninterrupted 40 rounds bitwise (client-mean history, losses, "
+          "confusion counts, held-out metrics, final params)", flush=True)
+    return full, resumed
+
+
+def phase_resume() -> None:
+    """Phase (d): income-8 with checkpoints for 20 rounds, then resumed to
+    round 40, bitwise the uninterrupted 40 rounds (``resume_is_bitwise``);
+    synchronous at R = 1 and pipelined at R = 5, whose history also equals
+    the synchronous run's. The early-stop countdown is not part of a
+    checkpoint (as in fedtpu), so these runs keep early stopping out of
+    their 40 rounds."""
     base = with_fed(main_path_config(), termination_patience=1000)
-    runs = {}
-    for label, kw in (("synchronous R=1", {}),
-                      ("pipelined R=5", dict(pipelined_stop=True,
-                                             rounds_per_step=5))):
-        cfg = with_run(base, **kw)
-        full = run_experiment(with_fed(cfg, rounds=40), verbose=False,
-                              device="cuda")
-        with tempfile.TemporaryDirectory() as d:
-            ck_cfg = with_run(cfg, checkpoint_dir=d, checkpoint_every=10)
-            first = run_experiment(with_fed(ck_cfg, rounds=20),
-                                   verbose=False, device="cuda")
-            check(complete_steps(d) == [10, 20] and first.rounds_run == 20,
-                  f"resume {label}: checkpoints {complete_steps(d)}")
-            resumed = run_experiment(with_fed(ck_cfg, rounds=40),
-                                     verbose=False, device="cuda",
-                                     resume=True)
-            check(complete_steps(d) == [10, 20, 30, 40],
-                  f"resume {label}: checkpoints {complete_steps(d)}")
-        # The resumed run holds the first leg's client-mean history and
-        # its own 20 rounds of everything else.
-        check(resumed.global_metrics == full.global_metrics,
-              f"resume {label}: client-mean history differs")
-        tail = dataclasses.replace(
-            full, loss=full.loss[20:], confusion=full.confusion[20:],
-            pooled_metrics={k: v[20:] for k, v in
-                            full.pooled_metrics.items()},
-            test_metrics={k: v[2:] for k, v in full.test_metrics.items()})
-        diffs = [d for d in same_history(resumed, tail)
-                 if d not in ("global_metrics",)]
-        check(not diffs, f"resume {label}: differs from the uninterrupted "
-              f"run in {diffs}")
-        runs[label] = full
-        print(f"resume {label}: 20 rounds, checkpoint, resume to 40 == the "
-              "uninterrupted 40 rounds bitwise (client-mean history, "
-              "losses, confusion counts, held-out metrics, final params)",
-              flush=True)
-    sync, piped = runs.values()
+    sync, _ = resume_is_bitwise("synchronous R=1", base)
+    piped, _ = resume_is_bitwise("pipelined R=5", with_run(
+        base, pipelined_stop=True, rounds_per_step=5))
     diffs = same_history(sync, piped)
     check(not diffs, f"pipelined R=5 differs from synchronous R=1 in {diffs}")
     print("pipelined R=5 == synchronous R=1 bitwise over 40 rounds",
           flush=True)
+
+
+# The A6 phase: income-32-noniid (10,000 rows, 8 shards on the card) under
+# each branch of the rest of the synchronous round.
+A6_ROUNDS = 40
+NO_K1 = {**PSUM, "weighted_average_clients": 0}
+# DP-FedAvg: uniform weights, clip (adaptive, from 1.0), noise multiplier 1
+# (the delta at the split's z_delta, the count at 2), client sampling 0.5.
+DP_KNOBS = dict(weighting="uniform", dp_clip_norm=1.0,
+                dp_noise_multiplier=1.0, dp_adaptive_clip=True,
+                dp_count_noise_multiplier=2.0)
+
+
+def a6_config(rounds: int = A6_ROUNDS, rate: float = 1.0, **fed):
+    return with_fed(sharded_config("psum", rate, rounds), **fed)
+
+
+def a6_cases() -> dict:
+    """label -> (config, expected launches) of the A6 phase; the delta
+    path means through K1's (D,) mode once a round, the robust rules and
+    the int8 exchange never launch K1."""
+    return {
+        "fedadam": (a6_config(server_opt="fedadam", server_lr=0.01), PSUM),
+        "DP-FedAvg": (a6_config(rate=0.5, **DP_KNOBS), PSUM),
+        "median, 3 Byzantine": (a6_config(
+            weighting="uniform", robust_aggregation="median",
+            byzantine_clients=3), NO_K1),
+        "krum, 3 Byzantine": (a6_config(
+            weighting="uniform", robust_aggregation="krum", krum_f=3,
+            byzantine_clients=3), NO_K1),
+        "SCAFFOLD": (a6_config(weighting="uniform", scaffold=True,
+                               local_steps=3), PSUM),
+        "int8 over 8 shards": (a6_config(compress="int8"), NO_K1),
+        "fedavgm": (a6_config(20, server_opt="fedavgm"), PSUM),
+        "trimmed_mean": (a6_config(20, weighting="uniform",
+                                   robust_aggregation="trimmed_mean"),
+                         NO_K1)}
+
+
+def k1_delta_mean(dp_cfg) -> dict:
+    """K1's (D,) mode as the DP delta path calls it: the clipped deltas of
+    income-32-noniid's 32 clients under a round's 0/1 participation
+    weights, against its plain version (1e-5) and timed beside it, its
+    bound and ``torch.matmul``."""
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration.loop import build_experiment
+    from fedtpu_torch.parallel.round import participation_mask
+    exp = build_experiment(dp_cfg, device="cuda")
+    c, d = exp.state["params"].shape
+    gen = torch.Generator().manual_seed(2)
+    delta = (torch.randn(c, d, generator=gen) * 4e-3).to("cuda")
+    w = participation_mask(c, 0.5, 0, 0).to("cuda")
+    out = ck.weighted_average_clients(delta, w)
+    ref = ck.weighted_average_clients_reference(delta, w)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(err <= 1e-5, f"K1 delta mean ({c}, {d}): max abs err {err}")
+    b, by = bound_ms(4 * (delta.numel() + c + d), 2.0 * delta.numel())
+    row = {"shape": [c, d], "participants": int(w.sum()), "max_abs_err": err,
+           "ms": time_ms(lambda: ck.weighted_average_clients(delta, w)),
+           "plain_ms": time_ms(
+               lambda: ck.weighted_average_clients_reference(delta, w)),
+           "library_ms": time_ms(lambda: torch.matmul(w / w.sum(), delta)),
+           "bound_ms": b, "bound_by": by}
+    print(f"time K1 (D,) delta mean ({c}, {d}), {row['participants']} "
+          f"participants: kernel {row['ms']:.4f} ms  plain "
+          f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms  "
+          f"bound {b:.5f} ms ({by}); max abs err {err:.3e}; {CARD['smi']}",
+          flush=True)
+    return row
+
+
+def noise_draw_cost(dp_cfg, width: int = 10, chunks: int = 30) -> float:
+    """Host milliseconds of one chunk's DP noise on its way to the card, as
+    the loop sends it: the host draw of ``width`` rounds, the pinned copy
+    and the transfer (median over ``chunks`` chunks)."""
+    import time as clock
+    from fedtpu_torch.orchestration.loop import build_experiment
+    step = build_experiment(dp_cfg, device="cuda").make_step(width)
+    times = []
+    for i in range(chunks):
+        torch.cuda.synchronize()
+        t0 = clock.perf_counter()
+        host = step.draw_noise(i * width, width).pin_memory()
+        host.to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+        times.append((clock.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    print(f"DP noise draw, income-32-noniid R={width}: {ms:.4f} ms a chunk "
+          f"on the host ({host.shape[1]} floats a round: draw, pin, copy), "
+          f"{ms / width:.4f} ms a round; {CARD['smi']}", flush=True)
+    return ms
+
+
+def phase_a6() -> dict:
+    """Phase (e): the rest of the synchronous round on income-32-noniid at
+    10,000 rows over 8 shards: fedadam, DP-FedAvg (clip, noise, sampling
+    0.5, uniform weights, adaptive clip with count noise), the median and
+    Krum with 3 Byzantine clients, SCAFFOLD (3 local steps), the int8
+    exchange, and fedavgm and the trimmed mean over 20 rounds. Each run's
+    launches counted from zero and held against the same config on the
+    CPU; the DP and SCAFFOLD runs at R = 10 captured against uncaptured,
+    bitwise, with the median s/round of both; the DP run resumed 20 -> 40
+    bitwise the uninterrupted run, with the same privacy spend; the noise
+    draw's host cost; K1's (D,) mode at the delta path's shape. Returns
+    each run's launches by label and K1's row."""
+    cases = a6_cases()
+    by_path = {}
+    for label, (cfg, expect) in cases.items():
+        label = f"income-32-noniid {label}"
+        gpu, by_path[label] = phase_run(label, cfg, expect)
+        phase_card_vs_cpu(cfg, gpu, label=f"{label} card vs CPU")
+        if gpu.final_dp_clip is not None:
+            print(f"{label}: final adaptive clip {gpu.final_dp_clip:.6e}, "
+                  f"privacy spent {json.dumps(gpu.privacy_spent())}",
+                  flush=True)
+    for label in ("DP-FedAvg", "SCAFFOLD"):
+        cfg, expect = cases[label]
+        cfg = with_run(cfg, rounds_per_step=10)
+        label = f"income-32-noniid {label} R=10"
+        plain, _ = phase_run(f"{label} uncaptured", cfg, expect,
+                             capture=False)
+        graph, by_path[label] = phase_run(f"{label} captured", cfg, expect)
+        diffs = same_history(plain, graph)
+        if plain.final_dp_clip != graph.final_dp_clip:
+            diffs.append("final clip")
+        if plain.privacy_spent() != graph.privacy_spent():
+            diffs.append("privacy spend")
+        check(not diffs, f"{label}: captured run differs from the "
+              f"uncaptured one in {diffs}")
+        s_plain = statistics.median(plain.sec_per_round)
+        s_graph = statistics.median(graph.sec_per_round)
+        print(f"{label}: captured == uncaptured bitwise (losses, confusion "
+              f"counts, histories, stop round {graph.rounds_run}, final "
+              f"params and clip); s/round (median) uncaptured "
+              f"{s_plain:.6e}, captured {s_graph:.6e}, ratio "
+              f"{s_plain / s_graph:.3f}; {CARD['smi']}", flush=True)
+    dp_cfg = cases["DP-FedAvg"][0]
+    full, resumed = resume_is_bitwise(
+        "income-32-noniid DP-FedAvg",
+        with_fed(dp_cfg, termination_patience=1000))
+    spent, again = full.privacy_spent(), resumed.privacy_spent()
+    same = ("epsilon", "delta", "rdp_order", "rounds")
+    check({k: again[k] for k in same} == {k: spent[k] for k in same}
+          and again.get("composed_over_resumed_segments")
+          and resumed.final_dp_clip == full.final_dp_clip,
+          f"resumed DP run spent {again}, clip {resumed.final_dp_clip}; "
+          f"uninterrupted {spent}, clip {full.final_dp_clip}")
+    print(f"resume income-32-noniid DP-FedAvg: privacy spend equal "
+          f"(epsilon {spent['epsilon']:.6f} at delta {spent['delta']}, "
+          f"{spent['rounds']} rounds), final clip equal", flush=True)
+    noise_draw_cost(dp_cfg)
+    return by_path, k1_delta_mean(dp_cfg)
 
 
 def k5_case(label: str, args: tuple, dims, optim) -> float:
@@ -1373,6 +1542,9 @@ def main() -> None:
     by_path.update(phase_local_steps())
     by_path.update(phase_capture(composed))
     phase_resume()
+    a6_launches, timings["weighted_average_clients"]["delta_mean"] = \
+        phase_a6()
+    by_path.update(a6_launches)
     timings["fused_round"], by_path["income-8 fused round"] = \
         phase_fused_round(torch.Generator().manual_seed(1), composed)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -1410,7 +1582,8 @@ def main() -> None:
                 "by_shape", "modes", "composed_ms", "plan", "back_to_back_ms",
                 "empty_launch_ms", "empty_back_to_back_ms", "ms_by_threads",
                 "ms_by_tile_x_threads", "composed_round_device_ms",
-                "marginal_us_per_round", "profile", "phases_us")
+                "marginal_us_per_round", "profile", "phases_us",
+                "delta_mean")
                 if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,16 +2,20 @@
 
 A second package beside ``fedtpu`` (the JAX reference, which it never
 imports). It mirrors ``fedtpu``'s module paths and function names; it runs
-the synchronous FedAvg path of the income presets, with hand-written CUDA
+the synchronous engine of the income presets (FedAvg, the server
+optimizers, central DP, the robust rules, SCAFFOLD, the int8 exchange),
+with hand-written CUDA
 kernels in place of the JAX package's Pallas kernels
 (``fedtpu_torch.ops.cuda_kernels``).
 
     fedtpu_torch.config         — configs + the income presets
     fedtpu_torch.data           — the CSV and synthetic income data, sharding
     fedtpu_torch.models         — the MLP on a flat parameter buffer
-    fedtpu_torch.ops            — losses, metrics, optimizers, CUDA kernels
-    fedtpu_torch.parallel       — the federated round, its CUDA graph
-    fedtpu_torch.orchestration  — host round loop, early stopping, checkpoints
+    fedtpu_torch.ops            — losses, metrics, optimizers, server
+                                  optimizers, the DP accountant, CUDA kernels
+    fedtpu_torch.parallel       — the federated round, its CUDA graph, int8
+    fedtpu_torch.orchestration  — host round loop, early stopping, checkpoints,
+                                  the privacy ledger
     fedtpu_torch.sweep          — the sweep's weights artifact (.npz)
     fedtpu_torch.convert        — params / Adam state to and from fedtpu
     fedtpu_torch.utils          — timing

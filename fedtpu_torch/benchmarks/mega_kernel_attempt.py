@@ -76,13 +76,28 @@ def round_flops(dims: Sequence[int], real_rows: float, clients: int) -> float:
             + clients * param_count(dims) * (_ADAM_FLOPS + _AVERAGE_FLOPS))
 
 
+# FedConfig's knobs of the other aggregation branches, at the values that
+# leave plain FedAvg: K5 computes none of those branches.
+_FEDAVG_ONLY = (("server_opt", "none"), ("dp_clip_norm", 0.0),
+                ("dp_noise_multiplier", 0.0), ("dp_adaptive_clip", False),
+                ("robust_aggregation", "none"), ("byzantine_clients", 0),
+                ("scaffold", False), ("compress", "none"))
+
+
 def check_config(cfg: ExperimentConfig) -> None:
     """Refuse what this benchmark cannot hand to K5, naming the field: client
-    sampling, another aggregation, more than one local step, FedProx, and
-    an optimizer state without Adam's moments. The model's limits are the
-    wrapper's own (``fused_round`` raises a ``ValueError`` that names the
-    field on any device)."""
+    sampling, another aggregation, more than one local step, FedProx, every
+    branch other than plain FedAvg (a server optimizer, DP, a robust rule,
+    Byzantine injection, SCAFFOLD, the int8 exchange), and an optimizer
+    state without Adam's moments. The model's limits are the wrapper's own
+    (``fused_round`` raises a ``ValueError`` that names the field on any
+    device)."""
     ck.check_fused_round_training(cfg.fed.local_steps, cfg.fed.prox_mu)
+    for field, plain in _FEDAVG_ONLY:
+        value = getattr(cfg.fed, field)
+        if value != plain:
+            raise ValueError(f"fed.{field}={value!r}: the fused round "
+                             "computes plain FedAvg only")
     if cfg.fed.participation_rate < 1.0:
         raise ValueError(f"fed.participation_rate="
                          f"{cfg.fed.participation_rate}: the fused round "

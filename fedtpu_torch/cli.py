@@ -1,5 +1,5 @@
 """``python -m fedtpu_torch.cli run``: the port's counterpart of
-``fedtpu run``, for the synchronous FedAvg path.
+``fedtpu run``, for the synchronous engine.
 
 Every flag is one that ``fedtpu.cli``'s parser also has, with the same
 meaning; ``--platform default`` means the GPU, ``--platform cpu`` the plain
@@ -38,6 +38,14 @@ def _nonnegative_float(text: str) -> float:
     return value
 
 
+def _open_unit_float(text: str) -> float:
+    value = float(text)
+    if not 0.0 < value < 1.0:
+        raise argparse.ArgumentTypeError(
+            f"must be in the open interval (0, 1), got {value}")
+    return value
+
+
 def _hidden_sizes(text: str):
     return tuple(int(t) for t in text.split(",") if t.strip())
 
@@ -45,7 +53,7 @@ def _hidden_sizes(text: str):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="fedtpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("run", help="run the synchronous FedAvg loop")
+    p = sub.add_parser("run", help="run the synchronous federated loop")
     p.add_argument("--preset", default="income-8", choices=sorted(PRESETS))
     p.add_argument("--csv", default=None,
                    help="dataset CSV path ('' = synthetic rows, the "
@@ -72,6 +80,65 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prox-mu", type=_nonnegative_float, default=None,
                    help="FedProx proximal coefficient >= 0 (0 = plain "
                         "FedAvg; meaningful with --local-steps > 1)")
+    p.add_argument("--scaffold", action="store_true", default=None,
+                   help="SCAFFOLD control-variate drift correction "
+                        "(Karimireddy et al. 2020; needs --weighting "
+                        "uniform)")
+    p.add_argument("--server-opt",
+                   choices=["none", "fedavgm", "fedadagrad", "fedyogi",
+                            "fedadam"],
+                   default=None,
+                   help="server optimizer over client deltas (FedOpt; "
+                        "'none' = the reference's parameter averaging)")
+    p.add_argument("--server-lr", type=float, default=None,
+                   help="server optimizer learning rate (default 1.0)")
+    p.add_argument("--server-momentum", type=_nonnegative_float, default=None,
+                   help="fedavgm momentum (default 0.9)")
+    p.add_argument("--dp-clip-norm", type=_nonnegative_float, default=None,
+                   help="per-client L2 clip of updates (DP-FedAvg; 0 = off)")
+    p.add_argument("--dp-noise-multiplier", type=_nonnegative_float,
+                   default=None,
+                   help="Gaussian noise multiplier on the averaged clipped "
+                        "delta (needs --dp-clip-norm > 0)")
+    p.add_argument("--dp-delta", type=_open_unit_float, default=None,
+                   help="target delta for the (epsilon, delta) report the "
+                        "RDP accountant adds to the summary when DP noise "
+                        "is on (default 1e-5; pick << 1/num_clients)")
+    p.add_argument("--dp-adaptive-clip", action="store_true", default=None,
+                   help="adaptive clipping (Andrew et al. 2021): the clip "
+                        "norm tracks --dp-target-quantile of client update "
+                        "norms, starting at --dp-clip-norm")
+    p.add_argument("--dp-target-quantile", type=_open_unit_float,
+                   default=None,
+                   help="quantile of update norms the adaptive clip tracks "
+                        "(default 0.5)")
+    p.add_argument("--dp-clip-lr", type=_nonnegative_float, default=None,
+                   help="geometric step size of the adaptive clip update "
+                        "(default 0.2)")
+    p.add_argument("--dp-count-noise-multiplier", type=_nonnegative_float,
+                   default=None,
+                   help="noise on the clipped-count release under adaptive "
+                        "clipping with DP noise on; must exceed "
+                        "dp_noise_multiplier/2 (the delta noise is then "
+                        "raised so the composed round charges exactly "
+                        "--dp-noise-multiplier)")
+    p.add_argument("--compress", choices=["none", "int8"], default=None,
+                   help="int8-quantize each mesh shard's summed update "
+                        "before the exchange")
+    p.add_argument("--robust-aggregation",
+                   choices=["none", "median", "trimmed_mean", "krum",
+                            "geometric_median"],
+                   default=None,
+                   help="Byzantine-robust aggregation rule (requires "
+                        "--weighting uniform and full participation)")
+    p.add_argument("--trim-ratio", type=_nonnegative_float, default=None,
+                   help="fraction trimmed from each end per coordinate "
+                        "(trimmed_mean)")
+    p.add_argument("--krum-f", type=int, default=None,
+                   help="krum's assumed number of malicious clients")
+    p.add_argument("--byzantine-clients", type=int, default=None,
+                   help="fault injection: first k clients submit 10x "
+                        "sign-flipped updates")
     p.add_argument("--rounds-per-step", type=int, default=None)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
@@ -130,6 +197,16 @@ def config_from_args(args):
         fed = dataclasses.replace(fed, prox_mu=args.prox_mu)
     if args.init_weights is not None:
         fed = dataclasses.replace(fed, init_weights_npz=args.init_weights)
+    for flag in ("scaffold", "dp_adaptive_clip"):
+        if getattr(args, flag):
+            fed = dataclasses.replace(fed, **{flag: True})
+    for flag in ("server_opt", "server_lr", "server_momentum", "dp_clip_norm",
+                 "dp_noise_multiplier", "dp_delta", "dp_target_quantile",
+                 "dp_clip_lr", "dp_count_noise_multiplier", "compress",
+                 "robust_aggregation", "trim_ratio", "krum_f",
+                 "byzantine_clients"):
+        if getattr(args, flag) is not None:
+            fed = dataclasses.replace(fed, **{flag: getattr(args, flag)})
     if args.rounds_per_step is not None:
         run = dataclasses.replace(run, rounds_per_step=args.rounds_per_step)
     for flag in ("checkpoint_dir", "checkpoint_every", "keep_checkpoints",

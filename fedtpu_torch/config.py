@@ -1,4 +1,4 @@
-"""Typed configuration for the PyTorch port's synchronous FedAvg path.
+"""Typed configuration for the PyTorch port's synchronous federated run.
 
 The port's own copies of ``fedtpu.config``'s dataclasses that
 ``ExperimentConfig`` holds (data, shard, model, optimizer, federation, run,
@@ -123,8 +123,9 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
-    """Round orchestration (``fedtpu.config.FedConfig``): the averaging path's
-    fields, and the knobs of the other paths at their neutral values."""
+    """Round orchestration (``fedtpu.config.FedConfig``): the synchronous
+    round's fields, and the knobs of the other engines at their neutral
+    values."""
 
     rounds: int = 300
     weighting: str = "data_size"         # 'data_size' | 'uniform'
@@ -148,8 +149,14 @@ class FedConfig:
     # Warm start: a weights artifact (fedtpu_torch.sweep.grid's .npz,
     # fedtpu's format) broadcast into every client slot.
     init_weights_npz: Optional[str] = None
-    # Not ported yet: each must stay at its default (_FED_ITEMS).
+    # SCAFFOLD control variates (needs weighting='uniform').
     scaffold: bool = False
+    # The delta path: a server optimizer over the clients' updates
+    # ('none' | 'fedavgm' | 'fedadagrad' | 'fedyogi' | 'fedadam'), central DP
+    # (per-client clip, Gaussian noise, adaptive clip, the (eps, delta)
+    # report's delta), robust rules with Byzantine injection, and the int8
+    # exchange: fedtpu's knobs, semantics and refusals
+    # (fedtpu_torch.parallel.round).
     server_opt: str = "none"
     server_lr: float = 1.0
     server_momentum: float = 0.9
@@ -169,6 +176,7 @@ class FedConfig:
     krum_f: int = 0
     byzantine_clients: int = 0
     compress: str = "none"
+    # Not ported yet: each must stay at its default (_FED_ITEMS).
     personalize_steps: int = 0
     async_mode: bool = False
     async_arrival_rate: float = 0.5
@@ -203,12 +211,6 @@ class FedConfig:
 
 # FedConfig's knobs of paths not ported yet -> the ROADMAP item of each.
 _FED_ITEMS = {
-    **dict.fromkeys((
-        "scaffold", "server_opt", "server_lr", "server_momentum", "server_b1",
-        "server_b2", "server_tau", "dp_clip_norm", "dp_noise_multiplier",
-        "dp_seed", "dp_adaptive_clip", "dp_target_quantile", "dp_clip_lr",
-        "dp_count_noise_multiplier", "dp_delta", "robust_aggregation",
-        "trim_ratio", "krum_f", "byzantine_clients", "compress"), "A6"),
     "personalize_steps": "A7",
     **dict.fromkeys(("async_mode", "async_arrival_rate", "async_arrival_seed",
                      "async_staleness_power", "async_buffer_size"), "A8"),

@@ -34,6 +34,16 @@ def param_count(dims: Sequence[int]) -> int:
     return sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
 
 
+def leaf_bounds(dims: Sequence[int]) -> list:
+    """``(start, end)`` in the flat row of each of ``fedtpu``'s leaves, per
+    layer ``w`` then ``b`` (``unflatten``'s layout)."""
+    out, off = [], 0
+    for i, o in zip(dims[:-1], dims[1:]):
+        out += [(off, off + i * o), (off + i * o, off + i * o + o)]
+        off += i * o + o
+    return out
+
+
 def unflatten(flat: torch.Tensor, dims: Sequence[int]) -> dict:
     """Views ``{'layers': [{'w': (..., in, out), 'b': (..., out)}]}`` of a
     ``(..., D)`` buffer; writes through a view land in ``flat``."""

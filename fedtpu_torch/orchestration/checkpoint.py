@@ -2,7 +2,9 @@
 
 The full federated state is saved: per-client params, per-client optimizer
 state (Adam's moments are never averaged, so they are real per-client
-state) and the round counter, with the client-mean metric history. Files
+state), the server optimizer's state, SCAFFOLD's variates, the adaptive DP
+clip and the round counter, with the client-mean metric history and the
+privacy ledger's curve (``extra_meta``) in the meta file. Files
 are ``torch.save`` archives of CPU tensors, read back with
 ``torch.load(..., weights_only=True)``; one process writes them.
 
@@ -49,11 +51,13 @@ def _read(path: str):
 
 
 def save_checkpoint(directory: str, state: dict, history: dict,
-                    step: int) -> str:
-    """Write ``state`` and ``{history, step, num_clients}`` under
-    ``directory/round_<step>``. ``num_clients`` lives in the small meta
-    file, so elastic-resume detection reads no state. Empty metric lists
-    are dropped, as ``fedtpu`` drops them."""
+                    step: int, extra_meta: Optional[dict] = None) -> str:
+    """Write ``state`` and ``{history, step, num_clients, **extra_meta}``
+    under ``directory/round_<step>``. ``num_clients`` lives in the small
+    meta file, so elastic-resume detection reads no state. Empty metric
+    lists are dropped, as ``fedtpu`` drops them. ``extra_meta``: small
+    arrays and scalars (the privacy ledger's), numpy arrays stored as
+    tensors."""
     path = _ckpt_path(directory, step)
     os.makedirs(path, exist_ok=True)
     _write(_to_cpu(state), os.path.join(path, "state"))
@@ -61,6 +65,9 @@ def save_checkpoint(directory: str, state: dict, history: dict,
                         for k, v in history.items() if len(v)},
             "step": int(step),
             "num_clients": int(state["params"].shape[0])}
+    for k, v in (extra_meta or {}).items():
+        meta[k] = (torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray)
+                   else v)
     _write(meta, os.path.join(path, "meta"))
     return path
 
@@ -146,8 +153,9 @@ def _history(meta: dict) -> dict:
 
 
 def load_meta(directory: str, step: Optional[int] = None) -> dict:
-    """The meta file of a checkpoint (history, step, num_clients); the
-    newest complete one by default."""
+    """The meta file of a checkpoint (history, step, num_clients and the
+    ``extra_meta`` it was saved with); the newest complete one by
+    default."""
     if step is None:
         step = latest_step(directory)
         if step is None:

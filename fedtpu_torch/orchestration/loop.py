@@ -1,4 +1,4 @@
-"""Host round loop for the synchronous FedAvg path
+"""Host round loop for the synchronous engine
 (``fedtpu.orchestration.loop``).
 
 ``run_experiment`` keeps ``fedtpu``'s semantics for this path: chunks of
@@ -8,14 +8,21 @@ with an emergency checkpoint; early stopping with exactly the reference
 logic (``np.allclose`` of the client-mean metrics, ``atol=tolerance``,
 ``termination_patience`` rounds); periodic checkpoints with retention,
 resume (elastic to another client count too), the ``init_weights_npz``
-warm start, the ``metrics_jsonl`` log and ``pipelined_stop``.
+warm start, the ``metrics_jsonl`` log and ``pipelined_stop``; on the delta
+path the server optimizer's and the adaptive clip's state, SCAFFOLD's
+variates, and the DP privacy ledger (``fedtpu_torch.orchestration.
+privacy``), persisted in every checkpoint's meta and reported by
+``ExperimentResult.privacy_spent``.
 
 On the card each chunk is one replay of a CUDA graph of the round step
 (``fedtpu_torch.parallel.round.capture_round_step``; one graph per chunk
 width), the counterpart of ``fedtpu``'s jitted scan, and the host reads one
 buffer per chunk: its losses, confusion counts and the state's finiteness
-flag, computed on the device. ``capture=False`` runs the same step
-uncaptured (for comparison); on the CPU there is no graph.
+flag, computed on the device. What the step draws on the host (the
+participation masks, the DP noise) goes to the device before the replay:
+every round's masks once, up front; each chunk's noise as one pinned
+buffer. ``capture=False`` runs the same step uncaptured (for comparison);
+on the CPU there is no graph.
 
 Not ported (ROADMAP A11): fault injection, telemetry, the SIGTERM drain,
 ``on_divergence='rollback'`` and multi-process resume agreement.
@@ -43,16 +50,18 @@ from fedtpu_torch.data.tabular import Dataset, load_tabular_dataset
 from fedtpu_torch.models.mlp import layer_dims
 from fedtpu_torch.ops.metrics import METRIC_NAMES
 from fedtpu_torch.ops.optim import Optimizer, build_optimizer
+from fedtpu_torch.ops.server_opt import make_server_optimizer
 from fedtpu_torch.orchestration.checkpoint import (
     complete_steps, latest_step, load_checkpoint_fallback,
     load_checkpoint_raw, load_meta, retain_checkpoints, save_checkpoint,
     saved_num_clients)
+from fedtpu_torch.orchestration.privacy import PrivacyLedger
 from fedtpu_torch.parallel.mesh import ClientMesh, make_mesh
 from fedtpu_torch.parallel.round import (assemble_metrics, build_eval_fn,
                                          build_round_fn, capture_round_step,
-                                         global_params, init_federated_state,
-                                         pack_outputs, unpack_outputs,
-                                         warm_up_round)
+                                         check_knobs, global_params,
+                                         init_federated_state, pack_outputs,
+                                         unpack_outputs, warm_up_round)
 
 
 def resolve_device(device) -> torch.device:
@@ -98,11 +107,21 @@ class ExperimentResult:
     warmup_rounds: int = 0
     # Chunk width -> the kernel launches one replay of its graph makes.
     graph_launches: Dict[int, dict] = dataclasses.field(default_factory=dict)
+    # The privacy ledger's view of the released state (fedtpu's fields):
+    # the cumulative per-order RDP curve (None when DP noise is off), and
+    # its honesty flags (fedtpu_torch.orchestration.privacy).
+    dp_rdp_total: Optional[np.ndarray] = None
+    dp_base_assumed: bool = False
+    dp_guarantee_void: bool = False
+    dp_composed: bool = False
+    # Final adaptive clip norm; None when adaptive clipping is off.
+    final_dp_clip: Optional[float] = None
 
     def summary(self) -> dict:
         warm = max(1, self.config.run.rounds_per_step)
         steady = (self.sec_per_round[warm:] if len(self.sec_per_round) > warm
                   else self.sec_per_round or [0.0])
+        dp = self.privacy_spent()
         return {
             "rounds_run": self.rounds_run,
             "stopped_early": self.stopped_early,
@@ -110,7 +129,52 @@ class ExperimentResult:
             "final_global_metrics": {k: v[-1] for k, v in
                                      self.global_metrics.items() if v},
             "mean_sec_per_round": float(np.mean(steady)),
+            **({"dp": dp} if dp else {}),
+            **({"final_dp_clip": self.final_dp_clip}
+               if self.final_dp_clip is not None else {}),
         }
+
+    def privacy_spent(self) -> dict:
+        """(epsilon, delta) spent by this run's DP aggregation, as
+        ``fedtpu``'s ``ExperimentResult.privacy_spent``: empty when DP noise
+        was off and no earlier segment spent any; the client-level
+        subsampled Gaussian mechanism (q = participation_rate, sigma =
+        dp_noise_multiplier), one invocation per round the released state
+        trained through (``rounds_trained``: a pipelined stop's overshoot
+        chunk counts), composed over resumed segments by the RDP curve
+        (``fedtpu_torch.ops.dp_accountant``)."""
+        fed = self.config.fed
+        curve_spent = (self.dp_rdp_total is not None
+                       and bool(np.any(np.asarray(self.dp_rdp_total) > 0)))
+        if fed.dp_noise_multiplier <= 0 and not curve_spent:
+            return {}
+        from fedtpu_torch.ops.dp_accountant import (epsilon_from_rdp,
+                                                    privacy_spent)
+        steps = max(self.rounds_run, self.rounds_trained)
+        if self.dp_rdp_total is not None:
+            spent = epsilon_from_rdp(list(self.dp_rdp_total), fed.dp_delta)
+        else:
+            spent = privacy_spent(q=fed.participation_rate,
+                                  noise_multiplier=fed.dp_noise_multiplier,
+                                  steps=steps, delta=fed.dp_delta)
+        out = {"epsilon": spent["epsilon"], "delta": spent["delta"],
+               "rdp_order": spent["order"],
+               "noise_multiplier": fed.dp_noise_multiplier,
+               "sampling_rate": fed.participation_rate,
+               "rounds": steps}
+        if self.dp_composed:
+            # (sigma, q) above are the current segment's only.
+            out["composed_over_resumed_segments"] = True
+        if self.dp_guarantee_void:
+            # Unnoised rounds re-trained on the private data after noised
+            # ones: no finite (eps, delta) holds for the released model.
+            out["epsilon"] = math.inf
+            out["rdp_order"] = None
+            out["guarantee_void"] = ("rounds trained with noise off "
+                                     "after noised rounds")
+        if self.dp_base_assumed:
+            out["resume_rdp"] = "assumed_current_config"
+        return out
 
 
 @dataclasses.dataclass
@@ -149,44 +213,76 @@ def warm_start_params(path: str, dims: tuple) -> torch.Tensor:
 
 def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                      device="cuda", init_params=None,
-                     participation_masks=None) -> Experiment:
+                     participation_masks=None, dp_noise=None) -> Experiment:
     """Wire data -> device -> mesh -> model -> optimizer -> round factory.
 
     ``init_params``: a ``fedtpu`` client-stacked params pytree (numpy
     leaves) to start from instead of the seeded init; ``FedConfig.
     init_weights_npz`` then broadcasts its model into every slot over it.
     ``participation_masks``: round index -> ``(C,)`` mask, replacing the
-    port's own client-sampling draws (``build_round_fn``)."""
+    port's own client-sampling draws; ``dp_noise``: round index -> the
+    round's ``(D + 1,)`` unit normals, replacing the port's own DP noise
+    draws (``build_round_fn``)."""
     dev = resolve_device(device)
     ds = dataset if dataset is not None else load_tabular_dataset(cfg.data)
     dims = layer_dims(ds.input_dim, cfg.model.hidden_sizes, ds.num_classes)
     tx = build_optimizer(cfg.optim)
     packed = pack_clients(ds.x_train, ds.y_train, cfg.shard)
     num_clients = cfg.shard.num_clients
+    fed = cfg.fed
+
+    server = None
+    if fed.server_opt != "none":
+        server = make_server_optimizer(
+            fed.server_opt, learning_rate=fed.server_lr,
+            momentum=fed.server_momentum, b1=fed.server_b1, b2=fed.server_b2,
+            tau=fed.server_tau)
+    # fedtpu's refusals, before the state is built, and the delta path's
+    # server optimizer, decided once for the state and the round.
+    _, server, _, _ = check_knobs(
+        fed.weighting, fed.participation_rate, fed.aggregation, server,
+        fed.dp_clip_norm, fed.dp_noise_multiplier, fed.dp_adaptive_clip,
+        fed.dp_target_quantile, fed.dp_clip_lr,
+        fed.dp_count_noise_multiplier, fed.compress, fed.robust_aggregation,
+        fed.trim_ratio, fed.krum_f, fed.byzantine_clients, fed.scaffold)
 
     params = None if init_params is None else params_from_jax(init_params)
-    if cfg.fed.init_weights_npz:
-        params = warm_start_params(cfg.fed.init_weights_npz, dims).expand(
+    if fed.init_weights_npz:
+        params = warm_start_params(fed.init_weights_npz, dims).expand(
             num_clients, -1)
-    gen = torch.Generator().manual_seed(cfg.fed.init_seed)
+    gen = torch.Generator().manual_seed(fed.init_seed)
     state = init_federated_state(
-        gen, num_clients, dims, tx, same_init=cfg.fed.same_init,
-        device=dev, params=params)
+        gen, num_clients, dims, tx, same_init=fed.same_init,
+        device=dev, params=params, server_opt=server,
+        shared_start=fed.compress != "none", scaffold=fed.scaffold,
+        adaptive_clip_init=(fed.dp_clip_norm if fed.dp_adaptive_clip
+                            else None))
     batch = {"x": torch.from_numpy(packed.x).to(dev),
              "y": torch.from_numpy(packed.y).to(dev),
              "mask": torch.from_numpy(packed.mask).to(dev)}
     weights = (packed.counts.astype(np.float32)
-               if cfg.fed.weighting == "data_size"
+               if fed.weighting == "data_size"
                else np.ones(num_clients, np.float32))
     client_weights = torch.from_numpy(weights).to(dev)
     mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev)
     make_step = lambda r: build_round_fn(
         dims, tx, ds.num_classes, client_weights, rounds_per_step=r,
-        mesh=mesh, aggregation=cfg.fed.aggregation,
-        participation_rate=cfg.fed.participation_rate,
-        participation_seed=cfg.fed.participation_seed,
+        mesh=mesh, aggregation=fed.aggregation,
+        participation_rate=fed.participation_rate,
+        participation_seed=fed.participation_seed,
         participation_masks=participation_masks,
-        local_steps=cfg.fed.local_steps, prox_mu=cfg.fed.prox_mu)
+        local_steps=fed.local_steps, prox_mu=fed.prox_mu,
+        weighting=fed.weighting, server_opt=server,
+        dp_clip_norm=fed.dp_clip_norm,
+        dp_noise_multiplier=fed.dp_noise_multiplier, dp_seed=fed.dp_seed,
+        dp_adaptive_clip=fed.dp_adaptive_clip,
+        dp_target_quantile=fed.dp_target_quantile,
+        dp_clip_lr=fed.dp_clip_lr,
+        dp_count_noise_multiplier=fed.dp_count_noise_multiplier,
+        dp_noise=dp_noise, compress=fed.compress,
+        robust_aggregation=fed.robust_aggregation,
+        trim_ratio=fed.trim_ratio, krum_f=fed.krum_f,
+        byzantine_clients=fed.byzantine_clients, scaffold=fed.scaffold)
     return Experiment(make_step=make_step, state=state, batch=batch,
                       eval_step=build_eval_fn(dims, ds.num_classes),
                       dataset=ds, device=dev, dims=dims, mesh=mesh,
@@ -221,36 +317,59 @@ class _Fetch:
         return bool(self.get()[-1] > 0)
 
 
+def _state_layout(tree, prefix: str = "") -> dict:
+    """name -> shape of every tensor of a state (nested dicts flattened),
+    its round counter aside."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_state_layout(v, f"{prefix}{k}."))
+        elif isinstance(v, torch.Tensor):
+            out[prefix + k] = tuple(v.shape)
+    return out
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device).contiguous()
+    return tree
+
+
 def _restore_state(raw: dict, like: dict, device: torch.device) -> dict:
     """A saved state at the live client count onto ``device``, held to the
-    live state's layout (optimizer kind, shapes)."""
-    opt, live = raw["opt_state"], like["opt_state"]
-    if set(opt) != set(live) or any(
-            tuple(opt[k].shape) != tuple(live[k].shape) for k in live) or \
-            tuple(raw["params"].shape) != tuple(like["params"].shape):
+    live state's layout (optimizer kind, server optimizer, variates, clip,
+    shapes)."""
+    saved, live = _state_layout(raw), _state_layout(like)
+    if saved != live or ("shared_start" in raw) != ("shared_start" in like):
         raise ValueError(
             "resume mismatch: the checkpoint holds params "
             f"{tuple(raw['params'].shape)} and optimizer state "
-            f"{sorted(opt)}; the config builds params "
-            f"{tuple(like['params'].shape)} and {sorted(live)}")
-    return {"params": raw["params"].to(device).contiguous(),
-            "opt_state": {k: v.to(device).contiguous()
-                          for k, v in opt.items()},
-            "round": int(raw["round"])}
+            f"{sorted(raw['opt_state'])}; the config builds params "
+            f"{tuple(like['params'].shape)} and {sorted(like['opt_state'])} "
+            f"(state entries saved {sorted(saved)}, built {sorted(live)})")
+    state = _to_device({k: v for k, v in raw.items() if k != "round"},
+                       device)
+    state["round"] = int(raw["round"])
+    return state
 
 
 def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                    verbose: bool = True, device="cuda", init_params=None,
                    participation_masks=None, resume: bool = False,
-                   capture: Optional[bool] = None) -> ExperimentResult:
+                   capture: Optional[bool] = None,
+                   dp_noise=None) -> ExperimentResult:
     """Run the federated loop (see module docstring). ``resume``: continue
     from the newest checkpoint under ``run.checkpoint_dir`` (a fresh run
     into a directory that holds rounds raises). ``capture``: None runs
     every chunk as a CUDA graph replay on the card and the plain step on
-    the CPU; False runs the step uncaptured on the card too."""
+    the CPU; False runs the step uncaptured on the card too.
+    ``participation_masks`` and ``dp_noise``: ``build_experiment``'s."""
     exp = build_experiment(cfg, dataset, device=device,
                            init_params=init_params,
-                           participation_masks=participation_masks)
+                           participation_masks=participation_masks,
+                           dp_noise=dp_noise)
     dev = exp.device
     graphs_on = dev.type == "cuda" if capture is None else bool(capture)
     if graphs_on and dev.type != "cuda":
@@ -268,6 +387,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
 
     start_round = 0
     restored_history = None
+    restored_meta = None
     if (not resume and ckpt_dir and cfg.run.checkpoint_every
             and complete_steps(ckpt_dir)):
         # A fresh run here would let a later resume restore the stale
@@ -285,21 +405,37 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 ckpt_dir)
             state = _restore_state(raw, state, dev)
             say(f"Resumed from checkpoint at round {start_round}.")
+            # The ledger's curve comes from the round actually restored.
+            restored_meta = load_meta(ckpt_dir, step=start_round)
         else:
             # Elastic resume: a periodic checkpoint holds a post-average
             # state, every slot the global model; its mean over the slots
             # goes into every slot of the new count, and each client starts
             # fresh optimizer state (moments cannot be re-shaped across
-            # counts).
+            # counts). The server optimizer's state and the adaptive clip
+            # do not depend on the count and carry over; the per-client
+            # control variates restart at zero, like the moments.
             raw, restored_history, start_round = load_checkpoint_raw(ckpt_dir)
+            restored_meta = load_meta(ckpt_dir, step=start_round)
             g = raw["params"].numpy().mean(axis=0)
             params = torch.from_numpy(np.ascontiguousarray(
                 np.broadcast_to(g, (num_clients, g.shape[0])))).to(dev)
-            state = {"params": params, "opt_state": exp.tx.init(params),
-                     "round": start_round}
+            state = {**state, "params": params,
+                     "opt_state": exp.tx.init(params), "round": start_round}
+            for key in ("server_opt_state", "dp_clip"):
+                if key in raw and key in state:
+                    state[key] = _to_device(raw[key], dev)
+            cv_note = (", control variates reset to zero"
+                       if "client_cv" in state else "")
             say(f"Elastic resume at round {start_round}: "
                 f"{saved_num_clients(raw)} -> {num_clients} clients (global "
-                "model carried over, fresh client optimizer state).")
+                f"model carried over, fresh client optimizer state{cv_note}).")
+
+    # The DP RDP bookkeeping (fedtpu_torch.orchestration.privacy), written
+    # into every checkpoint's meta whether or not DP is on, so a DP-off
+    # resume carries the earlier segments' spend forward.
+    ledger = PrivacyLedger(cfg.fed, start_round=start_round,
+                           restored_meta=restored_meta)
 
     history = {k: [] for k in METRIC_NAMES}
     pooled_hist = {k: [] for k in METRIC_NAMES}
@@ -331,7 +467,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 best_saved = (acc_hist[s - 1], s)
 
     def save(directory: str, step: int) -> None:
-        save_checkpoint(directory, state, history, step)
+        save_checkpoint(directory, state, history, step,
+                        extra_meta=ledger.checkpoint_meta(step))
 
     def retain_after_save(step: int) -> None:
         nonlocal best_saved
@@ -367,10 +504,32 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     draw = get_step(chunk).draw_masks
     mask_table = (draw(0, cfg.fed.rounds).to(dev)
                   if draw is not None and cfg.fed.rounds > 0 else None)
+    draw_noise = get_step(chunk).draw_noise
+    noise_ahead: Dict[tuple, torch.Tensor] = {}
+
+    def chunk_noise(rnd: int, take: int) -> Optional[torch.Tensor]:
+        """The chunk's DP noise, drawn on the host (a pure function of the
+        seed and the rounds) and sent to the device from pinned memory;
+        drawn ahead, while the previous chunk runs, where it can be."""
+        if draw_noise is None:
+            return None
+        if (rnd, take) in noise_ahead:
+            return noise_ahead.pop((rnd, take))
+        host = draw_noise(rnd, take)
+        if dev.type == "cuda":
+            host = host.pin_memory()
+        return host.to(dev, non_blocking=True)
+
+    def draw_ahead(rnd: int) -> None:
+        noise_ahead.clear()
+        if draw_noise is not None and rnd < cfg.fed.rounds:
+            take = min(chunk, cfg.fed.rounds - rnd)
+            noise_ahead[(rnd, take)] = chunk_noise(rnd, take)
 
     def dispatch(rnd: int, take: int) -> _Fetch:
         nonlocal state, warmup_rounds
         masks = None if mask_table is None else mask_table[rnd:rnd + take]
+        noise = chunk_noise(rnd, take)
         if graphs_on:
             if take not in graphs:
                 if not graphs:
@@ -378,12 +537,14 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                     warmup_rounds = 1
                 graphs[take] = capture_round_step(get_step(take), state,
                                                   batch)
-            out = graphs[take](masks)
+            out = graphs[take](masks, noise)
             state["round"] = rnd + take
         else:
-            state, raw = get_step(take)(state, batch, masks)
+            state, raw = get_step(take)(state, batch, masks, noise)
             out = pack_outputs(raw)
-        return _Fetch(out)
+        fetch = _Fetch(out)
+        draw_ahead(rnd + take)
+        return fetch
 
     jsonl = open(cfg.run.metrics_jsonl, "a") if cfg.run.metrics_jsonl \
         else None
@@ -536,12 +697,33 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         if jsonl is not None:
             jsonl.close()
 
-    return ExperimentResult(
+    rounds_trained = int(state["round"])
+    result = ExperimentResult(
         global_metrics=history, pooled_metrics=pooled_hist,
         per_client_metrics=per_client_hist, test_metrics=test_hist,
         loss=losses, sec_per_round=sec_per_round, rounds_run=rounds_run,
         stopped_early=flags["stopped_early"],
         final_params=params_to_numpy(global_params(state), exp.dims),
         config=cfg, diverged=flags["diverged"], confusion=confusion,
-        rounds_trained=int(state["round"]), warmup_rounds=warmup_rounds,
-        graph_launches={w: dict(g.launches) for w, g in graphs.items()})
+        rounds_trained=rounds_trained, warmup_rounds=warmup_rounds,
+        graph_launches={w: dict(g.launches) for w, g in graphs.items()},
+        dp_rdp_total=ledger.rdp_at(rounds_trained),
+        dp_base_assumed=ledger.base_assumed,
+        dp_guarantee_void=ledger.void_at(rounds_trained),
+        dp_composed=ledger.composed,
+        final_dp_clip=(float(state["dp_clip"]) if "dp_clip" in state
+                       else None))
+    dp = result.privacy_spent()
+    if dp:
+        notes = ""
+        if dp.get("composed_over_resumed_segments"):
+            notes += ("; composed over resumed segments — sigma/q shown are "
+                      "the current segment's")
+        if dp.get("guarantee_void"):
+            notes += f"; GUARANTEE VOID: {dp['guarantee_void']}"
+        say(f"DP budget spent: epsilon={dp['epsilon']:.3f} at "
+            f"delta={dp['delta']:.1e} (noise multiplier "
+            f"{dp['noise_multiplier']}, sampling rate "
+            f"{dp['sampling_rate']}, {dp['rounds']} rounds; RDP order "
+            f"{dp['rdp_order']}{notes})")
+    return result

@@ -28,9 +28,11 @@ from fedtpu_torch.ops.optim import Optimizer, select_participants
 
 def make_local_train_step(dims: Sequence[int], tx: Optimizer,
                           local_steps: int = 1,
-                          prox_mu: float = 0.0) -> Callable:
-    """Returns ``step(params, opt_state, x, y, mask, part=None) -> (params,
-    opt_state, loss)``: params ``(C, D)``, x ``(C, N, in)``.
+                          prox_mu: float = 0.0,
+                          scaffold: bool = False) -> Callable:
+    """Returns ``step(params, opt_state, x, y, mask, part=None,
+    correction=None) -> (params, opt_state, loss)``: params ``(C, D)``, x
+    ``(C, N, in)``.
 
     ``local_steps`` full-batch updates (``fedtpu.training.client``): the
     optimizer's count, and with it the StepLR schedule and Adam's bias
@@ -43,7 +45,13 @@ def make_local_train_step(dims: Sequence[int], tx: Optimizer,
     the round's participation mask: a client at 0 keeps its params and
     optimizer state, count included, bit for bit across the E updates (its
     loss is still reported: as in ``fedtpu``, absentees train all E
-    steps and the result is dropped)."""
+    steps and the result is dropped). ``correction (C, D)``: SCAFFOLD's
+    drift correction ``c - c_i``, added to each raw gradient before the
+    optimizer sees it (Karimireddy et al. 2020's local rule, for any
+    optimizer). With ``scaffold`` the step also returns, fourth, the first
+    update's raw CE gradient ``(C, D)``: the gradient at the round-start
+    model that refreshes the variates (option I), since the prox term's
+    gradient is exactly 0 there and the correction comes after autograd."""
     if local_steps < 1:
         raise ValueError(f"local_steps must be >= 1, got {local_steps}")
     if prox_mu < 0:
@@ -51,7 +59,7 @@ def make_local_train_step(dims: Sequence[int], tx: Optimizer,
                          "(negative mu amplifies drift instead of bounding "
                          "it)")
 
-    def one(params, opt_state, x, y, mask, anchor):
+    def one(params, opt_state, x, y, mask, anchor, correction):
         p = params.detach().requires_grad_(True)
         with torch.enable_grad():
             ce = masked_cross_entropy(mlp_apply(unflatten(p, dims), x), y,
@@ -61,17 +69,24 @@ def make_local_train_step(dims: Sequence[int], tx: Optimizer,
                 objective = objective + 0.5 * prox_mu * torch.sum(
                     torch.square(p - anchor))
             (grads,) = torch.autograd.grad(objective, p)
+        raw = grads
+        if correction is not None:
+            grads = grads + correction
         new_params, opt_state = tx.update(grads, opt_state, params)
-        return new_params, opt_state, ce.detach()
+        return new_params, opt_state, ce.detach(), raw
 
-    def step(params, opt_state, x, y, mask, part=None):
+    def step(params, opt_state, x, y, mask, part=None, correction=None):
         anchor = params.detach()
         new_params, new_opt = params, opt_state
-        for _ in range(local_steps):
-            new_params, new_opt, loss = one(new_params, new_opt, x, y, mask,
-                                            anchor)
+        for i in range(local_steps):
+            new_params, new_opt, loss, raw = one(new_params, new_opt, x, y,
+                                                 mask, anchor, correction)
+            if i == 0:
+                first_grad = raw
         kept = select_participants(part, {"params": new_params, **new_opt},
                                    {"params": params, **opt_state})
+        if scaffold:
+            return kept.pop("params"), kept, loss, first_grad
         return kept.pop("params"), kept, loss
 
     return step

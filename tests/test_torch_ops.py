@@ -1,5 +1,7 @@
 """fedtpu_torch's model, loss, metrics and optimizers against fedtpu's on
-the same numpy inputs; the converter; the no-fallback and no-JAX rules."""
+the same numpy inputs; the server optimizers and the clip, the DP
+accountant, the int8 quantization and the finiteness flag over every state
+tensor; the converter; the no-fallback and no-JAX rules."""
 
 import pytest
 
@@ -21,20 +23,30 @@ import optax  # noqa: E402
 import fedtpu.config as jcfg  # noqa: E402
 from fedtpu.models.mlp import mlp_apply as j_apply, mlp_init as j_init  # noqa: E402
 from fedtpu.ops import build_optimizer as j_build_optimizer  # noqa: E402
+from fedtpu.ops import dp_accountant as j_acc  # noqa: E402
+from fedtpu.ops import server_opt as j_sopt  # noqa: E402
 from fedtpu.ops.losses import masked_cross_entropy as j_ce  # noqa: E402
 from fedtpu.ops.metrics import (confusion_matrix as j_conf,  # noqa: E402
                                 metrics_from_confusion as j_metrics)
+from fedtpu.parallel.compress import (dequantize as j_dequantize,  # noqa: E402
+                                      quantize_tensor as j_quantize_tensor)
 
 import fedtpu_torch.config as tcfg  # noqa: E402
 from fedtpu_torch import convert  # noqa: E402
-from fedtpu_torch.models.mlp import (flatten, layer_dims, mlp_apply,  # noqa: E402
-                                     mlp_init, param_count, unflatten)
+from fedtpu_torch.models.mlp import (flatten, layer_dims,  # noqa: E402
+                                     leaf_bounds, mlp_apply, mlp_init,
+                                     param_count, unflatten)
+from fedtpu_torch.ops import dp_accountant as t_acc  # noqa: E402
+from fedtpu_torch.ops import server_opt as t_sopt  # noqa: E402
 from fedtpu_torch.ops.losses import masked_cross_entropy  # noqa: E402
 from fedtpu_torch.ops.metrics import (METRIC_NAMES,  # noqa: E402
                                       confusion_matrix,
                                       metrics_from_confusion)
 from fedtpu_torch.ops.optim import (build_optimizer,  # noqa: E402
                                     select_participants)
+from fedtpu_torch.parallel import compress as t_compress  # noqa: E402
+from fedtpu_torch.parallel.round import (init_federated_state,  # noqa: E402
+                                         state_finite)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INCOME_DIMS = (14, 50, 200, 2)
@@ -42,6 +54,12 @@ INCOME_DIMS = (14, 50, 200, 2)
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def _flat_np(tree) -> np.ndarray:
+    """A fedtpu params-shaped pytree as the port's flat rows, its leaves
+    mapped by name."""
+    return convert.params_from_jax(_np_tree(tree)).numpy()
 
 
 def _stacked_jax_params(key, c, dims):
@@ -285,10 +303,11 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(personalize_steps=1), dict(byzantine_clients=1),
-    dict(dp_noise_multiplier=1.0),
-    dict(scaffold=True), dict(server_opt="fedadam"), dict(dp_clip_norm=1.0),
-    dict(robust_aggregation="median"), dict(compress="int8"),
+    dict(personalize_steps=1), dict(async_buffer_size=2),
+    dict(async_arrival_rate=0.9),
+    dict(async_staleness_power=1.0), dict(client_store="sqlite"),
+    dict(cohort_seed=1), dict(cohort_sampling="weighted"),
+    dict(cohort_trace="t.jsonl"),
     dict(async_mode=True), dict(cohort_size=4)])
 def test_unported_knobs_raise_naming_their_roadmap_item(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -306,13 +325,6 @@ _UNPORTED = {
                                       "param_dtype", "compute_dtype")},
     "FedConfig": {
         "personalize_steps": "A7",
-        **{k: "A6" for k in (
-            "scaffold", "server_opt", "server_lr", "server_momentum",
-            "server_b1", "server_b2", "server_tau", "dp_clip_norm",
-            "dp_noise_multiplier", "dp_seed", "dp_adaptive_clip",
-            "dp_target_quantile", "dp_clip_lr", "dp_count_noise_multiplier",
-            "dp_delta", "robust_aggregation", "trim_ratio", "krum_f",
-            "byzantine_clients", "compress")},
         **{k: "A8" for k in ("async_mode", "async_arrival_rate",
                              "async_arrival_seed", "async_staleness_power",
                              "async_buffer_size")},
@@ -328,6 +340,28 @@ _UNPORTED = {
             "rollback_retries", "rollback_exclude", "rollback_perturb",
             "heartbeat_file")}},
 }
+
+
+# The knobs of the rest of the synchronous round, which the port runs:
+# server optimizers, central DP, robust rules, Byzantine injection,
+# SCAFFOLD and the int8 exchange.
+_A6_KNOBS = (
+    "scaffold", "server_opt", "server_lr", "server_momentum", "server_b1",
+    "server_b2", "server_tau", "dp_clip_norm", "dp_noise_multiplier",
+    "dp_seed", "dp_adaptive_clip", "dp_target_quantile", "dp_clip_lr",
+    "dp_count_noise_multiplier", "dp_delta", "robust_aggregation",
+    "trim_ratio", "krum_f", "byzantine_clients", "compress")
+
+
+@pytest.mark.parametrize("knob", _A6_KNOBS)
+def test_round_knobs_take_other_values(knob):
+    """Each knob of the rest of the round constructs off its default, as
+    fedtpu's FedConfig does (its refusals come from build_round_fn,
+    tests/test_torch_server_opt.py)."""
+    field = {f.name: f for f in dataclasses.fields(tcfg.FedConfig)}[knob]
+    value = _other_value(_default(field))
+    assert getattr(tcfg.FedConfig(**{knob: value}), knob) == value
+    assert getattr(jcfg.FedConfig(**{knob: value}), knob) == value
 
 
 def _default(field):
@@ -404,7 +438,7 @@ def test_ported_knobs_take_other_values():
                               "tolerance", "same_init", "init_seed",
                               "participation_rate", "participation_seed",
                               "aggregation", "local_steps", "prox_mu",
-                              "init_weights_npz"},
+                              "init_weights_npz", *_A6_KNOBS},
                 "RunConfig": {"log_every", "log_per_client",
                               "rounds_per_step", "eval_test_every",
                               "halt_on_nonfinite", "mesh_devices",
@@ -492,6 +526,121 @@ def test_flops_floor_and_force_fetch():
         assert_above_flops_floor(4e-4, 1e9, 1e12, label="fused")
     assert force_fetch(torch.arange(4.0).reshape(2, 2)) == 3.0
     assert force_fetch(torch.zeros(0)) == 0.0
+
+
+# ------------------------------------------- server optimizers and clip
+def _layers(gen, dims, lead=()):
+    return {"layers": [{"w": gen.standard_normal(lead + (i, o)).astype(
+        np.float32), "b": gen.standard_normal(lead + (o,)).astype(np.float32)}
+        for i, o in zip(dims[:-1], dims[1:])]}
+
+
+@pytest.mark.parametrize("name", t_sopt.SERVER_OPTIMIZERS)
+def test_server_optimizer_updates_match_fedtpus(name):
+    """Five updates on random deltas against fedtpu's optimizer (its
+    pytree mapped onto the flat layout by name): steps and state within
+    1e-6 relative."""
+    gen = np.random.default_rng(3)
+    dims = (5, 4, 3)
+    kw = dict(learning_rate=0.3, momentum=0.7, b1=0.8, b2=0.95, tau=1e-2)
+    j_opt = j_sopt.make_server_optimizer(name, **kw)
+    t_opt = t_sopt.make_server_optimizer(name, **kw)
+    g = _layers(gen, dims)
+    js, ts = j_opt.init(g), t_opt.init(torch.from_numpy(_flat_np(g)))
+    for _ in range(5):
+        d = _layers(gen, dims)
+        j_step, js = j_opt.update(jax.tree.map(np.asarray, d), js)
+        t_step, ts = t_opt.update(torch.from_numpy(_flat_np(d)), ts)
+        np.testing.assert_allclose(t_step.numpy(), _flat_np(j_step),
+                                   rtol=1e-6, atol=1e-7)
+        for k in ts:
+            np.testing.assert_allclose(ts[k].numpy(), _flat_np(js[k]),
+                                       rtol=1e-6, atol=1e-7)
+
+
+def test_unknown_server_optimizer_is_fedtpus_error():
+    with pytest.raises(ValueError) as j_err:
+        j_sopt.make_server_optimizer("adam")
+    with pytest.raises(ValueError) as t_err:
+        t_sopt.make_server_optimizer("adam")
+    assert str(t_err.value) == str(j_err.value)
+
+
+@pytest.mark.parametrize("clip", [0.5, 5.0, 1e3])
+def test_clip_by_global_norm_matches_fedtpus(clip):
+    """One joint L2 norm per client over all of its leaves (fedtpu's norm
+    over the pytree equals the norm over the flat row)."""
+    gen = np.random.default_rng(4)
+    d = _layers(gen, (6, 5, 2), lead=(4,))
+    j_clipped, j_norms = j_sopt.clip_by_global_norm(d, clip)
+    t_clipped, t_norms = t_sopt.clip_by_global_norm(
+        torch.from_numpy(_flat_np(d)), clip)
+    np.testing.assert_allclose(t_norms.numpy(), np.asarray(j_norms),
+                               rtol=1e-6)
+    np.testing.assert_allclose(t_clipped.numpy(), _flat_np(j_clipped),
+                               rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------------------- DP accountant
+@pytest.mark.parametrize("q,z,steps", [(1.0, 1.1, 50), (0.5, 0.8, 300),
+                                       (0.01, 2.0, 10_000), (0.3, 0.4, 7)])
+def test_accountant_matches_fedtpus(q, z, steps):
+    assert t_acc.privacy_spent(q, z, steps, 1e-5) == j_acc.privacy_spent(
+        q, z, steps, 1e-5)
+    assert t_acc.rdp_vector(q, z) == j_acc.rdp_vector(q, z)
+    curve = [r * steps for r in t_acc.rdp_vector(q, z)]
+    assert t_acc.epsilon_from_rdp(curve, 1e-6) == j_acc.epsilon_from_rdp(
+        curve, 1e-6)
+    assert t_acc.DEFAULT_ORDERS == j_acc.DEFAULT_ORDERS
+
+
+# ------------------------------------------------- the finiteness flag
+FLAG_TENSORS = ("params", "mu", "nu", "m", "v", "client_cv", "server_cv",
+                "dp_clip")
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("name", FLAG_TENSORS)
+def test_state_finite_covers_every_state_tensor(name, bad):
+    """state_finite covers what fedtpu's state_poisoned covers
+    (loop.py:1173-1181): params, Adam, the server optimizer state, both
+    control variates and the adaptive clip."""
+    dims = layer_dims(6, (5,), 2)
+    state = init_federated_state(
+        torch.Generator().manual_seed(0), 3, dims,
+        build_optimizer(tcfg.OptimConfig()),
+        server_opt=t_sopt.make_server_optimizer("fedadam"), scaffold=True,
+        adaptive_clip_init=1.0)
+    assert bool(state_finite(state))
+    where = {"params": state, "mu": state["opt_state"],
+             "nu": state["opt_state"], "m": state["server_opt_state"],
+             "v": state["server_opt_state"], "client_cv": state,
+             "server_cv": state, "dp_clip": state}[name]
+    where[name] = where[name].clone()
+    where[name].view(-1)[-1] = bad
+    assert not bool(state_finite(state))
+
+
+# ------------------------------------------------- int8 quantization
+def test_int8_quantization_matches_fedtpus_per_leaf():
+    """One scale per leaf (each layer's w and b), fedtpu's
+    quantize_tensor / dequantize on each leaf of the same partial sums."""
+    gen = np.random.default_rng(5)
+    x = gen.standard_normal((3, 394)).astype(np.float32)
+    x[1, 224:240] = 0.0            # an all-zero leaf: scale 0, exact zeros
+    bounds = leaf_bounds((14, 16, 8, 2))
+    q, scales = t_compress.quantize_leaves(torch.from_numpy(x), bounds)
+    for s in range(3):
+        for j, (a, b) in enumerate(bounds):
+            jq, js = j_quantize_tensor(x[s, a:b])
+            np.testing.assert_array_equal(q[s, a:b].numpy(), np.asarray(jq))
+            assert float(scales[s, j]) == float(js)
+    back = t_compress.dequantize(q, scales, bounds)
+    for j, (a, b) in enumerate(bounds):
+        jq, js = jax.vmap(j_quantize_tensor)(x[:, a:b])
+        np.testing.assert_array_equal(back[:, a:b].numpy(),
+                                      np.asarray(j_dequantize(jq, js)))
+    assert not back[1, 224:240].any()
 
 
 _FORBIDDEN = {"jax", "jaxlib", "optax", "pandas", "sklearn", "fedtpu"}

@@ -6,7 +6,11 @@ mesh) and sampled rounds must match fedtpu's round for round, with E local
 steps and FedProx too; the fused whole round (K5's plain version) must match
 both fedtpu's round and the port's composed one; and the rest of the
 synchronous run (a CSV, the pipelined stop, the warm start, checkpoints and
-resume, the metrics log, the CLI flags) must do what fedtpu's does."""
+resume, the metrics log, the CLI flags) must do what fedtpu's does; and the
+rest of the synchronous round (the server optimizers, SCAFFOLD, central DP
+with its privacy ledger, the robust rules under Byzantine clients, the int8
+exchange, every knob combination fedtpu refuses) must match fedtpu's
+build_round_fn round for round and its run_experiment run for run."""
 
 import pytest
 
@@ -18,7 +22,9 @@ torch.set_num_threads(1)
 
 import argparse  # noqa: E402
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -27,20 +33,29 @@ import numpy as np  # noqa: E402
 import fedtpu.config as jcfg  # noqa: E402
 from fedtpu.models import build_model  # noqa: E402
 from fedtpu.ops import build_optimizer  # noqa: E402
+from fedtpu.ops import dp_accountant as j_acc  # noqa: E402
+from fedtpu.ops.server_opt import gaussian_noise_tree  # noqa: E402
 from fedtpu.orchestration.loop import (build_experiment as j_build,  # noqa: E402
                                        run_experiment as j_run)
+from fedtpu.orchestration.privacy import PrivacyLedger as JLedger  # noqa: E402
+from fedtpu.parallel.round import (_DP_COUNT_STREAM,  # noqa: E402
+                                   _DP_NOISE_STREAM)
 from fedtpu.training.client import (make_local_eval_step,  # noqa: E402
                                     make_local_train_step)
 
 import fedtpu_torch.config as tcfg  # noqa: E402
 from fedtpu_torch import convert  # noqa: E402
 from fedtpu_torch.benchmarks import mega_kernel_attempt as mega  # noqa: E402
-from fedtpu_torch.models.mlp import mlp_init  # noqa: E402
+from fedtpu_torch.models.mlp import leaf_bounds, mlp_init  # noqa: E402
 from fedtpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from fedtpu_torch.ops.metrics import (METRIC_NAMES,  # noqa: E402
                                       metrics_from_confusion)
-from fedtpu_torch.orchestration.loop import (build_experiment as t_build,  # noqa: E402
+from fedtpu_torch.orchestration import checkpoint as ckpt  # noqa: E402
+from fedtpu_torch.orchestration.loop import (_restore_state,  # noqa: E402
+                                             build_experiment as t_build,
                                              run_experiment as t_run)
+from fedtpu_torch.orchestration.privacy import PrivacyLedger as TLedger  # noqa: E402
+from fedtpu_torch.parallel import round as t_round  # noqa: E402
 
 ROWS = 512
 ROUNDS = 80
@@ -285,8 +300,15 @@ def _sharded_configs(aggregation, rate=1.0, rounds=3, rows=512,
 def _fedtpu_masks(cfg):
     """fedtpu's participation draws, recomputed as round.py:533-538 makes
     them: uniform(fold_in(fold_in(key(seed), round), client)) < rate."""
-    seed, rate = cfg.fed.participation_seed, cfg.fed.participation_rate
-    clients = jnp.arange(cfg.shard.num_clients)
+    return _mask_draws(cfg.fed.participation_seed,
+                       cfg.fed.participation_rate, cfg.shard.num_clients)
+
+
+@functools.lru_cache(maxsize=None)
+def _mask_draws(seed, rate, num_clients):
+    """One jitted draw per (seed, rate, client count): a worker compiles
+    each once."""
+    clients = jnp.arange(num_clients)
 
     @jax.jit
     def draw(r):
@@ -308,28 +330,51 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _step_both(j_cfg, t_cfg, rounds, masks=None, j_losses=None):
-    """Step fedtpu's and the port's round side by side; yields per round
-    (fedtpu state, port state, port raw, fedtpu's pre-average confusion
-    recomputed from its own train/eval steps). ``j_losses``: a list that
-    takes fedtpu's per-round losses."""
-    j_exp = j_build(j_cfg)
+def _flat(tree) -> np.ndarray:
+    """A fedtpu params-shaped pytree in the port's flat layout (numpy),
+    leaves mapped by name."""
+    return convert.params_from_jax(_np(tree)).numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _fedtpu_local_steps(local_steps, prox_mu, scaffold):
+    """fedtpu's jitted train and eval steps of ``_sharded_configs``' model,
+    vmapped over clients; one pair per knob set, so a worker compiles each
+    once."""
     _, apply_fn = build_model(jcfg.ModelConfig(hidden_sizes=(16, 8)))
     train = jax.jit(jax.vmap(make_local_train_step(
         apply_fn, build_optimizer(jcfg.OptimConfig()),
-        local_steps=j_cfg.fed.local_steps, prox_mu=j_cfg.fed.prox_mu)))
-    evaluate = jax.jit(jax.vmap(make_local_eval_step(apply_fn, 2)))
+        local_steps=local_steps, prox_mu=prox_mu, scaffold=scaffold)))
+    return train, jax.jit(jax.vmap(make_local_eval_step(apply_fn, 2)))
+
+
+def _step_both(j_cfg, t_cfg, rounds, masks=None, j_losses=None,
+               j_trained=None, j_exp=None, **t_kw):
+    """Step fedtpu's and the port's round side by side; yields per round
+    (fedtpu state, port state, port raw, fedtpu's pre-average confusion
+    recomputed from its own train/eval steps, with SCAFFOLD's correction
+    under ``scaffold``). ``j_losses`` / ``j_trained``: lists that take
+    fedtpu's per-round losses / trained (pre-average) params. ``j_exp``:
+    fedtpu's experiment, built from ``j_cfg`` when not given. ``t_kw``: more
+    arguments of the port's ``build_experiment`` (``dp_noise``)."""
+    j_exp = j_build(j_cfg) if j_exp is None else j_exp
+    scaffold = j_cfg.fed.scaffold
+    train, evaluate = _fedtpu_local_steps(j_cfg.fed.local_steps,
+                                          j_cfg.fed.prox_mu, scaffold)
     xb, yb, mb = (j_exp.batch[k] for k in ("x", "y", "mask"))
     j_state, j_step = j_exp.state, j_exp.make_step(1)
     t_exp = t_build(t_cfg, device="cpu", init_params=_np(j_state["params"]),
-                    participation_masks=masks)
+                    participation_masks=masks, **t_kw)
     assert (t_exp.mesh.num_shards, t_exp.mesh.clients_per_shard) == (8, 2)
     t_state, t_step = t_exp.state, t_exp.make_step(1)
     for r in range(rounds):
         prev_p, prev_s = _np(j_state["params"]), _np(j_state["opt_state"])
+        corr = (jax.tree.map(lambda c, ci: c[None] - ci,
+                             _np(j_state["server_cv"]),
+                             _np(j_state["client_cv"])),) if scaffold else ()
         j_state, _ = j_step(j_state, j_exp.batch)
         t_state, raw = t_step(t_state, t_exp.batch)
-        trained, _, j_loss = train(prev_p, prev_s, xb, yb, mb)
+        trained, _, j_loss = train(prev_p, prev_s, xb, yb, mb, *corr)
         if j_losses is not None:
             j_losses.append(np.asarray(j_loss))
         if masks is not None:
@@ -337,6 +382,8 @@ def _step_both(j_cfg, t_cfg, rounds, masks=None, j_losses=None):
             trained = jax.tree.map(
                 lambda a, b: np.where(keep.reshape((-1,) + (1,) * (a.ndim - 1)),
                                       a, b), _np(trained), prev_p)
+        if j_trained is not None:
+            j_trained.append(_np(trained))
         yield j_state, t_state, raw, np.asarray(evaluate(trained, xb, yb, mb))
 
 
@@ -632,6 +679,21 @@ def test_fused_round_refuses_local_steps_and_fedprox(field, kw):
         mega.run(t_cfg.replace(fed=dataclasses.replace(t_cfg.fed, **kw)),
                  device="cpu", rounds=1)
     ck.fused_round(*args)      # the defaults are what K5 computes
+
+
+@pytest.mark.parametrize("field,value", [
+    ("server_opt", "fedadam"), ("dp_clip_norm", 1.0),
+    ("dp_noise_multiplier", 1.0), ("dp_adaptive_clip", True),
+    ("robust_aggregation", "median"), ("byzantine_clients", 2),
+    ("scaffold", True), ("compress", "int8")])
+def test_fused_round_refuses_the_other_aggregation_branches(field, value):
+    """K5 computes plain FedAvg: its benchmark refuses a server optimizer,
+    DP, a robust rule, Byzantine injection, SCAFFOLD and the int8
+    exchange, naming the field, before it builds anything."""
+    _, t_cfg = _configs()
+    cfg = t_cfg.replace(fed=dataclasses.replace(t_cfg.fed, **{field: value}))
+    with pytest.raises(ValueError, match=f"fed.{field}="):
+        mega.run(cfg, device="cpu", rounds=1)
 
 
 # ------------------------------------------------------ the CSV, end to end
@@ -1081,6 +1143,648 @@ def test_packed_outputs_round_trip():
         assert torch.equal(out["loss"], loss)
         assert torch.equal(out["conf"], conf)
         assert out["finite"] is finite
+
+
+# ------------------------------------ server optimizers and SCAFFOLD
+# Adaptive server optimizers divide by sqrt(v) + tau (tau = 1e-3), which
+# amplifies float32 differences of the deltas: over 3 rounds at server_lr
+# 0.05 the params were measured within 7.8e-7 of fedtpu's (fedadam under
+# sampling; 1.6e-7 to 4.2e-7 unsampled) and the server moments within
+# 7.2e-9; held at 2e-6.
+ADAPTIVE_ATOL = 2e-6
+SERVER_LR = {"fedavgm": 1.0, "fedadagrad": 0.05, "fedyogi": 0.05,
+             "fedadam": 0.05}
+
+
+def _assert_server_state(j_state, t_state, atol):
+    for k, v in t_state["server_opt_state"].items():
+        np.testing.assert_allclose(
+            v.numpy(), _flat(j_state["server_opt_state"][k]), rtol=0,
+            atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("name,rate", [
+    ("fedavgm", 1.0), ("fedadagrad", 1.0), ("fedyogi", 1.0),
+    ("fedadam", 1.0), ("fedadam", 0.5)])
+def test_server_optimizer_rounds_match_fedtpu(name, rate):
+    """3 rounds against fedtpu's build_round_fn (its masks injected under
+    sampling): confusion counts equal, params and server state within
+    1e-5 (fedavgm) or ADAPTIVE_ATOL, every slot the server model."""
+    atol = 1e-5 if name == "fedavgm" else ADAPTIVE_ATOL
+    j_cfg, t_cfg = _sharded_configs("psum", rate=rate, server_opt=name,
+                                    server_lr=SERVER_LR[name])
+    masks = _fedtpu_masks(j_cfg) if rate < 1.0 else None
+    for j_state, t_state, raw, j_conf in _step_both(j_cfg, t_cfg, 3, masks):
+        np.testing.assert_array_equal(raw["conf"][0].numpy(), j_conf)
+        p = t_state["params"]
+        np.testing.assert_allclose(p.numpy(), _flat(j_state["params"]),
+                                   rtol=0, atol=atol)
+        assert torch.equal(p, p[:1].expand_as(p))
+        _assert_server_state(j_state, t_state, atol)
+    assert set(t_state["server_opt_state"]) == (
+        {"m"} if name == "fedavgm" else {"m", "v"})
+
+
+def test_zero_participant_round_holds_model_and_momentum():
+    """fedavgm under sampling with no participant in either round: the
+    server model and its momentum carry over on both sides
+    (round.py:691-701), decided on the device."""
+    j_cfg, t_cfg = _sharded_configs("psum", rate=1e-9, rounds=2,
+                                    server_opt="fedavgm")
+    masks = _fedtpu_masks(j_cfg)
+    assert masks(0).sum() == masks(1).sum() == 0
+    start = None
+    for j_state, t_state, raw, j_conf in _step_both(j_cfg, t_cfg, 2, masks):
+        np.testing.assert_array_equal(raw["conf"][0].numpy(), j_conf)
+        start = t_state["params"] if start is None else start
+        assert torch.equal(t_state["params"], start)
+        assert not t_state["server_opt_state"]["m"].any()
+        # The start g0 is each side's mean of the inits (an ulp apart).
+        np.testing.assert_allclose(t_state["params"].numpy(),
+                                   _flat(j_state["params"]), rtol=0,
+                                   atol=1e-7)
+
+
+def test_fedavgm_without_momentum_is_plain_fedavg():
+    """fedavgm(momentum=0, lr=1) from the shared start: the same confusion
+    counts as plain FedAvg from that start, params within 1e-5."""
+    _, t_avg = _sharded_configs("psum", rounds=3)
+    _, t_m = _sharded_configs("psum", rounds=3, server_opt="fedavgm",
+                              server_momentum=0.0, server_lr=1.0)
+    j_cfg, _ = _sharded_configs("psum", server_opt="fedavgm")
+    start = _np(j_build(j_cfg).state["params"])
+    runs = []
+    for cfg in (t_avg, t_m):
+        exp = t_build(cfg, device="cpu", init_params=start)
+        state, step, out = exp.state, exp.make_step(1), []
+        for _ in range(3):
+            state, raw = step(state, exp.batch)
+            out.append((state["params"], raw["conf"]))
+        runs.append(out)
+    for (p_avg, c_avg), (p_m, c_m) in zip(*runs):
+        assert torch.equal(c_avg, c_m)
+        np.testing.assert_allclose(p_m.numpy(), p_avg.numpy(), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [1.0, 0.5], ids=["all", "sampled"])
+def test_scaffold_rounds_match_fedtpu(rate):
+    """SCAFFOLD (uniform weights, 3 local steps so the correction acts)
+    against fedtpu's build_round_fn: confusion counts equal; params, both
+    variates and the server state within 1e-5; absentees keep their
+    variate, and the server variate stays the mean of the clients'."""
+    j_cfg, t_cfg = _sharded_configs("psum", rate=rate, weighting="uniform",
+                                    scaffold=True, local_steps=3)
+    masks = _fedtpu_masks(j_cfg) if rate < 1.0 else None
+    prev = None
+    for r, (j_state, t_state, raw, j_conf) in enumerate(
+            _step_both(j_cfg, t_cfg, 3, masks)):
+        np.testing.assert_array_equal(raw["conf"][0].numpy(), j_conf)
+        for key in ("params", "client_cv", "server_cv"):
+            np.testing.assert_allclose(t_state[key].numpy(),
+                                       _flat(j_state[key]), rtol=0,
+                                       atol=1e-5, err_msg=key)
+        _assert_server_state(j_state, t_state, 1e-5)
+        np.testing.assert_allclose(t_state["server_cv"].numpy(),
+                                   t_state["client_cv"].mean(dim=0).numpy(),
+                                   rtol=0, atol=1e-6)
+        if masks is not None and prev is not None:
+            out = torch.from_numpy(masks(r) == 0)
+            assert out.any()
+            assert torch.equal(t_state["client_cv"][out],
+                               prev["client_cv"][out])
+        prev = t_state
+
+
+# ------------------------------------------------ refusals, fedtpu's text
+def _knob_configs(kw: dict):
+    """``_sharded_configs`` with FedConfig knobs, the aggregation and the
+    participation rate among them."""
+    kw = dict(kw)
+    return _sharded_configs(kw.pop("aggregation", "psum"),
+                            rate=kw.pop("participation_rate", 1.0), **kw)
+
+
+def _build_error(build, cfg, **kw) -> str:
+    with pytest.raises(ValueError) as err:
+        exp = build(cfg, **kw)
+        exp.make_step(1)(exp.state, exp.batch)
+    return str(err.value)
+
+
+REFUSED = {
+    "noise without clip": dict(dp_noise_multiplier=1.0),
+    "adaptive without clip": dict(dp_adaptive_clip=True),
+    "scaffold data_size": dict(scaffold=True),
+    "scaffold + DP": dict(scaffold=True, weighting="uniform",
+                          dp_clip_norm=1.0),
+    "scaffold + int8": dict(scaffold=True, weighting="uniform",
+                            compress="int8"),
+    "scaffold + ring": dict(scaffold=True, weighting="uniform",
+                            aggregation="ring"),
+    "scaffold + byzantine": dict(scaffold=True, weighting="uniform",
+                                 byzantine_clients=1),
+    "server opt + ring": dict(server_opt="fedadam", aggregation="ring"),
+    "unknown server opt": dict(server_opt="adam"),
+    "quantile": dict(dp_clip_norm=1.0, dp_adaptive_clip=True,
+                     dp_target_quantile=1.0),
+    "clip lr": dict(dp_clip_norm=1.0, dp_adaptive_clip=True, dp_clip_lr=0.0),
+    "count noise too small": dict(
+        dp_clip_norm=1.0, dp_adaptive_clip=True, dp_noise_multiplier=1.0,
+        dp_count_noise_multiplier=0.4, weighting="uniform"),
+    "count noise without noise": dict(dp_clip_norm=1.0, dp_adaptive_clip=True,
+                                      dp_count_noise_multiplier=1.0),
+    "count noise without adaptive": dict(dp_count_noise_multiplier=1.0),
+    "adaptive + int8": dict(dp_clip_norm=1.0, dp_adaptive_clip=True,
+                            compress="int8"),
+    "fixed denominator data_size": dict(dp_clip_norm=1.0,
+                                        participation_rate=0.5),
+    "noise data_size": dict(dp_clip_norm=1.0, dp_noise_multiplier=1.0),
+    "unknown compress": dict(compress="zstd"),
+    "int8 + server opt": dict(compress="int8", server_opt="fedavgm"),
+    "int8 + ring": dict(compress="int8", aggregation="ring"),
+    "unknown robust rule": dict(robust_aggregation="mean"),
+    "robust + server opt": dict(robust_aggregation="median",
+                                weighting="uniform", server_opt="fedavgm"),
+    "krum sampled": dict(robust_aggregation="krum", weighting="uniform",
+                         participation_rate=0.5),
+    "geometric median sampled": dict(robust_aggregation="geometric_median",
+                                     weighting="uniform",
+                                     participation_rate=0.5),
+    "robust data_size": dict(robust_aggregation="median"),
+    "trim ratio": dict(trim_ratio=0.5),
+    "krum f": dict(krum_f=-1),
+    "byzantine count": dict(byzantine_clients=-1),
+    "trim removes all": dict(robust_aggregation="trimmed_mean",
+                             weighting="uniform", trim_ratio=0.49),
+    "krum too few clients": dict(robust_aggregation="krum",
+                                 weighting="uniform", krum_f=7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_refused_combinations_raise_fedtpus_message(case):
+    """Each knob combination fedtpu refuses (its loop, build_round_fn or its
+    first trace) raises ValueError in the port with the same text."""
+    j_cfg, t_cfg = _knob_configs(REFUSED[case])
+    j_msg = _build_error(j_build, j_cfg)
+    assert _build_error(t_build, t_cfg, device="cpu") == j_msg
+
+
+STATE_MISMATCH = [
+    ("delta step, plain state", dict(server_opt="fedavgm"), {}),
+    ("plain step, delta state", {}, dict(server_opt="fedavgm")),
+    ("int8 step, unshared state", dict(compress="int8"), {}),
+    ("scaffold step, no variates",
+     dict(scaffold=True, weighting="uniform"),
+     dict(server_opt="fedavgm", weighting="uniform")),
+    ("delta step, variates", dict(server_opt="fedavgm", weighting="uniform"),
+     dict(scaffold=True, weighting="uniform")),
+    ("adaptive step, no clip", dict(dp_clip_norm=1.0, dp_adaptive_clip=True),
+     dict(dp_clip_norm=1.0)),
+    ("clip step, adaptive state", dict(dp_clip_norm=1.0),
+     dict(dp_clip_norm=1.0, dp_adaptive_clip=True))]
+
+
+@pytest.mark.parametrize("case,step_kw,state_kw", STATE_MISMATCH,
+                         ids=[c[0] for c in STATE_MISMATCH])
+def test_state_of_another_round_fn_is_fedtpus_error(case, step_kw, state_kw):
+    """A state built for one set of knobs, stepped by a round function of
+    another (round.py:910-949): the same error on both sides."""
+    msgs = []
+    for build, mod, kw in ((j_build, jcfg, {}), (t_build, tcfg,
+                                                 dict(device="cpu"))):
+        j_or_t = 0 if mod is jcfg else 1
+        step_cfg = _knob_configs(step_kw)[j_or_t]
+        state_cfg = _knob_configs(state_kw)[j_or_t]
+        step = build(step_cfg, **kw)
+        with pytest.raises(ValueError) as err:
+            step.make_step(1)(build(state_cfg, **kw).state, step.batch)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+
+
+# ------------------------------------------------------------ central DP
+DP_CLIP = 0.05       # below the clients' first-round update norms (~0.08)
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def _fedtpu_noise_draw(seed, template, r):
+    key = jax.random.key(seed)
+    delta = gaussian_noise_tree(jax.random.fold_in(
+        jax.random.fold_in(key, _DP_NOISE_STREAM), r), template, 1.0)
+    count = jax.random.normal(jax.random.fold_in(
+        jax.random.fold_in(key, _DP_COUNT_STREAM), r))
+    return delta, count
+
+
+def _fedtpu_noise(j_cfg):
+    """fedtpu's unit-normal draws of a round (round.py:631-642, :673-677),
+    mapped onto the port's flat layout by name: the delta noise of
+    fold_in(fold_in(key(dp_seed), _DP_NOISE_STREAM), r), one key per leaf
+    in fedtpu's leaf order, then the count noise. The draw is jitted once
+    per seed and model for the worker."""
+    template = jax.tree.map(lambda p: np.zeros(p.shape[1:], np.float32),
+                            _np(j_build(j_cfg).state["params"]))
+
+    def noise(r):
+        delta, count = _fedtpu_noise_draw(j_cfg.fed.dp_seed, template, r)
+        return np.concatenate((_flat(delta), [np.float32(count)]))
+
+    return noise
+
+
+def _dp_configs(rate=1.0, rounds=3, **fed):
+    return _sharded_configs("psum", rate=rate, rounds=rounds,
+                            dp_clip_norm=DP_CLIP, **fed)
+
+
+DP_CASES = {
+    "clip only": dict(),
+    "clip and noise": dict(weighting="uniform", dp_noise_multiplier=1.0),
+    "fixed denominator": dict(weighting="uniform", dp_noise_multiplier=1.0,
+                              rate=0.5),
+    "no participant": dict(weighting="uniform", dp_noise_multiplier=1.0,
+                           rate=1e-9),
+    "adaptive": dict(weighting="uniform", dp_adaptive_clip=True, rate=0.5),
+    "adaptive no participant": dict(weighting="uniform",
+                                    dp_adaptive_clip=True, rate=1e-9),
+    "adaptive count noise": dict(
+        weighting="uniform", dp_adaptive_clip=True, dp_noise_multiplier=0.5,
+        dp_count_noise_multiplier=1.0, rate=0.5, dp_clip_lr=0.5),
+}
+
+
+@pytest.mark.parametrize("case", list(DP_CASES))
+def test_dp_rounds_match_fedtpu(case):
+    """3 rounds against fedtpu's build_round_fn, its masks and noise
+    injected: confusion counts equal, params and the server state within
+    1e-5 (or 1e-6 of the model's scale), the adaptive clip within 1e-6
+    relative. With no participant and
+    the fixed denominator the noise is still released; without count noise
+    the adaptive clip holds."""
+    kw = dict(DP_CASES[case])
+    rate = kw.pop("rate", 1.0)
+    j_cfg, t_cfg = _dp_configs(rate, **kw)
+    masks = _fedtpu_masks(j_cfg) if rate < 1.0 else None
+    noisy = kw.get("dp_noise_multiplier", 0) > 0
+    t_kw = dict(dp_noise=_fedtpu_noise(j_cfg)) if noisy else {}
+    start = clips = None
+    for j_state, t_state, raw, j_conf in _step_both(j_cfg, t_cfg, 3, masks,
+                                                    **t_kw):
+        np.testing.assert_array_equal(raw["conf"][0].numpy(), j_conf)
+        want = _flat(j_state["params"])
+        # 1e-5, or 1e-6 of the model's scale for "no participant": its
+        # denominator q*C = 1.6e-8 gives the noise a std of ~3e6.
+        atol = max(1e-5, 1e-6 * float(np.abs(want).max()))
+        np.testing.assert_allclose(t_state["params"].numpy(), want, rtol=0,
+                                   atol=atol)
+        np.testing.assert_allclose(
+            t_state["server_opt_state"]["m"].numpy(),
+            _flat(j_state["server_opt_state"]["m"]), rtol=0, atol=atol)
+        if "dp_clip" in t_state:
+            np.testing.assert_allclose(float(t_state["dp_clip"]),
+                                       float(j_state["dp_clip"]), rtol=1e-6)
+            clips = [] if clips is None else clips
+            clips.append(float(t_state["dp_clip"]))
+        start = t_state["params"] if start is None else start
+    if rate == 1e-9:
+        assert masks(0).sum() == masks(1).sum() == masks(2).sum() == 0
+        # With the fixed denominator q*C the noise moves the model anyway;
+        # without noise the model and the clip hold.
+        assert noisy != torch.equal(t_state["params"], start)
+        if clips:
+            assert clips == [float(np.float32(DP_CLIP))] * 3
+    elif clips:
+        assert len(set(clips)) == 3
+
+
+def _dp_fed(z, q=0.5):
+    return tcfg.FedConfig(weighting="uniform", dp_clip_norm=1.0,
+                          dp_noise_multiplier=z, participation_rate=q)
+
+
+def _same_meta(a: dict, b: dict):
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("scenario", [
+    "fresh", "resume changes z", "resume changes q", "noise off after noise",
+    "older order grid", "no curve saved", "void carried"])
+def test_privacy_ledger_matches_fedtpus(scenario):
+    """The port's ledger and fedtpu's, from the same config and restored
+    meta: the same curve at every label, flags and checkpoint meta."""
+    first = _dp_fed(1.1)
+    meta, fed, start = None, first, 0
+    if scenario != "fresh":
+        start = 20
+        meta = JLedger(first).checkpoint_meta(start)
+        fed = {"resume changes z": _dp_fed(0.7),
+               "resume changes q": _dp_fed(1.1, q=0.25),
+               "noise off after noise": tcfg.FedConfig(),
+               "older order grid": _dp_fed(0.9),
+               "no curve saved": _dp_fed(0.9),
+               "void carried": _dp_fed(1.3)}[scenario]
+        if scenario == "older order grid":
+            meta["dp_rdp"] = meta["dp_rdp"][::2]
+            meta["dp_rdp_orders"] = meta["dp_rdp_orders"][::2]
+        if scenario == "no curve saved":
+            meta = {}
+        if scenario == "void carried":
+            meta["dp_guarantee_void"] = True
+    t = TLedger(fed, start_round=start, restored_meta=meta)
+    j = JLedger(fed, start_round=start, restored_meta=meta)
+    assert (t.composed, t.base_assumed) == (j.composed, j.base_assumed)
+    for label in (start, start + 1, start + 37):
+        np.testing.assert_array_equal(t.rdp_at(label), j.rdp_at(label))
+        assert t.void_at(label) == j.void_at(label)
+        _same_meta(t.checkpoint_meta(label), j.checkpoint_meta(label))
+
+
+def _loop_configs(rounds, tmp=None, **fed):
+    """A DP run of 16 clients over 8 shards: uniform weights, clip, noise,
+    client sampling at 0.5, adaptive clip with count noise."""
+    knobs = dict(weighting="uniform", dp_noise_multiplier=0.5,
+                 dp_adaptive_clip=True, dp_count_noise_multiplier=1.0)
+    knobs.update(fed)
+    j, t = _dp_configs(0.5, rounds, **knobs)
+    run = dict(eval_test_every=4)
+    if tmp is not None:
+        run.update(checkpoint_dir=str(tmp), checkpoint_every=4)
+    return (j.replace(run=dataclasses.replace(j.run, **run)),
+            t.replace(run=dataclasses.replace(t.run, **run)))
+
+
+def test_dp_run_matches_fedtpu():
+    """run_experiment with DP noise, sampling and adaptive clipping against
+    fedtpu's (its init, masks and noise injected): the same rounds, losses
+    within 1e-4, histories within 1e-6, the final clip within 1e-5
+    relative, and the same privacy spend."""
+    j_cfg, t_cfg = _loop_configs(12)
+    init = _np(j_build(j_cfg).state["params"])
+    rj = j_run(j_cfg, verbose=False)
+    rt = t_run(t_cfg, verbose=False, device="cpu", init_params=init,
+               participation_masks=_fedtpu_masks(j_cfg),
+               dp_noise=_fedtpu_noise(j_cfg))
+    assert (rt.rounds_run, rt.stopped_early) == (rj.rounds_run,
+                                                 rj.stopped_early)
+    np.testing.assert_allclose(np.stack(rt.loss), np.stack(rj.loss),
+                               atol=1e-4)
+    for name in METRIC_NAMES:
+        np.testing.assert_allclose(rt.global_metrics[name],
+                                   rj.global_metrics[name], atol=1e-6)
+        np.testing.assert_allclose(rt.test_metrics[name],
+                                   rj.test_metrics[name], atol=1e-6)
+    np.testing.assert_allclose(rt.final_dp_clip, rj.final_dp_clip,
+                               rtol=1e-5)
+    spent = rt.privacy_spent()
+    assert spent == rj.privacy_spent() and math.isfinite(spent["epsilon"])
+    assert rt.summary()["dp"] == spent
+    assert rt.summary()["final_dp_clip"] == rt.final_dp_clip
+
+
+def test_dp_resume_is_bitwise_and_composes_a_changed_z_as_fedtpu(tmp_path):
+    """8 rounds with checkpoints, then resumed to 12: bitwise the
+    uninterrupted 12 rounds (losses, confusion counts, final params and
+    clip; the port's own noise is a pure function of seed and round) with
+    the same privacy spend. A resume that changes the noise multiplier
+    reports the spend of fedtpu's ledger over the two segments."""
+    _, full_cfg = _loop_configs(12)
+    full = t_run(full_cfg, verbose=False, device="cpu")
+    _, seg = _loop_configs(8, tmp_path / "same")
+    t_run(seg, verbose=False, device="cpu")
+    _, seg = _loop_configs(12, tmp_path / "same")
+    resumed = t_run(seg, verbose=False, device="cpu", resume=True)
+    for a, b in zip(resumed.loss, full.loss[8:]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(resumed.confusion, full.confusion[8:]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(jax.tree.leaves(resumed.final_params),
+                    jax.tree.leaves(full.final_params)):
+        np.testing.assert_array_equal(a, b)
+    assert resumed.final_dp_clip == full.final_dp_clip
+    assert resumed.privacy_spent()["epsilon"] == \
+        full.privacy_spent()["epsilon"]
+
+    _, first = _loop_configs(8, tmp_path / "z")
+    _, second = _loop_configs(12, tmp_path / "z", dp_noise_multiplier=0.7)
+    t_run(first, verbose=False, device="cpu")
+    spent = t_run(second, verbose=False, device="cpu",
+                  resume=True).privacy_spent()
+    ledger = JLedger(second.fed, start_round=8, restored_meta=JLedger(
+        first.fed).checkpoint_meta(8))
+    want = j_acc.epsilon_from_rdp(list(ledger.rdp_at(12)),
+                                  second.fed.dp_delta)
+    assert (spent["epsilon"], spent["rdp_order"]) == (want["epsilon"],
+                                                      want["order"])
+    assert spent["noise_multiplier"] == 0.7 and spent["rounds"] == 12
+    assert spent["composed_over_resumed_segments"]
+
+
+def test_checkpoint_round_trips_the_new_state_and_the_ledger(tmp_path):
+    """A state with server optimizer state, control variates, an adaptive
+    clip and the shared-start marker, and the ledger's meta: saved, read
+    back equal, restored onto the live layout; a layout that differs
+    raises fedtpu's resume mismatch."""
+    _, t_cfg = _sharded_configs("psum", server_opt="fedadam",
+                                weighting="uniform", scaffold=True)
+    state = t_build(t_cfg, device="cpu").state
+    state["client_cv"] = torch.randn(state["client_cv"].shape)
+    state["server_opt_state"]["v"] = torch.rand(state["params"].shape[1])
+    state["dp_clip"] = torch.tensor(0.25)
+    fed = _dp_fed(1.1)
+    meta = TLedger(fed).checkpoint_meta(7)
+    ckpt.save_checkpoint(str(tmp_path), state, {"accuracy": [0.5]}, 7,
+                         extra_meta=meta)
+    raw, history, step = ckpt.load_checkpoint_raw(str(tmp_path))
+    assert (history, step) == ({"accuracy": [0.5]}, 7)
+    back = _restore_state(raw, state, torch.device("cpu"))
+    for a, b in zip(t_round._state_tensors(back),
+                    t_round._state_tensors(state)):
+        assert torch.equal(a, b)
+    assert back["shared_start"] and back["round"] == 0
+    _same_meta({k: v for k, v in ckpt.load_meta(str(tmp_path)).items()
+                if k in meta}, meta)
+    resumed = TLedger(fed, start_round=7,
+                      restored_meta=ckpt.load_meta(str(tmp_path)))
+    np.testing.assert_allclose(resumed.rdp_at(9), TLedger(fed).rdp_at(9),
+                               rtol=1e-12)
+    plain = t_build(_sharded_configs("psum")[1], device="cpu").state
+    with pytest.raises(ValueError, match="resume mismatch"):
+        _restore_state(raw, plain, torch.device("cpu"))
+
+
+# ------------------------------- robust rules, Byzantine clients, int8
+SHARDED_DIMS = (14, 16, 8, 2)       # _sharded_configs' model
+
+
+def _submitted(trained, start, byzantine):
+    """What fedtpu's clients submit (round.py:595-600): the first k send
+    ``s - 10 (t - s)``."""
+    t = _flat(trained)
+    bad = np.arange(t.shape[0])[:, None] < byzantine
+    return np.where(bad, start - 10.0 * (t - start), t)
+
+
+@pytest.mark.parametrize("byzantine", [0, 2])
+@pytest.mark.parametrize("rate", [1.0, 0.5], ids=["all", "sampled"])
+@pytest.mark.parametrize("rule", ["median", "trimmed_mean"])
+def test_coordinatewise_rules_match_fedtpu(rule, rate, byzantine):
+    """3 rounds: confusion counts equal, params within 1e-5; with 16
+    clients (an even count) the unsampled median is the mean of the two
+    middle values, as jnp.median's. Under sampling the order statistics
+    are those of the participants only."""
+    j_cfg, t_cfg = _sharded_configs(
+        "psum", rate=rate, weighting="uniform", robust_aggregation=rule,
+        trim_ratio=0.2, byzantine_clients=byzantine)
+    masks = _fedtpu_masks(j_cfg) if rate < 1.0 else None
+    for j_state, t_state, raw, j_conf in _step_both(j_cfg, t_cfg, 3, masks):
+        np.testing.assert_array_equal(raw["conf"][0].numpy(), j_conf)
+        np.testing.assert_allclose(t_state["params"].numpy(),
+                                   _flat(j_state["params"]), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("rule", ["median", "trimmed_mean"])
+def test_sampled_rules_carry_the_params_over_without_participants(rule):
+    """No participant under sampling: the median and the trimmed mean keep
+    the params (round.py:857-860), decided on the device."""
+    j_cfg, t_cfg = _sharded_configs("psum", rate=1e-9, rounds=2,
+                                    weighting="uniform",
+                                    robust_aggregation=rule)
+    masks = _fedtpu_masks(j_cfg)
+    start = None
+    for j_state, t_state, raw, j_conf in _step_both(j_cfg, t_cfg, 2, masks):
+        np.testing.assert_array_equal(raw["conf"][0].numpy(), j_conf)
+        start = t_state["params"] if start is None else start
+        assert torch.equal(t_state["params"], start)
+
+
+@pytest.mark.parametrize("byzantine", [0, 3])
+@pytest.mark.parametrize("rule", ["krum", "geometric_median"])
+def test_whole_update_rules_match_fedtpu(rule, byzantine):
+    """3 rounds of Krum (krum_f = 3) and the geometric median (16 smoothed
+    Weiszfeld steps): confusion counts equal, params within 1e-5. Krum's
+    global is one client's submitted update: the same client on both
+    sides, and never a Byzantine one."""
+    j_cfg, t_cfg = _sharded_configs(
+        "psum", weighting="uniform", robust_aggregation=rule, krum_f=3,
+        byzantine_clients=byzantine)
+    j_exp = j_build(j_cfg)
+    start = _flat(j_exp.state["params"])[0]
+    trained = []
+    for j_state, t_state, raw, j_conf in _step_both(
+            j_cfg, t_cfg, 3, j_trained=trained, j_exp=j_exp):
+        np.testing.assert_array_equal(raw["conf"][0].numpy(), j_conf)
+        j_glob = _flat(j_state["params"])[0]
+        t_glob = t_state["params"][0].numpy()
+        np.testing.assert_allclose(t_glob, j_glob, rtol=0, atol=1e-5)
+        if rule == "krum":
+            sub = _submitted(trained[-1], start, byzantine)
+            j_dist = np.abs(sub - j_glob).max(axis=1)
+            t_dist = np.abs(sub - t_glob).max(axis=1)
+            winner = int(np.argmin(j_dist))
+            assert int(np.argmin(t_dist)) == winner >= byzantine
+            assert j_dist[winner] < 1e-5 and t_dist[winner] < 1e-5
+        start = j_glob
+
+
+def test_byzantine_clients_poison_the_plain_mean_as_in_fedtpu():
+    """The plain mean (K1 in broadcast mode) under Byzantine injection:
+    3 rounds within 1e-5 of fedtpu's, confusion counts equal."""
+    j_cfg, t_cfg = _sharded_configs("psum", byzantine_clients=3)
+    for j_state, t_state, raw, j_conf in _step_both(j_cfg, t_cfg, 3):
+        np.testing.assert_array_equal(raw["conf"][0].numpy(), j_conf)
+        np.testing.assert_allclose(t_state["params"].numpy(),
+                                   _flat(j_state["params"]), rtol=0,
+                                   atol=1e-5)
+
+
+def test_int8_exchange_matches_fedtpu_within_a_quantization_step():
+    """compress='int8' over 8 shards: each round's global within one
+    quantization step per element of fedtpu's (a shard's partial sum can
+    round across a .5 boundary the other way: scale_s / total_w, the
+    largest shard scale of the element's leaf), accumulated over the
+    rounds; confusion counts equal; every slot the global."""
+    j_cfg, t_cfg = _sharded_configs("psum", compress="int8")
+    j_exp = j_build(j_cfg)
+    w = np.asarray(j_exp.batch["mask"]).sum(axis=1)
+    start = _flat(j_exp.state["params"])[0]
+    bounds = leaf_bounds(SHARDED_DIMS)
+    trained, slack = [], 0.0
+    for j_state, t_state, raw, j_conf in _step_both(
+            j_cfg, t_cfg, 3, j_trained=trained, j_exp=j_exp):
+        np.testing.assert_array_equal(raw["conf"][0].numpy(), j_conf)
+        delta = (_flat(trained[-1]) - start) * w[:, None]
+        partial = delta.reshape(8, 2, -1).sum(axis=1)
+        step = np.concatenate([
+            np.full(b - a, np.abs(partial[:, a:b]).max() / 127 / w.sum())
+            for a, b in bounds])
+        slack = slack + step
+        j_glob = _flat(j_state["params"])[0]
+        p = t_state["params"]
+        assert torch.equal(p, p[:1].expand_as(p))
+        assert np.all(np.abs(p[0].numpy() - j_glob) <= slack + 1e-6)
+        start = j_glob
+
+
+# --------------------------------------------------- A6 CLI and the loop
+def test_a6_cli_flags_set_fedtpus_fields():
+    """fedtpu's flags for the delta path, DP, robust rules, SCAFFOLD and
+    int8 give the port's FedConfig the values they give fedtpu's."""
+    from fedtpu.cli import _apply_overrides, build_parser as j_parser
+    from fedtpu_torch.cli import build_parser as t_parser, config_from_args
+    argv = ["run", "--scaffold", "--server-opt", "fedyogi", "--server-lr",
+            "0.3", "--server-momentum", "0.5", "--dp-clip-norm", "2.0",
+            "--dp-noise-multiplier", "0.7", "--dp-delta", "1e-6",
+            "--dp-adaptive-clip", "--dp-target-quantile", "0.4",
+            "--dp-clip-lr", "0.1", "--dp-count-noise-multiplier", "0.9",
+            "--compress", "int8", "--robust-aggregation", "krum",
+            "--trim-ratio", "0.2", "--krum-f", "2", "--byzantine-clients",
+            "3"]
+    j_fed = _apply_overrides(jcfg.ExperimentConfig(),
+                             j_parser().parse_args(argv)).fed
+    t_fed = config_from_args(t_parser().parse_args(argv)).fed
+    fields = ("scaffold", "server_opt", "server_lr", "server_momentum",
+              "dp_clip_norm", "dp_noise_multiplier", "dp_delta",
+              "dp_adaptive_clip", "dp_target_quantile", "dp_clip_lr",
+              "dp_count_noise_multiplier", "compress", "robust_aggregation",
+              "trim_ratio", "krum_f", "byzantine_clients")
+    assert {f: getattr(t_fed, f) for f in fields} == {
+        f: getattr(j_fed, f) for f in fields}
+    with pytest.raises(SystemExit):
+        t_parser().parse_args(["run", "--dp-delta", "1.0"])
+
+
+def test_fedadam_run_matches_fedtpu():
+    """run_experiment with fedadam (income-8-shaped, data-size weighting)
+    against fedtpu's: the same stop round, histories within 1e-6, losses
+    within 1e-4 (ADAPTIVE_ATOL on params), no privacy spend."""
+    j_cfg, t_cfg = _sharded_configs("psum", rounds=40, server_opt="fedadam",
+                                    server_lr=0.05)
+    run_kw = dict(eval_test_every=10)
+    j_cfg = j_cfg.replace(run=dataclasses.replace(j_cfg.run, **run_kw))
+    t_cfg = t_cfg.replace(run=dataclasses.replace(t_cfg.run, **run_kw))
+    init = _np(j_build(j_cfg).state["params"])
+    rj = j_run(j_cfg, verbose=False)
+    rt = t_run(t_cfg, verbose=False, device="cpu", init_params=init)
+    assert (rt.rounds_run, rt.stopped_early) == (rj.rounds_run,
+                                                 rj.stopped_early)
+    np.testing.assert_allclose(np.stack(rt.loss), np.stack(rj.loss),
+                               atol=1e-4)
+    for name in METRIC_NAMES:
+        np.testing.assert_allclose(rt.global_metrics[name],
+                                   rj.global_metrics[name], atol=1e-6)
+        np.testing.assert_allclose(rt.test_metrics[name],
+                                   rj.test_metrics[name], atol=1e-6)
+    for a, b in zip(jax.tree.leaves(rt.final_params),
+                    jax.tree.leaves(_np(rj.final_params))):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    assert rt.privacy_spent() == rj.privacy_spent() == {}
+    assert "dp" not in rt.summary() and rt.final_dp_clip is None
 
 
 @pytest.fixture
