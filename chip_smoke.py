@@ -47,6 +47,13 @@ Phases, in order; any failure exits non-zero before the result line:
    and SCAFFOLD captured against uncaptured at R = 10, bitwise; DP resumed
    20 -> 40 bitwise with the same privacy spend; the noise draw's host
    cost; K1's (D,) mode at the delta path's shape.
+   (f) the hyperparameter grid: the reference's 90 configs at full width
+   (400 steps, income-8 at 10,000 rows) in 2 launches, K1 and K2 once
+   each a launch and held against their plain versions at the depth-2
+   launch's 576 models, every padded entry of every averaged model 0.0,
+   each launch's wall and device time; a reduced grid and the plateau stop
+   against the CPU. (g) income-32-noniid with 5 personalize steps after
+   the run, against the CPU.
 8. fused round (K5): the whole-round kernel against its plain version on the
    card at income-8's experiment state, at edge shapes and at
    income-32-noniid's (32, 1104) batch, twice on the same inputs (bitwise
@@ -544,7 +551,8 @@ def phase_run(label: str, cfg, expect: dict, capture=None):
     """One run of ``run_experiment`` on the card with every launch count set
     to 0 just before it and read just after. ``expect`` maps a kernel to
     its launches: "rounds" (one per round trained, the graphs' warm-up
-    round included, and one per round in each graph's replay), "evals"
+    round included, and one per round in each graph's replay), "rounds+1"
+    (the same and one after the loop), "evals"
     (at least one per held-out eval, and at least one, none in a graph),
     or an exact number. ``capture``: run_experiment's (None: every chunk a
     graph replay; False: the uncaptured step)."""
@@ -573,16 +581,18 @@ def phase_run(label: str, cfg, expect: dict, capture=None):
     for name, want in expect.items():
         got = launches[name]
         for width, per_replay in res.graph_launches.items():
-            replay_want = (width if want == "rounds" else
+            replay_want = (width if want in ("rounds", "rounds+1") else
                            0 if want == "evals" else None)
             check(replay_want is None or per_replay[name] == replay_want,
                   f"{label}: {name} launches {per_replay[name]} per replay "
                   f"of the {width}-round graph, not {replay_want}")
-        if want == "rounds":
-            check(got == res.rounds_trained + res.warmup_rounds,
+        if want in ("rounds", "rounds+1"):
+            # "rounds+1": one more launch after the loop (personalization).
+            extra = int(want == "rounds+1")
+            check(got == res.rounds_trained + res.warmup_rounds + extra,
                   f"{label}: {name} launches {got} != rounds trained "
                   f"{res.rounds_trained} + warm-up rounds "
-                  f"{res.warmup_rounds}")
+                  f"{res.warmup_rounds} + {extra}")
         elif want == "evals":
             check(got >= max(n_evals, 1),
                   f"{label}: {name} launches {got} fewer than the held-out "
@@ -670,12 +680,12 @@ def replay_near_ties(cfg, rounds: set) -> dict:
 
 
 def phase_card_vs_cpu(cfg, gpu, label: str = "card vs CPU",
-                      drift_cap=None) -> None:
+                      drift_cap=None):
     """The card run ``gpu`` against the same config on the CPU: the same
     stop round, losses within 1e-4, and confusion counts equal but on rows
     that are near ties of the CPU model. With ``drift_cap`` a row also
     counts as a near tie when its gap is inside twice the two runs' logit
-    drift, and the drift must stay within the cap."""
+    drift, and the drift must stay within the cap. Returns the CPU run."""
     from fedtpu_torch.orchestration.loop import run_experiment
     cpu = run_experiment(cfg, verbose=False, device="cpu")
     check(cpu.rounds_run == gpu.rounds_run
@@ -705,6 +715,7 @@ def phase_card_vs_cpu(cfg, gpu, label: str = "card vs CPU",
           f"{[int(rows.sum()) for rows in moved.values()]}, card vs CPU "
           f"logit drift there {[f'{t[2]:.3e}' for t in ties.values()]}",
           flush=True)
+    return cpu
 
 
 def composed_round(exp):
@@ -1263,6 +1274,311 @@ def phase_a6() -> dict:
     return by_path, k1_delta_mean(dp_cfg)
 
 
+def sweep_config():
+    """The grid's data: income-8 at the income CSV's 10,000 synthetic rows
+    (8 clients of 1,000 train rows)."""
+    from fedtpu_torch.config import get_preset
+    cfg = get_preset("income-8")
+    return cfg.replace(data=dataclasses.replace(cfg.data,
+                                                synthetic_rows=10000))
+
+
+def padded_entries(true_dims, bucket_dims) -> torch.Tensor:
+    """The entries of a bucket-padded flat model that lie outside the
+    architecture's true dims (bool, ``(P,)`` at ``bucket_dims``)."""
+    from fedtpu_torch.models.mlp import param_count, unflatten
+    pad = torch.ones(param_count(bucket_dims), dtype=torch.bool)
+    for lyr, i, o in zip(unflatten(pad, bucket_dims)["layers"],
+                         true_dims[:-1], true_dims[1:]):
+        lyr["w"][:i, :o] = False
+        lyr["b"][:o] = False
+    return pad
+
+
+def sweep_flops(dims, model_rows: float, steps: int) -> float:
+    """fp32 flops of ``steps`` full-batch training steps and one eval over
+    ``model_rows`` (model, real row) pairs at ``dims``: per row and step the
+    forward, the weight gradients and the input gradients of every layer
+    but the first, 2 flops a multiply-add."""
+    macs = [i * o for i, o in zip(dims[:-1], dims[1:])]
+    per_row = 2 * sum(macs) + 2 * sum(macs) + 2 * sum(macs[1:])
+    return steps * model_rows * per_row + mlp_flops(dims, model_rows)
+
+
+def phase_sweep() -> tuple:
+    """Phase (f): the reference's 90-config grid (fedtpu_torch.sweep.grid,
+    10 architectures x 9 learning rates, 400 full-batch Adam steps, 8
+    clients of income-8 at 10,000 rows) in its 2 launches on the card:
+    every row present and finite, every slot's pooled counts summing to
+    the 8,000 train rows, every bucket-padded entry of every averaged
+    model exactly 0.0 on the card (read before unpadding), K1 and K2 once
+    a launch. Then K2 against its plain version on the depth-2 launch's
+    trained stack (equal but on near-tie rows) and K1 within 1e-5 of its
+    plain version there, both timed at that shape beside their bounds and
+    K1's library calls; each launch's wall and device time and the
+    sweep's bound. Then the card against the CPU on a reduced grid:
+    ((50,), (400, 200)) x (0.004, 0.05) for 10 steps (accuracies equal,
+    winner weights within 1e-4), and the plateau stop on (50,) x 0.004 with
+    a 400-step cap (mean steps equal, or each difference printed with the
+    loss margins to the tol bar that explain it). A profile of 5 steps of
+    each launch (``sweep_profile``). Returns the run's launches and the K1
+    and K2 rows."""
+    from fedtpu_torch.models.mlp import layer_dims, mlp_apply, unflatten
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.ops.metrics import near_tie_rows
+    from fedtpu_torch.sweep.grid import run_grid_search
+    cfg = sweep_config()
+    c, k = cfg.shard.num_clients, 2
+    held, padded_zeros, flops = {}, [0], [0.0]
+
+    def inspect(launch):
+        dims, archs = launch["dims"], launch["architectures"]
+        l = len(launch["learning_rates"])
+        s = len(archs) * l
+        avg = launch["avg"].view(s, -1)
+        for a, hidden in enumerate(archs):
+            pad = padded_entries(layer_dims(dims[0], hidden, dims[-1]),
+                                 dims).to(avg.device)
+            block = avg[a * l:(a + 1) * l][:, pad]
+            nonzero = int((block != 0).sum())
+            check(nonzero == 0, f"sweep launch {launch['index']}: {hidden} "
+                  f"has {nonzero} non-zero padded entries after averaging")
+            padded_zeros[0] += block.numel()
+        sums = launch["conf"].view(c, s, k, k).sum(dim=(0, 2, 3))
+        total = float(launch["mask"].view(c, s, -1)[:, 0].sum())
+        check(total == 8000.0 and bool((sums == total).all()),
+              f"sweep launch {launch['index']}: pooled counts {sums.tolist()}"
+              f" do not each sum to the {total} train rows (8,000)")
+        flops[0] += sweep_flops(dims, float(launch["mask"].sum()), 400)
+        if len(dims) == 4:
+            held.update(launch)
+
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_grid_search(cfg, verbose=False, device="cuda",
+                          keep_weights=True, inspect_launch=inspect)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    print(f"sweep launches: {launches}", flush=True)
+    check(launches["weighted_average_clients"] == 2
+          and launches["fused_eval_confusion"] == 2
+          and launches["fused_mlp_forward"] == 0,
+          f"sweep: launches {launches}, not K1 = 2, K2 = 2, K3 = 0")
+    table = res["table"]
+    check(res["launch_count"] == 2 and len(table) == 90
+          and len({(r["hidden_layer_sizes"], r["learning_rate"])
+                   for r in table}) == 90,
+          f"sweep: {res['launch_count']} launches, {len(table)} rows")
+    check(all(np.isfinite([r[m] for m in ("accuracy", "precision",
+                                          "recall", "f1",
+                                          "mean_local_steps")]).all()
+              for r in table), "sweep: a non-finite row")
+    bound_s = flops[0] / PEAK_FP32_FLOPS
+    for i, t in enumerate(res["launch_times"]):
+        print(f"sweep launch {i + 1}: {t['architectures']} architectures x "
+              f"{t['learning_rates']} rates, {t['models']} models: wall "
+              f"{t['wall_s']:.4f} s, device {t['device_s']:.4f} s; "
+              f"{CARD['smi']}", flush=True)
+    print(f"sweep total: wall {wall:.4f} s, device "
+          f"{sum(t['device_s'] for t in res['launch_times']):.4f} s, bound "
+          f"{bound_s:.4f} s ({flops[0]:.4e} fp32 flops at 67 TFLOP/s); "
+          f"{padded_zeros[0]} padded entries all exactly 0.0; winner "
+          f"{res['params']} accuracy {res['accuracy']:.6f}, tie set "
+          f"{len(res['tie_set'])}", flush=True)
+
+    # The kernels against their plain versions at the depth-2 launch.
+    dims = tuple(held["dims"])
+    q, xm, ym, mm, conf = (held[key] for key in ("trained", "x", "y",
+                                                 "mask", "conf"))
+    ref = ck.fused_eval_confusion_reference(q, dims, xm, ym, mm, k)
+    ties = near_tie_rows(mlp_apply(unflatten(q, dims), xm)) & (mm > 0)
+    moved = (conf - ref).abs().sum(dim=(1, 2)) / 2
+    check(bool((moved <= ties.sum(dim=1)).all()),
+          f"sweep K2 at {tuple(q.shape)}: counts differ from the plain "
+          f"version's on {int(moved.sum())} rows, near ties "
+          f"{int(ties.sum())}")
+    ones = torch.ones(c, device=q.device)
+    stack = q.view(c, -1)
+    avg_ref = ck.weighted_average_clients_reference(stack, ones)
+    k1_err = float((held["avg"] - avg_ref).abs().max())
+    check(k1_err <= 1e-5, f"sweep K1 at {tuple(stack.shape)}: max abs err "
+          f"{k1_err}")
+    live = float(mm.sum())
+    b2, by2 = bound_ms(4 * (q.numel() + live * (dims[0] + 1) + mm.numel()
+                            + q.shape[0] * k * k), mlp_flops(dims, live))
+    k2_row = {"shape": f"sweep depth-2 launch, {q.shape[0]} models",
+              "dims": list(dims), "clients": q.shape[0],
+              "rows": xm.shape[1], "real_rows": int(live),
+              "rows_moved_vs_plain": int(moved.sum()),
+              "near_tie_rows": int(ties.sum()),
+              "ms": time_ms(lambda: ck.fused_eval_confusion(
+                  q, dims, xm, ym, mm, k)),
+              "plain_ms": time_ms(lambda: ck.fused_eval_confusion_reference(
+                  q, dims, xm, ym, mm, k)),
+              "bound_ms": b2, "bound_by": by2, "library_ms": None}
+    b1, by1 = bound_ms(4 * (stack.numel() + c + stack.shape[1]),
+                       2.0 * stack.numel())
+    k1_row = {"shape": list(stack.shape), "max_abs_err": k1_err,
+              "ms": time_ms(lambda: ck.weighted_average_clients(stack,
+                                                                ones)),
+              "plain_ms": time_ms(
+                  lambda: ck.weighted_average_clients_reference(stack, ones)),
+              "library_ms": time_ms(lambda: torch.matmul(ones / ones.sum(),
+                                                         stack)),
+              "mean_ms": time_ms(lambda: stack.mean(dim=0)),
+              "bound_ms": b1, "bound_by": by1}
+    path = "streamed" if ck._eval_plan(q.shape[1], dims).cap else "resident"
+    print(f"time K2 sweep ({q.shape[0]} models x {xm.shape[1]} rows, dims "
+          f"{dims}, {path}): "
+          f"kernel {k2_row['ms']:.4f} ms  plain {k2_row['plain_ms']:.4f} ms"
+          f"  bound {b2:.5f} ms ({by2}); rows moved vs plain "
+          f"{k2_row['rows_moved_vs_plain']}, near ties "
+          f"{k2_row['near_tie_rows']}; {CARD['smi']}", flush=True)
+    print(f"time K1 sweep (D,) mean {tuple(stack.shape)}: kernel "
+          f"{k1_row['ms']:.4f} ms  plain {k1_row['plain_ms']:.4f} ms  "
+          f"library matmul {k1_row['library_ms']:.4f} ms, mean(0) "
+          f"{k1_row['mean_ms']:.4f} ms  bound {b1:.5f} ms ({by1}); max abs "
+          f"err {k1_err:.3e}; {CARD['smi']}", flush=True)
+    held.clear()
+    del q, xm, ym, mm, conf, ref, stack, avg_ref
+    profile_rows = sweep_profile(cfg)
+
+    # Card against CPU, reduced: fixed steps.
+    small = dict(hidden_grid=((50,), (400, 200)), lr_grid=(0.004, 0.05),
+                 local_steps=10, keep_weights=True, verbose=False)
+    card = run_grid_search(cfg, device="cuda", **small)
+    cpu = run_grid_search(cfg, device="cpu", **small)
+    for a, b in zip(card["table"], cpu["table"]):
+        check(a["accuracy"] == b["accuracy"],
+              f"sweep card vs CPU {a['hidden_layer_sizes']} lr "
+              f"{a['learning_rate']}: accuracy {a['accuracy']} vs "
+              f"{b['accuracy']}")
+    check(card["params"] == cpu["params"],
+          f"sweep card vs CPU: winner {card['params']} vs {cpu['params']}")
+    w_err = max(float(np.abs(x - y).max()) for x, y in zip(
+        (l[key] for l in card["weights"]["layers"] for key in ("w", "b")),
+        (l[key] for l in cpu["weights"]["layers"] for key in ("w", "b"))))
+    check(w_err <= 1e-4, f"sweep card vs CPU: winner weights differ by "
+          f"{w_err}")
+    print(f"sweep card vs CPU ((50,), (400, 200)) x (0.004, 0.05), 10 steps:"
+          f" accuracies equal {[r['accuracy'] for r in card['table']]}, "
+          f"winner {card['params']} weights max abs err {w_err:.3e}",
+          flush=True)
+    # Plateau stop, 400-step cap.
+    plateau = {}
+    for dev in ("cuda", "cpu"):
+        got = {}
+        plateau[dev] = (run_grid_search(
+            cfg, device=dev, hidden_grid=((50,),), lr_grid=(0.004,),
+            local_steps=400, plateau_stop=True, verbose=False,
+            inspect_launch=lambda launch, got=got: got.update(
+                steps=launch["steps"].cpu(),
+                margin=launch["margin"].cpu())), got)
+    (rc, gc), (rp, gp) = plateau["cuda"], plateau["cpu"]
+    sc, sp = (r["table"][0]["mean_local_steps"] for r in (rc, rp))
+    if sc != sp:
+        for m in (gc["steps"] != gp["steps"]).nonzero().flatten().tolist():
+            worse = (gc["margin"][:, m] > 0) != (gp["margin"][:, m] > 0)
+            step = int(worse.nonzero()[0]) if bool(worse.any()) else -1
+            mc, mp = (float(g["margin"][step, m]) for g in (gc, gp))
+            print(f"sweep plateau model {m}: card stops after "
+                  f"{int(gc['steps'][m])} steps, CPU after "
+                  f"{int(gp['steps'][m])}; at step {step + 1} the loss "
+                  f"margin to the tol bar is {mc:.3e} on the card, {mp:.3e} "
+                  f"on the CPU", flush=True)
+            check(step >= 0 and max(abs(mc), abs(mp)) <= 1e-5,
+                  f"sweep plateau model {m}: a stop-step difference no "
+                  "near-tie margin explains")
+    print(f"sweep plateau (50,) x 0.004, cap 400: mean local steps card {sc}"
+          f", CPU {sp}; per-model steps card {gc['steps'].tolist()}, CPU "
+          f"{gp['steps'].tolist()}", flush=True)
+    timing = {"launch_times": res["launch_times"], "wall_s": wall,
+              "bound_s": bound_s, "flops": flops[0],
+              "profile": profile_rows}
+    return launches, {**k1_row, **timing}, {**k2_row, **timing}
+
+
+def sweep_profile(cfg, steps: int = 5) -> list:
+    """Where a sweep launch's device time goes: each depth class of the
+    reference grid run for ``steps`` steps (and its eval and mean) at its
+    full shapes, timed on the host clock to the fetch of its result, then
+    under torch.profiler: device busy, device ops and the kernels that take
+    most of it. Returns one row per depth class."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fedtpu_torch.data.sharding import pack_clients
+    from fedtpu_torch.data.tabular import load_tabular_dataset
+    from fedtpu_torch.sweep import grid
+    ds = load_tabular_dataset(cfg.data)
+    packed = pack_clients(ds.x_train, ds.y_train, cfg.shard)
+    data = [torch.from_numpy(v).cuda() for v in (packed.x, packed.y,
+                                                 packed.mask)]
+    fn = grid.build_sweep_fn(ds.num_classes, steps, cfg.optim)
+    rows = []
+    for depth in (1, 2):
+        archs = [h for h in grid.HIDDEN_GRID if len(h) == depth]
+        params, opt_state, lrs, dims = grid.launch_inputs(
+            archs, grid.LR_GRID, grid._bucket_shape(archs[0],
+                                                    grid.HIDDEN_GRID),
+            ds, cfg.shard.num_clients, cfg.optim, "cuda")
+
+        def run():
+            # The host reads the pooled counts, as run_grid_search does.
+            fn(params, opt_state, lrs, *data, dims)[2].cpu()
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+        rows.append({"dims": list(dims), "models": params.shape[0]
+                     * params.shape[1], "steps": steps, "wall_ms": wall_ms,
+                     "busy_ms": busy_ms,
+                     "ops": sum(e.count for e in dev),
+                     "top": [(e.key[:60], e.self_device_time_total / 1e3,
+                              e.count) for e in top]})
+        print(f"sweep profile {dims}, {rows[-1]['models']} models, {steps} "
+              f"steps + eval + mean: host {wall_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms in {rows[-1]['ops']} device ops, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}; {CARD['smi']}", flush=True)
+        for name, ms, count in rows[-1]["top"]:
+            print(f"  {ms:.3f} ms in {count} x {name}", flush=True)
+        del params, opt_state
+    return rows
+
+
+def phase_personalize() -> dict:
+    """Phase (g): income-32-noniid (psum, 10,000 rows) with 5 personalize
+    steps after the run: K2 once a round, once in the warm-up round and
+    once for the personalized models; the stop round equal to the CPU's
+    and the personalized client mean within 1e-4 of it. Returns the run's
+    launches by label."""
+    cfg = with_fed(sharded_config("psum", 1.0, 100), personalize_steps=5)
+    label = "income-32-noniid personalize 5"
+    gpu, launches = phase_run(label, cfg, {
+        "weighted_average_clients": "rounds",
+        "fused_eval_confusion": "rounds+1", "fused_mlp_forward": "evals"})
+    cpu = phase_card_vs_cpu(cfg, gpu, label=f"{label} card vs CPU")
+    pg = gpu.personalized_metrics["client_mean"]
+    pc = cpu.personalized_metrics["client_mean"]
+    err = max(abs(pg[key] - pc[key]) for key in pg)
+    check(err <= 1e-4, f"{label}: personalized client mean {pg} vs CPU "
+          f"{pc}")
+    print(f"{label}: personalized client mean {json.dumps(pg)} (global "
+          f"{gpu.global_metrics['accuracy'][-1]:.4f} accuracy at the stop "
+          f"round {gpu.rounds_run}); CPU max abs err {err:.3e}", flush=True)
+    return {label: launches}
+
+
 def k5_case(label: str, args: tuple, dims, optim) -> float:
     """K5 against its plain version on the card at one shape, and twice on
     the same inputs (bitwise equal). Loss within 1e-5; params within 1e-4
@@ -1545,6 +1861,9 @@ def main() -> None:
     a6_launches, timings["weighted_average_clients"]["delta_mean"] = \
         phase_a6()
     by_path.update(a6_launches)
+    by_path["income-8 sweep"], timings["weighted_average_clients"][
+        "sweep"], timings["fused_eval_confusion"]["sweep"] = phase_sweep()
+    by_path.update(phase_personalize())
     timings["fused_round"], by_path["income-8 fused round"] = \
         phase_fused_round(torch.Generator().manual_seed(1), composed)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -1583,7 +1902,7 @@ def main() -> None:
                 "empty_launch_ms", "empty_back_to_back_ms", "ms_by_threads",
                 "ms_by_tile_x_threads", "composed_round_device_ms",
                 "marginal_us_per_round", "profile", "phases_us",
-                "delta_mean")
+                "delta_mean", "sweep")
                 if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

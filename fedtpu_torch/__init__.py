@@ -3,8 +3,8 @@
 A second package beside ``fedtpu`` (the JAX reference, which it never
 imports). It mirrors ``fedtpu``'s module paths and function names; it runs
 the synchronous engine of the income presets (FedAvg, the server
-optimizers, central DP, the robust rules, SCAFFOLD, the int8 exchange),
-with hand-written CUDA
+optimizers, central DP, the robust rules, SCAFFOLD, the int8 exchange,
+personalization) and the hyperparameter grid, with hand-written CUDA
 kernels in place of the JAX package's Pallas kernels
 (``fedtpu_torch.ops.cuda_kernels``).
 
@@ -16,7 +16,8 @@ kernels in place of the JAX package's Pallas kernels
     fedtpu_torch.parallel       — the federated round, its CUDA graph, int8
     fedtpu_torch.orchestration  — host round loop, early stopping, checkpoints,
                                   the privacy ledger
-    fedtpu_torch.sweep          — the sweep's weights artifact (.npz)
+    fedtpu_torch.training       — local training, eval, personalization
+    fedtpu_torch.sweep          — the hyperparameter grid, its .npz artifact
     fedtpu_torch.convert        — params / Adam state to and from fedtpu
     fedtpu_torch.utils          — timing
     fedtpu_torch.benchmarks     — the fused whole round vs the composed one
@@ -34,6 +35,7 @@ _LAZY = {
     "build_round_fn": ("fedtpu_torch.parallel.round", "build_round_fn"),
     "init_federated_state": ("fedtpu_torch.parallel.round",
                              "init_federated_state"),
+    "run_grid_search": ("fedtpu_torch.sweep.grid", "run_grid_search"),
     "PRESETS": ("fedtpu_torch.config", "PRESETS"),
     "get_preset": ("fedtpu_torch.config", "get_preset"),
 }

@@ -1,5 +1,6 @@
-"""``python -m fedtpu_torch.cli run``: the port's counterpart of
-``fedtpu run``, for the synchronous engine.
+"""``python -m fedtpu_torch.cli {run,sweep}``: the port's counterparts of
+``fedtpu run`` (the synchronous engine) and ``fedtpu sweep`` (the
+hyperparameter grid).
 
 Every flag is one that ``fedtpu.cli``'s parser also has, with the same
 meaning; ``--platform default`` means the GPU, ``--platform cpu`` the plain
@@ -50,10 +51,8 @@ def _hidden_sizes(text: str):
     return tuple(int(t) for t in text.split(",") if t.strip())
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="fedtpu_torch")
-    sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("run", help="run the synchronous federated loop")
+def _add_common_overrides(p: argparse.ArgumentParser) -> None:
+    """The flags ``run`` and ``sweep`` share, as ``fedtpu.cli``'s."""
     p.add_argument("--preset", default="income-8", choices=sorted(PRESETS))
     p.add_argument("--csv", default=None,
                    help="dataset CSV path ('' = synthetic rows, the "
@@ -70,10 +69,6 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="per-round client sampling probability in (0, 1] "
                         "(default 1.0)")
-    p.add_argument("--aggregation", choices=list(AGGREGATIONS), default=None,
-                   help="FedAvg reduction backend (default psum; ring = "
-                        "rotate-and-accumulate over the clients mesh, the "
-                        "ring kernel on the GPU)")
     p.add_argument("--local-steps", type=_positive_int, default=None,
                    help="full-batch steps per client per round (classic "
                         "FedAvg E >= 1; reference does 1)")
@@ -145,19 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--keep-checkpoints", type=int, default=None,
                    help="retain only the k newest complete checkpoints "
                         "plus the best-accuracy round (0 = keep all)")
-    p.add_argument("--resume", action="store_true",
-                   help="resume from the latest checkpoint in "
-                        "--checkpoint-dir")
-    p.add_argument("--init-weights", default=None, metavar="NPZ",
-                   help="warm-start every client from a saved weights "
-                        "artifact (the sweep's --save-weights output); "
-                        "architecture must match")
     p.add_argument("--metrics-jsonl", default=None,
                    help="append one JSON line of metrics per round")
-    p.add_argument("--pipelined-stop", action="store_true",
-                   help="overlap metric processing with the next chunk; "
-                        "stop decisions lag one chunk (the recorded history "
-                        "stays identical)")
     p.add_argument("--eval-test-every", type=int, default=None)
     p.add_argument("--platform", choices=["default", "cpu"], default="default",
                    help="'default' runs on the GPU, 'cpu' on the CPU")
@@ -165,6 +149,64 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--json", action="store_true",
                    help="print the result summary as one JSON line")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="fedtpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("run", help="run the synchronous federated loop")
+    _add_common_overrides(p)
+    # run-only, as in fedtpu: the sweep has its own reduction, init and
+    # stop semantics.
+    p.add_argument("--aggregation", choices=list(AGGREGATIONS), default=None,
+                   help="FedAvg reduction backend (default psum; ring = "
+                        "rotate-and-accumulate over the clients mesh, the "
+                        "ring kernel on the GPU)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in "
+                        "--checkpoint-dir")
+    p.add_argument("--init-weights", default=None, metavar="NPZ",
+                   help="warm-start every client from a saved weights "
+                        "artifact (the sweep's --save-weights output); "
+                        "architecture must match")
+    p.add_argument("--pipelined-stop", action="store_true",
+                   help="overlap metric processing with the next chunk; "
+                        "stop decisions lag one chunk (the recorded history "
+                        "stays identical)")
+    p.add_argument("--personalize-steps", type=_positive_int, default=None,
+                   help="post-training per-client fine-tuning steps from "
+                        "the final global model (personalized metrics in "
+                        "the summary)")
+
+    s = sub.add_parser("sweep", help="federated hyperparameter grid")
+    _add_common_overrides(s)
+    s.add_argument("--no-vmap-lr", action="store_true",
+                   help="one launch per learning rate instead of every "
+                        "rate in one launch (parity-check path)")
+    s.add_argument("--table-jsonl", default=None,
+                   help="write the full per-config result table here, one "
+                        "JSON line per config (the reference only prints "
+                        "the best, hyperparameters_tuning.py:126)")
+    s.add_argument("--save-weights", default=None, metavar="NPZ",
+                   help="persist the winning config's post-averaging "
+                        "weights + hyperparameters + metrics as an .npz "
+                        "(fedtpu's format; the reference only prints them, "
+                        "hyperparameters_tuning.py:130-132)")
+    s.add_argument("--no-vmap-arch", action="store_true",
+                   help="one launch per architecture instead of one per "
+                        "depth class (the default runs the 90-config grid "
+                        "as 2 launches; parity-check path)")
+    s.add_argument("--no-bucket-pad", action="store_true",
+                   help="run each architecture at its own dims instead of "
+                        "zero-padding it to its depth class's max dims "
+                        "(the pad is exact)")
+    s.add_argument("--no-overlap-compile", action="store_true",
+                   help="accepted for fedtpu's command lines; the port "
+                        "compiles no program, so it changes nothing")
+    s.add_argument("--plateau-stop", action="store_true",
+                   help="sklearn-faithful local fits: treat the step "
+                        "budget as a cap and stop each (client, lr) fit "
+                        "once its loss plateaus (tol 1e-4, 10 epochs)")
     return parser
 
 
@@ -189,14 +231,17 @@ def config_from_args(args):
     if args.participation_rate is not None:
         fed = dataclasses.replace(fed,
                                   participation_rate=args.participation_rate)
-    if args.aggregation is not None:
+    if getattr(args, "aggregation", None) is not None:
         fed = dataclasses.replace(fed, aggregation=args.aggregation)
     if args.local_steps is not None:
         fed = dataclasses.replace(fed, local_steps=args.local_steps)
     if args.prox_mu is not None:
         fed = dataclasses.replace(fed, prox_mu=args.prox_mu)
-    if args.init_weights is not None:
+    if getattr(args, "init_weights", None) is not None:
         fed = dataclasses.replace(fed, init_weights_npz=args.init_weights)
+    if getattr(args, "personalize_steps", None) is not None:
+        fed = dataclasses.replace(fed,
+                                  personalize_steps=args.personalize_steps)
     for flag in ("scaffold", "dp_adaptive_clip"):
         if getattr(args, flag):
             fed = dataclasses.replace(fed, **{flag: True})
@@ -213,7 +258,7 @@ def config_from_args(args):
                  "metrics_jsonl"):
         if getattr(args, flag) is not None:
             run = dataclasses.replace(run, **{flag: getattr(args, flag)})
-    if args.pipelined_stop:
+    if getattr(args, "pipelined_stop", False):
         run = dataclasses.replace(run, pipelined_stop=True)
     if args.eval_test_every is not None:
         run = dataclasses.replace(run, eval_test_every=args.eval_test_every)
@@ -223,11 +268,54 @@ def config_from_args(args):
                        fed=fed, run=run)
 
 
+def sweep_main(args, cfg, device: str) -> dict:
+    """``fedtpu``'s ``sweep`` handler: the grid (narrowed to one
+    architecture / learning rate by ``--hidden-sizes`` /
+    ``--learning-rate``), its table and weights artifact."""
+    from fedtpu_torch.sweep.grid import run_grid_search, save_best_weights
+    # Probe both output paths before the sweep, the weights path before
+    # the table file is truncated.
+    if args.save_weights:
+        open(args.save_weights, "ab").close()
+    table_f = open(args.table_jsonl, "w") if args.table_jsonl else None
+    grid_kw = {}
+    if args.hidden_sizes is not None:
+        grid_kw["hidden_grid"] = (tuple(args.hidden_sizes),)
+    if args.learning_rate is not None:
+        grid_kw["lr_grid"] = (args.learning_rate,)
+    if args.local_steps is not None:
+        grid_kw["local_steps"] = args.local_steps
+    try:
+        summary = run_grid_search(
+            cfg, vmap_lr=not args.no_vmap_lr, **grid_kw,
+            keep_weights=bool(args.save_weights),
+            plateau_stop=args.plateau_stop,
+            bucket_pad=not args.no_bucket_pad,
+            vmap_arch=not args.no_vmap_arch,
+            overlap_compile=not args.no_overlap_compile,
+            verbose=not args.quiet, device=device)
+        if table_f is not None:
+            for row in summary["table"]:
+                table_f.write(json.dumps(row, default=float) + "\n")
+        if args.save_weights:
+            save_best_weights(args.save_weights, summary)
+            summary.pop("weights", None)
+    finally:
+        if table_f is not None:
+            table_f.close()
+    return summary
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from fedtpu_torch.orchestration.loop import run_experiment
     cfg = config_from_args(args)
     device = "cpu" if args.platform == "cpu" else "cuda"
+    if args.command == "sweep":
+        summary = sweep_main(args, cfg, device)
+        if args.json:
+            print(json.dumps(summary, default=float))
+        return 0
+    from fedtpu_torch.orchestration.loop import run_experiment
     result = run_experiment(cfg, verbose=not args.quiet, device=device,
                             resume=args.resume)
     summary = result.summary()

@@ -176,8 +176,11 @@ class FedConfig:
     krum_f: int = 0
     byzantine_clients: int = 0
     compress: str = "none"
-    # Not ported yet: each must stay at its default (_FED_ITEMS).
+    # Post-training per-client fine-tuning: E local steps from the final
+    # global model, reported beside it (fedtpu_torch.training.personalize);
+    # 0 = off.
     personalize_steps: int = 0
+    # Not ported yet: each must stay at its default (_FED_ITEMS).
     async_mode: bool = False
     async_arrival_rate: float = 0.5
     async_arrival_seed: int = 0
@@ -211,7 +214,6 @@ class FedConfig:
 
 # FedConfig's knobs of paths not ported yet -> the ROADMAP item of each.
 _FED_ITEMS = {
-    "personalize_steps": "A7",
     **dict.fromkeys(("async_mode", "async_arrival_rate", "async_arrival_seed",
                      "async_staleness_power", "async_buffer_size"), "A8"),
     **dict.fromkeys(("cohort_size", "client_store", "client_store_path",

@@ -52,6 +52,10 @@ _STAGING_ROWS = 8
 WAVG_MAX_THREADS = 256    # FT_WAVG_MAX_THREADS in csrc/weighted_average.cu
 THREADS_MAX = 256         # FT_THREADS in csrc/mlp_forward.cuh
 RING_MAX_SHARDS = 64      # FT_RING_MAX_SHARDS in csrc/ring_all_reduce.cu
+# K2's clients axis is its grid's y dimension (at most 65,535 blocks);
+# K1 takes its width as a C int.
+EVAL_MAX_CLIENTS = 65_535
+WAVG_MAX_WIDTH = 2**31 - 1
 
 
 def reset_launch_counts() -> None:
@@ -367,6 +371,9 @@ def weighted_average_clients(stacked: torch.Tensor, weights: torch.Tensor,
     _check(weights, "weights", torch.float32, (c,))
     if dev.type == "cpu":
         return weighted_average_clients_reference(stacked, weights, broadcast)
+    if d > WAVG_MAX_WIDTH:
+        raise ValueError(f"stacked of shape {(c, d)}: the FedAvg kernel "
+                         f"takes at most {WAVG_MAX_WIDTH} columns on the card")
     out = torch.empty((c, d) if broadcast else (d,), dtype=torch.float32,
                       device=dev)
     if out.numel() == 0:
@@ -423,6 +430,10 @@ def fused_eval_confusion(flat: torch.Tensor, dims: Sequence[int],
         return fused_eval_confusion_reference(flat, dims, x, y, mask,
                                               num_classes)
     _check_depth(dims)
+    if c > EVAL_MAX_CLIENTS:
+        raise ValueError(f"{c} models: the eval kernel takes at most "
+                         f"{EVAL_MAX_CLIENTS} on the card (its grid's y "
+                         "dimension)")
     plan = _eval_plan(param_count(dims), dims)
     conf = torch.zeros((c, num_classes, num_classes), dtype=torch.float32,
                        device=dev)

@@ -17,7 +17,8 @@ corrections drift apart. Both are computed per client on the device as
 a ``(C,)`` participation mask: a client whose entry is 0 keeps its params
 and every state tensor, count included, bit for bit (``fedtpu.parallel.
 round``'s ``select``). FedAvg never touches this state: each client's
-moments persist un-averaged.
+moments persist un-averaged. ``build_sweep_adam`` is the hyperparameter
+grid's: the same Adam direction at a constant rate per model.
 """
 
 from __future__ import annotations
@@ -72,24 +73,32 @@ def select_participants(part: Optional[torch.Tensor], new: dict,
                            _col(keep), new[k], old[k]) for k in new}
 
 
+def _adam_init(params: torch.Tensor) -> dict:
+    return {"mu": torch.zeros_like(params), "nu": torch.zeros_like(params),
+            "count": _init_count(params)}
+
+
+def _scale_by_adam(cfg: OptimConfig, grads: torch.Tensor,
+                   state: dict) -> tuple:
+    """optax's ``scale_by_adam(b1, b2, eps, eps_root=0)``: the direction
+    ``m_hat / (sqrt(v_hat) + eps)`` and the new moments and counts."""
+    mu = (1 - cfg.b1) * grads + cfg.b1 * state["mu"]
+    nu = (1 - cfg.b2) * (grads * grads) + cfg.b2 * state["nu"]
+    count = state["count"] + 1
+    mu_hat = mu / _col(_bias_correction(cfg.b1, count))
+    nu_hat = nu / _col(_bias_correction(cfg.b2, count))
+    return (mu_hat / (torch.sqrt(nu_hat) + cfg.eps),
+            {"mu": mu, "nu": nu, "count": count})
+
+
 def build_optimizer(cfg: OptimConfig) -> Optimizer:
     if cfg.name == "adam":
-        def init(params):
-            return {"mu": torch.zeros_like(params),
-                    "nu": torch.zeros_like(params),
-                    "count": _init_count(params)}
-
         def update(grads, state, params):
-            mu = (1 - cfg.b1) * grads + cfg.b1 * state["mu"]
-            nu = (1 - cfg.b2) * (grads * grads) + cfg.b2 * state["nu"]
-            count = state["count"] + 1
-            mu_hat = mu / _col(_bias_correction(cfg.b1, count))
-            nu_hat = nu / _col(_bias_correction(cfg.b2, count))
-            upd = mu_hat / (torch.sqrt(nu_hat) + cfg.eps)
+            upd, new_state = _scale_by_adam(cfg, grads, state)
             new = params + _col(-step_lr(cfg, state["count"])) * upd
-            return new, {"mu": mu, "nu": nu, "count": count}
+            return new, new_state
 
-        return Optimizer(init, update)
+        return Optimizer(_adam_init, update)
     if cfg.name == "sgd":
         def init(params):
             return {"trace": torch.zeros_like(params),
@@ -102,3 +111,17 @@ def build_optimizer(cfg: OptimConfig) -> Optimizer:
 
         return Optimizer(init, update)
     raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+
+def build_sweep_adam(cfg: OptimConfig) -> Optimizer:
+    """The sweep's optimizer (``fedtpu.sweep.grid``): optax's
+    ``scale_by_adam(b1, b2, eps, eps_root=0)`` followed by ``p - lr * u``,
+    a constant rate per model and no StepLR. ``update(grads, state, params,
+    lr)`` takes ``lr`` as a column over the params' last axis (one rate a
+    model, ``(M, 1)`` for ``(M, P)`` params); each model keeps its own
+    update count."""
+    def update(grads, state, params, lr):
+        upd, new_state = _scale_by_adam(cfg, grads, state)
+        return params - lr * upd, new_state
+
+    return Optimizer(_adam_init, update)

@@ -12,7 +12,9 @@ warm start, the ``metrics_jsonl`` log and ``pipelined_stop``; on the delta
 path the server optimizer's and the adaptive clip's state, SCAFFOLD's
 variates, and the DP privacy ledger (``fedtpu_torch.orchestration.
 privacy``), persisted in every checkpoint's meta and reported by
-``ExperimentResult.privacy_spent``.
+``ExperimentResult.privacy_spent``; after a run that did not diverge,
+``personalize_steps`` of per-client fine-tuning from the final global
+model (``fedtpu_torch.training.personalize``), reported beside it.
 
 On the card each chunk is one replay of a CUDA graph of the round step
 (``fedtpu_torch.parallel.round.capture_round_step``; one graph per chunk
@@ -62,6 +64,7 @@ from fedtpu_torch.parallel.round import (assemble_metrics, build_eval_fn,
                                          check_knobs, global_params,
                                          init_federated_state, pack_outputs,
                                          unpack_outputs, warm_up_round)
+from fedtpu_torch.training.personalize import build_personalize_fn
 
 
 def resolve_device(device) -> torch.device:
@@ -116,6 +119,11 @@ class ExperimentResult:
     dp_composed: bool = False
     # Final adaptive clip norm; None when adaptive clipping is off.
     final_dp_clip: Optional[float] = None
+    # Post-training personalization (FedConfig.personalize_steps > 0):
+    # {"per_client": {name: (C,)}, "client_mean": {name: float}}; empty when
+    # it is off.
+    personalized_metrics: Dict[str, dict] = dataclasses.field(
+        default_factory=dict)
 
     def summary(self) -> dict:
         warm = max(1, self.config.run.rounds_per_step)
@@ -129,6 +137,9 @@ class ExperimentResult:
             "final_global_metrics": {k: v[-1] for k, v in
                                      self.global_metrics.items() if v},
             "mean_sec_per_round": float(np.mean(steady)),
+            **({"personalized_client_mean":
+                self.personalized_metrics.get("client_mean")}
+               if self.personalized_metrics else {}),
             **({"dp": dp} if dp else {}),
             **({"final_dp_clip": self.final_dp_clip}
                if self.final_dp_clip is not None else {}),
@@ -191,6 +202,8 @@ class Experiment:
     mesh: ClientMesh
     client_weights: torch.Tensor           # (C,) FedAvg base weights
     tx: Optimizer
+    # Post-training per-client fine-tune (FedConfig.personalize_steps > 0).
+    personalize_fn: Optional[Callable] = None
 
 
 def warm_start_params(path: str, dims: tuple) -> torch.Tensor:
@@ -283,10 +296,15 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         robust_aggregation=fed.robust_aggregation,
         trim_ratio=fed.trim_ratio, krum_f=fed.krum_f,
         byzantine_clients=fed.byzantine_clients, scaffold=fed.scaffold)
+    personalize_fn = None
+    if fed.personalize_steps > 0:
+        personalize_fn = build_personalize_fn(dims, tx, ds.num_classes,
+                                              fed.personalize_steps)
     return Experiment(make_step=make_step, state=state, batch=batch,
                       eval_step=build_eval_fn(dims, ds.num_classes),
                       dataset=ds, device=dev, dims=dims, mesh=mesh,
-                      client_weights=client_weights, tx=tx)
+                      client_weights=client_weights, tx=tx,
+                      personalize_fn=personalize_fn)
 
 
 class _Fetch:
@@ -697,6 +715,24 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         if jsonl is not None:
             jsonl.close()
 
+    personalized: Dict[str, dict] = {}
+    if exp.personalize_fn is not None and not flags["diverged"]:
+        # Each client fine-tunes the final global model on its own shard;
+        # the personalized models are reported, not kept (final_params stay
+        # the global model).
+        _, pm = exp.personalize_fn(state["params"], batch)
+        # Metric names sorted, as fedtpu's come out of its jit.
+        personalized = {
+            "per_client": {k: pm["per_client"][k].cpu().numpy()
+                           for k in sorted(pm["per_client"])},
+            "client_mean": {k: float(pm["client_mean"][k])
+                            for k in sorted(pm["client_mean"])},
+        }
+        vals = ", ".join(f"{k}: {v:.4f}"
+                         for k, v in personalized["client_mean"].items())
+        say(f"Personalized ({cfg.fed.personalize_steps} local steps) "
+            f"client-mean: [{vals}]")
+
     rounds_trained = int(state["round"])
     result = ExperimentResult(
         global_metrics=history, pooled_metrics=pooled_hist,
@@ -712,7 +748,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         dp_guarantee_void=ledger.void_at(rounds_trained),
         dp_composed=ledger.composed,
         final_dp_clip=(float(state["dp_clip"]) if "dp_clip" in state
-                       else None))
+                       else None),
+        personalized_metrics=personalized)
     dp = result.privacy_spent()
     if dp:
         notes = ""

@@ -289,21 +289,26 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
     from fedtpu_torch.benchmarks import mega_kernel_attempt as mega
     from fedtpu_torch.orchestration.loop import (build_experiment,
                                                  run_experiment)
+    from fedtpu_torch.sweep.grid import run_grid_search
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tcfg.ExperimentConfig(data=tcfg.DataConfig(synthetic_rows=64),
                                 fed=tcfg.FedConfig(rounds=1))
-    for entry in (run_experiment, build_experiment, mega.run):
+    for entry in (run_experiment, build_experiment, mega.run,
+                  run_grid_search):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(cfg)
     from fedtpu_torch.cli import main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["run", "--rounds", "1", "--synthetic-rows", "64", "--quiet"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["sweep", "--local-steps", "1", "--synthetic-rows", "64",
+              "--quiet"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         mega.main(["--rounds", "1", "--synthetic-rows", "64"])
 
 
 @pytest.mark.parametrize("kw", [
-    dict(personalize_steps=1), dict(async_buffer_size=2),
+    dict(async_arrival_seed=1), dict(async_buffer_size=2),
     dict(async_arrival_rate=0.9),
     dict(async_staleness_power=1.0), dict(client_store="sqlite"),
     dict(cohort_seed=1), dict(cohort_sampling="weighted"),
@@ -324,7 +329,6 @@ _UNPORTED = {
     "ModelConfig": {k: "A7" for k in ("kind", "image_shape", "conv_channels",
                                       "param_dtype", "compute_dtype")},
     "FedConfig": {
-        "personalize_steps": "A7",
         **{k: "A8" for k in ("async_mode", "async_arrival_rate",
                              "async_arrival_seed", "async_staleness_power",
                              "async_buffer_size")},
@@ -438,7 +442,8 @@ def test_ported_knobs_take_other_values():
                               "tolerance", "same_init", "init_seed",
                               "participation_rate", "participation_seed",
                               "aggregation", "local_steps", "prox_mu",
-                              "init_weights_npz", *_A6_KNOBS},
+                              "init_weights_npz", "personalize_steps",
+                              *_A6_KNOBS},
                 "RunConfig": {"log_every", "log_per_client",
                               "rounds_per_step", "eval_test_every",
                               "halt_on_nonfinite", "mesh_devices",
@@ -453,6 +458,7 @@ def test_ported_knobs_take_other_values():
     ("DataConfig", dict(native_loader=False)),
     ("FedConfig", dict(local_steps=5)), ("FedConfig", dict(prox_mu=0.01)),
     ("FedConfig", dict(init_weights_npz="best.npz")),
+    ("FedConfig", dict(personalize_steps=5)),
     ("RunConfig", dict(checkpoint_dir="ck", checkpoint_every=10,
                        keep_checkpoints=2)),
     ("RunConfig", dict(metrics_jsonl="m.jsonl")),

@@ -1819,3 +1819,423 @@ def test_captured_run_is_bitwise_the_uncaptured_run(cuda, rounds_per_step,
     for width, launches in graph.graph_launches.items():
         assert launches[average] == launches["fused_eval_confusion"] == width
     assert graph.warmup_rounds == 1 and plain.warmup_rounds == 0
+
+
+# ------------------------------------ the hyperparameter grid (A7's sweep)
+from fedtpu_torch.sweep import grid as t_grid  # noqa: E402
+
+SWEEP_ROWS = 256
+# The reference grid's shape (10 architectures of 2 depths, so the launch
+# plans give 2, 10 and 90 launches) at 1/25 of its widths, so that the CPU
+# trains it in seconds.
+SMALL_HIDDEN_GRID = tuple(tuple(max(1, w // 25) for w in h)
+                          for h in t_grid.HIDDEN_GRID)
+
+
+def _sweep_configs(clients=8):
+    j = jcfg.ExperimentConfig(
+        data=jcfg.DataConfig(csv_path=None, synthetic_rows=SWEEP_ROWS),
+        shard=jcfg.ShardConfig(num_clients=clients))
+    t = tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(synthetic_rows=SWEEP_ROWS),
+        shard=tcfg.ShardConfig(num_clients=clients))
+    return j, t
+
+
+def _fedtpu_sweep_inits(hidden_grid, input_dim=14, classes=2):
+    """fedtpu's seed-42 init of every architecture (its run_grid_search's
+    draw), as the port's ``init_params`` mapping."""
+    from fedtpu.models.mlp import mlp_init as j_mlp_init
+    return {tuple(h): _np(j_mlp_init(jax.random.key(42), input_dim, h,
+                                     classes))
+            for h in hidden_grid}
+
+
+def _sweep_inputs(hidden, lrs):
+    """The same start, data and rates for fedtpu's _build_sweep_fn and the
+    port's build_sweep_fn: fedtpu's seed-42 init in every (client, rate)
+    slot of 8 clients."""
+    import optax
+    from fedtpu.data.sharding import pack_clients as j_pack
+    from fedtpu.data.tabular import load_tabular_dataset as j_load
+    from fedtpu.parallel.mesh import client_sharding, make_mesh
+    j_cfg, _ = _sweep_configs()
+    ds = j_load(j_cfg.data)
+    mesh = make_mesh(num_clients=8)
+    shard = client_sharding(mesh)
+    packed = j_pack(ds.x_train, ds.y_train, j_cfg.shard)
+    base = _fedtpu_sweep_inits([hidden])[tuple(hidden)]
+    params = jax.tree.map(
+        lambda p: jnp.broadcast_to(p, (8, len(lrs)) + p.shape), base)
+    opt = jax.vmap(jax.vmap(
+        lambda p: optax.scale_by_adam(eps_root=0.0).init(p)))(params)
+    put = lambda t: jax.tree.map(lambda p: jax.device_put(p, shard), t)
+    j_args = (put(params), put(opt), jnp.asarray(lrs, jnp.float32),
+              *(jax.device_put(v, shard)
+                for v in (packed.x, packed.y, packed.mask)))
+    t_params = convert.params_from_jax(base).expand(
+        8, len(lrs), -1).contiguous()
+    t_args = (t_params,
+              t_grid.build_sweep_adam(tcfg.OptimConfig()).init(t_params),
+              torch.tensor(lrs, dtype=torch.float32),
+              *(torch.from_numpy(v) for v in (packed.x, packed.y,
+                                              packed.mask)),
+              (ds.input_dim, *hidden, ds.num_classes))
+    return mesh, j_cfg, j_args, t_args
+
+
+@pytest.mark.parametrize("plateau,steps", [(False, 20), (True, 60)],
+                         ids=["fixed", "plateau"])
+def test_sweep_program_matches_fedtpus_build_sweep_fn(plateau, steps):
+    """One launch of the sweep's training program from fedtpu's init, 8
+    clients x 3 rates at (4, 4): the per-rate averaged models within 1e-5
+    of fedtpu's _build_sweep_fn (measured: 6.4e-07 fixed, 2.6e-06 plateau),
+    the per-(client, rate) and pooled confusion counts equal, and the
+    plateau mode's mean steps (with sklearn's L2 term) exactly equal."""
+    from fedtpu.sweep.grid import _build_sweep_fn
+    hidden, lrs = (4, 4), (0.01, 0.05, 0.2)
+    mesh, j_cfg, j_args, t_args = _sweep_inputs(hidden, lrs)
+    l2 = 1e-4 if plateau else 0.0
+    j_fn = _build_sweep_fn(mesh, 2, local_steps=steps,
+                           optim_cfg=j_cfg.optim, plateau_stop=plateau,
+                           l2_alpha=l2)
+    t_fn = t_grid.build_sweep_fn(2, steps, tcfg.OptimConfig(),
+                                 plateau_stop=plateau, l2_alpha=l2)
+    j_avg, j_conf, j_pooled, j_steps = j_fn(*j_args)
+    t_avg, t_conf, t_pooled, t_steps = t_fn(*t_args)
+    np.testing.assert_allclose(t_avg.numpy(), _flat(j_avg), atol=1e-5)
+    np.testing.assert_array_equal(t_conf.numpy(), np.asarray(j_conf))
+    np.testing.assert_array_equal(t_pooled.numpy(), np.asarray(j_pooled))
+    np.testing.assert_array_equal(t_steps.numpy(), np.asarray(j_steps))
+    if plateau:
+        assert np.asarray(j_steps).min() < steps   # some fits did stop
+
+
+def test_sweep_plateau_freezes_exactly_at_the_plateau_point():
+    """fedtpu's mechanism pin on the port: with a huge tol every step after
+    the first is 'no improvement', so the counter exceeds
+    n_iter_no_change=2 after step 4 and each model then coasts: the result
+    equals a fixed 4-step run bit for bit, and fedtpu's plateau run within
+    1e-5."""
+    from fedtpu.sweep.grid import _build_sweep_fn
+    mesh, j_cfg, j_args, t_args = _sweep_inputs((8,), (0.01,))
+    plateau = t_grid.build_sweep_fn(2, 20, tcfg.OptimConfig(),
+                                    plateau_stop=True, tol=1e9,
+                                    n_iter_no_change=2)
+    fixed = t_grid.build_sweep_fn(2, 4, tcfg.OptimConfig())
+    p_avg, p_conf, _, p_steps = plateau(*t_args)
+    f_avg, f_conf, _, f_steps = fixed(*t_args)
+    assert p_steps.tolist() == f_steps.tolist() == [4.0]
+    assert torch.equal(p_avg, f_avg) and torch.equal(p_conf, f_conf)
+    j_avg, _, _, j_steps = _build_sweep_fn(
+        mesh, 2, local_steps=20, optim_cfg=j_cfg.optim, plateau_stop=True,
+        tol=1e9, n_iter_no_change=2)(*j_args)
+    assert np.asarray(j_steps).tolist() == [4.0]
+    np.testing.assert_allclose(p_avg.numpy(), _flat(j_avg), atol=1e-5)
+
+
+def _grid_rows(res):
+    return {(r["hidden_layer_sizes"], r["learning_rate"]): r
+            for r in res["table"]}
+
+
+def _tie_keys(res):
+    return {(t["hidden_layer_sizes"], t["learning_rate"])
+            for t in res["tie_set"]}
+
+
+@pytest.mark.parametrize("plan,launches", [
+    (dict(), 2), (dict(vmap_arch=False), 10), (dict(vmap_lr=False), 90)],
+    ids=["2-launches", "10-launches", "90-launches"])
+def test_grid_search_matches_fedtpus(plan, launches):
+    """run_grid_search against fedtpu's on the reference grid's shape (10
+    architectures, the 9 reference rates, 20 steps) from fedtpu's init, in
+    each of its launch plans: the launch count equal (2, 10, 90), every
+    row's pooled metrics within 1e-6 (accuracies equal), the winner and
+    the tie set equal, and the winner's weights at true dims within 1e-5;
+    compile_count is None (no program to compile)."""
+    from fedtpu.sweep.grid import run_grid_search as j_grid
+    j_cfg, t_cfg = _sweep_configs()
+    kw = dict(hidden_grid=SMALL_HIDDEN_GRID, local_steps=20,
+              keep_weights=True, verbose=False, **plan)
+    rj = j_grid(j_cfg, **kw)
+    rt = t_grid.run_grid_search(
+        t_cfg, device="cpu", init_params=_fedtpu_sweep_inits(
+            SMALL_HIDDEN_GRID), **kw)
+    assert rt["launch_count"] == rj["launch_count"] == launches
+    assert rt["compile_count"] is None
+    assert len(rt["launch_times"]) == launches
+    tj, tt = _grid_rows(rj), _grid_rows(rt)
+    assert list(tt) == list(tj) and len(tt) == 90
+    for key in tj:
+        assert tt[key]["accuracy"] == tj[key]["accuracy"], key
+        for m in ("precision", "recall", "f1", "mean_local_steps"):
+            np.testing.assert_allclose(tt[key][m], tj[key][m], atol=1e-6)
+        assert tt[key]["in_tie_set"] == tj[key]["in_tie_set"]
+    assert rt["params"] == rj["params"]
+    assert rt["metrics"] == pytest.approx(rj["metrics"], abs=1e-6)
+    assert _tie_keys(rt) == _tie_keys(rj)
+    assert rt["weight_shapes"] == rj["weight_shapes"]
+    for a, b in zip(jax.tree.leaves(rt["weights"]),
+                    jax.tree.leaves(_np(rj["weights"]))):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+def test_grid_search_prints_fedtpus_winner_lines(capsys):
+    """The reference's two report lines, byte for byte fedtpu's."""
+    from fedtpu.sweep.grid import run_grid_search as j_grid
+    j_cfg, t_cfg = _sweep_configs()
+    kw = dict(hidden_grid=((8,), (4, 4)), lr_grid=(0.002, 0.05),
+              local_steps=20)
+    j_grid(j_cfg, **kw)
+    j_out = capsys.readouterr().out
+    t_grid.run_grid_search(t_cfg, device="cpu",
+                           init_params=_fedtpu_sweep_inits(kw["hidden_grid"]),
+                           **kw)
+    t_out = capsys.readouterr().out
+
+    def report(out):
+        return [l for l in out.splitlines() if l.startswith("Best Global")]
+    assert len(report(t_out)) == 2 and report(t_out) == report(j_out)
+
+
+@pytest.mark.parametrize("variant,tol", [
+    (dict(bucket_pad=False), 1e-6), (dict(vmap_arch=False), 1e-5),
+    (dict(vmap_lr=False), 1e-5)],
+    ids=["unpadded", "per-architecture", "sequential-rates"])
+def test_grid_search_launch_plans_agree(variant, tol):
+    """The port against itself at fedtpu's tolerances
+    (tests/test_sweep.py): padded against unpadded (the zero pad is exact
+    math; 1e-6), the depth class stacked into one launch against a launch
+    per architecture and against a launch per rate (differently shaped
+    batched products; 1e-5): the same table, winner, tie set and winner
+    weights; plateau stop points unmoved by the pad."""
+    _, t_cfg = _sweep_configs()
+    hidden = ((8,), (16,), (4, 4), (16, 8), (8, 16))
+    kw = dict(hidden_grid=hidden, lr_grid=(0.01, 0.05), local_steps=20,
+              keep_weights=True, verbose=False, device="cpu")
+    base = t_grid.run_grid_search(t_cfg, **kw)
+    other = t_grid.run_grid_search(t_cfg, **kw, **variant)
+    tb, to = _grid_rows(base), _grid_rows(other)
+    assert list(tb) == list(to) and len(tb) == 10
+    for key in tb:
+        for m in ("accuracy", "precision", "recall", "f1"):
+            np.testing.assert_allclose(tb[key][m], to[key][m], atol=tol)
+    assert base["params"] == other["params"]
+    assert _tie_keys(base) == _tie_keys(other)
+    for a, b in zip(jax.tree.leaves(base["weights"]),
+                    jax.tree.leaves(other["weights"])):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=tol)
+    if "bucket_pad" in variant:
+        kw.update(hidden_grid=((4, 4), (8, 16)), lr_grid=(0.05,),
+                  local_steps=60, plateau_stop=True)
+        padded = t_grid.run_grid_search(t_cfg, **kw)
+        unpadded = t_grid.run_grid_search(t_cfg, **kw, **variant)
+        for rb, ru in zip(padded["table"], unpadded["table"]):
+            assert rb["mean_local_steps"] == ru["mean_local_steps"]
+            np.testing.assert_allclose(rb["accuracy"], ru["accuracy"],
+                                       atol=1e-6)
+
+
+def test_grid_search_launch_plan_of_the_reference_grid(monkeypatch):
+    """The reference's 90 configs: 2 launches (one per depth class: 18
+    slots at fedtpu's (100,) bucket, then 72 at (400, 400)), 10 without
+    stacking the architectures, 90 without the rates (a stand-in training
+    program records each launch's slots and dims)."""
+    calls = []
+
+    def fake_sweep(params, opt_state, lrs, x, y, mask, dims, inspect=None):
+        c, s, p = params.shape
+        calls.append((s, tuple(dims)))
+        conf = torch.zeros(c, s, 2, 2)
+        conf[..., 0, 0] = 1.0
+        return torch.zeros(s, p), conf, conf.sum(0), torch.ones(s)
+
+    monkeypatch.setattr(t_grid, "build_sweep_fn",
+                        lambda *a, **k: fake_sweep)
+    _, t_cfg = _sweep_configs(clients=2)
+    for plan, want in ((dict(), 2), (dict(vmap_arch=False), 10),
+                       (dict(vmap_lr=False), 90)):
+        calls.clear()
+        res = t_grid.run_grid_search(t_cfg, local_steps=1, device="cpu",
+                                     verbose=False, **plan)
+        assert res["launch_count"] == len(calls) == want
+        assert len(res["table"]) == 90
+        if want == 2:
+            assert calls == [(18, (14, 100, 2)), (72, (14, 400, 400, 2))]
+
+
+def test_cli_sweep_writes_the_table_and_weights_fedtpu_reads(tmp_path,
+                                                            capsys):
+    """`sweep` on the port's CLI with the grid narrowed to one architecture
+    and rate: one table line, a JSON summary, and a --save-weights artifact
+    that fedtpu's load_best_weights reads and the port's `run
+    --init-weights` warm-starts from (round 1 already far above a fresh
+    start, as fedtpu's test_run_warm_starts_from_sweep_winner)."""
+    from fedtpu.sweep.grid import load_best_weights as j_read
+    from fedtpu_torch.cli import main
+    table, npz = tmp_path / "t.jsonl", tmp_path / "w.npz"
+    common = ["--platform", "cpu", "--csv", "", "--synthetic-rows",
+              str(SWEEP_ROWS), "--hidden-sizes", "8", "--quiet", "--json"]
+    assert main(["sweep", *common, "--learning-rate", "0.05",
+                 "--local-steps", "60", "--table-jsonl", str(table),
+                 "--save-weights", str(npz)]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    rows = [json.loads(l) for l in table.read_text().splitlines()]
+    assert [(r["hidden_layer_sizes"], r["learning_rate"]) for r in rows] \
+        == [([8], 0.05)]
+    assert summary["launch_count"] == 1 and "weights" not in summary
+    loaded = j_read(str(npz))
+    assert tuple(loaded["params"]["hidden_layer_sizes"]) == (8,)
+    assert loaded["params"]["learning_rate"] == 0.05
+    assert loaded["accuracy"] == summary["accuracy"] > 0.9
+    assert [l["w"].shape for l in loaded["weights"]["layers"]] == \
+        [(14, 8), (8, 2)]
+    run = ["run", *common, "--num-clients", "8", "--rounds", "1"]
+    assert main(run) == 0
+    fresh = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert main(run + ["--init-weights", str(npz)]) == 0
+    warm = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    acc = lambda s: s["final_global_metrics"]["accuracy"]
+    assert acc(warm) > 0.85 and acc(warm) > acc(fresh) + 0.2
+
+
+def test_cli_sweep_flags_are_fedtpus_sweep_flags():
+    """Every flag of the port's `sweep` is one of fedtpu's `sweep`, and
+    `run --personalize-steps` sets fedtpu's field."""
+    from fedtpu.cli import build_parser as j_parser
+    from fedtpu_torch.cli import build_parser as t_parser
+    from fedtpu_torch.cli import config_from_args
+
+    def sub(parser, name):
+        act = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction))
+        return {f for a in act.choices[name]._actions
+                for f in a.option_strings}
+    extra = sub(t_parser(), "sweep") - sub(j_parser(), "sweep")
+    assert extra == {"--synthetic-rows"}      # the port's run has it too
+    for flag in ("--no-vmap-lr", "--table-jsonl", "--save-weights",
+                 "--no-vmap-arch", "--no-bucket-pad", "--no-overlap-compile",
+                 "--plateau-stop"):
+        assert flag in sub(t_parser(), "sweep")
+    args = t_parser().parse_args(["run", "--personalize-steps", "7"])
+    assert config_from_args(args).fed.personalize_steps == 7
+    with pytest.raises(SystemExit):
+        t_parser().parse_args(["run", "--personalize-steps", "0"])
+
+
+# ------------------------------------- post-training personalization (A7)
+def test_personalize_matches_fedtpus_build_personalize_fn():
+    """From fedtpu's state after 3 rounds of income-8-shaped training: 5
+    local steps per client with a fresh Adam state, then each client's
+    metrics on its own shard: per-client metrics equal, client mean and
+    the last step's losses within 1e-5, personalized params within 1e-5
+    of fedtpu's; steps < 1 raises fedtpu's ValueError."""
+    from fedtpu.data.sharding import pack_clients as j_pack
+    from fedtpu.data.tabular import load_tabular_dataset as j_load
+    from fedtpu.parallel import client_sharding, make_mesh
+    from fedtpu.parallel.round import build_round_fn, init_federated_state
+    from fedtpu.training.personalize import build_personalize_fn as j_pers
+    from fedtpu_torch.training.personalize import build_personalize_fn
+    j_cfg, _ = _configs()
+    ds = j_load(j_cfg.data)
+    packed = j_pack(ds.x_train, ds.y_train, j_cfg.shard)
+    mesh = make_mesh(num_clients=8)
+    shard = client_sharding(mesh)
+    batch = {k: jax.device_put(v, shard) for k, v in
+             {"x": packed.x, "y": packed.y, "mask": packed.mask}.items()}
+    init_fn, apply_fn = build_model(j_cfg.model)
+    tx = build_optimizer(j_cfg.optim)
+    state = init_federated_state(jax.random.key(0), mesh, 8, init_fn, tx,
+                                 same_init=True)
+    step = build_round_fn(mesh, apply_fn, tx, 2)
+    for _ in range(3):
+        state, _ = step(state, batch)
+    j_personal, jm = j_pers(apply_fn, tx, 2, steps=5)(state["params"],
+                                                      batch)
+    dims = (14, 50, 200, 2)
+    from fedtpu_torch.ops.optim import build_optimizer as t_build_opt
+    t_tx = t_build_opt(tcfg.OptimConfig())
+    t_batch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    t_personal, tm = build_personalize_fn(dims, t_tx, 2, 5)(
+        convert.params_from_jax(_np(state["params"])), t_batch)
+    np.testing.assert_allclose(t_personal.numpy(), _flat(j_personal),
+                               atol=1e-5)
+    for k in METRIC_NAMES:
+        np.testing.assert_array_equal(tm["per_client"][k].numpy(),
+                                      np.asarray(jm["per_client"][k]))
+        np.testing.assert_allclose(float(tm["client_mean"][k]),
+                                   float(jm["client_mean"][k]), atol=1e-6)
+    np.testing.assert_allclose(tm["loss"].numpy(), np.asarray(jm["loss"]),
+                               atol=1e-5)
+    # The slots started equal and trained on different shards.
+    assert float((t_personal[0] - t_personal[1]).abs().max()) > 0
+    with pytest.raises(ValueError) as j_err:
+        j_pers(apply_fn, tx, 2, steps=0)
+    with pytest.raises(ValueError) as t_err:
+        build_personalize_fn(dims, t_tx, 2, 0)
+    assert str(t_err.value) == str(j_err.value)
+
+
+def _personalize_configs(steps):
+    j = jcfg.ExperimentConfig(
+        data=jcfg.DataConfig(csv_path=None, synthetic_rows=512,
+                             synthetic_features=6),
+        shard=jcfg.ShardConfig(num_clients=8, strategy="dirichlet",
+                               dirichlet_alpha=0.3, shuffle=True),
+        model=jcfg.ModelConfig(input_dim=6, hidden_sizes=(8,)),
+        fed=jcfg.FedConfig(rounds=10, personalize_steps=steps),
+        run=jcfg.RunConfig(rounds_per_step=5))
+    t = tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(synthetic_rows=512, synthetic_features=6),
+        shard=tcfg.ShardConfig(num_clients=8, strategy="dirichlet",
+                               dirichlet_alpha=0.3, shuffle=True),
+        model=tcfg.ModelConfig(input_dim=6, hidden_sizes=(8,)),
+        fed=tcfg.FedConfig(rounds=10, personalize_steps=steps),
+        run=tcfg.RunConfig(rounds_per_step=5))
+    return j, t
+
+
+def test_personalized_run_matches_fedtpus_run_experiment(capsys):
+    """fedtpu's Dirichlet(0.3) non-IID config with 10 personalize steps,
+    from fedtpu's init: the same history, personalized per-client metrics
+    equal and client mean within 1e-6 of fedtpu's, the summary's
+    personalized_client_mean and printed line as fedtpu's, and final_params
+    the global model (fedtpu's within 1e-5), not a personalized one; with
+    personalize_steps 0 there is no personalization."""
+    j_cfg, t_cfg = _personalize_configs(10)
+    rj = j_run(j_cfg, verbose=True)
+    j_out = capsys.readouterr().out
+    rt = t_run(t_cfg, verbose=True, device="cpu",
+               init_params=_fedtpu_init(j_cfg))
+    t_out = capsys.readouterr().out
+    assert rt.rounds_run == rj.rounds_run
+    for k in METRIC_NAMES:
+        np.testing.assert_allclose(rt.global_metrics[k],
+                                   rj.global_metrics[k], atol=1e-6)
+        np.testing.assert_array_equal(
+            rt.personalized_metrics["per_client"][k],
+            np.asarray(rj.personalized_metrics["per_client"][k]))
+        np.testing.assert_allclose(
+            rt.personalized_metrics["client_mean"][k],
+            rj.personalized_metrics["client_mean"][k], atol=1e-6)
+    assert rt.summary()["personalized_client_mean"] == pytest.approx(
+        rj.summary()["personalized_client_mean"], abs=1e-6)
+
+    def line(out):
+        return [l for l in out.splitlines() if l.startswith("Personalized")]
+    assert len(line(t_out)) == 1 and line(t_out) == line(j_out)
+    for a, b in zip(jax.tree.leaves(rt.final_params),
+                    jax.tree.leaves(_np(rj.final_params))):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    exp = t_build(t_cfg, device="cpu", init_params=_fedtpu_init(j_cfg))
+    assert exp.personalize_fn is not None
+    off = t_run(t_cfg.replace(fed=dataclasses.replace(
+        t_cfg.fed, personalize_steps=0)), verbose=False, device="cpu",
+        init_params=_fedtpu_init(j_cfg))
+    assert off.personalized_metrics == {}
+    assert "personalized_client_mean" not in off.summary()
+    for a, b in zip(jax.tree.leaves(off.final_params),
+                    jax.tree.leaves(rt.final_params)):
+        np.testing.assert_array_equal(a, b)
