@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero before the result line:
    and timed (CUDA events). K1 in both modes, the (D,) average and the
    broadcast into every slot with the carry-over (every weight 0: the input
    bit for bit), timed beside ``torch.matmul`` and beside the chain the
-   broadcast mode replaces; K3 at N = 2,000 (its plan printed), 100, 1,
+   broadcast mode replaces, at income-8's shape and at cifar10-32's (32,
+   1,070,794); K3 at N = 2,000 (its plan printed), 100, 1,
    2,001 and 100,000, on two other models and on two whose parameters do
    not fit in a block ((256, 256) and (200, 200, 200): the streamed path),
    timed under its plan and its nearest tiles. The eval kernel (K2) at
@@ -63,6 +64,13 @@ Phases, in order; any failure exits non-zero before the result line:
    counted from zero around it, marginal s/round of both loops); K5 timed
    beside its plain version and bound at both batches, with its per-phase
    windows beside the PR 4 design's; a profile of 20 fused rounds.
+   Then the ConvNet family: (h) cifar10-32 at full width (32 clients x
+   1,070,794 parameters, 4,096 synthetic rows, bf16 compute, 50 rounds),
+   captured against uncaptured bitwise, K1 once a round and K2 = K3 = 0
+   (the ConvNet is evaluated through its own forward), s/round of both, a
+   20-round profile, and the same run at fp32 compute; (i) cifar10-32 at
+   full width on 512 rows, 3 rounds, card against CPU at fp32 and bf16;
+   (j) income-8 at bf16 compute against the CPU (K2 = K3 = 0).
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package.
@@ -88,6 +96,9 @@ INCOME_DIMS = (14, 50, 200, 2)
 WIDE_DIMS = (14, 256, 256, 2)
 DEEP_WIDE_DIMS = (14, 200, 200, 200, 2)
 SHARDS = 8                # mesh_devices of the sharded round
+# cifar10-32's ConvNet: 32x32x3 -> conv 32 -> conv 64 -> 256 -> 10.
+CIFAR_PARAMS = 1_070_794
+CIFAR_ROUNDS = 50
 TIMING_REPS = 60
 K2_REPEATS = 20
 
@@ -361,6 +372,7 @@ def k1_checks(gen: torch.Generator, dev: torch.device) -> dict:
         glob = ck.weighted_average_clients(x, wt)
         return torch.where(wt.sum() > 0, glob.expand_as(x), x)
 
+    cifar = k1_cifar_checks(dev)
     modes = {}
     for mode, broadcast, nbytes in (
             ("average", False, 4 * (x.numel() + 8 + d8)),
@@ -393,8 +405,69 @@ def k1_checks(gen: torch.Generator, dev: torch.device) -> dict:
     # The row's own numbers are the (D,) mode's, as in every earlier
     # kernels line; the broadcast mode and the chain it replaces in the
     # round sit beside them.
-    return {"max_abs_err": err, **avg, "composed_ms": bc.pop("composed_ms"),
+    return {"max_abs_err": max(err, cifar["max_abs_err"]), **avg,
+            "composed_ms": bc.pop("composed_ms"),
             "modes": {"broadcast": bc},
+            "plan": {"threads": threads, "blocks": blocks},
+            "cifar10_32": cifar}
+
+
+def k1_cifar_checks(dev: torch.device) -> dict:
+    """K1 at cifar10-32's FedAvg, on the inputs that path gives it: the 32
+    clients' freshly initialised (32, 1,070,794) params and their
+    data-size weights. Both modes against the plain version (1e-5) and
+    bitwise across two launches, then timed beside their bounds, the
+    plain version, ``torch.matmul(w / w.sum(), x)`` for the (D,) mode and
+    the chain the broadcast mode replaces in the round."""
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration.loop import build_experiment
+    exp = build_experiment(cifar_config(), device="cuda")
+    x, wt = exp.state["params"], exp.client_weights
+    c, d = x.shape
+    check((c, d) == (32, CIFAR_PARAMS), f"cifar10-32 params {tuple(x.shape)}")
+    err = 0.0
+    for broadcast in (False, True):
+        out = ck.weighted_average_clients(x, wt, broadcast)
+        again = ck.weighted_average_clients(x, wt, broadcast)
+        ref = ck.weighted_average_clients_reference(x, wt, broadcast)
+        torch.cuda.synchronize()
+        e = float((out - ref).abs().max())
+        check(e <= 1e-5 and torch.equal(out, again),
+              f"K1 at cifar10-32's ({c}, {d}), broadcast={broadcast}: max "
+              f"abs err {e}, launches equal {torch.equal(out, again)}")
+        err = max(err, e)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    threads, blocks = ck._wavg_plan(d, sms)
+
+    def composed():
+        glob = ck.weighted_average_clients(x, wt)
+        return torch.where(wt.sum() > 0, glob.expand_as(x), x)
+
+    modes = {}
+    for mode, broadcast, nbytes, library in (
+            ("average", False, 4 * (x.numel() + c + d),
+             lambda: torch.matmul(wt / wt.sum(), x)),
+            ("broadcast", True, 4 * (2 * x.numel() + c), composed)):
+        b, by = bound_ms(nbytes, 2.0 * x.numel())
+        modes[mode] = {
+            "ms": time_ms(lambda: ck.weighted_average_clients(x, wt,
+                                                              broadcast)),
+            "plain_ms": time_ms(lambda: ck.weighted_average_clients_reference(
+                x, wt, broadcast)),
+            "library_ms": time_ms(library),
+            "back_to_back_ms": time_back_to_back_ms(
+                lambda: ck.weighted_average_clients(x, wt, broadcast)),
+            "bound_ms": b, "bound_by": by, "bytes": nbytes}
+        r = modes[mode]
+        print(f"time K1 {mode} cifar10-32 ({c}, {d}): kernel {r['ms']:.4f} "
+              f"ms  plain {r['plain_ms']:.4f} ms  "
+              f"{'matmul' if not broadcast else 'the chain it replaces'} "
+              f"{r['library_ms']:.4f} ms  back to back "
+              f"{r['back_to_back_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
+              f"({by}, {nbytes / 1e6:.1f} MB); plan {threads} threads x "
+              f"{blocks} blocks; max abs err {err:.3e}; {CARD['smi']}",
+              flush=True)
+    return {"max_abs_err": err, "clients": c, "params": d, **modes,
             "plan": {"threads": threads, "blocks": blocks}}
 
 
@@ -547,7 +620,8 @@ def main_path_config():
         run=dataclasses.replace(cfg.run, eval_test_every=10))
 
 
-def phase_run(label: str, cfg, expect: dict, capture=None):
+def phase_run(label: str, cfg, expect: dict, capture=None,
+              min_accuracy: float = 0.9):
     """One run of ``run_experiment`` on the card with every launch count set
     to 0 just before it and read just after. ``expect`` maps a kernel to
     its launches: "rounds" (one per round trained, the graphs' warm-up
@@ -555,7 +629,8 @@ def phase_run(label: str, cfg, expect: dict, capture=None):
     (the same and one after the loop), "evals"
     (at least one per held-out eval, and at least one, none in a graph),
     or an exact number. ``capture``: run_experiment's (None: every chunk a
-    graph replay; False: the uncaptured step)."""
+    graph replay; False: the uncaptured step). The final client-mean
+    accuracy must exceed ``min_accuracy``."""
     from fedtpu_torch.ops import cuda_kernels as ck
     from fedtpu_torch.orchestration.loop import run_experiment
     torch.cuda.synchronize()
@@ -605,7 +680,8 @@ def phase_run(label: str, cfg, expect: dict, capture=None):
     check(all(np.all(np.isfinite(l)) for l in res.loss),
           f"{label}: non-finite loss")
     acc = res.global_metrics["accuracy"][-1]
-    check(acc > 0.9, f"{label}: final client-mean accuracy {acc} <= 0.9")
+    check(acc > min_accuracy, f"{label}: final client-mean accuracy {acc} "
+          f"<= {min_accuracy}")
     steady = res.sec_per_round[1:] or res.sec_per_round
     print(f"{label}: rounds run {res.rounds_run}, early stop at round "
           f"{res.rounds_run if res.stopped_early else None}, final "
@@ -633,7 +709,6 @@ def replay_near_ties(cfg, rounds: set) -> dict:
     drift, the drift): the drift is the largest card-vs-CPU logit
     difference of that round's models, and a row inside it may be counted
     in different cells."""
-    from fedtpu_torch.models.mlp import mlp_apply, unflatten
     from fedtpu_torch.ops.metrics import near_tie_rows
     from fedtpu_torch.ops.optim import build_optimizer
     from fedtpu_torch.orchestration.loop import build_experiment
@@ -645,7 +720,7 @@ def replay_near_ties(cfg, rounds: set) -> dict:
         sides.append({"exp": exp, "state": exp.state,
                       "step": exp.make_step(1),
                       "train": make_local_train_step(
-                          exp.dims, build_optimizer(cfg.optim),
+                          exp.model, build_optimizer(cfg.optim),
                           cfg.fed.local_steps, cfg.fed.prox_mu)})
     out = {}
     for r in range(max(rounds) + 1):
@@ -664,8 +739,7 @@ def replay_near_ties(cfg, rounds: set) -> dict:
                 params, _, _ = side["train"](st["params"], st["opt_state"],
                                              b["x"], b["y"], b["mask"], p,
                                              corr)
-                logits.append(mlp_apply(unflatten(params, side["exp"].dims),
-                                        b["x"]).cpu())
+                logits.append(side["exp"].model.apply(params, b["x"]).cpu())
             mask = sides[0]["exp"].batch["mask"] > 0
             drift = float(((logits[0] - logits[1]).abs().amax(dim=-1)
                            * mask).max())
@@ -680,12 +754,13 @@ def replay_near_ties(cfg, rounds: set) -> dict:
 
 
 def phase_card_vs_cpu(cfg, gpu, label: str = "card vs CPU",
-                      drift_cap=None):
+                      drift_cap=None, loss_tol: float = 1e-4):
     """The card run ``gpu`` against the same config on the CPU: the same
-    stop round, losses within 1e-4, and confusion counts equal but on rows
-    that are near ties of the CPU model. With ``drift_cap`` a row also
-    counts as a near tie when its gap is inside twice the two runs' logit
-    drift, and the drift must stay within the cap. Returns the CPU run."""
+    stop round, losses within ``loss_tol``, and confusion counts equal but
+    on rows that are near ties of the CPU model. With ``drift_cap`` a row
+    also counts as a near tie when its gap is inside twice the two runs'
+    logit drift, and the drift must stay within the cap. Returns the CPU
+    run."""
     from fedtpu_torch.orchestration.loop import run_experiment
     cpu = run_experiment(cfg, verbose=False, device="cpu")
     check(cpu.rounds_run == gpu.rounds_run
@@ -694,7 +769,8 @@ def phase_card_vs_cpu(cfg, gpu, label: str = "card vs CPU",
           f"{cpu.rounds_run}")
     loss_err = max(float(np.abs(a - b).max())
                    for a, b in zip(gpu.loss, cpu.loss))
-    check(loss_err <= 1e-4, f"card vs CPU loss max abs err {loss_err}")
+    check(loss_err <= loss_tol,
+          f"{label}: loss max abs err {loss_err} > {loss_tol}")
     moved = {r: np.abs(a - b).sum(axis=(1, 2)) / 2
              for r, (a, b) in enumerate(zip(gpu.confusion, cpu.confusion))
              if not np.array_equal(a, b)}
@@ -778,19 +854,28 @@ def phase_profile(cfg, rounds: int = 20, label: str = "profile",
     wall_ms = (time.perf_counter() - t0) / rounds * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run(calls)
+        traced_ms = (time.perf_counter() - t0) / rounds * 1e3
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / rounds / 1e3
     ops = sum(e.count for e in dev) / rounds
+    # The idle share against the untraced window's host clock, and against
+    # the traced window's own (tracing slows a device-bound round, so its
+    # kernels can sum past the untraced host time).
     print(f"{label}: round step + fetch {wall_ms:.4f} ms/round on the host "
           f"clock; device busy {busy_ms:.4f} ms/round in {ops:.1f} device "
-          f"ops; idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+          f"ops; idle share {1 - busy_ms / wall_ms:.3f}; traced window "
+          f"{traced_ms:.4f} ms/round on the host clock, idle share there "
+          f"{1 - busy_ms / traced_ms:.3f}", flush=True)
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / rounds / 1e3:.4f} ms/round "
               f"x{e.count / rounds:.0f}  {e.key[:90]}", flush=True)
     return {"host_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_ops": ops, "idle_share": 1 - busy_ms / wall_ms}
+            "device_ops": ops, "idle_share": 1 - busy_ms / wall_ms,
+            "traced_host_ms": traced_ms,
+            "traced_idle_share": 1 - busy_ms / traced_ms}
 
 
 def sharded_config(aggregation: str, rate: float, rounds: int):
@@ -981,11 +1066,11 @@ def same_history(a, b) -> list:
     for name in ("global_metrics", "pooled_metrics", "test_metrics"):
         if getattr(a, name) != getattr(b, name):
             diffs.append(name)
-    for p, q in zip(a.final_params["layers"], b.final_params["layers"]):
-        if not (np.array_equal(p["w"], q["w"])
-                and np.array_equal(p["b"], q["b"])):
-            diffs.append("final params")
-            break
+    from fedtpu_torch.models.registry import tree_leaves
+    pairs = zip(tree_leaves(a.final_params), tree_leaves(b.final_params))
+    if not all(pa == pb and np.array_equal(x, y)
+               for (pa, x), (pb, y) in pairs):
+        diffs.append("final params")
     return diffs
 
 
@@ -1831,19 +1916,149 @@ def phase_fused_round(gen: torch.Generator, composed: dict):
     return row, launches
 
 
+def cifar_config(rows: int = 4096, rounds: int = CIFAR_ROUNDS,
+                 dtype: str = "bfloat16", eval_every: int = 10):
+    """The cifar10-32 preset at full width on ``rows`` synthetic rows, in
+    compute ``dtype``, held-out eval every ``eval_every`` rounds."""
+    from fedtpu_torch.config import get_preset
+    cfg = get_preset("cifar10-32")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, synthetic_rows=rows),
+        model=dataclasses.replace(cfg.model, compute_dtype=dtype),
+        fed=dataclasses.replace(cfg.fed, rounds=rounds),
+        run=dataclasses.replace(cfg.run, eval_test_every=eval_every))
+
+
+# The eval route of any model but the float32 MLP: K1 a round, never K2/K3.
+SPEC_EVAL = {"weighted_average_clients": "rounds", "fused_eval_confusion": 0,
+             "fused_mlp_forward": 0}
+
+
+def phase_cifar() -> dict:
+    """Phase (h): cifar10-32 at full width (32 clients, 4,096 synthetic
+    rows, 32x32x3 images, channels (32, 64), hidden 256, 10 classes),
+    bf16 compute, 50 rounds, as the preset runs it: captured (every round
+    a graph replay) and uncaptured, which must agree bit for bit; K1 once
+    a round and once in the warm-up, K2 = K3 = 0 though the held-out eval
+    runs every 10 rounds; s/round of both; a 20-round profile of the
+    captured round; then the same run at fp32 compute for the bf16/fp32
+    ratio. Returns the runs' launches by label."""
+    by_path = {}
+    cfg = cifar_config()
+    plain, _ = phase_run("cifar10-32 bf16 uncaptured", cfg, SPEC_EVAL,
+                         capture=False, min_accuracy=0.1)
+    graph, by_path["cifar10-32 bf16"] = phase_run(
+        "cifar10-32 bf16 captured", cfg, SPEC_EVAL, min_accuracy=0.1)
+    diffs = same_history(plain, graph)
+    check(not diffs, f"cifar10-32: captured run differs from the "
+          f"uncaptured one in {diffs}")
+    s_plain = statistics.median(plain.sec_per_round)
+    s_graph = statistics.median(graph.sec_per_round)
+    print(f"cifar10-32 bf16: captured == uncaptured bitwise (losses, "
+          f"confusion counts, histories, final params); s/round (median) "
+          f"uncaptured {s_plain:.6e}, captured {s_graph:.6e}, ratio "
+          f"{s_plain / s_graph:.3f}; test accuracy "
+          f"{graph.test_metrics['accuracy']}; {CARD['smi']}", flush=True)
+    prof = phase_profile(cfg, label="cifar10-32 bf16 captured profile",
+                         make_round=captured_round(1))
+    # The fp32 run is here for its time (phase (i) holds fp32 against the
+    # CPU); it plateaus near chance and stops early.
+    fp32, by_path["cifar10-32 fp32"] = phase_run(
+        "cifar10-32 fp32 captured", cifar_config(dtype="float32"),
+        SPEC_EVAL, min_accuracy=0.0)
+    s_fp32 = statistics.median(fp32.sec_per_round)
+    print(f"cifar10-32: s/round (median, captured) bf16 {s_graph:.6e}, fp32 "
+          f"{s_fp32:.6e}, bf16/fp32 {s_graph / s_fp32:.3f}; profile: host "
+          f"{prof['host_ms']:.4f} ms/round, device busy "
+          f"{prof['device_busy_ms']:.4f} ms in {prof['device_ops']:.1f} "
+          f"ops, idle share {prof['idle_share']:.3f} (traced window "
+          f"{prof['traced_host_ms']:.4f} ms/round, idle share there "
+          f"{prof['traced_idle_share']:.3f}); {CARD['smi']}", flush=True)
+    return by_path
+
+
+# Card against CPU at bf16: cuDNN's and oneDNN's bf16 sums round in other
+# orders. The loss limit is about 5x the largest drift measured on an
+# NVIDIA H100 80GB HBM3 at 700 W (3.6e-5, cifar10-32 on 512 rows over 3
+# rounds; income-8 1.5e-5 over 35), below the one-bf16-ulp bound (2^-8 of
+# a logit) the CPU tests hold the port to against fedtpu. The logit drift
+# cap is four bf16 ulps of a logit of magnitude 3.
+BF16_LOSS_TOL = 2e-4
+BF16_DRIFT_CAP = 5e-2
+
+
+def phase_cifar_vs_cpu() -> dict:
+    """Phase (i): cifar10-32 at full width, rows cut to 512 (scale, not
+    width), 3 rounds, card against CPU at fp32 (losses within 1e-4) and at
+    bf16 (within BF16_LOSS_TOL), confusion counts equal up to near-tie
+    rows with the logit drift capped (CSV_DRIFT_CAP, BF16_DRIFT_CAP)."""
+    from fedtpu_torch.convert import params_from_jax
+    from fedtpu_torch.data import load_dataset
+    from fedtpu_torch.models.registry import build_model
+    by_path = {}
+    for dtype, tol, cap in (("float32", 1e-4, CSV_DRIFT_CAP),
+                            ("bfloat16", BF16_LOSS_TOL, BF16_DRIFT_CAP)):
+        cfg = cifar_config(rows=512, rounds=3, dtype=dtype, eval_every=1)
+        label = f"cifar10-32 {dtype} 512 rows"
+        gpu, by_path[label] = phase_run(label, cfg, SPEC_EVAL,
+                                        min_accuracy=0.0)
+        cpu = phase_card_vs_cpu(cfg, gpu, label=f"{label} card vs CPU",
+                                drift_cap=cap, loss_tol=tol)
+        # Whether or not a row moved: the logits of the card's and the
+        # CPU's final global models on the held-out rows, both computed on
+        # the CPU (the drift the params carry, without a replay).
+        model = build_model(cfg.model)
+        x = torch.from_numpy(load_dataset(cfg.data).x_test)
+        gpu_logits, cpu_logits = (
+            model.apply(params_from_jax(r.final_params), x)
+            for r in (gpu, cpu))
+        drift = float((gpu_logits - cpu_logits).abs().max())
+        check(drift <= cap, f"{label}: logit drift {drift:.3e} above {cap}")
+        print(f"{label}: final global models' logit drift, card vs CPU, on "
+              f"{x.shape[0]} held-out rows {drift:.3e} (cap {cap}); "
+              f"{CARD['smi']}", flush=True)
+    return by_path
+
+
+def phase_income_bf16() -> dict:
+    """Phase (j): income-8 (main path's config) at compute_dtype bf16 on
+    the card against the CPU: the same stop round, K1 once a round and in
+    the warm-up, K2 = K3 = 0 (the bf16 MLP is not the model they
+    compute)."""
+    cfg = main_path_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype="bfloat16"))
+    label = "income-8 bf16"
+    gpu, launches = phase_run(label, cfg, SPEC_EVAL)
+    phase_card_vs_cpu(cfg, gpu, label=f"{label} card vs CPU",
+                      drift_cap=BF16_DRIFT_CAP, loss_tol=BF16_LOSS_TOL)
+    return {label: launches}
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
+    clock, seconds = [time.perf_counter()], {}
+
+    def lap(phase: str) -> None:
+        """The command time each phase took (the script's time budget)."""
+        now = time.perf_counter()
+        seconds[phase] = round(now - clock[0], 2)
+        clock[0] = now
+
     kind = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    lap("device and build")
     timings = phase_kernels(torch.Generator().manual_seed(0))
+    lap("kernels")
     cfg = main_path_config()
     gpu, launches = phase_run("main path income-8", cfg, {
         "weighted_average_clients": "rounds",
         "fused_eval_confusion": "rounds", "fused_mlp_forward": "evals"})
     phase_card_vs_cpu(cfg, gpu)
     composed = phase_profile(cfg)
+    lap("main path, card vs CPU, profile")
     by_path = {"income-8 psum": launches, **phase_sharded()}
     # K2 and K3 on the streamed path inside a whole run.
     wide = wide_config()
@@ -1852,20 +2067,33 @@ def main() -> None:
             "weighted_average_clients": "rounds",
             "fused_eval_confusion": "rounds", "fused_mlp_forward": "evals"})
     phase_card_vs_cpu(wide, gpu, label="income-2 (256, 256) card vs CPU")
+    lap("sharded, streamed")
     import tempfile
     with tempfile.TemporaryDirectory() as directory:
         by_path.update(phase_csv(directory))
     by_path.update(phase_local_steps())
     by_path.update(phase_capture(composed))
     phase_resume()
+    lap("(a)-(d)")
     a6_launches, timings["weighted_average_clients"]["delta_mean"] = \
         phase_a6()
     by_path.update(a6_launches)
+    lap("(e)")
     by_path["income-8 sweep"], timings["weighted_average_clients"][
         "sweep"], timings["fused_eval_confusion"]["sweep"] = phase_sweep()
     by_path.update(phase_personalize())
+    lap("(f), (g)")
     timings["fused_round"], by_path["income-8 fused round"] = \
         phase_fused_round(torch.Generator().manual_seed(1), composed)
+    lap("fused round")
+    by_path.update(phase_cifar())
+    lap("(h)")
+    by_path.update(phase_cifar_vs_cpu())
+    lap("(i)")
+    by_path.update(phase_income_bf16())
+    lap("(j)")
+    print(f"phase seconds {json.dumps(seconds)}, total "
+          f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
     # from income-8, K4 from the sharded ring run, K5 from the fused-round
     # benchmark.
@@ -1902,7 +2130,7 @@ def main() -> None:
                 "empty_launch_ms", "empty_back_to_back_ms", "ms_by_threads",
                 "ms_by_tile_x_threads", "composed_round_device_ms",
                 "marginal_us_per_round", "profile", "phases_us",
-                "delta_mean", "sweep")
+                "delta_mean", "sweep", "cifar10_32")
                 if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,17 @@
 
 A second package beside ``fedtpu`` (the JAX reference, which it never
 imports). It mirrors ``fedtpu``'s module paths and function names; it runs
-the synchronous engine of the income presets (FedAvg, the server
-optimizers, central DP, the robust rules, SCAFFOLD, the int8 exchange,
-personalization) and the hyperparameter grid, with hand-written CUDA
-kernels in place of the JAX package's Pallas kernels
-(``fedtpu_torch.ops.cuda_kernels``).
+the synchronous engine (FedAvg, the server optimizers, central DP, the
+robust rules, SCAFFOLD, the int8 exchange, personalization) of the income
+presets and of the CIFAR-10 ConvNet (``cifar10-32``, bf16 compute), and the
+hyperparameter grid, with hand-written CUDA kernels in place of the JAX
+package's Pallas kernels (``fedtpu_torch.ops.cuda_kernels``).
 
-    fedtpu_torch.config         — configs + the income presets
-    fedtpu_torch.data           — the CSV and synthetic income data, sharding
-    fedtpu_torch.models         — the MLP on a flat parameter buffer
+    fedtpu_torch.config         — configs + the income and CIFAR-10 presets
+    fedtpu_torch.data           — the CSV and synthetic income data, CIFAR-10,
+                                  sharding
+    fedtpu_torch.models         — the MLP and the ConvNet on a flat parameter
+                                  buffer, their spec (registry)
     fedtpu_torch.ops            — losses, metrics, optimizers, server
                                   optimizers, the DP accountant, CUDA kernels
     fedtpu_torch.parallel       — the federated round, its CUDA graph, int8

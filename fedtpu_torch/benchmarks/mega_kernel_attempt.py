@@ -36,6 +36,7 @@ import torch
 
 from fedtpu_torch.config import ExperimentConfig, get_preset
 from fedtpu_torch.models.mlp import mlp_apply, param_count, unflatten
+from fedtpu_torch.models.registry import build_model, kernel_dims
 from fedtpu_torch.ops import cuda_kernels as ck
 from fedtpu_torch.ops.metrics import metrics_from_confusion, near_tie_rows
 from fedtpu_torch.ops.optim import build_optimizer
@@ -85,13 +86,15 @@ _FEDAVG_ONLY = (("server_opt", "none"), ("dp_clip_norm", 0.0),
 
 
 def check_config(cfg: ExperimentConfig) -> None:
-    """Refuse what this benchmark cannot hand to K5, naming the field: client
-    sampling, another aggregation, more than one local step, FedProx, every
-    branch other than plain FedAvg (a server optimizer, DP, a robust rule,
-    Byzantine injection, SCAFFOLD, the int8 exchange), and an optimizer
-    state without Adam's moments. The model's limits are the wrapper's own
-    (``fused_round`` raises a ``ValueError`` that names the field on any
-    device)."""
+    """Refuse what this benchmark cannot hand to K5, naming the field: a
+    model other than the float32-compute MLP (the ConvNet, a bf16 or fp16
+    compute dtype), client sampling, another aggregation, more than one
+    local step, FedProx, every branch other than plain FedAvg (a server
+    optimizer, DP, a robust rule, Byzantine injection, SCAFFOLD, the int8
+    exchange), and an optimizer state without Adam's moments. The model's
+    limits are the wrapper's own (``fused_round`` raises a ``ValueError``
+    that names the field on any device)."""
+    kernel_dims(build_model(cfg.model), "the fused round")
     ck.check_fused_round_training(cfg.fed.local_steps, cfg.fed.prox_mu)
     for field, plain in _FEDAVG_ONLY:
         value = getattr(cfg.fed, field)
@@ -159,7 +162,7 @@ def make_fused_step(exp, optim):
         opt = state["opt_state"]
         params, mu, nu, count, loss, conf = ck.fused_round(
             state["params"], opt["mu"], opt["nu"], opt["count"], x, y, mask,
-            exp.client_weights, exp.dims, optim)
+            exp.client_weights, exp.model, optim)
         return ({"params": params,
                  "opt_state": {"mu": mu, "nu": nu, "count": count},
                  "round": state["round"] + 1}, loss, conf)

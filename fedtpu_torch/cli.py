@@ -134,6 +134,9 @@ def _add_common_overrides(p: argparse.ArgumentParser) -> None:
     p.add_argument("--byzantine-clients", type=int, default=None,
                    help="fault injection: first k clients submit 10x "
                         "sign-flipped updates")
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
+                   default=None,
+                   help="the forward pass's dtype (parameters stay float32)")
     p.add_argument("--rounds-per-step", type=int, default=None)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
@@ -215,13 +218,18 @@ def config_from_args(args):
     data, shard, model = cfg.data, cfg.shard, cfg.model
     optim, fed, run = cfg.optim, cfg.fed, cfg.run
     if args.csv is not None:
-        data = dataclasses.replace(data, csv_path=args.csv or None)
+        # '' selects the synthetic rows; clearing dataset_name lets --csv
+        # win over a preset that names a loader (cifar10-32), as in fedtpu.
+        data = dataclasses.replace(data, csv_path=args.csv or None,
+                                   dataset_name=None)
     if args.synthetic_rows is not None:
         data = dataclasses.replace(data, synthetic_rows=args.synthetic_rows)
     if args.num_clients is not None:
         shard = dataclasses.replace(shard, num_clients=args.num_clients)
     if args.hidden_sizes is not None:
         model = dataclasses.replace(model, hidden_sizes=args.hidden_sizes)
+    if args.compute_dtype is not None:
+        model = dataclasses.replace(model, compute_dtype=args.compute_dtype)
     if args.learning_rate is not None:
         optim = dataclasses.replace(optim, learning_rate=args.learning_rate)
     if args.rounds is not None:

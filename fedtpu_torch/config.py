@@ -41,7 +41,8 @@ class DataConfig:
     """Host-side data pipeline settings (``fedtpu.config.DataConfig``)."""
 
     csv_path: Optional[str] = None       # None => synthetic income-like data
-    # 'cifar10' selects fedtpu's image loader; None = tabular.
+    # 'cifar10' selects the image loader (fedtpu_torch.data.cifar10); None =
+    # tabular (fedtpu_torch.data.load_dataset).
     dataset_name: Optional[str] = None
     label_column: str = "income"
     test_size: float = 0.2
@@ -57,9 +58,6 @@ class DataConfig:
     synthetic_rows: int = 2048
     synthetic_features: int = 14         # balanced_income_data.csv has 14 features + label
     synthetic_classes: int = 2
-
-    def __post_init__(self):
-        _refuse_unported(self, {"dataset_name": "A7"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,15 +82,18 @@ class ShardConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference MLP (``fedtpu.config.ModelConfig``, MLP family only)."""
+    """Model family and shape (``fedtpu.config.ModelConfig``): the
+    reference MLP, or the CIFAR-10 ConvNet (fedtpu_torch.models.registry)."""
 
-    kind: str = "mlp"
+    kind: str = "mlp"                    # 'mlp' | 'convnet'
     # () degenerates the MLP to a single Linear (logistic regression).
     hidden_sizes: Tuple[int, ...] = (50, 200)
     num_classes: int = 2
     input_dim: int = 14
     image_shape: Tuple[int, int, int] = (32, 32, 3)  # convnet only (HWC)
     conv_channels: Tuple[int, ...] = (32, 64)
+    # Parameters are float32 (another param dtype is not ported yet);
+    # 'bfloat16' / 'float16' compute runs the forward in that dtype.
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     # fedtpu's opt-in Pallas forward for the held-out eval. The port's
@@ -101,9 +102,7 @@ class ModelConfig:
     use_pallas: bool = False
 
     def __post_init__(self):
-        _refuse_unported(self, {"kind": "A7", "image_shape": "A7",
-                                "conv_channels": "A7", "param_dtype": "A7",
-                                "compute_dtype": "A7"})
+        _refuse_unported(self, {"param_dtype": "A7"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,8 +304,9 @@ class ExperimentConfig:
         return dataclasses.replace(self, **kw)
 
 
-# fedtpu's income presets. The income CSV is not in the repository, so they
-# run on the synthetic income-like data (DataConfig.csv_path=None).
+# fedtpu's income presets and its CIFAR-10 ConvNet one. The income CSV is not
+# in the repository, so the income presets run on the synthetic income-like
+# data (DataConfig.csv_path=None).
 PRESETS = {
     "income-2": ExperimentConfig(shard=ShardConfig(num_clients=2),
                                  fed=FedConfig(rounds=5)),
@@ -319,6 +319,15 @@ PRESETS = {
         shard=ShardConfig(num_clients=32, strategy="dirichlet",
                           dirichlet_alpha=0.5),
         fed=FedConfig(rounds=300)),
+    # The 2-layer ConvNet, 32 clients: FedAvg's payload stress config.
+    # Real CIFAR-10 where the python batches exist locally, CIFAR-shaped
+    # synthetic data otherwise (fedtpu_torch.data.cifar10).
+    "cifar10-32": ExperimentConfig(
+        data=DataConfig(dataset_name="cifar10", synthetic_rows=4096),
+        shard=ShardConfig(num_clients=32),
+        model=ModelConfig(kind="convnet", num_classes=10,
+                          hidden_sizes=(256,), compute_dtype="bfloat16"),
+        fed=FedConfig(rounds=50)),
 }
 
 

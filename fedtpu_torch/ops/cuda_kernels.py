@@ -30,6 +30,7 @@ import torch
 
 from fedtpu_torch.config import OptimConfig
 from fedtpu_torch.models.mlp import mlp_apply, param_count, unflatten
+from fedtpu_torch.models.registry import kernel_dims
 from fedtpu_torch.ops.losses import masked_cross_entropy
 from fedtpu_torch.ops.metrics import confusion_matrix, one_hot
 from fedtpu_torch.ops.optim import build_optimizer
@@ -592,7 +593,7 @@ def check_fused_round_training(local_steps: int, prox_mu: float) -> None:
 def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                 count: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 mask: torch.Tensor, weights: torch.Tensor,
-                dims: Sequence[int], optim: OptimConfig,
+                dims, optim: OptimConfig,
                 phase_ns: torch.Tensor = None, local_steps: int = 1,
                 prox_mu: float = 0.0) -> tuple:
     """One whole FedAvg round of Adam clients: ``params``, ``mu``, ``nu``
@@ -602,7 +603,9 @@ def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     of the trained models in every slot; ``conf`` is the eval of the
     trained, not yet averaged models; ``loss`` is each client's masked CE
     before the step. Every output is freshly allocated; no input is
-    written. ``num_classes <= 8``.
+    written. ``num_classes <= 8``. ``dims``: the MLP's widths, or a
+    ``registry.FlatModel``, which must be the float32-compute MLP (another
+    model raises, naming its ``model.kind`` or ``model.compute_dtype``).
 
     On the card: one cooperative launch of K5 (``csrc/fused_round.cu``)
     under ``_fused_round_plan``. ``phase_ns``, an int64 CUDA tensor of at
@@ -615,7 +618,7 @@ def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
         raise ValueError(f"optim.name={optim.name!r}: the fused round "
                          "computes Adam only")
     dev = _device(params, mu, nu, count, x, y, mask, weights)
-    dims = _check_dims(params, dims)
+    dims = _check_dims(params, kernel_dims(dims, "the fused round"))
     _check_depth(dims)
     if dims[-1] > MAX_CLASSES:
         raise ValueError(f"num_classes={dims[-1]} > {MAX_CLASSES} "

@@ -47,9 +47,11 @@ import torch
 
 from fedtpu_torch.config import ExperimentConfig
 from fedtpu_torch.convert import params_from_jax, params_to_numpy
+from fedtpu_torch.data import load_dataset
 from fedtpu_torch.data.sharding import pack_clients
-from fedtpu_torch.data.tabular import Dataset, load_tabular_dataset
-from fedtpu_torch.models.mlp import layer_dims
+from fedtpu_torch.data.tabular import Dataset
+from fedtpu_torch.models.registry import (FlatModel, build_model, jax_order,
+                                          tree_leaves)
 from fedtpu_torch.ops.metrics import METRIC_NAMES
 from fedtpu_torch.ops.optim import Optimizer, build_optimizer
 from fedtpu_torch.ops.server_opt import make_server_optimizer
@@ -69,8 +71,10 @@ from fedtpu_torch.training.personalize import build_personalize_fn
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; ``cuda`` needs a GPU. Also pins
-    fp32 matrix products to full fp32 (no TF32), as the reference computes
-    at Precision.HIGHEST."""
+    fp32 matrix products and convolutions to full fp32 (no TF32), as the
+    reference computes at Precision.HIGHEST, and cuDNN to deterministic
+    algorithms without autotuning (its choice is made on first use, before
+    a CUDA graph captures, and a replay is bitwise the uncaptured step)."""
     dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
@@ -81,6 +85,8 @@ def resolve_device(device) -> torch.device:
             "the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
     return dev
 
 
@@ -198,30 +204,37 @@ class Experiment:
     eval_step: Callable
     dataset: Dataset
     device: torch.device
-    dims: tuple
+    model: FlatModel
     mesh: ClientMesh
     client_weights: torch.Tensor           # (C,) FedAvg base weights
     tx: Optimizer
     # Post-training per-client fine-tune (FedConfig.personalize_steps > 0).
     personalize_fn: Optional[Callable] = None
 
+    @property
+    def dims(self) -> Optional[tuple]:
+        """The float32 MLP's widths, else None (``FlatModel.mlp_dims``)."""
+        return self.model.mlp_dims
 
-def warm_start_params(path: str, dims: tuple) -> torch.Tensor:
+
+def warm_start_params(path: str, model: FlatModel) -> torch.Tensor:
     """The global model ``(D,)`` of a weights artifact
     (``fedtpu_torch.sweep.grid.save_best_weights``, fedtpu's format), held
     to the model's architecture with ``fedtpu``'s ``ValueError``."""
     from fedtpu_torch.sweep.grid import load_best_weights
-    layers = load_best_weights(path)["weights"]["layers"]
-    # fedtpu lists the leaves in its pytree's order: per layer, b then w.
-    artifact = [tuple(np.shape(l[k])) for l in layers for k in ("b", "w")]
-    model = [shape for i, o in zip(dims[:-1], dims[1:])
-             for shape in ((o,), (i, o))]
-    if artifact != model:
+    weights = load_best_weights(path)["weights"]
+    # fedtpu lists the leaves in its pytree's order (a layer's b before
+    # its w).
+    shapes = dict(tree_leaves(weights))
+    artifact = [tuple(np.shape(shapes[p])) for p in jax_order(shapes)]
+    live = dict(model.leaves)
+    expect = [tuple(live[p]) for p in jax_order(live)]
+    if jax_order(shapes) != jax_order(live) or artifact != expect:
         raise ValueError(
             f"init_weights_npz architecture mismatch: artifact leaves "
-            f"{artifact} vs model (per-client) {model} — the artifact "
+            f"{artifact} vs model (per-client) {expect} — the artifact "
             "was saved for a different hidden_sizes/input_dim")
-    return params_from_jax({"layers": layers})
+    return params_from_jax(weights)
 
 
 def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
@@ -237,8 +250,16 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     round's ``(D + 1,)`` unit normals, replacing the port's own DP noise
     draws (``build_round_fn``)."""
     dev = resolve_device(device)
-    ds = dataset if dataset is not None else load_tabular_dataset(cfg.data)
-    dims = layer_dims(ds.input_dim, cfg.model.hidden_sizes, ds.num_classes)
+    ds = dataset if dataset is not None else load_dataset(cfg.data)
+    # The data sets the MLP's input width and every model's class count, as
+    # in fedtpu.
+    model_cfg = cfg.model
+    if model_cfg.kind == "mlp" and model_cfg.input_dim != ds.input_dim:
+        model_cfg = dataclasses.replace(model_cfg, input_dim=ds.input_dim)
+    if model_cfg.num_classes != ds.num_classes:
+        model_cfg = dataclasses.replace(model_cfg,
+                                        num_classes=ds.num_classes)
+    model = build_model(model_cfg)
     tx = build_optimizer(cfg.optim)
     packed = pack_clients(ds.x_train, ds.y_train, cfg.shard)
     num_clients = cfg.shard.num_clients
@@ -261,11 +282,11 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
 
     params = None if init_params is None else params_from_jax(init_params)
     if fed.init_weights_npz:
-        params = warm_start_params(fed.init_weights_npz, dims).expand(
+        params = warm_start_params(fed.init_weights_npz, model).expand(
             num_clients, -1)
     gen = torch.Generator().manual_seed(fed.init_seed)
     state = init_federated_state(
-        gen, num_clients, dims, tx, same_init=fed.same_init,
+        gen, num_clients, model, tx, same_init=fed.same_init,
         device=dev, params=params, server_opt=server,
         shared_start=fed.compress != "none", scaffold=fed.scaffold,
         adaptive_clip_init=(fed.dp_clip_norm if fed.dp_adaptive_clip
@@ -279,7 +300,7 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     client_weights = torch.from_numpy(weights).to(dev)
     mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev)
     make_step = lambda r: build_round_fn(
-        dims, tx, ds.num_classes, client_weights, rounds_per_step=r,
+        model, tx, ds.num_classes, client_weights, rounds_per_step=r,
         mesh=mesh, aggregation=fed.aggregation,
         participation_rate=fed.participation_rate,
         participation_seed=fed.participation_seed,
@@ -298,11 +319,11 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         byzantine_clients=fed.byzantine_clients, scaffold=fed.scaffold)
     personalize_fn = None
     if fed.personalize_steps > 0:
-        personalize_fn = build_personalize_fn(dims, tx, ds.num_classes,
+        personalize_fn = build_personalize_fn(model, tx, ds.num_classes,
                                               fed.personalize_steps)
     return Experiment(make_step=make_step, state=state, batch=batch,
-                      eval_step=build_eval_fn(dims, ds.num_classes),
-                      dataset=ds, device=dev, dims=dims, mesh=mesh,
+                      eval_step=build_eval_fn(model, ds.num_classes),
+                      dataset=ds, device=dev, model=model, mesh=mesh,
                       client_weights=client_weights, tx=tx,
                       personalize_fn=personalize_fn)
 
@@ -739,7 +760,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         per_client_metrics=per_client_hist, test_metrics=test_hist,
         loss=losses, sec_per_round=sec_per_round, rounds_run=rounds_run,
         stopped_early=flags["stopped_early"],
-        final_params=params_to_numpy(global_params(state), exp.dims),
+        final_params=params_to_numpy(global_params(state), exp.model),
         config=cfg, diverged=flags["diverged"], confusion=confusion,
         rounds_trained=rounds_trained, warmup_rounds=warmup_rounds,
         graph_launches={w: dict(g.launches) for w, g in graphs.items()},

@@ -10,19 +10,18 @@ int8 payloads and the scales are what crosses the wire:
     mean     = sum_s q_s * scale_s / max(total_w, 1)
 
 A leaf is one tensor of ``fedtpu``'s pytree, i.e. one layer's ``w`` or
-``b``: here a segment of the flat ``(D,)`` row (``fedtpu_torch.models.mlp``'s
-layout), each with its own scale. The error is at most ``scale_s / 2`` per
-element of each partial sum. The shards of the port's mesh share one device,
-so the "wire" is a tensor; the arithmetic is ``fedtpu``'s.
+``b``: here a segment of the flat ``(D,)`` row (the model spec's
+``leaf_bounds``, ``fedtpu_torch.models.registry``), each with its own
+scale. The error is at most ``scale_s / 2`` per element of each partial
+sum. The shards of the port's mesh share one device, so the "wire" is a
+tensor; the arithmetic is ``fedtpu``'s.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
-
 import torch
 
-from fedtpu_torch.models.mlp import leaf_bounds
+from fedtpu_torch.models.registry import as_model
 
 
 def quantize_leaves(x: torch.Tensor, bounds: list):
@@ -47,16 +46,17 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor,
 
 
 def quantized_weighted_mean(delta: torch.Tensor, w: torch.Tensor,
-                            shards: int, dims: Sequence[int]) -> torch.Tensor:
+                            shards: int, model) -> torch.Tensor:
     """The weighted mean of ``delta (C, D)`` with weights ``w (C,)`` over a
     mesh of ``shards`` shards (contiguous blocks of clients), each shard's
-    partial sum exchanged as int8: ``(D,)``, or zeros when the weights sum
-    to 0 (``0 / max(0, 1)``)."""
+    partial sum exchanged as int8 with one scale per leaf of ``model`` (a
+    ``registry.FlatModel`` or the float32 MLP's widths): ``(D,)``, or zeros
+    when the weights sum to 0 (``0 / max(0, 1)``)."""
     c, d = delta.shape
     cb = c // shards
     partial = torch.bmm(w.view(shards, 1, cb),
                         delta.view(shards, cb, d)).view(shards, d)
-    bounds = leaf_bounds(dims)
+    bounds = as_model(model).leaf_bounds
     q, scales = quantize_leaves(partial, bounds)
     total = dequantize(q, scales, bounds).sum(dim=0)
     return total / torch.clamp(w.sum(), min=1.0)

@@ -8,7 +8,8 @@ Per round, in the reference's order (FL_CustomMLP...:145-198):
                  SCAFFOLD's drift correction; absentees keep their params
                  and optimizer state
     eval         each client's TRAINED, not yet averaged model on its own
-                 shard -> (C, K, K) confusion counts (K2 on the card)
+                 shard -> (C, K, K) confusion counts (K2 on the card for
+                 the float32 MLP, the model's own forward for any other)
     aggregate    one of the branches below, its result broadcast back into
                  every client slot; a round whose weight total is 0 carries
                  the params over (decided on the device)
@@ -40,12 +41,15 @@ The aggregation branches, as ``fedtpu``'s ``build_round_fn`` selects them:
 s)`` (``s`` the round-start params, ``t`` their trained ones) to whichever
 branch runs, while their local metrics stay honest.
 
-Per-client Adam moments are never averaged. ``fedtpu`` scans
-``rounds_per_step`` rounds inside one compiled program. Here the step is a
-Python loop over the chunk's rounds with no host read and no branch on a
-device value; on the card ``capture_round_step`` captures it as one CUDA
-graph, which the host loop replays once per chunk, and the host reads the
-chunk's outputs once (``pack_outputs``). What ``fedtpu`` draws with
+The model is a spec (``fedtpu_torch.models.registry.FlatModel``: the MLP
+or the ConvNet, in a compute dtype); every branch runs on its flat
+``(C, D)`` buffer, so each takes any model. Per-client Adam moments are
+never averaged. ``fedtpu`` scans ``rounds_per_step`` rounds inside one
+compiled program. Here the step is a Python loop over the chunk's rounds
+with no host read and no branch on a device value; on the card
+``capture_round_step`` captures it as one CUDA graph, which the host loop
+replays once per chunk, and the host reads the chunk's outputs once
+(``pack_outputs``). What ``fedtpu`` draws with
 ``jax.random`` inside its program (participation masks, the DP noise) is
 drawn here on the host, a pure function of the seed, the stream and the
 round, and handed to the step as a tensor.
@@ -53,12 +57,12 @@ round, and handed to the step as a tensor.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from fedtpu_torch.models.mlp import mlp_init, param_count
+from fedtpu_torch.models.registry import as_model
 from fedtpu_torch.ops.cuda_kernels import (LAUNCHES, count_replay,
                                            fused_mlp_forward,
                                            weighted_average_clients)
@@ -98,7 +102,7 @@ def effective_delta_noise_multiplier(z: float, z_count: float) -> float:
 
 
 def init_federated_state(generator: torch.Generator, num_clients: int,
-                         dims: Sequence[int], tx: Optimizer,
+                         model, tx: Optimizer,
                          same_init: bool = False,
                          device: torch.device = torch.device("cpu"),
                          params: torch.Tensor = None,
@@ -108,6 +112,7 @@ def init_federated_state(generator: torch.Generator, num_clients: int,
                          adaptive_clip_init: Optional[float] = None) -> dict:
     """Client-stacked params ``(C, D)`` + optimizer state on ``device``.
 
+    ``model``: a ``registry.FlatModel``, or the float32 MLP's widths.
     Each client draws its own init from ``generator`` (the reproducible
     stand-in for the reference's unseeded per-rank init), or all clients
     share one draw when ``same_init``. ``params`` (``(C, D)``) replaces the
@@ -122,7 +127,7 @@ def init_federated_state(generator: torch.Generator, num_clients: int,
     ``adaptive_clip_init`` the adaptive DP clip ``dp_clip``, a 0-d
     float32 tensor."""
     if params is None:
-        draw = lambda: mlp_init(generator, dims[0], dims[1:-1], dims[-1])
+        draw = lambda: as_model(model).init(generator)
         if same_init:
             params = draw().expand(num_clients, -1)
         else:
@@ -452,7 +457,7 @@ def _robust_global(rule: str, flat: torch.Tensor, part, trim_ratio: float,
     return torch.where(keep, srt, torch.zeros_like(srt)).sum(dim=0) / denom
 
 
-def build_round_fn(dims: Sequence[int], tx: Optimizer, num_classes: int,
+def build_round_fn(model, tx: Optimizer, num_classes: int,
                    client_weights: torch.Tensor,
                    rounds_per_step: int = 1,
                    mesh: Optional[ClientMesh] = None,
@@ -479,11 +484,13 @@ def build_round_fn(dims: Sequence[int], tx: Optimizer, num_classes: int,
                    byzantine_clients: int = 0,
                    scaffold: bool = False) -> RoundStep:
     """Returns ``round_step(state, batch, masks=None, noise=None) -> (state,
-    raw)`` running ``rounds_per_step`` rounds; ``raw`` holds the stacked
-    per-round ``loss (R, C)`` and ``conf (R, C, K, K)`` and ``finite``, a
-    device bool that the new state is finite (``state_finite``), all on the
-    device (see ``assemble_metrics``). The step reads nothing back to the
-    host, so it can be captured (``capture_round_step``).
+    raw)`` running ``rounds_per_step`` rounds of ``model`` (a
+    ``registry.FlatModel``, or the float32 MLP's widths); ``raw`` holds the
+    stacked per-round ``loss (R, C)`` and ``conf (R, C, K, K)`` and
+    ``finite``, a device bool that the new state is finite
+    (``state_finite``), all on the device (see ``assemble_metrics``). The
+    step reads nothing back to the host, so it can be captured
+    (``capture_round_step``).
 
     ``client_weights (C,)`` are the FedAvg base weights: true shard sizes
     under ``weighting='data_size'``, ones under 'uniform'; under sampling a
@@ -540,10 +547,11 @@ def build_round_fn(dims: Sequence[int], tx: Optimizer, num_classes: int,
     # The fixed public denominator q*C of DP under sampling, as fedtpu
     # computes it from its mesh.
     fixed_denom = participation_rate * cb * shards
-    d_params = param_count(dims)
-    local_train = make_local_train_step(dims, tx, local_steps, prox_mu,
+    model = as_model(model)
+    d_params = model.param_count
+    local_train = make_local_train_step(model, tx, local_steps, prox_mu,
                                         scaffold)
-    local_eval = make_local_eval_step(dims, num_classes)
+    local_eval = make_local_eval_step(model, num_classes)
     all_reduce = make_all_reduce(aggregation, shards)
     bad = (torch.arange(num_clients, device=dev)
            < byzantine_clients)[:, None]
@@ -637,7 +645,7 @@ def build_round_fn(dims: Sequence[int], tx: Optimizer, num_classes: int,
 
     def int8_round(agg, start, w, params):
         """The int8 exchange (``fedtpu/parallel/round.py:706-721``)."""
-        mean_delta = quantized_weighted_mean(agg - start, w, shards, dims)
+        mean_delta = quantized_weighted_mean(agg - start, w, shards, model)
         return torch.where(w.sum() > 0, broadcast(start[0] + mean_delta),
                            params)
 
@@ -848,12 +856,21 @@ def global_params(state: dict) -> torch.Tensor:
     return state["params"][0]
 
 
-def build_eval_fn(dims: Sequence[int], num_classes: int) -> Callable:
+def build_eval_fn(model, num_classes: int) -> Callable:
     """Held-out evaluation of the global model ``(D,)``; the forward is K3
-    (``fused_mlp_forward``) on the card."""
+    (``fused_mlp_forward``) on the card for the float32 MLP, the model's own
+    forward for any other (``registry.FlatModel``; or the float32 MLP's
+    widths)."""
+    model = as_model(model)
+    dims = model.mlp_dims
+
+    def forward(params, x):
+        if dims is not None:
+            return fused_mlp_forward(params, dims, x)
+        return model.apply(params, x)
 
     def eval_step(params, x, y):
-        preds = torch.argmax(fused_mlp_forward(params, dims, x), dim=-1)
+        preds = torch.argmax(forward(params, x), dim=-1)
         mask = torch.ones(y.shape, dtype=torch.float32, device=y.device)
         return metrics_from_confusion(confusion_matrix(y, preds, mask,
                                                        num_classes))

@@ -58,8 +58,9 @@ import torch
 
 from fedtpu_torch.config import ExperimentConfig, OptimConfig
 from fedtpu_torch.convert import params_from_jax, params_to_numpy
+from fedtpu_torch.data import load_dataset
 from fedtpu_torch.data.sharding import pack_clients
-from fedtpu_torch.data.tabular import Dataset, load_tabular_dataset
+from fedtpu_torch.data.tabular import Dataset
 from fedtpu_torch.models.mlp import (layer_dims, mlp_apply, mlp_init,
                                      unflatten)
 from fedtpu_torch.ops.cuda_kernels import (fused_eval_confusion,
@@ -283,7 +284,7 @@ def run_grid_search(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         if verbose:
             print(line, flush=True)
 
-    ds = dataset if dataset is not None else load_tabular_dataset(cfg.data)
+    ds = dataset if dataset is not None else load_dataset(cfg.data)
     packed = pack_clients(ds.x_train, ds.y_train, cfg.shard)
     x = torch.from_numpy(packed.x).to(dev)
     y = torch.from_numpy(packed.y).to(dev)

@@ -8,31 +8,38 @@
   per-client step; here the client axis is a batch dimension of the
   ``(C, D)`` parameter buffer. Clients' losses do not interact, so the
   gradient of their sum is each client's own gradient. The forward and
-  backward are plain matrix products (``torch.matmul`` and autograd), as
+  backward are the model's plain PyTorch ops and autograd (matrix products,
+  and for the ConvNet one grouped convolution over the clients), as
   ``fedtpu`` leaves them to XLA.
 * ``make_local_eval_step`` is ``evaluate_local``: each client's confusion
-  matrix on its own shard, through K2 (``fused_eval_confusion``) on the card.
+  matrix on its own shard, through K2 (``fused_eval_confusion``) on the card
+  for the float32 MLP, through the model's own forward for any other
+  (``fedtpu_torch.models.registry``).
+
+Both take a model spec (``registry.FlatModel``) or, for the float32 MLP,
+its widths.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable
 
 import torch
 
-from fedtpu_torch.models.mlp import mlp_apply, unflatten
+from fedtpu_torch.models.registry import as_model
 from fedtpu_torch.ops.cuda_kernels import fused_eval_confusion
 from fedtpu_torch.ops.losses import masked_cross_entropy
+from fedtpu_torch.ops.metrics import confusion_matrix
 from fedtpu_torch.ops.optim import Optimizer, select_participants
 
 
-def make_local_train_step(dims: Sequence[int], tx: Optimizer,
+def make_local_train_step(model, tx: Optimizer,
                           local_steps: int = 1,
                           prox_mu: float = 0.0,
                           scaffold: bool = False) -> Callable:
     """Returns ``step(params, opt_state, x, y, mask, part=None,
     correction=None) -> (params, opt_state, loss)``: params ``(C, D)``, x
-    ``(C, N, in)``.
+    ``(C, N, ...)``, the model's rows.
 
     ``local_steps`` full-batch updates (``fedtpu.training.client``): the
     optimizer's count, and with it the StepLR schedule and Adam's bias
@@ -58,12 +65,12 @@ def make_local_train_step(dims: Sequence[int], tx: Optimizer,
         raise ValueError(f"prox_mu must be >= 0, got {prox_mu} "
                          "(negative mu amplifies drift instead of bounding "
                          "it)")
+    model = as_model(model)
 
     def one(params, opt_state, x, y, mask, anchor, correction):
         p = params.detach().requires_grad_(True)
         with torch.enable_grad():
-            ce = masked_cross_entropy(mlp_apply(unflatten(p, dims), x), y,
-                                      mask)
+            ce = masked_cross_entropy(model.apply(p, x), y, mask)
             objective = ce.sum()
             if prox_mu:
                 objective = objective + 0.5 * prox_mu * torch.sum(
@@ -92,10 +99,19 @@ def make_local_train_step(dims: Sequence[int], tx: Optimizer,
     return step
 
 
-def make_local_eval_step(dims: Sequence[int], num_classes: int) -> Callable:
-    """Returns ``eval(params, x, y, mask) -> (C, K, K)`` confusion counts."""
+def make_local_eval_step(model, num_classes: int) -> Callable:
+    """Returns ``eval(params, x, y, mask) -> (C, K, K)`` confusion counts:
+    K2 for the float32 MLP, else the argmax of the model's logits counted
+    by ``confusion_matrix`` (``fedtpu``'s in-round eval, which is never a
+    kernel)."""
+    model = as_model(model)
+    dims = model.mlp_dims
 
-    def step(params, x, y, mask):
+    def kernel(params, x, y, mask):
         return fused_eval_confusion(params, dims, x, y, mask, num_classes)
 
-    return step
+    def plain(params, x, y, mask):
+        preds = torch.argmax(model.apply(params, x), dim=-1)
+        return confusion_matrix(y, preds, mask, num_classes)
+
+    return kernel if dims is not None else plain

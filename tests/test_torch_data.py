@@ -141,8 +141,8 @@ def test_csv_loader_reads_missing_numbers_as_pandas_does(tmp_path):
 
 def test_csv_loader_refuses_what_it_cannot_encode(tmp_path):
     """A missing label column raises fedtpu's KeyError, naming the columns;
-    a string column with a missing cell, a ragged row and dataset_name
-    'cifar10' raise too."""
+    a string column with a missing cell, a ragged row and a dataset_name
+    that no loader has raise too."""
     path = _write_csv(tmp_path / "income.csv", rows=20)
     with pytest.raises(KeyError, match="Available columns"):
         t_load(tcfg.DataConfig(csv_path=path, label_column="salary"))
@@ -156,8 +156,9 @@ def test_csv_loader_refuses_what_it_cannot_encode(tmp_path):
     ragged.write_text("a,b,label\n1,2,0\n1,2\n")
     with pytest.raises(ValueError, match="row 3"):
         t_load(tcfg.DataConfig(csv_path=str(ragged), label_column="label"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        tcfg.DataConfig(dataset_name="cifar10")
+    from fedtpu_torch.data import load_dataset
+    with pytest.raises(ValueError, match="unknown dataset_name: 'mnist'"):
+        load_dataset(tcfg.DataConfig(csv_path=path, dataset_name="mnist"))
 
 
 def test_preset_fields_match_fedtpu():
@@ -171,3 +172,59 @@ def test_preset_fields_match_fedtpu():
                       if k != "csv_path" and k in jv}
             assert shared == {k: jv[k] for k in shared}, (name, part)
             assert set(tv) <= set(jv), (name, part, set(tv) - set(jv))
+
+
+# --------------------------------------------------------------- CIFAR-10
+@pytest.mark.parametrize("rows", [4096, 512, 7])
+def test_load_cifar10_synthetic_bitwise_matches_fedtpu(rows, monkeypatch,
+                                                       tmp_path):
+    """With no cifar-10-batches-py in reach, both loaders make the same
+    CIFAR-shaped synthetic set from seed 11, bit for bit: flat NHWC rows,
+    the last fifth the test split, 10 classes."""
+    from fedtpu.data.cifar10 import load_cifar10 as j_cifar
+    from fedtpu_torch.data.cifar10 import load_cifar10 as t_cifar
+    monkeypatch.chdir(tmp_path)
+    t = t_cifar(synthetic_rows=rows)
+    _assert_datasets_equal(j_cifar(synthetic_rows=rows), t)
+    assert t.x_train.shape[1] == 32 * 32 * 3 and t.num_classes == 10
+    assert len(t.x_test) == max(1, rows // 5)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 3), (32, 32, 3)])
+def test_synthetic_cifar_like_bitwise_matches_fedtpu(shape):
+    from fedtpu.data.cifar10 import synthetic_cifar_like as j_synth
+    from fedtpu_torch.data.cifar10 import synthetic_cifar_like as t_synth
+    for a, b in zip(j_synth(300, image_shape=shape),
+                    t_synth(300, image_shape=shape)):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+
+
+def test_load_dataset_dispatches_as_fedtpus(monkeypatch, tmp_path):
+    """load_dataset: 'cifar10' is the image loader, None the tabular
+    pipeline, any other name fedtpu's ValueError; the cifar10-32 preset's
+    packed batch is bitwise fedtpu's."""
+    from fedtpu.data import load_dataset as j_load_dataset
+    from fedtpu_torch.data import load_dataset as t_load_dataset
+    monkeypatch.chdir(tmp_path)
+    for kw in (dict(dataset_name="cifar10", synthetic_rows=600),
+               dict(synthetic_rows=512)):
+        _assert_datasets_equal(
+            j_load_dataset(jcfg.DataConfig(csv_path=None, **kw)),
+            t_load_dataset(tcfg.DataConfig(**kw)))
+    msgs = []
+    for load, cfg in ((j_load_dataset, jcfg.DataConfig(dataset_name="mnist")),
+                      (t_load_dataset, tcfg.DataConfig(dataset_name="mnist"))):
+        with pytest.raises(ValueError) as err:
+            load(cfg)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+    j_cfg = jcfg.get_preset("cifar10-32")
+    t_cfg = tcfg.get_preset("cifar10-32")
+    ds = t_load_dataset(dataclasses.replace(t_cfg.data, synthetic_rows=1000))
+    a, b = (j_pack(ds.x_train, ds.y_train, j_cfg.shard),
+            t_pack(ds.x_train, ds.y_train, t_cfg.shard))
+    for f in ("x", "y", "mask", "counts"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert b.x.shape[0] == 32 and b.x.shape[2] == 3072
+    assert b.counts.sum() == 800

@@ -324,10 +324,8 @@ _CONFIGS = ("DataConfig", "ShardConfig", "ModelConfig", "OptimConfig",
 # The knobs of fedtpu that the port does not run yet, and the ROADMAP item
 # of each.
 _UNPORTED = {
-    "DataConfig": {"dataset_name": "A7"},
     "ShardConfig": {"partition_clients": "A10", "partition_offset": "A10"},
-    "ModelConfig": {k: "A7" for k in ("kind", "image_shape", "conv_channels",
-                                      "param_dtype", "compute_dtype")},
+    "ModelConfig": {"param_dtype": "A7"},
     "FedConfig": {
         **{k: "A8" for k in ("async_mode", "async_arrival_rate",
                              "async_arrival_seed", "async_staleness_power",
@@ -431,12 +429,14 @@ def test_ported_knobs_take_other_values():
                                "split_seed", "scale_with_mean",
                                "native_loader",
                                "scaler_leakage_parity", "synthetic_rows",
-                               "synthetic_features", "synthetic_classes"},
+                               "synthetic_features", "synthetic_classes",
+                               "dataset_name"},
                 "ShardConfig": {"num_clients", "shuffle", "shard_seed",
                                 "unseeded_per_client_bug", "strategy",
                                 "dirichlet_alpha"},
                 "ModelConfig": {"hidden_sizes", "num_classes", "input_dim",
-                                "use_pallas"},
+                                "use_pallas", "kind", "image_shape",
+                                "conv_channels", "compute_dtype"},
                 "OptimConfig": {f.name for f in dataclasses.fields(cls)},
                 "FedConfig": {"rounds", "weighting", "termination_patience",
                               "tolerance", "same_init", "init_seed",
@@ -468,6 +468,230 @@ def test_knobs_of_the_synchronous_run_construct(name, kw):
     other values, as fedtpu's do."""
     cfg = getattr(tcfg, name)(**kw)
     assert all(getattr(cfg, k) == v for k, v in kw.items())
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("ModelConfig", dict(kind="convnet")),
+    ("ModelConfig", dict(image_shape=(8, 8, 3))),
+    ("ModelConfig", dict(conv_channels=(8, 16))),
+    ("ModelConfig", dict(compute_dtype="bfloat16")),
+    ("ModelConfig", dict(compute_dtype="float16")),
+    ("DataConfig", dict(dataset_name="cifar10"))])
+def test_model_and_dataset_knobs_construct_as_fedtpus(name, kw):
+    """The ConvNet's knobs, the compute dtypes and the CIFAR-10 loader's
+    name construct, as in fedtpu (whose build_model refuses a bad value)."""
+    t = getattr(tcfg, name)(**kw)
+    j = getattr(jcfg, name)(**kw)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_cifar10_32_preset_is_fedtpus():
+    t, j = tcfg.get_preset("cifar10-32"), jcfg.get_preset("cifar10-32")
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.kind == "convnet" and t.model.compute_dtype == "bfloat16"
+
+
+# ------------------------------------- the ConvNet and the compute dtypes
+# The CPU tests' ConvNet: 8x8x3 images, channels (8, 16), hidden 32, 10
+# classes (cifar10-32's at 1/4 of the side, 1/4 of the channels, 1/8 of the
+# hidden width).
+SMALL_IMAGE, SMALL_CHANNELS, SMALL_HIDDEN = (8, 8, 3), (8, 16), 32
+_DTYPE_PAIRS = {"float32": (None, None),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16),
+                "float16": (jnp.float16, torch.float16)}
+
+
+def _small_convnet(dtype="float32"):
+    from fedtpu_torch.models.registry import convnet_model
+    return convnet_model(SMALL_IMAGE, SMALL_CHANNELS, SMALL_HIDDEN, 10,
+                         _DTYPE_PAIRS[dtype][1])
+
+
+def _jax_convnet_params(key, clients=None):
+    from fedtpu.models.convnet import convnet_init
+    init = jax.jit(lambda k: convnet_init(k, SMALL_IMAGE, SMALL_CHANNELS,
+                                          SMALL_HIDDEN, 10))
+    if clients is None:
+        return _np_tree(init(jax.random.key(key)))
+    return _np_tree(jax.vmap(init)(jax.random.split(jax.random.key(key),
+                                                    clients)))
+
+
+def _ulp_tol(dtype: str, ref: np.ndarray) -> float:
+    """fp32: 1e-5. A 16-bit compute dtype: one ulp of it at the logits'
+    largest magnitude (bf16 2^-8, fp16 2^-11 relative), for a sum that
+    rounds once in another order; measured 0.0 on the CPU."""
+    if dtype == "float32":
+        return 1e-5
+    rel = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}[dtype]
+    return rel * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "flat", "stacked"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_convnet_apply_matches_fedtpu(dtype, layout):
+    """The port's ConvNet against fedtpu's convnet_apply on the same numpy
+    params: one model on NHWC images and on flat (N, H*W*C) rows, and
+    client-stacked (4 clients, the grouped convolution) against fedtpu's
+    vmap. fp32 within 1e-5; bf16 within one bf16 ulp of the logits'
+    scale (_ulp_tol), mirroring fedtpu's casts and rounding points."""
+    from fedtpu.models.convnet import convnet_apply as j_conv_apply
+    rng = np.random.default_rng(3)
+    j_dtype = _DTYPE_PAIRS[dtype][0]
+    model = _small_convnet(dtype)
+    if layout == "stacked":
+        params = _jax_convnet_params(7, clients=4)
+        x = rng.normal(size=(4, 24, 192)).astype(np.float32)
+        ref = np.asarray(jax.vmap(lambda p, a: j_conv_apply(
+            p, a, compute_dtype=j_dtype))(params, jnp.asarray(x)))
+    else:
+        params = _jax_convnet_params(7)
+        x = rng.normal(size=(24, 8, 8, 3)).astype(np.float32)
+        if layout == "flat":
+            x = x.reshape(24, -1)
+        ref = np.asarray(j_conv_apply(params, jnp.asarray(x),
+                                      compute_dtype=j_dtype))
+    out = model.apply(convert.params_from_jax(params), torch.from_numpy(x))
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=_ulp_tol(dtype, ref))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_mlp_in_a_compute_dtype_matches_fedtpu(dtype):
+    """fedtpu's mlp_apply(compute_dtype=...) (mlp.py:43-56) against the
+    port's MLP spec in that dtype, client-stacked: within one ulp of the
+    logits' scale (_ulp_tol)."""
+    from fedtpu_torch.models.registry import mlp_model
+    rng = np.random.default_rng(4)
+    params = _stacked_jax_params(8, 3, INCOME_DIMS)
+    x = rng.normal(size=(3, 50, 14)).astype(np.float32)
+    ref = np.asarray(jax.vmap(lambda p, a: j_apply(
+        p, a, compute_dtype=_DTYPE_PAIRS[dtype][0]))(params, jnp.asarray(x)))
+    model = mlp_model(INCOME_DIMS, _DTYPE_PAIRS[dtype][1])
+    assert model.mlp_dims is None          # not the model K2 and K3 compute
+    out = model.apply(convert.params_from_jax(params), torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=_ulp_tol(dtype, ref))
+
+
+def test_convnet_gradients_match_jax_grad():
+    """The gradient of the summed per-client masked CE of the client-stacked
+    ConvNet (what the train step differentiates) against jax.grad of
+    fedtpu's masked loss, vmapped over 3 clients, fp32: rtol 1e-4, atol
+    1e-6 (backward sums over 8x8 positions and the batch in another
+    order)."""
+    from fedtpu.models.convnet import convnet_apply as j_conv_apply
+    rng = np.random.default_rng(5)
+    params = _jax_convnet_params(9, clients=3)
+    x = rng.normal(size=(3, 30, 192)).astype(np.float32)
+    y = rng.integers(0, 10, size=(3, 30)).astype(np.int32)
+    mask = np.ones((3, 30), np.float32)
+    mask[2, 25:] = 0.0
+
+    def loss(p, a, b, m):
+        return j_ce(j_conv_apply(p, a), b, m)
+
+    ref = _flat_np(jax.vmap(jax.grad(loss))(params, jnp.asarray(x),
+                                            jnp.asarray(y),
+                                            jnp.asarray(mask)))
+    model = _small_convnet()
+    flat = convert.params_from_jax(params).requires_grad_(True)
+    ce = masked_cross_entropy(model.apply(flat, torch.from_numpy(x)),
+                              torch.from_numpy(y), torch.from_numpy(mask))
+    (grad,) = torch.autograd.grad(ce.sum(), flat)
+    np.testing.assert_allclose(grad.numpy(), ref, rtol=1e-4, atol=1e-6)
+
+
+def test_convnet_spec_is_fedtpus_pytree():
+    """build_model on fedtpu's ModelConfig fields: the leaves are fedtpu's,
+    by path and shape; cifar10-32's model has 1,070,794 parameters; the
+    init follows fedtpu's law (each layer within 1/sqrt(fan_in)); the eval
+    route is the model's own forward (mlp_dims None); unknown kinds are
+    fedtpu's ValueError."""
+    from fedtpu.models import build_model as j_build_model
+    from fedtpu_torch.models.registry import build_model, tree_leaves
+    cfg = dict(kind="convnet", image_shape=SMALL_IMAGE,
+               conv_channels=SMALL_CHANNELS, hidden_sizes=(SMALL_HIDDEN,),
+               num_classes=10)
+    model = build_model(tcfg.ModelConfig(**cfg))
+    j_init, _ = j_build_model(jcfg.ModelConfig(**cfg))
+    tree = _np_tree(j_init(jax.random.key(0)))
+    assert [(p, tuple(v.shape)) for p, v in tree_leaves(tree)] == \
+        [(p, tuple(s)) for p, s in model.leaves]
+    assert model.param_count == sum(v.size for v in jax.tree.leaves(tree))
+    assert model.mlp_dims is None and model.compute_dtype is None
+    big = build_model(tcfg.get_preset("cifar10-32").model)
+    assert big.param_count == 1_070_794
+    assert big.compute_dtype == torch.bfloat16
+    flat = model.init(torch.Generator().manual_seed(0))
+    view = model.unflatten(flat)
+    for layer in (*view["convs"], view["dense"], view["head"]):
+        bound = 1.0 / np.sqrt(np.prod(layer["w"].shape[:-1]))
+        for leaf in (layer["w"], layer["b"]):
+            assert float(leaf.abs().max()) <= bound
+        assert float(layer["w"].abs().max()) > 0.9 * bound
+    for bad, jbad in ((tcfg.ModelConfig(kind="x"), jcfg.ModelConfig(
+            kind="x")),):
+        with pytest.raises(ValueError) as t_err:
+            build_model(bad)
+        with pytest.raises(ValueError) as j_err:
+            j_build_model(jbad)
+        assert str(t_err.value) == str(j_err.value)
+    assert build_model(tcfg.ModelConfig()).mlp_dims == INCOME_DIMS
+
+
+def test_convnet_convert_round_trip_is_exact():
+    """fedtpu's client-stacked ConvNet params and its optax Adam state
+    after two steps -> the port's flat buffers -> fedtpu's layout, bit for
+    bit; the flat buffer's views are fedtpu's HWIO leaves."""
+    params = _jax_convnet_params(11, clients=3)
+    model = _small_convnet()
+    flat = convert.params_from_jax(params)
+    assert flat.shape == (3, model.param_count)
+    back = convert.params_to_numpy(flat, model)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        model.unflatten(flat)["convs"][1]["w"].numpy(),
+        params["convs"][1]["w"])
+    tx = j_build_optimizer(jcfg.OptimConfig())
+    rng = np.random.default_rng(6)
+    state = jax.vmap(tx.init)(params)
+    p = params
+    for _ in range(2):
+        g = jax.tree.map(lambda a: rng.normal(size=a.shape)
+                         .astype(np.float32), params)
+        upd, state = jax.vmap(tx.update)(g, state, p)
+        p = optax.apply_updates(p, upd)
+    adam = state[0]
+    t_state = convert.adam_state_from_jax(_np_tree(adam.mu),
+                                          _np_tree(adam.nu),
+                                          np.asarray(adam.count))
+    mu, nu, count = convert.adam_state_to_numpy(t_state, model)
+    for want, got in ((adam.mu, mu), (adam.nu, nu)):
+        assert jax.tree.structure(got) == jax.tree.structure(params)
+        for a, b in zip(jax.tree.leaves(_np_tree(want)),
+                        jax.tree.leaves(got)):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(count, np.asarray(adam.count))
+
+
+def test_int8_quantization_scales_each_convnet_leaf():
+    """The int8 exchange's scales follow the spec's leaves: one per conv
+    w and b, dense and head, fedtpu's quantize_tensor on each."""
+    model = _small_convnet()
+    gen = np.random.default_rng(12)
+    x = gen.standard_normal((2, model.param_count)).astype(np.float32)
+    bounds = model.leaf_bounds
+    assert len(bounds) == 8
+    q, scales = t_compress.quantize_leaves(torch.from_numpy(x), bounds)
+    for s in range(2):
+        for j, (a, b) in enumerate(bounds):
+            jq, js = j_quantize_tensor(x[s, a:b])
+            np.testing.assert_array_equal(q[s, a:b].numpy(), np.asarray(jq))
+            assert float(scales[s, j]) == float(js)
 
 
 @pytest.mark.parametrize("kw,message", [

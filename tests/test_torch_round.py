@@ -2239,3 +2239,311 @@ def test_personalized_run_matches_fedtpus_run_experiment(capsys):
     for a, b in zip(jax.tree.leaves(off.final_params),
                     jax.tree.leaves(rt.final_params)):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------ the ConvNet and the compute dtypes
+# The CPU tests' ConvNet: 8x8x3 CIFAR-like images, channels (8, 16), hidden
+# 32, 10 classes (cifar10-32's model at 1/4 of its side and channels).
+CONV_IMAGE, CONV_CHANNELS, CONV_HIDDEN = (8, 8, 3), (8, 16), (32,)
+CONV_ROWS = 200
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_datasets(rows=CONV_ROWS):
+    """fedtpu's and the port's Dataset of the same synthetic CIFAR-like
+    8x8x3 rows (seed 11, flat NHWC), split as load_cifar10 splits them
+    (the last fifth the test set)."""
+    from fedtpu.data.cifar10 import synthetic_cifar_like
+    from fedtpu.data.tabular import Dataset as JDataset
+    from fedtpu_torch.data.tabular import Dataset as TDataset
+    x, y = synthetic_cifar_like(rows, image_shape=CONV_IMAGE)
+    x = x.reshape(rows, -1)
+    n_test = rows // 5
+    kw = dict(x_train=x[:-n_test], y_train=y[:-n_test], x_test=x[-n_test:],
+              y_test=y[-n_test:], num_classes=10,
+              feature_names=tuple(f"px{i}" for i in range(x.shape[1])),
+              label_classes=np.arange(10))
+    return JDataset(**kw), TDataset(**kw)
+
+
+def _conv_configs(dtype="float32", clients=4, rounds=12, mesh=0, **fed):
+    """fedtpu's and the port's config of the small ConvNet in ``dtype``;
+    ``mesh`` > 0 lays the clients over that many shards on both sides."""
+    def cfg(mod):
+        return mod.ExperimentConfig(
+            shard=mod.ShardConfig(num_clients=clients),
+            model=mod.ModelConfig(kind="convnet", image_shape=CONV_IMAGE,
+                                  conv_channels=CONV_CHANNELS,
+                                  hidden_sizes=CONV_HIDDEN, num_classes=10,
+                                  compute_dtype=dtype),
+            fed=mod.FedConfig(rounds=rounds, **fed),
+            run=mod.RunConfig(eval_test_every=4, mesh_devices=mesh))
+    return cfg(jcfg), cfg(tcfg)
+
+
+def _conv_both(j_cfg, t_cfg, **t_kw):
+    """fedtpu's experiment and the port's from fedtpu's init."""
+    j_ds, t_ds = _conv_datasets()
+    j_exp = j_build(j_cfg, dataset=j_ds)
+    t_exp = t_build(t_cfg, dataset=t_ds, device="cpu",
+                    init_params=_np(j_exp.state["params"]), **t_kw)
+    return j_exp, t_exp
+
+
+# bf16 against fedtpu's bf16. A bf16 product or sum rounded in another
+# order moves a logit by up to one bf16 ulp (2^-8 relative) and the CE loss
+# by as much: BF16_LOSS_ATOL is that at logits below ~0.25 (measured:
+# ConvNet 5.2e-5 over 3 rounds, 1.1e-4 over 12; income-8's MLP 1.5e-4).
+# Adam turns a near-zero gradient entry of either sign into a step of up
+# to lr, so a param may sit up to 2 lr off; the median param is what tells
+# bf16 from fp32 (ConvNet, round 3: 3.4e-6 from fedtpu's bf16 run, 3.0e-5
+# from its fp32 one).
+BF16_LOSS_ATOL, BF16_MEDIAN_ATOL = 1e-3, 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_convnet_rounds_match_fedtpu(dtype):
+    """The ConvNet (8x8x3, channels (8, 16), hidden 32, 10 classes, 4
+    clients) through build_round_fn against fedtpu's round, fedtpu's init
+    injected, 3 rounds: per-client metrics of the trained models equal;
+    fp32: losses within 1e-6, params within 1e-5 (Adam's first step turns
+    fp32 rounding noise in a near-zero gradient into ~2e-6); bf16:
+    losses within BF16_LOSS_ATOL, every param within 2 lr and the median
+    within BF16_MEDIAN_ATOL."""
+    j_cfg, t_cfg = _conv_configs(dtype)
+    j_exp, t_exp = _conv_both(j_cfg, t_cfg)
+    assert t_exp.model.kind == "convnet" and t_exp.dims is None
+    lr = t_cfg.optim.learning_rate
+    j_state, j_step = j_exp.state, j_exp.make_step(1)
+    t_state, t_step = t_exp.state, t_exp.make_step(1)
+    for _ in range(3):
+        j_state, jm = j_step(j_state, j_exp.batch)
+        t_state, raw = t_step(t_state, t_exp.batch)
+        tm = metrics_from_confusion(raw["conf"][0])
+        for k in METRIC_NAMES:
+            np.testing.assert_allclose(tm[k].numpy(),
+                                       np.asarray(jm["per_client"][k]),
+                                       atol=1e-6)
+        want = _flat(j_state["params"])
+        got = t_state["params"].numpy()
+        loss_err = np.abs(raw["loss"][0].numpy() - np.asarray(jm["loss"]))
+        if dtype == "float32":
+            assert loss_err.max() <= 1e-6
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        else:
+            assert loss_err.max() <= BF16_LOSS_ATOL
+            assert np.abs(got - want).max() <= 2 * lr
+            assert np.median(np.abs(got - want)) <= BF16_MEDIAN_ATOL
+    assert bool((t_state["opt_state"]["count"] == 3).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_convnet_run_matches_fedtpu(dtype):
+    """run_experiment on the small ConvNet against fedtpu's, fedtpu's init
+    injected: the same stop round (both stop early on the plateau), the
+    client-mean and held-out histories equal; losses and final params
+    within 1e-6 / 1e-5 in fp32, and in bf16 within BF16_LOSS_ATOL and
+    2 lr (12 rounds: measured 1.1e-4 and 5.9e-3)."""
+    j_cfg, t_cfg = _conv_configs(dtype, rounds=30)
+    j_ds, t_ds = _conv_datasets()
+    init = _np(j_build(j_cfg, dataset=j_ds).state["params"])
+    rj = j_run(j_cfg, dataset=j_ds, verbose=False)
+    rt = t_run(t_cfg, dataset=t_ds, verbose=False, device="cpu",
+               init_params=init)
+    assert (rt.rounds_run, rt.stopped_early) == (rj.rounds_run,
+                                                 rj.stopped_early)
+    assert rt.stopped_early and rt.rounds_run < 30
+    for name in METRIC_NAMES:
+        np.testing.assert_allclose(rt.global_metrics[name],
+                                   rj.global_metrics[name], atol=1e-6)
+        assert len(rt.test_metrics[name]) == len(rj.test_metrics[name]) > 0
+        np.testing.assert_allclose(rt.test_metrics[name],
+                                   rj.test_metrics[name], atol=1e-6)
+    lr = t_cfg.optim.learning_rate
+    loss_tol, param_tol = ((1e-6, 1e-5) if dtype == "float32"
+                           else (BF16_LOSS_ATOL, 2 * lr))
+    np.testing.assert_allclose(np.stack(rt.loss), np.stack(rj.loss),
+                               rtol=0, atol=loss_tol)
+    assert jax.tree.structure(rt.final_params) == jax.tree.structure(
+        _np(rj.final_params))
+    for a, b in zip(jax.tree.leaves(rt.final_params),
+                    jax.tree.leaves(_np(rj.final_params))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=param_tol)
+
+
+def test_convnet_int8_round_matches_fedtpu():
+    """One int8-exchange round of the ConvNet over 8 shards (8 clients):
+    one scale per shard and per ConvNet leaf, the global within one
+    quantization step per element of fedtpu's (as
+    test_int8_exchange_matches_fedtpu_within_a_quantization_step holds the
+    MLP), every slot the global."""
+    from fedtpu_torch.training.client import make_local_train_step
+    j_cfg, t_cfg = _conv_configs(clients=8, mesh=8, compress="int8")
+    j_exp, t_exp = _conv_both(j_cfg, t_cfg)
+    assert t_exp.mesh.num_shards == 8
+    start = t_exp.state["params"]
+    trained, _, _ = make_local_train_step(t_exp.model, t_exp.tx)(
+        start, t_exp.state["opt_state"], *(t_exp.batch[k] for k in (
+            "x", "y", "mask")))
+    w = t_exp.client_weights
+    partial = ((trained - start) * w[:, None]).numpy()
+    step = np.concatenate([
+        np.full(b - a, np.abs(partial[:, a:b]).max() / 127 / float(w.sum()))
+        for a, b in t_exp.model.leaf_bounds])
+    j_state, _ = j_exp.make_step(1)(j_exp.state, j_exp.batch)
+    t_state, _ = t_exp.make_step(1)(t_exp.state, t_exp.batch)
+    p = t_state["params"]
+    assert torch.equal(p, p[:1].expand_as(p))
+    assert np.all(np.abs(p[0].numpy() - _flat(j_state["params"])[0])
+                  <= step + 1e-6)
+
+
+def test_convnet_dp_round_matches_fedtpu():
+    """One DP-FedAvg round of the ConvNet (clip 0.05, noise multiplier 1,
+    uniform weights) with fedtpu's unit normals injected, mapped onto the
+    flat layout by leaf path (fedtpu orders the leaves convs.* < dense <
+    head and b before w): params and the server state within 1e-5."""
+    j_cfg, t_cfg = _conv_configs(clients=8, weighting="uniform",
+                                 dp_clip_norm=DP_CLIP,
+                                 dp_noise_multiplier=1.0)
+    j_ds, _ = _conv_datasets()
+    j_exp = j_build(j_cfg, dataset=j_ds)
+    template = jax.tree.map(lambda p: np.zeros(p.shape[1:], np.float32),
+                            _np(j_exp.state["params"]))
+
+    def noise(r):
+        delta, count = _fedtpu_noise_draw(j_cfg.fed.dp_seed, template, r)
+        return np.concatenate((_flat(delta), [np.float32(count)]))
+
+    j_exp, t_exp = _conv_both(j_cfg, t_cfg, dp_noise=noise)
+    j_state, _ = j_exp.make_step(1)(j_exp.state, j_exp.batch)
+    t_state, _ = t_exp.make_step(1)(t_exp.state, t_exp.batch)
+    start = t_exp.state["params"][0].numpy()
+    moved = np.abs(t_state["params"][0].numpy() - start).max()
+    assert moved > 1e-3          # the noise (std 0.05 / 8) moved the model
+    np.testing.assert_allclose(t_state["params"].numpy(),
+                               _flat(j_state["params"]), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(t_state["server_opt_state"]["m"].numpy(),
+                               _flat(j_state["server_opt_state"]["m"]),
+                               rtol=0, atol=1e-5)
+
+
+def test_income_mlp_in_bfloat16_matches_fedtpu():
+    """income-8's MLP at compute_dtype='bfloat16' against fedtpu's run from
+    fedtpu's init: the same stop round; the client-mean histories within
+    0.01 (bf16 logits tie often: a row of a 51-row shard that crosses a tie
+    moves the client mean by 0.0049, measured once), losses within
+    BF16_LOSS_ATOL, final params within 2 lr; fp32 and bf16 runs differ
+    (the dtype took effect)."""
+    j_cfg, t_cfg = _configs()
+    j_cfg = j_cfg.replace(model=jcfg.ModelConfig(compute_dtype="bfloat16"))
+    t_cfg = t_cfg.replace(model=tcfg.ModelConfig(compute_dtype="bfloat16"))
+    init = _fedtpu_init(j_cfg)
+    rj = j_run(j_cfg, verbose=False)
+    rt = t_run(t_cfg, verbose=False, device="cpu", init_params=init)
+    assert (rt.rounds_run, rt.stopped_early) == (rj.rounds_run,
+                                                 rj.stopped_early)
+    for name in METRIC_NAMES:
+        np.testing.assert_allclose(rt.global_metrics[name],
+                                   rj.global_metrics[name], atol=0.01)
+    np.testing.assert_allclose(np.stack(rt.loss), np.stack(rj.loss),
+                               rtol=0, atol=BF16_LOSS_ATOL)
+    lr = t_cfg.optim.learning_rate
+    for a, b in zip(jax.tree.leaves(rt.final_params),
+                    jax.tree.leaves(_np(rj.final_params))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=2 * lr)
+    fp32 = t_run(t_cfg.replace(model=tcfg.ModelConfig()), verbose=False,
+                 device="cpu", init_params=init)
+    assert not np.array_equal(np.stack(fp32.loss[:3]),
+                              np.stack(rt.loss[:3]))
+
+
+@pytest.mark.parametrize("kind,dtype,kernels", [
+    ("mlp", "float32", True), ("mlp", "bfloat16", False),
+    ("convnet", "float32", False), ("convnet", "bfloat16", False)])
+def test_eval_route_is_fixed_by_the_config(monkeypatch, kind, dtype,
+                                           kernels):
+    """K2 (in-round eval) and K3 (held-out forward) take only the float32
+    MLP, like their Pallas originals: any other model is evaluated through
+    its own forward and confusion_matrix, decided when the round is built
+    (the kernels' wrappers are never called for it)."""
+    from fedtpu_torch.parallel import round as round_mod
+    from fedtpu_torch.training import client as client_mod
+    calls = {"K2": 0, "K3": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(client_mod, "fused_eval_confusion",
+                        counted("K2", client_mod.fused_eval_confusion))
+    monkeypatch.setattr(round_mod, "fused_mlp_forward",
+                        counted("K3", round_mod.fused_mlp_forward))
+    if kind == "mlp":
+        _, t_cfg = _configs(eval_test_every=1)
+        t_cfg = t_cfg.replace(
+            data=tcfg.DataConfig(synthetic_rows=256),
+            model=tcfg.ModelConfig(compute_dtype=dtype),
+            fed=tcfg.FedConfig(rounds=4))
+        ds = None
+    else:
+        _, t_cfg = _conv_configs(dtype, rounds=4)
+        ds = _conv_datasets()[1]
+    res = t_run(t_cfg, dataset=ds, verbose=False, device="cpu")
+    assert res.rounds_run == 4 and len(res.test_metrics["accuracy"]) > 0
+    assert (calls["K2"] == 4 and calls["K3"] > 0) == kernels
+    assert (calls["K2"] == calls["K3"] == 0) == (not kernels)
+
+
+@pytest.mark.parametrize("field,model", [
+    ("model.kind='convnet'", tcfg.ModelConfig(kind="convnet",
+                                              image_shape=CONV_IMAGE,
+                                              conv_channels=CONV_CHANNELS,
+                                              hidden_sizes=CONV_HIDDEN)),
+    ("model.compute_dtype='bfloat16'",
+     tcfg.ModelConfig(compute_dtype="bfloat16"))])
+def test_fused_round_refuses_other_models(field, model):
+    """K5 computes the float32 MLP: its benchmark and its wrapper refuse
+    the ConvNet and a bf16 compute dtype, naming the field."""
+    _, t_cfg = _configs()
+    cfg = t_cfg.replace(model=model)
+    with pytest.raises(ValueError, match=field):
+        mega.run(cfg, device="cpu", rounds=1)
+    ds = _conv_datasets()[1] if model.kind == "convnet" else None
+    exp = t_build(cfg.replace(data=tcfg.DataConfig(synthetic_rows=128)),
+                  dataset=ds, device="cpu")
+    opt = exp.state["opt_state"]
+    with pytest.raises(ValueError, match=field):
+        ck.fused_round(exp.state["params"], opt["mu"], opt["nu"],
+                       opt["count"], exp.batch["x"], exp.batch["y"],
+                       exp.batch["mask"], exp.client_weights, exp.model,
+                       t_cfg.optim)
+
+
+def test_compute_dtype_and_csv_flags_set_fedtpus_fields(capsys):
+    """--compute-dtype sets ModelConfig.compute_dtype and --csv clears the
+    preset's dataset_name, as fedtpu's flags do; cifar10-32 runs from the
+    CLI on the CPU."""
+    from fedtpu.cli import _apply_overrides, build_parser as j_parser
+    from fedtpu_torch.cli import build_parser as t_parser, config_from_args
+    from fedtpu_torch.cli import main
+    for argv in (["run", "--preset", "cifar10-32", "--compute-dtype",
+                  "float32"],
+                 ["run", "--preset", "cifar10-32", "--csv", ""],
+                 ["sweep", "--compute-dtype", "bfloat16"]):
+        j = _apply_overrides(jcfg.get_preset(argv[2]) if "--preset" in argv
+                             else jcfg.ExperimentConfig(),
+                             j_parser().parse_args(argv))
+        t = config_from_args(t_parser().parse_args(argv))
+        assert dataclasses.asdict(t.model) == dataclasses.asdict(j.model)
+        assert (t.data.dataset_name, t.data.csv_path) == (
+            j.data.dataset_name, j.data.csv_path)
+    with pytest.raises(SystemExit):
+        t_parser().parse_args(["run", "--compute-dtype", "float16"])
+    rc = main(["run", "--preset", "cifar10-32", "--platform", "cpu",
+               "--synthetic-rows", "128", "--num-clients", "4", "--rounds",
+               "2", "--quiet", "--json"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and summary["rounds_run"] == 2
