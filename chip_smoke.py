@@ -71,6 +71,17 @@ Phases, in order; any failure exits non-zero before the result line:
    20-round profile, and the same run at fp32 compute; (i) cifar10-32 at
    full width on 512 rows, 3 rounds, card against CPU at fp32 and bf16;
    (j) income-8 at bf16 compute against the CPU (K2 = K3 = 0).
+   Then ``param_dtype``: (k) K1 on bfloat16 and float16 stacks at
+   income-8's and cifar10-32's shapes in both modes (and a float32 stack
+   into 16-bit slots, the main path's), with the carry-over and a NaN
+   column, against its plain version and timed; K1-K3 at the
+   sklearn-parity preset's shapes; (l) ``parity --preset sklearn-parity``
+   at full width through the CLI (part A on the host, part B on the card,
+   K1-K3 counted), part B against the CPU; (m) income-8 at bfloat16 params
+   against the CPU (same stop round), and at float16 params, which
+   diverges: card and CPU halt at the same round; (n) cifar10-32 at full
+   width with bfloat16 params, 10 rounds captured, and 3 rounds on 512 rows
+   against the CPU.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package.
@@ -2035,6 +2046,336 @@ def phase_income_bf16() -> dict:
     return {label: launches}
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers (NaN equals itself bit for bit)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+# K1's 16-bit stacks, held to the plain version: a broadcast element may
+# round the other way where the two float32 averages (the kernel's FMA
+# chain, torch's sum) differ in their last bits, on at most this share of
+# the columns (measured: 137 of 1,070,794 at bf16, NVIDIA H100 80GB HBM3,
+# 700 W).
+K1_16BIT_FLIP_SHARE = 1e-3
+K1_DTYPES = ("bfloat16", "float16")
+
+
+def k1_16bit_checks(dev: torch.device) -> dict:
+    """Phase (k): K1 on bfloat16 and float16 stacks at income-8's (8,
+    11,352) with data-size weights and cifar10-32's (32, 1,070,794), both
+    modes, against its plain version: the (D,) float32 average within
+    1e-5, the broadcast in the stack's dtype equal but for rounding flips
+    on at most K1_16BIT_FLIP_SHARE of the columns; every
+    weight 0 carries the stack over bit for bit; a NaN column stays NaN;
+    two launches bitwise equal; the broadcast is exactly the kernel's own
+    (D,) average rounded; and the main path's float32 stack
+    broadcast into 16-bit slots. Each timed single and back to back beside
+    its bound, the plain version, ``torch.matmul`` in the stack's dtype
+    ((D,) mode; it writes that dtype) and the chain the broadcast replaces
+    in the round (the average, the cast, ``w.sum() > 0``,
+    ``torch.where``)."""
+    from fedtpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator().manual_seed(11)
+    rows = []
+    err = 0.0
+    for dtype_name in K1_DTYPES:
+        dtype = getattr(torch, dtype_name)
+        for label, c, d in (("income-8", 8, 11352),
+                            ("cifar10-32", 32, CIFAR_PARAMS)):
+            x32 = (torch.randn(c, d, generator=gen) * 0.05).to(dev)
+            x32[:, 5] = float("nan")
+            x = x32.to(dtype)
+            wt = (torch.randint(100, 500, (c,), generator=gen)
+                  .to(torch.float32).to(dev))
+            glob = None
+            for broadcast in (False, True):
+                out = ck.weighted_average_clients(x, wt, broadcast)
+                again = ck.weighted_average_clients(x, wt, broadcast)
+                ref = ck.weighted_average_clients_reference(x, wt, broadcast)
+                torch.cuda.synchronize()
+                mode = "broadcast" if broadcast else "(D,)"
+                check(out.dtype == ref.dtype and torch.equal(
+                    torch.isnan(out), torch.isnan(ref)) and bool(
+                    torch.isnan(out[..., 5]).all()),
+                      f"K1 {dtype_name} {mode} {label}: dtype or NaN column")
+                check(torch.equal(bits(out), bits(again)),
+                      f"K1 {dtype_name} {mode} {label}: two launches differ")
+                o, r = out.float(), ref.float()
+                live = ~torch.isnan(r)
+                e = float((o - r).abs()[live].max())
+                cols = 0
+                if broadcast:
+                    # Every slot is the kernel's own float32 average
+                    # rounded once; against the plain version's, a column
+                    # may round the other way.
+                    check(torch.equal(bits(out), bits(glob.to(dtype).expand(
+                        c, -1).contiguous())),
+                          f"K1 {dtype_name} broadcast {label}: not its (D,) "
+                          "average rounded to the slot dtype")
+                    cols = int(((o != r) & live).any(dim=0).sum())
+                    check(cols <= K1_16BIT_FLIP_SHARE * d,
+                          f"K1 {dtype_name} broadcast {label}: {cols} "
+                          f"columns differ from the plain version")
+                else:
+                    glob = out
+                    check(e <= 1e-5, f"K1 {dtype_name} (D,) {label}: max "
+                          f"abs err {e} > 1e-5")
+                    err = max(err, e)
+                print(f"K1 {dtype_name} {mode} {label} ({c}, {d}): max abs "
+                      f"err {e:.3e}, columns rounded the other way {cols}, "
+                      f"NaN column NaN, two launches bitwise equal",
+                      flush=True)
+            zero = torch.zeros(c, device=dev)
+            carried = ck.weighted_average_clients(x, zero, broadcast=True)
+            check(torch.equal(bits(carried), bits(x)),
+                  f"K1 {dtype_name} {label}, every weight 0: not the input "
+                  "bit for bit")
+            wide = ck.weighted_average_clients(x32, wt, broadcast=True,
+                                               out_dtype=dtype)
+            wide_ref = ck.weighted_average_clients_reference(
+                x32, wt, True, dtype)
+            torch.cuda.synchronize()
+            wbad = (wide.float() != wide_ref.float()) & ~torch.isnan(
+                wide_ref.float())
+            check(wide.dtype == dtype and int(wbad.any(dim=0).sum())
+                  <= K1_16BIT_FLIP_SHARE * d,
+                  f"K1 float32 -> {dtype_name} slots {label}: "
+                  f"{int(wbad.any(dim=0).sum())} columns differ")
+            wn = wt / wt.sum()
+
+            def chain():
+                glob = ck.weighted_average_clients(x, wt).to(dtype)
+                return torch.where(wt.sum() > 0, glob.expand_as(x), x)
+
+            row = {"dtype": dtype_name, "shape": label, "clients": c,
+                   "params": d, "carry_over_bitwise": True,
+                   "nan_column_nan": True}
+            for mode, broadcast, nbytes, library in (
+                    ("average", False, 2 * c * d + 4 * c + 4 * d,
+                     lambda: torch.matmul(wn.to(dtype), x)),
+                    ("broadcast", True, 2 * 2 * c * d + 4 * c, chain),
+                    ("broadcast from float32", True, 4 * c * d + 2 * c * d
+                     + 4 * c, None)):
+                src = x32 if mode == "broadcast from float32" else x
+                kw = {"out_dtype": dtype} if src is x32 else {}
+                b, by = bound_ms(nbytes, 2.0 * c * d)
+                row[mode] = {
+                    "ms": time_ms(lambda: ck.weighted_average_clients(
+                        src, wt, broadcast, **kw)),
+                    "back_to_back_ms": time_back_to_back_ms(
+                        lambda: ck.weighted_average_clients(
+                            src, wt, broadcast, **kw)),
+                    "plain_ms": time_ms(
+                        lambda: ck.weighted_average_clients_reference(
+                            src, wt, broadcast, kw.get("out_dtype"))),
+                    "library_ms": (time_ms(library) if library else None),
+                    "bound_ms": b, "bound_by": by, "bytes": nbytes}
+                r = row[mode]
+                print(f"time K1 {dtype_name} {mode} {label} ({c}, {d}): "
+                      f"kernel {r['ms']:.4f} ms  back to back "
+                      f"{r['back_to_back_ms']:.4f} ms  plain "
+                      f"{r['plain_ms']:.4f} ms  "
+                      f"{'matmul' if mode == 'average' else 'chain'} "
+                      f"{r['library_ms']}  bound {b:.5f} ms ({by}, "
+                      f"{nbytes / 1e6:.2f} MB); {CARD['smi']}", flush=True)
+            rows.append(row)
+    return {"max_abs_err": err, "by_shape": rows}
+
+
+def parity_config(eval_every: int = 1):
+    """The sklearn-parity preset (4 clients, 14->50->400->2, 5 uniform
+    rounds) with a held-out eval every ``eval_every`` rounds."""
+    from fedtpu_torch.config import get_preset
+    cfg = get_preset("sklearn-parity")
+    return cfg.replace(run=dataclasses.replace(cfg.run,
+                                               eval_test_every=eval_every))
+
+
+def parity_kernel_rows(dev: torch.device) -> dict:
+    """K1, K2 and K3 at the sklearn-parity preset's shapes, on its own
+    inputs: K1's (D,) mode on the 4 clients' (4, 21,952) init with uniform
+    weights,
+    K2 on the 4 training shards, K3 on the held-out split; each against
+    its plain version and timed beside its bound (and ``torch.matmul`` for
+    K1's (D,) mode)."""
+    from fedtpu_torch.models.mlp import param_count
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration.loop import build_experiment
+    exp = build_experiment(parity_config(), device="cuda")
+    dims = exp.dims
+    params, wt = exp.state["params"], exp.client_weights
+    b = exp.batch
+    x_test = torch.from_numpy(exp.dataset.x_test).to(dev)
+    c, d = params.shape
+    k = dims[-1]
+    live = float(b["mask"].sum())
+    n_test = x_test.shape[0]
+    cases = {
+        "weighted_average_clients": (
+            lambda: ck.weighted_average_clients(params, wt),
+            lambda: ck.weighted_average_clients_reference(params, wt),
+            lambda: torch.matmul(wt / wt.sum(), params),
+            4 * (c * d + c + d), 2.0 * c * d, 1e-5),
+        "fused_eval_confusion": (
+            lambda: ck.fused_eval_confusion(params, dims, b["x"], b["y"],
+                                            b["mask"], k),
+            lambda: ck.fused_eval_confusion_reference(
+                params, dims, b["x"], b["y"], b["mask"], k),
+            None, 4 * (params.numel() + live * (dims[0] + 1)
+                       + b["mask"].numel() + c * k * k),
+            mlp_flops(dims, live), 0.0),
+        "fused_mlp_forward": (
+            lambda: ck.fused_mlp_forward(params[0], dims, x_test),
+            lambda: ck.fused_mlp_forward_reference(params[0], dims, x_test),
+            None, 4 * (d + x_test.numel() + n_test * k),
+            mlp_flops(dims, n_test), 1e-4)}
+    out = {}
+    for name, (kernel, plain, library, nbytes, flops, tol) in cases.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        check(e <= tol, f"{name} at sklearn-parity's shape: max abs err "
+              f"{e} > {tol}")
+        bnd, by = bound_ms(nbytes, flops)
+        out[name] = {"shape": f"sklearn-parity C={c} D={d} dims={dims} "
+                              f"train rows {int(live)} test rows {n_test}",
+                     "max_abs_err": e, "ms": time_ms(kernel),
+                     "plain_ms": time_ms(plain),
+                     "library_ms": time_ms(library) if library else None,
+                     "bound_ms": bnd, "bound_by": by}
+        r = out[name]
+        print(f"time {name} sklearn-parity: kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library {r['library_ms']}  bound "
+              f"{bnd:.5f} ms ({by}); max abs err {e:.3e}; {CARD['smi']}",
+              flush=True)
+    check(param_count(dims) == d == 21952, f"sklearn-parity D={d}")
+    return out
+
+
+def phase_parity() -> dict:
+    """Phase (l): ``python -m fedtpu_torch.cli parity --preset
+    sklearn-parity`` at full width, through the CLI's ``main``: part A (the
+    numpy MLPClassifier) on the host, part B on the card with a held-out
+    eval each round; launches counted from zero around it (K1 and K2 once
+    a round and in the graphs' warm-up, K3 once an eval); the summary must
+    show the limitation and part B's 5 rounds. Then part B's config on the
+    card against the CPU (same rounds_run, losses within 1e-4)."""
+    import contextlib
+    import io
+    from fedtpu_torch.cli import main as cli_main
+    from fedtpu_torch.ops import cuda_kernels as ck
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["parity", "--preset", "sklearn-parity",
+                       "--eval-test-every", "1", "--json", "--quiet"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    check(rc == 0, f"parity exited {rc}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(summary["limitation_demonstrated"] is True,
+          "parity: the limitation was not demonstrated")
+    rounds = summary["fedtpu"]["rounds_run"]
+    check(rounds == 5, f"parity: part B ran {rounds} rounds, not 5")
+    check(launches["weighted_average_clients"] == rounds + 1
+          and launches["fused_eval_confusion"] == rounds + 1
+          and launches["fused_mlp_forward"] >= rounds,
+          f"parity launches {launches}: not K1 = K2 = rounds + warm-up, "
+          f"K3 >= rounds")
+    print(f"parity sklearn-parity (CLI): launches {launches}; part A pooled "
+          f"accuracy {summary['sklearn']['pooled_metrics']['accuracy']}, "
+          f"limitation demonstrated; part B rounds {rounds}, pooled "
+          f"accuracy {summary['fedtpu']['pooled_metrics']['accuracy']}; "
+          f"wall {wall:.3f} s", flush=True)
+    cfg = parity_config()
+    cfg = cfg.replace(fed=dataclasses.replace(cfg.fed, weighting="uniform"))
+    gpu, _ = phase_run("sklearn-parity part B", cfg, {
+        "weighted_average_clients": "rounds",
+        "fused_eval_confusion": "rounds", "fused_mlp_forward": "evals"})
+    phase_card_vs_cpu(cfg, gpu, label="sklearn-parity part B card vs CPU")
+    return {"sklearn-parity": launches}
+
+
+def phase_param_dtype() -> dict:
+    """Phase (m): income-8 (the preset's 2,048 synthetic rows, at most 40
+    rounds, held-out eval every 10) at bfloat16 params on the card,
+    captured, against the CPU: the same stop round,
+    K1 once a round and in the warm-up, K2 = K3 = 0 (the bfloat16 MLP is
+    evaluated through its own forward). Then at float16 params: Adam's eps
+    is 0 in float16, the run diverges; card and CPU must halt at the same
+    round with non-finite params."""
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration.loop import run_experiment
+    from fedtpu_torch.config import get_preset
+    out = {}
+    base = get_preset("income-8")
+    base = base.replace(fed=dataclasses.replace(base.fed, rounds=40),
+                        run=dataclasses.replace(base.run, eval_test_every=10))
+    cfg = base.replace(model=dataclasses.replace(base.model,
+                                                 param_dtype="bfloat16"))
+    label = "income-8 bf16 params"
+    gpu, out[label] = phase_run(label, cfg, SPEC_EVAL)
+    phase_card_vs_cpu(cfg, gpu, label=f"{label} card vs CPU",
+                      drift_cap=BF16_DRIFT_CAP, loss_tol=BF16_LOSS_TOL)
+    cfg = base.replace(model=dataclasses.replace(base.model,
+                                                 param_dtype="float16"))
+    label = "income-8 fp16 params"
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    runs = {dev: run_experiment(cfg, verbose=False, device=dev)
+            for dev in ("cuda", "cpu")}
+    out[label] = {k: v for k, v in ck.LAUNCHES.items()}
+    for dev, r in runs.items():
+        finite = all(np.isfinite(l).all()
+                     for l in param_leaves(r.final_params))
+        check(r.diverged and r.stopped_early and not finite,
+              f"{label} on {dev}: diverged {r.diverged}, params finite "
+              f"{finite}")
+    g, c = runs["cuda"], runs["cpu"]
+    check(g.rounds_run == c.rounds_run,
+          f"{label}: card halts at round {g.rounds_run}, CPU at "
+          f"{c.rounds_run}")
+    check(out[label]["weighted_average_clients"] >= 1,
+          f"{label}: K1 never launched")
+    print(f"{label}: card and CPU both diverge and halt at round "
+          f"{g.rounds_run} with non-finite params; card launches "
+          f"{out[label]}; {CARD['smi']}", flush=True)
+    return out
+
+
+def param_leaves(tree) -> list:
+    from fedtpu_torch.models.registry import tree_leaves
+    return [np.asarray(leaf) for _, leaf in tree_leaves(tree)]
+
+
+def phase_cifar_param_bf16() -> dict:
+    """Phase (n): cifar10-32 at full width with bfloat16 params (float32
+    compute: fedtpu's convolution refuses bfloat16 params under a
+    bfloat16 compute dtype of the same name), 10 rounds, captured: K1 once
+    a round and in the warm-up, K2 = K3 = 0; then 3 rounds at 512 rows
+    against the CPU, as phase (i)."""
+    out = {}
+    cfg = cifar_config(rounds=10, dtype="float32")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                param_dtype="bfloat16"))
+    label = "cifar10-32 bf16 params"
+    gpu, out[label] = phase_run(label, cfg, SPEC_EVAL, min_accuracy=0.0)
+    print(f"{label}: s/round (median, captured) "
+          f"{statistics.median(gpu.sec_per_round):.6e}; {CARD['smi']}",
+          flush=True)
+    small = cifar_config(rows=512, rounds=3, dtype="float32", eval_every=1)
+    small = small.replace(model=dataclasses.replace(small.model,
+                                                    param_dtype="bfloat16"))
+    label = "cifar10-32 bf16 params 512 rows"
+    gpu, out[label] = phase_run(label, small, SPEC_EVAL, min_accuracy=0.0)
+    phase_card_vs_cpu(small, gpu, label=f"{label} card vs CPU",
+                      drift_cap=BF16_DRIFT_CAP, loss_tol=BF16_LOSS_TOL)
+    return out
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
     clock, seconds = [time.perf_counter()], {}
@@ -2051,6 +2392,10 @@ def main() -> None:
     phase_build()
     lap("device and build")
     timings = phase_kernels(torch.Generator().manual_seed(0))
+    dev = torch.device("cuda")
+    timings["weighted_average_clients"]["bf16_fp16"] = k1_16bit_checks(dev)
+    for name, row in parity_kernel_rows(dev).items():
+        timings[name]["sklearn_parity"] = row
     lap("kernels")
     cfg = main_path_config()
     gpu, launches = phase_run("main path income-8", cfg, {
@@ -2092,6 +2437,12 @@ def main() -> None:
     lap("(i)")
     by_path.update(phase_income_bf16())
     lap("(j)")
+    by_path.update(phase_parity())
+    lap("(l)")
+    by_path.update(phase_param_dtype())
+    lap("(m)")
+    by_path.update(phase_cifar_param_bf16())
+    lap("(n)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -2130,7 +2481,8 @@ def main() -> None:
                 "empty_launch_ms", "empty_back_to_back_ms", "ms_by_threads",
                 "ms_by_tile_x_threads", "composed_round_device_ms",
                 "marginal_us_per_round", "profile", "phases_us",
-                "delta_mean", "sweep", "cifar10_32")
+                "delta_mean", "sweep", "cifar10_32", "bf16_fp16",
+                "sklearn_parity")
                 if key in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

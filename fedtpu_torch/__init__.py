@@ -4,11 +4,13 @@ A second package beside ``fedtpu`` (the JAX reference, which it never
 imports). It mirrors ``fedtpu``'s module paths and function names; it runs
 the synchronous engine (FedAvg, the server optimizers, central DP, the
 robust rules, SCAFFOLD, the int8 exchange, personalization) of the income
-presets and of the CIFAR-10 ConvNet (``cifar10-32``, bf16 compute), and the
-hyperparameter grid, with hand-written CUDA kernels in place of the JAX
-package's Pallas kernels (``fedtpu_torch.ops.cuda_kernels``).
+presets and of the CIFAR-10 ConvNet (``cifar10-32``, bf16 compute), with
+float32, bfloat16 or float16 params (``ModelConfig.param_dtype``), the
+hyperparameter grid and the sklearn warm-start demo (``sklearn-parity``),
+with hand-written CUDA kernels in place of the JAX package's Pallas kernels
+(``fedtpu_torch.ops.cuda_kernels``).
 
-    fedtpu_torch.config         — configs + the income and CIFAR-10 presets
+    fedtpu_torch.config         — configs + fedtpu's presets
     fedtpu_torch.data           — the CSV and synthetic income data, CIFAR-10,
                                   sharding
     fedtpu_torch.models         — the MLP and the ConvNet on a flat parameter
@@ -20,6 +22,8 @@ package's Pallas kernels (``fedtpu_torch.ops.cuda_kernels``).
                                   the privacy ledger
     fedtpu_torch.training       — local training, eval, personalization
     fedtpu_torch.sweep          — the hyperparameter grid, its .npz artifact
+    fedtpu_torch.parity         — the sklearn MLPClassifier warm-start demo,
+                                  over a numpy MLPClassifier
     fedtpu_torch.convert        — params / Adam state to and from fedtpu
     fedtpu_torch.utils          — timing
     fedtpu_torch.benchmarks     — the fused whole round vs the composed one

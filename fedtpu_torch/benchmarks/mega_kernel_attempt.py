@@ -87,8 +87,8 @@ _FEDAVG_ONLY = (("server_opt", "none"), ("dp_clip_norm", 0.0),
 
 def check_config(cfg: ExperimentConfig) -> None:
     """Refuse what this benchmark cannot hand to K5, naming the field: a
-    model other than the float32-compute MLP (the ConvNet, a bf16 or fp16
-    compute dtype), client sampling, another aggregation, more than one
+    model other than the float32 MLP (the ConvNet, a bf16 or fp16 param
+    or compute dtype), client sampling, another aggregation, more than one
     local step, FedProx, every branch other than plain FedAvg (a server
     optimizer, DP, a robust rule, Byzantine injection, SCAFFOLD, the int8
     exchange), and an optimizer state without Adam's moments. The model's

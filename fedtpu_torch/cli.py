@@ -1,6 +1,7 @@
-"""``python -m fedtpu_torch.cli {run,sweep}``: the port's counterparts of
-``fedtpu run`` (the synchronous engine) and ``fedtpu sweep`` (the
-hyperparameter grid).
+"""``python -m fedtpu_torch.cli {run,sweep,parity,presets}``: the port's
+counterparts of ``fedtpu run`` (the synchronous engine), ``fedtpu sweep``
+(the hyperparameter grid), ``fedtpu parity`` (the sklearn ``MLPClassifier``
+warm-start limitation demo) and ``fedtpu presets`` (the shipped presets).
 
 Every flag is one that ``fedtpu.cli``'s parser also has, with the same
 meaning; ``--platform default`` means the GPU, ``--platform cpu`` the plain
@@ -57,6 +58,7 @@ def _add_common_overrides(p: argparse.ArgumentParser) -> None:
     p.add_argument("--csv", default=None,
                    help="dataset CSV path ('' = synthetic rows, the "
                         "presets' default)")
+    p.add_argument("--label-column", default=None)
     p.add_argument("--synthetic-rows", type=int, default=None)
     p.add_argument("--num-clients", type=int, default=None)
     p.add_argument("--rounds", type=int, default=None)
@@ -134,9 +136,17 @@ def _add_common_overrides(p: argparse.ArgumentParser) -> None:
     p.add_argument("--byzantine-clients", type=int, default=None,
                    help="fault injection: first k clients submit 10x "
                         "sign-flipped updates")
+    p.add_argument("--shard-strategy",
+                   choices=["contiguous", "label_sort", "dirichlet"],
+                   default=None)
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                    default=None,
-                   help="the forward pass's dtype (parameters stay float32)")
+                   help="the forward pass's dtype (the parameters keep "
+                        "ModelConfig.param_dtype)")
+    p.add_argument("--use-pallas", action="store_true",
+                   help="fedtpu's fused-MLP held-out eval; the port runs "
+                        "its counterpart (K3 on the GPU) for the float32 "
+                        "MLP either way")
     p.add_argument("--rounds-per-step", type=int, default=None)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
@@ -210,7 +220,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sklearn-faithful local fits: treat the step "
                         "budget as a cap and stop each (client, lr) fit "
                         "once its loss plateaus (tol 1e-4, 10 epochs)")
+
+    parity_p = sub.add_parser("parity",
+                              help="sklearn warm-start limitation demo")
+    _add_common_overrides(parity_p)
+    sub.add_parser("presets", help="list shipped presets")
     return parser
+
+
+def print_presets() -> None:
+    """One line a preset, in ``fedtpu presets``' format."""
+    for name, preset in sorted(PRESETS.items()):
+        print(f"{name}: clients={preset.shard.num_clients} "
+              f"model={preset.model.kind}{list(preset.model.hidden_sizes)} "
+              f"rounds={preset.fed.rounds} weighting={preset.fed.weighting}")
 
 
 def config_from_args(args):
@@ -222,14 +245,20 @@ def config_from_args(args):
         # win over a preset that names a loader (cifar10-32), as in fedtpu.
         data = dataclasses.replace(data, csv_path=args.csv or None,
                                    dataset_name=None)
+    if args.label_column is not None:
+        data = dataclasses.replace(data, label_column=args.label_column)
     if args.synthetic_rows is not None:
         data = dataclasses.replace(data, synthetic_rows=args.synthetic_rows)
     if args.num_clients is not None:
         shard = dataclasses.replace(shard, num_clients=args.num_clients)
+    if args.shard_strategy is not None:
+        shard = dataclasses.replace(shard, strategy=args.shard_strategy)
     if args.hidden_sizes is not None:
         model = dataclasses.replace(model, hidden_sizes=args.hidden_sizes)
     if args.compute_dtype is not None:
         model = dataclasses.replace(model, compute_dtype=args.compute_dtype)
+    if args.use_pallas:
+        model = dataclasses.replace(model, use_pallas=True)
     if args.learning_rate is not None:
         optim = dataclasses.replace(optim, learning_rate=args.learning_rate)
     if args.rounds is not None:
@@ -316,10 +345,20 @@ def sweep_main(args, cfg, device: str) -> dict:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command == "presets":
+        print_presets()
+        return 0
     cfg = config_from_args(args)
     device = "cpu" if args.platform == "cpu" else "cuda"
-    if args.command == "sweep":
-        summary = sweep_main(args, cfg, device)
+    if args.command in ("sweep", "parity"):
+        if args.command == "sweep":
+            summary = sweep_main(args, cfg, device)
+        else:
+            # Part A (the numpy MLPClassifier) runs on the host, part B
+            # (the port's round) on ``device``.
+            from fedtpu_torch.parity.sklearn_warmstart import run_parity_demo
+            summary = run_parity_demo(cfg, verbose=not args.quiet,
+                                      device=device)
         if args.json:
             print(json.dumps(summary, default=float))
         return 0

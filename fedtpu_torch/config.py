@@ -92,17 +92,17 @@ class ModelConfig:
     input_dim: int = 14
     image_shape: Tuple[int, int, int] = (32, 32, 3)  # convnet only (HWC)
     conv_channels: Tuple[int, ...] = (32, 64)
-    # Parameters are float32 (another param dtype is not ported yet);
-    # 'bfloat16' / 'float16' compute runs the forward in that dtype.
+    # The element type of the parameters and of every per-client state
+    # buffer ('float32' | 'bfloat16' | 'float16'); a compute dtype other
+    # than it runs the forward in that dtype, the logits cast back to the
+    # param dtype (fedtpu_torch.models.registry).
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     # fedtpu's opt-in Pallas forward for the held-out eval. The port's
-    # held-out eval always runs that kernel's counterpart (K3 on the card),
-    # so either value takes the same path.
+    # held-out eval runs that kernel's counterpart (K3 on the card) for the
+    # float32 MLP whichever the value, and the model's own forward for any
+    # other model, as fedtpu does.
     use_pallas: bool = False
-
-    def __post_init__(self):
-        _refuse_unported(self, {"param_dtype": "A7"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,9 +304,10 @@ class ExperimentConfig:
         return dataclasses.replace(self, **kw)
 
 
-# fedtpu's income presets and its CIFAR-10 ConvNet one. The income CSV is not
-# in the repository, so the income presets run on the synthetic income-like
-# data (DataConfig.csv_path=None).
+# fedtpu's presets: the income ones, the sklearn warm-start demo's and the
+# CIFAR-10 ConvNet's. The income CSV is not in the repository, so the
+# tabular presets run on the synthetic income-like data
+# (DataConfig.csv_path=None).
 PRESETS = {
     "income-2": ExperimentConfig(shard=ShardConfig(num_clients=2),
                                  fed=FedConfig(rounds=5)),
@@ -314,6 +315,14 @@ PRESETS = {
                                  fed=FedConfig(rounds=300)),
     "income-8": ExperimentConfig(shard=ShardConfig(num_clients=8),
                                  fed=FedConfig(rounds=300)),
+    # The sklearn MLPClassifier warm-start demo's (``parity``): hidden
+    # (50, 400), uniform averaging, 5 rounds, the scaler without centring
+    # (FL_SkLearn_MLPClassifier_Limitation.py:184).
+    "sklearn-parity": ExperimentConfig(
+        data=DataConfig(scale_with_mean=False),
+        shard=ShardConfig(num_clients=4),
+        model=ModelConfig(hidden_sizes=(50, 400)),
+        fed=FedConfig(rounds=5, weighting="uniform")),
     # Non-IID label-skewed income shards, 32 clients.
     "income-32-noniid": ExperimentConfig(
         shard=ShardConfig(num_clients=32, strategy="dirichlet",

@@ -9,13 +9,30 @@
 // jnp.where(total > 0, bcast(glob), p)): out[c] = the average for every c
 // when sum w > 0, else out[c] = x[c].
 //
+// Element types (template parameters): the client stack x is float32,
+// bfloat16 or float16 (ModelConfig.param_dtype); the weights, the weight
+// total and the accumulation are float32 whatever it is, as fedtpu reduces
+// a 16-bit stack (fedtpu/parallel/round.py:870-871: tensordot of the
+// float32 casts). The broadcast mode writes the slot dtype, each average
+// rounded once to nearest-even (bcast_global's astype), and the carry-over
+// copies x's bits; the (D,) mode writes float32, as the tensordot gives. A
+// float32 stack may also be broadcast into 16-bit slots (the round's
+// unrounded trained params, fedtpu_torch/training/client.py `wide`): the
+// carry-over then writes x rounded, the params the slots would hold.
+// NaN and Inf pass through as that arithmetic passes them (0 * Inf is NaN).
+//
 // Bound on the card: bytes, with launch latency above them. The (D,) mode
-// reads C*D + C floats and writes D; the broadcast mode reads C*D + C and
-// writes C*D (income-8, C = 8, D = 11,352: 0.36 / 0.73 MB, 0.12 / 0.22 us
-// at 3.35 TB/s). Its 2*C*D flops are nothing beside that.
+// reads C*D elements + C floats and writes D floats; the broadcast mode
+// reads C*D + C and writes C*D elements (income-8, C = 8, D = 11,352, fp32:
+// 0.36 / 0.73 MB, 0.12 / 0.22 us at 3.35 TB/s; a 16-bit stack halves the
+// element bytes). Its 2*C*D flops are nothing beside that.
 //
 // Design: one column a thread, one kernel for both modes (a template flag),
 // one path for every width and alignment.
+// - A 16-bit element is loaded as its 16 bits (__ldg of an unsigned short,
+//   neighbouring threads on neighbouring columns) and widened to float32
+//   in a register; a store rounds once (__float2bfloat16_rn /
+//   __float2half_rn).
 // - The client loop issues the loads of 8 client rows before their FMAs,
 //   so a thread has 8 loads in flight, not one dependent chain of C.
 // - Every warp sums the C weights itself with shuffles, so no thread sums
@@ -36,17 +53,56 @@
 // measured beside this kernel: float4 bought nothing, the template 0.2-0.35
 // us in broadcast mode alone, which no round's device time showed
 // (PERF.md, Findings).
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #define FT_WAVG_MAX_THREADS 256
 #define FT_WAVG_UNROLL 8
 
-// BCAST: write the (C, D) broadcast with the carry-over, else the (D,)
-// average.
-template <bool BCAST>
+// The element types K1 takes: a load widened to float32, a store rounded
+// once to nearest-even.
+template <typename T>
+struct FtElem;
+
+template <>
+struct FtElem<float> {
+  static __device__ __forceinline__ float load(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ float store(float v) { return v; }
+};
+
+template <>
+struct FtElem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __bfloat162float(__ushort_as_bfloat16(
+        __ldg(reinterpret_cast<const unsigned short*>(p))));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+
+template <>
+struct FtElem<__half> {
+  static __device__ __forceinline__ float load(const __half* p) {
+    return __half2float(__ushort_as_half(
+        __ldg(reinterpret_cast<const unsigned short*>(p))));
+  }
+  static __device__ __forceinline__ __half store(float v) {
+    return __float2half_rn(v);
+  }
+};
+
+// T: x's element type. BCAST: write the (C, D) broadcast in Out with the
+// carry-over, else the (D,) float32 average (Out = float).
+template <typename T, typename Out, bool BCAST>
 __global__ void __launch_bounds__(FT_WAVG_MAX_THREADS)
-ft_wavg_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               int clients, int d, float* __restrict__ out) {
+ft_wavg_kernel(const T* __restrict__ x, const float* __restrict__ w,
+               int clients, int d, Out* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   // The weight total, reduced by every warp (whole warps: the plan).
   float total = 0.f;
@@ -57,11 +113,19 @@ ft_wavg_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const float denom = fmaxf(total, 1e-30f);
   const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= d) return;
-  const float* xc = x + col;
-  if (BCAST && !(total > 0.f)) {
-    for (int c = 0; c < clients; ++c)
-      out[(size_t)c * d + col] = __ldg(xc + (size_t)c * d);
-    return;
+  const T* xc = x + col;
+  if constexpr (BCAST) {
+    if (!(total > 0.f)) {
+      // The carry-over: x's own bits, or x rounded to the slot dtype.
+      for (int c = 0; c < clients; ++c) {
+        if constexpr (std::is_same<T, Out>::value)
+          out[(size_t)c * d + col] = xc[(size_t)c * d];
+        else
+          out[(size_t)c * d + col] =
+              FtElem<Out>::store(FtElem<T>::load(xc + (size_t)c * d));
+      }
+      return;
+    }
   }
   float acc = 0.f;
   int c = 0;
@@ -69,32 +133,63 @@ ft_wavg_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float v[FT_WAVG_UNROLL];
 #pragma unroll
     for (int q = 0; q < FT_WAVG_UNROLL; ++q)
-      v[q] = __ldg(xc + (size_t)(c + q) * d);
+      v[q] = FtElem<T>::load(xc + (size_t)(c + q) * d);
 #pragma unroll
     for (int q = 0; q < FT_WAVG_UNROLL; ++q)
       acc = fmaf(__ldg(w + c + q) / denom, v[q], acc);
   }
   for (; c < clients; ++c)
-    acc = fmaf(__ldg(w + c) / denom, __ldg(xc + (size_t)c * d), acc);
+    acc = fmaf(__ldg(w + c) / denom, FtElem<T>::load(xc + (size_t)c * d),
+               acc);
+  const Out res = FtElem<Out>::store(acc);
   for (int c2 = 0; c2 < (BCAST ? clients : 1); ++c2)
-    out[(size_t)c2 * d + col] = acc;
+    out[(size_t)c2 * d + col] = res;
 }
 
-// x (clients, d), w (clients,); out (d,), or (clients, d) with `broadcast`,
-// and not overlapping x. `threads` is the wrapper's plan (_wavg_plan),
-// whole warps up to 256. Refuses what does not hold that. Returns the
-// cudaError_t of the launch.
-extern "C" int ft_weighted_average(const float* x, const float* w,
-                                   int clients, int d, int broadcast,
-                                   int threads, float* out, void* stream) {
-  if (clients < 0 || d < 1 || threads < 32 || threads > FT_WAVG_MAX_THREADS ||
-      threads % 32 != 0)
-    return (int)cudaErrorInvalidValue;
+template <typename T, typename Out, bool BCAST>
+static void ft_wavg_launch(const void* x, const float* w, int clients, int d,
+                           int threads, void* out, cudaStream_t s) {
   const dim3 grid((unsigned)((d + threads - 1) / threads));
+  ft_wavg_kernel<T, Out, BCAST><<<grid, threads, 0, s>>>(
+      static_cast<const T*>(x), w, clients, d, static_cast<Out*>(out));
+}
+
+// x (clients, d) of `dtype` (0 float32, 1 bfloat16, 2 float16), w
+// (clients,) float32; out (d,) float32 (out_dtype 0), or with `broadcast`
+// (clients, d) of `out_dtype`, which is `dtype` or, for a float32 x, a
+// 16-bit one; out does not overlap x. `threads` is the wrapper's plan
+// (_wavg_plan), whole warps up to 256. Refuses what does not hold that.
+// Returns the cudaError_t of the launch.
+extern "C" int ft_weighted_average(const void* x, const float* w,
+                                   int clients, int d, int dtype,
+                                   int out_dtype, int broadcast, int threads,
+                                   void* out, void* stream) {
+  if (clients < 0 || d < 1 || threads < 32 || threads > FT_WAVG_MAX_THREADS ||
+      threads % 32 != 0 || dtype < 0 || dtype > 2 || out_dtype < 0 ||
+      out_dtype > 2 || (!broadcast && out_dtype != 0) ||
+      (broadcast && out_dtype != dtype && dtype != 0))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (broadcast)
-    ft_wavg_kernel<true><<<grid, threads, 0, s>>>(x, w, clients, d, out);
-  else
-    ft_wavg_kernel<false><<<grid, threads, 0, s>>>(x, w, clients, d, out);
+  if (!broadcast) {
+    if (dtype == 0)
+      ft_wavg_launch<float, float, false>(x, w, clients, d, threads, out, s);
+    else if (dtype == 1)
+      ft_wavg_launch<__nv_bfloat16, float, false>(x, w, clients, d, threads,
+                                                  out, s);
+    else
+      ft_wavg_launch<__half, float, false>(x, w, clients, d, threads, out, s);
+  } else if (dtype == 1) {
+    ft_wavg_launch<__nv_bfloat16, __nv_bfloat16, true>(x, w, clients, d,
+                                                       threads, out, s);
+  } else if (dtype == 2) {
+    ft_wavg_launch<__half, __half, true>(x, w, clients, d, threads, out, s);
+  } else if (out_dtype == 1) {
+    ft_wavg_launch<float, __nv_bfloat16, true>(x, w, clients, d, threads,
+                                               out, s);
+  } else if (out_dtype == 2) {
+    ft_wavg_launch<float, __half, true>(x, w, clients, d, threads, out, s);
+  } else {
+    ft_wavg_launch<float, float, true>(x, w, clients, d, threads, out, s);
+  }
   return (int)cudaGetLastError();
 }

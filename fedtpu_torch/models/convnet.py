@@ -44,16 +44,16 @@ def convnet_leaves(image_shape: Sequence[int], conv_channels: Sequence[int],
                          ("head.b", (int(num_classes),)))
 
 
-def convnet_init(generator: torch.Generator, leaves: tuple) -> torch.Tensor:
-    """One model's flat ``(D,)`` float32 parameters on the generator's
+def convnet_init(generator: torch.Generator, leaves: tuple,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One model's flat ``(D,)`` parameters in ``dtype`` on the generator's
     device, under ``fedtpu``'s law: each layer's ``w`` and ``b`` from
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)), ``fan_in`` the product of ``w``'s
     shape but its output axis (a conv's ``3 * 3 * cin``, ``dense``'s
     flattened width, the head's hidden width). The same law as ``fedtpu``'s
     init, not the same numbers."""
     sizes = [math.prod(shape) for _, shape in leaves]
-    flat = torch.empty(sum(sizes), dtype=torch.float32,
-                       device=generator.device)
+    flat = torch.empty(sum(sizes), dtype=dtype, device=generator.device)
     parts = flat.split(sizes)
     for j in range(0, len(leaves), 2):      # (w, b) of one layer
         bound = 1.0 / math.sqrt(math.prod(leaves[j][1][:-1]))
@@ -65,10 +65,12 @@ def convnet_init(generator: torch.Generator, leaves: tuple) -> torch.Tensor:
 def convnet_apply(params: dict, x: torch.Tensor,
                   compute_dtype: Optional[torch.dtype] = None
                   ) -> torch.Tensor:
-    """Forward pass -> float32 logits, in ``fedtpu``'s order of operations:
-    ``x``, each ``w`` and each ``b`` cast to ``compute_dtype`` (None: no
-    cast); each conv's output rounded to it before the bias add, ``relu(h +
-    b)`` and the max-pool in it; the logits cast back to float32.
+    """Forward pass -> logits in the param dtype, in ``fedtpu``'s order of
+    operations: ``x``, each ``w`` and each ``b`` cast to ``compute_dtype``
+    (None: no cast, which ``fedtpu``'s convolution takes only when ``x``'s
+    float32 is the param dtype); each conv's output rounded to it before the
+    bias add, ``relu(h + b)`` and the max-pool in it; the logits cast back
+    to the param dtype.
 
     One model: ``x (N, H, W, cin)`` or flat rows ``(N, H*W*cin)``, every
     leaf without a lead axis. Client-stacked: ``x (C, N, ...)`` and every
@@ -85,6 +87,12 @@ def convnet_apply(params: dict, x: torch.Tensor,
                   "dense": {k: one(v) for k, v in dense.items()},
                   "head": {k: one(v) for k, v in head.items()}}
         return convnet_apply(params, x.unsqueeze(0), compute_dtype)[0]
+    out_dtype = head["w"].dtype
+    if compute_dtype is None and x.dtype != out_dtype:
+        raise TypeError(
+            f"the ConvNet's convolution needs x and the params in one "
+            f"dtype, got {x.dtype}, {out_dtype} (fedtpu refuses it too): "
+            "set a compute_dtype apart from param_dtype")
     cast = ((lambda a: a.to(compute_dtype)) if compute_dtype is not None
             else (lambda a: a))
     c = lead[0]
@@ -111,4 +119,4 @@ def convnet_apply(params: dict, x: torch.Tensor,
     h = torch.relu(torch.matmul(h, cast(dense["w"]))
                    + cast(dense["b"]).unsqueeze(-2))
     h = torch.matmul(h, cast(head["w"])) + cast(head["b"]).unsqueeze(-2)
-    return h.to(torch.float32)
+    return h.to(out_dtype)

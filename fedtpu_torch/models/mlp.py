@@ -3,7 +3,8 @@
 ``fedtpu`` keeps its parameters as the pytree
 ``{'layers': [{'w': (in, out), 'b': (out,)}]}``, with a leading clients axis
 when client-stacked. The port keeps the same tensors as views of ONE flat
-float32 buffer, ``(D,)`` for a model or ``(C, D)`` client-stacked, laid out
+buffer in the param dtype (float32 unless ``ModelConfig.param_dtype`` says
+otherwise), ``(D,)`` for a model or ``(C, D)`` client-stacked, laid out
 layer by layer as ``w`` (row-major, (in, out) — not ``nn.Linear``'s
 (out, in)) then ``b``. ``unflatten`` gives the pytree view, so the public
 layout stays ``fedtpu``'s; the flat buffer is what the optimizer steps, what
@@ -71,11 +72,12 @@ def flatten(params: dict) -> torch.Tensor:
 
 
 def mlp_init(generator: torch.Generator, input_dim: int,
-             hidden_sizes: Sequence[int], num_classes: int) -> torch.Tensor:
-    """One model's flat ``(D,)`` float32 parameters, on the generator's
-    device."""
+             hidden_sizes: Sequence[int], num_classes: int,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One model's flat ``(D,)`` parameters in ``dtype``, on the
+    generator's device."""
     dims = layer_dims(input_dim, hidden_sizes, num_classes)
-    flat = torch.empty(param_count(dims), dtype=torch.float32,
+    flat = torch.empty(param_count(dims), dtype=dtype,
                        device=generator.device)
     for lyr in unflatten(flat, dims)["layers"]:
         bound = 1.0 / math.sqrt(lyr["w"].shape[-2])

@@ -2,7 +2,8 @@
 model spec the round runs on.
 
 ``fedtpu``'s ``build_model`` returns ``(init_fn, apply_fn)`` over a params
-pytree. The port keeps every model's parameters as one flat float32 buffer,
+pytree. The port keeps every model's parameters as one flat buffer in the
+param dtype (``ModelConfig.param_dtype``: float32, bfloat16 or float16),
 ``(D,)`` or client-stacked ``(C, D)``, so its spec, ``FlatModel``, also
 holds that buffer's layout: ``fedtpu``'s leaves by path and shape, in the
 flat row's order, and the maps to and from ``fedtpu``'s pytree. Everything
@@ -13,8 +14,13 @@ only the forward pass and the eval route depend on the family.
 The eval route is fixed here, by the config: K2 (in-round eval) and K3
 (held-out forward) compute the float32 MLP only, as their Pallas
 originals; ``mlp_dims`` names its widths, and is None for any other model
-(the ConvNet, or an MLP under a bf16 / fp16 compute dtype), which is then
-evaluated through its own ``apply``, as ``fedtpu`` evaluates both.
+(the ConvNet, or an MLP under a bf16 / fp16 param or compute dtype), which
+is then evaluated through its own ``apply``, as ``fedtpu`` evaluates it.
+
+The dtype rule is ``fedtpu``'s (``fedtpu/models/mlp.py:42-56``): a compute
+dtype equal to the param dtype means no cast; any other casts ``x`` and
+every parameter to it, and the logits back to the param dtype. So bfloat16
+params under the default float32 compute give bfloat16 logits.
 """
 
 from __future__ import annotations
@@ -99,12 +105,14 @@ class FlatModel:
     """One model family on the flat parameter buffer.
 
     ``leaves``: ``((path, shape), ...)`` of ``fedtpu``'s pytree in the flat
-    row's order; ``compute_dtype``: None for float32 compute, else the
-    dtype ``apply`` casts to; ``mlp_dims``: the widths of a float32-compute
-    MLP (the model K2 and K3 compute), else None."""
+    row's order; ``param_dtype``: the buffer's dtype; ``compute_dtype``:
+    None when the forward computes in the param dtype, else the dtype
+    ``apply`` casts to; ``mlp_dims``: the widths of a float32 MLP (the model
+    K2 and K3 compute), else None."""
 
     kind: str
     leaves: tuple
+    param_dtype: torch.dtype
     compute_dtype: Optional[torch.dtype]
     mlp_dims: Optional[tuple]
     _init: Callable = dataclasses.field(repr=False, compare=False)
@@ -136,22 +144,25 @@ class FlatModel:
             for (path, shape), (a, b) in zip(self.leaves, self.leaf_bounds))
 
     def init(self, generator: torch.Generator) -> torch.Tensor:
-        """One model's ``(D,)`` float32 init on the generator's device,
-        under ``fedtpu``'s law (U(-1/sqrt(fan_in), 1/sqrt(fan_in)))."""
-        return self._init(generator)
+        """One model's ``(D,)`` init in the param dtype on the generator's
+        device, under ``fedtpu``'s law (U(-1/sqrt(fan_in),
+        1/sqrt(fan_in)))."""
+        return self._init(generator, dtype=self.param_dtype)
 
     def apply(self, flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """Float32 logits of ``flat (D,)`` on ``x (N, ...)``, or
-        client-stacked ``(C, D)`` on ``(C, N, ...)``, in the compute
-        dtype."""
+        """Logits in the param dtype of ``flat (D,)`` on ``x (N, ...)``,
+        or client-stacked ``(C, D)`` on ``(C, N, ...)``, computed in the
+        compute dtype."""
         return self._apply(self.unflatten(flat), x)
 
 
 def _mlp_apply_in(params: dict, x: torch.Tensor,
-                  compute_dtype: torch.dtype) -> torch.Tensor:
+                  compute_dtype: torch.dtype,
+                  out_dtype: torch.dtype) -> torch.Tensor:
     """``fedtpu``'s MLP under a compute dtype: ``x``, each ``w`` and ``b``
     cast to it, ``h @ w + b`` and the ReLU in it, the logits cast back to
-    float32."""
+    the param dtype. ``fedtpu``'s float32 ``x`` against non-float32 params
+    with no compute dtype is this at float32: jnp's promotion."""
     layers = params["layers"]
     h = x.to(compute_dtype)
     for i, lyr in enumerate(layers):
@@ -159,11 +170,12 @@ def _mlp_apply_in(params: dict, x: torch.Tensor,
              + lyr["b"].to(compute_dtype).unsqueeze(-2))
         if i < len(layers) - 1:
             h = torch.relu(h)
-    return h.to(torch.float32)
+    return h.to(out_dtype)
 
 
 def mlp_model(dims: Sequence[int],
-              compute_dtype: Optional[torch.dtype] = None) -> FlatModel:
+              compute_dtype: Optional[torch.dtype] = None,
+              param_dtype: torch.dtype = torch.float32) -> FlatModel:
     """The MLP of widths ``dims``: ``models.mlp``'s layout, init draws and
     forward, so a float32 MLP's run is the one the port ran before it had
     a spec."""
@@ -172,24 +184,30 @@ def mlp_model(dims: Sequence[int],
         (f"layers.{j}.{k}", shape)
         for j, (i, o) in enumerate(zip(dims[:-1], dims[1:]))
         for k, shape in (("w", (i, o)), ("b", (o,))))
-    if compute_dtype is None:
+    plain = compute_dtype is None and param_dtype == torch.float32
+    if plain:
         apply = mlp.mlp_apply
     else:
-        apply = functools.partial(_mlp_apply_in, compute_dtype=compute_dtype)
+        apply = functools.partial(_mlp_apply_in,
+                                  compute_dtype=compute_dtype or torch.float32,
+                                  out_dtype=param_dtype)
     return FlatModel(
-        kind="mlp", leaves=leaves, compute_dtype=compute_dtype,
-        mlp_dims=dims if compute_dtype is None else None,
-        _init=lambda gen: mlp.mlp_init(gen, dims[0], dims[1:-1], dims[-1]),
+        kind="mlp", leaves=leaves, param_dtype=param_dtype,
+        compute_dtype=compute_dtype, mlp_dims=dims if plain else None,
+        _init=functools.partial(mlp.mlp_init, input_dim=dims[0],
+                                hidden_sizes=dims[1:-1],
+                                num_classes=dims[-1]),
         _apply=apply)
 
 
 def convnet_model(image_shape: Sequence[int], conv_channels: Sequence[int],
                   hidden: int, num_classes: int,
-                  compute_dtype: Optional[torch.dtype] = None) -> FlatModel:
+                  compute_dtype: Optional[torch.dtype] = None,
+                  param_dtype: torch.dtype = torch.float32) -> FlatModel:
     leaves = convnet_leaves(image_shape, conv_channels, hidden, num_classes)
     return FlatModel(
-        kind="convnet", leaves=leaves, compute_dtype=compute_dtype,
-        mlp_dims=None,
+        kind="convnet", leaves=leaves, param_dtype=param_dtype,
+        compute_dtype=compute_dtype, mlp_dims=None,
         _init=functools.partial(convnet_init, leaves=leaves),
         _apply=functools.partial(convnet_apply, compute_dtype=compute_dtype))
 
@@ -198,21 +216,20 @@ def build_model(cfg) -> FlatModel:
     """``fedtpu``'s ``build_model`` for a ``ModelConfig``: the MLP of
     ``(input_dim, *hidden_sizes, num_classes)`` or the ConvNet of
     ``image_shape``, ``conv_channels``, ``hidden_sizes[0]`` and
-    ``num_classes``; compute in ``compute_dtype`` when it is not the param
-    dtype (float32, the only one the port holds)."""
+    ``num_classes``, with params in ``param_dtype`` and the forward in
+    ``compute_dtype`` when it is not the param dtype. A dtype name other
+    than ``DTYPES``' raises ``fedtpu``'s ``KeyError``."""
     param_dtype = DTYPES[cfg.param_dtype]
     compute = (None if cfg.compute_dtype == cfg.param_dtype
                else DTYPES[cfg.compute_dtype])
-    if param_dtype != torch.float32:
-        raise NotImplementedError(
-            f"ModelConfig.param_dtype={cfg.param_dtype!r} is not ported to "
-            "fedtpu_torch yet (ROADMAP A7); run it with fedtpu")
     if cfg.kind == "mlp":
         return mlp_model(mlp.layer_dims(cfg.input_dim, cfg.hidden_sizes,
-                                        cfg.num_classes), compute)
+                                        cfg.num_classes), compute,
+                         param_dtype)
     if cfg.kind == "convnet":
         return convnet_model(cfg.image_shape, cfg.conv_channels,
-                             cfg.hidden_sizes[0], cfg.num_classes, compute)
+                             cfg.hidden_sizes[0], cfg.num_classes, compute,
+                             param_dtype)
     raise ValueError(f"unknown model kind {cfg.kind!r}")
 
 
@@ -227,8 +244,12 @@ def kernel_dims(model, where: str) -> tuple:
     model = as_model(model)
     if model.mlp_dims is not None:
         return model.mlp_dims
-    field = (f"model.kind={model.kind!r}" if model.kind != "mlp" else
-             f"model.compute_dtype={_dtype_name(model.compute_dtype)!r}")
+    if model.kind != "mlp":
+        field = f"model.kind={model.kind!r}"
+    elif model.param_dtype != torch.float32:
+        field = f"model.param_dtype={_dtype_name(model.param_dtype)!r}"
+    else:
+        field = f"model.compute_dtype={_dtype_name(model.compute_dtype)!r}"
     raise ValueError(f"{field}: {where} computes the float32 MLP only")
 
 

@@ -31,7 +31,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry point -> argtypes; every one returns a cudaError_t.
 SIGNATURES = {
-    "ft_weighted_average": (_P, _P, _I, _I, _I, _I, _P, _P),
+    "ft_weighted_average": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "ft_eval_confusion": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _P, _P),
     "ft_mlp_forward": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P),

@@ -17,7 +17,9 @@ what it counted and each replay adds it (``count_replay``).
 
 The parameters of a model are a flat float32 buffer with ``dims =
 (input_dim, *hidden_sizes, num_classes)`` (``fedtpu_torch.models.mlp``);
-client-stacked as ``(C, D)``.
+client-stacked as ``(C, D)``. K1 also takes a bfloat16 or float16 stack
+(``WAVG_DTYPES``); K2, K3 and K5 compute the float32 MLP only, as their
+Pallas originals.
 """
 
 from __future__ import annotations
@@ -57,6 +59,8 @@ RING_MAX_SHARDS = 64      # FT_RING_MAX_SHARDS in csrc/ring_all_reduce.cu
 # K1 takes its width as a C int.
 EVAL_MAX_CLIENTS = 65_535
 WAVG_MAX_WIDTH = 2**31 - 1
+# K1's element types -> the code ft_weighted_average takes.
+WAVG_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def reset_launch_counts() -> None:
@@ -342,40 +346,64 @@ def _dims_arg(dims: tuple):
 # ---------------------------------------------------------------- K1: FedAvg
 def weighted_average_clients_reference(stacked: torch.Tensor,
                                        weights: torch.Tensor,
-                                       broadcast: bool = False
-                                       ) -> torch.Tensor:
-    """Plain version of K1: ``sum_c (w_c / max(sum w, 1e-30)) * x_c``; with
-    ``broadcast``, that average in every row of a fresh ``(C, D)``, or a
-    copy of ``stacked`` where ``sum w`` is not > 0."""
+                                       broadcast: bool = False,
+                                       out_dtype=None) -> torch.Tensor:
+    """Plain version of K1: ``sum_c (w_c / max(sum w, 1e-30)) * x_c`` in
+    float32 (a 16-bit stack read as float32); with ``broadcast``, that
+    average cast to ``out_dtype`` (default: the stack's) in every row of a
+    fresh ``(C, D)``, or ``stacked`` cast to it where ``sum w`` is not
+    > 0."""
+    out_dtype = out_dtype or stacked.dtype
     wn = weights / weights.sum().clamp_min(1e-30)
-    glob = (wn[:, None] * stacked).sum(dim=0)
+    glob = (wn[:, None] * stacked.to(torch.float32)).sum(dim=0)
     if not broadcast:
         return glob
-    return torch.where(weights.sum() > 0, glob.expand_as(stacked), stacked)
+    return torch.where(weights.sum() > 0,
+                       glob.to(out_dtype).expand_as(stacked),
+                       stacked.to(out_dtype))
 
 
 def weighted_average_clients(stacked: torch.Tensor, weights: torch.Tensor,
-                             broadcast: bool = False) -> torch.Tensor:
-    """Weighted average over the clients axis of ``stacked (C, D)`` with
-    ``weights (C,)``: the FedAvg aggregation, as a fresh ``(D,)``; or, with
-    ``broadcast``, a fresh ``(C, D)`` that holds it in every client slot, or
-    the zero-participant carry-over (``stacked`` itself, bit for bit) when
-    the weights sum to 0 or less, decided on the device.
+                             broadcast: bool = False,
+                             out_dtype=None) -> torch.Tensor:
+    """Weighted average over the clients axis of ``stacked (C, D)``
+    (float32, bfloat16 or float16) with float32 ``weights (C,)``: the FedAvg
+    aggregation, as a fresh float32 ``(D,)``; or, with ``broadcast``, a
+    fresh ``(C, D)`` in ``out_dtype`` (default: ``stacked``'s; a float32
+    stack may go to 16-bit slots) that holds it in every client slot,
+    rounded once, or the zero-participant carry-over (``stacked`` itself,
+    bit for bit, or rounded to the slots' dtype) when the weights sum to 0
+    or less, decided on the device. The sum is float32 whatever the stack's
+    dtype.
 
-    On the card: one launch of K1 in either mode, no host read."""
+    On the card: one launch of K1 in either mode, no host read; another
+    stack dtype raises, naming it."""
     dev = _device(stacked, weights)
     if stacked.dim() != 2:
         raise ValueError(f"stacked must be (clients, D), got shape "
                          f"{tuple(stacked.shape)}")
     c, d = stacked.shape
-    _check(stacked, "stacked", torch.float32, (c, d))
+    if stacked.dtype not in WAVG_DTYPES:
+        raise TypeError(f"stacked: the FedAvg kernel takes "
+                        f"{sorted(map(str, WAVG_DTYPES))}, got "
+                        f"{stacked.dtype}")
+    _check(stacked, "stacked", stacked.dtype, (c, d))
     _check(weights, "weights", torch.float32, (c,))
+    if out_dtype is not None and (
+            not broadcast or out_dtype not in WAVG_DTYPES
+            or out_dtype != stacked.dtype != torch.float32):
+        raise TypeError(f"out_dtype {out_dtype} for a {stacked.dtype} "
+                        "stack: the (D,) mode writes float32, the broadcast "
+                        "the stack's dtype or, from float32, a 16-bit one")
+    out_dtype = out_dtype or stacked.dtype
     if dev.type == "cpu":
-        return weighted_average_clients_reference(stacked, weights, broadcast)
+        return weighted_average_clients_reference(stacked, weights, broadcast,
+                                                  out_dtype)
     if d > WAVG_MAX_WIDTH:
         raise ValueError(f"stacked of shape {(c, d)}: the FedAvg kernel "
                          f"takes at most {WAVG_MAX_WIDTH} columns on the card")
-    out = torch.empty((c, d) if broadcast else (d,), dtype=torch.float32,
+    out = torch.empty((c, d) if broadcast else (d,),
+                      dtype=out_dtype if broadcast else torch.float32,
                       device=dev)
     if out.numel() == 0:
         return out
@@ -390,8 +418,8 @@ def _launch_wavg(stacked: torch.Tensor, weights: torch.Tensor,
     for timing); every launch counts."""
     c, d = stacked.shape
     _launch("ft_weighted_average", stacked.device, stacked.data_ptr(),
-            weights.data_ptr(), c, d, int(broadcast), threads,
-            out.data_ptr())
+            weights.data_ptr(), c, d, WAVG_DTYPES[stacked.dtype],
+            WAVG_DTYPES[out.dtype], int(broadcast), threads, out.data_ptr())
     LAUNCHES["weighted_average_clients"] += 1
 
 

@@ -98,10 +98,13 @@ def clip_by_global_norm(delta: torch.Tensor,
     i.e. over all of a client's leaves jointly (the DP-FedAvg sensitivity
     bound: one clip per client, not per tensor). ``clip_norm`` may be a
     0-d device tensor (adaptive clipping). Returns ``(clipped, norms)``,
-    ``norms (C,)``."""
-    norms = torch.sqrt(torch.sum(torch.square(delta), dim=1))
+    ``norms (C,)``. As in ``fedtpu``, the norms and factors are float32
+    whatever the update's dtype, and each factor is cast to that dtype
+    before it scales the row."""
+    d32 = delta.to(torch.float32)
+    norms = torch.sqrt(torch.sum(torch.square(d32), dim=1))
     factor = torch.clamp(clip_norm / torch.clamp(norms, min=1e-12), max=1.0)
-    return delta * factor[:, None], norms
+    return delta * factor.to(delta.dtype)[:, None], norms
 
 
 def unit_normals(seed: int, stream: int, rnd: int, size: int) -> np.ndarray:

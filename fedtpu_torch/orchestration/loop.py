@@ -220,7 +220,9 @@ class Experiment:
 def warm_start_params(path: str, model: FlatModel) -> torch.Tensor:
     """The global model ``(D,)`` of a weights artifact
     (``fedtpu_torch.sweep.grid.save_best_weights``, fedtpu's format), held
-    to the model's architecture with ``fedtpu``'s ``ValueError``."""
+    to the model's architecture with ``fedtpu``'s ``ValueError``; in the
+    artifact's float32 (the state casts it into the slots' dtype, as
+    ``fedtpu``'s ``astype``)."""
     from fedtpu_torch.sweep.grid import load_best_weights
     weights = load_best_weights(path)["weights"]
     # fedtpu lists the leaves in its pytree's order (a layer's b before
@@ -357,14 +359,14 @@ class _Fetch:
 
 
 def _state_layout(tree, prefix: str = "") -> dict:
-    """name -> shape of every tensor of a state (nested dicts flattened),
-    its round counter aside."""
+    """name -> (shape, dtype) of every tensor of a state (nested dicts
+    flattened), its round counter aside."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out.update(_state_layout(v, f"{prefix}{k}."))
         elif isinstance(v, torch.Tensor):
-            out[prefix + k] = tuple(v.shape)
+            out[prefix + k] = (tuple(v.shape), str(v.dtype))
     return out
 
 
@@ -379,7 +381,7 @@ def _to_device(tree, device: torch.device):
 def _restore_state(raw: dict, like: dict, device: torch.device) -> dict:
     """A saved state at the live client count onto ``device``, held to the
     live state's layout (optimizer kind, server optimizer, variates, clip,
-    shapes)."""
+    shapes, dtypes); its tensors are restored bit for bit."""
     saved, live = _state_layout(raw), _state_layout(like)
     if saved != live or ("shared_start" in raw) != ("shared_start" in like):
         raise ValueError(
@@ -456,9 +458,11 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             # control variates restart at zero, like the moments.
             raw, restored_history, start_round = load_checkpoint_raw(ckpt_dir)
             restored_meta = load_meta(ckpt_dir, step=start_round)
-            g = raw["params"].numpy().mean(axis=0)
+            dtype = state["params"].dtype
+            g = raw["params"].to(torch.float32).numpy().mean(axis=0)
             params = torch.from_numpy(np.ascontiguousarray(
-                np.broadcast_to(g, (num_clients, g.shape[0])))).to(dev)
+                np.broadcast_to(g, (num_clients, g.shape[0])))).to(
+                    device=dev, dtype=dtype)
             state = {**state, "params": params,
                      "opt_state": exp.tx.init(params), "round": start_round}
             for key in ("server_opt_state", "dp_clip"):

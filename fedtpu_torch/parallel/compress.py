@@ -50,12 +50,14 @@ def quantized_weighted_mean(delta: torch.Tensor, w: torch.Tensor,
     """The weighted mean of ``delta (C, D)`` with weights ``w (C,)`` over a
     mesh of ``shards`` shards (contiguous blocks of clients), each shard's
     partial sum exchanged as int8 with one scale per leaf of ``model`` (a
-    ``registry.FlatModel`` or the float32 MLP's widths): ``(D,)``, or zeros
-    when the weights sum to 0 (``0 / max(0, 1)``)."""
+    ``registry.FlatModel`` or the float32 MLP's widths): ``(D,)`` float32,
+    or zeros when the weights sum to 0 (``0 / max(0, 1)``). A bfloat16 or
+    float16 delta is summed and quantized from float32, as in ``fedtpu``."""
     c, d = delta.shape
     cb = c // shards
     partial = torch.bmm(w.view(shards, 1, cb),
-                        delta.view(shards, cb, d)).view(shards, d)
+                        delta.to(torch.float32).view(shards, cb, d)
+                        ).view(shards, d)
     bounds = as_model(model).leaf_bounds
     q, scales = quantize_leaves(partial, bounds)
     total = dequantize(q, scales, bounds).sum(dim=0)

@@ -42,8 +42,22 @@ s)`` (``s`` the round-start params, ``t`` their trained ones) to whichever
 branch runs, while their local metrics stay honest.
 
 The model is a spec (``fedtpu_torch.models.registry.FlatModel``: the MLP
-or the ConvNet, in a compute dtype); every branch runs on its flat
-``(C, D)`` buffer, so each takes any model. Per-client Adam moments are
+or the ConvNet, in a param and a compute dtype); every branch runs on its
+flat ``(C, D)`` buffer, so each takes any model. Under a bfloat16 or
+float16 param dtype every per-client buffer (params, the optimizer's state,
+SCAFFOLD's variates) is in that dtype, and each branch casts where
+``fedtpu``'s does: every reduction over the clients is float32 (K1 takes
+the 16-bit stack and accumulates in float32; the ring's partial sums, the
+robust rules' order statistics, the int8 exchange and SCAFFOLD's variate
+mean are taken from float32), the server optimizer's state is float32, and
+a new global is cast once to the slot dtype as it is broadcast. Where
+``fedtpu``'s compiled round keeps the trained params' float32 sum ``p + u``
+unrounded into what follows (see ``make_local_train_step``'s ``wide``),
+the port takes that float32 sum too: the eval's forward does with one
+local step and every client, and so does the reduction of the plain
+averaging and of the robust rules without Byzantine injection; every
+other reduction takes the rounded params. The new global is rounded once
+into the slots. Per-client Adam moments are
 never averaged. ``fedtpu`` scans ``rounds_per_step`` rounds inside one
 compiled program. Here the step is a Python loop over the chunk's rounds
 with no host read and no branch on a device value; on the card
@@ -125,7 +139,9 @@ def init_federated_state(generator: torch.Generator, num_clients: int,
     its float32 state ``server_opt_state``. ``scaffold`` adds zero control
     variates, ``client_cv (C, D)`` and their mean ``server_cv (D,)``;
     ``adaptive_clip_init`` the adaptive DP clip ``dp_clip``, a 0-d
-    float32 tensor."""
+    float32 tensor. The params, the optimizer state and the variates are in
+    the model's param dtype (``params`` are cast to it, as ``astype``
+    rounds)."""
     if params is None:
         draw = lambda: as_model(model).init(generator)
         if same_init:
@@ -135,7 +151,8 @@ def init_federated_state(generator: torch.Generator, num_clients: int,
     if tuple(params.shape[:1]) != (num_clients,):
         raise ValueError(f"params for {params.shape[0]} clients, expected "
                          f"{num_clients}")
-    params = params.to(device=device, dtype=torch.float32).contiguous()
+    params = params.to(device=device,
+                       dtype=as_model(model).param_dtype).contiguous()
     state = {"params": params, "round": 0}
     if server_opt is not None or shared_start:
         g0 = params.mean(dim=0)
@@ -549,8 +566,18 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
     fixed_denom = participation_rate * cb * shards
     model = as_model(model)
     d_params = model.param_count
+    slot_dtype = model.param_dtype
+    # Where fedtpu's float32 p + u reaches a consumer unrounded (measured
+    # against its round on the CPU: the eval's forward, and the plain and
+    # robust reductions, when the trained params flow straight into them;
+    # a select, a scan carry, the delta path's or the Byzantine rows'
+    # arithmetic in between rounds them).
+    wide = (slot_dtype != torch.float32 and local_steps == 1
+            and not sampling)
+    wide_agg = (wide and not delta_path and compress == "none"
+                and byzantine_clients == 0)
     local_train = make_local_train_step(model, tx, local_steps, prox_mu,
-                                        scaffold)
+                                        scaffold, wide=wide)
     local_eval = make_local_eval_step(model, num_classes)
     all_reduce = make_all_reduce(aggregation, shards)
     bad = (torch.arange(num_clients, device=dev)
@@ -578,22 +605,28 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
                                           for j in range(count)]))
 
     def broadcast(g):
-        return g.expand(num_clients, -1).contiguous()
+        """The global ``g (D,)`` in every client slot, cast to the slots'
+        dtype (``fedtpu``'s ``bcast_global``)."""
+        return g.to(slot_dtype).expand(num_clients, -1).contiguous()
 
     def psum_average(params, w):
-        return weighted_average_clients(params, w, broadcast=True)
+        # Under ``wide_agg`` the stack is float32 and the slots 16-bit.
+        return weighted_average_clients(
+            params, w, broadcast=True,
+            **({"out_dtype": slot_dtype} if wide_agg else {}))
 
     def ring_average(params, w):
         d = params.shape[1]
         blocks = params.view(shards, cb, d)
-        partial = torch.bmm(w.view(shards, 1, cb), blocks).view(shards, d)
+        partial = torch.bmm(w.view(shards, 1, cb),
+                            blocks.to(torch.float32)).view(shards, d)
         total = w.view(shards, cb).sum(dim=1, keepdim=True)
         acc = all_reduce(torch.cat((partial, total), dim=1))
         tot = acc[:, d:]
-        glob = acc[:, :d] / tot.clamp_min(1.0)
+        glob = (acc[:, :d] / tot.clamp_min(1.0)).to(slot_dtype)
         # Zero participants in the round: params carry over unchanged.
         return torch.where(tot[:, :, None] > 0, glob[:, None, :],
-                           blocks).reshape(num_clients, d)
+                           blocks.to(slot_dtype)).reshape(num_clients, d)
 
     average = psum_average if aggregation == "psum" else ring_average
 
@@ -650,8 +683,8 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
                            params)
 
     def robust_round(agg, part):
-        glob = _robust_global(robust_aggregation, agg, part, trim_ratio,
-                              k_trim, krum_f)
+        glob = _robust_global(robust_aggregation, agg.to(torch.float32),
+                              part, trim_ratio, k_trim, krum_f)
         if part is None:
             return broadcast(glob)
         # Zero participants: params carry over unchanged.
@@ -682,13 +715,17 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
                 # c == mean_i(c_i).
                 if part is not None:
                     new_ccv = torch.where(part[:, None] > 0, new_ccv, ccv)
-                scv = scv + (new_ccv - ccv).sum(dim=0) / num_clients
+                # The mean in float32, cast back to the variates' dtype.
+                scv = (scv + (new_ccv - ccv).to(torch.float32).sum(dim=0)
+                       / num_clients).to(scv.dtype)
                 ccv = new_ccv
             else:
                 params, opt_state, loss = local_train(params, opt_state, x,
                                                       y, mask, part)
             confs.append(local_eval(params, x, y, mask))
             losses.append(loss)
+            if wide and not wide_agg:
+                params = params.to(slot_dtype)
             w = client_weights * part if sampling else client_weights
             # Byzantine injection: what the first k clients submit.
             agg = (torch.where(bad, start - 10.0 * (params - start), params)

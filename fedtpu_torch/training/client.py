@@ -36,7 +36,8 @@ from fedtpu_torch.ops.optim import Optimizer, select_participants
 def make_local_train_step(model, tx: Optimizer,
                           local_steps: int = 1,
                           prox_mu: float = 0.0,
-                          scaffold: bool = False) -> Callable:
+                          scaffold: bool = False,
+                          wide: bool = False) -> Callable:
     """Returns ``step(params, opt_state, x, y, mask, part=None,
     correction=None) -> (params, opt_state, loss)``: params ``(C, D)``, x
     ``(C, N, ...)``, the model's rows.
@@ -58,14 +59,25 @@ def make_local_train_step(model, tx: Optimizer,
     optimizer). With ``scaffold`` the step also returns, fourth, the first
     update's raw CE gradient ``(C, D)``: the gradient at the round-start
     model that refreshes the variates (option I), since the prox term's
-    gradient is exactly 0 there and the correction comes after autograd."""
+    gradient is exactly 0 there and the correction comes after autograd.
+
+    ``wide`` (one local step, no sampling): the returned params are the
+    update's float32 sum ``p + u`` of the param-dtype params and update,
+    before its rounding to a bfloat16 or float16 param dtype. ``fedtpu``'s
+    compiled round reduces and evaluates those: XLA keeps the sum in
+    float32 into the float32 casts that follow it (the round's
+    ``tensordot``, the robust rules' gathers, the eval's forward); rounding
+    them gives the stored params. At float32 they are the params."""
     if local_steps < 1:
         raise ValueError(f"local_steps must be >= 1, got {local_steps}")
     if prox_mu < 0:
         raise ValueError(f"prox_mu must be >= 0, got {prox_mu} "
                          "(negative mu amplifies drift instead of bounding "
                          "it)")
+    if wide and local_steps != 1:
+        raise ValueError("wide params are those of a single local step")
     model = as_model(model)
+    wide = wide and model.param_dtype != torch.float32
 
     def one(params, opt_state, x, y, mask, anchor, correction):
         p = params.detach().requires_grad_(True)
@@ -79,7 +91,11 @@ def make_local_train_step(model, tx: Optimizer,
         raw = grads
         if correction is not None:
             grads = grads + correction
-        new_params, opt_state = tx.update(grads, opt_state, params)
+        if wide:
+            upd, opt_state = tx.step(grads, opt_state)
+            new_params = params.to(torch.float32) + upd.to(torch.float32)
+        else:
+            new_params, opt_state = tx.update(grads, opt_state, params)
         return new_params, opt_state, ce.detach(), raw
 
     def step(params, opt_state, x, y, mask, part=None, correction=None):

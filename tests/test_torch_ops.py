@@ -325,7 +325,6 @@ _CONFIGS = ("DataConfig", "ShardConfig", "ModelConfig", "OptimConfig",
 # of each.
 _UNPORTED = {
     "ShardConfig": {"partition_clients": "A10", "partition_offset": "A10"},
-    "ModelConfig": {"param_dtype": "A7"},
     "FedConfig": {
         **{k: "A8" for k in ("async_mode", "async_arrival_rate",
                              "async_arrival_seed", "async_staleness_power",
@@ -436,7 +435,8 @@ def test_ported_knobs_take_other_values():
                                 "dirichlet_alpha"},
                 "ModelConfig": {"hidden_sizes", "num_classes", "input_dim",
                                 "use_pallas", "kind", "image_shape",
-                                "conv_channels", "compute_dtype"},
+                                "conv_channels", "compute_dtype",
+                                "param_dtype"},
                 "OptimConfig": {f.name for f in dataclasses.fields(cls)},
                 "FedConfig": {"rounds", "weighting", "termination_patience",
                               "tolerance", "same_init", "init_seed",
@@ -894,3 +894,374 @@ def test_port_imports_nothing_of_jax_or_fedtpu():
     bad = {(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in _FORBIDDEN}
     assert not bad, f"forbidden imports in the port: {sorted(bad)}"
+
+
+# ------------------------------------------------- C5: fedtpu's CLI flags
+# fedtpu's run / sweep / parity flags whose config field the port does not
+# run yet: field path, a value off its default, the ROADMAP item the port's
+# refusal names. --max-restarts is fedtpu's supervisor, no config field.
+_CLI_NOT_PORTED = {
+    "--arrival-rate": ("fed", "async_arrival_rate", 0.7, "A8"),
+    "--arrival-seed": ("fed", "async_arrival_seed", 1, "A8"),
+    "--async": ("fed", "async_mode", True, "A8"),
+    "--buffer-size": ("fed", "async_buffer_size", 2, "A8"),
+    "--staleness-power": ("fed", "async_staleness_power", 1.0, "A8"),
+    "--client-store": ("fed", "client_store", "disk", "A9"),
+    "--client-store-path": ("fed", "client_store_path", "x", "A9"),
+    "--cohort-sampling": ("fed", "cohort_sampling", "trace", "A9"),
+    "--cohort-seed": ("fed", "cohort_seed", 1, "A9"),
+    "--cohort-size": ("fed", "cohort_size", 2, "A9"),
+    "--cohort-trace": ("fed", "cohort_trace", "x", "A9"),
+    "--collective-timeout": ("run", "collective_timeout", 1.0, "A10"),
+    "--model-parallel": ("run", "model_parallel", 2, "A10"),
+    "--mpmd": ("run", "mpmd", True, "A10"),
+    "--partition-clients": ("shard", "partition_clients", 2, "A10"),
+    "--partition-offset": ("shard", "partition_offset", 1, "A10"),
+    "--compilation-cache": ("run", "compilation_cache", "x", "A11"),
+    "--overlap-compile": ("run", "overlap_compile", True, "A11"),
+    "--events": ("run", "telemetry", None, "A11"),
+    "--fault-plan": ("run", "fault_plan", "x", "A11"),
+    "--heartbeat": ("run", "heartbeat_file", "x", "A11"),
+    "--on-divergence": ("run", "on_divergence", "rollback", "A11"),
+    "--profile-dir": ("run", "profile_dir", "x", "A11"),
+    "--profile-rounds": ("run", "profile_rounds", 2, "A11"),
+    "--rollback-exclude": ("run", "rollback_exclude", True, "A11"),
+    "--rollback-perturb": ("run", "rollback_perturb", 1e-3, "A11"),
+    "--rollback-retries": ("run", "rollback_retries", 3, "A11"),
+    "--max-restarts": None,
+}
+_SECTIONS = {"data": "DataConfig", "shard": "ShardConfig",
+             "model": "ModelConfig", "fed": "FedConfig", "run": "RunConfig"}
+
+
+def _subcommand_flags(parser, name):
+    import argparse
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {o for a in sub.choices[name]._actions for o in a.option_strings}
+
+
+@pytest.mark.parametrize("command", ["run", "sweep", "parity"])
+def test_cli_takes_every_fedtpu_flag_whose_field_it_runs(command):
+    """C5: the port's parser has each of fedtpu's flags of ``command``
+    whose config field the port runs; each it lacks sets a field that the
+    port refuses, naming that field's ROADMAP item."""
+    from fedtpu.cli import build_parser as j_parser
+    from fedtpu_torch.cli import build_parser as t_parser
+    missing = (_subcommand_flags(j_parser(), command)
+               - _subcommand_flags(t_parser(), command))
+    assert missing <= set(_CLI_NOT_PORTED), sorted(
+        missing - set(_CLI_NOT_PORTED))
+    for flag in sorted(missing):
+        if _CLI_NOT_PORTED[flag] is None:
+            continue
+        section, field, value, item = _CLI_NOT_PORTED[flag]
+        if value is None:
+            value = tcfg.TelemetryConfig(events_path="x")
+        cls = getattr(tcfg, _SECTIONS[section])
+        assert field in {f.name for f in dataclasses.fields(
+            getattr(jcfg, _SECTIONS[section]))}
+        with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {item}\)"):
+            cls(**{field: value})
+
+
+def _changed_fields(cfg, preset) -> dict:
+    out = {}
+    for section in _SECTIONS:
+        a, b = getattr(cfg, section), getattr(preset, section)
+        for f in dataclasses.fields(a):
+            if getattr(a, f.name) != getattr(b, f.name):
+                out[f"{section}.{f.name}"] = getattr(a, f.name)
+    return out
+
+
+@pytest.mark.parametrize("argv", [
+    ["run", "--shard-strategy", "dirichlet"],
+    ["run", "--csv", "x.csv", "--label-column", "income"],
+    ["run", "--use-pallas"],
+    ["sweep", "--shard-strategy", "label_sort"],
+    ["run", "--preset", "sklearn-parity", "--label-column", "y",
+     "--shard-strategy", "label_sort", "--use-pallas"],
+    ["parity", "--preset", "sklearn-parity", "--shard-strategy",
+     "dirichlet"]], ids=lambda a: " ".join(a))
+def test_cli_c5_command_lines_set_fedtpus_fields(argv):
+    """Each command line of ROADMAP C5 that fedtpu accepts, the port
+    accepts, and it changes the same config fields to the same values."""
+    from fedtpu.cli import _apply_overrides, build_parser as j_parser
+    from fedtpu_torch.cli import build_parser as t_parser, config_from_args
+    j_args, t_args = j_parser().parse_args(argv), t_parser().parse_args(argv)
+    j_cfg = _apply_overrides(jcfg.get_preset(j_args.preset), j_args)
+    t_cfg = config_from_args(t_args)
+    j_changed = _changed_fields(j_cfg, jcfg.get_preset(j_args.preset))
+    t_changed = _changed_fields(t_cfg, tcfg.get_preset(t_args.preset))
+    # fedtpu's income presets read the income CSV, the port's synthetic
+    # rows (DataConfig.csv_path=None), so --csv changes the field on one
+    # side only; it sets the same path on both.
+    changed = set(j_changed) | set(t_changed)
+    assert changed
+    for key in changed:
+        section, field = key.split(".")
+        assert getattr(getattr(j_cfg, section), field) == getattr(
+            getattr(t_cfg, section), field), key
+
+
+def test_cli_presets_prints_fedtpus_lines(capsys):
+    """``presets`` prints fedtpu's line for each preset both packages
+    ship, and the port ships every fedtpu preset."""
+    from fedtpu.cli import main as j_main
+    from fedtpu_torch.cli import main as t_main
+    assert j_main(["presets"]) == 0
+    j_lines = capsys.readouterr().out.splitlines()
+    assert t_main(["presets"]) == 0
+    t_lines = capsys.readouterr().out.splitlines()
+    assert sorted(tcfg.PRESETS) == sorted(jcfg.PRESETS)
+    assert t_lines == j_lines and any(
+        line.startswith("sklearn-parity: clients=4 model=mlp[50, 400] "
+                        "rounds=5 weighting=uniform") for line in t_lines)
+
+
+# ------------------------------------------- the numpy MLPClassifier
+def _sklearn_shard(rows: int = 409, classes: int = 2):
+    from fedtpu_torch.data.tabular import load_tabular_dataset
+    ds = load_tabular_dataset(tcfg.DataConfig(
+        scale_with_mean=False, synthetic_classes=classes))
+    return ds.x_train[:rows], ds.y_train[:rows], np.unique(ds.y_train)
+
+
+def _assert_same_classifier(ours, theirs):
+    for name in ("coefs_", "intercepts_"):
+        for a, b in zip(getattr(ours, name), getattr(theirs, name),
+                        strict=True):
+            assert a.dtype == b.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+    assert ours.n_iter_ == theirs.n_iter_
+    assert ours.loss_curve_ == theirs.loss_curve_
+
+
+@pytest.mark.parametrize("hidden,classes", [((8,), 2), ((50, 400), 2),
+                                            ((8, 6), 3)])
+def test_numpy_mlp_classifier_is_sklearns(hidden, classes):
+    """partial_fit, then fit over assigned weights (which fit discards),
+    then fit again: coefs_, intercepts_, n_iter_, loss_curve_ and predict
+    exactly scikit-learn 1.9.0's on the same float32 rows (the same numpy
+    operations on the same BLAS; measured difference 0). (50, 400) is the
+    sklearn-parity preset's width; three classes take the softmax path."""
+    import warnings
+    sk = pytest.importorskip("sklearn.neural_network")
+    from fedtpu_torch.parity.mlp_classifier import (ConvergenceWarning,
+                                                    MLPClassifier)
+    x, y, classes_all = _sklearn_shard(classes=classes)
+    kw = dict(activation="relu", hidden_layer_sizes=hidden,
+              learning_rate_init=0.004, max_iter=300, random_state=42)
+    theirs, ours = sk.MLPClassifier(**kw), MLPClassifier(**kw)
+    for m in (theirs, ours):
+        m.partial_fit(x, y, classes=classes_all)
+    _assert_same_classifier(ours, theirs)
+    np.testing.assert_array_equal(ours.predict(x), theirs.predict(x))
+    for m in (theirs, ours):
+        m.coefs_ = [np.full_like(w, 0.01) for w in m.coefs_]
+        m.intercepts_ = [np.zeros_like(b) for b in m.intercepts_]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for _ in range(2):
+            for m in (theirs, ours):
+                m.fit(x, y)
+            _assert_same_classifier(ours, theirs)
+            np.testing.assert_array_equal(ours.predict(x), theirs.predict(x))
+    # A fit that ends at max_iter warns, as scikit-learn's does.
+    short = MLPClassifier(**{**kw, "max_iter": 2})
+    with pytest.warns(ConvergenceWarning, match=r"Maximum iterations \(2\)"):
+        short.fit(x, y)
+
+
+# ------------------------------------------------ param_dtype: the pieces
+def test_param_dtype_takes_fedtpus_dtypes_and_refuses_others():
+    """bfloat16 and float16 params build, in that dtype, with fedtpu's
+    rule for the logits; any other name is fedtpu's KeyError."""
+    from fedtpu.models import build_model as j_build_model
+    from fedtpu_torch.models.registry import build_model
+    for name, dt in (("bfloat16", torch.bfloat16),
+                     ("float16", torch.float16)):
+        model = build_model(tcfg.ModelConfig(param_dtype=name))
+        assert model.param_dtype == dt and model.mlp_dims is None
+        flat = model.init(torch.Generator().manual_seed(0))
+        assert flat.dtype == dt
+        # bf16 params under the default float32 compute: bf16 logits.
+        assert model.apply(flat, torch.zeros(3, 14)).dtype == dt
+    for build, cfg in ((build_model, tcfg.ModelConfig),
+                       (j_build_model, jcfg.ModelConfig)):
+        with pytest.raises(KeyError, match="float64"):
+            build(cfg(param_dtype="float64"))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["mlp", "convnet"])
+def test_bf16_param_forward_is_fedtpus(kind, compute):
+    """A bfloat16-param model's forward on fedtpu's own params: the same
+    logits bit for bit, in bfloat16 (a ConvNet without a compute dtype of
+    its own is refused by both)."""
+    from fedtpu.models import build_model as j_build_model
+    from fedtpu_torch.models.registry import build_model
+    kw = dict(param_dtype="bfloat16", compute_dtype=compute)
+    if kind == "convnet":
+        kw.update(kind="convnet", num_classes=10, hidden_sizes=(32,),
+                  conv_channels=(8, 16), image_shape=(8, 8, 3))
+    j_init_fn, j_apply_fn = j_build_model(jcfg.ModelConfig(**kw))
+    model = build_model(tcfg.ModelConfig(**kw))
+    params = _np_tree(j_init_fn(jax.random.key(3)))
+    x = np.random.default_rng(0).standard_normal(
+        (5, 8 * 8 * 3 if kind == "convnet" else 14)).astype(np.float32)
+    flat = convert.params_from_jax(params)
+    assert flat.dtype == torch.bfloat16
+    if kind == "convnet" and compute == "bfloat16":
+        with pytest.raises(TypeError):
+            j_apply_fn(params, jnp.asarray(x))
+        with pytest.raises(TypeError, match="one dtype"):
+            model.apply(flat, torch.from_numpy(x))
+        return
+    ours = model.apply(flat, torch.from_numpy(x))
+    theirs = np.asarray(j_apply_fn(params, jnp.asarray(x)))
+    assert ours.dtype == torch.bfloat16 and theirs.dtype.name == "bfloat16"
+    np.testing.assert_array_equal(ours.float().numpy(),
+                                  theirs.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_convert_round_trips_16_bit_leaves(dtype):
+    """fedtpu's bfloat16 / float16 leaves become tensors of that dtype bit
+    for bit (bfloat16 through its bits, by the dtype's name); the way back
+    gives bfloat16 as float32 exactly, and cast back it is the same bits."""
+    tree = _np_tree(j_init(jax.random.key(1), 14, (50, 200), 2,
+                           param_dtype=getattr(jnp, dtype)))
+    flat = convert.params_from_jax(tree)
+    assert flat.dtype == getattr(torch, dtype)
+    back = convert.params_to_numpy(flat, INCOME_DIMS)
+    for (path, a), (_, b) in zip(_tree_leaves(tree), _tree_leaves(back),
+                                 strict=True):
+        assert b.dtype == (np.float32 if dtype == "bfloat16" else np.float16)
+        np.testing.assert_array_equal(a.astype(np.float32),
+                                      b.astype(np.float32), err_msg=path)
+    again = convert.params_from_jax(back).to(flat.dtype)
+    assert torch.equal(again.view(torch.int16), flat.view(torch.int16))
+
+
+def _tree_leaves(tree):
+    from fedtpu_torch.models.registry import tree_leaves
+    return tree_leaves(tree)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_k1_plain_version_at_16_bit_is_fedtpus_average(dtype):
+    """K1's plain version on a 16-bit stack: the broadcast is fedtpu's
+    ``bcast_global(tensordot(w, p.astype(f32)) / max(sum w, 1))`` (its
+    psum round's average) in the slot dtype, equal but for rounding
+    flips of one ulp on at most 0.1 % of the columns (K1 divides each
+    weight by the total, fedtpu the sum; measured: 1 column of 11,352 at
+    bf16, 4 at fp16, none under uniform weights); the (D,) mode is that
+    float32 average (within 1e-5 relative); a float32 stack broadcast into
+    16-bit slots is its average rounded once; zero weights carry the stack
+    over bit for bit; a NaN column stays NaN."""
+    from fedtpu.parallel.round import bcast_global
+    from fedtpu_torch.ops.cuda_kernels import (
+        weighted_average_clients as wavg)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((8, 11352)) * 0.1).astype(np.float32)
+    x[:, 7] = np.nan
+    w = rng.integers(100, 500, 8).astype(np.float32)
+    xj = jnp.asarray(x).astype(jdt)
+
+    @jax.jit
+    def fedtpu_average(p, wt):
+        glob = jnp.tensordot(wt, p.astype(jnp.float32), axes=1) / \
+            jnp.maximum(wt.sum(), 1.0)
+        return glob, bcast_global(glob, p)
+
+    glob_j, bcast_j = (np.asarray(a.astype(jnp.float32))
+                       for a in fedtpu_average(xj, jnp.asarray(w)))
+    xt = convert.leaf_to_tensor(np.asarray(xj))
+    bcast_t = wavg(xt, torch.from_numpy(w), broadcast=True)
+    assert bcast_t.dtype == tdt
+    bt = bcast_t.float().numpy()
+    np.testing.assert_array_equal(np.isnan(bt), np.isnan(bcast_j))
+    assert np.isnan(bt[:, 7]).all()
+    off = ~np.isnan(bt) & (bt != bcast_j)
+    assert off.any(axis=0).sum() <= 0.001 * x.shape[1]
+    one_ulp = np.abs(bt[off] - bcast_j[off]) <= np.abs(
+        bcast_j[off]) * 2.0 ** -(7 if dtype == "bfloat16" else 10)
+    assert one_ulp.all()
+    glob_t = wavg(xt, torch.from_numpy(w)).numpy()
+    assert glob_t.dtype == np.float32
+    np.testing.assert_allclose(glob_t, glob_j, rtol=1e-5, atol=1e-7)
+    # A float32 stack into 16-bit slots: the float32 average rounded once.
+    x32 = torch.from_numpy(x)
+    wide = wavg(x32, torch.from_numpy(w), broadcast=True, out_dtype=tdt)
+    assert wide.dtype == tdt and torch.isnan(wide[:, 7]).all()
+    glob32 = wavg(x32, torch.from_numpy(w)).to(tdt).expand(8, -1)
+    assert torch.equal(wide.view(torch.int16)[:, 8:],
+                       glob32.contiguous().view(torch.int16)[:, 8:])
+    zero = torch.zeros(8)
+    assert torch.equal(wavg(xt, zero, broadcast=True).view(torch.int16),
+                       xt.view(torch.int16))
+    assert torch.equal(wavg(x32, zero, broadcast=True, out_dtype=tdt)
+                       .view(torch.int16), x32.to(tdt).view(torch.int16))
+    with pytest.raises(TypeError, match="float64"):
+        wavg(torch.zeros(2, 3, dtype=torch.float64), torch.ones(2))
+    with pytest.raises(TypeError, match="out_dtype"):
+        wavg(xt, torch.from_numpy(w), broadcast=True,
+             out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_16_bit_optimizer_state_is_optaxs(name, dtype):
+    """Adam's moments and SGD's trace stay in the params' dtype, and three
+    updates round where optax's do (each constant first in that dtype,
+    each product and sum rounded, the float32 bias corrections and rate
+    cast before they apply). bfloat16: bit for bit optax's. float16: XLA
+    fuses optax's chain and keeps some float32 intermediates unrounded,
+    which PyTorch's per-op rounding cannot follow: the same entries
+    overflow (Adam's float16 eps is 0, so an underflowed second moment
+    divides by 0) and the same are NaN, and the finite ones agree within
+    2 float16 ulps at each tensor's largest magnitude (measured: 1)."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    cfg = tcfg.OptimConfig(name=name)
+    tx_j = j_build_optimizer(jcfg.OptimConfig(name=name))
+    tx_t = build_optimizer(cfg)
+    rng = np.random.default_rng(7)
+    p = jnp.asarray(rng.standard_normal((4, 300)) * 0.1, jdt)
+    state_j = jax.vmap(tx_j.init)(p)
+    pt = convert.leaf_to_tensor(np.asarray(p))
+    state_t = tx_t.init(pt)
+
+    @jax.jit
+    def step_j(p, g, s):
+        u, s = jax.vmap(tx_j.update)(g, s, p)
+        return optax.apply_updates(p, u), s
+
+    mant = 7 if dtype == "bfloat16" else 10
+    for _ in range(3):
+        g = rng.standard_normal((4, 300)) * 10.0 ** rng.uniform(
+            -4, -1, (4, 300))
+        gj = jnp.asarray(g, jdt)
+        p, state_j = step_j(p, gj, state_j)
+        pt, state_t = tx_t.update(convert.leaf_to_tensor(np.asarray(gj)),
+                                  state_t, pt)
+        assert pt.dtype == tdt and all(
+            v.dtype == tdt for k, v in state_t.items() if k != "count")
+        pairs = [(pt, p)] + ([(state_t["mu"], state_j[0].mu),
+                              (state_t["nu"], state_j[0].nu)]
+                             if name == "adam" else
+                             [(state_t["trace"], state_j[0].trace)])
+        for ours, theirs in pairs:
+            a = ours.float().numpy()
+            b = np.asarray(theirs).astype(np.float32)
+            if dtype == "bfloat16":
+                np.testing.assert_array_equal(a, b)
+            else:
+                fin = np.isfinite(b)
+                np.testing.assert_array_equal(np.isfinite(a), fin)
+                np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+                scale_ulp = 2.0 ** (np.floor(np.log2(np.max(
+                    np.abs(b[fin])))) - mant)
+                assert np.max(np.abs(a - b)[fin]) <= 2 * scale_ulp

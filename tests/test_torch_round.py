@@ -2547,3 +2547,373 @@ def test_compute_dtype_and_csv_flags_set_fedtpus_fields(capsys):
                "2", "--quiet", "--json"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and summary["rounds_run"] == 2
+
+
+# ------------------------------------------------- the sklearn parity demo
+def _parity_demos(j_cfg, t_cfg, verbose=True):
+    """fedtpu's and the port's ``run_parity_demo`` on the same synthetic
+    rows (both packages make them bit for bit), fedtpu's init injected into
+    the port's part B; each summary with its stdout."""
+    import contextlib
+    import io
+    from fedtpu.parity.sklearn_warmstart import run_parity_demo as j_demo
+    from fedtpu_torch.parity.sklearn_warmstart import (
+        run_parity_demo as t_demo)
+    init = _fedtpu_init(j_cfg)
+    outs = []
+    for demo, cfg, kw in ((j_demo, j_cfg, {}),
+                          (t_demo, t_cfg, dict(device="cpu",
+                                               init_params=init))):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summary = demo(cfg, verbose=verbose, **kw)
+        outs.append((summary, buf.getvalue()))
+    return outs
+
+
+def _parity_configs(**over):
+    j_cfg = jcfg.get_preset("sklearn-parity")
+    j_cfg = j_cfg.replace(data=dataclasses.replace(j_cfg.data,
+                                                   csv_path=None))
+    t_cfg = tcfg.get_preset("sklearn-parity")
+    for key, value in over.items():
+        section, field = key.split("__")
+        j_cfg, t_cfg = (cfg.replace(**{section: dataclasses.replace(
+            getattr(cfg, section), **{field: value})})
+            for cfg in (j_cfg, t_cfg))
+    return j_cfg, t_cfg
+
+
+def _parity_lines(out: str) -> list:
+    lines = out.splitlines()
+    at = lines.index("Final Global Weight Statistics:")
+    return lines[at - 1:at + 13]
+
+
+def test_parity_demo_matches_fedtpus():
+    """The sklearn-parity preset at full width (4 clients, 14->50->400->2,
+    5 uniform rounds). Part A on the numpy MLPClassifier: fedtpu's pooled
+    metrics per round, ``limitation_demonstrated`` and final global weight
+    statistics, all exactly; the reference's "Final Global Weight
+    Statistics" block and the ``[sklearn] round r`` lines byte for byte.
+    Part B, the port's round from fedtpu's init: fedtpu's rounds_run, its
+    pooled metrics and final weight statistics within 1e-6 (the fp32
+    tolerances of ROADMAP.md)."""
+    pytest.importorskip("sklearn")
+    (j_sum, j_out), (t_sum, t_out) = _parity_demos(*_parity_configs())
+    assert t_sum["sklearn"] == j_sum["sklearn"]
+    assert t_sum["limitation_demonstrated"] is j_sum[
+        "limitation_demonstrated"] is True
+    assert [s["shape"] for s in t_sum["sklearn"]["global_weight_stats"]] == [
+        [14, 50], [50, 400], [400, 1], [50], [400], [1]]
+    assert _parity_lines(t_out) == _parity_lines(j_out)
+    assert _parity_lines(t_out)[:2] == ["", "Final Global Weight Statistics:"]
+    sk = [line for line in j_out.splitlines() if line.startswith("[sklearn]")]
+    assert len(sk) == 5
+    assert [line for line in t_out.splitlines()
+            if line.startswith("[sklearn]")] == sk
+    jb, tb = j_sum["fedtpu"], t_sum["fedtpu"]
+    assert tb["rounds_run"] == jb["rounds_run"] == 5
+    for k in METRIC_NAMES:
+        np.testing.assert_allclose(tb["pooled_metrics"][k],
+                                   jb["pooled_metrics"][k], atol=1e-6)
+    for a, b in zip(tb["global_weight_stats"], jb["global_weight_stats"],
+                    strict=True):
+        assert a["shape"] == b["shape"]
+        assert a["mean"] == pytest.approx(b["mean"], abs=1e-6)
+        assert a["std"] == pytest.approx(b["std"], abs=1e-6)
+    assert t_sum["fedtpu_uses_global_weights"] is True
+
+
+def _key_tree(value):
+    if isinstance(value, dict):
+        return {k: _key_tree(v) for k, v in value.items()}
+    return None
+
+
+def test_cli_parity_json_has_fedtpus_keys(capsys):
+    """``parity --json`` on the CPU prints one JSON line with fedtpu's
+    summary keys; ``--quiet`` prints nothing else (at a reduced width: the
+    keys do not depend on it)."""
+    pytest.importorskip("sklearn")
+    from fedtpu_torch.cli import main
+    (j_sum, _), _ = _parity_demos(*_parity_configs(
+        shard__num_clients=2, fed__rounds=2, model__hidden_sizes=(8,),
+        data__synthetic_rows=256), verbose=False)
+    assert main(["parity", "--preset", "sklearn-parity", "--platform", "cpu",
+                 "--num-clients", "2", "--rounds", "2", "--hidden-sizes",
+                 "8", "--synthetic-rows", "256", "--json", "--quiet"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    summary = json.loads(out[0])
+    assert _key_tree(summary) == _key_tree(json.loads(json.dumps(
+        j_sum, default=float)))
+    assert summary["fedtpu"]["rounds_run"] == 2
+    assert summary["sklearn"] == json.loads(json.dumps(j_sum["sklearn"],
+                                                       default=float))
+
+
+# ------------------------------------------------------------- param_dtype
+def _dtype_configs(dtype, clients=8, mesh=0, optim=None, rows=ROWS,
+                   rounds=3, **fed):
+    optim = optim or {}
+    j = jcfg.ExperimentConfig(
+        data=jcfg.DataConfig(csv_path=None, synthetic_rows=rows),
+        shard=jcfg.ShardConfig(num_clients=clients),
+        model=jcfg.ModelConfig(param_dtype=dtype),
+        optim=jcfg.OptimConfig(**optim),
+        fed=jcfg.FedConfig(rounds=rounds, **fed),
+        run=jcfg.RunConfig(mesh_devices=mesh))
+    t = tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(synthetic_rows=rows),
+        shard=tcfg.ShardConfig(num_clients=clients),
+        model=tcfg.ModelConfig(param_dtype=dtype),
+        optim=tcfg.OptimConfig(**optim),
+        fed=tcfg.FedConfig(rounds=rounds, **fed),
+        run=tcfg.RunConfig(mesh_devices=mesh))
+    return j, t
+
+
+def _leaf_ulps(ours: torch.Tensor, theirs, model) -> float:
+    """The largest |ours - theirs| of each leaf in units of the param
+    dtype's ulp at that leaf's largest magnitude, over the leaves; the two
+    must be non-finite at the same entries."""
+    a = ours.to(torch.float32).numpy()
+    b = convert.params_from_jax(_np(theirs)).to(torch.float32).numpy()
+    np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
+    mant = {torch.bfloat16: 7, torch.float16: 10,
+            torch.float32: 23}[model.param_dtype]
+    worst = 0.0
+    for lo, hi in model.leaf_bounds:
+        x, y = a[..., lo:hi], b[..., lo:hi]
+        fin = np.isfinite(y)
+        if not fin.any() or not np.abs(y[fin]).max():
+            continue
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(y[fin]).max())) - mant)
+        worst = max(worst, float(np.abs(x - y)[fin].max() / ulp))
+    return worst
+
+
+# Each branch fedtpu's synchronous round takes, at bfloat16 params (fedtpu's
+# configs): the largest difference over 3 rounds, in bfloat16 ulps at each
+# leaf's largest magnitude, of params and optimizer state, measured against
+# fedtpu's build_round_fn on the CPU. The limit is ROADMAP's 4 ulps.
+DTYPE_CASES = {
+    # E = 1, every client: fedtpu reduces and evaluates p + u unrounded;
+    # the port does too (wide), so only K1's weight normalisation is left.
+    "psum": (dict(), 0.125),
+    "psum sampled": (dict(participation_rate=0.5, participation_seed=5),
+                     0.0),
+    "ring": (dict(clients=16, mesh=8, aggregation="ring"), 0.0),
+    "local steps and fedprox": (dict(local_steps=3, prox_mu=0.1), 0.0625),
+    "fedavgm": (dict(weighting="uniform", server_opt="fedavgm"), 0.5),
+    "dp": (dict(weighting="uniform", dp_clip_norm=DP_CLIP,
+                dp_noise_multiplier=1.0), 1.5),
+    # fedtpu's own pinned bf16 case (tests/test_scaffold.py).
+    "scaffold sgd": (dict(weighting="uniform", scaffold=True, local_steps=2,
+                          optim=dict(name="sgd", learning_rate=0.05,
+                                     momentum=0.0)), 0.25),
+    "int8": (dict(compress="int8", mesh=8), 1.0),
+    "median": (dict(weighting="uniform", robust_aggregation="median"), 1.0),
+    "krum byzantine": (dict(weighting="uniform", robust_aggregation="krum",
+                            krum_f=1, byzantine_clients=1), 0.0),
+}
+
+
+@pytest.mark.parametrize("case", list(DTYPE_CASES))
+def test_bf16_param_rounds_match_fedtpu(case):
+    """3 rounds of ``case`` at bfloat16 params against fedtpu's
+    build_round_fn from fedtpu's init (its masks and DP noise injected):
+    every per-client buffer stays bfloat16, the server optimizer's state
+    float32; params and Adam's / SGD's state within 4 bfloat16 ulps at each
+    leaf's scale (the measured value is DTYPE_CASES'), SCAFFOLD's variates
+    too; losses within 2e-5 (measured: 7e-6, the int8 case) and per-client
+    metrics within 1e-6, so the confusion counts are equal."""
+    kw, measured = DTYPE_CASES[case]
+    j_cfg, t_cfg = _dtype_configs("bfloat16", **kw)
+    sampled = j_cfg.fed.participation_rate < 1.0
+    j_exp = j_build(j_cfg)
+    j_state, j_step = j_exp.state, j_exp.make_step(1)
+    t_exp = t_build(
+        t_cfg, device="cpu", init_params=_np(j_state["params"]),
+        participation_masks=_fedtpu_masks(j_cfg) if sampled else None,
+        dp_noise=(_fedtpu_noise(j_cfg) if j_cfg.fed.dp_noise_multiplier
+                  else None))
+    t_state, t_step = t_exp.state, t_exp.make_step(1)
+    model = t_exp.model
+    worst = 0.0
+    for _ in range(3):
+        j_state, j_raw = j_step(j_state, j_exp.batch)
+        t_state, t_raw = t_step(t_state, t_exp.batch)
+        opt = t_state["opt_state"]
+        pairs = [(t_state["params"], j_state["params"])]
+        if "mu" in opt:
+            pairs += [(opt["mu"], j_state["opt_state"][0].mu),
+                      (opt["nu"], j_state["opt_state"][0].nu)]
+        else:
+            pairs += [(opt["trace"], j_state["opt_state"][0].trace)]
+        if "client_cv" in t_state:
+            pairs += [(t_state["client_cv"], j_state["client_cv"]),
+                      (t_state["server_cv"], j_state["server_cv"])]
+        for ours, _ in pairs:
+            assert ours.dtype == torch.bfloat16
+        for v in t_state.get("server_opt_state", {}).values():
+            assert v.dtype == torch.float32
+        worst = max(worst, *(_leaf_ulps(o, t, model) for o, t in pairs))
+        np.testing.assert_allclose(t_raw["loss"][0].numpy(),
+                                   np.asarray(j_raw["loss"]).reshape(-1),
+                                   atol=2e-5)
+        per_client = metrics_from_confusion(t_raw["conf"][0])
+        for k in METRIC_NAMES:
+            np.testing.assert_allclose(
+                per_client[k].numpy(),
+                np.asarray(j_raw["per_client"][k]).reshape(-1), atol=1e-6)
+    assert worst <= 4.0, (case, worst, measured)
+
+
+def _income8_16bit_runs(dtype):
+    """fedtpu's and the port's income-8 runs (the synthetic 2,048 rows, 40
+    rounds, a held-out eval every 5) at ``dtype`` params, fedtpu's init
+    injected."""
+    j_cfg, t_cfg = _dtype_configs(dtype, rows=2048, rounds=40)
+    j_cfg, t_cfg = (cfg.replace(run=dataclasses.replace(
+        cfg.run, eval_test_every=5)) for cfg in (j_cfg, t_cfg))
+    init = _fedtpu_init(j_cfg)
+    return (j_run(j_cfg, verbose=False),
+            t_run(t_cfg, verbose=False, device="cpu", init_params=init))
+
+
+def test_fp16_income8_diverges_where_fedtpu_does():
+    """float16 params: Adam's eps (1e-8) is 0 in float16, so a second
+    moment that underflows divides by 0; both runs halt after round 1
+    (stopped_early, diverged) with non-finite final params, the same
+    entries non-finite."""
+    rj, rt = _income8_16bit_runs("float16")
+    assert rj.rounds_run == rt.rounds_run == 1
+    assert rj.stopped_early and rt.stopped_early
+    assert rj.diverged and rt.diverged
+    ours = [np.asarray(a, np.float32)
+            for a in jax.tree.leaves(rt.final_params)]
+    theirs = [np.asarray(b).astype(np.float32)
+              for b in jax.tree.leaves(_np(rj.final_params))]
+    assert not all(np.isfinite(b).all() for b in theirs)
+    for a, b in zip(ours, theirs, strict=True):
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
+    np.testing.assert_allclose(rt.loss[0], rj.loss[0], atol=1e-6)
+
+
+def test_bf16_income8_stops_at_fedtpus_round():
+    """bfloat16 params: the early stop at fedtpu's round (15 here), the
+    per-round losses within 1e-4, the per-client metrics within 1e-6 (the
+    confusion counts equal in every round), the held-out metrics at rounds
+    5 and 10 (the model's own bfloat16 forward, not K3; the stop comes
+    before round 15's) within 1e-6, and the final
+    bfloat16 params within 4 ulps at each leaf's scale."""
+    rj, rt = _income8_16bit_runs("bfloat16")
+    assert rt.stopped_early and rj.stopped_early and not rt.diverged
+    assert rt.rounds_run == rj.rounds_run == 15
+    np.testing.assert_allclose(np.stack(rt.loss), np.stack(rj.loss),
+                               atol=1e-4)
+    for k in METRIC_NAMES:
+        np.testing.assert_allclose(np.stack(rt.per_client_metrics[k]),
+                                   np.stack(rj.per_client_metrics[k]),
+                                   atol=1e-6)
+        assert len(rt.test_metrics[k]) == len(rj.test_metrics[k]) == 2
+        np.testing.assert_allclose(rt.test_metrics[k], rj.test_metrics[k],
+                                   atol=1e-6)
+    model = t_build(_dtype_configs("bfloat16")[1], device="cpu").model
+    flat = convert.params_from_jax(rt.final_params).to(torch.bfloat16)
+    assert _leaf_ulps(flat, rj.final_params, model) <= 4.0
+
+
+def test_bf16_personalized_run_matches_fedtpus():
+    """bfloat16 params with 5 personalize steps after 3 rounds: the
+    personalized per-client metrics within 1e-6 of fedtpu's (equal
+    counts), fedtpu's init injected."""
+    j_cfg, t_cfg = _dtype_configs("bfloat16", personalize_steps=5)
+    rj = j_run(j_cfg, verbose=False)
+    rt = t_run(t_cfg, verbose=False, device="cpu",
+               init_params=_fedtpu_init(j_cfg))
+    for k in METRIC_NAMES:
+        np.testing.assert_allclose(
+            rt.personalized_metrics["per_client"][k],
+            np.asarray(rj.personalized_metrics["per_client"][k]), atol=1e-6)
+
+
+def test_fp32_warm_start_is_cast_into_16_bit_slots_as_fedtpus(tmp_path):
+    """A float32 weights artifact (fedtpu's save_best_weights) warm-starts
+    a bfloat16 and a float16 run: every slot is fedtpu's own warm start
+    bit for bit, the artifact rounded once to the slot dtype."""
+    from fedtpu.models.mlp import mlp_init as j_mlp_init
+    from fedtpu.sweep.grid import save_best_weights as j_write
+    weights = _np(j_mlp_init(jax.random.key(5), 14, (50, 200), 2))
+    path = str(tmp_path / "best.npz")
+    j_write(path, _best(weights))
+    for dtype in ("bfloat16", "float16"):
+        j_cfg, t_cfg = _dtype_configs(dtype, init_weights_npz=path)
+        j_params = convert.params_from_jax(_np(j_build(j_cfg).state[
+            "params"]))
+        t_params = t_build(t_cfg, device="cpu").state["params"]
+        assert t_params.dtype == j_params.dtype == getattr(torch, dtype)
+        assert torch.equal(t_params.view(torch.int16),
+                           j_params.view(torch.int16))
+        assert torch.equal(t_params[0], convert.params_from_jax(
+            weights).to(t_params.dtype))
+
+
+def test_bf16_checkpoint_resumes_bitwise(tmp_path):
+    """A bfloat16 run checkpointed at round 10 and resumed to 20: the
+    checkpoint holds bfloat16 params and moments, and the resumed run's
+    history and final params equal the uninterrupted 20 rounds bit for
+    bit; a float32 config refuses the bfloat16 checkpoint."""
+    def cfg(tmp, rounds):
+        return _ck_config(tmp, rounds).replace(
+            model=tcfg.ModelConfig(param_dtype="bfloat16"))
+
+    full = t_run(cfg(tmp_path / "a", 20), verbose=False, device="cpu")
+    ck = tmp_path / "b"
+    t_run(cfg(ck, 10), verbose=False, device="cpu")
+    raw, _, at = load_checkpoint_raw(str(ck))
+    assert at == 10 and raw["params"].dtype == torch.bfloat16
+    assert raw["opt_state"]["mu"].dtype == torch.bfloat16
+    resumed = t_run(cfg(ck, 20), verbose=False, device="cpu", resume=True)
+    assert resumed.global_metrics == full.global_metrics
+    np.testing.assert_array_equal(np.stack(resumed.loss),
+                                  np.stack(full.loss[10:]))
+    for a, b in zip(jax.tree.leaves(resumed.final_params),
+                    jax.tree.leaves(full.final_params), strict=True):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="resume mismatch"):
+        t_run(_ck_config(ck, 30), verbose=False, device="cpu", resume=True)
+
+
+def test_grid_search_ignores_param_dtype():
+    """fedtpu's grid builds its own float32 models and never reads
+    ModelConfig.param_dtype; the port's neither: a bfloat16 config gives
+    the float32 config's results, in both packages."""
+    from fedtpu.sweep.grid import run_grid_search as j_grid
+    j_cfg, t_cfg = _sweep_configs()
+    kw = dict(hidden_grid=((2,),), lr_grid=(0.01,), local_steps=5,
+              keep_weights=True, verbose=False)
+    for grid, cfg, extra in (
+            (j_grid, j_cfg, {}),
+            (t_grid.run_grid_search, t_cfg, dict(device="cpu"))):
+        plain = grid(cfg, **kw, **extra)
+        other = grid(cfg.replace(model=dataclasses.replace(
+            cfg.model, param_dtype="bfloat16")), **kw, **extra)
+        assert other["metrics"] == plain["metrics"]
+        for a, b in zip(jax.tree.leaves(_np(other["weights"])),
+                        jax.tree.leaves(_np(plain["weights"])), strict=True):
+            assert a.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+
+
+def test_fused_round_refuses_16_bit_params():
+    """K5's driver refuses a bfloat16 or float16 param dtype, naming the
+    field, as it refuses a bfloat16 compute dtype."""
+    _, t_cfg = _configs()
+    for dtype in ("bfloat16", "float16"):
+        cfg = t_cfg.replace(model=tcfg.ModelConfig(param_dtype=dtype))
+        with pytest.raises(ValueError, match=rf"model\.param_dtype="
+                                             rf"'{dtype}'"):
+            mega.run(cfg, device="cpu", rounds=1)
