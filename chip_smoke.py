@@ -82,6 +82,23 @@ Phases, in order; any failure exits non-zero before the result line:
    diverges: card and CPU halt at the same round; (n) cifar10-32 at full
    width with bfloat16 params, 10 rounds captured, and 3 rounds on 512 rows
    against the CPU.
+   Then the asynchronous FedBuff engine, (o): K1's sum mode
+   (``weighted_sum_clients``) against its plain version at
+   income-32-noniid's (32, 11,352) with positive weights, signed weights of
+   negative total, every weight 0 (exactly 0) and a NaN in the stack, and
+   at cifar10-32's (32, 1,070,794) deltas, timed beside ``torch.matmul``
+   and its bound; income-32-noniid ``--async`` at full width (arrival
+   0.25, staleness power 0.5, K-buffer 16, 5 local steps, FedProx 0.01),
+   uncaptured at R = 1 and captured at R = 10 (bitwise equal, K1 and K2 a
+   tick and in the warm-up, K3 the held-out evals), against the CPU (same
+   staleness, losses within 1e-4), 20 captured ticks profiled; the driven,
+   screened and clipped tick on the same data (captured bitwise
+   uncaptured, K1 twice a tick, the screened flags equal the CPU's, at
+   least one poisoned arrival and no honest one screened); cifar10-32
+   ``--async`` at
+   full width, bf16 compute, 10 ticks captured (K2 = K3 = 0), and 3 ticks
+   on 512 rows against the CPU; the income run resumed 20 -> 40 with a
+   pending K-buffer, bitwise.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package.
@@ -720,7 +737,6 @@ def replay_near_ties(cfg, rounds: set) -> dict:
     drift, the drift): the drift is the largest card-vs-CPU logit
     difference of that round's models, and a row inside it may be counted
     in different cells."""
-    from fedtpu_torch.ops.metrics import near_tie_rows
     from fedtpu_torch.ops.optim import build_optimizer
     from fedtpu_torch.orchestration.loop import build_experiment
     from fedtpu_torch.parallel.round import participation_mask
@@ -751,33 +767,44 @@ def replay_near_ties(cfg, rounds: set) -> dict:
                                              b["x"], b["y"], b["mask"], p,
                                              corr)
                 logits.append(side["exp"].model.apply(params, b["x"]).cpu())
-            mask = sides[0]["exp"].batch["mask"] > 0
-            drift = float(((logits[0] - logits[1]).abs().amax(dim=-1)
-                           * mask).max())
-            top2 = torch.topk(logits[0], 2, dim=-1).values
-            ties = near_tie_rows(logits[0]) & mask
-            inside = ties | ((top2[..., 0] - top2[..., 1]) < 2 * drift) & mask
-            out[r] = (ties.sum(dim=1).numpy(), inside.sum(dim=1).numpy(),
-                      drift)
+            out[r] = near_ties(logits, sides[0]["exp"].batch["mask"] > 0)
         for side in sides:
             side["state"], _ = side["step"](side["state"], side["exp"].batch)
     return out
 
 
+def near_ties(logits: list, mask: torch.Tensor) -> tuple:
+    """``replay_near_ties``' triple for one round from the CPU's and the
+    card's logits of the evaluated models: near-tie rows of the CPU model,
+    rows inside twice the drift too, and the drift."""
+    from fedtpu_torch.ops.metrics import near_tie_rows
+    drift = float(((logits[0] - logits[1]).abs().amax(dim=-1)
+                   * mask).max())
+    top2 = torch.topk(logits[0], 2, dim=-1).values
+    ties = near_tie_rows(logits[0]) & mask
+    inside = ties | ((top2[..., 0] - top2[..., 1]) < 2 * drift) & mask
+    return ties.sum(dim=1).numpy(), inside.sum(dim=1).numpy(), drift
+
+
 def phase_card_vs_cpu(cfg, gpu, label: str = "card vs CPU",
-                      drift_cap=None, loss_tol: float = 1e-4):
+                      drift_cap=None, loss_tol: float = 1e-4,
+                      replay=replay_near_ties):
     """The card run ``gpu`` against the same config on the CPU: the same
-    stop round, losses within ``loss_tol``, and confusion counts equal but
-    on rows that are near ties of the CPU model. With ``drift_cap`` a row
-    also counts as a near tie when its gap is inside twice the two runs'
-    logit drift, and the drift must stay within the cap. Returns the CPU
-    run."""
+    stop round, the same staleness (the asynchronous engine), losses
+    within ``loss_tol``, and confusion counts equal but on rows that are
+    near ties of the CPU model (``replay``: the engine's replay of the
+    evaluated models). With ``drift_cap`` a row also counts as a near tie
+    when its gap is inside twice the two runs' logit drift, and the drift
+    must stay within the cap. Returns the CPU run."""
     from fedtpu_torch.orchestration.loop import run_experiment
     cpu = run_experiment(cfg, verbose=False, device="cpu")
     check(cpu.rounds_run == gpu.rounds_run
           and cpu.stopped_early == gpu.stopped_early,
           f"early stop differs: card {gpu.rounds_run} vs cpu "
           f"{cpu.rounds_run}")
+    check(len(cpu.staleness) == len(gpu.staleness) and all(
+        np.array_equal(a, b) for a, b in zip(gpu.staleness, cpu.staleness)),
+        f"{label}: staleness differs between card and CPU")
     loss_err = max(float(np.abs(a - b).max())
                    for a, b in zip(gpu.loss, cpu.loss))
     check(loss_err <= loss_tol,
@@ -785,7 +812,7 @@ def phase_card_vs_cpu(cfg, gpu, label: str = "card vs CPU",
     moved = {r: np.abs(a - b).sum(axis=(1, 2)) / 2
              for r, (a, b) in enumerate(zip(gpu.confusion, cpu.confusion))
              if not np.array_equal(a, b)}
-    ties = replay_near_ties(cfg, set(moved)) if moved else {}
+    ties = replay(cfg, set(moved)) if moved else {}
     for r, rows in moved.items():
         near, inside, drift = ties[r]
         allowed = near if drift_cap is None else inside
@@ -1063,13 +1090,14 @@ def with_fed(cfg, **kw):
 
 
 def same_history(a, b) -> list:
-    """Where two results differ: per-round losses, confusion counts, every
-    history, the stop round and the final params, all bitwise."""
+    """Where two results differ: per-round losses, confusion counts and
+    staleness (the asynchronous engine's), every history, the stop round
+    and the final params, all bitwise."""
     diffs = []
     if (a.rounds_run, a.stopped_early) != (b.rounds_run, b.stopped_early):
         diffs.append(f"stop {a.rounds_run}/{a.stopped_early} vs "
                      f"{b.rounds_run}/{b.stopped_early}")
-    for name in ("loss", "confusion"):
+    for name in ("loss", "confusion", "staleness"):
         x, y = getattr(a, name), getattr(b, name)
         if len(x) != len(y) or not all(np.array_equal(p, q)
                                        for p, q in zip(x, y)):
@@ -1161,12 +1189,13 @@ def phase_capture(composed: dict) -> dict:
     return by_path
 
 
-def resume_is_bitwise(label: str, cfg):
+def resume_is_bitwise(label: str, cfg, at_resume=None):
     """``cfg`` checkpointed every 10 rounds for 20 rounds, then resumed to
     round 40, against the uninterrupted 40 rounds: bitwise the same
-    client-mean history, losses, confusion counts, held-out metrics (one
-    eval every 10 rounds) and final params. Returns the uninterrupted and
-    the resumed run."""
+    client-mean history, losses, confusion counts, staleness, held-out
+    metrics (one eval every 10 rounds) and final params. ``at_resume``:
+    called with the checkpoint directory before the resume. Returns the
+    uninterrupted and the resumed run."""
     import tempfile
     from fedtpu_torch.orchestration.checkpoint import complete_steps
     from fedtpu_torch.orchestration.loop import run_experiment
@@ -1178,6 +1207,8 @@ def resume_is_bitwise(label: str, cfg):
                                device="cuda")
         check(complete_steps(d) == [10, 20] and first.rounds_run == 20,
               f"resume {label}: checkpoints {complete_steps(d)}")
+        if at_resume is not None:
+            at_resume(d)
         resumed = run_experiment(with_fed(ck_cfg, rounds=40), verbose=False,
                                  device="cuda", resume=True)
         check(complete_steps(d) == [10, 20, 30, 40],
@@ -1188,6 +1219,7 @@ def resume_is_bitwise(label: str, cfg):
           f"resume {label}: client-mean history differs")
     tail = dataclasses.replace(
         full, loss=full.loss[20:], confusion=full.confusion[20:],
+        staleness=full.staleness[20:],
         pooled_metrics={k: v[20:] for k, v in full.pooled_metrics.items()},
         test_metrics={k: v[2:] for k, v in full.test_metrics.items()})
     diffs = [d for d in same_history(resumed, tail)
@@ -2376,6 +2408,330 @@ def phase_cifar_param_bf16() -> dict:
     return out
 
 
+# Phase (o): the asynchronous FedBuff engine (fedtpu_torch.parallel.async_fed)
+# on income-32-noniid at full width (14->50->200->2, 32 Dirichlet clients,
+# 10,000 synthetic rows, 8 shards of the one card), and cifar10-32.
+ASYNC_TICKS = 60
+# The driven, screened and clipped ticks: honest arrivals weigh 1.0, and
+# from SCREEN_POISON_TICK two clients a tick submit at -8.0. The cosine
+# limit sits where the screened flags do not move between -0.5 and -0.4
+# (nor the norm multiple between 3.6 and 4.4) on this data: fedtpu's
+# default -0.2 screens honest clients of this label skew now and then, a
+# decision at the margin that the card's and the CPU's last bits could
+# split.
+SCREEN_TICKS, SCREEN_POISON_TICK, SCREEN_COS_MIN, SCREEN_CLIP = 24, 12, \
+    -0.45, 0.5
+ASYNC_EXPECT = {"weighted_average_clients": "rounds",
+                "fused_eval_confusion": "rounds", "fused_mlp_forward": "evals",
+                "ring_all_reduce_sum": 0, "fused_round": 0}
+
+
+def async_config(rounds: int = ASYNC_TICKS, **fed):
+    """income-32-noniid under ``--async``: uniform weighting, arrival rate
+    0.25, staleness power 0.5, a K-buffer of 16, 5 local steps with FedProx
+    0.01, a held-out eval every 10 ticks."""
+    from fedtpu_torch.config import get_preset
+    cfg = get_preset("income-32-noniid")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, synthetic_rows=10000),
+        fed=dataclasses.replace(
+            cfg.fed, **{**dict(rounds=rounds, weighting="uniform",
+                               async_mode=True, async_arrival_rate=0.25,
+                               async_staleness_power=0.5,
+                               async_buffer_size=16, local_steps=5,
+                               prox_mu=0.01), **fed}),
+        run=dataclasses.replace(cfg.run, eval_test_every=10,
+                                mesh_devices=SHARDS))
+
+
+def k1_sum_checks(gen: torch.Generator, dev: torch.device) -> dict:
+    """K1's sum mode (``weighted_sum_clients``) against its plain version,
+    within 1e-5 of the output's largest magnitude (at least 1): at
+    income-32-noniid's (32, 11,352) with positive weights, signed weights
+    whose total is negative, every weight 0 (the output exactly 0), a NaN
+    in the stack (NaN where the plain version has it), and cifar10-32's
+    (32, 1,070,794) float32 delta stack with discounted arrival weights;
+    two launches bitwise equal. Then timed at both shapes (CUDA events
+    behind the sleep kernel, single and back to back) beside its plain
+    version, ``torch.matmul(w, x)`` and its byte bound."""
+    from fedtpu_torch.models.mlp import param_count
+    from fedtpu_torch.ops import cuda_kernels as ck
+    d32 = param_count(INCOME_DIMS)
+    signed = torch.ones(32)
+    signed[[1, 5, 9, 14, 20, 27]] = -8.0
+    nan_x = torch.randn(32, d32, generator=gen)
+    nan_x[7, ::97] = float("nan")
+    stale = torch.randint(0, 12, (32,), generator=gen).to(torch.float32)
+    arrive = (torch.rand(32, generator=gen) < 0.5).to(torch.float32)
+    cases = {
+        "(32, 11352) positive": (torch.randn(32, d32, generator=gen),
+                                 torch.rand(32, generator=gen) + 0.1),
+        "(32, 11352) signed, negative total": (torch.randn(32, d32,
+                                                      generator=gen), signed),
+        "(32, 11352) every weight 0": (torch.randn(32, d32, generator=gen),
+                                       torch.zeros(32)),
+        "(32, 11352) NaN in the stack": (nan_x, torch.rand(32,
+                                                           generator=gen)),
+        "cifar10-32 (32, 1070794) deltas": (
+            torch.randn(32, CIFAR_PARAMS, generator=gen) * 1e-2,
+            arrive * (1.0 + stale) ** -0.5)}
+    err, shapes = 0.0, {}
+    for label, (x, w) in cases.items():
+        x, w = x.to(dev), w.to(dev)
+        out = ck.weighted_sum_clients(x, w)
+        again = ck.weighted_sum_clients(x, w)
+        ref = ck.weighted_sum_clients_reference(x, w)
+        torch.cuda.synchronize()
+        nan = torch.isnan(ref)
+        check(torch.equal(torch.isnan(out), nan),
+              f"K1 sum {label}: NaN where the plain version has none, or "
+              "the other way")
+        fin = ~nan
+        e = float((out[fin] - ref[fin]).abs().max())
+        scale = max(1.0, float(ref[fin].abs().max()))
+        check(e <= 1e-5 * scale, f"K1 sum {label}: max abs err {e} > "
+              f"1e-5 x {scale}")
+        check(torch.equal(bits(out), bits(again)),
+              f"K1 sum {label}: two launches differ")
+        if not w.any():
+            check(not out.any(), f"K1 sum {label}: not exactly 0")
+        print(f"K1 weighted_sum_clients {label}: weight total "
+              f"{float(w.sum()):.3f}, max abs err {e:.3e} (limit "
+              f"{1e-5 * scale:.1e}), two launches bitwise equal, NaN at "
+              f"the plain version's {int(nan.sum())} entries", flush=True)
+        err = max(err, e / scale)
+        if "NaN" in label or "every" in label or "signed" in label:
+            continue
+        c, d = x.shape
+        nbytes = 4 * (c * d + c + d)
+        b, by = bound_ms(nbytes, 2.0 * c * d)
+        row = {"ms": time_ms(lambda: ck.weighted_sum_clients(x, w)),
+               "back_to_back_ms": time_back_to_back_ms(
+                   lambda: ck.weighted_sum_clients(x, w)),
+               "plain_ms": time_ms(
+                   lambda: ck.weighted_sum_clients_reference(x, w)),
+               "library_ms": time_ms(lambda: torch.matmul(w, x)),
+               "bound_ms": b, "bound_by": by, "bytes": nbytes}
+        shapes[f"({c}, {d})"] = row
+        print(f"time K1 sum ({c}, {d}): kernel {row['ms']:.4f} ms  back to "
+              f"back {row['back_to_back_ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  torch.matmul(w, x) "
+              f"{row['library_ms']:.4f} ms  bound {b:.5f} ms ({by}, "
+              f"{nbytes / 1e6:.2f} MB); {CARD['smi']}", flush=True)
+    # The row's own numbers are income-32-noniid's shape, the tick's.
+    return {"max_abs_err": err, **shapes[f"(32, {d32})"],
+            "by_shape": shapes}
+
+
+def replay_async_near_ties(cfg, rounds: set) -> dict:
+    """``replay_near_ties`` for the asynchronous engine: the tick, one at a
+    time and uncaptured (bitwise the captured run), on the CPU and the
+    card in lockstep from the same init and arrivals; a tick's evaluated
+    models are its post-tick params (the arrivals' adopted ones)."""
+    from fedtpu_torch.orchestration.loop import build_experiment
+    sides = []
+    for device in ("cpu", "cuda"):
+        exp = build_experiment(cfg, device=device)
+        sides.append({"exp": exp, "state": exp.state,
+                      "step": exp.make_step(1)})
+    out = {}
+    for r in range(max(rounds) + 1):
+        for side in sides:
+            side["state"], _ = side["step"].fn(side["state"],
+                                               side["exp"].batch)
+        if r in rounds:
+            logits = [side["exp"].model.apply(side["state"]["params"],
+                                              side["exp"].batch["x"]).cpu()
+                      for side in sides]
+            out[r] = near_ties(logits, sides[0]["exp"].batch["mask"] > 0)
+    return out
+
+
+def captured_async(width: int):
+    """``make_round`` for ``phase_profile``: ``width`` ticks as one replay
+    of the graph the loop captures, fed the run's first ``width`` ticks of
+    arrivals."""
+    def make(exp):
+        from fedtpu_torch.parallel.round import (capture_round_step,
+                                                 warm_up_round)
+        step = exp.make_step(width)
+        warm_up_round(exp.make_step(1), exp.state, exp.batch)
+        graph = capture_round_step(step, exp.state, exp.batch)
+        arrivals = step.draw_arrivals(0, width).to(exp.device)
+        tick = torch.zeros((), dtype=torch.int32, device=exp.device)
+
+        def go(state):
+            return state, graph(arrivals, tick)
+
+        return go
+    return make
+
+
+def poison_schedule(ticks: int = SCREEN_TICKS, clients: int = 32):
+    """Every client arrives honest (1.0) every tick; from
+    SCREEN_POISON_TICK two of them a tick (seeded) submit at -8.0."""
+    rng = np.random.default_rng(0)
+    arr = np.ones((ticks, clients), np.float32)
+    for t in range(SCREEN_POISON_TICK, ticks):
+        arr[t, rng.choice(clients, 2, replace=False)] = -8.0
+    return torch.from_numpy(arr)
+
+
+def phase_async_screen() -> dict:
+    """The driven, screened and clipped tick (``build_async_round_fn(
+    driven=True, screen=True, clip_norm=SCREEN_CLIP)``) on
+    income-32-noniid's data for SCREEN_TICKS ticks of ``poison_schedule``:
+    uncaptured (8 ticks a step), captured (8 ticks a graph replay) and on
+    the CPU. Captured is bitwise uncaptured (state and every output), K1
+    twice a tick in the graph, the screened flags equal the CPU's, at least
+    one poisoned arrival is screened once the median is warm and no honest
+    one is. Returns the captured run's launches."""
+    from fedtpu_torch.orchestration.loop import build_experiment
+    from fedtpu_torch.parallel.async_fed import (build_async_round_fn,
+                                                 init_async_state)
+    from fedtpu_torch.parallel.round import (capture_round_step, pack_outputs,
+                                             unpack_outputs, warm_up_round)
+    cfg = async_config()
+    arr = poison_schedule()
+    width, runs = 8, {}
+    for mode in ("cpu", "uncaptured", "captured"):
+        dev = torch.device("cpu" if mode == "cpu" else "cuda")
+        exp = build_experiment(cfg, device=dev)
+
+        def build(ticks):
+            return build_async_round_fn(
+                exp.model, exp.tx, 2, 32, driven=True, screen=True,
+                screen_cos_min=SCREEN_COS_MIN, clip_norm=SCREEN_CLIP,
+                ticks_per_step=ticks)
+
+        step = build(width)
+        state = init_async_state(torch.Generator().manual_seed(0), 32,
+                                 exp.model, exp.tx, same_init=False,
+                                 device=dev, screen_window=64)
+        outs, graph = [], None
+        for k in range(SCREEN_TICKS // width):
+            a = arr[k * width:(k + 1) * width].to(dev)
+            tick = torch.tensor(k * width, dtype=torch.int32, device=dev)
+            if mode == "captured":
+                if graph is None:
+                    warm_up_round(build(1), state, exp.batch)
+                    graph = capture_round_step(step, state, exp.batch)
+                outs.append(graph(a, tick).clone())
+            else:
+                state, raw = step.fn(state, exp.batch, a, tick)
+                outs.append(pack_outputs(raw, *step.outputs))
+        runs[mode] = (torch.cat(outs).cpu(), [t.cpu() for t in
+                                              step.state_tensors(state)],
+                      step, graph)
+    packed, tensors, step, graph = runs["captured"]
+    check(torch.equal(bits(packed), bits(runs["uncaptured"][0]))
+          and all(torch.equal(bits(a), bits(b)) for a, b in
+                  zip(tensors, runs["uncaptured"][1])),
+          "driven screened ticks: captured differs from uncaptured")
+    check(graph.launches["weighted_average_clients"] == 2 * width,
+          f"driven screened ticks: {graph.launches} per {width}-tick "
+          "replay, not K1 twice a tick")
+    flags = {}
+    for mode in ("cpu", "captured"):
+        chunks = runs[mode][0].view(SCREEN_TICKS // width, -1)
+        flags[mode] = torch.cat([unpack_outputs(c, width, 32, 2,
+                                                *step.outputs)["screened"]
+                                 for c in chunks])
+    check(torch.equal(flags["cpu"], flags["captured"]),
+          "driven screened ticks: screened flags differ card vs CPU at "
+          f"{(flags['cpu'] != flags['captured']).nonzero().tolist()}")
+    scr = flags["captured"]
+    poisoned = scr[arr < 0]
+    check(poisoned.sum() >= 1 and not scr[arr > 0].any(),
+          f"driven screened ticks: {int(poisoned.sum())} of "
+          f"{poisoned.numel()} poisoned arrivals screened, "
+          f"{int(scr[arr > 0].sum())} honest ones")
+    print(f"driven screened clipped ticks ({SCREEN_TICKS} ticks, 32 "
+          f"clients, poison from tick {SCREEN_POISON_TICK}): captured == "
+          f"uncaptured bitwise, K1 {graph.launches['weighted_average_clients']}"
+          f" per {width}-tick replay, screened flags equal card vs CPU, "
+          f"{int(poisoned.sum())} of {poisoned.numel()} poisoned arrivals "
+          f"screened, 0 of {int((arr > 0).sum())} honest; {CARD['smi']}",
+          flush=True)
+    return dict(graph.launches)
+
+
+def phase_async() -> tuple:
+    """Phase (o): the asynchronous engine. K1's sum mode against its plain
+    version and timed (``k1_sum_checks``); income-32-noniid ``--async``
+    at full width for ASYNC_TICKS ticks, uncaptured at R = 1 and captured
+    at R = 10 (bitwise equal: histories, staleness, final params), launches
+    counted (K1 and K2 a tick and in the warm-up, K3 the held-out evals,
+    K4 = K5 = 0), against the CPU (the same staleness, losses within 1e-4,
+    counts equal up to near-tie rows), s/tick of both and 20 captured
+    ticks profiled; the driven, screened and clipped ticks
+    (``phase_async_screen``); cifar10-32 ``--async`` at full width, bf16
+    compute, 10 ticks captured (K1's sum mode at (32, 1,070,794), K2 = K3
+    = 0), and 3 ticks on 512 rows against the CPU; the income run resumed
+    20 -> 40 with a pending K-buffer, bitwise. Returns the runs' launches
+    by label and K1's sum-mode row."""
+    from fedtpu_torch.orchestration.checkpoint import load_checkpoint_raw
+    timings = k1_sum_checks(torch.Generator().manual_seed(12),
+                            torch.device("cuda"))
+    by_path = {}
+    cfg = async_config()
+    plain, _ = phase_run("income-32-noniid async uncaptured R=1", cfg,
+                         ASYNC_EXPECT, capture=False)
+    graph, by_path["income-32-noniid async"] = phase_run(
+        "income-32-noniid async captured R=10",
+        with_run(cfg, rounds_per_step=10), ASYNC_EXPECT)
+    diffs = same_history(plain, graph)
+    check(not diffs, f"income-32-noniid async: captured R=10 differs from "
+          f"uncaptured R=1 in {diffs}")
+    s_plain = statistics.median(plain.sec_per_round)
+    s_graph = statistics.median(graph.sec_per_round)
+    print(f"income-32-noniid async: captured R=10 == uncaptured R=1 bitwise "
+          f"(losses, counts, staleness, histories, stop tick "
+          f"{graph.rounds_run}, final params); s/tick (median) uncaptured "
+          f"{s_plain:.6e}, captured {s_graph:.6e}, ratio "
+          f"{s_plain / s_graph:.3f}; summary {json.dumps(graph.summary())};"
+          f" {CARD['smi']}", flush=True)
+    phase_card_vs_cpu(cfg, plain, label="income-32-noniid async card vs CPU",
+                      replay=replay_async_near_ties)
+    prof = phase_profile(cfg, rounds=20,
+                         label="income-32-noniid async captured R=10 profile",
+                         make_round=captured_async(10), width=10)
+    print(f"income-32-noniid async captured R=10: host {prof['host_ms']:.4f}"
+          f" ms/tick, device busy {prof['device_busy_ms']:.4f} ms in "
+          f"{prof['device_ops']:.1f} ops, idle share "
+          f"{prof['idle_share']:.3f}; {CARD['smi']}", flush=True)
+    timings["profile"] = prof
+    by_path["income-32-noniid async driven screened"] = phase_async_screen()
+    cifar = cifar_config(rounds=10)
+    cifar = cifar.replace(fed=dataclasses.replace(
+        cifar.fed, weighting="uniform", async_mode=True,
+        async_arrival_rate=0.5))
+    gpu, by_path["cifar10-32 async bf16"] = phase_run(
+        "cifar10-32 async bf16 captured", cifar, SPEC_EVAL, min_accuracy=0.0)
+    print(f"cifar10-32 async bf16: s/tick (median, captured) "
+          f"{statistics.median(gpu.sec_per_round):.6e}; {CARD['smi']}",
+          flush=True)
+    small = cifar.replace(
+        data=dataclasses.replace(cifar.data, synthetic_rows=512),
+        fed=dataclasses.replace(cifar.fed, rounds=3))
+    gpu, by_path["cifar10-32 async bf16 512 rows"] = phase_run(
+        "cifar10-32 async bf16 512 rows", small, SPEC_EVAL, min_accuracy=0.0)
+    phase_card_vs_cpu(small, gpu, label="cifar10-32 async bf16 512 rows "
+                      "card vs CPU", drift_cap=BF16_DRIFT_CAP,
+                      loss_tol=BF16_LOSS_TOL, replay=replay_async_near_ties)
+
+    def pending(directory):
+        raw, _, step = load_checkpoint_raw(directory)
+        check(float(raw["buf_count"]) > 0,
+              f"async resume: no pending K-buffer at tick {step}")
+        print(f"async resume: {float(raw['buf_count']):.0f} updates pending "
+              f"in the K-buffer at tick {step}", flush=True)
+
+    resume_is_bitwise("async income-32-noniid", with_fed(
+        cfg, termination_patience=1000), at_resume=pending)
+    return by_path, timings
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
     clock, seconds = [time.perf_counter()], {}
@@ -2443,35 +2799,45 @@ def main() -> None:
     lap("(m)")
     by_path.update(phase_cifar_param_bf16())
     lap("(n)")
+    async_launches, timings["weighted_sum_clients"] = phase_async()
+    by_path.update(async_launches)
+    lap("(o)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
     # from income-8, K4 from the sharded ring run, K5 from the fused-round
-    # benchmark.
+    # benchmark, K1's sum mode (counted under K1) from the asynchronous
+    # income-32-noniid run.
     sources = {
         "weighted_average_clients": ("weighted_average.cu",
                                      "fedtpu/ops/pallas_kernels.py:233",
-                                     "income-8 psum"),
+                                     "income-8 psum", None),
         "fused_eval_confusion": ("eval_confusion.cu",
                                  "fedtpu/ops/pallas_kernels.py:163",
-                                 "income-8 psum"),
+                                 "income-8 psum", None),
         "fused_mlp_forward": ("mlp_forward.cu",
                               "fedtpu/ops/pallas_kernels.py:78",
-                              "income-8 psum"),
+                              "income-8 psum", None),
         "ring_all_reduce_sum": ("ring_all_reduce.cu",
                                 "fedtpu/parallel/ring_pallas.py:116",
-                                "income-32-noniid ring"),
+                                "income-32-noniid ring", None),
         "fused_round": ("fused_round.cu",
                         "benchmarks/mega_kernel_attempt.py:138",
-                        "income-8 fused round")}
+                        "income-8 fused round", None),
+        "weighted_sum_clients": ("weighted_average.cu",
+                                 "fedtpu/parallel/async_fed.py:398-403 "
+                                 "(jnp.tensordot, no Pallas)",
+                                 "income-32-noniid async",
+                                 "weighted_average_clients")}
     kernels = []
-    for name, (src, replaces, path) in sources.items():
+    for name, (src, replaces, path, counter) in sources.items():
         t = timings[name]
+        counter = counter or name
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"fedtpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": by_path[path][name],
-            "launches_by_path": {p: l[name] for p, l in by_path.items()},
+            "launches": by_path[path][counter],
+            "launches_by_path": {p: l[counter] for p, l in by_path.items()},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2483,7 +2849,10 @@ def main() -> None:
                 "marginal_us_per_round", "profile", "phases_us",
                 "delta_mean", "sweep", "cifar10_32", "bf16_fp16",
                 "sklearn_parity")
-                if key in t}})
+                if key in t},
+            **({"mode": "sum: K1 unnormalised, the asynchronous tick's "
+                "psum(tensordot(disc, delta))"}
+               if name == "weighted_sum_clients" else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

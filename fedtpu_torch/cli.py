@@ -1,5 +1,6 @@
 """``python -m fedtpu_torch.cli {run,sweep,parity,presets}``: the port's
-counterparts of ``fedtpu run`` (the synchronous engine), ``fedtpu sweep``
+counterparts of ``fedtpu run`` (the synchronous engine, or with ``--async``
+the asynchronous FedBuff one), ``fedtpu sweep``
 (the hyperparameter grid), ``fedtpu parity`` (the sklearn ``MLPClassifier``
 warm-start limitation demo) and ``fedtpu presets`` (the shipped presets).
 
@@ -30,6 +31,13 @@ def _positive_int(text: str) -> int:
     value = int(text)
     if value < 1:
         raise argparse.ArgumentTypeError(f"must be >= 1, got {value}")
+    return value
+
+
+def _nonnegative_int(text: str) -> int:
+    value = int(text)
+    if value < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0, got {value}")
     return value
 
 
@@ -167,7 +175,7 @@ def _add_common_overrides(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="fedtpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("run", help="run the synchronous federated loop")
+    p = sub.add_parser("run", help="run the federated loop")
     _add_common_overrides(p)
     # run-only, as in fedtpu: the sweep has its own reduction, init and
     # stop semantics.
@@ -190,6 +198,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="post-training per-client fine-tuning steps from "
                         "the final global model (personalized metrics in "
                         "the summary)")
+    # run-only: the asynchronous FedBuff engine. --rounds counts server
+    # ticks; composes with --local-steps/--prox-mu/--server-lr; needs
+    # --weighting uniform (the arrival mean is unweighted).
+    p.add_argument("--async", dest="async_mode", action="store_true",
+                   help="asynchronous FedBuff-style federation: each tick "
+                        "a Bernoulli(--arrival-rate) subset of clients "
+                        "completes and ships staleness-discounted deltas; "
+                        "--rounds counts ticks (needs --weighting uniform)")
+    p.add_argument("--arrival-rate", type=_participation_rate, default=None,
+                   help="async: per-tick completion probability in (0, 1] "
+                        "(default 0.5)")
+    p.add_argument("--arrival-seed", type=int, default=None,
+                   help="async: seed of the deterministic arrival process "
+                        "(default 0)")
+    p.add_argument("--staleness-power", type=_nonnegative_float,
+                   default=None,
+                   help="async: arrival deltas are discounted "
+                        "(1+staleness)^-p (default 0.5 = FedBuff's 1/sqrt; "
+                        "0 disables discounting)")
+    p.add_argument("--buffer-size", type=_nonnegative_int, default=None,
+                   help="async: >= 2 selects true FedBuff K-buffer apply "
+                        "semantics: the global only moves once this many "
+                        "updates sit in the server buffer (default 0 = "
+                        "apply every arrival tick)")
 
     s = sub.add_parser("sweep", help="federated hyperparameter grid")
     _add_common_overrides(s)
@@ -279,6 +311,20 @@ def config_from_args(args):
     if getattr(args, "personalize_steps", None) is not None:
         fed = dataclasses.replace(fed,
                                   personalize_steps=args.personalize_steps)
+    if getattr(args, "async_mode", False):
+        fed = dataclasses.replace(fed, async_mode=True)
+    elif any(getattr(args, a, None) is not None
+             for a in ("arrival_rate", "arrival_seed", "staleness_power",
+                       "buffer_size")):
+        # These exist only under the tick process: never ignored silently.
+        raise SystemExit("--arrival-rate/--arrival-seed/--staleness-power/"
+                         "--buffer-size require --async")
+    for flag, field in (("arrival_rate", "async_arrival_rate"),
+                        ("arrival_seed", "async_arrival_seed"),
+                        ("staleness_power", "async_staleness_power"),
+                        ("buffer_size", "async_buffer_size")):
+        if getattr(args, flag, None) is not None:
+            fed = dataclasses.replace(fed, **{field: getattr(args, flag)})
     for flag in ("scaffold", "dp_adaptive_clip"):
         if getattr(args, flag):
             fed = dataclasses.replace(fed, **{flag: True})

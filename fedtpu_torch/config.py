@@ -1,4 +1,4 @@
-"""Typed configuration for the PyTorch port's synchronous federated run.
+"""Typed configuration for the PyTorch port's federated run.
 
 The port's own copies of ``fedtpu.config``'s dataclasses that
 ``ExperimentConfig`` holds (data, shard, model, optimizer, federation, run,
@@ -179,12 +179,19 @@ class FedConfig:
     # global model, reported beside it (fedtpu_torch.training.personalize);
     # 0 = off.
     personalize_steps: int = 0
-    # Not ported yet: each must stay at its default (_FED_ITEMS).
+    # The asynchronous FedBuff engine (fedtpu_torch.parallel.async_fed):
+    # a round is a server tick, each a Bernoulli(async_arrival_rate) draw
+    # of the clients that complete; their deltas, discounted (1+s)^-p by
+    # staleness, move the global by server_lr times their mean, every
+    # arrival tick, or once async_buffer_size >= 2 of them are buffered.
+    # Needs weighting='uniform' and refuses the synchronous aggregation
+    # stack's knobs, as fedtpu (orchestration.loop.check_async_config).
     async_mode: bool = False
     async_arrival_rate: float = 0.5
     async_arrival_seed: int = 0
     async_staleness_power: float = 0.5
     async_buffer_size: int = 0
+    # Not ported yet: each must stay at its default (_FED_ITEMS).
     cohort_size: int = 0
     client_store: str = "memory"
     client_store_path: Optional[str] = None
@@ -212,12 +219,9 @@ class FedConfig:
 
 
 # FedConfig's knobs of paths not ported yet -> the ROADMAP item of each.
-_FED_ITEMS = {
-    **dict.fromkeys(("async_mode", "async_arrival_rate", "async_arrival_seed",
-                     "async_staleness_power", "async_buffer_size"), "A8"),
-    **dict.fromkeys(("cohort_size", "client_store", "client_store_path",
-                     "cohort_sampling", "cohort_seed", "cohort_trace"), "A9"),
-}
+_FED_ITEMS = dict.fromkeys(("cohort_size", "client_store", "client_store_path",
+                           "cohort_sampling", "cohort_seed", "cohort_trace"),
+                          "A9")
 
 
 @dataclasses.dataclass(frozen=True)

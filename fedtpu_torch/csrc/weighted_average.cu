@@ -1,6 +1,7 @@
 // K1: FedAvg, the weighted average over the clients axis, in one launch:
 // returned as one (D,) row, or written into every client slot with the
-// zero-participant carry-over decided on the device (broadcast mode).
+// zero-participant carry-over decided on the device (broadcast mode); and
+// the same contraction unnormalised (sum mode).
 //
 // Replaces: fedtpu/ops/pallas_kernels.py::weighted_average_clients
 // (_wavg_kernel): sum_c (w_c / max(sum w, 1e-30)) * x_c as one (1,C)@(C,D)
@@ -21,14 +22,22 @@
 // carry-over then writes x rounded, the params the slots would hold.
 // NaN and Inf pass through as that arithmetic passes them (0 * Inf is NaN).
 //
+// Sum mode: out[d] = sum_c w_c * x[c, d] in float32, no normalisation, the
+// weights of any sign and any total (a float32 stack only). It is the
+// asynchronous tick's discounted arrival sum and its screen's direction
+// (fedtpu/parallel/async_fed.py:398-403 and :321-324, psum(tensordot(w,
+// delta))), where a poisoned arrival's weight is negative and the total
+// may be 0 or less: the (D,) mode's division by max(total, 1e-30) cannot
+// be undone there. Same FMA chain in client order from 0, same bounds.
+//
 // Bound on the card: bytes, with launch latency above them. The (D,) mode
 // reads C*D elements + C floats and writes D floats; the broadcast mode
 // reads C*D + C and writes C*D elements (income-8, C = 8, D = 11,352, fp32:
 // 0.36 / 0.73 MB, 0.12 / 0.22 us at 3.35 TB/s; a 16-bit stack halves the
 // element bytes). Its 2*C*D flops are nothing beside that.
 //
-// Design: one column a thread, one kernel for both modes (a template flag),
-// one path for every width and alignment.
+// Design: one column a thread, one kernel for the three modes (template
+// flags), one path for every width and alignment.
 // - A 16-bit element is loaded as its 16 bits (__ldg of an unsigned short,
 //   neighbouring threads on neighbouring columns) and widened to float32
 //   in a register; a store rounds once (__float2bfloat16_rn /
@@ -98,19 +107,30 @@ struct FtElem<__half> {
 };
 
 // T: x's element type. BCAST: write the (C, D) broadcast in Out with the
-// carry-over, else the (D,) float32 average (Out = float).
-template <typename T, typename Out, bool BCAST>
+// carry-over, else the (D,) float32 average (Out = float). SUM: the (D,)
+// float32 sum, each weight taken as it is (no total, no division).
+template <typename T, typename Out, bool BCAST, bool SUM = false>
 __global__ void __launch_bounds__(FT_WAVG_MAX_THREADS)
 ft_wavg_kernel(const T* __restrict__ x, const float* __restrict__ w,
                int clients, int d, Out* __restrict__ out) {
+  static_assert(!(BCAST && SUM), "the sum mode writes one (D,) row");
   const int lane = threadIdx.x & 31;
   // The weight total, reduced by every warp (whole warps: the plan).
   float total = 0.f;
-  for (int c = lane; c < clients; c += 32) total += __ldg(w + c);
+  if constexpr (!SUM) {
+    for (int c = lane; c < clients; c += 32) total += __ldg(w + c);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    total += __shfl_xor_sync(0xffffffffu, total, o);
+    for (int o = 16; o > 0; o >>= 1)
+      total += __shfl_xor_sync(0xffffffffu, total, o);
+  }
   const float denom = fmaxf(total, 1e-30f);
+  // Client c's coefficient: its normalised weight, or its weight.
+  auto coef = [&](int c) {
+    if constexpr (SUM)
+      return __ldg(w + c);
+    else
+      return __ldg(w + c) / denom;
+  };
   const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= d) return;
   const T* xc = x + col;
@@ -136,41 +156,47 @@ ft_wavg_kernel(const T* __restrict__ x, const float* __restrict__ w,
       v[q] = FtElem<T>::load(xc + (size_t)(c + q) * d);
 #pragma unroll
     for (int q = 0; q < FT_WAVG_UNROLL; ++q)
-      acc = fmaf(__ldg(w + c + q) / denom, v[q], acc);
+      acc = fmaf(coef(c + q), v[q], acc);
   }
   for (; c < clients; ++c)
-    acc = fmaf(__ldg(w + c) / denom, FtElem<T>::load(xc + (size_t)c * d),
-               acc);
+    acc = fmaf(coef(c), FtElem<T>::load(xc + (size_t)c * d), acc);
   const Out res = FtElem<Out>::store(acc);
   for (int c2 = 0; c2 < (BCAST ? clients : 1); ++c2)
     out[(size_t)c2 * d + col] = res;
 }
 
-template <typename T, typename Out, bool BCAST>
+template <typename T, typename Out, bool BCAST, bool SUM = false>
 static void ft_wavg_launch(const void* x, const float* w, int clients, int d,
                            int threads, void* out, cudaStream_t s) {
   const dim3 grid((unsigned)((d + threads - 1) / threads));
-  ft_wavg_kernel<T, Out, BCAST><<<grid, threads, 0, s>>>(
+  ft_wavg_kernel<T, Out, BCAST, SUM><<<grid, threads, 0, s>>>(
       static_cast<const T*>(x), w, clients, d, static_cast<Out*>(out));
 }
 
 // x (clients, d) of `dtype` (0 float32, 1 bfloat16, 2 float16), w
-// (clients,) float32; out (d,) float32 (out_dtype 0), or with `broadcast`
-// (clients, d) of `out_dtype`, which is `dtype` or, for a float32 x, a
-// 16-bit one; out does not overlap x. `threads` is the wrapper's plan
-// (_wavg_plan), whole warps up to 256. Refuses what does not hold that.
-// Returns the cudaError_t of the launch.
+// (clients,) float32. `mode` 0: out (d,) float32, the average (out_dtype
+// 0); 1 (broadcast): out (clients, d) of `out_dtype`, which is `dtype` or,
+// for a float32 x, a 16-bit one; 2 (sum): out (d,) float32, the
+// unnormalised sum of a float32 x. out does not overlap x. `threads` is the
+// wrapper's plan (_wavg_plan), whole warps up to 256. Refuses what does not
+// hold that. Returns the cudaError_t of the launch.
 extern "C" int ft_weighted_average(const void* x, const float* w,
                                    int clients, int d, int dtype,
-                                   int out_dtype, int broadcast, int threads,
+                                   int out_dtype, int mode, int threads,
                                    void* out, void* stream) {
+  const bool broadcast = mode == 1;
   if (clients < 0 || d < 1 || threads < 32 || threads > FT_WAVG_MAX_THREADS ||
       threads % 32 != 0 || dtype < 0 || dtype > 2 || out_dtype < 0 ||
-      out_dtype > 2 || (!broadcast && out_dtype != 0) ||
-      (broadcast && out_dtype != dtype && dtype != 0))
+      out_dtype > 2 || mode < 0 || mode > 2 ||
+      (!broadcast && out_dtype != 0) ||
+      (broadcast && out_dtype != dtype && dtype != 0) ||
+      (mode == 2 && dtype != 0))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (!broadcast) {
+  if (mode == 2) {
+    ft_wavg_launch<float, float, false, true>(x, w, clients, d, threads, out,
+                                              s);
+  } else if (!broadcast) {
     if (dtype == 0)
       ft_wavg_launch<float, float, false>(x, w, clients, d, threads, out, s);
     else if (dtype == 1)

@@ -18,8 +18,9 @@ what it counted and each replay adds it (``count_replay``).
 The parameters of a model are a flat float32 buffer with ``dims =
 (input_dim, *hidden_sizes, num_classes)`` (``fedtpu_torch.models.mlp``);
 client-stacked as ``(C, D)``. K1 also takes a bfloat16 or float16 stack
-(``WAVG_DTYPES``); K2, K3 and K5 compute the float32 MLP only, as their
-Pallas originals.
+(``WAVG_DTYPES``), and has an unnormalised sum mode (``weighted_sum_clients``,
+float32) for the asynchronous tick; K2, K3 and K5 compute the float32 MLP
+only, as their Pallas originals.
 """
 
 from __future__ import annotations
@@ -61,6 +62,9 @@ EVAL_MAX_CLIENTS = 65_535
 WAVG_MAX_WIDTH = 2**31 - 1
 # K1's element types -> the code ft_weighted_average takes.
 WAVG_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# K1's modes (``mode`` of ft_weighted_average): the (D,) average, the
+# broadcast into every slot, the unnormalised (D,) sum.
+WAVG_AVERAGE, WAVG_BROADCAST, WAVG_SUM = 0, 1, 2
 
 
 def reset_launch_counts() -> None:
@@ -408,18 +412,62 @@ def weighted_average_clients(stacked: torch.Tensor, weights: torch.Tensor,
     if out.numel() == 0:
         return out
     threads, _ = _wavg_plan(d, _sm_count(dev.index or 0))
-    _launch_wavg(stacked, weights, out, broadcast, threads)
+    _launch_wavg(stacked, weights, out,
+                 WAVG_BROADCAST if broadcast else WAVG_AVERAGE, threads)
+    return out
+
+
+def weighted_sum_clients_reference(stacked: torch.Tensor,
+                                   weights: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1's sum mode: ``sum_c w_c * x_c`` in float32, no
+    normalisation."""
+    return (weights[:, None] * stacked).sum(dim=0)
+
+
+def weighted_sum_clients(stacked: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """The unnormalised weighted sum over the clients axis of a float32
+    ``stacked (C, D)`` with float32 ``weights (C,)`` of any sign and any
+    total, as a fresh float32 ``(D,)``: the asynchronous tick's discounted
+    arrival sum ``psum(tensordot(disc, delta))`` and its screen's direction
+    (``fedtpu.parallel.async_fed``), which ``weighted_average_clients``
+    cannot give once the weights sum to 0 or less.
+
+    On the card: one launch of K1 in its sum mode, no host read, counted
+    under ``weighted_average_clients``; another stack dtype raises, naming
+    it."""
+    dev = _device(stacked, weights)
+    if stacked.dim() != 2:
+        raise ValueError(f"stacked must be (clients, D), got shape "
+                         f"{tuple(stacked.shape)}")
+    c, d = stacked.shape
+    if stacked.dtype != torch.float32:
+        raise TypeError(f"stacked: the sum mode of the FedAvg kernel takes "
+                        f"torch.float32, got {stacked.dtype}")
+    _check(stacked, "stacked", torch.float32, (c, d))
+    _check(weights, "weights", torch.float32, (c,))
+    if dev.type == "cpu":
+        return weighted_sum_clients_reference(stacked, weights)
+    if d > WAVG_MAX_WIDTH:
+        raise ValueError(f"stacked of shape {(c, d)}: the FedAvg kernel "
+                         f"takes at most {WAVG_MAX_WIDTH} columns on the card")
+    out = torch.empty((d,), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    threads, _ = _wavg_plan(d, _sm_count(dev.index or 0))
+    _launch_wavg(stacked, weights, out, WAVG_SUM, threads)
     return out
 
 
 def _launch_wavg(stacked: torch.Tensor, weights: torch.Tensor,
-                 out: torch.Tensor, broadcast: bool, threads: int) -> None:
-    """K1's launch at a given block size (the wrapper's plan, or another
-    for timing); every launch counts."""
+                 out: torch.Tensor, mode: int, threads: int) -> None:
+    """K1's launch in ``mode`` (``WAVG_*``; a bool is the broadcast flag)
+    at a given block size (the wrapper's plan, or another for timing);
+    every launch counts."""
     c, d = stacked.shape
     _launch("ft_weighted_average", stacked.device, stacked.data_ptr(),
             weights.data_ptr(), c, d, WAVG_DTYPES[stacked.dtype],
-            WAVG_DTYPES[out.dtype], int(broadcast), threads, out.data_ptr())
+            WAVG_DTYPES[out.dtype], int(mode), threads, out.data_ptr())
     LAUNCHES["weighted_average_clients"] += 1
 
 

@@ -3,7 +3,8 @@
 The full federated state is saved: per-client params, per-client optimizer
 state (Adam's moments are never averaged, so they are real per-client
 state), the server optimizer's state, SCAFFOLD's variates, the adaptive DP
-clip and the round counter, with the client-mean metric history and the
+clip, the asynchronous engine's anchors, pull ticks and K-buffer, and the
+round counter, with the client-mean metric history and the
 privacy ledger's curve (``extra_meta``) in the meta file. Files
 are ``torch.save`` archives of CPU tensors, read back with
 ``torch.load(..., weights_only=True)``; one process writes them.
@@ -52,8 +53,8 @@ def _read(path: str):
 
 def save_checkpoint(directory: str, state: dict, history: dict,
                     step: int, extra_meta: Optional[dict] = None) -> str:
-    """Write ``state`` and ``{history, step, num_clients, **extra_meta}``
-    under ``directory/round_<step>``. ``num_clients`` lives in the small
+    """Write ``state`` and ``{history, step, num_clients, engine_async,
+    **extra_meta}`` under ``directory/round_<step>``. ``num_clients`` lives in the small
     meta file, so elastic-resume detection reads no state. Empty metric
     lists are dropped, as ``fedtpu`` drops them. ``extra_meta``: small
     arrays and scalars (the privacy ledger's), numpy arrays stored as
@@ -61,10 +62,15 @@ def save_checkpoint(directory: str, state: dict, history: dict,
     path = _ckpt_path(directory, step)
     os.makedirs(path, exist_ok=True)
     _write(_to_cpu(state), os.path.join(path, "state"))
+    # The engine that wrote the state, as fedtpu's int flag: the
+    # asynchronous engine's state carries anchors, the synchronous one's
+    # never does. Resume reads it before the client count, so a resume
+    # under the other engine fails on the engine.
     meta = {"history": {k: torch.tensor(np.asarray(v, dtype=np.float64))
                         for k, v in history.items() if len(v)},
             "step": int(step),
-            "num_clients": int(state["params"].shape[0])}
+            "num_clients": int(state["params"].shape[0]),
+            "engine_async": int("anchors" in state)}
     for k, v in (extra_meta or {}).items():
         meta[k] = (torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray)
                    else v)

@@ -1,4 +1,4 @@
-"""Host round loop for the synchronous engine
+"""Host round loop for the synchronous and the asynchronous engine
 (``fedtpu.orchestration.loop``).
 
 ``run_experiment`` keeps ``fedtpu``'s semantics for this path: chunks of
@@ -16,6 +16,16 @@ privacy``), persisted in every checkpoint's meta and reported by
 ``personalize_steps`` of per-client fine-tuning from the final global
 model (``fedtpu_torch.training.personalize``), reported beside it.
 
+``FedConfig.async_mode`` runs the asynchronous FedBuff engine instead
+(``fedtpu_torch.parallel.async_fed``), with ``fedtpu``'s refusals of the
+synchronous stack's knobs: a round is a server tick, the history and the
+early stop run on tick metrics, each tick's ``(C,)`` staleness is kept
+(``ExperimentResult.staleness``), the held-out eval and ``final_params``
+take the freshest anchor, a checkpoint carries the anchors, pull ticks and
+the K-buffer (its meta says which engine wrote it, and a resume under the
+other engine raises), an elastic resume re-pulls every client from the
+freshest anchor, and a run whose K-buffer never filled ends with a warning.
+
 On the card each chunk is one replay of a CUDA graph of the round step
 (``fedtpu_torch.parallel.round.capture_round_step``; one graph per chunk
 width), the counterpart of ``fedtpu``'s jitted scan, and the host reads one
@@ -23,8 +33,10 @@ buffer per chunk: its losses, confusion counts and the state's finiteness
 flag, computed on the device. What the step draws on the host (the
 participation masks, the DP noise) goes to the device before the replay:
 every round's masks once, up front; each chunk's noise as one pinned
-buffer. ``capture=False`` runs the same step uncaptured (for comparison);
-on the CPU there is no graph.
+buffer; the asynchronous engine's arrivals, like the masks, once, up
+front, and each chunk's first tick from a device table. ``capture=False``
+runs the same step uncaptured (for comparison); on the CPU there is no
+graph.
 
 Not ported (ROADMAP A11): fault injection, telemetry, the SIGTERM drain,
 ``on_divergence='rollback'`` and multi-process resume agreement.
@@ -60,6 +72,9 @@ from fedtpu_torch.orchestration.checkpoint import (
     load_checkpoint_raw, load_meta, retain_checkpoints, save_checkpoint,
     saved_num_clients)
 from fedtpu_torch.orchestration.privacy import PrivacyLedger
+from fedtpu_torch.parallel.async_fed import (async_global_params,
+                                             build_async_round_fn,
+                                             init_async_state)
 from fedtpu_torch.parallel.mesh import ClientMesh, make_mesh
 from fedtpu_torch.parallel.round import (assemble_metrics, build_eval_fn,
                                          build_round_fn, capture_round_step,
@@ -130,6 +145,10 @@ class ExperimentResult:
     # it is off.
     personalized_metrics: Dict[str, dict] = dataclasses.field(
         default_factory=dict)
+    # The asynchronous engine's per-tick (C,) staleness: arrivals report
+    # the staleness their update had, absentees their current age. Empty
+    # for the synchronous engine.
+    staleness: List[np.ndarray] = dataclasses.field(default_factory=list)
 
     def summary(self) -> dict:
         warm = max(1, self.config.run.rounds_per_step)
@@ -149,6 +168,11 @@ class ExperimentResult:
             **({"dp": dp} if dp else {}),
             **({"final_dp_clip": self.final_dp_clip}
                if self.final_dp_clip is not None else {}),
+            **({"mean_staleness":
+                float(np.mean([s.mean() for s in self.staleness])),
+                "max_staleness":
+                float(max(s.max() for s in self.staleness))}
+               if self.staleness else {}),
         }
 
     def privacy_spent(self) -> dict:
@@ -210,6 +234,10 @@ class Experiment:
     tx: Optimizer
     # Post-training per-client fine-tune (FedConfig.personalize_steps > 0).
     personalize_fn: Optional[Callable] = None
+    # The global model of the engine's state: slot 0 for the synchronous
+    # engine (every slot holds it), the freshest anchor for the
+    # asynchronous one.
+    global_fn: Callable = global_params
 
     @property
     def dims(self) -> Optional[tuple]:
@@ -239,18 +267,72 @@ def warm_start_params(path: str, model: FlatModel) -> torch.Tensor:
     return params_from_jax(weights)
 
 
+def check_async_config(fed) -> None:
+    """``fedtpu``'s refusals of an asynchronous run, in its order and with
+    its messages (``fedtpu/orchestration/loop.py:262-268, 287-329``): its
+    two fail-fast DP checks, then each knob of the synchronous aggregation
+    stack that the tick process makes meaningless or unsound.
+    ``model_parallel`` is refused by ``RunConfig`` itself (ROADMAP A10)."""
+    if fed.dp_noise_multiplier > 0 and fed.dp_clip_norm <= 0:
+        raise ValueError("dp_noise_multiplier requires dp_clip_norm > 0 "
+                         "(noise std is noise_multiplier * clip / weight)")
+    if fed.dp_adaptive_clip and fed.dp_clip_norm <= 0:
+        raise ValueError("dp_adaptive_clip needs dp_clip_norm > 0 as the "
+                         "initial clip")
+    if fed.weighting != "uniform":
+        raise ValueError("async_mode requires weighting='uniform': the "
+                         "FedBuff arrival mean is unweighted "
+                         "(--weighting uniform)")
+    if fed.participation_rate < 1.0:
+        raise ValueError("async_mode replaces client sampling with its "
+                         "own arrival process; use --arrival-rate, not "
+                         "--participation-rate")
+    if fed.server_opt != "none":
+        raise ValueError("async_mode has its own server update "
+                         "(server_lr-scaled discounted delta mean); "
+                         "FedOpt server optimizers are unsupported")
+    if fed.dp_clip_norm > 0 or fed.dp_noise_multiplier > 0:
+        raise ValueError("async_mode does not support DP aggregation: "
+                         "per-arrival releases need an async-specific "
+                         "accountant fedtpu does not claim to have")
+    if fed.robust_aggregation != "none" or fed.byzantine_clients:
+        raise ValueError("async_mode does not support robust "
+                         "aggregation rules (they need the full cohort "
+                         "each round; arrivals are a sparse subset)")
+    if fed.compress != "none":
+        raise ValueError("async_mode does not support compressed "
+                         "exchange")
+    if fed.scaffold:
+        raise ValueError("async_mode does not support SCAFFOLD (its "
+                         "variate refresh assumes lockstep rounds)")
+    if fed.personalize_steps > 0:
+        raise ValueError("async_mode does not support personalize_steps: "
+                         "post-training fine-tune starts every client "
+                         "from the final averaged global, but async "
+                         "client slots hold distinct (possibly stale) "
+                         "local models, not that global")
+    if fed.aggregation != "psum":
+        raise ValueError("async_mode uses the psum aggregation path "
+                         "only")
+
+
 def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                      device="cuda", init_params=None,
-                     participation_masks=None, dp_noise=None) -> Experiment:
-    """Wire data -> device -> mesh -> model -> optimizer -> round factory.
+                     participation_masks=None, dp_noise=None,
+                     arrival_masks=None) -> Experiment:
+    """Wire data -> device -> mesh -> model -> optimizer -> round factory
+    (the tick factory under ``FedConfig.async_mode``).
 
     ``init_params``: a ``fedtpu`` client-stacked params pytree (numpy
-    leaves) to start from instead of the seeded init; ``FedConfig.
-    init_weights_npz`` then broadcasts its model into every slot over it.
-    ``participation_masks``: round index -> ``(C,)`` mask, replacing the
-    port's own client-sampling draws; ``dp_noise``: round index -> the
-    round's ``(D + 1,)`` unit normals, replacing the port's own DP noise
-    draws (``build_round_fn``)."""
+    leaves) to start from instead of the seeded init (the asynchronous
+    engine starts from their mean, or from the model they all hold, e.g.
+    ``fedtpu``'s own anchors); ``FedConfig.init_weights_npz`` then
+    broadcasts its model into every slot over it. ``participation_masks``:
+    round index -> ``(C,)`` mask, replacing the port's own client-sampling
+    draws; ``dp_noise``: round index -> the round's ``(D + 1,)`` unit
+    normals, replacing the port's own DP noise draws (``build_round_fn``);
+    ``arrival_masks``: tick -> ``(C,)`` arrivals, replacing the
+    asynchronous engine's own draws (``build_async_round_fn``)."""
     dev = resolve_device(device)
     ds = dataset if dataset is not None else load_dataset(cfg.data)
     # The data sets the MLP's input width and every model's class count, as
@@ -268,31 +350,32 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     fed = cfg.fed
 
     server = None
-    if fed.server_opt != "none":
-        server = make_server_optimizer(
-            fed.server_opt, learning_rate=fed.server_lr,
-            momentum=fed.server_momentum, b1=fed.server_b1, b2=fed.server_b2,
-            tau=fed.server_tau)
-    # fedtpu's refusals, before the state is built, and the delta path's
-    # server optimizer, decided once for the state and the round.
-    _, server, _, _ = check_knobs(
-        fed.weighting, fed.participation_rate, fed.aggregation, server,
-        fed.dp_clip_norm, fed.dp_noise_multiplier, fed.dp_adaptive_clip,
-        fed.dp_target_quantile, fed.dp_clip_lr,
-        fed.dp_count_noise_multiplier, fed.compress, fed.robust_aggregation,
-        fed.trim_ratio, fed.krum_f, fed.byzantine_clients, fed.scaffold)
+    if fed.async_mode:
+        check_async_config(fed)
+    else:
+        if fed.server_opt != "none":
+            server = make_server_optimizer(
+                fed.server_opt, learning_rate=fed.server_lr,
+                momentum=fed.server_momentum, b1=fed.server_b1,
+                b2=fed.server_b2, tau=fed.server_tau)
+        # fedtpu's refusals, before the state is built, and the delta
+        # path's server optimizer, decided once for the state and the
+        # round.
+        _, server, _, _ = check_knobs(
+            fed.weighting, fed.participation_rate, fed.aggregation, server,
+            fed.dp_clip_norm, fed.dp_noise_multiplier, fed.dp_adaptive_clip,
+            fed.dp_target_quantile, fed.dp_clip_lr,
+            fed.dp_count_noise_multiplier, fed.compress,
+            fed.robust_aggregation, fed.trim_ratio, fed.krum_f,
+            fed.byzantine_clients, fed.scaffold)
 
     params = None if init_params is None else params_from_jax(init_params)
     if fed.init_weights_npz:
+        # The asynchronous engine's clients have pulled the warm start:
+        # its anchors hold it too (init_async_state).
         params = warm_start_params(fed.init_weights_npz, model).expand(
             num_clients, -1)
     gen = torch.Generator().manual_seed(fed.init_seed)
-    state = init_federated_state(
-        gen, num_clients, model, tx, same_init=fed.same_init,
-        device=dev, params=params, server_opt=server,
-        shared_start=fed.compress != "none", scaffold=fed.scaffold,
-        adaptive_clip_init=(fed.dp_clip_norm if fed.dp_adaptive_clip
-                            else None))
     batch = {"x": torch.from_numpy(packed.x).to(dev),
              "y": torch.from_numpy(packed.y).to(dev),
              "mask": torch.from_numpy(packed.mask).to(dev)}
@@ -301,24 +384,43 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                else np.ones(num_clients, np.float32))
     client_weights = torch.from_numpy(weights).to(dev)
     mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev)
-    make_step = lambda r: build_round_fn(
-        model, tx, ds.num_classes, client_weights, rounds_per_step=r,
-        mesh=mesh, aggregation=fed.aggregation,
-        participation_rate=fed.participation_rate,
-        participation_seed=fed.participation_seed,
-        participation_masks=participation_masks,
-        local_steps=fed.local_steps, prox_mu=fed.prox_mu,
-        weighting=fed.weighting, server_opt=server,
-        dp_clip_norm=fed.dp_clip_norm,
-        dp_noise_multiplier=fed.dp_noise_multiplier, dp_seed=fed.dp_seed,
-        dp_adaptive_clip=fed.dp_adaptive_clip,
-        dp_target_quantile=fed.dp_target_quantile,
-        dp_clip_lr=fed.dp_clip_lr,
-        dp_count_noise_multiplier=fed.dp_count_noise_multiplier,
-        dp_noise=dp_noise, compress=fed.compress,
-        robust_aggregation=fed.robust_aggregation,
-        trim_ratio=fed.trim_ratio, krum_f=fed.krum_f,
-        byzantine_clients=fed.byzantine_clients, scaffold=fed.scaffold)
+    if fed.async_mode:
+        state = init_async_state(
+            gen, num_clients, model, tx, same_init=fed.same_init,
+            device=dev, params=params, buffer_size=fed.async_buffer_size)
+        make_step = lambda r: build_async_round_fn(
+            model, tx, ds.num_classes, num_clients,
+            arrival_rate=fed.async_arrival_rate,
+            arrival_seed=fed.async_arrival_seed,
+            staleness_power=fed.async_staleness_power,
+            server_lr=fed.server_lr, local_steps=fed.local_steps,
+            prox_mu=fed.prox_mu, buffer_size=fed.async_buffer_size,
+            ticks_per_step=r, arrival_masks=arrival_masks)
+    else:
+        state = init_federated_state(
+            gen, num_clients, model, tx, same_init=fed.same_init,
+            device=dev, params=params, server_opt=server,
+            shared_start=fed.compress != "none", scaffold=fed.scaffold,
+            adaptive_clip_init=(fed.dp_clip_norm if fed.dp_adaptive_clip
+                                else None))
+        make_step = lambda r: build_round_fn(
+            model, tx, ds.num_classes, client_weights, rounds_per_step=r,
+            mesh=mesh, aggregation=fed.aggregation,
+            participation_rate=fed.participation_rate,
+            participation_seed=fed.participation_seed,
+            participation_masks=participation_masks,
+            local_steps=fed.local_steps, prox_mu=fed.prox_mu,
+            weighting=fed.weighting, server_opt=server,
+            dp_clip_norm=fed.dp_clip_norm,
+            dp_noise_multiplier=fed.dp_noise_multiplier, dp_seed=fed.dp_seed,
+            dp_adaptive_clip=fed.dp_adaptive_clip,
+            dp_target_quantile=fed.dp_target_quantile,
+            dp_clip_lr=fed.dp_clip_lr,
+            dp_count_noise_multiplier=fed.dp_count_noise_multiplier,
+            dp_noise=dp_noise, compress=fed.compress,
+            robust_aggregation=fed.robust_aggregation,
+            trim_ratio=fed.trim_ratio, krum_f=fed.krum_f,
+            byzantine_clients=fed.byzantine_clients, scaffold=fed.scaffold)
     personalize_fn = None
     if fed.personalize_steps > 0:
         personalize_fn = build_personalize_fn(model, tx, ds.num_classes,
@@ -327,7 +429,9 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                       eval_step=build_eval_fn(model, ds.num_classes),
                       dataset=ds, device=dev, model=model, mesh=mesh,
                       client_weights=client_weights, tx=tx,
-                      personalize_fn=personalize_fn)
+                      personalize_fn=personalize_fn,
+                      global_fn=(async_global_params if fed.async_mode
+                                 else global_params))
 
 
 class _Fetch:
@@ -353,8 +457,8 @@ class _Fetch:
         return self.host
 
     def finite(self) -> bool:
-        """The chunk-end state's finiteness flag (``pack_outputs``' last
-        entry)."""
+        """The chunk-end state's finiteness flag (the last entry of
+        ``pack_outputs``)."""
         return bool(self.get()[-1] > 0)
 
 
@@ -400,17 +504,18 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                    verbose: bool = True, device="cuda", init_params=None,
                    participation_masks=None, resume: bool = False,
                    capture: Optional[bool] = None,
-                   dp_noise=None) -> ExperimentResult:
+                   dp_noise=None, arrival_masks=None) -> ExperimentResult:
     """Run the federated loop (see module docstring). ``resume``: continue
     from the newest checkpoint under ``run.checkpoint_dir`` (a fresh run
     into a directory that holds rounds raises). ``capture``: None runs
     every chunk as a CUDA graph replay on the card and the plain step on
     the CPU; False runs the step uncaptured on the card too.
-    ``participation_masks`` and ``dp_noise``: ``build_experiment``'s."""
+    ``participation_masks``, ``dp_noise`` and ``arrival_masks``:
+    ``build_experiment``'s."""
     exp = build_experiment(cfg, dataset, device=device,
                            init_params=init_params,
                            participation_masks=participation_masks,
-                           dp_noise=dp_noise)
+                           dp_noise=dp_noise, arrival_masks=arrival_masks)
     dev = exp.device
     graphs_on = dev.type == "cuda" if capture is None else bool(capture)
     if graphs_on and dev.type != "cuda":
@@ -439,8 +544,19 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             f"(latest: {complete_steps(ckpt_dir)[-1]}). Pass resume=True "
             "(--resume) to continue that run, or point checkpoint_dir at a "
             "clean directory.")
+    engine_async = "anchors" in state
     if resume and ckpt_dir and latest_step(ckpt_dir) is not None:
-        saved_c = int(load_meta(ckpt_dir)["num_clients"])
+        meta = load_meta(ckpt_dir)
+        # The engine first, from the meta alone, as fedtpu does.
+        saved_async = meta.get("engine_async")
+        if saved_async is not None and bool(saved_async) != engine_async:
+            raise ValueError(
+                "resume engine mismatch: the checkpoint was written by the "
+                f"{'async' if saved_async else 'synchronous'} engine but "
+                "the current config selects the other; resume with the "
+                "matching engine, or warm-start a fresh run from exported "
+                "weights")
+        saved_c = int(meta["num_clients"])
         if saved_c == num_clients:
             raw, restored_history, start_round = load_checkpoint_fallback(
                 ckpt_dir)
@@ -458,21 +574,53 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             # control variates restart at zero, like the moments.
             raw, restored_history, start_round = load_checkpoint_raw(ckpt_dir)
             restored_meta = load_meta(ckpt_dir, step=start_round)
+            if engine_async != ("anchors" in raw):
+                raise ValueError(
+                    "elastic resume engine mismatch: the checkpoint was "
+                    f"written by the "
+                    f"{'async' if 'anchors' in raw else 'synchronous'} "
+                    "engine but the current config selects the other; "
+                    f"resume with the matching engine (and client count "
+                    f"{saved_c}), or warm-start a fresh run from exported "
+                    "weights")
             dtype = state["params"].dtype
-            g = raw["params"].to(torch.float32).numpy().mean(axis=0)
-            params = torch.from_numpy(np.ascontiguousarray(
-                np.broadcast_to(g, (num_clients, g.shape[0])))).to(
-                    device=dev, dtype=dtype)
-            state = {**state, "params": params,
-                     "opt_state": exp.tx.init(params), "round": start_round}
-            for key in ("server_opt_state", "dp_clip"):
-                if key in raw and key in state:
-                    state[key] = _to_device(raw[key], dev)
-            cv_note = (", control variates reset to zero"
-                       if "client_cv" in state else "")
-            say(f"Elastic resume at round {start_round}: "
-                f"{saved_num_clients(raw)} -> {num_clients} clients (global "
-                f"model carried over, fresh client optimizer state{cv_note}).")
+            if engine_async:
+                # A restart is every client re-pulling the current global,
+                # the freshest anchor (the slots hold distinct local
+                # models): params = anchors = it, pull ticks at the resume
+                # tick, fresh optimizer state, and the pending K-buffer
+                # dropped (its deltas reference a cohort that is gone).
+                g = async_global_params(raw).to(device=dev, dtype=dtype)
+                slots = g.expand(num_clients, -1).contiguous()
+                state = {**state, "params": slots.clone(), "anchors": slots,
+                         "pull_tick": torch.full(
+                             (num_clients,), start_round, dtype=torch.int32,
+                             device=dev),
+                         "round": start_round}
+                dropped = float(raw.get("buf_count", 0.0))
+                buf_note = (f", {int(dropped)} pending buffered updates "
+                            "dropped" if dropped > 0 else "")
+                say(f"Async elastic resume at tick {start_round}: "
+                    f"{saved_c} -> {num_clients} clients (freshest-anchor "
+                    "global carried over, every client re-pulled, fresh "
+                    f"optimizer state{buf_note}).")
+            else:
+                g = raw["params"].to(torch.float32).numpy().mean(axis=0)
+                params = torch.from_numpy(np.ascontiguousarray(
+                    np.broadcast_to(g, (num_clients, g.shape[0])))).to(
+                        device=dev, dtype=dtype)
+                state = {**state, "params": params,
+                         "opt_state": exp.tx.init(params),
+                         "round": start_round}
+                for key in ("server_opt_state", "dp_clip"):
+                    if key in raw and key in state:
+                        state[key] = _to_device(raw[key], dev)
+                cv_note = (", control variates reset to zero"
+                           if "client_cv" in state else "")
+                say(f"Elastic resume at round {start_round}: "
+                    f"{saved_num_clients(raw)} -> {num_clients} clients "
+                    "(global model carried over, fresh client optimizer "
+                    f"state{cv_note}).")
 
     # The DP RDP bookkeeping (fedtpu_torch.orchestration.privacy), written
     # into every checkpoint's meta whether or not DP is on, so a DP-off
@@ -486,6 +634,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     test_hist = {k: [] for k in METRIC_NAMES}
     losses: List[np.ndarray] = []
     confusion: List[np.ndarray] = []
+    staleness: List[np.ndarray] = []
     sec_per_round: List[float] = []
     prev_metric = None
     termination_count = cfg.fed.termination_patience
@@ -542,12 +691,16 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             steps[width] = exp.make_step(width)
         return steps[width]
 
-    # Client sampling: every round's mask on the device up front, so a
-    # chunk's masks are a device-to-device copy (into the graph's buffer).
-    draw = get_step(chunk).draw_masks
+    # Client sampling, and the asynchronous engine's arrivals: every
+    # round's on the device up front, so a chunk's are a device-to-device
+    # copy (into the graph's buffer); so is its first tick.
+    draw = (get_step(chunk).draw_arrivals if engine_async
+            else get_step(chunk).draw_masks)
     mask_table = (draw(0, cfg.fed.rounds).to(dev)
                   if draw is not None and cfg.fed.rounds > 0 else None)
-    draw_noise = get_step(chunk).draw_noise
+    tick_table = (torch.arange(cfg.fed.rounds + 1, dtype=torch.int32,
+                               device=dev) if engine_async else None)
+    draw_noise = None if engine_async else get_step(chunk).draw_noise
     noise_ahead: Dict[tuple, torch.Tensor] = {}
 
     def chunk_noise(rnd: int, take: int) -> Optional[torch.Tensor]:
@@ -572,7 +725,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     def dispatch(rnd: int, take: int) -> _Fetch:
         nonlocal state, warmup_rounds
         masks = None if mask_table is None else mask_table[rnd:rnd + take]
-        noise = chunk_noise(rnd, take)
+        # The round step's inputs (masks, DP noise), or the tick's
+        # (arrivals, the chunk's first tick).
+        inputs = ((masks, tick_table[rnd]) if engine_async
+                  else (masks, chunk_noise(rnd, take)))
         if graphs_on:
             if take not in graphs:
                 if not graphs:
@@ -580,11 +736,11 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                     warmup_rounds = 1
                 graphs[take] = capture_round_step(get_step(take), state,
                                                   batch)
-            out = graphs[take](masks, noise)
+            out = graphs[take](*inputs)
             state["round"] = rnd + take
         else:
-            state, raw = get_step(take)(state, batch, masks, noise)
-            out = pack_outputs(raw)
+            state, raw = get_step(take).fn(state, batch, *inputs)
+            out = pack_outputs(raw, *get_step(take).outputs)
         fetch = _Fetch(out)
         draw_ahead(rnd + take)
         return fetch
@@ -600,7 +756,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         the round the current ``state`` holds (one chunk further on when
         pipelined), the label of an emergency checkpoint."""
         nonlocal prev_metric, termination_count, rounds_run
-        raw = unpack_outputs(fetched.get(), take, num_clients, num_classes)
+        raw = unpack_outputs(fetched.get(), take, num_clients, num_classes,
+                             *get_step(take).outputs)
         # s/round is fedtpu's lap (its ``timer.lap()`` at the chunk fetch):
         # the time from one chunk's read to the next over the chunk's
         # rounds, so the host work between them (history, logs, held-out
@@ -618,6 +775,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                           for k in METRIC_NAMES}
             losses.append(loss_c[j].numpy())
             confusion.append(conf_c[j].numpy())
+            if engine_async:
+                staleness.append(raw["staleness"][j].numpy())
             sec_per_round.append(dt)
             rounds_run = r + 1
             for k in METRIC_NAMES:
@@ -630,7 +789,9 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                     "round": r + 1, "sec_per_round": dt,
                     "client_mean": client_mean,
                     "pooled": {k: pooled_hist[k][-1] for k in METRIC_NAMES},
-                    "loss_mean": loss_mean}) + "\n")
+                    "loss_mean": loss_mean,
+                    **({"staleness_mean": float(staleness[-1].mean())}
+                       if engine_async else {})}) + "\n")
                 jsonl.flush()
 
             if r % cfg.run.log_every == 0:
@@ -643,8 +804,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                             f"(Round {r + 1}): [{vals}]")
                 gvals = ", ".join(f"{k}: {client_mean[k]:.4f}"
                                   for k in METRIC_NAMES)
+                stale_note = (f"  (mean staleness {staleness[-1].mean():.2f})"
+                              if engine_async else "")
                 say(f"  Global Metrics (Round {r + 1}): [{gvals}]  "
-                    f"({dt * 1e3:.1f} ms/round)")
+                    f"({dt * 1e3:.1f} ms/round){stale_note}")
 
             cur = [client_mean[k] for k in METRIC_NAMES]
             if cfg.run.halt_on_nonfinite and not (
@@ -717,7 +880,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                               rnd)
                 break
             if eval_due:
-                tm = exp.eval_step(global_params(state), x_test, y_test)
+                tm = exp.eval_step(exp.global_fn(state), x_test, y_test)
                 tm = torch.stack([tm[k] for k in METRIC_NAMES]).tolist()
                 for _ in range(eval_due):
                     for k, v in zip(METRIC_NAMES, tm):
@@ -764,7 +927,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         per_client_metrics=per_client_hist, test_metrics=test_hist,
         loss=losses, sec_per_round=sec_per_round, rounds_run=rounds_run,
         stopped_early=flags["stopped_early"],
-        final_params=params_to_numpy(global_params(state), exp.model),
+        final_params=params_to_numpy(exp.global_fn(state), exp.model),
         config=cfg, diverged=flags["diverged"], confusion=confusion,
         rounds_trained=rounds_trained, warmup_rounds=warmup_rounds,
         graph_launches={w: dict(g.launches) for w, g in graphs.items()},
@@ -774,7 +937,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         dp_composed=ledger.composed,
         final_dp_clip=(float(state["dp_clip"]) if "dp_clip" in state
                        else None),
-        personalized_metrics=personalized)
+        personalized_metrics=personalized, staleness=staleness)
     dp = result.privacy_spent()
     if dp:
         notes = ""
@@ -788,4 +951,16 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             f"{dp['noise_multiplier']}, sampling rate "
             f"{dp['sampling_rate']}, {dp['rounds']} rounds; RDP order "
             f"{dp['rdp_order']}{notes})")
+    if (engine_async and cfg.fed.async_buffer_size >= 2
+            and not flags["diverged"] and "buf_count" in state):
+        # K-buffer starvation: a buffer that never filled never moved the
+        # global; the run is sound, and the user must hear it.
+        pending = int(state["buf_count"])
+        if pending > 0:
+            say(f"ASYNC K-BUFFER STARVATION: {pending} buffered update(s) "
+                f"never reached --buffer-size {cfg.fed.async_buffer_size} "
+                "by the final tick, so the global model did not advance "
+                "on them. Lower --buffer-size or raise --arrival-rate/"
+                "--rounds; a resumed run carries the pending buffer "
+                "forward.")
     return result

@@ -71,6 +71,7 @@ round, and handed to the step as a tensor.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -207,17 +208,21 @@ def _state_tensors(state: dict) -> list:
             *(state[k] for k in _EXTRA_STATE if k in state)]
 
 
-def state_finite(state: dict) -> torch.Tensor:
-    """A device bool: every float tensor of the state (params, optimizer
-    state, server optimizer state, control variates, adaptive clip) is
-    entirely finite (no host read). Each tensor's largest magnitude (its
-    inf-norm, which NaN and inf carry through) is finite exactly when the
-    whole tensor is; ``_foreach_norm`` takes all of them in one
-    multi-tensor launch on the card."""
-    leaves = [t.reshape(-1) for t in _state_tensors(state)
-              if t.is_floating_point()]
+def tensors_finite(tensors) -> torch.Tensor:
+    """A device bool: every float tensor of ``tensors`` is entirely finite
+    (no host read). Each tensor's largest magnitude (its inf-norm, which
+    NaN and inf carry through) is finite exactly when the whole tensor is;
+    ``_foreach_norm`` takes all of them in one multi-tensor launch on the
+    card."""
+    leaves = [t.reshape(-1) for t in tensors if t.is_floating_point()]
     peaks = torch.stack(torch._foreach_norm(leaves, float("inf")))
     return torch.isfinite(peaks).all()
+
+
+def state_finite(state: dict) -> torch.Tensor:
+    """``tensors_finite`` of the round's state: params, optimizer state,
+    server optimizer state, control variates, adaptive clip."""
+    return tensors_finite(_state_tensors(state))
 
 
 class RoundStep:
@@ -238,6 +243,25 @@ class RoundStep:
                  masks: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None):
         return self.fn(state, batch, masks, noise)
+
+    # What ``capture_round_step`` and the host loop ask of a step (the
+    # asynchronous engine's ``AsyncStep`` answers the same): its per-chunk
+    # inputs as zeroed device buffers, the state tensors it updates, and
+    # the names of its outputs besides loss, counts and the finite flag
+    # (``pack_outputs``' per-client and per-round parts).
+    outputs = ((), ())
+    state_tensors = staticmethod(_state_tensors)
+
+    def input_buffers(self, state: dict) -> tuple:
+        """Zeroed device buffers of the per-chunk inputs: the masks
+        ``(R, C)`` and the noise ``(R, D + 1)``, each None when not
+        drawn."""
+        params = state["params"]
+        widths = (params.shape[0] if self.draw_masks else None,
+                  params.shape[1] + 1 if self.draw_noise else None)
+        return tuple(None if w is None else
+                     torch.zeros((self.rounds, w), dtype=torch.float32,
+                                 device=params.device) for w in widths)
 
 
 def check_knobs(weighting, participation_rate, aggregation, server_opt,
@@ -757,45 +781,54 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
                      draw_noise if noisy else None)
 
 
-def pack_outputs(raw: dict) -> torch.Tensor:
+def pack_outputs(raw: dict, per_client: tuple = (),
+                 per_round: tuple = ()) -> torch.Tensor:
     """A chunk's ``raw`` as one float32 vector: loss, confusion counts
-    (exact in float32 below 2^24), then the finite flag as 1 or 0; one
-    buffer for the host to read."""
+    (exact in float32 below 2^24), the ``(R, C)`` entries named in
+    ``per_client``, the ``(R,)`` entries named in ``per_round``, then the
+    finite flag as 1 or 0; one buffer for the host to read."""
     return torch.cat((raw["loss"].reshape(-1), raw["conf"].reshape(-1),
+                      *(raw[k].reshape(-1) for k in per_client + per_round),
                       raw["finite"].reshape(1).to(torch.float32)))
 
 
 def unpack_outputs(flat: torch.Tensor, rounds: int, num_clients: int,
-                   num_classes: int) -> dict:
-    """Inverse of ``pack_outputs``: ``loss (R, C)``, ``conf (R, C, K, K)``,
-    ``finite`` (a Python bool)."""
-    n_loss = rounds * num_clients
-    n_conf = n_loss * num_classes * num_classes
-    return {"loss": flat[:n_loss].view(rounds, num_clients),
-            "conf": flat[n_loss:n_loss + n_conf].view(
-                rounds, num_clients, num_classes, num_classes),
-            "finite": bool(flat[n_loss + n_conf] > 0)}
+                   num_classes: int, per_client: tuple = (),
+                   per_round: tuple = ()) -> dict:
+    """Inverse of ``pack_outputs``: ``loss (R, C)``, ``conf (R, C, K,
+    K)``, each ``per_client`` entry ``(R, C)``, each ``per_round`` entry
+    ``(R,)``, and ``finite`` (a Python bool)."""
+    shapes = {"loss": (rounds, num_clients),
+              "conf": (rounds, num_clients, num_classes, num_classes),
+              **{k: (rounds, num_clients) for k in per_client},
+              **{k: (rounds,) for k in per_round}}
+    out, at = {}, 0
+    for key, shape in shapes.items():
+        size = math.prod(shape)
+        out[key] = flat[at:at + size].view(shape)
+        at += size
+    out["finite"] = bool(flat[at] > 0)
+    return out
 
 
 class CapturedRounds:
     """A chunk of ``rounds`` rounds captured as one CUDA graph
     (``capture_round_step``). The state lives in the static tensors of
-    ``state``, which each replay updates in place; ``__call__(masks=None,
-    noise=None)`` copies the chunk's ``(R, C)`` participation masks and
-    ``(R, D + 1)`` DP noise draws into the graph's input buffers, replays
-    the graph and returns its packed outputs (``pack_outputs``), a static
-    tensor the next replay overwrites. ``launches`` holds the kernel
-    launches one replay makes; each replay adds them to
-    ``cuda_kernels.LAUNCHES``."""
+    ``state``, which each replay updates in place; ``__call__(*inputs)``
+    copies the chunk's inputs (the round's: ``(R, C)`` participation masks
+    and ``(R, D + 1)`` DP noise draws, each None when not drawn) into the
+    graph's input buffers, replays the graph and returns its packed outputs
+    (``pack_outputs``), a static tensor the next replay overwrites.
+    ``launches`` holds the kernel launches one replay makes; each replay
+    adds them to ``cuda_kernels.LAUNCHES``."""
 
     def __init__(self, graph, state, inputs, out, launches, rounds):
         self.graph, self.state, self.inputs, self.out = (graph, state, inputs,
                                                          out)
         self.launches, self.rounds = launches, rounds
 
-    def __call__(self, masks: Optional[torch.Tensor] = None,
-                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        for buf, src in zip(self.inputs, (masks, noise)):
+    def __call__(self, *inputs: Optional[torch.Tensor]) -> torch.Tensor:
+        for buf, src in zip(self.inputs, inputs):
             if buf is not None:
                 buf.copy_(src, non_blocking=True)
         self.graph.replay()
@@ -810,17 +843,6 @@ def _needs_the_card(state: dict) -> torch.device:
     return dev
 
 
-def _input_buffers(step: RoundStep, state: dict) -> tuple:
-    """Zeroed device buffers of the step's per-chunk inputs: the masks
-    ``(R, C)`` and the noise ``(R, D + 1)``, each None when not drawn."""
-    params = state["params"]
-    widths = (params.shape[0] if step.draw_masks else None,
-              params.shape[1] + 1 if step.draw_noise else None)
-    return tuple(None if w is None else
-                 torch.zeros((step.rounds, w), dtype=torch.float32,
-                             device=params.device) for w in widths)
-
-
 def warm_up_round(step: RoundStep, state: dict, batch: dict) -> None:
     """Run ``step`` once, eagerly, on a side stream, its result dropped, so
     that the cuBLAS handles, kernel builds, function attributes and the
@@ -832,15 +854,16 @@ def warm_up_round(step: RoundStep, state: dict, batch: dict) -> None:
     side = torch.cuda.Stream(dev)
     side.wait_stream(live)
     with torch.cuda.stream(side):
-        step(state, batch, *_input_buffers(step, state))
+        step.fn(state, batch, *step.input_buffers(state))
     live.wait_stream(side)
 
 
 def capture_round_step(step: RoundStep, state: dict,
                        batch: dict) -> CapturedRounds:
     """``fedtpu``'s jitted scan of ``rounds_per_step`` rounds as a CUDA
-    graph: the round step, its kernels (K1 or K4, and K2) and the train
-    step's GEMMs, replayed with no per-op dispatch. Call ``warm_up_round``
+    graph: the round step (a ``RoundStep``, or the asynchronous engine's
+    ``AsyncStep``), its kernels (K1 or K4, and K2) and the train step's
+    GEMMs, replayed with no per-op dispatch. Call ``warm_up_round``
     once before the first capture.
 
     ``state``'s tensors become the graph's static state: the captured step
@@ -849,16 +872,16 @@ def capture_round_step(step: RoundStep, state: dict,
     back (capture launches nothing), and each replay adds them. A capture
     that fails raises."""
     _needs_the_card(state)
-    inputs = _input_buffers(step, state)
+    inputs = step.input_buffers(state)
     graph = torch.cuda.CUDAGraph()
     before = dict(LAUNCHES)
     try:
         with torch.cuda.graph(graph):
-            new_state, raw = step(state, batch, *inputs)
-            for dst, src in zip(_state_tensors(state),
-                                _state_tensors(new_state)):
+            new_state, raw = step.fn(state, batch, *inputs)
+            for dst, src in zip(step.state_tensors(state),
+                                step.state_tensors(new_state)):
                 dst.copy_(src)
-            out = pack_outputs(raw)
+            out = pack_outputs(raw, *step.outputs)
     finally:
         launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         LAUNCHES.update(before)
@@ -891,6 +914,70 @@ def global_params(state: dict) -> torch.Tensor:
     """The post-average global model: every client slot holds an identical
     copy, so take slot 0."""
     return state["params"][0]
+
+
+# Server state whose leading dimension may equal the client count by
+# coincidence (the defense screen's (window,) norm ring): never per-client,
+# by name, whatever its shape (fedtpu's _SERVER_ONLY_KEYS).
+_SERVER_ONLY_KEYS = frozenset({"screen_norms", "screen_count"})
+
+
+def _per_client_slots(state: dict, num_clients: int, prefix: tuple = ()):
+    """``(path, tensor)`` of every tensor of ``state`` (nested dicts, keys
+    sorted as ``jax.tree.flatten`` orders them), and whether it is
+    per-client."""
+    for key in sorted(state):
+        value = state[key]
+        if isinstance(value, dict):
+            yield from _per_client_slots(value, num_clients, prefix + (key,))
+        elif isinstance(value, torch.Tensor):
+            per_client = (key not in _SERVER_ONLY_KEYS
+                          and not _SERVER_ONLY_KEYS & set(prefix)
+                          and value.dim() >= 1
+                          and value.shape[0] == num_clients)
+            yield prefix + (key,), value, per_client
+
+
+def per_client_view(state: dict, num_clients: int) -> list:
+    """The per-client tensors of a federated state (``fedtpu``'s
+    ``per_client_view``), in its order: keys sorted, nested dicts
+    flattened. The one rule, applied here only: a tensor is per-client when
+    its leading dimension is ``num_clients``, except the server-only keys
+    (``_SERVER_ONLY_KEYS``), whose leading dimension may equal it by
+    coincidence. Numbers (the round counter) are not tensors and never
+    per-client. Works on the synchronous and the asynchronous state.
+
+    Where the flat layout differs from ``fedtpu``'s pytree: each ``(C, D)``
+    buffer (params, anchors, a moment) stands for all of ``fedtpu``'s leaves
+    of that quantity, which it holds in the flat row's order; the optimizer
+    keeps one update count per client where optax's chain keeps two equal
+    ones (Adam's and the schedule's); and a server buffer of one model's
+    leaves (the asynchronous K-buffer) is one ``(D,)`` row here, so a
+    leaf of it whose first width equals the client count is never taken
+    for a per-client one."""
+    return [t for _, t, pc in _per_client_slots(state, num_clients) if pc]
+
+
+def with_per_client(state: dict, num_clients: int, new_tensors) -> dict:
+    """``state`` with its per-client tensors (``per_client_view``'s
+    selection, same order) replaced by ``new_tensors``; every other entry
+    passes through untouched (a new dict; the tensors are not copied)."""
+    it = iter(new_tensors)
+    swapped = {path: next(it)
+               for path, _, pc in _per_client_slots(state, num_clients)
+               if pc}
+    rest = list(it)
+    if rest:
+        raise ValueError(
+            f"with_per_client: {len(rest)} replacement leaves left over — "
+            "the replacement list must match per_client_view's selection")
+
+    def rebuild(tree, prefix):
+        return {k: (rebuild(v, prefix + (k,)) if isinstance(v, dict)
+                    else swapped.get(prefix + (k,), v))
+                for k, v in tree.items()}
+
+    return rebuild(state, ())
 
 
 def build_eval_fn(model, num_classes: int) -> Callable:

@@ -36,6 +36,7 @@ from fedtpu_torch import convert  # noqa: E402
 from fedtpu_torch.models.mlp import (flatten, layer_dims,  # noqa: E402
                                      leaf_bounds, mlp_apply, mlp_init,
                                      param_count, unflatten)
+from fedtpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from fedtpu_torch.ops import dp_accountant as t_acc  # noqa: E402
 from fedtpu_torch.ops import server_opt as t_sopt  # noqa: E402
 from fedtpu_torch.ops.losses import masked_cross_entropy  # noqa: E402
@@ -308,12 +309,9 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(async_arrival_seed=1), dict(async_buffer_size=2),
-    dict(async_arrival_rate=0.9),
-    dict(async_staleness_power=1.0), dict(client_store="sqlite"),
-    dict(cohort_seed=1), dict(cohort_sampling="weighted"),
-    dict(cohort_trace="t.jsonl"),
-    dict(async_mode=True), dict(cohort_size=4)])
+    dict(client_store="sqlite"), dict(cohort_seed=1),
+    dict(cohort_sampling="weighted"), dict(cohort_trace="t.jsonl"),
+    dict(cohort_size=4)])
 def test_unported_knobs_raise_naming_their_roadmap_item(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         tcfg.FedConfig(**kw)
@@ -325,13 +323,9 @@ _CONFIGS = ("DataConfig", "ShardConfig", "ModelConfig", "OptimConfig",
 # of each.
 _UNPORTED = {
     "ShardConfig": {"partition_clients": "A10", "partition_offset": "A10"},
-    "FedConfig": {
-        **{k: "A8" for k in ("async_mode", "async_arrival_rate",
-                             "async_arrival_seed", "async_staleness_power",
-                             "async_buffer_size")},
-        **{k: "A9" for k in ("cohort_size", "client_store",
-                             "client_store_path", "cohort_sampling",
-                             "cohort_seed", "cohort_trace")}},
+    "FedConfig": {k: "A9" for k in ("cohort_size", "client_store",
+                                    "client_store_path", "cohort_sampling",
+                                    "cohort_seed", "cohort_trace")},
     "RunConfig": {
         **{k: "A10" for k in ("mpmd", "model_parallel",
                               "collective_timeout")},
@@ -352,6 +346,11 @@ _A6_KNOBS = (
     "dp_seed", "dp_adaptive_clip", "dp_target_quantile", "dp_clip_lr",
     "dp_count_noise_multiplier", "dp_delta", "robust_aggregation",
     "trim_ratio", "krum_f", "byzantine_clients", "compress")
+
+
+# The asynchronous engine's knobs (fedtpu_torch.parallel.async_fed).
+_ASYNC_KNOBS = ("async_mode", "async_arrival_rate", "async_arrival_seed",
+                "async_staleness_power", "async_buffer_size")
 
 
 @pytest.mark.parametrize("knob", _A6_KNOBS)
@@ -443,7 +442,7 @@ def test_ported_knobs_take_other_values():
                               "participation_rate", "participation_seed",
                               "aggregation", "local_steps", "prox_mu",
                               "init_weights_npz", "personalize_steps",
-                              *_A6_KNOBS},
+                              *_A6_KNOBS, *_ASYNC_KNOBS},
                 "RunConfig": {"log_every", "log_per_client",
                               "rounds_per_step", "eval_test_every",
                               "halt_on_nonfinite", "mesh_devices",
@@ -901,11 +900,6 @@ def test_port_imports_nothing_of_jax_or_fedtpu():
 # run yet: field path, a value off its default, the ROADMAP item the port's
 # refusal names. --max-restarts is fedtpu's supervisor, no config field.
 _CLI_NOT_PORTED = {
-    "--arrival-rate": ("fed", "async_arrival_rate", 0.7, "A8"),
-    "--arrival-seed": ("fed", "async_arrival_seed", 1, "A8"),
-    "--async": ("fed", "async_mode", True, "A8"),
-    "--buffer-size": ("fed", "async_buffer_size", 2, "A8"),
-    "--staleness-power": ("fed", "async_staleness_power", 1.0, "A8"),
     "--client-store": ("fed", "client_store", "disk", "A9"),
     "--client-store-path": ("fed", "client_store_path", "x", "A9"),
     "--cohort-sampling": ("fed", "cohort_sampling", "trace", "A9"),
@@ -1265,3 +1259,92 @@ def test_16_bit_optimizer_state_is_optaxs(name, dtype):
                 scale_ulp = 2.0 ** (np.floor(np.log2(np.max(
                     np.abs(b[fin])))) - mant)
                 assert np.max(np.abs(a - b)[fin]) <= 2 * scale_ulp
+
+
+# ------------------------------- K1's sum mode (the asynchronous tick)
+@pytest.mark.parametrize("case", ["positive", "signed negative total",
+                                  "all zero", "nan row"])
+def test_k1_sum_mode_plain_matches_fedtpus_contraction(case):
+    """The plain version of K1's sum mode against fedtpu's
+    tensordot(w, x) (async_fed.py:400) on the same inputs, 1e-6; every
+    weight 0 gives 0.0 exactly, a NaN row is NaN in every column where
+    its weight meets it (0 * NaN too)."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((9, 301)).astype(np.float32)
+    w = {"positive": rng.uniform(0.1, 1.0, 9),
+         "signed negative total": np.array([1, -8, 1, 0, -8, 1, 1, 0.5,
+                                            -0.25]),
+         "all zero": np.zeros(9),
+         "nan row": np.arange(9) - 4.0}[case].astype(np.float32)
+    if case == "nan row":
+        x[3, ::5] = np.nan
+    ours = ck.weighted_sum_clients(torch.from_numpy(x), torch.from_numpy(w))
+    theirs = np.asarray(jnp.tensordot(jnp.asarray(w), jnp.asarray(x),
+                                      axes=1))
+    assert ours.dtype == torch.float32 and ours.shape == (301,)
+    np.testing.assert_array_equal(np.isnan(ours.numpy()), np.isnan(theirs))
+    np.testing.assert_allclose(ours.numpy(), theirs, atol=1e-6, rtol=1e-6)
+    if case == "all zero":
+        assert not ours.abs().max()
+
+
+def test_k1_sum_mode_wrapper_rules():
+    """The sum mode takes a float32 (C, D) stack only, naming what it was
+    given; on the CPU it runs the plain version and counts no launch."""
+    ck.reset_launch_counts()
+    x, w = torch.ones(3, 5), torch.ones(3)
+    assert torch.equal(ck.weighted_sum_clients(x, w), torch.full((5,), 3.0))
+    assert ck.LAUNCHES["weighted_average_clients"] == 0
+    with pytest.raises(TypeError, match="float32, got torch.bfloat16"):
+        ck.weighted_sum_clients(x.to(torch.bfloat16), w)
+    with pytest.raises(ValueError, match=r"\(clients, D\)"):
+        ck.weighted_sum_clients(torch.ones(5), w)
+    with pytest.raises(ValueError, match="weights"):
+        ck.weighted_sum_clients(x, torch.ones(4))
+
+
+# ------------------------------------------ the asynchronous CLI flags
+@pytest.mark.parametrize("argv", [
+    ["run", "--async", "--arrival-rate", "0.25", "--arrival-seed", "7",
+     "--staleness-power", "0", "--server-lr", "0.5", "--weighting",
+     "uniform"],
+    ["run", "--preset", "income-32-noniid", "--async", "--weighting",
+     "uniform", "--arrival-rate", "0.25", "--buffer-size", "16"],
+    ["run"]], ids=lambda a: " ".join(a))
+def test_cli_async_flags_set_fedtpus_fields(argv):
+    """The five flags on the port's parser set fedtpu's FedConfig fields
+    to fedtpu's values (tests/test_async.py:285)."""
+    from fedtpu.cli import _apply_overrides, build_parser as j_parser
+    from fedtpu_torch.cli import build_parser as t_parser, config_from_args
+    j_args, t_args = j_parser().parse_args(argv), t_parser().parse_args(argv)
+    j_fed = _apply_overrides(jcfg.get_preset(j_args.preset), j_args).fed
+    t_fed = config_from_args(t_args).fed
+    for field in ("async_mode", "async_arrival_rate", "async_arrival_seed",
+                  "async_staleness_power", "async_buffer_size",
+                  "server_lr", "weighting"):
+        assert getattr(t_fed, field) == getattr(j_fed, field), field
+
+
+@pytest.mark.parametrize("flag", ["--arrival-rate", "--arrival-seed",
+                                  "--staleness-power", "--buffer-size"])
+def test_cli_async_knobs_without_async_are_refused(flag):
+    from fedtpu_torch.cli import build_parser, config_from_args
+    args = build_parser().parse_args(["run", flag, "1"])
+    with pytest.raises(SystemExit, match="require --async"):
+        config_from_args(args)
+
+
+def test_cli_async_run_on_cpu(capsys):
+    """``run --async`` through the CLI on the CPU: the summary JSON with
+    the staleness fields."""
+    import json
+
+    from fedtpu_torch.cli import main
+    assert main(["run", "--async", "--weighting", "uniform",
+                 "--arrival-rate", "0.5", "--buffer-size", "4",
+                 "--platform", "cpu", "--synthetic-rows", "256",
+                 "--num-clients", "4", "--hidden-sizes", "8", "--rounds",
+                 "6", "--rounds-per-step", "3", "--quiet", "--json"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["rounds_run"] == 6 and summary["max_staleness"] >= 0
+    assert "mean_staleness" in summary

@@ -38,6 +38,10 @@ from fedtpu.ops.server_opt import gaussian_noise_tree  # noqa: E402
 from fedtpu.orchestration.loop import (build_experiment as j_build,  # noqa: E402
                                        run_experiment as j_run)
 from fedtpu.orchestration.privacy import PrivacyLedger as JLedger  # noqa: E402
+from fedtpu.data.sharding import pack_clients  # noqa: E402
+from fedtpu.data.tabular import synthetic_income_like  # noqa: E402
+from fedtpu.parallel import async_fed as j_async  # noqa: E402
+from fedtpu.parallel import client_sharding, make_mesh  # noqa: E402
 from fedtpu.parallel.round import (_DP_COUNT_STREAM,  # noqa: E402
                                    _DP_NOISE_STREAM)
 from fedtpu.training.client import (make_local_eval_step,  # noqa: E402
@@ -47,6 +51,7 @@ import fedtpu_torch.config as tcfg  # noqa: E402
 from fedtpu_torch import convert  # noqa: E402
 from fedtpu_torch.benchmarks import mega_kernel_attempt as mega  # noqa: E402
 from fedtpu_torch.models.mlp import leaf_bounds, mlp_init  # noqa: E402
+from fedtpu_torch.models.registry import build_model as t_model  # noqa: E402
 from fedtpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from fedtpu_torch.ops.metrics import (METRIC_NAMES,  # noqa: E402
                                       metrics_from_confusion)
@@ -54,7 +59,9 @@ from fedtpu_torch.orchestration import checkpoint as ckpt  # noqa: E402
 from fedtpu_torch.orchestration.loop import (_restore_state,  # noqa: E402
                                              build_experiment as t_build,
                                              run_experiment as t_run)
+from fedtpu_torch.ops.optim import build_optimizer as t_optimizer  # noqa: E402
 from fedtpu_torch.orchestration.privacy import PrivacyLedger as TLedger  # noqa: E402
+from fedtpu_torch.parallel import async_fed as t_async  # noqa: E402
 from fedtpu_torch.parallel import round as t_round  # noqa: E402
 
 ROWS = 512
@@ -2917,3 +2924,743 @@ def test_fused_round_refuses_16_bit_params():
         with pytest.raises(ValueError, match=rf"model\.param_dtype="
                                              rf"'{dtype}'"):
             mega.run(cfg, device="cpu", rounds=1)
+
+
+# ------------------------------------- the asynchronous engine (A8a)
+# The port's FedBuff engine (fedtpu_torch.parallel.async_fed) against
+# fedtpu's on the CPU. Both sides start from fedtpu's own state (its
+# anchors, params, Adam moments and pull ticks, carried across by
+# fedtpu_torch.convert) and see the same arrivals: fedtpu's Bernoulli
+# draws, recomputed with its own expression and injected into the port.
+# Eight clients on fedtpu's 8-device CPU mesh, a (16, 8) MLP on 256
+# synthetic rows, at most 24 ticks a run. The pins are fedtpu's
+# (tests/test_async.py, tests/test_robust_defense.py).
+C = 8
+ASYNC_HIDDEN = (16, 8)
+ARRIVAL_RATE, ARRIVAL_SEED = 0.4, 1
+
+
+@functools.lru_cache(maxsize=None)
+def _async_batches(strategy="contiguous"):
+    """fedtpu's test data (256 rows, 6 features) over 8 clients: fedtpu's
+    sharded batch and the port's."""
+    x, y = synthetic_income_like(256, 6, 2, seed=0)
+    packed = pack_clients(x, y, jcfg.ShardConfig(
+        num_clients=C, shuffle=False, strategy=strategy,
+        dirichlet_alpha=0.3))
+    mesh = make_mesh(num_clients=C)
+    arrays = {"x": packed.x, "y": packed.y, "mask": packed.mask}
+    j_batch = {k: jax.device_put(v, client_sharding(mesh))
+               for k, v in arrays.items()}
+    t_batch = {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+    return mesh, j_batch, t_batch
+
+
+@functools.lru_cache(maxsize=None)
+def _async_models(dtype="float32"):
+    init_fn, apply_fn = build_model(jcfg.ModelConfig(
+        input_dim=6, hidden_sizes=ASYNC_HIDDEN, param_dtype=dtype))
+    model = t_model(tcfg.ModelConfig(input_dim=6, hidden_sizes=ASYNC_HIDDEN,
+                                     param_dtype=dtype))
+    return init_fn, apply_fn, model
+
+
+@functools.lru_cache(maxsize=None)
+def _arrival_draws(seed, rate, num_clients=C):
+    """fedtpu's synthetic arrivals, by its own expression
+    (async_fed.py:279-286): uniform(fold_in(fold_in(key(seed), tick),
+    client)) < rate."""
+    clients = jnp.arange(num_clients)
+
+    @jax.jit
+    def draw(r):
+        tick_key = jax.random.fold_in(jax.random.key(seed), r)
+        u = jax.vmap(lambda i: jax.random.uniform(
+            jax.random.fold_in(tick_key, i)))(clients)
+        return (u < rate).astype(jnp.float32)
+
+    return lambda r: np.asarray(draw(r))
+
+
+def _j_state(dtype="float32", **kw):
+    init_fn, _, _ = _async_models(dtype)
+    mesh = _async_batches()[0]
+    return j_async.init_async_state(
+        jax.random.key(0), mesh, C, init_fn,
+        build_optimizer(jcfg.OptimConfig()), **kw)
+
+
+def _to_port(j_state) -> dict:
+    """fedtpu's async state, every entry carried across."""
+    s = _np(j_state)
+    adam = s["opt_state"][0]
+    out = {"params": convert.params_from_jax(s["params"]),
+           "anchors": convert.params_from_jax(s["anchors"]),
+           "opt_state": convert.adam_state_from_jax(adam.mu, adam.nu,
+                                                    adam.count),
+           "pull_tick": torch.from_numpy(np.array(s["pull_tick"])),
+           "round": int(s["round"])}
+    if "buf_delta" in s:
+        out["buf_delta"] = convert.params_from_jax(s["buf_delta"])
+        out["buf_count"] = torch.tensor(np.array(s["buf_count"]))
+    if "screen_norms" in s:
+        out["screen_norms"] = torch.from_numpy(np.array(s["screen_norms"]))
+        out["screen_count"] = torch.tensor(np.array(s["screen_count"]))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _j_step(dtype="float32", **kw):
+    _, apply_fn, _ = _async_models(dtype)
+    return j_async.build_async_round_fn(
+        _async_batches(kw.pop("strategy", "contiguous"))[0], apply_fn,
+        build_optimizer(jcfg.OptimConfig()), 2, **kw)
+
+
+def _t_step(dtype="float32", **kw):
+    kw.pop("strategy", None)
+    if not kw.get("driven"):
+        kw["arrival_masks"] = _arrival_draws(kw.get("arrival_seed", 0),
+                                             kw.get("arrival_rate", 0.5))
+    return t_async.build_async_round_fn(
+        _async_models(dtype)[2], t_optimizer(tcfg.OptimConfig()), 2, C, **kw)
+
+
+def _assert_state_matches(t_state, j_state, atol=1e-5):
+    theirs = _to_port(j_state)
+    for key in ("params", "anchors"):
+        np.testing.assert_allclose(t_state[key].float().numpy(),
+                                   theirs[key].float().numpy(), atol=atol)
+    for key in ("mu", "nu"):
+        np.testing.assert_allclose(
+            t_state["opt_state"][key].float().numpy(),
+            theirs["opt_state"][key].float().numpy(), atol=atol)
+    np.testing.assert_array_equal(t_state["opt_state"]["count"].numpy(),
+                                  theirs["opt_state"]["count"].numpy())
+    np.testing.assert_array_equal(t_state["pull_tick"].numpy(),
+                                  theirs["pull_tick"].numpy())
+    assert t_state["round"] == theirs["round"]
+    if "buf_delta" in theirs:
+        np.testing.assert_allclose(t_state["buf_delta"].numpy(),
+                                   theirs["buf_delta"].numpy(), atol=atol)
+        assert float(t_state["buf_count"]) == float(theirs["buf_count"])
+
+
+def _assert_metrics_match(t_m, j_m, loss_atol=1e-5):
+    np.testing.assert_array_equal(t_m["staleness"].numpy(),
+                                  np.asarray(j_m["staleness"]))
+    np.testing.assert_allclose(t_m["loss"].numpy(), np.asarray(j_m["loss"]),
+                               atol=loss_atol)
+    # Per-client metrics within 1e-6: at 32 rows a client, equal counts.
+    for k in METRIC_NAMES:
+        np.testing.assert_allclose(t_m["per_client"][k].numpy(),
+                                   np.asarray(j_m["per_client"][k]),
+                                   atol=1e-6)
+
+
+def _all_equal(a: dict, b: dict) -> bool:
+    ta, tb = t_async.async_state_tensors(a), t_async.async_state_tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y)
+                                      for x, y in zip(ta, tb))
+
+
+def test_every_tick_sums_through_k1_once_and_twice_under_the_screen(
+        monkeypatch):
+    """The tick's discounted sum is one K1 sum-mode call a tick; the
+    screen's direction is a second."""
+    calls = []
+    real = t_async.weighted_sum_clients
+    monkeypatch.setattr(t_async, "weighted_sum_clients",
+                        lambda x, w: calls.append(x.shape) or real(x, w))
+    _, _, t_batch = _async_batches()
+    for screen, per_tick in ((False, 1), (True, 2)):
+        calls.clear()
+        step = _t_step(driven=True, screen=screen, ticks_per_step=3,
+                       screen_window=4, screen_warmup=2)
+        state = _to_port(_j_state(screen_window=4 if screen else 0))
+        step(state, t_batch, np.ones((3, C), np.float32))
+        assert len(calls) == 3 * per_tick
+
+
+# ----------------------------------------------------- the tick, against
+def test_rate1_no_discount_equals_the_synchronous_delta_path():
+    """fedtpu's degenerate contract (tests/test_async.py:39) on the port:
+    arrival rate 1, power 0, server_lr 1 is the port's own synchronous
+    uniform delta path (identity server optimizer) from the same inits,
+    within 1e-6, with staleness identically 0."""
+    _, _, t_batch = _async_batches()
+    model = _async_models()[2]
+    tx = t_optimizer(tcfg.OptimConfig())
+    gen = torch.Generator().manual_seed(0)
+    inits = torch.stack([model.init(gen) for _ in range(C)])
+    a_state = t_async.init_async_state(None, C, model, tx, params=inits)
+    a_step = t_async.build_async_round_fn(model, tx, 2, C, arrival_rate=1.0,
+                                          staleness_power=0.0,
+                                          server_lr=1.0, ticks_per_step=7)
+    a_state, a_m = a_step(a_state, t_batch)
+    assert not a_m["staleness"].any()
+    server = t_round.identity_server_optimizer()
+    s_state = t_round.init_federated_state(None, C, model, tx, params=inits,
+                                           server_opt=server)
+    s_step = t_round.build_round_fn(model, tx, 2, torch.ones(C),
+                                    rounds_per_step=7, weighting="uniform",
+                                    server_opt=server)
+    s_state, _ = s_step(s_state, t_batch)
+    np.testing.assert_allclose(t_async.async_global_params(a_state).numpy(),
+                               t_round.global_params(s_state).numpy(),
+                               atol=1e-6)
+
+
+def test_fedtpus_masks_in_its_driven_step_are_its_synthetic_run():
+    """The injected masks are fedtpu's: its own driven step on them gives
+    its synthetic run bit for bit (state and metrics), so the expression
+    the tests recompute is fedtpu's draw, not just something the port
+    agrees with."""
+    _, j_batch, _ = _async_batches()
+    draws = _arrival_draws(ARRIVAL_SEED, ARRIVAL_RATE)
+    arrivals = np.stack([draws(r) for r in range(10)])
+    synth, synth_m = _j_step(arrival_rate=ARRIVAL_RATE, arrival_seed=ARRIVAL_SEED,
+                             ticks_per_step=10)(_j_state(), j_batch)
+    driven, driven_m = _j_step(driven=True, ticks_per_step=10)(
+        _j_state(), j_batch, arrivals)
+    for a, b in zip(jax.tree.leaves(_np((synth, synth_m))),
+                    jax.tree.leaves(_np((driven, driven_m)))):
+        np.testing.assert_array_equal(a, b)
+    assert 0 < arrivals.sum() < arrivals.size
+
+
+TICK_CASES = {
+    "M=0": dict(buffer_size=0),
+    "M=1": dict(buffer_size=1),
+    "M=4": dict(buffer_size=4),
+    "E=3 fedprox": dict(local_steps=3, prox_mu=0.01),
+}
+
+
+@pytest.mark.parametrize("case", list(TICK_CASES))
+def test_synthetic_ticks_match_fedtpu(case):
+    """10 synthetic ticks at rate 0.4 from fedtpu's state with fedtpu's
+    masks: params, anchors and Adam's state within 1e-5, counts, pull
+    ticks, the K-buffer's count and the staleness equal, losses within
+    1e-5 and the confusion counts equal; M = 1 is the port's M = 0 bit for
+    bit."""
+    kw = dict(TICK_CASES[case], arrival_rate=ARRIVAL_RATE, arrival_seed=ARRIVAL_SEED,
+              ticks_per_step=10)
+    _, j_batch, t_batch = _async_batches()
+    m = kw.get("buffer_size", 0)
+    t_state = _to_port(_j_state(buffer_size=m))
+    j_state, j_m = _j_step(**kw)(_j_state(buffer_size=m), j_batch)
+    t_state, t_m = _t_step(**kw)(t_state, t_batch)
+    _assert_state_matches(t_state, j_state)
+    _assert_metrics_match(t_m, j_m)
+    if m == 1:
+        zero, _ = _t_step(**dict(kw, buffer_size=0))(
+            _to_port(_j_state()), t_batch)
+        assert _all_equal(t_state, zero)
+
+
+def test_chunked_ticks_are_bitwise_tick_at_a_time():
+    """ticks_per_step 3 (three chunks) against one tick a step (nine
+    steps), with a K-buffer: every state tensor and every tick's loss,
+    counts and staleness bit for bit; and within 1e-5 of fedtpu's."""
+    _, j_batch, t_batch = _async_batches()
+    kw = dict(arrival_rate=ARRIVAL_RATE, arrival_seed=ARRIVAL_SEED, buffer_size=4)
+    outs = {}
+    for width in (1, 3):
+        state, raws = _to_port(_j_state(buffer_size=4)), []
+        step = _t_step(**kw, ticks_per_step=width)
+        for _ in range(9 // width):
+            state, raw = step.fn(state, t_batch)
+            raws.append(raw)
+        outs[width] = (state, {k: torch.cat([r[k] for r in raws])
+                               for k in ("loss", "conf", "staleness")})
+    assert _all_equal(outs[1][0], outs[3][0])
+    for k in ("loss", "conf", "staleness"):
+        assert torch.equal(outs[1][1][k], outs[3][1][k]), k
+    j_state, _ = _j_step(**kw, ticks_per_step=9)(_j_state(buffer_size=4),
+                                                 j_batch)
+    _assert_state_matches(outs[3][0], j_state)
+
+
+def _poison_schedule(ticks, start=12, scale=-8.0):
+    """Honest 1.0 arrivals at rate 0.75 (seeded), and from tick ``start``
+    two poisoned clients a tick at ``scale``."""
+    rng = np.random.default_rng(3)
+    arr = (rng.random((ticks, C)) < 0.75).astype(np.float32)
+    for t in range(start, ticks):
+        bad = rng.choice(C, 2, replace=False)
+        arr[t, bad] = scale
+    return arr
+
+
+def test_driven_signed_weights_with_poisoned_clients_match_fedtpu():
+    """Driven ticks whose arrivals carry signed weights (a poisoned
+    client at -8, whose update still trains and ages): state within 1e-5,
+    staleness equal, losses within 1e-5, counts equal."""
+    _, j_batch, t_batch = _async_batches()
+    arr = _poison_schedule(16, start=6)
+    kw = dict(driven=True, ticks_per_step=16, buffer_size=3)
+    j_state, j_m = _j_step(**kw)(_j_state(buffer_size=3), j_batch, arr)
+    t_state, t_m = _t_step(**kw)(_to_port(_j_state(buffer_size=3)), t_batch,
+                                 arr)
+    _assert_state_matches(t_state, j_state)
+    _assert_metrics_match(t_m, j_m)
+
+
+def test_screen_and_clip_match_fedtpu():
+    """24 driven ticks over label-skewed shards through the streaming
+    screen (window 16, warm-up 8) with per-arrival clipping: the screened
+    flags equal fedtpu's, at least one poisoned arrival is screened once
+    the median is warm and no honest one is; norms and the ring within
+    1e-5, the ring's count, the staleness and the accepted counts
+    equal."""
+    _, j_batch, t_batch = _async_batches("dirichlet")
+    arr = _poison_schedule(24)
+    kw = dict(driven=True, screen=True, screen_window=16, screen_warmup=8,
+              clip_norm=0.5, ticks_per_step=24)
+    j_state, j_m = _j_step(strategy="dirichlet", **kw)(
+        _j_state(screen_window=16), j_batch, arr)
+    t_state, t_m = _t_step(**kw)(_to_port(_j_state(screen_window=16)),
+                                 t_batch, arr)
+    scr = t_m["screened"].numpy()
+    np.testing.assert_array_equal(scr, np.asarray(j_m["screened"]))
+    assert scr[arr < 0].sum() >= 1 and not scr[arr > 0].any()
+    np.testing.assert_allclose(t_m["update_norms"].numpy(),
+                               np.asarray(j_m["update_norms"]), atol=1e-5)
+    np.testing.assert_array_equal(t_m["accepted"].numpy(),
+                                  np.asarray(j_m["accepted"]))
+    np.testing.assert_allclose(t_state["screen_norms"].numpy(),
+                               np.asarray(j_state["screen_norms"]),
+                               atol=1e-5)
+    assert int(t_state["screen_count"]) == int(j_state["screen_count"])
+    _assert_state_matches(t_state, j_state)
+    _assert_metrics_match(t_m, j_m)
+
+
+# The tick's branches at bfloat16 params: fedtpu's kwargs and its state's.
+BF16_CASES = {
+    "E=1 K-buffer": (dict(arrival_rate=ARRIVAL_RATE, arrival_seed=ARRIVAL_SEED,
+                          buffer_size=4, ticks_per_step=8),
+                     dict(buffer_size=4)),
+    "E=3 K-buffer": (dict(arrival_rate=ARRIVAL_RATE, arrival_seed=ARRIVAL_SEED,
+                          buffer_size=4, local_steps=3, ticks_per_step=8),
+                     dict(buffer_size=4)),
+    "driven screen clip": (dict(driven=True, screen=True, screen_window=16,
+                                screen_warmup=8, clip_norm=0.5,
+                                ticks_per_step=24, strategy="dirichlet"),
+                           dict(screen_window=16)),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_bf16_ticks_match_fedtpu_within_four_ulps(case):
+    """bfloat16 params on each branch of the tick: params, anchors and
+    moments within 4 bfloat16 ulps at each leaf's largest magnitude,
+    losses within 2e-5, per-client metrics within 1e-6 (and the screened
+    flags equal). At one local step the port trains ``wide``: fedtpu's
+    compiled tick takes the trained params' float32 p + u into the delta
+    unrounded. Measured on this CPU: 0 ulps on every branch; without
+    ``wide`` 1 to 6."""
+    kw, state_kw = BF16_CASES[case]
+    strategy = kw.get("strategy", "contiguous")
+    _, j_batch, t_batch = _async_batches(strategy)
+    model = _async_models("bfloat16")[2]
+    arrivals = (_poison_schedule(24),) if kw.get("driven") else ()
+    t_state = _to_port(_j_state("bfloat16", **state_kw))
+    j_state, j_m = _j_step("bfloat16", **kw)(
+        _j_state("bfloat16", **state_kw), j_batch, *arrivals)
+    t_state, t_m = _t_step("bfloat16", **kw)(t_state, t_batch, *arrivals)
+    adam = j_state["opt_state"][0]
+    for ours, mine in ((t_state["params"], j_state["params"]),
+                       (t_state["anchors"], j_state["anchors"]),
+                       (t_state["opt_state"]["mu"], adam.mu),
+                       (t_state["opt_state"]["nu"], adam.nu)):
+        assert ours.dtype == torch.bfloat16
+        assert _leaf_ulps(ours, mine, model) <= 4.0
+    _assert_metrics_match(t_m, j_m, loss_atol=2e-5)
+    if "screened" in t_m:
+        np.testing.assert_array_equal(t_m["screened"].numpy(),
+                                      np.asarray(j_m["screened"]))
+
+
+def test_fp16_ticks_go_non_finite_where_fedtpus_do():
+    """float16 params: Adam's eps is 0 in float16, so the first tick goes
+    non-finite; the port's params, anchors, moments and losses are
+    non-finite at fedtpu's entries, the staleness equal. The run halts
+    there (run_experiment's non-finite guard), at fedtpu's tick, with the
+    same non-finite final params. (Past that tick the two spread NaN
+    differently through training: ROADMAP section C.)"""
+    _, j_batch, t_batch = _async_batches()
+    kw = dict(arrival_rate=ARRIVAL_RATE, arrival_seed=ARRIVAL_SEED, ticks_per_step=1)
+    j_state, j_m = _j_step("float16", **kw)(_j_state("float16"), j_batch)
+    t_state, t_m = _t_step("float16", **kw)(_to_port(_j_state("float16")),
+                                            t_batch)
+    theirs = _to_port(j_state)
+    assert not torch.isfinite(theirs["params"]).all()
+    for ours, mine in ((t_state["params"], theirs["params"]),
+                       (t_state["anchors"], theirs["anchors"]),
+                       (t_state["opt_state"]["mu"], theirs["opt_state"]["mu"]),
+                       (t_state["opt_state"]["nu"], theirs["opt_state"]["nu"])):
+        assert ours.dtype == torch.float16
+        np.testing.assert_array_equal(torch.isfinite(ours).numpy(),
+                                      torch.isfinite(mine).numpy())
+    np.testing.assert_array_equal(np.isfinite(t_m["loss"].numpy()),
+                                  np.isfinite(np.asarray(j_m["loss"])))
+    np.testing.assert_array_equal(t_m["staleness"].numpy(),
+                                  np.asarray(j_m["staleness"]))
+    j_cfg, t_cfg = (cfg.replace(model=dataclasses.replace(
+        cfg.model, param_dtype="float16")) for cfg in _async_configs(rounds=6))
+    rj = j_run(j_cfg, verbose=False)
+    rt = t_run(t_cfg, verbose=False, device="cpu",
+               init_params=_anchors(j_cfg),
+               arrival_masks=_arrival_draws(ARRIVAL_SEED, ARRIVAL_RATE))
+    assert rt.diverged and rj.diverged
+    assert rt.rounds_run == rj.rounds_run
+    for a, b in zip(jax.tree.leaves(rt.final_params),
+                    jax.tree.leaves(_np(rj.final_params))):
+        np.testing.assert_array_equal(np.isfinite(a),
+                                      np.isfinite(np.asarray(b, np.float32)))
+
+
+# ------------------------------------------------------ slots and anchor
+def test_client_slots_round_trip_and_are_fedtpus_slots():
+    """read_client_slot / write_client_slot round-trip bit for bit, and a
+    port slot, converted, is fedtpu's read_client_slot of the same state:
+    the anchors, Adam's count (optax's chain keeps it twice), moments,
+    params and pull tick."""
+    _, j_batch, t_batch = _async_batches()
+    kw = dict(arrival_rate=ARRIVAL_RATE, arrival_seed=ARRIVAL_SEED, ticks_per_step=6)
+    j_state, _ = _j_step(**kw)(_j_state(), j_batch)
+    state = _to_port(j_state)
+    model = _async_models()[2]
+    for slot in range(C):
+        ours = t_async.read_client_slot(state, C, slot)
+        names = ("anchors", "count", "mu", "nu", "params", "pull_tick")
+        assert len(ours) == len(names)
+        mine = dict(zip(names, ours))
+        leaves = lambda t: jax.tree.leaves(convert.params_to_numpy(t, model))
+        want = (leaves(mine["anchors"]) + [mine["count"].numpy()]
+                + leaves(mine["mu"]) + leaves(mine["nu"])
+                + [mine["count"].numpy()] + leaves(mine["params"])
+                + [mine["pull_tick"].numpy()])
+        theirs = j_async.read_client_slot(j_state, C, slot)
+        assert len(theirs) == len(want)
+        for a, b in zip(want, theirs):
+            np.testing.assert_array_equal(a, np.asarray(b))
+    five = t_async.read_client_slot(state, C, 5)
+    moved = t_async.write_client_slot(state, C, 2, five)
+    for a, b in zip(t_async.read_client_slot(moved, C, 2), five):
+        assert torch.equal(a, b)
+    back = t_async.write_client_slot(
+        moved, C, 2, t_async.read_client_slot(state, C, 2))
+    assert _all_equal(back, state)
+    assert _all_equal(t_async.write_client_slot(state, C, 3, [
+        t.double() for t in t_async.read_client_slot(state, C, 3)]), state)
+
+
+def test_per_client_view_keeps_server_state_out():
+    """The rule: leading dimension C, minus the named server-only keys; a
+    screen ring as wide as the client count stays server state, and
+    with_per_client puts back what it is given."""
+    state = _to_port(_j_state(buffer_size=2, screen_window=C))
+    view = t_round.per_client_view(state, C)
+    assert [tuple(t.shape) for t in view] == [
+        (C, state["params"].shape[1]), (C,), *[(C, view[0].shape[1])] * 3,
+        (C,)]
+    assert all(v is not state["screen_norms"] for v in view)
+    swapped = t_round.with_per_client(state, C, [t + 1 for t in view])
+    assert torch.equal(swapped["pull_tick"], state["pull_tick"] + 1)
+    assert swapped["screen_norms"] is state["screen_norms"]
+    with pytest.raises(ValueError, match="left over"):
+        t_round.with_per_client(state, C, view + view)
+
+
+@pytest.mark.parametrize("pulls,want", [
+    ([0] * C, 0), ([0, 3, 1, 3, 2, 0, 3, 1], 1), ([5, 2, 2, 2, 2, 2, 2, 9],
+                                                  7)])
+def test_async_global_params_is_the_first_freshest_anchor(pulls, want):
+    """The freshest anchor is the first largest pull tick, fedtpu's
+    jnp.argmax rule (slot 0 at init)."""
+    state = _to_port(_j_state())
+    state["anchors"] = torch.arange(C, dtype=torch.float32)[:, None] \
+        .expand(C, 5).contiguous()
+    state["pull_tick"] = torch.tensor(pulls, dtype=torch.int32)
+    got = t_async.async_global_params(state)
+    assert torch.equal(got, torch.full((5,), float(want)))
+    assert int(jnp.argmax(jnp.asarray(pulls))) == want
+
+
+def test_arrival_draws_follow_fedtpus_law():
+    """The port's own draws: all ones at rate 1, Bernoulli(rate) per
+    (tick, client), a pure function of (seed, tick)."""
+    assert t_async.arrival_mask(C, 1.0, 3, 9).tolist() == [1.0] * C
+    draws = np.stack([t_async.arrival_mask(64, 0.25, 3, t)
+                      for t in range(200)])
+    assert abs(draws.mean() - 0.25) < 0.02
+    np.testing.assert_array_equal(draws[17], t_async.arrival_mask(64, 0.25,
+                                                                  3, 17))
+    assert not np.array_equal(draws[17], t_async.arrival_mask(64, 0.25, 4,
+                                                              17))
+
+
+# ------------------------------------------------------ argument checks
+@pytest.mark.parametrize("kw", [
+    dict(arrival_rate=0.0), dict(staleness_power=-1.0), dict(server_lr=0.0),
+    dict(buffer_size=-1), dict(screen=True),
+    dict(driven=True, screen=True, screen_window=0),
+    dict(driven=True, screen=True, screen_warmup=9, screen_window=8),
+    dict(driven=True, screen=True, screen_norm_mult=0.0),
+    dict(driven=True, screen=True, screen_cos_min=1.0),
+    dict(clip_norm=-1.0)], ids=lambda kw: ",".join(kw))
+def test_argument_checks_are_fedtpus(kw):
+    with pytest.raises(ValueError) as j_err:
+        j_async.build_async_round_fn(_async_batches()[0], _async_models()[1],
+                                     build_optimizer(jcfg.OptimConfig()), 2,
+                                     **kw)
+    with pytest.raises(ValueError) as t_err:
+        _t_step(**kw)
+    assert str(t_err.value) == str(j_err.value)
+
+
+@pytest.mark.parametrize("step_kw,state_kw,match", [
+    (dict(buffer_size=4), dict(), "buffer_size >= 2 needs"),
+    (dict(driven=True, screen=True), dict(), "'screen_norms' missing"),
+    (dict(), dict(screen_window=4), "rolling median would silently"),
+    (dict(driven=True, screen=True, screen_window=8, screen_warmup=4),
+     dict(screen_window=4), "does not match screen_window=8")])
+def test_a_state_of_another_tick_is_refused_as_fedtpu(step_kw, state_kw,
+                                                      match):
+    _, _, t_batch = _async_batches()
+    step = _t_step(**step_kw)
+    with pytest.raises(ValueError, match=match):
+        step(_to_port(_j_state(**state_kw)), t_batch,
+             np.ones((1, C), np.float32) if step_kw.get("driven") else None)
+
+
+# ------------------------------------------------------------- the loop
+def _async_configs(rounds=20, tmp=None, clients=C, **fed):
+    """fedtpu's and the port's async experiment (tests/test_async.py's):
+    512 synthetic rows, uniform weighting, arrival rate 0.4, no early
+    stop; ``fed``: more FedConfig fields, ``tmp``: a checkpoint dir."""
+    fed = dict(dict(rounds=rounds, weighting="uniform", async_mode=True,
+                    async_arrival_rate=ARRIVAL_RATE, async_arrival_seed=ARRIVAL_SEED,
+                    termination_patience=1000), **fed)
+    run = dict(log_every=1000, eval_test_every=5)
+    if tmp is not None:
+        run.update(checkpoint_dir=str(tmp), checkpoint_every=4)
+    return tuple(m.ExperimentConfig(
+        data=m.DataConfig(csv_path=None, synthetic_rows=512),
+        shard=m.ShardConfig(num_clients=clients),
+        model=m.ModelConfig(hidden_sizes=ASYNC_HIDDEN),
+        fed=m.FedConfig(**fed), run=m.RunConfig(**run))
+        for m in (jcfg, tcfg))
+
+
+def _anchors(j_cfg):
+    """fedtpu's initial anchors (its g0 in every slot), the port's start:
+    each side's mean of the inits is an ulp apart."""
+    return _np(j_build(j_cfg).state["anchors"])
+
+
+def test_run_experiment_async_matches_fedtpu():
+    """20 ticks through run_experiment with a K-buffer of 4: the
+    client-mean, pooled and per-client histories within 1e-6, the losses
+    within 1e-5, each tick's staleness equal, the held-out evals of the
+    freshest anchor (every 5 ticks) within 1e-6, the summary's staleness
+    fields equal, the final params within 1e-5."""
+    j_cfg, t_cfg = _async_configs(async_buffer_size=4)
+    rj = j_run(j_cfg, verbose=False)
+    rt = t_run(t_cfg, verbose=False, device="cpu",
+               init_params=_anchors(j_cfg),
+               arrival_masks=_arrival_draws(ARRIVAL_SEED, ARRIVAL_RATE))
+    assert rt.rounds_run == rj.rounds_run == 20
+    assert len(rt.staleness) == 20 and rt.staleness[0].shape == (C,)
+    for a, b in zip(rt.staleness, rj.staleness):
+        np.testing.assert_array_equal(a, b)
+    assert max(s.max() for s in rt.staleness) >= 2
+    np.testing.assert_allclose(np.stack(rt.loss), np.stack(rj.loss),
+                               atol=1e-5)
+    for k in METRIC_NAMES:
+        for name in ("global_metrics", "pooled_metrics", "test_metrics"):
+            np.testing.assert_allclose(getattr(rt, name)[k],
+                                       getattr(rj, name)[k], atol=1e-6)
+        assert len(rt.test_metrics[k]) == 4
+    st, sj = rt.summary(), rj.summary()
+    for key in ("mean_staleness", "max_staleness", "rounds_run",
+                "stopped_early", "diverged"):
+        assert st[key] == sj[key], key
+    for a, b in zip(jax.tree.leaves(rt.final_params),
+                    jax.tree.leaves(_np(rj.final_params))):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+def test_k_buffer_starvation_warns_as_fedtpu(capsys):
+    """A buffer that never fills (rate 1, M = 10^6, 4 ticks of 8 clients)
+    ends the run with fedtpu's warning line, the run's metrics all
+    recorded; a buffer that empties every tick (M = 8) does not warn."""
+    j_cfg, t_cfg = _async_configs(rounds=4, async_arrival_rate=1.0,
+                            async_buffer_size=10 ** 6)
+    j_run(j_cfg, verbose=True)
+    j_line = [l for l in capsys.readouterr().out.splitlines()
+              if l.startswith("ASYNC K-BUFFER STARVATION")]
+    res = t_run(t_cfg, verbose=True, device="cpu")
+    t_line = [l for l in capsys.readouterr().out.splitlines()
+              if l.startswith("ASYNC K-BUFFER STARVATION")]
+    assert t_line == j_line and "32 buffered update(s)" in t_line[0]
+    assert res.rounds_run == 4 and len(res.global_metrics["accuracy"]) == 4
+    t_run(dataclasses.replace(t_cfg, fed=dataclasses.replace(
+        t_cfg.fed, async_buffer_size=8)), verbose=True, device="cpu")
+    assert "STARVATION" not in capsys.readouterr().out
+
+
+def test_checkpoint_resume_with_a_pending_buffer_is_bitwise(tmp_path):
+    """Checkpointed every 4 ticks with a K-buffer of 6 at rate 0.3 for 8
+    ticks, then resumed to 12: bitwise the uninterrupted 12 ticks (final
+    params, the resumed ticks' losses, counts and staleness), the
+    checkpoint meta saying the async engine wrote it, and a buffer
+    pending at the resume point."""
+    from fedtpu_torch.orchestration.checkpoint import (load_checkpoint_raw,
+                                                       load_meta)
+    _, full_cfg = _async_configs(rounds=12, tmp=tmp_path / "a",
+                           async_arrival_rate=0.3, async_buffer_size=6)
+    full = t_run(full_cfg, verbose=False, device="cpu")
+    _, cfg = _async_configs(rounds=8, tmp=tmp_path / "b", async_arrival_rate=0.3,
+                      async_buffer_size=6)
+    t_run(cfg, verbose=False, device="cpu")
+    raw, _, step = load_checkpoint_raw(str(tmp_path / "b"))
+    assert step == 8 and float(raw["buf_count"]) > 0
+    assert load_meta(str(tmp_path / "b"))["engine_async"] == 1
+    resumed = t_run(dataclasses.replace(cfg, fed=dataclasses.replace(
+        cfg.fed, rounds=12)), verbose=False, device="cpu", resume=True)
+    assert resumed.global_metrics == full.global_metrics
+    for name in ("loss", "confusion", "staleness"):
+        for a, b in zip(getattr(resumed, name), getattr(full, name)[8:]):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(jax.tree.leaves(resumed.final_params),
+                    jax.tree.leaves(full.final_params)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_elastic_resume_repulls_the_freshest_anchor_as_fedtpu(tmp_path,
+                                                              capsys):
+    """8 clients at arrival rate 0.4 with a K-buffer of 2 for 4 ticks,
+    checkpointed, then resumed by both packages with 4 clients to tick 8.
+    At the checkpoint the slots hold distinct anchors pulled at distinct
+    ticks and the buffer holds updates, so only the freshest anchor, put
+    into every slot, gives fedtpu's resumed run: the port's log line is
+    fedtpu's (pending updates dropped), and the resumed ticks' staleness
+    equal, losses within 1e-5, the carried and resumed history and the
+    held-out evals within 1e-6, the final params within 1e-5."""
+    from fedtpu_torch.orchestration.checkpoint import load_checkpoint_raw
+    fed = dict(async_buffer_size=2)
+    j_first, _ = _async_configs(rounds=4, tmp=tmp_path / "j", **fed)
+    _, t_first = _async_configs(rounds=4, tmp=tmp_path / "t", **fed)
+    j_run(j_first, verbose=False)
+    t_run(t_first, verbose=False, device="cpu", init_params=_anchors(j_first),
+          arrival_masks=_arrival_draws(ARRIVAL_SEED, ARRIVAL_RATE))
+    raw, _, _ = load_checkpoint_raw(str(tmp_path / "t"))
+    assert len(set(raw["pull_tick"].tolist())) > 1
+    assert float(raw["buf_count"]) > 0
+    assert not torch.equal(raw["anchors"][0],
+                           t_async.async_global_params(raw))
+    lines, results = [], []
+    for cfg, run, kw in (
+            (j_first, j_run, {}),
+            (t_first, t_run, dict(device="cpu", arrival_masks=_arrival_draws(
+                ARRIVAL_SEED, ARRIVAL_RATE, 4)))):
+        grown = cfg.replace(shard=dataclasses.replace(cfg.shard,
+                                                      num_clients=4),
+                            fed=dataclasses.replace(cfg.fed, rounds=8))
+        results.append(run(grown, verbose=True, resume=True, **kw))
+        lines.append([l for l in capsys.readouterr().out.splitlines()
+                      if l.startswith("Async elastic resume")])
+    assert lines[0] == lines[1] and len(lines[0]) == 1
+    assert "pending buffered updates dropped" in lines[0][0]
+    rj, rt = results
+    assert rt.rounds_run == rj.rounds_run == 8
+    assert len(rt.staleness) == len(rj.staleness) == 4
+    for a, b in zip(rt.staleness, rj.staleness):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(np.stack(rt.loss), np.stack(rj.loss),
+                               atol=1e-5)
+    for k in METRIC_NAMES:
+        for name in ("global_metrics", "pooled_metrics", "test_metrics"):
+            assert len(getattr(rt, name)[k]) == len(getattr(rj, name)[k])
+            np.testing.assert_allclose(getattr(rt, name)[k],
+                                       getattr(rj, name)[k], atol=1e-6)
+    for a, b in zip(jax.tree.leaves(rt.final_params),
+                    jax.tree.leaves(_np(rj.final_params))):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+@pytest.mark.parametrize("written_by", ["async", "synchronous"])
+@pytest.mark.parametrize("clients", [C, 4])
+def test_resume_under_the_other_engine_raises_fedtpus_error(
+        tmp_path, written_by, clients):
+    """A checkpoint resumed under the other engine, at the same client
+    count or another: fedtpu's "engine mismatch" error, naming the engine
+    that wrote it."""
+    _, async_cfg = _async_configs(rounds=4, tmp=tmp_path)
+    sync_cfg = async_cfg.replace(fed=dataclasses.replace(
+        async_cfg.fed, async_mode=False))
+    first, second = ((async_cfg, sync_cfg) if written_by == "async"
+                     else (sync_cfg, async_cfg))
+    t_run(first, verbose=False, device="cpu")
+    second = second.replace(
+        shard=tcfg.ShardConfig(num_clients=clients),
+        fed=dataclasses.replace(second.fed, rounds=8))
+    with pytest.raises(ValueError, match="engine mismatch: the checkpoint "
+                       f"was written by the {written_by} engine"):
+        t_run(second, verbose=False, device="cpu", resume=True)
+
+
+def test_warm_start_goes_into_the_anchors_too(tmp_path):
+    """init_weights_npz under --async: the artifact's model in every
+    params AND anchor slot, bitwise fedtpu's warm-started state."""
+    from fedtpu.sweep.grid import save_best_weights as j_write
+    j_cfg, t_cfg = _async_configs(rounds=2)
+    model = t_build(t_cfg, device="cpu").model
+    weights = convert.params_to_numpy(
+        model.init(torch.Generator().manual_seed(5)), model)
+    path = str(tmp_path / "best.npz")
+    j_write(path, {"weights": weights, "params": {"hidden_layer_sizes":
+                                                  list(ASYNC_HIDDEN),
+                                                  "learning_rate": 0.004},
+                   "metrics": {"accuracy": 0.9}, "accuracy": 0.9})
+    j_cfg, t_cfg = (cfg.replace(fed=dataclasses.replace(
+        cfg.fed, init_weights_npz=path)) for cfg in (j_cfg, t_cfg))
+    t_state, j_state = t_build(t_cfg, device="cpu").state, _np(
+        j_build(j_cfg).state)
+    want = convert.params_from_jax(weights).expand(C, -1)
+    for key in ("params", "anchors"):
+        assert torch.equal(t_state[key], want)
+        assert torch.equal(t_state[key],
+                           convert.params_from_jax(j_state[key]))
+
+
+@pytest.mark.parametrize("fed_kw,match", [
+    (dict(weighting="data_size"), "uniform"),
+    (dict(participation_rate=0.5), "arrival"),
+    (dict(server_opt="fedadam"), "server update"),
+    (dict(dp_clip_norm=1.0), "DP"),
+    (dict(robust_aggregation="median"), "robust"),
+    (dict(byzantine_clients=1), "robust"),
+    (dict(compress="int8"), "compress"),
+    (dict(scaffold=True), "SCAFFOLD"),
+    (dict(personalize_steps=2), "personalize_steps"),
+    (dict(aggregation="ring"), "psum")], ids=lambda v: str(v))
+def test_async_refusals_are_fedtpus(fed_kw, match):
+    """The async engine refuses each knob of the synchronous aggregation
+    stack with fedtpu's ValueError, word for word
+    (tests/test_async.py:259-276, and personalize_steps)."""
+    fed_kw = dict({"weighting": "uniform"}, **fed_kw)
+    errors = []
+    for m, build, kw in ((jcfg, j_build, {}),
+                         (tcfg, t_build, {"device": "cpu"})):
+        cfg = m.ExperimentConfig(
+            data=m.DataConfig(csv_path=None, synthetic_rows=256),
+            fed=m.FedConfig(async_mode=True, **fed_kw))
+        with pytest.raises(ValueError, match=match) as err:
+            build(cfg, **kw)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
