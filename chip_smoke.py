@@ -99,9 +99,34 @@ Phases, in order; any failure exits non-zero before the result line:
    full width, bf16 compute, 10 ticks captured (K2 = K3 = 0), and 3 ticks
    on 512 rows against the CPU; the income run resumed 20 -> 40 with a
    pending K-buffer, bitwise.
+   Then the serving front end, (p) (``phase_serve``), at the income MLP's
+   full width (14 -> 50 -> 200 -> 2 on 32 slots, K-buffer 16, staleness
+   power 0.5, 10,000 fixture rows) fed loadgen's ``--synthesize`` trace
+   (1,000,000 users, 100,000 arrivals over 60 virtual s) in frames of
+   1,024: ``run_server`` in a thread answering ``run_loadgen`` over
+   localhost, launches counted from zero around it (K1's sum mode and K2
+   once a non-empty tick and in the graph's warm-up, K3 once an
+   ``eval_accuracy``), with events/s, ticks/s, the latency percentiles,
+   the admission counts and the final version; 20 captured ticks
+   profiled (device ms and ops a tick, host ms of a tick and of a frame's
+   ``offer_many``, idle share); the same trace in process on the card
+   captured and uncaptured (bitwise) and on the CPU in a process of its
+   own (history and summary equal, global params within 1e-4, the logit
+   drift within 1e-3, predictions and ``eval_accuracy`` equal but on near
+   ties); K2 at the tick's (32, 328) rows and K3 at the fixture's 10,000
+   on the card engine's own tensors against their plain versions, timed;
+   a checkpoint at the trace's midpoint with updates pending, restored
+   into a fresh engine, bitwise the uninterrupted run; ``serve --once``
+   and ``loadgen --synthesize --json`` (20,000 arrivals) through the CLI
+   as subprocesses; the screened cell (a v2 trace, 20 % attackers at
+   scale 10, 10,000 arrivals; K1 twice a tick): the decision log and
+   history equal to the CPU's, accuracy equal but on near ties, attackers
+   quarantined and no honest user; ``defense_sim.simulate`` on the card
+   against the CPU.
 
 The line before the last is the ``kernels`` JSON; the last line is the
-result JSON. Imports nothing of JAX or of the ``fedtpu`` package.
+result JSON. Imports nothing of JAX or of the ``fedtpu`` package (nor does
+the port's serving stack, which phase (p) drives).
 """
 
 import dataclasses
@@ -2732,6 +2757,588 @@ def phase_async() -> tuple:
     return by_path, timings
 
 
+# Phase (p): the serving front end at the income MLP's full width, 14 ->
+# 50 -> 200 -> 2 on 32 slots, a K-buffer of 16, fed loadgen's --synthesize
+# trace (1,000,000 users, 100,000 arrivals over 60 virtual s) in frames of
+# 1,024 events.
+SERVE_CFG = dict(cohort=32, buffer_size=16, staleness_power=0.5,
+                 local_steps=1, tick_interval_s=0.5, data_rows=10_000,
+                 data_features=14, data_classes=2, model_hidden=(50, 200),
+                 seed=0)
+SERVE_TRACE = dict(users=1_000_000, arrivals=100_000, horizon_s=60.0, seed=0)
+SERVE_FRAME = 1024
+# The screened cell: a v2 trace with 20 % attackers at sign-flip scale 10,
+# at loadgen's default rate (10,000 arrivals over 30 virtual s).
+# flush_every = the cohort fires a tick once 32 updates pend, so one tick
+# binds each slot to at most one user (at the time-driven cadence alone
+# ~160 arrivals a tick evict one another on 32 slots, and an honest user
+# inherits the strike of the attacker it evicted; at 64 too). The knobs'
+# margins, from fedtpu_torch/benchmarks/screen_margin.py on the card
+# (PERF.md §6): no honest user is quarantined for norm multiples 3.5 to 24
+# (the grid's end) at every cosine limit from -0.6 to 0.0, nor for
+# flush_every 16 and 32; three are at 3.0. At fedtpu's cosine -0.2 the
+# decision log is one and the same from multiple 5 to 8: 6.5 is its
+# middle. The trace itself depends on numpy's version (synthesize_trace's
+# draws): numpy 2.3.5 and 2.0.2 write different files from the same seed.
+SERVE_POISON = dict(users=1_000_000, arrivals=10_000, horizon_s=30.0, seed=0,
+                    poison_frac=0.2, poison_scale=10.0)
+SERVE_SCREEN = dict(screen=True, flush_every=32, screen_norm_mult=6.5,
+                    screen_cos_min=-0.2)
+SERVE_PROFILE_TICKS = 20
+
+
+def serve_rows(path: str) -> list:
+    """A trace file's events as the loadgen sends them: ``[user, t, lat]``,
+    an attacker's with the version slot empty and its poison scale."""
+    from fedtpu_torch.serving.traces import read_trace
+    _, events = read_trace(path)
+    return [[e.user, e.t, e.lat, None, e.poison] if e.poison > 0
+            else [e.user, e.t, e.lat] for e in events]
+
+
+def serve_engine(device: str, capture=None, **kw):
+    from fedtpu_torch.config import ServingConfig
+    from fedtpu_torch.serving.engine import ServingEngine
+    from fedtpu_torch.telemetry.metrics import MetricsRegistry
+    return ServingEngine(ServingConfig(**{**SERVE_CFG, **kw}),
+                         registry=MetricsRegistry(), device=device,
+                         capture=capture)
+
+
+def serve_replay(eng, rows: list, drain: bool = True):
+    """``rows`` through ``offer_many`` in the loadgen's frames, then the
+    drain."""
+    for i in range(0, len(rows), SERVE_FRAME):
+        eng.offer_many(rows[i:i + SERVE_FRAME])
+    if drain:
+        eng.drain()
+    return eng
+
+
+def serve_tensors(eng) -> list:
+    from fedtpu_torch.parallel.async_fed import async_state_tensors
+    return [t.cpu() for t in async_state_tensors(eng.state)]
+
+
+def serve_no_wall(summary: dict) -> dict:
+    return {k: v for k, v in summary.items()
+            if k not in ("wall_s", "rounds_per_sec", "eval_accuracy")}
+
+
+def serve_wire(directory: str, trace: str) -> tuple:
+    """``run_server`` in a thread (``once``, port file, history file) fed
+    by ``run_loadgen`` over localhost, launches counted from zero around
+    it: K1 (sum mode) and K2 once a non-empty tick and in the graph's
+    warm-up, K3 once an ``eval_accuracy`` (the loadgen's final stats and
+    the shutdown summary), K4 = K5 = 0. Returns the loadgen's summary,
+    the server's, the history lines and the launches."""
+    import threading
+    from fedtpu_torch.config import ServingConfig
+    from fedtpu_torch.ops.cuda_kernels import LAUNCHES, reset_launch_counts
+    from fedtpu_torch.serving.loadgen import read_port_file, run_loadgen
+    from fedtpu_torch.serving.server import run_server
+    pf = os.path.join(directory, "serve.port")
+    hist = os.path.join(directory, "serve.history.jsonl")
+    box = {}
+
+    def serve():
+        try:
+            box["summary"] = run_server(ServingConfig(**SERVE_CFG),
+                                        port_file=pf, history_path=hist,
+                                        once=True, verbose=False)
+        except BaseException as e:  # reported below, on the main thread
+            box["error"] = e
+
+    reset_launch_counts()
+    th = threading.Thread(target=serve)
+    th.start()
+    try:
+        # The loadgen's clock starts once the server listens (after the
+        # engine's build and capture), so events/s is the replay's.
+        read_port_file(pf, timeout=300)
+        res = run_loadgen(trace, port_file=pf, batch=SERVE_FRAME,
+                          timeout=300)
+    finally:
+        th.join(timeout=600)
+    check(not th.is_alive() and "error" not in box,
+          f"serve: the server thread failed: {box.get('error')!r}")
+    launches = dict(LAUNCHES)
+    with open(hist) as fh:
+        lines = fh.read().splitlines()
+    ticks = sum(json.loads(line)["tick_slots"] > 0 for line in lines)
+    want = {"weighted_average_clients": ticks + 1,
+            "fused_eval_confusion": ticks + 1, "fused_mlp_forward": 2,
+            "ring_all_reduce_sum": 0, "fused_round": 0}
+    check(launches == want, f"serve: launches {launches}, expected {want} "
+          f"({ticks} non-empty ticks + the warm-up, 2 evals)")
+    stats = res["server_stats"]
+    check(res["events_sent"] == SERVE_TRACE["arrivals"]
+          and sum(res["admission"].values()) == SERVE_TRACE["arrivals"]
+          and stats["ticks"] == len(lines) and stats["incorporated"] > 0,
+          f"serve: loadgen {res['events_sent']} events, acks "
+          f"{res['admission']}, server ticks {stats['ticks']} vs "
+          f"{len(lines)} history lines")
+    summary = box["summary"]
+    pct = summary["update_to_incorporation"]
+    print(f"serve + loadgen over localhost (income MLP 14->50->200->2, 32 "
+          f"slots, K-buffer 16, {SERVE_TRACE['arrivals']} arrivals from "
+          f"{SERVE_TRACE['users']} users, frames of {SERVE_FRAME}): "
+          f"{res['events_per_sec']:.1f} events/s (loadgen, "
+          f"{res['wall_s']:.3f} s), {summary['rounds_per_sec']:.3f} "
+          f"ticks/s ({summary['ticks']} ticks, {ticks} non-empty, in "
+          f"{summary['wall_s']:.3f} s), update-to-incorporation "
+          f"p50/p90/p99 {pct['p50_s']:.4f}/{pct['p90_s']:.4f}/"
+          f"{pct['p99_s']:.4f} virtual s, admission {res['admission']}, "
+          f"version {summary['version']}, launches {launches}, "
+          f"eval_accuracy {summary['eval_accuracy']}; {CARD['smi']}",
+          flush=True)
+    return res, summary, lines, launches
+
+
+# The largest card-vs-CPU logit drift of the served global that the
+# near-tie allowance accepts (the same model reached by the card's and the
+# CPU's float32 sums; a wrong forward drifts by orders of magnitude more).
+SERVE_DRIFT_CAP = 1e-3
+
+
+def serve_eval_near_ties(label: str, card, cpu_global: torch.Tensor,
+                         cpu_accuracy: float) -> dict:
+    """The card's final global (its K3 forward over the fixture) against
+    the CPU run's (the plain forward): the logit drift within
+    SERVE_DRIFT_CAP, every row whose prediction differs a near tie of the
+    CPU model's logits (``near_ties``: the CPU gap below ``NEAR_TIE_REL``
+    of the row's largest logit or below twice the drift), the card's
+    ``eval_accuracy`` the right-row count of its logits, and the right
+    rows of the card and of the CPU's ``eval_accuracy`` apart by at most
+    the moved rows. Returns the moved rows, the drift and both right-row
+    counts."""
+    from fedtpu_torch.ops.cuda_kernels import fused_mlp_forward
+    from fedtpu_torch.parallel.async_fed import async_global_params
+    dims = card.model.mlp_dims
+    y = card._eval_y.cpu()
+    logits = [fused_mlp_forward(cpu_global, dims, card._eval_x.cpu()),
+              fused_mlp_forward(async_global_params(card.state), dims,
+                                card._eval_x).cpu()]
+    moved = logits[0].argmax(-1) != logits[1].argmax(-1)
+    rows = torch.ones(moved.shape, dtype=torch.bool)
+    _, inside, drift = near_ties([x[None] for x in logits], rows[None])
+    n = int(y.shape[0])
+    right = [round(cpu_accuracy * n), int((logits[1].argmax(-1) == y).sum())]
+    out = {"moved": int(moved.sum()), "drift": drift, "right_cpu": right[0],
+           "right_card": right[1], "rows": n}
+    check(drift <= SERVE_DRIFT_CAP,
+          f"{label} card vs CPU: logit drift {drift:.3e} above "
+          f"{SERVE_DRIFT_CAP}")
+    check(out["moved"] <= int(inside[0]),
+          f"{label} card vs CPU: {out['moved']} predictions differ, "
+          f"{int(inside[0])} near-tie rows (drift {drift:.3e})")
+    check(card.eval_accuracy() == right[1] / n
+          and abs(right[1] - right[0]) <= out["moved"],
+          f"{label} card vs CPU: eval_accuracy card {card.eval_accuracy()} "
+          f"CPU {cpu_accuracy}, right rows {right} of {n}, "
+          f"{out['moved']} near-tie rows moved")
+    return out
+
+
+def serve_kernel_rows(eng) -> dict:
+    """K2 and K3 at the shapes the serving path gives them, on the card
+    engine's own tensors after its drain, each against its plain version
+    on the same inputs and timed beside it and its bound: K2 on the
+    adopted per-slot params over the slots' shards (the tick's eval, 32 x
+    328 rows), counts equal but on near-tie rows of the plain logits; K3
+    on the freshest global over the full fixture (``eval_accuracy``'s
+    forward, N = 10,000), within 1e-4. These launches compare; they are
+    made after the counted runs."""
+    from fedtpu_torch.models.mlp import mlp_apply, unflatten
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.ops.metrics import near_tie_rows
+    from fedtpu_torch.parallel.async_fed import async_global_params
+    dims = eng.model.mlp_dims
+    k = dims[-1]
+    params, b = eng.state["params"], eng.batch
+    x, y, mask = b["x"], b["y"], b["mask"]
+    glob, x_eval = async_global_params(eng.state), eng._eval_x
+    c, n = y.shape
+    live = float(mask.sum())
+    conf = ck.fused_eval_confusion(params, dims, x, y, mask, k)
+    ref = ck.fused_eval_confusion_reference(params, dims, x, y, mask, k)
+    ties = near_tie_rows(mlp_apply(unflatten(params, dims), x)) & (mask > 0)
+    moved = (conf - ref).abs().sum(dim=(1, 2)) / 2
+    check(bool((moved <= ties.sum(dim=1)).all()),
+          f"K2 at the serving shape ({c}, {n}): counts differ on "
+          f"{moved.tolist()} rows per slot, near ties "
+          f"{ties.sum(dim=1).tolist()}")
+    logits = ck.fused_mlp_forward(glob, dims, x_eval)
+    e3 = float((logits - ck.fused_mlp_forward_reference(glob, dims, x_eval)
+                ).abs().max())
+    check(e3 <= 1e-4, f"K3 at the serving shape N={x_eval.shape[0]}: max "
+          f"abs err {e3} > 1e-4")
+    rows = {}
+    for name, kernel, plain, nbytes, flops, err, shape in (
+            ("fused_eval_confusion",
+             lambda: ck.fused_eval_confusion(params, dims, x, y, mask, k),
+             lambda: ck.fused_eval_confusion_reference(params, dims, x, y,
+                                                       mask, k),
+             4 * (params.numel() + live * (dims[0] + 1) + mask.numel()
+                  + c * k * k), mlp_flops(dims, live),
+             float((conf - ref).abs().max()),
+             f"serve tick eval ({c}, {n}), {int(live)} real rows"),
+            ("fused_mlp_forward",
+             lambda: ck.fused_mlp_forward(glob, dims, x_eval),
+             lambda: ck.fused_mlp_forward_reference(glob, dims, x_eval),
+             4 * (glob.numel() + x_eval.numel() + x_eval.shape[0] * k),
+             mlp_flops(dims, x_eval.shape[0]), e3,
+             f"serve eval_accuracy N={x_eval.shape[0]}")):
+        bnd, by = bound_ms(nbytes, flops)
+        rows[name] = {"shape": shape, "dims": list(dims),
+                      "max_abs_err": err, "ms": time_ms(kernel),
+                      "plain_ms": time_ms(plain), "library_ms": None,
+                      "bound_ms": bnd, "bound_by": by}
+        r = rows[name]
+        print(f"time {name} {shape}: kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  bound {bnd:.5f} ms ({by}); max abs "
+              f"err {err:.3e} (K2: {int(moved.sum())} rows moved, "
+              f"{int(ties.sum())} near ties; K3: max |logit| "
+              f"{float(logits.abs().max()):.3e}); {CARD['smi']}",
+              flush=True)
+    return rows
+
+
+def serve_cpu_plain(trace: str) -> dict:
+    """The trace through ``offer_many`` + ``drain`` on the CPU, in a
+    process of its own while the card works: the history, the summary
+    without its wall-clock keys and accuracy, the final global, the
+    accuracy; and ``defense_sim.simulate``'s lines on the CPU."""
+    from fedtpu_torch.parallel.async_fed import async_global_params
+    from fedtpu_torch.robust.defense_sim import simulate
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    cpu = serve_replay(serve_engine("cpu"), serve_rows(trace))
+    return {"history": cpu.history_lines(),
+            "summary": serve_no_wall(cpu.summary()),
+            "global": async_global_params(cpu.state).clone(),
+            "eval_accuracy": cpu.eval_accuracy(),
+            "s": time.perf_counter() - t0,
+            "sim": simulate(device="cpu")["lines"]}
+
+
+def serve_cpu_screened(poison: str) -> dict:
+    """The screened cell on the CPU, in a process of its own: the decision
+    lines, the history, the final global, the accuracy."""
+    from fedtpu_torch.parallel.async_fed import async_global_params
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    scr = serve_replay(serve_engine("cpu", **SERVE_SCREEN), serve_rows(poison))
+    return {"log": [json.dumps(r, sort_keys=True) for r in scr.defense_log],
+            "history": scr.history_lines(),
+            "global": async_global_params(scr.state).clone(),
+            "eval_accuracy": scr.eval_accuracy(),
+            "s": time.perf_counter() - t0}
+
+
+def serve_profile(rows: list) -> dict:
+    """SERVE_PROFILE_TICKS captured ticks fed by the trace's frames: the
+    host ms of a tick (the mask, the replay's enqueue) and of an
+    ``offer_many`` of one frame on the host clock (untraced window), the
+    device ms and op count of a tick under torch.profiler (the next
+    window), the device's idle share against the untraced wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng = serve_engine("cuda")
+    count = {"ticks": 0, "tick_s": 0.0}
+    inner = eng._device_tick
+
+    def timed(mask):
+        t0 = time.perf_counter()
+        out = inner(mask)
+        count["tick_s"] += time.perf_counter() - t0
+        count["ticks"] += 1
+        return out
+
+    eng._device_tick = timed
+    frames = iter(range(0, len(rows), SERVE_FRAME))
+
+    def window(ticks: int) -> tuple:
+        count.update(ticks=0, tick_s=0.0)
+        n = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while count["ticks"] < ticks:
+            i = next(frames)
+            eng.offer_many(rows[i:i + SERVE_FRAME])
+            n += 1
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, n, dict(count)
+
+    window(3)
+    wall, n, c = window(SERVE_PROFILE_TICKS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced, _, tc = window(SERVE_PROFILE_TICKS)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / tc["ticks"] / 1e3
+    ops = sum(e.count for e in dev) / tc["ticks"]
+    out = {"ticks": c["ticks"], "frames": n,
+           "wall_ms_per_tick": wall / c["ticks"] * 1e3,
+           "host_ms_per_tick": c["tick_s"] / c["ticks"] * 1e3,
+           "host_ms_per_frame": wall / n * 1e3,
+           "host_ms_per_frame_without_ticks": (wall - c["tick_s"]) / n * 1e3,
+           "device_ms_per_tick": busy_ms, "device_ops_per_tick": ops,
+           "idle_share": 1 - busy_ms / (wall / c["ticks"] * 1e3),
+           "traced_wall_ms_per_tick": traced / tc["ticks"] * 1e3}
+    print(f"serve captured tick profile ({c['ticks']} ticks in {n} frames "
+          f"of {SERVE_FRAME} untraced, {tc['ticks']} traced): host "
+          f"{out['host_ms_per_tick']:.4f} ms a tick (mask + replay), "
+          f"{out['host_ms_per_frame']:.4f} ms an offer_many of a frame "
+          f"({out['host_ms_per_frame_without_ticks']:.4f} ms without its "
+          f"ticks), wall {out['wall_ms_per_tick']:.4f} ms a tick; device "
+          f"busy {busy_ms:.4f} ms a tick in {ops:.1f} ops, idle share "
+          f"{out['idle_share']:.4f}; {CARD['smi']}", flush=True)
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / tc['ticks'] / 1e3:.4f} ms/tick"
+              f" x{e.count / tc['ticks']:.1f}  {e.key[:90]}", flush=True)
+    return out
+
+
+def serve_screened(poison: str, cpu: dict, cpu_sim: list) -> dict:
+    """The screened cell: SERVE_POISON's v2 trace (the file ``poison``)
+    through a screening engine (SERVE_SCREEN) on the card, captured,
+    launches counted from zero (K1 twice a tick and in the warm-up),
+    against the CPU's run (``cpu``, from ``serve_cpu_screened``): the
+    decision logs equal line for line, the histories equal, the accuracy
+    equal but on near ties (``serve_eval_near_ties``), at least one
+    attacker quarantined and no honest user. Then ``defense_sim.simulate``
+    at its own constants on the card against the CPU's lines
+    (``cpu_sim``). Returns the card run's launches."""
+    from fedtpu_torch.ops.cuda_kernels import LAUNCHES, reset_launch_counts
+    from fedtpu_torch.robust.defense_sim import simulate
+    from fedtpu_torch.serving.traces import poisoned_user_ids
+    rows = serve_rows(poison)
+    attackers = set(poisoned_user_ids(SERVE_POISON["users"],
+                                      SERVE_POISON["seed"],
+                                      SERVE_POISON["poison_frac"]).tolist())
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    card = serve_replay(serve_engine("cuda", **SERVE_SCREEN), rows)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    ticks = sum(n > 0 for n in card.history["tick_slots"])
+    check(launches["weighted_average_clients"] == 2 * (ticks + 1)
+          and launches["fused_eval_confusion"] == ticks + 1,
+          f"serve screened: launches {launches} for {ticks} non-empty "
+          "ticks + the warm-up, not K1 twice and K2 once each")
+    lines = [json.dumps(r, sort_keys=True) for r in card.defense_log]
+    want = cpu["log"]
+    first = next((i for i, (a, b) in enumerate(zip(lines, want)) if a != b),
+                 None)
+    check(lines == want, f"serve screened: decision log differs card vs "
+          f"CPU ({len(lines)} vs {len(want)} lines, first at {first})")
+    check(card.history_lines() == cpu["history"],
+          "serve screened: history differs card vs CPU")
+    tie = serve_eval_near_ties("serve screened", card, cpu["global"],
+                               cpu["eval_accuracy"])
+    caught = sorted(u for u in card.quarantined if u in attackers)
+    honest = sorted(u for u in card.quarantined if u not in attackers)
+    check(caught and not honest,
+          f"serve screened: quarantined {len(caught)} attackers and honest "
+          f"users {honest[:10]}")
+    print(f"serve screened (v2 trace, {SERVE_POISON['arrivals']} arrivals, "
+          f"{SERVE_POISON['poison_frac']:.0%} attackers at scale "
+          f"{SERVE_POISON['poison_scale']:g}; {SERVE_SCREEN}): decision log "
+          f"{len(lines)} lines equal card vs CPU, history equal, "
+          f"{card.screened_total} screened, {len(caught)} attackers "
+          f"quarantined, 0 honest; {card.tick_count} ticks ({ticks} "
+          f"non-empty) in {wall:.3f} s on the card ({cpu['s']:.3f} s on "
+          f"the CPU), launches {launches}; logit drift card vs CPU "
+          f"{tie['drift']:.3e}, {tie['moved']} predictions moved (near "
+          f"ties), right rows card {tie['right_card']} CPU "
+          f"{tie['right_cpu']} of {tie['rows']}; {CARD['smi']}",
+          flush=True)
+    sim = simulate(device="cuda")
+    check(sim["lines"] == cpu_sim,
+          "defense sim: decision lines differ card vs CPU")
+    summ = sim["summary"]
+    print(f"defense sim (fedtpu's constants): {len(sim['lines'])} decision "
+          f"lines equal card vs CPU; quarantined {summ['quarantined']} of "
+          f"attackers {summ['attackers']}, honest "
+          f"{summ['quarantined_honest']}; {CARD['smi']}", flush=True)
+    return launches
+
+
+# The CLI pair's trace: loadgen's --synthesize at its default users and
+# arrival rate (100,000 arrivals over 60 s), cut to 20,000 arrivals.
+SERVE_CLI_TRACE = ("--users", "1000000", "--arrivals", "20000",
+                   "--horizon", "12")
+
+
+def serve_cli(directory: str) -> dict:
+    """``serve --once --port-file`` as a subprocess on the card, answered
+    by ``loadgen --synthesize --json`` (SERVE_CLI_TRACE) as another: both
+    exit 0, every event was sent and the server ticked."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    pf = os.path.join(directory, "cli.port")
+    trace = os.path.join(directory, "cli.jsonl")
+    cmd = [sys.executable, "-m", "fedtpu_torch.cli"]
+    t0 = time.perf_counter()
+    serve = subprocess.Popen(cmd + ["serve", "--once", "--port-file", pf,
+                                    "--cohort", "32", "--buffer-size", "16",
+                                    "--quiet", "--json"], cwd=root,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    try:
+        # The server writes its port file once it listens (after the
+        # engine's build and capture): start the loadgen then, so its
+        # events/s is the replay's.
+        from fedtpu_torch.serving.loadgen import read_port_file
+        read_port_file(pf, timeout=300)
+        load = subprocess.run(cmd + ["loadgen", trace, "--synthesize",
+                                     *SERVE_CLI_TRACE, "--port-file", pf,
+                                     "--json", "--quiet"],
+                              cwd=root, capture_output=True, text=True,
+                              timeout=400)
+        out, err = serve.communicate(timeout=300)
+    finally:
+        if serve.poll() is None:
+            serve.kill()
+            serve.wait(timeout=60)
+    check(serve.returncode == 0 and load.returncode == 0,
+          f"serve/loadgen CLI: exit {serve.returncode}/{load.returncode}: "
+          f"{err[-2000:]} {load.stderr[-2000:]}")
+    res = json.loads(load.stdout.strip().splitlines()[-1])
+    summary = json.loads(out.strip().splitlines()[-1])
+    check(res["server_stats"]["ticks"] > 0
+          and res["events_sent"] == int(SERVE_CLI_TRACE[3]),
+          f"serve/loadgen CLI: {res['events_sent']} events sent, server "
+          f"stats {res['server_stats']}")
+    print(f"CLI serve --once + loadgen --synthesize {' '.join(SERVE_CLI_TRACE)}"
+          f" --json (subprocesses, {time.perf_counter() - t0:.1f} s): "
+          f"{res['events_sent']} events, {res['events_per_sec']:.1f} "
+          f"events/s, server ticks {res['server_stats']['ticks']}, "
+          f"{summary['rounds_per_sec']:.3f} ticks/s; {CARD['smi']}",
+          flush=True)
+    return res
+
+
+def phase_serve() -> tuple:
+    """Phase (p): the serving front end. The wire path (``serve_wire``) at
+    the income MLP's full width; SERVE_PROFILE_TICKS captured ticks
+    profiled; then, while the CPU runs (``serve_cpu_plain``,
+    ``serve_cpu_screened``) go on in two processes of their own: the same trace in process on the card captured
+    and uncaptured (bitwise) and against the CPU (history and summary
+    equal, global params within 1e-4, predictions equal but on near
+    ties); the run checkpointed at the trace's midpoint with updates
+    pending and resumed in a fresh engine, bitwise the uninterrupted one;
+    the CLI pair (``serve_cli``); the screened cell and the defense sim
+    (``serve_screened``); K2 and K3 at the serving shapes against their
+    plain versions (``serve_kernel_rows``). Returns the launches by path,
+    the numbers for the kernels line and K2's and K3's serving rows."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from fedtpu_torch.parallel.async_fed import async_global_params
+    from fedtpu_torch.serving.traces import synthesize_trace, write_trace
+    by_path, numbers, seconds = {}, {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - clock[0], 2)
+        clock[0] = now
+
+    with tempfile.TemporaryDirectory() as directory:
+        trace = os.path.join(directory, "trace.jsonl")
+        poison = os.path.join(directory, "poison.jsonl")
+        write_trace(trace, *synthesize_trace(**SERVE_TRACE))
+        write_trace(poison, *synthesize_trace(**SERVE_POISON))
+        rows = serve_rows(trace)
+        lap("traces")
+        res, summary, wire_lines, by_path["serve income MLP"] = serve_wire(
+            directory, trace)
+        numbers["wire"] = {k: res[k] for k in ("events_per_sec", "wall_s")}
+        numbers["wire"].update(rounds_per_sec=summary["rounds_per_sec"],
+                               ticks=summary["ticks"],
+                               latency=summary["update_to_incorporation"])
+        lap("wire")
+        numbers["profile"] = serve_profile(rows)
+        lap("profile")
+        with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+                "spawn")) as pool:
+            cpu_screened = pool.submit(serve_cpu_screened, poison)
+            cpu_side = pool.submit(serve_cpu_plain, trace)
+            t0 = time.perf_counter()
+            card = serve_replay(serve_engine("cuda"), rows)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            plain = serve_replay(serve_engine("cuda", capture=False), rows)
+            plain_s = time.perf_counter() - t0
+            check(card.history_lines() == wire_lines,
+                  "serve: the in-process history differs from the wire "
+                  "run's")
+            check(card.history_lines() == plain.history_lines()
+                  and all(torch.equal(bits(a), bits(b)) for a, b in
+                          zip(serve_tensors(card), serve_tensors(plain))),
+                  "serve: captured differs from uncaptured")
+            half = len(rows) // 2
+            first = serve_replay(serve_engine("cuda"), rows[:half],
+                                 drain=False)
+            check(bool(first.pending), "serve resume: nothing pending at "
+                  "the checkpoint")
+            ck = os.path.join(directory, "ck")
+            first.checkpoint(ck)
+            second = serve_engine("cuda")
+            second.restore(ck)
+            serve_replay(second, rows[half:])
+            check(second.history_lines() == card.history_lines()
+                  and all(torch.equal(bits(a), bits(b)) for a, b in
+                          zip(serve_tensors(second), serve_tensors(card))),
+                  "serve resume: differs from the uninterrupted run")
+            print(f"serve resume: checkpoint at event {half} (tick "
+                  f"{first.tick_count}, {len(first.pending)} updates "
+                  f"pending, {first.nbuf_host:.0f} in the K-buffer), "
+                  f"restored into a fresh captured engine, finished: "
+                  f"bitwise the uninterrupted run; {CARD['smi']}",
+                  flush=True)
+            lap("card replays, resume")
+            cli = serve_cli(directory)
+            numbers["cli"] = {k: cli[k] for k in ("events_per_sec",
+                                                  "events_sent")}
+            lap("cli")
+            cpu = cpu_side.result(timeout=900)
+            cpu_scr = cpu_screened.result(timeout=900)
+            lap("waiting for the CPU")
+        check(cpu["history"] == card.history_lines(),
+              "serve card vs CPU: history differs")
+        check(cpu["summary"] == serve_no_wall(card.summary()),
+              "serve card vs CPU: summary differs")
+        err = float((async_global_params(card.state).cpu()
+                     - cpu["global"]).abs().max())
+        check(err <= 1e-4, f"serve card vs CPU: global params max abs err "
+              f"{err:.3e} > 1e-4")
+        tie = serve_eval_near_ties("serve", card, cpu["global"],
+                                   cpu["eval_accuracy"])
+        print(f"serve in process: card vs CPU history and summary (but "
+              f"its wall-clock keys and eval_accuracy) equal "
+              f"({len(wire_lines)} ticks, = the wire run's), global params "
+              f"max abs err {err:.3e}, logit drift {tie['drift']:.3e}, "
+              f"{tie['moved']} predictions moved (near ties), right rows "
+              f"card {tie['right_card']} CPU {tie['right_cpu']} of "
+              f"{tie['rows']}; captured == uncaptured bitwise; "
+              f"replay s: card captured {card_s:.3f}, uncaptured "
+              f"{plain_s:.3f}, CPU {cpu['s']:.3f}; {CARD['smi']}",
+              flush=True)
+        numbers.update(card_vs_cpu_max_abs_err=err, near_ties=tie,
+                       replay_s={"captured": card_s, "uncaptured": plain_s,
+                                 "cpu": cpu["s"]})
+        kernel_rows = serve_kernel_rows(card)
+        lap("kernels at the serving shapes")
+        by_path["serve screened"] = serve_screened(poison, cpu_scr, cpu["sim"])
+        lap("screened, defense sim")
+    print(f"phase (p) seconds {json.dumps(seconds)}", flush=True)
+    numbers["seconds"] = seconds
+    return by_path, numbers, kernel_rows
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
     clock, seconds = [time.perf_counter()], {}
@@ -2802,12 +3409,19 @@ def main() -> None:
     async_launches, timings["weighted_sum_clients"] = phase_async()
     by_path.update(async_launches)
     lap("(o)")
+    serve_launches, timings["weighted_sum_clients"]["serve"], serve_rows = \
+        phase_serve()
+    by_path.update(serve_launches)
+    for name, row in serve_rows.items():
+        timings[name]["serve"] = row
+    lap("(p)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
     # from income-8, K4 from the sharded ring run, K5 from the fused-round
     # benchmark, K1's sum mode (counted under K1) from the asynchronous
-    # income-32-noniid run.
+    # income-32-noniid run; ``launches_by_path`` has every path's, the
+    # serving phase's too.
     sources = {
         "weighted_average_clients": ("weighted_average.cu",
                                      "fedtpu/ops/pallas_kernels.py:233",
@@ -2848,7 +3462,7 @@ def main() -> None:
                 "ms_by_tile_x_threads", "composed_round_device_ms",
                 "marginal_us_per_round", "profile", "phases_us",
                 "delta_mean", "sweep", "cifar10_32", "bf16_fp16",
-                "sklearn_parity")
+                "sklearn_parity", "serve")
                 if key in t},
             **({"mode": "sum: K1 unnormalised, the asynchronous tick's "
                 "psum(tensordot(disc, delta))"}

@@ -1,8 +1,11 @@
-"""``python -m fedtpu_torch.cli {run,sweep,parity,presets}``: the port's
-counterparts of ``fedtpu run`` (the synchronous engine, or with ``--async``
-the asynchronous FedBuff one), ``fedtpu sweep``
-(the hyperparameter grid), ``fedtpu parity`` (the sklearn ``MLPClassifier``
-warm-start limitation demo) and ``fedtpu presets`` (the shipped presets).
+"""``python -m fedtpu_torch.cli {run,sweep,parity,presets,serve,loadgen}``:
+the port's counterparts of ``fedtpu run`` (the synchronous engine, or with
+``--async`` the asynchronous FedBuff one), ``fedtpu sweep`` (the
+hyperparameter grid), ``fedtpu parity`` (the sklearn ``MLPClassifier``
+warm-start limitation demo), ``fedtpu presets`` (the shipped presets),
+``fedtpu serve`` (the trace-driven serving front end on the driven
+asynchronous tick) and ``fedtpu loadgen`` (replay an arrival trace against
+a running server).
 
 Every flag is one that ``fedtpu.cli``'s parser also has, with the same
 meaning; ``--platform default`` means the GPU, ``--platform cpu`` the plain
@@ -16,7 +19,8 @@ import dataclasses
 import json
 import sys
 
-from fedtpu_torch.config import AGGREGATIONS, PRESETS, get_preset
+from fedtpu_torch.config import (AGGREGATIONS, PRESETS, _not_ported,
+                                 get_preset)
 
 
 def _participation_rate(text: str) -> float:
@@ -45,6 +49,13 @@ def _nonnegative_float(text: str) -> float:
     value = float(text)
     if value < 0:
         raise argparse.ArgumentTypeError(f"must be >= 0, got {value}")
+    return value
+
+
+def _positive_float(text: str) -> float:
+    value = float(text)
+    if value <= 0:
+        raise argparse.ArgumentTypeError(f"must be > 0, got {value}")
     return value
 
 
@@ -172,6 +183,123 @@ def _add_common_overrides(p: argparse.ArgumentParser) -> None:
                    help="print the result summary as one JSON line")
 
 
+def _add_serving_flags(p: argparse.ArgumentParser) -> None:
+    """``fedtpu``'s serve flag surface (every flag of its
+    ``_add_serving_flags``). ``--events``, ``--heartbeat`` and
+    ``--net-fault-plan`` raise when given (ROADMAP A11, A11, A8c)."""
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address (default 127.0.0.1; the "
+                        "protocol is a same-host ingestion socket)")
+    p.add_argument("--port", type=_nonnegative_int, default=0,
+                   help="TCP port (default 0 = ephemeral; pair "
+                        "with --port-file)")
+    p.add_argument("--port-file", default=None, metavar="FILE",
+                   help="write the bound port here once listening "
+                        "(ephemeral-port discovery for loadgen)")
+    p.add_argument("--net-fault-plan", default=None, metavar="JSON",
+                   help="seeded wire-fault schedule (not ported yet: "
+                        "ROADMAP A8c)")
+    p.add_argument("--cohort", type=_positive_int, default=8,
+                   help="concurrent engine slots C; users get "
+                        "stable slot bindings with LRU eviction "
+                        "(default 8)")
+    p.add_argument("--buffer-size", type=_nonnegative_int, default=0,
+                   help="FedBuff K-buffer M: the global only moves "
+                        "once M updates buffered (<=1 applies every "
+                        "tick; default 0)")
+    p.add_argument("--staleness-power", type=_nonnegative_float,
+                   default=0.5,
+                   help="delta discount (1+s)^-p (default 0.5)")
+    p.add_argument("--tick-interval", type=_nonnegative_float,
+                   default=0.5, metavar="S",
+                   help="virtual seconds between engine ticks "
+                        "(0 disables the timer; default 0.5)")
+    p.add_argument("--flush-every", type=_nonnegative_int, default=0,
+                   help="also fire a tick once this many eligible "
+                        "updates pend (0 = timer only)")
+    p.add_argument("--history-window", type=_nonnegative_int,
+                   default=0, metavar="N",
+                   help="keep only the newest N per-tick history "
+                        "rows (0 = unbounded, the determinism "
+                        "artifact; set for long-running servers)")
+    p.add_argument("--rate-limit", type=_nonnegative_float,
+                   default=0.0,
+                   help="token-bucket admission rate in updates per "
+                        "virtual second (0 = off)")
+    p.add_argument("--rate-burst", type=_positive_float, default=64.0,
+                   help="token-bucket burst capacity (default 64)")
+    p.add_argument("--max-pending", type=_nonnegative_int, default=0,
+                   help="reject_backpressure once this many admitted "
+                        "updates await incorporation (0 = off)")
+    p.add_argument("--stale-deprioritize", type=_nonnegative_int,
+                   default=4,
+                   help="versions behind at which an update is "
+                        "deprioritized (default 4)")
+    p.add_argument("--stale-reject", type=_nonnegative_int,
+                   default=16,
+                   help="versions behind at which an update is "
+                        "rejected (default 16)")
+    p.add_argument("--screen", action="store_true",
+                   help="enable streaming update screening: non-finite "
+                        "guard, norm-vs-rolling-median, and cosine "
+                        "tests reject poisoned arrivals on the device "
+                        "before the K-buffer")
+    p.add_argument("--screen-norm-mult", type=_positive_float,
+                   default=4.0,
+                   help="screen when an update's norm exceeds this "
+                        "multiple of the rolling median of accepted "
+                        "norms (default 4)")
+    p.add_argument("--screen-cos-min", type=float, default=-0.2,
+                   help="screen when cosine against the server "
+                        "direction falls below this (in [-1, 1); "
+                        "default -0.2)")
+    p.add_argument("--screen-warmup", type=_positive_int, default=8,
+                   help="accepted-norm samples before the norm test "
+                        "arms (default 8)")
+    p.add_argument("--screen-clip-norm", type=_nonnegative_float,
+                   default=0.0,
+                   help="also clip accepted update norms to this bound "
+                        "(0 = off)")
+    p.add_argument("--quarantine-strikes", type=_positive_int,
+                   default=3,
+                   help="screened strikes before a user id is "
+                        "quarantined (default 3)")
+    p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                   help="drain-time (and periodic) serving "
+                        "checkpoints land here; required for "
+                        "--resume")
+    p.add_argument("--checkpoint-every-ticks", type=_nonnegative_int,
+                   default=0,
+                   help="also checkpoint every N engine ticks "
+                        "(0 = drain-time only)")
+    p.add_argument("--resume", action="store_true",
+                   help="restore serving state (engine + pending "
+                        "queue + history) from --checkpoint-dir")
+    p.add_argument("--history", default=None, metavar="JSONL",
+                   help="write the per-tick metric history here at "
+                        "drain — the bitwise-determinism artifact")
+    p.add_argument("--events", default=None, metavar="JSONL",
+                   help="telemetry events sink (not ported yet: "
+                        "ROADMAP A11)")
+    p.add_argument("--heartbeat", default=None, metavar="FILE",
+                   help="liveness heartbeat file (not ported yet: "
+                        "ROADMAP A11)")
+    p.add_argument("--once", action="store_true",
+                   help="exit cleanly (drain + checkpoint) after "
+                        "the first client connection closes — "
+                        "bounded smoke runs")
+    p.add_argument("--seed", type=_nonnegative_int, default=0,
+                   help="engine init / synthetic-shard seed")
+    p.add_argument("--platform", choices=["default", "cpu"],
+                   default="default",
+                   help="default = the GPU; cpu = the plain versions "
+                        "on the CPU")
+    p.add_argument("--json", action="store_true",
+                   help="print the drain summary as one JSON line")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress server status lines")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="fedtpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -257,6 +385,79 @@ def build_parser() -> argparse.ArgumentParser:
                               help="sklearn warm-start limitation demo")
     _add_common_overrides(parity_p)
     sub.add_parser("presets", help="list shipped presets")
+
+    # Serving front-end: a long-running ingestion process feeding the
+    # driven asynchronous tick from traced arrivals (fedtpu_torch.serving).
+    serve_p = sub.add_parser("serve",
+                             help="trace-driven FL serving front-end: "
+                                  "accept streamed client updates over a "
+                                  "localhost socket, admission-control "
+                                  "them, and drive async FedBuff ticks")
+    _add_serving_flags(serve_p)
+
+    # Load generation: replay (or synthesize) an arrival trace against a
+    # running server; it never touches the card.
+    load_p = sub.add_parser("loadgen",
+                            help="replay a heavy-tailed arrival trace "
+                                 "against a running 'serve' "
+                                 "(fedtpu's docs/serving.md)")
+    load_p.add_argument("trace", help="arrival-trace JSONL path "
+                                      "(serving.traces schema v1/v2)")
+    load_p.add_argument("--synthesize", action="store_true",
+                        help="first write a fresh synthetic trace to the "
+                             "given path (--users/--arrivals/--horizon/"
+                             "--trace-seed), then replay it")
+    load_p.add_argument("--users", type=_positive_int, default=1000000,
+                        help="simulated user population for --synthesize "
+                             "(default 1e6)")
+    load_p.add_argument("--arrivals", type=_positive_int, default=100000,
+                        help="arrival events for --synthesize "
+                             "(default 1e5)")
+    load_p.add_argument("--horizon", type=_positive_float, default=60.0,
+                        help="virtual-time horizon in seconds for "
+                             "--synthesize (default 60)")
+    load_p.add_argument("--trace-seed", type=_nonnegative_int, default=0,
+                        help="synthesizer seed (default 0)")
+    load_p.add_argument("--poison-frac", type=_nonnegative_float,
+                        default=0.0,
+                        help="for --synthesize: fraction of users that "
+                             "are seeded attackers (schema v2 adversarial "
+                             "trace; 0 = honest v1 trace, the default)")
+    load_p.add_argument("--poison-scale", type=_positive_float,
+                        default=10.0,
+                        help="sign-flip amplification the attackers "
+                             "submit (default 10)")
+    load_p.add_argument("--host", default="127.0.0.1")
+    load_p.add_argument("--port", type=_nonnegative_int, default=None,
+                        help="server port (or use --port-file)")
+    load_p.add_argument("--port-file", default=None, metavar="FILE",
+                        help="poll this file (written by serve "
+                             "--port-file) for the port")
+    load_p.add_argument("--batch", type=_positive_int, default=1024,
+                        help="arrivals per protocol frame (default 1024)")
+    load_p.add_argument("--num-gateways", type=_positive_int, default=1,
+                        help="route through a gateway fleet of this size "
+                             "(default 1; above 1 not ported yet, ROADMAP "
+                             "A8c)")
+    load_p.add_argument("--retries", type=_nonnegative_int, default=8,
+                        help="per-frame retry attempts against a dying/"
+                             "restarting gateway before giving up "
+                             "(default 8)")
+    load_p.add_argument("--retry-backoff", type=_positive_float,
+                        default=0.05,
+                        help="base of the capped exponential retry "
+                             "backoff in seconds (default 0.05)")
+    load_p.add_argument("--max-events", type=_nonnegative_int, default=0,
+                        help="truncate the replay after this many events "
+                             "(0 = whole trace)")
+    load_p.add_argument("--no-drain", action="store_true",
+                        help="skip the final drain+stats round-trip")
+    load_p.add_argument("--timeout", type=_positive_float, default=120.0,
+                        help="socket/port-file timeout in seconds")
+    load_p.add_argument("--json", action="store_true",
+                        help="print the replay summary as one JSON line")
+    load_p.add_argument("--quiet", action="store_true",
+                        help="suppress the human-readable summary")
     return parser
 
 
@@ -389,11 +590,99 @@ def sweep_main(args, cfg, device: str) -> dict:
     return summary
 
 
+def loadgen_main(args) -> int:
+    """``fedtpu``'s ``loadgen`` handler: optionally synthesize the trace,
+    replay it, print the summary."""
+    from fedtpu_torch.serving.loadgen import run_loadgen
+    from fedtpu_torch.serving.traces import synthesize_trace, write_trace
+    if args.num_gateways > 1:
+        _not_ported(f"loadgen --num-gateways {args.num_gateways} (the "
+                    "gateway fleet)", "A8c")
+    if args.synthesize:
+        header, t, user, lat = synthesize_trace(
+            users=args.users, arrivals=args.arrivals,
+            horizon_s=args.horizon, seed=args.trace_seed,
+            poison_frac=args.poison_frac, poison_scale=args.poison_scale)
+        write_trace(args.trace, header, t, user, lat)
+        if not args.quiet:
+            tag = (f" ({args.poison_frac:.0%} poisoned, scale "
+                   f"{args.poison_scale:g})" if args.poison_frac > 0 else "")
+            print(f"synthesized {args.arrivals} arrivals / {args.users} "
+                  f"users over {args.horizon}s{tag} -> {args.trace}")
+    summary = run_loadgen(args.trace, host=args.host, port=args.port,
+                          port_file=args.port_file, batch=args.batch,
+                          max_events=args.max_events,
+                          drain=not args.no_drain, timeout=args.timeout,
+                          num_gateways=args.num_gateways,
+                          retries=args.retries,
+                          backoff_s=args.retry_backoff)
+    if args.json:
+        print(json.dumps(summary, default=float))
+    elif not args.quiet:
+        print(f"replayed {summary['events_sent']} events in "
+              f"{summary['frames']} frames "
+              f"({summary['events_per_sec']:.0f} ev/s); "
+              f"admission: {summary['admission']}")
+        if summary.get("retried") or summary.get("redirected"):
+            print(f"delivery: attempted {summary['attempted']}, "
+                  f"retried {summary['retried']}, redirected "
+                  f"{summary['redirected']}, reconnects "
+                  f"{summary['reconnects']}")
+    return 0
+
+
+def serving_config_from_args(args):
+    """``fedtpu``'s ``ServingConfig`` of a ``serve`` command line."""
+    from fedtpu_torch.config import ServingConfig
+    return ServingConfig(
+        host=args.host, port=args.port, cohort=args.cohort,
+        buffer_size=args.buffer_size, staleness_power=args.staleness_power,
+        tick_interval_s=args.tick_interval, flush_every=args.flush_every,
+        history_window=args.history_window, rate_limit=args.rate_limit,
+        rate_burst=args.rate_burst, max_pending=args.max_pending,
+        stale_deprioritize=args.stale_deprioritize,
+        stale_reject=args.stale_reject, seed=args.seed, screen=args.screen,
+        screen_norm_mult=args.screen_norm_mult,
+        screen_cos_min=args.screen_cos_min,
+        screen_warmup=args.screen_warmup,
+        screen_clip_norm=args.screen_clip_norm,
+        quarantine_strikes=args.quarantine_strikes)
+
+
+def serve_main(args) -> int:
+    """``fedtpu``'s ``serve`` handler: serve until the connection closes
+    (``--once``) or SIGTERM (drain, checkpoint, exit 75)."""
+    from fedtpu_torch.serving.server import (EXIT_PREEMPTED, Preempted,
+                                             run_server)
+    try:
+        summary = run_server(
+            serving_config_from_args(args), events=args.events,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every_ticks=args.checkpoint_every_ticks,
+            port_file=args.port_file, history_path=args.history,
+            heartbeat=args.heartbeat, once=args.once, resume=args.resume,
+            verbose=not args.quiet, net_fault_plan=args.net_fault_plan,
+            device="cpu" if args.platform == "cpu" else "cuda")
+    except Preempted as p:
+        # SIGTERM drain completed: serving state (engine + pending queue +
+        # history) is checkpointed; the supervisor's "restart me" code.
+        if args.json:
+            print(json.dumps({"preempted": True, "tick": p.round}))
+        return EXIT_PREEMPTED
+    if args.json:
+        print(json.dumps(summary, default=float))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "presets":
         print_presets()
         return 0
+    if args.command == "loadgen":
+        return loadgen_main(args)
+    if args.command == "serve":
+        return serve_main(args)
     cfg = config_from_args(args)
     device = "cpu" if args.platform == "cpu" else "cuda"
     if args.command in ("sweep", "parity"):

@@ -2,7 +2,8 @@
 
 The port's own copies of ``fedtpu.config``'s dataclasses that
 ``ExperimentConfig`` holds (data, shard, model, optimizer, federation, run,
-and the run's telemetry). Every field of ``fedtpu``'s is a field here, with
+and the run's telemetry), and ``ServingConfig``, the ``serve`` front
+end's. Every field of ``fedtpu``'s is a field here, with
 ``fedtpu``'s name and default, so one config reads the same on both sides.
 A knob that this port does not run yet stays at its neutral default; any
 other value raises ``NotImplementedError`` naming the ROADMAP item that will
@@ -306,6 +307,71 @@ class ExperimentConfig:
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """``serve`` — the trace-driven serving front-end
+    (``fedtpu_torch.serving``; ``fedtpu.config.ServingConfig``, every field
+    with its default).
+
+    A bounded cohort of ``cohort`` engine slots absorbs an unbounded
+    user population (stable user -> slot bindings with LRU eviction —
+    see fedtpu_torch.serving.engine.SlotBinder; the store-backed
+    per-user identity is ROADMAP A8c); admitted updates become DRIVEN async
+    FedBuff ticks. All admission/staleness/latency decisions run on the
+    VIRTUAL clock carried by arrival timestamps, so identical trace +
+    seed replays bitwise-identically."""
+
+    host: str = "127.0.0.1"        # ingestion socket binds localhost only
+    port: int = 0                  # 0 = ephemeral (see --port-file)
+    cohort: int = 8                # concurrent engine slots (C)
+    buffer_size: int = 0           # FedBuff K-buffer M; <= 1 applies per tick
+    staleness_power: float = 0.5   # delta discount (1+s)^-p
+    server_lr: float = 1.0
+    local_steps: int = 1
+    # Tick cadence — both may be active; 0 disables that trigger.
+    tick_interval_s: float = 0.5   # virtual seconds between engine ticks
+    flush_every: int = 0           # fire once this many eligible updates pend
+    # Keep only the newest N per-tick history rows (0 = unbounded). The
+    # history is the bitwise-determinism artifact, so it stays unbounded
+    # by default; a supervised long-running server sets a window so the
+    # row list (and its checkpoint) stops growing one row per tick.
+    history_window: int = 0
+    # Admission knobs (fedtpu_torch.serving.admission; virtual-time units).
+    rate_limit: float = 0.0        # updates/s; 0 = off
+    rate_burst: float = 64.0
+    max_pending: int = 0           # queue-depth backpressure cutoff; 0 = off
+    stale_deprioritize: int = 4    # versions behind => deprioritize
+    stale_reject: int = 16         # versions behind => reject
+    # Cohort training fixture (synthetic income-shaped shards).
+    data_rows: int = 256
+    data_features: int = 6
+    data_classes: int = 2
+    model_hidden: Tuple[int, ...] = (16, 8)
+    seed: int = 0
+    # SLO objective on update-to-incorporation latency (virtual s) and
+    # the allowed violation share. Burn = violation_share/error_budget;
+    # 1.0 means the budget is consumed exactly as provisioned
+    # (fedtpu_torch.autoscale.signals.slo_burn_from_hist).
+    slo_objective_s: float = 1.0
+    slo_error_budget: float = 0.1
+    # Sliding window (virtual s) for the admission stats the autoscale
+    # control plane reads off the `stats` protocol op.
+    admission_window_s: float = 10.0
+    # Poisoning defense (fedtpu_torch.robust). screen=True
+    # turns on the in-tick update screen (non-finite guard, norm-vs-
+    # rolling-median, cosine-vs-server-direction); screened updates are
+    # dropped before the K-buffer, counted under `admission_screened`,
+    # and strike their sender — quarantine_strikes strikes quarantines
+    # the user id.
+    screen: bool = False
+    screen_norm_mult: float = 4.0    # norm > mult * rolling median => screen
+    screen_cos_min: float = -0.2     # cosine vs server direction below => screen
+    screen_warmup: int = 8           # accepted ticks before norm screen arms
+    screen_clip_norm: float = 0.0    # L2 clip on accepted updates; 0 = off
+    quarantine_strikes: int = 3      # screened strikes until quarantine
+
 
 
 # fedtpu's presets: the income ones, the sklearn warm-start demo's and the

@@ -935,7 +935,8 @@ def _subcommand_flags(parser, name):
     return {o for a in sub.choices[name]._actions for o in a.option_strings}
 
 
-@pytest.mark.parametrize("command", ["run", "sweep", "parity"])
+@pytest.mark.parametrize("command", ["run", "sweep", "parity", "serve",
+                                     "loadgen"])
 def test_cli_takes_every_fedtpu_flag_whose_field_it_runs(command):
     """C5: the port's parser has each of fedtpu's flags of ``command``
     whose config field the port runs; each it lacks sets a field that the
@@ -957,6 +958,77 @@ def test_cli_takes_every_fedtpu_flag_whose_field_it_runs(command):
             getattr(jcfg, _SECTIONS[section]))}
         with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {item}\)"):
             cls(**{field: value})
+
+
+# fedtpu's serve flags that the port's parser takes and refuses when given,
+# naming the ROADMAP item of each (they are run_server arguments, not
+# ServingConfig fields).
+_SERVE_NOT_PORTED = {"--events": "A11", "--heartbeat": "A11",
+                     "--net-fault-plan": "A8c"}
+
+
+@pytest.mark.parametrize("flag", sorted(_SERVE_NOT_PORTED))
+def test_cli_serve_refuses_the_flags_it_does_not_run(flag):
+    """C5 for ``serve``: each of fedtpu's serve flags whose path is not
+    ported raises, naming its item, before the server binds or builds."""
+    from fedtpu.cli import build_parser as j_parser
+    from fedtpu_torch.cli import main as t_main
+    argv = ["serve", "--platform", "cpu", "--quiet", flag, "x"]
+    assert j_parser().parse_args(argv).cmd == "serve"
+    with pytest.raises(NotImplementedError,
+                       match=rf"\(ROADMAP {_SERVE_NOT_PORTED[flag]}\)"):
+        t_main(argv)
+
+
+@pytest.mark.parametrize("entry", ["cli", "client"])
+def test_loadgen_refuses_a_gateway_fleet(entry, tmp_path):
+    """C5 for ``loadgen``: ``--num-gateways`` above 1 (the gateway fleet)
+    raises naming A8c, from the command line before any trace is written,
+    and from the client itself."""
+    from fedtpu.cli import build_parser as j_parser
+    from fedtpu_torch.cli import main as t_main
+    from fedtpu_torch.serving.client import GatewayClient
+    trace = str(tmp_path / "t.jsonl")
+    argv = ["loadgen", trace, "--synthesize", "--port", "1",
+            "--num-gateways", "2", "--quiet"]
+    assert j_parser().parse_args(argv).num_gateways == 2
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A8c\)"):
+        if entry == "cli":
+            t_main(argv)
+        else:
+            GatewayClient(port=1, num_gateways=2)
+    assert not (tmp_path / "t.jsonl").exists()
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve", "--cohort", "32", "--buffer-size", "16", "--tick-interval",
+     "0.25", "--flush-every", "64", "--history-window", "100",
+     "--rate-limit", "500", "--rate-burst", "32", "--max-pending", "4096",
+     "--stale-deprioritize", "2", "--stale-reject", "8", "--seed", "3",
+     "--staleness-power", "0.25", "--port", "0"],
+    ["serve", "--screen", "--screen-norm-mult", "3", "--screen-cos-min",
+     "-0.45", "--screen-warmup", "4", "--screen-clip-norm", "0.5",
+     "--quarantine-strikes", "2"]], ids=["knobs", "screen"])
+def test_cli_serve_builds_fedtpus_serving_config(argv):
+    """The port's serve command line sets the ServingConfig that fedtpu's
+    serve handler builds from the same flags (fedtpu/cli.py:1895)."""
+    from fedtpu.cli import build_parser as j_parser
+    from fedtpu_torch.cli import build_parser as t_parser
+    from fedtpu_torch.cli import serving_config_from_args
+    a = j_parser().parse_args(argv)
+    want = jcfg.ServingConfig(
+        host=a.host, port=a.port, cohort=a.cohort, buffer_size=a.buffer_size,
+        staleness_power=a.staleness_power, tick_interval_s=a.tick_interval,
+        flush_every=a.flush_every, history_window=a.history_window,
+        rate_limit=a.rate_limit, rate_burst=a.rate_burst,
+        max_pending=a.max_pending, stale_deprioritize=a.stale_deprioritize,
+        stale_reject=a.stale_reject, seed=a.seed, screen=a.screen,
+        screen_norm_mult=a.screen_norm_mult,
+        screen_cos_min=a.screen_cos_min, screen_warmup=a.screen_warmup,
+        screen_clip_norm=a.screen_clip_norm,
+        quarantine_strikes=a.quarantine_strikes)
+    got = serving_config_from_args(t_parser().parse_args(argv))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def _changed_fields(cfg, preset) -> dict:

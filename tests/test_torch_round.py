@@ -10,7 +10,10 @@ resume, the metrics log, the CLI flags) must do what fedtpu's does; and the
 rest of the synchronous round (the server optimizers, SCAFFOLD, central DP
 with its privacy ledger, the robust rules under Byzantine clients, the int8
 exchange, every knob combination fedtpu refuses) must match fedtpu's
-build_round_fn round for round and its run_experiment run for run."""
+build_round_fn round for round and its run_experiment run for run; the
+asynchronous engine must match fedtpu's tick for tick; and the serving
+front end (traces, admission, protocol, the ServingEngine, the server
+loop, the defense sim) must do what fedtpu's does on the same inputs."""
 
 import pytest
 
@@ -25,6 +28,12 @@ import dataclasses  # noqa: E402
 import functools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import os  # noqa: E402
+import signal  # noqa: E402
+import socket  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import threading  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -41,6 +50,10 @@ from fedtpu.orchestration.privacy import PrivacyLedger as JLedger  # noqa: E402
 from fedtpu.data.sharding import pack_clients  # noqa: E402
 from fedtpu.data.tabular import synthetic_income_like  # noqa: E402
 from fedtpu.parallel import async_fed as j_async  # noqa: E402
+from fedtpu.serving import admission as j_adm  # noqa: E402
+from fedtpu.serving import protocol as j_proto  # noqa: E402
+from fedtpu.serving import traces as j_traces  # noqa: E402
+from fedtpu.telemetry.metrics import MetricsRegistry as JRegistry  # noqa: E402
 from fedtpu.parallel import client_sharding, make_mesh  # noqa: E402
 from fedtpu.parallel.round import (_DP_COUNT_STREAM,  # noqa: E402
                                    _DP_NOISE_STREAM)
@@ -63,6 +76,11 @@ from fedtpu_torch.ops.optim import build_optimizer as t_optimizer  # noqa: E402
 from fedtpu_torch.orchestration.privacy import PrivacyLedger as TLedger  # noqa: E402
 from fedtpu_torch.parallel import async_fed as t_async  # noqa: E402
 from fedtpu_torch.parallel import round as t_round  # noqa: E402
+from fedtpu_torch.serving import admission as t_adm  # noqa: E402
+from fedtpu_torch.serving import protocol as t_proto  # noqa: E402
+from fedtpu_torch.serving import traces as t_traces  # noqa: E402
+from fedtpu_torch.telemetry.metrics import (  # noqa: E402
+    MetricsRegistry as TRegistry)
 
 ROWS = 512
 ROUNDS = 80
@@ -3664,3 +3682,691 @@ def test_async_refusals_are_fedtpus(fed_kw, match):
             build(cfg, **kw)
         errors.append(str(err.value))
     assert errors[0] == errors[1]
+
+
+# ------------------------------- the serving front end (A8b, first part)
+# fedtpu_torch.serving against fedtpu.serving on the same inputs: traces
+# (arrays and file bytes), admission verdicts, the wire protocol's framing,
+# the ServingEngine's history, WAL, acks, params, accuracy and summary
+# (fedtpu's initial params injected), the screen's decision log and the
+# defense sim, checkpoint/restore, the wire path (each package's loadgen
+# against the other's server) and the refusals of what is not ported. Small
+# size throughout: fedtpu's serving tests' ``_small_cfg`` (cohort 8,
+# K-buffer 2, 64 rows, one hidden layer of 8) and ``_small_trace``.
+
+_SERVE_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Summary keys taken on the wall clock: the rest is virtual-time-derived.
+_SERVE_WALL = ("wall_s", "rounds_per_sec")
+
+
+def _serve_kw(**kw) -> dict:
+    base = dict(cohort=8, buffer_size=2, tick_interval_s=0.5,
+                data_rows=64, model_hidden=(8,), seed=0)
+    base.update(kw)
+    return base
+
+
+def _serve_trace(arrivals=200, seed=11):
+    return j_traces.synthesize_trace(users=500, arrivals=arrivals,
+                                     horizon_s=10.0, seed=seed)
+
+
+def _serve_poison_rows(arrivals=260, users=30, seed=5, frac=0.2, scale=10.0):
+    """fedtpu's defense tests' adversarial rows: attackers ride a 5-wide
+    row with the poison scale."""
+    _, t, user, lat = j_traces.synthesize_trace(
+        users, arrivals, 20.0, seed=seed, poison_frac=frac,
+        poison_scale=scale)
+    atk = {int(u) for u in j_traces.poisoned_user_ids(users, seed, frac)}
+    rows = [([int(user[i]), float(t[i]), float(lat[i]), None, scale]
+             if int(user[i]) in atk else
+             [int(user[i]), float(t[i]), float(lat[i])])
+            for i in range(len(t))]
+    return rows, sorted(atk)
+
+
+def _serve_rows(t, user, lat) -> list:
+    return [[int(u), float(a), float(b)] for u, a, b in zip(user, t, lat)]
+
+
+def _serve_j_engine(**kw):
+    from fedtpu.serving.engine import ServingEngine
+    return ServingEngine(jcfg.ServingConfig(**_serve_kw(**kw)),
+                         registry=JRegistry())
+
+
+def _serve_fedtpu_init(j_engine) -> torch.Tensor:
+    return convert.params_from_jax(jax.tree.map(np.asarray,
+                                                j_engine.state["params"]))
+
+
+def _serve_t_engine(init=None, **kw):
+    from fedtpu_torch.serving.engine import ServingEngine
+    return ServingEngine(tcfg.ServingConfig(**_serve_kw(**kw)),
+                         registry=TRegistry(), device="cpu",
+                         init_params=init)
+
+
+def _serve_j_global(j_engine) -> np.ndarray:
+    from fedtpu.parallel.async_fed import async_global_params
+    return convert.params_from_jax(jax.tree.map(
+        np.asarray, async_global_params(j_engine.state))).numpy()
+
+
+def _serve_t_global(t_engine) -> np.ndarray:
+    from fedtpu_torch.parallel.async_fed import async_global_params
+    return async_global_params(t_engine.state).numpy()
+
+
+def _serve_no_wall(summary: dict) -> dict:
+    return {k: v for k, v in summary.items() if k not in _SERVE_WALL + ("op",)}
+
+
+# ------------------------------------------------------------------- traces
+
+@pytest.mark.parametrize("poison_frac", [0.0, 0.2], ids=["v1", "v2"])
+def test_serving_traces_equal_fedtpus_arrays_and_file_bytes(tmp_path, poison_frac):
+    """synthesize_trace's header and arrays, poisoned_user_ids and the
+    written file equal fedtpu's byte for byte; both readers read each
+    other's files to the same arrays."""
+    kw = dict(users=5000, arrivals=700, horizon_s=30.0, seed=3,
+              poison_frac=poison_frac, poison_scale=8.0)
+    jh, *j_arr = j_traces.synthesize_trace(**kw)
+    th, *t_arr = t_traces.synthesize_trace(**kw)
+    assert th.to_json() == jh.to_json()
+    for a, b in zip(t_arr, j_arr):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        t_traces.poisoned_user_ids(5000, 3, poison_frac),
+        j_traces.poisoned_user_ids(5000, 3, poison_frac))
+    jp, tp = str(tmp_path / "j.jsonl"), str(tmp_path / "t.jsonl")
+    j_traces.write_trace(jp, jh, *j_arr)
+    t_traces.write_trace(tp, th, *t_arr)
+    with open(jp, "rb") as fj, open(tp, "rb") as ft:
+        assert ft.read() == fj.read()
+    h, *arr = t_traces.load_trace_arrays(jp)
+    assert h.to_json() == jh.to_json()
+    for a, b in zip(arr, j_traces.load_trace_arrays(tp)[1:]):
+        np.testing.assert_array_equal(a, b)
+    t_poison = [ev.poison for ev in t_traces.read_trace(jp)[1]]
+    j_poison = [ev.poison for ev in j_traces.read_trace(tp)[1]]
+    assert t_poison == j_poison
+    assert (max(t_poison) > 0) == (poison_frac > 0)
+
+
+def test_serving_trace_refusals_match_fedtpus(tmp_path):
+    bad = tmp_path / "v3.jsonl"
+    bad.write_text('{"kind": "trace_header", "v": 3, "users": 1, '
+                   '"arrivals": 0}\n')
+    for mod in (j_traces, t_traces):
+        with pytest.raises(ValueError, match="unsupported trace schema"):
+            mod.read_trace(str(bad))
+        with pytest.raises(ValueError, match="poison_frac"):
+            mod.poisoned_user_ids(10, 0, 1.5)
+        with pytest.raises(ValueError, match="poison_scale"):
+            mod.synthesize_trace(10, 5, poison_frac=0.5, poison_scale=0.0)
+
+
+# ---------------------------------------------------------------- admission
+
+@pytest.mark.parametrize("policy", [
+    dict(rate_limit=40.0, rate_burst=8.0),
+    dict(max_pending=12),
+    dict(stale_deprioritize=2, stale_reject=6),
+    dict(rate_limit=60.0, rate_burst=4.0, max_pending=20,
+         stale_deprioritize=1, stale_reject=3, window_s=2.0)],
+    ids=["rate", "backpressure", "staleness", "all"])
+def test_serving_admission_verdicts_equal_fedtpus(policy):
+    """One seeded event stream through both controllers: the same
+    verdicts in the same order, counts, window rates and checkpoint
+    state, with the screen's recorded verdicts interleaved."""
+    rng = np.random.default_rng(0)
+    n = 600
+    now = np.cumsum(rng.exponential(0.02, n))
+    stale = rng.integers(0, 9, n)
+    pending = rng.integers(0, 30, n)
+    ctl = {}
+    for name, mod, reg in (("j", j_adm, JRegistry()),
+                           ("t", t_adm, TRegistry())):
+        c = mod.AdmissionController(mod.AdmissionPolicy(**policy),
+                                    registry=reg)
+        out = []
+        for i in range(n):
+            out.append(c.decide(float(now[i]), int(stale[i]),
+                                int(pending[i])))
+            if i % 7 == 0:
+                out.append(c.record(mod.SCREENED, float(now[i])))
+        ctl[name] = (c, out, reg)
+    (jc, j_out, j_reg), (tc, t_out, t_reg) = ctl["j"], ctl["t"]
+    assert t_out == j_out
+    assert tc.counts == jc.counts
+    assert sum(v > 0 for v in tc.counts.values()) >= 3
+    assert tc.window_rates() == jc.window_rates()
+    assert tc.state() == jc.state()
+    assert (t_reg.snapshot()["counters"] == j_reg.snapshot()["counters"])
+    with pytest.raises(ValueError, match="stale_reject"):
+        t_adm.AdmissionPolicy(stale_deprioritize=8, stale_reject=4)
+    with pytest.raises(ValueError, match="unknown verdict"):
+        tc.record("bogus")
+
+
+def test_serving_metrics_and_slo_burn_equal_fedtpus():
+    from fedtpu.autoscale.signals import slo_burn_from_hist as j_burn
+    from fedtpu_torch.autoscale.signals import slo_burn_from_hist as t_burn
+    vals = np.random.default_rng(1).lognormal(-1.0, 1.0, 300)
+    bins = (0.05, 0.1, 0.5, 1.0, 5.0)
+    jh = JRegistry().histogram("lat", bins=bins)
+    th = TRegistry().histogram("lat", bins=bins)
+    jh.observe_many(vals.tolist())
+    th.observe_many(vals.tolist())
+    assert th.to_dict() == jh.to_dict()
+    for objective in (0.07, 1.0, 10.0):
+        assert t_burn(th.to_dict(), objective, 0.1) == j_burn(
+            jh.to_dict(), objective, 0.1)
+    assert t_burn(None, 1.0, 0.1) == 0.0
+
+
+# ----------------------------------------------------------------- protocol
+
+class _ServeSink:
+    def __init__(self):
+        self.data = b""
+
+    def sendall(self, b):
+        self.data += b
+
+
+def test_serving_protocol_framing_equals_fedtpus():
+    """Frames are byte-equal, trace ids equal, error frames equal, and
+    each side parses the other's frames."""
+    msgs = [{"op": "hello", "v": 1},
+            {"op": "updates", "events": [[3, 0.5, 0.25], [9, 0.75, 0.1,
+                                                          None, 10.0]],
+             "nonce": "abc", "seq": 4, "trace": t_proto.trace_id("abc", 4)},
+            {"op": "stats"}, {"z": [1.5, None], "a": {"y": 2, "b": "x"}}]
+    for m in msgs:
+        js, ts = _ServeSink(), _ServeSink()
+        j_proto.send_msg(js, m)
+        t_proto.send_msg(ts, m)
+        assert ts.data == js.data
+        assert t_proto.parse_msg(js.data.rstrip(b"\n")) == m
+    assert t_proto.trace_id("n", 7) == j_proto.trace_id("n", 7)
+    assert t_proto.error_msg("x") == j_proto.error_msg("x")
+    assert t_proto.parse_msg(b"{not json") is None
+    assert t_proto.parse_msg(b"[1, 2]") is None
+    assert (t_proto.PROTOCOL_VERSION, t_proto.MAX_LINE_BYTES,
+            t_proto.MAX_BATCH_EVENTS) == (j_proto.PROTOCOL_VERSION,
+                                          j_proto.MAX_LINE_BYTES,
+                                          j_proto.MAX_BATCH_EVENTS)
+
+
+@pytest.mark.parametrize("mod", [j_proto, t_proto], ids=["fedtpu", "port"])
+def test_serving_protocol_refuses_an_oversized_line_and_reads_on(mod):
+    """A line past MAX_LINE_BYTES is refused once (None) and the next
+    line still arrives with a LineBuffer; a plain bytearray drops the
+    connection, as fedtpu's does."""
+    a, b = socket.socketpair()
+    try:
+        def feed():
+            a.sendall(b"x" * (t_proto.MAX_LINE_BYTES + 10) + b"\n"
+                      + b'{"op":"stats"}\n')
+        th = threading.Thread(target=feed)
+        th.start()
+        buf, got = mod.LineBuffer(), []
+        while len(got) < 2:
+            got.extend(mod.recv_lines(b, buf))
+        th.join(timeout=30)
+        assert not th.is_alive()
+        assert got[0] is None and mod.parse_msg(got[1]) == {"op": "stats"}
+        assert buf.dropped == 1
+        th = threading.Thread(target=lambda: a.sendall(
+            b"y" * (t_proto.MAX_LINE_BYTES + 10)))
+        th.start()
+        with pytest.raises(ConnectionError, match="MAX_LINE_BYTES"):
+            plain = bytearray()
+            while True:
+                list(mod.recv_lines(b, plain))
+        th.join(timeout=30)
+    finally:
+        a.close()
+        b.close()
+
+
+def test_serving_handle_refuses_a_version_mismatch_as_fedtpu():
+    from fedtpu.serving.server import _handle as j_handle
+    from fedtpu_torch.serving.server import _handle, _safe_handle
+    from fedtpu_torch.telemetry.trace import NullTracer
+    bad = {"op": "hello", "v": 99}
+    # fedtpu's answer comes before it touches the engine.
+    assert _handle(None, bad) == j_handle(None, bad)
+    assert _handle(None, bad)["op"] == "error"
+    eng = _serve_t_engine()
+    ok = _handle(eng, {"op": "hello", "v": 1})
+    assert ok == {"op": "welcome", "v": 1, "cohort": 8, "version": 0}
+    assert _handle(eng, {"op": "nope"})["op"] == "error"
+    reg = TRegistry()
+    resp = _safe_handle(None, {"op": "stats"}, NullTracer(), reg)
+    assert resp["op"] == "error" and "AttributeError" in resp["reason"]
+    assert reg.snapshot()["counters"]["serve_handler_errors"] == 1
+
+
+# ------------------------------------------------------------------- engine
+
+_SERVE_ENGINE_CASES = {
+    "time-driven": {},
+    "flush_every": dict(flush_every=12),
+    "buffer_size 0": dict(buffer_size=0),
+    "deprioritize": dict(buffer_size=0, stale_deprioritize=0,
+                         stale_reject=2, rate_limit=25.0, rate_burst=6.0,
+                         max_pending=10),
+}
+
+
+def _serve_drive(engine, handle, rows, frame=50):
+    """fedtpu's server path, in process: session-stamped ``updates``
+    frames, one resent (a lost ack), then drain and stats."""
+    out = []
+    frames = [rows[i:i + frame] for i in range(0, len(rows), frame)]
+    for seq, events in enumerate(frames, start=1):
+        msg = {"op": "updates", "events": events, "nonce": "s0", "seq": seq}
+        out.append(handle(engine, msg))
+        if seq == 2:
+            out.append(handle(engine, msg))
+    out.append(handle(engine, {"op": "drain"}))
+    out.append(_serve_no_wall(handle(engine, {"op": "stats"})))
+    return out
+
+
+@pytest.mark.parametrize("case", list(_SERVE_ENGINE_CASES))
+def test_serving_engine_equals_fedtpus(tmp_path, case):
+    """The trace through fedtpu's server path in both packages (fedtpu's
+    initial params injected): every ack, the per-tick history and the WAL
+    equal as strings, the summary equal but for its wall-clock keys, the
+    global params within 1e-5, eval_accuracy equal; a resent frame is
+    dropped as a duplicate with its original counts."""
+    from fedtpu.serving.server import _handle as j_handle
+    from fedtpu_torch.serving.server import _handle as t_handle
+    kw = _SERVE_ENGINE_CASES[case]
+    _, t, user, lat = _serve_trace()
+    rows = _serve_rows(t, user, lat)
+    j = _serve_j_engine(**kw)
+    eng = _serve_t_engine(_serve_fedtpu_init(j), **kw)
+    j.wal_path, eng.wal_path = (str(tmp_path / "j.wal"),
+                                str(tmp_path / "t.wal"))
+    j_out = _serve_drive(j, j_handle, rows)
+    t_out = _serve_drive(eng, t_handle, rows)
+    assert t_out == j_out
+    assert t_out[2]["duplicate"] and t_out[2]["counts"] == t_out[1]["counts"]
+    assert eng.duplicate_drops == j.duplicate_drops == 50
+    assert eng.history_lines() == j.history_lines()
+    assert len(eng.history_lines()) >= 10
+    with open(j.wal_path) as fj, open(eng.wal_path) as ft:
+        assert ft.read() == fj.read()
+    np.testing.assert_allclose(_serve_t_global(eng), _serve_j_global(j), rtol=0,
+                               atol=1e-5)
+    assert eng.eval_accuracy() == j.eval_accuracy()
+    assert _serve_no_wall(eng.summary()) == _serve_no_wall(j.summary())
+    summary = eng.summary()
+    if case == "deprioritize":
+        adm = summary["admission"]
+        assert min(adm["deprioritize"], adm["reject_rate"],
+                   adm["reject_stale"], adm["reject_backpressure"]) > 0
+
+
+def test_serving_engine_offer_paths_equal_fedtpus():
+    """Single offers with explicit versions and a same-user coalesce, the
+    configure/pre_drain knobs and the K-buffer starvation at drain, as
+    fedtpu's: the same verdicts, history and signals."""
+    runs = {}
+    j = _serve_j_engine(buffer_size=4, tick_interval_s=0.0)
+    for name, eng in (("j", j), ("t", _serve_t_engine(_serve_fedtpu_init(j),
+                                                 buffer_size=4,
+                                                 tick_interval_s=0.0))):
+        verdicts = [eng.offer(0.1, u, 0.0) for u in (0, 0, 1)]
+        verdicts.append(eng.offer(0.2, 4, 0.05, version=0))
+        applied = eng.configure(tick_interval_s=0.25, flush_every=2)
+        verdicts += [eng.offer(0.3 + 0.1 * i, 10 + i, 0.0) for i in range(5)]
+        eng.drain()
+        runs[name] = (verdicts, applied, eng.history_lines(),
+                      _serve_no_wall(eng.signals()), eng.version, eng.nbuf_host,
+                      eng.binder.state()["slots"].tolist())
+    assert runs["t"] == runs["j"]
+    with pytest.raises(ValueError, match="tick_interval_s"):
+        _serve_t_engine().configure(tick_interval_s=-1.0)
+
+
+def test_serving_engine_pre_drain_spools_fedtpus_lines(tmp_path):
+    j = _serve_j_engine(tick_interval_s=0.0)
+    eng = _serve_t_engine(_serve_fedtpu_init(j), tick_interval_s=0.0)
+    for e in (j, eng):
+        for i in range(5):
+            e.offer(0.1 * (i + 1), i, 0.0, poison=float(i % 2))
+    nj, pj = j.pre_drain(str(tmp_path / "j.jsonl"))
+    nt, pt = eng.pre_drain(str(tmp_path / "t.jsonl"))
+    assert nt == nj == 5
+    with open(pj) as fj, open(pt) as ft:
+        assert ft.read() == fj.read()
+    with pytest.raises(ValueError, match="spool_dir"):
+        eng.pre_drain()
+
+
+def _serve_split_run(tmp_path, rows, half, **kw):
+    """Uninterrupted, and checkpointed at ``half`` into a FRESH engine
+    that finishes the rows: both engines."""
+    ref = _serve_t_engine(**kw)
+    ref.offer_many(rows)
+    ref.drain()
+    first = _serve_t_engine(**kw)
+    first.offer_many(rows[:half])
+    assert first.pending, "no updates pending at the checkpoint"
+    first.checkpoint(str(tmp_path))
+    second = _serve_t_engine(**kw)
+    assert second.restore(str(tmp_path)) == first.tick_count
+    second.offer_many(rows[half:])
+    second.drain()
+    return ref, first, second
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(rate_limit=4.0, rate_burst=2.0),
+    dict(buffer_size=0, flush_every=16)], ids=["plain", "rate", "flush"])
+def test_serving_engine_checkpoint_restore_is_bitwise(tmp_path, kw):
+    """Checkpoint mid-stream with updates pending, restore into a fresh
+    engine, finish: history, params, optimizer state, latencies,
+    admission and the registry's run totals are the uninterrupted run's,
+    bitwise (fedtpu's test_serving_engine_checkpoint_restore_is_bitwise and its
+    admission/latency twin, in the port)."""
+    from fedtpu_torch.parallel.async_fed import async_state_tensors
+    _, t, user, lat = _serve_trace(arrivals=120)
+    ref, _, eng = _serve_split_run(tmp_path, _serve_rows(t, user, lat), 60, **kw)
+    assert eng.history_lines() == ref.history_lines()
+    for a, b in zip(async_state_tensors(eng.state),
+                    async_state_tensors(ref.state)):
+        assert torch.equal(a, b)
+    assert eng.state["round"] == ref.state["round"]
+    assert eng.latencies == ref.latencies
+    assert eng.admission.counts == ref.admission.counts
+    assert eng._lat_hist.to_dict() == ref._lat_hist.to_dict()
+    # The admission window's rates are not checkpointed (fedtpu's
+    # design: they warm back up over one window_s); the rest is.
+    got, want = _serve_no_wall(eng.summary()), _serve_no_wall(ref.summary())
+    for s in (got, want):
+        for key in ("window_decisions", "rates"):
+            s["signals"].pop(key)
+    assert got == want
+    counters = eng.registry.snapshot()["counters"]
+    assert counters["serve_updates_incorporated"] == ref.incorporated
+    assert counters["serve_ticks"] == ref.tick_count
+    if kw.get("rate_limit"):
+        assert ref.admission.counts["reject_rate"] > 0
+
+
+def test_serving_restore_refuses_another_engines_checkpoint(tmp_path):
+    eng = _serve_t_engine()
+    eng.offer(0.1, 1, 0.0)
+    eng.checkpoint(str(tmp_path))
+    with pytest.raises(ValueError, match="another engine"):
+        _serve_t_engine(cohort=4).restore(str(tmp_path))
+
+
+def test_serving_engine_sessions_and_wal_replay_after_restore(tmp_path):
+    """A frame in the WAL but not in the checkpoint is re-offered on
+    resume, one the checkpoint covers is not, and the client's retry of
+    an acked frame dedups: the run ends where the uninterrupted one
+    does."""
+    from fedtpu_torch.serving.server import _handle
+    _, t, user, lat = _serve_trace(arrivals=120)
+    rows = _serve_rows(t, user, lat)
+    ref = _serve_t_engine()
+    for seq, k in enumerate(range(0, 120, 40), start=1):
+        _handle(ref, {"op": "updates", "events": rows[k:k + 40],
+                      "nonce": "c", "seq": seq})
+    ref.drain()
+    a = _serve_t_engine()
+    a.wal_path = str(tmp_path / "wal")
+    _handle(a, {"op": "updates", "events": rows[:40], "nonce": "c",
+                "seq": 1})
+    a.checkpoint(str(tmp_path / "ck"))
+    assert os.path.getsize(a.wal_path) == 0      # durable: truncated
+    _handle(a, {"op": "updates", "events": rows[40:80], "nonce": "c",
+                "seq": 2})
+    b = _serve_t_engine()
+    b.wal_path = a.wal_path
+    b.restore(str(tmp_path / "ck"))
+    assert b.replay_wal() == 40
+    dup = _handle(b, {"op": "updates", "events": rows[40:80], "nonce": "c",
+                      "seq": 2})
+    assert dup["duplicate"]
+    _handle(b, {"op": "updates", "events": rows[80:], "nonce": "c",
+                "seq": 3})
+    b.drain()
+    assert b.history_lines() == ref.history_lines()
+    assert torch.equal(b.state["params"], ref.state["params"])
+
+
+# ------------------------------------------------------------------- screen
+
+def test_serving_screened_engine_decisions_equal_fedtpus():
+    """fedtpu's defense tests' poisoned replay through a screening engine
+    in both packages: the defense log (strikes and quarantines), the
+    history and the quarantine set equal; quarantined ids are attackers
+    only."""
+    rows, attackers = _serve_poison_rows()
+    kw = dict(screen=True, quarantine_strikes=3)
+    j = _serve_j_engine(**kw)
+    eng = _serve_t_engine(_serve_fedtpu_init(j), **kw)
+    for e in (j, eng):
+        e.offer_many(rows)
+        e.drain()
+    assert eng.defense_log == j.defense_log
+    assert eng.history_lines() == j.history_lines()
+    assert sorted(eng.quarantined) == sorted(j.quarantined)
+    assert eng.quarantined and set(eng.quarantined) <= set(attackers)
+    assert eng.screened_total == j.screened_total
+    np.testing.assert_allclose(_serve_t_global(eng), _serve_j_global(j), rtol=0,
+                               atol=1e-5)
+    assert eng.eval_accuracy() == j.eval_accuracy()
+
+
+def test_serving_screened_checkpoint_restore_is_bitwise(tmp_path):
+    rows, _ = _serve_poison_rows()
+    ref, first, eng = _serve_split_run(tmp_path, rows, len(rows) // 2,
+                                 screen=True, quarantine_strikes=3)
+    assert eng.defense_log == ref.defense_log[len(first.defense_log):]
+    assert eng.quarantined == ref.quarantined and eng.strikes == ref.strikes
+    assert eng.history_lines() == ref.history_lines()
+    assert torch.equal(eng.state["screen_norms"], ref.state["screen_norms"])
+    assert torch.equal(eng.state["params"], ref.state["params"])
+
+
+def test_serving_defense_sim_lines_equal_fedtpus_in_process():
+    """The port's simulate() at fedtpu's constants (fedtpu's initial params
+    injected) writes fedtpu's decision lines, held against fedtpu's
+    simulate() run here, not against the committed golden (whose line
+    count this JAX build does not reproduce)."""
+    from fedtpu.robust import defense_sim as j_sim
+    from fedtpu.serving.engine import ServingEngine
+    from fedtpu_torch.robust import defense_sim as t_sim
+    for name in ("SIM_USERS", "SIM_ARRIVALS", "SIM_HORIZON_S", "SIM_SEED",
+                 "SIM_POISON_FRAC", "SIM_POISON_SCALE", "SIM_COHORT",
+                 "SIM_BUFFER", "SIM_TICK_INTERVAL_S",
+                 "SIM_QUARANTINE_STRIKES"):
+        assert getattr(t_sim, name) == getattr(j_sim, name), name
+    j_init = _serve_fedtpu_init(ServingEngine(j_sim._sim_config(),
+                                        registry=JRegistry()))
+    want = j_sim.simulate()
+    got = t_sim.simulate(device="cpu", init_params=j_init)
+    assert got["lines"] == want["lines"]
+    assert got["summary"] == want["summary"]
+    assert got["summary"]["quarantined_honest"] == []
+
+
+def test_serving_defense_sim_writes_and_compares_decisions(tmp_path):
+    from fedtpu.autoscale.controller import compare_decisions as j_compare
+    from fedtpu_torch.robust.defense_sim import (compare_decisions,
+                                                 write_decisions)
+    lines = ['{"a":1}', '{"b":2}']
+    path = str(tmp_path / "d.jsonl")
+    write_decisions(path, lines)
+    with open(path) as fh:
+        assert fh.read() == '{"a":1}\n{"b":2}\n'
+    for probe in (lines, lines[:1], ['{"a":1}', '{"b":3}']):
+        assert compare_decisions(probe, path) == j_compare(probe, path)
+    assert not compare_decisions(lines, str(tmp_path / "none"))["ok"]
+
+
+# ---------------------------------------------------------------- wire path
+
+def _serve_in_thread(run_server, cfg, pf, **kw):
+    box = {}
+
+    def target():
+        box["summary"] = run_server(cfg, port_file=pf, once=True,
+                                    verbose=False, **kw)
+
+    th = threading.Thread(target=target)
+    th.start()
+    return th, box
+
+
+def test_serving_loadgen_localhost_smoke(tmp_path):
+    """The port's run_server (a thread, once=True) fed by the port's
+    run_loadgen over localhost; the history it writes is the in-process
+    replay's."""
+    from fedtpu_torch.serving.loadgen import run_loadgen
+    from fedtpu_torch.serving.server import run_server
+    header, t, user, lat = _serve_trace(arrivals=150)
+    trace = str(tmp_path / "trace.jsonl")
+    t_traces.write_trace(trace, header, t, user, lat)
+    pf = str(tmp_path / "port")
+    th, box = _serve_in_thread(run_server, tcfg.ServingConfig(**_serve_kw()),
+                               pf, device="cpu",
+                               history_path=str(tmp_path / "hist.jsonl"))
+    try:
+        res = run_loadgen(trace, port_file=pf, batch=64)
+    finally:
+        th.join(timeout=120)
+    assert not th.is_alive()
+    assert res["events_sent"] == 150 and res["frames"] == 3
+    assert sum(res["admission"].values()) == 150
+    stats = res["server_stats"]
+    assert stats["ticks"] > 0 and stats["incorporated"] > 0
+    hist = (tmp_path / "hist.jsonl").read_text().strip().splitlines()
+    assert len(hist) == stats["ticks"] == box["summary"]["ticks"]
+    # The events re-read from the file are the trace's to 1e-9: replaying
+    # them in process gives the same history, line for line.
+    _, tt, uu, ll = t_traces.load_trace_arrays(trace)
+    eng = _serve_t_engine()
+    eng.offer_many(_serve_rows(tt, uu, ll))
+    eng.drain()
+    assert eng.history_lines() == hist
+
+
+@pytest.mark.parametrize("loadgen, server", [
+    ("port", "fedtpu"), ("port", "port"), ("fedtpu", "port")])
+def test_serving_loadgen_gets_the_same_acks_across_packages(tmp_path,
+                                                            loadgen, server):
+    """The port's loadgen against fedtpu's run_server and the port's, and
+    fedtpu's loadgen against the port's: the same ack counts, tick count
+    and history as the trace's in-process replay."""
+    if loadgen == "fedtpu":
+        from fedtpu.serving.loadgen import run_loadgen
+    else:
+        from fedtpu_torch.serving.loadgen import run_loadgen
+    if server == "fedtpu":
+        from fedtpu.serving.server import run_server
+        cfg = jcfg.ServingConfig(**_serve_kw(buffer_size=0))
+        kw = {}
+    else:
+        from fedtpu_torch.serving.server import run_server
+        cfg = tcfg.ServingConfig(**_serve_kw(buffer_size=0))
+        kw = {"device": "cpu"}
+    header, t, user, lat = j_traces.synthesize_trace(
+        users=200, arrivals=180, horizon_s=6.0, seed=4, poison_frac=0.1)
+    trace = str(tmp_path / "trace.jsonl")
+    j_traces.write_trace(trace, header, t, user, lat)
+    pf, hist = str(tmp_path / "port"), str(tmp_path / "hist.jsonl")
+    th, box = _serve_in_thread(run_server, cfg, pf, history_path=hist, **kw)
+    try:
+        res = run_loadgen(trace, port_file=pf, batch=40)
+    finally:
+        th.join(timeout=120)
+    assert not th.is_alive()
+    assert res["events_sent"] == 180 and res["frames"] == 5
+    # The in-process replay of the file's events (buffer_size 0, no
+    # screen: the acks and the history are host bookkeeping only).
+    eng = _serve_t_engine(buffer_size=0)
+    _, events = t_traces.read_trace(trace)
+    eng.offer_many([[e.user, e.t, e.lat, None, e.poison] for e in events])
+    eng.drain()
+    assert res["admission"] == {k: v for k, v in eng.admission.counts.items()
+                                if v}
+    with open(hist) as fh:
+        assert fh.read().splitlines() == eng.history_lines()
+    assert res["server_stats"]["ticks"] == eng.tick_count
+    assert res["server_stats"]["version"] == eng.version
+    assert box["summary"]["ticks"] == eng.tick_count
+
+
+# ----------------------------------------------------------------- refusals
+
+def test_serving_unported_paths_raise_naming_their_items():
+    from fedtpu_torch.serving.server import run_server
+    eng = _serve_t_engine()
+    for call in (lambda: eng.attach_store(100),
+                 lambda: eng.writeback_slots()):
+        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A8c\)"):
+            call()
+    cfg = tcfg.ServingConfig(**_serve_kw())
+    for kw, item in ((dict(events="x"), "A11"), (dict(heartbeat="x"), "A11"),
+                     (dict(net_fault_plan="{}"), "A8c")):
+        with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {item}\)"):
+            run_server(cfg, device="cpu", verbose=False, **kw)
+
+
+def test_serving_config_has_fedtpus_fields_and_defaults():
+    j_fields = [(f.name, f.default) for f in
+                dataclasses.fields(jcfg.ServingConfig)]
+    t_fields = [(f.name, f.default) for f in
+                dataclasses.fields(tcfg.ServingConfig)]
+    assert t_fields == j_fields
+
+
+def test_serving_engine_on_the_card_needs_one():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from fedtpu_torch.serving.engine import ServingEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(tcfg.ServingConfig(**_serve_kw()))
+    with pytest.raises(ValueError, match="CUDA graph needs CUDA tensors"):
+        ServingEngine(tcfg.ServingConfig(**_serve_kw()), device="cpu",
+                      capture=True)
+
+
+# -------------------------------------------------- subprocess (full tier)
+
+@pytest.mark.slow
+def test_serving_sigterm_drains_checkpoints_and_exits_75(tmp_path):
+    """SIGTERM mid-serve: drain, checkpoint, exit EXIT_PREEMPTED (75)."""
+    from fedtpu_torch.serving.loadgen import run_loadgen
+    pf = tmp_path / "port"
+    ckpt = tmp_path / "ckpt"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fedtpu_torch.cli", "serve", "--platform",
+         "cpu", "--port-file", str(pf), "--buffer-size", "2",
+         "--checkpoint-dir", str(ckpt), "--quiet"], cwd=_SERVE_REPO)
+    try:
+        header, t, user, lat = _serve_trace(arrivals=100)
+        trace = tmp_path / "trace.jsonl"
+        t_traces.write_trace(str(trace), header, t, user, lat)
+        run_loadgen(str(trace), port_file=str(pf), drain=False)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    assert rc == 75
+    rounds = [p for p in os.listdir(ckpt) if p.startswith("round_")]
+    assert rounds, "SIGTERM drain wrote no checkpoint"
