@@ -123,10 +123,32 @@ Phases, in order; any failure exits non-zero before the result line:
    history equal to the CPU's, accuracy equal but on near ties, attackers
    quarantined and no honest user; ``defense_sim.simulate`` on the card
    against the CPU.
+   Then the rest of the serving stack, (q) (``phase_fleet``), each gateway
+   engine (p)'s, on a trace of loadgen's population at its rate cut to
+   12 virtual s (20,000 arrivals from 1,000,000 users): two
+   ``run_gateway`` threads (the memory store over 1,000,000 users, a
+   record per user) fed by the partitioning ``GatewayClient`` with one
+   misrouted frame redirected, launches counted from zero (K1's sum mode
+   and K2 a non-empty tick of each gateway and a warm-up each, K3 a
+   shutdown summary each), events/s, ticks/s, evictions, the host ms of
+   a store swap and the touched rows; the same parts in process on the
+   card uncaptured (bitwise the wire fleet's checkpoints: state and every
+   store byte) and on the CPU (histories and summaries equal, global
+   params and store values within 1e-4, headers equal); the flush/adopt
+   failover in process (a stale generation refused, the adopted records
+   bitwise the exported, the spool replayed) against the CPU's; K1's sum
+   mode at the net sim's (8, 74); one gateway behind the wire-fault proxy
+   (fedtpu's net sim plan) twice, exactly once and the decision logs
+   identical; ``net_sim.simulate`` on the card against the CPU;
+   ``autoscale --simulate`` through the CLI and a ``LiveController``
+   against a card server under load, every action acked; and the CLI
+   fleet (two ``gateway`` subprocesses, ``loadgen --num-gateways 2``)
+   through the lost-ack drill: gateway 1 kills itself after its fifth
+   ack and is relaunched with ``--resume``, and no acked update is lost.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package (nor does
-the port's serving stack, which phase (p) drives).
+the port's serving stack, which phases (p) and (q) drive).
 """
 
 import dataclasses
@@ -3339,6 +3361,825 @@ def phase_serve() -> tuple:
     return by_path, numbers, kernel_rows
 
 
+# Phase (q): the rest of the serving stack at the income MLP's full width,
+# each gateway engine phase (p)'s (SERVE_CFG): the store-backed fleet of two
+# gateways over 1,000,000 users (the memory store: a record is the slot's
+# four (11,352,) float32 rows, two int32s and the 32-byte header), the
+# flush/adopt failover, one gateway behind the wire-fault proxy, the net
+# sim, the autoscale control plane, and the CLI fleet with its lost-ack
+# drill. The trace is loadgen's --synthesize population at its default
+# rate (100,000 arrivals over 60 s), cut to 12 virtual s.
+FLEET_TRACE = dict(users=1_000_000, arrivals=20_000, horizon_s=12.0, seed=0)
+FLEET_USERS = 1_000_000
+FLEET_N = 2
+# The frame whose gateway-1 part is sent to gateway 0 on purpose: its
+# redirect must be followed.
+FLEET_MISROUTED = 3
+FLEET_GEN = "fleet-gen-0"
+# Card vs CPU: params and store values (float32, 24 ticks of Adam).
+FLEET_TOL = 1e-4
+# The lost-ack drill: gateway 1 of the CLI fleet kills itself after acking
+# (processing) its fifth frame, before the ack is sent.
+FLEET_KILL = "1:5"
+
+
+def fleet_parts(rows: list) -> list:
+    """The trace as the partitioning client sends it: frames of SERVE_FRAME
+    events, each split by owner (user % 2) in trace order; per gateway,
+    its part of every frame (empty parts included)."""
+    parts = [[] for _ in range(FLEET_N)]
+    for i in range(0, len(rows), SERVE_FRAME):
+        per = [[] for _ in range(FLEET_N)]
+        for r in rows[i:i + SERVE_FRAME]:
+            per[r[0] % FLEET_N].append(r)
+        for g in range(FLEET_N):
+            parts[g].append(per[g])
+    return parts
+
+
+def fleet_engine(device: str, g: int, capture=None):
+    """A gateway's engine (SERVE_CFG) with its shard of the memory store."""
+    eng = serve_engine(device, capture=capture)
+    store = eng.attach_store(FLEET_USERS, shard_index=g, num_shards=FLEET_N)
+    store.generation = FLEET_GEN
+    return eng
+
+
+def timed_swaps(eng) -> dict:
+    """Count the engine's store swaps and their host seconds (a tick's
+    swaps are one call, its device read and write included)."""
+    acc = {"swaps": 0, "s": 0.0}
+    inner = eng._swap_slots
+
+    def swap(swaps):
+        t0 = time.perf_counter()
+        inner(swaps)
+        acc["s"] += time.perf_counter() - t0
+        acc["swaps"] += len(swaps)
+
+    eng._swap_slots = swap
+    return acc
+
+
+def fleet_replay(device: str, rows: list, directory=None, capture=None):
+    """Each gateway's part of the trace in process (``offer_many`` of its
+    part of every frame, then the drain; no sockets), the engine
+    checkpointed (its store rides the checkpoint) under
+    ``directory/g<i>`` when a directory is given. Returns the engines,
+    their swap counters and the wall seconds."""
+    engines, swaps = [], []
+    t0 = time.perf_counter()
+    for g, parts in enumerate(fleet_parts(rows)):
+        eng = fleet_engine(device, g, capture)
+        swaps.append(timed_swaps(eng))
+        for part in parts:
+            eng.offer_many(part)
+        eng.drain()
+        if directory:
+            eng.checkpoint(os.path.join(directory, f"g{g}"))
+        engines.append(eng)
+    return engines, swaps, time.perf_counter() - t0
+
+
+def fleet_handoff(device: str, rows: list, directory: str,
+                  checkpoint: bool = False) -> dict:
+    """The flush/adopt failover through the gateway handler, in process:
+    both gateways take their parts of the trace's first half; gateway 1
+    flushes (writeback, spool, checkpoint) with its pending queue
+    spooled; gateway 0 refuses the export under a stale generation, then
+    adopts shard 1 under the flushed generation and replays the spool; the
+    adopted records must be the exported ones, byte for byte; the rest of
+    the trace goes to gateway 0 alone; gateway 0 is drained (and
+    checkpointed under ``directory/final`` when ``checkpoint``; else its
+    engine is returned under ``engine``)."""
+    from fedtpu_torch.serving.gateway import _Gateway, _gateway_handle
+    parts = fleet_parts(rows)
+    half = len(parts[0]) // 2
+    engines = [fleet_engine(device, g) for g in range(FLEET_N)]
+    swaps = timed_swaps(engines[0])
+    spans = []
+    if engines[0].device.type == "cuda":
+        # Gateway 0's device span of a tick (the mask's copy and the
+        # graph's replay, between two CUDA events).
+        inner = engines[0]._device_tick
+
+        def tick(mask):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = inner(mask)
+            end.record()
+            spans.append((start, end))
+            return out
+
+        engines[0]._device_tick = tick
+    gws = [_Gateway(g, FLEET_N, None, FLEET_GEN,
+                    os.path.join(directory, f"g{g}")) for g in range(FLEET_N)]
+
+    def send(g: int, events: list) -> None:
+        if events:
+            resp = _gateway_handle(gws[g], engines[g],
+                                   {"op": "updates", "events": events})
+            check(resp["op"] == "acks", f"handoff: gateway {g}: {resp}")
+
+    t0 = time.perf_counter()
+    for k in range(half):
+        for g in range(FLEET_N):
+            send(g, parts[g][k])
+    fl = _gateway_handle(gws[1], engines[1], {
+        "op": "flush", "path": os.path.join(directory, "spool.jsonl")})
+    check(fl["op"] == "flushed" and fl["spooled"] > 0,
+          f"handoff: flush {fl}")
+    stale = _gateway_handle(gws[0], engines[0], {
+        "op": "adopt", "shard": 1, "checkpoint_dir": gws[1].checkpoint_dir,
+        "generation": "stale"})
+    check(stale["op"] == "error" and "generation" in stale["reason"],
+          f"handoff: a stale generation was not refused: {stale}")
+    ad = _gateway_handle(gws[0], engines[0], {
+        "op": "adopt", "shard": 1, "checkpoint_dir": gws[1].checkpoint_dir,
+        "spool": fl["spool"], "generation": FLEET_GEN})
+    exported = np.array(sorted(engines[1].store._touched), np.int64)
+    check(ad["op"] == "adopted" and ad["replayed"] == fl["spooled"]
+          and ad["rows"] == exported.size and ad["owned"] == [0, 1],
+          f"handoff: adopt {ad}, flush {fl}, {exported.size} exported")
+    check(np.array_equal(engines[0].store._fetch(exported),
+                         engines[1].store._fetch(exported)),
+          "handoff: the adopted records differ from the exported ones")
+    for i in range(half * SERVE_FRAME, len(rows), SERVE_FRAME):
+        send(0, rows[i:i + SERVE_FRAME])
+    engines[0].drain()
+    wall = time.perf_counter() - t0
+    out = {}
+    if spans:
+        torch.cuda.synchronize()
+        out["tick_ms"] = statistics.median(a.elapsed_time(b)
+                                           for a, b in spans)
+        out["ticks_timed"] = len(spans)
+    if checkpoint:
+        engines[0].checkpoint(os.path.join(directory, "final"))
+    else:
+        out["engine"] = engines[0]
+    return {**out, "history": engines[0].history_lines(),
+            "history_g1": engines[1].history_lines(),
+            "summary": serve_no_wall(engines[0].summary()),
+            "flush": {k: v for k, v in fl.items()
+                      if k not in ("checkpoint", "spool")},
+            "adopt": ad, "exported": int(exported.size), "wall_s": wall,
+            "swaps": swaps["swaps"], "swap_s": swaps["s"]}
+
+
+def fleet_cpu_replay(trace: str, directory: str) -> dict:
+    """The CPU side of the fleet, in a process of its own while the card
+    works: the fleet's parts replayed (``fleet_replay``), checkpoints
+    under ``directory``."""
+    torch.set_num_threads(3)
+    t0 = time.perf_counter()
+    engines, swaps, _ = fleet_replay("cpu", serve_rows(trace), directory)
+    return {"history": [e.history_lines() for e in engines],
+            "summary": [serve_no_wall(e.summary()) for e in engines],
+            "s": time.perf_counter() - t0,
+            "swap_ms": [1e3 * s["s"] / max(1, s["swaps"]) for s in swaps]}
+
+
+def fleet_cpu_handoff(trace: str, directory: str) -> dict:
+    """The CPU side of the handoff (``fleet_handoff``, checkpointed under
+    ``directory/final``) and the net sim's lines, in a process of its
+    own."""
+    from fedtpu_torch.resilience.net_sim import simulate
+    torch.set_num_threads(3)
+    t0 = time.perf_counter()
+    out = fleet_handoff("cpu", serve_rows(trace), directory, checkpoint=True)
+    out["net_sim"] = simulate(device="cpu")["lines"]
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def fleet_checkpoint(directory: str) -> tuple:
+    """A checkpoint's state (CPU tensors) and meta (the store's arrays)."""
+    from fedtpu_torch.orchestration.checkpoint import (load_checkpoint_raw,
+                                                       load_meta)
+    return load_checkpoint_raw(directory)[0], load_meta(directory)
+
+
+def fleet_records(state: dict, meta: dict) -> tuple:
+    """The store export in ``meta``: ids, headers (the 32 bytes: version,
+    participation, key, strikes, flags) and each record's leaves
+    (``state_template`` of ``state``)."""
+    from fedtpu_torch.cohort.store import HEADER_BYTES, _pad8, state_template
+    ids = np.asarray(meta["store_ids"], np.int64)
+    recs = np.asarray(meta["store_records"], np.uint8)
+    leaves, off = [], HEADER_BYTES
+    for shape, dtype in state_template(state, SERVE_CFG["cohort"]):
+        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        leaves.append(np.ascontiguousarray(recs[:, off:off + n]).view(dtype))
+        off += _pad8(n)
+    return ids, recs[:, :HEADER_BYTES], leaves
+
+
+def fleet_same_store(label: str, card: tuple, cpu: tuple) -> dict:
+    """Card vs CPU checkpoints (``fleet_checkpoint``'s pairs): the global
+    params within FLEET_TOL, the same touched ids, every header equal,
+    every float leaf within FLEET_TOL and every integer leaf equal."""
+    from fedtpu_torch.parallel.async_fed import async_global_params
+    err = float((async_global_params(card[0])
+                 - async_global_params(cpu[0])).abs().max())
+    check(err <= FLEET_TOL, f"{label}: global params max abs err {err:.3e}")
+    (ids, head, leaves), (ids_c, head_c, leaves_c) = (fleet_records(*card),
+                                                      fleet_records(*cpu))
+    check(np.array_equal(ids, ids_c) and np.array_equal(head, head_c),
+          f"{label}: store ids or headers differ card vs CPU ({ids.size} "
+          f"vs {ids_c.size} records)")
+    worst = 0.0
+    for a, b in zip(leaves, leaves_c):
+        if a.dtype.kind == "f":
+            worst = max(worst, float(np.abs(a - b).max()) if a.size else 0.0)
+        else:
+            check(np.array_equal(a, b), f"{label}: an integer leaf differs")
+    check(worst <= FLEET_TOL, f"{label}: store values max abs err "
+          f"{worst:.3e} > {FLEET_TOL}")
+    return {"records": int(ids.size), "global_err": err, "store_err": worst,
+            "quarantined": int((head[:, 28] & 1).sum())}
+
+
+def fleet_wire(directory: str, trace: str, rows: list) -> dict:
+    """Two ``run_gateway`` threads on the card (the memory store over
+    1,000,000 users, ``once``, port file, history and checkpoint bases)
+    fed by the port's ``GatewayClient(num_gateways=2)``: each frame
+    partitioned by owner, frame FLEET_MISROUTED's gateway-1 part sent to
+    gateway 0 (its redirect followed), then a drain of each member.
+    Launches counted from zero around the run: K1 (sum mode) and K2 once a
+    non-empty tick of each gateway and in each warm-up, K3 once a gateway
+    (its shutdown summary)."""
+    import threading
+    from fedtpu_torch.config import ServingConfig
+    from fedtpu_torch.ops.cuda_kernels import LAUNCHES, reset_launch_counts
+    from fedtpu_torch.serving.client import GatewayClient
+    from fedtpu_torch.serving.gateway import run_gateway
+    from fedtpu_torch.serving.loadgen import read_port_file
+    from fedtpu_torch.serving.protocol import gateway_port_file
+    pf = os.path.join(directory, "fleet.port")
+    hist = os.path.join(directory, "fleet.history")
+    box = {}
+
+    def member(g: int) -> None:
+        try:
+            box[g] = run_gateway(
+                ServingConfig(**SERVE_CFG), gateway_index=g,
+                num_gateways=FLEET_N, port_file=pf, history_path=hist,
+                checkpoint_dir=os.path.join(directory, "fleet-ck"),
+                total_users=FLEET_USERS, once=True, verbose=False)
+        except BaseException as e:  # reported below, on the main thread
+            box[f"error {g}"] = e
+
+    reset_launch_counts()
+    threads = [threading.Thread(target=member, args=(g,))
+               for g in range(FLEET_N)]
+    t_start = time.perf_counter()
+    for th in threads:
+        th.start()
+    try:
+        for g in range(FLEET_N):
+            read_port_file(gateway_port_file(pf, g), timeout=300)
+        up_s = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        counts = {}
+        with GatewayClient(port_file=pf, num_gateways=FLEET_N, seed=0,
+                           timeout=300) as client:
+            client.hello(0)
+            for k, i in enumerate(range(0, len(rows), SERVE_FRAME)):
+                frame = rows[i:i + SERVE_FRAME]
+                if k != FLEET_MISROUTED:
+                    got = client.send_events(frame)
+                else:
+                    got = {}
+                    for g in range(FLEET_N):
+                        part = [r for r in frame if r[0] % FLEET_N == g]
+                        resp = client.request(client.stamped(
+                            {"op": "updates", "events": part}), gateway=0)
+                        check(resp["op"] == "acks", f"fleet: {resp}")
+                        for v, n in resp["counts"].items():
+                            got[v] = got.get(v, 0) + n
+                for v, n in got.items():
+                    counts[v] = counts.get(v, 0) + n
+            drains = client.request_each({"op": "drain"})
+            stats = dict(client.stats)
+        wall = time.perf_counter() - t0
+    finally:
+        for th in threads:
+            th.join(timeout=600)
+    errors = {k: v for k, v in box.items() if str(k).startswith("error")}
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"fleet: a gateway thread failed: {errors!r}")
+    launches = dict(LAUNCHES)
+    lines = []
+    for g in range(FLEET_N):
+        with open(f"{hist}.g{g}") as fh:
+            lines.append(fh.read().splitlines())
+    ticks = [sum(json.loads(x)["tick_slots"] > 0 for x in h) for h in lines]
+    want = {"weighted_average_clients": sum(ticks) + FLEET_N,
+            "fused_eval_confusion": sum(ticks) + FLEET_N,
+            "fused_mlp_forward": FLEET_N, "ring_all_reduce_sum": 0,
+            "fused_round": 0}
+    check(launches == want, f"fleet: launches {launches}, expected {want} "
+          f"({ticks} non-empty ticks + a warm-up each, a summary each)")
+    from fedtpu_torch.serving.admission import ADMITTED
+    admitted = sum(n for v, n in counts.items() if v in ADMITTED)
+    incorporated = sum(d["incorporated"] for d in drains.values())
+    check(sum(counts.values()) == len(rows) and admitted == incorporated
+          and stats["redirected"] >= 1,
+          f"fleet: acks {counts}, incorporated {incorporated}, client "
+          f"{stats}")
+    return {"box": box, "lines": lines, "ticks": ticks,
+            "launches": launches, "wall_s": wall, "up_s": up_s,
+            "events_per_sec": len(rows) / wall, "admission": counts,
+            "redirected": stats["redirected"], "incorporated": incorporated}
+
+
+def fleet_serve_main_thread(run, feed) -> dict:
+    """``run`` (a server that stops on SIGTERM) on this, the main, thread;
+    ``feed`` on another, which sends SIGTERM to this process when it is
+    done. Returns ``feed``'s result; ``run``'s ``Preempted`` is its
+    normal end."""
+    import signal
+    import threading
+    from fedtpu_torch.serving.server import Preempted
+    box = {}
+
+    def side():
+        try:
+            box["result"] = feed()
+        except BaseException as e:  # reported below, on the main thread
+            box["error"] = e
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    th = threading.Thread(target=side)
+    th.start()
+    try:
+        run()
+        fail("a server stopped by SIGTERM returned instead")
+    except Preempted:
+        pass
+    th.join(timeout=600)
+    check("error" not in box and not th.is_alive(),
+          f"a server's feeder failed: {box.get('error')!r}")
+    return box["result"]
+
+
+def fleet_behind_proxy(directory: str, trace: str, tag: str) -> tuple:
+    """One gateway behind the wire-fault proxy, ``net_fault_plan`` =
+    fedtpu's net sim campaign (SIM_PLAN), answered by ``run_loadgen``
+    through ``<port_file>.net``; stopped by SIGTERM once the loadgen's
+    drain and stats are back. The gateway holds no store (the fleet and
+    the handoff hold theirs): this step is the wire's. Returns the
+    loadgen's summary and the decision log's bytes."""
+    from fedtpu_torch.config import ServingConfig
+    from fedtpu_torch.resilience.net_sim import SIM_PLAN
+    from fedtpu_torch.serving.gateway import run_gateway
+    from fedtpu_torch.serving.loadgen import read_port_file, run_loadgen
+    pf = os.path.join(directory, f"net-{tag}.port")
+
+    def feed():
+        read_port_file(pf, timeout=300)
+        return run_loadgen(trace, port_file=pf, batch=SERVE_FRAME,
+                           timeout=300, backoff_s=0.01)
+
+    res = fleet_serve_main_thread(lambda: run_gateway(
+        ServingConfig(**SERVE_CFG), num_gateways=1, port_file=pf,
+        net_fault_plan=json.dumps(SIM_PLAN), verbose=False), feed)
+    with open(f"{pf}.netlog") as fh:
+        return res, fh.read()
+
+
+def fleet_net(directory: str, trace: str) -> dict:
+    """Wire faults: the gateway behind the proxy twice
+    (``fleet_behind_proxy``): every update the loadgen was told was
+    admitted is incorporated once, at least one duplicate is dropped, the
+    decision logs are byte-identical."""
+    from fedtpu_torch.serving.admission import ADMITTED
+    runs = [fleet_behind_proxy(directory, trace, tag) for tag in "ab"]
+    (res, log), (res_b, log_b) = runs
+    stats = res["server_stats"]
+    admitted = sum(n for v, n in res["admission"].items() if v in ADMITTED)
+    summary = json.loads(log.splitlines()[-1])["summary"]
+    check(admitted - stats["incorporated"] == 0
+          and stats["duplicate_drops"] >= 1 and res["retried"] >= 1
+          and res["events_sent"] == FLEET_TRACE["arrivals"],
+          f"net: admitted {admitted}, incorporated {stats['incorporated']}, "
+          f"duplicate drops {stats['duplicate_drops']}, loadgen {res}")
+    check(log == log_b and res_b["admission"] == res["admission"],
+          "net: the decision log or the acks differ between two runs")
+    print(f"net faults (one gateway behind the proxy, fedtpu's SIM_PLAN, "
+          f"{FLEET_TRACE['arrivals']} arrivals at full width): lost_acked 0, "
+          f"duplicate drops {stats['duplicate_drops']}, retried "
+          f"{res['retried']}, reconnects {res['reconnects']}, fired "
+          f"{summary['fired']}, {summary['frames']} frames on "
+          f"{summary['connections']} connections, decision log identical "
+          f"across two runs ({len(log.splitlines())} lines), "
+          f"{res['events_per_sec']:.1f} events/s; {CARD['smi']}", flush=True)
+    return {"events_per_sec": res["events_per_sec"],
+            "duplicate_drops": stats["duplicate_drops"],
+            "fired": summary["fired"]}
+
+
+def fleet_net_sim(cpu_sim: list) -> dict:
+    """``net_sim.simulate`` on the card against the CPU's lines, and
+    (printed, not gated: this machine's numpy draws another trace) against
+    the committed golden."""
+    from fedtpu_torch.resilience.net_sim import compare_decisions, simulate
+    sim = simulate(device="cuda")
+    check(sim["lines"] == cpu_sim, "net sim: lines differ card vs CPU")
+    golden = compare_decisions(sim["lines"], os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+        "net_sim.jsonl"))
+    s = sim["summary"]
+    check(s["lost_acked"] == 0, f"net sim: {s}")
+    print(f"net sim: {len(sim['lines'])} lines equal card vs CPU, lost_acked "
+          f"{s['lost_acked']}, duplicate drops {s['duplicate_drops']}, fired "
+          f"{s['fired']}; golden {golden['ok']} ({golden['reason']}); "
+          f"{CARD['smi']}", flush=True)
+    return {"lines": len(sim["lines"]), "golden": golden["ok"]}
+
+
+def fleet_autoscale(directory: str, trace: str) -> dict:
+    """``autoscale --simulate --json --out`` through the CLI (exit 0, its
+    lines the in-process ``simulate``'s; the golden printed, not gated);
+    then a ``LiveController`` (no supervisor pid) stepping against a card
+    ``run_server`` while ``run_loadgen`` feeds it, a preemption notice
+    written before its third tick: every poll reads the signals block,
+    every ``configure`` and ``pre_drain`` it sends is acked."""
+    import threading
+    from fedtpu_torch.autoscale.controller import (LiveController,
+                                                   compare_decisions,
+                                                   simulate)
+    from fedtpu_torch.config import AutoscaleConfig, ServingConfig
+    from fedtpu_torch.serving.loadgen import read_port_file, run_loadgen
+    from fedtpu_torch.serving.server import run_server
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(directory, "autoscale.jsonl")
+    proc = subprocess.run([sys.executable, "-m", "fedtpu_torch.cli",
+                           "autoscale", "--simulate", "--json", "--out", out],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"autoscale --simulate: exit "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    sim = simulate()
+    with open(out) as fh:
+        check(fh.read().splitlines() == sim["lines"],
+              "autoscale: the CLI's decision lines differ from simulate()'s")
+    golden = compare_decisions(sim["lines"], os.path.join(
+        root, "tests", "goldens", "autoscale_sim.jsonl"))
+    pf = os.path.join(directory, "auto.port")
+    notice = os.path.join(directory, "notice.json")
+    spool = os.path.join(directory, "auto-spool.jsonl")
+
+    def feed():
+        port = read_port_file(pf, timeout=300)
+        load = threading.Thread(target=run_loadgen, args=(trace,),
+                                kwargs=dict(port_file=pf, batch=SERVE_FRAME,
+                                            timeout=300, drain=False))
+        load.start()
+        ctl = LiveController(AutoscaleConfig(), port=port,
+                             notice_file=notice, spool_path=spool)
+        acks, steps = [], []
+        conn = ctl._connection()
+        request = conn.request
+
+        def recorded(obj, *a, **kw):
+            resp = request(obj, *a, **kw)
+            acks.append((obj["op"], resp))
+            return resp
+
+        conn.request = recorded
+        try:
+            while len(steps) < 3 or (load.is_alive() and len(steps) < 200):
+                if len(steps) == 2:
+                    with open(notice, "w") as fh:
+                        json.dump({"victim": 0}, fh)
+                snap, decisions = ctl.step()
+                steps.append((snap.backlog, [d.kind for d in decisions]))
+                time.sleep(0.02)
+        finally:
+            load.join(timeout=300)
+            conn.close()
+        return acks, steps, dict(ctl.acted)
+
+    acks, steps, acted = fleet_serve_main_thread(lambda: run_server(
+        ServingConfig(**SERVE_CFG), port_file=pf, verbose=False), feed)
+    want = {"stats": "stats", "configure": "configured",
+            "pre_drain": "pre_drained"}
+    bad = [(op, r.get("op")) for op, r in acks
+           if op in want and r.get("op") != want[op]]
+    polls = [r for op, r in acks if op == "stats"]
+    check(not bad and polls and all("backlog" in (r.get("signals") or {})
+                                    for r in polls)
+          and acted.get("pre_drain") == 1,
+          f"autoscale live: unacked {bad}, {len(polls)} polls, acted "
+          f"{acted}")
+    sent = {op: sum(o == op for o, _ in acks) for op in want}
+    print(f"autoscale: CLI --simulate exit 0, {cli['control_ticks']} "
+          f"decision lines equal to simulate()'s, golden {golden['ok']} "
+          f"({golden['reason']}); live controller on the card server: "
+          f"{len(steps)} control ticks while loadgen fed "
+          f"{FLEET_TRACE['arrivals']} arrivals, backlog polled "
+          f"{[b for b, _ in steps][:8]}..., sent {sent}, every one acked, "
+          f"acted {acted}; {CARD['smi']}", flush=True)
+    return {"sim_golden": golden["ok"], "control_ticks": len(steps),
+            "acted": acted, "sent": sent}
+
+
+def fleet_cli(directory: str, box: dict) -> None:
+    """The fleet as users run it: ``python -m fedtpu_torch.cli gateway
+    --num-gateways 2 --gateway-index i --total-users 1000000 --once``, two
+    subprocesses on the card, gateway 1 with FEDTPU_GATEWAY_KILL_AFTER
+    (FLEET_KILL); ``loadgen --num-gateways 2 --synthesize`` (FLEET_TRACE's
+    size) against them. When gateway 1 kills itself, it is relaunched with
+    ``--resume`` and FEDTPU_RESTARTS=1, as a supervisor would (``fedtpu
+    supervise --gang``; the port's is ROADMAP A11). Runs on a thread of
+    its own; its results land in ``box``."""
+    from fedtpu_torch.serving.loadgen import read_port_file
+    from fedtpu_torch.serving.protocol import gateway_port_file
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "fedtpu_torch.cli"]
+    pf = os.path.join(directory, "cli-fleet.port")
+    hist = os.path.join(directory, "cli-fleet.history")
+
+    def gateway(g: int, resume: bool = False, **env):
+        argv = cmd + ["gateway", "--num-gateways", str(FLEET_N),
+                      "--gateway-index", str(g), "--total-users",
+                      str(FLEET_USERS), "--port-file", pf, "--history", hist,
+                      "--checkpoint-dir", os.path.join(directory, "cli-ck"),
+                      "--cohort", "32", "--buffer-size", "16", "--once",
+                      "--quiet", "--json"] + (["--resume"] if resume else [])
+        return subprocess.Popen(argv, cwd=root, env={**os.environ, **env},
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+
+    t0 = time.perf_counter()
+    procs = [gateway(0), gateway(1, FEDTPU_GATEWAY_KILL_AFTER=FLEET_KILL)]
+    load = None
+    try:
+        for g in range(FLEET_N):
+            read_port_file(gateway_port_file(pf, g), timeout=300)
+        load = subprocess.Popen(
+            cmd + ["loadgen", os.path.join(directory, "cli-fleet.jsonl"),
+                   "--synthesize", "--users", str(FLEET_TRACE["users"]),
+                   "--arrivals", str(FLEET_TRACE["arrivals"]), "--horizon",
+                   str(FLEET_TRACE["horizon_s"]), "--port-file", pf,
+                   "--num-gateways", str(FLEET_N), "--batch",
+                   str(SERVE_FRAME), "--retries", "30", "--json", "--quiet"],
+            cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        first_life = None
+        while load.poll() is None:
+            if first_life is None and procs[1].poll() is not None:
+                first_life = procs[1]
+                box["killed_rc"] = first_life.returncode
+                box["killed_at_s"] = time.perf_counter() - t0
+                procs[1] = gateway(1, resume=True, FEDTPU_RESTARTS="1")
+            time.sleep(0.05)
+        out, err = load.communicate(timeout=60)
+        box["load"] = (load.returncode, out, err)
+        box["gateways"] = [p.communicate(timeout=300) + (p.returncode,)
+                           for p in procs]
+        box["first_life"] = (first_life.communicate(timeout=60)
+                             if first_life is not None else None)
+    except BaseException as e:  # reported on the main thread
+        box["error"] = e
+    finally:
+        for p in procs + ([load] if load is not None else []):
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        box["s"] = time.perf_counter() - t0
+        box["hist"] = hist
+
+
+def fleet_cli_check(box: dict) -> dict:
+    """``fleet_cli``'s checks: gateway 1 died by its own SIGKILL and was
+    relaunched, the loadgen exited 0, every update it was told was
+    admitted is incorporated once across the fleet, the relaunched
+    gateway absorbed at least one duplicate (the retry of the frame whose
+    ack was lost), both gateways exited 0 and wrote their histories."""
+    from fedtpu_torch.serving.admission import ADMITTED
+    check("error" not in box, f"CLI fleet: {box.get('error')!r}")
+    rc, out, err = box["load"]
+    check(box.get("killed_rc") == -9 and rc == 0
+          and all(p[2] == 0 for p in box["gateways"]),
+          f"CLI fleet: gateway 1 first life exit {box.get('killed_rc')}, "
+          f"loadgen exit {rc}: {err[-2000:]}; gateways "
+          f"{[(p[2], p[1][-800:]) for p in box['gateways']]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    stats = res["server_stats"]
+    admitted = sum(n for v, n in res["admission"].items() if v in ADMITTED)
+    incorporated = sum(s["incorporated"] for s in stats.values())
+    check(admitted == incorporated and stats["1"]["duplicate_drops"] >= 1
+          and res["events_sent"] == FLEET_TRACE["arrivals"],
+          f"CLI fleet: admitted {admitted}, incorporated {incorporated}, "
+          f"stats {stats}")
+    for g in range(FLEET_N):
+        check(os.path.getsize(f"{box['hist']}.g{g}") > 0,
+              f"CLI fleet: gateway {g} wrote no history")
+    print(f"CLI fleet (gateway --num-gateways 2 --total-users 1000000 x 2 "
+          f"subprocesses, loadgen --num-gateways 2 --synthesize "
+          f"{FLEET_TRACE['arrivals']} arrivals, {box['s']:.1f} s): gateway "
+          f"1 killed itself after acking frame 5 (exit -9 at "
+          f"{box['killed_at_s']:.1f} s), relaunched with --resume; loadgen "
+          f"exit 0, {res['events_per_sec']:.1f} events/s, retried "
+          f"{res['retried']}, redirected {res['redirected']}; admitted "
+          f"{admitted} = incorporated {incorporated} (lost_acked 0), "
+          f"duplicate drops {stats['1']['duplicate_drops']}; {CARD['smi']}",
+          flush=True)
+    return {"events_per_sec": res["events_per_sec"], "lost_acked": 0,
+            "duplicate_drops": stats["1"]["duplicate_drops"], "s": box["s"]}
+
+
+def k1_sum_net_sim_row(dev: torch.device) -> dict:
+    """K1's sum mode at the net sim's (8, 74) (cohort 8, 6 -> 8 -> 2)
+    against its plain version, timed beside it, ``torch.matmul`` and its
+    bound."""
+    from fedtpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator().manual_seed(4)
+    x = (torch.randn(8, 74, generator=gen) * 1e-2).to(dev)
+    w = ((torch.rand(8, generator=gen) < 0.5).to(torch.float32)
+         * (1.0 + torch.randint(0, 6, (8,), generator=gen)) ** -0.5).to(dev)
+    out = ck.weighted_sum_clients(x, w)
+    ref = ck.weighted_sum_clients_reference(x, w)
+    err = float((out - ref).abs().max())
+    check(err <= 1e-5, f"K1 sum at (8, 74): max abs err {err}")
+    b, by = bound_ms(4 * (8 * 74 + 8 + 74), 2.0 * 8 * 74)
+    row = {"shape": "(8, 74)", "max_abs_err": err,
+           "ms": time_ms(lambda: ck.weighted_sum_clients(x, w)),
+           "plain_ms": time_ms(lambda: ck.weighted_sum_clients_reference(
+               x, w)),
+           "library_ms": time_ms(lambda: torch.matmul(w, x)),
+           "bound_ms": b, "bound_by": by}
+    print(f"time K1 sum at the net sim's (8, 74): kernel {row['ms']:.4f} ms  "
+          f"plain {row['plain_ms']:.4f} ms  torch.matmul "
+          f"{row['library_ms']:.4f} ms  bound {b:.6f} ms ({by}); max abs err "
+          f"{err:.3e}; {CARD['smi']}", flush=True)
+    return row
+
+
+def phase_fleet() -> tuple:
+    """Phase (q): the store-backed gateway fleet and the rest of the
+    serving stack (see the constants above). In order: the wire fleet
+    (``fleet_wire``) alone on the machine; then the CLI fleet and its
+    lost-ack drill in the background (``fleet_cli``) and the CPU side
+    in two processes of its own (``fleet_cpu_replay``,
+    ``fleet_cpu_handoff``), while the card runs the
+    fleet's parts in process uncaptured (bitwise the wire fleet's
+    checkpoints: state and every store byte; and its histories), the
+    handoff (``fleet_handoff``), K1's sum mode at the net sim's shape,
+    autoscale (``fleet_autoscale``) and the wire faults (``fleet_net``);
+    then card vs CPU (``fleet_same_store``: histories and summaries equal)
+    for the fleet, the handoff and the net sim; then the CLI fleet's
+    checks. Returns the launches by path, K1's sum-mode row at the net
+    sim's shape and the phase's numbers."""
+    import multiprocessing
+    import tempfile
+    import threading
+    from concurrent.futures import ProcessPoolExecutor
+    from fedtpu_torch.parallel.async_fed import async_state_tensors
+    from fedtpu_torch.serving.traces import synthesize_trace, write_trace
+    seconds, numbers = {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - clock[0], 2)
+        clock[0] = now
+
+    with tempfile.TemporaryDirectory() as directory:
+        trace = os.path.join(directory, "fleet.jsonl")
+        write_trace(trace, *synthesize_trace(**FLEET_TRACE))
+        rows = serve_rows(trace)
+        touched = [len({r[0] for r in rows if r[0] % FLEET_N == g})
+                   for g in range(FLEET_N)]
+        print(f"fleet trace ({FLEET_TRACE}): {len({r[0] for r in rows})} "
+              f"users touched, {touched} per shard", flush=True)
+        lap("trace")
+        wire = fleet_wire(directory, trace, rows)
+        lap("wire fleet")
+        cli_box = {}
+        cli = threading.Thread(target=fleet_cli, args=(directory, cli_box))
+        cli.start()
+        with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+                "spawn")) as pool:
+            cpu_replay = pool.submit(fleet_cpu_replay, trace,
+                                     os.path.join(directory, "cpu-replay"))
+            cpu_handoff = pool.submit(fleet_cpu_handoff, trace,
+                                      os.path.join(directory, "cpu-handoff"))
+            plain, plain_swaps, _ = fleet_replay("cuda", rows, capture=False)
+            cards = []
+            for g, eng in enumerate(plain):
+                card = fleet_checkpoint(os.path.join(directory, "fleet-ck",
+                                                     f"g{g}"))
+                cards.append(card)
+                mine = eng.store.checkpoint_arrays()
+                mine.pop("store_generation")   # the wire run's is its own
+                check(eng.history_lines() == wire["lines"][g]
+                      and all(torch.equal(bits(a.cpu()), bits(b)) for a, b in
+                              zip(async_state_tensors(eng.state),
+                                  async_state_tensors(card[0])))
+                      and all(np.array_equal(np.asarray(card[1][k]), v)
+                              for k, v in mine.items()),
+                      f"fleet gateway {g}: captured (the wire run) differs "
+                      "from uncaptured, in history, state or store bytes")
+            evictions = [e.binder.evictions for e in plain]
+            record_bytes = int(cards[0][1]["store_record_bytes"])
+            del plain, mine
+            lap("uncaptured")
+            handoff = fleet_handoff("cuda", rows,
+                                    os.path.join(directory, "handoff"))
+            lap("handoff")
+            k1_row = k1_sum_net_sim_row(torch.device("cuda"))
+            numbers["autoscale"] = fleet_autoscale(directory, trace)
+            lap("autoscale")
+            numbers["net"] = fleet_net(directory, trace)
+            lap("net faults")
+            cpu = cpu_replay.result(timeout=900)
+            c_h = cpu_handoff.result(timeout=900)
+            lap("waiting for the CPU")
+        numbers["net_sim"] = fleet_net_sim(c_h["net_sim"])
+        same = []
+        for g in range(FLEET_N):
+            check(wire["lines"][g] == cpu["history"][g],
+                  f"fleet gateway {g}: history differs card vs CPU")
+            check(serve_no_wall(wire["box"][g]) == cpu["summary"][g],
+                  f"fleet gateway {g}: summary differs card vs CPU")
+            same.append(fleet_same_store(
+                f"fleet gateway {g} card vs CPU", cards[g], fleet_checkpoint(
+                    os.path.join(directory, "cpu-replay", f"g{g}"))))
+        del cards
+        check(handoff["history"] == c_h["history"]
+              and handoff["history_g1"] == c_h["history_g1"]
+              and handoff["summary"] == c_h["summary"]
+              and handoff["flush"] == c_h["flush"]
+              and handoff["adopt"] == c_h["adopt"],
+              "handoff: differs card vs CPU (history, summary, flush or "
+              "adopt acks)")
+        survivor = handoff.pop("engine")
+        handoff_same = fleet_same_store(
+            "handoff card vs CPU",
+            ({k: v.cpu() if isinstance(v, torch.Tensor) else v
+              for k, v in survivor.state.items()},
+             survivor.store.checkpoint_arrays()),
+            fleet_checkpoint(os.path.join(directory, "cpu-handoff",
+                                          "final")))
+        del survivor
+        lap("net sim, card vs CPU")
+        cli.join(timeout=600)
+        check(not cli.is_alive(), "CLI fleet: still running")
+        numbers["cli"] = fleet_cli_check(cli_box)
+        lap("CLI fleet (its wait)")
+    rb = [s["records"] for s in same]
+    ticks_s = [wire["box"][g]["rounds_per_sec"] for g in range(FLEET_N)]
+    swap_ms = [1e3 * s["s"] / max(1, s["swaps"]) for s in plain_swaps]
+    handoff_ms = 1e3 * handoff["swap_s"] / max(1, handoff["swaps"])
+    print(f"fleet over the wire (2 gateways x income MLP 14->50->200->2, 32 "
+          f"slots, K-buffer 16, memory store over {FLEET_USERS} users, "
+          f"{FLEET_TRACE['arrivals']} arrivals in frames of {SERVE_FRAME}): "
+          f"{wire['events_per_sec']:.1f} events/s (client, "
+          f"{wire['wall_s']:.3f} s; the members up in {wire['up_s']:.1f} s), "
+          f"ticks/s {[round(t, 3) for t in ticks_s]} ({wire['ticks']} "
+          f"non-empty), evictions {evictions}, store swaps "
+          f"{[s['swaps'] for s in plain_swaps]} at "
+          f"{[round(m, 4) for m in swap_ms]} host ms each (the uncaptured "
+          f"replay; the captured handoff's gateway 0: {handoff_ms:.4f} ms), "
+          f"touched rows {rb} of {record_bytes} bytes, resident "
+          f"{[r * record_bytes for r in rb]} bytes, redirects "
+          f"{wire['redirected']}, launches {wire['launches']}; captured == "
+          f"uncaptured bitwise (state, history, every store byte); card vs "
+          f"CPU: histories and summaries equal, global params max abs err "
+          f"{[s['global_err'] for s in same]}, store headers equal, values "
+          f"max abs err {[s['store_err'] for s in same]}; CPU replay "
+          f"{cpu['s']:.1f} s (swaps "
+          f"{[round(m, 4) for m in cpu['swap_ms']]} ms); {CARD['smi']}",
+          flush=True)
+    print(f"handoff (gateway 1 flushed at frame "
+          f"{len(rows) // SERVE_FRAME // 2}, adopted by gateway 0): flushed "
+          f"{handoff['flush']}, a stale generation refused, adopted "
+          f"{handoff['adopt']['rows']} records, bitwise the exported "
+          f"{handoff['exported']}, replayed {handoff['adopt']['replayed']} "
+          f"spooled updates; card vs CPU equal (histories, summaries, acks; "
+          f"params {handoff_same['global_err']:.3e}, store "
+          f"{handoff_same['store_err']:.3e}, {handoff_same['records']} "
+          f"records); {handoff['wall_s']:.2f} s; gateway 0's tick "
+          f"{handoff.get('tick_ms', float('nan')):.4f} ms of device span "
+          f"(median of {handoff.get('ticks_timed')}, CUDA events around "
+          f"the mask's copy and the replay); {CARD['smi']}", flush=True)
+    print(f"phase (q) seconds {json.dumps(seconds)}", flush=True)
+    numbers.update(seconds=seconds, events_per_sec=wire["events_per_sec"],
+                   ticks_per_s=ticks_s, swap_ms=swap_ms,
+                   swap_ms_captured=handoff_ms, evictions=evictions,
+                   tick_ms=handoff.get("tick_ms"),
+                   touched_rows=rb, record_bytes=record_bytes)
+    return ({"gateway fleet (2 x income MLP)": wire["launches"]}, k1_row,
+            numbers)
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
     clock, seconds = [time.perf_counter()], {}
@@ -3415,6 +4256,11 @@ def main() -> None:
     for name, row in serve_rows.items():
         timings[name]["serve"] = row
     lap("(p)")
+    fleet_launches, timings["weighted_sum_clients"]["net_sim"], fleet = \
+        phase_fleet()
+    by_path.update(fleet_launches)
+    print(f"phase (q) numbers {json.dumps(fleet, default=float)}", flush=True)
+    lap("(q)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -3462,7 +4308,7 @@ def main() -> None:
                 "ms_by_tile_x_threads", "composed_round_device_ms",
                 "marginal_us_per_round", "profile", "phases_us",
                 "delta_mean", "sweep", "cifar10_32", "bf16_fp16",
-                "sklearn_parity", "serve")
+                "sklearn_parity", "serve", "net_sim")
                 if key in t},
             **({"mode": "sum: K1 unnormalised, the asynchronous tick's "
                 "psum(tensordot(disc, delta))"}

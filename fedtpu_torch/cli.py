@@ -1,11 +1,13 @@
-"""``python -m fedtpu_torch.cli {run,sweep,parity,presets,serve,loadgen}``:
-the port's counterparts of ``fedtpu run`` (the synchronous engine, or with
-``--async`` the asynchronous FedBuff one), ``fedtpu sweep`` (the
-hyperparameter grid), ``fedtpu parity`` (the sklearn ``MLPClassifier``
-warm-start limitation demo), ``fedtpu presets`` (the shipped presets),
-``fedtpu serve`` (the trace-driven serving front end on the driven
-asynchronous tick) and ``fedtpu loadgen`` (replay an arrival trace against
-a running server).
+"""``python -m fedtpu_torch.cli {run,sweep,parity,presets,serve,gateway,
+loadgen,autoscale}``: the port's counterparts of ``fedtpu run`` (the
+synchronous engine, or with ``--async`` the asynchronous FedBuff one),
+``fedtpu sweep`` (the hyperparameter grid), ``fedtpu parity`` (the sklearn
+``MLPClassifier`` warm-start limitation demo), ``fedtpu presets`` (the
+shipped presets), ``fedtpu serve`` (the trace-driven serving front end on
+the driven asynchronous tick), ``fedtpu gateway`` (one member of the
+store-backed gateway fleet), ``fedtpu loadgen`` (replay an arrival trace
+against a running server or fleet) and ``fedtpu autoscale`` (the SLO-driven
+control plane, simulated or live).
 
 Every flag is one that ``fedtpu.cli``'s parser also has, with the same
 meaning; ``--platform default`` means the GPU, ``--platform cpu`` the plain
@@ -185,8 +187,8 @@ def _add_common_overrides(p: argparse.ArgumentParser) -> None:
 
 def _add_serving_flags(p: argparse.ArgumentParser) -> None:
     """``fedtpu``'s serve flag surface (every flag of its
-    ``_add_serving_flags``). ``--events``, ``--heartbeat`` and
-    ``--net-fault-plan`` raise when given (ROADMAP A11, A11, A8c)."""
+    ``_add_serving_flags``). ``--events`` and ``--heartbeat`` raise when
+    given (ROADMAP A11)."""
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (default 127.0.0.1; the "
                         "protocol is a same-host ingestion socket)")
@@ -197,8 +199,10 @@ def _add_serving_flags(p: argparse.ArgumentParser) -> None:
                    help="write the bound port here once listening "
                         "(ephemeral-port discovery for loadgen)")
     p.add_argument("--net-fault-plan", default=None, metavar="JSON",
-                   help="seeded wire-fault schedule (not ported yet: "
-                        "ROADMAP A8c)")
+                   help="seeded wire-fault schedule (path or inline "
+                        "JSON): front the server with a deterministic "
+                        "fault proxy on <port-file>.net (needs "
+                        "--port-file)")
     p.add_argument("--cohort", type=_positive_int, default=8,
                    help="concurrent engine slots C; users get "
                         "stable slot bindings with LRU eviction "
@@ -395,6 +399,37 @@ def build_parser() -> argparse.ArgumentParser:
                                   "them, and drive async FedBuff ticks")
     _add_serving_flags(serve_p)
 
+    # Gateway fleet: N serve-shaped processes, each owning the id-shard
+    # of clients matching its store shard, with redirect routing and the
+    # flush/adopt shard-failover ops (fedtpu_torch.serving.gateway). Every
+    # shared path below is a BASE each member derives its own file/subdir
+    # from, so the fleet shares one command line.
+    gateway_p = sub.add_parser("gateway",
+                               help="one member of a fault-tolerant "
+                                    "multi-gateway ingestion fleet: serve "
+                                    "plus id-shard routing, redirects, "
+                                    "and store-shard failover")
+    _add_serving_flags(gateway_p)
+    gateway_p.add_argument("--num-gateways", type=_positive_int, default=1,
+                           help="fleet size N; this process owns users "
+                                "with id %% N == its index (default 1)")
+    gateway_p.add_argument("--gateway-index", type=_nonnegative_int,
+                           default=None,
+                           help="this member's index (default: the gang's "
+                                "FEDTPU_PROCESS_ID, so a supervised fleet "
+                                "needs no per-member flags)")
+    gateway_p.add_argument("--total-users", type=_nonnegative_int,
+                           default=0,
+                           help="attach a per-user state store over this "
+                                "population, sharded to the fleet "
+                                "(0 = no store; required for adopt)")
+    gateway_p.add_argument("--store", choices=["memory", "mmap"],
+                           default="memory",
+                           help="store backend (default memory)")
+    gateway_p.add_argument("--store-path", default=None, metavar="FILE",
+                           help="mmap backing file base path (each member "
+                                "appends .g<i>)")
+
     # Load generation: replay (or synthesize) an arrival trace against a
     # running server; it never touches the card.
     load_p = sub.add_parser("loadgen",
@@ -437,8 +472,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="arrivals per protocol frame (default 1024)")
     load_p.add_argument("--num-gateways", type=_positive_int, default=1,
                         help="route through a gateway fleet of this size "
-                             "(default 1; above 1 not ported yet, ROADMAP "
-                             "A8c)")
+                             "(--port-file is then the fleet's BASE path; "
+                             "default 1)")
     load_p.add_argument("--retries", type=_nonnegative_int, default=8,
                         help="per-frame retry attempts against a dying/"
                              "restarting gateway before giving up "
@@ -458,6 +493,87 @@ def build_parser() -> argparse.ArgumentParser:
                         help="print the replay summary as one JSON line")
     load_p.add_argument("--quiet", action="store_true",
                         help="suppress the human-readable summary")
+
+    # SLO-driven autoscaling control plane (fedtpu_torch.autoscale). It
+    # never touches the card: signals come over the serve socket +
+    # heartbeat files, actions go out as protocol ops and signals.
+    auto_p = sub.add_parser("autoscale",
+                            help="SLO-driven autoscaling control plane: "
+                                 "fold live signals into decisions and "
+                                 "act through the reshard/serving knobs")
+    auto_p.add_argument("--simulate", action="store_true",
+                        help="replay a seeded bursty trace against the "
+                             "policy in pure virtual time instead of "
+                             "attaching to a live deployment; the decision "
+                             "sequence is a bitwise-comparable artifact")
+    auto_p.add_argument("--trace", default=None, metavar="JSONL",
+                        help="simulate against this arrival trace instead "
+                             "of the pinned synthetic one (the pinned one "
+                             "is the golden contract)")
+    auto_p.add_argument("--golden", default=None, metavar="PATH",
+                        help="compare the simulated decision sequence "
+                             "bitwise against this golden JSONL; any "
+                             "divergence fails the command")
+    auto_p.add_argument("--out", default=None, metavar="PATH",
+                        help="write the decision sequence JSONL here "
+                             "(golden (re)generation)")
+    auto_p.add_argument("--policy", default="threshold",
+                        help="policy name from the registry "
+                             "(default threshold)")
+    auto_p.add_argument("--objective", type=_positive_float, default=None,
+                        metavar="S",
+                        help="SLO objective on update-to-incorporation "
+                             "latency in virtual seconds (default 1.0)")
+    auto_p.add_argument("--error-budget", type=_positive_float,
+                        default=None,
+                        help="share of updates allowed past the objective "
+                             "(burn 1.0 = budget exactly consumed; "
+                             "default 0.1)")
+    auto_p.add_argument("--interval", type=_positive_float, default=None,
+                        metavar="S",
+                        help="control-loop interval (default 0.5; live "
+                             "mode polls at this wall-clock cadence, "
+                             "simulation ticks this much virtual time)")
+    auto_p.add_argument("--host", default="127.0.0.1",
+                        help="live: serve host (default 127.0.0.1)")
+    auto_p.add_argument("--port", type=_nonnegative_int, default=0,
+                        help="live: serve port (or use --port-file; "
+                             "0 = no serving signals/actions)")
+    auto_p.add_argument("--port-file", default=None, metavar="FILE",
+                        help="live: poll this file (written by serve "
+                             "--port-file) for the port")
+    auto_p.add_argument("--heartbeat", default=None, metavar="FILE",
+                        help="live: gang heartbeat base path (per-process "
+                             "files <base>.p<i>) for membership signals")
+    auto_p.add_argument("--num-processes", type=_positive_int, default=1,
+                        help="live: gang size behind --heartbeat")
+    auto_p.add_argument("--supervisor-pid", type=_nonnegative_int,
+                        default=0, metavar="PID",
+                        help="live: 'fedtpu supervise' parent to signal "
+                             "for grow/shrink (SIGUSR2/SIGUSR1; 0 = no "
+                             "gang actions)")
+    auto_p.add_argument("--notice-file", default=None, metavar="FILE",
+                        help="live: poll this JSON file ({\"victim\": p}) "
+                             "for preemption notices; each payload is "
+                             "acted on once (pre-drain + shrink)")
+    auto_p.add_argument("--spool-path", default=None, metavar="FILE",
+                        help="live: where the server spools pending "
+                             "updates on pre-drain (default: its "
+                             "checkpoint dir)")
+    auto_p.add_argument("--duration", type=_nonnegative_float, default=0.0,
+                        metavar="S",
+                        help="live: stop after this many wall seconds "
+                             "(0 = until interrupted)")
+    auto_p.add_argument("--stop-after-notice", action="store_true",
+                        help="live: exit once a preemption notice has "
+                             "been acted on (chaos drill mode)")
+    auto_p.add_argument("--events", default=None, metavar="JSONL",
+                        help="telemetry events sink (not ported yet: "
+                             "ROADMAP A11)")
+    auto_p.add_argument("--json", action="store_true",
+                        help="print the summary as one JSON line")
+    auto_p.add_argument("--quiet", action="store_true",
+                        help="suppress status lines")
     return parser
 
 
@@ -595,9 +711,6 @@ def loadgen_main(args) -> int:
     replay it, print the summary."""
     from fedtpu_torch.serving.loadgen import run_loadgen
     from fedtpu_torch.serving.traces import synthesize_trace, write_trace
-    if args.num_gateways > 1:
-        _not_ported(f"loadgen --num-gateways {args.num_gateways} (the "
-                    "gateway fleet)", "A8c")
     if args.synthesize:
         header, t, user, lat = synthesize_trace(
             users=args.users, arrivals=args.arrivals,
@@ -674,6 +787,97 @@ def serve_main(args) -> int:
     return 0
 
 
+def gateway_main(args) -> int:
+    """``fedtpu``'s ``gateway`` handler: one fleet member, serve's flags
+    plus the fleet's, until the connection closes (``--once``) or SIGTERM
+    (drain, checkpoint, exit 75)."""
+    from fedtpu_torch.serving.gateway import run_gateway
+    from fedtpu_torch.serving.server import EXIT_PREEMPTED, Preempted
+    try:
+        summary = run_gateway(
+            serving_config_from_args(args), gateway_index=args.gateway_index,
+            num_gateways=args.num_gateways, port_file=args.port_file,
+            events=args.events, checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every_ticks=args.checkpoint_every_ticks,
+            history_path=args.history, heartbeat=args.heartbeat,
+            total_users=args.total_users, store_backend=args.store,
+            store_path=args.store_path, once=args.once, resume=args.resume,
+            verbose=not args.quiet, net_fault_plan=args.net_fault_plan,
+            device="cpu" if args.platform == "cpu" else "cuda")
+    except Preempted as p:
+        if args.json:
+            print(json.dumps({"preempted": True, "tick": p.round}))
+        return EXIT_PREEMPTED
+    if args.json:
+        print(json.dumps(summary, default=float))
+    return 0
+
+
+def autoscale_main(args) -> int:
+    """``fedtpu``'s ``autoscale`` handler: ``--simulate`` replays the
+    pinned (or a given) trace against the policy in virtual time; live
+    mode attaches a ``LiveController`` to a running server. It never
+    touches the card."""
+    from fedtpu_torch.autoscale.controller import (LiveController,
+                                                   compare_decisions,
+                                                   simulate, write_decisions)
+    from fedtpu_torch.config import AutoscaleConfig
+    if args.events is not None:
+        _not_ported("autoscale --events (the telemetry event sink)", "A11")
+    acfg = AutoscaleConfig(policy=args.policy)
+    over = {}
+    if args.objective is not None:
+        over["objective_s"] = args.objective
+    if args.error_budget is not None:
+        over["error_budget"] = args.error_budget
+    if args.interval is not None:
+        over["control_interval_s"] = args.interval
+    if over:
+        acfg = dataclasses.replace(acfg, **over)
+    if args.simulate:
+        result = simulate(acfg, trace_path=args.trace)
+        if args.out:
+            write_decisions(args.out, result["lines"])
+        ok = True
+        if args.golden:
+            cmp = compare_decisions(result["lines"], args.golden)
+            ok = cmp["ok"]
+        if args.json:
+            print(json.dumps({**result["summary"], "ok": ok}, default=float))
+        elif not args.quiet:
+            s = result["summary"]
+            print(f"simulated {s['control_ticks']} control tick(s) over "
+                  f"{s['arrivals']} arrival(s): admitted {s['admitted']}, "
+                  f"incorporated {s['incorporated']}, spooled "
+                  f"{s['spooled']}, capacity {s['capacity_end']}, "
+                  f"decisions {s['decisions']}")
+            if args.out:
+                print(f"decisions -> {args.out}")
+            if args.golden:
+                if ok:
+                    print(f"golden: matches {args.golden}")
+                else:
+                    print(f"golden: {cmp['reason']} vs {args.golden}")
+        return 0 if ok else 1
+    port = args.port
+    if args.port_file:
+        from fedtpu_torch.serving.loadgen import read_port_file
+        port = read_port_file(args.port_file)
+    ctl = LiveController(
+        acfg, host=args.host, port=port,
+        supervisor_pid=args.supervisor_pid, heartbeat=args.heartbeat,
+        process_count=args.num_processes, notice_file=args.notice_file,
+        spool_path=args.spool_path)
+    summary = ctl.run(duration_s=args.duration, interval_s=args.interval,
+                      stop_after_notice=args.stop_after_notice)
+    if args.json:
+        print(json.dumps(summary, default=float))
+    elif not args.quiet:
+        print(f"autoscale: {summary['control_ticks']} control tick(s) in "
+              f"{summary['wall_s']:.1f} s wall; acted {summary['acted']}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "presets":
@@ -683,6 +887,10 @@ def main(argv=None) -> int:
         return loadgen_main(args)
     if args.command == "serve":
         return serve_main(args)
+    if args.command == "gateway":
+        return gateway_main(args)
+    if args.command == "autoscale":
+        return autoscale_main(args)
     cfg = config_from_args(args)
     device = "cpu" if args.platform == "cpu" else "cuda"
     if args.command in ("sweep", "parity"):

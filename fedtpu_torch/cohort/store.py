@@ -1,0 +1,507 @@
+"""ClientStateStore: one versioned record per client id, off the device
+(the port's copy of ``fedtpu.cohort.store``).
+
+The store holds the PER-CLIENT portion of an engine state, the tensors
+:func:`fedtpu_torch.parallel.round.per_client_view` selects, as
+fixed-width byte records in a single ``(rows, record_bytes)`` uint8 array,
+plus a small per-record header:
+
+    offset 0   version       uint64   0 = never initialized
+    offset 8   participation uint64   rounds this client trained in
+    offset 16  rng_key       2xuint32 per-client PRNG key data
+    offset 24  strikes       uint32   defense screen strike count
+    offset 28  flags         uint32   bit 0 = quarantined
+    offset 32  leaf 0 bytes (raw, exact dtype), 8-byte padded
+               leaf 1 bytes ...
+
+The leaves are the port's: on the asynchronous state, one flat ``(D,)``
+row each for the anchor, Adam's two moments and the params, one int32
+Adam count and the int32 pull tick (``fedtpu``'s record holds each
+quantity as its pytree's leaves, and optax's two equal counts). So the
+record bytes, and the digests over them, are the port's own; the header
+fields and each quantity's values (``fedtpu``'s leaves concatenated in
+the flat row's order, as ``convert.py`` maps them) are ``fedtpu``'s.
+
+The strikes/flags pair is the reputation field: the serving engine's
+screen accrues strikes, the quarantine bit marks a quarantined client.
+Reputation writes ride the normal versioned-record machinery (version
+bump, touched-row checkpointing, the flush/adopt digest fence) bitwise,
+because the digest hashes raw record bytes and the header IS record
+bytes. Raw-byte records round-trip every dtype bitwise: the store is a
+persistence layer, never a numeric one.
+
+Backends: ``memory`` (anonymous ``np.zeros``, calloc-backed, so untouched
+rows stay virtual, but the array dies with the process) and ``mmap``
+(file-backed ``np.memmap``: the file's APPARENT size is ``rows *
+record_bytes`` but it is sparse, so resident memory scales with TOUCHED
+records, not with the population).
+
+Sharding: shard ``s`` of ``S`` owns ids with ``id % S == s``, stored at
+row ``id // S`` of its own array or file.
+
+Shard failover (:meth:`ClientStateStore.absorb_shard`): when a peer shard
+dies, a survivor adopts its ids from the dead shard's exported
+``checkpoint_arrays``, digest-verified and GENERATION-fenced, so a stale
+previous-life export is refused loudly. Absorbed ids live in an overlay
+keyed by id; ``owns``/reads/writes treat them exactly like native ids,
+and the handoff is bitwise (rows land as exported).
+
+``checkpoint_arrays``/``restore_arrays`` expose the touched rows as
+arrays for a run checkpoint's meta file (the port's ``torch.save``
+layout), so one checkpoint covers engine state AND store. Every export is
+stamped with a sha256 content digest that ``restore_arrays`` and
+``absorb_shard`` verify: a corrupt restore fails loudly instead of
+silently reinterpreting bytes. ``fedtpu``'s standalone orbax
+``save``/``restore`` belong to its cohort subsystem (ROADMAP A9).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+HEADER_BYTES = 32
+_VER_OFF = 0
+_PART_OFF = 8
+_KEY_OFF = 16
+_STRIKE_OFF = 24
+_FLAGS_OFF = 28
+
+FLAG_QUARANTINED = np.uint32(1)
+
+BACKENDS = ("memory", "mmap")
+
+
+def _pad8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _content_digest(record_bytes: int, total_clients: int,
+                    shard_index: int, num_shards: int,
+                    ids: np.ndarray, recs: np.ndarray) -> np.ndarray:
+    """sha256 over shard geometry + ids + record bytes, as a (32,)
+    uint8 array (a checkpoint's meta file holds arrays, not hex
+    strings)."""
+    h = hashlib.sha256()
+    h.update(np.asarray([record_bytes, total_clients, shard_index,
+                         num_shards], np.int64).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(ids, np.int64)).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(recs, np.uint8)).tobytes())
+    return np.frombuffer(h.digest(), np.uint8).copy()
+
+
+def state_template(state, num_slots: int) -> List[Tuple[tuple, np.dtype]]:
+    """The store template for an engine state: ``(trailing_shape, dtype)``
+    per per-client tensor, in :func:`per_client_view` order. Works on the
+    synchronous and the asynchronous state alike (float32 and int32
+    tensors: numpy has no bfloat16)."""
+    from fedtpu_torch.parallel.round import per_client_view
+    return [(tuple(t.shape[1:]), t.detach().cpu()[:0].numpy().dtype)
+            for t in per_client_view(state, num_slots)]
+
+
+class ClientStateStore:
+    """Fixed-width record store keyed by client id. See module docstring
+    for the record layout, backends, sharding, and checkpoint story."""
+
+    def __init__(self, template: Sequence[Tuple[tuple, np.dtype]],
+                 total_clients: int, backend: str = "memory",
+                 path: Optional[str] = None,
+                 shard_index: int = 0, num_shards: int = 1):
+        if backend not in BACKENDS:
+            raise ValueError(f"client store backend must be one of "
+                             f"{BACKENDS}, got {backend!r}")
+        if backend == "mmap" and not path:
+            raise ValueError("mmap client store needs a path "
+                             "(--client-store-path)")
+        if total_clients <= 0:
+            raise ValueError(f"total_clients must be > 0, got "
+                             f"{total_clients}")
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} out of range for "
+                             f"{num_shards} shards")
+        self.template = [(tuple(s), np.dtype(d)) for s, d in template]
+        self.total_clients = int(total_clients)
+        self.backend = backend
+        self.path = path
+        self.shard_index = int(shard_index)
+        self.num_shards = int(num_shards)
+        self._offsets: List[int] = []
+        off = HEADER_BYTES
+        for shape, dtype in self.template:
+            self._offsets.append(off)
+            off += _pad8(int(np.prod(shape, dtype=np.int64)) * dtype.itemsize)
+        self.record_bytes = off
+        self.rows = len(range(self.shard_index, self.total_clients,
+                              self.num_shards))
+        if backend == "memory":
+            # calloc-backed: untouched rows stay virtual.
+            self._arr = np.zeros((self.rows, self.record_bytes), np.uint8)
+        else:
+            parent = os.path.dirname(os.path.abspath(path))
+            os.makedirs(parent, exist_ok=True)
+            want = self.rows * self.record_bytes
+            fresh = (not os.path.exists(path)
+                     or os.path.getsize(path) != want)
+            self._arr = np.memmap(path, dtype=np.uint8,
+                                  mode="w+" if fresh else "r+",
+                                  shape=(self.rows, self.record_bytes))
+        self._touched: set = set()
+        # Failover overlay: peer shard indices this store has ABSORBED
+        # (absorb_shard) and their rows keyed by client id — the native
+        # array geometry only fits natively-owned ids. Bounded by the
+        # dead shards' touched rows.
+        self._absorbed: set = set()
+        self._overlay: dict = {}
+        # Stamped into checkpoint_arrays when set (the gateway sets its
+        # launch id); absorb_shard fences against it.
+        self.generation: Optional[str] = None
+
+    # -- id routing ----------------------------------------------------
+    def owns(self, ids) -> np.ndarray:
+        ids = np.asarray(ids, np.int64)
+        shards = ids % self.num_shards
+        mask = shards == self.shard_index
+        for a in self._absorbed:
+            mask = mask | (shards == a)
+        return mask
+
+    def _rows_for(self, ids) -> np.ndarray:
+        """Native-array rows for NATIVELY-owned ids (absorbed ids live
+        in the overlay and are rejected here — use _fetch/_store)."""
+        ids = np.asarray(ids, np.int64)
+        if ids.size and (ids.min() < 0 or ids.max() >= self.total_clients):
+            raise ValueError(
+                f"client id out of range [0, {self.total_clients}): "
+                f"{ids[(ids < 0) | (ids >= self.total_clients)][:4]}")
+        native = (ids % self.num_shards) == self.shard_index
+        if not np.all(native):
+            bad = ids[~native][:4]
+            raise ValueError(
+                f"ids {bad} not owned by shard {self.shard_index}/"
+                f"{self.num_shards} — route cohort members to their "
+                f"owning shard")
+        return ids // self.num_shards
+
+    def _split(self, ids) -> Tuple[np.ndarray, np.ndarray]:
+        """Validated ``(ids, native_mask)``: every id must be in range
+        and owned (natively or via an absorbed shard)."""
+        ids = np.asarray(ids, np.int64)
+        if ids.size and (ids.min() < 0 or ids.max() >= self.total_clients):
+            raise ValueError(
+                f"client id out of range [0, {self.total_clients}): "
+                f"{ids[(ids < 0) | (ids >= self.total_clients)][:4]}")
+        own = self.owns(ids)
+        if not np.all(own):
+            bad = ids[~own][:4]
+            raise ValueError(
+                f"ids {bad} not owned by shard {self.shard_index}/"
+                f"{self.num_shards} — route cohort members to their "
+                f"owning shard")
+        return ids, (ids % self.num_shards) == self.shard_index
+
+    def _fetch(self, ids) -> np.ndarray:
+        """A ``(K, record_bytes)`` uint8 COPY of the records for ``ids``
+        — native rows from the backing array, absorbed rows from the
+        overlay (zero-fill for never-written absorbed ids)."""
+        ids, native = self._split(ids)
+        out = np.zeros((ids.size, self.record_bytes), np.uint8)
+        if native.any():
+            out[native] = self._arr[ids[native] // self.num_shards]
+        for i in np.flatnonzero(~native):
+            rec = self._overlay.get(int(ids[i]))
+            if rec is not None:
+                out[i] = rec
+        return out
+
+    def _store(self, ids, rows: np.ndarray) -> None:
+        ids, native = self._split(ids)
+        if native.any():
+            self._arr[ids[native] // self.num_shards] = rows[native]
+        for i in np.flatnonzero(~native):
+            self._overlay[int(ids[i])] = np.asarray(rows[i],
+                                                    np.uint8).copy()
+        self._touched.update(int(i) for i in ids)
+
+    def _header(self, ids) -> np.ndarray:
+        """A ``(K, HEADER_BYTES)`` uint8 copy of the headers of ``ids``:
+        ``_fetch`` of the header bytes only (the serving engine asks for a
+        record's participation on every eviction)."""
+        ids, native = self._split(ids)
+        out = np.zeros((ids.size, HEADER_BYTES), np.uint8)
+        if native.any():
+            out[native] = self._arr[ids[native] // self.num_shards,
+                                    :HEADER_BYTES]
+        for i in np.flatnonzero(~native):
+            rec = self._overlay.get(int(ids[i]))
+            if rec is not None:
+                out[i] = rec[:HEADER_BYTES]
+        return out
+
+    # -- header fields -------------------------------------------------
+    def versions(self, ids) -> np.ndarray:
+        raw = np.ascontiguousarray(
+            self._header(ids)[:, _VER_OFF:_VER_OFF + 8])
+        return raw.view(np.uint64).reshape(-1)
+
+    def participation(self, ids) -> np.ndarray:
+        raw = np.ascontiguousarray(
+            self._header(ids)[:, _PART_OFF:_PART_OFF + 8])
+        return raw.view(np.uint64).reshape(-1)
+
+    def read_keys(self, ids) -> np.ndarray:
+        """(K, 2) uint32 per-client PRNG key data."""
+        raw = np.ascontiguousarray(
+            self._header(ids)[:, _KEY_OFF:_KEY_OFF + 8])
+        return raw.view(np.uint32).reshape(-1, 2)
+
+    def reputation(self, ids) -> Tuple[np.ndarray, np.ndarray]:
+        """``(strikes, quarantined)`` for ``ids``: (K,) uint32 strike
+        counts and (K,) bool quarantine bits. Never-written records
+        read as (0, False) — reputation starts clean."""
+        rows = self._header(ids)
+        strikes = np.ascontiguousarray(
+            rows[:, _STRIKE_OFF:_STRIKE_OFF + 4]).view(
+                np.uint32).reshape(-1)
+        flags = np.ascontiguousarray(
+            rows[:, _FLAGS_OFF:_FLAGS_OFF + 4]).view(
+                np.uint32).reshape(-1)
+        return strikes, (flags & FLAG_QUARANTINED) != 0
+
+    def set_reputation(self, ids, strikes, quarantined) -> None:
+        """Write the reputation header fields for distinct ``ids``
+        (leaves untouched) with a version bump, so reputation rides the
+        same touched-row checkpoint/flush/adopt path as records."""
+        ids = np.asarray(ids, np.int64)
+        if len(np.unique(ids)) != ids.size:
+            raise ValueError("set_reputation ids must be distinct "
+                             "within one call")
+        k = ids.size
+        st = np.broadcast_to(np.asarray(strikes, np.uint32), (k,))
+        qr = np.broadcast_to(np.asarray(quarantined, bool), (k,))
+        rows = self._fetch(ids)
+        rows[:, _STRIKE_OFF:_STRIKE_OFF + 4] = \
+            np.ascontiguousarray(st).reshape(k, 1).view(np.uint8)
+        flags = np.ascontiguousarray(
+            rows[:, _FLAGS_OFF:_FLAGS_OFF + 4]).view(
+                np.uint32).reshape(-1)
+        flags = np.where(qr, flags | FLAG_QUARANTINED,
+                         flags & ~FLAG_QUARANTINED).astype(np.uint32)
+        rows[:, _FLAGS_OFF:_FLAGS_OFF + 4] = \
+            np.ascontiguousarray(flags).reshape(k, 1).view(np.uint8)
+        ver = np.ascontiguousarray(
+            rows[:, _VER_OFF:_VER_OFF + 8]).view(np.uint64).reshape(-1)
+        rows[:, _VER_OFF:_VER_OFF + 8] = \
+            (ver + 1).reshape(k, 1).view(np.uint8)
+        self._store(ids, rows)
+
+    def quarantined_ids(self) -> np.ndarray:
+        """Sorted int64 ids of every TOUCHED record whose quarantine
+        bit is set (untouched records are clean by construction)."""
+        ids = np.array(sorted(self._touched), np.int64)
+        if not ids.size:
+            return ids
+        _, quarantined = self.reputation(ids)
+        return ids[quarantined]
+
+    # -- records -------------------------------------------------------
+    def read(self, ids) -> List[np.ndarray]:
+        """The stored leaves for ``ids``: one ``(K, *shape)`` array per
+        template leaf, bitwise as written. Records with version 0 return
+        their zero-fill — callers gate on :meth:`versions`."""
+        rows = self._fetch(ids)
+        out = []
+        for (shape, dtype), off in zip(self.template, self._offsets):
+            nb = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            flat = np.ascontiguousarray(rows[:, off:off + nb])
+            out.append(flat.view(dtype).reshape((len(rows),) + shape))
+        return out
+
+    def write(self, ids, leaves: Sequence, keys=None,
+              participated: bool = True) -> None:
+        """Write ``leaves`` (the :meth:`read` layout, exact dtypes
+        enforced) for distinct ``ids``; version += 1, participation += 1
+        when ``participated``, PRNG keys updated when ``keys`` given."""
+        ids = np.asarray(ids, np.int64)
+        if len(np.unique(ids)) != ids.size:
+            raise ValueError("write ids must be distinct within one call")
+        if len(leaves) != len(self.template):
+            raise ValueError(f"expected {len(self.template)} leaves, got "
+                             f"{len(leaves)}")
+        rows = self._fetch(ids)
+        k = ids.size
+        for (shape, dtype), off, leaf in zip(self.template, self._offsets,
+                                             leaves):
+            arr = np.asarray(leaf)
+            if arr.shape != (k,) + shape or arr.dtype != dtype:
+                raise ValueError(
+                    f"leaf mismatch: got {arr.dtype}{arr.shape}, store "
+                    f"holds {dtype}{(k,) + shape}")
+            rows[:, off:off + arr.nbytes // k] = \
+                np.ascontiguousarray(arr).reshape(k, -1).view(np.uint8)
+        ver = np.ascontiguousarray(
+            rows[:, _VER_OFF:_VER_OFF + 8]).view(np.uint64).reshape(-1)
+        rows[:, _VER_OFF:_VER_OFF + 8] = \
+            (ver + 1).reshape(k, 1).view(np.uint8)
+        if participated:
+            part = np.ascontiguousarray(
+                rows[:, _PART_OFF:_PART_OFF + 8]).view(
+                    np.uint64).reshape(-1)
+            rows[:, _PART_OFF:_PART_OFF + 8] = \
+                (part + 1).reshape(k, 1).view(np.uint8)
+        if keys is not None:
+            kk = np.ascontiguousarray(np.asarray(keys, np.uint32))
+            if kk.shape != (k, 2):
+                raise ValueError(f"keys must be (K, 2) uint32, got "
+                                 f"{kk.shape}")
+            rows[:, _KEY_OFF:_KEY_OFF + 8] = kk.view(np.uint8)
+        self._store(ids, rows)
+
+    def flush(self) -> None:
+        if self.backend == "mmap":
+            self._arr.flush()
+
+    # -- memory accounting --------------------------------------------
+    @property
+    def apparent_nbytes(self) -> int:
+        """Full logical size: rows x record_bytes. NOT resident memory —
+        both backends keep untouched rows virtual."""
+        return self.rows * self.record_bytes
+
+    def resident_estimate_bytes(self) -> int:
+        """Touched-record footprint — the part that can actually be
+        resident. Participation-bounded, population-independent."""
+        return len(self._touched) * self.record_bytes
+
+    def file_block_bytes(self) -> int:
+        """Actual disk blocks of the mmap file (0 for memory backend) —
+        the ground-truth sparsity measurement."""
+        if self.backend != "mmap":
+            return 0
+        self.flush()
+        return os.stat(self.path).st_blocks * 512
+
+    # -- checkpoint / restore -----------------------------------------
+    def checkpoint_arrays(self) -> dict:
+        """Touched rows as plain numpy, for a run checkpoint's meta file
+        (restore treats missing keys as an empty store). Stamped with the shard identity, a
+        sha256 content digest (restore_arrays/absorb_shard verify it),
+        any absorbed shard set, and — when :attr:`generation` is set —
+        the generation fence absorb_shard checks."""
+        ids = np.array(sorted(self._touched), np.int64)
+        recs = (self._fetch(ids) if ids.size
+                else np.zeros((0, self.record_bytes), np.uint8))
+        out = {"store_ids": ids, "store_records": recs,
+               "store_record_bytes": np.int64(self.record_bytes),
+               "store_total_clients": np.int64(self.total_clients),
+               "store_shard_index": np.int64(self.shard_index),
+               "store_num_shards": np.int64(self.num_shards),
+               "store_digest": _content_digest(
+                   self.record_bytes, self.total_clients,
+                   self.shard_index, self.num_shards, ids, recs)}
+        if self._absorbed:
+            out["store_absorbed"] = np.asarray(sorted(self._absorbed),
+                                               np.int64)
+        if self.generation:
+            out["store_generation"] = np.frombuffer(
+                self.generation.encode(), np.uint8).copy()
+        return out
+
+    def restore_arrays(self, arrays: dict) -> None:
+        """Load rows saved by :meth:`checkpoint_arrays`; validates the
+        record geometry AND the content digest, so a changed
+        model/optimizer or a corrupted restore (a truncated mmap, the
+        ``ckpt_corrupt`` fault) fails loudly rather than reinterpreting
+        bytes. Re-absorbs any shard set the checkpoint recorded before
+        loading rows, so a resumed survivor keeps answering for the ids
+        it adopted."""
+        ids = np.asarray(arrays.get("store_ids",
+                                    np.zeros((0,), np.int64)), np.int64)
+        recs = np.asarray(arrays.get(
+            "store_records", np.zeros((0, self.record_bytes), np.uint8)),
+            np.uint8)
+        rb = int(arrays.get("store_record_bytes", self.record_bytes))
+        tc = int(arrays.get("store_total_clients", self.total_clients))
+        si = int(arrays.get("store_shard_index", self.shard_index))
+        ns = int(arrays.get("store_num_shards", self.num_shards))
+        if rb != self.record_bytes or tc != self.total_clients:
+            raise ValueError(
+                f"store checkpoint geometry mismatch: saved "
+                f"record_bytes={rb} total_clients={tc}, store has "
+                f"{self.record_bytes}/{self.total_clients}")
+        if si != self.shard_index or ns != self.num_shards:
+            raise ValueError(
+                f"store checkpoint belongs to shard {si}/{ns}, this "
+                f"store is shard {self.shard_index}/{self.num_shards}")
+        dig = arrays.get("store_digest")
+        if dig is not None:
+            want = _content_digest(rb, tc, si, ns, ids, recs)
+            if not np.array_equal(
+                    np.atleast_1d(np.asarray(dig, np.uint8)), want):
+                raise ValueError(
+                    "store checkpoint digest mismatch — records are "
+                    "corrupt (truncated/overwritten restore); refusing "
+                    "to load them")
+        if arrays.get("store_absorbed") is not None:
+            self._absorbed.update(
+                int(a) for a in np.atleast_1d(arrays["store_absorbed"]))
+        if ids.size:
+            self._store(ids, recs)
+
+    def absorb_shard(self, arrays: dict, *,
+                     expected_generation: Optional[str] = None) -> int:
+        """Failover: take ownership of a DEAD peer shard's ids, loading
+        its exported rows (its last touched-row ``checkpoint_arrays``)
+        into the overlay. The export is digest-verified and
+        generation-fenced — pass the generation the dead shard
+        advertised (its flush ack) and a stale previous-life or corrupt
+        export is refused loudly instead of resurrecting old state.
+        Bitwise: rows land exactly as exported (the handoff-roundtrip
+        test pins it). Returns the number of rows absorbed."""
+        rb = int(arrays.get("store_record_bytes", -1))
+        tc = int(arrays.get("store_total_clients", -1))
+        ns = int(arrays.get("store_num_shards", -1))
+        dead = int(arrays.get("store_shard_index", -1))
+        if (rb != self.record_bytes or tc != self.total_clients
+                or ns != self.num_shards):
+            raise ValueError(
+                f"shard export geometry mismatch: record_bytes={rb} "
+                f"total_clients={tc} num_shards={ns}, survivor has "
+                f"{self.record_bytes}/{self.total_clients}/"
+                f"{self.num_shards}")
+        if not 0 <= dead < self.num_shards or dead == self.shard_index:
+            raise ValueError(
+                f"cannot absorb shard {dead} into shard "
+                f"{self.shard_index}/{self.num_shards}")
+        gen = arrays.get("store_generation")
+        gen = (bytes(np.atleast_1d(np.asarray(gen, np.uint8))).decode()
+               if gen is not None else None)
+        if expected_generation is not None and gen != expected_generation:
+            raise ValueError(
+                f"shard export generation {gen!r} does not match the "
+                f"expected {expected_generation!r} — refusing a stale "
+                "handoff")
+        ids = np.asarray(arrays.get("store_ids",
+                                    np.zeros((0,), np.int64)), np.int64)
+        recs = np.asarray(arrays.get(
+            "store_records", np.zeros((0, self.record_bytes), np.uint8)),
+            np.uint8)
+        dig = arrays.get("store_digest")
+        if dig is not None:
+            want = _content_digest(rb, tc, dead, ns, ids, recs)
+            if not np.array_equal(
+                    np.atleast_1d(np.asarray(dig, np.uint8)), want):
+                raise ValueError(
+                    "shard export digest mismatch — records are "
+                    "corrupt; refusing the absorb")
+        if ids.size and not np.all(ids % self.num_shards == dead):
+            raise ValueError(
+                f"shard export contains ids outside shard {dead}")
+        self._absorbed.add(dead)
+        for i, rec in zip(ids, recs):
+            self._overlay[int(i)] = np.asarray(rec, np.uint8).copy()
+        self._touched.update(int(i) for i in ids)
+        return int(ids.size)

@@ -317,8 +317,8 @@ class ServingConfig:
 
     A bounded cohort of ``cohort`` engine slots absorbs an unbounded
     user population (stable user -> slot bindings with LRU eviction —
-    see fedtpu_torch.serving.engine.SlotBinder; the store-backed
-    per-user identity is ROADMAP A8c); admitted updates become DRIVEN async
+    see fedtpu_torch.serving.engine.SlotBinder, and the per-user store
+    behind it, ``ServingEngine.attach_store``); admitted updates become DRIVEN async
     FedBuff ticks. All admission/staleness/latency decisions run on the
     VIRTUAL clock carried by arrival timestamps, so identical trace +
     seed replays bitwise-identically."""
@@ -372,6 +372,54 @@ class ServingConfig:
     screen_clip_norm: float = 0.0    # L2 clip on accepted updates; 0 = off
     quarantine_strikes: int = 3      # screened strikes until quarantine
 
+
+@dataclasses.dataclass(frozen=True)
+class AutoscaleConfig:
+    """``autoscale`` — the SLO-driven control plane
+    (``fedtpu_torch.autoscale``; ``fedtpu.config.AutoscaleConfig``, every
+    field with its default).
+
+    Thresholds are read against :class:`fedtpu_torch.autoscale.signals.
+    Snapshot` fields; the hysteresis/cooldown pair is what keeps the
+    default policy from flapping (a scale signal must persist for
+    ``hysteresis_ticks`` consecutive control ticks, and every action
+    opens a ``cooldown_ticks`` refractory window)."""
+
+    policy: str = "threshold"
+    # SLO fold (must mirror the serving side's objective to be
+    # meaningful; the simulator uses these directly).
+    objective_s: float = 1.0
+    error_budget: float = 0.1
+    control_interval_s: float = 0.5   # snapshot cadence (virtual s live+sim)
+    # Threshold knobs for the default policy.
+    backlog_high: int = 256           # pending depth that means overload
+    backlog_low: int = 32             # pending depth that means underload
+    burn_high: float = 1.0            # SLO burn >= this is overload
+    reject_high: float = 0.2          # window rate+backpressure reject share
+    hysteresis_ticks: int = 2
+    cooldown_ticks: int = 4
+    # Actuation bounds / targets.
+    min_capacity: int = 1             # gang floor (members)
+    max_capacity: int = 8             # gang ceiling (members)
+    cohort_high: int = 128            # set_cohort_size on scale-up
+    cohort_low: int = 32              # set_cohort_size on scale-down
+    tick_fast_s: float = 0.1          # set_tick_cadence on scale-up
+    tick_slow_s: float = 1.0          # set_tick_cadence on scale-down
+
+    def __post_init__(self):
+        if self.objective_s <= 0 or self.error_budget <= 0:
+            raise ValueError("objective_s and error_budget must be > 0")
+        if self.control_interval_s <= 0:
+            raise ValueError("control_interval_s must be > 0")
+        if self.backlog_low > self.backlog_high:
+            raise ValueError("backlog_low must be <= backlog_high")
+        if self.hysteresis_ticks < 1 or self.cooldown_ticks < 0:
+            raise ValueError("hysteresis_ticks >= 1 and "
+                             "cooldown_ticks >= 0 required")
+        if not (1 <= self.min_capacity <= self.max_capacity):
+            raise ValueError("need 1 <= min_capacity <= max_capacity")
+        if self.tick_fast_s <= 0 or self.tick_slow_s <= 0:
+            raise ValueError("tick cadences must be > 0")
 
 
 # fedtpu's presets: the income ones, the sklearn warm-start demo's and the

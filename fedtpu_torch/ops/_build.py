@@ -16,6 +16,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -95,12 +96,18 @@ def build(force: bool = False) -> dict:
             "compiler_output": "".join(outputs)}
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """The built library with every entry point's argtypes set."""
-    lib = ctypes.CDLL(build()["path"])
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    """The built library with every entry point's argtypes set. Threads
+    that launch first at once build it one after the other (the build's
+    temporary files are named by the process)."""
+    with _LOAD_LOCK:
+        lib = ctypes.CDLL(build()["path"])
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib

@@ -12,8 +12,10 @@ Each wrapper checks its tensors and then:
 
 ``LAUNCHES`` counts kernel launches per wrapper (never plain-version calls),
 so a run can show that its main path went through the kernels. A wrapper
-called under CUDA-graph capture launches nothing then; the capture records
-what it counted and each replay adds it (``count_replay``).
+called under CUDA-graph capture launches nothing then; the capturing
+thread counts into its own recorder (``recording_launches``), and each
+replay adds what it recorded (``count_replay``). Counts from several
+threads (the gateway fleet's engines) go through one lock.
 
 The parameters of a model are a flat float32 buffer with ``dims =
 (input_dim, *hidden_sizes, num_classes)`` (``fedtpu_torch.models.mlp``);
@@ -25,8 +27,10 @@ only, as their Pallas originals.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Sequence
 
 import torch
@@ -67,17 +71,47 @@ WAVG_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 WAVG_AVERAGE, WAVG_BROADCAST, WAVG_SUM = 0, 1, 2
 
 
+_COUNT_LOCK = threading.Lock()
+# Per thread: the recorder of a graph capture under way in that thread.
+_RECORDER = threading.local()
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def count_replay(launches: dict) -> None:
     """Add one replay of a CUDA graph to ``LAUNCHES``: ``launches`` are the
     launches its capture recorded (a wrapper counts on the host, so inside
     a graph it counts once, at capture, and never at replay)."""
-    for name, n in launches.items():
-        LAUNCHES[name] += n
+    with _COUNT_LOCK:
+        for name, n in launches.items():
+            LAUNCHES[name] += n
+
+
+def _count(name: str) -> None:
+    """One launch of ``name``'s kernel: into this thread's capture
+    recorder while it captures a graph, else into ``LAUNCHES``."""
+    recorder = getattr(_RECORDER, "launches", None)
+    if recorder is not None:
+        recorder[name] += 1
+        return
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """This thread's launches counted into a fresh dict (yielded) instead
+    of ``LAUNCHES``, while it captures a graph: launches another thread
+    makes meanwhile still count."""
+    _RECORDER.launches = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield _RECORDER.launches
+    finally:
+        _RECORDER.launches = None
 
 
 def _device(*tensors: torch.Tensor) -> torch.device:
@@ -468,7 +502,7 @@ def _launch_wavg(stacked: torch.Tensor, weights: torch.Tensor,
     _launch("ft_weighted_average", stacked.device, stacked.data_ptr(),
             weights.data_ptr(), c, d, WAVG_DTYPES[stacked.dtype],
             WAVG_DTYPES[out.dtype], int(mode), threads, out.data_ptr())
-    LAUNCHES["weighted_average_clients"] += 1
+    _count("weighted_average_clients")
 
 
 # ------------------------------------------------ K2: fused eval -> confusion
@@ -521,7 +555,7 @@ def fused_eval_confusion(flat: torch.Tensor, dims: Sequence[int],
             ctypes.addressof(dims_arg), len(dims) - 1, x.data_ptr(),
             y.data_ptr(), mask.data_ptr(), c, n, plan.rows, plan.cap,
             int(plan.shared_counts), plan.nbytes, conf.data_ptr())
-    LAUNCHES["fused_eval_confusion"] += 1
+    _count("fused_eval_confusion")
     return conf
 
 
@@ -567,7 +601,7 @@ def _launch_forward(flat: torch.Tensor, dims: tuple, x: torch.Tensor,
     _launch("ft_mlp_forward", x.device, flat.data_ptr(), param_count(dims),
             ctypes.addressof(dims_arg), len(dims) - 1, x.data_ptr(),
             x.shape[0], rows, threads, cap, nbytes, out.data_ptr())
-    LAUNCHES["fused_mlp_forward"] += 1
+    _count("fused_mlp_forward")
 
 
 # ------------------------------------------------ K4: ring all-reduce (sum)
@@ -608,7 +642,7 @@ def ring_all_reduce_sum(stack: torch.Tensor) -> torch.Tensor:
     accs = (ctypes.c_void_p * s)(*(out.data_ptr() + d * row for d in range(s)))
     _launch("ft_ring_all_reduce", dev, ctypes.addressof(xs),
             ctypes.addressof(accs), s, p)
-    LAUNCHES["ring_all_reduce_sum"] += 1
+    _count("ring_all_reduce_sum")
     return out
 
 
@@ -743,5 +777,5 @@ def fused_round(params: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
             *(t.data_ptr() for t in outs), count_out.data_ptr(),
             loss.data_ptr(), conf.data_ptr(),
             None if phase_ns is None else phase_ns.data_ptr())
-    LAUNCHES["fused_round"] += 1
+    _count("fused_round")
     return (*outs, count_out, loss, conf)

@@ -72,14 +72,15 @@ round, and handed to the step as a tensor.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from fedtpu_torch.models.registry import as_model
-from fedtpu_torch.ops.cuda_kernels import (LAUNCHES, count_replay,
-                                           fused_mlp_forward,
+from fedtpu_torch.ops.cuda_kernels import (count_replay, fused_mlp_forward,
+                                           recording_launches,
                                            weighted_average_clients)
 from fedtpu_torch.ops.metrics import confusion_matrix, metrics_from_confusion
 from fedtpu_torch.ops.optim import Optimizer
@@ -836,6 +837,11 @@ class CapturedRounds:
         return self.out
 
 
+# One CUDA-graph capture at a time in a process (``capture_round_step``);
+# reentrant, so a caller may hold it around its warm-up and capture.
+CAPTURE_LOCK = threading.RLock()
+
+
 def _needs_the_card(state: dict) -> torch.device:
     dev = state["params"].device
     if dev.type != "cuda":
@@ -868,24 +874,31 @@ def capture_round_step(step: RoundStep, state: dict,
 
     ``state``'s tensors become the graph's static state: the captured step
     reads them and ends by copying the new state into them. Capture
-    records the launches the step makes, ``cuda_kernels.LAUNCHES`` is set
-    back (capture launches nothing), and each replay adds them. A capture
-    that fails raises."""
+    records the launches the step makes into its own count
+    (``recording_launches``: capture launches nothing), and each replay
+    adds them. A capture that fails raises.
+
+    Several engines may capture in one process (the gateway fleet's
+    threads): captures take ``CAPTURE_LOCK`` one at a time, because
+    ``torch.cuda.graph`` synchronizes the device and empties the
+    allocator's cache before it begins, which a capture under way in
+    another thread would not survive; and each captures in the
+    ``thread_local`` mode, in which only the capturing thread is barred
+    from the calls a capture forbids, so another thread's replays, copies
+    and allocations go on meanwhile (the capture's own stream does not
+    synchronize with theirs)."""
     _needs_the_card(state)
     inputs = step.input_buffers(state)
     graph = torch.cuda.CUDAGraph()
-    before = dict(LAUNCHES)
-    try:
-        with torch.cuda.graph(graph):
+    with CAPTURE_LOCK, recording_launches() as launches:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             new_state, raw = step.fn(state, batch, *inputs)
             for dst, src in zip(step.state_tensors(state),
                                 step.state_tensors(new_state)):
                 dst.copy_(src)
             out = pack_outputs(raw, *step.outputs)
-    finally:
-        launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-        LAUNCHES.update(before)
-    return CapturedRounds(graph, state, inputs, out, launches, step.rounds)
+    return CapturedRounds(graph, state, inputs, out, dict(launches),
+                          step.rounds)
 
 
 def masked_client_mean(per_client: dict, mask: torch.Tensor) -> dict:

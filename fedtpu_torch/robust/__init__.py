@@ -9,7 +9,8 @@
    incorporated.
 2. **Reputation / quarantine**: screened strikes accumulate per user id in
    the ServingEngine; at the configured threshold the id is quarantined
-   (refused at offer()). The cohort store's durable flag is ROADMAP A8c.
+   (refused at offer()), and flagged durably in an attached cohort
+   store's record.
 
 This package holds the deterministic defense simulation that drives the
 screening engine over a seeded adversarial trace.

@@ -11,16 +11,19 @@ is ROADMAP A11, so the lines are held against ``fedtpu``'s own
 ``simulate()`` run in-process (the tests) and the card's against the
 CPU's (``chip_smoke.py``).
 
-``write_decisions`` / ``compare_decisions`` are the port's copies of
-``fedtpu/autoscale/controller.py:204-229``: one write/compare format for
-every decision log.
+``write_decisions`` / ``compare_decisions`` come from the autoscale
+control plane (``fedtpu_torch.autoscale.controller``), as ``fedtpu``'s
+do: one write/compare implementation for every decision log.
 """
 
 from __future__ import annotations
 
 import json
-import os
-from typing import List, Optional
+from typing import Optional
+
+# One write/compare implementation repo-wide (re-exported below).
+from fedtpu_torch.autoscale.controller import (compare_decisions,
+                                               write_decisions)
 
 # ---------------------------------------------------------------------------
 # Simulation contract: ``fedtpu``'s constants (its golden's). The engine
@@ -118,34 +121,6 @@ def simulate(*, trace_path: Optional[str] = None,
     if tracer is not None:
         tracer.event("defense_sim_summary", **summary)
     return {"lines": lines, "summary": summary}
-
-
-def write_decisions(path: str, lines: List[str]) -> None:
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "w", encoding="utf-8") as fh:
-        for line in lines:
-            fh.write(line + "\n")
-    os.replace(tmp, path)
-
-
-def compare_decisions(lines: List[str], golden_path: str) -> dict:
-    """Bitwise golden comparison, audit-gate style: every line must
-    match exactly. Returns ``{"ok": bool, "reason": str}``."""
-    try:
-        with open(golden_path, encoding="utf-8") as fh:
-            golden = [ln.rstrip("\n") for ln in fh if ln.strip()]
-    except OSError as e:
-        return {"ok": False, "reason": f"golden unreadable: {e}"}
-    if len(golden) != len(lines):
-        return {"ok": False,
-                "reason": (f"decision count {len(lines)} != golden "
-                           f"{len(golden)}")}
-    for idx, (got, want) in enumerate(zip(lines, golden)):
-        if got != want:
-            return {"ok": False,
-                    "reason": (f"first divergence at line {idx + 1}: "
-                               f"got {got[:120]} want {want[:120]}")}
-    return {"ok": True, "reason": f"{len(lines)} decision lines match"}
 
 
 __all__ = ["simulate", "write_decisions", "compare_decisions",

@@ -14,13 +14,17 @@ port's copy of ``fedtpu.serving``).
                 replay each on the card
     server    — the long-running ``serve`` process: socket loop,
                 SIGTERM -> drain -> checkpoint -> exit 75
-    client    — the retrying, session-stamping protocol client
+    client    — the retrying, session-stamping protocol client (fleet
+                routing, redirects, failover, the proxy's port file)
     loadgen   — ``loadgen``: replays an arrival trace against a running
-                server for millions of simulated users
+                server (or gateway fleet) for millions of simulated users
+    gateway   — ``gateway``: one member of a store-backed, id-sharded
+                fleet, with redirects and the flush/adopt failover
+    netproxy  — the deterministic wire-fault proxy a ``--net-fault-plan``
+                puts in front of a server
 
 Import-light: nothing here imports torch at module scope; the engine
-imports it at construction. The gateway fleet and the wire-fault proxy
-are ROADMAP A8c.
+imports it at construction.
 """
 
 from fedtpu_torch.serving.admission import (AdmissionController,  # noqa: F401

@@ -14,10 +14,15 @@ Multiple updates queued on one slot coalesce into that one arrival: tick
 count scales with the flush cadence, not the arrival count.
 
 Eviction (a new user arriving with all C slots bound) reclaims the
-least-recently-active user's slot; the incoming user inherits the
-evictee's warm slot state. ``fedtpu``'s store-backed eviction
-(``attach_store``, per-user records over ``cohort/store.py``) is ROADMAP
-A8c and raises here.
+least-recently-active user's slot. Without a store the incoming user
+inherits the evictee's warm slot state. With a
+:class:`fedtpu_torch.cohort.store.ClientStateStore` attached
+(:meth:`ServingEngine.attach_store`), eviction persists the evictee's slot
+into its record and loads the incomer's record (if it has one) into the
+slot, for each of the tick's binds, before the device step: per-user
+identity over a population far larger than the C slots. On the card the
+slot's tensors are the captured graph's static buffers, so a swap writes
+INTO them (``index_copy_``), never rebinding the state.
 
 Two clocks, deliberately separate:
 
@@ -63,7 +68,6 @@ from typing import Optional
 
 import numpy as np
 
-from fedtpu_torch.config import _not_ported
 from fedtpu_torch.serving.admission import (ADMITTED, DEPRIORITIZE,
                                             SCREENED, VERDICTS,
                                             AdmissionController,
@@ -257,7 +261,8 @@ class ServingEngine:
         from fedtpu_torch.ops.optim import build_optimizer
         from fedtpu_torch.orchestration.loop import resolve_device
         from fedtpu_torch.parallel import async_fed
-        from fedtpu_torch.parallel.round import (capture_round_step,
+        from fedtpu_torch.parallel.round import (CAPTURE_LOCK,
+                                                 capture_round_step,
                                                  warm_up_round)
 
         self.cfg = cfg
@@ -341,13 +346,17 @@ class ServingEngine:
         if capture:
             # One eager tick (result dropped: its launches are real and
             # counted), then the capture; every fired tick is a replay.
-            warm_up_round(self.step, self.state, self.batch)
-            self._graph = capture_round_step(self.step, self.state,
-                                             self.batch)
+            # Engines built in several threads (the gateway fleet) take
+            # the two steps one engine at a time; a failed capture raises.
+            with CAPTURE_LOCK:
+                warm_up_round(self.step, self.state, self.batch)
+                self._graph = capture_round_step(self.step, self.state,
+                                                 self.batch)
 
         # Host-side serving state (all of it checkpointed; see
         # checkpoint()/restore()).
         self.binder = SlotBinder(self.C)
+        self.store = None            # optional ClientStateStore (attach_store)
         # Defense reputation: screened-update strikes per user; at
         # quarantine_strikes the user id is quarantined — refused at
         # offer().
@@ -576,19 +585,101 @@ class ServingEngine:
         return replayed
 
     # ------------------------------------------------------------------
-    # per-user identity (cohort store backing): ROADMAP A8c
+    # per-user identity (cohort store backing)
 
     def attach_store(self, total_users: int, backend: str = "memory",
                      path: Optional[str] = None, shard_index: int = 0,
                      num_shards: int = 1):
-        """``fedtpu``'s store-backed eviction (``cohort/store.py``):
-        not ported yet."""
-        _not_ported("ServingEngine.attach_store (the per-user state store)",
-                    "A8c")
+        """Back slot eviction with a per-user state store: each of
+        ``total_users`` user ids owns one record shaped like a single
+        engine slot (params, anchor, Adam's moments and count, pull
+        tick). From now on, evicting a user persists its slot into its
+        record, and a returning user's record is loaded back into the slot
+        it lands on. ``shard_index``/``num_shards`` attach the id-shard a
+        gateway owns (the fleet's routing keeps every offered user inside
+        it). Returns the store (callers checkpoint it through
+        :meth:`checkpoint`, which attaches its touched rows to the same
+        checkpoint as the engine state)."""
+        from fedtpu_torch.cohort.store import ClientStateStore, state_template
+        self.store = ClientStateStore(
+            state_template(self.state, self.C), total_users,
+            backend=backend, path=path, shard_index=shard_index,
+            num_shards=num_shards)
+        return self.store
+
+    def _read_slots(self, slots) -> list:
+        """The per-client tensors of ``slots`` on the host, in
+        ``per_client_view`` order: one ``(K, *shape)`` numpy array each,
+        bit for bit. The rows are gathered on the device and copied to the
+        host asynchronously, with one wait for all of them."""
+        import torch
+        from fedtpu_torch.parallel.round import per_client_view
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        rows = [t.index_select(0, idx).to("cpu", non_blocking=True)
+                for t in per_client_view(self.state, self.C)]
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return [r.numpy() for r in rows]
+
+    def _write_slots(self, slots, values) -> None:
+        """Slots ``slots`` set to ``values`` (per slot, one ``(*shape)``
+        array per per-client tensor, ``per_client_view`` order), copied
+        INTO the state's tensors (on the card, the captured graph's static
+        buffers), never rebinding them: one host-to-device copy and one
+        ``index_copy_`` per tensor."""
+        import torch
+        from fedtpu_torch.parallel.round import per_client_view
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        for i, t in enumerate(per_client_view(self.state, self.C)):
+            rows = np.stack([v[i] for v in values])
+            t.index_copy_(0, idx, torch.from_numpy(rows).to(self.device))
 
     def writeback_slots(self) -> int:
-        _not_ported("ServingEngine.writeback_slots (the per-user state "
-                    "store)", "A8c")
+        """Persist every currently-BOUND slot's engine state into its
+        user's store record, without evicting — completes the store
+        image before a shard export (the gateway ``flush`` op), so a
+        survivor adopting the records sees every user's newest state,
+        not just past evictees'. Returns the number of slots written."""
+        if self.store is None:
+            return 0
+        bind = self.binder.state()
+        if bind["users"].size:
+            self.store.write(bind["users"], self._read_slots(bind["slots"]),
+                             participated=False)
+        return int(bind["users"].size)
+
+    def _swap_slots(self, swaps: list) -> None:
+        """Store-backed eviction for one tick's binds, ``swaps`` their
+        ``(slot, evicted_user, new_user)`` in bind order: each persists
+        the evictee's slot record, then loads the incomer's record into
+        the slot (first-ever users have no record and inherit the slot's
+        warm state — their record is created when THEY are evicted).
+
+        The store sees ``fedtpu``'s sequence of writes and reads, swap
+        after swap; the device sees one read of the swapped slots before
+        and one write of the slots whose state changed after. Between the
+        two the slots live on the host, so a user bound earlier in the
+        tick and evicted again leaves the record its slot holds at that
+        point, as one device read and write a swap would give."""
+        slots = sorted({slot for slot, _, _ in swaps})
+        rows = self._read_slots(slots)
+        held = {slot: [r[i] for r in rows] for i, slot in enumerate(slots)}
+        changed = set()
+        for slot, evicted_user, new_user in swaps:
+            self.store.write(np.asarray([evicted_user], np.int64),
+                             [v[None] for v in held[slot]])
+            # Participation, not version, decides whether a record holds
+            # real slot state: reputation writes (set_reputation) bump the
+            # version without touching the leaves, and swapping such a
+            # zero-filled record into a live slot would wipe it.
+            new = np.asarray([new_user], np.int64)
+            if int(self.store.participation(new)[0]) > 0:
+                held[slot] = [r[0] for r in self.store.read(new)]
+                changed.add(slot)
+            self.registry.counter("serve_slot_evictions").inc()
+        if changed:
+            order = sorted(changed)
+            self._write_slots(order, [held[slot] for slot in order])
 
     # ------------------------------------------------------------------
     # ticking
@@ -639,14 +730,19 @@ class ServingEngine:
         tick_slots = set()
         poison_of: dict = {}
         user_of: dict = {}
+        swaps = []
         for p in ready:
-            slot, _ = self.binder.bind(p.user)
+            slot, evicted = self.binder.bind(p.user)
+            if evicted is not None and self.store is not None:
+                swaps.append((slot, evicted, p.user))
             tick_slots.add(slot)
             user_of[slot] = p.user
             # Coalesced entries on one slot: a poisoned one dominates —
             # the arrival carries the strongest adversarial weight.
             poison_of[slot] = max(poison_of.get(slot, 0.0),
                                   float(p.poison))
+        if swaps:
+            self._swap_slots(swaps)
         slots = sorted(tick_slots)
         mask = np.zeros((1, self.C), np.float32)
         for s in slots:
@@ -734,6 +830,10 @@ class ServingEngine:
             self.tracer.event("serve_quarantine", round=self.tick_count,
                               t_virtual=float(t_fire), user=user,
                               strikes=n)
+            if self.store is not None:
+                self.store.set_reputation(
+                    np.asarray([user], np.int64),
+                    np.asarray([n], np.uint32), True)
 
     def _record_tick(self, t_fire: float, n_updates: int,
                      n_slots: int) -> None:
@@ -983,6 +1083,10 @@ class ServingEngine:
             extra["serve_sessions"] = np.frombuffer(
                 json.dumps(self._sessions, sort_keys=True).encode(),
                 np.uint8).copy()
+        # Attached user store: its touched records ride the same
+        # checkpoint, so engine state and store restore together.
+        if self.store is not None:
+            extra.update(self.store.checkpoint_arrays())
         # Every extra as an array (a 0-d one for a scalar): the meta file
         # holds tensors, never numpy scalars.
         extra = {k: np.asarray(v) for k, v in extra.items()}
@@ -1007,7 +1111,8 @@ class ServingEngine:
         raises. The keys :meth:`checkpoint` always writes are read as
         such; those it writes only when non-empty (pending updates,
         strikes, quarantine, applies, bindings, latencies, sessions) are
-        empty when absent."""
+        empty when absent. An attached store restores the records the
+        checkpoint carries (digest-verified)."""
         from fedtpu_torch.orchestration.checkpoint import (
             load_checkpoint_raw, load_meta)
         from fedtpu_torch.parallel.async_fed import async_state_tensors
@@ -1081,6 +1186,8 @@ class ServingEngine:
             self._sessions = {
                 k: [int(v[0]), dict(v[1])]
                 for k, v in json.loads(bytes(raw).decode()).items()}
+        if self.store is not None:
+            self.store.restore_arrays(meta)
         # Re-seed the run-total registry instruments so a post-resume
         # counters snapshot reports the whole run, not the segment.
         if self.tick_count:

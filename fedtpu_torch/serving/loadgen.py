@@ -10,9 +10,10 @@ snapshot in hand.
 All traffic rides the retrying :class:`fedtpu_torch.serving.client
 .GatewayClient`: a refused connection or a dropped socket mid-replay is
 retried with capped exponential backoff instead of crashing the run,
-and every batch is session-stamped so a retry after a lost ack is
-deduplicated server-side rather than double-counted. ``num_gateways >
-1`` (the gateway fleet) raises naming ROADMAP A8c.
+redirect frames are followed, and every batch is session-stamped so a
+retry after a lost ack is deduplicated server-side rather than
+double-counted. With ``num_gateways > 1`` the trace is partitioned by
+owning gateway per flush and the final drain/stats fans out per member.
 
 Replay is as-fast-as-possible by design: arrival TIMESTAMPS carry the
 virtual clock, so the server's admission/staleness/latency behavior is
@@ -61,10 +62,11 @@ def run_loadgen(trace_path: str, host: str = "127.0.0.1",
                 backoff_s: float = DEFAULT_BACKOFF_S,
                 seed: int = 0) -> dict:
     """Replay ``trace_path`` against the server at ``host:port`` (or the
-    port in ``port_file``). Returns a summary dict: events sent, frames,
-    aggregated admission counts, retry counters, wall seconds,
-    events/sec, and — when ``drain`` — the server's post-drain stats
-    snapshot.
+    port in ``port_file`` — with ``num_gateways > 1`` the BASE path each
+    gateway derives its own file from). Returns a summary dict: events
+    sent, frames, aggregated admission counts, retry/redirect counters,
+    wall seconds, events/sec, and — when ``drain`` — the server's
+    post-drain stats snapshot (per-gateway when fleet-sized).
 
     ``batch`` events ride per protocol frame (capped at the protocol's
     MAX_BATCH_EVENTS); ``max_events > 0`` truncates the replay (bounded
@@ -109,9 +111,19 @@ def run_loadgen(trace_path: str, host: str = "127.0.0.1",
         _flush()
         stats = None
         if drain:
-            client.request({"op": "drain"})
-            stats = client.request({"op": "stats"})
-            stats.pop("op", None)
+            if client.num_gateways == 1:
+                client.request({"op": "drain"})
+                stats = client.request({"op": "stats"})
+                stats.pop("op", None)
+            else:
+                # Per-member, no failover: a drain aimed at a dead
+                # gateway must not drain a survivor twice.
+                client.request_each({"op": "drain"})
+                per = client.request_each({"op": "stats"})
+                stats = {str(g): (s if s is None
+                                  else {k: v for k, v in s.items()
+                                        if k != "op"})
+                         for g, s in per.items()}
         frames = client.stats["frames"]
         retry_stats = dict(client.stats)
     wall = time.monotonic() - t0
@@ -122,7 +134,7 @@ def run_loadgen(trace_path: str, host: str = "127.0.0.1",
         "events_sent": sent,
         "frames": frames,
         "batch": batch,
-        "num_gateways": client.num_gateways,
+        "num_gateways": int(max(1, num_gateways)),
         "cohort": welcome.get("cohort"),
         "admission": counts,
         "attempted": retry_stats["attempted"],

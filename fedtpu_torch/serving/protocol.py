@@ -44,9 +44,11 @@ a frame retried after a lost ack is answered with the ORIGINAL counts
 (flagged ``"duplicate": true``) instead of being incorporated twice —
 the exactly-once contract the retrying gateway client leans on.
 
-Gateway routing (``fedtpu.serving.gateway``: a frame for a user
-another gateway owns is refused with a ``"redirect"`` error frame) is
-not ported yet: ROADMAP A8c.
+Gateway routing (``fedtpu_torch.serving.gateway``): a frame for a user
+another gateway owns is refused with an error frame carrying a
+``"redirect"`` object naming the owner — ``{"gateway": g,
+"num_gateways": N, "port_file": ...}`` — which the retrying client
+follows.
 
 Causal tracing (v1, optional field): a stamped frame may carry
 ``"trace"`` — the deterministic ``trace_id(nonce, seq)`` digest. The
@@ -60,7 +62,8 @@ Anything unparseable or unknown gets ``{"op": "error", ...}`` and the
 connection stays up — a load generator mid-replay should not lose its
 socket to one malformed frame.
 
-Framing helpers below are shared by server and loadgen; stdlib only.
+Framing helpers below are shared by server, gateway, and loadgen;
+stdlib only.
 """
 
 from __future__ import annotations
@@ -182,6 +185,25 @@ def trace_id(nonce, seq) -> str:
     16 hex chars: collision-safe for a fleet's worth of frames while
     keeping event lines small."""
     return hashlib.sha256(f"{nonce}:{int(seq)}".encode()).hexdigest()[:16]
+
+
+def gateway_port_file(base: str, index: int) -> str:
+    """Per-gateway port-file path (``<base>.g<i>``) — the one derivation
+    rule shared by the gateway fleet, its clients, and the health probe,
+    so a redirect frame's owner is discoverable from the base path
+    alone."""
+    return f"{base}.g{int(index)}"
+
+
+def net_proxy_port_file(path: str) -> str:
+    """Port-file path of the wire-fault proxy fronting the server whose
+    own port file is ``path`` (``<path>.net``). When a ``--net-fault-plan``
+    is active the server writes this file BEFORE its real one, so any
+    client that discovered the real port file can atomically prefer the
+    proxy — that single derivation rule is how loadgen, GatewayClient,
+    and the LiveController all route through the chaos wire without
+    flags of their own (see ``serving.netproxy``)."""
+    return f"{path}.net"
 
 
 class Connection:

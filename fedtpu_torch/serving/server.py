@@ -19,9 +19,8 @@ so a restart with ``--resume`` finds the buffer state RECOVERABLE rather
 than dropped.
 
 Not ported yet: the events sink (``events``) and the heartbeat file
-(``heartbeat``), ROADMAP A11; the wire-fault proxy (``net_fault_plan``),
-ROADMAP A8c. Each raises when given. torch is only touched through the
-engine; this module stays importable backend-free.
+(``heartbeat``), ROADMAP A11; each raises when given. torch is only
+touched through the engine; this module stays importable backend-free.
 """
 
 from __future__ import annotations
@@ -226,8 +225,11 @@ def run_server(cfg, *, events: Optional[str] = None,
                history_path: Optional[str] = None,
                heartbeat: Optional[str] = None,
                once: bool = False, resume: bool = False,
-               verbose: bool = True, net_fault_plan=None,
-               device="cuda") -> dict:
+               verbose: bool = True, handle=None, on_engine=None,
+               start_extra: Optional[dict] = None,
+               net_fault_plan=None, net_gateway_index: int = 0,
+               net_num_gateways: int = 1,
+               role: Optional[str] = None, device="cuda") -> dict:
     """Serve until SIGTERM (raises ``Preempted`` after the drain) or,
     with ``once=True``, until the first accepted connection closes
     (clean drain, returns the summary). ``cfg`` is a ServingConfig.
@@ -236,14 +238,28 @@ def run_server(cfg, *, events: Optional[str] = None,
     ephemeral-port discovery for loadgen/tests. ``checkpoint_every_ticks``
     adds periodic checkpoints on top of the drain-time one. ``device`` is
     the engine's (the card by default).
-    ``events``, ``heartbeat`` and ``net_fault_plan`` are not ported yet
-    and raise."""
+
+    The gateway (``fedtpu_torch.serving.gateway``) reuses this loop
+    wholesale: ``handle`` replaces the per-request dispatcher (same
+    ``(engine, msg) -> response`` shape as :func:`_handle`), ``on_engine``
+    runs once after engine construction but before resume (store attach,
+    WAL wiring), and ``start_extra`` merges extra identity fields into the
+    ``serve_start`` event. ``role`` names the process in the events sink
+    (``fedtpu``'s ``serve`` / ``gateway-<i>``), which is ROADMAP A11.
+
+    ``net_fault_plan`` (a NetFaultPlan spec: path / inline JSON / dict)
+    puts a deterministic wire-fault proxy (``serving.netproxy``) in front
+    of this server: the proxy's port file (``<port_file>.net``) is written
+    BEFORE the real one, so any client that can discover the server's
+    port file atomically routes through the proxy. Requires
+    ``port_file``. ``net_gateway_index`` selects which gateway's entries
+    of the fleet-wide plan this proxy enforces.
+
+    ``events`` and ``heartbeat`` are not ported yet and raise."""
     if events is not None:
         _not_ported("serve --events (the telemetry event sink)", "A11")
     if heartbeat is not None:
         _not_ported("serve --heartbeat (the supervisor heartbeat)", "A11")
-    if net_fault_plan is not None:
-        _not_ported("serve --net-fault-plan (the wire-fault proxy)", "A8c")
     registry = default_registry()
     registry.reset()
     tracer = NullTracer()
@@ -252,6 +268,8 @@ def run_server(cfg, *, events: Optional[str] = None,
                            device=device)
     if checkpoint_dir:
         engine.spool_dir = checkpoint_dir
+    if on_engine is not None:
+        on_engine(engine)
     if resume and checkpoint_dir:
         from fedtpu_torch.orchestration.checkpoint import latest_step
         if latest_step(checkpoint_dir) is not None:
@@ -284,6 +302,23 @@ def run_server(cfg, *, events: Optional[str] = None,
     lsock.listen(16)
     lsock.setblocking(False)
     port = lsock.getsockname()[1]
+    proxy = None
+    if net_fault_plan is not None:
+        if not port_file:
+            raise ValueError("--net-fault-plan requires --port-file (the "
+                             "proxy is discovered via <port_file>.net)")
+        from fedtpu_torch.serving.netproxy import start_proxy
+        # Started BEFORE the real port file exists: a client that can
+        # read our port file is guaranteed to also see the proxy's.
+        proxy = start_proxy(net_fault_plan, net_gateway_index,
+                            net_num_gateways, port, port_file,
+                            host=cfg.host)
+        if verbose:
+            log.info(f"net fault proxy on {cfg.host}:{proxy.port} "
+                     f"(gateway {net_gateway_index}, "
+                     f"schedule {proxy.plan.digest}, "
+                     f"{len(proxy.plan.for_gateway(net_gateway_index))} "
+                     "fault(s))")
     if port_file:
         tmp = f"{port_file}.tmp.{os.getpid()}"
         with open(tmp, "w") as fh:
@@ -293,7 +328,8 @@ def run_server(cfg, *, events: Optional[str] = None,
         log.info(f"serving on {cfg.host}:{port} (cohort={cfg.cohort}, "
                  f"buffer_size={cfg.buffer_size}, once={once})")
     tracer.event("serve_start", port=port, cohort=cfg.cohort,
-                 buffer_size=cfg.buffer_size, resume=bool(resume))
+                 buffer_size=cfg.buffer_size, resume=bool(resume),
+                 **(start_extra or {}))
 
     sel = selectors.DefaultSelector()
     sel.register(lsock, selectors.EVENT_READ, None)
@@ -307,6 +343,11 @@ def run_server(cfg, *, events: Optional[str] = None,
             engine.write_history(history_path)
         if checkpoint_dir:
             engine.checkpoint(checkpoint_dir)
+        if proxy is not None:
+            # Main thread hands the proxy's buffered fault records to
+            # the tracer and writes the bitwise-compared decision log
+            # (*.netlog).
+            proxy.finish(tracer)
         tracer.event("serve_stop", round=engine.tick_count, reason=reason)
         if reason == "preempted":
             tracer.event("preempted", round=engine.tick_count)
@@ -352,7 +393,8 @@ def run_server(cfg, *, events: Optional[str] = None,
                                 f"{protocol.MAX_LINE_BYTES}"))
                             continue
                         msg = protocol.parse_msg(line)
-                        resp = _safe_handle(engine, msg, tracer, registry)
+                        resp = _safe_handle(engine, msg, tracer, registry,
+                                            handle or _handle)
                         protocol.send_msg(conn.sock, resp)
                 except (ConnectionError, OSError):
                     sel.unregister(conn.sock)
@@ -365,6 +407,8 @@ def run_server(cfg, *, events: Optional[str] = None,
                 engine.checkpoint(checkpoint_dir)
                 last_ckpt_tick = engine.tick_count
     finally:
+        if proxy is not None:
+            proxy.stop()
         for s, h in restore_sig:
             signal.signal(s, h)
         sel.close()

@@ -13,6 +13,8 @@ torch.set_num_threads(1)
 
 import ast  # noqa: E402
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
+import json  # noqa: E402
 import os  # noqa: E402
 
 import jax  # noqa: E402
@@ -936,7 +938,7 @@ def _subcommand_flags(parser, name):
 
 
 @pytest.mark.parametrize("command", ["run", "sweep", "parity", "serve",
-                                     "loadgen"])
+                                     "loadgen", "gateway", "autoscale"])
 def test_cli_takes_every_fedtpu_flag_whose_field_it_runs(command):
     """C5: the port's parser has each of fedtpu's flags of ``command``
     whose config field the port runs; each it lacks sets a field that the
@@ -963,8 +965,7 @@ def test_cli_takes_every_fedtpu_flag_whose_field_it_runs(command):
 # fedtpu's serve flags that the port's parser takes and refuses when given,
 # naming the ROADMAP item of each (they are run_server arguments, not
 # ServingConfig fields).
-_SERVE_NOT_PORTED = {"--events": "A11", "--heartbeat": "A11",
-                     "--net-fault-plan": "A8c"}
+_SERVE_NOT_PORTED = {"--events": "A11", "--heartbeat": "A11"}
 
 
 @pytest.mark.parametrize("flag", sorted(_SERVE_NOT_PORTED))
@@ -978,26 +979,6 @@ def test_cli_serve_refuses_the_flags_it_does_not_run(flag):
     with pytest.raises(NotImplementedError,
                        match=rf"\(ROADMAP {_SERVE_NOT_PORTED[flag]}\)"):
         t_main(argv)
-
-
-@pytest.mark.parametrize("entry", ["cli", "client"])
-def test_loadgen_refuses_a_gateway_fleet(entry, tmp_path):
-    """C5 for ``loadgen``: ``--num-gateways`` above 1 (the gateway fleet)
-    raises naming A8c, from the command line before any trace is written,
-    and from the client itself."""
-    from fedtpu.cli import build_parser as j_parser
-    from fedtpu_torch.cli import main as t_main
-    from fedtpu_torch.serving.client import GatewayClient
-    trace = str(tmp_path / "t.jsonl")
-    argv = ["loadgen", trace, "--synthesize", "--port", "1",
-            "--num-gateways", "2", "--quiet"]
-    assert j_parser().parse_args(argv).num_gateways == 2
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A8c\)"):
-        if entry == "cli":
-            t_main(argv)
-        else:
-            GatewayClient(port=1, num_gateways=2)
-    assert not (tmp_path / "t.jsonl").exists()
 
 
 @pytest.mark.parametrize("argv", [
@@ -1420,3 +1401,492 @@ def test_cli_async_run_on_cpu(capsys):
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["rounds_run"] == 6 and summary["max_staleness"] >= 0
     assert "mean_staleness" in summary
+
+
+# -------------------------------- the rest of the serving stack (A8c)
+# The port's cohort store, wire-fault plan, autoscale policy and signals
+# against fedtpu's on the same numpy inputs; the gateway and autoscale
+# command lines. The engine, the gateway fleet, the proxy and the sims are
+# held against fedtpu in test_torch_round.py.
+
+_NET_PLAN = {
+    "seed": 3,
+    "faults": [
+        {"kind": "net_partition", "gateway": 0, "frame": 2, "frames": 3},
+        {"kind": "net_torn_frame", "gateway": 1, "frame": 4,
+         "boundary": "post_ack", "cut_bytes": 32},
+        {"kind": "net_reset", "gateway": 0, "frame": 2, "phase": "accept"},
+        {"kind": "net_dup_frame", "gateway": 1, "frame": 9},
+        {"kind": "net_slow_link", "gateway": 0, "probability": 0.5,
+         "window": [10, 17], "chunk_bytes": 256},
+    ],
+}
+
+
+def _store_kw():
+    return dict(cohort=8, buffer_size=2, tick_interval_s=0.5, data_rows=64,
+                model_hidden=(8,), seed=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _store_states():
+    """fedtpu's serving engine state and the port's, at the small serving
+    shape (cohort 8, one hidden layer of 8): the stores' templates."""
+    from fedtpu.serving.engine import ServingEngine as JEngine
+    from fedtpu.telemetry.metrics import MetricsRegistry as JRegistry
+
+    from fedtpu_torch.serving.engine import ServingEngine as TEngine
+    j = JEngine(jcfg.ServingConfig(**_store_kw()), registry=JRegistry())
+    t = TEngine(tcfg.ServingConfig(**_store_kw()), device="cpu")
+    return jax.tree.map(np.asarray, j.state), t.state
+
+
+def _j_leaves_as_port(j_state, leaves):
+    """fedtpu's store leaves (its per_client_view order, K-leading) as the
+    port's: anchors, Adam's count, mu, nu, params, pull tick, each
+    quantity's pytree leaves concatenated in the flat row's order."""
+    from fedtpu.parallel.round import with_per_client
+    s = with_per_client(j_state, 8, [np.asarray(v) for v in leaves])
+    adam = s["opt_state"][0]
+    return [convert.params_from_jax(s["anchors"]).numpy(),
+            np.asarray(adam.count, np.int32),
+            convert.params_from_jax(adam.mu).numpy(),
+            convert.params_from_jax(adam.nu).numpy(),
+            convert.params_from_jax(s["params"]).numpy(),
+            np.asarray(s["pull_tick"], np.int32)]
+
+
+def _j_random_leaves(template, k, rng):
+    """Random fedtpu-layout leaves for ``k`` records; the schedule's count
+    equals Adam's, as in a real state."""
+    out = []
+    for shape, dtype in template:
+        if np.dtype(dtype).kind == "f":
+            out.append(rng.normal(size=(k,) + shape).astype(dtype))
+        else:
+            out.append(rng.integers(0, 50, size=(k,) + shape).astype(dtype))
+    counts = [i for i, (shape, dtype) in enumerate(template)
+              if np.dtype(dtype).kind != "f" and shape == ()]
+    out[counts[1]] = out[counts[0]].copy()   # optax's two update counts
+    return out
+
+
+def _store_headers(store, ids):
+    strikes, quarantined = store.reputation(ids)
+    return (store.versions(ids).tolist(), store.participation(ids).tolist(),
+            store.read_keys(ids).tolist(), strikes.tolist(),
+            quarantined.tolist())
+
+
+@pytest.mark.parametrize("backend", ["memory", "mmap"])
+def test_store_headers_and_values_equal_fedtpus(tmp_path, backend):
+    """One sequence of writes, reads, reputation writes, checkpoint_arrays
+    / restore_arrays and absorb_shard through fedtpu's ClientStateStore
+    and the port's: every header equal, every value equal under the leaf
+    mapping; each side's digest verifies its own export and refuses a
+    corrupted record; a stale generation is refused; bad ids raise
+    fedtpu's errors."""
+    from fedtpu.cohort.store import ClientStateStore as JStore
+    from fedtpu.cohort.store import state_template as j_template
+
+    from fedtpu_torch.cohort.store import ClientStateStore as TStore
+    from fedtpu_torch.cohort.store import state_template as t_template
+    j_state, t_state = _store_states()
+    jt, tt = j_template(j_state, 8), t_template(t_state, 8)
+    assert [(s, d.name) for s, d in tt] == [
+        ((74,), "float32"), ((), "int32"), ((74,), "float32"),
+        ((74,), "float32"), ((74,), "float32"), ((), "int32")]
+    rng = np.random.default_rng(0)
+
+    def make(cls, template, shard, tag):
+        path = (str(tmp_path / f"{tag}.{shard}") if backend == "mmap"
+                else None)
+        return cls(template, 40, backend=backend, path=path,
+                   shard_index=shard, num_shards=2)
+
+    j1, t1 = make(JStore, jt, 1, "j"), make(TStore, tt, 1, "t")
+    keys = rng.integers(0, 2**32, size=(3, 2), dtype=np.uint32)
+    first = _j_random_leaves(jt, 3, rng)
+    second = _j_random_leaves(jt, 2, rng)
+    for store, conv in ((j1, list), (t1, lambda v: _j_leaves_as_port(
+            j_state, v))):
+        store.write(np.array([1, 3, 5]), conv(first), keys=keys)
+        store.write(np.array([3, 7]), conv(second), participated=False)
+        store.set_reputation(np.array([5, 9]), np.array([2, 3], np.uint32),
+                             np.array([False, True]))
+    ids = np.array([1, 3, 5, 7, 9, 11])
+    assert _store_headers(t1, ids) == _store_headers(j1, ids)
+    assert t1.quarantined_ids().tolist() == j1.quarantined_ids().tolist()
+    for got, want in zip(t1.read(ids), _j_leaves_as_port(j_state,
+                                                         j1.read(ids))):
+        np.testing.assert_array_equal(got, want)
+    assert (t1.resident_estimate_bytes() // t1.record_bytes
+            == j1.resident_estimate_bytes() // j1.record_bytes == 5)
+    for store in (j1, t1):
+        for bad, match in ((np.array([41]), "out of range"),
+                           (np.array([2]), "not owned")):
+            with pytest.raises(ValueError, match=match):
+                store.read(bad)
+
+    j1.generation = t1.generation = "genA"
+    for side, (cls, template, old) in {"j": (JStore, jt, j1),
+                                       "t": (TStore, tt, t1)}.items():
+        arrays = old.checkpoint_arrays()
+        # Restored into a fresh store of the same shard: bitwise.
+        fresh = make(cls, template, 1, f"{side}-fresh")
+        fresh.restore_arrays(arrays)
+        assert _store_headers(fresh, ids) == _store_headers(old, ids)
+        for a, b in zip(fresh.read(ids), old.read(ids)):
+            np.testing.assert_array_equal(a, b)
+        corrupt = dict(arrays, store_records=arrays["store_records"].copy())
+        corrupt["store_records"][2, -1] ^= 1
+        with pytest.raises(ValueError, match="digest mismatch"):
+            make(cls, template, 1, f"{side}-bad").restore_arrays(corrupt)
+        # Failover: shard 0 adopts shard 1's export.
+        survivor = make(cls, template, 0, f"{side}-0")
+        with pytest.raises(ValueError, match="generation"):
+            survivor.absorb_shard(arrays, expected_generation="genB")
+        with pytest.raises(ValueError, match="digest mismatch"):
+            survivor.absorb_shard(corrupt, expected_generation="genA")
+        assert survivor.absorb_shard(arrays, expected_generation="genA") == 5
+        assert survivor.owns(ids).all()
+        assert _store_headers(survivor, ids) == _store_headers(old, ids)
+        for a, b in zip(survivor.read(ids), old.read(ids)):
+            np.testing.assert_array_equal(a, b)
+        # The survivor's own export carries the absorbed shard along.
+        again = make(cls, template, 0, f"{side}-0b")
+        again.restore_arrays(survivor.checkpoint_arrays())
+        assert again.owns(np.array([1])).all()
+
+
+@pytest.mark.parametrize("form", ["dict", "json", "file"])
+@pytest.mark.parametrize("spec", ["fedtpu's test plan", "net sim",
+                                  "probabilistic"])
+def test_netfault_plan_equals_fedtpus(tmp_path, spec, form):
+    """A plan in each spec form materializes to fedtpu's schedule and
+    digest, bit for bit, and answers for_gateway / at_frame / at_accept
+    as fedtpu's on every ordinal."""
+    from fedtpu.resilience.net_sim import SIM_PLAN
+    from fedtpu.resilience.netfaults import NetFaultPlan as JPlan
+
+    from fedtpu_torch.resilience import net_sim as t_net_sim
+    from fedtpu_torch.resilience.netfaults import NetFaultPlan as TPlan
+    plans = {"fedtpu's test plan": _NET_PLAN, "net sim": SIM_PLAN,
+             "probabilistic": {"seed": 11, "faults": [
+                 {"kind": "net_partition", "gateway": 1, "probability": 0.3},
+                 {"kind": "net_dup_frame", "gateway": 0, "probability": 0.2,
+                  "window": [5, 30]},
+                 {"kind": "net_torn_frame", "gateway": 0, "probability": 0.1,
+                  "boundary": "pre_ack", "cut_bytes": 7}]}}
+    assert t_net_sim.SIM_PLAN == SIM_PLAN
+    raw = plans[spec]
+    given = {"dict": raw, "json": json.dumps(raw)}.get(form)
+    if form == "file":
+        path = tmp_path / "plan.json"
+        path.write_text(json.dumps(raw))
+        given = str(path)
+    want, got = JPlan.load(raw, num_gateways=2), TPlan.load(given,
+                                                            num_gateways=2)
+    assert got.digest == want.digest and got.seed == want.seed
+    assert ([dataclasses.asdict(f) for f in got.faults]
+            == [dataclasses.asdict(f) for f in want.faults])
+    assert [f.payload() for f in got.faults] == [f.payload()
+                                                  for f in want.faults]
+    for g in (0, 1):
+        assert ([dataclasses.asdict(f) for f in got.for_gateway(g)]
+                == [dataclasses.asdict(f) for f in want.for_gateway(g)])
+        for k in range(1, 70):
+            for name in ("at_frame", "at_accept"):
+                a, b = getattr(got, name)(g, k), getattr(want, name)(g, k)
+                assert (a and dataclasses.asdict(a)) == (
+                    b and dataclasses.asdict(b)), (name, g, k)
+
+
+@pytest.mark.parametrize("entry", [
+    {"kind": "net_unplug", "frame": 1},
+    {"kind": "net_partition", "gateway": 2, "frame": 1},
+    {"kind": "net_partition"},
+    {"kind": "net_partition", "frame": 0},
+    {"kind": "net_dup_frame", "frame": 1, "frames": 2},
+    {"kind": "net_torn_frame", "frame": 1, "cut_bytes": 0},
+    {"kind": "net_torn_frame", "frame": 1, "boundary": "mid_ack"},
+    {"kind": "net_slow_link", "frame": 1, "chunk_bytes": 0},
+    {"kind": "net_slow_link", "frame": 1, "delay_s": -0.1},
+    {"kind": "net_reset", "frame": 1, "phase": "connect"},
+    {"kind": "net_partition", "probability": 1.5},
+    {"kind": "net_partition", "frame": 3, "frames": 0}],
+    ids=lambda e: "-".join(f"{k}={v}" for k, v in e.items()))
+def test_netfault_plan_refuses_what_fedtpu_refuses(entry):
+    from fedtpu.resilience.netfaults import NetFaultPlan as JPlan
+
+    from fedtpu_torch.resilience.netfaults import NetFaultPlan as TPlan
+    errors = []
+    for cls in (JPlan, TPlan):
+        with pytest.raises(ValueError) as info:
+            cls.load({"faults": [entry]}, num_gateways=2)
+        errors.append(str(info.value))
+    assert errors[0] == errors[1]
+
+
+def _autoscale_snapshots(module, n=120, seed=0):
+    """A random snapshot stream through ``module``'s SignalBus: bursts of
+    backlog, burn and rejections, quiet stretches, and two preemption
+    notices."""
+    rng = np.random.default_rng(seed)
+    bus = module.SignalBus(objective_s=1.0, error_budget=0.1)
+    out = []
+    for k in range(n):
+        hot = (k // 10) % 3 == 1
+        stats = {"backlog": int(rng.integers(200, 900) if hot
+                                else rng.integers(0, 60)),
+                 "incorporated": 10 * k, "admitted": 11 * k,
+                 "window_decisions": int(rng.integers(0, 100)),
+                 "rates": {"reject_rate": float(rng.uniform(0, 0.3)),
+                           "reject_backpressure": float(
+                               rng.uniform(0, 0.05))}}
+        if k % 7 == 3:
+            stats["slo_burn"] = float(rng.uniform(0, 2))
+        hist = {"count": 10, "bins": [0.5, 1.0, 5.0],
+                "bucket_counts": [int(rng.integers(0, 5)), 6, 10]}
+        out.append(bus.fold(0.5 * (k + 1), stats=stats,
+                            members=[(0, "serving"), (1, "parked")],
+                            notice=1 if k in (40, 95) else -1,
+                            latency_hist=hist))
+    return out
+
+
+@pytest.mark.parametrize("knobs", [dict(), dict(hysteresis_ticks=3,
+                                                cooldown_ticks=0),
+                                   dict(hysteresis_ticks=1,
+                                        cooldown_ticks=2)],
+                         ids=["default", "hysteresis 3", "cooldown 2"])
+def test_autoscale_policy_and_bus_equal_fedtpus(knobs):
+    """The same telemetry through fedtpu's SignalBus and threshold policy
+    and the port's: every snapshot and decision line equal, byte for
+    byte (hysteresis, cooldown and the notice bypass all fire)."""
+    from fedtpu.autoscale import policy as j_policy, signals as j_signals
+
+    from fedtpu_torch.autoscale import policy as t_policy
+    from fedtpu_torch.autoscale import signals as t_signals
+    lines, kinds = {}, set()
+    for name, pol_mod, sig_mod, cfg_mod in (
+            ("j", j_policy, j_signals, jcfg), ("t", t_policy, t_signals,
+                                               tcfg)):
+        cfg = cfg_mod.AutoscaleConfig(**knobs)
+        pol = pol_mod.get_policy("threshold", cfg)
+        st, out = pol.initial_state(), []
+        for snap in _autoscale_snapshots(sig_mod):
+            decisions, st = pol.decide(snap, st)
+            out.append((json.dumps(snap.to_json(), sort_keys=True),
+                        pol_mod.decision_line(snap, decisions)))
+            if name == "t":
+                kinds.update(d.kind for d in decisions)
+        lines[name] = out
+    assert lines["t"] == lines["j"]
+    assert {"grow", "shrink", "pre_drain", "hold"} <= kinds
+
+
+def test_autoscale_policy_pins_and_registry():
+    """fedtpu's policy pins (tests/test_autoscale.py) on the port's
+    policy: consecutive hot ticks, the refractory cooldown, the notice
+    bypass; the registry and the closed decision shape."""
+    from fedtpu_torch.autoscale.policy import (HOLD, PRE_DRAIN, SHRINK,
+                                               Decision,
+                                               ThresholdHysteresisPolicy,
+                                               get_policy, register_policy)
+    from fedtpu_torch.autoscale.signals import Snapshot
+
+    def snap(v, backlog=0, notice=-1):
+        return Snapshot(version=v, t=0.5 * v, backlog=backlog, notice=notice)
+
+    cfg = tcfg.AutoscaleConfig(hysteresis_ticks=3, cooldown_ticks=0)
+    pol = ThresholdHysteresisPolicy(cfg)
+    st = pol.initial_state()
+    kinds = []
+    for v, backlog in enumerate((10_000, 10_000, 0, 10_000, 10_000,
+                                 10_000)):
+        d, st = pol.decide(snap(v, backlog), st)
+        kinds.append([x.kind for x in d])
+    assert kinds[:5] == [[HOLD]] * 5
+    assert kinds[5] == ["grow", "set_tick_cadence", "set_cohort_size"]
+    pol = ThresholdHysteresisPolicy(tcfg.AutoscaleConfig(
+        hysteresis_ticks=1, cooldown_ticks=2))
+    st = pol.initial_state()
+    kinds = []
+    for v in range(4):
+        d, st = pol.decide(snap(v, 10_000), st)
+        kinds.append(d[0].kind)
+    assert kinds == ["grow", HOLD, HOLD, "grow"]
+    pol = ThresholdHysteresisPolicy(tcfg.AutoscaleConfig(
+        hysteresis_ticks=5, cooldown_ticks=3))
+    d, st = pol.decide(snap(0, notice=1), pol.initial_state())
+    assert [x.kind for x in d] == [PRE_DRAIN, SHRINK] and d[0].victim == 1
+    assert [x.kind for x in pol.decide(snap(1, 10_000), st)[0]] == [HOLD]
+    assert isinstance(get_policy("threshold", tcfg.AutoscaleConfig()),
+                      ThresholdHysteresisPolicy)
+    with pytest.raises(ValueError, match="already registered"):
+        register_policy("threshold", ThresholdHysteresisPolicy)
+    with pytest.raises(ValueError, match="unknown policy"):
+        get_policy("nope", tcfg.AutoscaleConfig())
+    with pytest.raises(ValueError, match="unknown decision kind"):
+        Decision("explode")
+    assert set(Decision(HOLD).to_json()) == {"kind", "n", "value", "victim"}
+
+
+def test_autoscale_read_gang_members_equals_fedtpus(tmp_path):
+    """Hand-written heartbeat files (serving, parked, garbage, missing)
+    read as fedtpu reads them, fresh and aged."""
+    import time
+
+    from fedtpu.autoscale.signals import read_gang_members as j_read
+
+    from fedtpu_torch.autoscale.signals import read_gang_members as t_read
+    from fedtpu_torch.resilience.distributed import heartbeat_path_for
+    base = str(tmp_path / "hb")
+    now = time.time()
+    beats = {0: {"status": "serving", "time": now - 1.0},
+             1: {"status": "parked", "time": now - 500.0},
+             2: {"status": "running", "time": now - 30.0}}
+    for p, rec in beats.items():
+        with open(heartbeat_path_for(base, p), "w") as fh:
+            json.dump(rec, fh)
+    with open(heartbeat_path_for(base, 3), "w") as fh:
+        fh.write("{torn")
+    for when in (now, now + 1000.0):
+        got = t_read(base, 5, now=when)
+        assert got == j_read(base, 5, now=when)
+    assert t_read(base, 5, now=now) == (
+        (0, "serving"), (1, "parked"), (2, "stale"), (3, "missing"),
+        (4, "missing"))
+
+
+def test_autoscale_config_has_fedtpus_fields_and_checks():
+    want = [(f.name, f.default) for f in
+            dataclasses.fields(jcfg.AutoscaleConfig)]
+    assert [(f.name, f.default) for f in
+            dataclasses.fields(tcfg.AutoscaleConfig)] == want
+    for bad in (dict(objective_s=0.0), dict(control_interval_s=0.0),
+                dict(backlog_low=300), dict(hysteresis_ticks=0),
+                dict(min_capacity=3, max_capacity=2),
+                dict(tick_fast_s=0.0)):
+        errors = []
+        for cfg in (jcfg, tcfg):
+            with pytest.raises(ValueError) as info:
+                cfg.AutoscaleConfig(**bad)
+            errors.append(str(info.value))
+        assert errors[0] == errors[1]
+
+
+@pytest.mark.parametrize("argv", [
+    ["gateway", "--num-gateways", "3", "--gateway-index", "2",
+     "--total-users", "5000", "--store", "mmap", "--store-path", "s",
+     "--cohort", "16", "--buffer-size", "4", "--flush-every", "8",
+     "--net-fault-plan", "{}"],
+    ["autoscale", "--simulate", "--policy", "threshold", "--objective",
+     "2", "--error-budget", "0.2", "--interval", "0.25", "--trace", "t"],
+    ["autoscale", "--port", "7", "--heartbeat", "hb", "--num-processes",
+     "3", "--supervisor-pid", "9", "--notice-file", "n", "--spool-path",
+     "sp", "--duration", "4", "--stop-after-notice"]],
+    ids=["gateway", "autoscale sim", "autoscale live"])
+def test_cli_gateway_and_autoscale_parse_as_fedtpus(argv):
+    """Every flag of these command lines lands on the port's parser with
+    fedtpu's value, and the gateway's ServingConfig is the one fedtpu's
+    gateway handler builds."""
+    from fedtpu.cli import build_parser as j_parser
+    from fedtpu_torch.cli import build_parser as t_parser
+    from fedtpu_torch.cli import serving_config_from_args
+    j_args, t_args = j_parser().parse_args(argv), t_parser().parse_args(argv)
+    j_vars = {k: v for k, v in vars(j_args).items() if k != "cmd"}
+    t_vars = {k: v for k, v in vars(t_args).items() if k != "command"}
+    assert t_args.command == j_args.cmd
+    shared = set(j_vars) & set(t_vars)
+    assert {k: t_vars[k] for k in shared} == {k: j_vars[k] for k in shared}
+    if argv[0] == "gateway":
+        a = j_args
+        want = jcfg.ServingConfig(   # fedtpu/cli.py:1945, its gateway's
+            host=a.host, port=a.port, cohort=a.cohort,
+            buffer_size=a.buffer_size, staleness_power=a.staleness_power,
+            tick_interval_s=a.tick_interval, flush_every=a.flush_every,
+            history_window=a.history_window, rate_limit=a.rate_limit,
+            rate_burst=a.rate_burst, max_pending=a.max_pending,
+            stale_deprioritize=a.stale_deprioritize,
+            stale_reject=a.stale_reject, seed=a.seed, screen=a.screen,
+            screen_norm_mult=a.screen_norm_mult,
+            screen_cos_min=a.screen_cos_min, screen_warmup=a.screen_warmup,
+            screen_clip_norm=a.screen_clip_norm,
+            quarantine_strikes=a.quarantine_strikes)
+        got = serving_config_from_args(t_args)
+        assert got.cohort == 16 and got.flush_every == 8
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["gateway", "--platform", "cpu", "--events", "x"], "A11"),
+    (["gateway", "--platform", "cpu", "--heartbeat", "x"], "A11"),
+    (["autoscale", "--simulate", "--events", "x"], "A11")],
+    ids=["gateway --events", "gateway --heartbeat", "autoscale --events"])
+def test_cli_gateway_and_autoscale_refuse_a11_flags(argv, item):
+    from fedtpu_torch.cli import main as t_main
+    with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {item}\)"):
+        t_main(argv + ["--quiet"])
+
+
+def test_cli_autoscale_simulate_writes_and_gates_on_the_golden(tmp_path,
+                                                               capsys):
+    """``autoscale --simulate --out --golden --json`` on the committed
+    golden: exit 0, ``ok`` true, the file written is the golden; a
+    tampered golden fails the command with exit 1."""
+    from fedtpu_torch.cli import main as t_main
+    golden = os.path.join(REPO, "tests", "goldens", "autoscale_sim.jsonl")
+    out = str(tmp_path / "d.jsonl")
+    assert t_main(["autoscale", "--simulate", "--golden", golden, "--out",
+                   out, "--json"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["ok"] and summary["control_ticks"] == 60
+    with open(out) as fa, open(golden) as fb:
+        assert fa.read() == fb.read()
+    lines = open(golden).read().splitlines()
+    lines[7] = lines[7].replace('"hold"', '"grow"', 1)
+    bad = tmp_path / "bad.jsonl"
+    bad.write_text("\n".join(lines) + "\n")
+    assert t_main(["autoscale", "--simulate", "--golden", str(bad),
+                   "--quiet"]) == 1
+
+
+def test_launch_counts_hold_across_threads():
+    """Launch counting from many threads (the gateway fleet's engines):
+    no count is lost under a short switch interval, and a thread that
+    records a capture counts into its own recorder, never into
+    ``LAUNCHES``, while the others count there."""
+    import sys
+    import threading
+    saved = dict(ck.LAUNCHES)
+    interval = sys.getswitchinterval()
+    recorded = {}
+
+    def launch(n):
+        for _ in range(n):
+            ck._count("weighted_average_clients")
+
+    def capture():
+        with ck.recording_launches() as rec:
+            launch(500)
+            recorded.update(rec)
+
+    try:
+        sys.setswitchinterval(1e-6)
+        ck.reset_launch_counts()
+        threads = [threading.Thread(target=launch, args=(2000,))
+                   for _ in range(16)] + [threading.Thread(target=capture)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+        assert ck.LAUNCHES["weighted_average_clients"] == 16 * 2000
+        assert recorded["weighted_average_clients"] == 500
+        ck.count_replay(recorded)
+        assert ck.LAUNCHES["weighted_average_clients"] == 16 * 2000 + 500
+    finally:
+        sys.setswitchinterval(interval)
+        ck.LAUNCHES.update(saved)

@@ -4309,20 +4309,766 @@ def test_serving_loadgen_gets_the_same_acks_across_packages(tmp_path,
     assert box["summary"]["ticks"] == eng.tick_count
 
 
+# ------------------------------- the rest of the serving stack (A8c)
+# The store-backed engine, the gateway fleet, the wire-fault proxy, the
+# net and autoscale sims and the live controller against fedtpu's on the
+# same inputs (fedtpu's initial params injected), at the small serving
+# shape; fedtpu's tests/test_gateway.py, test_netfaults.py and
+# test_autoscale.py cases as port cases.
+
+_A8C_GOLDENS = os.path.join(_SERVE_REPO, "tests", "goldens")
+# The store tests' hidden width: 16, not the serving tests' 8. fedtpu's
+# per_client_view takes any state leaf whose first width equals the cohort
+# for a per-client one, so at 8 slots and a hidden layer of 8 two leaves of
+# its K-buffer (the (8,) bias and the (8, 2) weight) ride every store
+# record, and a swap writes K-buffer rows: fedtpu's fault, which the port's
+# rule (the K-buffer is one (D,) row) does not share.
+_A8C_HIDDEN = (16,)
+
+
+def _store_values_as_port(j_engine, store, ids) -> list:
+    """fedtpu's store values for ``ids`` as the port's leaves (anchors,
+    Adam's count, mu, nu, params, pull tick; each quantity's pytree leaves
+    in the flat row's order)."""
+    from fedtpu.parallel.round import with_per_client
+    s = with_per_client(jax.tree.map(np.asarray, j_engine.state), j_engine.C,
+                        store.read(ids))
+    adam = s["opt_state"][0]
+    return [convert.params_from_jax(s["anchors"]).numpy(),
+            np.asarray(adam.count, np.int32),
+            convert.params_from_jax(adam.mu).numpy(),
+            convert.params_from_jax(adam.nu).numpy(),
+            convert.params_from_jax(s["params"]).numpy(),
+            np.asarray(s["pull_tick"], np.int32)]
+
+
+def _store_headers(store, ids) -> tuple:
+    strikes, quarantined = store.reputation(ids)
+    return (store.versions(ids).tolist(), store.participation(ids).tolist(),
+            strikes.tolist(), quarantined.tolist())
+
+
+def _assert_stores_match(j_engine, js, ts, atol=1e-5) -> np.ndarray:
+    """Touched ids and headers equal, values within ``atol`` under the
+    leaf mapping; returns the touched ids."""
+    ids = np.array(sorted(js._touched), np.int64)
+    assert sorted(ts._touched) == ids.tolist() and ids.size
+    assert _store_headers(ts, ids) == _store_headers(js, ids)
+    for got, want in zip(ts.read(ids), _store_values_as_port(j_engine, js,
+                                                             ids)):
+        if got.dtype.kind == "f":
+            np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+        else:
+            np.testing.assert_array_equal(got, want)
+    return ids
+
+
+@pytest.mark.parametrize("case", ["plain", "screened"])
+def test_serving_store_engine_equals_fedtpus(case):
+    """A trace whose ticks bind more users than the 8 slots (so the LRU
+    binder evicts, inside a tick, a user it bound earlier in that tick)
+    through fedtpu's store-backed engine and the port's: the histories and
+    evictions equal, the global params within 1e-5, every touched
+    record's header equal (version, participation, strikes, quarantine)
+    and its values within 1e-5; under the screen the quarantine is
+    durable in both stores."""
+    if case == "plain":
+        _, t, user, lat = _serve_trace(arrivals=300)
+        rows, kw = _serve_rows(t, user, lat), {}
+    else:
+        rows, _ = _serve_poison_rows()
+        kw = dict(screen=True, quarantine_strikes=2)
+    kw["model_hidden"] = _A8C_HIDDEN
+    j = _serve_j_engine(**kw)
+    eng = _serve_t_engine(_serve_fedtpu_init(j), **kw)
+    js, ts = j.attach_store(500), eng.attach_store(500)
+    swaps = []
+    inner = eng._swap_slots
+
+    def recorded(tick_swaps):
+        swaps.extend((eng.tick_count, int(ev), int(new))
+                     for _, ev, new in tick_swaps)
+        inner(tick_swaps)
+
+    eng._swap_slots = recorded
+    for e in (j, eng):
+        e.offer_many(rows)
+        e.drain()
+    assert eng.history_lines() == j.history_lines()
+    assert eng.binder.evictions == j.binder.evictions == len(swaps) > 0
+    bound_then_evicted = [
+        (k, ev) for i, (k, ev, _) in enumerate(swaps)
+        if any(k2 == k and new == ev for k2, _, new in swaps[:i])]
+    assert bound_then_evicted, "no user evicted in the tick that bound it"
+    np.testing.assert_allclose(_serve_t_global(eng), _serve_j_global(j),
+                               rtol=0, atol=1e-5)
+    ids = _assert_stores_match(j, js, ts)
+    assert eng.registry.snapshot()["counters"]["serve_slot_evictions"] \
+        == len(swaps)
+    if case == "screened":
+        assert eng.quarantined == j.quarantined and eng.quarantined
+        assert (ts.quarantined_ids().tolist() == js.quarantined_ids().tolist()
+                == sorted(eng.quarantined))
+    else:
+        assert int(ts.participation(ids).max()) >= 2
+
+
+def test_serving_store_never_takes_the_k_buffer_for_a_slot():
+    """At 8 slots and a hidden layer of 8, fedtpu's store template holds
+    two leaves of the K-buffer beside the 19 of a slot; the port's holds
+    the six per-client tensors only, and a swap leaves the K-buffer as
+    it was."""
+    from fedtpu.cohort.store import state_template as j_template
+    from fedtpu_torch.cohort.store import state_template
+    j = _serve_j_engine()
+    eng = _serve_t_engine(_serve_fedtpu_init(j))
+    assert len(j_template(j.state, 8)) == 21
+    assert len(state_template(eng.state, 8)) == 6
+    eng.attach_store(100)
+    eng.offer_many([[u, 0.01 * u, 0.0] for u in range(9)])
+    before = eng.state["buf_delta"].clone()
+    eng._swap_slots([(0, 3, 99)])
+    assert torch.equal(eng.state["buf_delta"], before)
+    assert eng.store.participation(np.array([3]))[0] == 1
+
+
+def test_serving_store_batched_swaps_equal_one_at_a_time():
+    """A tick's swaps, batched (one device read of the slots, one write),
+    give every record and slot of the swaps made one at a time, bitwise,
+    where a user is bound and evicted again inside the tick, a returning
+    user's record is loaded, and a slot takes three users in turn."""
+    from fedtpu_torch.parallel.async_fed import async_state_tensors
+    engines = []
+    for _ in range(2):
+        eng = _serve_t_engine(model_hidden=_A8C_HIDDEN)
+        eng.attach_store(100)
+        eng.offer_many([[u, 0.02 * u, 0.0] for u in range(8)])
+        eng.drain()
+        # Users 40 and 41 hold records from an earlier life.
+        eng._swap_slots([(1, 1, 40), (2, 2, 41)])
+        eng._swap_slots([(1, 40, 1), (2, 41, 2)])
+        engines.append(eng)
+    swaps = [(3, 3, 50), (5, 5, 40), (3, 50, 51), (6, 6, 41), (3, 51, 52),
+             (5, 40, 3), (0, 0, 50)]
+    engines[0]._swap_slots(swaps)
+    for swap in swaps:
+        engines[1]._swap_slots([swap])
+    a, b = (e.store.checkpoint_arrays() for e in engines)
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key])
+    for x, y in zip(*(async_state_tensors(e.state) for e in engines)):
+        assert torch.equal(x, y)
+    # User 50, bound in the tick, evicted in it and bound again at slot 0,
+    # brings its one-tick record back: slot 3's state when it left.
+    assert engines[0].store.participation(np.array([50]))[0] == 1
+
+
+def test_serving_store_rides_the_checkpoint_bitwise(tmp_path):
+    """Checkpoint mid-stream with a store attached, restore into a fresh
+    engine and store, finish: the history, state and every store record
+    byte are the uninterrupted run's; a corrupted store export refuses
+    the restore."""
+    from fedtpu_torch.orchestration.checkpoint import load_meta
+    from fedtpu_torch.parallel.async_fed import async_state_tensors
+    _, t, user, lat = _serve_trace(arrivals=200)
+    rows, half = _serve_rows(t, user, lat), 100
+    ref = _serve_t_engine()
+    ref.attach_store(500)
+    ref.offer_many(rows)
+    ref.drain()
+    first = _serve_t_engine()
+    first.attach_store(500)
+    first.offer_many(rows[:half])
+    assert first.store._touched and first.pending
+    first.checkpoint(str(tmp_path))
+    second = _serve_t_engine()
+    second.attach_store(500)
+    second.restore(str(tmp_path))
+    second.offer_many(rows[half:])
+    second.drain()
+    assert second.history_lines() == ref.history_lines()
+    for a, b in zip(async_state_tensors(second.state),
+                    async_state_tensors(ref.state)):
+        assert torch.equal(a, b)
+    got, want = (second.store.checkpoint_arrays(),
+                 ref.store.checkpoint_arrays())
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+    meta = load_meta(str(tmp_path))
+    meta["store_records"][0, -1] ^= 1
+    third = _serve_t_engine()
+    store = third.attach_store(500)
+    with pytest.raises(ValueError, match="digest mismatch"):
+        store.restore_arrays(meta)
+
+
+def _gw(pkg):
+    if pkg == "fedtpu":
+        from fedtpu.serving import gateway, server
+    else:
+        from fedtpu_torch.serving import gateway, server
+    return gateway, server
+
+
+def _gw_engines(**kw) -> dict:
+    """fedtpu's engine and the port's (fedtpu's init injected), both at
+    fedtpu's gateway tests' shape (tick_interval 0)."""
+    kw = dict(tick_interval_s=0.0, model_hidden=_A8C_HIDDEN, **kw)
+    j = _serve_j_engine(**kw)
+    return {"fedtpu": j, "port": _serve_t_engine(_serve_fedtpu_init(j), **kw)}
+
+
+def test_gateway_routing_equals_fedtpus():
+    """owner_of, redirect_msg, ownership after adoption and the client's
+    partition and stamp, as fedtpu's (tests/test_gateway.py:54-83)."""
+    from fedtpu.serving.client import GatewayClient as JClient
+    from fedtpu_torch.serving.client import GatewayClient as TClient
+    (jg, _), (tg, _) = _gw("fedtpu"), _gw("port")
+    for user, n in ((5, 2), (4, 2), (7, 1), (3, 0), (11, 4)):
+        assert tg.owner_of(user, n) == jg.owner_of(user, n)
+    for base in ("/tmp/base", None):
+        assert tg.redirect_msg(5, 1, 2, base) == jg.redirect_msg(5, 1, 2,
+                                                                 base)
+    for mod in (jg, tg):
+        gw = mod._Gateway(0, 2, None, "gen", None)
+        assert gw.owns_user(0) and gw.owns_user(4) and not gw.owns_user(1)
+        gw.owned.add(1)
+        assert gw.owns_user(1) and gw.owns_user(3)
+    c, jc = TClient(port=1, num_gateways=3), JClient(port=1, num_gateways=3)
+    assert [c.owner_of(u) for u in range(12)] == [
+        jc.owner_of(u) for u in range(12)] == [
+        tg.owner_of(u, 3) for u in range(12)]
+    a, b = c.stamped({"op": "updates"}), c.stamped({"op": "updates"})
+    assert a["nonce"] == b["nonce"] == c.nonce and b["seq"] == a["seq"] + 1
+    with pytest.raises(ValueError, match="re-stamp"):
+        c.stamped(a)
+
+
+def test_gateway_retried_frame_and_wal_replay_equal_fedtpus(tmp_path):
+    """fedtpu's exactly-once and WAL cases (tests/test_gateway.py:86-138)
+    in both packages: the same acks, duplicate drops, incorporations and
+    history; the WAL replayed into a fresh engine dedups the retry."""
+    out = {}
+    for pkg in ("fedtpu", "port"):
+        _, server = _gw(pkg)
+        eng = _gw_engines()[pkg]
+        frame = {"op": "updates", "events": [[1, 0.1, 0.0], [2, 0.2, 0.0]],
+                 "nonce": "n1", "seq": 1}
+        first = server._handle(eng, frame)
+        second = server._handle(eng, dict(frame))
+        eng.drain()
+        wal = str(tmp_path / f"{pkg}.wal")
+        a = _gw_engines()[pkg]
+        a.wal_path = wal
+        ev1, ev2 = [[1, 0.1, 0.0], [2, 0.2, 0.0]], [[3, 0.3, 0.0]]
+        server._handle(a, {"op": "updates", "events": ev1, "nonce": "n",
+                           "seq": 1})
+        r2 = server._handle(a, {"op": "updates", "events": ev2,
+                                "nonce": "n", "seq": 2})
+        b = _gw_engines()[pkg]
+        b.wal_path = wal
+        replayed = b.replay_wal()
+        r2b = server._handle(b, {"op": "updates", "events": ev2,
+                                 "nonce": "n", "seq": 2})
+        b.drain()
+        out[pkg] = (first, second, eng.duplicate_drops, eng.incorporated,
+                    dict(eng.admission.counts), replayed, r2, r2b,
+                    b.incorporated, b.history_lines(), open(wal).read())
+    assert out["port"] == out["fedtpu"]
+    first, second, drops, incorporated = out["port"][:4]
+    assert second["duplicate"] and second["counts"] == first["counts"]
+    assert drops == 2 and incorporated == 2
+    assert out["port"][5] == 3 and out["port"][7]["duplicate"]
+
+
+def test_gateway_handle_redirects_and_batches_atomic_equal_fedtpus():
+    """fedtpu's handler case (tests/test_gateway.py:141-173): the welcome,
+    an owned update, a redirected one, a redirect-atomic batch (nothing
+    admitted, the seq not committed) and its re-partitioned resend, in
+    both packages: equal responses and counters."""
+    out = {}
+    for pkg in ("fedtpu", "port"):
+        gateway, _ = _gw(pkg)
+        eng = _gw_engines()[pkg]
+        gw = gateway._Gateway(0, 2, "/tmp/pf", "gen0", None)
+        frames = [{"op": "hello", "v": j_proto.PROTOCOL_VERSION},
+                  {"op": "update", "user": 2, "t": 0.1},
+                  {"op": "update", "user": 3, "t": 0.1},
+                  {"op": "updates", "events": [[0, 0.2, 0.0], [1, 0.2, 0.0]],
+                   "nonce": "x", "seq": 1},
+                  {"op": "updates", "events": [[0, 0.2, 0.0]], "nonce": "x",
+                   "seq": 1},
+                  {"op": "update", "user": "bad"}]
+        resps = [gateway._gateway_handle(gw, eng, f) for f in frames]
+        out[pkg] = (resps, gw.redirects, dict(eng.admission.counts),
+                    eng.registry.snapshot()["counters"]["gateway_redirects"])
+    assert out["port"] == out["fedtpu"]
+    resps = out["port"][0]
+    assert resps[0]["owned"] == [0] and resps[0]["generation"] == "gen0"
+    assert resps[2]["redirect"]["gateway"] == 1
+    assert resps[3]["redirect"]["owners"] == {"1": 1}
+    assert resps[4]["op"] == "acks" and "duplicate" not in resps[4]
+    assert out["port"][1] == 2
+
+
+def test_gateway_flush_adopt_handoff_equals_fedtpus(tmp_path):
+    """fedtpu's store-shard failover (tests/test_gateway.py:176-219) in
+    both packages: gateway 1 flushes (writeback, spool, digest-stamped and
+    generation-fenced checkpoint), gateway 0 refuses a stale generation,
+    adopts the export bitwise and replays the spool; the acks, store
+    headers and spool files equal fedtpu's, the values within 1e-5."""
+    out, stores = {}, {}
+    for pkg in ("fedtpu", "port"):
+        gateway, _ = _gw(pkg)
+        e0, e1 = _gw_engines()[pkg], _gw_engines()[pkg]
+        s0 = e0.attach_store(40, shard_index=0, num_shards=2)
+        s1 = e1.attach_store(40, shard_index=1, num_shards=2)
+        s0.generation = s1.generation = "genA"
+        d = tmp_path / pkg
+        gw0 = gateway._Gateway(0, 2, None, "genA", str(d / "g0"))
+        gw1 = gateway._Gateway(1, 2, None, "genA", str(d / "g1"))
+        for u in (1, 3, 5, 9, 11, 13, 15, 17, 19, 21):
+            assert gateway._gateway_handle(
+                gw1, e1, {"op": "update", "user": u, "t": 0.1})["op"] == "ack"
+        e1.drain()
+        gateway._gateway_handle(gw1, e1, {"op": "update", "user": 7,
+                                          "t": 9.9})
+        spool = str(d / "spool.jsonl")
+        fl = gateway._gateway_handle(gw1, e1, {"op": "flush", "path": spool})
+        bad = gateway._gateway_handle(gw0, e0, {
+            "op": "adopt", "shard": 1, "checkpoint_dir": str(d / "g1"),
+            "generation": "genB"})
+        ad = gateway._gateway_handle(gw0, e0, {
+            "op": "adopt", "shard": 1, "checkpoint_dir": str(d / "g1"),
+            "spool": fl["spool"], "generation": "genA"})
+        ids = np.array(sorted(s1._touched), np.int64)
+        assert s0.owns(ids).all() and gw0.owns_user(3)
+        for want, have in zip(s1.read(ids), s0.read(ids)):
+            np.testing.assert_array_equal(want, have)   # bitwise handoff
+        assert _store_headers(s0, ids) == _store_headers(s1, ids)
+        assert any(p.user == 7 for p in e0.pending)
+        out[pkg] = ({k: v for k, v in fl.items()
+                     if k not in ("checkpoint", "spool")},
+                    bad["op"], "generation" in bad["reason"], ad,
+                    open(spool).read(), _store_headers(s0, ids),
+                    e0.registry.snapshot()["counters"]["gateway_adoptions"])
+        stores[pkg] = (e1, s0, ids)
+    assert out["port"] == out["fedtpu"]
+    fl, bad_op, fenced, ad = out["port"][:4]
+    assert fl["spooled"] == 1 and fl["slots"] == 8 and bad_op == "error"
+    assert fenced and ad["owned"] == [0, 1] and ad["replayed"] == 1
+    assert ad["rows"] == 10
+    (je1, js0, ids), (_, ts0, _) = stores["fedtpu"], stores["port"]
+    for got, want in zip(ts0.read(ids), _store_values_as_port(je1, js0,
+                                                              ids)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _gw_fleet(pkg, tmp_path, **kw):
+    """Two run_gateway threads (once=True) of ``pkg`` behind one port-file
+    base; the port's on the CPU."""
+    gateway, _ = _gw(pkg)
+    cfg_mod = jcfg if pkg == "fedtpu" else tcfg
+    extra = {} if pkg == "fedtpu" else {"device": "cpu"}
+    pf = str(tmp_path / "port")
+    box = {}
+
+    def run(g):
+        box[g] = gateway.run_gateway(
+            cfg_mod.ServingConfig(**_serve_kw()), gateway_index=g,
+            num_gateways=2, port_file=pf, once=True, verbose=False,
+            history_path=str(tmp_path / "hist.jsonl"), **kw, **extra)
+
+    threads = [threading.Thread(target=run, args=(g,)) for g in (0, 1)]
+    for th in threads:
+        th.start()
+    return pf, threads, box
+
+
+@pytest.mark.parametrize("client, fleet", [("port", "port"),
+                                           ("fedtpu", "port"),
+                                           ("port", "fedtpu")])
+def test_gateway_two_fleet_over_the_wire(tmp_path, client, fleet):
+    """fedtpu's in-process fleet case (tests/test_gateway.py:222-259):
+    two gateway threads behind one port-file base, fed by the
+    partitioning client, a misrouted frame's redirect followed, 41
+    updates incorporated exactly once; the port's client against the
+    port's fleet, fedtpu's client against the port's fleet (with a store
+    attached), the port's client against fedtpu's fleet."""
+    if client == "fedtpu":
+        from fedtpu.serving.client import GatewayClient
+    else:
+        from fedtpu_torch.serving.client import GatewayClient
+    kw = ({"total_users": 100, "checkpoint_dir": str(tmp_path / "ck")}
+          if fleet == "port" else {})
+    pf, threads, box = _gw_fleet(fleet, tmp_path, **kw)
+    try:
+        with GatewayClient(port_file=pf, num_gateways=2, seed=0) as c:
+            w = c.hello(0)
+            assert w["gateway"] == 0 and w["num_gateways"] == 2
+            events = [[k % 10, 0.05 * k, 0.0] for k in range(40)]
+            assert sum(c.send_events(events).values()) == 40
+            resp = c.request(c.stamped({"op": "update", "user": 1,
+                                        "t": 5.0}), gateway=0)
+            assert resp["op"] == "ack" and c.stats["redirected"] >= 1
+            drains = c.request_each({"op": "drain"})
+            assert sum(r["incorporated"] for r in drains.values()) == 41
+    finally:
+        for th in threads:
+            th.join(timeout=60)
+    assert not any(th.is_alive() for th in threads)
+    assert sum(box[g]["incorporated"] for g in (0, 1)) == 41
+    for g in (0, 1):
+        assert os.path.exists(f"{tmp_path / 'hist.jsonl'}.g{g}")
+    if fleet == "port":
+        # The drain-time checkpoint of each member carries its store.
+        from fedtpu_torch.orchestration.checkpoint import load_meta
+        for g in (0, 1):
+            meta = load_meta(str(tmp_path / "ck" / f"g{g}"))
+            assert int(meta["store_shard_index"]) == g
+            assert set(np.asarray(meta["store_ids"]) % 2) <= {g}
+
+
+def test_gateway_probe_fleet_equals_fedtpus(tmp_path):
+    """probe_fleet, the port's and fedtpu's, each over a live port gateway
+    (its first connection ends a ``once`` server, so one gateway each): a
+    healthy row with the same fields; a fleet that never came up gives
+    the same error rows and raises nothing."""
+    from fedtpu.serving.gateway import probe_fleet as j_probe
+    from fedtpu_torch.serving.gateway import probe_fleet, run_gateway
+    rows = {}
+    for name, probe in (("port", probe_fleet), ("fedtpu", j_probe)):
+        pf = str(tmp_path / f"{name}.port")
+        th = threading.Thread(target=run_gateway, kwargs=dict(
+            cfg=tcfg.ServingConfig(**_serve_kw()), gateway_index=0,
+            num_gateways=1, port_file=pf, once=True, verbose=False,
+            device="cpu"))
+        th.start()
+        try:
+            rows[name] = probe(pf, 1, timeout=30)[0]
+        finally:
+            th.join(timeout=60)
+        assert not th.is_alive()
+        rows[name].pop("port")
+        rows[name].pop("port_file")
+    assert rows["port"] == rows["fedtpu"]
+    assert rows["port"] == {"gateway": 0, "ok": True, "version": 0,
+                            "gateway_reported": 0, "backlog": 0}
+    dead = probe_fleet(str(tmp_path / "nope"), 2, timeout=0.2)
+    assert dead == j_probe(str(tmp_path / "nope"), 2, timeout=0.2)
+    assert not any(r["ok"] for r in dead) and all("error" in r for r in dead)
+
+
+def _net_mini_server(engine, handle, stop) -> int:
+    """fedtpu's netfault tests' mini server: a thread per connection, one
+    engine behind a lock (reconnects are what faults cause)."""
+    import socket as _socket
+    lsock = _socket.socket()
+    lsock.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
+    lsock.bind(("127.0.0.1", 0))
+    lsock.listen(8)
+    lsock.settimeout(0.2)
+    lock = threading.Lock()
+
+    def serve_conn(csock):
+        csock.settimeout(0.2)
+        buf = t_proto.LineBuffer()
+        try:
+            while not stop.is_set():
+                try:
+                    lines = list(t_proto.recv_lines(csock, buf))
+                except _socket.timeout:
+                    continue
+                except (ConnectionError, OSError):
+                    return
+                for line in lines:
+                    msg = t_proto.parse_msg(line) if line else None
+                    with lock:
+                        resp = (handle(engine, msg) if msg is not None
+                                else t_proto.error_msg("malformed"))
+                    t_proto.send_msg(csock, resp)
+        finally:
+            csock.close()
+
+    def accept_loop():
+        while not stop.is_set():
+            try:
+                csock, _ = lsock.accept()
+            except _socket.timeout:
+                continue
+            except OSError:
+                return
+            threading.Thread(target=serve_conn, args=(csock,),
+                             daemon=True).start()
+        lsock.close()
+
+    threading.Thread(target=accept_loop, daemon=True).start()
+    return lsock.getsockname()[1]
+
+
+_NET_CASES = {
+    "torn post_ack": {"seed": 0, "faults": [
+        {"kind": "net_torn_frame", "gateway": 0, "frame": 2,
+         "boundary": "post_ack", "cut_bytes": 32}]},
+    "dup frame": {"seed": 0, "faults": [
+        {"kind": "net_dup_frame", "gateway": 0, "frame": 2}]},
+    "accounting": {"seed": 0, "faults": [
+        {"kind": "net_reset", "gateway": 0, "frame": 2, "phase": "accept"}]},
+}
+
+
+@pytest.mark.parametrize("case", list(_NET_CASES))
+def test_netfault_proxy_exactly_once_equals_fedtpus(tmp_path, case):
+    """fedtpu's proxy cases (tests/test_netfaults.py:307-400) through each
+    package's proxy, client and engine: the torn ack is retried and
+    deduplicated, the replayed frame absorbed with its original verdicts,
+    the accounting and the decision log's summary; the port's numbers
+    equal fedtpu's."""
+    import time
+    out = {}
+    for pkg in ("fedtpu", "port"):
+        if pkg == "fedtpu":
+            from fedtpu.resilience.netfaults import NetFaultPlan
+            from fedtpu.serving.client import GatewayClient
+            from fedtpu.serving.netproxy import NetFaultProxy
+            from fedtpu.serving.server import _handle
+        else:
+            from fedtpu_torch.resilience.netfaults import NetFaultPlan
+            from fedtpu_torch.serving.client import GatewayClient
+            from fedtpu_torch.serving.netproxy import NetFaultProxy
+            from fedtpu_torch.serving.server import _handle
+        d = tmp_path / pkg
+        d.mkdir()
+        stop = threading.Event()
+        eng = _gw_engines()[pkg]
+        port = _net_mini_server(eng, _handle, stop)
+        plan = NetFaultPlan.load(_NET_CASES[case], num_gateways=1)
+        base = str(d / "port")
+        proxy = NetFaultProxy(plan, 0, port, t_proto.net_proxy_port_file(
+            base)).start()
+        (d / "port").write_text(str(port))
+        client = GatewayClient(port_file=base, retries=8, backoff_s=0.01,
+                               timeout=5.0, seed=0)
+        try:
+            events = [[1, 0.1, 0.0], [2, 0.2, 0.0], [3, 0.3, 0.0]]
+            counts = client.send_events(events)
+            deadline = time.monotonic() + 5.0
+            while (case == "dup frame" and eng.duplicate_drops < 3
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            # Closed first, so the proxy's relay threads end at once.
+            client.close()
+            stats = proxy.finish()
+            eng.drain()
+            log = (d / "port.netlog").read_text().splitlines()
+            out[pkg] = (counts, client.stats["retried"] >= 1, client._seq,
+                        eng.duplicate_drops, eng.incorporated,
+                        stats["fired"], stats["frames"],
+                        stats["relayed_frames"], stats["digest"],
+                        [r["at_frame"] for r in proxy.records],
+                        json.loads(log[-1]))
+        finally:
+            stop.set()
+            proxy.stop()
+            client.close()
+    assert out["port"] == out["fedtpu"]
+    counts, retried, seq, drops, incorporated, fired = out["port"][:6]
+    assert sum(counts.values()) == 3 and incorporated == 3 and seq == 1
+    if case == "torn post_ack":
+        assert retried and drops == 3 and fired == {"net_torn_frame": 1}
+    elif case == "dup frame":
+        assert not retried and drops == 3 and fired == {"net_dup_frame": 1}
+    else:
+        assert drops == 0 and fired == {} and out["port"][6] == 2
+
+
+def test_net_sim_equals_golden_and_fedtpus():
+    """The port's net sim (fedtpu's initial params injected) writes the
+    committed golden's 25 lines, which fedtpu's in-process simulate()
+    writes too; the summaries equal: every kind fired, no acked update
+    lost, duplicates absorbed."""
+    from fedtpu.resilience import net_sim as j_sim
+    from fedtpu.serving.engine import ServingEngine
+    from fedtpu_torch.resilience import net_sim as t_sim
+    for name in ("SIM_USERS", "SIM_ARRIVALS", "SIM_HORIZON_S", "SIM_SEED",
+                 "SIM_BATCH", "SIM_COHORT", "SIM_BUFFER",
+                 "SIM_TICK_INTERVAL_S", "SIM_NONCE", "SIM_PLAN"):
+        assert getattr(t_sim, name) == getattr(j_sim, name), name
+    init = _serve_fedtpu_init(ServingEngine(j_sim._sim_config(),
+                                            registry=JRegistry()))
+    got = t_sim.simulate(device="cpu", init_params=init)
+    cmp = t_sim.compare_decisions(got["lines"], os.path.join(
+        _A8C_GOLDENS, "net_sim.jsonl"))
+    assert cmp["ok"], cmp["reason"]
+    want = j_sim.simulate()
+    assert got["lines"] == want["lines"]
+    assert got["summary"] == want["summary"]
+    s = got["summary"]
+    assert s["lost_acked"] == 0 and s["duplicate_drops"] > 0
+    assert len(s["fired"]) == 5 and s["incorporated"] == s["arrivals"]
+
+
+def _net_serve_once(tmp_path, tag, plan, trace):
+    """run_server behind the proxy (a thread, once=True) fed by the port's
+    loadgen through ``<port_file>.net``: the loadgen's summary, the
+    server's and the decision log's bytes."""
+    from fedtpu_torch.serving.loadgen import run_loadgen
+    from fedtpu_torch.serving.server import run_server
+    pf = str(tmp_path / f"{tag}.port")
+    th, box = _serve_in_thread(run_server, tcfg.ServingConfig(**_serve_kw()),
+                               pf, device="cpu", net_fault_plan=plan)
+    try:
+        res = run_loadgen(trace, port_file=pf, batch=40, backoff_s=0.01)
+    finally:
+        th.join(timeout=120)
+    assert not th.is_alive()
+    return res, box["summary"], (tmp_path / f"{tag}.port.netlog").read_text()
+
+
+def test_netfault_serve_behind_the_proxy_is_exactly_once(tmp_path):
+    """``serve --net-fault-plan`` as run_server takes it: the proxy's port
+    file is found through the real one, a paced frame and a replayed one
+    reach the engine, every update the loadgen was told was admitted is
+    incorporated once (lost_acked 0), the duplicate is dropped, and the
+    decision log is byte-identical across two runs."""
+    plan = json.dumps({"seed": 5, "faults": [
+        {"kind": "net_slow_link", "gateway": 0, "frame": 2, "frames": 2,
+         "chunk_bytes": 256},
+        {"kind": "net_dup_frame", "gateway": 0, "frame": 4}]})
+    header, t, user, lat = _serve_trace(arrivals=160)
+    trace = str(tmp_path / "trace.jsonl")
+    t_traces.write_trace(trace, header, t, user, lat)
+    runs = [_net_serve_once(tmp_path, tag, plan, trace) for tag in "ab"]
+    (res, summary, log), (res_b, _, log_b) = runs
+    admitted = sum(n for v, n in res["admission"].items()
+                   if v in t_adm.ADMITTED)
+    assert res["events_sent"] == 160 and admitted - summary[
+        "incorporated"] == 0
+    assert summary["duplicate_drops"] == 40 and res["retried"] == 0
+    assert log == log_b and res_b["admission"] == res["admission"]
+    lines = [json.loads(x) for x in log.splitlines()]
+    assert lines[-1]["summary"]["fired"] == {"net_dup_frame": 1,
+                                             "net_slow_link": 2}
+
+
+def test_autoscale_sim_equals_golden_and_fedtpus():
+    from fedtpu.autoscale import controller as j_ctl
+    from fedtpu_torch.autoscale import controller as t_ctl
+    got, want = t_ctl.simulate(), j_ctl.simulate()
+    cmp = t_ctl.compare_decisions(got["lines"], os.path.join(
+        _A8C_GOLDENS, "autoscale_sim.jsonl"))
+    assert cmp["ok"], cmp["reason"]
+    assert got["lines"] == want["lines"] and got["summary"] == want["summary"]
+    for name in ("SIM_USERS", "SIM_ARRIVALS", "SIM_HORIZON_S", "SIM_SEED",
+                 "SIM_PROCESSES", "SIM_NOTICE_AT_S", "SIM_NOTICE_VICTIM",
+                 "SIM_TICK_INTERVAL_S"):
+        assert getattr(t_ctl, name) == getattr(j_ctl, name), name
+    assert t_ctl.SIM_ADMISSION.__dict__ == j_ctl.SIM_ADMISSION.__dict__
+
+
+@pytest.mark.parametrize("controller", ["port", "fedtpu"])
+def test_autoscale_live_controller_acts_on_the_port_server(tmp_path,
+                                                           controller):
+    """A LiveController (the port's, and fedtpu's against the port's
+    server) for three control ticks on a loaded CPU server: its polls
+    read the signals block (the backlog it folds is the server's), a
+    preemption notice makes it pre-drain then shrink, and the server acks
+    the pre_drain with the spooled backlog."""
+    if controller == "fedtpu":
+        from fedtpu.autoscale.controller import LiveController
+        acfg = jcfg.AutoscaleConfig(hysteresis_ticks=5)
+    else:
+        from fedtpu_torch.autoscale.controller import LiveController
+        acfg = tcfg.AutoscaleConfig(hysteresis_ticks=5)
+    from fedtpu_torch.serving.loadgen import read_port_file
+    from fedtpu_torch.serving.server import run_server
+    pf = str(tmp_path / "port")
+    th, box = _serve_in_thread(run_server, tcfg.ServingConfig(**_serve_kw(
+        tick_interval_s=0.0)), pf, device="cpu")
+    notice, spool = str(tmp_path / "notice.json"), str(tmp_path / "sp.jsonl")
+    ctl = LiveController(acfg, port=read_port_file(pf, timeout=60),
+                         notice_file=notice, spool_path=spool)
+    acks = []
+    try:
+        conn = ctl._connection()
+        request = conn.request
+
+        def recorded(obj, *a, **kw):
+            resp = request(obj, *a, **kw)
+            acks.append((obj["op"], resp))
+            return resp
+
+        conn.request = recorded
+        _, t, user, lat = _serve_trace(arrivals=60)
+        conn.send_events(_serve_rows(t, user, lat))
+        snaps = []
+        for k in range(3):
+            if k == 1:
+                with open(notice, "w") as fh:
+                    json.dump({"victim": 0}, fh)
+            snaps.append(ctl.step(now=float(k)))
+    finally:
+        if ctl._conn is not None:
+            ctl._conn.close()
+        th.join(timeout=60)
+    assert not th.is_alive()
+    kinds = [[d.kind for d in decisions] for _, decisions in snaps]
+    assert kinds == [["hold"], ["pre_drain", "shrink"], ["hold"]]
+    assert snaps[0][0].backlog == 60 and snaps[1][0].notice == 0
+    pre = [resp for op, resp in acks if op == "pre_drain"]
+    assert len(pre) == 1 and pre[0]["op"] == "pre_drained"
+    assert pre[0]["spooled"] == 60 and len(open(spool).readlines()) == 60
+    assert ctl.acted == {"pre_drain": 1, "shrink": 1}
+    assert box["summary"]["incorporated"] == 60
+
+
+def test_cli_gateway_fleet_and_loadgen_on_cpu(tmp_path, capsys):
+    """``gateway --num-gateways 2 --total-users ...`` twice (threads,
+    ``--once``, ``--platform cpu``) answered by ``loadgen --num-gateways 2
+    --synthesize --json``: every event sent is acked and incorporated
+    once across the fleet, each member writes its history."""
+    from fedtpu_torch.cli import main as t_main
+    pf, hist = str(tmp_path / "port"), str(tmp_path / "hist.jsonl")
+    small = ["--cohort", "8", "--buffer-size", "2", "--platform", "cpu",
+             "--quiet", "--once"]
+    threads = [threading.Thread(target=t_main, args=([
+        "gateway", "--num-gateways", "2", "--gateway-index", str(g),
+        "--total-users", "1000", "--port-file", pf, "--history", hist,
+        "--checkpoint-dir", str(tmp_path / "ck")] + small,))
+        for g in (0, 1)]
+    for th in threads:
+        th.start()
+    try:
+        rc = t_main(["loadgen", str(tmp_path / "t.jsonl"), "--synthesize",
+                     "--users", "1000", "--arrivals", "300", "--horizon", "6",
+                     "--port-file", pf, "--num-gateways", "2", "--batch",
+                     "64", "--json", "--quiet"])
+    finally:
+        for th in threads:
+            th.join(timeout=120)
+    assert rc == 0 and not any(th.is_alive() for th in threads)
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    stats = res["server_stats"]
+    assert res["events_sent"] == 300 and set(stats) == {"0", "1"}
+    admitted = sum(n for v, n in res["admission"].items()
+                   if v in t_adm.ADMITTED)
+    assert sum(s["incorporated"] for s in stats.values()) == admitted > 0
+    for g in (0, 1):
+        assert os.path.getsize(f"{hist}.g{g}") > 0
+
+
 # ----------------------------------------------------------------- refusals
 
 def test_serving_unported_paths_raise_naming_their_items():
+    from fedtpu_torch.serving.gateway import run_gateway
     from fedtpu_torch.serving.server import run_server
-    eng = _serve_t_engine()
-    for call in (lambda: eng.attach_store(100),
-                 lambda: eng.writeback_slots()):
-        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A8c\)"):
-            call()
     cfg = tcfg.ServingConfig(**_serve_kw())
-    for kw, item in ((dict(events="x"), "A11"), (dict(heartbeat="x"), "A11"),
-                     (dict(net_fault_plan="{}"), "A8c")):
-        with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {item}\)"):
-            run_server(cfg, device="cpu", verbose=False, **kw)
+    for run in (run_server, run_gateway):
+        for kw, item in ((dict(events="x"), "A11"),
+                         (dict(heartbeat="x"), "A11")):
+            with pytest.raises(NotImplementedError,
+                               match=rf"\(ROADMAP {item}\)"):
+                run(cfg, device="cpu", verbose=False, **kw)
 
 
 def test_serving_config_has_fedtpus_fields_and_defaults():
@@ -4342,6 +5088,28 @@ def test_serving_engine_on_the_card_needs_one():
     with pytest.raises(ValueError, match="CUDA graph needs CUDA tensors"):
         ServingEngine(tcfg.ServingConfig(**_serve_kw()), device="cpu",
                       capture=True)
+
+
+def test_gateway_and_sims_on_the_card_need_one(tmp_path):
+    """``gateway`` (the CLI and run_gateway) and the net sim run on the
+    card unless asked for the CPU: without one they raise before binding
+    a port; the autoscale sim needs no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from fedtpu_torch.cli import main as t_main
+    from fedtpu_torch.resilience.net_sim import simulate
+    from fedtpu_torch.serving.gateway import run_gateway
+    pf = str(tmp_path / "port")
+    for call in (lambda: t_main(["gateway", "--num-gateways", "2",
+                                 "--gateway-index", "1", "--port-file", pf,
+                                 "--quiet"]),
+                 lambda: run_gateway(tcfg.ServingConfig(**_serve_kw()),
+                                     port_file=pf, verbose=False),
+                 lambda: simulate()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not os.path.exists(pf) and not os.path.exists(f"{pf}.g1")
+    assert t_main(["autoscale", "--simulate", "--quiet"]) == 0
 
 
 # -------------------------------------------------- subprocess (full tier)
