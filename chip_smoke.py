@@ -145,6 +145,27 @@ Phases, in order; any failure exits non-zero before the result line:
    fleet (two ``gateway`` subprocesses, ``loadgen --num-gateways 2``)
    through the lost-ack drill: gateway 1 kills itself after its fifth
    ack and is relaunched with ``--resume``, and no acked update is lost.
+   Then cohort mode, (r) (``phase_cohort``), at the income MLP's full
+   width on 1,000,000 synthetic rows: income-8 at full participation
+   (cohorts of 8 of 8) bitwise its synchronous run, both captured; 100,000
+   clients (the memory store, about 8 train rows a client) in cohorts of
+   256, 10 a chunk, 30 rounds, a held-out eval every 10, launches counted
+   from zero (K1 = K2 = cohorts run + the warm-up cohort, K3 = evals):
+   captured bitwise uncaptured (state and every touched store record),
+   stopped at 20 on the mmap store and resumed to 30, bitwise the
+   uninterrupted memory-store run; a captured chunk profiled; against the
+   CPU cohort by cohort (each from the same inputs, slot params and Adam
+   state within 1e-4) and as whole runs (the same ids, losses within
+   1e-4, counts equal but on near-tie rows; the final params' drift
+   printed); 1,000,000 clients on the memory store for 10 rounds
+   (s/round, apparent against resident bytes, peak device memory beside
+   the 100,000-client run's); the ring over 8 shards of the cohort (K4 a
+   cohort) and the median, 5 rounds each, against the CPU; trace sampling from a
+   trace the serving stack writes; K1's broadcast at (256, 11,352), K2 at
+   (256, 8), K3 at the 200,000 held-out rows and K4 at the cohort ring's
+   (8, 11,353) against their plain versions, timed. Each chunk prints its
+   host seconds (lazy init, store read and write, the prefetch stall) and
+   device milliseconds (copies in, step, copies out).
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package (nor does
@@ -152,6 +173,7 @@ the port's serving stack, which phases (p) and (q) drive).
 """
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -242,6 +264,12 @@ def phase_device() -> str:
     print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  device "
           f"{torch.cuda.get_device_name(0)}  count "
           f"{torch.cuda.device_count()}", flush=True)
+    # The host's CPU sets the CPU runs' last bits (the card-vs-CPU checks).
+    model = next((line.split(":", 1)[1].strip()
+                  for line in open("/proc/cpuinfo")
+                  if line.startswith("model name")), "unknown")
+    print(f"host CPU {model}, {os.cpu_count()} cores, torch CPU capability "
+          f"{torch.backends.cpu.get_cpu_capability()}", flush=True)
     return torch.cuda.get_device_name(0)
 
 
@@ -2652,7 +2680,7 @@ def phase_async_screen() -> dict:
                 ticks_per_step=ticks)
 
         step = build(width)
-        state = init_async_state(torch.Generator().manual_seed(0), 32,
+        state = init_async_state(0, 32,
                                  exp.model, exp.tx, same_init=False,
                                  device=dev, screen_window=64)
         outs, graph = [], None
@@ -4180,6 +4208,656 @@ def phase_fleet() -> tuple:
             numbers)
 
 
+# ------------------------------------------------ (r) the cohort engine
+# income-8's model at full width (14 -> 50 -> 200 -> 2) over a population of
+# 100,000 clients on 1,000,000 synthetic rows (about 8 train rows a client),
+# cohorts of 256, 10 a chunk; then 1,000,000 clients on an mmap store.
+COHORT_CLIENTS = 100_000
+COHORT_MILLION = 1_000_000
+COHORT_ROWS = 1_000_000
+COHORT_K = 256
+COHORT_S = 10
+COHORT_ROUNDS = 30
+COHORT_TOL = 1e-4
+COHORT_SHORT = 5          # rounds (one chunk) of the ring, median and trace
+COHORT_METRICS = ("accuracy", "precision", "recall", "f1")
+COHORT_EXPECT = {"weighted_average_clients": "cohorts",
+                 "fused_eval_confusion": "cohorts",
+                 "fused_mlp_forward": "evals", "ring_all_reduce_sum": 0}
+
+
+def cohort_config(clients: int = COHORT_CLIENTS, rounds: int = COHORT_ROUNDS,
+                  run=None, **fed):
+    from fedtpu_torch.config import get_preset
+    cfg = get_preset("income-8")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, synthetic_rows=COHORT_ROWS),
+        shard=dataclasses.replace(cfg.shard, num_clients=clients),
+        fed=dataclasses.replace(cfg.fed, rounds=rounds,
+                                cohort_size=COHORT_K,
+                                **{"termination_patience": 1000, **fed}),
+        run=dataclasses.replace(cfg.run, **{
+            "rounds_per_step": COHORT_S, "eval_test_every": 10,
+            **(run or {})}))
+
+
+def cohort_run(label: str, cfg, ds, expect=None, device: str = "cuda",
+               capture=None, resume: bool = False) -> tuple:
+    """One cohort run of ``run_experiment`` on ``ds``, every launch count
+    set to 0 just before it and read just after. ``expect`` maps a kernel
+    to "cohorts" (one a cohort trained, the graph's warm-up cohort and one
+    a cohort in each replay), "evals" (at least one a held-out eval) or an
+    exact number. Prints s/round (chunks 2..), each chunk's host and
+    device times, the store's bytes and the peak device memory. Returns
+    (result, launches, peak device bytes)."""
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration.loop import run_experiment
+    on_card = device == "cuda"
+    base = 0
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, dataset=ds, verbose=False, device=device,
+                         capture=capture, resume=resume)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    # The run's own peak: above what was allocated when it began.
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    check(not res.diverged, f"{label} diverged")
+    for hist in (res.global_metrics, res.pooled_metrics, res.test_metrics):
+        for k, v in hist.items():
+            check(bool(np.all(np.isfinite(v))), f"{label}: non-finite {k}")
+    check(all(np.all(np.isfinite(l)) for l in res.loss),
+          f"{label}: non-finite loss")
+    n_evals = len(res.test_metrics["accuracy"])
+    for name, want in (expect or {}).items():
+        got = launches[name]
+        if want == "cohorts":
+            check(got == res.rounds_trained + res.warmup_rounds,
+                  f"{label}: {name} launches {got} != cohorts trained "
+                  f"{res.rounds_trained} + warm-up {res.warmup_rounds}")
+            for width, per in res.graph_launches.items():
+                check(per[name] == width, f"{label}: {name} {per[name]} "
+                      f"launches a replay of the {width}-cohort graph")
+        elif want == "evals":
+            check(got >= max(n_evals, 1), f"{label}: {name} launches {got} "
+                  f"fewer than the held-out evals ({n_evals}) or none")
+        else:
+            check(got == want, f"{label}: {name} launches {got} != {want}")
+    check(capture is False or not on_card or bool(res.graph_launches),
+          f"{label}: no graph captured on the card")
+    store = res.cohort["store"]
+    stats = res.cohort["chunk_stats"]
+    width = cfg.run.rounds_per_step
+    steady = res.sec_per_round[width:] or res.sec_per_round
+    print(f"{label}: rounds run {res.rounds_run}, trained "
+          f"{res.rounds_trained}, s/round {statistics.mean(steady):.6e} "
+          f"(mean of chunks 2..), wall {wall:.3f} s, launches {launches}, "
+          f"test evals {n_evals}, final client-mean accuracy "
+          f"{res.global_metrics['accuracy'][-1]:.4f}; store: "
+          f"{len(store._touched)} touched records of "
+          f"{store.record_bytes} bytes, resident "
+          f"{store.resident_estimate_bytes()} bytes, apparent "
+          f"{store.apparent_nbytes} bytes, file blocks "
+          f"{store.file_block_bytes()} bytes; peak device memory {peak} "
+          f"bytes above the {base} allocated before it; {CARD['smi']}",
+          flush=True)
+    for i, st in enumerate(stats):
+        print(f"  chunk {i + 1}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in st.items()), flush=True)
+    return res, launches, peak
+
+
+def store_digest(res) -> tuple:
+    arrays = res.cohort["store"].checkpoint_arrays()
+    return arrays["store_ids"], arrays["store_digest"]
+
+
+def same_cohort_runs(label: str, a, b, metrics_only: bool = False,
+                     skip: int = 0, skip_evals: int = 0) -> None:
+    """Bitwise: the sampled ids, every history, loss and confusion count,
+    the final params and (unless ``metrics_only``) every touched store
+    record (ids, header and leaf bytes, through the store's digest).
+    ``a`` resumed at round ``skip`` holds ``b``'s client-mean history
+    whole and the rest from there (``skip_evals`` held-out rows fewer)."""
+    check(a.rounds_run == b.rounds_run, f"{label}: rounds {a.rounds_run} "
+          f"vs {b.rounds_run}")
+    check(not b.cohort or all(np.array_equal(x, y) for x, y in zip(
+        a.cohort["ids"], b.cohort["ids"][skip:], strict=True)),
+          f"{label}: sampled ids differ")
+    check(a.global_metrics == b.global_metrics,
+          f"{label}: client-mean histories differ")
+    check(a.pooled_metrics == {k: v[skip:] for k, v in
+                               b.pooled_metrics.items()}
+          and a.test_metrics == {k: v[skip_evals:] for k, v in
+                                 b.test_metrics.items()},
+          f"{label}: pooled or held-out histories differ")
+    check(all(np.array_equal(x, y) for x, y in zip(
+        a.loss + a.confusion, b.loss[skip:] + b.confusion[skip:],
+        strict=True)), f"{label}: losses or confusion counts differ")
+    check(all(np.array_equal(x, y) for x, y in
+              zip(param_leaves(a.final_params),
+                  param_leaves(b.final_params))),
+          f"{label}: final params differ")
+    if not metrics_only:
+        (ia, da), (ib, db) = store_digest(a), store_digest(b)
+        check(np.array_equal(ia, ib) and np.array_equal(da, db),
+              f"{label}: store records differ ({len(ia)} vs {len(ib)} "
+              "touched)")
+    print(f"{label}: bitwise equal (ids, histories, losses, counts, final "
+          f"params{'' if metrics_only else ', every touched store record'})",
+          flush=True)
+
+
+def replay_cohort_ties(cfg, ds, rounds: set) -> dict:
+    """``replay_near_ties`` for the cohort engine: the run replayed chunk
+    by chunk on the CPU and, in lockstep, on the card (uncaptured, bitwise
+    the captured run), without prefetch; at each given 0-based round its
+    cohort's trained (pre-average) models are rebuilt from the chunk's
+    stored optimizer records and the carry (the chunk's start state, or
+    the previous cohort's written params) and their logits compared:
+    round -> ``near_ties``' triple."""
+    from fedtpu_torch.cohort.scheduler import build_cohort_scheduler
+    from fedtpu_torch.training.client import make_local_train_step
+    sides = [build_cohort_scheduler(cfg, ds, torch.device(d),
+                                    prefetch=False) for d in ("cpu", "cuda")]
+    s_w = sides[0].s
+    train = make_local_train_step(sides[0].model, sides[0].tx,
+                                  cfg.fed.local_steps, cfg.fed.prox_mu)
+    out = {}
+    try:
+        for c in range(max(rounds) // s_w + 1):
+            want = sorted(r % s_w for r in rounds if r // s_w == c)
+            ids = sides[0].sampler.sample(c * s_w, s_w)
+            before = []
+            for side in sides:
+                for s in range(s_w):
+                    side.ensure_init(ids[s])
+                state = side.state_for_checkpoint()
+                before.append((None if state is None
+                               else state["params"].clone(),
+                               [side.store.read(ids[s]) for s in want]))
+            for side in sides:
+                side.run_chunk(prefetch_next=False)
+            for s, slot in zip(want, range(len(want))):
+                logits = []
+                for side, (carry, recs) in zip(sides, before):
+                    dev = side.device
+                    rec = [torch.from_numpy(np.array(a)).to(dev)
+                           for a in recs[slot]]
+                    if s > 0:
+                        carry = torch.from_numpy(
+                            side.store.read(ids[s - 1])[-1]).to(dev)
+                    elif carry is None:
+                        carry = rec[-1]
+                    data = side.data_fn(ids[s])
+                    x, y, mask = (torch.from_numpy(data[k]).to(dev)
+                                  for k in ("x", "y", "mask"))
+                    opt = dict(zip(sorted(side.tx.init(carry)), rec[:-1]))
+                    trained, _, _ = train(carry, opt, x, y, mask)
+                    logits.append(side.model.apply(trained, x).cpu())
+                mask = torch.from_numpy(side.data_fn(ids[s])["mask"]) > 0
+                out[c * s_w + s] = near_ties(logits, mask)
+    finally:
+        for side in sides:
+            side.close()
+    return out
+
+
+def cohort_pairs(label: str, cfg, ds) -> dict:
+    """``cfg`` on the CPU, chunk by chunk without prefetch (the reference
+    run), and each of its cohorts stepped again on the card and on the CPU
+    from the same inputs (the carry it trained from, its members' stored
+    optimizer records and rows): the one-cohort step on the card
+    (uncaptured, bitwise the captured one) against its plain version,
+    its post-round slot params and optimizer state within ``COHORT_TOL``
+    (counts equal), losses within 1e-4 and confusion counts equal but on
+    near-tie rows of the CPU models; the CPU's step equals the reference
+    run's records bit for bit. Returns the reference run: each round's
+    ids, losses and confusion counts, its final global and its store."""
+    from fedtpu_torch.cohort.scheduler import (build_cohort_round_fn,
+                                               build_cohort_scheduler)
+    from fedtpu_torch.parallel.mesh import make_mesh
+    from fedtpu_torch.training.client import make_local_train_step
+    ref = build_cohort_scheduler(cfg, ds, torch.device("cpu"),
+                                 prefetch=False)
+    k = ref.k
+    row_shape = ref.data_fn(np.zeros(1, np.int64))["x"].shape[1:]
+    devs = (torch.device("cpu"), torch.device("cuda"))
+    steps = [build_cohort_round_fn(
+        ref.model, ref.tx, ds.num_classes, k, row_shape,
+        mesh=make_mesh(cfg.run.mesh_devices, k, dev),
+        aggregation=cfg.fed.aggregation, local_steps=cfg.fed.local_steps,
+        prox_mu=cfg.fed.prox_mu, robust=cfg.fed.robust_aggregation,
+        trim_ratio=cfg.fed.trim_ratio, device=dev) for dev in devs]
+    train = make_local_train_step(ref.model, ref.tx, cfg.fed.local_steps,
+                                  cfg.fed.prox_mu)
+    out = {"ids": [], "loss": [], "confusion": []}
+    worst = {"params": 0.0, "opt": 0.0, "loss": 0.0}
+    moved = 0
+    try:
+        while ref.round < cfg.fed.rounds:
+            ids = ref.sampler.sample(ref.round, ref.s)
+            for s in range(ref.s):
+                ref.ensure_init(ids[s])
+            state = ref.state_for_checkpoint()
+            carry0 = None if state is None else state["params"].clone()
+            before = [ref.store.read(ids[s]) for s in range(ref.s)]
+            chunk = ref.run_chunk(prefetch_next=False)
+            take = min(ref.s, cfg.fed.rounds - (ref.round - ref.s))
+            for key, src in (("ids", chunk["ids"]),
+                             ("loss", chunk["metrics"]["loss"]),
+                             ("confusion", chunk["conf"])):
+                out[key] += [np.asarray(src[j]) for j in range(take)]
+            for s in range(ref.s):
+                recs = before[s]
+                carry = (carry0 if s == 0 and carry0 is not None else
+                         torch.from_numpy(recs[-1]) if s == 0 else
+                         torch.from_numpy(ref.store.read(ids[s - 1])[-1]))
+                data = ref.data_fn(ids[s])
+                weights = (data["mask"].sum(axis=1, dtype=np.float32)
+                           if cfg.fed.weighting == "data_size"
+                           else np.ones(k, np.float32))
+                host = ([torch.from_numpy(np.array(a))[None]
+                         for a in recs[:-1]]
+                        + [torch.from_numpy(data[key])[None]
+                           for key in ("x", "y", "mask")]
+                        + [torch.from_numpy(weights)[None]])
+                raws = []
+                for dev, step in zip(devs, steps):
+                    _, raw = step.fn({"params": carry.to(dev), "round": 0},
+                                     None, *(t.to(dev) for t in host))
+                    raws.append(raw)
+                cpu_raw, card_raw = raws
+                after = ref.store.read(ids[s])
+                check(all(np.array_equal(_numpy_leaf(cpu_raw, key), a)
+                          for key, a in zip(
+                              [("opt", n) for n in sorted(cpu_raw["opt"])]
+                              + [("params",)], after)),
+                      f"{label}: the CPU's one-cohort step is not the "
+                      "reference run's records")
+                worst["params"] = max(worst["params"], float(
+                    (card_raw["params"].cpu() - cpu_raw["params"]).abs()
+                    .max()))
+                for name, t in cpu_raw["opt"].items():
+                    c = card_raw["opt"][name].cpu()
+                    if t.is_floating_point():
+                        worst["opt"] = max(worst["opt"],
+                                           float((c - t).abs().max()))
+                    else:
+                        check(torch.equal(c, t),
+                              f"{label}: optimizer {name} differs")
+                worst["loss"] = max(worst["loss"], float(
+                    (card_raw["loss"].cpu() - cpu_raw["loss"]).abs().max()))
+                conf_moved = ((card_raw["conf"].cpu() - cpu_raw["conf"])
+                              .abs().sum(dim=(-2, -1)) / 2)[0]
+                if conf_moved.any():
+                    logits = []
+                    for dev in devs:
+                        opt = {n: v[0].to(dev) for n, v in zip(
+                            sorted(cpu_raw["opt"]), host[:len(recs) - 1])}
+                        trained, _, _ = train(
+                            carry.to(dev), opt, host[-4][0].to(dev),
+                            host[-3][0].to(dev), host[-2][0].to(dev))
+                        logits.append(ref.model.apply(
+                            trained, host[-4][0].to(dev)).cpu())
+                    near = near_ties(logits, host[-2][0] > 0)[0]
+                    check(bool((conf_moved.numpy() <= near).all()),
+                          f"{label}: confusion counts differ on "
+                          f"{int(conf_moved.sum())} rows, near ties "
+                          f"{int(near.sum())}")
+                    moved += int(conf_moved.sum())
+            check(max(worst.values()) <= COHORT_TOL,
+                  f"{label}: one-cohort steps card vs CPU from the same "
+                  f"inputs differ by {worst} > {COHORT_TOL}")
+        out["final"] = ref.state_for_checkpoint()["params"][0]
+        out["store"] = ref.store
+    finally:
+        ref.close()
+    print(f"{label}: each of {len(out['ids'])} cohorts stepped on the card "
+          f"and on the CPU from the same inputs: slot params within "
+          f"{worst['params']:.3e}, Adam state within {worst['opt']:.3e}, "
+          f"losses within {worst['loss']:.3e}, {moved} near-tie rows "
+          f"counted apart; the CPU's step is the reference run's, bit for "
+          f"bit", flush=True)
+    return out
+
+
+def _numpy_leaf(raw: dict, key: tuple) -> np.ndarray:
+    """A one-cohort step's output leaf (``("params",)`` or ``("opt",
+    name)``) as the store's numpy record leaf."""
+    t = raw[key[0]] if len(key) == 1 else raw[key[0]][key[1]]
+    return t[0].cpu().numpy()
+
+
+def cohort_vs_cpu(label: str, cfg, ds, gpu) -> None:
+    """The card run ``gpu`` against the CPU: ``cohort_pairs`` (each cohort
+    within ``COHORT_TOL`` from the same inputs), then the whole runs: the
+    same sampled ids and rounds, losses within 1e-4, confusion counts
+    equal but on near-tie rows of the CPU models (``replay_cohort_ties``),
+    the same touched records with equal headers. The whole runs' final
+    params and record values are printed, not held: a member's first Adam
+    step is ``lr * g / (|g| + eps)``, so a gradient that is exactly 0 on
+    one side and a rounding residue on the other moves that member by up
+    to ``lr``, and the two runs' carries part by ~1e-5 a chunk and go on
+    apart (``PERF.md`` §6)."""
+    from fedtpu_torch.convert import params_from_jax
+    cpu = cohort_pairs(label, cfg, ds)
+    check(len(cpu["ids"]) == gpu.rounds_run and all(
+        np.array_equal(a, b) for a, b in zip(gpu.cohort["ids"], cpu["ids"])),
+          f"{label}: card and CPU sampled other ids or ran other rounds")
+    loss_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(gpu.loss, cpu["loss"]))
+    check(loss_err <= 1e-4, f"{label}: loss max abs err {loss_err}")
+    moved = {r: np.abs(a - b).sum(axis=(1, 2)) / 2
+             for r, (a, b) in enumerate(zip(gpu.confusion,
+                                            cpu["confusion"]))
+             if not np.array_equal(a, b)}
+    ties = replay_cohort_ties(cfg, ds, set(moved)) if moved else {}
+    for r, rows in moved.items():
+        near, _, drift = ties[r]
+        check(bool(np.all(rows <= near)),
+              f"{label} round {r + 1}: confusion counts differ on "
+              f"{rows.tolist()} rows per client, near-tie rows "
+              f"{near.tolist()} (logit drift {drift:.3e})")
+    p_err = float((params_from_jax(gpu.final_params)
+                   - cpu["final"]).abs().max())
+    gs, cs = gpu.cohort["store"], cpu["store"]
+    ids = np.array(sorted(gs._touched), np.int64)
+    check(np.array_equal(ids, np.array(sorted(cs._touched), np.int64)),
+          f"{label}: card and CPU stores touched other records")
+    s_err = 0.0
+    for part in np.array_split(ids, max(1, len(ids) // 1024)):
+        for probe in ("versions", "participation", "read_keys"):
+            check(np.array_equal(getattr(gs, probe)(part),
+                                 getattr(cs, probe)(part)),
+                  f"{label}: store {probe} differ")
+        for a, b in zip(gs.read(part), cs.read(part)):
+            s_err = max(s_err, float(np.abs(a.astype(np.float64) - b).max()))
+    print(f"{label} card vs CPU, whole runs: same ids and rounds "
+          f"{gpu.rounds_run}, loss max abs err {loss_err:.3e}, rounds with "
+          f"near-tie count differences {sorted(r + 1 for r in moved)} "
+          f"(rows moved {[int(v.sum()) for v in moved.values()]}), "
+          f"{len(ids)} touched records with equal headers; final params "
+          f"apart by {p_err:.3e}, record values by {s_err:.3e}; "
+          f"{CARD['smi']}", flush=True)
+
+
+def cohort_profile(cfg, ds, chunk_ms: float) -> dict:
+    """Where a captured chunk's time goes: two chunks of ``cfg`` through
+    the scheduler (the first warms up and captures), the second under
+    torch.profiler: its device busy time and device ops, and the device's
+    idle share against ``chunk_ms`` (a steady captured chunk's host time
+    in the main run, untraced) and against the traced chunk's own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fedtpu_torch.cohort.scheduler import build_cohort_scheduler
+    sched = build_cohort_scheduler(cfg, ds, torch.device("cuda"),
+                                   capture=True)
+    try:
+        sched.run_chunk()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sched.run_chunk(prefetch_next=False)
+            traced_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        sched.close()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    ops = sum(e.count for e in dev)
+    out = {"chunk_host_ms": chunk_ms, "device_busy_ms": busy_ms,
+           "device_ops": ops, "idle_share": 1 - busy_ms / chunk_ms,
+           "traced_host_ms": traced_ms,
+           "traced_idle_share": 1 - busy_ms / traced_ms,
+           "chunk_stats": sched.chunk_stats[1]}
+    print(f"cohort profile (one captured chunk of {sched.s} cohorts of "
+          f"{sched.k}): device busy {busy_ms:.3f} ms in {ops} device ops; "
+          f"idle share {out['idle_share']:.4f} against the main run's "
+          f"steady chunk ({chunk_ms:.1f} ms on the host clock), "
+          f"{out['traced_idle_share']:.4f} against the traced chunk's "
+          f"{traced_ms:.1f} ms; {CARD['smi']}", flush=True)
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:.4f} ms x{e.count}  "
+              f"{e.key[:90]}", flush=True)
+    return out
+
+
+def cohort_kernel_rows(res, ds, dev: torch.device) -> dict:
+    """K1's broadcast mode, K2 and K3 at the cohort path's shapes, and K4
+    at the cohort ring's payload, against their plain versions on the
+    same inputs, timed beside them and their bounds: K1 at (256, 11,352)
+    on 256 stored records' params with their data-size weights (1e-5); K2
+    on those params over the members' (256, 8) rows (counts equal but on
+    near-tie rows); K3 on the final global over the held-out rows (1e-4);
+    K4 bitwise at (8, 11,353). These launches compare; they are made
+    after the counted runs."""
+    from fedtpu_torch.convert import params_from_jax
+    from fedtpu_torch.data.sharding import pack_clients
+    from fedtpu_torch.models.mlp import mlp_apply, unflatten
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.ops.metrics import near_tie_rows
+    store = res.cohort["store"]
+    ids = res.cohort["ids"][-1]
+    dims = INCOME_DIMS
+    k = dims[-1]
+    packed = pack_clients(ds.x_train, ds.y_train, res.config.shard)
+    x, y, mask = (torch.from_numpy(a[ids]).to(dev)
+                  for a in (packed.x, packed.y, packed.mask))
+    stored = store.read(ids)[-1]
+    params = torch.from_numpy(stored + np.random.default_rng(0).normal(
+        0, 1e-2, stored.shape).astype(np.float32)).to(dev)
+    w = mask.sum(dim=1)
+    glob = params_from_jax(res.final_params).to(dev)
+    x_eval = torch.from_numpy(ds.x_test).to(dev)
+    c, n = y.shape
+    live = float(mask.sum())
+    avg = ck.weighted_average_clients(params, w, broadcast=True)
+    e1 = float((avg - ck.weighted_average_clients_reference(
+        params, w, broadcast=True)).abs().max())
+    check(e1 <= 1e-5, f"K1 broadcast at ({c}, {params.shape[1]}): max abs "
+          f"err {e1}")
+    conf = ck.fused_eval_confusion(params, dims, x, y, mask, k)
+    ref = ck.fused_eval_confusion_reference(params, dims, x, y, mask, k)
+    ties = near_tie_rows(mlp_apply(unflatten(params, dims), x)) & (mask > 0)
+    moved = (conf - ref).abs().sum(dim=(1, 2)) / 2
+    check(bool((moved <= ties.sum(dim=1)).all()),
+          f"K2 at the cohort shape ({c}, {n}): counts differ on "
+          f"{int(moved.sum())} rows, near ties {int(ties.sum())}")
+    logits = ck.fused_mlp_forward(glob, dims, x_eval)
+    e3 = float((logits - ck.fused_mlp_forward_reference(glob, dims, x_eval)
+                ).abs().max())
+    check(e3 <= 1e-4, f"K3 at N={x_eval.shape[0]}: max abs err {e3}")
+    ring = torch.randn(SHARDS, params.shape[1] + 1,
+                       generator=torch.Generator().manual_seed(5)).to(dev)
+    check(torch.equal(ck.ring_all_reduce_sum(ring),
+                      ck.ring_all_reduce_sum_reference(ring)),
+          "K4 at the cohort ring's payload: not bitwise its plain version")
+    wn = w / w.sum()
+    d = params.shape[1]
+    rows = {}
+    for name, kernel, plain, library, nbytes, flops, err, shape in (
+            ("weighted_average_clients",
+             lambda: ck.weighted_average_clients(params, w, broadcast=True),
+             lambda: ck.weighted_average_clients_reference(
+                 params, w, broadcast=True), None,
+             4 * (2 * params.numel() + c), 2.0 * params.numel(), e1,
+             f"cohort broadcast ({c}, {d}) fp32, data-size weights"),
+            ("fused_eval_confusion",
+             lambda: ck.fused_eval_confusion(params, dims, x, y, mask, k),
+             lambda: ck.fused_eval_confusion_reference(params, dims, x, y,
+                                                       mask, k), None,
+             4 * (params.numel() + live * (dims[0] + 1) + mask.numel()
+                  + c * k * k), mlp_flops(dims, live),
+             float((conf - ref).abs().max()),
+             f"cohort eval ({c}, {n}), {int(live)} real rows"),
+            ("fused_mlp_forward",
+             lambda: ck.fused_mlp_forward(glob, dims, x_eval),
+             lambda: ck.fused_mlp_forward_reference(glob, dims, x_eval),
+             None, 4 * (glob.numel() + x_eval.numel()
+                        + x_eval.shape[0] * k),
+             mlp_flops(dims, x_eval.shape[0]), e3,
+             f"cohort held-out eval N={x_eval.shape[0]}"),
+            ("ring_all_reduce_sum",
+             lambda: ck.ring_all_reduce_sum(ring),
+             lambda: ck.ring_all_reduce_sum_reference(ring),
+             lambda: ring.sum(dim=0), 2 * ring.numel() * 4,
+             float((SHARDS - 1) * ring.numel()), 0.0,
+             f"cohort ring ({SHARDS}, {ring.shape[1]})")):
+        bnd, by = bound_ms(nbytes, flops)
+        rows[name] = {"shape": shape, "max_abs_err": err,
+                      "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                      "library_ms": library and time_ms(library),
+                      "bound_ms": bnd, "bound_by": by}
+        r = rows[name]
+        print(f"time {name} {shape}: kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library {r['library_ms']}  bound "
+              f"{bnd:.5f} ms ({by}); max abs err {err:.3e}; {CARD['smi']}",
+              flush=True)
+    # K1's broadcast has no one-call counterpart; the (D,) average that
+    # it broadcasts is one torch.matmul.
+    rows["weighted_average_clients"]["matmul_average_ms"] = time_ms(
+        lambda: torch.matmul(wn, params))
+    print(f"time torch.matmul (D,) average at ({c}, {d}): "
+          f"{rows['weighted_average_clients']['matmul_average_ms']:.4f} ms",
+          flush=True)
+    return rows
+
+
+def phase_cohort() -> tuple:
+    """(r): cohort mode at the income MLP's full width (see the module
+    docstring). Returns (launches by path, kernel rows, numbers)."""
+    import tempfile
+    from fedtpu_torch.cohort.scheduler import CohortSampler
+    from fedtpu_torch.data import load_dataset
+    from fedtpu_torch.orchestration.checkpoint import complete_steps
+    from fedtpu_torch.serving.traces import synthesize_trace, write_trace
+    t_phase = time.perf_counter()
+    by_path, numbers = {}, {}
+    # 1. income-8 at full participation: the cohort engine is the
+    # synchronous run, both captured.
+    from fedtpu_torch.orchestration.loop import run_experiment
+    cfg8 = main_path_config()
+    sync8 = run_experiment(cfg8, verbose=False, device="cuda")
+    coh8, by_path["cohort income-8"], _ = cohort_run(
+        "cohort income-8 (8 of 8)", cfg8.replace(fed=dataclasses.replace(
+            cfg8.fed, cohort_size=8)), None, COHORT_EXPECT)
+    same_cohort_runs("income-8 cohort vs the synchronous run", coh8, sync8,
+                     metrics_only=True)
+    ds = load_dataset(cohort_config().data)
+    base = cohort_config()
+    # 2. 100,000 clients: captured (the main path), uncaptured, resumed on
+    # the mmap store, CPU; a profiled captured chunk.
+    a, by_path["cohort 100,000"], peak_a = cohort_run(
+        "cohort 100,000 captured", base, ds, COHORT_EXPECT)
+    b, _, _ = cohort_run("cohort 100,000 uncaptured", base, ds,
+                         COHORT_EXPECT, capture=False)
+    same_cohort_runs("cohort 100,000 captured vs uncaptured", a, b)
+    numbers["s_per_round"] = {
+        "captured": statistics.mean(a.sec_per_round[COHORT_S:]),
+        "uncaptured": statistics.mean(b.sec_per_round[COHORT_S:])}
+    numbers["chunk_stats"] = {"captured": a.cohort["chunk_stats"],
+                              "uncaptured": b.cohort["chunk_stats"]}
+    del b
+    with tempfile.TemporaryDirectory() as directory:
+        # The mmap store (<checkpoint_dir>/client_store.bin), stopped at
+        # round 20 and resumed to 30: bitwise the uninterrupted run on the
+        # memory store.
+        mm_cfg = base.replace(
+            fed=dataclasses.replace(base.fed, client_store="mmap"),
+            run=dataclasses.replace(base.run, checkpoint_every=20,
+                                    checkpoint_dir=os.path.join(
+                                        directory, "ckpt")))
+        cohort_run("cohort 100,000 mmap to round 20", mm_cfg.replace(
+            fed=dataclasses.replace(mm_cfg.fed, rounds=20)), ds)
+        steps = complete_steps(mm_cfg.run.checkpoint_dir)
+        check(steps == [20], f"cohort resume: checkpoints {steps}")
+        resumed, _, _ = cohort_run("cohort 100,000 mmap resumed 20 -> 30",
+                                   mm_cfg, ds, resume=True)
+        same_cohort_runs("cohort 100,000 mmap resumed 20 -> 30 vs the "
+                         "uninterrupted memory-store run", resumed, a,
+                         skip=20, skip_evals=2)
+        del resumed
+    numbers["profile"] = cohort_profile(
+        base, ds, numbers["s_per_round"]["captured"] * COHORT_S * 1e3)
+    cohort_vs_cpu("cohort 100,000", base, ds, a)
+    with tempfile.TemporaryDirectory() as directory:
+        # 3. 1,000,000 clients. The memory store: calloc-backed, only the
+        # touched records are resident. (A 136 GB mmap file runs the card
+        # machine's sandbox out of its 96 GiB: PERF.md §6.)
+        big_cfg = cohort_config(clients=COHORT_MILLION, rounds=10)
+        big, by_path["cohort 1,000,000"], peak_big = cohort_run(
+            "cohort 1,000,000", big_cfg, ds, COHORT_EXPECT)
+        store = big.cohort["store"]
+        numbers["million"] = {
+            "s_per_round": statistics.mean(big.sec_per_round),
+            "apparent_bytes": store.apparent_nbytes,
+            "resident_bytes": store.resident_estimate_bytes(),
+            "peak_device_bytes": peak_big,
+            "peak_device_bytes_100k": peak_a,
+            "chunk_stats": big.cohort["chunk_stats"]}
+        check(abs(peak_big - peak_a) < 64 * 2**20,
+              f"peak device memory {peak_big} at 1,000,000 clients vs "
+              f"{peak_a} at 100,000: not cohort-sized")
+        print(f"cohort 1,000,000: store {store.apparent_nbytes} bytes "
+              f"apparent, {store.resident_estimate_bytes()} resident "
+              f"({len(store._touched)} records); peak device memory "
+              f"{peak_big} bytes vs {peak_a} at 100,000 "
+              f"({(peak_big - peak_a) / 2**20:+.2f} MiB); {CARD['smi']}",
+              flush=True)
+        del big, store
+        # 5. Trace sampling from a trace the serving stack writes.
+        trace = os.path.join(directory, "trace.jsonl")
+        header, t, users, lat = synthesize_trace(
+            users=COHORT_CLIENTS, arrivals=40_000, seed=0)
+        write_trace(trace, header, t, users, lat)
+        tr_cfg = cohort_config(rounds=COHORT_SHORT, cohort_sampling="trace",
+                               cohort_trace=trace,
+                               run={"rounds_per_step": COHORT_SHORT,
+                                    "eval_test_every": COHORT_SHORT})
+        tr, by_path["cohort trace"], _ = cohort_run(
+            "cohort 100,000 trace-sampled", tr_cfg, ds, COHORT_EXPECT)
+        want = CohortSampler(COHORT_CLIENTS, COHORT_K, policy="trace",
+                             trace_users=users % COHORT_CLIENTS).sample(
+                                 0, COHORT_SHORT)
+        check(all(np.array_equal(tr.cohort["ids"][r], want[r])
+                  for r in range(COHORT_SHORT)),
+              "trace-sampled cohorts are not the trace walk's")
+        print("cohort trace-sampled: each round's cohort is the trace "
+              "walk's next distinct users", flush=True)
+        del tr
+    # 4. The ring over 8 shards of the cohort, and the median.
+    short = {"rounds_per_step": COHORT_SHORT,
+             "eval_test_every": COHORT_SHORT}
+    ring_cfg = cohort_config(rounds=COHORT_SHORT, aggregation="ring",
+                             run={**short, "mesh_devices": SHARDS})
+    ring, by_path["cohort ring"], _ = cohort_run(
+        "cohort 100,000 ring over 8 shards", ring_cfg, ds,
+        {"ring_all_reduce_sum": "cohorts", "weighted_average_clients": 0,
+         "fused_eval_confusion": "cohorts", "fused_mlp_forward": "evals"})
+    cohort_vs_cpu("cohort ring", ring_cfg, ds, ring)
+    med_cfg = cohort_config(rounds=COHORT_SHORT, weighting="uniform",
+                            robust_aggregation="median", run=short)
+    med, by_path["cohort median"], _ = cohort_run(
+        "cohort 100,000 median", med_cfg, ds,
+        {"weighted_average_clients": 0, "fused_eval_confusion": "cohorts",
+         "fused_mlp_forward": "evals", "ring_all_reduce_sum": 0})
+    cohort_vs_cpu("cohort median", med_cfg, ds, med)
+    rows = cohort_kernel_rows(a, ds, torch.device("cuda"))
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"phase (r) took {numbers['seconds']:.1f} s", flush=True)
+    return by_path, rows, numbers
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
     clock, seconds = [time.perf_counter()], {}
@@ -4261,6 +4939,13 @@ def main() -> None:
     by_path.update(fleet_launches)
     print(f"phase (q) numbers {json.dumps(fleet, default=float)}", flush=True)
     lap("(q)")
+    cohort_launches, cohort_rows, cohort = phase_cohort()
+    by_path.update(cohort_launches)
+    for name, row in cohort_rows.items():
+        timings[name]["cohort"] = row
+    print(f"phase (r) numbers {json.dumps(cohort, default=float)}",
+          flush=True)
+    lap("(r)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -4308,7 +4993,7 @@ def main() -> None:
                 "ms_by_tile_x_threads", "composed_round_device_ms",
                 "marginal_us_per_round", "profile", "phases_us",
                 "delta_mean", "sweep", "cifar10_32", "bf16_fp16",
-                "sklearn_parity", "serve", "net_sim")
+                "sklearn_parity", "serve", "net_sim", "cohort")
                 if key in t},
             **({"mode": "sum: K1 unnormalised, the asynchronous tick's "
                 "psum(tensordot(disc, delta))"}

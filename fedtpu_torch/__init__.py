@@ -18,6 +18,7 @@ with hand-written CUDA kernels in place of the JAX package's Pallas kernels
     fedtpu_torch.ops            — losses, metrics, optimizers, server
                                   optimizers, the DP accountant, CUDA kernels
     fedtpu_torch.parallel       — the federated round, its CUDA graph, int8
+    fedtpu_torch.cohort         — the client store, the cohort engine
     fedtpu_torch.orchestration  — host round loop, early stopping, checkpoints,
                                   the privacy ledger
     fedtpu_torch.training       — local training, eval, personalization
@@ -41,6 +42,8 @@ _LAZY = {
     "build_round_fn": ("fedtpu_torch.parallel.round", "build_round_fn"),
     "init_federated_state": ("fedtpu_torch.parallel.round",
                              "init_federated_state"),
+    "run_cohort_experiment": ("fedtpu_torch.cohort.scheduler",
+                              "run_cohort_experiment"),
     "run_grid_search": ("fedtpu_torch.sweep.grid", "run_grid_search"),
     "PRESETS": ("fedtpu_torch.config", "PRESETS"),
     "get_preset": ("fedtpu_torch.config", "get_preset"),

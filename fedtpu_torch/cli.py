@@ -354,6 +354,35 @@ def build_parser() -> argparse.ArgumentParser:
                         "semantics: the global only moves once this many "
                         "updates sit in the server buffer (default 0 = "
                         "apply every arrival tick)")
+    # run-only: the cohort engine (fedtpu_torch.cohort.scheduler).
+    # --num-clients is the POPULATION; --cohort-size is how many of them
+    # are on the device per round.
+    p.add_argument("--cohort-size", type=_positive_int, default=None,
+                   help="stream rounds through a sampled cohort of this "
+                        "many clients instead of holding all --num-clients "
+                        "on the device; per-client state lives in a "
+                        "host-side store (plain FedAvg path only; bitwise "
+                        "the synchronous engine when equal to "
+                        "--num-clients)")
+    p.add_argument("--client-store", choices=["memory", "mmap"],
+                   default=None,
+                   help="cohort store backend: 'memory' (sparse calloc "
+                        "pages) or 'mmap' (file-backed, survives as a "
+                        "plain binary; default memory)")
+    p.add_argument("--client-store-path", default=None, metavar="BIN",
+                   help="mmap store backing file (default "
+                        "<checkpoint-dir>/client_store.bin)")
+    p.add_argument("--cohort-sampling",
+                   choices=["uniform", "weighted", "trace"], default=None,
+                   help="cohort sampling policy: uniform, weighted "
+                        "(data-size-proportional), or trace (arrival order "
+                        "of --cohort-trace)")
+    p.add_argument("--cohort-seed", type=int, default=None,
+                   help="cohort sampling seed (default 0; resume replays "
+                        "the same cohorts)")
+    p.add_argument("--cohort-trace", default=None, metavar="JSONL",
+                   help="serving trace whose arrival order drives "
+                        "--cohort-sampling trace")
 
     s = sub.add_parser("sweep", help="federated hyperparameter grid")
     _add_common_overrides(s)
@@ -642,6 +671,20 @@ def config_from_args(args):
                         ("buffer_size", "async_buffer_size")):
         if getattr(args, flag, None) is not None:
             fed = dataclasses.replace(fed, **{field: getattr(args, flag)})
+    if getattr(args, "cohort_size", None) is not None:
+        fed = dataclasses.replace(fed, cohort_size=args.cohort_size)
+    elif any(getattr(args, a, None) is not None
+             for a in ("client_store", "client_store_path",
+                       "cohort_sampling", "cohort_seed", "cohort_trace")):
+        # As the async knobs: a flag of an engine that is off is never
+        # ignored silently.
+        raise SystemExit("--client-store/--client-store-path/"
+                         "--cohort-sampling/--cohort-seed/--cohort-trace "
+                         "require --cohort-size")
+    for flag in ("client_store", "client_store_path", "cohort_sampling",
+                 "cohort_seed", "cohort_trace"):
+        if getattr(args, flag, None) is not None:
+            fed = dataclasses.replace(fed, **{flag: getattr(args, flag)})
     for flag in ("scaffold", "dp_adaptive_clip"):
         if getattr(args, flag):
             fed = dataclasses.replace(fed, **{flag: True})

@@ -1,7 +1,13 @@
-"""The port's cohort pieces: the per-client state store
+"""The port's cohort engine (``fedtpu.cohort``): the per-client state store
 (``cohort.store.ClientStateStore``), which the serving engine and the
-gateway fleet use. ``fedtpu``'s cohort scheduler is ROADMAP A9."""
+gateway fleet use too, and the streaming cohort scheduler over it
+(``cohort.scheduler``: ``CohortSampler``, ``CohortScheduler``,
+``run_cohort_experiment``)."""
 
+from fedtpu_torch.cohort.scheduler import (CohortSampler,  # noqa: F401
+                                           CohortScheduler,
+                                           run_cohort_experiment)
 from fedtpu_torch.cohort.store import ClientStateStore  # noqa: F401
 
-__all__ = ["ClientStateStore"]
+__all__ = ["ClientStateStore", "CohortSampler", "CohortScheduler",
+           "run_cohort_experiment"]

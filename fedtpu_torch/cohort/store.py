@@ -51,8 +51,8 @@ arrays for a run checkpoint's meta file (the port's ``torch.save``
 layout), so one checkpoint covers engine state AND store. Every export is
 stamped with a sha256 content digest that ``restore_arrays`` and
 ``absorb_shard`` verify: a corrupt restore fails loudly instead of
-silently reinterpreting bytes. ``fedtpu``'s standalone orbax
-``save``/``restore`` belong to its cohort subsystem (ROADMAP A9).
+silently reinterpreting bytes. ``save``/``restore`` write and read the
+same arrays as one standalone file (``fedtpu``'s are orbax).
 """
 
 from __future__ import annotations
@@ -505,3 +505,23 @@ class ClientStateStore:
             self._overlay[int(i)] = np.asarray(rec, np.uint8).copy()
         self._touched.update(int(i) for i in ids)
         return int(ids.size)
+
+    def save(self, directory: str) -> str:
+        """Standalone checkpoint of the touched rows: ``checkpoint_arrays``
+        as CPU tensors in one ``torch.save`` file, ``<directory>/store``,
+        written to a temporary name and renamed. Returns its path."""
+        import torch
+
+        from fedtpu_torch.orchestration.checkpoint import _write
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(os.path.abspath(directory), "store")
+        _write({k: torch.from_numpy(np.array(v))
+                for k, v in self.checkpoint_arrays().items()}, path)
+        return path
+
+    def restore(self, directory: str) -> None:
+        """Load a :meth:`save` through :meth:`restore_arrays`, which
+        verifies its geometry and content digest."""
+        from fedtpu_torch.orchestration.checkpoint import _read
+        saved = _read(os.path.join(os.path.abspath(directory), "store"))
+        self.restore_arrays({k: v.numpy() for k, v in saved.items()})

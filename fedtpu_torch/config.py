@@ -192,7 +192,14 @@ class FedConfig:
     async_arrival_seed: int = 0
     async_staleness_power: float = 0.5
     async_buffer_size: int = 0
-    # Not ported yet: each must stay at its default (_FED_ITEMS).
+    # The cohort engine (fedtpu_torch.cohort.scheduler): > 0 trains the
+    # population of shard.num_clients through sampled cohorts of this many
+    # slots, each client's params and optimizer state in a host-side store
+    # ('memory' | 'mmap', the file at client_store_path, by default
+    # <checkpoint_dir>/client_store.bin); cohorts drawn 'uniform',
+    # 'weighted' (by data size) or from a serving trace's arrival order
+    # ('trace', cohort_trace), seeded cohort_seed. Plain FedAvg only, as in
+    # fedtpu (scheduler._validate_cohort_config).
     cohort_size: int = 0
     client_store: str = "memory"
     client_store_path: Optional[str] = None
@@ -216,13 +223,6 @@ class FedConfig:
             raise ValueError(f"prox_mu must be >= 0, got {self.prox_mu} "
                              "(negative mu amplifies drift instead of "
                              "bounding it)")
-        _refuse_unported(self, _FED_ITEMS)
-
-
-# FedConfig's knobs of paths not ported yet -> the ROADMAP item of each.
-_FED_ITEMS = dict.fromkeys(("cohort_size", "client_store", "client_store_path",
-                           "cohort_sampling", "cohort_seed", "cohort_trace"),
-                          "A9")
 
 
 @dataclasses.dataclass(frozen=True)

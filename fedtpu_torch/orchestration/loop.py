@@ -26,6 +26,10 @@ the K-buffer (its meta says which engine wrote it, and a resume under the
 other engine raises), an elastic resume re-pulls every client from the
 freshest anchor, and a run whose K-buffer never filled ends with a warning.
 
+``FedConfig.cohort_size > 0`` hands the run to the cohort engine
+(``fedtpu_torch.cohort.scheduler.run_cohort_experiment``), as ``fedtpu``'s
+loop does.
+
 On the card each chunk is one replay of a CUDA graph of the round step
 (``fedtpu_torch.parallel.round.capture_round_step``; one graph per chunk
 width), the counterpart of ``fedtpu``'s jitted scan, and the host reads one
@@ -149,6 +153,11 @@ class ExperimentResult:
     # the staleness their update had, absentees their current age. Empty
     # for the synchronous engine.
     staleness: List[np.ndarray] = dataclasses.field(default_factory=list)
+    # The cohort engine's (fedtpu_torch.cohort.scheduler): "store", its
+    # ClientStateStore after the run; "ids", each round's (K,) sampled ids;
+    # "chunk_stats", each chunk's host and device times
+    # (CohortScheduler.chunk_stats). Empty for the other engines.
+    cohort: dict = dataclasses.field(default_factory=dict)
 
     def summary(self) -> dict:
         warm = max(1, self.config.run.rounds_per_step)
@@ -375,7 +384,6 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         # its anchors hold it too (init_async_state).
         params = warm_start_params(fed.init_weights_npz, model).expand(
             num_clients, -1)
-    gen = torch.Generator().manual_seed(fed.init_seed)
     batch = {"x": torch.from_numpy(packed.x).to(dev),
              "y": torch.from_numpy(packed.y).to(dev),
              "mask": torch.from_numpy(packed.mask).to(dev)}
@@ -386,7 +394,7 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev)
     if fed.async_mode:
         state = init_async_state(
-            gen, num_clients, model, tx, same_init=fed.same_init,
+            fed.init_seed, num_clients, model, tx, same_init=fed.same_init,
             device=dev, params=params, buffer_size=fed.async_buffer_size)
         make_step = lambda r: build_async_round_fn(
             model, tx, ds.num_classes, num_clients,
@@ -398,7 +406,7 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             ticks_per_step=r, arrival_masks=arrival_masks)
     else:
         state = init_federated_state(
-            gen, num_clients, model, tx, same_init=fed.same_init,
+            fed.init_seed, num_clients, model, tx, same_init=fed.same_init,
             device=dev, params=params, server_opt=server,
             shared_start=fed.compress != "none", scaffold=fed.scaffold,
             adaptive_clip_init=(fed.dp_clip_norm if fed.dp_adaptive_clip
@@ -512,6 +520,19 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     the CPU; False runs the step uncaptured on the card too.
     ``participation_masks``, ``dp_noise`` and ``arrival_masks``:
     ``build_experiment``'s."""
+    if cfg.fed.cohort_size > 0:
+        # The cohort engine: the population in a host-side store, only
+        # cohort_size slots on the device (fedtpu_torch.cohort.scheduler).
+        if any(a is not None for a in (participation_masks, dp_noise,
+                                       arrival_masks)):
+            raise ValueError("cohort mode samples its own cohorts: "
+                             "participation_masks, dp_noise and "
+                             "arrival_masks do not apply")
+        from fedtpu_torch.cohort.scheduler import run_cohort_experiment
+        return run_cohort_experiment(cfg, dataset=dataset, verbose=verbose,
+                                     resume=resume, device=device,
+                                     capture=capture,
+                                     init_params=init_params)
     exp = build_experiment(cfg, dataset, device=device,
                            init_params=init_params,
                            participation_masks=participation_masks,

@@ -63,9 +63,10 @@ import torch
 from fedtpu_torch.models.registry import as_model
 from fedtpu_torch.ops.cuda_kernels import weighted_sum_clients
 from fedtpu_torch.ops.optim import Optimizer, _in, select_participants
-from fedtpu_torch.parallel.round import (_select_rows, assemble_metrics,
-                                         per_client_view, tensors_finite,
-                                         with_per_client)
+from fedtpu_torch.parallel.round import (RoundStep, _select_rows,
+                                         assemble_metrics, client_init_seeds,
+                                         client_inits, per_client_view,
+                                         tensors_finite, with_per_client)
 from fedtpu_torch.training.client import (make_local_eval_step,
                                           make_local_train_step)
 
@@ -88,15 +89,16 @@ def arrival_mask(num_clients: int, rate: float, seed: int,
     return (rng.random(num_clients) < rate).astype(np.float32)
 
 
-def init_async_state(generator: torch.Generator, num_clients: int, model,
+def init_async_state(init_seed: Optional[int], num_clients: int, model,
                      tx: Optimizer, same_init: bool = True,
                      device: torch.device = torch.device("cpu"),
                      params: Optional[torch.Tensor] = None,
                      buffer_size: int = 0, screen_window: int = 0) -> dict:
     """Every client starts having just pulled the shared initial global at
-    tick 0: the mean of the clients' inits (drawn from ``generator``, one
-    shared draw when ``same_init``; or ``params (C, D)``, e.g. ``fedtpu``'s
-    own through ``fedtpu_torch.convert.params_from_jax``). When every slot
+    tick 0: the mean of the clients' inits (client c's drawn from its seed
+    of ``round.client_init_seeds(init_seed, C, same_init)``, one shared
+    draw when ``same_init``; or ``params (C, D)``, e.g. ``fedtpu``'s own
+    through ``fedtpu_torch.convert.params_from_jax``). When every slot
     already holds the same model (``same_init``, a warm start, ``fedtpu``'s
     own anchors) that model is the global as it is. ``params`` and
     ``anchors`` hold it in separate buffers, in the param dtype; the
@@ -107,11 +109,9 @@ def init_async_state(generator: torch.Generator, num_clients: int, model,
     checkpoints."""
     model = as_model(model)
     if params is None:
-        draw = lambda: model.init(generator)
-        if same_init:
-            params = draw().expand(num_clients, -1)
-        else:
-            params = torch.stack([draw() for _ in range(num_clients)])
+        seeds = client_init_seeds(init_seed, num_clients, same_init)
+        params = (client_inits(model, seeds[:1]).expand(num_clients, -1)
+                  if same_init else client_inits(model, seeds))
     if tuple(params.shape[:1]) != (num_clients,):
         raise ValueError(f"params for {params.shape[0]} clients, expected "
                          f"{num_clients}")
@@ -206,6 +206,7 @@ class AsyncStep:
         return state, async_metrics(raw, batch["mask"], self.rounds)
 
     state_tensors = staticmethod(async_state_tensors)
+    pack = RoundStep.pack
 
     def input_buffers(self, state: dict) -> tuple:
         dev = state["params"].device

@@ -117,7 +117,30 @@ def effective_delta_noise_multiplier(z: float, z_count: float) -> float:
     return (z ** -2 - (2.0 * z_count) ** -2) ** -0.5
 
 
-def init_federated_state(generator: torch.Generator, num_clients: int,
+def client_init_seeds(init_seed: int, num_clients: int,
+                      same_init: bool = False) -> np.ndarray:
+    """Per-client init seeds ``(C,)`` uint64 (``fedtpu``'s
+    ``client_init_keys``): one seed for every client when ``same_init``,
+    else client c's own. The table is prefix-stable (the first n seeds of a
+    longer table are the n-client table), so client c's init does not
+    depend on the population, nor on the clients drawn before it: the
+    synchronous, the asynchronous and the cohort engine (which initialises
+    a client when it is first sampled) give client c the same init."""
+    words = np.random.SeedSequence([init_seed]).generate_state(
+        1 if same_init else num_clients, np.uint64)
+    return np.broadcast_to(words, (num_clients,)) if same_init else words
+
+
+def client_inits(model, seeds) -> torch.Tensor:
+    """``(len(seeds), D)`` inits, client c's drawn by ``model.init`` from a
+    generator seeded with ``seeds[c]`` (``client_init_seeds``), on the
+    CPU."""
+    model = as_model(model)
+    return torch.stack([model.init(torch.Generator().manual_seed(int(s)))
+                        for s in seeds])
+
+
+def init_federated_state(init_seed: Optional[int], num_clients: int,
                          model, tx: Optimizer,
                          same_init: bool = False,
                          device: torch.device = torch.device("cpu"),
@@ -129,11 +152,12 @@ def init_federated_state(generator: torch.Generator, num_clients: int,
     """Client-stacked params ``(C, D)`` + optimizer state on ``device``.
 
     ``model``: a ``registry.FlatModel``, or the float32 MLP's widths.
-    Each client draws its own init from ``generator`` (the reproducible
-    stand-in for the reference's unseeded per-rank init), or all clients
-    share one draw when ``same_init``. ``params`` (``(C, D)``) replaces the
-    draw, e.g. with ``fedtpu``'s own init through
-    ``fedtpu_torch.convert.params_from_jax``.
+    Client c's init is drawn from its own seed of ``client_init_seeds
+    (init_seed, C, same_init)`` (the reproducible stand-in for the
+    reference's unseeded per-rank init; all clients share one draw when
+    ``same_init``). ``params`` (``(C, D)``) replaces the draw, e.g. with
+    ``fedtpu``'s own init through ``fedtpu_torch.convert.params_from_jax``;
+    ``init_seed`` may then be None.
 
     As in ``fedtpu``: ``server_opt`` (the delta path) or ``shared_start``
     (the int8 exchange, which rebuilds the global as start + mean delta)
@@ -145,11 +169,9 @@ def init_federated_state(generator: torch.Generator, num_clients: int,
     the model's param dtype (``params`` are cast to it, as ``astype``
     rounds)."""
     if params is None:
-        draw = lambda: as_model(model).init(generator)
-        if same_init:
-            params = draw().expand(num_clients, -1)
-        else:
-            params = torch.stack([draw() for _ in range(num_clients)])
+        seeds = client_init_seeds(init_seed, num_clients, same_init)
+        params = (client_inits(model, seeds[:1]).expand(num_clients, -1)
+                  if same_init else client_inits(model, seeds))
     if tuple(params.shape[:1]) != (num_clients,):
         raise ValueError(f"params for {params.shape[0]} clients, expected "
                          f"{num_clients}")
@@ -252,6 +274,11 @@ class RoundStep:
     # (``pack_outputs``' per-client and per-round parts).
     outputs = ((), ())
     state_tensors = staticmethod(_state_tensors)
+
+    def pack(self, raw: dict):
+        """The step's outputs as a captured graph keeps them: one packed
+        buffer (``pack_outputs``)."""
+        return pack_outputs(raw, *self.outputs)
 
     def input_buffers(self, state: dict) -> tuple:
         """Zeroed device buffers of the per-chunk inputs: the masks
@@ -499,6 +526,73 @@ def _robust_global(rule: str, flat: torch.Tensor, part, trim_ratio: float,
     return torch.where(keep, srt, torch.zeros_like(srt)).sum(dim=0) / denom
 
 
+def broadcast_global(g: torch.Tensor, num_clients: int,
+                     slot_dtype: torch.dtype) -> torch.Tensor:
+    """The global ``g (D,)`` in every client slot, cast to the slots'
+    dtype (``fedtpu``'s ``bcast_global``)."""
+    return g.to(slot_dtype).expand(num_clients, -1).contiguous()
+
+
+def check_ring_devices(aggregation: str, mesh: ClientMesh,
+                       device: torch.device) -> None:
+    """The ring backends reduce over shards on ``device`` only."""
+    if aggregation != "psum" and any(d != device for d in mesh.devices):
+        raise NotImplementedError(
+            "a ring over shards on several devices is not ported to "
+            "fedtpu_torch yet (ROADMAP A10): it needs the ring kernel over "
+            "peer-mapped buffers")
+
+
+def make_average(aggregation: str, mesh: ClientMesh, slot_dtype: torch.dtype,
+                 wide_agg: bool) -> Callable:
+    """The plain FedAvg of a round, ``average(params (C, D), w (C,)) ->
+    (C, D)``, the new global in every slot or, where the weights sum to 0,
+    the params carried over; the synchronous round and the cohort engine
+    both average through it. ``psum``: K1 in broadcast mode over the whole
+    stack (under ``wide_agg`` a float32 stack into 16-bit slots). ``ring``
+    / ``ring-rsag``: each of the mesh's shards' weighted partial sum (one
+    batched matmul) with its weight total appended, all-reduced in one call
+    (K4 on the card for ``ring``); each shard divides by its own total and
+    broadcasts its own global into its own slots."""
+    shards, cb = mesh.num_shards, mesh.clients_per_shard
+    all_reduce = make_all_reduce(aggregation, shards)
+
+    def psum_average(params, w):
+        return weighted_average_clients(
+            params, w, broadcast=True,
+            **({"out_dtype": slot_dtype} if wide_agg else {}))
+
+    def ring_average(params, w):
+        d = params.shape[1]
+        blocks = params.view(shards, cb, d)
+        partial = torch.bmm(w.view(shards, 1, cb),
+                            blocks.to(torch.float32)).view(shards, d)
+        total = w.view(shards, cb).sum(dim=1, keepdim=True)
+        acc = all_reduce(torch.cat((partial, total), dim=1))
+        tot = acc[:, d:]
+        glob = (acc[:, :d] / tot.clamp_min(1.0)).to(slot_dtype)
+        # Zero participants in the round: params carry over unchanged.
+        return torch.where(tot[:, :, None] > 0, glob[:, None, :],
+                           blocks.to(slot_dtype)).reshape(shards * cb, d)
+
+    return psum_average if aggregation == "psum" else ring_average
+
+
+def robust_average(rule: str, agg: torch.Tensor, part, trim_ratio: float,
+                   k_trim: int, krum_f: int,
+                   slot_dtype: torch.dtype) -> torch.Tensor:
+    """A robust rule's global (``_robust_global``, in float32) of the
+    submitted params ``agg (C, D)`` in every slot; with a ``(C,)`` mask
+    ``part`` (median / trimmed mean over the participants only), the
+    submitted params carried over when no one participates."""
+    glob = _robust_global(rule, agg.to(torch.float32), part, trim_ratio,
+                          k_trim, krum_f)
+    out = broadcast_global(glob, agg.shape[0], slot_dtype)
+    if part is None:
+        return out
+    return torch.where(part.sum() > 0, out, agg.to(slot_dtype))
+
+
 def build_round_fn(model, tx: Optimizer, num_classes: int,
                    client_weights: torch.Tensor,
                    rounds_per_step: int = 1,
@@ -565,11 +659,7 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
         raise ValueError(f"a mesh of {mesh.num_shards} x "
                          f"{mesh.clients_per_shard} clients for "
                          f"{num_clients} clients")
-    if aggregation != "psum" and any(d != dev for d in mesh.devices):
-        raise NotImplementedError(
-            "a ring over shards on several devices is not ported to "
-            "fedtpu_torch yet (ROADMAP A10): it needs the ring kernel over "
-            "peer-mapped buffers")
+    check_ring_devices(aggregation, mesh, dev)
     delta_path, server_opt, dp_z_delta, dp_fixed_denom = check_knobs(
         weighting, participation_rate, aggregation, server_opt,
         dp_clip_norm, dp_noise_multiplier, dp_adaptive_clip,
@@ -604,7 +694,6 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
     local_train = make_local_train_step(model, tx, local_steps, prox_mu,
                                         scaffold, wide=wide)
     local_eval = make_local_eval_step(model, num_classes)
-    all_reduce = make_all_reduce(aggregation, shards)
     bad = (torch.arange(num_clients, device=dev)
            < byzantine_clients)[:, None]
 
@@ -630,30 +719,9 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
                                           for j in range(count)]))
 
     def broadcast(g):
-        """The global ``g (D,)`` in every client slot, cast to the slots'
-        dtype (``fedtpu``'s ``bcast_global``)."""
-        return g.to(slot_dtype).expand(num_clients, -1).contiguous()
+        return broadcast_global(g, num_clients, slot_dtype)
 
-    def psum_average(params, w):
-        # Under ``wide_agg`` the stack is float32 and the slots 16-bit.
-        return weighted_average_clients(
-            params, w, broadcast=True,
-            **({"out_dtype": slot_dtype} if wide_agg else {}))
-
-    def ring_average(params, w):
-        d = params.shape[1]
-        blocks = params.view(shards, cb, d)
-        partial = torch.bmm(w.view(shards, 1, cb),
-                            blocks.to(torch.float32)).view(shards, d)
-        total = w.view(shards, cb).sum(dim=1, keepdim=True)
-        acc = all_reduce(torch.cat((partial, total), dim=1))
-        tot = acc[:, d:]
-        glob = (acc[:, :d] / tot.clamp_min(1.0)).to(slot_dtype)
-        # Zero participants in the round: params carry over unchanged.
-        return torch.where(tot[:, :, None] > 0, glob[:, None, :],
-                           blocks.to(slot_dtype)).reshape(num_clients, d)
-
-    average = psum_average if aggregation == "psum" else ring_average
+    average = make_average(aggregation, mesh, slot_dtype, wide_agg)
 
     def delta_round(agg, start, w, sstate, dpc, noise):
         """The delta path (``fedtpu/parallel/round.py:602-705``): new
@@ -708,12 +776,8 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
                            params)
 
     def robust_round(agg, part):
-        glob = _robust_global(robust_aggregation, agg.to(torch.float32),
-                              part, trim_ratio, k_trim, krum_f)
-        if part is None:
-            return broadcast(glob)
-        # Zero participants: params carry over unchanged.
-        return torch.where(part.sum() > 0, broadcast(glob), agg)
+        return robust_average(robust_aggregation, agg, part, trim_ratio,
+                              k_trim, krum_f, slot_dtype)
 
     def round_step(state, batch, masks=None, noise=None):
         _check_state(state, delta_path, compress, scaffold, dp_adaptive_clip)
@@ -896,7 +960,7 @@ def capture_round_step(step: RoundStep, state: dict,
             for dst, src in zip(step.state_tensors(state),
                                 step.state_tensors(new_state)):
                 dst.copy_(src)
-            out = pack_outputs(raw, *step.outputs)
+            out = step.pack(raw)
     return CapturedRounds(graph, state, inputs, out, dict(launches),
                           step.rounds)
 

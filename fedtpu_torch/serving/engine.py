@@ -315,8 +315,13 @@ class ServingEngine:
         self.batch = {k: torch.from_numpy(v).to(dev) for k, v in
                       {"x": packed.x, "y": packed.y,
                        "mask": packed.mask}.items()}
+        if init_params is None:
+            # The served slots' shared model, drawn from a generator seeded
+            # cfg.seed (the screened cell's knobs were set on this draw).
+            init_params = self.model.init(torch.Generator().manual_seed(
+                int(cfg.seed))).expand(self.C, -1)
         self.state = async_fed.init_async_state(
-            torch.Generator().manual_seed(int(cfg.seed)), self.C,
+            None, self.C,
             self.model, tx, same_init=True, device=dev, params=init_params,
             buffer_size=self.M,
             screen_window=SCREEN_WINDOW if self.screen else 0)

@@ -1,7 +1,8 @@
 """fedtpu_torch's model, loss, metrics and optimizers against fedtpu's on
 the same numpy inputs; the server optimizers and the clip, the DP
 accountant, the int8 quantization and the finiteness flag over every state
-tensor; the converter; the no-fallback and no-JAX rules."""
+tensor; the converter; the no-fallback and no-JAX rules; the cohort
+engine's sampler, refusals, flags and store file against fedtpu's."""
 
 import pytest
 
@@ -311,12 +312,28 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
+    dict(partition_clients=2), dict(model_parallel=2), dict(mpmd=True),
+    dict(fault_plan="plan.json"), dict(on_divergence="rollback")])
+def test_unported_knobs_raise_naming_their_roadmap_item(kw):
+    cls = tcfg.ShardConfig if "partition_clients" in kw else tcfg.RunConfig
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        cls(**kw)
+
+
+# The cohort engine's knobs (fedtpu_torch.cohort.scheduler), each off its
+# default: the port's FedConfig and ExperimentConfig hold it, as fedtpu's.
+_COHORT_KNOB_VALUES = [
     dict(client_store="sqlite"), dict(cohort_seed=1),
     dict(cohort_sampling="weighted"), dict(cohort_trace="t.jsonl"),
-    dict(cohort_size=4)])
-def test_unported_knobs_raise_naming_their_roadmap_item(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        tcfg.FedConfig(**kw)
+    dict(cohort_size=4), dict(client_store_path="store.bin")]
+
+
+@pytest.mark.parametrize("kw", _COHORT_KNOB_VALUES)
+def test_cohort_knobs_reach_the_config(kw):
+    (knob, value), = kw.items()
+    t = tcfg.ExperimentConfig(fed=tcfg.FedConfig(**kw))
+    j = jcfg.ExperimentConfig(fed=jcfg.FedConfig(**kw))
+    assert getattr(t.fed, knob) == getattr(j.fed, knob) == value
 
 
 _CONFIGS = ("DataConfig", "ShardConfig", "ModelConfig", "OptimConfig",
@@ -325,9 +342,6 @@ _CONFIGS = ("DataConfig", "ShardConfig", "ModelConfig", "OptimConfig",
 # of each.
 _UNPORTED = {
     "ShardConfig": {"partition_clients": "A10", "partition_offset": "A10"},
-    "FedConfig": {k: "A9" for k in ("cohort_size", "client_store",
-                                    "client_store_path", "cohort_sampling",
-                                    "cohort_seed", "cohort_trace")},
     "RunConfig": {
         **{k: "A10" for k in ("mpmd", "model_parallel",
                               "collective_timeout")},
@@ -415,6 +429,21 @@ def test_unported_knob_off_its_default_raises_naming_its_item(name, knob,
         cls(**{knob: value})
 
 
+_COHORT_KNOBS = ("cohort_size", "client_store", "client_store_path",
+                 "cohort_sampling", "cohort_seed", "cohort_trace")
+
+
+@pytest.mark.parametrize("knob", _COHORT_KNOBS)
+def test_cohort_knob_off_its_default_constructs(knob):
+    """Each of the cohort engine's knobs constructs off its default, as in
+    fedtpu's FedConfig (their refusals come from the cohort validator,
+    ``test_cohort_config_rejections``)."""
+    field = {f.name: f for f in dataclasses.fields(tcfg.FedConfig)}[knob]
+    value = _other_value(_default(field))
+    assert getattr(tcfg.FedConfig(**{knob: value}), knob) == value
+    assert getattr(jcfg.FedConfig(**{knob: value}), knob) == value
+
+
 def test_ported_knobs_take_other_values():
     """Every field the port runs takes another value; use_pallas selects
     the fused held-out forward, which the port always runs."""
@@ -444,7 +473,7 @@ def test_ported_knobs_take_other_values():
                               "participation_rate", "participation_seed",
                               "aggregation", "local_steps", "prox_mu",
                               "init_weights_npz", "personalize_steps",
-                              *_A6_KNOBS, *_ASYNC_KNOBS},
+                              *_A6_KNOBS, *_ASYNC_KNOBS, *_COHORT_KNOBS},
                 "RunConfig": {"log_every", "log_per_client",
                               "rounds_per_step", "eval_test_every",
                               "halt_on_nonfinite", "mesh_devices",
@@ -838,7 +867,7 @@ def test_state_finite_covers_every_state_tensor(name, bad):
     control variates and the adaptive clip."""
     dims = layer_dims(6, (5,), 2)
     state = init_federated_state(
-        torch.Generator().manual_seed(0), 3, dims,
+        0, 3, dims,
         build_optimizer(tcfg.OptimConfig()),
         server_opt=t_sopt.make_server_optimizer("fedadam"), scaffold=True,
         adaptive_clip_init=1.0)
@@ -902,12 +931,6 @@ def test_port_imports_nothing_of_jax_or_fedtpu():
 # run yet: field path, a value off its default, the ROADMAP item the port's
 # refusal names. --max-restarts is fedtpu's supervisor, no config field.
 _CLI_NOT_PORTED = {
-    "--client-store": ("fed", "client_store", "disk", "A9"),
-    "--client-store-path": ("fed", "client_store_path", "x", "A9"),
-    "--cohort-sampling": ("fed", "cohort_sampling", "trace", "A9"),
-    "--cohort-seed": ("fed", "cohort_seed", 1, "A9"),
-    "--cohort-size": ("fed", "cohort_size", 2, "A9"),
-    "--cohort-trace": ("fed", "cohort_trace", "x", "A9"),
     "--collective-timeout": ("run", "collective_timeout", 1.0, "A10"),
     "--model-parallel": ("run", "model_parallel", 2, "A10"),
     "--mpmd": ("run", "mpmd", True, "A10"),
@@ -1890,3 +1913,183 @@ def test_launch_counts_hold_across_threads():
     finally:
         sys.setswitchinterval(interval)
         ck.LAUNCHES.update(saved)
+
+
+# ------------------------------------------- A9: the cohort engine's host side
+# The sampler, the validator, the CLI flags, the seed table and the store's
+# standalone file, against fedtpu's where fedtpu has them.
+
+def _samplers(total, k, policy="uniform", seed=0, **kw):
+    from fedtpu.cohort.scheduler import CohortSampler as JSampler
+    from fedtpu_torch.cohort.scheduler import CohortSampler as TSampler
+    return (JSampler(total, k, policy=policy, seed=seed, **kw),
+            TSampler(total, k, policy=policy, seed=seed, **kw))
+
+
+_SAMPLER_CASES = {
+    # total, k, policy, seed, extra, chunks of (round0, num_cohorts)
+    "uniform-identity": (8, 4, "uniform", 0, {}, [(0, 2), (5, 2), (3, 1)]),
+    "uniform-permutation": (100, 8, "uniform", 3, {}, [(0, 2), (7, 3)]),
+    "uniform-rejection": (100_000, 16, "uniform", 1, {}, [(2, 2), (9, 1)]),
+    "weighted": (100, 8, "weighted", 3,
+                 {"weights": np.r_[np.zeros(10), np.arange(1.0, 91.0)]},
+                 [(0, 2), (4, 1)]),
+    "trace": (100, 8, "trace", 0,
+              {"trace_users": np.arange(300)[::-1] % 100},
+              [(0, 2), (1, 3), (40, 1)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SAMPLER_CASES))
+def test_cohort_sampler_ids_equal_fedtpus(case):
+    """The three policies draw fedtpu's ids bit for bit, before and after
+    refuse() quarantines some of them."""
+    total, k, policy, seed, extra, chunks = _SAMPLER_CASES[case]
+    j, t = _samplers(total, k, policy, seed, **extra)
+    for round0, n in chunks:
+        np.testing.assert_array_equal(t.sample(round0, n),
+                                      j.sample(round0, n))
+    bad = j.sample(0, 1)[0][:3]
+    j.refuse(bad)
+    t.refuse(bad)
+    for round0, n in chunks:
+        n = min(n, (total - len(bad)) // k)
+        ids = t.sample(round0, n)
+        np.testing.assert_array_equal(ids, j.sample(round0, n))
+        assert not set(ids.ravel().tolist()) & set(bad.tolist())
+
+
+@pytest.mark.parametrize("build,call,match", [
+    ((4, 5), None, "cohort_size"),
+    ((4, 2, "weighted"), None, "weights"),
+    ((4, 2, "weighted", 0, -np.ones(4)), None, "nonnegative"),
+    ((4, 2, "trace", 0, None, np.array([0, 7], np.int64)), None,
+     "outside the population"),
+    ((8, 3), ("sample", 0, 3), "disjoint cohorts"),
+    ((10, 5, "trace", 0, None, np.array([5, 5, 3, 3, 9, 1], np.int64)),
+     ("sample", 0, 1), "distinct users"),
+    ((6, 4), ("refuse", [0, 1, 2]), "population exhausted"),
+    ((4, 2, "mystery"), None, "cohort_sampling must be one of")])
+def test_cohort_sampler_guards_equal_fedtpus(build, call, match):
+    """Each guard raises in both samplers with fedtpu's message."""
+    from fedtpu.cohort.scheduler import CohortSampler as JSampler
+    from fedtpu_torch.cohort.scheduler import CohortSampler as TSampler
+    messages = []
+    for cls in (JSampler, TSampler):
+        with pytest.raises(ValueError, match=match) as err:
+            sampler = cls(*build)
+            getattr(sampler, call[0])(*call[1:])
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+
+
+def _cohort_cfg(**fed_kw):
+    return tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(synthetic_rows=512),
+        shard=tcfg.ShardConfig(num_clients=8),
+        model=tcfg.ModelConfig(hidden_sizes=(8,)),
+        fed=tcfg.FedConfig(rounds=3, cohort_size=4, **fed_kw))
+
+
+@pytest.mark.parametrize("row", range(21))
+def test_cohort_config_rejections(row):
+    """fedtpu's 21 rejection rows (tests/test_cohort.py::_REJECTIONS)
+    against the port's validator, with fedtpu's words. A knob the port's
+    RunConfig does not run yet (model_parallel, on_divergence, fault_plan)
+    is refused there first, naming its ROADMAP item; the validator's own
+    refusal stays reachable for a config built around it."""
+    from test_cohort import _REJECTIONS as rows
+    from fedtpu_torch.cohort.scheduler import _validate_cohort_config
+    assert len(rows) == 21
+    fed_kw, run_kw, match = rows[row]
+    cfg = _cohort_cfg()
+    cfg = cfg.replace(fed=dataclasses.replace(cfg.fed, **fed_kw))
+    if set(run_kw) & {"model_parallel", "on_divergence", "fault_plan"}:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A1[01]"):
+            dataclasses.replace(cfg.run, **run_kw)
+        run = tcfg.RunConfig()
+        for key, value in run_kw.items():
+            object.__setattr__(run, key, value)
+        cfg = cfg.replace(run=run)
+    else:
+        cfg = cfg.replace(run=dataclasses.replace(cfg.run, **run_kw))
+    with pytest.raises(ValueError, match=match):
+        _validate_cohort_config(cfg)
+
+
+def test_cohort_config_valid_baseline_passes():
+    """The base config every rejection row perturbs passes the port's
+    validator, as fedtpu's."""
+    from fedtpu_torch.cohort.scheduler import _validate_cohort_config
+    _validate_cohort_config(_cohort_cfg())
+
+
+_COHORT_FLAGS = {
+    "--client-store": ("client_store", "mmap"),
+    "--client-store-path": ("client_store_path", "store.bin"),
+    "--cohort-sampling": ("cohort_sampling", "weighted"),
+    "--cohort-seed": ("cohort_seed", 7),
+    "--cohort-trace": ("cohort_trace", "trace.jsonl"),
+}
+
+
+@pytest.mark.parametrize("flag", ["--cohort-size", *sorted(_COHORT_FLAGS)])
+def test_cli_cohort_flags_set_fedtpus_fields(flag):
+    """``run --cohort-size`` and each cohort flag give the port's
+    FedConfig the values they give fedtpu's; without --cohort-size each
+    other flag is refused with fedtpu's words."""
+    from fedtpu.cli import _apply_overrides, build_parser as j_parser
+    from fedtpu_torch.cli import build_parser as t_parser, config_from_args
+    field, value = _COHORT_FLAGS.get(flag, ("cohort_size", 16))
+    tail = [] if flag == "--cohort-size" else [flag, str(value)]
+    argv = ["run", "--cohort-size", "16", *tail]
+    j = _apply_overrides(jcfg.ExperimentConfig(), j_parser().parse_args(argv))
+    t = config_from_args(t_parser().parse_args(argv))
+    assert getattr(t.fed, field) == getattr(j.fed, field) == value
+    assert t.fed.cohort_size == j.fed.cohort_size == 16
+    if tail:
+        said = []
+        for parse, build in ((j_parser, lambda a: _apply_overrides(
+                jcfg.ExperimentConfig(), a)), (t_parser, config_from_args)):
+            with pytest.raises(SystemExit) as err:
+                build(parse().parse_args(["run", *tail]))
+            said.append(str(err.value))
+        assert said[0] == said[1] and "require --cohort-size" in said[0]
+
+
+def test_client_init_seeds_are_prefix_stable():
+    """Client c's seed does not depend on the population; same_init gives
+    every client client 0's seed."""
+    from fedtpu_torch.parallel.round import client_init_seeds
+    big = client_init_seeds(5, 100_000)
+    assert big.dtype == np.uint64 and len(set(big[:1000].tolist())) == 1000
+    np.testing.assert_array_equal(client_init_seeds(5, 8), big[:8])
+    np.testing.assert_array_equal(client_init_seeds(5, 8, same_init=True),
+                                  np.full(8, big[0]))
+    assert not np.array_equal(client_init_seeds(6, 8), big[:8])
+
+
+def test_store_save_restore_round_trips_and_refuses_a_corrupt_file(tmp_path):
+    """The store's standalone file holds its touched records bit for bit;
+    a flipped record byte fails the digest on restore."""
+    from fedtpu_torch.cohort.store import ClientStateStore
+    template = [((3, 2), np.dtype(np.float32)), ((), np.dtype(np.int32))]
+    rng = np.random.default_rng(0)
+    ids = np.array([9, 2, 5], np.int64)
+    store = ClientStateStore(template, 12)
+    store.write(ids, [rng.standard_normal((3, 3, 2)).astype(np.float32),
+                      np.array([4, 5, 6], np.int32)],
+                keys=rng.integers(0, 2**32, (3, 2), dtype=np.uint32))
+    path = store.save(str(tmp_path / "ck"))
+    again = ClientStateStore(template, 12)
+    again.restore(str(tmp_path / "ck"))
+    for a, b in zip(again.read(ids), store.read(ids)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(again.read_keys(ids), store.read_keys(ids))
+    assert again.checkpoint_arrays()["store_digest"].tolist() == \
+        store.checkpoint_arrays()["store_digest"].tolist()
+    saved = torch.load(path, weights_only=True)
+    saved["store_records"][1, -1] ^= 1
+    torch.save(saved, path)
+    with pytest.raises(ValueError, match="digest mismatch"):
+        ClientStateStore(template, 12).restore(str(tmp_path / "ck"))

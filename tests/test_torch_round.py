@@ -13,7 +13,8 @@ exchange, every knob combination fedtpu refuses) must match fedtpu's
 build_round_fn round for round and its run_experiment run for run; the
 asynchronous engine must match fedtpu's tick for tick; and the serving
 front end (traces, admission, protocol, the ServingEngine, the server
-loop, the defense sim) must do what fedtpu's does on the same inputs."""
+loop, the defense sim) and cohort mode (run_cohort_experiment) must do
+what fedtpu's does on the same inputs."""
 
 import pytest
 
@@ -1576,13 +1577,17 @@ def test_dp_resume_is_bitwise_and_composes_a_changed_z_as_fedtpu(tmp_path):
     uninterrupted 12 rounds (losses, confusion counts, final params and
     clip; the port's own noise is a pure function of seed and round) with
     the same privacy spend. A resume that changes the noise multiplier
-    reports the spend of fedtpu's ledger over the two segments."""
-    _, full_cfg = _loop_configs(12)
+    reports the spend of fedtpu's ledger over the two segments. The runs
+    do not stop early (a resume restarts the patience count, as in
+    fedtpu, so an early stop across the resume is not the comparison)."""
+    long = dict(termination_patience=100)
+    _, full_cfg = _loop_configs(12, **long)
     full = t_run(full_cfg, verbose=False, device="cpu")
-    _, seg = _loop_configs(8, tmp_path / "same")
+    _, seg = _loop_configs(8, tmp_path / "same", **long)
     t_run(seg, verbose=False, device="cpu")
-    _, seg = _loop_configs(12, tmp_path / "same")
+    _, seg = _loop_configs(12, tmp_path / "same", **long)
     resumed = t_run(seg, verbose=False, device="cpu", resume=True)
+    assert full.rounds_run == resumed.rounds_run == 12
     for a, b in zip(resumed.loss, full.loss[8:]):
         np.testing.assert_array_equal(a, b)
     for a, b in zip(resumed.confusion, full.confusion[8:]):
@@ -5110,6 +5115,249 @@ def test_gateway_and_sims_on_the_card_need_one(tmp_path):
             call()
     assert not os.path.exists(pf) and not os.path.exists(f"{pf}.g1")
     assert t_main(["autoscale", "--simulate", "--quiet"]) == 0
+
+
+# --------------------------------------------- A9: the cohort engine
+# A population of 16 clients (hidden (16,)) through cohorts of 4, against
+# fedtpu's run_cohort_experiment from fedtpu's inits; and the port's own
+# contracts: full participation is its synchronous run, a lazily
+# initialised record is its slot there, mmap is memory, resume is the
+# uninterrupted run.
+
+def _cohort_configs(clients=16, cohort=4, rounds=3, rows=512, run=None,
+                    **fed):
+    run = run or {}
+
+    def cfg(mod, data):
+        return mod.ExperimentConfig(
+            data=data, shard=mod.ShardConfig(num_clients=clients),
+            model=mod.ModelConfig(hidden_sizes=(16,)),
+            fed=mod.FedConfig(rounds=rounds, cohort_size=cohort, **fed),
+            run=mod.RunConfig(**run))
+    return (cfg(jcfg, jcfg.DataConfig(csv_path=None, synthetic_rows=rows)),
+            cfg(tcfg, tcfg.DataConfig(synthetic_rows=rows)))
+
+
+def _fedtpu_population_init(j_cfg):
+    """fedtpu's init of every client: its cohort engine draws client c's
+    from the same key table as its synchronous engine."""
+    return _fedtpu_init(j_cfg.replace(fed=dataclasses.replace(
+        j_cfg.fed, cohort_size=0)))
+
+
+def _cohort_trace(path):
+    header, t, user, lat = t_traces.synthesize_trace(users=64, arrivals=400,
+                                                     seed=3)
+    t_traces.write_trace(path, header, t, user, lat)
+    return path
+
+
+# rows=16: 12 train rows, one a client for clients 0-11; 12-15 dataless.
+_COHORT_CASES = {
+    "data_size-weighted-sampling": dict(
+        cohort_sampling="weighted", cohort_seed=3,
+        run=dict(rounds_per_step=2, eval_test_every=1)),
+    "uniform-dataless": dict(rows=16, weighting="uniform",
+                             run=dict(rounds_per_step=2)),
+    "ring-2-shards-trace": dict(aggregation="ring", cohort_sampling="trace",
+                                run=dict(mesh_devices=2,
+                                         eval_test_every=2)),
+    "median-dataless": dict(rows=16, weighting="uniform",
+                            robust_aggregation="median"),
+    "trimmed_mean": dict(weighting="uniform", cohort_seed=1,
+                         robust_aggregation="trimmed_mean", trim_ratio=0.25),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_COHORT_CASES))
+def test_cohort_run_matches_fedtpu(case, tmp_path):
+    """3 rounds of 4-client cohorts out of 16, from fedtpu's inits: the
+    same sampled cohorts train to the same client-mean, pooled and
+    per-client histories and held-out rows (the tail chunk truncated on
+    the host, the eval on fedtpu's cadence), losses within 1e-5, final
+    params within 1e-4 (the synchronous run's tolerances)."""
+    kw = dict(_COHORT_CASES[case])
+    if kw.get("cohort_sampling") == "trace":
+        kw["cohort_trace"] = _cohort_trace(str(tmp_path / "trace.jsonl"))
+    j_cfg, t_cfg = _cohort_configs(**kw)
+    rj = j_run(j_cfg, verbose=False)
+    rt = t_run(t_cfg, verbose=False, device="cpu",
+               init_params=_fedtpu_population_init(j_cfg))
+    assert rt.rounds_run == rj.rounds_run == 3
+    assert len(rt.confusion) == 3 and rt.rounds_trained >= 3
+    np.testing.assert_allclose(np.stack(rt.loss), np.stack(rj.loss),
+                               atol=1e-5)
+    for name in METRIC_NAMES:
+        assert rt.global_metrics[name] == pytest.approx(
+            rj.global_metrics[name], abs=1e-6)
+        assert rt.pooled_metrics[name] == pytest.approx(
+            rj.pooled_metrics[name], abs=1e-6)
+        np.testing.assert_allclose(np.stack(rt.per_client_metrics[name]),
+                                   np.stack(rj.per_client_metrics[name]),
+                                   atol=1e-6)
+        assert len(rt.test_metrics[name]) == len(rj.test_metrics[name])
+        np.testing.assert_allclose(rt.test_metrics[name],
+                                   rj.test_metrics[name], atol=1e-6)
+    # Equal per-client accuracies are equal confusion counts' diagonals.
+    for conf, acc in zip(rt.confusion, rj.per_client_metrics["accuracy"]):
+        rows = conf.sum(axis=(1, 2))
+        np.testing.assert_array_equal(
+            np.trace(conf, axis1=1, axis2=2),
+            np.round(np.asarray(acc) * np.maximum(rows, 1)))
+    for a, b in zip(jax.tree.leaves(rt.final_params),
+                    jax.tree.leaves(jax.tree.map(np.asarray,
+                                                 rj.final_params))):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    if case.startswith("data_size"):
+        # Held-out rows on fedtpu's cadence: 2 from the first chunk, and
+        # round 3 only from the truncated tail chunk.
+        assert len(rt.test_metrics["accuracy"]) == 3
+
+
+def _assert_runs_bitwise(a, b):
+    assert a.rounds_run == b.rounds_run
+    for name in METRIC_NAMES:
+        assert a.global_metrics[name] == b.global_metrics[name]
+        assert a.pooled_metrics[name] == b.pooled_metrics[name]
+        assert a.test_metrics[name] == b.test_metrics[name]
+    for x, y in zip(a.loss + a.confusion, b.loss + b.confusion):
+        np.testing.assert_array_equal(x, y)
+    for x, y in zip(jax.tree.leaves(a.final_params),
+                    jax.tree.leaves(b.final_params)):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_cohort_full_participation_is_the_synchronous_run(param_dtype):
+    """cohort_size == num_clients, with NO injected init: the port's cohort
+    engine initialises each client lazily from the seed table and gives
+    the port's own synchronous run bit for bit: histories, losses,
+    confusion counts, held-out rows, final params (bfloat16 records held
+    as their bits)."""
+    _, t_cfg = _cohort_configs(clients=8, cohort=8, run=dict(
+        eval_test_every=1))
+    t_cfg = t_cfg.replace(model=dataclasses.replace(
+        t_cfg.model, param_dtype=param_dtype))
+    sync = t_run(t_cfg.replace(fed=dataclasses.replace(t_cfg.fed,
+                                                       cohort_size=0)),
+                 verbose=False, device="cpu")
+    coh = t_run(t_cfg, verbose=False, device="cpu")
+    assert len(coh.confusion) == 3 and len(coh.test_metrics["f1"]) == 3
+    _assert_runs_bitwise(coh, sync)
+
+
+@pytest.mark.parametrize("same_init", [False, True])
+def test_cohort_lazy_init_is_the_synchronous_slot(same_init):
+    """A client first touched in a cohort gets the params its slot holds
+    in init_federated_state (and a fresh optimizer state), whichever
+    clients came before it; its header key is its seed."""
+    from fedtpu_torch.cohort.scheduler import build_cohort_scheduler
+    from fedtpu_torch.data import load_dataset
+    _, t_cfg = _cohort_configs(init_seed=7, same_init=same_init)
+    sched = build_cohort_scheduler(t_cfg, load_dataset(t_cfg.data),
+                                   torch.device("cpu"))
+    ids = np.array([13, 2, 9, 0], np.int64)
+    try:
+        assert sched.ensure_init(ids[:2]) == 2
+        assert sched.ensure_init(ids) == 2          # 13 and 2 are kept
+    finally:
+        sched.close()
+    state = t_round.init_federated_state(7, 16, sched.model, sched.tx,
+                                         same_init=same_init)
+    count, mu, nu, params = sched.store.read(ids)
+    np.testing.assert_array_equal(params, state["params"][ids].numpy())
+    assert not count.any() and not mu.any() and not nu.any()
+    np.testing.assert_array_equal(sched.store.versions(ids), 1)
+    np.testing.assert_array_equal(sched.store.participation(ids), 0)
+    seeds = t_round.client_init_seeds(7, 16, same_init)
+    np.testing.assert_array_equal(
+        sched.store.read_keys(ids).view(np.uint64).ravel(), seeds[ids])
+    # seed_from_state: slot j of an engine state becomes client ids[j].
+    rev = np.arange(16)[::-1].copy()
+    sched.seed_from_state(state, 16, rev)
+    for got, want in zip(sched.store.read(rev),
+                         t_round.per_client_view(state, 16)):
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_cohort_mmap_store_is_bitwise_memory(tmp_path):
+    _, t_cfg = _cohort_configs(rounds=4, run=dict(rounds_per_step=2))
+    mem = t_run(t_cfg, verbose=False, device="cpu")
+    mm = t_run(t_cfg.replace(fed=dataclasses.replace(
+        t_cfg.fed, client_store="mmap",
+        client_store_path=str(tmp_path / "store.bin"))),
+        verbose=False, device="cpu")
+    _assert_runs_bitwise(mm, mem)
+    assert os.path.getsize(tmp_path / "store.bin") > 0
+
+
+def test_cohort_checkpoint_resume_is_bitwise(tmp_path):
+    """Stop after round 4, resume to 6: the history and the final params
+    of the uninterrupted 6-round run (the store's records ride the
+    checkpoint)."""
+    _, t_cfg = _cohort_configs(rounds=6)
+
+    def cfg(rounds, directory):
+        return t_cfg.replace(
+            fed=dataclasses.replace(t_cfg.fed, rounds=rounds),
+            run=dataclasses.replace(t_cfg.run, checkpoint_every=2,
+                                    checkpoint_dir=str(tmp_path /
+                                                       directory)))
+    ref = t_run(cfg(6, "ref"), verbose=False, device="cpu")
+    t_run(cfg(4, "split"), verbose=False, device="cpu")
+    assert ckpt.latest_step(str(tmp_path / "split")) == 4
+    resumed = t_run(cfg(6, "split"), verbose=False, device="cpu",
+                    resume=True)
+    assert resumed.rounds_run == 6
+    for name in METRIC_NAMES:
+        assert resumed.global_metrics[name] == ref.global_metrics[name]
+    for x, y in zip(jax.tree.leaves(resumed.final_params),
+                    jax.tree.leaves(ref.final_params)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_cohort_store_resident_bytes_track_touched_clients():
+    """Two chunks of two 4-client cohorts: the store's resident bytes are
+    the touched records' (at most the chunks' members and the next
+    chunk's lazily initialised ones), the same bound at a population of
+    64 and of 20,000; its apparent bytes are the population's."""
+    from fedtpu_torch.cohort.scheduler import build_cohort_scheduler
+    from fedtpu_torch.data import load_dataset
+    for clients in (64, 20_000):
+        _, t_cfg = _cohort_configs(clients=clients, run=dict(
+            rounds_per_step=2))
+        sched = build_cohort_scheduler(t_cfg, load_dataset(t_cfg.data),
+                                       torch.device("cpu"))
+        try:
+            for _ in range(2):
+                sched.run_chunk()
+        finally:
+            sched.close()
+        store = sched.store
+        assert store.apparent_nbytes == clients * store.record_bytes
+        assert 8 <= len(store._touched) <= 3 * 2 * 4
+        assert store.resident_estimate_bytes() == (len(store._touched)
+                                                   * store.record_bytes)
+
+
+def test_cohort_prefetch_error_propagates():
+    """A chunk whose prefetch fails raises from run_chunk, and close()
+    returns (the write-back event released first)."""
+    from fedtpu_torch.cohort.scheduler import (CohortSampler,
+                                               build_cohort_scheduler)
+    from fedtpu_torch.data import load_dataset
+    _, t_cfg = _cohort_configs()
+    sched = build_cohort_scheduler(t_cfg, load_dataset(t_cfg.data),
+                                   torch.device("cpu"))
+    sched.sampler = CohortSampler(16, 4, policy="trace",
+                                  trace_users=np.array([1, 1, 2], np.int64))
+    with pytest.raises(ValueError, match="distinct users"):
+        sched.run_chunk()
+    done = threading.Event()
+    closer = threading.Thread(target=lambda: (sched.close(), done.set()))
+    closer.start()
+    closer.join(timeout=60)
+    assert done.is_set()
 
 
 # -------------------------------------------------- subprocess (full tier)
