@@ -136,7 +136,9 @@ Phases, in order; any failure exits non-zero before the result line:
    store byte) and on the CPU (histories and summaries equal, global
    params and store values within 1e-4, headers equal); the flush/adopt
    failover in process (a stale generation refused, the adopted records
-   bitwise the exported, the spool replayed) against the CPU's; K1's sum
+   bitwise the exported, the spool replayed) against the CPU's, each of
+   its card ticks against the CPU's tick from the same inputs (within
+   1e-4) and the survivor's state and store digest printed; K1's sum
    mode at the net sim's (8, 74); one gateway behind the wire-fault proxy
    (fedtpu's net sim plan) twice, exactly once and the decision logs
    identical; ``net_sim.simulate`` on the card against the CPU;
@@ -166,6 +168,24 @@ Phases, in order; any failure exits non-zero before the result line:
    (8, 11,353) against their plain versions, timed. Each chunk prints its
    host seconds (lazy init, store read and write, the prefetch stall) and
    device milliseconds (copies in, step, copies out).
+   Then the telemetry, (s) (``phase_telemetry``): income-8 at R = 10,
+   captured, with the events sink off, on, on, off (bitwise the same run,
+   the same K1-K3 launches; s/round of each; a tracer event's host
+   microseconds), then with the sink and the profile window
+   (profile_rounds 20) after the CPU's run of that same config: one
+   manifest (backend cuda, the card's name, the CPU's config hash), a
+   chunk span a chunk, a round event a round, one profile_window start
+   and stop, a Chrome trace naming K1 and K2, the counters last before
+   run_end with the card's memory gauges, ``report`` in text, JSON and
+   Prometheus; income-8 for 25 rounds (a tail chunk) with the sink and
+   the profiler over the whole run (profile_rounds 0, both graphs
+   captured under it), bitwise the run with both off, the same K1-K3
+   launches; serve, a two-gateway fleet and a gateway behind the
+   wire-fault proxy writing their sinks, fed over the wire, and an
+   autoscale decision log, merged by ``timeline`` (every incorporated
+   update's chain complete); the timeline sim on the card (its pinned
+   arrivals) against the committed golden; a small captured cohort run's
+   cohort_gather / cohort_writeback spans.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package (nor does
@@ -173,8 +193,10 @@ the port's serving stack, which phases (p) and (q) drive).
 """
 
 import dataclasses
+import functools
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -3469,6 +3491,60 @@ def fleet_replay(device: str, rows: list, directory=None, capture=None):
     return engines, swaps, time.perf_counter() - t0
 
 
+def engine_digest(eng) -> str:
+    """sha256 of an engine's state bits and its store's export (the
+    checkpoint arrays, its generation aside): equal digests mean the two
+    runs left the same state and store, bit for bit."""
+    import hashlib
+    from fedtpu_torch.parallel.async_fed import async_state_tensors
+    h = hashlib.sha256()
+    for t in async_state_tensors(eng.state):
+        h.update(bits(t.detach().cpu().contiguous()).numpy().tobytes())
+    arrays = eng.store.checkpoint_arrays()
+    for key in sorted(arrays):
+        if key != "store_generation":
+            h.update(key.encode())
+            h.update(np.ascontiguousarray(arrays[key]).tobytes())
+    return h.hexdigest()
+
+
+def tick_vs_cpu(eng, label: str) -> dict:
+    """Hold each tick of the card engine ``eng`` against the same tick on
+    the CPU from the same inputs: before each replay the card's state is
+    read to the host; a CPU twin (the same ServingConfig's step, uncaptured)
+    ticks that state on the same mask; its state must be within FLEET_TOL
+    of the card's after the replay (float tensors; integer ones equal).
+    Wraps ``eng._device_tick``; the returned dict fills in as ticks run."""
+    from fedtpu_torch.orchestration.checkpoint import _to_cpu
+    from fedtpu_torch.parallel.async_fed import async_state_tensors
+    twin = serve_engine("cpu", capture=False)
+    inner = eng._device_tick
+    acc = {"ticks": 0, "max_abs_err": 0.0}
+
+    def tick(mask):
+        twin.state = _to_cpu(eng.state)
+        out = inner(mask)
+        twin._device_tick(mask)
+        for a, b in zip(async_state_tensors(eng.state),
+                        async_state_tensors(twin.state)):
+            a = a.cpu()
+            if a.is_floating_point():
+                err = float((a.double() - b.double()).abs().max())
+                check(err <= FLEET_TOL, f"{label} tick {acc['ticks'] + 1}: "
+                      f"card vs CPU from the same inputs, max abs err "
+                      f"{err:.3e} > {FLEET_TOL}")
+                acc["max_abs_err"] = max(acc["max_abs_err"], err)
+            else:
+                check(torch.equal(a, b), f"{label} tick {acc['ticks'] + 1}"
+                      ": an integer tensor differs card vs CPU from the "
+                      "same inputs")
+        acc["ticks"] += 1
+        return out
+
+    eng._device_tick = tick
+    return acc
+
+
 def fleet_handoff(device: str, rows: list, directory: str,
                   checkpoint: bool = False) -> dict:
     """The flush/adopt failover through the gateway handler, in process:
@@ -3501,6 +3577,11 @@ def fleet_handoff(device: str, rows: list, directory: str,
             return out
 
         engines[0]._device_tick = tick
+    # C6: each card tick of both gateways against the CPU's from the same
+    # inputs (outside gateway 0's timed device span).
+    same_inputs = ([tick_vs_cpu(eng, f"handoff gateway {g}")
+                    for g, eng in enumerate(engines)]
+                   if engines[0].device.type == "cuda" else [])
     gws = [_Gateway(g, FLEET_N, None, FLEET_GEN,
                     os.path.join(directory, f"g{g}")) for g in range(FLEET_N)]
 
@@ -3543,6 +3624,9 @@ def fleet_handoff(device: str, rows: list, directory: str,
         out["tick_ms"] = statistics.median(a.elapsed_time(b)
                                            for a, b in spans)
         out["ticks_timed"] = len(spans)
+    if same_inputs:
+        out["same_inputs"] = same_inputs
+        out["digest"] = engine_digest(engines[0])
     if checkpoint:
         engines[0].checkpoint(os.path.join(directory, "final"))
     else:
@@ -4194,7 +4278,11 @@ def phase_fleet() -> tuple:
           f"spooled updates; card vs CPU equal (histories, summaries, acks; "
           f"params {handoff_same['global_err']:.3e}, store "
           f"{handoff_same['store_err']:.3e}, {handoff_same['records']} "
-          f"records); {handoff['wall_s']:.2f} s; gateway 0's tick "
+          f"records); each tick from the same inputs card vs CPU: "
+          f"{[s['ticks'] for s in handoff['same_inputs']]} ticks, max abs "
+          f"err {[s['max_abs_err'] for s in handoff['same_inputs']]}; the "
+          f"survivor's state and store digest {handoff['digest']}; "
+          f"{handoff['wall_s']:.2f} s; gateway 0's tick "
           f"{handoff.get('tick_ms', float('nan')):.4f} ms of device span "
           f"(median of {handoff.get('ticks_timed')}, CUDA events around "
           f"the mask's copy and the replay); {CARD['smi']}", flush=True)
@@ -4203,7 +4291,11 @@ def phase_fleet() -> tuple:
                    ticks_per_s=ticks_s, swap_ms=swap_ms,
                    swap_ms_captured=handoff_ms, evictions=evictions,
                    tick_ms=handoff.get("tick_ms"),
-                   touched_rows=rb, record_bytes=record_bytes)
+                   touched_rows=rb, record_bytes=record_bytes,
+                   handoff_store_err=handoff_same["store_err"],
+                   handoff_tick_err=[s["max_abs_err"]
+                                     for s in handoff["same_inputs"]],
+                   handoff_digest=handoff["digest"])
     return ({"gateway fleet (2 x income MLP)": wire["launches"]}, k1_row,
             numbers)
 
@@ -4858,6 +4950,566 @@ def phase_cohort() -> tuple:
     return by_path, rows, numbers
 
 
+# ------------------------------------------------------- (s) telemetry
+# income-8 at R = 10 (the main path's data, captured) with the events sink
+# on and off, and with the profile window (profile_rounds 20); serve, a
+# two-gateway fleet and a gateway behind the wire-fault proxy writing their
+# sinks, an autoscale decision log, all merged by ``timeline``; the timeline
+# sim; a small cohort run with events.
+TELEMETRY_R = 10
+TELEMETRY_PROFILE_ROUNDS = 20
+# The whole-run profile (profile_rounds 0): 25 rounds with no early stop,
+# chunks of 10, 10 and 5, so the first chunk's warm-up and capture and the
+# tail chunk's capture all run under the profiler.
+TELEMETRY_WHOLE_ROUNDS = 25
+# The sink's cost: income-8 at R = 10, 100 rounds with no early stop, the
+# sink off and on in this many alternating pairs.
+TELEMETRY_PAIRS = 3
+# The serving sinks' trace: loadgen's population at a tenth of its default
+# arrivals and horizon.
+TELEMETRY_TRACE = dict(users=1_000_000, arrivals=4_000, horizon_s=6.0,
+                       seed=1)
+# The small cohort run: income-8's model over 10,000 clients on 100,000
+# synthetic rows, cohorts of 256, 5 a chunk, 10 rounds.
+TELEMETRY_COHORT = dict(clients=10_000, rows=100_000, rounds=10, s=5)
+# Where each chain of a sink must pass, in order: the gateways log each
+# frame to their WAL, serve does not (fedtpu's serve has no WAL either).
+CHAIN_GATEWAY = ("client_stamp", "wal", "admit", "buffer_insert",
+                 "incorporate")
+CHAIN_SERVE = ("client_stamp", "admit", "buffer_insert", "incorporate")
+
+
+def read_sink(path: str) -> list:
+    from fedtpu_torch.telemetry.report import load_events
+    events, bad = load_events(path)
+    check(bad == 0 and events, f"{path}: {bad} malformed lines, "
+          f"{len(events)} events")
+    check(all(e["v"] == 2 for e in events), f"{path}: not schema v2")
+    return events
+
+
+def telemetry_config(cfg, events=None, profile=None,
+                     profile_rounds=TELEMETRY_PROFILE_ROUNDS):
+    """``cfg`` with the events sink at ``events`` and the profile window
+    (``profile_rounds``; 0 the whole run) under ``profile`` (None: off)."""
+    from fedtpu_torch.config import TelemetryConfig
+    return cfg.replace(run=dataclasses.replace(
+        cfg.run, telemetry=TelemetryConfig(events_path=events),
+        profile_dir=profile,
+        profile_rounds=profile_rounds if profile else 0))
+
+
+def telemetry_run(cfg, events=None, profile=None,
+                  profile_rounds=TELEMETRY_PROFILE_ROUNDS):
+    """One income-8 run on the card (launch counts from zero around it);
+    ``events`` / ``profile`` / ``profile_rounds``: ``telemetry_config``'s.
+    Returns (result, launches)."""
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration.loop import run_experiment
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    res = run_experiment(telemetry_config(cfg, events, profile,
+                                          profile_rounds),
+                         verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    return res, dict(ck.LAUNCHES)
+
+
+def same_result(label: str, a, b) -> None:
+    """Bitwise the same history and final params."""
+    check(a.rounds_run == b.rounds_run and a.rounds_trained
+          == b.rounds_trained, f"{label}: rounds differ")
+    for name in a.global_metrics:
+        check(a.global_metrics[name] == b.global_metrics[name]
+              and a.pooled_metrics[name] == b.pooled_metrics[name]
+              and a.test_metrics[name] == b.test_metrics[name],
+              f"{label}: the {name} history differs")
+    check(all(np.array_equal(x, y) for x, y in zip(a.loss + a.confusion,
+                                                   b.loss + b.confusion)),
+          f"{label}: losses or confusion counts differ")
+    fa, fb = (np.concatenate([np.ravel(np.asarray(v)) for lyr in
+                              r.final_params["layers"] for v in lyr.values()])
+              for r in (a, b))
+    check(np.array_equal(fa.view(np.int32), fb.view(np.int32)),
+          f"{label}: final params differ")
+
+
+def tracer_event_us(directory: str, n: int = 2000) -> dict:
+    """Host microseconds of one ``round`` event (the tracer's JSON encoding,
+    write and flush into a sink in ``directory``), and of its JSON encoding
+    alone."""
+    from fedtpu_torch.telemetry.trace import EVENT_SCHEMA_VERSION, Tracer
+    path = os.path.join(directory, "tracer-bench.jsonl")
+    tracer = Tracer(path)
+    t0 = time.perf_counter()
+    for i in range(n):
+        tracer.event("round", round=i + 1, dur_s=7.5e-4, accuracy=0.8125,
+                     loss_mean=0.4375)
+    event_us = 1e6 * (time.perf_counter() - t0) / n
+    tracer.close()
+    rec = {"v": EVENT_SCHEMA_VERSION, "run_id": tracer.run_id,
+           "kind": "round", "phase": None, "round": 1, "t_start": 1.0,
+           "dur_s": 7.5e-4, **tracer.identity,
+           "payload": {"accuracy": 0.8125, "loss_mean": 0.4375}}
+    t0 = time.perf_counter()
+    for _ in range(n):
+        json.dumps(rec)
+    encode_us = 1e6 * (time.perf_counter() - t0) / n
+    os.remove(path)
+    return {"event_us": event_us, "encode_us": encode_us}
+
+
+def telemetry_overhead(directory: str) -> dict:
+    """s/round of the main path at R = TELEMETRY_R, captured, 100 rounds
+    (no early stop), with the sink off and on (in ``directory``), in
+    TELEMETRY_PAIRS pairs of runs whose order alternates: each run's mean
+    lap of chunks 2.., and for the sink the events a round and the host
+    time a round spent inside ``Tracer.event`` (timed by a wrapper around
+    it), with the median microseconds of each event kind."""
+    from fedtpu_torch.telemetry import trace as trace_mod
+    base = main_path_config()
+    cfg = base.replace(
+        fed=dataclasses.replace(base.fed, termination_patience=1000),
+        run=dataclasses.replace(base.run, rounds_per_step=TELEMETRY_R))
+    modes = ("off", "on")
+    laps = {m: [] for m in modes}
+    in_tracer, per_round = [], []
+    inner = trace_mod.Tracer.event
+    spent = [0.0]
+    by_kind = {}
+
+    def timed(self, kind, *args, **kw):
+        t0 = time.perf_counter()
+        inner(self, kind, *args, **kw)
+        dt = time.perf_counter() - t0
+        spent[0] += dt
+        key = kind if kw.get("phase") is None else f"{kind}:{kw['phase']}"
+        by_kind.setdefault(key, []).append(dt)
+
+    trace_mod.Tracer.event = timed
+    try:
+        for i in range(TELEMETRY_PAIRS):
+            for mode in modes[i % 2:] + modes[:i % 2]:
+                path = (os.path.join(directory, f"overhead-{i}.jsonl")
+                        if mode == "on" else None)
+                spent[0] = 0.0
+                res, _ = telemetry_run(cfg, events=path)
+                laps[mode].append(statistics.mean(
+                    res.sec_per_round[TELEMETRY_R:]))
+                if path:
+                    in_tracer.append(spent[0] / res.rounds_run)
+                    per_round.append(len(read_sink(path)) / res.rounds_run)
+    finally:
+        trace_mod.Tracer.event = inner
+    return {"s_round_off": laps["off"], "s_round_on": laps["on"],
+            "cost_s_round": statistics.median(laps["on"])
+            - statistics.median(laps["off"]),
+            "tracer_s_round": in_tracer,
+            "events_per_round": statistics.mean(per_round),
+            "event_us_by_kind": {k: round(1e6 * statistics.median(v), 1)
+                                 for k, v in sorted(by_kind.items())}}
+
+
+def telemetry_income8(directory: str) -> tuple:
+    """The main path with events off, on, on, off (bitwise the same run,
+    the same K1-K3 launches; s/round of each), then with the profile
+    window, after the CPU's run of that config (the same config, so the
+    same config hash; its sink and trace moved aside); the sinks' checks;
+    ``report`` in its three formats. Returns the launches by path and the
+    numbers."""
+    from fedtpu_torch.orchestration.loop import run_experiment
+    from fedtpu_torch.telemetry.report import render_report
+    base = main_path_config()
+    cfg = base.replace(run=dataclasses.replace(
+        base.run, rounds_per_step=TELEMETRY_R))
+    runs, sinks = [], []
+    for i, on in enumerate((False, True, True, False)):
+        path = os.path.join(directory, f"income8-{i}.jsonl") if on else None
+        runs.append(telemetry_run(cfg, events=path))
+        sinks.append(path)
+    ref, ref_launches = runs[0]
+    for (res, launches), path in zip(runs[1:], sinks[1:]):
+        same_result(f"income-8 R={TELEMETRY_R} events "
+                    f"{'on' if path else 'off'}", ref, res)
+        check(launches == ref_launches, f"income-8 events: launches "
+              f"{launches} vs {ref_launches} with events off")
+    for name in ("weighted_average_clients", "fused_eval_confusion",
+                 "fused_mlp_forward"):
+        check(ref_launches[name] > 0, f"income-8 events: {name} never "
+              "launched")
+    warm = TELEMETRY_R
+
+    def s_round(res):
+        return statistics.median(res.sec_per_round[warm:])
+
+    off = [s_round(runs[0][0]), s_round(runs[3][0])]
+    on = [s_round(runs[1][0]), s_round(runs[2][0])]
+    per_event = tracer_event_us(directory)
+    cost = telemetry_overhead(directory)
+    prof_dir = os.path.join(directory, "profile")
+    sink = os.path.join(directory, "income8-profile.jsonl")
+    cpu = run_experiment(telemetry_config(cfg, sink, prof_dir),
+                         verbose=False, device="cpu")
+    cpu_sink = f"{sink}.cpu"
+    os.replace(sink, cpu_sink)
+    os.replace(prof_dir, f"{prof_dir}.cpu")
+    prof, prof_launches = telemetry_run(cfg, events=sink, profile=prof_dir)
+    same_result("income-8 with the profile window", ref, prof)
+    check(prof_launches == ref_launches, "income-8 profile: launches differ")
+    events = read_sink(sink)
+    kinds = [e["kind"] for e in events]
+    man = [e for e in events if e["kind"] == "manifest"]
+    check(len(man) == 1, f"income-8 sink: {len(man)} manifests")
+    man = man[0]["payload"]
+    cpu_man = next(e["payload"] for e in read_sink(cpu_sink)
+                   if e["kind"] == "manifest")
+    check(man["backend"] == "cuda" and cpu_man["backend"] == "cpu"
+          and man["device_kinds"] == [torch.cuda.get_device_name(0)]
+          and man["config_hash"] == cpu_man["config_hash"],
+          f"income-8 manifest: backend {man['backend']}, kinds "
+          f"{man['device_kinds']}, hash {man['config_hash']} vs the CPU's "
+          f"{cpu_man['config_hash']}")
+    check(cpu.rounds_run == prof.rounds_run, "income-8: the CPU run "
+          f"stopped at {cpu.rounds_run}, the card's at {prof.rounds_run}")
+    chunks = [e for e in events if e["kind"] == "span"
+              and e["phase"] == "chunk"]
+    rounds = [e["round"] for e in events if e["kind"] == "round"]
+    n_chunks = math.ceil(prof.rounds_run / TELEMETRY_R)
+    check(len(chunks) == n_chunks and rounds == list(
+        range(1, prof.rounds_run + 1)), f"income-8 sink: {len(chunks)} "
+          f"chunk spans for {n_chunks} chunks, round events {rounds}")
+    window = [e for e in events if e["kind"] == "profile_window"]
+    check([e["phase"] for e in window] == ["start", "stop"]
+          and window[1]["payload"]["rounds"] >= TELEMETRY_PROFILE_ROUNDS,
+          f"income-8 sink: profile window events {window}")
+    traces = sorted(os.listdir(prof_dir))
+    check(len(traces) == 1, f"profile dir holds {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as fh:
+        trace_text = fh.read()
+    for kernel in ("ft_wavg_kernel", "ft_eval_confusion_kernel"):
+        check(kernel in trace_text, f"the profile window's trace does not "
+              f"name {kernel}")
+    check(kinds[-1] == "run_end" and kinds.count("counters") == 1
+          and kinds[-2] == "counters", f"income-8 sink: last kinds "
+          f"{kinds[-3:]}")
+    gauges = events[-2]["payload"]["gauges"]
+    for name in ("device_bytes_in_use", "live_array_count",
+                 "live_array_bytes"):
+        check(gauges.get(name, 0) > 0, f"income-8 counters: gauge {name} "
+              f"{gauges.get(name)}")
+    counters = events[-2]["payload"]["counters"]
+    check(counters.get("rounds") == prof.rounds_run
+          and counters.get("graph_captures", 0) >= 1,
+          f"income-8 counters: {counters}")
+    text, prom = render_report(sink)
+    as_json = json.loads(render_report(sink, fmt="json")[0])
+    check("phase breakdown" in text and "fedtpu_rounds_total" in prom
+          and as_json["rounds"]["count"] == prof.rounds_run,
+          "income-8 report: text, JSON or Prometheus output incomplete")
+    print(f"telemetry, income-8 R={TELEMETRY_R} captured ({prof.rounds_run} "
+          f"rounds): events on == off bitwise (history, params), launches "
+          f"{ref_launches} in each; s/round events off {off}, on {on} "
+          f"(median of rounds {warm + 1}.. each, runs off, on, on, off); "
+          f"a round event {per_event['event_us']:.1f} us of host time "
+          f"({per_event['encode_us']:.1f} us of it its JSON encoding); "
+          f"100 rounds, no early stop, the sink off / on in "
+          f"{TELEMETRY_PAIRS} alternating pairs: "
+          f"{json.dumps({k: v for k, v in cost.items()})} (s/round: mean "
+          f"lap of chunks 2.. each; cost: median minus the median off; "
+          f"tracer: host s a round inside Tracer.event); "
+          f"the sink: {len(events)} events, {len(chunks)} chunk spans, "
+          f"{len(rounds)} round events, profile window rounds "
+          f"{window[0]['round']}-{window[1]['round']} in {traces[0]} "
+          f"({len(trace_text)} bytes, K1 and K2 named), config hash "
+          f"{man['config_hash']} = the CPU's, gauges {gauges}, graph "
+          f"captures {counters.get('graph_captures')} in "
+          f"{counters.get('graph_capture_secs', 0):.3f} s; "
+          f"flops_per_round {man['profile']['flops_per_round']:.6e}, "
+          f"bytes_per_round {man['profile']['bytes_per_round']:.6e}; "
+          f"{CARD['smi']}", flush=True)
+    return ({"income-8 psum, events on": runs[1][1],
+             "income-8 psum, profile window": prof_launches},
+            {"s_round_off": off, "s_round_on": on, **per_event,
+             "overhead": cost,
+             "s_round_profiled": s_round(prof), "events": len(events)})
+
+
+def telemetry_whole_run(directory: str) -> tuple:
+    """The main path at R = TELEMETRY_R, TELEMETRY_WHOLE_ROUNDS rounds with
+    no early stop (a tail chunk), with the events sink and the profiler
+    over the whole run (profile_rounds 0), so both graphs' warm-up and
+    capture run under it; held bitwise against the same run with both
+    off, with equal K1-K3 launches. Returns the launches by path."""
+    base = main_path_config()
+    cfg = base.replace(
+        fed=dataclasses.replace(base.fed, rounds=TELEMETRY_WHOLE_ROUNDS,
+                                termination_patience=1000),
+        run=dataclasses.replace(base.run, rounds_per_step=TELEMETRY_R))
+    ref, ref_launches = telemetry_run(cfg)
+    sink = os.path.join(directory, "income8-whole.jsonl")
+    prof_dir = os.path.join(directory, "profile-whole")
+    res, launches = telemetry_run(cfg, events=sink, profile=prof_dir,
+                                  profile_rounds=0)
+    label = f"income-8 {TELEMETRY_WHOLE_ROUNDS} rounds, whole-run profile"
+    check(res.rounds_trained == TELEMETRY_WHOLE_ROUNDS,
+          f"{label}: {res.rounds_trained} rounds trained")
+    same_result(label, ref, res)
+    check(launches == ref_launches, f"{label}: launches {launches} vs "
+          f"{ref_launches} with events and the profiler off")
+    for name in ("weighted_average_clients", "fused_eval_confusion",
+                 "fused_mlp_forward"):
+        check(launches[name] > 0, f"{label}: {name} never launched")
+    events = read_sink(sink)
+    takes = [e["payload"]["rounds"] for e in events if e["kind"] == "span"
+             and e["phase"] == "chunk"]
+    want = [TELEMETRY_R] * (TELEMETRY_WHOLE_ROUNDS // TELEMETRY_R)
+    want += [TELEMETRY_WHOLE_ROUNDS % TELEMETRY_R]
+    check(takes == want, f"{label}: chunk spans of {takes} rounds")
+    check(not any(e["kind"] == "profile_window" for e in events),
+          f"{label}: profile_window events with profile_rounds 0")
+    counters = [e for e in events if e["kind"] == "counters"][-1]["payload"]
+    captures = counters["counters"].get("graph_captures", 0)
+    check(captures == len(set(takes)), f"{label}: {captures} graph "
+          f"captures for chunks of {sorted(set(takes))} rounds")
+    traces = sorted(os.listdir(prof_dir))
+    check(traces == [f"rounds_0-{TELEMETRY_WHOLE_ROUNDS}.{os.getpid()}"
+                     ".trace.json"], f"{label}: profile dir holds {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as fh:
+        trace_text = fh.read()
+    for kernel in ("ft_wavg_kernel", "ft_eval_confusion_kernel",
+                   "ft_mlp_forward_kernel"):
+        check(kernel in trace_text, f"{label}: the trace does not name "
+              f"{kernel}")
+    print(f"telemetry, {label} (chunks {takes}, {captures} graphs "
+          f"captured under the profiler): == events and profiler off "
+          f"bitwise (history, params), launches {launches} in each; "
+          f"{traces[0]} {len(trace_text)} bytes naming K1, K2 and K3; "
+          f"{CARD['smi']}", flush=True)
+    return {"income-8 psum, whole-run profile": launches}
+
+
+def chains_complete(label: str, sources: list, want: tuple) -> int:
+    """Every chain that incorporates an update passes ``want``'s stages in
+    order; returns the incorporations the chains hold."""
+    from fedtpu_torch.telemetry.timeline import trace_chains
+    n = 0
+    for chain in trace_chains(sources):
+        stages = [s["stage"] for s in chain["stages"]]
+        if "incorporate" not in stages:
+            continue
+        first = [stages.index(s) if s in stages else -1 for s in want]
+        check(min(first) >= 0 and first == sorted(first),
+              f"{label}: chain {chain['chain']} stages {stages}")
+        n += stages.count("incorporate")
+    return n
+
+
+def telemetry_serving(directory: str) -> dict:
+    """serve, a two-gateway fleet (WAL on) and a gateway behind the
+    wire-fault proxy (fedtpu's net sim plan), each writing its sink on the
+    card, fed by the loadgen over the wire; an autoscale decision log;
+    ``timeline`` over all of them (JSONL and Chrome): every incorporated
+    update's chain complete, as many incorporations in the chains as the
+    servers report."""
+    import threading
+    from fedtpu_torch.autoscale.controller import simulate, write_decisions
+    from fedtpu_torch.config import ServingConfig
+    from fedtpu_torch.resilience.net_sim import SIM_PLAN
+    from fedtpu_torch.serving.gateway import run_gateway
+    from fedtpu_torch.serving.loadgen import read_port_file, run_loadgen
+    from fedtpu_torch.serving.protocol import gateway_port_file
+    from fedtpu_torch.serving.server import run_server
+    from fedtpu_torch.serving.traces import synthesize_trace, write_trace
+    from fedtpu_torch.telemetry.timeline import (chrome_trace,
+                                                 deterministic_lines,
+                                                 load_timeline)
+    from fedtpu_torch.telemetry.trace import make_tracer
+    trace = os.path.join(directory, "telemetry-trace.jsonl")
+    write_trace(trace, *synthesize_trace(**TELEMETRY_TRACE))
+    cfg = ServingConfig(**SERVE_CFG)
+
+    def threaded(servers: list, feed) -> dict:
+        box = {}
+
+        def one(k, fn):
+            try:
+                box[k] = fn()
+            except BaseException as e:  # reported on the main thread
+                box[f"error {k}"] = e
+
+        threads = [threading.Thread(target=one, args=(k, fn))
+                   for k, fn in enumerate(servers)]
+        for th in threads:
+            th.start()
+        try:
+            box["feed"] = feed()
+        finally:
+            for th in threads:
+                th.join(timeout=600)
+        errors = {k: v for k, v in box.items() if str(k).startswith("error")}
+        check(not errors and not any(th.is_alive() for th in threads),
+              f"telemetry serving: {errors!r}")
+        return box
+
+    serve_ev = os.path.join(directory, "serve.jsonl")
+    pf = os.path.join(directory, "serve.port")
+    served = threaded([lambda: run_server(
+        cfg, events=serve_ev, port_file=pf, once=True, verbose=False)],
+        lambda: run_loadgen(trace, port_file=pf, timeout=300))
+    fleet_ev = os.path.join(directory, "fleet.jsonl")
+    fpf = os.path.join(directory, "fleet.port")
+
+    def fleet_feed():
+        for g in range(FLEET_N):
+            read_port_file(gateway_port_file(fpf, g), timeout=300)
+        return run_loadgen(trace, port_file=fpf, num_gateways=FLEET_N,
+                           timeout=300)
+
+    fleet = threaded([functools.partial(
+        run_gateway, cfg, gateway_index=g, num_gateways=FLEET_N,
+        port_file=fpf, events=fleet_ev,
+        checkpoint_dir=os.path.join(directory, "fleet-ck"), once=True,
+        verbose=False) for g in range(FLEET_N)], fleet_feed)
+    net_ev = os.path.join(directory, "net.jsonl")
+    npf = os.path.join(directory, "net.port")
+
+    def net_feed():
+        read_port_file(npf, timeout=300)
+        return run_loadgen(trace, port_file=npf, timeout=300, backoff_s=0.01)
+
+    net = fleet_serve_main_thread(lambda: run_gateway(
+        cfg, num_gateways=1, port_file=npf, events=net_ev,
+        checkpoint_dir=os.path.join(directory, "net-ck"),
+        net_fault_plan=json.dumps(SIM_PLAN), verbose=False), net_feed)
+    decisions = os.path.join(directory, "autoscale.jsonl")
+    auto_ev = os.path.join(directory, "autoscale-events.jsonl")
+    tracer = make_tracer(auto_ev, role="autoscale")
+    sim = simulate(tracer=tracer)
+    tracer.close()
+    write_decisions(decisions, sim["lines"])
+    fleet_sinks = [f"{fleet_ev}.g{g}" for g in range(FLEET_N)]
+    for path, role in ([(serve_ev, "serve"), (net_ev, "gateway-0")]
+                       + [(p, f"gateway-{g}")
+                          for g, p in enumerate(fleet_sinks)]):
+        roles = {e["role"] for e in read_sink(path)}
+        check(roles == {role}, f"{path}: roles {roles}, not {role}")
+    net_kinds = {e["kind"] for e in read_sink(net_ev)}
+    check({"net_fault", "netproxy_summary"} <= net_kinds,
+          f"the proxied gateway's sink lacks the proxy's events: {net_kinds}")
+    check(any(e["kind"] == "autoscale_decision" for e in read_sink(auto_ev)),
+          "autoscale --events: no decision event")
+    paths = [serve_ev, *fleet_sinks, net_ev, f"{npf}.netlog", decisions]
+    sources = load_timeline(paths)
+    lines = deterministic_lines(sources)
+    chrome = chrome_trace(sources)
+    check(len(sources) == len(paths) and lines and chrome["traceEvents"],
+          f"timeline: {len(sources)} sources of {len(paths)}")
+    serve_src = [s for s in sources if s["path"] == serve_ev]
+    gw_src = [s for s in sources if s["path"] in fleet_sinks + [net_ev]]
+    n_serve = chains_complete("serve", serve_src, CHAIN_SERVE)
+    n_gw = chains_complete("gateways", gw_src, CHAIN_GATEWAY)
+    inc_serve = served["feed"]["server_stats"]["incorporated"]
+    inc_fleet = sum(s["incorporated"]
+                    for s in fleet["feed"]["server_stats"].values())
+    inc_net = net["server_stats"]["incorporated"]
+    check(n_serve == inc_serve and n_gw == inc_fleet + inc_net,
+          f"timeline: chains incorporate {n_serve} (serve) and {n_gw} "
+          f"(gateways), the servers report {inc_serve}, {inc_fleet} + "
+          f"{inc_net}")
+    print(f"telemetry, serving ({TELEMETRY_TRACE['arrivals']} arrivals each, "
+          f"income MLP at full width, 32 slots): serve, the 2-gateway fleet "
+          f"and a gateway behind the proxy wrote their sinks on the card "
+          f"(roles checked), autoscale {len(sim['lines'])} decision lines; "
+          f"timeline merged {len(sources)} sources into {len(lines)} lines "
+          f"and {len(chrome['traceEvents'])} Chrome events; every "
+          f"incorporated update's chain complete: {n_serve} (serve, "
+          f"{' -> '.join(CHAIN_SERVE)}), {n_gw} (gateways, "
+          f"{' -> '.join(CHAIN_GATEWAY)}); {CARD['smi']}", flush=True)
+    return {"timeline_lines": len(lines), "chains_serve": n_serve,
+            "chains_gateways": n_gw}
+
+
+def telemetry_timeline_sim() -> dict:
+    """The timeline sim on the card: the pinned arrivals give the committed
+    golden's lines."""
+    from fedtpu_torch.telemetry.timeline_sim import (compare_decisions,
+                                                     simulate)
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "goldens", "timeline_sim.jsonl")
+    sim = simulate(device="cuda")
+    res = compare_decisions(sim["lines"], golden)
+    check(res["ok"], f"timeline sim on the card vs the golden: "
+          f"{res['reason']}")
+    print(f"telemetry, timeline sim on the card: {res['reason']}; retry "
+          f"stages {sim['summary']['retry_stages']}; {CARD['smi']}",
+          flush=True)
+    return {"golden": res["ok"], "lines": len(sim["lines"])}
+
+
+def telemetry_cohort(directory: str) -> tuple:
+    """A small captured cohort run with events: a cohort_gather and a
+    cohort_writeback span a chunk, a cohort_round event a round, the
+    cohort_config, cohort_summary and run_end events."""
+    from fedtpu_torch.config import TelemetryConfig
+    from fedtpu_torch.data import load_dataset
+    tc = TELEMETRY_COHORT
+    cfg = cohort_config(clients=tc["clients"], rounds=tc["rounds"],
+                        run={"rounds_per_step": tc["s"]})
+    sink = os.path.join(directory, "cohort.jsonl")
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, synthetic_rows=tc["rows"]),
+        run=dataclasses.replace(cfg.run, telemetry=TelemetryConfig(
+            events_path=sink)))
+    res, launches, _ = cohort_run(
+        "telemetry cohort", cfg, load_dataset(cfg.data),
+        expect={"weighted_average_clients": "cohorts",
+                "fused_eval_confusion": "cohorts"})
+    events = read_sink(sink)
+    spans = [e["phase"] for e in events if e["kind"] == "span"]
+    chunks = res.rounds_trained // tc["s"]
+    kinds = [e["kind"] for e in events]
+    check(spans.count("cohort_gather") == chunks
+          and spans.count("cohort_writeback") == chunks
+          and spans.count("chunk") == chunks
+          and kinds.count("cohort_round") == res.rounds_run
+          and {"cohort_config", "cohort_summary", "run_end"} <= set(kinds),
+          f"cohort sink: spans {spans}, kinds {sorted(set(kinds))}")
+    print(f"telemetry, cohort ({tc['clients']} clients, cohorts of "
+          f"{COHORT_K}, {tc['s']} a chunk, {res.rounds_run} rounds): "
+          f"{chunks} cohort_gather and cohort_writeback spans, "
+          f"{kinds.count('cohort_round')} cohort_round events; launches "
+          f"{launches}; {CARD['smi']}", flush=True)
+    return {"cohort, events on": launches}
+
+
+def phase_telemetry() -> tuple:
+    """Phase (s): the telemetry on the card (the constants above). Returns
+    the launches by path and the phase's numbers."""
+    import tempfile
+    seconds, numbers = {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - clock[0], 2)
+        clock[0] = now
+
+    with tempfile.TemporaryDirectory() as directory:
+        by_path, numbers["income8"] = telemetry_income8(directory)
+        lap("income-8")
+        by_path.update(telemetry_whole_run(directory))
+        lap("income-8 whole-run profile")
+        numbers["serving"] = telemetry_serving(directory)
+        lap("serving")
+        numbers["timeline_sim"] = telemetry_timeline_sim()
+        lap("timeline sim")
+        by_path.update(telemetry_cohort(directory))
+        lap("cohort")
+    print(f"phase (s) seconds {json.dumps(seconds)}", flush=True)
+    numbers["seconds"] = seconds
+    return by_path, numbers
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
     clock, seconds = [time.perf_counter()], {}
@@ -4946,6 +5598,11 @@ def main() -> None:
     print(f"phase (r) numbers {json.dumps(cohort, default=float)}",
           flush=True)
     lap("(r)")
+    telemetry_launches, telemetry = phase_telemetry()
+    by_path.update(telemetry_launches)
+    print(f"phase (s) numbers {json.dumps(telemetry, default=float)}",
+          flush=True)
+    lap("(s)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3

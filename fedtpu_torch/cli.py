@@ -1,13 +1,14 @@
 """``python -m fedtpu_torch.cli {run,sweep,parity,presets,serve,gateway,
-loadgen,autoscale}``: the port's counterparts of ``fedtpu run`` (the
+loadgen,autoscale,report,timeline}``: the port's counterparts of ``fedtpu run`` (the
 synchronous engine, or with ``--async`` the asynchronous FedBuff one),
 ``fedtpu sweep`` (the hyperparameter grid), ``fedtpu parity`` (the sklearn
 ``MLPClassifier`` warm-start limitation demo), ``fedtpu presets`` (the
 shipped presets), ``fedtpu serve`` (the trace-driven serving front end on
 the driven asynchronous tick), ``fedtpu gateway`` (one member of the
 store-backed gateway fleet), ``fedtpu loadgen`` (replay an arrival trace
-against a running server or fleet) and ``fedtpu autoscale`` (the SLO-driven
-control plane, simulated or live).
+against a running server or fleet), ``fedtpu autoscale`` (the SLO-driven
+control plane, simulated or live), and the offline readers of a telemetry
+sink, ``fedtpu report`` and ``fedtpu timeline``.
 
 Every flag is one that ``fedtpu.cli``'s parser also has, with the same
 meaning; ``--platform default`` means the GPU, ``--platform cpu`` the plain
@@ -21,7 +22,7 @@ import dataclasses
 import json
 import sys
 
-from fedtpu_torch.config import (AGGREGATIONS, PRESETS, _not_ported,
+from fedtpu_torch.config import (AGGREGATIONS, PRESETS,
                                  get_preset)
 
 
@@ -177,6 +178,19 @@ def _add_common_overrides(p: argparse.ArgumentParser) -> None:
     p.add_argument("--metrics-jsonl", default=None,
                    help="append one JSON line of metrics per round")
     p.add_argument("--eval-test-every", type=int, default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the round "
+                        "loop here")
+    p.add_argument("--profile-rounds", type=int, default=None, metavar="K",
+                   help="with --profile-dir: capture only a K-round "
+                        "steady-state window (starts after the first "
+                        "chunk, so the graphs' capture is excluded); 0 "
+                        "traces the whole run")
+    p.add_argument("--events", default=None, metavar="JSONL",
+                   help="append structured telemetry events here (run "
+                        "manifest, per-phase spans, per-round cadence, "
+                        "counter snapshots); analyze with "
+                        "'python -m fedtpu_torch.cli report <file>'")
     p.add_argument("--platform", choices=["default", "cpu"], default="default",
                    help="'default' runs on the GPU, 'cpu' on the CPU")
     p.add_argument("--log-per-client", action="store_true")
@@ -187,8 +201,8 @@ def _add_common_overrides(p: argparse.ArgumentParser) -> None:
 
 def _add_serving_flags(p: argparse.ArgumentParser) -> None:
     """``fedtpu``'s serve flag surface (every flag of its
-    ``_add_serving_flags``). ``--events`` and ``--heartbeat`` raise when
-    given (ROADMAP A11)."""
+    ``_add_serving_flags``). ``--heartbeat`` raises when given (ROADMAP
+    A11)."""
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (default 127.0.0.1; the "
                         "protocol is a same-host ingestion socket)")
@@ -283,8 +297,9 @@ def _add_serving_flags(p: argparse.ArgumentParser) -> None:
                    help="write the per-tick metric history here at "
                         "drain — the bitwise-determinism artifact")
     p.add_argument("--events", default=None, metavar="JSONL",
-                   help="telemetry events sink (not ported yet: "
-                        "ROADMAP A11)")
+                   help="telemetry events sink (read back by 'report' and "
+                        "'timeline'); a gateway fleet member writes "
+                        "<events>.g<i>")
     p.add_argument("--heartbeat", default=None, metavar="FILE",
                    help="liveness heartbeat file (not ported yet: "
                         "ROADMAP A11)")
@@ -597,12 +612,58 @@ def build_parser() -> argparse.ArgumentParser:
                         help="live: exit once a preemption notice has "
                              "been acted on (chaos drill mode)")
     auto_p.add_argument("--events", default=None, metavar="JSONL",
-                        help="telemetry events sink (not ported yet: "
-                             "ROADMAP A11)")
+                        help="telemetry events sink (decision/act events; "
+                             "read back by 'report' and 'timeline')")
     auto_p.add_argument("--json", action="store_true",
                         help="print the summary as one JSON line")
     auto_p.add_argument("--quiet", action="store_true",
                         help="suppress status lines")
+
+    # Offline readers of a telemetry sink: no preset, no card (numpy and
+    # the standard library only).
+    report_p = sub.add_parser("report",
+                              help="aggregate a telemetry events JSONL "
+                                   "(phase breakdown, round cadence, "
+                                   "staleness, counters)")
+    report_p.add_argument("events", nargs="+",
+                          help="events JSONL path(s) written via --events; "
+                               "several sinks (serve + gang + controller) "
+                               "merge into one combined view plus a "
+                               "per-source admission/SLO breakdown")
+    report_p.add_argument("--format", choices=["text", "json"],
+                          default="text",
+                          help="report rendering (default text)")
+    report_p.add_argument("--prometheus", default=None, metavar="PATH",
+                          help="also write a Prometheus text-exposition "
+                               "snapshot of the aggregated log here")
+    report_p.add_argument("--heartbeat", default=None, metavar="FILE",
+                          help="supervisor heartbeat base path: adds live "
+                               "per-process status rows (serving/parked/"
+                               "stale/missing) to the resilience section")
+    report_p.add_argument("--num-processes", type=_positive_int, default=1,
+                          help="gang size for --heartbeat (per-process "
+                               "files <base>.p<i>; default 1)")
+    timeline_p = sub.add_parser(
+        "timeline",
+        help="merge events JSONL sinks + netproxy *.netlog + autoscale "
+             "decision logs into one causal fleet timeline "
+             "(deterministic JSONL or Chrome/Perfetto trace JSON)")
+    timeline_p.add_argument(
+        "artifacts", nargs="+",
+        help="events JSONL path(s), *.netlog proxy logs, and/or "
+             "autoscale decision JSONL — classified automatically")
+    timeline_p.add_argument(
+        "--format", choices=["jsonl", "chrome"], default="jsonl",
+        help="'jsonl' = deterministic canonical lines (wall-clock-free, "
+             "goldenable); 'chrome' = trace-event JSON for Perfetto / "
+             "chrome://tracing (default jsonl)")
+    timeline_p.add_argument(
+        "--output", default=None, metavar="PATH",
+        help="write the rendering here instead of stdout")
+    timeline_p.add_argument(
+        "--expand", action="store_true",
+        help="also pick up sibling fleet artifacts derived from each "
+             "events path (*.g<i>, *.p<i>, *.netlog)")
     return parser
 
 
@@ -705,6 +766,13 @@ def config_from_args(args):
         run = dataclasses.replace(run, pipelined_stop=True)
     if args.eval_test_every is not None:
         run = dataclasses.replace(run, eval_test_every=args.eval_test_every)
+    if args.profile_dir is not None:
+        run = dataclasses.replace(run, profile_dir=args.profile_dir)
+    if args.profile_rounds is not None:
+        run = dataclasses.replace(run, profile_rounds=args.profile_rounds)
+    if args.events is not None:
+        run = dataclasses.replace(run, telemetry=dataclasses.replace(
+            run.telemetry, events_path=args.events))
     if args.log_per_client:
         run = dataclasses.replace(run, log_per_client=True)
     return cfg.replace(data=data, shard=shard, model=model, optim=optim,
@@ -860,13 +928,10 @@ def autoscale_main(args) -> int:
     """``fedtpu``'s ``autoscale`` handler: ``--simulate`` replays the
     pinned (or a given) trace against the policy in virtual time; live
     mode attaches a ``LiveController`` to a running server. It never
-    touches the card."""
-    from fedtpu_torch.autoscale.controller import (LiveController,
-                                                   compare_decisions,
-                                                   simulate, write_decisions)
+    touches the card. ``--events`` writes its decisions and acts to a
+    telemetry sink."""
     from fedtpu_torch.config import AutoscaleConfig
-    if args.events is not None:
-        _not_ported("autoscale --events (the telemetry event sink)", "A11")
+    from fedtpu_torch.telemetry.trace import make_tracer
     acfg = AutoscaleConfig(policy=args.policy)
     over = {}
     if args.objective is not None:
@@ -877,8 +942,19 @@ def autoscale_main(args) -> int:
         over["control_interval_s"] = args.interval
     if over:
         acfg = dataclasses.replace(acfg, **over)
+    tracer = make_tracer(args.events)
+    try:
+        return _autoscale(args, acfg, tracer)
+    finally:
+        tracer.close()
+
+
+def _autoscale(args, acfg, tracer) -> int:
+    from fedtpu_torch.autoscale.controller import (LiveController,
+                                                   compare_decisions,
+                                                   simulate, write_decisions)
     if args.simulate:
-        result = simulate(acfg, trace_path=args.trace)
+        result = simulate(acfg, trace_path=args.trace, tracer=tracer)
         if args.out:
             write_decisions(args.out, result["lines"])
         ok = True
@@ -910,7 +986,7 @@ def autoscale_main(args) -> int:
         acfg, host=args.host, port=port,
         supervisor_pid=args.supervisor_pid, heartbeat=args.heartbeat,
         process_count=args.num_processes, notice_file=args.notice_file,
-        spool_path=args.spool_path)
+        spool_path=args.spool_path, tracer=tracer)
     summary = ctl.run(duration_s=args.duration, interval_s=args.interval,
                       stop_after_notice=args.stop_after_notice)
     if args.json:
@@ -921,11 +997,50 @@ def autoscale_main(args) -> int:
     return 0
 
 
+def report_main(args) -> int:
+    """``fedtpu``'s ``report`` handler: the rendered report on stdout,
+    the Prometheus snapshot to ``--prometheus``."""
+    from fedtpu_torch.telemetry.report import render_report
+    rendered, prom = render_report(args.events, fmt=args.format,
+                                   heartbeat=args.heartbeat,
+                                   process_count=args.num_processes)
+    print(rendered)
+    if args.prometheus:
+        with open(args.prometheus, "w") as f:
+            f.write(prom)
+    return 0
+
+
+def timeline_main(args) -> int:
+    """``fedtpu``'s ``timeline`` handler: merge the artifacts (and, with
+    ``--expand``, each events path's fleet siblings) and render."""
+    from fedtpu_torch.telemetry.timeline import (default_artifacts,
+                                                 render_timeline)
+    paths = []
+    for p in args.artifacts:
+        expanded = (default_artifacts(p) if args.expand
+                    and not p.endswith(".netlog") else [p])
+        for q in expanded:
+            if q not in paths:
+                paths.append(q)
+    rendered = render_timeline(paths, fmt=args.format)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(rendered + "\n")
+    else:
+        print(rendered)
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "presets":
         print_presets()
         return 0
+    if args.command == "report":
+        return report_main(args)
+    if args.command == "timeline":
+        return timeline_main(args)
     if args.command == "loadgen":
         return loadgen_main(args)
     if args.command == "serve":

@@ -389,7 +389,7 @@ class CohortScheduler:
                  device: torch.device = torch.device("cpu"),
                  capture: bool = False,
                  init_params: Optional[torch.Tensor] = None,
-                 prefetch: bool = True, registry=None):
+                 prefetch: bool = True, registry=None, tracer=None):
         if capture and device.type != "cuda":
             raise ValueError(f"capture needs the card; the run is on "
                              f"{device}")
@@ -404,6 +404,9 @@ class CohortScheduler:
         self.device = device
         self.capture = capture
         self.registry = registry
+        # The chunk's cohort_gather and cohort_writeback spans, emitted on
+        # the caller's thread only (the prefetch thread emits nothing).
+        self.tracer = tracer
         self.pin = device.type == "cuda"
         build = lambda width: build_cohort_round_fn(
             self.model, tx, num_classes, self.k, row_shape,
@@ -613,7 +616,11 @@ class CohortScheduler:
         chunk meanwhile (its members lazily initialised); a run's last
         chunk does not, so no record is written for a chunk that never
         runs."""
+        sp = (self.tracer.span("cohort_gather", round=self._round + self.s)
+              if self.tracer else None)
         prep = self._take_prepared(self._round)
+        if sp:
+            sp.end()
         if self._state is None:
             self._state = {"params": prep["params0"].to(self.device).clone(),
                            "round": 0}
@@ -631,6 +638,11 @@ class CohortScheduler:
         raw = self._run_step(inputs)
         if marks:
             marks[2].record()
+        # From the step's launch through the host read of its outputs and
+        # the store writes (fedtpu's span).
+        sp = (self.tracer.span("cohort_writeback",
+                               round=self._round + self.s)
+              if self.tracer else None)
         out = self._fetch(raw)
         if marks:
             marks[3].record()
@@ -648,6 +660,8 @@ class CohortScheduler:
                                    out["opt"].items()}))
         self._wb_done.set()       # unblock the next chunk's store read
         stats["write_s"] = time.perf_counter() - t0
+        if sp:
+            sp.end()
         if self.registry is not None:
             self.registry.gauge("client_store_resident_bytes").set(
                 self.store.resident_estimate_bytes())
@@ -767,7 +781,7 @@ def _store_path_for(cfg) -> Optional[str]:
 
 def build_cohort_scheduler(cfg, ds, device: torch.device,
                            capture: bool = False, init_params=None,
-                           registry=None,
+                           registry=None, tracer=None,
                            prefetch: bool = True) -> CohortScheduler:
     """The scheduler of a cohort run on the dataset ``ds``: the model and
     optimizer, the population's packed shards (host numpy), the sampler,
@@ -819,7 +833,7 @@ def build_cohort_scheduler(cfg, ds, device: torch.device,
         device=device, capture=capture,
         init_params=(None if init_params is None
                      else params_from_jax(init_params)),
-        prefetch=prefetch, registry=registry)
+        prefetch=prefetch, registry=registry, tracer=tracer)
 
 
 def run_cohort_experiment(cfg, dataset=None, verbose: bool = True,
@@ -843,19 +857,23 @@ def run_cohort_experiment(cfg, dataset=None, verbose: bool = True,
     from fedtpu_torch.parallel.round import build_eval_fn
     from fedtpu_torch.telemetry.log import TelemetryLogger
     from fedtpu_torch.telemetry.metrics import default_registry
+    from fedtpu_torch.telemetry.trace import make_tracer
 
     _validate_cohort_config(cfg)
     dev = resolve_device(device)
     graphs_on = dev.type == "cuda" if capture is None else bool(capture)
     if graphs_on and dev.type != "cuda":
         raise ValueError(f"capture=True needs the card; the run is on {dev}")
+    tel = cfg.run.telemetry
+    tracer = make_tracer(tel.events_path)
     registry = default_registry()
     registry.reset()
-    log = TelemetryLogger(verbose=verbose, level=cfg.run.telemetry.log_level)
+    log = TelemetryLogger(verbose=verbose, tracer=tracer,
+                          level=tel.log_level)
     ds = dataset if dataset is not None else load_dataset(cfg.data)
     sched = build_cohort_scheduler(cfg, ds, dev, capture=graphs_on,
                                    init_params=init_params,
-                                   registry=registry)
+                                   registry=registry, tracer=tracer)
     store, sampler, s = sched.store, sched.sampler, sched.s
     total = cfg.shard.num_clients
 
@@ -888,6 +906,10 @@ def run_cohort_experiment(cfg, dataset=None, verbose: bool = True,
             log.info(f"Resumed cohort run at round {start_round} "
                      f"({len(store._touched)} touched records).")
 
+    tracer.event("cohort_config", cohort_size=sampler.k, total_clients=total,
+                 store=cfg.fed.client_store,
+                 sampling=cfg.fed.cohort_sampling, cohorts_per_step=s,
+                 store_apparent_bytes=store.apparent_nbytes)
     lap = time.perf_counter()
     try:
         rnd = start_round
@@ -901,6 +923,8 @@ def run_cohort_experiment(cfg, dataset=None, verbose: bool = True,
             now = time.perf_counter()
             dt, lap = (now - lap) / s, now
             take = min(s, cfg.fed.rounds - rnd)
+            tracer.event("span", phase="chunk", round=rnd + take,
+                         dur_s=dt * take, rounds=take)
             for j in range(take):
                 r = rnd + j
                 client_mean = {k2: float(m["client_mean"][k2][j])
@@ -916,6 +940,14 @@ def run_cohort_experiment(cfg, dataset=None, verbose: bool = True,
                     per_client_hist[k2].append(
                         m["per_client"][k2][j].numpy())
                 registry.counter("rounds").inc()
+                tracer.event(
+                    "cohort_round", round=r + 1, dur_s=dt,
+                    cohort_size=sampler.k,
+                    accuracy=client_mean["accuracy"],
+                    loss_mean=float(np.mean(losses[-1])),
+                    store_resident_bytes=store.resident_estimate_bytes(),
+                    prefetch_stall_s=float(
+                        registry.gauge("cohort_prefetch_stall_s").value))
                 if verbose and (r % cfg.run.log_every == 0):
                     gvals = ", ".join(f"{k2}: {client_mean[k2]:.4f}"
                                       for k2 in METRIC_NAMES)
@@ -928,6 +960,8 @@ def run_cohort_experiment(cfg, dataset=None, verbose: bool = True,
                         and np.all(np.isfinite(losses[-1]))):
                     log.warning(f"Non-finite loss/metrics at round "
                                 f"{r + 1}; halting (diverged run).")
+                    tracer.event("diverged", round=r + 1,
+                                 reason=f"loss/metrics at round {r + 1}")
                     diverged = True
                     break
                 if prev_metric is not None and np.allclose(
@@ -938,6 +972,7 @@ def run_cohort_experiment(cfg, dataset=None, verbose: bool = True,
                                    "significant change in metrics for "
                                    f"{cfg.fed.termination_patience} "
                                    "rounds.")
+                        tracer.event("early_stop", round=r + 1)
                         stopped_early = True
                         break
                 else:
@@ -983,6 +1018,17 @@ def run_cohort_experiment(cfg, dataset=None, verbose: bool = True,
     state = sched.state_for_checkpoint()
     final_params = ({} if state is None
                     else params_to_numpy(state["params"][0], sched.model))
+    tracer.event("cohort_summary", rounds=rounds_run,
+                 cohort_size=sampler.k, total_clients=total,
+                 touched_records=len(store._touched),
+                 store_resident_bytes=store.resident_estimate_bytes(),
+                 store_apparent_bytes=store.apparent_nbytes,
+                 prefetch_stalls=int(
+                     registry.counter("cohort_prefetch_stalls").value))
+    tracer.event("run_end", round=rounds_run, stopped_early=stopped_early,
+                 diverged=diverged)
+    tracer.counters(registry.snapshot())
+    tracer.close()
     return ExperimentResult(
         global_metrics=history, pooled_metrics=pooled_hist,
         per_client_metrics=per_client_hist, test_metrics=test_hist,

@@ -227,9 +227,10 @@ class FedConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TelemetryConfig:
-    """Structured-telemetry knobs (``fedtpu.config.TelemetryConfig``); the
-    port has no telemetry yet (ROADMAP A11), so a ``RunConfig`` takes only
-    the default one."""
+    """Structured-telemetry knobs (``fedtpu.config.TelemetryConfig``,
+    ``fedtpu_torch.telemetry``): the JSONL event sink (None = telemetry
+    off: the loop talks to a ``NullTracer``), the run manifest event, and
+    the leveled logger's threshold."""
 
     events_path: Optional[str] = None
     manifest: bool = True
@@ -262,14 +263,19 @@ class RunConfig:
     # Dispatch chunk k+1 before reading chunk k's metrics: the history is
     # the synchronous run's, the final state carries one chunk past a stop.
     pipelined_stop: bool = False
-    # Not ported yet: each must stay at its default (_RUN_ITEMS).
+    # A torch.profiler trace of the round loop under profile_dir (a Chrome
+    # trace): 0 traces the whole run; K > 0 a window that opens after the
+    # first chunk's read and closes at the first chunk boundary covering
+    # >= K rounds.
     profile_dir: Optional[str] = None
     profile_rounds: int = 0
+    # The events sink, the manifest and the logger's level.
+    telemetry: TelemetryConfig = TelemetryConfig()
+    # Not ported yet: each must stay at its default (_RUN_ITEMS).
     mpmd: bool = False
     model_parallel: int = 1
     compilation_cache: Optional[str] = None
     overlap_compile: bool = False
-    telemetry: TelemetryConfig = TelemetryConfig()
     fault_plan: Optional[str] = None
     on_divergence: str = "halt"
     rollback_retries: int = 2
@@ -289,8 +295,7 @@ class RunConfig:
 # RunConfig's knobs of paths not ported yet -> the ROADMAP item of each.
 _RUN_ITEMS = {
     **dict.fromkeys(("mpmd", "model_parallel", "collective_timeout"), "A10"),
-    **dict.fromkeys(("profile_dir", "profile_rounds", "compilation_cache",
-                     "overlap_compile", "telemetry", "fault_plan",
+    **dict.fromkeys(("compilation_cache", "overlap_compile", "fault_plan",
                      "on_divergence", "rollback_retries", "rollback_exclude",
                      "rollback_perturb", "heartbeat_file"), "A11"),
 }

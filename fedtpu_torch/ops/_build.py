@@ -92,7 +92,11 @@ def build(force: bool = False) -> dict:
         for obj in objs:
             obj.unlink(missing_ok=True)
     os.replace(tmp, lib)   # atomic: a concurrent loader never sees half a file
-    return {"path": str(lib), "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    # Counted into the telemetry's default registry (kernel_builds).
+    from fedtpu_torch.telemetry.metrics import compile_event
+    compile_event("kernel_build", seconds)
+    return {"path": str(lib), "seconds": seconds,
             "compiler_output": "".join(outputs)}
 
 

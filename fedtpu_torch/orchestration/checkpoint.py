@@ -13,6 +13,11 @@ Layout: ``<dir>/round_<step>/{state,meta}``, as ``fedtpu``'s. Each file is
 written to a temporary name and renamed, and ``meta`` is written last, so a
 round counts as committed only when both exist (``_is_complete``): a crash
 mid-save leaves a round that resume does not see.
+
+The default telemetry registry counts ``checkpoint_saves``,
+``checkpoint_bytes_written`` (the saved state's tensor bytes),
+``checkpoint_restores`` and ``checkpoint_restore_corrupt``, as
+``fedtpu``'s layer does.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from fedtpu_torch.telemetry.metrics import default_registry, tree_nbytes
 
 
 def _ckpt_path(directory: str, step: int) -> str:
@@ -61,7 +68,8 @@ def save_checkpoint(directory: str, state: dict, history: dict,
     tensors."""
     path = _ckpt_path(directory, step)
     os.makedirs(path, exist_ok=True)
-    _write(_to_cpu(state), os.path.join(path, "state"))
+    state_item = _to_cpu(state)
+    _write(state_item, os.path.join(path, "state"))
     # The engine that wrote the state, as fedtpu's int flag: the
     # asynchronous engine's state carries anchors, the synchronous one's
     # never does. Resume reads it before the client count, so a resume
@@ -75,6 +83,9 @@ def save_checkpoint(directory: str, state: dict, history: dict,
         meta[k] = (torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray)
                    else v)
     _write(meta, os.path.join(path, "meta"))
+    reg = default_registry()
+    reg.counter("checkpoint_saves").inc()
+    reg.counter("checkpoint_bytes_written").inc(tree_nbytes(state_item))
     return path
 
 
@@ -180,6 +191,7 @@ def load_checkpoint_raw(directory: str, step: Optional[int] = None
     path = _ckpt_path(directory, step)
     state = _read(os.path.join(path, "state"))
     meta = _read(os.path.join(path, "meta"))
+    default_registry().counter("checkpoint_restores").inc()
     return state, _history(meta), int(meta["step"])
 
 
@@ -200,6 +212,7 @@ def load_checkpoint_fallback(directory: str) -> Tuple[dict, dict, int]:
             return load_checkpoint_raw(directory, step)
         except Exception as e:
             last_err = e
+            default_registry().counter("checkpoint_restore_corrupt").inc()
             warnings.warn(f"checkpoint round {step} failed to restore "
                           f"({type(e).__name__}: {e}); falling back to the "
                           "previous round", RuntimeWarning)

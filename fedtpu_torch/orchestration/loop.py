@@ -42,7 +42,20 @@ front, and each chunk's first tick from a device table. ``capture=False``
 runs the same step uncaptured (for comparison); on the CPU there is no
 graph.
 
-Not ported (ROADMAP A11): fault injection, telemetry, the SIGTERM drain,
+Telemetry (``fedtpu_torch.telemetry``) as ``fedtpu``'s loop: with
+``RunConfig.telemetry.events_path`` set the run writes the schema-v2 sink
+(the ``build`` span, the manifest, ``resume``, a ``chunk`` span a chunk
+closed after its one host read, a ``stop_check`` span, a ``round`` event a
+round, the asynchronous ``async_tick``, ``early_stop``, ``diverged``, the
+``eval`` and ``checkpoint`` spans, the ``counters`` snapshot and
+``run_end``); off, it talks to a ``NullTracer``. ``RunConfig.profile_dir``
+opens a ``torch.profiler`` window (``profile_rounds``) written as a Chrome
+trace. The operational lines go through the leveled logger (mirrored into
+the sink); the reference-parity lines are printed byte for byte and never
+mirrored. Telemetry adds host work only: the history and the params are
+bitwise those of a run with it off.
+
+Not ported (ROADMAP A11b, A10): fault injection, the SIGTERM drain,
 ``on_divergence='rollback'`` and multi-process resume agreement.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
@@ -78,13 +91,19 @@ from fedtpu_torch.orchestration.checkpoint import (
 from fedtpu_torch.orchestration.privacy import PrivacyLedger
 from fedtpu_torch.parallel.async_fed import (async_global_params,
                                              build_async_round_fn,
-                                             init_async_state)
+                                             init_async_state,
+                                             record_tick_telemetry)
 from fedtpu_torch.parallel.mesh import ClientMesh, make_mesh
 from fedtpu_torch.parallel.round import (assemble_metrics, build_eval_fn,
                                          build_round_fn, capture_round_step,
                                          check_knobs, global_params,
                                          init_federated_state, pack_outputs,
                                          unpack_outputs, warm_up_round)
+from fedtpu_torch.telemetry.log import TelemetryLogger
+from fedtpu_torch.telemetry.manifest import build_manifest, profile_entry
+from fedtpu_torch.telemetry.metrics import (default_registry,
+                                            device_memory_gauges)
+from fedtpu_torch.telemetry.trace import make_tracer
 from fedtpu_torch.training.personalize import build_personalize_fn
 
 
@@ -470,6 +489,65 @@ class _Fetch:
         return bool(self.get()[-1] > 0)
 
 
+class _ProfileWindow:
+    """The ``torch.profiler`` window of ``RunConfig.profile_dir`` /
+    ``profile_rounds`` (``fedtpu``'s ``jax.profiler`` window): host
+    activity, and the card's on a run there, written as a Chrome trace
+    ``<profile_dir>/rounds_<a>-<b>.<pid>.trace.json`` (rounds a..b). With
+    ``rounds`` K > 0 it opens at the first chunk end (after that chunk's
+    host read, so the graphs' warm-up and capture stay out) and closes at
+    the first chunk end covering >= K rounds, with a ``profile_window``
+    start and stop event each; K = 0 traces the whole run."""
+
+    def __init__(self, directory: Optional[str], rounds: int,
+                 device: torch.device, tracer, start_round: int):
+        self.directory = directory
+        self.rounds = int(rounds)
+        self.device = device
+        self.tracer = tracer
+        self._prof = None
+        self._start_round = start_round
+        self._pending = bool(directory and self.rounds > 0)
+        if directory and self.rounds <= 0:
+            self._open(start_round)
+
+    def _open(self, rnd: int) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+        self._start_round = rnd
+
+    def _close(self, rnd: int) -> None:
+        prof, self._prof = self._prof, None
+        prof.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        path = os.path.join(self.directory, f"rounds_{self._start_round}-"
+                            f"{rnd}.{os.getpid()}.trace.json")
+        prof.export_chrome_trace(path)
+
+    def at_chunk_end(self, rnd: int) -> None:
+        """After a chunk's host read; ``rnd`` is its last round."""
+        if self._pending:
+            self._pending = False
+            self._open(rnd)
+            self.tracer.event("profile_window", phase="start", round=rnd,
+                              rounds=self.rounds)
+        elif (self._prof is not None and self.rounds > 0
+              and rnd - self._start_round >= self.rounds):
+            covered = rnd - self._start_round
+            self._close(rnd)
+            self.tracer.event("profile_window", phase="stop", round=rnd,
+                              rounds=covered)
+
+    def close(self, rnd: int) -> None:
+        """The run's end (or failure): a window still open is written."""
+        if self._prof is not None:
+            self._close(rnd)
+
+
 def _state_layout(tree, prefix: str = "") -> dict:
     """name -> (shape, dtype) of every tensor of a state (nested dicts
     flattened), its round counter aside."""
@@ -533,10 +611,19 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                                      resume=resume, device=device,
                                      capture=capture,
                                      init_params=init_params)
-    exp = build_experiment(cfg, dataset, device=device,
-                           init_params=init_params,
-                           participation_masks=participation_masks,
-                           dp_noise=dp_noise, arrival_masks=arrival_masks)
+    tel = cfg.run.telemetry
+    # One process: the configured sink (a peer of a multi-process run
+    # would write <events>.p<i>, ROADMAP A10).
+    tracer = make_tracer(tel.events_path, role="run", process_index=0)
+    registry = default_registry()
+    registry.reset()
+    log = TelemetryLogger(verbose=verbose, tracer=tracer,
+                          level=tel.log_level)
+    with tracer.span("build"):
+        exp = build_experiment(cfg, dataset, device=device,
+                               init_params=init_params,
+                               participation_masks=participation_masks,
+                               dp_noise=dp_noise, arrival_masks=arrival_masks)
     dev = exp.device
     graphs_on = dev.type == "cuda" if capture is None else bool(capture)
     if graphs_on and dev.type != "cuda":
@@ -547,10 +634,22 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     x_test = torch.from_numpy(ds.x_test).to(dev)
     y_test = torch.from_numpy(ds.y_test).to(dev)
     ckpt_dir = cfg.run.checkpoint_dir
-
-    def say(line: str) -> None:
-        if verbose:
-            print(line, flush=True)
+    engine_async = "anchors" in state
+    restart_count = int(os.environ.get("FEDTPU_RESTARTS", "0") or 0)
+    if tel.manifest:
+        tracer.event("manifest", **build_manifest(
+            cfg=cfg, mesh=exp.mesh, device=dev, extra={
+                "program": "run",
+                "engine": "async" if engine_async else "sync1d",
+                "restarts": restart_count,
+                "profile": profile_entry(
+                    exp.model, state, batch, num_classes,
+                    cfg.fed.local_steps, cfg.run.profile_rounds)}))
+    # The logical exchange a round: every client ships one model and
+    # receives the average (int8 quarters it), an estimate as fedtpu's.
+    registry.gauge("exchange_bytes_per_round_est").set(
+        exp.model.param_count * state["params"].element_size()
+        * num_clients // (4 if cfg.fed.compress == "int8" else 1))
 
     start_round = 0
     restored_history = None
@@ -565,7 +664,6 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             f"(latest: {complete_steps(ckpt_dir)[-1]}). Pass resume=True "
             "(--resume) to continue that run, or point checkpoint_dir at a "
             "clean directory.")
-    engine_async = "anchors" in state
     if resume and ckpt_dir and latest_step(ckpt_dir) is not None:
         meta = load_meta(ckpt_dir)
         # The engine first, from the meta alone, as fedtpu does.
@@ -582,7 +680,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             raw, restored_history, start_round = load_checkpoint_fallback(
                 ckpt_dir)
             state = _restore_state(raw, state, dev)
-            say(f"Resumed from checkpoint at round {start_round}.")
+            log.info(f"Resumed from checkpoint at round {start_round}.")
             # The ledger's curve comes from the round actually restored.
             restored_meta = load_meta(ckpt_dir, step=start_round)
         else:
@@ -621,10 +719,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 dropped = float(raw.get("buf_count", 0.0))
                 buf_note = (f", {int(dropped)} pending buffered updates "
                             "dropped" if dropped > 0 else "")
-                say(f"Async elastic resume at tick {start_round}: "
+                log.info(f"Async elastic resume at tick {start_round}: "
                     f"{saved_c} -> {num_clients} clients (freshest-anchor "
-                    "global carried over, every client re-pulled, fresh "
-                    f"optimizer state{buf_note}).")
+                         "global carried over, every client re-pulled, "
+                         f"fresh optimizer state{buf_note}).")
             else:
                 g = raw["params"].to(torch.float32).numpy().mean(axis=0)
                 params = torch.from_numpy(np.ascontiguousarray(
@@ -638,10 +736,12 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                         state[key] = _to_device(raw[key], dev)
                 cv_note = (", control variates reset to zero"
                            if "client_cv" in state else "")
-                say(f"Elastic resume at round {start_round}: "
-                    f"{saved_num_clients(raw)} -> {num_clients} clients "
-                    "(global model carried over, fresh client optimizer "
-                    f"state{cv_note}).")
+                log.info(f"Elastic resume at round {start_round}: "
+                         f"{saved_num_clients(raw)} -> {num_clients} "
+                         "clients (global model carried over, fresh client "
+                         f"optimizer state{cv_note}).")
+    if restored_history is not None:
+        tracer.event("resume", round=start_round)
 
     # The DP RDP bookkeeping (fedtpu_torch.orchestration.privacy), written
     # into every checkpoint's meta whether or not DP is on, so a DP-off
@@ -697,7 +797,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         """Stop the run; with a checkpoint dir, save the current state
         (labelled with the round it holds) under ``diverged/``, where resume
         does not look."""
-        say(f"Non-finite {reason}; halting (diverged run).")
+        log.warning(f"Non-finite {reason}; halting (diverged run).")
+        tracer.event("diverged", round=label_round, reason=reason)
         if ckpt_dir:
             save(os.path.join(ckpt_dir, "diverged"), label_round)
         flags["stopped_early"] = flags["diverged"] = True
@@ -769,6 +870,12 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     jsonl = open(cfg.run.metrics_jsonl, "a") if cfg.run.metrics_jsonl \
         else None
     lap = [time.perf_counter()]
+    # The profile window (profile_rounds K > 0) opens after the first
+    # chunk's read, so the graphs' warm-up and capture stay out of it, and
+    # closes at the first chunk boundary covering >= K rounds; K = 0 traces
+    # the whole run.
+    prof = _ProfileWindow(cfg.run.profile_dir, cfg.run.profile_rounds, dev,
+                          tracer, start_round)
 
     def process_chunk(rnd0: int, take: int, fetched: _Fetch,
                       state_round: int) -> None:
@@ -786,6 +893,13 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         now = time.perf_counter()
         dt = (now - lap[0]) / take
         lap[0] = now
+        # The chunk span closes here, after the chunk's host read.
+        tracer.event("span", phase="chunk", round=rnd0 + take,
+                     dur_s=dt * take, rounds=take)
+        prof.at_chunk_end(rnd0 + take)
+        # The host's decision window (history, logs, early stop); ended at
+        # every exit below (Span.end is idempotent).
+        sp_stop = tracer.span("stop_check", round=rnd0 + take)
         loss_c, conf_c = raw["loss"], raw["conf"]
         m_all = assemble_metrics(loss_c, conf_c, mask_host)
         for j in range(take):
@@ -805,6 +919,16 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 pooled_hist[k].append(float(m_all["pooled"][k][j]))
                 per_client_hist[k].append(per_client[k])
             loss_mean = float(np.mean(losses[-1]))
+            registry.counter("rounds").inc()
+            tracer.event("round", round=r + 1, dur_s=dt,
+                         accuracy=client_mean["accuracy"],
+                         loss_mean=loss_mean,
+                         **({"staleness_mean": float(staleness[-1].mean()),
+                             "staleness_max": float(staleness[-1].max())}
+                            if engine_async else {}))
+            if engine_async:
+                record_tick_telemetry(registry, tracer, r + 1,
+                                      staleness[-1])
             if jsonl is not None:
                 jsonl.write(json.dumps({
                     "round": r + 1, "sec_per_round": dt,
@@ -815,26 +939,27 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                        if engine_async else {})}) + "\n")
                 jsonl.flush()
 
-            if r % cfg.run.log_every == 0:
-                say(f"\nRound {r + 1}:\n")
+            if verbose and r % cfg.run.log_every == 0:
+                log.parity(f"\nRound {r + 1}:\n")
                 if cfg.run.log_per_client:
                     for c in range(num_clients):
                         vals = ", ".join(f"{k}: {per_client[k][c]:.4f}"
                                          for k in METRIC_NAMES)
-                        say(f"  CLIENT {c} - Local Metrics "
-                            f"(Round {r + 1}): [{vals}]")
+                        log.parity(f"  CLIENT {c} - Local Metrics "
+                                   f"(Round {r + 1}): [{vals}]")
                 gvals = ", ".join(f"{k}: {client_mean[k]:.4f}"
                                   for k in METRIC_NAMES)
                 stale_note = (f"  (mean staleness {staleness[-1].mean():.2f})"
                               if engine_async else "")
-                say(f"  Global Metrics (Round {r + 1}): [{gvals}]  "
-                    f"({dt * 1e3:.1f} ms/round){stale_note}")
+                log.parity(f"  Global Metrics (Round {r + 1}): [{gvals}]  "
+                           f"({dt * 1e3:.1f} ms/round){stale_note}")
 
             cur = [client_mean[k] for k in METRIC_NAMES]
             if cfg.run.halt_on_nonfinite and not (
                     np.all(np.isfinite(cur))
                     and np.all(np.isfinite(losses[-1]))):
                 halt_diverged(f"loss/metrics at round {r + 1}", state_round)
+                sp_stop.end()
                 return
 
             # Early stopping — exact reference logic (FL_CustomMLP...:181-192).
@@ -842,15 +967,20 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                     cur, prev_metric, atol=cfg.fed.tolerance):
                 termination_count -= 1
                 if termination_count == 0:
-                    say("Early stopping triggered: No significant change in "
-                        f"metrics for {cfg.fed.termination_patience} rounds.")
+                    log.parity("Early stopping triggered: No significant "
+                               "change in metrics for "
+                               f"{cfg.fed.termination_patience} rounds.")
                     if r + 1 < cfg.fed.rounds:
-                        say(f"Training stopped early at round {r + 1}.")
+                        log.parity(f"Training stopped early at round "
+                                   f"{r + 1}.")
+                    tracer.event("early_stop", round=r + 1)
                     flags["stopped_early"] = True
+                    sp_stop.end()
                     return
             else:
                 prev_metric = cur
                 termination_count = cfg.fed.termination_patience
+        sp_stop.end()
 
     ckpt_every = cfg.run.checkpoint_every
     # Pipelined stop: chunk k+1 is dispatched before chunk k's outputs are
@@ -901,15 +1031,20 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                               rnd)
                 break
             if eval_due:
+                sp = tracer.span("eval", round=rnd)
                 tm = exp.eval_step(exp.global_fn(state), x_test, y_test)
+                # The span closes after this host read of the metrics.
                 tm = torch.stack([tm[k] for k in METRIC_NAMES]).tolist()
+                sp.end()
+                registry.counter("held_out_evals").inc()
                 for _ in range(eval_due):
                     for k, v in zip(METRIC_NAMES, tm):
                         test_hist[k].append(v)
             if ckpt_due:
                 # Labelled with, and holding, the chunk-end round.
-                save(ckpt_dir, rnd)
-                retain_after_save(rnd)
+                with tracer.span("checkpoint", round=rnd):
+                    save(ckpt_dir, rnd)
+                    retain_after_save(rnd)
 
         if pending is not None and not flags["stopped_early"]:
             process_chunk(*pending, state_round=rnd)
@@ -921,8 +1056,13 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 and not last.finite():
             halt_diverged(f"params/optimizer state after round {rnd}", rnd)
     finally:
+        # The trace is finalized and the counters snapshot written on a
+        # failing run too: the sink exists to diagnose such runs.
+        prof.close(rounds_run)
         if jsonl is not None:
             jsonl.close()
+        device_memory_gauges(registry, dev)
+        tracer.counters(registry.snapshot())
 
     personalized: Dict[str, dict] = {}
     if exp.personalize_fn is not None and not flags["diverged"]:
@@ -939,8 +1079,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         }
         vals = ", ".join(f"{k}: {v:.4f}"
                          for k, v in personalized["client_mean"].items())
-        say(f"Personalized ({cfg.fed.personalize_steps} local steps) "
-            f"client-mean: [{vals}]")
+        log.info(f"Personalized ({cfg.fed.personalize_steps} local steps) "
+                 f"client-mean: [{vals}]")
 
     rounds_trained = int(state["round"])
     result = ExperimentResult(
@@ -967,21 +1107,30 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                       "the current segment's")
         if dp.get("guarantee_void"):
             notes += f"; GUARANTEE VOID: {dp['guarantee_void']}"
-        say(f"DP budget spent: epsilon={dp['epsilon']:.3f} at "
-            f"delta={dp['delta']:.1e} (noise multiplier "
-            f"{dp['noise_multiplier']}, sampling rate "
-            f"{dp['sampling_rate']}, {dp['rounds']} rounds; RDP order "
-            f"{dp['rdp_order']}{notes})")
+        log.info(f"DP budget spent: epsilon={dp['epsilon']:.3f} at "
+                 f"delta={dp['delta']:.1e} (noise multiplier "
+                 f"{dp['noise_multiplier']}, sampling rate "
+                 f"{dp['sampling_rate']}, {dp['rounds']} rounds; RDP order "
+                 f"{dp['rdp_order']}{notes})")
     if (engine_async and cfg.fed.async_buffer_size >= 2
             and not flags["diverged"] and "buf_count" in state):
         # K-buffer starvation: a buffer that never filled never moved the
         # global; the run is sound, and the user must hear it.
         pending = int(state["buf_count"])
         if pending > 0:
-            say(f"ASYNC K-BUFFER STARVATION: {pending} buffered update(s) "
+            log.warning(
+                f"ASYNC K-BUFFER STARVATION: {pending} buffered update(s) "
                 f"never reached --buffer-size {cfg.fed.async_buffer_size} "
                 "by the final tick, so the global model did not advance "
                 "on them. Lower --buffer-size or raise --arrival-rate/"
                 "--rounds; a resumed run carries the pending buffer "
                 "forward.")
+            tracer.event("async_starvation", round=rounds_run,
+                         pending=pending,
+                         buffer_size=cfg.fed.async_buffer_size)
+    tracer.event("run_end", round=rounds_run,
+                 stopped_early=flags["stopped_early"],
+                 diverged=flags["diverged"], rounds_trained=rounds_trained,
+                 restarts=restart_count, rollbacks=0)
+    tracer.close()
     return result

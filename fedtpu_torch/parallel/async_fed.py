@@ -145,6 +145,19 @@ _ASYNC_STATE = ("anchors", "pull_tick", "buf_delta", "buf_count",
                 "screen_norms", "screen_count")
 
 
+def record_tick_telemetry(registry, tracer, tick: int, staleness) -> None:
+    """Fold one tick's ``(C,)`` staleness, already on the host, into the
+    registry (the ``async_ticks`` counter, the ``staleness`` histogram,
+    the ``staleness_last_mean`` gauge) and emit the ``async_tick`` event
+    (``fedtpu``'s ``record_tick_telemetry``): host bookkeeping only."""
+    s = np.ravel(np.asarray(staleness, dtype=np.float64))
+    registry.counter("async_ticks").inc()
+    registry.histogram("staleness").observe_many(s)
+    mean = float(s.mean()) if s.size else 0.0
+    registry.gauge("staleness_last_mean").set(mean)
+    tracer.event("async_tick", round=tick, staleness_mean=mean,
+                 staleness_max=float(s.max()) if s.size else 0.0)
+
 def async_state_tensors(state: dict) -> list:
     """Every tensor of the asynchronous state that a tick updates, in a
     fixed order."""

@@ -73,6 +73,7 @@ from __future__ import annotations
 
 import math
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -951,16 +952,21 @@ def capture_round_step(step: RoundStep, state: dict,
     from the calls a capture forbids, so another thread's replays, copies
     and allocations go on meanwhile (the capture's own stream does not
     synchronize with theirs)."""
+    from fedtpu_torch.telemetry.metrics import compile_event
     _needs_the_card(state)
     inputs = step.input_buffers(state)
     graph = torch.cuda.CUDAGraph()
     with CAPTURE_LOCK, recording_launches() as launches:
+        t0 = time.perf_counter()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             new_state, raw = step.fn(state, batch, *inputs)
             for dst, src in zip(step.state_tensors(state),
                                 step.state_tensors(new_state)):
                 dst.copy_(src)
             out = step.pack(raw)
+        # Counted after the capture has ended (graph_captures; no tracer
+        # call runs inside a capture).
+        compile_event("graph_capture", time.perf_counter() - t0)
     return CapturedRounds(graph, state, inputs, out, dict(launches),
                           step.rounds)
 

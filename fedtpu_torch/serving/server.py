@@ -18,8 +18,11 @@ Lifecycle honors ``fedtpu``'s supervisor contract:
 so a restart with ``--resume`` finds the buffer state RECOVERABLE rather
 than dropped.
 
-Not ported yet: the events sink (``events``) and the heartbeat file
-(``heartbeat``), ROADMAP A11; each raises when given. torch is only
+``events`` is the telemetry sink (``fedtpu_torch.telemetry``): the
+process's tracer, role ``serve`` (a gateway's ``gateway-<i>``), receives
+the server's and the engine's events; the crash barrier flushes its flight
+recorder to ``events.crash.<role>.jsonl``. Not ported yet: the heartbeat
+file (``heartbeat``), ROADMAP A11b; it raises when given. torch is only
 touched through the engine; this module stays importable backend-free.
 """
 
@@ -37,7 +40,7 @@ from fedtpu_torch.serving import protocol
 from fedtpu_torch.serving.engine import ServingEngine
 from fedtpu_torch.telemetry.log import TelemetryLogger
 from fedtpu_torch.telemetry.metrics import default_registry
-from fedtpu_torch.telemetry.trace import NullTracer
+from fedtpu_torch.telemetry.trace import make_tracer
 
 # fedtpu's supervisor exit code (fedtpu/resilience/supervisor.py:59):
 # EX_TEMPFAIL, drained to a checkpoint, resumable.
@@ -211,8 +214,7 @@ def _safe_handle(engine: ServingEngine, msg: Optional[dict], tracer,
         registry.counter("serve_handler_errors").inc()
         tracer.event("serve_handler_error", op=op,
                      error=f"{type(e).__name__}: {e}")
-        # Crash barrier == flight-recorder flush point (a no-op until the
-        # event sink is ported, ROADMAP A11).
+        # Crash barrier == flight-recorder flush point.
         tracer.flush_crash(reason=f"handler:{op!r}:{type(e).__name__}")
         return protocol.error_msg(
             f"internal error handling {op!r}: {type(e).__name__}: {e}")
@@ -245,7 +247,7 @@ def run_server(cfg, *, events: Optional[str] = None,
     runs once after engine construction but before resume (store attach,
     WAL wiring), and ``start_extra`` merges extra identity fields into the
     ``serve_start`` event. ``role`` names the process in the events sink
-    (``fedtpu``'s ``serve`` / ``gateway-<i>``), which is ROADMAP A11.
+    (``serve`` by default; a gateway's ``gateway-<i>``).
 
     ``net_fault_plan`` (a NetFaultPlan spec: path / inline JSON / dict)
     puts a deterministic wire-fault proxy (``serving.netproxy``) in front
@@ -255,14 +257,13 @@ def run_server(cfg, *, events: Optional[str] = None,
     ``port_file``. ``net_gateway_index`` selects which gateway's entries
     of the fleet-wide plan this proxy enforces.
 
-    ``events`` and ``heartbeat`` are not ported yet and raise."""
-    if events is not None:
-        _not_ported("serve --events (the telemetry event sink)", "A11")
+    ``events``: the telemetry sink's path (None: a ``NullTracer``).
+    ``heartbeat`` is not ported yet and raises."""
     if heartbeat is not None:
         _not_ported("serve --heartbeat (the supervisor heartbeat)", "A11")
     registry = default_registry()
     registry.reset()
-    tracer = NullTracer()
+    tracer = make_tracer(events, role=role or "serve")
     log = TelemetryLogger(verbose=verbose, tracer=tracer)
     engine = ServingEngine(cfg, registry=registry, tracer=tracer,
                            device=device)

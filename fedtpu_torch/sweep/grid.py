@@ -37,7 +37,12 @@ program to compile (its kernels build on first use), so ``compile_count``
 is None and ``overlap_compile`` changes nothing. The init is the port's own
 draw (a ``torch.Generator`` seeded 42, ``nn.Linear``'s law, as
 ``fedtpu``'s ``mlp_init`` with ``jax.random.key(42)``); ``init_params``
-injects ``fedtpu``'s. ``fedtpu``'s tracer spans become ``launch_times``.
+injects ``fedtpu``'s. Telemetry as ``fedtpu``'s grid: with
+``RunConfig.telemetry.events_path`` set, the sink gets the manifest, one
+``launch`` span a launch (closed after the launch's host read), the
+``counters`` snapshot (``sweep_launches``, ``sweep_configs``, in a
+registry of the sweep's own) and ``sweep_end``; ``launch_times`` keeps each
+launch's wall and device seconds beside them.
 
 The weights artifact is ``fedtpu``'s ``.npz``: each layer's ``w`` (in,
 out) and ``b`` as ``layers.<i>.w`` / ``layers.<i>.b``, and a JSON ``meta``
@@ -275,16 +280,30 @@ def run_grid_search(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     card, its device time (CUDA events, the window closed by the host's
     read of its metrics)."""
     from fedtpu_torch.orchestration.loop import resolve_device
+    from fedtpu_torch.parallel.mesh import make_mesh
+    from fedtpu_torch.telemetry.log import TelemetryLogger
+    from fedtpu_torch.telemetry.manifest import build_manifest
+    from fedtpu_torch.telemetry.metrics import MetricsRegistry
+    from fedtpu_torch.telemetry.trace import make_tracer
     del overlap_compile          # no program to compile (module docstring)
     hidden_grid = HIDDEN_GRID if hidden_grid is None else hidden_grid
     lr_grid = LR_GRID if lr_grid is None else lr_grid
     dev = resolve_device(device)
-
-    def say(line: str) -> None:
-        if verbose:
-            print(line, flush=True)
+    tel = cfg.run.telemetry
+    tracer = make_tracer(tel.events_path)
+    # The sweep's own registry, as fedtpu's: a run loop's reset of the
+    # default one must not wipe it.
+    registry = MetricsRegistry()
+    log = TelemetryLogger(verbose=verbose, tracer=tracer,
+                          level=tel.log_level)
 
     ds = dataset if dataset is not None else load_dataset(cfg.data)
+    if tel.manifest:
+        tracer.event("manifest", **build_manifest(
+            cfg=cfg, mesh=make_mesh(cfg.run.mesh_devices,
+                                    cfg.shard.num_clients, dev),
+            device=dev, extra={"program": "sweep",
+                               "grid_size": len(hidden_grid) * len(lr_grid)}))
     packed = pack_clients(ds.x_train, ds.y_train, cfg.shard)
     x = torch.from_numpy(packed.x).to(dev)
     y = torch.from_numpy(packed.y).to(dev)
@@ -313,6 +332,9 @@ def run_grid_search(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     for n_launch, (archs, lr_group) in enumerate(launches):
         t0 = time.perf_counter()
         l = len(lr_group)
+        sp_launch = tracer.span("launch", round=n_launch + 1,
+                                architectures=len(archs),
+                                learning_rates=l)
         bucket = (_bucket_shape(archs[0], hidden_grid) if bucket_pad
                   else tuple(archs[0]))
         params, opt_state, lrs, dims = launch_inputs(
@@ -348,6 +370,10 @@ def run_grid_search(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                     "mean_local_steps": float(mean_steps[i]),
                     "win": w,
                 }
+        # The host reads above finished the launch's device work.
+        sp_launch.end(launch_max_accuracy=float(pooled["accuracy"].max()))
+        registry.counter("sweep_launches").inc()
+        registry.counter("sweep_configs").inc(len(archs) * l)
         launch_times.append({
             "architectures": len(archs), "learning_rates": l,
             "models": c * len(archs) * l, "wall_s": time.perf_counter() - t0,
@@ -358,8 +384,8 @@ def run_grid_search(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                             "learning_rates": list(lr_group),
                             "bucket": bucket, "dims": dims, **held})
         del avg_params, pooled_conf, held
-        say(f"  launch {n_launch + 1}/{len(launches)} done "
-            f"({len(archs)} architectures x {l} learning rates)")
+        log.info(f"  launch {n_launch + 1}/{len(launches)} done "
+                 f"({len(archs)} architectures x {l} learning rates)")
 
     # Reported in the reference's grid order (hidden outer, lr inner), so
     # the first-hit strict-> winner does not depend on the launch plan.
@@ -374,9 +400,9 @@ def run_grid_search(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                           "learning_rate": float(lr),
                           "mean_local_steps": row["mean_local_steps"],
                           **metrics})
-            say(f"  grid [{hidden} lr={lr}]: "
-                f"acc={metrics['accuracy']:.4f} "
-                f"f1={metrics['f1']:.4f}")
+            log.info(f"  grid [{hidden} lr={lr}]: "
+                     f"acc={metrics['accuracy']:.4f} "
+                     f"f1={metrics['f1']:.4f}")
             if metrics["accuracy"] > best["accuracy"]:
                 best = {
                     "accuracy": metrics["accuracy"],
@@ -407,15 +433,15 @@ def run_grid_search(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                             "accuracy": row["accuracy"]})
 
     # The reference's own two lines (hyperparameters_tuning.py:126-129).
-    say(f"\nBest Global Hyperparameters: {best['params']}")
-    say(f"Best Global Metrics: {best['metrics']}")
+    log.parity(f"\nBest Global Hyperparameters: {best['params']}")
+    log.parity(f"Best Global Metrics: {best['metrics']}")
     if len(tie_set) > 1:
-        say(f"Tie set ({len(tie_set)} configs within "
-            f"{tie_tolerance:g} of accuracy {top:.4f} — the strict-> "
-            "winner above is one arbitrary member):")
+        log.info(f"Tie set ({len(tie_set)} configs within "
+                 f"{tie_tolerance:g} of accuracy {top:.4f} — the strict-> "
+                 "winner above is one arbitrary member):")
         for t in tie_set:
-            say(f"  {t['hidden_layer_sizes']} "
-                f"lr={t['learning_rate']}")
+            log.info(f"  {t['hidden_layer_sizes']} "
+                     f"lr={t['learning_rate']}")
     weights = best["weights"] if keep_weights else best.pop("weights")
     best["weight_shapes"] = ([list(lyr["w"].shape)
                               for lyr in weights["layers"]]
@@ -426,6 +452,11 @@ def run_grid_search(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     best["launch_count"] = len(launches)
     best["compile_count"] = None
     best["launch_times"] = launch_times
+    tracer.counters(registry.snapshot())
+    tracer.event("sweep_end", best_accuracy=best["accuracy"],
+                 launch_count=best["launch_count"],
+                 tie_set_size=len(tie_set))
+    tracer.close()
     return best
 
 

@@ -12,8 +12,15 @@ is a read-modify-write that loses updates under concurrency, and
 Histogram buckets are cumulative-style upper bounds (Prometheus ``le``
 semantics).
 
-Not ported (ROADMAP A11): ``fedtpu``'s JAX compile-event probe and its
-device-memory gauges (``jax.live_arrays``).
+``install_compile_probe`` is the counterpart of ``fedtpu``'s probe of
+JAX's compile events: the port compiles two things, a CUDA graph per
+captured step (``parallel.round.capture_round_step``) and the kernels'
+``nvcc`` build (``ops._build``), and each reports through
+``compile_event`` into the default registry once the probe is installed:
+counters ``graph_captures`` / ``graph_capture_secs`` and
+``kernel_builds`` / ``kernel_build_secs`` (``fedtpu``'s are
+``jax_compile_events`` / ``jax_compile_secs``). ``device_memory_gauges``
+reads ``torch.cuda.memory_stats`` under ``fedtpu``'s gauge names.
 """
 
 from __future__ import annotations
@@ -141,7 +148,7 @@ class MetricsRegistry:
 
     def reset(self) -> None:
         """Clear all instruments IN PLACE — the registry object's identity
-        survives (the compile probe holds a reference across runs)."""
+        survives (compile events count into it across runs)."""
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
@@ -154,3 +161,41 @@ _DEFAULT = MetricsRegistry()
 def default_registry() -> MetricsRegistry:
     """The per-process registry the run loop / checkpoint layer share."""
     return _DEFAULT
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor of a nested dict (numbers and other leaves
+    count 0)."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if hasattr(tree, "element_size"):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def compile_event(kind: str, secs: float) -> None:
+    """One compile event of ``kind`` ('graph_capture' or 'kernel_build')
+    that took ``secs`` host seconds: counters ``<kind>s`` and
+    ``<kind>_secs`` of the default registry (the port's counterpart of
+    ``fedtpu``'s compile probe)."""
+    reg = default_registry()
+    reg.counter(f"{kind}s").inc()
+    reg.counter(f"{kind}_secs").inc(float(secs))
+
+
+def device_memory_gauges(registry: Optional[MetricsRegistry] = None,
+                         device=None) -> None:
+    """Device-memory gauges of a run on the card, from
+    ``torch.cuda.memory_stats``, under ``fedtpu``'s names:
+    ``device_bytes_in_use`` (allocated bytes), ``live_array_count``
+    (active blocks) and ``live_array_bytes`` (active bytes). A run on the
+    CPU sets none, as ``fedtpu``'s CPU backend reports no memory stats."""
+    import torch
+    reg = registry if registry is not None else default_registry()
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type != "cuda":
+        return
+    stats = torch.cuda.memory_stats(dev)
+    reg.gauge("device_bytes_in_use").set(stats["allocated_bytes.all.current"])
+    reg.gauge("live_array_count").set(stats["active.all.current"])
+    reg.gauge("live_array_bytes").set(stats["active_bytes.all.current"])

@@ -346,10 +346,9 @@ _UNPORTED = {
         **{k: "A10" for k in ("mpmd", "model_parallel",
                               "collective_timeout")},
         **{k: "A11" for k in (
-            "profile_dir", "profile_rounds", "compilation_cache",
-            "overlap_compile", "telemetry", "fault_plan", "on_divergence",
-            "rollback_retries", "rollback_exclude", "rollback_perturb",
-            "heartbeat_file")}},
+            "compilation_cache", "overlap_compile", "fault_plan",
+            "on_divergence", "rollback_retries", "rollback_exclude",
+            "rollback_perturb", "heartbeat_file")}},
 }
 
 
@@ -450,8 +449,7 @@ def test_ported_knobs_take_other_values():
     for name in _CONFIGS:
         cls = getattr(tcfg, name)
         for field in dataclasses.fields(cls):
-            if field.name in _UNPORTED.get(name, {}) or name == \
-                    "TelemetryConfig":
+            if field.name in _UNPORTED.get(name, {}):
                 continue
             assert field.name in {
                 "DataConfig": {"csv_path", "label_column", "test_size",
@@ -479,7 +477,9 @@ def test_ported_knobs_take_other_values():
                               "halt_on_nonfinite", "mesh_devices",
                               "checkpoint_dir", "checkpoint_every",
                               "keep_checkpoints", "metrics_jsonl",
-                              "pipelined_stop"},
+                              "pipelined_stop", "profile_dir",
+                              "profile_rounds", "telemetry"},
+                "TelemetryConfig": {"events_path", "manifest", "log_level"},
             }[name], (name, field.name)
     assert tcfg.ModelConfig(use_pallas=True).use_pallas
 
@@ -938,12 +938,9 @@ _CLI_NOT_PORTED = {
     "--partition-offset": ("shard", "partition_offset", 1, "A10"),
     "--compilation-cache": ("run", "compilation_cache", "x", "A11"),
     "--overlap-compile": ("run", "overlap_compile", True, "A11"),
-    "--events": ("run", "telemetry", None, "A11"),
     "--fault-plan": ("run", "fault_plan", "x", "A11"),
     "--heartbeat": ("run", "heartbeat_file", "x", "A11"),
     "--on-divergence": ("run", "on_divergence", "rollback", "A11"),
-    "--profile-dir": ("run", "profile_dir", "x", "A11"),
-    "--profile-rounds": ("run", "profile_rounds", 2, "A11"),
     "--rollback-exclude": ("run", "rollback_exclude", True, "A11"),
     "--rollback-perturb": ("run", "rollback_perturb", 1e-3, "A11"),
     "--rollback-retries": ("run", "rollback_retries", 3, "A11"),
@@ -976,8 +973,6 @@ def test_cli_takes_every_fedtpu_flag_whose_field_it_runs(command):
         if _CLI_NOT_PORTED[flag] is None:
             continue
         section, field, value, item = _CLI_NOT_PORTED[flag]
-        if value is None:
-            value = tcfg.TelemetryConfig(events_path="x")
         cls = getattr(tcfg, _SECTIONS[section])
         assert field in {f.name for f in dataclasses.fields(
             getattr(jcfg, _SECTIONS[section]))}
@@ -988,7 +983,7 @@ def test_cli_takes_every_fedtpu_flag_whose_field_it_runs(command):
 # fedtpu's serve flags that the port's parser takes and refuses when given,
 # naming the ROADMAP item of each (they are run_server arguments, not
 # ServingConfig fields).
-_SERVE_NOT_PORTED = {"--events": "A11", "--heartbeat": "A11"}
+_SERVE_NOT_PORTED = {"--heartbeat": "A11"}
 
 
 @pytest.mark.parametrize("flag", sorted(_SERVE_NOT_PORTED))
@@ -1844,10 +1839,8 @@ def test_cli_gateway_and_autoscale_parse_as_fedtpus(argv):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["gateway", "--platform", "cpu", "--events", "x"], "A11"),
-    (["gateway", "--platform", "cpu", "--heartbeat", "x"], "A11"),
-    (["autoscale", "--simulate", "--events", "x"], "A11")],
-    ids=["gateway --events", "gateway --heartbeat", "autoscale --events"])
+    (["gateway", "--platform", "cpu", "--heartbeat", "x"], "A11")],
+    ids=["gateway --heartbeat"])
 def test_cli_gateway_and_autoscale_refuse_a11_flags(argv, item):
     from fedtpu_torch.cli import main as t_main
     with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {item}\)"):
@@ -2093,3 +2086,526 @@ def test_store_save_restore_round_trips_and_refuses_a_corrupt_file(tmp_path):
     torch.save(saved, path)
     with pytest.raises(ValueError, match="digest mismatch"):
         ClientStateStore(template, 12).restore(str(tmp_path / "ck"))
+
+
+# ------------------------------------------ A11a: telemetry against fedtpu
+# The port's tracer, report, timeline, config digest and manifest profile
+# against fedtpu's telemetry run in this process. fedtpu's Tracer writes
+# schema v2 (process_index, pid, launch_id, role), which the port follows;
+# tests/test_telemetry.py::test_event_schema_roundtrip still pins v1's
+# field set and is no oracle here.
+
+# Fields of an event line that depend on the clock or the process.
+_CLOCK_FIELDS = ("t_start", "dur_s", "pid")
+
+
+def _tracer_script(tracer):
+    """The same calls on either package's Tracer (numpy scalars and a
+    histogram snapshot in the payloads)."""
+    tracer.event("manifest", program="run", config_hash="0123456789abcdef")
+    with tracer.span("build"):
+        pass
+    sp = tracer.span("chunk", round=4, rounds=4)
+    sp.end(extra=np.float32(0.5))
+    tracer.event("round", round=1, dur_s=0.25, accuracy=np.float64(0.75),
+                 loss_mean=0.5, ids=np.arange(3))
+    try:
+        with tracer.span("eval", round=4):
+            raise RuntimeError("boom")
+    except RuntimeError:
+        pass
+    tracer.counters({"counters": {"rounds": 4.0}, "gauges": {},
+                     "histograms": {}})
+    tracer.event("run_end", round=4, stopped_early=False)
+
+
+def _without_clock(line: str) -> dict:
+    rec = json.loads(line)
+    return {k: v for k, v in rec.items() if k not in _CLOCK_FIELDS}
+
+
+@pytest.mark.parametrize("role,index", [("run", 0), ("gateway-1", 1)])
+def test_tracer_lines_are_fedtpus(tmp_path, role, index):
+    """The port's Tracer and fedtpu's, driven with the same calls, run_id,
+    role and process index, write the same lines field by field (the
+    clocks and the pid aside)."""
+    from fedtpu.telemetry.trace import Tracer as JTracer
+    from fedtpu_torch.telemetry.trace import Tracer as TTracer
+    paths = [tmp_path / "j.jsonl", tmp_path / "t.jsonl"]
+    for cls, path in zip((JTracer, TTracer), paths):
+        tr = cls(str(path), run_id="r0", role=role, process_index=index)
+        _tracer_script(tr)
+        tr.close()
+    j_lines, t_lines = (p.read_text().splitlines() for p in paths)
+    assert len(t_lines) == len(j_lines) == 7
+    for a, b in zip(t_lines, j_lines):
+        assert _without_clock(a) == _without_clock(b)
+        assert set(json.loads(a)) == set(json.loads(b))
+    assert _without_clock(t_lines[0])["role"] == role
+
+
+def test_flight_recorder_and_crash_flush_are_fedtpus(tmp_path):
+    """The ring's bound, the crash artifact's path and its lines (the
+    flush marker last) are fedtpu's."""
+    from fedtpu.telemetry import trace as jt
+    from fedtpu_torch.telemetry import trace as tt
+    assert tt.FLIGHT_RECORDER_CAPACITY == jt.FLIGHT_RECORDER_CAPACITY == 256
+    got = []
+    for mod, sub in ((jt, "j"), (tt, "t")):
+        d = tmp_path / sub
+        d.mkdir()
+        tr = mod.Tracer(str(d / "events.jsonl"), run_id="r", role="serve")
+        for i in range(300):
+            tr.event("tick", round=i)
+        assert len(tr.flight) == 256
+        path = tr.flush_crash(reason="handler:'x':KeyError")
+        assert path == mod.crash_artifact_path(str(d / "events.jsonl"),
+                                               "serve")
+        assert os.path.basename(path) == "events.crash.serve.jsonl"
+        got.append([_without_clock(x)
+                    for x in open(path).read().splitlines()])
+        tr.close()
+    assert got[0] == got[1]
+    assert got[1][0]["round"] == 45 and got[1][-1]["kind"] == "crash_flush"
+    assert tt.NullTracer().flush_crash("x") is None
+
+
+def test_null_tracer_and_make_tracer(tmp_path):
+    """make_tracer: a Tracer with a path, else the NullTracer, whose every
+    call is a no-op, as fedtpu's."""
+    from fedtpu_torch.telemetry.trace import NullTracer, Tracer, make_tracer
+    null = make_tracer(None)
+    assert isinstance(null, NullTracer) and not null.enabled
+    with null.span("x") as sp:
+        assert sp.end() == 0.0 and sp.end_after_fetch(torch.ones(2)) == 0.0
+    null.event("round", round=1)
+    null.counters({})
+    null.close()
+    tr = make_tracer(str(tmp_path / "e.jsonl"), role="serve")
+    assert isinstance(tr, Tracer) and tr.enabled and tr.role == "serve"
+    tr.close()
+    tr.event("late")                       # after close: dropped, no raise
+    assert (tmp_path / "e.jsonl").read_text() == ""
+
+
+def test_payloads_take_numpy_and_tensors_and_refuse_a_card_tensor(tmp_path):
+    """_json_default takes numpy scalars and arrays and 0-d or CPU tensors
+    (fedtpu's takes the numpy ones); a CUDA tensor is refused, never read
+    (a read would synchronise the device under the tracer)."""
+    from fedtpu_torch.telemetry.trace import Tracer, _json_default
+    assert _json_default(np.float32(0.5)) == 0.5
+    assert _json_default(torch.tensor(3)) == 3
+    assert _json_default(torch.arange(3)) == [0, 1, 2]
+    assert _json_default(np.arange(2)) == [0, 1]
+
+    class OnCard:
+        is_cuda = True
+    with pytest.raises(TypeError, match="CUDA tensor"):
+        _json_default(OnCard())
+    tr = Tracer(str(tmp_path / "e.jsonl"))
+    tr.event("x", a=torch.tensor(1.5), b=np.int64(2))
+    tr.close()
+    assert json.loads((tmp_path / "e.jsonl").read_text())["payload"] == {
+        "a": 1.5, "b": 2}
+
+
+def test_span_end_after_fetch_reads_the_tree_then_closes(tmp_path):
+    from fedtpu_torch.telemetry.trace import Tracer
+    tr = Tracer(str(tmp_path / "e.jsonl"))
+    sp = tr.span("eval", round=3, n=1)
+    dur = sp.end_after_fetch({"a": torch.ones(2), "b": [torch.zeros(1)]},
+                             done=True)
+    assert dur >= 0 and sp.end() >= dur      # idempotent: one line
+    tr.close()
+    (line,) = (tmp_path / "e.jsonl").read_text().splitlines()
+    rec = json.loads(line)
+    assert (rec["kind"], rec["phase"], rec["round"]) == ("span", "eval", 3)
+    assert rec["payload"] == {"n": 1, "done": True}
+
+
+def test_record_tick_telemetry_is_fedtpus(tmp_path):
+    """The async tick's registry entries and event equal fedtpu's."""
+    from fedtpu.parallel.async_fed import record_tick_telemetry as j_rec
+    from fedtpu.telemetry.metrics import MetricsRegistry as JReg
+    from fedtpu.telemetry.trace import Tracer as JTracer
+    from fedtpu_torch.parallel.async_fed import record_tick_telemetry
+    from fedtpu_torch.telemetry.metrics import MetricsRegistry
+    from fedtpu_torch.telemetry.trace import Tracer
+    out = []
+    for rec, reg_cls, tr_cls, sub in ((j_rec, JReg, JTracer, "j"),
+                                      (record_tick_telemetry,
+                                       MetricsRegistry, Tracer, "t")):
+        reg, path = reg_cls(), str(tmp_path / f"{sub}.jsonl")
+        tr = tr_cls(path, run_id="r")
+        for tick, s in enumerate(([0, 1, 3], [2, 0, 0], [])):
+            rec(reg, tr, tick + 1, np.asarray(s, np.int32))
+        tr.close()
+        out.append((reg.snapshot(),
+                    [_without_clock(x) for x in open(path)]))
+    assert out[0] == out[1]
+
+
+def _synthetic_sink(path):
+    """A sink of most event kinds the report aggregates, written by
+    fedtpu's Tracer (a malformed line and an unknown kind included)."""
+    from fedtpu.telemetry.metrics import MetricsRegistry as JReg
+    from fedtpu.telemetry.trace import Tracer as JTracer
+    tr = JTracer(path, run_id="synthetic", role="run")
+    tr.event("manifest", program="run", config_hash="abc", backend="cpu",
+             profile={"flops_per_round": 1e6, "bytes_per_round": 2e5,
+                      "profile_rounds": 0, "peak_flops": 1e9})
+    tr.event("span", phase="build", dur_s=0.5)
+    reg = JReg()
+    for r in range(1, 9):
+        if r % 4 == 1:
+            tr.event("span", phase="chunk", round=r + 3, dur_s=0.04,
+                     rounds=4)
+        tr.event("round", round=r, dur_s=0.01 * r, accuracy=0.5 + r / 100,
+                 loss_mean=1.0 / r, staleness_mean=r % 3,
+                 staleness_max=r % 4)
+        tr.event("async_tick", round=r, staleness_mean=r % 3,
+                 staleness_max=r % 4)
+        reg.histogram("staleness").observe_many([r % 3, r % 4])
+        reg.counter("rounds").inc()
+    tr.event("span", phase="eval", round=8, dur_s=0.02)
+    tr.event("span", phase="checkpoint", round=8, dur_s=0.03)
+    tr.event("early_stop", round=8)
+    tr.event("log", level="warning", msg="a warning")
+    tr.event("cohort_config", cohort_size=4, total_clients=16,
+             store="memory", sampling="uniform", cohorts_per_step=2,
+             store_apparent_bytes=1000)
+    tr.event("cohort_summary", rounds=8, cohort_size=4, total_clients=16,
+             touched_records=12, store_resident_bytes=600,
+             store_apparent_bytes=1000, prefetch_stalls=1)
+    tr.event("net_fault", fault="net_dup_frame", gateway=0, frame=3)
+    tr.event("autoscale_decision", round=1,
+             decisions=[{"kind": "hold", "n": 0, "reason": "steady"}])
+    tr.event("brand_new_kind", x=1)
+    reg.gauge("device_bytes_in_use").set(1234)
+    tr.counters(reg.snapshot())
+    tr.event("run_end", round=8, stopped_early=True, diverged=False)
+    tr.close()
+    with open(path, "a") as fh:
+        fh.write('{"v": 2, "kind": "round", "trunc')
+
+
+@functools.lru_cache(maxsize=None)
+def _report_sinks() -> dict:
+    """Sink name -> path(s): synthetic, a port run's, a fedtpu run's (the
+    same small income-2 config), and the timeline sim's two gateway sinks
+    (a fleet)."""
+    import tempfile
+    from fedtpu.orchestration.loop import run_experiment as j_run
+    from fedtpu_torch.orchestration.loop import run_experiment as t_run
+    from fedtpu_torch.telemetry.timeline_sim import simulate
+    d = tempfile.mkdtemp(prefix="t_report_")
+    _synthetic_sink(os.path.join(d, "synthetic.jsonl"))
+    for mod, run, name in ((jcfg, j_run, "fedtpu_run"),
+                           (tcfg, t_run, "port_run")):
+        cfg = mod.ExperimentConfig(
+            data=mod.DataConfig(csv_path=None, synthetic_rows=256),
+            shard=mod.ShardConfig(num_clients=2),
+            model=mod.ModelConfig(hidden_sizes=(8,)),
+            fed=mod.FedConfig(rounds=6),
+            run=mod.RunConfig(rounds_per_step=2, eval_test_every=3,
+                              telemetry=mod.TelemetryConfig(
+                                  events_path=os.path.join(
+                                      d, f"{name}.jsonl"))))
+        kw = {"device": "cpu"} if mod is tcfg else {}
+        run(cfg, verbose=False, **kw)
+    return {"synthetic": os.path.join(d, "synthetic.jsonl"),
+            "port_run": os.path.join(d, "port_run.jsonl"),
+            "fedtpu_run": os.path.join(d, "fedtpu_run.jsonl"),
+            "fleet": _fleet_sinks(d)}
+
+
+def _fleet_sinks(d) -> list:
+    """Two gateways' sinks (roles gateway-0 and gateway-1): each port
+    engine takes its shard of a small trace, drains and emits its summary
+    and counters, as a gateway's shutdown does."""
+    from fedtpu_torch.serving.engine import ServingEngine
+    from fedtpu_torch.serving.traces import synthesize_trace
+    from fedtpu_torch.telemetry.metrics import MetricsRegistry
+    from fedtpu_torch.telemetry.trace import Tracer
+    _, t, user, lat = synthesize_trace(200, 400, 4.0, seed=2)
+    paths = []
+    for g in range(2):
+        path = os.path.join(d, f"fleet.jsonl.g{g}")
+        tr = Tracer(path, role=f"gateway-{g}", process_index=g)
+        eng = ServingEngine(tcfg.ServingConfig(
+            cohort=4, buffer_size=2, data_rows=64, model_hidden=(8,)),
+            registry=MetricsRegistry(), tracer=tr, device="cpu")
+        tr.event("serve_start", port=0, cohort=4, buffer_size=2,
+                 resume=False, gateway=g, num_gateways=2, generation="x")
+        eng.offer_many([[int(u), float(a), float(b)]
+                        for u, a, b in zip(user, t, lat) if u % 2 == g])
+        eng.drain()
+        eng.emit_summary()
+        tr.close()
+        paths.append(path)
+    return paths
+
+
+@pytest.mark.parametrize("fmt", ["text", "json", "prometheus"])
+@pytest.mark.parametrize("sink", ["synthetic", "port_run", "fedtpu_run",
+                                  "fleet"])
+def test_report_renders_fedtpus_bytes(sink, fmt):
+    """render_report gives fedtpu's bytes on the same sink(s), in each
+    format (Prometheus: the second output)."""
+    from fedtpu.telemetry.report import render_report as j_render
+    from fedtpu_torch.telemetry.report import render_report as t_render
+    path = _report_sinks()[sink]
+    as_fmt = "text" if fmt == "prometheus" else fmt
+    j_out, t_out = j_render(path, fmt=as_fmt), t_render(path, fmt=as_fmt)
+    pick = 1 if fmt == "prometheus" else 0
+    assert t_out[pick] == j_out[pick]
+    assert len(t_out[pick]) > 300
+
+
+@pytest.mark.parametrize("name", sorted(tcfg.PRESETS))
+def test_config_digest_is_fedtpus(name):
+    """Equal configs, equal digests: every preset, and one with telemetry,
+    profile and cohort knobs set (no field differs by design)."""
+    from fedtpu.telemetry.manifest import config_digest as j_digest
+    from fedtpu_torch.telemetry.manifest import config_digest as t_digest
+    assert t_digest(tcfg.get_preset(name)) == j_digest(jcfg.get_preset(name))
+    kw = dict(profile_dir="p", profile_rounds=3)
+    t = tcfg.get_preset(name).replace(run=tcfg.RunConfig(
+        telemetry=tcfg.TelemetryConfig(events_path="e.jsonl"), **kw),
+        fed=tcfg.FedConfig(cohort_size=4))
+    j = jcfg.get_preset(name).replace(run=jcfg.RunConfig(
+        telemetry=jcfg.TelemetryConfig(events_path="e.jsonl"), **kw),
+        fed=jcfg.FedConfig(cohort_size=4))
+    assert t_digest(t) == j_digest(j) != t_digest(tcfg.get_preset(name))
+
+
+def _grouped_conv_backward(grad_out_shape, x_shape, w_shape, _bias,
+                           _stride, _padding, _dilation, transposed,
+                           _output_padding, groups, output_mask, out_shape,
+                           **kw):
+    """torch's convolution_backward flop formula with the weight
+    gradient's term divided by ``groups``: torch's counts a grouped
+    convolution's weight gradient as if every group saw every input
+    channel (``groups`` times the work)."""
+    from torch.utils import flop_counter
+    conv_flop_count = flop_counter.conv_flop_count
+    formula = flop_counter.conv_backward_flop
+    flops = getattr(formula, "__wrapped__", formula)(grad_out_shape, x_shape, w_shape, _bias,
+                               _stride, _padding, _dilation, transposed,
+                               _output_padding, groups, output_mask,
+                               out_shape)
+    if output_mask[1] and groups > 1:
+        def t(shape):
+            return [shape[1], shape[0]] + list(shape[2:])
+        wgrad = (conv_flop_count(t(grad_out_shape), t(x_shape),
+                                 t(w_shape), transposed=False)
+                 if transposed else
+                 conv_flop_count(t(x_shape), t(grad_out_shape), t(w_shape),
+                                 transposed=False))
+        flops -= wgrad - wgrad // groups
+    return flops
+
+
+@pytest.mark.parametrize("kind,local_steps", [("mlp", 1), ("mlp", 2),
+                                              ("convnet", 1),
+                                              ("convnet", 2)])
+def test_flops_per_round_is_the_flop_counters_count(kind, local_steps):
+    """The manifest's flops_per_round equals FlopCounterMode's count over
+    one plain round on the CPU (a small MLP; a small ConvNet, with the
+    grouped weight-gradient formula corrected: _grouped_conv_backward)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from fedtpu_torch.data.tabular import Dataset
+    from fedtpu_torch.orchestration.loop import build_experiment
+    from fedtpu_torch.telemetry.manifest import profile_entry
+    if kind == "mlp":
+        cfg = tcfg.ExperimentConfig(
+            data=tcfg.DataConfig(synthetic_rows=400),
+            shard=tcfg.ShardConfig(num_clients=3),
+            model=tcfg.ModelConfig(hidden_sizes=(16, 8)),
+            fed=tcfg.FedConfig(local_steps=local_steps))
+        ds = None
+    else:
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((120, 8 * 8 * 3)).astype(np.float32)
+        y = rng.integers(0, 10, 120).astype(np.int32)
+        ds = Dataset(x_train=x[:100], y_train=y[:100], x_test=x[100:],
+                     y_test=y[100:], num_classes=10,
+                     feature_names=tuple(map(str, range(192))),
+                     label_classes=np.arange(10))
+        cfg = tcfg.ExperimentConfig(
+            shard=tcfg.ShardConfig(num_clients=4),
+            model=tcfg.ModelConfig(kind="convnet", image_shape=(8, 8, 3),
+                                   conv_channels=(4, 8), hidden_sizes=(16,),
+                                   num_classes=10),
+            fed=tcfg.FedConfig(local_steps=local_steps))
+    exp = build_experiment(cfg, dataset=ds, device="cpu")
+    entry = profile_entry(exp.model, exp.state, exp.batch,
+                          exp.dataset.num_classes, local_steps, 0)
+    fix = {torch.ops.aten.convolution_backward: _grouped_conv_backward}
+    with FlopCounterMode(display=False, custom_mapping=fix) as fc:
+        exp.make_step(1).fn(exp.state, exp.batch, None, None)
+    assert entry["flops_per_round"] == fc.get_total_flops() > 0
+    assert entry["bytes_per_round_rule"] == ("state read once and written "
+                                             "once, batch read once")
+
+
+def test_bytes_per_round_counts_state_twice_and_batch_once():
+    from fedtpu_torch.telemetry.manifest import round_bytes
+    state = {"params": torch.zeros(2, 5), "opt_state": {
+        "mu": torch.zeros(2, 5), "count": torch.zeros(2, dtype=torch.int32)},
+        "round": 3}
+    batch = {"x": torch.zeros(2, 4, 3), "mask": torch.zeros(2, 4)}
+    assert round_bytes(state, batch) == 2 * (40 + 40 + 8) + (96 + 32)
+
+
+def test_manifest_names_the_backend_and_keeps_fedtpus_keys():
+    """build_manifest: fedtpu's keys, with torch_version in jax_version's
+    place (and no compilation_cache: the port keeps no compile cache),
+    backend 'cpu' on the CPU, the config hash fedtpu's."""
+    from fedtpu.telemetry.manifest import build_manifest as j_build
+    from fedtpu_torch.parallel.mesh import make_mesh
+    from fedtpu_torch.telemetry.manifest import build_manifest
+    t = build_manifest(cfg=tcfg.get_preset("income-8"),
+                       mesh=make_mesh(0, 8, "cpu"), device="cpu",
+                       extra={"program": "run"})
+    j = j_build(cfg=jcfg.get_preset("income-8"), extra={"program": "run"})
+    assert t["backend"] == "cpu" and t["device_kinds"] == ["cpu"]
+    assert t["device_count"] == 1 and t["mesh_shape"] == {"clients": 1}
+    assert t["package"] == "fedtpu_torch" and t["torch_version"]
+    assert t["config_hash"] == j["config_hash"]
+    assert t["config"] == j["config"]
+    assert set(j) - set(t) == {"jax_version", "compilation_cache"}
+    assert set(t) - set(j) == {"torch_version", "mesh_shape"}
+
+
+def test_device_memory_gauges_and_compile_probe():
+    """On the CPU there are no device gauges; compile_event counts the
+    port's compile events into the default registry (graph captures and
+    kernel builds, fedtpu's jax_compile_events in their place)."""
+    from fedtpu_torch.telemetry import metrics
+    reg = metrics.MetricsRegistry()
+    metrics.device_memory_gauges(reg, "cpu")
+    assert reg.snapshot()["gauges"] == {}
+    default = metrics.default_registry()
+    default.reset()
+    metrics.compile_event("graph_capture", 0.25)
+    metrics.compile_event("kernel_build", 2.0)
+    metrics.compile_event("graph_capture", 0.5)
+    assert default.snapshot()["counters"] == {
+        "graph_captures": 2.0, "graph_capture_secs": 0.75,
+        "kernel_builds": 1.0, "kernel_build_secs": 2.0}
+    default.reset()
+
+
+@functools.lru_cache(maxsize=None)
+def _timeline_artifacts() -> list:
+    """Every kind of artifact the timeline reads, named as a fleet names
+    them: an autoscale controller's sink ``events.jsonl``, two gateway
+    sinks ``events.jsonl.g<i>`` (the timeline sim's), a netproxy decision
+    log ``events.jsonl.g0.netlog`` and an autoscale decision log."""
+    import tempfile
+    from fedtpu_torch.autoscale.controller import simulate as auto_sim
+    from fedtpu_torch.autoscale.controller import write_decisions
+    from fedtpu_torch.resilience.net_sim import simulate as net_sim
+    from fedtpu_torch.telemetry.timeline_sim import simulate
+    from fedtpu_torch.telemetry.trace import Tracer
+    d = tempfile.mkdtemp(prefix="t_timeline_")
+    base = os.path.join(d, "events.jsonl")
+    simulate(events_dir=d, device="cpu")
+    for g in range(2):
+        os.replace(os.path.join(d, f"events.g{g}.jsonl"), f"{base}.g{g}")
+    tr = Tracer(base, run_id="auto", role="autoscale")
+    write_decisions(os.path.join(d, "decisions.jsonl"),
+                    auto_sim(tracer=tr)["lines"])
+    tr.close()
+    write_decisions(f"{base}.g0.netlog", net_sim(device="cpu")["lines"])
+    return [base, f"{base}.g0", f"{base}.g1", f"{base}.g0.netlog",
+            os.path.join(d, "decisions.jsonl")]
+
+
+@pytest.mark.parametrize("fmt", ["jsonl", "chrome"])
+def test_timeline_renders_fedtpus_bytes(fmt):
+    """render_timeline gives fedtpu's bytes on the same files; the
+    default_artifacts expansion finds the same siblings."""
+    from fedtpu.telemetry.timeline import (default_artifacts as j_expand,
+                                           render_timeline as j_render)
+    from fedtpu_torch.telemetry.timeline import (default_artifacts,
+                                                 render_timeline)
+    paths = _timeline_artifacts()
+    got = render_timeline(paths, fmt=fmt)
+    assert got == j_render(paths, fmt=fmt) and len(got) > 1000
+    expanded = default_artifacts(paths[0])
+    assert expanded == j_expand(paths[0])
+    assert sorted(expanded) == sorted(paths[:4])
+
+
+def test_port_timeline_sim_matches_the_committed_golden():
+    """The port's timeline sim (two port ServingEngines through the port's
+    _handle, on the CPU, replaying the pinned arrivals) renders the
+    committed golden's lines. Reads the golden."""
+    from fedtpu_torch.telemetry.timeline_sim import (compare_decisions,
+                                                     simulate)
+    sim = simulate(device="cpu")
+    res = compare_decisions(sim["lines"], os.path.join(
+        REPO, "tests", "goldens", "timeline_sim.jsonl"))
+    assert res["ok"], res["reason"]
+    assert sim["summary"]["retry_duplicate"]
+    assert sim["summary"]["retry_stages"][-2:] == ["client_stamp",
+                                                   "dedup_drop"]
+
+
+def test_timeline_sim_arrivals_file_is_the_synthesized_trace():
+    """The pinned arrivals are synthesize_trace's draw from the SIM_*
+    constants under this machine's numpy, bit for bit (the golden's)."""
+    from fedtpu_torch.serving.traces import synthesize_trace
+    from fedtpu_torch.telemetry import timeline_sim as ts
+    _, t, user, lat = synthesize_trace(ts.SIM_USERS, ts.SIM_ARRIVALS,
+                                       ts.SIM_HORIZON_S, seed=ts.SIM_SEED)
+    assert ts.sim_rows() == [[int(user[i]), float(t[i]), float(lat[i])]
+                             for i in range(len(t))]
+
+
+@pytest.mark.parametrize("fmt", ["text", "json"])
+def test_cli_report_prints_fedtpus_report_and_writes_prometheus(
+        tmp_path, capsys, fmt):
+    """``report`` prints fedtpu's report and writes its Prometheus file."""
+    from fedtpu.cli import main as j_main
+    from fedtpu_torch.cli import main as t_main
+    sink = _report_sinks()["port_run"]
+    outs = []
+    for main, sub in ((j_main, "j"), (t_main, "t")):
+        prom = tmp_path / f"{sub}.prom"
+        assert main(["report", sink, "--format", fmt,
+                     "--prometheus", str(prom)]) == 0
+        outs.append((capsys.readouterr().out, prom.read_text()))
+    assert outs[0] == outs[1]
+
+
+def test_cli_timeline_writes_fedtpus_rendering(tmp_path, capsys):
+    from fedtpu.cli import main as j_main
+    from fedtpu_torch.cli import main as t_main
+    paths = _timeline_artifacts()
+    for main, sub in ((j_main, "j"), (t_main, "t")):
+        assert main(["timeline", paths[0], "--expand", "--format", "chrome",
+                     "--output", str(tmp_path / f"{sub}.json")]) == 0
+    assert (tmp_path / "t.json").read_text() == \
+        (tmp_path / "j.json").read_text()
+    assert t_main(["timeline", *paths[1:3]]) == 0
+    assert capsys.readouterr().out.count('"chain"') > 10
+
+
+@pytest.mark.parametrize("command", ["run", "sweep", "parity"])
+def test_cli_telemetry_flags_set_fedtpus_fields(command):
+    """--events / --profile-dir / --profile-rounds set the same RunConfig
+    fields as fedtpu's parser."""
+    from fedtpu.cli import _apply_overrides, build_parser as j_parser
+    from fedtpu_torch.cli import build_parser, config_from_args
+    argv = [command, "--events", "ev.jsonl", "--profile-dir", "prof",
+            "--profile-rounds", "7"]
+    t = config_from_args(build_parser().parse_args(argv))
+    j_args = j_parser().parse_args(argv)
+    j = _apply_overrides(jcfg.get_preset(j_args.preset), j_args)
+    assert t.run.telemetry.events_path == j.run.telemetry.events_path \
+        == "ev.jsonl"
+    assert (t.run.profile_dir, t.run.profile_rounds) == \
+        (j.run.profile_dir, j.run.profile_rounds) == ("prof", 7)

@@ -5069,11 +5069,8 @@ def test_serving_unported_paths_raise_naming_their_items():
     from fedtpu_torch.serving.server import run_server
     cfg = tcfg.ServingConfig(**_serve_kw())
     for run in (run_server, run_gateway):
-        for kw, item in ((dict(events="x"), "A11"),
-                         (dict(heartbeat="x"), "A11")):
-            with pytest.raises(NotImplementedError,
-                               match=rf"\(ROADMAP {item}\)"):
-                run(cfg, device="cpu", verbose=False, **kw)
+        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A11\)"):
+            run(cfg, device="cpu", verbose=False, heartbeat="x")
 
 
 def test_serving_config_has_fedtpus_fields_and_defaults():
@@ -5386,3 +5383,375 @@ def test_serving_sigterm_drains_checkpoints_and_exits_75(tmp_path):
     assert rc == 75
     rounds = [p for p in os.listdir(ckpt) if p.startswith("round_")]
     assert rounds, "SIGTERM drain wrote no checkpoint"
+
+
+# ------------------------------------------ A11a: a run's events vs fedtpu
+# The same run on both packages writes the same sequence of (kind, phase,
+# round) and the same payload values, clocks and host timings aside. The
+# differences by design, named:
+# - fedtpu's ``compile`` spans (the first dispatch at each chunk width
+#   compiles its program); the port compiles none (its CUDA graphs'
+#   captures count in the counters, on the card);
+# - the manifest's backend fields (backend, device_count, device_kinds,
+#   torch_version for jax_version, no compilation_cache), its mesh (fedtpu
+#   runs its CPU tests on an 8-device virtual mesh) and its ``profile``
+#   (fedtpu's is XLA's cost model, the port's counts from the shapes,
+#   tests/test_torch_ops.py::test_flops_per_round_is_the_flop_counters_count)
+#   and fedtpu's ``audit`` entry (ROADMAP A11d);
+# - a cohort run's store bytes (the port's record layout) and touched
+#   records (the port's last chunk prefetches no next chunk);
+# - in the counters: fedtpu's jax_compile_events / jax_compile_secs, its
+#   live_array_* gauges on the CPU (the port sets device gauges on the card
+#   only) and checkpoint_bytes_written (the port's checkpoint is its flat
+#   state in torch.save files, not fedtpu's orbax pytree).
+_MANIFEST_SAME = ("argv", "config", "config_hash", "engine", "git_rev",
+                  "package_version", "process_count", "process_index",
+                  "program", "python_version", "restarts")
+_COUNTERS_FEDTPU_ONLY = {"jax_compile_events", "jax_compile_secs",
+                         "checkpoint_bytes_written"}
+_GAUGES_FEDTPU_ONLY = {"live_array_count", "live_array_bytes"}
+# Host timings, and the cohort store's bytes (its record layout), on both.
+_HOST_OR_LAYOUT = {"cohort_prefetch_stalls", "cohort_prefetch_stall_s",
+                   "client_store_resident_bytes",
+                   "client_store_apparent_bytes"}
+
+
+def _with_sink(cfg, mod, path, **run):
+    return cfg.replace(run=dataclasses.replace(
+        cfg.run, telemetry=mod.TelemetryConfig(events_path=path), **run))
+
+
+def _sink(path):
+    from fedtpu_torch.telemetry.report import load_events
+    events, bad = load_events(str(path))
+    assert bad == 0 and events
+    return events
+
+
+def _event_pair(j_cfg, t_cfg, tmp_path, **t_kw):
+    """fedtpu's run and the port's of the same config (the same events
+    path and checkpoint dir, each moved aside after fedtpu's run so the
+    two configs hash alike); returns (fedtpu's events, the port's events,
+    the port's result)."""
+    sink = str(tmp_path / "events.jsonl")
+    j_cfg, t_cfg = _with_sink(j_cfg, jcfg, sink), _with_sink(t_cfg, tcfg,
+                                                             sink)
+    j_run(j_cfg, verbose=False)
+    os.replace(sink, tmp_path / "fedtpu.jsonl")
+    ckdir = t_cfg.run.checkpoint_dir
+    if ckdir:
+        os.replace(ckdir, f"{ckdir}.fedtpu")
+    rt = t_run(t_cfg, verbose=False, device="cpu", **t_kw)
+    return _sink(tmp_path / "fedtpu.jsonl"), _sink(sink), rt
+
+
+def _assert_events_match(j_events, t_events):
+    j_events = [e for e in j_events
+                if not (e["kind"] == "span" and e["phase"] == "compile")]
+    key = [(e["kind"], e["phase"], e["round"]) for e in t_events]
+    assert key == [(e["kind"], e["phase"], e["round"]) for e in j_events]
+    for t, j in zip(t_events, j_events):
+        assert (t["v"], t["role"], t["process_index"]) == (2, "run", 0)
+        tp, jp = t["payload"], j["payload"]
+        if t["kind"] == "manifest":
+            assert {k: tp[k] for k in _MANIFEST_SAME} == \
+                {k: jp[k] for k in _MANIFEST_SAME}
+            assert tp["backend"] == "cpu" and tp["package"] == "fedtpu_torch"
+            assert set(tp["profile"]) >= {"flops_per_round",
+                                          "bytes_per_round",
+                                          "profile_rounds"}
+        elif t["kind"] == "counters":
+            def keep(d, drop):
+                return {k: v for k, v in d.items()
+                        if k not in drop | _HOST_OR_LAYOUT}
+            assert keep(tp["counters"], {"checkpoint_bytes_written"}) == \
+                keep(jp["counters"], _COUNTERS_FEDTPU_ONLY)
+            assert keep(tp["gauges"], set()) == keep(jp["gauges"],
+                                                     _GAUGES_FEDTPU_ONLY)
+            assert set(tp["gauges"]) == set(jp["gauges"]) \
+                - _GAUGES_FEDTPU_ONLY
+            assert tp["histograms"] == jp["histograms"]
+        elif t["kind"] in ("round", "cohort_round"):
+            assert set(tp) == set(jp)
+            for k, v in jp.items():
+                tol = 1e-5 if k == "loss_mean" else 1e-6
+                if k not in ("store_resident_bytes", "prefetch_stall_s"):
+                    assert tp[k] == pytest.approx(v, abs=tol), k
+        elif t["kind"] in ("cohort_config", "cohort_summary"):
+            # The store's bytes are its record layout's, and the port's
+            # last chunk prefetches (lazily initialises) no next chunk's
+            # members (ROADMAP §C); prefetch stalls are host timings.
+            drop = ("store_apparent_bytes", "store_resident_bytes",
+                    "touched_records", "prefetch_stalls")
+            assert {k: v for k, v in tp.items() if k not in drop} == \
+                {k: v for k, v in jp.items() if k not in drop}
+        else:
+            assert tp == jp, t["kind"]
+
+
+@pytest.mark.parametrize("case", ["income-2-R1", "income-2-R2-stop",
+                                  "async"])
+def test_run_events_match_fedtpu(case, tmp_path):
+    """A run's sink against fedtpu's sink of the same run (fedtpu's init,
+    masks and arrivals injected): income-2 narrow at R = 1 with held-out
+    evals and checkpoints, at R = 2 to an early stop, and --async."""
+    if case == "async":
+        j_cfg, t_cfg = _async_configs(rounds=6, async_buffer_size=4)
+        t_kw = dict(init_params=_anchors(j_cfg),
+                    arrival_masks=_arrival_draws(ARRIVAL_SEED, ARRIVAL_RATE))
+    else:
+        r2 = case.endswith("stop")
+        fed = dict(rounds=8, termination_patience=3,
+                   tolerance=1.0 if r2 else 1e-4)
+        run = (dict(rounds_per_step=2) if r2 else
+               dict(eval_test_every=4, checkpoint_every=4,
+                    checkpoint_dir=str(tmp_path / "ck")))
+        j_cfg, t_cfg = (m.ExperimentConfig(
+            data=m.DataConfig(csv_path=None, synthetic_rows=256),
+            shard=m.ShardConfig(num_clients=2),
+            model=m.ModelConfig(hidden_sizes=(8,)),
+            fed=m.FedConfig(**fed), run=m.RunConfig(**run))
+            for m in (jcfg, tcfg))
+        t_kw = dict(init_params=_fedtpu_init(j_cfg))
+    j_ev, t_ev, rt = _event_pair(j_cfg, t_cfg, tmp_path, **t_kw)
+    _assert_events_match(j_ev, t_ev)
+    kinds = [e["kind"] for e in t_ev]
+    assert kinds.count("round") == rt.rounds_run and kinds[-1] == "run_end"
+    if case == "async":
+        assert kinds.count("async_tick") == rt.rounds_run
+    elif case.endswith("stop"):
+        assert rt.stopped_early and "early_stop" in kinds
+    else:
+        spans = [e["phase"] for e in t_ev if e["kind"] == "span"]
+        assert spans.count("eval") == spans.count("checkpoint") == 2
+
+
+def test_cohort_events_match_fedtpu(tmp_path):
+    """A small cohort run's sink against fedtpu's: cohort_config, the
+    cohort_gather / cohort_writeback and chunk spans, a cohort_round a
+    round, cohort_summary, run_end and the counters."""
+    j_cfg, t_cfg = _cohort_configs(rounds=4, run=dict(rounds_per_step=2))
+    j_ev, t_ev, rt = _event_pair(
+        j_cfg, t_cfg, tmp_path, init_params=_fedtpu_population_init(j_cfg))
+    _assert_events_match(j_ev, t_ev)
+    spans = [e["phase"] for e in t_ev if e["kind"] == "span"]
+    assert spans.count("cohort_gather") == spans.count(
+        "cohort_writeback") == spans.count("chunk") == 2
+    assert [e["kind"] for e in t_ev].count("cohort_round") == rt.rounds_run
+
+
+@pytest.mark.parametrize("engine", ["sync", "async"])
+def test_events_on_is_bitwise_events_off(engine, tmp_path, capsys):
+    """With the sink on, the history and the params are bitwise those of
+    the run with it off, and stdout keeps every reference-parity line (the
+    timing suffix of the Global Metrics lines aside); the sink mirrors the
+    logger's info lines, never a parity line."""
+    if engine == "async":
+        _, cfg = _async_configs(rounds=6, async_buffer_size=4)
+        cfg = cfg.replace(run=dataclasses.replace(cfg.run, log_every=1))
+    else:
+        cfg = _configs()[1].replace(fed=tcfg.FedConfig(
+            rounds=12, termination_patience=3, tolerance=0.05))
+    outs, results = [], []
+    for path in (None, str(tmp_path / "ev.jsonl")):
+        res = t_run(_with_sink(cfg, tcfg, path, log_per_client=True),
+                    verbose=True, device="cpu")
+        results.append(res)
+        outs.append([line.split("  (")[0]
+                     for line in capsys.readouterr().out.splitlines()])
+    off, on = results
+    assert outs[0] == outs[1] and any("Global Metrics" in x
+                                      for x in outs[0])
+    assert on.rounds_run == off.rounds_run
+    for name in METRIC_NAMES:
+        assert on.global_metrics[name] == off.global_metrics[name]
+        assert on.pooled_metrics[name] == off.pooled_metrics[name]
+    for a, b in zip(on.loss + on.confusion, off.loss + off.confusion):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(jax.tree.leaves(on.final_params),
+                    jax.tree.leaves(off.final_params)):
+        np.testing.assert_array_equal(a, b)
+    logged = [e["payload"]["msg"] for e in _sink(tmp_path / "ev.jsonl")
+              if e["kind"] == "log"]
+    assert not any("Global Metrics" in m or "CLIENT" in m for m in logged)
+
+
+def test_checkpoint_counters_and_the_resume_event(tmp_path):
+    """Saves, restores and bytes are counted (the bytes: the saved state's
+    tensors), and a resumed run's sink holds a resume event at its
+    restored round."""
+    from fedtpu_torch.telemetry.metrics import tree_nbytes
+    ck = tmp_path / "ck"
+    _, cfg = _configs(checkpoint_dir=str(ck), checkpoint_every=4)
+    cfg = cfg.replace(fed=tcfg.FedConfig(rounds=8,
+                                         termination_patience=100))
+    first = tmp_path / "a.jsonl"
+    t_run(_with_sink(cfg, tcfg, str(first)), verbose=False, device="cpu")
+    counters = [e for e in _sink(first) if e["kind"] == "counters"][-1]
+    state, _, _ = ckpt.load_checkpoint_raw(str(ck), 8)
+    assert counters["payload"]["counters"]["checkpoint_saves"] == 2
+    assert counters["payload"]["counters"]["checkpoint_bytes_written"] == \
+        2 * tree_nbytes(state)
+    more = cfg.replace(fed=tcfg.FedConfig(rounds=12,
+                                          termination_patience=100))
+    second = tmp_path / "b.jsonl"
+    t_run(_with_sink(more, tcfg, str(second)), verbose=False, device="cpu",
+          resume=True)
+    events = _sink(second)
+    assert [(e["kind"], e["round"]) for e in events
+            if e["kind"] == "resume"] == [("resume", 8)]
+    c = [e for e in events if e["kind"] == "counters"][-1]["payload"]
+    assert c["counters"]["checkpoint_restores"] == 1
+    assert c["counters"]["checkpoint_saves"] == 1
+    assert [e["round"] for e in events if e["kind"] == "round"] == \
+        [9, 10, 11, 12]
+
+
+def test_sweep_writes_a_launch_span_per_launch(tmp_path):
+    """The grid's sink: the manifest, one launch span a launch (3 here:
+    vmap_arch off), the counters and sweep_end, as fedtpu's."""
+    from fedtpu.sweep.grid import run_grid_search as j_grid
+    from fedtpu_torch.sweep.grid import run_grid_search as t_grid
+    kw = dict(hidden_grid=((8,), (4,), (6, 4)), lr_grid=(0.01, 0.1),
+              local_steps=3, vmap_arch=False, overlap_compile=False,
+              verbose=False)
+    got = []
+    for mod, grid, extra in ((jcfg, j_grid, {}), (tcfg, t_grid,
+                                                  {"device": "cpu"})):
+        path = str(tmp_path / f"{mod.__name__}.jsonl")
+        cfg = mod.ExperimentConfig(
+            data=mod.DataConfig(csv_path=None, synthetic_rows=256),
+            shard=mod.ShardConfig(num_clients=2),
+            run=mod.RunConfig(telemetry=mod.TelemetryConfig(
+                events_path=path)))
+        grid(cfg, **kw, **extra)
+        got.append(_sink(path))
+    j_ev, t_ev = got
+    launches = [e for e in t_ev if e["phase"] == "launch"]
+    assert [e["round"] for e in launches] == [1, 2, 3]
+    assert [e["payload"]["architectures"] for e in launches] == [1, 1, 1]
+    assert [e["kind"] for e in t_ev][-2:] == ["counters", "sweep_end"]
+    counters = t_ev[-2]["payload"]["counters"]
+    assert counters == {"sweep_launches": 3.0, "sweep_configs": 6.0}
+    j_key = [(e["kind"], e["phase"], e["round"]) for e in j_ev
+             if not (e["kind"] == "span" and e["phase"] == "compile")]
+    assert [(e["kind"], e["phase"], e["round"]) for e in t_ev] == j_key
+    assert t_ev[-1]["payload"]["launch_count"] == \
+        j_ev[-1]["payload"]["launch_count"] == 3
+
+
+@pytest.mark.parametrize("rounds_k", [3, 0])
+def test_profile_window_events_and_its_chrome_trace(rounds_k, tmp_path):
+    """profile_rounds K > 0: the window opens at the first chunk end and
+    closes at the first chunk end covering >= K rounds, a
+    profile_window start and stop event each, one Chrome trace under
+    profile_dir; K = 0 traces the whole run (no window events)."""
+    _, cfg = _configs()
+    cfg = cfg.replace(fed=tcfg.FedConfig(rounds=10,
+                                         termination_patience=100))
+    path, prof = str(tmp_path / "ev.jsonl"), tmp_path / "prof"
+    res = t_run(_with_sink(cfg, tcfg, path, rounds_per_step=2,
+                           profile_dir=str(prof), profile_rounds=rounds_k),
+                verbose=False, device="cpu")
+    window = [(e["phase"], e["round"], e["payload"]["rounds"])
+              for e in _sink(path) if e["kind"] == "profile_window"]
+    traces = os.listdir(prof)
+    assert len(traces) == 1 and traces[0].endswith(".trace.json")
+    with open(prof / traces[0]) as fh:
+        assert json.load(fh)["traceEvents"]
+    if rounds_k:
+        assert window == [("start", 2, 3), ("stop", 6, 4)]
+        assert traces[0].startswith("rounds_2-6.")
+    else:
+        assert window == [] and traces[0].startswith(
+            f"rounds_0-{res.rounds_run}.")
+
+
+def test_serve_writes_its_sink_and_flushes_the_flight_recorder(tmp_path):
+    """run_server(events=...): role 'serve' on every line, the serve_start,
+    the engine's trace stages, its summary and serve_stop; the crash
+    barrier (_safe_handle) answers a handler's exception with an error
+    frame and flushes the flight recorder to events.crash.serve.jsonl
+    beside the sink."""
+    from fedtpu_torch.serving import server as t_server
+    from fedtpu_torch.serving.engine import ServingEngine
+    from fedtpu_torch.serving.loadgen import run_loadgen
+    from fedtpu_torch.telemetry.metrics import MetricsRegistry
+    from fedtpu_torch.telemetry.trace import Tracer
+    sink, pf = tmp_path / "serve.jsonl", tmp_path / "pf"
+    trace = str(tmp_path / "t.jsonl")
+    t_traces.write_trace(trace, *t_traces.synthesize_trace(
+        users=100, arrivals=200, seed=0))
+    box = {}
+    th = threading.Thread(target=lambda: box.update(res=t_server.run_server(
+        tcfg.ServingConfig(**_serve_kw()), events=str(sink),
+        port_file=str(pf), once=True, verbose=False, device="cpu")))
+    th.start()
+    try:
+        run_loadgen(trace, port_file=str(pf), timeout=60)
+    finally:
+        th.join(timeout=120)
+    assert not th.is_alive() and "res" in box
+    events = _sink(sink)
+    assert {e["role"] for e in events} == {"serve"}
+    kinds = [e["kind"] for e in events]
+    assert kinds[0] == "serve_start" and kinds[-1] == "counters"
+    assert {"serve_summary", "serve_stop", "serve_tick"} <= set(kinds)
+    stages = {e["phase"] for e in events if e["kind"] == "trace"}
+    assert {"client_stamp", "admit", "buffer_insert", "incorporate"} <= stages
+
+    def boom(engine, msg):
+        raise KeyError("boom")
+
+    tracer = Tracer(str(tmp_path / "crash-run.jsonl"), role="serve")
+    engine = ServingEngine(tcfg.ServingConfig(**_serve_kw()),
+                           registry=MetricsRegistry(), tracer=tracer,
+                           device="cpu")
+    resp = t_server._safe_handle(engine, {"op": "stats"}, tracer,
+                                 MetricsRegistry(), handler=boom)
+    tracer.close()
+    assert resp["op"] == "error" and "KeyError" in resp["reason"]
+    crash = tmp_path / "events.crash.serve.jsonl"
+    lines = [json.loads(x) for x in crash.read_text().splitlines()]
+    assert [x["kind"] for x in lines] == ["serve_handler_error",
+                                          "crash_flush"]
+    assert lines[-1]["payload"]["reason"] == "handler:'stats':KeyError"
+
+
+def test_cli_gateway_and_autoscale_write_role_scoped_sinks(tmp_path,
+                                                           capsys):
+    """``gateway --events`` in a fleet of two writes <events>.g<i> under
+    role gateway-<i>; ``autoscale --simulate --events`` writes its
+    decisions to its sink; ``report`` merges the fleet's two sinks."""
+    from fedtpu_torch.cli import main as t_main
+    from fedtpu_torch.serving.loadgen import run_loadgen
+    from fedtpu_torch.serving.protocol import gateway_port_file
+    ev, pf = str(tmp_path / "fleet.jsonl"), str(tmp_path / "pf")
+    trace = str(tmp_path / "t.jsonl")
+    t_traces.write_trace(trace, *t_traces.synthesize_trace(
+        users=100, arrivals=300, seed=1))
+    threads = [threading.Thread(target=t_main, args=([
+        "gateway", "--platform", "cpu", "--num-gateways", "2",
+        "--gateway-index", str(g), "--port-file", pf, "--events", ev,
+        "--once", "--cohort", "4", "--quiet"],)) for g in range(2)]
+    for th in threads:
+        th.start()
+    try:
+        for g in range(2):
+            from fedtpu_torch.serving.loadgen import read_port_file
+            read_port_file(gateway_port_file(pf, g), timeout=60)
+        run_loadgen(trace, port_file=pf, num_gateways=2, timeout=60)
+    finally:
+        for th in threads:
+            th.join(timeout=120)
+    for g in range(2):
+        assert {e["role"] for e in _sink(f"{ev}.g{g}")} == {f"gateway-{g}"}
+    capsys.readouterr()
+    assert t_main(["report", f"{ev}.g0", f"{ev}.g1", "--format",
+                   "json"]) == 0
+    merged = json.loads(capsys.readouterr().out)
+    assert merged["gateway_fleet"]["gateways"] == [0, 1]
+    auto = str(tmp_path / "auto.jsonl")
+    assert t_main(["autoscale", "--simulate", "--events", auto,
+                   "--quiet"]) == 0
+    assert any(e["kind"] == "autoscale_decision" for e in _sink(auto))
