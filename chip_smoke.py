@@ -4008,7 +4008,7 @@ def fleet_cli(directory: str, box: dict) -> None:
     (FLEET_KILL); ``loadgen --num-gateways 2 --synthesize`` (FLEET_TRACE's
     size) against them. When gateway 1 kills itself, it is relaunched with
     ``--resume`` and FEDTPU_RESTARTS=1, as a supervisor would (``fedtpu
-    supervise --gang``; the port's is ROADMAP A11). Runs on a thread of
+    supervise --gang``; the port's is ROADMAP A10). Runs on a thread of
     its own; its results land in ``box``."""
     from fedtpu_torch.serving.loadgen import read_port_file
     from fedtpu_torch.serving.protocol import gateway_port_file
@@ -5510,6 +5510,443 @@ def phase_telemetry() -> tuple:
     return by_path, numbers
 
 
+# Phase (t): the single-process resilience loop on the card (income-8 at
+# full width, 10,000 rows, R = RESIL_R, a checkpoint every 2 rounds).
+RESIL_ROUNDS = 20
+RESIL_R = 10
+RESIL_FAULT = 13            # 1-based: inside the second chunk
+RESIL_DELAY_S = 0.25        # the straggler's sleep
+RESIL_PAIRS = 3             # armed-plan vs no-plan s/round pairs
+# A card-vs-CPU loss difference forgiven the dropout run (phase 5's).
+RESIL_LOSS_TOL = 1e-4
+
+
+def resil_config(directory: str, tag: str, faults=None, rounds=RESIL_ROUNDS,
+                 **run):
+    """income-8 at full width for ``rounds`` rounds at R = RESIL_R with no
+    early stop, checkpoints every 2 rounds under ``directory/tag``, the
+    events sink ``directory/tag.jsonl`` and the fault plan ``faults`` (a
+    list of fedtpu's plan entries; None: no plan)."""
+    from fedtpu_torch.config import TelemetryConfig
+    base = main_path_config()
+    plan = (json.dumps({"seed": 0, "faults": faults}) if faults is not None
+            else None)
+    return base.replace(
+        fed=dataclasses.replace(base.fed, rounds=rounds,
+                                termination_patience=1000),
+        run=dataclasses.replace(
+            base.run, rounds_per_step=RESIL_R,
+            checkpoint_dir=os.path.join(directory, tag), checkpoint_every=2,
+            fault_plan=plan, telemetry=TelemetryConfig(
+                events_path=os.path.join(directory, f"{tag}.jsonl")),
+            **run))
+
+
+def resil_run(cfg, device: str = "cuda", **kw):
+    """One run with every launch count set to 0 just before it and read
+    just after (the card's). Returns (result, launches)."""
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration.loop import run_experiment
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    res = run_experiment(cfg, verbose=False, device=device, **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, dict(ck.LAUNCHES)
+
+
+def sink_kinds(path: str, kind: str) -> list:
+    return [e for e in read_sink(path) if e["kind"] == kind]
+
+
+def dropout_near_ties(k0: int, clients: list):
+    """``phase_card_vs_cpu``'s replay for a run whose round ``k0`` (0-based)
+    drops ``clients``: ``replay_near_ties`` with the dropout applied to
+    both sides' mask and data-size weights for that round."""
+    from fedtpu_torch.ops.optim import build_optimizer
+    from fedtpu_torch.orchestration.loop import build_experiment
+    from fedtpu_torch.resilience.faults import drop_clients
+    from fedtpu_torch.training.client import make_local_train_step
+
+    def replay(cfg, rounds: set) -> dict:
+        sides = []
+        for device in ("cpu", "cuda"):
+            exp = build_experiment(cfg, device=device)
+            sides.append({"exp": exp, "state": exp.state,
+                          "step": exp.make_step(1),
+                          "train": make_local_train_step(
+                              exp.model, build_optimizer(cfg.optim),
+                              cfg.fed.local_steps, cfg.fed.prox_mu)})
+        out = {}
+        for r in range(max(rounds) + 1):
+            saved = []
+            for side in sides:
+                b, w = side["exp"].batch, side["exp"].client_weights
+                saved.append((b["mask"].clone(), w.clone()))
+                if r == k0:
+                    drop_clients(b["mask"], clients, w)
+            if r in rounds:
+                logits = []
+                for side in sides:
+                    b, st = side["exp"].batch, side["state"]
+                    params, _, _ = side["train"](st["params"],
+                                                 st["opt_state"], b["x"],
+                                                 b["y"], b["mask"], None)
+                    logits.append(side["exp"].model.apply(params,
+                                                          b["x"]).cpu())
+                out[r] = near_ties(logits,
+                                   sides[0]["exp"].batch["mask"] > 0)
+            for side, (mask, w) in zip(sides, saved):
+                side["state"], _ = side["step"](side["state"],
+                                                side["exp"].batch)
+                side["exp"].batch["mask"].copy_(mask)
+                side["exp"].client_weights.copy_(w)
+        return out
+    return replay
+
+
+def resil_faults(directory: str, base) -> dict:
+    """Straggler, dropout (card vs CPU), NaN rollback (bitwise, launches
+    counted), exclusion (against the CPU) and the spent budget. Returns
+    the launches by path."""
+    k = RESIL_FAULT
+    # Straggler: timing only.
+    res, _ = resil_run(resil_config(directory, "straggler", [
+        {"kind": "straggler", "round": k, "clients": [0],
+         "delay_s": RESIL_DELAY_S}]))
+    diffs = same_history(base, res)
+    check(not diffs, f"straggler: differs from the baseline in {diffs}")
+    lap = res.sec_per_round[k - 1]
+    check(lap >= RESIL_DELAY_S, f"straggler: round {k}'s lap {lap} s below "
+          f"its {RESIL_DELAY_S} s delay")
+    print(f"resilience straggler (round {k}, {RESIL_DELAY_S} s): bitwise "
+          f"the baseline; the fault round's lap {lap:.4f} s; "
+          f"{CARD['smi']}", flush=True)
+
+    # Dropout: the card against the same plan on the CPU.
+    drop = [{"kind": "client_dropout", "round": k, "clients": [1]}]
+    cfg = resil_config(directory, "dropout", drop)
+    gpu, _ = resil_run(cfg)
+    check(not np.any(gpu.confusion[k - 1][1]),
+          f"dropout: client 1 has counts in round {k}")
+    prefix = all(gpu.global_metrics[m][:k - 1]
+                 == base.global_metrics[m][:k - 1]
+                 for m in base.global_metrics)
+    moved = any(gpu.global_metrics[m][k - 1] != base.global_metrics[m][k - 1]
+                for m in base.global_metrics)
+    check(prefix and moved, f"dropout: prefix bitwise {prefix}, round {k} "
+          f"moved {moved}")
+    phase_card_vs_cpu(resil_config(directory, "dropout-cpu", drop), gpu,
+                      label=f"resilience dropout (round {k}) card vs CPU",
+                      loss_tol=RESIL_LOSS_TOL,
+                      replay=dropout_near_ties(k - 1, [1]))
+
+    # NaN rollback: bitwise the uninterrupted run, K1/K2 counted.
+    nan = [{"kind": "nan_update", "round": k, "clients": [1]}]
+    cfg = resil_config(directory, "nan", nan, on_divergence="rollback")
+    res, launches = resil_run(cfg)
+    diffs = same_history(base, res)
+    check(not diffs, f"nan rollback: differs from the baseline in {diffs}")
+    rb = sink_kinds(cfg.run.telemetry.events_path, "rollback")
+    check(res.rollbacks == 1 and len(rb) == 1,
+          f"nan rollback: {res.rollbacks} rollbacks, {len(rb)} events")
+    replayed = rb[0]["round"] - rb[0]["payload"]["restored_round"]
+    for name in ("weighted_average_clients", "fused_eval_confusion"):
+        want = res.rounds_trained + replayed + res.warmup_rounds
+        check(launches[name] == want,
+              f"nan rollback: {name} launches {launches[name]} != rounds "
+              f"trained {res.rounds_trained} + replayed {replayed} + "
+              f"warm-up {res.warmup_rounds}")
+    print(f"resilience nan_update (round {k}) + rollback: bitwise the "
+          f"baseline, 1 rollback to round "
+          f"{rb[0]['payload']['restored_round']} ({replayed} round(s) "
+          f"replayed), launches {launches}, graph widths "
+          f"{sorted(res.graph_launches)}; {CARD['smi']}", flush=True)
+
+    # Exclusion: the excluded list against the CPU's.
+    excl = {}
+    for device in ("cuda", "cpu"):
+        cfg = resil_config(directory, f"exclude-{device}", nan,
+                           on_divergence="rollback", rollback_exclude=True)
+        r, _ = resil_run(cfg, device=device)
+        ev = sink_kinds(cfg.run.telemetry.events_path, "exclusion")
+        excl[device] = (r.rollbacks, [e["payload"]["clients"] for e in ev],
+                        r.rounds_run, r.diverged)
+    check(excl["cuda"] == excl["cpu"] == (1, [[1]], RESIL_ROUNDS, False),
+          f"rollback_exclude: card {excl['cuda']} vs CPU {excl['cpu']}")
+    print(f"resilience rollback_exclude: excluded {excl['cuda'][1]} on the "
+          "card and the CPU, one rollback each, no divergence", flush=True)
+
+    # The budget spent: a second divergence with one retry halts.
+    two = nan + [{"kind": "nan_update", "round": k + 4, "clients": [2]}]
+    cfg = resil_config(directory, "budget", two, on_divergence="rollback",
+                       rollback_retries=1)
+    res, _ = resil_run(cfg)
+    quarantine = os.path.join(cfg.run.checkpoint_dir, "diverged")
+    from fedtpu_torch.orchestration.checkpoint import complete_steps
+    check(res.diverged and res.rollbacks == 1
+          and complete_steps(quarantine),
+          f"budget: diverged {res.diverged}, rollbacks {res.rollbacks}, "
+          f"quarantine {complete_steps(quarantine)}")
+    print(f"resilience budget spent: halted at round {res.rounds_run} "
+          f"after 1 rollback, state under diverged/ round "
+          f"{complete_steps(quarantine)}", flush=True)
+    return {"income-8 R=10 nan_update + rollback": launches}
+
+
+def resumed_is(label: str, base, res, at: int) -> None:
+    """A run resumed at round ``at`` against the uninterrupted ``base``:
+    the client-mean history whole, the rest from ``at`` on, bitwise."""
+    check(res.global_metrics == base.global_metrics,
+          f"{label}: client-mean history differs")
+    tail = dataclasses.replace(
+        base, loss=base.loss[at:], confusion=base.confusion[at:],
+        pooled_metrics={k: v[at:] for k, v in base.pooled_metrics.items()},
+        test_metrics={k: v[at // 10:] for k, v in base.test_metrics.items()})
+    diffs = [d for d in same_history(res, tail) if d != "global_metrics"]
+    check(not diffs, f"{label}: differs from the baseline in {diffs}")
+
+
+def resil_drain_and_corrupt(directory: str, base) -> dict:
+    """The in-process SIGTERM drain and resume, the corrupt checkpoint's
+    fallback walk, and the heartbeat's statuses. Returns the drain
+    checkpoint's ms."""
+    import fedtpu_torch.orchestration.loop as loop_mod
+    from fedtpu_torch.resilience.supervisor import Preempted
+    k = RESIL_FAULT
+    cfg = resil_config(directory, "drain", [
+        {"kind": "process_kill", "round": k, "signal": "SIGTERM"}])
+    got = None
+    try:
+        resil_run(cfg)
+    except Preempted as p:
+        got = p.round
+    check(got == k, f"drain: Preempted at {got}, not {k}")
+    spans = [e for e in read_sink(cfg.run.telemetry.events_path)
+             if e["kind"] == "span" and e["phase"] == "checkpoint"
+             and e["round"] == k]
+    check(len(spans) == 1, f"drain: {len(spans)} checkpoints at round {k}")
+    drain_ms = spans[0]["dur_s"] * 1e3
+    res, _ = resil_run(with_run(cfg, fault_plan=None), resume=True)
+    resumed_is("drain + resume", base, res, k)
+    print(f"resilience SIGTERM drain at round {k}: checkpoint "
+          f"{drain_ms:.3f} ms, Preempted({k}); resumed bitwise the "
+          f"baseline; {CARD['smi']}", flush=True)
+
+    # ckpt_corrupt on the last round's checkpoint, then a resume that
+    # walks past it.
+    cfg = resil_config(directory, "corrupt", [
+        {"kind": "ckpt_corrupt", "round": 15}], rounds=15)
+    resil_run(cfg)
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res, _ = resil_run(with_fed(with_run(cfg, fault_plan=None),
+                                    rounds=RESIL_ROUNDS), resume=True)
+    walked = [w for w in caught if "failed to restore" in str(w.message)]
+    at = next(e["round"] for e in read_sink(cfg.run.telemetry.events_path)
+              if e["kind"] == "resume")
+    check(len(walked) == 1 and at < 14,
+          f"corrupt: {len(walked)} fallback warnings, resumed at {at}")
+    resumed_is("ckpt_corrupt + resume", base, res, at)
+    print(f"resilience ckpt_corrupt at round 15: the resume walked past "
+          f"round 14 to {at}, bitwise the baseline", flush=True)
+
+    # The heartbeat's statuses, every write recorded.
+    seen = []
+    real = loop_mod.write_heartbeat
+
+    def record(path, **payload):
+        seen.append((payload["status"], payload["round"]))
+        real(path, **payload)
+
+    loop_mod.write_heartbeat = record
+    try:
+        hb = os.path.join(directory, "hb")
+        resil_run(resil_config(directory, "heartbeat",
+                               heartbeat_file=hb))
+    finally:
+        loop_mod.write_heartbeat = real
+    want = ([("starting", 0)]
+            + [("running", r) for r in range(RESIL_R, RESIL_ROUNDS + 1,
+                                             RESIL_R)]
+            + [("done", RESIL_ROUNDS)])
+    from fedtpu_torch.resilience.supervisor import read_heartbeat
+    last = read_heartbeat(hb)
+    check(seen == want and last["status"] == "done",
+          f"heartbeat: {seen} (last file {last}), not {want}")
+    print(f"resilience heartbeat: {seen}", flush=True)
+    return {"drain_checkpoint_ms": drain_ms}
+
+
+def resil_numbers(directory: str) -> dict:
+    """s/round with an armed plan whose faults lie past the end against no
+    plan (alternating pairs, early stop on), a heartbeat write, and a
+    rollback's restore-and-copy."""
+    from fedtpu_torch.orchestration.checkpoint import load_checkpoint_fallback
+    from fedtpu_torch.orchestration.loop import (_copy_state_into,
+                                                 _restore_state,
+                                                 build_experiment)
+    from fedtpu_torch.resilience.supervisor import write_heartbeat
+    base = with_run(main_path_config(), rounds_per_step=RESIL_R)
+    last_round = base.fed.rounds
+    armed = with_run(base, fault_plan=json.dumps({"seed": 0, "faults": [
+        {"kind": "straggler", "round": last_round, "clients": [0],
+         "delay_s": RESIL_DELAY_S}]}))
+    s = {"none": [], "armed": []}
+    stops = set()
+    for _ in range(RESIL_PAIRS):
+        for tag, cfg in (("none", base), ("armed", armed)):
+            res, _ = resil_run(cfg)
+            check(res.stopped_early and res.rounds_run < last_round - RESIL_R,
+                  f"armed-plan pair: {tag} ran {res.rounds_run} rounds, "
+                  "into the fault's chunk")
+            stops.add(res.rounds_run)
+            s[tag].append(statistics.median(res.sec_per_round[1:]))
+    check(len(stops) == 1, f"armed-plan pairs stop at {stops}")
+    print(f"resilience s/round (median of rounds 2.., R={RESIL_R}, stop "
+          f"{stops}) no plan {s['none']} vs an armed plan past the end "
+          f"{s['armed']}; {CARD['smi']}", flush=True)
+
+    hb = os.path.join(directory, "hb-timing")
+    n = 2000
+    t0 = time.perf_counter()
+    for i in range(n):
+        write_heartbeat(hb, status="running", round=i, restarts=0)
+    hb_us = (time.perf_counter() - t0) / n * 1e6
+
+    cfg = resil_config(directory, "restore")
+    resil_run(cfg)
+    exp = build_experiment(cfg, device="cuda")
+    state = exp.state
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw, _, _ = load_checkpoint_fallback(cfg.run.checkpoint_dir)
+        _copy_state_into(state, _restore_state(raw, state, exp.device))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    restore_ms = statistics.median(times)
+    print(f"resilience: heartbeat write {hb_us:.2f} us, rollback restore "
+          f"and copy {restore_ms:.3f} ms (median of 5); {CARD['smi']}",
+          flush=True)
+    return {"sec_per_round_none": s["none"], "sec_per_round_armed": s["armed"],
+            "heartbeat_us": hb_us, "rollback_restore_ms": restore_ms}
+
+
+def resil_cli(directory: str) -> dict:
+    """Through the CLI on the card: the chaos matrix's five rows at
+    income-8's full width, beside it a diverging run under supervise (exit
+    3, not restarted), then alone a supervised SIGKILL restart timed from
+    the killed child's last heartbeat to the restarted child's first."""
+    import subprocess
+    cli = [sys.executable, "-m", "fedtpu_torch.cli"]
+    wd = os.path.join(directory, "chaos")
+    # The diverging run is timed by nothing: it runs beside the matrix.
+    ev = os.path.join(directory, "diverge.jsonl")
+    diverge = subprocess.Popen(cli + [
+        "supervise", "--max-restarts", "2", "--events", ev, "--quiet", "--",
+        "run", "--learning-rate", "1e38", "--rounds", "5",
+        "--synthetic-rows", "10000", "--quiet", "--json"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    t0 = time.perf_counter()
+    out = subprocess.run(cli + [
+        "chaos", "--platform", "default", "--num-clients", "8",
+        "--hidden-sizes", "50,200", "--synthetic-rows", "10000", "--quiet",
+        "--json", "--workdir", wd, "--keep-artifacts"],
+        capture_output=True, text=True, timeout=600)
+    chaos_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"chaos rc {out.returncode}: "
+          f"{out.stdout[-1500:]} {out.stderr[-1500:]}")
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    rows = {r["scenario"]: r for r in report["scenarios"]}
+    check(report["ok"] and sorted(rows) == sorted(
+        ("sigkill", "preempt", "nan_rollback", "dropout", "straggler")),
+        f"chaos: {report}")
+    for name in ("sigkill", "preempt"):
+        check(rows[name]["history_match"] and rows[name]["restarts"] >= 1,
+              f"chaos {name}: {rows[name]}")
+    print("resilience chaos (CLI, card, income-8 full width): "
+          + ", ".join(f"{n} ok={r['ok']} restarts={r['restarts']} "
+                      f"rollbacks={r['rollbacks']}" for n, r in rows.items())
+          + f" in {chaos_s:.1f} s; {CARD['smi']}", flush=True)
+
+    rc = diverge.wait(timeout=300)
+    kinds = [e["kind"] for e in read_sink(ev)]
+    check(rc == 3 and kinds.count("child_start") == 1
+          and "restart" not in kinds,
+          f"diverging run under supervise: rc {rc}, {kinds}")
+    print("resilience: a diverging run under supervise exits 3, one child, "
+          "no restart", flush=True)
+
+    hb = os.path.join(directory, "restart.hb")
+    proc = subprocess.Popen(cli + [
+        "supervise", "--max-restarts", "1", "--backoff", "0", "--quiet",
+        "--", "run", "--rounds", "10", "--synthetic-rows", "10000",
+        "--quiet", "--checkpoint-dir", os.path.join(directory, "restart"),
+        "--checkpoint-every", "2", "--heartbeat", hb, "--fault-plan",
+        json.dumps({"seed": 0, "faults": [
+            {"kind": "process_kill", "round": 6, "signal": "SIGKILL"}]})],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    beats = []
+    while proc.poll() is None:
+        try:
+            with open(hb) as fh:
+                b = json.load(fh)
+        except (OSError, ValueError):
+            b = None
+        if b and (not beats or beats[-1] != b):
+            beats.append(b)
+        time.sleep(0.002)
+    check(proc.returncode == 0, f"supervised restart: rc {proc.returncode}"
+          f" {proc.stderr.read()[-1500:]}")
+    pids = [b["pid"] for b in beats]
+    first, second = pids[0], next(p for p in pids if p != pids[0])
+    killed = [b for b in beats if b["pid"] == first][-1]
+    back = next(b for b in beats if b["pid"] == second
+                and b["status"] == "running")
+    restart_s = back["time"] - killed["time"]
+    check(killed["round"] == 5 and back["restarts"] == 1,
+          f"supervised restart: heartbeats {beats}")
+    print(f"resilience supervised restart: {restart_s:.3f} s from the killed "
+          f"child's last heartbeat (round {killed['round']}) to the "
+          f"restarted child's first chunk end (round {back['round']}); "
+          f"{CARD['smi']}", flush=True)
+    return {"chaos_cli_s": chaos_s, "supervised_restart_s": restart_s}
+
+
+def phase_resilience() -> tuple:
+    """Phase (t): the resilience loop on the card (the constants above).
+    Returns the launches by path and the phase's numbers."""
+    import tempfile
+    seconds, numbers = {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - clock[0], 2)
+        clock[0] = now
+
+    with tempfile.TemporaryDirectory() as directory:
+        base, base_launches = resil_run(resil_config(directory, "base"))
+        check(base.rounds_run == RESIL_ROUNDS and not base.diverged,
+              f"resilience baseline: {base.rounds_run} rounds")
+        by_path = resil_faults(directory, base)
+        by_path["income-8 R=10 resilience baseline"] = base_launches
+        lap("faults")
+        numbers.update(resil_drain_and_corrupt(directory, base))
+        lap("drain, corrupt, heartbeat")
+        numbers.update(resil_numbers(directory))
+        lap("numbers")
+        numbers.update(resil_cli(directory))
+        lap("CLI")
+    print(f"phase (t) seconds {json.dumps(seconds)}", flush=True)
+    numbers["seconds"] = seconds
+    return by_path, numbers
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
     clock, seconds = [time.perf_counter()], {}
@@ -5603,6 +6040,11 @@ def main() -> None:
     print(f"phase (s) numbers {json.dumps(telemetry, default=float)}",
           flush=True)
     lap("(s)")
+    resilience_launches, resilience = phase_resilience()
+    by_path.update(resilience_launches)
+    print(f"phase (t) numbers {json.dumps(resilience, default=float)}",
+          flush=True)
+    lap("(t)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3

@@ -21,6 +21,8 @@ with hand-written CUDA kernels in place of the JAX package's Pallas kernels
     fedtpu_torch.cohort         — the client store, the cohort engine
     fedtpu_torch.orchestration  — host round loop, early stopping, checkpoints,
                                   the privacy ledger
+    fedtpu_torch.resilience     — fault plans, the supervisor and its exit
+                                  codes, chaos, oracles, the wire faults
     fedtpu_torch.training       — local training, eval, personalization
     fedtpu_torch.sweep          — the hyperparameter grid, its .npz artifact
     fedtpu_torch.parity         — the sklearn MLPClassifier warm-start demo,

@@ -19,7 +19,7 @@ Two consumers of the same (SignalBus -> Policy) stack:
   block, reads gang heartbeat files for membership, and executes
   decisions through the serving ``configure``/``pre_drain`` protocol
   ops and SIGUSR1/SIGUSR2 to the gang supervisor (``fedtpu``'s reshard
-  notice path; the supervisor is ROADMAP A11). Preemption notices arrive
+  notice path; the gang supervisor is ROADMAP A10). Preemption notices arrive
   through a notice FILE (``{"victim": p}``), so a drill and a real
   maintenance hook share one mechanism.
 

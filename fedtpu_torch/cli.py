@@ -1,18 +1,26 @@
 """``python -m fedtpu_torch.cli {run,sweep,parity,presets,serve,gateway,
-loadgen,autoscale,report,timeline}``: the port's counterparts of ``fedtpu run`` (the
-synchronous engine, or with ``--async`` the asynchronous FedBuff one),
+loadgen,autoscale,report,timeline,supervise,chaos}``: the port's
+counterparts of ``fedtpu run`` (the synchronous engine, or with ``--async``
+the asynchronous FedBuff one; with ``--fault-plan``, ``--on-divergence``,
+``--heartbeat`` and ``--max-restarts``, its resilience knobs),
 ``fedtpu sweep`` (the hyperparameter grid), ``fedtpu parity`` (the sklearn
 ``MLPClassifier`` warm-start limitation demo), ``fedtpu presets`` (the
 shipped presets), ``fedtpu serve`` (the trace-driven serving front end on
 the driven asynchronous tick), ``fedtpu gateway`` (one member of the
 store-backed gateway fleet), ``fedtpu loadgen`` (replay an arrival trace
 against a running server or fleet), ``fedtpu autoscale`` (the SLO-driven
-control plane, simulated or live), and the offline readers of a telemetry
-sink, ``fedtpu report`` and ``fedtpu timeline``.
+control plane, simulated or live), the offline readers of a telemetry
+sink, ``fedtpu report`` and ``fedtpu timeline``, ``fedtpu supervise`` (one
+supervised child, restarted with ``--resume``) and ``fedtpu chaos`` (the
+single-process resilience scenario matrix).
+
+``run`` exits 0 when done, 3 (``EXIT_DIVERGED``) on a divergence halt and
+75 (``EXIT_PREEMPTED``) after a SIGTERM drain, as ``fedtpu``'s.
 
 Every flag is one that ``fedtpu.cli``'s parser also has, with the same
 meaning; ``--platform default`` means the GPU, ``--platform cpu`` the plain
-versions on the CPU.
+versions on the CPU. ``chaos`` adds ``--hidden-sizes`` and
+``--synthetic-rows`` (its runs' widths and rows; fedtpu's fixes hidden 16).
 """
 
 from __future__ import annotations
@@ -201,8 +209,7 @@ def _add_common_overrides(p: argparse.ArgumentParser) -> None:
 
 def _add_serving_flags(p: argparse.ArgumentParser) -> None:
     """``fedtpu``'s serve flag surface (every flag of its
-    ``_add_serving_flags``). ``--heartbeat`` raises when given (ROADMAP
-    A11)."""
+    ``_add_serving_flags``)."""
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (default 127.0.0.1; the "
                         "protocol is a same-host ingestion socket)")
@@ -301,8 +308,8 @@ def _add_serving_flags(p: argparse.ArgumentParser) -> None:
                         "'timeline'); a gateway fleet member writes "
                         "<events>.g<i>")
     p.add_argument("--heartbeat", default=None, metavar="FILE",
-                   help="liveness heartbeat file (not ported yet: "
-                        "ROADMAP A11)")
+                   help="liveness heartbeat file, rewritten at every loop "
+                        "wakeup (a gateway writes its per-member path)")
     p.add_argument("--once", action="store_true",
                    help="exit cleanly (drain + checkpoint) after "
                         "the first client connection closes — "
@@ -398,6 +405,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cohort-trace", default=None, metavar="JSONL",
                    help="serving trace whose arrival order drives "
                         "--cohort-sampling trace")
+    # run-only resilience knobs (fedtpu_torch.resilience).
+    p.add_argument("--fault-plan", default=None, metavar="JSON",
+                   help="deterministic fault schedule: a JSON file path or "
+                        "inline JSON object (seeded; fedtpu's schema)")
+    p.add_argument("--on-divergence", choices=["halt", "rollback"],
+                   default=None,
+                   help="non-finite guard policy: 'halt' (quarantine + "
+                        "stop, the default) or 'rollback' (restore the "
+                        "latest good checkpoint and retry; needs "
+                        "--checkpoint-dir and --checkpoint-every)")
+    p.add_argument("--rollback-retries", type=_nonnegative_int,
+                   default=None,
+                   help="rollback retry budget for the whole run "
+                        "(default 2); exhausted -> halt as usual")
+    p.add_argument("--rollback-exclude", action="store_true",
+                   help="on rollback, permanently exclude the offending "
+                        "client(s) from aggregation (mask weight 0; needs "
+                        "--weighting data_size)")
+    p.add_argument("--rollback-perturb", type=_nonnegative_float,
+                   default=None,
+                   help="relative parameter perturbation applied from the "
+                        "SECOND rollback retry on (default 1e-6; the first "
+                        "retry is always a pure replay)")
+    p.add_argument("--heartbeat", default=None, metavar="FILE",
+                   help="liveness heartbeat file the loop rewrites "
+                        "atomically every chunk ('supervise "
+                        "--hang-timeout' watches its mtime)")
+    p.add_argument("--max-restarts", type=_positive_int, default=None,
+                   help="self-supervise: run as a child process "
+                        "auto-restarted with --resume up to N times on "
+                        "crash/preemption (shorthand for 'supervise -- run "
+                        "...')")
 
     s = sub.add_parser("sweep", help="federated hyperparameter grid")
     _add_common_overrides(s)
@@ -643,6 +682,95 @@ def build_parser() -> argparse.ArgumentParser:
     report_p.add_argument("--num-processes", type=_positive_int, default=1,
                           help="gang size for --heartbeat (per-process "
                                "files <base>.p<i>; default 1)")
+    # Process supervision: restart on crash/preemption with --resume. The
+    # parent imports neither torch nor numpy: it only starts children, so
+    # a restart never holds a second CUDA context on the card.
+    sup_p = sub.add_parser("supervise",
+                           help="run a command of this CLI as a supervised "
+                                "child: auto-restart with --resume on "
+                                "crash/preemption")
+    sup_p.add_argument("--num-processes", type=_positive_int, default=1,
+                       help="launch the child as a gang of N processes "
+                            "(not ported yet beyond 1: ROADMAP A10)")
+    sup_p.add_argument("--max-restarts", type=_nonnegative_int, default=2,
+                       help="restart budget (default 2); divergence "
+                            "(exit 3) is never restarted")
+    sup_p.add_argument("--backoff", type=_nonnegative_float, default=1.0,
+                       help="crash-restart backoff base in seconds, "
+                            "doubled per restart (default 1.0; preemption "
+                            "restarts — exit 75 — skip backoff)")
+    sup_p.add_argument("--backoff-max", type=_nonnegative_float,
+                       default=30.0,
+                       help="backoff ceiling in seconds (default 30)")
+    sup_p.add_argument("--grace", type=_nonnegative_float, default=15.0,
+                       help="seconds a SIGTERM'd child gets to drain its "
+                            "checkpoint before SIGKILL (default 15)")
+    sup_p.add_argument("--healthy-window", type=_nonnegative_float,
+                       default=300.0,
+                       help="a child that stays up this many seconds is "
+                            "considered healthy again: the crash streak "
+                            "driving exponential backoff resets (default "
+                            "300; 0 never resets)")
+    sup_p.add_argument("--hang-timeout", type=_nonnegative_float,
+                       default=None,
+                       help="SIGKILL + restart the child when its "
+                            "--heartbeat file goes stale for this many "
+                            "seconds (default: no hang detection)")
+    sup_p.add_argument("--heartbeat", default=None, metavar="FILE",
+                       help="heartbeat file (auto-appended to 'run' "
+                            "children; required for --hang-timeout)")
+    sup_p.add_argument("--events", default=None, metavar="JSONL",
+                       help="append supervisor events (child_start/"
+                            "child_exit/restart) to this sink — point it "
+                            "at the child's --events file for one merged "
+                            "timeline")
+    sup_p.add_argument("--quiet", action="store_true",
+                       help="suppress supervisor status lines")
+    sup_p.add_argument("child", nargs=argparse.REMAINDER,
+                       help="the supervised command, after '--': e.g. "
+                            "supervise -- run --rounds 100 "
+                            "--checkpoint-dir d --checkpoint-every 10")
+
+    # The chaos drill: the scenario matrix end to end, every scenario run
+    # a child process; the parent stays torch-free like supervise.
+    from fedtpu_torch.resilience.chaos import scenarios_help
+    chaos_p = sub.add_parser("chaos",
+                             help="execute the resilience scenario matrix "
+                                  "(kill/preempt/NaN/dropout/straggler) "
+                                  "and report per-scenario recovery")
+    chaos_p.add_argument("--scenarios", default=None, metavar="A,B",
+                         help=scenarios_help())
+    chaos_p.add_argument("--rounds", type=_positive_int, default=10,
+                         help="rounds per scenario run (default 10)")
+    chaos_p.add_argument("--num-clients", type=_positive_int, default=4,
+                         help="synthetic clients per run (default 4)")
+    chaos_p.add_argument("--hidden-sizes", type=_hidden_sizes,
+                         default=(16,),
+                         help="the runs' hidden widths (default 16, "
+                              "fedtpu's; 50,200 is the income presets' "
+                              "full width)")
+    chaos_p.add_argument("--synthetic-rows", type=_positive_int,
+                         default=None,
+                         help="the runs' synthetic rows (default: the "
+                              "preset's)")
+    chaos_p.add_argument("--workdir", default=None, metavar="DIR",
+                         help="scenario artifact directory (default: a "
+                              "temp dir, removed unless --keep-artifacts)")
+    chaos_p.add_argument("--keep-artifacts", action="store_true",
+                         help="keep per-scenario checkpoints/metrics/"
+                              "events for inspection")
+    chaos_p.add_argument("--timeout", type=_positive_int, default=600,
+                         help="per-child-run timeout in seconds "
+                              "(default 600)")
+    chaos_p.add_argument("--platform", choices=["default", "cpu"],
+                         default="default",
+                         help="platform for the child runs (default: the "
+                              "GPU; cpu runs the plain versions)")
+    chaos_p.add_argument("--json", action="store_true",
+                         help="print the matrix report as one JSON line")
+    chaos_p.add_argument("--quiet", action="store_true",
+                         help="suppress per-scenario progress lines")
+
     timeline_p = sub.add_parser(
         "timeline",
         help="merge events JSONL sinks + netproxy *.netlog + autoscale "
@@ -775,6 +903,14 @@ def config_from_args(args):
             run.telemetry, events_path=args.events))
     if args.log_per_client:
         run = dataclasses.replace(run, log_per_client=True)
+    for flag in ("fault_plan", "on_divergence", "rollback_retries",
+                 "rollback_perturb"):
+        if getattr(args, flag, None) is not None:
+            run = dataclasses.replace(run, **{flag: getattr(args, flag)})
+    if getattr(args, "rollback_exclude", False):
+        run = dataclasses.replace(run, rollback_exclude=True)
+    if getattr(args, "heartbeat", None) is not None:
+        run = dataclasses.replace(run, heartbeat_file=args.heartbeat)
     return cfg.replace(data=data, shard=shard, model=model, optim=optim,
                        fed=fed, run=run)
 
@@ -876,8 +1012,8 @@ def serving_config_from_args(args):
 def serve_main(args) -> int:
     """``fedtpu``'s ``serve`` handler: serve until the connection closes
     (``--once``) or SIGTERM (drain, checkpoint, exit 75)."""
-    from fedtpu_torch.serving.server import (EXIT_PREEMPTED, Preempted,
-                                             run_server)
+    from fedtpu_torch.resilience.supervisor import EXIT_PREEMPTED, Preempted
+    from fedtpu_torch.serving.server import run_server
     try:
         summary = run_server(
             serving_config_from_args(args), events=args.events,
@@ -902,8 +1038,8 @@ def gateway_main(args) -> int:
     """``fedtpu``'s ``gateway`` handler: one fleet member, serve's flags
     plus the fleet's, until the connection closes (``--once``) or SIGTERM
     (drain, checkpoint, exit 75)."""
+    from fedtpu_torch.resilience.supervisor import EXIT_PREEMPTED, Preempted
     from fedtpu_torch.serving.gateway import run_gateway
-    from fedtpu_torch.serving.server import EXIT_PREEMPTED, Preempted
     try:
         summary = run_gateway(
             serving_config_from_args(args), gateway_index=args.gateway_index,
@@ -1032,8 +1168,68 @@ def timeline_main(args) -> int:
     return 0
 
 
+def _strip_flag(argv, flag):
+    """argv minus ``flag`` (both ``--f V`` and ``--f=V`` spellings)."""
+    out, skip = [], False
+    for tok in argv:
+        if skip:
+            skip = False
+            continue
+        if tok == flag:
+            skip = True
+            continue
+        if tok.startswith(flag + "="):
+            continue
+        out.append(tok)
+    return out
+
+
+def supervise_main(args) -> int:
+    """``fedtpu``'s ``supervise`` handler for one child."""
+    from fedtpu_torch.resilience.supervisor import supervise
+    child = list(args.child)
+    if child and child[0] == "--":
+        child = child[1:]
+    if not child:
+        raise SystemExit(
+            "supervise: give the child command after '--', e.g. supervise "
+            "-- run --rounds 100 --checkpoint-dir d --checkpoint-every 10")
+    if args.num_processes > 1:
+        from fedtpu_torch.config import _not_ported
+        _not_ported(f"supervise --num-processes {args.num_processes} (the "
+                    "gang supervisor)", "A10")
+    return supervise(child, max_restarts=args.max_restarts,
+                     backoff_base=args.backoff, backoff_max=args.backoff_max,
+                     grace=args.grace, hang_timeout=args.hang_timeout,
+                     heartbeat=args.heartbeat, events=args.events,
+                     healthy_window=args.healthy_window,
+                     verbose=not args.quiet)
+
+
+def chaos_main(args) -> int:
+    """``fedtpu``'s ``chaos`` handler: every scenario run is a child
+    process (``--platform`` applies to the children)."""
+    from fedtpu_torch.resilience.chaos import run_chaos
+    scenarios = ([s.strip() for s in args.scenarios.split(",") if s.strip()]
+                 if args.scenarios else None)
+    report = run_chaos(scenarios=scenarios, rounds=args.rounds,
+                       num_clients=args.num_clients,
+                       hidden_sizes=args.hidden_sizes,
+                       synthetic_rows=args.synthetic_rows,
+                       workdir=args.workdir,
+                       keep_artifacts=args.keep_artifacts,
+                       timeout=args.timeout, platform=args.platform,
+                       verbose=not args.quiet)
+    if args.json:
+        print(json.dumps(report, default=float))
+    return 0 if report["ok"] else 1
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    # The raw argv is kept so that `run --max-restarts N` can re-issue this
+    # invocation as a supervised child, the flag stripped.
+    raw_argv = list(argv) if argv is not None else sys.argv[1:]
+    args = build_parser().parse_args(raw_argv)
     if args.command == "presets":
         print_presets()
         return 0
@@ -1049,6 +1245,18 @@ def main(argv=None) -> int:
         return gateway_main(args)
     if args.command == "autoscale":
         return autoscale_main(args)
+    if args.command == "supervise":
+        return supervise_main(args)
+    if args.command == "chaos":
+        return chaos_main(args)
+    if args.command == "run" and args.max_restarts:
+        # Self-supervision: this run as a supervised child; stripping the
+        # flag keeps the child from starting another supervisor.
+        from fedtpu_torch.resilience.supervisor import supervise
+        return supervise(_strip_flag(raw_argv, "--max-restarts"),
+                         max_restarts=args.max_restarts,
+                         heartbeat=args.heartbeat, events=args.events,
+                         verbose=not args.quiet)
     cfg = config_from_args(args)
     device = "cpu" if args.platform == "cpu" else "cuda"
     if args.command in ("sweep", "parity"):
@@ -1064,16 +1272,27 @@ def main(argv=None) -> int:
             print(json.dumps(summary, default=float))
         return 0
     from fedtpu_torch.orchestration.loop import run_experiment
-    result = run_experiment(cfg, verbose=not args.quiet, device=device,
-                            resume=args.resume)
+    from fedtpu_torch.resilience.supervisor import (EXIT_DIVERGED,
+                                                    EXIT_PREEMPTED, Preempted)
+    try:
+        result = run_experiment(cfg, verbose=not args.quiet, device=device,
+                                resume=args.resume)
+    except Preempted as p:
+        # The SIGTERM drain completed: the state is checkpointed and the
+        # run resumable, the supervisor's "restart me" code.
+        if args.json:
+            print(json.dumps({"preempted": True, "round": p.round}))
+        return EXIT_PREEMPTED
     summary = result.summary()
     if args.json:
-        print(json.dumps(summary))
+        print(json.dumps(summary, default=float))
     elif not args.quiet:
         print(f"\nrounds run: {summary['rounds_run']}  stopped early: "
               f"{summary['stopped_early']}  mean s/round: "
               f"{summary['mean_sec_per_round']:.3e}")
-    return 1 if result.diverged else 0
+    # A divergence halt replays deterministically: 3 tells a supervisor
+    # not to restart it.
+    return EXIT_DIVERGED if result.diverged else 0
 
 
 if __name__ == "__main__":

@@ -699,10 +699,10 @@ class CohortScheduler:
 def _validate_cohort_config(cfg) -> None:
     """The cohort engine runs the plain-FedAvg path only (the parity
     contract); every composition its chunk does not reproduce is refused
-    with ``fedtpu``'s words. ``model_parallel``, ``on_divergence`` and
-    ``fault_plan`` off their defaults are refused by the port's
-    ``RunConfig`` first (ROADMAP A10 / A11); the checks stay here for a
-    config built around it."""
+    with ``fedtpu``'s words, a fault plan and rollback among them.
+    ``model_parallel`` off its default is refused by the port's
+    ``RunConfig`` first (ROADMAP A10); its check stays here for a config
+    built around it."""
     fed = cfg.fed
     if fed.cohort_size > cfg.shard.num_clients:
         raise ValueError(

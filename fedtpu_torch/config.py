@@ -271,17 +271,23 @@ class RunConfig:
     profile_rounds: int = 0
     # The events sink, the manifest and the logger's level.
     telemetry: TelemetryConfig = TelemetryConfig()
-    # Not ported yet: each must stay at its default (_RUN_ITEMS).
-    mpmd: bool = False
-    model_parallel: int = 1
-    compilation_cache: Optional[str] = None
-    overlap_compile: bool = False
+    # Resilience (fedtpu_torch.resilience): a deterministic fault plan (a
+    # JSON path or inline object), the divergence policy ('halt' or
+    # 'rollback' to the newest loadable checkpoint, a retry budget per run,
+    # the offenders excluded at weight 0, a relative perturbation from the
+    # second retry on), and the liveness heartbeat file rewritten every
+    # chunk. Validated by run_experiment before any build, as fedtpu's.
     fault_plan: Optional[str] = None
     on_divergence: str = "halt"
     rollback_retries: int = 2
     rollback_exclude: bool = False
     rollback_perturb: float = 1e-6
     heartbeat_file: Optional[str] = None
+    # Not ported yet: each must stay at its default (_RUN_ITEMS).
+    mpmd: bool = False
+    model_parallel: int = 1
+    compilation_cache: Optional[str] = None
+    overlap_compile: bool = False
     collective_timeout: Optional[float] = None
 
     def __post_init__(self):
@@ -295,9 +301,7 @@ class RunConfig:
 # RunConfig's knobs of paths not ported yet -> the ROADMAP item of each.
 _RUN_ITEMS = {
     **dict.fromkeys(("mpmd", "model_parallel", "collective_timeout"), "A10"),
-    **dict.fromkeys(("compilation_cache", "overlap_compile", "fault_plan",
-                     "on_divergence", "rollback_retries", "rollback_exclude",
-                     "rollback_perturb", "heartbeat_file"), "A11"),
+    **dict.fromkeys(("compilation_cache", "overlap_compile"), "A11c"),
 }
 
 

@@ -37,6 +37,12 @@ def _ckpt_path(directory: str, step: int) -> str:
     return os.path.join(os.path.abspath(directory), f"round_{step:06d}")
 
 
+def state_file(directory: str, step: int) -> str:
+    """The state archive of round ``step`` (``<dir>/round_<step>/state``):
+    what a ``ckpt_corrupt`` fault truncates and the fallback walk skips."""
+    return os.path.join(_ckpt_path(directory, step), "state")
+
+
 def _to_cpu(tree):
     """A copy of ``tree`` with every tensor on the CPU (numbers kept)."""
     if isinstance(tree, dict):

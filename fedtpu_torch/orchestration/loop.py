@@ -55,8 +55,22 @@ the sink); the reference-parity lines are printed byte for byte and never
 mirrored. Telemetry adds host work only: the history and the params are
 bitwise those of a run with it off.
 
-Not ported (ROADMAP A11b, A10): fault injection, the SIGTERM drain,
-``on_divergence='rollback'`` and multi-process resume agreement.
+Resilience (``fedtpu_torch.resilience``) as ``fedtpu``'s loop applies it:
+``RunConfig.fault_plan``'s injector shrinks a chunk so that a fault round
+runs as its own width-1 dispatch and applies its faults around it, in
+place, since the state, the mask and the data-size weights are static
+inputs of the round's CUDA graph (the client-mean metrics use each round's
+own mask); with a checkpoint dir, SIGTERM sets a flag that the loop top
+turns into a drain checkpoint and ``Preempted`` (the CLI exits 75);
+``heartbeat_file`` is rewritten atomically at start, at every chunk end
+and at the end; ``on_divergence='rollback'`` restores the newest loadable
+checkpoint into the live state tensors (no re-capture), truncates every
+history, optionally excludes the offending clients at weight 0
+(``rollback_exclude``) and perturbs the params from the second retry on.
+The ``fault``, ``rollback``, ``exclusion`` and ``preempted`` events, their
+counters and the manifest's plan digest go to the sink. Not ported
+(ROADMAP A10): the elastic reshard's fault kinds and multi-process resume
+agreement.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
 with no GPU and no such request they raise rather than fall back.
@@ -68,13 +82,15 @@ import dataclasses
 import json
 import math
 import os
+import signal
+import threading
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from fedtpu_torch.config import ExperimentConfig
+from fedtpu_torch.config import ExperimentConfig, _not_ported
 from fedtpu_torch.convert import params_from_jax, params_to_numpy
 from fedtpu_torch.data import load_dataset
 from fedtpu_torch.data.sharding import pack_clients
@@ -99,6 +115,8 @@ from fedtpu_torch.parallel.round import (assemble_metrics, build_eval_fn,
                                          check_knobs, global_params,
                                          init_federated_state, pack_outputs,
                                          unpack_outputs, warm_up_round)
+from fedtpu_torch.resilience.distributed import heartbeat_path_for
+from fedtpu_torch.resilience.supervisor import Preempted, write_heartbeat
 from fedtpu_torch.telemetry.log import TelemetryLogger
 from fedtpu_torch.telemetry.manifest import build_manifest, profile_entry
 from fedtpu_torch.telemetry.metrics import (default_registry,
@@ -177,6 +195,8 @@ class ExperimentResult:
     # "chunk_stats", each chunk's host and device times
     # (CohortScheduler.chunk_stats). Empty for the other engines.
     cohort: dict = dataclasses.field(default_factory=dict)
+    # Divergence rollbacks the run made (on_divergence='rollback').
+    rollbacks: int = 0
 
     def summary(self) -> dict:
         warm = max(1, self.config.run.rounds_per_step)
@@ -342,6 +362,52 @@ def check_async_config(fed) -> None:
     if fed.aggregation != "psum":
         raise ValueError("async_mode uses the psum aggregation path "
                          "only")
+
+
+def check_resilience_config(cfg: ExperimentConfig) -> None:
+    """``fedtpu``'s validation of the resilience knobs, with its messages
+    (``fedtpu/orchestration/loop.py:578-606``), before any build work."""
+    run = cfg.run
+    if run.on_divergence not in ("halt", "rollback"):
+        raise ValueError("on_divergence must be 'halt' or 'rollback', got "
+                         f"{run.on_divergence!r}")
+    if run.on_divergence == "rollback":
+        if not (run.checkpoint_dir and run.checkpoint_every > 0):
+            raise ValueError("on_divergence='rollback' needs a restore "
+                             "point: set checkpoint_dir and "
+                             "checkpoint_every > 0")
+        if run.pipelined_stop:
+            raise ValueError(
+                "on_divergence='rollback' is incompatible with "
+                "pipelined_stop: the pipelined divergence guard fires one "
+                "in-flight chunk late, after the restore point's successor "
+                "chunk already dispatched")
+    if run.rollback_exclude:
+        if run.on_divergence != "rollback":
+            raise ValueError("rollback_exclude requires "
+                             "on_divergence='rollback'")
+        if cfg.fed.async_mode:
+            raise ValueError("rollback_exclude requires the synchronous "
+                             "engines: exclusion zeroes the sample mask, "
+                             "which the async arrival process ignores")
+        if cfg.fed.weighting != "data_size":
+            raise ValueError(
+                "rollback_exclude requires weighting='data_size': a "
+                "zero-mask client has aggregation weight mask.sum()=0 only "
+                "under data-size weighting (under 'uniform' it would still "
+                "average in at weight 1)")
+
+
+def _copy_state_into(live: dict, restored: dict) -> None:
+    """A restored state's values into the live state's tensors, in place
+    (the captured graphs read those tensors), its numbers assigned."""
+    for k, v in restored.items():
+        if isinstance(v, dict):
+            _copy_state_into(live[k], v)
+        elif isinstance(v, torch.Tensor):
+            live[k].copy_(v)
+        else:
+            live[k] = v
 
 
 def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
@@ -611,6 +677,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                                      resume=resume, device=device,
                                      capture=capture,
                                      init_params=init_params)
+    # The resilience knobs first: a bad combination fails before a build.
+    check_resilience_config(cfg)
     tel = cfg.run.telemetry
     # One process: the configured sink (a peer of a multi-process run
     # would write <events>.p<i>, ROADMAP A10).
@@ -630,18 +698,55 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         raise ValueError(f"capture=True needs the card; the run is on {dev}")
     ds, state, batch = exp.dataset, exp.state, exp.batch
     num_clients, num_classes = cfg.shard.num_clients, ds.num_classes
-    mask_host = batch["mask"].cpu()
+    # The host's copy of the sample mask (the client-mean metrics' empty
+    # shards): its own tensor, since faults edit the device mask in place.
+    mask_host = batch["mask"].cpu().clone()
     x_test = torch.from_numpy(ds.x_test).to(dev)
     y_test = torch.from_numpy(ds.y_test).to(dev)
     ckpt_dir = cfg.run.checkpoint_dir
     engine_async = "anchors" in state
+    # Supervisor restart generation (FEDTPU_RESTARTS): in the manifest, and
+    # it disarms the plan's once-per-run faults.
     restart_count = int(os.environ.get("FEDTPU_RESTARTS", "0") or 0)
+    injector = None
+    if cfg.run.fault_plan:
+        from fedtpu_torch.resilience.faults import (RESHARD_KINDS,
+                                                    FaultInjector, FaultPlan)
+        plan = FaultPlan.load(cfg.run.fault_plan, num_clients=num_clients,
+                              rounds=cfg.fed.rounds)
+        if any(f.kind in RESHARD_KINDS for f in plan.faults):
+            _not_ported("a fault plan's preempt_notice/preempt_cancel (the "
+                        "live elastic reshard)", "A10")
+        injector = FaultInjector(plan, restart_count=restart_count,
+                                 tracer=tracer, registry=registry)
+        log.info(f"Fault plan {plan.digest}: {len(plan.faults)} fault(s), "
+                 f"{injector.armed_count} armed"
+                 + (f" (restart {restart_count})" if restart_count else "")
+                 + ".")
+    # The data-size FedAvg weights a dropout or an exclusion zeroes (fedtpu
+    # weighs by mask.sum(axis=1) in its graph); uniform weights stay ones.
+    fault_weights = (exp.client_weights if cfg.fed.weighting == "data_size"
+                     and not engine_async else None)
+
+    heartbeat = (heartbeat_path_for(cfg.run.heartbeat_file, 0)
+                 if cfg.run.heartbeat_file else None)
+
+    def beat(status: str, rnd: int) -> None:
+        """The liveness heartbeat (an atomic host-side rewrite): the
+        supervisor's --hang-timeout reads its mtime."""
+        if heartbeat:
+            write_heartbeat(heartbeat, status=status, round=rnd,
+                            restarts=restart_count)
+
+    beat("starting", 0)
     if tel.manifest:
         tracer.event("manifest", **build_manifest(
             cfg=cfg, mesh=exp.mesh, device=dev, extra={
                 "program": "run",
                 "engine": "async" if engine_async else "sync1d",
                 "restarts": restart_count,
+                **({"fault_plan": injector.plan.digest}
+                   if injector is not None else {}),
                 "profile": profile_entry(
                     exp.model, state, batch, num_classes,
                     cfg.fed.local_steps, cfg.run.profile_rounds)}))
@@ -803,6 +908,89 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             save(os.path.join(ckpt_dir, "diverged"), label_round)
         flags["stopped_early"] = flags["diverged"] = True
 
+    # Divergence rollback (on_divergence='rollback'): the retry budget is
+    # the run's, not an incident's, so a run that keeps diverging halts.
+    rollback = {"attempts": 0, "resume_at": None}
+    excluded: set = set()
+
+    def try_rollback(reason: str, label_round: int, offenders=()) -> bool:
+        """Restore the newest loadable checkpoint, truncate every history
+        to it, optionally exclude the offending clients, and tell the loop
+        to re-enter at the restored round. False (the caller halts) when
+        the policy is off, the budget is spent or nothing restores. The
+        first retry is a pure replay (round-keyed draws make it bitwise);
+        from the second on the params are perturbed by rollback_perturb.
+        The restored values go into the live state tensors, which the
+        captured graphs read: nothing is re-captured."""
+        nonlocal prev_metric, termination_count, rounds_run, mask_host
+        if cfg.run.on_divergence != "rollback":
+            return False
+        if rollback["attempts"] >= cfg.run.rollback_retries:
+            log.warning("Rollback budget exhausted "
+                        f"({cfg.run.rollback_retries}); halting.")
+            return False
+        try:
+            raw, hist2, j = load_checkpoint_fallback(ckpt_dir)
+        except FileNotFoundError:
+            return False
+        rollback["attempts"] += 1
+        _copy_state_into(state, _restore_state(raw, state, dev))
+        # The divergent rounds were appended before the guard fired: the
+        # client-mean history comes from the checkpoint, the others drop
+        # the rounds past j they hold.
+        drop = max(0, rounds_run - j)
+        for k in METRIC_NAMES:
+            history[k] = list(hist2.get(k, []))
+            del pooled_hist[k][max(0, len(pooled_hist[k]) - drop):]
+            del per_client_hist[k][max(0, len(per_client_hist[k]) - drop):]
+        for lst in (losses, confusion, sec_per_round, staleness):
+            del lst[max(0, len(lst) - drop):]
+        if cfg.run.eval_test_every:
+            edrop = sum(1 for rr in range(j + 1, rounds_run + 1)
+                        if rr % cfg.run.eval_test_every == 0)
+            for k in METRIC_NAMES:
+                del test_hist[k][max(0, len(test_hist[k]) - edrop):]
+        rounds_run = j
+        prev_metric = ([history[k][-1] for k in METRIC_NAMES]
+                       if history[METRIC_NAMES[0]] else None)
+        termination_count = cfg.fed.termination_patience
+        if cfg.run.rollback_exclude and offenders:
+            fresh = sorted(set(offenders) - excluded)
+            if fresh:
+                excluded.update(fresh)
+                from fedtpu_torch.resilience.faults import drop_clients
+                drop_clients(batch["mask"], fresh, fault_weights)
+                mask_host = batch["mask"].cpu().clone()
+                if injector is not None:
+                    # A departed client cannot re-inject: a sticky NaN
+                    # source would otherwise defeat the retry.
+                    injector.exclude(fresh)
+                tracer.event("exclusion", round=j, clients=list(fresh))
+                registry.counter("clients_excluded").inc(len(fresh))
+                log.warning(f"Excluding diverging client(s) {fresh} from "
+                            "aggregation (mask weight 0) for the retry.")
+        if rollback["attempts"] >= 2 and cfg.run.rollback_perturb > 0:
+            from fedtpu_torch.resilience.faults import perturb_params
+            perturb_params(state["params"], rollback["attempts"],
+                           cfg.run.rollback_perturb)
+        tracer.event("rollback", round=label_round, restored_round=j,
+                     attempt=rollback["attempts"], reason=reason,
+                     excluded=sorted(excluded))
+        registry.counter("rollbacks").inc()
+        log.warning(f"Non-finite {reason}; rolled back to round {j} "
+                    f"(attempt {rollback['attempts']}/"
+                    f"{cfg.run.rollback_retries}).")
+        lap[0] = time.perf_counter()    # the restore is not a round's time
+        rollback["resume_at"] = j
+        return True
+
+    if (cfg.run.on_divergence == "rollback"
+            and not complete_steps(ckpt_dir)):
+        # A divergence before the first periodic save still needs a
+        # restore point: the initial (or resumed) state as round
+        # start_round.
+        save(ckpt_dir, start_round)
+
     chunk = cfg.run.rounds_per_step
     steps: Dict[int, Callable] = {}
     graphs: Dict[int, Callable] = {}
@@ -844,7 +1032,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             take = min(chunk, cfg.fed.rounds - rnd)
             noise_ahead[(rnd, take)] = chunk_noise(rnd, take)
 
-    def dispatch(rnd: int, take: int) -> _Fetch:
+    def dispatch(rnd: int, take: int, chunk_mask: torch.Tensor) -> _Fetch:
         nonlocal state, warmup_rounds
         masks = None if mask_table is None else mask_table[rnd:rnd + take]
         # The round step's inputs (masks, DP noise), or the tick's
@@ -864,6 +1052,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             state, raw = get_step(take).fn(state, batch, *inputs)
             out = pack_outputs(raw, *get_step(take).outputs)
         fetch = _Fetch(out)
+        # The host mask of the chunk's rounds (a dropout round's own).
+        fetch.mask = chunk_mask
         draw_ahead(rnd + take)
         return fetch
 
@@ -901,7 +1091,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         # every exit below (Span.end is idempotent).
         sp_stop = tracer.span("stop_check", round=rnd0 + take)
         loss_c, conf_c = raw["loss"], raw["conf"]
-        m_all = assemble_metrics(loss_c, conf_c, mask_host)
+        m_all = assemble_metrics(loss_c, conf_c, fetched.mask)
         for j in range(take):
             r = rnd0 + j
             client_mean = {k: float(m_all["client_mean"][k][j])
@@ -958,7 +1148,16 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             if cfg.run.halt_on_nonfinite and not (
                     np.all(np.isfinite(cur))
                     and np.all(np.isfinite(losses[-1]))):
-                halt_diverged(f"loss/metrics at round {r + 1}", state_round)
+                # The rollback policy first (restores, truncates, sets
+                # resume_at); the run halts only when it declines.
+                bad = ~np.isfinite(losses[-1])
+                for k in METRIC_NAMES:
+                    bad = bad | ~np.isfinite(per_client[k])
+                offenders = tuple(int(c) for c in np.nonzero(bad)[0])
+                if not try_rollback(f"loss/metrics at round {r + 1}", r + 1,
+                                    offenders=offenders):
+                    halt_diverged(f"loss/metrics at round {r + 1}",
+                                  state_round)
                 sp_stop.end()
                 return
 
@@ -991,10 +1190,63 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     pending = None
     last: Optional[_Fetch] = None       # the newest dispatched chunk
     rnd = start_round
+    # The preemption drain: SIGTERM sets a flag that the loop top turns
+    # into a checkpoint and Preempted (exit 75); installed only with a
+    # checkpoint dir to drain to, on the main thread, and restored when the
+    # loop ends.
+    preempt = {"sig": None}
+    prev_term = None
+    if ckpt_dir and threading.current_thread() is threading.main_thread():
+        def _on_term(signum, frame):
+            preempt["sig"] = signum
+        prev_term = signal.signal(signal.SIGTERM, _on_term)
     try:
         while rnd < cfg.fed.rounds and not flags["stopped_early"]:
+            if preempt["sig"] is not None:
+                # The graceful drain: read the chunk in flight, checkpoint
+                # (not a poisoned state: it would resume straight back into
+                # divergence) and exit through Preempted (exit 75; the
+                # supervisor restarts with --resume).
+                if pending is not None:
+                    process_chunk(*pending, state_round=rnd)
+                    pending = None
+                if not flags["stopped_early"]:
+                    if not (cfg.run.halt_on_nonfinite and last is not None
+                            and not last.finite()):
+                        with tracer.span("checkpoint", round=rnd):
+                            save(ckpt_dir, rnd)
+                            retain_after_save(rnd)
+                    tracer.event("preempted", round=rnd)
+                    registry.counter("preemptions").inc()
+                    log.warning(f"SIGTERM: drained checkpoint at round "
+                                f"{rnd}; exiting for resume (preempted).")
+                    beat("preempted", rnd)
+                    raise Preempted(rnd)
+                break
             take = min(chunk, cfg.fed.rounds - rnd)
-            last = dispatch(rnd, take)
+            chunk_mask = mask_host
+            if injector is not None:
+                # A fault round runs as its own width-1 dispatch, so that
+                # pre_round and post_round bracket exactly that round.
+                take = injector.chunk_limit(rnd, take)
+                due = injector.pre_round(rnd, state, batch,
+                                         checkpoint_dir=ckpt_dir,
+                                         weights=fault_weights)
+                dropout = any(f.kind == "client_dropout" for f in due)
+                if dropout:
+                    # The host reads the device mask the injector left:
+                    # the round's own (one sync, on a width-1 round).
+                    chunk_mask = batch["mask"].cpu().clone()
+            last = dispatch(rnd, take, chunk_mask)
+            if injector is not None:
+                # After the dispatch is queued (same stream): the pre-fault
+                # mask goes back, so every later round is bitwise an
+                # unfaulted run's.
+                injector.post_round(rnd, batch, weights=fault_weights)
+                if dropout:
+                    # What post_round leaves holds for good (a sticky
+                    # dropout that no non-sticky one undid).
+                    mask_host = batch["mask"].cpu().clone()
             if pipelined:
                 if pending is not None:
                     process_chunk(*pending, state_round=rnd + take)
@@ -1002,6 +1254,15 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             else:
                 process_chunk(rnd, take, last, state_round=rnd + take)
             rnd += take
+            if rollback["resume_at"] is not None:
+                # A divergence rolled back: re-enter at the restored round
+                # (state and histories already rewound; the restored state
+                # is finite).
+                rnd, rollback["resume_at"] = rollback["resume_at"], None
+                last = None
+                beat("running", rnd)
+                continue
+            beat("running", rnd)
             if flags["stopped_early"]:
                 # The overshoot chunk (pending) is dropped: no checkpoint or
                 # eval of it.
@@ -1027,6 +1288,14 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             if cfg.run.halt_on_nonfinite and (
                     not pipelined or ckpt_due or eval_due) \
                     and not last.finite():
+                # Offenders unknown here (the poison is in the state, not
+                # a client's metric): rollback without exclusion.
+                if try_rollback(
+                        f"params/optimizer state after round {rnd}", rnd):
+                    rnd, rollback["resume_at"] = rollback["resume_at"], None
+                    last = None
+                    beat("running", rnd)
+                    continue
                 halt_diverged(f"params/optimizer state after round {rnd}",
                               rnd)
                 break
@@ -1056,6 +1325,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 and not last.finite():
             halt_diverged(f"params/optimizer state after round {rnd}", rnd)
     finally:
+        if prev_term is not None:
+            signal.signal(signal.SIGTERM, prev_term)
         # The trace is finalized and the counters snapshot written on a
         # failing run too: the sink exists to diagnose such runs.
         prof.close(rounds_run)
@@ -1098,7 +1369,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         dp_composed=ledger.composed,
         final_dp_clip=(float(state["dp_clip"]) if "dp_clip" in state
                        else None),
-        personalized_metrics=personalized, staleness=staleness)
+        personalized_metrics=personalized, staleness=staleness,
+        rollbacks=rollback["attempts"])
     dp = result.privacy_spent()
     if dp:
         notes = ""
@@ -1128,9 +1400,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             tracer.event("async_starvation", round=rounds_run,
                          pending=pending,
                          buffer_size=cfg.fed.async_buffer_size)
+    beat("diverged" if flags["diverged"] else "done", rounds_run)
     tracer.event("run_end", round=rounds_run,
                  stopped_early=flags["stopped_early"],
                  diverged=flags["diverged"], rounds_trained=rounds_trained,
-                 restarts=restart_count, rollbacks=0)
+                 restarts=restart_count, rollbacks=rollback["attempts"])
     tracer.close()
     return result

@@ -1,7 +1,8 @@
 """The gang's identity variables and the heartbeat path rule (the port's
 copy of the pieces of ``fedtpu.resilience.distributed`` that the gateway
-fleet and the autoscale signals read; the collective watchdog and the
-checkpoint agreement are ROADMAP A10/A11)."""
+fleet, the autoscale signals, the round loop's heartbeat and the
+supervisor's clean-exit hygiene read; the collective watchdog and the
+checkpoint agreement are ROADMAP A10)."""
 
 from __future__ import annotations
 

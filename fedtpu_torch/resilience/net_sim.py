@@ -1,6 +1,6 @@
 """Deterministic wire-fault campaign replay (the port's copy of
 ``fedtpu.resilience.net_sim``, which ``fedtpu check --net-sim`` runs; the
-port's ``check`` is ROADMAP A11).
+port's ``check`` is ROADMAP A11b, second part).
 
 Replays a PINNED NetFaultPlan (the ``SIM_*`` constants below) against a
 REAL (small) :class:`fedtpu_torch.serving.engine.ServingEngine` through

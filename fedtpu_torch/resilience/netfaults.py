@@ -2,9 +2,10 @@
 port's copy of ``fedtpu.resilience.netfaults``).
 
 This module proves the INGESTION WIRE recovers from transport
-pathologies. A NetFaultPlan is the same idea as ``fedtpu``'s round-fault
-FaultPlan (ROADMAP A11) — a seeded, JSON-driven schedule materialized ONCE at load
-time into a canonical, digest-stamped tuple — but its clock is not the
+pathologies. A NetFaultPlan is the same idea as the round-fault
+FaultPlan (``fedtpu_torch.resilience.faults``) — a seeded, JSON-driven
+schedule materialized ONCE at load time into a canonical, digest-stamped
+tuple — but its clock is not the
 training round: it is the per-gateway WIRE FRAME ORDINAL (the k-th
 newline-terminated frame a gateway's fault proxy receives from clients,
 hellos and retries included). Counting frames instead of wall time is

@@ -7,7 +7,7 @@ with screening enabled over a seeded adversarial trace
 canonicalizes the engine's defense decision log — one JSON line per
 screen strike / quarantine. ``fedtpu`` compares those lines against its
 committed golden through ``check --defense-sim``; the port's ``check``
-is ROADMAP A11, so the lines are held against ``fedtpu``'s own
+is ROADMAP A11b's second part, so the lines are held against ``fedtpu``'s own
 ``simulate()`` run in-process (the tests) and the card's against the
 CPU's (``chip_smoke.py``).
 

@@ -523,7 +523,8 @@ class ServingEngine:
         frame's causal ``trace`` id is persisted with the entry (so a
         WAL replay re-offers under the original id) and emitted as the
         'wal' trace stage. (``fedtpu``'s disk-full injection hook,
-        ``wal_shortwrite``, belongs to its chaos fuzzer: ROADMAP A11.)"""
+        ``wal_shortwrite``, belongs to its chaos fuzzer: ROADMAP A11b, second
+        part.)"""
         if not self.wal_path:
             return
         import json

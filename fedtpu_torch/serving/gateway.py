@@ -7,8 +7,8 @@ index``) and reusing :func:`fedtpu_torch.serving.server.run_server`'s
 single-threaded loop wholesale — the gateway is a routing + failover
 skin over the same engine, not a second server. Each member's tick is
 the engine's captured driven tick on the card. A member's death is
-repaired by a relaunch with ``--resume`` (``fedtpu``'s ``supervise
---gang``, which does that for the whole gang, is ROADMAP A11): the
+repaired by a relaunch with ``--resume`` (``supervise`` for one member;
+``fedtpu``'s ``supervise --gang``, for the whole gang, is ROADMAP A10): the
 engine's write-ahead log + idempotent sessions make the restart lossless
 for every *acked* update.
 
@@ -36,8 +36,8 @@ Failover: two gateway-only ops wire the store-shard handoff —
         replay its spooled pending updates.
 
 Health: :func:`probe_fleet` (``fedtpu check --gateway-probe``'s; the
-port's ``check`` is ROADMAP A11) hellos every member and reports
-per-gateway liveness.
+port's ``check`` is ROADMAP A11b, second part) hellos every member and
+reports per-gateway liveness.
 
 torch is only touched through the engine; importable backend-free.
 """
@@ -234,8 +234,9 @@ def run_gateway(cfg, *, gateway_index: Optional[int] = None,
     every member's command line) fronts this member with a wire-fault
     proxy on ``<port_file>.g<i>.net`` enforcing only the plan entries
     whose ``gateway`` matches ``i`` — see ``serving.netproxy``.
-    ``device`` is the engine's (the card by default); ``events`` and
-    ``heartbeat`` raise, naming ROADMAP A11 (``run_server``)."""
+    ``device`` is the engine's (the card by default); ``heartbeat`` is
+    this member's ``heartbeat_path_for(heartbeat, i)``, rewritten at every
+    loop wakeup (``run_server``)."""
     from fedtpu_torch.resilience.distributed import (ENV_LAUNCH_ID,
                                                      ENV_PROCESS_ID,
                                                      heartbeat_path_for)

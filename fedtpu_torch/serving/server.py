@@ -21,8 +21,10 @@ than dropped.
 ``events`` is the telemetry sink (``fedtpu_torch.telemetry``): the
 process's tracer, role ``serve`` (a gateway's ``gateway-<i>``), receives
 the server's and the engine's events; the crash barrier flushes its flight
-recorder to ``events.crash.<role>.jsonl``. Not ported yet: the heartbeat
-file (``heartbeat``), ROADMAP A11b; it raises when given. torch is only
+recorder to ``events.crash.<role>.jsonl``. The heartbeat file
+(``heartbeat``) is rewritten atomically at every loop wakeup (status
+``serving``) and at shutdown (the shutdown's reason), so ``supervise
+--hang-timeout`` can tell a wedged server from an idle one. torch is only
 touched through the engine; this module stays importable backend-free.
 """
 
@@ -35,16 +37,12 @@ import socket
 import threading
 from typing import Optional
 
-from fedtpu_torch.config import _not_ported
+from fedtpu_torch.resilience.supervisor import Preempted, write_heartbeat
 from fedtpu_torch.serving import protocol
 from fedtpu_torch.serving.engine import ServingEngine
 from fedtpu_torch.telemetry.log import TelemetryLogger
 from fedtpu_torch.telemetry.metrics import default_registry
 from fedtpu_torch.telemetry.trace import make_tracer
-
-# fedtpu's supervisor exit code (fedtpu/resilience/supervisor.py:59):
-# EX_TEMPFAIL, drained to a checkpoint, resumable.
-EXIT_PREEMPTED = 75
 
 # Seconds between selector wakeups when idle — bounds signal/heartbeat
 # latency, not throughput (a busy socket wakes the loop immediately).
@@ -57,16 +55,6 @@ _POLL_S = 0.2
 # an OSError, handled by the per-connection except below).
 _CONN_TIMEOUT_S = 30.0
 
-
-class Preempted(Exception):
-    """Raised by ``run_server`` after a SIGTERM drain: the state is
-    checkpointed; the process should exit ``EXIT_PREEMPTED`` so a
-    supervisor restarts it with ``--resume`` (``fedtpu``'s
-    ``resilience.supervisor.Preempted``)."""
-
-    def __init__(self, round_: int):
-        super().__init__(f"preempted at round {round_} (checkpoint drained)")
-        self.round = round_
 
 
 class _Conn:
@@ -258,9 +246,7 @@ def run_server(cfg, *, events: Optional[str] = None,
     of the fleet-wide plan this proxy enforces.
 
     ``events``: the telemetry sink's path (None: a ``NullTracer``).
-    ``heartbeat`` is not ported yet and raises."""
-    if heartbeat is not None:
-        _not_ported("serve --heartbeat (the supervisor heartbeat)", "A11")
+    ``heartbeat``: the liveness file, rewritten at every loop wakeup."""
     registry = default_registry()
     registry.reset()
     tracer = make_tracer(events, role=role or "serve")
@@ -354,6 +340,9 @@ def run_server(cfg, *, events: Optional[str] = None,
             tracer.event("preempted", round=engine.tick_count)
             registry.counter("preemptions").inc()
         tracer.counters(registry.snapshot())
+        if heartbeat:
+            write_heartbeat(heartbeat, status=reason,
+                            tick=engine.tick_count)
         tracer.close()
         return summary
 
@@ -367,6 +356,9 @@ def run_server(cfg, *, events: Optional[str] = None,
                                 "(preempted).")
                 _shutdown("preempted")
                 raise Preempted(engine.tick_count)
+            if heartbeat:
+                write_heartbeat(heartbeat, status="serving",
+                                tick=engine.tick_count)
             for key, _ in sel.select(timeout=_POLL_S):
                 if key.data is None:
                     try:

@@ -313,7 +313,7 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     dict(partition_clients=2), dict(model_parallel=2), dict(mpmd=True),
-    dict(fault_plan="plan.json"), dict(on_divergence="rollback")])
+    dict(collective_timeout=1.0), dict(compilation_cache="cache")])
 def test_unported_knobs_raise_naming_their_roadmap_item(kw):
     cls = tcfg.ShardConfig if "partition_clients" in kw else tcfg.RunConfig
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -345,10 +345,7 @@ _UNPORTED = {
     "RunConfig": {
         **{k: "A10" for k in ("mpmd", "model_parallel",
                               "collective_timeout")},
-        **{k: "A11" for k in (
-            "compilation_cache", "overlap_compile", "fault_plan",
-            "on_divergence", "rollback_retries", "rollback_exclude",
-            "rollback_perturb", "heartbeat_file")}},
+        **{k: "A11c" for k in ("compilation_cache", "overlap_compile")}},
 }
 
 
@@ -478,7 +475,10 @@ def test_ported_knobs_take_other_values():
                               "checkpoint_dir", "checkpoint_every",
                               "keep_checkpoints", "metrics_jsonl",
                               "pipelined_stop", "profile_dir",
-                              "profile_rounds", "telemetry"},
+                              "profile_rounds", "telemetry", "fault_plan",
+                              "on_divergence", "rollback_retries",
+                              "rollback_exclude", "rollback_perturb",
+                              "heartbeat_file"},
                 "TelemetryConfig": {"events_path", "manifest", "log_level"},
             }[name], (name, field.name)
     assert tcfg.ModelConfig(use_pallas=True).use_pallas
@@ -733,9 +733,15 @@ def test_local_training_knobs_refuse_what_fedtpu_refuses(kw, message):
 
 
 def test_rollback_stays_refused_naming_a11():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tcfg.RunConfig(on_divergence="rollback", checkpoint_dir="ck",
-                       checkpoint_every=1)
+    """Checks that rollback constructs and that the A11c knobs (the
+    compilation cache) refuse, each naming A11c. The name is the one it
+    had while rollback was refused; the resilience loop lifted that."""
+    run = tcfg.RunConfig(on_divergence="rollback", checkpoint_dir="ck",
+                         checkpoint_every=1)
+    assert run.on_divergence == "rollback"
+    for kw in (dict(compilation_cache="cache"), dict(overlap_compile=True)):
+        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A11c\)"):
+            tcfg.RunConfig(**kw)
 
 
 def test_sampling_ring_and_mesh_knobs_construct():
@@ -936,15 +942,8 @@ _CLI_NOT_PORTED = {
     "--mpmd": ("run", "mpmd", True, "A10"),
     "--partition-clients": ("shard", "partition_clients", 2, "A10"),
     "--partition-offset": ("shard", "partition_offset", 1, "A10"),
-    "--compilation-cache": ("run", "compilation_cache", "x", "A11"),
-    "--overlap-compile": ("run", "overlap_compile", True, "A11"),
-    "--fault-plan": ("run", "fault_plan", "x", "A11"),
-    "--heartbeat": ("run", "heartbeat_file", "x", "A11"),
-    "--on-divergence": ("run", "on_divergence", "rollback", "A11"),
-    "--rollback-exclude": ("run", "rollback_exclude", True, "A11"),
-    "--rollback-perturb": ("run", "rollback_perturb", 1e-3, "A11"),
-    "--rollback-retries": ("run", "rollback_retries", 3, "A11"),
-    "--max-restarts": None,
+    "--compilation-cache": ("run", "compilation_cache", "x", "A11c"),
+    "--overlap-compile": ("run", "overlap_compile", True, "A11c"),
 }
 _SECTIONS = {"data": "DataConfig", "shard": "ShardConfig",
              "model": "ModelConfig", "fed": "FedConfig", "run": "RunConfig"}
@@ -980,23 +979,28 @@ def test_cli_takes_every_fedtpu_flag_whose_field_it_runs(command):
             cls(**{field: value})
 
 
-# fedtpu's serve flags that the port's parser takes and refuses when given,
-# naming the ROADMAP item of each (they are run_server arguments, not
-# ServingConfig fields).
-_SERVE_NOT_PORTED = {"--heartbeat": "A11"}
+# fedtpu's serve flags that are run_server arguments, not ServingConfig
+# fields, each with its run_server keyword: the port's parser takes each
+# and hands it on.
+_SERVE_RUN_SERVER_FLAGS = {"--heartbeat": "heartbeat"}
 
 
-@pytest.mark.parametrize("flag", sorted(_SERVE_NOT_PORTED))
-def test_cli_serve_refuses_the_flags_it_does_not_run(flag):
-    """C5 for ``serve``: each of fedtpu's serve flags whose path is not
-    ported raises, naming its item, before the server binds or builds."""
+@pytest.mark.parametrize("flag", sorted(_SERVE_RUN_SERVER_FLAGS))
+def test_cli_serve_refuses_the_flags_it_does_not_run(flag, monkeypatch):
+    """C5 for ``serve``: checks that each of fedtpu's serve flags that is
+    a run_server argument reaches the port's run_server with its value.
+    The name is the one it had while such flags were refused; none is
+    refused any more."""
     from fedtpu.cli import build_parser as j_parser
     from fedtpu_torch.cli import main as t_main
+    from fedtpu_torch.serving import server as t_server
     argv = ["serve", "--platform", "cpu", "--quiet", flag, "x"]
     assert j_parser().parse_args(argv).cmd == "serve"
-    with pytest.raises(NotImplementedError,
-                       match=rf"\(ROADMAP {_SERVE_NOT_PORTED[flag]}\)"):
-        t_main(argv)
+    got = {}
+    monkeypatch.setattr(t_server, "run_server",
+                        lambda cfg, **kw: got.update(kw) or {})
+    assert t_main(argv) == 0
+    assert got[_SERVE_RUN_SERVER_FLAGS[flag]] == "x"
 
 
 @pytest.mark.parametrize("argv", [
@@ -1839,12 +1843,20 @@ def test_cli_gateway_and_autoscale_parse_as_fedtpus(argv):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["gateway", "--platform", "cpu", "--heartbeat", "x"], "A11")],
+    (["gateway", "--platform", "cpu", "--heartbeat", "x"], "heartbeat")],
     ids=["gateway --heartbeat"])
-def test_cli_gateway_and_autoscale_refuse_a11_flags(argv, item):
+def test_cli_gateway_and_autoscale_refuse_a11_flags(argv, item,
+                                                    monkeypatch):
+    """Checks that gateway's A11 flag (its heartbeat) reaches run_gateway
+    with its value. The name is the one it had while the flag was refused;
+    the resilience loop lifted that."""
     from fedtpu_torch.cli import main as t_main
-    with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {item}\)"):
-        t_main(argv + ["--quiet"])
+    from fedtpu_torch.serving import gateway as t_gateway
+    got = {}
+    monkeypatch.setattr(t_gateway, "run_gateway",
+                        lambda cfg, **kw: got.update(kw) or {})
+    assert t_main(argv + ["--quiet"]) == 0
+    assert got[item] == "x"
 
 
 def test_cli_autoscale_simulate_writes_and_gates_on_the_golden(tmp_path,
@@ -1988,17 +2000,18 @@ def _cohort_cfg(**fed_kw):
 def test_cohort_config_rejections(row):
     """fedtpu's 21 rejection rows (tests/test_cohort.py::_REJECTIONS)
     against the port's validator, with fedtpu's words. A knob the port's
-    RunConfig does not run yet (model_parallel, on_divergence, fault_plan)
-    is refused there first, naming its ROADMAP item; the validator's own
-    refusal stays reachable for a config built around it."""
+    RunConfig does not run yet (model_parallel) is refused there first,
+    naming its ROADMAP item; the validator's own refusal stays reachable
+    for a config built around it. on_divergence and fault_plan construct
+    (the resilience loop is ported) and reach the validator."""
     from test_cohort import _REJECTIONS as rows
     from fedtpu_torch.cohort.scheduler import _validate_cohort_config
     assert len(rows) == 21
     fed_kw, run_kw, match = rows[row]
     cfg = _cohort_cfg()
     cfg = cfg.replace(fed=dataclasses.replace(cfg.fed, **fed_kw))
-    if set(run_kw) & {"model_parallel", "on_divergence", "fault_plan"}:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A1[01]"):
+    if set(run_kw) & {"model_parallel"}:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A10"):
             dataclasses.replace(cfg.run, **run_kw)
         run = tcfg.RunConfig()
         for key, value in run_kw.items():

@@ -5064,13 +5064,21 @@ def test_cli_gateway_fleet_and_loadgen_on_cpu(tmp_path, capsys):
 
 # ----------------------------------------------------------------- refusals
 
-def test_serving_unported_paths_raise_naming_their_items():
+def test_serving_unported_paths_raise_naming_their_items(tmp_path):
+    """The heartbeat, refused until the resilience loop was ported, is
+    taken by run_server and run_gateway: a bad wire-fault plan is what
+    stops them here (its own ValueError, after the heartbeat argument),
+    and no heartbeat is written before the loop starts."""
     from fedtpu_torch.serving.gateway import run_gateway
     from fedtpu_torch.serving.server import run_server
     cfg = tcfg.ServingConfig(**_serve_kw())
+    hb = str(tmp_path / "hb")
     for run in (run_server, run_gateway):
-        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A11\)"):
-            run(cfg, device="cpu", verbose=False, heartbeat="x")
+        with pytest.raises(ValueError, match="--net-fault-plan requires "
+                           "--port-file"):
+            run(cfg, device="cpu", verbose=False, heartbeat=hb,
+                net_fault_plan='{"faults": []}')
+    assert not os.path.exists(hb)
 
 
 def test_serving_config_has_fedtpus_fields_and_defaults():
