@@ -187,6 +187,22 @@ Phases, in order; any failure exits non-zero before the result line:
    arrivals) against the committed golden; a small captured cohort run's
    cohort_gather / cohort_writeback spans.
 
+   Then the single-process resilience loop, (t) (``phase_resilience``):
+   income-8 at R = 10 under each fault kind (straggler, dropout against
+   the CPU, a NaN rollback, exclusion, a spent budget, the drain and
+   resume, a corrupt checkpoint's fallback), heartbeats, the armed-plan
+   s/round pairs, and through the CLI the five single-process chaos rows,
+   a diverging run under supervise and a timed supervised restart.
+   Then the rest of the resilience loop, (u) (``phase_gang``): the fuzz
+   corpus on the card twice (bitwise) and on the CPU, the first sampled
+   campaigns card vs CPU (equal, or differing only in screen decisions
+   within 1e-5 of their threshold), ``fuzz --budget 25`` through the CLI
+   (every campaign passes or shrinks), ``check`` through the CLI at
+   ``--transfer-guard disallow`` with the timeline sim and a live
+   two-gateway fleet's probe (recompiles 0) and a recapture read by an
+   armed sentinel, K1's sum mode at (8, 266) and K2/K3 at the gateway
+   rows' engine, and the six fleet chaos rows through the CLI.
+
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package (nor does
 the port's serving stack, which phases (p) and (q) drive).
@@ -4107,27 +4123,28 @@ def fleet_cli_check(box: dict) -> dict:
             "duplicate_drops": stats["1"]["duplicate_drops"], "s": box["s"]}
 
 
-def k1_sum_net_sim_row(dev: torch.device) -> dict:
-    """K1's sum mode at the net sim's (8, 74) (cohort 8, 6 -> 8 -> 2)
+def k1_sum_row(dev: torch.device, d: int, label: str) -> dict:
+    """K1's sum mode at (8, ``d``) (cohort 8: the net sim's and the fuzz
+    gang's 6 -> 8 -> 2 at 74, the gateway rows' 6 -> 16 -> 8 -> 2 at 266)
     against its plain version, timed beside it, ``torch.matmul`` and its
     bound."""
     from fedtpu_torch.ops import cuda_kernels as ck
     gen = torch.Generator().manual_seed(4)
-    x = (torch.randn(8, 74, generator=gen) * 1e-2).to(dev)
+    x = (torch.randn(8, d, generator=gen) * 1e-2).to(dev)
     w = ((torch.rand(8, generator=gen) < 0.5).to(torch.float32)
          * (1.0 + torch.randint(0, 6, (8,), generator=gen)) ** -0.5).to(dev)
     out = ck.weighted_sum_clients(x, w)
     ref = ck.weighted_sum_clients_reference(x, w)
     err = float((out - ref).abs().max())
-    check(err <= 1e-5, f"K1 sum at (8, 74): max abs err {err}")
-    b, by = bound_ms(4 * (8 * 74 + 8 + 74), 2.0 * 8 * 74)
-    row = {"shape": "(8, 74)", "max_abs_err": err,
+    check(err <= 1e-5, f"K1 sum at (8, {d}): max abs err {err}")
+    b, by = bound_ms(4 * (8 * d + 8 + d), 2.0 * 8 * d)
+    row = {"shape": f"(8, {d})", "max_abs_err": err,
            "ms": time_ms(lambda: ck.weighted_sum_clients(x, w)),
            "plain_ms": time_ms(lambda: ck.weighted_sum_clients_reference(
                x, w)),
            "library_ms": time_ms(lambda: torch.matmul(w, x)),
            "bound_ms": b, "bound_by": by}
-    print(f"time K1 sum at the net sim's (8, 74): kernel {row['ms']:.4f} ms  "
+    print(f"time K1 sum at {label} (8, {d}): kernel {row['ms']:.4f} ms  "
           f"plain {row['plain_ms']:.4f} ms  torch.matmul "
           f"{row['library_ms']:.4f} ms  bound {b:.6f} ms ({by}); max abs err "
           f"{err:.3e}; {CARD['smi']}", flush=True)
@@ -4206,7 +4223,7 @@ def phase_fleet() -> tuple:
             handoff = fleet_handoff("cuda", rows,
                                     os.path.join(directory, "handoff"))
             lap("handoff")
-            k1_row = k1_sum_net_sim_row(torch.device("cuda"))
+            k1_row = k1_sum_row(torch.device("cuda"), 74, "the net sim's")
             numbers["autoscale"] = fleet_autoscale(directory, trace)
             lap("autoscale")
             numbers["net"] = fleet_net(directory, trace)
@@ -5853,7 +5870,8 @@ def resil_cli(directory: str) -> dict:
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
     t0 = time.perf_counter()
     out = subprocess.run(cli + [
-        "chaos", "--platform", "default", "--num-clients", "8",
+        "chaos", "--scenarios", "sigkill,preempt,nan_rollback,dropout,"
+        "straggler", "--platform", "default", "--num-clients", "8",
         "--hidden-sizes", "50,200", "--synthetic-rows", "10000", "--quiet",
         "--json", "--workdir", wd, "--keep-artifacts"],
         capture_output=True, text=True, timeout=600)
@@ -5945,6 +5963,374 @@ def phase_resilience() -> tuple:
     print(f"phase (t) seconds {json.dumps(seconds)}", flush=True)
     numbers["seconds"] = seconds
     return by_path, numbers
+
+
+# ------------------------------------------ (u) fuzz, check and the fleets
+# The rest of the resilience loop on the card: the fuzz corpus and sampled
+# campaigns at fedtpu's replay frame (FuzzConfig's defaults: 8 rounds, 32
+# users, 24 arrivals a round, 2 gateways, cohort 8, hidden (8,)), check's
+# probe with its folds, and chaos's six fleet rows at chaos.py's constants
+# (their gateways at ServingConfig's defaults: cohort 8, hidden (16, 8),
+# 256 rows).
+GANG_FUZZ_BUDGET = 25
+GANG_FUZZ_SAME = 8          # the first sampled campaigns held card vs CPU
+# A screen decision that differs card vs CPU must sit this close to its
+# threshold (relative), on one device or the other.
+GANG_EDGE_MARGIN = 1e-5
+# The six fleet rows, as two chaos children side by side (the gateway and
+# poisoning rows, the wire rows): ~100 s each alone on the card.
+GANG_ROWS = (("mp_gateway_kill", "mp_store_shard_kill",
+              "mp_poison_campaign"),
+             ("mp_net_partition", "mp_slow_gateway", "mp_torn_frame"))
+GANG_CHECK_ROUNDS = 20
+
+
+def gang_campaign(spec, device: str) -> tuple:
+    """One campaign through the in-process gang on ``device`` with every
+    launch count set to 0 just before it and read just after; also each
+    member's screened ticks (``run_campaign(screen_stats=)``). Returns
+    (result, launches, screen stats, seconds)."""
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.resilience.fuzz import run_campaign
+    stats = {}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_campaign(spec, device=device, screen_stats=stats)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, dict(ck.LAUNCHES), stats, time.perf_counter() - t0
+
+
+def gang_same_or_edge(label: str, card: tuple, cpu: tuple) -> dict:
+    """A campaign card vs CPU: equal wire lines and verdict artifacts, or
+    else every member's stream of screen decisions equal up to its first
+    difference, which must be a decision within GANG_EDGE_MARGIN of its
+    threshold on one device (later differences follow from it: the
+    member's state diverged there). Prints each differing decision's
+    statistics on both. Returns {"equal", "edges"}."""
+    a, b = card[0], cpu[0]
+    if a["lines"] == b["lines"] and a["artifact"] == b["artifact"]:
+        return {"equal": True, "edges": []}
+    edges = []
+    for g in sorted(set(card[2]) | set(cpu[2])):
+        ta, tb = card[2].get(g, []), cpu[2].get(g, [])
+        first = next((i for i, (x, y) in enumerate(zip(ta, tb))
+                      if (x["tick"], x["slots"], x["screened"])
+                      != (y["tick"], y["slots"], y["screened"])), None)
+        if first is None:
+            check(len(ta) == len(tb), f"{label}: member {g} screened "
+                  f"{len(ta)} ticks on the card, {len(tb)} on the CPU, "
+                  "with no decision differing")
+            continue
+        x, y = ta[first], tb[first]
+        check(x["tick"] == y["tick"] and x["slots"] == y["slots"],
+              f"{label}: member {g}'s tick {x['tick']} differs card vs CPU "
+              "before any screen decision does")
+        for k, (sa, sb) in enumerate(zip(x["screened"], y["screened"])):
+            if sa == sb:
+                continue
+            ca, cb = x["stats"][k], y["stats"][k]
+            margin = min(ca["margin"], cb["margin"])
+            edges.append({"member": g, "tick": x["tick"],
+                          "slot": x["slots"][k], "card": ca, "cpu": cb,
+                          "margin": margin})
+            print(f"{label}: member {g} tick {x['tick']} slot "
+                  f"{x['slots'][k]} screened {sa} on the card, {sb} on the "
+                  f"CPU: norm {ca['norm']:.9g} / {cb['norm']:.9g} against "
+                  f"limit {ca['limit']:.9g} / {cb['limit']:.9g}, cos "
+                  f"{ca['cos']:.9g} / {cb['cos']:.9g} against "
+                  f"{ca['cos_min']}; relative margin {margin:.3e}",
+                  flush=True)
+    check(edges and all(e["margin"] < GANG_EDGE_MARGIN for e in edges),
+          f"{label}: card and CPU differ ({a['artifact'][-1]} vs "
+          f"{b['artifact'][-1]}) beyond screen decisions within "
+          f"{GANG_EDGE_MARGIN} of their threshold: {edges}")
+    return {"equal": False, "edges": edges}
+
+
+def gang_corpus() -> tuple:
+    """Both corpus campaigns on the card twice (bitwise) and on the CPU
+    (equal, or edge decisions only), every oracle passing; the golden
+    printed, not gated (this machine's numpy draws another Zipf trace)."""
+    from fedtpu_torch.resilience.fuzz import DEFAULT_CORPUS_DIR, Campaign
+    root = os.path.dirname(os.path.abspath(__file__))
+    launches, numbers = {}, {}
+    for name in ("stale_tail", "torn_ack_short_write"):
+        spec = Campaign.load(os.path.join(root, DEFAULT_CORPUS_DIR,
+                                          f"{name}.json"))
+        card = gang_campaign(spec, "cuda")
+        again = gang_campaign(spec, "cuda")
+        cpu = gang_campaign(spec, "cpu")
+        res = card[0]
+        check(res["ok"], f"corpus {name} on the card: {res['failed']}")
+        check(res["lines"] == again[0]["lines"]
+              and res["artifact"] == again[0]["artifact"]
+              and card[1] == again[1],
+              f"corpus {name}: two card runs differ")
+        same = gang_same_or_edge(f"corpus {name}", card, cpu)
+        with open(os.path.join(root, DEFAULT_CORPUS_DIR,
+                               f"{name}.golden.jsonl")) as fh:
+            golden = fh.read().splitlines() == res["artifact"]
+        launches[f"fuzz corpus {name}"] = card[1]
+        numbers[name] = {"card_s": card[3], "card_again_s": again[3],
+                         "cpu_s": cpu[3], "equal_cpu": same["equal"],
+                         "edges": same["edges"], "golden": golden}
+        print(f"fuzz corpus {name}: every oracle passes; two card runs "
+              f"bitwise; card vs CPU {'equal' if same['equal'] else 'edge'}"
+              f"; golden {golden} (not gated); {res['artifact'][-1]}; "
+              f"card {card[3]:.3f} s, {again[3]:.3f} s, CPU {cpu[3]:.3f} s"
+              f"; launches {card[1]}; {CARD['smi']}", flush=True)
+    return launches, numbers
+
+
+def gang_sampled() -> tuple:
+    """The first GANG_FUZZ_SAME campaigns of fuzz seed 0 on the card and on
+    the CPU, under the edge rule. Returns the card's summed launches, each
+    campaign's card verdict, and the per-campaign seconds."""
+    from fedtpu_torch.resilience.fuzz import sample_campaign
+    total = {}
+    verdicts, secs = [], []
+    for i in range(GANG_FUZZ_SAME):
+        c = sample_campaign(0, i)
+        card = gang_campaign(c, "cuda")
+        cpu = gang_campaign(c, "cpu")
+        gang_same_or_edge(f"fuzz campaign {c.name}", card, cpu)
+        for k, v in card[1].items():
+            total[k] = total.get(k, 0) + v
+        verdicts.append((c.name, card[0]["ok"], card[0]["failed"],
+                         card[0]["summary"]["fired"]))
+        secs.append((card[3], cpu[3]))
+    print(f"fuzz seed 0, campaigns 0..{GANG_FUZZ_SAME - 1}: card vs CPU "
+          f"equal or edge-only; ok {[v[1] for v in verdicts]}; s card / CPU "
+          f"{[(round(a, 3), round(b, 3)) for a, b in secs]}; launches "
+          f"{total}; {CARD['smi']}", flush=True)
+    return total, verdicts, secs
+
+
+def gang_fuzz_cli_check(proc, verdicts: list) -> dict:
+    """``fuzz --budget 25 --seed 0 --json``'s report: every campaign passed
+    or was shrunk to a reproducer, and its first campaigns' verdicts are
+    the in-process card runs'."""
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"fuzz CLI rc {proc.returncode}: "
+          f"{out[-1500:]} {err[-1500:]}")
+    report = json.loads(out.strip().splitlines()[-1])
+    rows = report["rows"]
+    check(report["ok"] and report["campaigns"] == GANG_FUZZ_BUDGET
+          and all(r["ok"] or "minimized" in r for r in rows),
+          f"fuzz CLI: {report}")
+    for (name, ok, failed, fired), r in zip(verdicts, rows):
+        check((r["name"], r["ok"], r["failed"], r["fired"])
+              == (name, ok, failed, fired),
+              f"fuzz CLI {name}: {r} against the in-process card run")
+    return {"passed": report["passed"], "failed": report["failed"],
+            "shrunk": [r["name"] for r in rows if "minimized" in r]}
+
+
+def gang_check(directory: str) -> dict:
+    """``check --json --transfer-guard disallow`` through the CLI on the
+    card, folding the timeline sim (pinned arrivals: gated) and a probe of
+    a live two-gateway fleet; then in process the armed window's s/round
+    and the negative control: a recapture inside an armed sentinel reads
+    > 0."""
+    from fedtpu_torch.analysis.check import run_check
+    from fedtpu_torch.analysis.guards import RecompileSentinel
+    from fedtpu_torch.orchestration.loop import build_experiment
+    from fedtpu_torch.parallel.round import capture_round_step, warm_up_round
+    from fedtpu_torch.serving.loadgen import read_port_file
+    from fedtpu_torch.serving.protocol import gateway_port_file
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "fedtpu_torch.cli"]
+    base = os.path.join(directory, "check-fleet")
+    fleet = [subprocess.Popen(cli + [
+        "gateway", "--num-gateways", "2", "--gateway-index", str(g),
+        "--port-file", base, "--quiet"], stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True) for g in range(2)]
+    try:
+        for g in range(2):
+            read_port_file(gateway_port_file(base, g), timeout=300)
+        t0 = time.perf_counter()
+        out = subprocess.run(cli + [
+            "check", "--json", "--transfer-guard", "disallow", "--rounds",
+            str(GANG_CHECK_ROUNDS), "--timeline-sim",
+            os.path.join(root, "tests", "goldens", "timeline_sim.jsonl"),
+            "--gateway-probe", base, "--gateway-count", "2"],
+            capture_output=True, text=True, timeout=600, cwd=root)
+        cli_s = time.perf_counter() - t0
+    finally:
+        for p in fleet:
+            p.terminate()
+        rcs = [p.wait(timeout=120) for p in fleet]
+    check(out.returncode == 0, f"check CLI rc {out.returncode}: "
+          f"{out.stdout[-1500:]} {out.stderr[-1500:]}")
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    check(rep["ok"] and rep["recompiles"] == 0 and rep["backend"] == "cuda"
+          and rep["transfer_guard_applies"] and rep["timeline_sim"]["ok"]
+          and [r["ok"] for r in rep["gateway_probe"]] == [True, True],
+          f"check CLI: {rep}")
+    check(all(rc in (0, 75) for rc in rcs), f"check fleet exits {rcs}")
+    mine = run_check(rounds=GANG_CHECK_ROUNDS, transfer="disallow",
+                     nans=True)
+    check(mine["ok"] and mine["recompiles"] == 0,
+          f"check in process: {mine}")
+    from fedtpu_torch.config import get_preset
+    cfg = get_preset("income-8")
+    exp = build_experiment(cfg.replace(data=dataclasses.replace(
+        cfg.data, csv_path=None, synthetic_rows=512)), device="cuda")
+    step = exp.make_step(1)
+    warm_up_round(step, exp.state, exp.batch)
+    capture_round_step(step, exp.state, exp.batch)
+    sentinel = RecompileSentinel(label="negative control")
+    with sentinel.armed():
+        capture_round_step(step, exp.state, exp.batch)
+    check(sentinel.count > 0, "check's negative control: a recapture "
+          f"inside the armed window read {sentinel.count}")
+    print(f"check (CLI, card, --transfer-guard disallow, {GANG_CHECK_ROUNDS}"
+          f" rounds): recompiles {rep['recompiles']}, timeline sim "
+          f"{rep['timeline_sim']['reason']}, probe "
+          f"{[r['ok'] for r in rep['gateway_probe']]} of a live two-gateway"
+          f" fleet, {cli_s:.1f} s; in process (with --debug-nans) armed "
+          f"{mine['armed_s_per_round']:.3e} s/round; negative control: a "
+          f"recapture reads {sentinel.count}; {CARD['smi']}", flush=True)
+    return {"armed_s_per_round": mine["armed_s_per_round"],
+            "cli_armed_s_per_round": rep["armed_s_per_round"],
+            "cli_s": cli_s, "negative_control": sentinel.count}
+
+
+def gang_kernel_rows() -> tuple:
+    """K2/K3 (and K1's sum mode, not at the fuzz shape: phase (q) times it
+    at (8, 74)) at the shapes of the two engines this phase drives: the
+    gateway rows' (ServingConfig's defaults: cohort 8, 6 -> 16 -> 8 -> 2,
+    256 rows, (8, 266)) and the fuzz gang's (cohort 8, 6 -> 8 -> 2, 64
+    rows), each engine fed a poisoned stream until its screen is warm.
+    Returns the launches of each engine's run and, by shape, the rows."""
+    from fedtpu_torch.config import FuzzConfig, ServingConfig
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.resilience.fuzz import Campaign, _serving_config
+    from fedtpu_torch.serving.engine import ServingEngine
+    from fedtpu_torch.telemetry.metrics import MetricsRegistry
+    fuzz_cfg = _serving_config(Campaign(name="rows", seed=0,
+                                        poison_fraction=0.25), FuzzConfig())
+    launches, out = {}, {}
+    for tag, cfg in (("gateway_rows", ServingConfig(screen=True)),
+                     ("fuzz_rows", fuzz_cfg)):
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        eng = ServingEngine(cfg, device="cuda", registry=MetricsRegistry())
+        rows = [[u % 40, 0.05 * u, 0.1]
+                + ([None, 10.0] if u % 40 < 8 else []) for u in range(900)]
+        serve_replay(eng, rows)
+        eng.eval_accuracy()
+        torch.cuda.synchronize()
+        launches[f"{tag[:-5]}-shape engine"] = dict(ck.LAUNCHES)
+        out[tag] = serve_kernel_rows(eng)
+        print(f"{tag[:-5]}-shape engine (cohort {cfg.cohort}, hidden "
+              f"{cfg.model_hidden}, {cfg.data_rows} rows, screened, 900 "
+              f"arrivals, {eng.tick_count} ticks): launches "
+              f"{launches[f'{tag[:-5]}-shape engine']}; {CARD['smi']}",
+              flush=True)
+        if tag == "gateway_rows":
+            out[tag]["weighted_sum_clients"] = k1_sum_row(
+                torch.device("cuda"), eng.state["params"].shape[1],
+                "the gateway rows'")
+    return launches, out
+
+
+def gang_chaos_check(procs: list, t0: float) -> dict:
+    """The six fleet rows' reports (one a chaos child): every row ok; each
+    row's oracles, wall seconds and restart (mp_gateway_kill: the gang's
+    relaunch to both gateways serving) or failover (mp_store_shard_kill:
+    the SIGKILL to the survivor's adopt ack, each pass) printed."""
+    rows = {}
+    for proc, names in zip(procs, GANG_ROWS):
+        out, err = proc.communicate(timeout=1100)
+        check(proc.returncode == 0, f"chaos {names} rc {proc.returncode}: "
+              f"{out[-2000:]} {err[-2000:]}")
+        report = json.loads(out.strip().splitlines()[-1])
+        mine = {r["scenario"]: r for r in report["scenarios"]}
+        check(report["ok"] and sorted(mine) == sorted(names),
+              f"chaos fleet rows: {report}")
+        rows.update(mine)
+    total_s = time.perf_counter() - t0
+    times = {}
+    for name, row in rows.items():
+        names = [o["oracle"] for o in row.get("oracles") or []]
+        times[name] = {k: row[k] for k in ("seconds", "restart_s",
+                                           "failover_s") if k in row}
+        print(f"chaos {name}: ok, oracles {names or ['history_match']}; "
+              + ", ".join(f"{k} {row[k]}" for k in (
+                  "gang_restarts", "retried", "duplicate_drops",
+                  "lost_acked", "lost_updates", "slo_burn", "spooled",
+                  "replayed", "quarantined", "accuracy_defended",
+                  "accuracy_undefended", "accuracy_clean", "net_faults",
+                  "netlog_match") if k in row)
+              + f"; {times[name]}", flush=True)
+    print(f"chaos fleet rows (CLI, card): {total_s:.1f} s in all; "
+          f"{CARD['smi']}", flush=True)
+    return {"total_s": total_s, "rows": times}
+
+
+def phase_gang() -> tuple:
+    """Phase (u): the rest of the resilience loop on the card (the
+    constants above). The chaos fleet rows (two children) and the fuzz
+    CLI run as children from the start, beside the in-process corpus, the
+    sampled
+    campaigns card vs CPU, the check and the gateway-shape kernel rows.
+    Returns the launches by path, the kernel rows and the phase's
+    numbers."""
+    import tempfile
+    seconds, numbers = {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - clock[0], 2)
+        clock[0] = now
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "fedtpu_torch.cli"]
+    with tempfile.TemporaryDirectory() as directory:
+        t_chaos = time.perf_counter()
+        chaos = [subprocess.Popen(cli + [
+            "chaos", "--scenarios", ",".join(names), "--platform",
+            "default", "--json", "--quiet", "--workdir",
+            os.path.join(directory, f"chaos{i}"), "--timeout", "540"],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for i, names in enumerate(GANG_ROWS)]
+        t_fuzz = time.perf_counter()
+        fuzz = subprocess.Popen(cli + [
+            "fuzz", "--budget", str(GANG_FUZZ_BUDGET), "--seed", "0",
+            "--json"], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            by_path, numbers["corpus"] = gang_corpus()
+            lap("corpus")
+            launches, verdicts, numbers["sampled_s"] = gang_sampled()
+            by_path[f"fuzz seed 0, campaigns 0..{GANG_FUZZ_SAME - 1}"] = \
+                launches
+            lap("sampled")
+            numbers["check"] = gang_check(directory)
+            lap("check")
+            engines, rows = gang_kernel_rows()
+            by_path.update(engines)
+            lap("kernel rows")
+            numbers["fuzz_cli"] = gang_fuzz_cli_check(fuzz, verdicts)
+            numbers["fuzz_cli"]["s"] = time.perf_counter() - t_fuzz
+            print(f"fuzz --budget {GANG_FUZZ_BUDGET} --seed 0 (CLI, card): "
+                  f"{numbers['fuzz_cli']}; {CARD['smi']}", flush=True)
+            lap("fuzz CLI (its wait)")
+            numbers["chaos"] = gang_chaos_check(chaos, t_chaos)
+            lap("chaos (its wait)")
+        finally:
+            for p in chaos + [fuzz]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+    print(f"phase (u) seconds {json.dumps(seconds)}", flush=True)
+    numbers["seconds"] = seconds
+    return by_path, rows, numbers
 
 
 def main() -> None:
@@ -6045,6 +6431,16 @@ def main() -> None:
     print(f"phase (t) numbers {json.dumps(resilience, default=float)}",
           flush=True)
     lap("(t)")
+    gang_launches, gang_rows, gang = phase_gang()
+    by_path.update(gang_launches)
+    timings["weighted_sum_clients"]["gateway_rows"] = gang_rows[
+        "gateway_rows"].pop("weighted_sum_clients")
+    for tag, by_kernel in gang_rows.items():
+        for name, row in by_kernel.items():
+            timings[name][tag] = row
+    print(f"phase (u) numbers {json.dumps(gang, default=float)}",
+          flush=True)
+    lap("(u)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -6092,7 +6488,8 @@ def main() -> None:
                 "ms_by_tile_x_threads", "composed_round_device_ms",
                 "marginal_us_per_round", "profile", "phases_us",
                 "delta_mean", "sweep", "cifar10_32", "bf16_fp16",
-                "sklearn_parity", "serve", "net_sim", "cohort")
+                "sklearn_parity", "serve", "net_sim", "cohort",
+                "gateway_rows", "fuzz_rows")
                 if key in t},
             **({"mode": "sum: K1 unnormalised, the asynchronous tick's "
                 "psum(tensordot(disc, delta))"}

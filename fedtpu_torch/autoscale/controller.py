@@ -19,7 +19,8 @@ Two consumers of the same (SignalBus -> Policy) stack:
   block, reads gang heartbeat files for membership, and executes
   decisions through the serving ``configure``/``pre_drain`` protocol
   ops and SIGUSR1/SIGUSR2 to the gang supervisor (``fedtpu``'s reshard
-  notice path; the gang supervisor is ROADMAP A10). Preemption notices arrive
+  notice path; the port's gang supervisor forwards them to a
+  gateway fleet, a training gang is ROADMAP A10). Preemption notices arrive
   through a notice FILE (``{"victim": p}``), so a drill and a real
   maintenance hook share one mechanism.
 

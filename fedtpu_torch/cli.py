@@ -1,5 +1,5 @@
 """``python -m fedtpu_torch.cli {run,sweep,parity,presets,serve,gateway,
-loadgen,autoscale,report,timeline,supervise,chaos}``: the port's
+loadgen,autoscale,report,timeline,supervise,chaos,fuzz,check}``: the port's
 counterparts of ``fedtpu run`` (the synchronous engine, or with ``--async``
 the asynchronous FedBuff one; with ``--fault-plan``, ``--on-divergence``,
 ``--heartbeat`` and ``--max-restarts``, its resilience knobs),
@@ -11,8 +11,13 @@ store-backed gateway fleet), ``fedtpu loadgen`` (replay an arrival trace
 against a running server or fleet), ``fedtpu autoscale`` (the SLO-driven
 control plane, simulated or live), the offline readers of a telemetry
 sink, ``fedtpu report`` and ``fedtpu timeline``, ``fedtpu supervise`` (one
-supervised child, restarted with ``--resume``) and ``fedtpu chaos`` (the
-single-process resilience scenario matrix).
+supervised child restarted with ``--resume``, or with ``--num-processes N``
+a gateway fleet as a gang), ``fedtpu chaos`` (the resilience scenario
+matrix: its single-process rows and its gateway, poisoning and wire
+rows), ``fedtpu fuzz`` (seeded composed fault campaigns against an
+in-process two-gateway gang, shrunk to reproducers) and ``fedtpu check``
+(the runtime probe that the round step replays without a recapture,
+with its simulation, fleet and corpus folds).
 
 ``run`` exits 0 when done, 3 (``EXIT_DIVERGED``) on a divergence halt and
 75 (``EXIT_PREEMPTED``) after a SIGTERM drain, as ``fedtpu``'s.
@@ -691,7 +696,8 @@ def build_parser() -> argparse.ArgumentParser:
                                 "crash/preemption")
     sup_p.add_argument("--num-processes", type=_positive_int, default=1,
                        help="launch the child as a gang of N processes "
-                            "(not ported yet beyond 1: ROADMAP A10)")
+                            "torn down and relaunched as a unit (gateway "
+                            "fleets; a 'run' gang is ROADMAP A10)")
     sup_p.add_argument("--max-restarts", type=_nonnegative_int, default=2,
                        help="restart budget (default 2); divergence "
                             "(exit 3) is never restarted")
@@ -770,6 +776,131 @@ def build_parser() -> argparse.ArgumentParser:
                          help="print the matrix report as one JSON line")
     chaos_p.add_argument("--quiet", action="store_true",
                          help="suppress per-scenario progress lines")
+
+    # Compositional chaos fuzzing: seeded multi-fault campaigns against
+    # the deterministic in-process gang, judged by the oracle library,
+    # failures ddmin-shrunk to committed reproducers
+    # (fedtpu_torch.resilience.fuzz).
+    fuzz_p = sub.add_parser("fuzz",
+                            help="sample seeded COMPOSED fault campaigns "
+                                 "(process + wire + lifecycle + poison) "
+                                 "and replay each against a deterministic "
+                                 "two-gateway gang, judged by the "
+                                 "invariant-oracle library; failing "
+                                 "campaigns are delta-debugged to minimal "
+                                 "reproducers")
+    fuzz_p.add_argument("--budget", type=_positive_int, default=25,
+                        help="campaigns to sample and replay (default 25)")
+    fuzz_p.add_argument("--seed", type=int, default=0,
+                        help="campaign-generator seed (default 0): the "
+                             "run is a pure function of (seed, budget)")
+    fuzz_p.add_argument("--rounds", type=_positive_int, default=8,
+                        help="virtual rounds per campaign (default 8)")
+    fuzz_p.add_argument("--campaign", default=None, metavar="SPEC",
+                        help="replay ONE campaign instead of sampling: a "
+                             "manifest path or inline JSON (digest "
+                             "verified when present)")
+    fuzz_p.add_argument("--shrink-to", default=None, metavar="DIR",
+                        help="write each failing campaign's ddmin-minimal "
+                             "reproducer + bitwise verdict golden under "
+                             "DIR (the tests/corpus layout)")
+    fuzz_p.add_argument("--no-shrink", action="store_true",
+                        help="report failures without delta-debugging "
+                             "them")
+    fuzz_p.add_argument("--events", default=None, metavar="PATH",
+                        help="append one fuzz_campaign event per campaign "
+                             "(plus the fuzz_run summary) to this JSONL "
+                             "for 'report'")
+    fuzz_p.add_argument("--platform", choices=["default", "cpu"],
+                        default="default",
+                        help="the gang's engines: default = the GPU; cpu "
+                             "= the plain versions on the CPU")
+    fuzz_p.add_argument("--json", action="store_true",
+                        help="print the fuzz report as one JSON line")
+
+    # Runtime probe: drives the real round step under the recompile
+    # sentinel + transfer guard (fedtpu_torch.analysis), with folds.
+    check_p = sub.add_parser("check",
+                             help="prove the round step replays without a "
+                                  "recapture (recompile sentinel + "
+                                  "transfer guard)")
+    check_p.add_argument("--preset", default="income-8",
+                         choices=sorted(PRESETS))
+    check_p.add_argument("--rounds", type=_positive_int, default=4,
+                         help="steady-state steps to drive while armed "
+                              "(default 4)")
+    check_p.add_argument("--transfer-guard",
+                         choices=["allow", "log", "disallow"], default="log",
+                         help="torch.cuda.set_sync_debug_mode level (0, 1, "
+                              "2) around the armed replays (default log); "
+                              "does not apply on the CPU")
+    check_p.add_argument("--debug-nans", action="store_true",
+                         help="also check every state tensor for "
+                              "finiteness after each armed step, naming "
+                              "the first non-finite one")
+    check_p.add_argument("--synthetic-rows", type=_positive_int, default=512,
+                         help="synthetic dataset size (the check probes "
+                              "capture behavior, not accuracy)")
+    check_p.add_argument("--platform", choices=["default", "cpu"],
+                         default="default",
+                         help="default = the GPU; cpu = the plain versions "
+                              "on the CPU")
+    check_p.add_argument("--json", action="store_true",
+                         help="print the check report as one JSON line")
+    check_p.add_argument("--warmup-cache", default=None, metavar="DIR",
+                         help="fedtpu's persistent compilation cache "
+                              "(not ported yet: ROADMAP A11c)")
+    check_p.add_argument("--audit", action="store_true",
+                         help="fedtpu's static side, lint and the program "
+                              "audit (not ported yet: ROADMAP A11d)")
+    check_p.add_argument("--mpmd", action="store_true",
+                         help="fedtpu's MPMD parity probe (not ported yet: "
+                              "ROADMAP A10)")
+    check_p.add_argument("--autoscale-sim", default=None, metavar="GOLDEN",
+                         help="also replay the pinned autoscale "
+                              "simulation and compare its decision "
+                              "sequence bitwise against this golden "
+                              "JSONL, folded into the exit code")
+    check_p.add_argument("--defense-sim", default=None, metavar="GOLDEN",
+                         help="also replay the pinned poisoning-defense "
+                              "simulation (screening engine over a seeded "
+                              "adversarial trace) and compare its decision "
+                              "log bitwise against this golden JSONL, "
+                              "folded into the exit code")
+    check_p.add_argument("--net-sim", default=None, metavar="GOLDEN",
+                         help="also replay the pinned wire-fault "
+                              "campaign (NetFaultPlan through the real "
+                              "engine/session machinery) and compare "
+                              "its decision log bitwise against this "
+                              "golden JSONL, folded into the exit code")
+    check_p.add_argument("--timeline-sim", default=None, metavar="GOLDEN",
+                         help="also replay the pinned two-gateway causal "
+                              "trace campaign and compare the merged "
+                              "deterministic timeline bitwise against "
+                              "this golden JSONL, folded into the exit "
+                              "code")
+    check_p.add_argument("--gateway-probe", default=None,
+                         metavar="PORT_FILE_BASE",
+                         help="also probe a live gateway fleet's health "
+                              "over its port-file base (each member "
+                              "answers a stats round-trip), folded into "
+                              "the exit code")
+    check_p.add_argument("--gateway-count", type=_positive_int, default=1,
+                         help="fleet size for --gateway-probe (default 1)")
+    check_p.add_argument("--lockdep", action="store_true",
+                         help="fedtpu's lock-order sanitizer drills (not "
+                              "ported yet: ROADMAP A11d)")
+    check_p.add_argument("--lockdep-golden", default=None, metavar="GOLDEN",
+                         help="golden lock graph for --lockdep")
+    check_p.add_argument("--fuzz-corpus", default=None, metavar="DIR",
+                         nargs="?", const="tests/corpus",
+                         help="also replay every committed fuzz campaign "
+                              "under DIR (default tests/corpus): digest "
+                              "must match the entries, every oracle must "
+                              "pass, two same-seed runs must be bitwise, "
+                              "and the verdict artifact must match its "
+                              "committed golden — folded into the exit "
+                              "code")
 
     timeline_p = sub.add_parser(
         "timeline",
@@ -1185,7 +1316,8 @@ def _strip_flag(argv, flag):
 
 
 def supervise_main(args) -> int:
-    """``fedtpu``'s ``supervise`` handler for one child."""
+    """``fedtpu``'s ``supervise`` handler: one child, or a gang of
+    ``--num-processes`` members."""
     from fedtpu_torch.resilience.supervisor import supervise
     child = list(args.child)
     if child and child[0] == "--":
@@ -1195,9 +1327,16 @@ def supervise_main(args) -> int:
             "supervise: give the child command after '--', e.g. supervise "
             "-- run --rounds 100 --checkpoint-dir d --checkpoint-every 10")
     if args.num_processes > 1:
-        from fedtpu_torch.config import _not_ported
-        _not_ported(f"supervise --num-processes {args.num_processes} (the "
-                    "gang supervisor)", "A10")
+        from fedtpu_torch.resilience.supervisor import supervise_gang
+        return supervise_gang(child, num_processes=args.num_processes,
+                              max_restarts=args.max_restarts,
+                              backoff_base=args.backoff,
+                              backoff_max=args.backoff_max,
+                              grace=args.grace,
+                              hang_timeout=args.hang_timeout,
+                              heartbeat=args.heartbeat, events=args.events,
+                              healthy_window=args.healthy_window,
+                              verbose=not args.quiet)
     return supervise(child, max_restarts=args.max_restarts,
                      backoff_base=args.backoff, backoff_max=args.backoff_max,
                      grace=args.grace, hang_timeout=args.hang_timeout,
@@ -1225,6 +1364,172 @@ def chaos_main(args) -> int:
     return 0 if report["ok"] else 1
 
 
+def fuzz_main(args) -> int:
+    """``fedtpu``'s ``fuzz`` handler: one campaign (``--campaign``) or a
+    sampled run of ``--budget`` campaigns, the gang's engines on
+    ``--platform``."""
+    from fedtpu_torch.config import FuzzConfig
+    from fedtpu_torch.resilience.fuzz import (Campaign, emit_event,
+                                              run_campaign, run_fuzz)
+    device = "cpu" if args.platform == "cpu" else "cuda"
+    fcfg = FuzzConfig(budget=args.budget, seed=args.seed,
+                      rounds=args.rounds, shrink=not args.no_shrink)
+    if args.campaign:
+        c = Campaign.load(args.campaign)
+        res = run_campaign(c, cfg=fcfg, device=device)
+        if args.events:
+            emit_event(args.events, "fuzz_campaign",
+                       {"name": c.name, "digest": c.digest,
+                        "ok": res["ok"], "failed": res["failed"],
+                        "fired": res["summary"]["fired"]})
+        if args.json:
+            print(json.dumps({"ok": res["ok"], "failed": res["failed"],
+                              "verdicts": res["verdicts"],
+                              "summary": res["summary"]}, default=float))
+        else:
+            s = res["summary"]
+            print(f"campaign {s['digest']}: "
+                  f"{'OK' if res['ok'] else 'VIOLATION'} "
+                  f"({len(res['verdicts'])} oracles"
+                  + (f"; failed {res['failed']}" if res["failed"] else "")
+                  + ")")
+            print(f"  admitted {s['client_admitted']}, incorporated "
+                  f"{s['incorporated']}, screened {s['screened']}, "
+                  f"lost_acked {s['lost_acked']}, retried "
+                  f"{s['retried']}, restarts {s['restarts']}")
+        return 0 if res["ok"] else 1
+    report = run_fuzz(budget=args.budget, seed=args.seed, cfg=fcfg,
+                      out_dir=args.shrink_to, events=args.events,
+                      shrink=not args.no_shrink, device=device)
+    if args.json:
+        print(json.dumps(report, default=float))
+    else:
+        print(f"fuzz seed {report['seed']}: {report['passed']}/"
+              f"{report['campaigns']} campaigns passed all oracles")
+        for r in report["rows"]:
+            if not r["ok"]:
+                tail = (f" -> minimized to {r['shrunk_entries']} entries in "
+                        f"{r['shrink_runs']} runs" if "minimized" in r
+                        else "")
+                print(f"  VIOLATION {r['name']} ({r['digest']}): "
+                      f"{r.get('failed')}{tail}")
+                if "reproducer" in r:
+                    print(f"    reproducer: {r['reproducer']}")
+    return 0 if report["ok"] else 1
+
+
+def _golden_fold(report: dict, key: str, golden: str, sim: dict,
+                 compare, fields: dict) -> None:
+    """Fold one pinned simulation's bitwise golden comparison into the
+    check ``report`` (``fedtpu``'s shape: ok, reason, golden and the
+    summary ``fields``)."""
+    cmp = compare(sim["lines"], golden)
+    report[key] = {"ok": cmp["ok"], "reason": cmp["reason"],
+                   "golden": golden, **fields}
+    report["ok"] = report["ok"] and cmp["ok"]
+
+
+def check_main(args) -> int:
+    """``fedtpu``'s ``check`` handler: the runtime probe, then each fold
+    asked for, all in one exit code. The folds that are not ported refuse
+    before any work, naming their ROADMAP item."""
+    from fedtpu_torch.config import _not_ported
+    for flag, item in (("warmup_cache", "A11c"), ("audit", "A11d"),
+                       ("mpmd", "A10"), ("lockdep", "A11d")):
+        if getattr(args, flag):
+            _not_ported(f"check --{flag.replace('_', '-')}", item)
+    from fedtpu_torch.analysis.check import run_check
+    device = "cpu" if args.platform == "cpu" else "cuda"
+    report = run_check(preset=args.preset, rounds=args.rounds,
+                       transfer=args.transfer_guard, nans=args.debug_nans,
+                       synthetic_rows=args.synthetic_rows, device=device)
+    if args.autoscale_sim:
+        from fedtpu_torch.autoscale.controller import (compare_decisions,
+                                                       simulate)
+        sim = simulate()
+        _golden_fold(report, "autoscale_sim", args.autoscale_sim, sim,
+                     compare_decisions,
+                     {"control_ticks": sim["summary"]["control_ticks"]})
+    if args.defense_sim:
+        from fedtpu_torch.robust.defense_sim import (compare_decisions,
+                                                     simulate)
+        sim = simulate(device=device)
+        s = sim["summary"]
+        _golden_fold(report, "defense_sim", args.defense_sim, sim,
+                     compare_decisions,
+                     {k: s[k] for k in ("screened", "quarantined",
+                                        "quarantined_honest",
+                                        "eval_accuracy")})
+    if args.net_sim:
+        from fedtpu_torch.resilience.net_sim import (compare_decisions,
+                                                     simulate)
+        sim = simulate(device=device)
+        s = sim["summary"]
+        _golden_fold(report, "net_sim", args.net_sim, sim, compare_decisions,
+                     {k: s[k] for k in ("wire_frames", "incorporated",
+                                        "duplicate_drops", "lost_acked")})
+    if args.timeline_sim:
+        from fedtpu_torch.telemetry.timeline_sim import (compare_decisions,
+                                                         simulate)
+        sim = simulate(device=device)
+        s = sim["summary"]
+        _golden_fold(report, "timeline_sim", args.timeline_sim, sim,
+                     compare_decisions,
+                     {k: s[k] for k in ("chains", "retry_duplicate",
+                                        "retry_stages", "incorporated")})
+    if args.gateway_probe:
+        from fedtpu_torch.serving.gateway import probe_fleet
+        rows = probe_fleet(args.gateway_probe, args.gateway_count)
+        report["gateway_probe"] = rows
+        report["ok"] = report["ok"] and all(r["ok"] for r in rows)
+    if args.fuzz_corpus:
+        from fedtpu_torch.resilience.fuzz import run_corpus
+        fc = run_corpus(args.fuzz_corpus, device=device)
+        report["fuzz_corpus"] = fc
+        report["ok"] = report["ok"] and fc["ok"]
+    if args.json:
+        print(json.dumps(report))
+    else:
+        for key in ("preset", "backend", "device_count", "rounds",
+                    "transfer_guard", "transfer_guard_applies",
+                    "debug_nans", "nonfinite", "sentinel_available",
+                    "recompiles", "armed_s_per_round"):
+            print(f"{key}: {report[key]}")
+        if "autoscale_sim" in report:
+            a = report["autoscale_sim"]
+            print(f"autoscale-sim: ok={a['ok']} ({a['reason']})")
+        if "defense_sim" in report:
+            d = report["defense_sim"]
+            print(f"defense-sim: ok={d['ok']} ({d['reason']}) "
+                  f"quarantined={d['quarantined']} "
+                  f"honest={d['quarantined_honest']} "
+                  f"accuracy={d['eval_accuracy']:.4f}")
+        if "net_sim" in report:
+            n = report["net_sim"]
+            print(f"net-sim: ok={n['ok']} ({n['reason']}) "
+                  f"frames={n['wire_frames']} "
+                  f"incorporated={n['incorporated']} "
+                  f"dups={n['duplicate_drops']} "
+                  f"lost_acked={n['lost_acked']}")
+        if "timeline_sim" in report:
+            t = report["timeline_sim"]
+            print(f"timeline-sim: ok={t['ok']} ({t['reason']}) "
+                  f"chains={t['chains']} "
+                  f"retry_duplicate={t['retry_duplicate']}")
+        for r in report.get("gateway_probe", []):
+            state = "up" if r["ok"] else r.get("error", "unreachable")
+            print(f"gateway {r['gateway']}: {state}")
+        if "fuzz_corpus" in report:
+            fc = report["fuzz_corpus"]
+            print(f"fuzz-corpus: ok={fc['ok']} campaigns={fc['campaigns']} "
+                  f"({fc['corpus']})")
+            for r in fc["rows"]:
+                if not r["ok"]:
+                    print(f"  {r['name']}: {r['reason']}")
+        print(f"ok: {report['ok']}")
+    return 0 if report["ok"] else 1
+
+
 def main(argv=None) -> int:
     # The raw argv is kept so that `run --max-restarts N` can re-issue this
     # invocation as a supervised child, the flag stripped.
@@ -1249,6 +1554,10 @@ def main(argv=None) -> int:
         return supervise_main(args)
     if args.command == "chaos":
         return chaos_main(args)
+    if args.command == "fuzz":
+        return fuzz_main(args)
+    if args.command == "check":
+        return check_main(args)
     if args.command == "run" and args.max_restarts:
         # Self-supervision: this run as a supervised child; stripping the
         # flag keeps the child from starting another supervisor.

@@ -2,8 +2,8 @@
 
 The port's own copies of ``fedtpu.config``'s dataclasses that
 ``ExperimentConfig`` holds (data, shard, model, optimizer, federation, run,
-and the run's telemetry), and ``ServingConfig``, the ``serve`` front
-end's. Every field of ``fedtpu``'s is a field here, with
+and the run's telemetry), ``ServingConfig``, the ``serve`` front end's,
+``AutoscaleConfig`` and ``FuzzConfig``. Every field of ``fedtpu``'s is a field here, with
 ``fedtpu``'s name and default, so one config reads the same on both sides.
 A knob that this port does not run yet stays at its neutral default; any
 other value raises ``NotImplementedError`` naming the ROADMAP item that will
@@ -429,6 +429,29 @@ class AutoscaleConfig:
             raise ValueError("need 1 <= min_capacity <= max_capacity")
         if self.tick_fast_s <= 0 or self.tick_slow_s <= 0:
             raise ValueError("tick cadences must be > 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class FuzzConfig:
+    """``fuzz`` — compositional chaos fuzzing
+    (``fedtpu_torch.resilience.fuzz``; ``fedtpu.config.FuzzConfig``, every
+    field with its default).
+
+    Sizing knobs for the deterministic two-gateway campaign executor.
+    Everything here is part of a campaign's replay frame: the corpus
+    gate (``check --fuzz-corpus``) replays committed campaigns under the
+    DEFAULTS, so changing one legitimately regenerates the corpus verdict
+    goldens."""
+
+    budget: int = 25              # campaigns per fuzz run
+    seed: int = 0                 # campaign-sampler seed
+    rounds: int = 8               # traffic rounds per campaign
+    users: int = 32               # user population behind the trace
+    arrivals_per_round: int = 24  # trace rows per round (split by owner)
+    gateways: int = 2             # fleet width (the 2-process gang)
+    ckpt_every: int = 3           # checkpoint cadence (rounds)
+    burn_budget: float = 8.0      # slo_burn_bounded oracle ceiling
+    shrink: bool = True           # ddmin failing campaigns to reproducers
 
 
 # fedtpu's presets: the income ones, the sklearn warm-start demo's and the

@@ -198,8 +198,9 @@ class AsyncStep:
     device tensor, are its inputs (drawn and made from the state on the
     host when not given); ``raw`` holds the per-tick ``loss (R, C)``,
     ``conf (R, C, K, K)``, ``staleness (R, C)``, under the screen
-    ``screened``, ``update_norms (R, C)`` and ``accepted (R,)``, and
-    ``finite``, a device bool that the new state is finite.
+    ``screened``, ``update_norms (R, C)``, ``accepted (R,)`` and the
+    screen's statistics (``screen_stats``), and ``finite``, a device bool
+    that the new state is finite.
     ``draw_arrivals(first, count)`` gives the ``(count, C)`` arrivals of
     ticks ``first..`` on the host (None in driven mode). The capture and
     the host loop take it as they take a ``RoundStep``."""
@@ -210,8 +211,9 @@ class AsyncStep:
         self.draw_arrivals = draw_arrivals
         # The outputs ``pack_outputs`` packs besides loss, counts and the
         # finite flag: per-client, then per-tick.
-        self.outputs = ((("staleness", "screened", "update_norms"),
-                         ("accepted",)) if screen else (("staleness",), ()))
+        self.outputs = ((("staleness", "screened", "update_norms",
+                          "screen_cos"), ("accepted", "screen_limit"))
+                        if screen else (("staleness",), ()))
 
     def __call__(self, state: dict, batch: dict,
                  arrivals: Optional[torch.Tensor] = None):
@@ -226,6 +228,27 @@ class AsyncStep:
         return (torch.zeros((self.rounds, self.num_clients),
                             dtype=torch.float32, device=dev),
                 torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def screen_stats(norms, limit: float, cos, cos_min: float) -> list:
+    """Each slot's screen statistics against their thresholds, as the
+    screen decided them: ``norm`` against ``limit`` (``screen_norm_mult``
+    times the ring's median; inf before the warm-up) and ``cos`` against
+    ``cos_min`` (inf while the direction is undefined), and the smaller
+    relative margin ``|stat - threshold| / |threshold|`` of the two (inf
+    where neither test applies). ``norms`` and ``cos`` are one tick's
+    ``(C,)`` host values of ``update_norms`` and ``screen_cos``."""
+    import math
+    rows = []
+    for n, c in zip(norms, cos):
+        margins = [abs(float(n) - limit) / abs(limit)
+                   if math.isfinite(limit) and limit != 0 else math.inf,
+                   abs(float(c) - cos_min) / abs(cos_min)
+                   if math.isfinite(float(c)) and cos_min != 0 else math.inf]
+        rows.append({"norm": float(n), "limit": float(limit),
+                     "cos": float(c), "cos_min": float(cos_min),
+                     "margin": min(margins)})
+    return rows
 
 
 def async_metrics(raw: dict, mask: torch.Tensor, ticks: int) -> dict:
@@ -334,7 +357,8 @@ def build_async_round_fn(model, tx: Optimizer, num_classes: int,
 
     def screen_tick(delta, arrive, arrived, norms, buf, nbuf, ring, rcount):
         """The streaming screen (``fedtpu/parallel/async_fed.py:307-374``):
-        the screened flags, the arrivals left, and the ring pushed."""
+        the screened flags, the arrivals left, the ring pushed, and the
+        statistics the flags were decided on (``screen_stats``)."""
         finite = torch.isfinite(delta).all(dim=1)
         w_unit = torch.where(arrived & finite,
                              arrive / torch.clamp(norms, min=_EPS),
@@ -358,6 +382,10 @@ def build_async_round_fn(model, tx: Optimizer, num_classes: int,
         screened = arrived & (
             ~finite | (warm & (norms > screen_norm_mult * med))
             | (dir_ok & (unorm > _EPS) & (cosv < screen_cos_min)))
+        limit = torch.where(warm, screen_norm_mult * med,
+                            torch.full_like(med, float("inf")))
+        cos_stat = torch.where(dir_ok & (unorm > _EPS), cosv,
+                               torch.full_like(cosv, float("inf")))
         arrived = arrived & ~screened
         arrive = torch.where(arrived, arrive, torch.zeros_like(arrive))
         # One push a tick: the mean accepted norm, none on a tick with no
@@ -369,7 +397,8 @@ def build_async_round_fn(model, tx: Optimizer, num_classes: int,
         pushed = ring.scatter(0, pos.reshape(1), mean_n.reshape(1))
         ring = torch.where(acc_c > 0, pushed, ring)
         rcount = rcount + (acc_c > 0).to(torch.int32)
-        return screened.to(torch.float32), arrive, arrived, ring, rcount
+        return (screened.to(torch.float32), arrive, arrived, ring, rcount,
+                limit, cos_stat)
 
     def fn(state, batch, arrivals=None, tick=None):
         _check_state(state, buffered, screen, screen_window)
@@ -403,7 +432,8 @@ def build_async_round_fn(model, tx: Optimizer, num_classes: int,
         # tick; slot 0 at init), once per step.
         g = _select_rows(torch.argmax(pull), anchors)
         outs = {k: [] for k in ("loss", "conf", "staleness", "screened",
-                                "update_norms", "accepted")}
+                                "update_norms", "accepted", "screen_cos",
+                                "screen_limit")}
         for j in range(ticks_per_step):
             r = tick + j
             arrive = arrivals[j]
@@ -420,8 +450,11 @@ def build_async_round_fn(model, tx: Optimizer, num_classes: int,
                 norms = torch.zeros_like(arrive)
             scr = torch.zeros_like(arrive)
             if screen:
-                scr, arrive, arrived, ring, rcount = screen_tick(
-                    delta, arrive, arrived, norms, buf, nbuf, ring, rcount)
+                (scr, arrive, arrived, ring, rcount, limit,
+                 cos_stat) = screen_tick(delta, arrive, arrived, norms, buf,
+                                         nbuf, ring, rcount)
+                outs["screen_limit"].append(limit)
+                outs["screen_cos"].append(cos_stat)
             kept = select_participants(
                 arrived.to(torch.float32),
                 {"params": trained.to(slot_dtype), **new_opt},
@@ -462,7 +495,8 @@ def build_async_round_fn(model, tx: Optimizer, num_classes: int,
             new_state["screen_norms"] = ring
             new_state["screen_count"] = rcount
         keys = ("loss", "conf", "staleness") + (
-            ("screened", "update_norms", "accepted") if screen else ())
+            ("screened", "update_norms", "accepted", "screen_cos",
+             "screen_limit") if screen else ())
         raw = {k: torch.stack(outs[k]) for k in keys}
         raw["finite"] = tensors_finite(async_state_tensors(new_state))
         return new_state, raw

@@ -5,19 +5,24 @@ restart and divergence rollback (``fedtpu.resilience``).
   corruption, process kill, checkpoint corruption) applied inside the
   round loop via ``RunConfig.fault_plan`` / ``run --fault-plan``.
 * ``supervisor`` — the exit-code contract (0 done / 3 diverged / 75
-  preempted / 76 resharded), the heartbeat file, and ``supervise``: one
-  child, restarted with ``--resume`` under bounded exponential backoff.
+  preempted / 76 resharded), the heartbeat file, ``supervise``: one
+  child, restarted with ``--resume`` under bounded exponential backoff,
+  and ``supervise_gang``: N members torn down and relaunched as a unit.
 * ``oracles`` — the invariant-oracle library (bitwise history, the exit
   contract, checkpoint restorability, ...), one pure function per bar.
-* ``chaos`` — ``chaos``: the single-process scenario matrix (SIGKILL,
-  preemption, NaN rollback, dropout, straggler).
+* ``chaos`` — ``chaos``: the scenario matrix, its single-process rows
+  (SIGKILL, preemption, NaN rollback, dropout, straggler) and its gateway,
+  poisoning and wire rows (two-gateway fleets under the gang supervisor).
+* ``fuzz`` — ``fuzz``: seeded composed fault campaigns replayed against a
+  deterministic in-process two-gateway gang, judged by the oracles,
+  failures ddmin-shrunk to reproducers; the committed corpus gate.
 * ``netfaults`` / ``net_sim`` — the wire-fault plan and its deterministic
   replay; ``distributed`` — the gang's identity variables and the
   heartbeat path rule.
 
-Not ported yet: the gang supervisor, the collective watchdog and the
-checkpoint agreement (ROADMAP A10), ``fuzz`` and the gateway, poisoning
-and wire chaos rows (ROADMAP A11b, second part).
+Not ported yet: a training gang (``run`` under ``supervise
+--num-processes N``), the collective watchdog and the checkpoint
+agreement (ROADMAP A10).
 """
 
 from fedtpu_torch.resilience.distributed import heartbeat_path_for
@@ -26,10 +31,11 @@ from fedtpu_torch.resilience.supervisor import (EXIT_DIVERGED, EXIT_OK,
                                                 EXIT_RESHARDED, Preempted,
                                                 read_heartbeat,
                                                 restart_backoff, supervise,
+                                                supervise_gang,
                                                 write_heartbeat)
 
 __all__ = [
     "EXIT_OK", "EXIT_DIVERGED", "EXIT_PREEMPTED", "EXIT_RESHARDED",
     "Preempted", "read_heartbeat", "write_heartbeat", "restart_backoff",
-    "supervise", "heartbeat_path_for",
+    "supervise", "supervise_gang", "heartbeat_path_for",
 ]

@@ -20,21 +20,70 @@ where the fault kills the process — then checks the recovery contract:
   straggler     One client sleeps mid-round. Survive + history bitwise
                 == baseline (wall-clock only; the math is untouched).
 
-The registry holds every row of ``fedtpu``'s matrix; the others raise when
-asked for, naming their ROADMAP item: the gang, elastic-reshard and
-autoscale rows (``mp``, ``reshard``, ``autoscale``) A10; the gateway,
-poisoning and wire rows (``gateway``, ``poison``, ``net``) A11b, second
-part. With no ``scenarios`` the five single-process rows run.
+The GATEWAY rows exercise the fault-tolerant ingestion tier
+(fedtpu_torch.serving.gateway) — a 2-gateway fleet, each member owning
+the id-shard of clients matching its store shard, each member's tick the
+captured driven tick on the card:
+
+  mp_gateway_kill      SIGKILL gateway 1 mid-load, AFTER it processes a
+                       session-stamped frame but BEFORE the ack leaves
+                       (the lost-ack window). The gang supervisor
+                       restarts the fleet with --resume; the engine's
+                       write-ahead log replays the acked tail and the
+                       retrying client's resend dedups against it. Bars:
+                       loadgen survives (retried >= 1), >= 1 gang
+                       restart, >= 1 server-side duplicate drop, ZERO
+                       lost acked updates (client exactly-once admitted
+                       total == fleet admitted == fleet incorporated,
+                       backlog 0 after the final drain), SLO burn within
+                       ``GATEWAY_BURN_BUDGET``.
+  mp_store_shard_kill  Shard death mid-round: gateway 1 flushes (slot
+                       writeback + pending spool + digest-stamped,
+                       generation-fenced checkpoint), is SIGKILLed, and
+                       gateway 0 ADOPTS its shard, then takes all traffic
+                       via the client's failover. No gang, deliberately:
+                       the survivor must absorb, not restart. The WHOLE
+                       scenario runs twice and the survivor's tick
+                       history must match BITWISE, with zero lost
+                       admitted updates and an exact spool handoff
+                       (spooled == replayed).
+
+The POISONING row closes the loop through the defense screen — a
+2-gateway fleet under the gang supervisor, the SAME heavy-tailed arrival
+process replayed three times:
+
+  mp_poison_campaign   Defended + poisoned (20% of users are seeded
+                       attackers submitting 10x sign-flipped updates),
+                       defenses-off + poisoned, and defended + clean.
+                       Bars: the defended fleet quarantines EXACTLY the
+                       trace's deterministic attacker set, its model
+                       accuracy stays within ``POISON_ACCURACY_TOL`` of
+                       the clean baseline, zero gang restarts, and the
+                       defenses-off run degrades by at least
+                       ``POISON_DEGRADE_MIN``.
+
+The NET rows (``mp_net_partition``, ``mp_slow_gateway``,
+``mp_torn_frame``) front each member of the supervised fleet with its
+deterministic wire-fault proxy (``_NET_PLANS``): zero lost acked updates,
+duplicate drops > 0, backlog drained, ZERO gang restarts, SLO burn under
+``NET_BURN_BUDGET``, and the whole pass runs twice with byte-identical
+proxy decision logs.
+
+The registry holds every row of ``fedtpu``'s matrix; the training-gang,
+elastic-reshard and autoscale rows (``mp``, ``reshard``, ``autoscale``)
+raise when asked for, naming ROADMAP A10 (they need a ``torch.distributed``
+training gang). With no ``scenarios`` every row the port runs runs.
 
 "History" is the ``--metrics-jsonl`` per-round record with timing
 stripped. Restarted and rolled-back runs append re-executed rounds to the
 same sink, so the comparison takes the LAST record per round.
 
 Every child is a subprocess (``python -m fedtpu_torch.cli``): the parent
-imports neither torch nor numpy and survives whatever the scenario does to
-the child; ``platform`` is the children's (``default`` = the GPU). Restart
-and rollback counts are read back from the shared ``--events`` sink
-through ``fedtpu_torch.telemetry.report``.
+imports no torch and survives whatever the scenario does to the child
+(the fleet rows' trace synthesis and client imports numpy);
+``platform`` is the children's (``default`` = the GPU). Restart and
+rollback counts are read back from the shared ``--events`` sink through
+``fedtpu_torch.telemetry.report``.
 """
 
 from __future__ import annotations
@@ -45,6 +94,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from typing import List, Optional, Sequence
 
 from fedtpu_torch.resilience import oracles
@@ -107,9 +157,47 @@ def scenarios_help() -> str:
 
 
 SCENARIOS = tuple(n for n, _, _ in SCENARIO_REGISTRY)
-# The rows the port runs: one process each (under the single supervisor).
+# One process each (under the single supervisor).
 SINGLE_PROCESS_SCENARIOS = tuple(n for n, fams, _ in SCENARIO_REGISTRY
                                  if not fams)
+# The training-gang rows: 2-process SPMD gangs (ROADMAP A10).
+MP_SCENARIOS = _family("mp")
+RESHARD_SCENARIOS = _family("reshard")
+AUTOSCALE_SCENARIO = _family("autoscale")[0]
+# The ingestion-tier rows: a 2-gateway fleet instead of a training gang.
+# They need no baseline run (no run-loop history; the shard row carries
+# its own bitwise bar by running twice).
+GATEWAY_SCENARIOS = _family("gateway")
+# mp_gateway_kill's SLO ceiling: a gateway death + gang restart stalls
+# incorporation for the whole restart window, so the tier's burn budget
+# sits above the autoscale drill's (2.0).
+GATEWAY_BURN_BUDGET = 2.5
+# The wire-fault rows (fedtpu_torch.resilience.netfaults / serving.
+# netproxy): a 2-gateway fleet fronted by deterministic fault proxies — no
+# process dies, the WIRE does.
+NET_SCENARIOS = _family("net")
+# No process restarts to amortize, but retry backoff stalls ingestion
+# while a partition window burns through — same ceiling as the gateway
+# tier.
+NET_BURN_BUDGET = 2.5
+# The poisoning-containment row: three fleet passes over one arrival
+# process (defended + poisoned, defenses-off + poisoned, defended +
+# clean).
+POISON_SCENARIO = _family("poison")[0]
+POISON_USERS = 40
+POISON_ARRIVALS = 900
+POISON_HORIZON_S = 30.0
+POISON_TRACE_SEED = 7
+POISON_FRAC = 0.2
+POISON_SCALE = 10.0
+POISON_ACCURACY_TOL = 0.01
+POISON_DEGRADE_MIN = 0.05
+# The fleet rows: each carries its own baseline inside the scenario.
+FLEET_SCENARIOS = GATEWAY_SCENARIOS + (POISON_SCENARIO,) + NET_SCENARIOS
+# The rows the port runs, in the registry's order (the default matrix).
+PORTED_SCENARIOS = tuple(n for n in SCENARIOS
+                         if n in SINGLE_PROCESS_SCENARIOS
+                         or n in FLEET_SCENARIOS)
 
 # Metric-history fields compared across runs (sec_per_round is wall
 # clock — the one thing faults are ALLOWED to change).
@@ -117,12 +205,10 @@ _HIST_KEYS = ("client_mean", "pooled", "loss_mean")
 
 
 def _not_ported_row(name: str) -> None:
-    """Raise for a row the port does not run yet, naming its item."""
+    """Raise for a row the port does not run yet (a training-gang row),
+    naming its item."""
     from fedtpu_torch.config import _not_ported
-    fams = dict((n, f) for n, f, _ in SCENARIO_REGISTRY)[name]
-    item = ("A10" if set(fams) & {"mp", "reshard", "autoscale"}
-            else "A11b, second part")
-    _not_ported(f"chaos scenario {name!r}", item)
+    _not_ported(f"chaos scenario {name!r}", "A10")
 
 
 def _fault_round(rounds: int) -> int:
@@ -186,12 +272,615 @@ def _resilience(events_path: str) -> dict:
     return aggregate(events, malformed=bad).get("resilience") or {}
 
 
+def _gateway_row(name: str) -> dict:
+    """The shared verdict-row skeleton (every row carries the matrix's
+    common keys so reporting never branches on scenario family)."""
+    return {"scenario": name, "rc": -1, "survived": False,
+            "history_match": True, "faults": 0, "restarts": 0,
+            "rollbacks": 0, "gang_restarts": 0, "collective_hangs": 0,
+            "reshards": 0, "reshard_failures": 0, "ok": False}
+
+
+def _run_gateway_kill(workdir: str, platform: str, timeout: int) -> dict:
+    """mp_gateway_kill (module docstring): 2-gateway fleet under
+    ``supervise --num-processes 2``, gateway 1 SIGKILLs itself in the
+    lost-ack window (ENV_KILL_AFTER), the loadgen rides the retrying
+    client straight through the gang restart."""
+    import signal as _signal
+
+    from fedtpu_torch.serving.admission import ADMITTED
+    from fedtpu_torch.serving.gateway import ENV_KILL_AFTER
+    from fedtpu_torch.serving.traces import synthesize_trace, write_trace
+    name = "mp_gateway_kill"
+    trace = os.path.join(workdir, f"{name}.trace.jsonl")
+    port_base = os.path.join(workdir, f"{name}.port")
+    ck = os.path.join(workdir, f"{name}.ck")
+    hb = os.path.join(workdir, f"{name}.hb")
+    sup_events = os.path.join(workdir, f"{name}.sup.events.jsonl")
+    serve_events = os.path.join(workdir, f"{name}.serve.events.jsonl")
+    header, t, user, lat = synthesize_trace(200, 2400, 20.0, seed=5)
+    write_trace(trace, header, t, user, lat)
+
+    row = _gateway_row(name)
+    row.update({"retried": 0, "reconnects": 0, "duplicate_drops": 0,
+                "lost_acked": None, "backlog": None, "slo_burn": None})
+    env = dict(os.environ)
+    # Gateway 1 dies after ACKING (processing, not answering) its 2nd
+    # update frame — mid-loadgen with frames still to come.
+    env[ENV_KILL_AFTER] = "1:2"
+    sup = None
+    stderr_parts = []
+    try:
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "fedtpu_torch.cli", "supervise",
+             "--heartbeat", hb, "--num-processes", "2",
+             "--max-restarts", "2", "--grace", "10",
+             "--events", sup_events, "--",
+             "gateway", "--platform", platform, "--num-gateways", "2",
+             "--port-file", port_base, "--checkpoint-dir", ck,
+             "--events", serve_events, "--quiet"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        load = subprocess.run(
+            [sys.executable, "-m", "fedtpu_torch.cli", "loadgen", trace,
+             "--port-file", port_base, "--num-gateways", "2",
+             "--batch", "512", "--retries", "10",
+             "--retry-backoff", "0.1", "--quiet", "--json"],
+            capture_output=True, text=True,
+            timeout=timeout)
+        row["rc"] = load.returncode
+        if load.returncode != 0:
+            row["error"] = "loadgen failed"
+            stderr_parts.append(load.stderr or "")
+            return row
+        summary = json.loads(load.stdout.strip().splitlines()[-1])
+        row["retried"] = int(summary.get("retried") or 0)
+        row["reconnects"] = int(summary.get("reconnects") or 0)
+
+        per = summary.get("server_stats") or {}
+        stats = [s for s in per.values() if s is not None]
+        sigs = [s.get("signals") or {} for s in stats]
+        row["duplicate_drops"] = sum(
+            int(s.get("duplicate_drops") or 0) for s in stats)
+        client_admitted = sum(
+            int(n) for v, n in (summary.get("admission") or {}).items()
+            if v in ADMITTED)
+        fleet_admitted = sum(int(s.get("admitted") or 0) for s in sigs)
+        fleet_incorporated = sum(int(s.get("incorporated") or 0)
+                                 for s in sigs)
+        row["backlog"] = sum(int(s.get("backlog") or 0) for s in sigs)
+        # Two-sided: a lost acked update breaks it one way, a duplicate
+        # incorporation the other.
+        row["lost_acked"] = client_admitted - fleet_incorporated
+        burns = [s.get("slo_burn") for s in sigs
+                 if s.get("slo_burn") is not None]
+        row["slo_burn"] = max(burns) if burns else None
+
+        sup.send_signal(_signal.SIGTERM)
+        sup_rc = sup.wait(timeout=timeout)
+        res = _resilience(sup_events)
+        row["restarts"] = res.get("restarts") or 0
+        row["gang_restarts"] = res.get("gang_restarts") or 0
+        row["survived"] = sup_rc in (0, 75) and len(stats) == 2
+        row["restart_s"] = _restart_seconds(sup_events, port_base)
+        verdicts = oracles.judge_gateway_kill(
+            survived=row["survived"], retried=row["retried"],
+            gang_restarts=row["gang_restarts"],
+            duplicate_drops=row["duplicate_drops"],
+            lost_acked=row["lost_acked"],
+            client_admitted=client_admitted,
+            fleet_admitted=fleet_admitted, backlog=row["backlog"],
+            slo_burn=row["slo_burn"], burn_budget=GATEWAY_BURN_BUDGET)
+        row["oracles"] = [v.as_dict() for v in verdicts]
+        row["ok"] = oracles.summarize(verdicts)["ok"]
+        if not row["ok"]:
+            stderr_parts.append((sup.stderr.read() or "")
+                                if sup.stderr else "")
+        return row
+    except (subprocess.TimeoutExpired, OSError, ConnectionError,
+            ValueError) as e:
+        row["error"] = f"{type(e).__name__}: {e}"
+        return row
+    finally:
+        if sup is not None and sup.poll() is None:
+            sup.kill()
+            sup.wait(timeout=30)
+        if stderr_parts:
+            row["stderr_tail"] = "\n".join(stderr_parts)[-2000:]
+
+
+def _restart_seconds(sup_events: str, port_base: str) -> Optional[float]:
+    """The gang's restart, wall seconds: from the supervisor's relaunch
+    (its ``gang_restart`` event's ``wall``) to the later of the relaunched
+    gateways' port files (each written once its engine serves); None
+    without a restart."""
+    from fedtpu_torch.serving.protocol import gateway_port_file
+    from fedtpu_torch.telemetry.report import load_events
+    events, _ = load_events(sup_events)
+    walls = [e["payload"].get("wall") for e in events
+             if e["kind"] == "gang_restart"]
+    if not walls or walls[-1] is None:
+        return None
+    up = max(os.path.getmtime(gateway_port_file(port_base, g))
+             for g in range(2))
+    return up - walls[-1]
+
+
+def _store_shard_pass(passdir: str, events: list, platform: str,
+                      timeout: int) -> dict:
+    """One mp_store_shard_kill pass (the scenario runs two and compares
+    the survivor histories bitwise): 2 standalone gateways, flush + kill
+    gateway 1 mid-trace, adopt on gateway 0, finish over failover."""
+    import signal as _signal
+    import time as _time
+
+    from fedtpu_torch.serving.client import GatewayClient
+    from fedtpu_torch.serving.loadgen import read_port_file
+    from fedtpu_torch.serving.protocol import gateway_port_file
+    os.makedirs(passdir, exist_ok=True)
+    port_base = os.path.join(passdir, "port")
+    ck = os.path.join(passdir, "ck")
+    hist = os.path.join(passdir, "hist.jsonl")
+    spool = os.path.join(passdir, "shard1.spool.jsonl")
+    out = {"ok": False, "spooled": None, "replayed": None,
+           "adopted_rows": None, "owned": None, "backlog": None,
+           "lost": None, "history": b""}
+    procs = []
+    try:
+        for i in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "fedtpu_torch.cli", "gateway",
+                 "--platform", platform, "--gateway-index", str(i),
+                 "--num-gateways", "2", "--port-file", port_base,
+                 "--checkpoint-dir", ck, "--total-users", "200",
+                 "--history", hist,
+                 "--events", os.path.join(passdir, "serve.events.jsonl"),
+                 "--quiet"],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        for i in range(2):
+            read_port_file(gateway_port_file(port_base, i), timeout=60)
+        half = len(events) // 2
+        with GatewayClient(port_file=port_base, num_gateways=2,
+                           retries=3, backoff_s=0.05, seed=0) as client:
+            for lo in range(0, half, 256):
+                client.send_events(events[lo:min(lo + 256, half)])
+            flushed = client.request({"op": "flush", "path": spool},
+                                     gateway=1, failover=False)
+            if flushed.get("op") != "flushed":
+                out["error"] = f"flush refused: {flushed}"
+                return out
+            out["spooled"] = int(flushed.get("spooled") or 0)
+            t_kill = time.monotonic()
+            procs[1].send_signal(_signal.SIGKILL)
+            procs[1].wait(timeout=30)
+            adopted = client.request(
+                {"op": "adopt", "shard": 1,
+                 "checkpoint_dir": os.path.join(ck, "g1"),
+                 "spool": spool,
+                 "generation": flushed.get("generation")},
+                gateway=0, failover=False)
+            if adopted.get("op") != "adopted":
+                out["error"] = f"adopt refused: {adopted}"
+                return out
+            out["failover_s"] = time.monotonic() - t_kill
+            out["replayed"] = int(adopted.get("replayed") or 0)
+            out["adopted_rows"] = int(adopted.get("rows") or 0)
+            out["owned"] = adopted.get("owned")
+            for lo in range(half, len(events), 256):
+                client.send_events(events[lo:lo + 256])
+            client.request({"op": "drain"}, gateway=0, failover=False)
+            stats = client.request({"op": "stats"}, gateway=0,
+                                   failover=False)
+        sig = stats.get("signals") or {}
+        out["backlog"] = int(sig.get("backlog") or 0)
+        out["lost"] = (int(sig.get("admitted") or 0)
+                       - int(sig.get("incorporated") or 0))
+        procs[0].send_signal(_signal.SIGTERM)
+        rc = procs[0].wait(timeout=timeout)
+        survivor_hist = f"{hist}.g0"
+        deadline = _time.monotonic() + 30
+        while (not os.path.exists(survivor_hist)
+               and _time.monotonic() < deadline):
+            _time.sleep(0.05)
+        with open(survivor_hist, "rb") as fh:
+            out["history"] = fh.read()
+        out["ok"] = (rc in (0, 75)
+                     and out["owned"] == [0, 1]
+                     and out["spooled"] == out["replayed"]
+                     and out["backlog"] == 0
+                     and out["lost"] == 0)
+        if not out["ok"]:
+            out["stderr_tail"] = "\n".join(
+                (p.stderr.read() or "") if p.stderr else ""
+                for p in procs)[-2000:]
+        return out
+    except (subprocess.TimeoutExpired, OSError, ConnectionError,
+            ValueError) as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def _run_store_shard_kill(workdir: str, platform: str,
+                          timeout: int) -> dict:
+    """mp_store_shard_kill (module docstring): the whole degraded
+    scenario runs TWICE and the survivor's tick history must match
+    bitwise — the determinism verdict for the failover path itself."""
+    from fedtpu_torch.serving.traces import synthesize_trace
+    name = "mp_store_shard_kill"
+    header, t, user, lat = synthesize_trace(200, 2000, 20.0, seed=7)
+    events = [[int(u), float(tt), float(ll)]
+              for u, tt, ll in zip(user, t, lat)]
+    row = _gateway_row(name)
+    row.update({"spooled": None, "replayed": None, "adopted_rows": None,
+                "backlog": None, "lost_updates": None})
+    passes = []
+    for tag in ("a", "b"):
+        p = _store_shard_pass(os.path.join(workdir, f"{name}.{tag}"),
+                              events, platform, timeout)
+        passes.append(p)
+        if not p["ok"]:
+            row["error"] = p.get("error", "pass failed")
+            if "stderr_tail" in p:
+                row["stderr_tail"] = p["stderr_tail"]
+            break
+    a = passes[0]
+    row["rc"] = 0 if all(p["ok"] for p in passes) else 1
+    row["spooled"], row["replayed"] = a["spooled"], a["replayed"]
+    row["failover_s"] = [p.get("failover_s") for p in passes]
+    row["adopted_rows"] = a["adopted_rows"]
+    row["backlog"], row["lost_updates"] = a["backlog"], a["lost"]
+    row["survived"] = all(p["ok"] for p in passes)
+    row["history_match"] = (len(passes) == 2 and bool(a["history"])
+                            and a["history"] == passes[1]["history"])
+    row["ok"] = row["survived"] and row["history_match"]
+    return row
+
+
+# The pinned wire campaigns, one per NET row. Frame ordinals count every
+# frame a gateway's proxy sees — hellos, retries, drains included — so
+# they are chosen against the loadgen shape below (2000 events, batch
+# 512 -> 4 updates frames per gateway after the initial hello). Every
+# row carries at least one ack-boundary fault (post_ack tear or replay)
+# so the duplicate-drops bar is meaningful on all three.
+_NET_PLANS = {
+    "mp_net_partition": {"seed": 21, "faults": [
+        # Blackhole gateway 1 for 3 frames mid-load (the 2nd updates
+        # frame plus the reconnect hellos that burn through the window)
+        # and replay a committed frame on gateway 0.
+        {"kind": "net_partition", "gateway": 1, "frame": 3, "frames": 3},
+        {"kind": "net_dup_frame", "gateway": 0, "frame": 3},
+    ]},
+    "mp_slow_gateway": {"seed": 22, "faults": [
+        # Pace gateway 0's link for 3 frames; tear gateway 1's ack AFTER
+        # the WAL/ack boundary so the retry must dedup.
+        {"kind": "net_slow_link", "gateway": 0, "frame": 2, "frames": 3,
+         "chunk_bytes": 512, "delay_s": 0.005},
+        {"kind": "net_torn_frame", "gateway": 1, "frame": 3,
+         "boundary": "post_ack", "cut_bytes": 64},
+    ]},
+    "mp_torn_frame": {"seed": 23, "faults": [
+        # Both sides of the boundary on gateway 1, a mid-batch RST and a
+        # replayed frame on gateway 0.
+        {"kind": "net_torn_frame", "gateway": 1, "frame": 2,
+         "boundary": "pre_ack", "cut_bytes": 80},
+        {"kind": "net_torn_frame", "gateway": 1, "frame": 6,
+         "boundary": "post_ack", "cut_bytes": 80},
+        {"kind": "net_reset", "gateway": 0, "frame": 3, "phase": "mid"},
+        {"kind": "net_dup_frame", "gateway": 0, "frame": 5},
+    ]},
+}
+
+
+def _net_pass(passdir: str, plan_json: str, trace: str, platform: str,
+              timeout: int) -> dict:
+    """One NET-row pass: 2-gateway fleet under the gang supervisor, each
+    member fronted by its wire-fault proxy, the loadgen retrying through
+    the chaos wire. Returns the verdict ingredients plus the
+    concatenated proxy decision logs (the bitwise artifact)."""
+    import signal as _signal
+
+    from fedtpu_torch.serving.admission import ADMITTED
+    os.makedirs(passdir, exist_ok=True)
+    port_base = os.path.join(passdir, "port")
+    ck = os.path.join(passdir, "ck")
+    hb = os.path.join(passdir, "hb")
+    sup_events = os.path.join(passdir, "sup.events.jsonl")
+    serve_events = os.path.join(passdir, "serve.events.jsonl")
+    out = {"ok": False, "rc": -1, "retried": 0, "reconnects": 0,
+           "duplicate_drops": 0, "lost_acked": None, "backlog": None,
+           "slo_burn": None, "restarts": 0, "gang_restarts": 0,
+           "net_faults": 0, "netlog": b""}
+    sup = None
+    stderr_parts = []
+    try:
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "fedtpu_torch.cli", "supervise",
+             "--heartbeat", hb, "--num-processes", "2",
+             "--max-restarts", "2", "--grace", "10",
+             "--events", sup_events, "--",
+             "gateway", "--platform", platform, "--num-gateways", "2",
+             "--port-file", port_base, "--checkpoint-dir", ck,
+             "--net-fault-plan", plan_json,
+             "--events", serve_events, "--quiet"],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        load = subprocess.run(
+            [sys.executable, "-m", "fedtpu_torch.cli", "loadgen", trace,
+             "--port-file", port_base, "--num-gateways", "2",
+             "--batch", "512", "--retries", "12",
+             "--retry-backoff", "0.05", "--quiet", "--json"],
+            capture_output=True, text=True,
+            timeout=timeout)
+        out["rc"] = load.returncode
+        if load.returncode != 0:
+            out["error"] = "loadgen failed"
+            stderr_parts.append(load.stderr or "")
+            return out
+        summary = json.loads(load.stdout.strip().splitlines()[-1])
+        out["retried"] = int(summary.get("retried") or 0)
+        out["reconnects"] = int(summary.get("reconnects") or 0)
+        per = summary.get("server_stats") or {}
+        stats = [s for s in per.values() if s is not None]
+        sigs = [s.get("signals") or {} for s in stats]
+        out["duplicate_drops"] = sum(
+            int(s.get("duplicate_drops") or 0) for s in stats)
+        client_admitted = sum(
+            int(n) for v, n in (summary.get("admission") or {}).items()
+            if v in ADMITTED)
+        out["client_admitted"] = client_admitted
+        out["fleet_admitted"] = sum(int(s.get("admitted") or 0)
+                                    for s in sigs)
+        fleet_incorporated = sum(int(s.get("incorporated") or 0)
+                                 for s in sigs)
+        out["backlog"] = sum(int(s.get("backlog") or 0) for s in sigs)
+        out["lost_acked"] = client_admitted - fleet_incorporated
+        burns = [s.get("slo_burn") for s in sigs
+                 if s.get("slo_burn") is not None]
+        out["slo_burn"] = max(burns) if burns else None
+
+        sup.send_signal(_signal.SIGTERM)
+        sup_rc = sup.wait(timeout=timeout)
+        res = _resilience(sup_events)
+        out["restarts"] = res.get("restarts") or 0
+        out["gang_restarts"] = res.get("gang_restarts") or 0
+        # The bitwise artifact: every proxy's decision log, in gateway
+        # order (schedule header + firings + deterministic summary).
+        chunks = []
+        for i in range(2):
+            log_path = f"{port_base}.g{i}.netlog"
+            with open(log_path, "rb") as fh:
+                chunks.append(fh.read())
+        out["netlog"] = b"".join(chunks)
+        out["net_faults"] = sum(
+            1 for line in out["netlog"].splitlines()
+            if b'"fault"' in line)
+        out["ok"] = sup_rc in (0, 75) and len(stats) == 2
+        if not out["ok"]:
+            stderr_parts.append((sup.stderr.read() or "")
+                                if sup.stderr else "")
+        return out
+    except (subprocess.TimeoutExpired, OSError, ConnectionError,
+            ValueError) as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+        return out
+    finally:
+        if sup is not None and sup.poll() is None:
+            sup.kill()
+            sup.wait(timeout=30)
+        if stderr_parts:
+            out["stderr_tail"] = "\n".join(stderr_parts)[-2000:]
+
+
+def _run_net_row(name: str, workdir: str, platform: str,
+                 timeout: int) -> dict:
+    """One wire-chaos row (module docstring / NET_SCENARIOS): the whole
+    pass runs TWICE with the same pinned plan and the proxy decision
+    logs must match bitwise — the determinism verdict for the wire
+    itself. Bars: zero lost acked updates, duplicate drops > 0, backlog
+    drained, ZERO gang restarts, SLO burn under NET_BURN_BUDGET."""
+    from fedtpu_torch.serving.traces import synthesize_trace, write_trace
+    plan_json = json.dumps(_NET_PLANS[name], sort_keys=True)
+    trace = os.path.join(workdir, f"{name}.trace.jsonl")
+    header, t, user, lat = synthesize_trace(200, 2000, 20.0, seed=11)
+    write_trace(trace, header, t, user, lat)
+
+    row = _gateway_row(name)
+    row.update({"retried": 0, "reconnects": 0, "duplicate_drops": 0,
+                "lost_acked": None, "backlog": None, "slo_burn": None,
+                "net_faults": 0, "netlog_match": False})
+    passes = []
+    for tag in ("a", "b"):
+        p = _net_pass(os.path.join(workdir, f"{name}.{tag}"),
+                      plan_json, trace, platform, timeout // 2)
+        passes.append(p)
+        if not p["ok"]:
+            row["error"] = p.get("error", "pass failed")
+            if "stderr_tail" in p:
+                row["stderr_tail"] = p["stderr_tail"]
+            break
+    a = passes[0]
+    row["rc"] = a["rc"]
+    for k in ("retried", "reconnects", "duplicate_drops", "lost_acked",
+              "backlog", "slo_burn", "net_faults"):
+        row[k] = a[k]
+    row["restarts"] = a["restarts"]
+    row["gang_restarts"] = a["gang_restarts"]
+    row["faults"] = a["net_faults"]
+    row["survived"] = all(p["ok"] for p in passes)
+    row["netlog_match"] = (len(passes) == 2 and bool(a["netlog"])
+                           and a["netlog"] == passes[1]["netlog"])
+    row["history_match"] = row["netlog_match"]
+    verdicts = oracles.judge_net_row(
+        survived=row["survived"], netlog_match=row["netlog_match"],
+        retried=row["retried"],
+        duplicate_drops=row["duplicate_drops"],
+        lost_acked=row["lost_acked"],
+        client_admitted=a.get("client_admitted"),
+        fleet_admitted=a.get("fleet_admitted"), backlog=row["backlog"],
+        gang_restarts=row["gang_restarts"], slo_burn=row["slo_burn"],
+        burn_budget=NET_BURN_BUDGET)
+    row["oracles"] = [v.as_dict() for v in verdicts]
+    row["ok"] = oracles.summarize(verdicts)["ok"]
+    return row
+
+
+def _poison_pass(passdir: str, trace: str, screen: bool, platform: str,
+                 timeout: int) -> dict:
+    """One mp_poison_campaign pass: a 2-gateway fleet under the gang
+    supervisor, the trace replayed through the retrying client with a
+    final drain, defense verdicts read off the per-gateway stats."""
+    import signal as _signal
+    os.makedirs(passdir, exist_ok=True)
+    port_base = os.path.join(passdir, "port")
+    sup_events = os.path.join(passdir, "sup.events.jsonl")
+    out = {"ok": False, "rc": -1, "gang_restarts": 0, "screened": 0,
+           "quarantined": [], "accuracy_min": None}
+    gw_args = ["gateway", "--platform", platform, "--num-gateways", "2",
+               "--port-file", port_base,
+               "--checkpoint-dir", os.path.join(passdir, "ck"),
+               "--cohort", "8", "--buffer-size", "2",
+               "--total-users", str(POISON_USERS), "--quiet"]
+    if screen:
+        gw_args += ["--screen", "--quarantine-strikes", "3"]
+    sup = None
+    try:
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "fedtpu_torch.cli", "supervise",
+             "--heartbeat", os.path.join(passdir, "hb"),
+             "--num-processes", "2", "--max-restarts", "2",
+             "--grace", "10", "--events", sup_events, "--", *gw_args],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        load = subprocess.run(
+            [sys.executable, "-m", "fedtpu_torch.cli", "loadgen", trace,
+             "--port-file", port_base, "--num-gateways", "2",
+             "--batch", "256", "--quiet", "--json"],
+            capture_output=True, text=True,
+            timeout=timeout)
+        out["rc"] = load.returncode
+        if load.returncode != 0:
+            out["error"] = "loadgen failed"
+            out["stderr_tail"] = (load.stderr or "")[-2000:]
+            return out
+        summary = json.loads(load.stdout.strip().splitlines()[-1])
+        per = summary.get("server_stats") or {}
+        stats = [s for s in per.values() if s is not None]
+        out["screened"] = sum(int(s.get("screened") or 0) for s in stats)
+        out["quarantined"] = sorted(
+            {int(u) for s in stats for u in (s.get("quarantined") or [])})
+        accs = [s.get("eval_accuracy") for s in stats
+                if s.get("eval_accuracy") is not None]
+        out["accuracy_min"] = min(accs) if accs else None
+        sup.send_signal(_signal.SIGTERM)
+        sup_rc = sup.wait(timeout=timeout)
+        res = _resilience(sup_events)
+        out["gang_restarts"] = res.get("gang_restarts") or 0
+        out["ok"] = (sup_rc in (0, 75) and len(stats) == 2
+                     and out["accuracy_min"] is not None)
+        if not out["ok"]:
+            out["stderr_tail"] = ((sup.stderr.read() or "")
+                                  if sup.stderr else "")[-2000:]
+        return out
+    except (subprocess.TimeoutExpired, OSError, ConnectionError,
+            ValueError) as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+        return out
+    finally:
+        if sup is not None and sup.poll() is None:
+            sup.kill()
+            sup.wait(timeout=30)
+
+
+def _run_poison_campaign(workdir: str, platform: str, timeout: int) -> dict:
+    """mp_poison_campaign (module docstring): three fleet passes over the
+    same arrival process — defended+poisoned, defenses-off+poisoned,
+    defended+clean — scored against the trace's deterministic attacker
+    set and the clean pass's accuracy."""
+    from fedtpu_torch.serving.traces import (poisoned_user_ids, synthesize_trace,
+                                       write_trace)
+    name = POISON_SCENARIO
+    poisoned = os.path.join(workdir, f"{name}.poisoned.jsonl")
+    clean = os.path.join(workdir, f"{name}.clean.jsonl")
+    header, t, user, lat = synthesize_trace(
+        POISON_USERS, POISON_ARRIVALS, POISON_HORIZON_S,
+        seed=POISON_TRACE_SEED, poison_frac=POISON_FRAC,
+        poison_scale=POISON_SCALE)
+    write_trace(poisoned, header, t, user, lat)
+    # Same seed, no poison: identical arrival arrays, every user honest.
+    ch, ct, cu, cl = synthesize_trace(
+        POISON_USERS, POISON_ARRIVALS, POISON_HORIZON_S,
+        seed=POISON_TRACE_SEED)
+    write_trace(clean, ch, ct, cu, cl)
+    attackers = sorted(int(u) for u in poisoned_user_ids(
+        POISON_USERS, POISON_TRACE_SEED, POISON_FRAC))
+
+    row = _gateway_row(name)
+    row.update({"attackers": attackers, "quarantined": [],
+                "quarantined_honest": [], "missed_attackers": attackers,
+                "screened": 0, "accuracy_defended": None,
+                "accuracy_undefended": None, "accuracy_clean": None})
+    passes = {}
+    for tag, trace, screen in (("defended", poisoned, True),
+                               ("undefended", poisoned, False),
+                               ("clean", clean, True)):
+        p = _poison_pass(os.path.join(workdir, f"{name}.{tag}"), trace,
+                         screen, platform, timeout)
+        passes[tag] = p
+        if not p["ok"]:
+            row["error"] = f"{tag} pass failed: {p.get('error', 'see tail')}"
+            if "stderr_tail" in p:
+                row["stderr_tail"] = p["stderr_tail"]
+            row["rc"] = p["rc"]
+            return row
+    d, u, c = passes["defended"], passes["undefended"], passes["clean"]
+    atk = set(attackers)
+    row["rc"] = 0
+    row["screened"] = d["screened"]
+    row["quarantined"] = d["quarantined"]
+    row["quarantined_honest"] = sorted(set(d["quarantined"]) - atk)
+    row["missed_attackers"] = sorted(atk - set(d["quarantined"]))
+    row["accuracy_defended"] = d["accuracy_min"]
+    row["accuracy_undefended"] = u["accuracy_min"]
+    row["accuracy_clean"] = c["accuracy_min"]
+    row["gang_restarts"] = max(p["gang_restarts"] for p in passes.values())
+    row["survived"] = True
+    verdicts = [
+        oracles.quarantine_containment(d["quarantined"], atk,
+                                       mode="exact"),
+        oracles.Verdict("no_gang_restart", row["gang_restarts"] == 0,
+                        observed=row["gang_restarts"], expected=0,
+                        detail="defense must absorb the attack without a "
+                               "restart"),
+        oracles.defense_effective(d["accuracy_min"], u["accuracy_min"],
+                                  c["accuracy_min"],
+                                  POISON_ACCURACY_TOL,
+                                  POISON_DEGRADE_MIN),
+    ]
+    row["oracles"] = [v.as_dict() for v in verdicts]
+    row["ok"] = oracles.summarize(verdicts)["ok"]
+    return row
+
+
 def run_scenario(name: str, workdir: str, baseline: dict, rounds: int,
                  num_clients: int, platform: str, timeout: int,
                  hidden_sizes: Sequence[int] = (16,),
                  synthetic_rows: Optional[int] = None) -> dict:
     """One scenario run + verdict row (see the module docstring for the
     bars)."""
+    if name == "mp_gateway_kill":
+        return _run_gateway_kill(workdir, platform, timeout)
+    if name in NET_SCENARIOS:
+        return _run_net_row(name, workdir, platform, timeout)
+    if name == POISON_SCENARIO:
+        return _run_poison_campaign(workdir, platform, timeout)
+    if name == "mp_store_shard_kill":
+        return _run_store_shard_kill(workdir, platform, timeout)
     if name not in SINGLE_PROCESS_SCENARIOS:
         _not_ported_row(name)
     ck = os.path.join(workdir, f"{name}.ck")
@@ -245,6 +934,36 @@ def run_scenario(name: str, workdir: str, baseline: dict, rounds: int,
     return row
 
 
+def _detail(row: dict) -> str:
+    """A fleet row's own numbers for its verbose line (fedtpu's)."""
+    name = row["scenario"]
+    if name == "mp_gateway_kill":
+        return (f" gang_restarts={row['gang_restarts']} "
+                f"retried={row['retried']} "
+                f"duplicate_drops={row['duplicate_drops']} "
+                f"lost_acked={row['lost_acked']} "
+                f"slo_burn={row['slo_burn']}")
+    if name == "mp_store_shard_kill":
+        return (f" spooled={row['spooled']} replayed={row['replayed']} "
+                f"adopted_rows={row['adopted_rows']} "
+                f"lost_updates={row['lost_updates']}")
+    if name in NET_SCENARIOS:
+        return (f" net_faults={row['net_faults']} "
+                f"retried={row['retried']} "
+                f"duplicate_drops={row['duplicate_drops']} "
+                f"lost_acked={row['lost_acked']} "
+                f"netlog_match={row['netlog_match']} "
+                f"slo_burn={row['slo_burn']}")
+    if name == POISON_SCENARIO:
+        return (f" quarantined={row['quarantined']} "
+                f"honest={row['quarantined_honest']} "
+                f"missed={row['missed_attackers']} "
+                f"acc_def={row['accuracy_defended']} "
+                f"acc_undef={row['accuracy_undefended']} "
+                f"acc_clean={row['accuracy_clean']}")
+    return ""
+
+
 def run_chaos(scenarios: Optional[Sequence[str]] = None, rounds: int = 10,
               num_clients: int = 4, workdir: Optional[str] = None,
               keep_artifacts: bool = False, timeout: int = 600,
@@ -256,13 +975,13 @@ def run_chaos(scenarios: Optional[Sequence[str]] = None, rounds: int = 10,
     removed afterwards unless ``keep_artifacts``). ``hidden_sizes`` and
     ``synthetic_rows``: the runs' widths (fedtpu's are hidden 16) and rows
     (default: the preset's)."""
-    names = tuple(scenarios) if scenarios else SINGLE_PROCESS_SCENARIOS
+    names = tuple(scenarios) if scenarios else PORTED_SCENARIOS
     unknown = [n for n in names if n not in SCENARIOS]
     if unknown:
         raise ValueError(f"unknown chaos scenario(s) {unknown}; "
                          f"pick from {list(SCENARIOS)}")
     for n in names:
-        if n not in SINGLE_PROCESS_SCENARIOS:
+        if n not in PORTED_SCENARIOS:
             _not_ported_row(n)
     if rounds < 4:
         raise ValueError("chaos needs --rounds >= 4: a checkpoint must "
@@ -271,27 +990,33 @@ def run_chaos(scenarios: Optional[Sequence[str]] = None, rounds: int = 10,
     wd = workdir or tempfile.mkdtemp(prefix="fedtpu-chaos-")
     os.makedirs(wd, exist_ok=True)
     try:
-        if verbose:
-            print(f"[chaos] baseline run ({rounds} rounds, "
-                  f"{num_clients} clients) in {wd}", flush=True)
-        base = subprocess.run(
-            [sys.executable, "-m", "fedtpu_torch.cli",
-             *_run_args(wd, "baseline", rounds, num_clients, platform,
-                        hidden_sizes, synthetic_rows)],
-            capture_output=True, text=True, timeout=timeout)
-        if base.returncode != 0:
-            return {"ok": False, "error": "baseline run failed",
-                    "rc": base.returncode,
-                    "stderr_tail": (base.stderr or "")[-2000:],
-                    "scenarios": [], "workdir": wd}
-        baseline = _history(os.path.join(wd, "baseline.metrics.jsonl"))
+        baseline: dict = {}
+        if any(n not in FLEET_SCENARIOS for n in names):
+            # The fleet rows carry their own baselines inside the
+            # scenario; only training rows need the uninterrupted run.
+            if verbose:
+                print(f"[chaos] baseline run ({rounds} rounds, "
+                      f"{num_clients} clients) in {wd}", flush=True)
+            base = subprocess.run(
+                [sys.executable, "-m", "fedtpu_torch.cli",
+                 *_run_args(wd, "baseline", rounds, num_clients, platform,
+                            hidden_sizes, synthetic_rows)],
+                capture_output=True, text=True, timeout=timeout)
+            if base.returncode != 0:
+                return {"ok": False, "error": "baseline run failed",
+                        "rc": base.returncode,
+                        "stderr_tail": (base.stderr or "")[-2000:],
+                        "scenarios": [], "workdir": wd}
+            baseline = _history(os.path.join(wd, "baseline.metrics.jsonl"))
         rows = []
         for name in names:
             if verbose:
                 print(f"[chaos] scenario {name} ...", flush=True)
+            t0 = time.monotonic()
             row = run_scenario(name, wd, baseline, rounds, num_clients,
                                platform, timeout, hidden_sizes,
                                synthetic_rows)
+            row["seconds"] = time.monotonic() - t0
             rows.append(row)
             if verbose:
                 status = "ok" if row["ok"] else "FAIL"
@@ -299,7 +1024,8 @@ def run_chaos(scenarios: Optional[Sequence[str]] = None, rounds: int = 10,
                       f"survived={row['survived']} "
                       f"history_match={row['history_match']} "
                       f"faults={row['faults']} restarts={row['restarts']} "
-                      f"rollbacks={row['rollbacks']}", flush=True)
+                      f"rollbacks={row['rollbacks']}{_detail(row)}",
+                      flush=True)
         return {"ok": all(r["ok"] for r in rows), "rounds": rounds,
                 "num_clients": num_clients, "scenarios": rows,
                 "workdir": wd if keep_artifacts else None}

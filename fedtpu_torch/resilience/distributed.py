@@ -1,10 +1,17 @@
 """The gang's identity variables and the heartbeat path rule (the port's
-copy of the pieces of ``fedtpu.resilience.distributed`` that the gateway
-fleet, the autoscale signals, the round loop's heartbeat and the
-supervisor's clean-exit hygiene read; the collective watchdog and the
-checkpoint agreement are ROADMAP A10)."""
+copy of the pieces of ``fedtpu.resilience.distributed`` that the gang
+supervisor sets and the gateway fleet, the autoscale signals, the round
+loop's heartbeat and the supervisor's clean-exit hygiene read; the
+collective watchdog and the checkpoint agreement are ROADMAP A10)."""
 
 from __future__ import annotations
+
+# Gang-launch environment contract, set per member by ``supervise_gang``:
+# the rendezvous address (host:port, fresh per relaunch) and the gang's
+# size. A training gang would hand them to ``torch.distributed``'s
+# rendezvous (ROADMAP A10); gateway members read only their index.
+ENV_COORDINATOR = "FEDTPU_COORDINATOR"
+ENV_NUM_PROCESSES = "FEDTPU_NUM_PROCESSES"
 
 # This process's index in its gang (set by the gang supervisor; a gateway
 # without --gateway-index takes it as its index).

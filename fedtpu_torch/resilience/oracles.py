@@ -8,9 +8,9 @@ round progression, checkpoint restorability, bounded SLO burn — used to
 live as an ad-hoc boolean expression inside its chaos row. This module
 extracts each bar into ONE pure function returning a structured
 :class:`Verdict`, so the same implementation gates the hand-written
-scenario matrix (fedtpu_torch.resilience.chaos), fedtpu's compositional
-fuzzer and its committed corpus replays (ROADMAP A11b, second part, in the
-port), and so ``report`` can render
+scenario matrix (fedtpu_torch.resilience.chaos), the compositional
+fuzzer (fedtpu_torch.resilience.fuzz) and its committed corpus replays,
+and so ``report`` can render
 exactly WHICH invariant a campaign broke instead of a bare ``ok=False``.
 
 Design constraints:

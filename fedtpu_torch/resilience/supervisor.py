@@ -28,21 +28,30 @@ the once-per-run kinds when > 0, ``fedtpu_torch.resilience.faults``) and
 round is deterministic, so a run killed mid-round finishes with the
 uninterrupted run's history exactly.
 
+``supervise_gang`` (``supervise --num-processes N``) runs N members as a
+unit: any member failing tears the whole gang down and relaunches it under
+the same contract. Each member gets its index, the gang's size, a fresh
+rendezvous address and a launch id fresh per relaunch
+(``fedtpu_torch.resilience.distributed``). It launches gateway fleets; a
+training gang (``run`` with N > 1) needs ``torch.distributed`` and is
+ROADMAP A10.
+
 This module imports neither torch nor numpy: the supervising parent only
 starts children, so a restart never holds a second CUDA context on the
-card. The gang supervisor (``supervise --num-processes N``) is ROADMAP
-A10."""
+card."""
 
 from __future__ import annotations
 
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
 import time
-from typing import List, Optional, Sequence, Tuple
+import uuid
+from typing import Dict, List, Optional, Sequence, Tuple
 
 EXIT_OK = 0
 EXIT_DIVERGED = 3
@@ -159,17 +168,21 @@ def _register_handlers(signaled: dict) -> List[Tuple[int, object]]:
 
 
 def _cleanup_run_artifacts(child_argv: Sequence[str],
-                           heartbeat: Optional[str]) -> None:
+                           heartbeat: Optional[str],
+                           num_processes: int = 1) -> None:
     """A run that ended ``EXIT_OK`` leaves no liveness or agreement residue
     behind: a later launch in the same directory must not take a dead
-    child's heartbeat, or its ``.agreement``/``.reshard`` records under the
-    child's ``--checkpoint-dir``, for a live or resumable one."""
+    child's (or gang member's) heartbeat, or its ``.agreement``/``.reshard``
+    records under the child's ``--checkpoint-dir``, for a live or
+    resumable one."""
     import shutil
+    from fedtpu_torch.resilience.distributed import heartbeat_path_for
     if heartbeat:
-        try:
-            os.unlink(heartbeat)
-        except OSError:
-            pass
+        for i in range(max(1, num_processes)):
+            try:
+                os.unlink(heartbeat_path_for(heartbeat, i))
+            except OSError:
+                pass
     argv = list(child_argv)
     try:
         idx = argv.index("--checkpoint-dir")
@@ -274,6 +287,230 @@ def supervise(child_argv: Sequence[str], max_restarts: int = 2,
                 why = "hung" if hung else (
                     "preempted" if rc == EXIT_PREEMPTED else f"rc={rc}")
                 print(f"[supervise] child {why}; restart "
+                      f"{restarts}/{max_restarts}"
+                      + (f" after {delay:.1f}s backoff" if delay else ""))
+            if delay:
+                time.sleep(delay)
+    finally:
+        for s, h in restore:
+            signal.signal(s, h)
+        tracer.close()
+
+
+def _free_port() -> int:
+    """A fresh rendezvous port, picked per gang LAUNCH: after a member's
+    death the old socket can linger (TIME_WAIT, or a not-yet-reaped child
+    still holding it), so a relaunch never reuses it."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _teardown_gang(live: Dict[int, subprocess.Popen], grace: float,
+                   rcs: Dict[int, int]) -> None:
+    """All-or-nothing: SIGTERM every survivor at once (they drain in
+    parallel), SIGKILL whoever is still up after ``grace``."""
+    for c in live.values():
+        c.terminate()
+    deadline = time.time() + grace
+    for i, c in live.items():
+        try:
+            rcs[i] = c.wait(timeout=max(0.1, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            c.kill()
+            rcs[i] = c.wait()
+    live.clear()
+
+
+def _wait_gang(children: List[subprocess.Popen], signaled: dict,
+               heartbeat: Optional[str], hang_timeout: Optional[float],
+               grace: float, started: float,
+               ) -> Tuple[int, Optional[int], bool, Dict[int, int]]:
+    """Poll the gang until it finishes or one member fails. Returns
+    ``(trigger_rc, trigger_proc, hung, rcs)`` — ``trigger_proc`` is None
+    on clean completion / external stop. A member exiting ``EXIT_OK``
+    early is NOT a failure (peers finish their own epilogue), and neither
+    is ``EXIT_RESHARDED``; any other exit, or a stale per-process
+    heartbeat, triggers gang teardown. SIGUSR1/SIGUSR2 preemption notices
+    are forwarded to every live member. A parked member (its heartbeat's
+    status) outliving every peer's clean exit is nudged with SIGTERM."""
+    from fedtpu_torch.resilience.distributed import heartbeat_path_for
+    live: Dict[int, subprocess.Popen] = dict(enumerate(children))
+    rcs: Dict[int, int] = {}
+    while live:
+        if signaled["sig"] is not None:
+            _teardown_gang(live, grace, rcs)
+            return max(rcs.values()), None, False, rcs
+        usr = signaled.pop("usr", None)
+        if usr is not None:
+            for c in live.values():
+                try:
+                    c.send_signal(usr)
+                except OSError:
+                    pass
+        for i in list(live):
+            rc = live[i].poll()
+            if rc is None:
+                continue
+            rcs[i] = rc
+            del live[i]
+            if rc not in (EXIT_OK, EXIT_RESHARDED):
+                _teardown_gang(live, grace, rcs)
+                return rc, i, False, rcs
+        if live and rcs and heartbeat and all(
+                r in (EXIT_OK, EXIT_RESHARDED) for r in rcs.values()):
+            parked = [i for i in live
+                      if (read_heartbeat(heartbeat_path_for(heartbeat, i))
+                          or {}).get("status") == "parked"]
+            if len(parked) == len(live):
+                for i in parked:
+                    live[i].terminate()
+        if hang_timeout and heartbeat:
+            for i in list(live):
+                hb = heartbeat_path_for(heartbeat, i)
+                try:
+                    last = os.path.getmtime(hb)
+                except OSError:
+                    last = started       # not written yet: age from launch
+                if time.time() - max(last, started) > hang_timeout:
+                    live[i].kill()
+                    rcs[i] = live.pop(i).wait()
+                    _teardown_gang(live, grace, rcs)
+                    return rcs[i], i, True, rcs
+        time.sleep(0.2)
+    return EXIT_OK, None, False, rcs
+
+
+def supervise_gang(child_argv: Sequence[str], num_processes: int,
+                   max_restarts: int = 2, backoff_base: float = 1.0,
+                   backoff_max: float = 30.0, grace: float = 15.0,
+                   hang_timeout: Optional[float] = None,
+                   heartbeat: Optional[str] = None,
+                   events: Optional[str] = None,
+                   extra_env: Optional[dict] = None,
+                   healthy_window: float = 300.0,
+                   _cmd_prefix: Optional[List[str]] = None,
+                   verbose: bool = True) -> int:
+    """``supervise()`` for a gang of ``num_processes`` members
+    (``fedtpu``'s ``supervise_gang``).
+
+    Restarts are all-or-nothing: ANY member failing — crash, hang (a
+    stale per-process heartbeat), preemption — tears down the whole gang
+    (SIGTERM, then SIGKILL after ``grace``) and the restart decision is
+    made from the triggering exit code under the same 0/3/75 contract as
+    ``supervise``. Every member gets ``FEDTPU_PROCESS_ID`` (its index),
+    ``FEDTPU_NUM_PROCESSES``, ``FEDTPU_COORDINATOR`` (a fresh local
+    address per relaunch), ``FEDTPU_LAUNCH_ID`` (fresh per relaunch,
+    identical across the gang: a gateway's failover generation) and the
+    same ``FEDTPU_RESTARTS``; restarted ``serve``/``gateway`` children get
+    ``--resume``. ``heartbeat`` is one base path each member derives its
+    own file from (``heartbeat_path_for``). A ``run`` gang needs
+    ``torch.distributed`` and raises naming ROADMAP A10."""
+    from fedtpu_torch.resilience.distributed import (ENV_COORDINATOR,
+                                                     ENV_LAUNCH_ID,
+                                                     ENV_NUM_PROCESSES,
+                                                     ENV_PROCESS_ID)
+    from fedtpu_torch.telemetry.trace import make_tracer
+    if num_processes < 2:
+        return supervise(child_argv, max_restarts=max_restarts,
+                         backoff_base=backoff_base, backoff_max=backoff_max,
+                         grace=grace, hang_timeout=hang_timeout,
+                         heartbeat=heartbeat, events=events,
+                         extra_env=extra_env, healthy_window=healthy_window,
+                         _cmd_prefix=_cmd_prefix, verbose=verbose)
+    base = list(child_argv)
+    if base and base[0] == "run":
+        from fedtpu_torch.config import _not_ported
+        _not_ported(f"supervise --num-processes {num_processes} -- run (a "
+                    "training gang over torch.distributed)", "A10")
+    tracer = make_tracer(events, role="supervisor")
+    prefix = (list(_cmd_prefix) if _cmd_prefix is not None
+              else [sys.executable, "-m", "fedtpu_torch.cli"])
+    # serve/gateway children keep the SIGTERM -> drain -> 75 contract, so
+    # they get the --resume/--heartbeat wiring on restart.
+    is_run = bool(base) and base[0] in ("serve", "gateway")
+    if heartbeat and is_run and "--heartbeat" not in base:
+        base += ["--heartbeat", heartbeat]
+
+    signaled = {"sig": None}
+    restore = _register_handlers(signaled)
+
+    restarts = 0
+    crash_streak = 0
+    tracer.event("gang_start", num_processes=num_processes,
+                 max_restarts=max_restarts, cmd=prefix + base)
+    try:
+        while True:
+            port = _free_port()
+            launch_id = uuid.uuid4().hex[:12]
+            argv = list(base)
+            if restarts > 0 and is_run and "--resume" not in argv:
+                argv.append("--resume")
+            children = []
+            started = time.time()
+            for i in range(num_processes):
+                env = dict(os.environ, FEDTPU_RESTARTS=str(restarts),
+                           FEDTPU_SUPERVISED="1")
+                env[ENV_COORDINATOR] = f"127.0.0.1:{port}"
+                env[ENV_LAUNCH_ID] = launch_id
+                env[ENV_NUM_PROCESSES] = str(num_processes)
+                env[ENV_PROCESS_ID] = str(i)
+                if extra_env:
+                    env.update(extra_env)
+                child = subprocess.Popen(prefix + argv, env=env)
+                children.append(child)
+                tracer.event("child_start", pid=child.pid, proc=i,
+                             restarts=restarts)
+            rc, proc, hung, rcs = _wait_gang(children, signaled, heartbeat,
+                                             hang_timeout, grace, started)
+            tracer.event("child_exit", rc=rc, proc=proc, restarts=restarts,
+                         hung=hung, dur_s=time.time() - started,
+                         gang_rcs=[rcs.get(i) for i in
+                                   range(num_processes)])
+            if signaled["sig"] is not None:
+                tracer.event("supervisor_exit", rc=rc, reason="signaled",
+                             restarts=restarts)
+                tracer.flush_crash(reason=f"signaled:rc={rc}")
+                return rc
+            if rc in (EXIT_OK, EXIT_DIVERGED):
+                tracer.event("supervisor_exit", rc=rc,
+                             reason="done" if rc == EXIT_OK else "diverged",
+                             restarts=restarts)
+                tracer.flush_crash(reason=f"exit:rc={rc}")
+                if rc == EXIT_OK:
+                    _cleanup_run_artifacts(base, heartbeat,
+                                           num_processes=num_processes)
+                return rc
+            if restarts >= max_restarts:
+                tracer.event("supervisor_exit", rc=rc,
+                             reason="budget_exhausted", restarts=restarts)
+                tracer.flush_crash(reason=f"budget_exhausted:rc={rc}")
+                if verbose:
+                    print(f"[supervise] gang rc={rc} (proc {proc}) with "
+                          f"restart budget exhausted ({max_restarts}); "
+                          "giving up")
+                return rc
+            if healthy_window and time.time() - started >= healthy_window:
+                crash_streak = 0
+            # A heartbeat-detected hang restarts without backoff, like a
+            # preemption (the last checkpoint is intact).
+            delay = restart_backoff(rc, hung, crash_streak,
+                                    backoff_base, backoff_max)
+            if delay:
+                crash_streak += 1
+            restarts += 1
+            # ``wall``: the relaunch's wall clock (the chaos rows time a
+            # restart from it to the relaunched members serving).
+            tracer.event("gang_restart", restarts=restarts, rc=rc,
+                         proc=proc, hung=hung, backoff_s=delay,
+                         resume=is_run, crash_streak=crash_streak,
+                         coordinator_died=(proc == 0), wall=time.time())
+            if verbose:
+                why = "hung" if hung else (
+                    "preempted" if rc == EXIT_PREEMPTED else f"rc={rc}")
+                who = ("coordinator" if proc == 0 else f"worker {proc}"
+                       ) if proc is not None else "gang"
+                print(f"[supervise] {who} {why}; gang restart "
                       f"{restarts}/{max_restarts}"
                       + (f" after {delay:.1f}s backoff" if delay else ""))
             if delay:

@@ -6,10 +6,10 @@ with screening enabled over a seeded adversarial trace
 (``serving.traces``, v2 poison mode) in pure virtual time, then
 canonicalizes the engine's defense decision log — one JSON line per
 screen strike / quarantine. ``fedtpu`` compares those lines against its
-committed golden through ``check --defense-sim``; the port's ``check``
-is ROADMAP A11b's second part, so the lines are held against ``fedtpu``'s own
-``simulate()`` run in-process (the tests) and the card's against the
-CPU's (``chip_smoke.py``).
+committed golden through ``check --defense-sim``, and so does the port's
+``check``; the tests also hold the lines against ``fedtpu``'s own
+``simulate()`` run in-process, and ``chip_smoke.py`` the card's against
+the CPU's.
 
 ``write_decisions`` / ``compare_decisions`` come from the autoscale
 control plane (``fedtpu_torch.autoscale.controller``), as ``fedtpu``'s

@@ -299,6 +299,11 @@ class ServingEngine:
         # acknowledged; a kill between ack and checkpoint is replayed by
         # replay_wal() on resume.
         self.wal_path: Optional[str] = None
+        # The fuzzer's disk-full hook (wal_append); None writes whole.
+        self.wal_shortwrite = None
+        # Set to a list to record every screened tick's decisions and the
+        # screen's statistics (_record_screen): one more host read a tick.
+        self.screen_stats: Optional[list] = None
 
         # The cohort's training fixture: synthetic income-shaped shards,
         # one per slot, as fedtpu's.
@@ -522,9 +527,15 @@ class ServingEngine:
         once state is durable. No-op until ``wal_path`` is set. The
         frame's causal ``trace`` id is persisted with the entry (so a
         WAL replay re-offers under the original id) and emitted as the
-        'wal' trace stage. (``fedtpu``'s disk-full injection hook,
-        ``wal_shortwrite``, belongs to its chaos fuzzer: ROADMAP A11b, second
-        part.)"""
+        'wal' trace stage.
+
+        ``wal_shortwrite`` (when set: a callable ``(nonce, seq, line)
+        -> Optional[int]``) is the seeded disk-full injection hook used
+        by the chaos fuzzer: a non-None return truncates the append to
+        that many characters and raises ENOSPC, exactly a partial
+        ``os.write`` — replay_wal tears cleanly at the damaged tail and
+        the client's retry of the unacked frame dedups through the
+        session machinery."""
         if not self.wal_path:
             return
         import json
@@ -539,7 +550,15 @@ class ServingEngine:
                     events=len(entry["events"]))
         line = json.dumps(entry, sort_keys=True,
                           separators=(",", ":")) + "\n"
+        cut_fn = self.wal_shortwrite
+        cut = cut_fn(entry["nonce"], entry["seq"], line) if cut_fn else None
         with open(self.wal_path, "a", encoding="utf-8") as fh:
+            if cut is not None and int(cut) < len(line):
+                fh.write(line[:int(cut)])
+                fh.flush()
+                raise OSError(
+                    28, "No space left on device (simulated short "
+                        f"WAL append at {int(cut)}/{len(line)} chars)")
             fh.write(line)
             fh.flush()
 
@@ -806,16 +825,42 @@ class ServingEngine:
         import torch
         arrivals = torch.from_numpy(mask)
         tick = torch.tensor(self.state["round"], dtype=torch.int32)
+        record = self.screen and self.screen_stats is not None
         if self._graph is not None:
             out = self._graph(arrivals, tick)
             self.state["round"] += 1
+            if record:
+                from fedtpu_torch.parallel.round import unpack_outputs
+                raw = unpack_outputs(out.cpu(), 1, self.C,
+                                     self.cfg.data_classes,
+                                     *self.step.outputs)
             scr = out[self._screened_at:self._screened_at + self.C]
         else:
             self.state, raw = self.step.fn(self.state, self.batch,
                                            arrivals.to(self.device),
                                            tick.to(self.device))
             scr = raw.get("screened")
+        if record:
+            self._record_screen(mask, raw)
         return scr.reshape(-1).cpu().numpy() if self.screen else None
+
+    def _record_screen(self, mask: np.ndarray, raw: dict) -> None:
+        """Append one tick's screen decisions and statistics to
+        ``screen_stats``: the tick, the arriving slots, each one's flag
+        and (``async_fed.screen_stats``) its norm against the limit, its
+        cosine against ``screen_cos_min`` and the smaller relative
+        margin."""
+        from fedtpu_torch.parallel.async_fed import screen_stats
+        scr = raw["screened"].reshape(-1).cpu().numpy()
+        stats = screen_stats(raw["update_norms"].reshape(-1).cpu().numpy(),
+                             float(raw["screen_limit"].reshape(-1)[0]),
+                             raw["screen_cos"].reshape(-1).cpu().numpy(),
+                             float(self.cfg.screen_cos_min))
+        slots = [int(s) for s in np.flatnonzero(mask[0])]
+        self.screen_stats.append({
+            "tick": self.tick_count, "slots": slots,
+            "screened": [bool(scr[s] > 0) for s in slots],
+            "stats": [stats[s] for s in slots]})
 
     def _strike(self, user: int, t_fire: float) -> None:
         """One screened-update strike against ``user``; quarantines at
@@ -1106,10 +1151,12 @@ class ServingEngine:
                 open(self.wal_path, "w").close()
         return path
 
-    def restore(self, directory: str) -> int:
+    def restore(self, directory: str, step: Optional[int] = None) -> int:
         """Restore engine + serving host state from the newest checkpoint
-        under ``directory`` (written by :meth:`checkpoint`). Returns the
-        restored tick count.
+        under ``directory`` (written by :meth:`checkpoint`), or from the
+        specific ``step`` when given — the fallback walk in the chaos
+        fuzzer targets an OLDER round after the newest one turns out
+        torn. Returns the restored tick count.
 
         The restored tensors are copied INTO the engine's state tensors,
         which on the card are the captured graph's static buffers (the
@@ -1122,8 +1169,8 @@ class ServingEngine:
         from fedtpu_torch.orchestration.checkpoint import (
             load_checkpoint_raw, load_meta)
         from fedtpu_torch.parallel.async_fed import async_state_tensors
-        state, history, step = load_checkpoint_raw(directory)
-        meta = load_meta(directory)
+        state, history, step = load_checkpoint_raw(directory, step=step)
+        meta = load_meta(directory, step=step)
         ours, theirs = (async_state_tensors(self.state),
                         async_state_tensors(state))
         if (sorted(state) != sorted(self.state)

@@ -7,9 +7,9 @@ index``) and reusing :func:`fedtpu_torch.serving.server.run_server`'s
 single-threaded loop wholesale — the gateway is a routing + failover
 skin over the same engine, not a second server. Each member's tick is
 the engine's captured driven tick on the card. A member's death is
-repaired by a relaunch with ``--resume`` (``supervise`` for one member;
-``fedtpu``'s ``supervise --gang``, for the whole gang, is ROADMAP A10): the
-engine's write-ahead log + idempotent sessions make the restart lossless
+repaired by a relaunch with ``--resume`` (``supervise`` for one member,
+``supervise --num-processes N`` for the whole fleet): the engine's
+write-ahead log + idempotent sessions make the restart lossless
 for every *acked* update.
 
 Routing: a frame for a user another gateway owns is refused whole (for
@@ -35,9 +35,8 @@ Failover: two gateway-only ops wire the store-shard handoff —
         generation-fenced against ``g``), take over its id range, and
         replay its spooled pending updates.
 
-Health: :func:`probe_fleet` (``fedtpu check --gateway-probe``'s; the
-port's ``check`` is ROADMAP A11b, second part) hellos every member and
-reports per-gateway liveness.
+Health: :func:`probe_fleet` (``check --gateway-probe``'s) hellos every
+member and reports per-gateway liveness.
 
 torch is only touched through the engine; importable backend-free.
 """

@@ -337,7 +337,7 @@ def test_cohort_knobs_reach_the_config(kw):
 
 
 _CONFIGS = ("DataConfig", "ShardConfig", "ModelConfig", "OptimConfig",
-            "FedConfig", "RunConfig", "TelemetryConfig")
+            "FedConfig", "RunConfig", "TelemetryConfig", "FuzzConfig")
 # The knobs of fedtpu that the port does not run yet, and the ROADMAP item
 # of each.
 _UNPORTED = {
@@ -463,6 +463,7 @@ def test_ported_knobs_take_other_values():
                                 "conv_channels", "compute_dtype",
                                 "param_dtype"},
                 "OptimConfig": {f.name for f in dataclasses.fields(cls)},
+                "FuzzConfig": {f.name for f in dataclasses.fields(cls)},
                 "FedConfig": {"rounds", "weighting", "termination_patience",
                               "tolerance", "same_init", "init_seed",
                               "participation_rate", "participation_seed",
