@@ -202,6 +202,24 @@ Phases, in order; any failure exits non-zero before the result line:
    two-gateway fleet's probe (recompiles 0) and a recapture read by an
    armed sentinel, K1's sum mode at (8, 266) and K2/K3 at the gateway
    rows' engine, and the six fleet chaos rows through the CLI.
+   Then the training gang, (v) (``phase_train_gang``): N ``run`` processes
+   sharing the one H100 over gloo, launched by ``supervise_gang`` (each
+   member ``gang_member``: the CLI's ``run``, then its launch counts):
+   K4 across processes (each member's rows from its own and its peers'
+   CUDA IPC-mapped exchange buffers) at (8, 11,353) as 2 x 4 and 4 x 2,
+   bitwise the one-process K4 and the plain version, timed; income-8 psum
+   K1's sum mode at a member's (4, 11,352) and (2, 11,352) and K2 at its
+   (4, N) and (2, N) income-8 batch, against their plain versions and
+   timed (alone on the card); income-8 psum gangs of 2 and 4 and an
+   income-32-noniid ring gang of 2 x 4 shards, each against the
+   one-process card run of its config (the same stop round; the history
+   within 1e-5; the params within 1e-5 at the first checkpoint and 1e-4
+   at every one; the members' round events equal; each member's
+   K1/K2/K3/K4 launches equal one process's); an ``--async`` gang of 2
+   likewise; a SIGTERM to every
+   member, the drain and the gang's ``--resume``, bitwise the
+   uninterrupted gang; and the four training-gang chaos rows through the
+   CLI, two chaos children beside the rest.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package (nor does
@@ -4023,8 +4041,8 @@ def fleet_cli(directory: str, box: dict) -> None:
     subprocesses on the card, gateway 1 with FEDTPU_GATEWAY_KILL_AFTER
     (FLEET_KILL); ``loadgen --num-gateways 2 --synthesize`` (FLEET_TRACE's
     size) against them. When gateway 1 kills itself, it is relaunched with
-    ``--resume`` and FEDTPU_RESTARTS=1, as a supervisor would (``fedtpu
-    supervise --gang``; the port's is ROADMAP A10). Runs on a thread of
+    ``--resume`` and FEDTPU_RESTARTS=1, as a gang supervisor would
+    (``supervise --num-processes``). Runs on a thread of
     its own; its results land in ``box``."""
     from fedtpu_torch.serving.loadgen import read_port_file
     from fedtpu_torch.serving.protocol import gateway_port_file
@@ -4123,29 +4141,32 @@ def fleet_cli_check(box: dict) -> dict:
             "duplicate_drops": stats["1"]["duplicate_drops"], "s": box["s"]}
 
 
-def k1_sum_row(dev: torch.device, d: int, label: str) -> dict:
-    """K1's sum mode at (8, ``d``) (cohort 8: the net sim's and the fuzz
-    gang's 6 -> 8 -> 2 at 74, the gateway rows' 6 -> 16 -> 8 -> 2 at 266)
+def k1_sum_row(dev: torch.device, d: int, label: str,
+               rows: int = 8) -> dict:
+    """K1's sum mode at (``rows``, ``d``) (cohort 8: the net sim's and the
+    fuzz gang's 6 -> 8 -> 2 at 74, the gateway rows' 6 -> 16 -> 8 -> 2 at
+    266; a training-gang member's 4 or 2 clients at income-8's 11,352)
     against its plain version, timed beside it, ``torch.matmul`` and its
     bound."""
     from fedtpu_torch.ops import cuda_kernels as ck
     gen = torch.Generator().manual_seed(4)
-    x = (torch.randn(8, d, generator=gen) * 1e-2).to(dev)
-    w = ((torch.rand(8, generator=gen) < 0.5).to(torch.float32)
-         * (1.0 + torch.randint(0, 6, (8,), generator=gen)) ** -0.5).to(dev)
+    x = (torch.randn(rows, d, generator=gen) * 1e-2).to(dev)
+    w = ((torch.rand(rows, generator=gen) < 0.5).to(torch.float32)
+         * (1.0 + torch.randint(0, 6, (rows,), generator=gen)) ** -0.5
+         ).to(dev)
     out = ck.weighted_sum_clients(x, w)
     ref = ck.weighted_sum_clients_reference(x, w)
     err = float((out - ref).abs().max())
-    check(err <= 1e-5, f"K1 sum at (8, {d}): max abs err {err}")
-    b, by = bound_ms(4 * (8 * d + 8 + d), 2.0 * 8 * d)
-    row = {"shape": f"(8, {d})", "max_abs_err": err,
+    check(err <= 1e-5, f"K1 sum at ({rows}, {d}): max abs err {err}")
+    b, by = bound_ms(4 * (rows * d + rows + d), 2.0 * rows * d)
+    row = {"shape": f"({rows}, {d})", "max_abs_err": err,
            "ms": time_ms(lambda: ck.weighted_sum_clients(x, w)),
            "plain_ms": time_ms(lambda: ck.weighted_sum_clients_reference(
                x, w)),
            "library_ms": time_ms(lambda: torch.matmul(w, x)),
            "bound_ms": b, "bound_by": by}
-    print(f"time K1 sum at {label} (8, {d}): kernel {row['ms']:.4f} ms  "
-          f"plain {row['plain_ms']:.4f} ms  torch.matmul "
+    print(f"time K1 sum at {label} ({rows}, {d}): kernel {row['ms']:.4f} "
+          f"ms  plain {row['plain_ms']:.4f} ms  torch.matmul "
           f"{row['library_ms']:.4f} ms  bound {b:.6f} ms ({by}); max abs err "
           f"{err:.3e}; {CARD['smi']}", flush=True)
     return row
@@ -6333,6 +6354,500 @@ def phase_gang() -> tuple:
     return by_path, rows, numbers
 
 
+# ----------------------------------------------------- (v) training gang
+# The training gang on the one card (``fedtpu_torch.parallel.multihost``):
+# members share the H100 over gloo (NCCL refuses two ranks on one device).
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAIN_GANG_ROUNDS = 60       # income-8 early-stops before
+TRAIN_GANG_ASYNC_TICKS = 30
+TRAIN_GANG_CKPT_EVERY = 5
+TRAIN_GANG_DRAIN_ROUND = 12  # 1-based: the SIGTERM to every member
+TRAIN_GANG_TIMEOUT = 60.0    # the members' collective watchdog
+TRAIN_GANG_PARAM_TOL = 1e-5
+# Every later checkpoint: float32 reassociation (psum) and a batched GEMM's
+# batch count (the ring's members train 4 clients, one process 8 or 32)
+# carried on by Adam, measured at 3.6e-5 by round 40; a wrong fold or a
+# lost round moves the params by ~1e-2.
+TRAIN_GANG_DRIFT_TOL = 1e-4
+# The four training-gang chaos rows, two chaos children side by side.
+TRAIN_GANG_CHAOS = (("mp_kill_worker", "mp_kill_coordinator"),
+                    ("mp_hang", "mp_preempt"))
+K4_GANG_SHAPE = (8, 11_353)  # income-32-noniid's ring payload, 8 shards
+
+
+def gang_member() -> None:
+    """A gang member of phase (v): the port's CLI on ``sys.argv[1:]``, then
+    its kernel launches into ``$GANG_LAUNCHES/launches.<restart>.<i>``."""
+    from fedtpu_torch.cli import main as cli_main
+    from fedtpu_torch.ops import cuda_kernels as ck
+    rc = cli_main(sys.argv[1:])
+    path = os.path.join(os.environ["GANG_LAUNCHES"], "launches."
+                        f"{os.environ['FEDTPU_RESTARTS']}."
+                        f"{os.environ['FEDTPU_PROCESS_ID']}")
+    with open(path, "w") as fh:
+        json.dump(dict(ck.LAUNCHES), fh)
+    sys.exit(rc)
+
+
+def gang_cli(argv: list, n: int, directory: str, shards: int = 0,
+             max_restarts: int = 0) -> dict:
+    """``supervise --num-processes n -- <argv>`` as real child processes
+    on the card (``supervise_gang``, each member ``gang_member``), with
+    ``FEDTPU_SHARDS_PER_PROCESS = shards`` when given. Returns the rc, the
+    wall seconds, process 0's summary and each member's launches (the
+    last life's)."""
+    os.makedirs(directory, exist_ok=True)
+    code = ("import sys; from fedtpu_torch.resilience.supervisor import "
+            f"supervise_gang; sys.exit(supervise_gang({argv!r}, {n}, "
+            f"max_restarts={max_restarts}, grace=10, backoff_base=0.0, "
+            "verbose=False, _cmd_prefix=[sys.executable, '-c', 'import "
+            "chip_smoke as cs; cs.gang_member()']))")
+    env = dict(os.environ, GANG_LAUNCHES=directory)
+    if shards:
+        env["FEDTPU_SHARDS_PER_PROCESS"] = str(shards)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"gang of {n} {argv[:6]}: rc "
+          f"{out.returncode}: {out.stdout[-2000:]} {out.stderr[-3000:]}")
+    summary = [json.loads(line) for line in out.stdout.splitlines()
+               if line.startswith("{") and "rounds_run" in line]
+    check(len(summary) == 1, f"gang of {n}: process 0 prints one summary, "
+          f"got {out.stdout[-1500:]}")
+    restarts = max(int(f.split(".")[1]) for f in os.listdir(directory)
+                   if f.startswith("launches."))
+    launches = []
+    for i in range(n):
+        with open(os.path.join(directory, f"launches.{restarts}.{i}")) as fh:
+            launches.append(json.load(fh))
+    return {"wall_s": wall, "summary": summary[0], "launches": launches,
+            "restarts": restarts}
+
+
+def gang_argv(directory: str, preset: str, rounds: int, *extra) -> list:
+    return ["run", "--preset", preset, "--csv", "", "--synthetic-rows",
+            "10000", "--rounds", str(rounds), "--checkpoint-dir",
+            os.path.join(directory, "ck"), "--checkpoint-every",
+            str(TRAIN_GANG_CKPT_EVERY), "--metrics-jsonl",
+            os.path.join(directory, "m.jsonl"), "--events",
+            os.path.join(directory, "ev.jsonl"), "--collective-timeout",
+            str(TRAIN_GANG_TIMEOUT), "--quiet", "--json", *extra]
+
+
+def one_process_run(directory: str, spec: tuple, shards: int = 0) -> dict:
+    """The CLI config ``gang_argv(directory, *spec)`` run in this process
+    on the card over ``shards`` mesh shards when given, its launches
+    counted from zero: the gang's oracle."""
+    from fedtpu_torch.cli import build_parser, config_from_args
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration.loop import run_experiment
+    os.makedirs(directory, exist_ok=True)
+    cfg = config_from_args(build_parser().parse_args(
+        gang_argv(directory, *spec)))
+    if shards:
+        cfg = with_run(cfg, mesh_devices=shards)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    res = run_experiment(cfg, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    return {"result": res, "launches": dict(ck.LAUNCHES),
+            "dir": directory}
+
+
+def gang_history(path: str) -> dict:
+    from fedtpu_torch.resilience.chaos import _history
+    return _history(path)
+
+
+def member_rounds(ev: str, n: int) -> list:
+    """Each member's ``round`` events (round, accuracy, loss_mean) from
+    process 0's sink and the peers' ``.p<i>``."""
+    out = []
+    for i in range(n):
+        rows = read_sink(ev if i == 0 else f"{ev}.p{i}")
+        out.append([(e["round"], e["payload"]["accuracy"],
+                     e["payload"]["loss_mean"])
+                    for e in rows if e["kind"] == "round"])
+    return out
+
+
+def gang_state(ck_dir: str, step: int, n: int) -> dict:
+    """The gang's round ``step``: every member's part, its tensors
+    concatenated over the clients in member order."""
+    from fedtpu_torch.orchestration.checkpoint import part_name
+    parts = [torch.load(os.path.join(ck_dir, f"round_{step:06d}",
+                                     part_name(i, n)), weights_only=True)
+             for i in range(n)]
+    return {k: torch.cat([p[k] for p in parts]) for k in ("params",
+                                                          "anchors")
+            if k in parts[0]}
+
+
+def gang_vs_one(label: str, gang: dict, one: dict, directory: str, n: int,
+                psum: bool, kernels: tuple) -> dict:
+    """A gang's run against the one-process card run of the same config:
+    the same stop round; the history within TRAIN_GANG_PARAM_TOL; every
+    member's round events equal; the members' slots within
+    TRAIN_GANG_PARAM_TOL of one process's at the first checkpoint both
+    wrote and within TRAIN_GANG_DRIFT_TOL at every one, a ``psum``
+    member's slots all one global; each member's launches of ``kernels``
+    one process's."""
+    from fedtpu_torch.orchestration.checkpoint import complete_steps
+    res = one["result"]
+    hist = gang_history(os.path.join(directory, "m.jsonl"))
+    mine = gang_history(os.path.join(one["dir"], "m.jsonl"))
+    check(sorted(hist) == sorted(mine) and max(hist) == res.rounds_run,
+          f"{label}: rounds {max(hist)} vs one process's {res.rounds_run}")
+    hist_err = max(abs(hist[r][g][k] - mine[r][g][k])
+                   for r in hist for g in ("client_mean", "pooled")
+                   for k in hist[r][g])
+    check(hist_err <= TRAIN_GANG_PARAM_TOL,
+          f"{label}: history {hist_err:.3g} from one process's")
+    rounds = member_rounds(os.path.join(directory, "ev.jsonl"), n)
+    check(all(r == rounds[0] for r in rounds) and len(rounds[0]) > 0,
+          f"{label}: the members' round events differ")
+    steps = sorted(set(complete_steps(os.path.join(directory, "ck")))
+                   & set(complete_steps(os.path.join(one["dir"], "ck"))))
+    errs = {}
+    for step in steps:
+        got = gang_state(os.path.join(directory, "ck"), step, n)
+        want = torch.load(os.path.join(one["dir"], "ck",
+                                       f"round_{step:06d}", "state"),
+                          weights_only=True)
+        errs[step] = max(float((got[k] - want[k]).abs().max())
+                         for k in got)
+        check(errs[step] <= TRAIN_GANG_DRIFT_TOL,
+              f"{label}: round {step} state {errs[step]:.3g} from one "
+              "process's")
+    # The psum members add their partial sums in another order than one
+    # process's K1 (float32 reassociation), the ring's train 4 clients a
+    # batch where one process trains 8 (a batched GEMM's bits on the card
+    # can depend on its batch count); Adam carries the difference on.
+    check(errs[steps[0]] <= TRAIN_GANG_PARAM_TOL,
+          f"{label}: round {steps[0]} params {errs[steps[0]]:.3g} from one "
+          "process's")
+    if "anchors" not in got and psum:
+        check(bool((got["params"] == got["params"][:1]).all()),
+              f"{label}: a member's slots hold different globals")
+    for i, mem in enumerate(gang["launches"]):
+        check(all(mem[k] == one["launches"][k] for k in kernels),
+              f"{label}: member {i} launches {mem} vs one process's "
+              f"{one['launches']}")
+    s_gang = gang["summary"]["mean_sec_per_round"]
+    s_one = res.summary()["mean_sec_per_round"]
+    print(f"{label}: stop round {res.rounds_run} (one process the same), "
+          f"history within {hist_err:.3g}, state drift by checkpoint "
+          f"{errs}, members' round events equal; s/round gang "
+          f"{s_gang:.4e} vs "
+          f"one process {s_one:.4e} ({s_gang / s_one:.2f}x); launches per "
+          f"member {[{k: m[k] for k in kernels} for m in gang['launches']]}"
+          f" (one process {({k: one['launches'][k] for k in kernels})}); "
+          f"gang wall {gang['wall_s']:.1f} s; {CARD['smi']}", flush=True)
+    return {"rounds": res.rounds_run, "history_err": hist_err,
+            "state_err": errs, "s_round_gang": s_gang, "s_round_one": s_one,
+            "wall_s": gang["wall_s"],
+            "launches": [{k: m[k] for k in kernels}
+                         for m in gang["launches"]]}
+
+
+def k4_gang_member() -> None:
+    """One member of the K4 check (``python -c "import chip_smoke as cs;
+    cs.k4_gang_member()" STORE N RANK``): joins a gang of N on the card
+    through the file store, exchanges K4_GANG_SHAPE's rows over CUDA IPC
+    (``GangExchange``), and prints one JSON line: its rows against the
+    one-process K4 and the plain version (bitwise), K4's time (CUDA events
+    around the launch), the barrier's and a psum collective's host time,
+    ``stack.sum(0)``'s time, its launches."""
+    store, n, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.parallel import multihost
+    from fedtpu_torch.parallel.mesh import make_mesh
+    from fedtpu_torch.parallel.ring import GangExchange
+    gang = multihost.initialize(f"file://{store}", n, rank)
+    dev = gang.device
+    s, p = K4_GANG_SHAPE
+    mesh = make_mesh(s, s, dev, gang=gang)
+    ex = GangExchange("ring", gang, mesh, p, dev)
+    full = torch.randn(s, p, generator=torch.Generator().manual_seed(7)
+                       ).to(dev)
+    lo, hi = ex.lo, ex.hi
+    ck.reset_launch_counts()
+    ex.stage(full[lo:hi])
+    ex.host()
+    rows = ex.reduce()
+    ex.after()
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    one = ck.ring_all_reduce_sum(full)[lo:hi]
+    plain = ck.ring_all_reduce_sum_reference(full)[lo:hi]
+    same = bool(torch.equal(rows, one)) and bool(torch.equal(rows, plain))
+    err = float((rows - plain).abs().max())
+    # Every member's rows stay put while each times its own launches.
+    # One member at a time, the others at the barrier: processes sharing
+    # the card time-slice it.
+    for r in range(n):
+        gang.barrier()
+        if r == rank:
+            kernel_ms = time_ms(lambda: ck.ring_all_reduce_sum_rows(
+                ex.blocks, lo, hi))
+            plain_ms = time_ms(lambda: ck.ring_all_reduce_sum_reference(
+                full))
+            library_ms = time_ms(lambda: full.sum(dim=0))
+    gang.barrier()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        gang.barrier()
+    barrier_ms = (time.perf_counter() - t0) / 50 * 1e3
+    # A psum round's exchange of as many floats: the device-to-host copy,
+    # the gather and the copy back.
+    psum = GangExchange("psum", gang, mesh, p, dev)
+    psum.stage(full[0])
+    t0 = time.perf_counter()
+    for _ in range(50):
+        psum.host()
+    collective_ms = (time.perf_counter() - t0) / 50 * 1e3
+    nbytes = 4 * (s * p + (hi - lo) * p)
+    bound, by = bound_ms(nbytes, (s - 1) * (hi - lo) * p)
+    ex.close()
+    multihost.shutdown()
+    print(json.dumps({"rank": rank, "backend": gang.backend,
+                      "bitwise": same, "max_abs_err": err,
+                      "rows": [lo, hi], "ms": kernel_ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound, "bound_by": by,
+                      "barrier_host_ms": barrier_ms,
+                      "psum_collective_host_ms": collective_ms,
+                      "launches": launches}), flush=True)
+
+
+def k4_gang_check(directory: str) -> dict:
+    """K4 across processes at K4_GANG_SHAPE as 2 members x 4 shards and 4
+    x 2, on the one card: every member's rows bitwise the one-process K4
+    and the plain version."""
+    out = {}
+    for n in (2, 4):
+        store = os.path.join(directory, f"k4.{n}.store")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as cs; "
+             "cs.k4_gang_member()", store, str(n), str(r)], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(n)]
+        rows = []
+        for proc in procs:
+            o, e = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"K4 gang member rc "
+                  f"{proc.returncode}: {o[-1000:]} {e[-2000:]}")
+            rows.append(json.loads(o.strip().splitlines()[-1]))
+        check(all(r["bitwise"] for r in rows), f"K4 across {n} processes "
+              f"differs from the one-process K4: {rows}")
+        check(all(r["launches"]["ring_all_reduce_sum"] == 1 for r in rows),
+              f"K4 across {n} processes: launches {rows}")
+        key = f"{n} members x {K4_GANG_SHAPE[0] // n} shards"
+        out[key] = {k: statistics.median(r[k] for r in rows) for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "barrier_host_ms",
+            "psum_collective_host_ms")}
+        out[key].update(bound_by=rows[0]["bound_by"], max_abs_err=max(
+            r["max_abs_err"] for r in rows), backend=rows[0]["backend"],
+            per_member_ms=[r["ms"] for r in rows])
+        print(f"K4 across processes, {key} at {K4_GANG_SHAPE} "
+              f"({rows[0]['backend']}, CUDA IPC): bitwise the one-process "
+              f"K4 and the plain version; {json.dumps(out[key])}; "
+              f"{CARD['smi']}", flush=True)
+    return out
+
+
+def train_gang_member_rows() -> dict:
+    """K1's sum mode and K2 at a training-gang member's shapes, on the
+    card with nothing else on it: income-8's 8 clients split over 2 and 4
+    members. K1's sum mode at (4, 11,352) and (2, 11,352) (a psum member's
+    partial sum a round, an async member's a tick) against its plain
+    version (``k1_sum_row``); K2 over the member's block of income-8's own
+    packed batch (clients 0-3 and 0-1) with random params, its counts the
+    plain version's except on near-tie rows; each timed beside its plain
+    version, with its bound."""
+    from fedtpu_torch.models.mlp import (mlp_apply, mlp_init, param_count,
+                                         unflatten)
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.ops.metrics import near_tie_rows
+    from fedtpu_torch.orchestration.loop import build_experiment
+    dev = torch.device("cuda")
+    dims, k = INCOME_DIMS, INCOME_DIMS[-1]
+    batch = build_experiment(main_path_config(), device="cpu").batch
+    gen = torch.Generator().manual_seed(9)
+    out = {"weighted_sum_clients": {}, "fused_eval_confusion": {}}
+    for members in (2, 4):
+        c = batch["x"].shape[0] // members
+        tag = f"member of {members}"
+        out["weighted_sum_clients"][tag] = k1_sum_row(
+            dev, param_count(dims), f"a training-gang {tag}", rows=c)
+        x, y, mask = (batch[key][:c].to(dev) for key in ("x", "y", "mask"))
+        params = torch.stack([mlp_init(gen, dims[0], dims[1:-1], k)
+                              for _ in range(c)]).to(dev)
+        conf = ck.fused_eval_confusion(params, dims, x, y, mask, k)
+        ref = ck.fused_eval_confusion_reference(params, dims, x, y, mask, k)
+        ties = near_tie_rows(mlp_apply(unflatten(params, dims), x)) & (
+            mask > 0)
+        moved = (conf - ref).abs().sum(dim=(1, 2)) / 2
+        check(bool((moved <= ties.sum(dim=1)).all()),
+              f"K2 at a training-gang {tag} {tuple(y.shape)}: counts differ "
+              f"on {moved.tolist()} rows per client, near ties "
+              f"{ties.sum(dim=1).tolist()}")
+        live = float(mask.sum())
+        b, by = bound_ms(4 * (params.numel() + live * (dims[0] + 1)
+                              + mask.numel() + c * k * k),
+                         mlp_flops(dims, live))
+        row = {"shape": f"({c}, {y.shape[1]}), {int(live)} real rows",
+               "max_abs_err": float((conf - ref).abs().max()),
+               "ms": time_ms(lambda: ck.fused_eval_confusion(
+                   params, dims, x, y, mask, k)),
+               "plain_ms": time_ms(lambda: ck.fused_eval_confusion_reference(
+                   params, dims, x, y, mask, k)),
+               "library_ms": None, "bound_ms": b, "bound_by": by}
+        out["fused_eval_confusion"][tag] = row
+        print(f"time fused_eval_confusion at a training-gang {tag} "
+              f"{row['shape']}: kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  bound {b:.5f} ms ({by}); rows "
+              f"differing from plain {int(moved.sum())}; {CARD['smi']}",
+              flush=True)
+    return out
+
+
+def train_gang_chaos(procs: list, t0: float) -> dict:
+    """The four training-gang rows' reports (two a chaos child): every
+    row ok; each row's seconds and restart seconds printed."""
+    rows = {}
+    for proc, names in zip(procs, TRAIN_GANG_CHAOS):
+        out, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"chaos {names} rc {proc.returncode}: "
+              f"{out[-2000:]} {err[-2000:]}")
+        report = json.loads(out.strip().splitlines()[-1])
+        mine = {r["scenario"]: r for r in report["scenarios"]}
+        check(report["ok"] and sorted(mine) == sorted(names),
+              f"chaos training-gang rows: {report}")
+        rows.update(mine)
+    times = {}
+    for name, row in rows.items():
+        times[name] = {k: row.get(k) for k in ("seconds", "restart_s")}
+        print(f"chaos {name}: ok, history bitwise the gang baseline, "
+              f"gang_restarts {row['gang_restarts']}, collective_hangs "
+              f"{row['collective_hangs']}, member resumes "
+              f"{row['member_resumes']}; {times[name]}", flush=True)
+    total = time.perf_counter() - t0
+    print(f"chaos training-gang rows (CLI, card): {total:.1f} s in all; "
+          f"{CARD['smi']}", flush=True)
+    return {"total_s": total, "rows": times}
+
+
+def phase_train_gang() -> tuple:
+    """Phase (v): the training gang on the card (the constants above).
+    The four chaos rows run as two children from the start, beside the
+    gangs of 2 and 4 (psum), the ring gang, the asynchronous gang, the
+    drain and resume, and K4 across processes."""
+    import tempfile
+    numbers, seconds, by_path = {}, {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - clock[0], 2)
+        clock[0] = now
+
+    def member_paths(label: str, gang: dict) -> None:
+        for i, mem in enumerate(gang["launches"]):
+            by_path[f"{label}, member {i}"] = mem
+
+    cli = [sys.executable, "-m", "fedtpu_torch.cli"]
+    k123 = ("weighted_average_clients", "fused_eval_confusion",
+            "fused_mlp_forward")
+    numbers["member_rows"] = train_gang_member_rows()
+    lap("K1 and K2 at a member's shapes")
+    with tempfile.TemporaryDirectory() as directory:
+        t_chaos = time.perf_counter()
+        chaos = [subprocess.Popen(cli + [
+            "chaos", "--scenarios", ",".join(names), "--platform",
+            "default", "--num-clients", "8", "--hidden-sizes", "50,200",
+            "--synthetic-rows", "10000", "--json", "--quiet", "--workdir",
+            os.path.join(directory, f"chaos{i}"), "--timeout", "540"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for i, names in enumerate(TRAIN_GANG_CHAOS)]
+        try:
+            numbers["k4"] = k4_gang_check(directory)
+            lap("K4 across processes")
+            spec = ("income-8", TRAIN_GANG_ROUNDS)
+            one = one_process_run(os.path.join(directory, "one-psum"), spec)
+            for n in (2, 4):
+                d = os.path.join(directory, f"g{n}")
+                gang = gang_cli(gang_argv(d, *spec), n, d)
+                numbers[f"psum x{n}"] = gang_vs_one(
+                    f"income-8 psum gang of {n}", gang, one, d, n, True,
+                    k123)
+                member_paths(f"income-8 psum gang of {n}", gang)
+            lap("psum gangs")
+            d = os.path.join(directory, "ring")
+            spec = ("income-32-noniid", TRAIN_GANG_ROUNDS, "--aggregation",
+                    "ring")
+            one = one_process_run(os.path.join(directory, "one-ring"), spec,
+                                  shards=8)
+            gang = gang_cli(gang_argv(d, *spec), 2, d, shards=4)
+            numbers["ring x2"] = gang_vs_one(
+                "income-32-noniid ring gang of 2 (4 shards each)", gang, one,
+                d, 2, False, k123[1:] + ("ring_all_reduce_sum",))
+            member_paths("income-32-noniid ring gang of 2", gang)
+            lap("ring gang")
+            d = os.path.join(directory, "async")
+            spec = ("income-8", TRAIN_GANG_ASYNC_TICKS, "--async",
+                    "--weighting", "uniform")
+            one = one_process_run(os.path.join(directory, "one-async"), spec)
+            gang = gang_cli(gang_argv(d, *spec), 2, d)
+            numbers["async x2"] = gang_vs_one(
+                "income-8 --async gang of 2", gang, one, d, 2, True, k123)
+            member_paths("income-8 --async gang of 2", gang)
+            lap("async gang")
+            d = os.path.join(directory, "drain")
+            plan = json.dumps({"seed": 0, "faults": [{
+                "kind": "process_kill", "round": TRAIN_GANG_DRAIN_ROUND,
+                "signal": "SIGTERM", "process_index": -1}]})
+            drained = gang_cli(gang_argv(d, "income-8", TRAIN_GANG_ROUNDS,
+                                         "--fault-plan", plan), 2, d,
+                               max_restarts=1)
+            check(drained["restarts"] == 1, f"drain: {drained['restarts']} "
+                  "relaunches")
+            base = os.path.join(directory, "g2")
+            from fedtpu_torch.orchestration.checkpoint import complete_steps
+            check(gang_history(os.path.join(d, "m.jsonl"))
+                  == gang_history(os.path.join(base, "m.jsonl")),
+                  "drain and resume: history differs from the "
+                  "uninterrupted gang's")
+            last = max(complete_steps(os.path.join(d, "ck")))
+            check(last == max(complete_steps(os.path.join(base, "ck"))),
+                  "drain and resume: last checkpoints differ")
+            a = gang_state(os.path.join(d, "ck"), last, 2)
+            b = gang_state(os.path.join(base, "ck"), last, 2)
+            check(torch.equal(a["params"], b["params"]),
+                  "drain and resume: params differ from the uninterrupted "
+                  "gang's")
+            resumes = member_rounds(os.path.join(d, "ev.jsonl"), 2)
+            print(f"income-8 gang of 2 drained at round "
+                  f"{TRAIN_GANG_DRAIN_ROUND - 1} by SIGTERM to every member, "
+                  f"resumed by a gang of 2: history and round {last} params "
+                  f"bitwise the uninterrupted gang's; wall "
+                  f"{drained['wall_s']:.1f} s; {CARD['smi']}", flush=True)
+            numbers["drain_resume"] = {"wall_s": drained["wall_s"],
+                                       "rounds": len(resumes[0])}
+            lap("drain and resume")
+            numbers["chaos"] = train_gang_chaos(chaos, t_chaos)
+            lap("chaos (its wait)")
+        finally:
+            for p in chaos:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+    print(f"phase (v) seconds {json.dumps(seconds)}", flush=True)
+    numbers["seconds"] = seconds
+    return by_path, numbers
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
     clock, seconds = [time.perf_counter()], {}
@@ -6441,6 +6956,14 @@ def main() -> None:
     print(f"phase (u) numbers {json.dumps(gang, default=float)}",
           flush=True)
     lap("(u)")
+    train_gang_launches, train_gang = phase_train_gang()
+    by_path.update(train_gang_launches)
+    timings["ring_all_reduce_sum"]["gang"] = train_gang.pop("k4")
+    for name, rows in train_gang.pop("member_rows").items():
+        timings[name]["train_gang_members"] = rows
+    print(f"phase (v) numbers {json.dumps(train_gang, default=float)}",
+          flush=True)
+    lap("(v)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -6489,7 +7012,7 @@ def main() -> None:
                 "marginal_us_per_round", "profile", "phases_us",
                 "delta_mean", "sweep", "cifar10_32", "bf16_fp16",
                 "sklearn_parity", "serve", "net_sim", "cohort",
-                "gateway_rows", "fuzz_rows")
+                "gateway_rows", "fuzz_rows", "gang", "train_gang_members")
                 if key in t},
             **({"mode": "sum: K1 unnormalised, the asynchronous tick's "
                 "psum(tensordot(disc, delta))"}

@@ -20,9 +20,9 @@ Two consumers of the same (SignalBus -> Policy) stack:
   decisions through the serving ``configure``/``pre_drain`` protocol
   ops and SIGUSR1/SIGUSR2 to the gang supervisor (``fedtpu``'s reshard
   notice path; the port's gang supervisor forwards them to a
-  gateway fleet, a training gang is ROADMAP A10). Preemption notices arrive
-  through a notice FILE (``{"victim": p}``), so a drill and a real
-  maintenance hook share one mechanism.
+  gateway fleet; a training gang's live reshard is ROADMAP A10b).
+  Preemption notices arrive through a notice FILE (``{"victim": p}``),
+  so a drill and a real maintenance hook share one mechanism.
 
 ``write_decisions`` / ``compare_decisions`` are the one write/compare
 implementation of every decision log (the autoscale, defense and net

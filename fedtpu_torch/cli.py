@@ -33,6 +33,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 from fedtpu_torch.config import (AGGREGATIONS, PRESETS,
@@ -437,6 +438,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="liveness heartbeat file the loop rewrites "
                         "atomically every chunk ('supervise "
                         "--hang-timeout' watches its mtime)")
+    p.add_argument("--collective-timeout", type=_nonnegative_float,
+                   default=None, metavar="SECONDS",
+                   help="multi-process watchdog: abort with exit 75 "
+                        "(restartable) when a blocking collective/fetch "
+                        "stalls past this many seconds — a hung peer "
+                        "becomes a gang restart, never a deadlock. Set it "
+                        "above EVERY guarded phase's worst-case healthy "
+                        "duration: the chunk walltime AND the collective "
+                        "checkpoint save, which scales with model size (0 "
+                        "disables)")
     p.add_argument("--max-restarts", type=_positive_int, default=None,
                    help="self-supervise: run as a child process "
                         "auto-restarted with --resume up to N times on "
@@ -696,8 +707,9 @@ def build_parser() -> argparse.ArgumentParser:
                                 "crash/preemption")
     sup_p.add_argument("--num-processes", type=_positive_int, default=1,
                        help="launch the child as a gang of N processes "
-                            "torn down and relaunched as a unit (gateway "
-                            "fleets; a 'run' gang is ROADMAP A10)")
+                            "torn down and relaunched as a unit (a 'run' "
+                            "training gang over torch.distributed, or a "
+                            "gateway fleet)")
     sup_p.add_argument("--max-restarts", type=_nonnegative_int, default=2,
                        help="restart budget (default 2); divergence "
                             "(exit 3) is never restarted")
@@ -855,7 +867,7 @@ def build_parser() -> argparse.ArgumentParser:
                               "audit (not ported yet: ROADMAP A11d)")
     check_p.add_argument("--mpmd", action="store_true",
                          help="fedtpu's MPMD parity probe (not ported yet: "
-                              "ROADMAP A10)")
+                              "ROADMAP A10c)")
     check_p.add_argument("--autoscale-sim", default=None, metavar="GOLDEN",
                          help="also replay the pinned autoscale "
                               "simulation and compare its decision "
@@ -1042,6 +1054,9 @@ def config_from_args(args):
         run = dataclasses.replace(run, rollback_exclude=True)
     if getattr(args, "heartbeat", None) is not None:
         run = dataclasses.replace(run, heartbeat_file=args.heartbeat)
+    if getattr(args, "collective_timeout", None):
+        run = dataclasses.replace(run,
+                                  collective_timeout=args.collective_timeout)
     return cfg.replace(data=data, shard=shard, model=model, optim=optim,
                        fed=fed, run=run)
 
@@ -1435,7 +1450,7 @@ def check_main(args) -> int:
     before any work, naming their ROADMAP item."""
     from fedtpu_torch.config import _not_ported
     for flag, item in (("warmup_cache", "A11c"), ("audit", "A11d"),
-                       ("mpmd", "A10"), ("lockdep", "A11d")):
+                       ("mpmd", "A10c"), ("lockdep", "A11d")):
         if getattr(args, flag):
             _not_ported(f"check --{flag.replace('_', '-')}", item)
     from fedtpu_torch.analysis.check import run_check
@@ -1566,6 +1581,16 @@ def main(argv=None) -> int:
                          max_restarts=args.max_restarts,
                          heartbeat=args.heartbeat, events=args.events,
                          verbose=not args.quiet)
+    from fedtpu_torch.resilience.distributed import ENV_COORDINATOR
+    gang = None
+    if args.command == "run":
+        # A member of a gang that `supervise --num-processes N` launched
+        # joins it before anything touches the device.
+        from fedtpu_torch.parallel import multihost
+        gang = multihost.initialize_from_env(args.platform)
+    elif os.environ.get(ENV_COORDINATOR):
+        from fedtpu_torch.config import _not_ported
+        _not_ported(f"{args.command} in a training gang", "A10b")
     cfg = config_from_args(args)
     device = "cpu" if args.platform == "cpu" else "cuda"
     if args.command in ("sweep", "parity"):
@@ -1583,19 +1608,24 @@ def main(argv=None) -> int:
     from fedtpu_torch.orchestration.loop import run_experiment
     from fedtpu_torch.resilience.supervisor import (EXIT_DIVERGED,
                                                     EXIT_PREEMPTED, Preempted)
+    # In a gang, process 0 prints the summary.
+    io_proc = gang is None or gang.process_index == 0
     try:
         result = run_experiment(cfg, verbose=not args.quiet, device=device,
                                 resume=args.resume)
     except Preempted as p:
         # The SIGTERM drain completed: the state is checkpointed and the
         # run resumable, the supervisor's "restart me" code.
-        if args.json:
+        if args.json and io_proc:
             print(json.dumps({"preempted": True, "round": p.round}))
         return EXIT_PREEMPTED
+    finally:
+        if gang is not None:
+            multihost.shutdown()
     summary = result.summary()
-    if args.json:
+    if args.json and io_proc:
         print(json.dumps(summary, default=float))
-    elif not args.quiet:
+    elif io_proc and not args.quiet:
         print(f"\nrounds run: {summary['rounds_run']}  stopped early: "
               f"{summary['stopped_early']}  mean s/round: "
               f"{summary['mean_sec_per_round']:.3e}")

@@ -701,7 +701,7 @@ def _validate_cohort_config(cfg) -> None:
     contract); every composition its chunk does not reproduce is refused
     with ``fedtpu``'s words, a fault plan and rollback among them.
     ``model_parallel`` off its default is refused by the port's
-    ``RunConfig`` first (ROADMAP A10); its check stays here for a config
+    ``RunConfig`` first (ROADMAP A10c); its check stays here for a config
     built around it."""
     fed = cfg.fed
     if fed.cohort_size > cfg.shard.num_clients:

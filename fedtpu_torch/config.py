@@ -77,8 +77,8 @@ class ShardConfig:
     partition_offset: int = 0
 
     def __post_init__(self):
-        _refuse_unported(self, {"partition_clients": "A10",
-                                "partition_offset": "A10"})
+        _refuse_unported(self, {"partition_clients": "A10b",
+                                "partition_offset": "A10b"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,12 +283,14 @@ class RunConfig:
     rollback_exclude: bool = False
     rollback_perturb: float = 1e-6
     heartbeat_file: Optional[str] = None
+    # A training gang's collective watchdog (seconds; None: off): a
+    # blocking window open longer aborts the member with exit 75.
+    collective_timeout: Optional[float] = None
     # Not ported yet: each must stay at its default (_RUN_ITEMS).
     mpmd: bool = False
     model_parallel: int = 1
     compilation_cache: Optional[str] = None
     overlap_compile: bool = False
-    collective_timeout: Optional[float] = None
 
     def __post_init__(self):
         if self.rounds_per_step < 1:
@@ -300,7 +302,7 @@ class RunConfig:
 
 # RunConfig's knobs of paths not ported yet -> the ROADMAP item of each.
 _RUN_ITEMS = {
-    **dict.fromkeys(("mpmd", "model_parallel", "collective_timeout"), "A10"),
+    **dict.fromkeys(("mpmd", "model_parallel"), "A10c"),
     **dict.fromkeys(("compilation_cache", "overlap_compile"), "A11c"),
 }
 

@@ -36,7 +36,11 @@ SIGNATURES = {
     "ft_eval_confusion": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _P, _P),
     "ft_mlp_forward": (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P),
-    "ft_ring_all_reduce": (_P, _P, _I, _L, _P),
+    "ft_ring_all_reduce_rows": (_P, _P, _I, _L, _I, _I, _P),
+    "ft_ipc_alloc": (_L, _P, _P),
+    "ft_ipc_open": (_P, _P),
+    "ft_ipc_close": (_P,),
+    "ft_ipc_free": (_P,),
     "ft_fused_round": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P,
                        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "ft_fused_round_resident": (_I, _P),

@@ -631,19 +631,111 @@ def ring_all_reduce_sum(stack: torch.Tensor) -> torch.Tensor:
     _check(stack, "stack", torch.float32, (s, p))
     if dev.type == "cpu":
         return ring_all_reduce_sum_reference(stack)
+    return ring_all_reduce_sum_rows([stack], 0, s)
+
+
+def ring_all_reduce_sum_rows_reference(blocks: Sequence[torch.Tensor],
+                                       lo: int, hi: int) -> torch.Tensor:
+    """Plain version of K4's gang launch: rows ``lo..hi`` of
+    ``ring_all_reduce_sum_reference`` of the blocks stacked in order."""
+    return ring_all_reduce_sum_reference(torch.cat(list(blocks)))[lo:hi]
+
+
+def ring_all_reduce_sum_rows(blocks: Sequence[torch.Tensor], lo: int,
+                             hi: int) -> torch.Tensor:
+    """Rows ``lo..hi`` of the ring all-reduce of the ``(S, P)`` float32 stack
+    whose rows are ``blocks`` (``(S_i, P)`` each, in shard order), as a
+    fresh ``(hi - lo, P)``: row d is ``x_d + x_{d-1} + ... + x_{d-S+1}`` in
+    that order, bitwise ``ring_all_reduce_sum``'s row d.
+
+    A training gang's member passes its own exchange buffer and its peers'
+    IPC-mapped ones (``fedtpu_torch.parallel.ring.IpcExchange``), and asks
+    for its own rows. On the card: one launch of K4 over the payload
+    columns that reads every block through its pointer table and writes
+    only rows ``lo..hi``."""
+    blocks = list(blocks)
+    if not blocks:
+        raise ValueError("ring_all_reduce_sum_rows needs at least one block")
+    dev = _device(*blocks)
+    p = blocks[0].shape[-1]
+    for i, b in enumerate(blocks):
+        if b.dim() != 2:
+            raise ValueError(f"block {i} must be (shards, payload), got "
+                             f"shape {tuple(b.shape)}")
+        _check(b, f"block {i}", torch.float32, (b.shape[0], p))
+    s = sum(b.shape[0] for b in blocks)
+    if not 0 <= lo < hi <= s:
+        raise ValueError(f"rows {lo}..{hi} of a {s}-shard ring")
+    if dev.type == "cpu":
+        return ring_all_reduce_sum_rows_reference(blocks, lo, hi)
     if not 2 <= s <= RING_MAX_SHARDS:
         raise ValueError(f"{s} shards: the ring kernel takes 2.."
                          f"{RING_MAX_SHARDS}")
-    out = torch.empty_like(stack)
+    out = torch.empty((hi - lo, p), dtype=torch.float32, device=dev)
     if p == 0:
         return out
     row = 4 * p
-    xs = (ctypes.c_void_p * s)(*(stack.data_ptr() + d * row for d in range(s)))
-    accs = (ctypes.c_void_p * s)(*(out.data_ptr() + d * row for d in range(s)))
-    _launch("ft_ring_all_reduce", dev, ctypes.addressof(xs),
-            ctypes.addressof(accs), s, p)
+    rows = [b.data_ptr() + r * row for b in blocks for r in range(b.shape[0])]
+    xs = (ctypes.c_void_p * s)(*rows)
+    accs = (ctypes.c_void_p * s)(*(
+        out.data_ptr() + (d - lo) * row if lo <= d < hi else None
+        for d in range(s)))
+    _launch("ft_ring_all_reduce_rows", dev, ctypes.addressof(xs),
+            ctypes.addressof(accs), s, p, lo, hi)
     _count("ring_all_reduce_sum")
     return out
+
+
+class _DeviceBuffer:
+    """``__cuda_array_interface__`` of raw float32 device memory, so that
+    ``torch.as_tensor`` views it without a copy (the exchange buffers of
+    ``ipc_alloc`` / ``ipc_open``)."""
+
+    def __init__(self, ptr: int, shape: tuple):
+        self.__cuda_array_interface__ = {
+            "shape": tuple(shape), "typestr": "<f4", "data": (ptr, False),
+            "version": 2, "strides": None}
+
+
+def device_view(ptr: int, shape: tuple, device: torch.device) -> torch.Tensor:
+    """A float32 tensor of ``shape`` over the device memory at ``ptr``."""
+    with torch.cuda.device(device):
+        return torch.as_tensor(_DeviceBuffer(ptr, shape), device=device)
+
+
+def _ipc_call(entry: str, device: torch.device, *args) -> None:
+    from fedtpu_torch.ops._build import load_library
+    with torch.cuda.device(device):
+        err = getattr(load_library(), entry)(*args)
+    if err:
+        raise RuntimeError(f"{entry}: failed with cudaError_t {err}")
+
+
+def ipc_alloc(nbytes: int, device: torch.device) -> tuple:
+    """``(ptr, handle)``: ``nbytes`` of zeroed memory from ``cudaMalloc`` on
+    ``device`` and its 64-byte CUDA IPC handle. A failure raises."""
+    ptr = ctypes.c_void_p()
+    handle = ctypes.create_string_buffer(64)
+    _ipc_call("ft_ipc_alloc", device, nbytes, ctypes.byref(ptr),
+              ctypes.addressof(handle))
+    return ptr.value, handle.raw
+
+
+def ipc_open(handle: bytes, device: torch.device) -> int:
+    """A peer's buffer, from its IPC handle, mapped into this process; a
+    failed open raises (there is no fallback)."""
+    ptr = ctypes.c_void_p()
+    buf = ctypes.create_string_buffer(bytes(handle), 64)
+    _ipc_call("ft_ipc_open", device, ctypes.addressof(buf), ctypes.byref(ptr))
+    return ptr.value
+
+
+def ipc_close(ptr: int, device: torch.device) -> None:
+    _ipc_call("ft_ipc_close", device, ptr)
+
+
+def ipc_free(ptr: int, device: torch.device) -> None:
+    _ipc_call("ft_ipc_free", device, ptr)
 
 
 # ------------------------------------------- K5: one whole round, fused

@@ -14,6 +14,15 @@ written to a temporary name and renamed, and ``meta`` is written last, so a
 round counts as committed only when both exist (``_is_complete``): a crash
 mid-save leaves a round that resume does not see.
 
+A training gang (``fedtpu_torch.parallel.multihost``) saves collectively,
+as ``fedtpu``'s orbax save does with each process persisting the client
+shards it owns: member i of P writes its own clients' rows as
+``state.p<i>-of-<P>``, the members meet at a barrier, and process 0 then
+writes ``meta`` (the history, the gang's client count, ``num_processes``).
+Such a round is complete when ``meta`` and all P parts are there. A gang of
+the same size restores it bit for bit, each member its own part; another
+size (or one process) raises, naming ROADMAP A10b.
+
 The default telemetry registry counts ``checkpoint_saves``,
 ``checkpoint_bytes_written`` (the saved state's tensor bytes),
 ``checkpoint_restores`` and ``checkpoint_restore_corrupt``, as
@@ -52,6 +61,11 @@ def _to_cpu(tree):
     return tree
 
 
+def part_name(process_index: int, process_count: int) -> str:
+    """A gang member's state file in a round directory."""
+    return f"state.p{process_index}-of-{process_count}"
+
+
 def _write(obj, path: str) -> None:
     """``torch.save`` to a temporary name, then rename: a reader sees the
     whole file or none."""
@@ -65,17 +79,24 @@ def _read(path: str):
 
 
 def save_checkpoint(directory: str, state: dict, history: dict,
-                    step: int, extra_meta: Optional[dict] = None) -> str:
+                    step: int, extra_meta: Optional[dict] = None,
+                    gang=None) -> str:
     """Write ``state`` and ``{history, step, num_clients, engine_async,
     **extra_meta}`` under ``directory/round_<step>``. ``num_clients`` lives in the small
     meta file, so elastic-resume detection reads no state. Empty metric
     lists are dropped, as ``fedtpu`` drops them. ``extra_meta``: small
     arrays and scalars (the privacy ledger's), numpy arrays stored as
-    tensors."""
+    tensors. In a ``gang`` every member calls it: each writes its part, and
+    process 0 the meta once every part is written (a barrier)."""
     path = _ckpt_path(directory, step)
     os.makedirs(path, exist_ok=True)
     state_item = _to_cpu(state)
-    _write(state_item, os.path.join(path, "state"))
+    procs = 1 if gang is None else gang.process_count
+    _write(state_item, os.path.join(
+        path, "state" if gang is None
+        else part_name(gang.process_index, procs)))
+    if gang is not None:
+        gang.barrier()
     # The engine that wrote the state, as fedtpu's int flag: the
     # asynchronous engine's state carries anchors, the synchronous one's
     # never does. Resume reads it before the client count, so a resume
@@ -83,12 +104,15 @@ def save_checkpoint(directory: str, state: dict, history: dict,
     meta = {"history": {k: torch.tensor(np.asarray(v, dtype=np.float64))
                         for k, v in history.items() if len(v)},
             "step": int(step),
-            "num_clients": int(state["params"].shape[0]),
+            "num_clients": int(state["params"].shape[0]) * procs,
             "engine_async": int("anchors" in state)}
+    if gang is not None:
+        meta["num_processes"] = procs
     for k, v in (extra_meta or {}).items():
         meta[k] = (torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray)
                    else v)
-    _write(meta, os.path.join(path, "meta"))
+    if gang is None or gang.process_index == 0:
+        _write(meta, os.path.join(path, "meta"))
     reg = default_registry()
     reg.counter("checkpoint_saves").inc()
     reg.counter("checkpoint_bytes_written").inc(tree_nbytes(state_item))
@@ -96,10 +120,22 @@ def save_checkpoint(directory: str, state: dict, history: dict,
 
 
 def _is_complete(path: str) -> bool:
-    """A round is COMMITTED only when both files exist at their final
-    names; ``meta`` is written last."""
-    return (os.path.isfile(os.path.join(path, "state"))
-            and os.path.isfile(os.path.join(path, "meta")))
+    """A round is COMMITTED only when ``meta``, written last, and the
+    state exist at their final names: one ``state``, or every part of a
+    gang's ``state.p<i>-of-<P>``."""
+    if not os.path.isfile(os.path.join(path, "meta")):
+        return False
+    if os.path.isfile(os.path.join(path, "state")):
+        return True
+    try:
+        names = set(os.listdir(path))
+    except OSError:
+        return False
+    counts = {n.rsplit("-of-", 1)[1] for n in names
+              if n.startswith("state.p") and "-of-" in n}
+    return any(c.isdigit() and int(c) > 0
+               and all(part_name(i, int(c)) in names for i in range(int(c)))
+               for c in counts)
 
 
 def _step_of(name: str) -> Optional[int]:
@@ -186,17 +222,29 @@ def load_meta(directory: str, step: Optional[int] = None) -> dict:
     return _read(os.path.join(_ckpt_path(directory, step), "meta"))
 
 
-def load_checkpoint_raw(directory: str, step: Optional[int] = None
+def load_checkpoint_raw(directory: str, step: Optional[int] = None,
+                        part: Optional[tuple] = None
                         ) -> Tuple[dict, dict, int]:
     """``(state, history, step)`` of a checkpoint as saved: CPU tensors at
-    the saved client count; the newest complete one by default."""
+    the saved client count; the newest complete one by default. ``part``
+    ``(process_index, process_count)``: a gang member's own rows of a
+    gang's round; a round of another gang size, or of one process, raises
+    (restoring into another size is ROADMAP A10b)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
     path = _ckpt_path(directory, step)
-    state = _read(os.path.join(path, "state"))
     meta = _read(os.path.join(path, "meta"))
+    saved = int(meta.get("num_processes", 1))
+    procs = 1 if part is None else int(part[1])
+    if saved != procs:
+        from fedtpu_torch.config import _not_ported
+        _not_ported(f"restoring round {step}, saved by {saved} process(es), "
+                    f"into {procs} process(es) (a gang checkpoint restores "
+                    "into a gang of its own size)", "A10b")
+    state = _read(os.path.join(path, "state" if part is None
+                               else part_name(*part)))
     default_registry().counter("checkpoint_restores").inc()
     return state, _history(meta), int(meta["step"])
 
@@ -206,16 +254,23 @@ def saved_num_clients(raw_state: dict) -> int:
     return int(raw_state["params"].shape[0])
 
 
-def load_checkpoint_fallback(directory: str) -> Tuple[dict, dict, int]:
-    """``load_checkpoint_raw`` of the NEWEST complete round that actually
-    loads, walking back past rounds that fail to (a commit proves both
-    files were renamed into place, not that their bytes are intact). Each
-    failure warns. Raises FileNotFoundError when none loads."""
-    steps = complete_steps(directory)
+def load_checkpoint_fallback(directory: str, part: Optional[tuple] = None,
+                             max_step: Optional[int] = None
+                             ) -> Tuple[dict, dict, int]:
+    """``load_checkpoint_raw`` of the NEWEST complete round (at most
+    ``max_step``: a gang's agreed step) that actually loads, walking back
+    past rounds that fail to (a commit proves both files were renamed into
+    place, not that their bytes are intact). Each failure warns. Raises
+    FileNotFoundError when none loads. ``part``: ``load_checkpoint_raw``'s.
+    A round of another gang size raises at once."""
+    steps = [s for s in complete_steps(directory)
+             if max_step is None or s <= max_step]
     last_err: Optional[Exception] = None
     for step in reversed(steps):
         try:
-            return load_checkpoint_raw(directory, step)
+            return load_checkpoint_raw(directory, step, part=part)
+        except NotImplementedError:
+            raise
         except Exception as e:
             last_err = e
             default_registry().counter("checkpoint_restore_corrupt").inc()

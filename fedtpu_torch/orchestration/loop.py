@@ -69,8 +69,24 @@ history, optionally excludes the offending clients at weight 0
 (``rollback_exclude``) and perturbs the params from the second retry on.
 The ``fault``, ``rollback``, ``exclusion`` and ``preempted`` events, their
 counters and the manifest's plan digest go to the sink. Not ported
-(ROADMAP A10): the elastic reshard's fault kinds and multi-process resume
-agreement.
+(ROADMAP A10b): the elastic reshard's fault kinds.
+
+A training gang (``fedtpu_torch.parallel.multihost``: ``run`` under
+``supervise --num-processes N``) runs this loop on every member, each over
+its own block of the clients, as ``fedtpu``'s loop runs under
+``jax.distributed``: each round is the gang step's two pieces around the
+exchange (``round.GangStep``; on the card two CUDA graphs), a chunk's
+metrics are gathered from every member (the chunk's one host collective,
+which also carries the members' SIGTERM flags, so that they drain at the
+same round), process 0 prints and writes the metrics JSONL and the
+configured sink while a peer writes ``<events>.p<i>``, checkpoints are
+collective (each member's part, process 0's meta), resume agrees on a
+common step (``resilience.distributed.agree_resume_step``) and checks
+that every member restored it, and ``collective_timeout`` arms the
+collective watchdog around the blocking windows. Early stop and the
+divergence halt stay consensual: every member reads the same gathered
+metrics. Not in a gang yet (ROADMAP A10b): cohort mode, pipelined stop,
+rollback, personalization, a warm start and the client-targeted faults.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
 with no GPU and no such request they raise rather than fall back.
@@ -78,6 +94,7 @@ with no GPU and no such request they raise rather than fall back.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -105,16 +122,22 @@ from fedtpu_torch.orchestration.checkpoint import (
     load_checkpoint_raw, load_meta, retain_checkpoints, save_checkpoint,
     saved_num_clients)
 from fedtpu_torch.orchestration.privacy import PrivacyLedger
+from fedtpu_torch.parallel import multihost
 from fedtpu_torch.parallel.async_fed import (async_global_params,
                                              build_async_round_fn,
+                                             build_gang_async_round_fn,
                                              init_async_state,
                                              record_tick_telemetry)
 from fedtpu_torch.parallel.mesh import ClientMesh, make_mesh
-from fedtpu_torch.parallel.round import (assemble_metrics, build_eval_fn,
-                                         build_round_fn, capture_round_step,
-                                         check_knobs, global_params,
-                                         init_federated_state, pack_outputs,
-                                         unpack_outputs, warm_up_round)
+from fedtpu_torch.parallel.ring import GangExchange
+from fedtpu_torch.parallel.round import (assemble_metrics,
+                                         build_eval_fn, build_round_fn,
+                                         capture_gang_step,
+                                         capture_round_step, check_knobs,
+                                         client_init_seeds, client_inits,
+                                         global_params, init_federated_state,
+                                         pack_outputs, unpack_outputs,
+                                         warm_up_round)
 from fedtpu_torch.resilience.distributed import heartbeat_path_for
 from fedtpu_torch.resilience.supervisor import Preempted, write_heartbeat
 from fedtpu_torch.telemetry.log import TelemetryLogger
@@ -284,8 +307,12 @@ class Experiment:
     personalize_fn: Optional[Callable] = None
     # The global model of the engine's state: slot 0 for the synchronous
     # engine (every slot holds it), the freshest anchor for the
-    # asynchronous one.
+    # asynchronous one; in a gang, process 0's, broadcast.
     global_fn: Callable = global_params
+    # A training gang's member (fedtpu_torch.parallel.multihost): its gang
+    # and its round's exchange.
+    gang: Optional[object] = None
+    exchange: Optional[object] = None
 
     @property
     def dims(self) -> Optional[tuple]:
@@ -320,7 +347,7 @@ def check_async_config(fed) -> None:
     its messages (``fedtpu/orchestration/loop.py:262-268, 287-329``): its
     two fail-fast DP checks, then each knob of the synchronous aggregation
     stack that the tick process makes meaningless or unsound.
-    ``model_parallel`` is refused by ``RunConfig`` itself (ROADMAP A10)."""
+    ``model_parallel`` is refused by ``RunConfig`` itself (ROADMAP A10c)."""
     if fed.dp_noise_multiplier > 0 and fed.dp_clip_norm <= 0:
         raise ValueError("dp_noise_multiplier requires dp_clip_norm > 0 "
                          "(noise std is noise_multiplier * clip / weight)")
@@ -398,6 +425,37 @@ def check_resilience_config(cfg: ExperimentConfig) -> None:
                 "average in at weight 1)")
 
 
+# The fault kinds a training gang applies; the others target clients or
+# files by index, which a gang member would have to map onto its own block.
+GANG_FAULT_KINDS = ("process_kill", "collective_hang", "straggler")
+
+
+def check_gang_config(cfg: ExperimentConfig) -> None:
+    """What a training gang does not run yet raises, before any build,
+    naming the ROADMAP item that brings it (the aggregation branches
+    besides plain FedAvg raise in ``round.check_gang_knobs``)."""
+    fed, run = cfg.fed, cfg.run
+    for on, what in (
+            (fed.cohort_size > 0, "cohort mode (the multi-process cohort "
+                                  "gather, fedtpu's future work too)"),
+            (run.pipelined_stop, "pipelined_stop"),
+            (run.on_divergence == "rollback", "on_divergence='rollback'"),
+            (fed.personalize_steps > 0, "personalize_steps"),
+            (bool(fed.init_weights_npz), "init_weights_npz")):
+        if on:
+            _not_ported(f"{what} in a training gang", "A10b")
+    if run.fault_plan:
+        from fedtpu_torch.resilience.faults import FaultPlan
+        plan = FaultPlan.load(run.fault_plan,
+                              num_clients=cfg.shard.num_clients,
+                              rounds=fed.rounds)
+        kinds = sorted({f.kind for f in plan.faults
+                        if f.kind not in GANG_FAULT_KINDS})
+        if kinds:
+            _not_ported(f"fault kind(s) {kinds} in a training gang (it "
+                        f"applies {list(GANG_FAULT_KINDS)})", "A10b")
+
+
 def _copy_state_into(live: dict, restored: dict) -> None:
     """A restored state's values into the live state's tensors, in place
     (the captured graphs read those tensors), its numbers assigned."""
@@ -426,8 +484,22 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     draws; ``dp_noise``: round index -> the round's ``(D + 1,)`` unit
     normals, replacing the port's own DP noise draws (``build_round_fn``);
     ``arrival_masks``: tick -> ``(C,)`` arrivals, replacing the
-    asynchronous engine's own draws (``build_async_round_fn``)."""
+    asynchronous engine's own draws (``build_async_round_fn``).
+
+    In a training gang (``multihost.current()``) the member builds only its
+    block of the clients (``local_client_slice``): their data rows, weights
+    and state, its seeded inits drawn from the clients' own seeds as in one
+    process (the asynchronous engine's shared start from all of them), on
+    its own device; every mask and arrival table stays the gang's, the
+    member taking its columns. The round exchanges through one
+    ``GangExchange``, built here once."""
+    gang = multihost.current()
     dev = resolve_device(device)
+    if gang is not None:
+        if (dev.type == "cpu") != (gang.device.type == "cpu"):
+            raise ValueError(f"a gang member on {gang.device} asked to run "
+                             f"on {dev}")
+        dev = gang.device
     ds = dataset if dataset is not None else load_dataset(cfg.data)
     # The data sets the MLP's input width and every model's class count, as
     # in fedtpu.
@@ -464,23 +536,50 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             fed.byzantine_clients, fed.scaffold)
 
     params = None if init_params is None else params_from_jax(init_params)
+    mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev, gang=gang)
+    rows = multihost.local_client_slice(mesh)
+    exchange = None
+    if gang is not None:
+        if dev.type == "cuda":
+            # Built before the gang's first collective, so that no member
+            # waits on another's nvcc inside a guarded window.
+            from fedtpu_torch.ops._build import load_library
+            load_library()
+        if params is None:
+            seeds = client_init_seeds(fed.init_seed, num_clients,
+                                      fed.same_init)
+            params = (client_inits(model, seeds[:1]).expand(num_clients, -1)
+                      if fed.same_init else client_inits(model, seeds))
+        if fed.async_mode:
+            # Every client starts from the whole gang's shared global.
+            params = init_async_state(None, num_clients, model, tx,
+                                      params=params)["anchors"]
+        params = params[rows]
+        exchange = GangExchange("psum" if fed.async_mode else
+                                fed.aggregation, gang, mesh,
+                                model.param_count + 1, dev)
+        num_clients = mesh.local_clients
+        packed_rows = {k: getattr(packed, k)[rows]
+                       for k in ("x", "y", "mask", "counts")}
+    else:
+        packed_rows = {k: getattr(packed, k)
+                       for k in ("x", "y", "mask", "counts")}
     if fed.init_weights_npz:
         # The asynchronous engine's clients have pulled the warm start:
         # its anchors hold it too (init_async_state).
         params = warm_start_params(fed.init_weights_npz, model).expand(
             num_clients, -1)
-    batch = {"x": torch.from_numpy(packed.x).to(dev),
-             "y": torch.from_numpy(packed.y).to(dev),
-             "mask": torch.from_numpy(packed.mask).to(dev)}
-    weights = (packed.counts.astype(np.float32)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(packed_rows[k])).to(
+        dev) for k in ("x", "y", "mask")}
+    weights = (packed_rows["counts"].astype(np.float32)
                if fed.weighting == "data_size"
                else np.ones(num_clients, np.float32))
     client_weights = torch.from_numpy(weights).to(dev)
-    mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev)
     if fed.async_mode:
         state = init_async_state(
             fed.init_seed, num_clients, model, tx, same_init=fed.same_init,
-            device=dev, params=params, buffer_size=fed.async_buffer_size)
+            device=dev, params=params, buffer_size=fed.async_buffer_size,
+            gang=gang is not None)
         make_step = lambda r: build_async_round_fn(
             model, tx, ds.num_classes, num_clients,
             arrival_rate=fed.async_arrival_rate,
@@ -489,6 +588,15 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             server_lr=fed.server_lr, local_steps=fed.local_steps,
             prox_mu=fed.prox_mu, buffer_size=fed.async_buffer_size,
             ticks_per_step=r, arrival_masks=arrival_masks)
+        if gang is not None:
+            make_step = lambda r: build_gang_async_round_fn(
+                model, tx, ds.num_classes, mesh, exchange,
+                arrival_rate=fed.async_arrival_rate,
+                arrival_seed=fed.async_arrival_seed,
+                staleness_power=fed.async_staleness_power,
+                server_lr=fed.server_lr, local_steps=fed.local_steps,
+                prox_mu=fed.prox_mu, buffer_size=fed.async_buffer_size,
+                ticks_per_step=r, arrival_masks=arrival_masks)
     else:
         state = init_federated_state(
             fed.init_seed, num_clients, model, tx, same_init=fed.same_init,
@@ -513,18 +621,24 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             dp_noise=dp_noise, compress=fed.compress,
             robust_aggregation=fed.robust_aggregation,
             trim_ratio=fed.trim_ratio, krum_f=fed.krum_f,
-            byzantine_clients=fed.byzantine_clients, scaffold=fed.scaffold)
+            byzantine_clients=fed.byzantine_clients, scaffold=fed.scaffold,
+            exchange=exchange)
     personalize_fn = None
     if fed.personalize_steps > 0:
         personalize_fn = build_personalize_fn(model, tx, ds.num_classes,
                                               fed.personalize_steps)
+    global_fn = async_global_params if fed.async_mode else global_params
+    if gang is not None:
+        # Process 0's global on every member: one process's slot 0 (a
+        # ring's shards hold globals that differ in the last bits).
+        own = (lambda st: st["global"]) if fed.async_mode else global_params
+        global_fn = lambda st: gang.broadcast(own(st), 0)
     return Experiment(make_step=make_step, state=state, batch=batch,
                       eval_step=build_eval_fn(model, ds.num_classes),
                       dataset=ds, device=dev, model=model, mesh=mesh,
                       client_weights=client_weights, tx=tx,
-                      personalize_fn=personalize_fn,
-                      global_fn=(async_global_params if fed.async_mode
-                                 else global_params))
+                      personalize_fn=personalize_fn, global_fn=global_fn,
+                      gang=gang, exchange=exchange)
 
 
 class _Fetch:
@@ -535,6 +649,9 @@ class _Fetch:
 
     def __init__(self, out: torch.Tensor):
         self.event = None
+        # A gang's agreed finiteness flag (every member's), set when the
+        # chunk's outputs are gathered.
+        self.agreed: Optional[bool] = None
         if out.is_cuda:
             self.host = torch.empty(out.shape, dtype=out.dtype,
                                     pin_memory=True)
@@ -551,7 +668,9 @@ class _Fetch:
 
     def finite(self) -> bool:
         """The chunk-end state's finiteness flag (the last entry of
-        ``pack_outputs``)."""
+        ``pack_outputs``); in a gang, every member's."""
+        if self.agreed is not None:
+            return self.agreed
         return bool(self.get()[-1] > 0)
 
 
@@ -652,6 +771,57 @@ def _restore_state(raw: dict, like: dict, device: torch.device) -> dict:
     return state
 
 
+def agree_resume(ckpt_dir: str, gang, restart_count: int, guard,
+                 log) -> Optional[int]:
+    """A gang's resume step (``fedtpu``'s agreement,
+    ``fedtpu/orchestration/loop.py:940-990``): every member publishes the
+    newest complete step it sees and the gang restores the minimum, or
+    starts fresh together (None) when any member sees none. Without
+    ``FEDTPU_LAUNCH_ID`` (a launch by hand) process 0's nonce, broadcast,
+    tags the generation."""
+    from fedtpu_torch.resilience.distributed import (ENV_LAUNCH_ID,
+                                                     NO_CHECKPOINT,
+                                                     agree_resume_step)
+    local = latest_step(ckpt_dir)
+    launch_id = os.environ.get(ENV_LAUNCH_ID) or None
+    with guard("resume_agreement"):
+        if launch_id is None:
+            nonce = torch.tensor([int.from_bytes(os.urandom(4), "little")])
+            launch_id = f"bcast:{int(gang.broadcast(nonce, 0)[0]):08x}"
+        agreed = agree_resume_step(ckpt_dir, gang.process_index,
+                                   gang.process_count, local,
+                                   restart_count=restart_count,
+                                   launch_id=launch_id)
+    if agreed == NO_CHECKPOINT:
+        log.info("Resume agreement: no complete checkpoint common to the "
+                 "whole gang; starting fresh consensually.")
+        return None
+    if agreed != local:
+        log.info(f"Resume agreement: restoring round {agreed} (local "
+                 f"latest: {local}) — the newest step every process can "
+                 "see.")
+    return agreed
+
+
+def gather_chunk(gang, flat: torch.Tensor, take: int, local_clients: int,
+                 num_classes: int, outputs: tuple, flag: bool) -> tuple:
+    """Every member's packed chunk outputs, gathered and merged into the
+    gang's ``unpack_outputs`` (clients in member order; the per-round
+    entries, equal on every member, from process 0; ``finite`` only when
+    every member's state is finite), and whether any member raised
+    ``flag`` (a SIGTERM caught since its last chunk)."""
+    stack = gang.all_gather(torch.cat((
+        flat.to(torch.float32).cpu(),
+        torch.tensor([1.0 if flag else 0.0]))))
+    parts = [unpack_outputs(row[:-1], take, local_clients, num_classes,
+                            *outputs) for row in stack]
+    per_client = ("loss", "conf") + tuple(outputs[0])
+    raw = {k: torch.cat([p[k] for p in parts], dim=1) for k in per_client}
+    raw.update({k: parts[0][k] for k in outputs[1]})
+    raw["finite"] = all(p["finite"] for p in parts)
+    return raw, bool((stack[:, -1] > 0).any())
+
+
 def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                    verbose: bool = True, device="cuda", init_params=None,
                    participation_masks=None, resume: bool = False,
@@ -664,6 +834,9 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     the CPU; False runs the step uncaptured on the card too.
     ``participation_masks``, ``dp_noise`` and ``arrival_masks``:
     ``build_experiment``'s."""
+    gang = multihost.current()
+    if gang is not None:
+        check_gang_config(cfg)
     if cfg.fed.cohort_size > 0:
         # The cohort engine: the population in a host-side store, only
         # cohort_size slots on the device (fedtpu_torch.cohort.scheduler).
@@ -679,10 +852,16 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                                      init_params=init_params)
     # The resilience knobs first: a bad combination fails before a build.
     check_resilience_config(cfg)
+    proc = 0 if gang is None else gang.process_index
+    # Process 0 prints, writes the metrics JSONL and keeps the configured
+    # sink; a peer's sink is <events>.p<i> (one writer a file).
+    io_proc = proc == 0
+    verbose = verbose and io_proc
     tel = cfg.run.telemetry
-    # One process: the configured sink (a peer of a multi-process run
-    # would write <events>.p<i>, ROADMAP A10).
-    tracer = make_tracer(tel.events_path, role="run", process_index=0)
+    events_path = tel.events_path
+    if events_path and not io_proc:
+        events_path = f"{events_path}.p{proc}"
+    tracer = make_tracer(events_path, role="run", process_index=proc)
     registry = default_registry()
     registry.reset()
     log = TelemetryLogger(verbose=verbose, tracer=tracer,
@@ -699,8 +878,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     ds, state, batch = exp.dataset, exp.state, exp.batch
     num_clients, num_classes = cfg.shard.num_clients, ds.num_classes
     # The host's copy of the sample mask (the client-mean metrics' empty
-    # shards): its own tensor, since faults edit the device mask in place.
-    mask_host = batch["mask"].cpu().clone()
+    # shards): its own tensor, since faults edit the device mask in place;
+    # in a gang, every member's rows.
+    mask_host = multihost.gather_rows(gang, batch["mask"]).cpu().clone()
+    exchange = exp.exchange
     x_test = torch.from_numpy(ds.x_test).to(dev)
     y_test = torch.from_numpy(ds.y_test).to(dev)
     ckpt_dir = cfg.run.checkpoint_dir
@@ -716,9 +897,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                               rounds=cfg.fed.rounds)
         if any(f.kind in RESHARD_KINDS for f in plan.faults):
             _not_ported("a fault plan's preempt_notice/preempt_cancel (the "
-                        "live elastic reshard)", "A10")
+                        "live elastic reshard)", "A10b")
         injector = FaultInjector(plan, restart_count=restart_count,
-                                 tracer=tracer, registry=registry)
+                                 tracer=tracer, registry=registry,
+                                 process_index=proc)
         log.info(f"Fault plan {plan.digest}: {len(plan.faults)} fault(s), "
                  f"{injector.armed_count} armed"
                  + (f" (restart {restart_count})" if restart_count else "")
@@ -728,8 +910,27 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     fault_weights = (exp.client_weights if cfg.fed.weighting == "data_size"
                      and not engine_async else None)
 
-    heartbeat = (heartbeat_path_for(cfg.run.heartbeat_file, 0)
+    heartbeat = (heartbeat_path_for(cfg.run.heartbeat_file, proc)
                  if cfg.run.heartbeat_file else None)
+
+    # The collective watchdog (a gang with collective_timeout): armed only
+    # around the blocking windows (a chunk's rounds with their exchanges,
+    # its gathered metrics, a collective save, the resume agreement, a
+    # broadcast of the global); a window open past the timeout becomes a
+    # collective_hang event and exit 75 (fedtpu_torch.resilience.
+    # distributed).
+    watchdog = None
+    if gang is not None and cfg.run.collective_timeout:
+        from fedtpu_torch.resilience.distributed import CollectiveWatchdog
+        watchdog = CollectiveWatchdog(
+            cfg.run.collective_timeout, events_path=tel.events_path,
+            process_index=proc, heartbeat=heartbeat,
+            restart_count=restart_count).start()
+
+    def guard(phase: str, rnd: Optional[int] = None):
+        if watchdog is None:
+            return contextlib.nullcontext()
+        return watchdog.guard(phase, rnd)
 
     def beat(status: str, rnd: int) -> None:
         """The liveness heartbeat (an atomic host-side rewrite): the
@@ -739,9 +940,12 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                             restarts=restart_count)
 
     beat("starting", 0)
+    if gang is not None:
+        log.info(f"Training gang: {gang.process_count} processes, the "
+                 f"{gang.backend} backend, process 0 on {dev}.")
     if tel.manifest:
         tracer.event("manifest", **build_manifest(
-            cfg=cfg, mesh=exp.mesh, device=dev, extra={
+            cfg=cfg, mesh=exp.mesh, device=dev, gang=gang, extra={
                 "program": "run",
                 "engine": "async" if engine_async else "sync1d",
                 "restarts": restart_count,
@@ -769,8 +973,12 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             f"(latest: {complete_steps(ckpt_dir)[-1]}). Pass resume=True "
             "(--resume) to continue that run, or point checkpoint_dir at a "
             "clean directory.")
-    if resume and ckpt_dir and latest_step(ckpt_dir) is not None:
-        meta = load_meta(ckpt_dir)
+    agreed_step = None
+    if resume and ckpt_dir and gang is not None:
+        agreed_step = agree_resume(ckpt_dir, gang, restart_count, guard, log)
+    if resume and ckpt_dir and latest_step(ckpt_dir) is not None and (
+            gang is None or agreed_step is not None):
+        meta = load_meta(ckpt_dir, step=agreed_step)
         # The engine first, from the meta alone, as fedtpu does.
         saved_async = meta.get("engine_async")
         if saved_async is not None and bool(saved_async) != engine_async:
@@ -783,11 +991,26 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         saved_c = int(meta["num_clients"])
         if saved_c == num_clients:
             raw, restored_history, start_round = load_checkpoint_fallback(
-                ckpt_dir)
+                ckpt_dir, max_step=agreed_step,
+                part=None if gang is None else (proc, gang.process_count))
             state = _restore_state(raw, state, dev)
             log.info(f"Resumed from checkpoint at round {start_round}.")
             # The ledger's curve comes from the round actually restored.
             restored_meta = load_meta(ckpt_dir, step=start_round)
+            if gang is not None:
+                # The agreement bounds the step; the restore is each
+                # member's own, and a member whose agreed round failed to
+                # load walked back: refuse to train desynced.
+                with guard("resume_verify"):
+                    rounds = gang.all_gather(torch.tensor([start_round]))
+                if int(rounds.min()) != int(rounds.max()):
+                    raise RuntimeError(
+                        "post-restore desync: the gang restored different "
+                        f"rounds {rounds.flatten().tolist()} (agreed step: "
+                        f"{agreed_step}); refusing to train desynced")
+        elif gang is not None:
+            _not_ported(f"an elastic resume of a training gang ({saved_c} "
+                        f"-> {num_clients} clients)", "A10b")
         else:
             # Elastic resume: a periodic checkpoint holds a post-average
             # state, every slot the global model; its mean over the slots
@@ -846,7 +1069,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                          "clients (global model carried over, fresh client "
                          f"optimizer state{cv_note}).")
     if restored_history is not None:
-        tracer.event("resume", round=start_round)
+        # A gang member stamps its wall clock: the chaos rows time a gang
+        # restart from the supervisor's relaunch to it.
+        tracer.event("resume", round=start_round,
+                     **({"wall": time.time()} if gang is not None else {}))
 
     # The DP RDP bookkeeping (fedtpu_torch.orchestration.privacy), written
     # into every checkpoint's meta whether or not DP is on, so a DP-off
@@ -885,8 +1111,11 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 best_saved = (acc_hist[s - 1], s)
 
     def save(directory: str, step: int) -> None:
-        save_checkpoint(directory, state, history, step,
-                        extra_meta=ledger.checkpoint_meta(step))
+        # Collective in a gang: every member writes its part.
+        with guard("checkpoint_save", step):
+            save_checkpoint(directory, state, history, step,
+                            extra_meta=ledger.checkpoint_meta(step),
+                            gang=gang)
 
     def retain_after_save(step: int) -> None:
         nonlocal best_saved
@@ -895,8 +1124,9 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         acc = history["accuracy"][-1] if history["accuracy"] else -math.inf
         if best_saved is None or acc > best_saved[0]:
             best_saved = (acc, step)
-        retain_checkpoints(ckpt_dir, cfg.run.keep_checkpoints,
-                           protect=(best_saved[1],))
+        if io_proc:
+            retain_checkpoints(ckpt_dir, cfg.run.keep_checkpoints,
+                               protect=(best_saved[1],))
 
     def halt_diverged(reason: str, label_round: int) -> None:
         """Stop the run; with a checkpoint dir, save the current state
@@ -1044,8 +1274,9 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 if not graphs:
                     warm_up_round(get_step(1), state, batch)
                     warmup_rounds = 1
-                graphs[take] = capture_round_step(get_step(take), state,
-                                                  batch)
+                capture = (capture_round_step if gang is None
+                           else capture_gang_step)
+                graphs[take] = capture(get_step(take), state, batch)
             out = graphs[take](*inputs)
             state["round"] = rnd + take
         else:
@@ -1057,8 +1288,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         draw_ahead(rnd + take)
         return fetch
 
-    jsonl = open(cfg.run.metrics_jsonl, "a") if cfg.run.metrics_jsonl \
-        else None
+    jsonl = (open(cfg.run.metrics_jsonl, "a")
+             if cfg.run.metrics_jsonl and io_proc else None)
     lap = [time.perf_counter()]
     # The profile window (profile_rounds K > 0) opens after the first
     # chunk's read, so the graphs' warm-up and capture stay out of it, and
@@ -1074,8 +1305,19 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         the round the current ``state`` holds (one chunk further on when
         pipelined), the label of an emergency checkpoint."""
         nonlocal prev_metric, termination_count, rounds_run
-        raw = unpack_outputs(fetched.get(), take, num_clients, num_classes,
-                             *get_step(take).outputs)
+        if gang is None:
+            raw = unpack_outputs(fetched.get(), take, num_clients,
+                                 num_classes, *get_step(take).outputs)
+        else:
+            # The gang's metrics: every member's clients, gathered (the
+            # chunk's one host collective), with the members' SIGTERM flags
+            # so that they all drain at the same round.
+            with guard("chunk_fetch", rnd0 + take):
+                raw, preempt["agreed"] = gather_chunk(
+                    gang, fetched.get(), take, exp.mesh.local_clients,
+                    num_classes, get_step(take).outputs,
+                    preempt["sig"] is not None)
+            fetched.agreed = raw["finite"]
         # s/round is fedtpu's lap (its ``timer.lap()`` at the chunk fetch):
         # the time from one chunk's read to the next over the chunk's
         # rounds, so the host work between them (history, logs, held-out
@@ -1194,7 +1436,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     # into a checkpoint and Preempted (exit 75); installed only with a
     # checkpoint dir to drain to, on the main thread, and restored when the
     # loop ends.
-    preempt = {"sig": None}
+    preempt = {"sig": None, "agreed": False}
     prev_term = None
     if ckpt_dir and threading.current_thread() is threading.main_thread():
         def _on_term(signum, frame):
@@ -1202,7 +1444,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         prev_term = signal.signal(signal.SIGTERM, _on_term)
     try:
         while rnd < cfg.fed.rounds and not flags["stopped_early"]:
-            if preempt["sig"] is not None:
+            if (preempt["sig"] is not None if gang is None
+                    else preempt["agreed"]):
                 # The graceful drain: read the chunk in flight, checkpoint
                 # (not a poisoned state: it would resume straight back into
                 # divergence) and exit through Preempted (exit 75; the
@@ -1237,7 +1480,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                     # The host reads the device mask the injector left:
                     # the round's own (one sync, on a width-1 round).
                     chunk_mask = batch["mask"].cpu().clone()
-            last = dispatch(rnd, take, chunk_mask)
+            with guard("round_dispatch", rnd):
+                last = dispatch(rnd, take, chunk_mask)
             if injector is not None:
                 # After the dispatch is queued (same stream): the pre-fault
                 # mask goes back, so every later round is bitwise an
@@ -1301,7 +1545,9 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 break
             if eval_due:
                 sp = tracer.span("eval", round=rnd)
-                tm = exp.eval_step(exp.global_fn(state), x_test, y_test)
+                with guard("eval_broadcast", rnd):
+                    glob = exp.global_fn(state)
+                tm = exp.eval_step(glob, x_test, y_test)
                 # The span closes after this host read of the metrics.
                 tm = torch.stack([tm[k] for k in METRIC_NAMES]).tolist()
                 sp.end()
@@ -1325,6 +1571,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 and not last.finite():
             halt_diverged(f"params/optimizer state after round {rnd}", rnd)
     finally:
+        if watchdog is not None:
+            # The epilogue (final params, the exchange's teardown) runs
+            # unguarded: a healthy run reached it.
+            watchdog.stop()
         if prev_term is not None:
             signal.signal(signal.SIGTERM, prev_term)
         # The trace is finalized and the counters snapshot written on a
@@ -1354,13 +1604,16 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                  f"client-mean: [{vals}]")
 
     rounds_trained = int(state["round"])
+    final_params = params_to_numpy(exp.global_fn(state), exp.model)
+    if exchange is not None:
+        exchange.close()
     result = ExperimentResult(
         global_metrics=history, pooled_metrics=pooled_hist,
         per_client_metrics=per_client_hist, test_metrics=test_hist,
         loss=losses, sec_per_round=sec_per_round, rounds_run=rounds_run,
         stopped_early=flags["stopped_early"],
-        final_params=params_to_numpy(exp.global_fn(state), exp.model),
-        config=cfg, diverged=flags["diverged"], confusion=confusion,
+        final_params=final_params, config=cfg, diverged=flags["diverged"],
+        confusion=confusion,
         rounds_trained=rounds_trained, warmup_rounds=warmup_rounds,
         graph_launches={w: dict(g.launches) for w, g in graphs.items()},
         dp_rdp_total=ledger.rdp_at(rounds_trained),

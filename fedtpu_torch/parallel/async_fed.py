@@ -93,7 +93,8 @@ def init_async_state(init_seed: Optional[int], num_clients: int, model,
                      tx: Optimizer, same_init: bool = True,
                      device: torch.device = torch.device("cpu"),
                      params: Optional[torch.Tensor] = None,
-                     buffer_size: int = 0, screen_window: int = 0) -> dict:
+                     buffer_size: int = 0, screen_window: int = 0,
+                     gang: bool = False) -> dict:
     """Every client starts having just pulled the shared initial global at
     tick 0: the mean of the clients' inits (client c's drawn from its seed
     of ``round.client_init_seeds(init_seed, C, same_init)``, one shared
@@ -106,7 +107,9 @@ def init_async_state(init_seed: Optional[int], num_clients: int, model,
     buffer (``buf_delta (D,)`` float32, ``buf_count``), ``screen_window >=
     1`` the screen's empty norm ring (``screen_norms (W,)`` float32,
     ``screen_count`` int32), so both persist across steps and
-    checkpoints."""
+    checkpoints. ``gang=True`` (a training gang's member, whose ``params``
+    are its own clients' slots holding the whole gang's initial global)
+    adds the replicated global ``global (D,)``."""
     model = as_model(model)
     if params is None:
         seeds = client_init_seeds(init_seed, num_clients, same_init)
@@ -125,6 +128,8 @@ def init_async_state(init_seed: Optional[int], num_clients: int, model,
              "pull_tick": torch.zeros(num_clients, dtype=torch.int32,
                                       device=device),
              "round": 0}
+    if gang:
+        state["global"] = anchors[0].clone()
     if buffer_size >= 2:
         state["buf_delta"] = torch.zeros(anchors.shape[1],
                                          dtype=torch.float32, device=device)
@@ -142,7 +147,7 @@ def init_async_state(init_seed: Optional[int], num_clients: int, model,
 # The state's tensors besides params and the optimizer state that a tick
 # updates, in the order the capture copies them back.
 _ASYNC_STATE = ("anchors", "pull_tick", "buf_delta", "buf_count",
-                "screen_norms", "screen_count")
+                "screen_norms", "screen_count", "global")
 
 
 def record_tick_telemetry(registry, tracer, tick: int, staleness) -> None:
@@ -503,6 +508,136 @@ def build_async_round_fn(model, tx: Optimizer, num_classes: int,
 
     return AsyncStep(fn, ticks_per_step, num_clients,
                      None if driven else draw_arrivals, screen)
+
+
+def build_gang_async_round_fn(model, tx: Optimizer, num_classes: int,
+                              mesh, exchange, arrival_rate: float = 0.5,
+                              arrival_seed: int = 0,
+                              staleness_power: float = 0.5,
+                              server_lr: float = 1.0,
+                              local_steps: int = 1,
+                              prox_mu: float = 0.0,
+                              buffer_size: int = 0,
+                              ticks_per_step: int = 1,
+                              arrival_masks: Optional[Callable] = None):
+    """The asynchronous tick of one member of a training gang, a
+    ``round.GangStep`` over the member's block of ``mesh`` (``fedtpu``'s
+    ``psum`` of the per-shard ``tensordot`` and of the arrival count,
+    ``fedtpu/parallel/async_fed.py:395-403``): piece 1 trains the member's
+    clients from their anchors, adopts its arrivals and takes K1's sum mode
+    over their discounted deltas, the member's arrival count appended; the
+    exchange sums the members' ``(D + 1,)`` in member order; piece 2 moves
+    the buffer and the global and re-pulls the arrivals. The arrivals are
+    drawn for all ``C`` clients, as in one process, and the member takes
+    its columns. The gang's state carries the global (``global``, the
+    freshest anchor of one process: arrivals re-pull it every tick it
+    moves), since no member holds every anchor. The member's sum over its
+    arrivals is added to the others' in another order than one process's
+    K1 over all of them: float32 tolerance."""
+    if not 0.0 < arrival_rate <= 1.0:
+        raise ValueError(f"arrival_rate must be in (0, 1], got "
+                         f"{arrival_rate}")
+    if staleness_power < 0:
+        raise ValueError(f"staleness_power must be >= 0, got "
+                         f"{staleness_power}")
+    if server_lr <= 0:
+        raise ValueError(f"server_lr must be > 0, got {server_lr}")
+    if buffer_size < 0:
+        raise ValueError(f"buffer_size must be >= 0, got {buffer_size}")
+    from fedtpu_torch.parallel.round import GangStep
+    model = as_model(model)
+    slot_dtype = model.param_dtype
+    buffered = buffer_size >= 2
+    apply_n = float(buffer_size if buffered else 1)
+    local_train = make_local_train_step(model, tx, local_steps, prox_mu)
+    local_eval = make_local_eval_step(model, num_classes)
+    lr = _in(slot_dtype, server_lr)
+    num_clients = mesh.num_shards * mesh.clients_per_shard
+    c_local = mesh.local_clients
+    cols = slice(mesh.first_shard * mesh.clients_per_shard,
+                 mesh.first_shard * mesh.clients_per_shard + c_local)
+
+    def draw_arrivals(first_tick: int, count: int) -> torch.Tensor:
+        def one(t):
+            if arrival_masks is not None:
+                return np.asarray(arrival_masks(t), dtype=np.float32)
+            return arrival_mask(num_clients, arrival_rate, arrival_seed, t)
+        return torch.from_numpy(np.stack([one(first_tick + j)
+                                          for j in range(count)]))[:, cols]
+
+    def pre(state, batch, arrive, r):
+        if "global" not in state or buffered != ("buf_delta" in state):
+            raise ValueError("a gang's asynchronous state carries its "
+                             "global (init_async_state(..., gang=True)) "
+                             "and, with buffer_size >= 2, its K-buffer")
+        anchors, pull = state["anchors"], state["pull_tick"]
+        arrived = arrive != 0.0
+        trained, new_opt, loss = local_train(anchors, state["opt_state"],
+                                             batch["x"], batch["y"],
+                                             batch["mask"])
+        delta = trained.to(torch.float32) - anchors.to(torch.float32)
+        kept = select_participants(
+            arrived.to(torch.float32),
+            {"params": trained.to(slot_dtype), **new_opt},
+            {"params": state["params"], **state["opt_state"]})
+        params = kept.pop("params")
+        stale = (r - pull).to(torch.float32)
+        disc = arrive * torch.pow(1.0 + stale, -staleness_power)
+        payload = torch.cat((weighted_sum_clients(delta, disc),
+                             arrived.to(torch.float32).sum().reshape(1)))
+        conf = local_eval(params, batch["x"], batch["y"], batch["mask"])
+        return ({"params": params, "opt_state": kept, "arrived": arrived},
+                payload, {"loss": loss, "conf": conf, "staleness": stale})
+
+    def post(state, carry, acc, arrive, r):
+        g = state["global"]
+        d = g.shape[0]
+        if buffered:
+            buf, nbuf = state["buf_delta"], state["buf_count"]
+        else:
+            buf = torch.zeros(d, dtype=torch.float32, device=g.device)
+            nbuf = torch.zeros((), dtype=torch.float32, device=g.device)
+        buf = buf + acc[:d]
+        nbuf = nbuf + acc[d]
+        apply = nbuf >= apply_n
+        step_g = (buf / torch.clamp(nbuf, min=1.0)).to(g.dtype)
+        g = torch.where(apply, g + lr * step_g, g)
+        arrived = carry["arrived"]
+        new = {"params": carry["params"], "opt_state": carry["opt_state"],
+               "anchors": torch.where(arrived[:, None],
+                                      g[None].to(slot_dtype),
+                                      state["anchors"]),
+               "pull_tick": torch.where(arrived, r + 1, state["pull_tick"]),
+               "global": g, "round": state["round"]}
+        if buffered:
+            new["buf_delta"] = torch.where(apply, torch.zeros_like(buf), buf)
+            new["buf_count"] = torch.where(apply, torch.zeros_like(nbuf),
+                                           nbuf)
+        return new
+
+    def round_buffers(state):
+        dev = state["params"].device
+        return (torch.zeros(c_local, dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+
+    def load_round(state, bufs, j, arrivals, tick):
+        if arrivals is None:
+            arrivals = draw_arrivals(state["round"], ticks_per_step)
+        bufs[0].copy_(arrivals[j])
+        if tick is None:
+            bufs[1].fill_(state["round"] + j)
+        else:
+            bufs[1].copy_(tick + j)
+
+    def chunk_buffers(state):
+        dev = state["params"].device
+        return (torch.zeros((ticks_per_step, c_local), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+
+    return GangStep(ticks_per_step, pre, post, exchange, round_buffers,
+                    load_round, chunk_buffers, async_state_tensors,
+                    (("staleness",), ()), draw_arrivals=draw_arrivals)
 
 
 def read_client_slot(state: dict, num_clients: int, slot) -> list:

@@ -17,16 +17,30 @@ there are fewer devices than shards. That is the counterpart of ``fedtpu``'s
 the ring kernel exchanges between them there. ``num_devices=0`` gives one
 shard per visible device: 1 on one H100 (or on the CPU), where the ring is
 the identity, as in ``fedtpu``.
+
+In a training gang (``fedtpu_torch.parallel.multihost``) the mesh is the
+gang's: ``num_shards`` global shards, member p holding the contiguous block
+``[p * local_shards, (p + 1) * local_shards)`` (``fedtpu``'s
+``local_client_slice``), its shards co-resident on its own device as in one
+process. ``num_devices=0`` gives each member ``FEDTPU_SHARDS_PER_PROCESS``
+shards (default one per device it sees), the counterpart of the virtual
+devices per process that ``fedtpu``'s gang takes from
+``--xla_force_host_platform_device_count``; one process reads no such
+variable.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 import torch
 
 CLIENTS_AXIS = "clients"
+# The shards a process lays over its devices when the mesh size is not
+# given (num_devices=0).
+ENV_SHARDS_PER_PROCESS = "FEDTPU_SHARDS_PER_PROCESS"
 
 
 def trim_to_divisor(n: int, num_clients: int) -> int:
@@ -42,11 +56,28 @@ def trim_to_divisor(n: int, num_clients: int) -> int:
 class ClientMesh:
     """``num_shards`` shards of ``clients_per_shard`` clients each; shard
     ``d`` holds clients ``[d * clients_per_shard, (d + 1) *
-    clients_per_shard)`` and lives on ``devices[d]``."""
+    clients_per_shard)``. In a gang of ``num_processes``, this member
+    (``process_index``) holds ``local_shards`` of them from
+    ``first_shard``; ``devices`` are the devices of this member's shards,
+    in order (all shards in one process)."""
 
     num_shards: int
     clients_per_shard: int
     devices: Tuple[torch.device, ...]
+    num_processes: int = 1
+    process_index: int = 0
+
+    @property
+    def local_shards(self) -> int:
+        return self.num_shards // self.num_processes
+
+    @property
+    def first_shard(self) -> int:
+        return self.process_index * self.local_shards
+
+    @property
+    def local_clients(self) -> int:
+        return self.local_shards * self.clients_per_shard
 
 
 def _visible(device: torch.device) -> list:
@@ -61,17 +92,39 @@ def _visible(device: torch.device) -> list:
 
 
 def make_mesh(num_devices: int = 0, num_clients: int = 0,
-              device="cuda") -> ClientMesh:
+              device="cuda", gang=None) -> ClientMesh:
     """A 1-D clients mesh of ``num_devices`` shards (0 = one per visible
     device of ``device``'s type, or just ``device`` when it names an
-    index), trimmed to the largest extent that divides ``num_clients``."""
+    index; in a ``gang``, ``FEDTPU_SHARDS_PER_PROCESS`` a member when set,
+    the members each counting their own), trimmed to the largest extent
+    that divides ``num_clients``. In a ``gang`` the extent is global and must split
+    evenly over the members, and ``num_clients`` over the extent; a shape
+    that does not raises, naming it."""
     visible = _visible(torch.device(device))
     if not visible:
         raise RuntimeError(f"no visible {torch.device(device).type} device")
     if num_devices < 0:
         raise ValueError("num_devices must be >= 0")
-    n = trim_to_divisor(num_devices or len(visible), num_clients)
+    procs = 1 if gang is None else gang.process_count
+    # The members' stand-in for fedtpu's virtual devices a process; one
+    # process reads no such variable.
+    per_process = 0 if gang is None else int(
+        os.environ.get(ENV_SHARDS_PER_PROCESS, "0") or 0)
+    n = num_devices or procs * (per_process or len(visible))
+    if gang is None:
+        n = trim_to_divisor(n, num_clients)
+    elif n % procs or (num_clients and num_clients % n):
+        raise ValueError(
+            f"a gang of {procs} processes lays {n} shards over "
+            f"{num_clients} clients: the clients must split evenly over the "
+            f"shards and the shards over the processes (clients "
+            f"{num_clients} = processes {procs} x shards per process "
+            f"{n // procs if n % procs == 0 else n / procs:g} x clients per "
+            "shard)")
+    local = n // procs
     return ClientMesh(
         num_shards=n,
         clients_per_shard=num_clients // n if num_clients else 0,
-        devices=tuple(visible[d % len(visible)] for d in range(n)))
+        devices=tuple(visible[d % len(visible)] for d in range(local)),
+        num_processes=procs,
+        process_index=0 if gang is None else gang.process_index)

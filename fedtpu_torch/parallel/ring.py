@@ -17,10 +17,14 @@ the results equal ``fedtpu``'s bit for bit:
   gathered verbatim, so every row is identical. ``fedtpu`` has no Pallas
   kernel for it, so it stays ordinary torch code on the card as well.
 - ``make_all_reduce('psum')``: the plain sum over shards, on every row.
+
+``GangExchange`` is the same reductions across the processes of a training
+gang, each member holding its own shards' rows.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -103,3 +107,113 @@ def make_all_reduce(kind: str, num_shards: int) -> Callable:
         return fn(stack)
 
     return all_reduce
+
+
+class GangExchange:
+    """One round's exchange of a training gang's payload
+    (``fedtpu_torch.parallel.multihost``), for ``kind``:
+
+    - ``psum``: each member's ``(width,)`` partial sum; every member gets
+      the members' sum, a left fold in member order over the gathered
+      stack (the same bits everywhere).
+    - ``ring``: each member's ``(S_local, width)`` shard rows; every member
+      gets its own rows of the ring all-reduce over all ``S`` shards. On
+      the card that is K4 across processes: each member's rows sit in one
+      exchange buffer (``cudaMalloc``, exported once over CUDA IPC and
+      mapped once by every peer), and K4 reads every shard's row through
+      its pointer table, its own rows from its buffer and the peers' from
+      theirs (``cuda_kernels.ring_all_reduce_sum_rows``). On the CPU the
+      rows are gathered and reduced by the plain version, bitwise the one
+      process's plain ring.
+    - ``ring-rsag``: the rows gathered, then the plain reduce-scatter +
+      all-gather (``ring_all_reduce_sum_rsag``), this member's rows kept.
+
+    A round calls ``stage`` (device: the payload into the static send
+    buffer), ``host`` (host: for K4 a stream synchronise and a barrier, so
+    that every member's rows are written before anyone reads them; else
+    the gather, staged through the host under gloo), ``reduce`` (device:
+    the result) and ``after`` (host: for K4 the second synchronise and
+    barrier, so that every peer has read the rows before anyone
+    overwrites them). ``stage`` and ``reduce`` may be captured in CUDA
+    graphs; ``host`` and ``after`` never are. A failed IPC open raises:
+    K4 never gives way to its plain version."""
+
+    def __init__(self, kind: str, gang, mesh, width: int,
+                 device: torch.device):
+        if kind not in ("psum", "ring", "ring-rsag"):
+            raise ValueError(f"unknown aggregation kind: {kind!r}")
+        self.kind, self.gang, self.width = kind, gang, int(width)
+        self.device = device
+        self.lo = mesh.first_shard
+        self.hi = mesh.first_shard + mesh.local_shards
+        shape = ((self.width,) if kind == "psum"
+                 else (mesh.local_shards, self.width))
+        self.ipc = kind == "ring" and device.type == "cuda"
+        self._own_ptr, self._peer_ptrs = None, []
+        if self.ipc:
+            self._own_ptr, handle = cuda_kernels.ipc_alloc(
+                4 * math.prod(shape), device)
+            self.send = cuda_kernels.device_view(self._own_ptr, shape,
+                                                 device)
+            handles = gang.all_gather_object(handle)
+            self.blocks = []
+            for i, h in enumerate(handles):
+                if i == gang.process_index:
+                    self.blocks.append(self.send)
+                    continue
+                ptr = cuda_kernels.ipc_open(h, device)
+                self._peer_ptrs.append(ptr)
+                self.blocks.append(cuda_kernels.device_view(ptr, shape,
+                                                            device))
+        else:
+            self.send = torch.zeros(shape, dtype=torch.float32,
+                                    device=device)
+            self.stack = torch.zeros((gang.process_count,) + shape,
+                                     dtype=torch.float32, device=device)
+
+    def stage(self, payload: torch.Tensor) -> None:
+        self.send.copy_(payload)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.gang.barrier()
+
+    def host(self) -> None:
+        if self.ipc:
+            self._sync()
+        else:
+            self.stack.copy_(self.gang.all_gather(self.send))
+
+    def reduce(self) -> torch.Tensor:
+        if self.ipc:
+            return cuda_kernels.ring_all_reduce_sum_rows(self.blocks,
+                                                         self.lo, self.hi)
+        if self.kind == "psum":
+            acc = self.stack[0]
+            for i in range(1, self.gang.process_count):
+                acc = acc + self.stack[i]
+            return acc
+        full = self.stack.reshape(-1, self.width)
+        if self.kind == "ring":
+            return cuda_kernels.ring_all_reduce_sum_rows([full], self.lo,
+                                                         self.hi)
+        return ring_all_reduce_sum_rsag(full)[self.lo:self.hi]
+
+    def after(self) -> None:
+        if self.ipc:
+            self._sync()
+
+    def close(self) -> None:
+        """Unmap the peers' buffers and free this member's, after a
+        barrier (no peer still reads it). Idempotent."""
+        if not self.ipc or self._own_ptr is None:
+            return
+        self._sync()
+        self.blocks = []
+        self.send = None
+        for ptr in self._peer_ptrs:
+            cuda_kernels.ipc_close(ptr, self.device)
+        self._peer_ptrs = []
+        cuda_kernels.ipc_free(self._own_ptr, self.device)
+        self._own_ptr = None

@@ -82,7 +82,8 @@ import torch
 from fedtpu_torch.models.registry import as_model
 from fedtpu_torch.ops.cuda_kernels import (count_replay, fused_mlp_forward,
                                            recording_launches,
-                                           weighted_average_clients)
+                                           weighted_average_clients,
+                                           weighted_sum_clients)
 from fedtpu_torch.ops.metrics import confusion_matrix, metrics_from_confusion
 from fedtpu_torch.ops.optim import Optimizer
 from fedtpu_torch.ops.server_opt import (ServerOptimizer, clip_by_global_norm,
@@ -217,6 +218,19 @@ def participation_mask(num_clients: int, rate: float, seed: int,
     return (torch.rand(num_clients, generator=gen) < rate).to(torch.float32)
 
 
+def draw_participation(num_clients: int, rate: float, seed: int,
+                       masks: Optional[Callable], first_round: int,
+                       count: int) -> torch.Tensor:
+    """The ``(count, C)`` participation masks of rounds ``first_round..``:
+    ``masks(round)``'s (e.g. ``fedtpu``'s own draws) when given, else
+    ``participation_mask``'s."""
+    def one(r):
+        if masks is not None:
+            return torch.as_tensor(np.array(masks(r), dtype=np.float32))
+        return participation_mask(num_clients, rate, seed, r)
+    return torch.stack([one(first_round + j) for j in range(count)])
+
+
 # The state's float tensors besides params and the optimizer state, in the
 # order the capture copies them back (fedtpu's state_poisoned covers the
 # same entries).
@@ -291,6 +305,24 @@ class RoundStep:
         return tuple(None if w is None else
                      torch.zeros((self.rounds, w), dtype=torch.float32,
                                  device=params.device) for w in widths)
+
+
+def check_gang_knobs(server_opt, dp_clip_norm, dp_noise_multiplier,
+                     compress, robust_aggregation, byzantine_clients,
+                     scaffold) -> None:
+    """A training gang runs plain FedAvg: the other aggregation branches
+    raise, naming the item that brings them to a gang."""
+    branches = [name for name, on in (
+        ("a server optimizer", server_opt is not None),
+        ("central DP", dp_clip_norm > 0 or dp_noise_multiplier > 0),
+        ("the int8 exchange", compress != "none"),
+        ("a robust rule", robust_aggregation != "none"),
+        ("Byzantine injection", byzantine_clients > 0),
+        ("SCAFFOLD", scaffold)) if on]
+    if branches:
+        from fedtpu_torch.config import _not_ported
+        _not_ported(f"{', '.join(branches)} in a training gang (plain "
+                    "FedAvg runs across processes)", "A10b")
 
 
 def check_knobs(weighting, participation_rate, aggregation, server_opt,
@@ -536,12 +568,39 @@ def broadcast_global(g: torch.Tensor, num_clients: int,
 
 def check_ring_devices(aggregation: str, mesh: ClientMesh,
                        device: torch.device) -> None:
-    """The ring backends reduce over shards on ``device`` only."""
+    """The ring backends reduce over a process's shards on ``device`` only
+    (a gang's members each hold theirs on their own device)."""
     if aggregation != "psum" and any(d != device for d in mesh.devices):
         raise NotImplementedError(
-            "a ring over shards on several devices is not ported to "
-            "fedtpu_torch yet (ROADMAP A10): it needs the ring kernel over "
-            "peer-mapped buffers")
+            "a ring over one process's shards on several devices is not "
+            "ported to fedtpu_torch yet (ROADMAP A10c): it needs K4 across "
+            "cards over NVLink")
+
+
+def shard_partials(w: torch.Tensor, params: torch.Tensor, shards: int,
+                   cb: int) -> torch.Tensor:
+    """Each of ``shards`` shards' weighted partial sum ``sum_{i in shard}
+    w_i p_i`` of the float32 ``params (shards * cb, D)`` with its weight
+    total appended, ``(shards, D + 1)``."""
+    d = params.shape[1]
+    partial = torch.bmm(w.view(shards, 1, cb),
+                        params.view(shards, cb, d)).view(shards, d)
+    total = w.view(shards, cb).sum(dim=1, keepdim=True)
+    return torch.cat((partial, total), dim=1)
+
+
+def shard_globals(acc: torch.Tensor, params: torch.Tensor, shards: int,
+                  cb: int, slot_dtype: torch.dtype) -> torch.Tensor:
+    """The ring's ``(shards, D + 1)`` reduced partials into the slots: each
+    shard's sum over its own total, cast to the slots' dtype, in every slot
+    of its ``cb`` clients, or the shard's ``params`` carried over where its
+    total is 0 (no participant)."""
+    d = params.shape[1]
+    tot = acc[:, d:]
+    glob = (acc[:, :d] / tot.clamp_min(1.0)).to(slot_dtype)
+    return torch.where(tot[:, :, None] > 0, glob[:, None, :],
+                       params.view(shards, cb, d).to(slot_dtype)
+                       ).reshape(shards * cb, d)
 
 
 def make_average(aggregation: str, mesh: ClientMesh, slot_dtype: torch.dtype,
@@ -564,17 +623,9 @@ def make_average(aggregation: str, mesh: ClientMesh, slot_dtype: torch.dtype,
             **({"out_dtype": slot_dtype} if wide_agg else {}))
 
     def ring_average(params, w):
-        d = params.shape[1]
-        blocks = params.view(shards, cb, d)
-        partial = torch.bmm(w.view(shards, 1, cb),
-                            blocks.to(torch.float32)).view(shards, d)
-        total = w.view(shards, cb).sum(dim=1, keepdim=True)
-        acc = all_reduce(torch.cat((partial, total), dim=1))
-        tot = acc[:, d:]
-        glob = (acc[:, :d] / tot.clamp_min(1.0)).to(slot_dtype)
-        # Zero participants in the round: params carry over unchanged.
-        return torch.where(tot[:, :, None] > 0, glob[:, None, :],
-                           blocks.to(slot_dtype)).reshape(shards * cb, d)
+        acc = all_reduce(shard_partials(w, params.to(torch.float32), shards,
+                                        cb))
+        return shard_globals(acc, params, shards, cb, slot_dtype)
 
     return psum_average if aggregation == "psum" else ring_average
 
@@ -619,7 +670,8 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
                    trim_ratio: float = 0.1,
                    krum_f: int = 0,
                    byzantine_clients: int = 0,
-                   scaffold: bool = False) -> RoundStep:
+                   scaffold: bool = False,
+                   exchange=None) -> RoundStep:
     """Returns ``round_step(state, batch, masks=None, noise=None) -> (state,
     raw)`` running ``rounds_per_step`` rounds of ``model`` (a
     ``registry.FlatModel``, or the float32 MLP's widths); ``raw`` holds the
@@ -648,7 +700,12 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
     the delta noise in the flat layout, then the count noise; without it
     the step draws them on the host (``draw_noise``: ``unit_normals`` of
     ``(dp_seed, stream, round)``, or ``dp_noise(round) -> (D + 1,)``, e.g.
-    ``fedtpu``'s own draws, when given)."""
+    ``fedtpu``'s own draws, when given).
+
+    A ``mesh`` of a training gang (``mesh.num_processes > 1``) builds the
+    member's round (``build_gang_round_fn``) over its ``client_weights``,
+    exchanging through ``exchange`` (``ring.GangExchange``); only plain
+    FedAvg runs in a gang."""
     if not 0.0 < participation_rate <= 1.0:
         raise ValueError(f"participation_rate must be in (0, 1], got "
                          f"{participation_rate}")
@@ -656,6 +713,20 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
     dev = client_weights.device
     if mesh is None:
         mesh = ClientMesh(1, num_clients, (dev,))
+    if mesh.num_processes > 1:
+        check_knobs(weighting, participation_rate, aggregation, server_opt,
+                    dp_clip_norm, dp_noise_multiplier, dp_adaptive_clip,
+                    dp_target_quantile, dp_clip_lr,
+                    dp_count_noise_multiplier, compress, robust_aggregation,
+                    trim_ratio, krum_f, byzantine_clients, scaffold)
+        check_gang_knobs(server_opt, dp_clip_norm, dp_noise_multiplier,
+                         compress, robust_aggregation, byzantine_clients,
+                         scaffold)
+        check_ring_devices(aggregation, mesh, dev)
+        return build_gang_round_fn(
+            model, tx, num_classes, client_weights, exchange, mesh,
+            rounds_per_step, aggregation, participation_rate,
+            participation_seed, participation_masks, local_steps, prox_mu)
     if mesh.num_shards * mesh.clients_per_shard != num_clients:
         raise ValueError(f"a mesh of {mesh.num_shards} x "
                          f"{mesh.clients_per_shard} clients for "
@@ -699,13 +770,9 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
            < byzantine_clients)[:, None]
 
     def draw_masks(first_round: int, count: int) -> torch.Tensor:
-        def one(r):
-            if participation_masks is not None:
-                return torch.as_tensor(np.array(participation_masks(r),
-                                                dtype=np.float32))
-            return participation_mask(num_clients, participation_rate,
-                                      participation_seed, r)
-        return torch.stack([one(first_round + j) for j in range(count)])
+        return draw_participation(num_clients, participation_rate,
+                                  participation_seed, participation_masks,
+                                  first_round, count)
 
     def draw_noise(first_round: int, count: int) -> torch.Tensor:
         def one(r):
@@ -969,6 +1036,222 @@ def capture_round_step(step: RoundStep, state: dict,
         compile_event("graph_capture", time.perf_counter() - t0)
     return CapturedRounds(graph, state, inputs, out, dict(launches),
                           step.rounds)
+
+
+# ------------------------------------------------------------ training gang
+class GangStep:
+    """``rounds`` rounds of one member of a training gang
+    (``fedtpu_torch.parallel.multihost``), each in two pieces around the
+    exchange of the round's payload (``ring.GangExchange``):
+    ``pre(state, batch, *round_inputs) -> (carry, payload, outs)`` (train,
+    in-round eval, the partial sums) and ``post(state, carry, reduced,
+    *round_inputs) -> state`` (the divide and the broadcast into the
+    member's slots). A gloo collective and a host barrier cannot sit inside
+    a CUDA graph, so on the card ``capture_gang_step`` captures each piece
+    as its own graph and a round replays piece 1, runs the exchange's host
+    part, then replays piece 2. ``fn`` runs the same rounds uncaptured. The
+    host loop takes it as it takes a ``RoundStep`` (``input_buffers``,
+    ``state_tensors``, ``outputs``, ``pack``); its inputs are the member's
+    columns of the chunk's masks or arrivals."""
+
+    def __init__(self, rounds: int, pre: Callable, post: Callable,
+                 exchange, round_buffers: Callable, load_round: Callable,
+                 chunk_buffers: Callable, state_tensors: Callable,
+                 outputs: tuple, draw_masks: Optional[Callable] = None,
+                 draw_arrivals: Optional[Callable] = None):
+        self.rounds, self.pre, self.post = rounds, pre, post
+        self.exchange = exchange
+        self.round_buffers, self.load_round = round_buffers, load_round
+        self.input_buffers = chunk_buffers
+        self.state_tensors = state_tensors
+        self.outputs = outputs
+        self.draw_masks, self.draw_arrivals = draw_masks, draw_arrivals
+        self.draw_noise = None
+        self.out_keys = ("loss", "conf") + outputs[0] + outputs[1]
+
+    def pack(self, raw: dict):
+        return pack_outputs(raw, *self.outputs)
+
+    def fn(self, state: dict, batch: dict, a=None, b=None):
+        """The chunk uncaptured: ``(state, raw)`` as a ``RoundStep``'s."""
+        bufs = self.round_buffers(state)
+        start = state["round"]
+        outs = {k: [] for k in self.out_keys}
+        for j in range(self.rounds):
+            self.load_round(state, bufs, j, a, b)
+            carry, payload, o = self.pre(state, batch, *bufs)
+            self.exchange.stage(payload)
+            self.exchange.host()
+            state = self.post(state, carry, self.exchange.reduce(), *bufs)
+            self.exchange.after()
+            for k in self.out_keys:
+                outs[k].append(o[k].clone())
+        raw = {k: torch.stack(v) for k, v in outs.items()}
+        raw["finite"] = tensors_finite(self.state_tensors(state))
+        return {**state, "round": start + self.rounds}, raw
+
+
+class CapturedGang:
+    """A gang chunk on the card (``capture_gang_step``): per round, piece
+    1's graph, the exchange's host part, piece 2's graph and the second
+    host part; the state lives in the static tensors of ``state``, as in
+    ``CapturedRounds``. ``__call__(*inputs)`` takes the chunk's inputs
+    (masks or arrivals, the first tick) and returns its packed outputs.
+    ``launches`` holds the kernel launches a chunk makes."""
+
+    def __init__(self, step: GangStep, graphs: tuple, bufs: tuple,
+                 outs: dict, finite: torch.Tensor, piece_launches: tuple):
+        self.step, self.graphs, self.bufs = step, graphs, bufs
+        self.outs, self.finite = outs, finite
+        self.piece_launches = piece_launches
+        self.rounds = step.rounds
+        self.chunk = {k: torch.empty((step.rounds,) + tuple(v.shape),
+                                     dtype=v.dtype, device=v.device)
+                      for k, v in outs.items()}
+        self.launches = {k: step.rounds * sum(p.get(k, 0)
+                                              for p in piece_launches)
+                         for k in set().union(*piece_launches)}
+
+    def __call__(self, a=None, b=None) -> torch.Tensor:
+        ex = self.step.exchange
+        for j in range(self.rounds):
+            self.step.load_round(None, self.bufs, j, a, b)
+            self.graphs[0].replay()
+            count_replay(self.piece_launches[0])
+            ex.host()
+            self.graphs[1].replay()
+            count_replay(self.piece_launches[1])
+            ex.after()
+            for k, v in self.outs.items():
+                self.chunk[k][j].copy_(v)
+        return self.step.pack({**self.chunk, "finite": self.finite})
+
+
+def capture_gang_step(step: GangStep, state: dict,
+                      batch: dict) -> CapturedGang:
+    """``capture_round_step`` for a gang: the two pieces of one round, each
+    its own CUDA graph, over the static tensors of ``state`` (piece 2 ends
+    by copying the new state into them). Call ``warm_up_round`` first."""
+    from fedtpu_torch.telemetry.metrics import compile_event
+    _needs_the_card(state)
+    bufs = step.round_buffers(state)
+    pre_graph, post_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with CAPTURE_LOCK:
+        t0 = time.perf_counter()
+        with recording_launches() as pre_launches:
+            with torch.cuda.graph(pre_graph,
+                                  capture_error_mode="thread_local"):
+                carry, payload, outs = step.pre(state, batch, *bufs)
+                step.exchange.stage(payload)
+        with recording_launches() as post_launches:
+            with torch.cuda.graph(post_graph,
+                                  capture_error_mode="thread_local"):
+                new_state = step.post(state, carry, step.exchange.reduce(),
+                                      *bufs)
+                for dst, src in zip(step.state_tensors(state),
+                                    step.state_tensors(new_state)):
+                    dst.copy_(src)
+                finite = tensors_finite(step.state_tensors(state))
+        compile_event("graph_capture", time.perf_counter() - t0)
+    return CapturedGang(step, (pre_graph, post_graph), bufs,
+                        {k: outs[k] for k in step.out_keys}, finite,
+                        (dict(pre_launches), dict(post_launches)))
+
+
+def build_gang_round_fn(model, tx: Optimizer, num_classes: int,
+                        client_weights: torch.Tensor, exchange,
+                        mesh: ClientMesh, rounds_per_step: int = 1,
+                        aggregation: str = "psum",
+                        participation_rate: float = 1.0,
+                        participation_seed: int = 0,
+                        participation_masks: Optional[Callable] = None,
+                        local_steps: int = 1,
+                        prox_mu: float = 0.0) -> GangStep:
+    """The synchronous FedAvg round of one member of a training gang, a
+    ``GangStep`` over the member's ``client_weights (C_local,)`` (its block
+    of ``mesh``):
+
+    - ``psum``: K1's sum mode over the member's trained params gives the
+      ``(D,)`` partial sum, with the member's weight total appended; the
+      exchange sums the members' ``(D + 1,)`` in member order; every slot
+      takes the sum over the total, or keeps its trained params when the
+      total is 0 (as K1's broadcast mode does). Its add order is not one
+      process's K1 broadcast: float32 tolerance.
+    - ``ring`` / ``ring-rsag``: each of the member's shards' partial sum
+      and total as in ``make_average``; the exchange all-reduces them over
+      every shard of the gang (K4 across processes on the card); each shard
+      divides by its own total. The reduction is bitwise one process's on
+      the same rows (K4 folds in the same order); the member trains its
+      clients as one batch of ``C_local``, and on the card a batched
+      GEMM's bits can depend on its batch count: float32 tolerance there.
+
+    The participation masks are drawn for all ``C`` clients, as in one
+    process, and the member takes its columns."""
+    model = as_model(model)
+    slot_dtype = model.param_dtype
+    c_local = client_weights.shape[0]
+    if c_local != mesh.local_clients:
+        raise ValueError(f"{c_local} client weights for a member of "
+                         f"{mesh.local_clients} clients")
+    num_clients = mesh.num_shards * mesh.clients_per_shard
+    cols = slice(mesh.first_shard * mesh.clients_per_shard,
+                 mesh.first_shard * mesh.clients_per_shard + c_local)
+    sampling = participation_rate < 1.0 or participation_masks is not None
+    shards, cb = mesh.local_shards, mesh.clients_per_shard
+    local_train = make_local_train_step(model, tx, local_steps, prox_mu)
+    local_eval = make_local_eval_step(model, num_classes)
+    dev = client_weights.device
+
+    def draw_masks(first_round: int, count: int) -> torch.Tensor:
+        # The gang's masks, as one process draws them; the member's columns.
+        return draw_participation(num_clients, participation_rate,
+                                  participation_seed, participation_masks,
+                                  first_round, count)[:, cols]
+
+    def pre(state, batch, part):
+        params, opt_state, loss = local_train(
+            state["params"], state["opt_state"], batch["x"], batch["y"],
+            batch["mask"], part)
+        conf = local_eval(params, batch["x"], batch["y"], batch["mask"])
+        w = client_weights * part if sampling else client_weights
+        wide = params.to(torch.float32)
+        if aggregation == "psum":
+            payload = torch.cat((weighted_sum_clients(wide, w),
+                                 w.sum().reshape(1)))
+        else:
+            payload = shard_partials(w, wide, shards, cb)
+        return ({"params": params, "opt_state": opt_state}, payload,
+                {"loss": loss, "conf": conf})
+
+    def post(state, carry, acc, part):
+        trained = carry["params"]
+        d = trained.shape[1]
+        if aggregation == "psum":
+            tot = acc[d]
+            glob = (acc[:d] / tot.clamp_min(1.0)).to(slot_dtype)
+            params = torch.where(tot > 0, glob.expand(c_local, -1),
+                                 trained.to(slot_dtype))
+        else:
+            params = shard_globals(acc, trained, shards, cb, slot_dtype)
+        return {"params": params, "opt_state": carry["opt_state"],
+                "round": state["round"]}
+
+    def round_buffers(state):
+        return (torch.zeros(c_local, dtype=torch.float32, device=dev)
+                if sampling else None,)
+
+    def load_round(state, bufs, j, masks, noise):
+        if sampling:
+            bufs[0].copy_(masks[j] if masks is not None else
+                          draw_masks(state["round"] + j, 1)[0])
+
+    def chunk_buffers(state):
+        return (torch.zeros((rounds_per_step, c_local), dtype=torch.float32,
+                            device=dev) if sampling else None, None)
+
+    return GangStep(rounds_per_step, pre, post, exchange, round_buffers,
+                    load_round, chunk_buffers, _state_tensors, ((), ()),
+                    draw_masks=draw_masks if sampling else None)
 
 
 def masked_client_mean(per_client: dict, mask: torch.Tensor) -> dict:

@@ -17,12 +17,11 @@ restart and divergence rollback (``fedtpu.resilience``).
   deterministic in-process two-gateway gang, judged by the oracles,
   failures ddmin-shrunk to reproducers; the committed corpus gate.
 * ``netfaults`` / ``net_sim`` — the wire-fault plan and its deterministic
-  replay; ``distributed`` — the gang's identity variables and the
-  heartbeat path rule.
+  replay; ``distributed`` — the gang's identity variables, the heartbeat
+  path rule, the collective watchdog and the checkpoint agreement of a
+  training gang (``run`` under ``supervise --num-processes N``).
 
-Not ported yet: a training gang (``run`` under ``supervise
---num-processes N``), the collective watchdog and the checkpoint
-agreement (ROADMAP A10).
+Not ported yet: the elastic reshard's protocol (ROADMAP A10b).
 """
 
 from fedtpu_torch.resilience.distributed import heartbeat_path_for

@@ -69,10 +69,30 @@ duplicate drops > 0, backlog drained, ZERO gang restarts, SLO burn under
 ``NET_BURN_BUDGET``, and the whole pass runs twice with byte-identical
 proxy decision logs.
 
-The registry holds every row of ``fedtpu``'s matrix; the training-gang,
-elastic-reshard and autoscale rows (``mp``, ``reshard``, ``autoscale``)
-raise when asked for, naming ROADMAP A10 (they need a ``torch.distributed``
-training gang). With no ``scenarios`` every row the port runs runs.
+The TRAINING-GANG rows run the same job as a gang of ``MP_PROCESSES``
+``run`` processes (``MP_SHARDS_PER_PROC`` shards each, one
+``torch.distributed`` process group: gloo on the CPU and between members
+sharing one card) under ``supervise --num-processes``, against an
+uninterrupted gang baseline launched the same way, each member's watchdog
+at ``MP_COLLECTIVE_TIMEOUT``:
+
+  mp_kill_worker       SIGKILL process 1 mid-round; the gang supervisor
+                       tears down the survivor and relaunches the gang
+                       with --resume. History bitwise == gang baseline,
+                       every member resumed at the same round.
+  mp_kill_coordinator  Same, but process 0 (the rendezvous host) dies; the
+                       relaunch binds a fresh coordinator port. Same bar.
+  mp_hang              Process 1 wedges before a round, so process 0's
+                       exchange stalls; its watchdog turns the hang into
+                       exit 75 (a ``collective_hang`` event) and the gang
+                       restarts. Same bar.
+  mp_preempt           SIGTERM to every process: each drains the collective
+                       checkpoint at the same round, exits 75, and the gang
+                       resumes without backoff. Same bar.
+
+The registry holds every row of ``fedtpu``'s matrix; the elastic-reshard
+and autoscale rows (``reshard``, ``autoscale``) raise when asked for,
+naming ROADMAP A10b. With no ``scenarios`` every row the port runs runs.
 
 "History" is the ``--metrics-jsonl`` per-round record with timing
 stripped. Restarted and rolled-back runs append re-executed rounds to the
@@ -160,7 +180,7 @@ SCENARIOS = tuple(n for n, _, _ in SCENARIO_REGISTRY)
 # One process each (under the single supervisor).
 SINGLE_PROCESS_SCENARIOS = tuple(n for n, fams, _ in SCENARIO_REGISTRY
                                  if not fams)
-# The training-gang rows: 2-process SPMD gangs (ROADMAP A10).
+# The training-gang rows: 2-process gangs; the reshard subset is A10b.
 MP_SCENARIOS = _family("mp")
 RESHARD_SCENARIOS = _family("reshard")
 AUTOSCALE_SCENARIO = _family("autoscale")[0]
@@ -192,12 +212,22 @@ POISON_FRAC = 0.2
 POISON_SCALE = 10.0
 POISON_ACCURACY_TOL = 0.01
 POISON_DEGRADE_MIN = 0.05
+# The gang rows' shape (fedtpu's constants): processes, and shards a
+# process (fedtpu's virtual devices a process, the port's
+# FEDTPU_SHARDS_PER_PROCESS); the watchdog budget, far above a healthy
+# blocking window, far below the row's timeout.
+MP_PROCESSES = 2
+MP_SHARDS_PER_PROC = 2
+MP_COLLECTIVE_TIMEOUT = 12.0
+# The training-gang rows the port runs (not the reshard subset).
+GANG_SCENARIOS = tuple(n for n in MP_SCENARIOS
+                       if n not in RESHARD_SCENARIOS)
 # The fleet rows: each carries its own baseline inside the scenario.
 FLEET_SCENARIOS = GATEWAY_SCENARIOS + (POISON_SCENARIO,) + NET_SCENARIOS
 # The rows the port runs, in the registry's order (the default matrix).
 PORTED_SCENARIOS = tuple(n for n in SCENARIOS
                          if n in SINGLE_PROCESS_SCENARIOS
-                         or n in FLEET_SCENARIOS)
+                         or n in GANG_SCENARIOS or n in FLEET_SCENARIOS)
 
 # Metric-history fields compared across runs (sec_per_round is wall
 # clock — the one thing faults are ALLOWED to change).
@@ -205,10 +235,10 @@ _HIST_KEYS = ("client_mean", "pooled", "loss_mean")
 
 
 def _not_ported_row(name: str) -> None:
-    """Raise for a row the port does not run yet (a training-gang row),
-    naming its item."""
+    """Raise for a row the port does not run yet (an elastic-reshard or
+    autoscale row), naming its item."""
     from fedtpu_torch.config import _not_ported
-    _not_ported(f"chaos scenario {name!r}", "A10")
+    _not_ported(f"chaos scenario {name!r}", "A10b")
 
 
 def _fault_round(rounds: int) -> int:
@@ -229,6 +259,15 @@ def _plan(rounds: int, kind: str) -> str:
         "dropout": [{"kind": "client_dropout", "round": k, "clients": [1]}],
         "straggler": [{"kind": "straggler", "round": k, "clients": [0],
                        "delay_s": 0.25}],
+        "mp_kill_worker": [{"kind": "process_kill", "round": k,
+                            "signal": "SIGKILL", "process_index": 1}],
+        "mp_kill_coordinator": [{"kind": "process_kill", "round": k,
+                                 "signal": "SIGKILL", "process_index": 0}],
+        "mp_hang": [{"kind": "collective_hang", "round": k,
+                     "process_index": 1}],
+        # process_index -1 = every process: the whole-slice preemption.
+        "mp_preempt": [{"kind": "process_kill", "round": k,
+                        "signal": "SIGTERM", "process_index": -1}],
     }[kind]
     return json.dumps({"seed": 0, "faults": faults})
 
@@ -264,6 +303,53 @@ def _history(path: str) -> dict:
                 continue                      # torn final line from a kill
             out[rec["round"]] = {k: rec[k] for k in _HIST_KEYS if k in rec}
     return out
+
+
+def _mp_env() -> dict:
+    """The gang children's environment: each lays ``MP_SHARDS_PER_PROC``
+    shards over its device (the supervisor forwards it to every
+    member)."""
+    from fedtpu_torch.parallel.mesh import ENV_SHARDS_PER_PROCESS
+    return dict(os.environ,
+                **{ENV_SHARDS_PER_PROCESS: str(MP_SHARDS_PER_PROC)})
+
+
+def _gang_argv(run_args: List[str], max_restarts: int,
+               events: Optional[str] = None) -> List[str]:
+    return (["supervise", "--num-processes", str(MP_PROCESSES),
+             "--max-restarts", str(max_restarts), "--grace", "10"]
+            + (["--events", events] if events else []) + ["--", *run_args])
+
+
+def _member_resumes(events_path: str) -> List[List[int]]:
+    """Each member's resume rounds, in order (process 0's sink, then the
+    peers' ``.p<i>``): a gang that restored together lists the same
+    rounds for every member."""
+    from fedtpu_torch.telemetry.report import load_events
+    out = []
+    for i in range(MP_PROCESSES):
+        path = events_path if i == 0 else f"{events_path}.p{i}"
+        events, _ = load_events(path) if os.path.exists(path) else ([], 0)
+        out.append([e.get("round") for e in events
+                    if e.get("kind") == "resume"
+                    and e.get("role") == "run"])
+    return out
+
+
+def _gang_restart_seconds(events_path: str) -> Optional[float]:
+    """The gang's restart, wall seconds: from the supervisor's relaunch
+    (its last ``gang_restart`` event's ``wall``) to the relaunched
+    process 0's resume (its ``resume`` event's ``wall``); None without a
+    restart."""
+    from fedtpu_torch.telemetry.report import load_events
+    events, _ = load_events(events_path)
+    walls = [e["payload"].get("wall") for e in events
+             if e["kind"] == "gang_restart"]
+    resumed = [e["payload"].get("wall") for e in events
+               if e["kind"] == "resume" and e.get("role") == "run"]
+    if not walls or walls[-1] is None or not resumed or resumed[-1] is None:
+        return None
+    return resumed[-1] - walls[-1]
 
 
 def _resilience(events_path: str) -> dict:
@@ -881,26 +967,33 @@ def run_scenario(name: str, workdir: str, baseline: dict, rounds: int,
         return _run_poison_campaign(workdir, platform, timeout)
     if name == "mp_store_shard_kill":
         return _run_store_shard_kill(workdir, platform, timeout)
-    if name not in SINGLE_PROCESS_SCENARIOS:
+    if name not in SINGLE_PROCESS_SCENARIOS and name not in GANG_SCENARIOS:
         _not_ported_row(name)
+    gang = name in GANG_SCENARIOS
     ck = os.path.join(workdir, f"{name}.ck")
+    events = os.path.join(workdir, f"{name}.events.jsonl")
     run_args = _run_args(workdir, name, rounds, num_clients, platform,
                          hidden_sizes, synthetic_rows)
     run_args += ["--fault-plan", _plan(rounds, name),
                  "--checkpoint-dir", ck, "--checkpoint-every", "2"]
     if name == "nan_rollback":
         run_args += ["--on-divergence", "rollback", "--rollback-retries", "2"]
-    if name in ("sigkill", "preempt"):
-        argv = ["supervise", "--max-restarts", "2", "--events",
-                os.path.join(workdir, f"{name}.events.jsonl"),
+    if gang:
+        # Every gang row carries the watchdog: a hang anywhere becomes a
+        # restart, never a hung row (mp_hang depends on it).
+        run_args += ["--collective-timeout", str(MP_COLLECTIVE_TIMEOUT)]
+        argv = _gang_argv(run_args, 2, events)
+    elif name in ("sigkill", "preempt"):
+        argv = ["supervise", "--max-restarts", "2", "--events", events,
                 "--", *run_args]
     else:
         argv = run_args
     out = subprocess.run([sys.executable, "-m", "fedtpu_torch.cli", *argv],
-                         capture_output=True, text=True, timeout=timeout)
+                         capture_output=True, text=True, timeout=timeout,
+                         env=_mp_env() if gang else None)
 
     hist = _history(os.path.join(workdir, f"{name}.metrics.jsonl"))
-    res = _resilience(os.path.join(workdir, f"{name}.events.jsonl"))
+    res = _resilience(events)
     k = _fault_round(rounds)
     if name == "dropout":
         # The dropped round must CHANGE the aggregate at the fault round,
@@ -923,10 +1016,21 @@ def run_scenario(name: str, workdir: str, baseline: dict, rounds: int,
         "reshard_failures": len(res.get("reshard_failures") or []),
         "oracles": [hist_verdict.as_dict()],
     }
+    if gang:
+        # No split-brain restore: every member resumed the same rounds.
+        resumes = _member_resumes(events)
+        row["member_resumes"] = resumes
+        row["restart_s"] = _gang_restart_seconds(events)
+        row["resumed_together"] = (all(r == resumes[0] for r in resumes)
+                                   and bool(resumes[0]))
     row["ok"] = (row["survived"] and row["history_match"]
                  and row["faults"] >= 1
                  and (row["restarts"] >= 1
                       if name in ("sigkill", "preempt") else True)
+                 and (row["gang_restarts"] >= 1
+                      and row["resumed_together"] if gang else True)
+                 and (row["collective_hangs"] >= 1
+                      if name == "mp_hang" else True)
                  and (row["rollbacks"] >= 1
                       if name == "nan_rollback" else True))
     if not row["ok"]:
@@ -935,8 +1039,12 @@ def run_scenario(name: str, workdir: str, baseline: dict, rounds: int,
 
 
 def _detail(row: dict) -> str:
-    """A fleet row's own numbers for its verbose line (fedtpu's)."""
+    """A gang or fleet row's own numbers for its verbose line
+    (fedtpu's)."""
     name = row["scenario"]
+    if name in GANG_SCENARIOS:
+        return (f" gang_restarts={row['gang_restarts']} "
+                f"collective_hangs={row['collective_hangs']}")
     if name == "mp_gateway_kill":
         return (f" gang_restarts={row['gang_restarts']} "
                 f"retried={row['retried']} "
@@ -991,7 +1099,7 @@ def run_chaos(scenarios: Optional[Sequence[str]] = None, rounds: int = 10,
     os.makedirs(wd, exist_ok=True)
     try:
         baseline: dict = {}
-        if any(n not in FLEET_SCENARIOS for n in names):
+        if any(n in SINGLE_PROCESS_SCENARIOS for n in names):
             # The fleet rows carry their own baselines inside the
             # scenario; only training rows need the uninterrupted run.
             if verbose:
@@ -1008,12 +1116,40 @@ def run_chaos(scenarios: Optional[Sequence[str]] = None, rounds: int = 10,
                         "stderr_tail": (base.stderr or "")[-2000:],
                         "scenarios": [], "workdir": wd}
             baseline = _history(os.path.join(wd, "baseline.metrics.jsonl"))
+        mp_baseline: dict = {}
+        if any(n in GANG_SCENARIOS for n in names):
+            shards = MP_PROCESSES * MP_SHARDS_PER_PROC
+            if num_clients % shards:
+                raise ValueError(
+                    f"gang scenarios need --num-clients divisible by "
+                    f"{shards} ({MP_PROCESSES} processes x "
+                    f"{MP_SHARDS_PER_PROC} shards); got {num_clients}")
+            if verbose:
+                print(f"[chaos] gang baseline ({MP_PROCESSES} processes) "
+                      f"in {wd}", flush=True)
+            # The uninterrupted gang through the rows' own launch path
+            # (max_restarts 0: a baseline may not retry).
+            base = subprocess.run(
+                [sys.executable, "-m", "fedtpu_torch.cli", *_gang_argv(
+                    _run_args(wd, "mp_baseline", rounds, num_clients,
+                              platform, hidden_sizes, synthetic_rows), 0)],
+                capture_output=True, text=True, timeout=timeout,
+                env=_mp_env())
+            if base.returncode != 0:
+                return {"ok": False, "error": "gang baseline run failed",
+                        "rc": base.returncode,
+                        "stderr_tail": (base.stderr or "")[-2000:],
+                        "scenarios": [], "workdir": wd}
+            mp_baseline = _history(os.path.join(wd,
+                                                "mp_baseline.metrics.jsonl"))
         rows = []
         for name in names:
             if verbose:
                 print(f"[chaos] scenario {name} ...", flush=True)
             t0 = time.monotonic()
-            row = run_scenario(name, wd, baseline, rounds, num_clients,
+            row = run_scenario(name, wd,
+                               mp_baseline if name in GANG_SCENARIOS
+                               else baseline, rounds, num_clients,
                                platform, timeout, hidden_sizes,
                                synthetic_rows)
             row["seconds"] = time.monotonic() - t0

@@ -42,11 +42,13 @@ The kinds, on the port's flat state (``params (C, D)``):
 * ``ckpt_corrupt`` — truncate and stomp the latest complete checkpoint's
   state file (one ``torch.save`` archive), caught only by the restore's
   fallback walk.
-* ``collective_hang`` — this process sleeps ``delay_s`` (default: about
-  forever) before the round, as fedtpu's does in one process.
+* ``collective_hang`` — the matching process sleeps ``delay_s`` (default:
+  about forever) before the round; in a training gang its peers then stall
+  in the round's exchange until their collective watchdog fires.
+  ``process_index: -1`` on it or on ``process_kill`` means every process.
 * ``preempt_notice`` / ``preempt_cancel`` — the elastic-reshard schedule:
   a plan holding them loads (its digest equal to fedtpu's), and the loop
-  refuses it at start (ROADMAP A10).
+  refuses it at start (ROADMAP A10b).
 
 Only the in-loop edits touch torch (the plan itself is numpy and JSON)."""
 
@@ -72,7 +74,7 @@ KINDS = ("client_dropout", "straggler", "nan_update", "process_kill",
 ONCE_KINDS = ("process_kill", "ckpt_corrupt", "collective_hang",
               "preempt_notice", "preempt_cancel")
 
-# Kinds consumed by the elastic-reshard controller (ROADMAP A10), never
+# Kinds consumed by the elastic-reshard controller (ROADMAP A10b), never
 # applied by the injector; their rounds still bound the chunk width.
 RESHARD_KINDS = ("preempt_notice", "preempt_cancel")
 

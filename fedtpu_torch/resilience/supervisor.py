@@ -11,7 +11,7 @@ The contract between the round loop, the CLI and the supervisor:
   drained to a checkpoint and exited; the supervisor restarts at once with
   ``--resume`` (no backoff: the exit was graceful).
 * ``EXIT_RESHARDED`` (76) — a gang member's clean departure through an
-  elastic reshard (ROADMAP A10): never a failure, never restarted.
+  elastic reshard (ROADMAP A10b): never a failure, never restarted.
 * anything else — a crash (SIGKILL shows as a negative returncode): a
   restart with ``--resume`` under bounded exponential backoff, whose
   exponent follows the crash streak; a child that stayed up past
@@ -32,9 +32,9 @@ uninterrupted run's history exactly.
 unit: any member failing tears the whole gang down and relaunches it under
 the same contract. Each member gets its index, the gang's size, a fresh
 rendezvous address and a launch id fresh per relaunch
-(``fedtpu_torch.resilience.distributed``). It launches gateway fleets; a
-training gang (``run`` with N > 1) needs ``torch.distributed`` and is
-ROADMAP A10.
+(``fedtpu_torch.resilience.distributed``). It launches training gangs
+(``run``: the members join one ``torch.distributed`` process group,
+``fedtpu_torch.parallel.multihost``) and gateway fleets.
 
 This module imports neither torch nor numpy: the supervising parent only
 starts children, so a restart never holds a second CUDA context on the
@@ -56,7 +56,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 EXIT_OK = 0
 EXIT_DIVERGED = 3
 EXIT_PREEMPTED = 75          # EX_TEMPFAIL: drained to checkpoint, resumable
-# A gang member's completed elastic-reshard departure (ROADMAP A10).
+# A gang member's completed elastic-reshard departure (ROADMAP A10b).
 EXIT_RESHARDED = 76
 
 
@@ -402,10 +402,11 @@ def supervise_gang(child_argv: Sequence[str], num_processes: int,
     ``FEDTPU_NUM_PROCESSES``, ``FEDTPU_COORDINATOR`` (a fresh local
     address per relaunch), ``FEDTPU_LAUNCH_ID`` (fresh per relaunch,
     identical across the gang: a gateway's failover generation) and the
-    same ``FEDTPU_RESTARTS``; restarted ``serve``/``gateway`` children get
-    ``--resume``. ``heartbeat`` is one base path each member derives its
-    own file from (``heartbeat_path_for``). A ``run`` gang needs
-    ``torch.distributed`` and raises naming ROADMAP A10."""
+    same ``FEDTPU_RESTARTS``; restarted ``run``/``serve``/``gateway``
+    children get ``--resume`` (a ``run`` gang then agrees on a common
+    restore step, ``resilience.distributed.agree_resume_step``).
+    ``heartbeat`` is one base path each member derives its own file from
+    (``heartbeat_path_for``)."""
     from fedtpu_torch.resilience.distributed import (ENV_COORDINATOR,
                                                      ENV_LAUNCH_ID,
                                                      ENV_NUM_PROCESSES,
@@ -419,16 +420,12 @@ def supervise_gang(child_argv: Sequence[str], num_processes: int,
                          extra_env=extra_env, healthy_window=healthy_window,
                          _cmd_prefix=_cmd_prefix, verbose=verbose)
     base = list(child_argv)
-    if base and base[0] == "run":
-        from fedtpu_torch.config import _not_ported
-        _not_ported(f"supervise --num-processes {num_processes} -- run (a "
-                    "training gang over torch.distributed)", "A10")
     tracer = make_tracer(events, role="supervisor")
     prefix = (list(_cmd_prefix) if _cmd_prefix is not None
               else [sys.executable, "-m", "fedtpu_torch.cli"])
-    # serve/gateway children keep the SIGTERM -> drain -> 75 contract, so
-    # they get the --resume/--heartbeat wiring on restart.
-    is_run = bool(base) and base[0] in ("serve", "gateway")
+    # run/serve/gateway children keep the SIGTERM -> drain -> 75 contract,
+    # so they get the --resume/--heartbeat wiring on restart.
+    is_run = bool(base) and base[0] in ("run", "serve", "gateway")
     if heartbeat and is_run and "--heartbeat" not in base:
         base += ["--heartbeat", heartbeat]
 

@@ -114,10 +114,12 @@ def profile_entry(model, state: dict, batch: dict, num_classes: int,
 
 
 def build_manifest(cfg=None, mesh=None, extra: Optional[dict] = None,
-                   device=None) -> dict:
+                   device=None, gang=None) -> dict:
     """The manifest payload. ``cfg``: the ExperimentConfig (or None);
     ``mesh``: the run's ``ClientMesh``; ``device``: the run's device
-    (``backend`` 'cuda' or 'cpu'; the card's name in ``device_kinds``)."""
+    (``backend`` 'cuda' or 'cpu'; the card's name in ``device_kinds``);
+    ``gang``: a training gang's member (its index, the gang's size, the
+    collective backend and the member's device)."""
     import torch
 
     import fedtpu_torch
@@ -143,9 +145,8 @@ def build_manifest(cfg=None, mesh=None, extra: Optional[dict] = None,
     else:
         out["device_count"] = 1
         out["device_kinds"] = ["cpu"]
-    # One process until the multi-device slice (ROADMAP A10).
-    out["process_index"] = 0
-    out["process_count"] = 1
+    from fedtpu_torch.parallel.multihost import describe
+    out.update(describe(gang))
     if mesh is not None:
         out["mesh_shape"] = {"clients": int(mesh.num_shards)}
     if extra:

@@ -266,11 +266,12 @@ _GANG_PLANS = {
 }
 
 
-def _gang(sup, plan: dict, directory) -> tuple:
+def _gang(sup, plan: dict, directory,
+          child=("gateway", "--num-gateways", "2")) -> tuple:
     os.makedirs(directory)
     events = os.path.join(directory, "events.jsonl")
     rc = sup.supervise_gang(
-        ["gateway", "--num-gateways", "2"], num_processes=2,
+        list(child), num_processes=2,
         max_restarts=1, backoff_base=0.0, grace=5.0,
         heartbeat=os.path.join(directory, "hb"), events=events,
         extra_env={"STUB_DIR": str(directory), "STUB_PLAN": json.dumps(plan)},
@@ -295,14 +296,22 @@ def test_supervise_gang_is_fedtpus(case, tmp_path):
     gang, restart count 0 and the heartbeat base; ``teardown``: member 1's
     crash SIGTERMs member 0 and relaunches the gang once, with
     ``--resume`` and a fresh launch id; ``diverged`` (3) and ``done`` (0,
-    and 76 from one member) end without a restart. A ``run`` gang is
-    refused, naming ROADMAP A10, through the function and the CLI."""
+    and 76 from one member) end without a restart. ``run_refused`` (the
+    name it had while a ``run`` gang was refused): a ``run`` gang is
+    launched and torn down as fedtpu's, its relaunch with ``--resume``."""
     if case == "run_refused":
-        from fedtpu_torch.cli import main as t_main
-        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10\)"):
-            t_sup.supervise_gang(["run"], num_processes=2)
-        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10\)"):
-            t_main(["supervise", "--num-processes", "2", "--", "run"])
+        run = ("run", "--rounds", "4")
+        plan = _GANG_PLANS["teardown"]
+        got = _gang(t_sup, plan, tmp_path / "t", child=run)
+        want = _gang(j_sup, plan, tmp_path / "j", child=run)
+        assert got[:2] == want[:2] == (0, [[-15, 1], [0, 0]])
+        # Member 0 of the first launch may be torn down before it writes
+        # its record (member 1 exits at once), in either package.
+        for members in (got[2], want[2]):
+            assert {"0.1", "1.0", "1.1"} <= set(members) <= {
+                "0.0", "0.1", "1.0", "1.1"}
+            assert all(("--resume" in m["argv"]) == name.startswith("1.")
+                       for name, m in members.items())
         return
     plan = _GANG_PLANS[case]
     got = _gang(t_sup, plan, tmp_path / "t")
@@ -338,19 +347,23 @@ def test_supervise_gang_is_fedtpus(case, tmp_path):
 def test_chaos_fleet_families_equal_fedtpus():
     """The family tuples, the fleet rows' constants and the wire plans are
     fedtpu's; the fleet rows run by default beside the single-process
-    ones; the training-gang rows refuse, naming ROADMAP A10."""
+    ones and the training-gang rows; the reshard and autoscale rows
+    refuse, naming ROADMAP A10b."""
     for name in ("MP_SCENARIOS", "RESHARD_SCENARIOS", "AUTOSCALE_SCENARIO",
                  "GATEWAY_SCENARIOS", "NET_SCENARIOS", "POISON_SCENARIO",
                  "GATEWAY_BURN_BUDGET", "NET_BURN_BUDGET", "POISON_USERS",
                  "POISON_ARRIVALS", "POISON_HORIZON_S", "POISON_TRACE_SEED",
                  "POISON_FRAC", "POISON_SCALE", "POISON_ACCURACY_TOL",
-                 "POISON_DEGRADE_MIN", "_NET_PLANS"):
+                 "POISON_DEGRADE_MIN", "_NET_PLANS", "MP_PROCESSES",
+                 "MP_COLLECTIVE_TIMEOUT"):
         assert getattr(t_chaos, name) == getattr(j_chaos, name), name
+    assert t_chaos.MP_SHARDS_PER_PROC == j_chaos.MP_DEVICES_PER_PROC
     assert t_chaos.scenarios_help() == j_chaos.scenarios_help()
     assert set(t_chaos.PORTED_SCENARIOS) == set(
-        t_chaos.SINGLE_PROCESS_SCENARIOS + t_chaos.FLEET_SCENARIOS)
-    for name in t_chaos.MP_SCENARIOS + (t_chaos.AUTOSCALE_SCENARIO,):
-        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10\)"):
+        t_chaos.SINGLE_PROCESS_SCENARIOS + t_chaos.GANG_SCENARIOS
+        + t_chaos.FLEET_SCENARIOS)
+    for name in t_chaos.RESHARD_SCENARIOS + (t_chaos.AUTOSCALE_SCENARIO,):
+        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10b\)"):
             t_chaos.run_chaos([name], workdir="unused")
 
 
@@ -456,7 +469,9 @@ def test_check_report_and_folds_are_fedtpus(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--audit"], "A11d"), (["--lockdep"], "A11d"), (["--mpmd"], "A10"),
+    (["--audit"], "A11d"), (["--lockdep"], "A11d"),
+    # Its id is the one it had while --mpmd named A10, before A10's split.
+    pytest.param(["--mpmd"], "A10c", id="flag2-A10"),
     (["--warmup-cache", "cache"], "A11c")])
 def test_check_refuses_what_is_not_ported(flag, item):
     from fedtpu_torch.cli import main as t_main

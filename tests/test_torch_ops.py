@@ -313,7 +313,7 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     dict(partition_clients=2), dict(model_parallel=2), dict(mpmd=True),
-    dict(collective_timeout=1.0), dict(compilation_cache="cache")])
+    dict(overlap_compile=True), dict(compilation_cache="cache")])
 def test_unported_knobs_raise_naming_their_roadmap_item(kw):
     cls = tcfg.ShardConfig if "partition_clients" in kw else tcfg.RunConfig
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -341,10 +341,9 @@ _CONFIGS = ("DataConfig", "ShardConfig", "ModelConfig", "OptimConfig",
 # The knobs of fedtpu that the port does not run yet, and the ROADMAP item
 # of each.
 _UNPORTED = {
-    "ShardConfig": {"partition_clients": "A10", "partition_offset": "A10"},
+    "ShardConfig": {"partition_clients": "A10b", "partition_offset": "A10b"},
     "RunConfig": {
-        **{k: "A10" for k in ("mpmd", "model_parallel",
-                              "collective_timeout")},
+        **{k: "A10c" for k in ("mpmd", "model_parallel")},
         **{k: "A11c" for k in ("compilation_cache", "overlap_compile")}},
 }
 
@@ -479,7 +478,7 @@ def test_ported_knobs_take_other_values():
                               "profile_rounds", "telemetry", "fault_plan",
                               "on_divergence", "rollback_retries",
                               "rollback_exclude", "rollback_perturb",
-                              "heartbeat_file"},
+                              "heartbeat_file", "collective_timeout"},
                 "TelemetryConfig": {"events_path", "manifest", "log_level"},
             }[name], (name, field.name)
     assert tcfg.ModelConfig(use_pallas=True).use_pallas
@@ -938,11 +937,10 @@ def test_port_imports_nothing_of_jax_or_fedtpu():
 # run yet: field path, a value off its default, the ROADMAP item the port's
 # refusal names. --max-restarts is fedtpu's supervisor, no config field.
 _CLI_NOT_PORTED = {
-    "--collective-timeout": ("run", "collective_timeout", 1.0, "A10"),
-    "--model-parallel": ("run", "model_parallel", 2, "A10"),
-    "--mpmd": ("run", "mpmd", True, "A10"),
-    "--partition-clients": ("shard", "partition_clients", 2, "A10"),
-    "--partition-offset": ("shard", "partition_offset", 1, "A10"),
+    "--model-parallel": ("run", "model_parallel", 2, "A10c"),
+    "--mpmd": ("run", "mpmd", True, "A10c"),
+    "--partition-clients": ("shard", "partition_clients", 2, "A10b"),
+    "--partition-offset": ("shard", "partition_offset", 1, "A10b"),
     "--compilation-cache": ("run", "compilation_cache", "x", "A11c"),
     "--overlap-compile": ("run", "overlap_compile", True, "A11c"),
 }

@@ -197,9 +197,9 @@ def test_resilience_validation_equals_fedtpus(row, tmp_path):
 
 def test_reshard_kinds_and_cohort_mode_refuse_a_plan(tmp_path):
     """A plan with the reshard kinds loads but the loop refuses it, naming
-    A10; cohort mode refuses a plan and rollback with fedtpu's words."""
+    A10b; cohort mode refuses a plan and rollback with fedtpu's words."""
     _, t_cfg = _cfgs(fault_plan=json.dumps(_SPECS["reshard"]))
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10\)"):
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10b\)"):
         _t_run(t_cfg)
     for run in (dict(fault_plan=_SPECS["inline"]),
                 dict(on_divergence="rollback", checkpoint_every=2,
@@ -530,10 +530,11 @@ def test_supervise_decides_as_fedtpu(codes, tmp_path):
                                       j_sup.EXIT_RESHARDED)
 
 
-def test_supervisor_imports_neither_torch_nor_numpy():
+def test_supervisor_imports_neither_torch_nor_numpy(monkeypatch):
     """The supervising parent (``supervise``, ``chaos``, the CLI's parser)
     imports neither torch nor numpy, so a restart holds no second CUDA
-    context; a ``run`` gang (--num-processes > 1) names A10."""
+    context; a command other than ``run`` launched into a gang (a
+    ``sweep`` member) names A10b."""
     import subprocess
     code = ("import sys; import fedtpu_torch.cli as c; "
             "import fedtpu_torch.resilience.supervisor, "
@@ -544,29 +545,32 @@ def test_supervisor_imports_neither_torch_nor_numpy():
                              os.path.dirname(os.path.abspath(__file__))))
     assert out.stdout.strip() == "[]"
     from fedtpu_torch.cli import main as t_main
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10\)"):
-        t_main(["supervise", "--num-processes", "2", "--", "run"])
+    monkeypatch.setenv("FEDTPU_COORDINATOR", "127.0.0.1:1")
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10b\)"):
+        t_main(["sweep", "--platform", "cpu"])
 
 
 # ------------------------------------------------------- chaos and oracles
 
 def test_chaos_registry_and_help_equal_fedtpus():
-    """The registry, its help and the single-process plans are fedtpu's;
-    the training-gang rows refuse naming A10 (the gateway, poisoning and
-    wire rows run: tests/test_torch_fuzz.py); an unknown row is refused."""
+    """The registry, its help and the single-process and training-gang
+    plans are fedtpu's; the reshard and autoscale rows refuse naming A10b
+    (the gateway, poisoning and wire rows run: tests/test_torch_fuzz.py;
+    the gang rows: tests/test_torch_gang.py); an unknown row is
+    refused."""
     assert t_chaos.SCENARIO_REGISTRY == j_chaos.SCENARIO_REGISTRY
     assert t_chaos.scenarios_help() == j_chaos.scenarios_help()
     assert t_chaos.SCENARIOS == j_chaos.SCENARIOS
     for name in ("sigkill", "preempt", "nan_rollback", "dropout",
-                 "straggler"):
+                 "straggler") + t_chaos.GANG_SCENARIOS:
         assert json.loads(t_chaos._plan(10, name)) == \
             json.loads(j_chaos._plan(10, name))
-    for name in ("mp_kill_worker", "mp_shrink", "mp_autoscale_preempt"):
+    for name in ("mp_shrink", "mp_autoscale_preempt"):
         with pytest.raises(NotImplementedError,
-                           match=r"\(ROADMAP A10\)"):
+                           match=r"\(ROADMAP A10b\)"):
             t_chaos.run_chaos([name], workdir="unused")
-    assert {"mp_gateway_kill", "mp_poison_campaign",
-            "mp_torn_frame"} <= set(t_chaos.PORTED_SCENARIOS)
+    assert {"mp_gateway_kill", "mp_poison_campaign", "mp_torn_frame",
+            "mp_kill_worker", "mp_hang"} <= set(t_chaos.PORTED_SCENARIOS)
     with pytest.raises(ValueError, match="unknown chaos scenario"):
         t_chaos.run_chaos(["nope"])
 
