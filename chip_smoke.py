@@ -5890,20 +5890,28 @@ def resil_cli(directory: str) -> dict:
         "--synthetic-rows", "10000", "--quiet", "--json"],
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
     t0 = time.perf_counter()
-    out = subprocess.run(cli + [
-        "chaos", "--scenarios", "sigkill,preempt,nan_rollback,dropout,"
-        "straggler", "--platform", "default", "--num-clients", "8",
-        "--hidden-sizes", "50,200", "--synthetic-rows", "10000", "--quiet",
-        "--json", "--workdir", wd, "--keep-artifacts"],
-        capture_output=True, text=True, timeout=600)
+    # The five rows as two chaos children side by side (each with its own
+    # baseline), to keep the script inside its time limit.
+    procs = [subprocess.Popen(cli + [
+        "chaos", "--scenarios", names, "--platform", "default",
+        "--num-clients", "8", "--hidden-sizes", "50,200",
+        "--synthetic-rows", "10000", "--quiet", "--json", "--workdir",
+        f"{wd}{i}", "--keep-artifacts"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i, names in enumerate(("sigkill,preempt",
+                                   "nan_rollback,dropout,straggler"))]
+    rows = {}
+    for proc in procs:
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"chaos rc {proc.returncode}: "
+              f"{out[-1500:]} {err[-1500:]}")
+        report = json.loads(out.strip().splitlines()[-1])
+        check(report["ok"], f"chaos: {report}")
+        rows.update({r["scenario"]: r for r in report["scenarios"]})
     chaos_s = time.perf_counter() - t0
-    check(out.returncode == 0, f"chaos rc {out.returncode}: "
-          f"{out.stdout[-1500:]} {out.stderr[-1500:]}")
-    report = json.loads(out.stdout.strip().splitlines()[-1])
-    rows = {r["scenario"]: r for r in report["scenarios"]}
-    check(report["ok"] and sorted(rows) == sorted(
+    check(sorted(rows) == sorted(
         ("sigkill", "preempt", "nan_rollback", "dropout", "straggler")),
-        f"chaos: {report}")
+        f"chaos: {sorted(rows)}")
     for name in ("sigkill", "preempt"):
         check(rows[name]["history_match"] and rows[name]["restarts"] >= 1,
               f"chaos {name}: {rows[name]}")
@@ -6373,6 +6381,9 @@ TRAIN_GANG_DRIFT_TOL = 1e-4
 TRAIN_GANG_CHAOS = (("mp_kill_worker", "mp_kill_coordinator"),
                     ("mp_hang", "mp_preempt"))
 K4_GANG_SHAPE = (8, 11_353)  # income-32-noniid's ring payload, 8 shards
+# Phase (v)'s uninterrupted gangs' histories (psum of 2, ring of 2 x 4),
+# which phase (w) takes as its gang baselines when (v) ran first.
+GANG_BASELINES: dict = {}
 
 
 def gang_member() -> None:
@@ -6380,12 +6391,16 @@ def gang_member() -> None:
     its kernel launches into ``$GANG_LAUNCHES/launches.<restart>.<i>``."""
     from fedtpu_torch.cli import main as cli_main
     from fedtpu_torch.ops import cuda_kernels as ck
-    rc = cli_main(sys.argv[1:])
+    try:
+        rc = cli_main(sys.argv[1:])
+    except SystemExit as e:
+        # A member parked by an elastic shrink leaves with 76.
+        rc = e.code
     path = os.path.join(os.environ["GANG_LAUNCHES"], "launches."
                         f"{os.environ['FEDTPU_RESTARTS']}."
                         f"{os.environ['FEDTPU_PROCESS_ID']}")
     with open(path, "w") as fh:
-        json.dump(dict(ck.LAUNCHES), fh)
+        json.dump(dict(ck.LAUNCHES, exit_code=rc), fh)
     sys.exit(rc)
 
 
@@ -6782,6 +6797,9 @@ def phase_train_gang() -> tuple:
                 numbers[f"psum x{n}"] = gang_vs_one(
                     f"income-8 psum gang of {n}", gang, one, d, n, True,
                     k123)
+                if n == 2:
+                    GANG_BASELINES["income-8"] = gang_history(
+                        os.path.join(d, "m.jsonl"))
                 member_paths(f"income-8 psum gang of {n}", gang)
             lap("psum gangs")
             d = os.path.join(directory, "ring")
@@ -6790,6 +6808,8 @@ def phase_train_gang() -> tuple:
             one = one_process_run(os.path.join(directory, "one-ring"), spec,
                                   shards=8)
             gang = gang_cli(gang_argv(d, *spec), 2, d, shards=4)
+            GANG_BASELINES["income-32-noniid"] = gang_history(
+                os.path.join(d, "m.jsonl"))
             numbers["ring x2"] = gang_vs_one(
                 "income-32-noniid ring gang of 2 (4 shards each)", gang, one,
                 d, 2, False, k123[1:] + ("ring_all_reduce_sum",))
@@ -6844,6 +6864,574 @@ def phase_train_gang() -> tuple:
                     p.kill()
                     p.wait(timeout=60)
     print(f"phase (v) seconds {json.dumps(seconds)}", flush=True)
+    numbers["seconds"] = seconds
+    return by_path, numbers
+
+
+# The elastic gang (phase (w)): a live shrink and grow-back of a training
+# gang on the card, the signal path, the elastic resume and the four
+# reshard and autoscale chaos rows.
+ELASTIC_ROUNDS = 10          # income-8 early-stops later at 10,000 rows
+ELASTIC_NOTICE = 4           # 1-based: the shrink before this round
+ELASTIC_CANCEL = 6           # 1-based: the grow back before this round
+ELASTIC_PACE_S = 0.25        # the signal run's straggler delay a round
+ELASTIC_SIGNAL_ROUNDS = 14
+ELASTIC_CHAOS = (("mp_shrink", "mp_grow"), ("mp_shrink_dead",),
+                 ("mp_autoscale_preempt",))
+ELASTIC_TOL = 1e-4           # TRAIN_GANG_DRIFT_TOL's per-checkpoint bar
+
+
+def elastic_plan(target: int, grow: bool = True) -> str:
+    faults = [{"kind": "preempt_notice", "round": ELASTIC_NOTICE,
+               "target_clients": target, "process_index": 1}]
+    if grow:
+        faults.append({"kind": "preempt_cancel", "round": ELASTIC_CANCEL})
+    return json.dumps({"seed": 0, "faults": faults})
+
+
+def ckpt_state(directory: str, step: int) -> dict:
+    """Round ``step`` of a run whatever wrote it (one process or a gang's
+    parts): the params (and anchors), every client."""
+    from fedtpu_torch.orchestration.checkpoint import load_checkpoint_raw
+    raw = load_checkpoint_raw(directory, step)[0]
+    return {k: raw[k] for k in ("params", "anchors") if k in raw}
+
+
+def sink_numbers(ev: str) -> dict:
+    """A member's reshard numbers from its sink: the reshard events, the
+    move and build spans (ms), the barriers (ms), the median s/round
+    before, while and after the shrink, and the graph captures it
+    counted."""
+    rows = read_sink(ev)
+    done = [e for e in rows if e["kind"] == "reshard_done"]
+    spans = {}
+    for e in rows:
+        if e["kind"] == "span" and e["phase"] in ("reshard_move",
+                                                  "reshard_build"):
+            spans.setdefault(e["phase"], []).append(e["dur_s"] * 1e3)
+    counters = [e for e in rows if e["kind"] == "counters"]
+    rounds = [(e["round"], e["dur_s"]) for e in rows
+              if e["kind"] == "round"]
+    marks = [e["round"] for e in done]
+
+    def median(sel):
+        # Round 1 (the graphs' warm-up and capture) left out.
+        v = [d for r, d in rounds if r > 1 and sel(r)]
+        return statistics.median(v) if v else None
+    first = marks[0] + 1 if marks else None
+    last = marks[1] + 1 if len(marks) > 1 else None
+    return {
+        "modes": [(e["payload"]["mode"], e["round"],
+                   e["payload"].get("target")) for e in done],
+        "begin": [e["payload"] for e in rows
+                  if e["kind"] == "reshard_begin"],
+        "move_ms": spans.get("reshard_move", []),
+        "build_ms": spans.get("reshard_build", []),
+        "barrier_ms": [{k: v * 1e3 for k, v in e["payload"]["barrier_s"]
+                        .items()} for e in done],
+        "graph_captures": (counters[-1]["payload"]["counters"]
+                           .get("graph_captures") if counters else None),
+        "s_round_before": median(lambda r: first is None or r < first),
+        "s_round_shrunk": median(lambda r: first is not None and r >= first
+                                 and (last is None or r < last)),
+        "s_round_after": median(lambda r: last is not None and r >= last)}
+
+
+def gang_baseline(directory: str, spec: tuple, shards: int) -> dict:
+    """The uninterrupted gang of 2 of ``spec``'s preset: phase (v)'s (its
+    gang of 2 with more rounds: the same rounds up to here, since the
+    round count and the checkpoints change no round's math, nor a psum
+    member's shard count), or this config's own run when (v) did not
+    run."""
+    if spec[0] in GANG_BASELINES:
+        return GANG_BASELINES[spec[0]]
+    d = os.path.join(directory, f"{spec[0]}-base")
+    gang_cli(gang_argv(d, *spec), 2, d, shards=shards)
+    GANG_BASELINES[spec[0]] = gang_history(os.path.join(d, "m.jsonl"))
+    return GANG_BASELINES[spec[0]]
+
+
+def elastic_pair(directory: str, label: str, spec: tuple, shards: int,
+                 target: int, kernels: tuple) -> tuple:
+    """Phase (w) 1 and 2: a gang of 2 (``shards`` shards a member) with
+    the notice at ELASTIC_NOTICE and the cancel at ELASTIC_CANCEL, against
+    the same gang without the plan (the rounds before the notice bitwise,
+    ``gang_baseline``) and the one-process card run of the same plan over
+    the same shards (every checkpoint within ELASTIC_TOL); the victim
+    rejoins and both exit 0, no gang restart; the survivor captured its
+    graphs twice (the gang's, the shrunk round's) and the victim once: the
+    grow captures none."""
+    plan = elastic_plan(target)
+    d_gang, d_one = (os.path.join(directory, f"{label}-{t}")
+                     for t in ("gang", "one"))
+    extra = ("--checkpoint-every", "2")
+    before = gang_baseline(directory, spec, shards)
+    gang = gang_cli(gang_argv(d_gang, *spec, *extra, "--fault-plan", plan),
+                    2, d_gang, shards=shards)
+    one = one_process_run(d_one, spec + extra + ("--fault-plan", plan),
+                          shards=2 * shards)
+    hist = gang_history(os.path.join(d_gang, "m.jsonl"))
+    mine = gang_history(os.path.join(d_one, "m.jsonl"))
+    check(gang["restarts"] == 0 and [m["exit_code"] for m in
+                                     gang["launches"]] == [0, 0],
+          f"{label}: restarts {gang['restarts']}, exit codes "
+          f"{[m['exit_code'] for m in gang['launches']]}")
+    check(all(hist[r] == before[r] for r in range(1, ELASTIC_NOTICE)),
+          f"{label}: the rounds before the notice differ from the gang "
+          "baseline's")
+    check(sorted(hist) == sorted(mine), f"{label}: rounds {sorted(hist)} "
+          f"vs one process's {sorted(mine)}")
+    hist_err = max(abs(hist[r][g][k] - mine[r][g][k]) for r in hist
+                   for g in ("client_mean", "pooled") for k in hist[r][g])
+    from fedtpu_torch.orchestration.checkpoint import complete_steps
+    steps = sorted(set(complete_steps(os.path.join(d_gang, "ck")))
+                   & set(complete_steps(os.path.join(d_one, "ck"))))
+    errs = {}
+    for step in steps:
+        got = ckpt_state(os.path.join(d_gang, "ck"), step)
+        want = ckpt_state(os.path.join(d_one, "ck"), step)
+        errs[step] = max(float((got[k] - want[k]).abs().max()) for k in got)
+    check(steps and ELASTIC_NOTICE in steps and max(errs.values())
+          <= ELASTIC_TOL, f"{label}: checkpoints {errs} from one process's")
+    check(hist_err <= ELASTIC_TOL, f"{label}: history {hist_err:.3g} from "
+          "one process's")
+    ev = os.path.join(d_gang, "ev.jsonl")
+    surv, vic = sink_numbers(ev), sink_numbers(f"{ev}.p1")
+    check([m for m, _, _ in surv["modes"]] == ["shrink", "grow"]
+          and [m for m, _, _ in vic["modes"]] == ["grow_rejoin"],
+          f"{label}: reshards {surv['modes']} / {vic['modes']}")
+    check(surv["graph_captures"] == 2 and vic["graph_captures"] == 1,
+          f"{label}: graph captures {surv['graph_captures']} (survivor), "
+          f"{vic['graph_captures']} (victim): the grow captured again")
+    launches = [{k: m.get(k, 0) for k in kernels} for m in gang["launches"]]
+    check(all(m[k] > 0 for m in launches for k in kernels
+              if k != "fused_mlp_forward"),
+          f"{label}: a kernel of the path never launched: {launches}")
+    print(f"{label}: victim parked at round {ELASTIC_NOTICE - 1}, rejoined "
+          f"at {ELASTIC_CANCEL - 1}, no gang restart, exit codes [0, 0]; "
+          f"rounds before the notice bitwise the gang baseline; checkpoints "
+          f"vs the one-process run of the plan {errs}, history within "
+          f"{hist_err:.3g}; graph captures survivor "
+          f"{surv['graph_captures']}, victim {vic['graph_captures']} (none "
+          f"at the grow); reshard move ms {surv['move_ms']}, build ms "
+          f"{surv['build_ms']}, barriers ms {surv['barrier_ms']} (victim "
+          f"{vic['barrier_ms']}); s/round before {surv['s_round_before']}, "
+          f"shrunk {surv['s_round_shrunk']}, after {surv['s_round_after']} "
+          f"(one process {one['result'].summary()['mean_sec_per_round']}); "
+          f"launches per member {launches}; {CARD['smi']}", flush=True)
+    return ({"history_err": hist_err, "state_err": errs,
+             "survivor": surv, "victim": vic, "launches": launches,
+             "wall_s": gang["wall_s"]},
+            {f"{label}, member {i}": m for i, m in
+             enumerate(gang["launches"])})
+
+
+def k4_elastic_member() -> None:
+    """One member of the K4 park-and-rejoin check (``python -c "import
+    chip_smoke as cs; cs.k4_elastic_member()" STORE RANK``): a gang of 2 on
+    the card exchanges K4_GANG_SHAPE's rows over CUDA IPC; member 1 then
+    parks (waits on a file, its buffer still exported) while member 0 runs
+    the shrunk one-process K4 on its own (4, 11,353) rows, then rejoins,
+    and the gang exchanges a new stack over the ORIGINAL buffers; every
+    exchange bitwise the one-process K4 on the same stack. Prints one JSON
+    line."""
+    store, rank = sys.argv[1], int(sys.argv[2])
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.parallel import multihost
+    from fedtpu_torch.parallel.mesh import make_mesh
+    from fedtpu_torch.parallel.ring import GangExchange
+    gang = multihost.initialize(f"file://{store}", 2, rank)
+    dev = gang.device
+    s, p = K4_GANG_SHAPE
+    ex = GangExchange("ring", gang, make_mesh(s, s, dev, gang=gang), p, dev)
+    lo, hi = ex.lo, ex.hi
+    flag = f"{store}.rejoin"
+
+    def exchange(seed: int) -> bool:
+        full = torch.randn(s, p, generator=torch.Generator().manual_seed(
+            seed)).to(dev)
+        ex.stage(full[lo:hi])
+        ex.host()
+        rows = ex.reduce().clone()
+        ex.after()
+        return bool(torch.equal(rows, ck.ring_all_reduce_sum(full)[lo:hi]))
+
+    same = [exchange(7)]
+    shrunk = None
+    if rank == 1:
+        while not os.path.exists(flag):      # parked: no collective
+            time.sleep(0.05)
+    else:
+        mine = torch.randn(hi - lo, p, generator=torch.Generator()
+                           .manual_seed(8)).to(dev)
+        shrunk = bool(torch.equal(ck.ring_all_reduce_sum(mine),
+                                  ck.ring_all_reduce_sum_reference(mine)))
+        with open(flag, "w") as fh:
+            fh.write("1")
+    gang.barrier()
+    same.append(exchange(9))
+    ex.close()
+    multihost.shutdown()
+    print(json.dumps({"rank": rank, "bitwise": same,
+                      "shrunk_bitwise": shrunk}), flush=True)
+
+
+def k4_elastic_check(directory: str) -> dict:
+    store = os.path.join(directory, "k4e.store")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as cs; "
+         "cs.k4_elastic_member()", store, str(r)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    rows = []
+    for proc in procs:
+        o, e = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"K4 elastic member rc "
+              f"{proc.returncode}: {o[-1000:]} {e[-2000:]}")
+        rows.append(json.loads(o.strip().splitlines()[-1]))
+    check(all(all(r["bitwise"]) for r in rows) and rows[0]["shrunk_bitwise"],
+          f"K4 across a park and a rejoin: {rows}")
+    print(f"K4 across processes at {K4_GANG_SHAPE} before a park and after "
+          "the rejoin over the original IPC buffers: bitwise the "
+          "one-process K4 on the same stack; the shrunk one-process K4 at "
+          f"(4, {K4_GANG_SHAPE[1]}) bitwise its plain version; "
+          f"{CARD['smi']}", flush=True)
+    return {"rows": rows}
+
+
+def gang_popen(argv: list, directory: str, shards: int):
+    """``gang_cli``'s gang of 2 as a background process (the supervisor's
+    pid is the Popen's)."""
+    os.makedirs(directory, exist_ok=True)
+    code = ("import sys; from fedtpu_torch.resilience.supervisor import "
+            f"supervise_gang; sys.exit(supervise_gang({argv!r}, 2, "
+            "max_restarts=0, grace=10, backoff_base=0.0, verbose=False, "
+            "_cmd_prefix=[sys.executable, '-c', 'import chip_smoke as cs; "
+            "cs.gang_member()']))")
+    env = dict(os.environ, GANG_LAUNCHES=directory,
+               FEDTPU_SHARDS_PER_PROCESS=str(shards))
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def elastic_signal(directory: str, base: dict) -> dict:
+    """Phase (w) 3: SIGUSR1 to the supervisor of an income-8 gang of 2
+    (2 shards a member, each round paced by a straggler) after round 3:
+    both members shrink at the agreed round (the largest loop-top a member
+    saw the notice at, plus one), the survivor onto its 4 clients; the
+    victim exits 76, no gang restart; the rounds before the shrink bitwise
+    the gang baseline's."""
+    import signal as _signal
+    d = os.path.join(directory, "signal")
+    pace = [{"kind": "straggler", "round": r, "clients": [0],
+             "delay_s": ELASTIC_PACE_S}
+            for r in range(2, ELASTIC_SIGNAL_ROUNDS + 1)]
+    proc = gang_popen(gang_argv(d, "income-8", ELASTIC_SIGNAL_ROUNDS,
+                                "--checkpoint-every", "2", "--fault-plan",
+                                json.dumps({"seed": 0, "faults": pace})),
+                      d, 2)
+    metrics = os.path.join(d, "m.jsonl")
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline and proc.poll() is None and (
+            not os.path.exists(metrics) or max(gang_history(metrics) or [0])
+            < 3):
+        time.sleep(0.05)
+    check(proc.poll() is None, "signal run ended before round 3")
+    proc.send_signal(_signal.SIGUSR1)
+    out, err = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"signal run rc {proc.returncode}: "
+          f"{out[-1500:]} {err[-3000:]}")
+    launches = []
+    for i in range(2):
+        with open(os.path.join(d, f"launches.0.{i}")) as fh:
+            launches.append(json.load(fh))
+    ev = os.path.join(d, "ev.jsonl")
+    surv, vic = sink_numbers(ev), sink_numbers(f"{ev}.p1")
+    check([m for m, _, _ in surv["modes"]] == ["shrink"]
+          and surv["modes"][0][2] == 4, f"signal: reshards {surv['modes']}")
+    r = surv["modes"][0][1]
+    notices = surv["begin"][0]["notices"]
+    check(r == max(n for _, n in notices) + 1
+          and vic["begin"][0]["notices"] == notices,
+          f"signal: shrink at loop-top {r}, notices {notices} / "
+          f"{vic['begin'][0]['notices']}")
+    check([m["exit_code"] for m in launches] == [0, 76],
+          f"signal: exit codes {[m['exit_code'] for m in launches]}")
+    hist = gang_history(metrics)
+    check(all(hist[k] == base[k] for k in range(1, r + 1)),
+          "signal: the rounds before the shrink differ from the baseline's")
+    print(f"signal path: SIGUSR1 to the supervisor; notices seen at "
+          f"loop-tops {notices}, both members shrank at loop-top {r} (8 -> "
+          f"4 clients); rounds 1-{r} bitwise the gang baseline; victim exit "
+          f"76, survivor 0, no gang restart; move ms {surv['move_ms']}, "
+          f"build ms {surv['build_ms']}, barriers ms {surv['barrier_ms']}; "
+          f"{CARD['smi']}", flush=True)
+    return {"round": r, "notices": notices, "survivor": surv,
+            "ck": os.path.join(d, "ck"), "rounds": max(hist),
+            "launches": launches}
+
+
+def elastic_resume_member() -> None:
+    """A member of phase (w) 4 (``python -c "import chip_smoke as cs;
+    cs.elastic_resume_member()" STORE RANK SPEC``): joins a gang of 2 on
+    the card and runs the port's CLI config SPEC["argv"] with ``resume``;
+    the state its first round starts from (the graphs' warm-up sees it)
+    is held to SPEC's rule against the saved round: "rows", each of its
+    rows and moments bitwise the saved rows; "elastic", fedtpu's rule,
+    every slot the saved slots' mean and every moment zero. Prints one
+    JSON line."""
+    store, rank, spec = sys.argv[1], int(sys.argv[2]), json.loads(
+        sys.argv[3])
+    os.environ["FEDTPU_SHARDS_PER_PROCESS"] = str(spec["shards"])
+    from fedtpu_torch.cli import build_parser, config_from_args
+    from fedtpu_torch.orchestration import loop
+    from fedtpu_torch.orchestration.checkpoint import load_checkpoint_raw
+    from fedtpu_torch.parallel import multihost
+    gang = multihost.initialize(f"file://{store}", 2, rank)
+    seen = {}
+    warm = loop.warm_up_round
+
+    def first(step, state, batch):
+        if not seen:
+            seen.update(params=state["params"].cpu().clone(),
+                        mu=state["opt_state"]["mu"].cpu().clone(),
+                        nu=state["opt_state"]["nu"].cpu().clone())
+        return warm(step, state, batch)
+    loop.warm_up_round = first
+    cfg = config_from_args(build_parser().parse_args(spec["argv"]))
+    saved = load_checkpoint_raw(cfg.run.checkpoint_dir, spec["step"])[0]
+    res = loop.run_experiment(cfg, verbose=False, device="cuda",
+                              resume=True)
+    multihost.shutdown()
+    n = seen["params"].shape[0]
+    if spec["rule"] == "rows":
+        rows = slice(rank * n, (rank + 1) * n)
+        ok = (torch.equal(seen["params"], saved["params"][rows])
+              and torch.equal(seen["mu"], saved["opt_state"]["mu"][rows])
+              and torch.equal(seen["nu"], saved["opt_state"]["nu"][rows]))
+    else:
+        mean = torch.from_numpy(saved["params"].numpy().mean(axis=0))
+        ok = (bool((seen["params"] == mean).all())
+              and not seen["mu"].any() and not seen["nu"].any())
+    print(json.dumps({"rank": rank, "ok": bool(ok), "slots": n,
+                      "rounds_run": res.rounds_run,
+                      "history": res.global_metrics["accuracy"]}),
+          flush=True)
+
+
+def elastic_resume(directory: str, signal_run: dict) -> dict:
+    """Phase (w) 4: the survivor's one-process checkpoint (4 clients) of
+    the signal run resumed by a gang of 2 at 4 clients (each member its
+    rows, bitwise) and at 8 (fedtpu's elastic rule), each for two more
+    rounds."""
+    import shutil
+    from fedtpu_torch.orchestration.checkpoint import latest_step
+    step = latest_step(signal_run["ck"])
+    out = {}
+    for rule, clients, shards in (("rows", 4, 1), ("elastic", 8, 2)):
+        d = os.path.join(directory, f"resume-{rule}")
+        shutil.copytree(signal_run["ck"], os.path.join(d, "ck"))
+        argv = gang_argv(d, "income-8", step + 2, "--num-clients",
+                         str(clients), "--checkpoint-every", "2")
+        spec = {"argv": argv, "shards": shards, "rule": rule, "step": step}
+        store = os.path.join(d, "store")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as cs; "
+             "cs.elastic_resume_member()", store, str(r), json.dumps(spec)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        rows = []
+        for proc in procs:
+            o, e = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"resume member ({rule}) rc "
+                  f"{proc.returncode}: {o[-1000:]} {e[-2000:]}")
+            rows.append(json.loads(o.strip().splitlines()[-1]))
+        check(all(r["ok"] and r["rounds_run"] == step + 2 for r in rows),
+              f"elastic resume ({rule}): {rows}")
+        out[rule] = rows
+        print(f"elastic resume ({rule}): a gang of 2 at {clients} clients "
+              f"resumed the survivor's one-process round {step} (4 clients)"
+              f" and trained to {step + 2}: "
+              + ("each member's rows and moments bitwise the saved rows"
+                 if rule == "rows" else "every slot the saved slots' mean, "
+                 "every moment zero (fedtpu's elastic rule)")
+              + f"; {CARD['smi']}", flush=True)
+    return out
+
+
+def elastic_kernel_rows(signal_run: dict) -> dict:
+    """K1's broadcast at (4, 11,352), K2 at the shrunk (4, 1000) batch and
+    K4 at (4, 11,353), the shapes a survivor alone gives them, on the
+    survivor's final params (with noise) and income-8's own packed rows of
+    its clients, against their plain versions, timed beside them and
+    their bounds; K4 bitwise, K1 within 1e-5, K2's counts equal but on
+    near-tie rows."""
+    from fedtpu_torch.models.mlp import mlp_apply, unflatten
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.ops.metrics import near_tie_rows
+    from fedtpu_torch.orchestration.checkpoint import (latest_step,
+                                                       load_checkpoint_raw)
+    from fedtpu_torch.orchestration.loop import build_experiment
+    dev = torch.device("cuda")
+    dims, k = INCOME_DIMS, INCOME_DIMS[-1]
+    saved = load_checkpoint_raw(signal_run["ck"],
+                                latest_step(signal_run["ck"]))[0]
+    params = (saved["params"] + 1e-2 * torch.randn(
+        saved["params"].shape, generator=torch.Generator().manual_seed(6))
+              ).to(dev)
+    batch = build_experiment(main_path_config(), device="cpu").batch
+    c, d = params.shape
+    x, y, mask = (batch[key][:c].to(dev) for key in ("x", "y", "mask"))
+    w = mask.sum(dim=1)
+    live = float(mask.sum())
+    avg = ck.weighted_average_clients(params, w, broadcast=True)
+    e1 = float((avg - ck.weighted_average_clients_reference(
+        params, w, broadcast=True)).abs().max())
+    check(e1 <= 1e-5, f"K1 broadcast at ({c}, {d}): max abs err {e1}")
+    conf = ck.fused_eval_confusion(params, dims, x, y, mask, k)
+    ref = ck.fused_eval_confusion_reference(params, dims, x, y, mask, k)
+    ties = near_tie_rows(mlp_apply(unflatten(params, dims), x)) & (mask > 0)
+    moved = (conf - ref).abs().sum(dim=(1, 2)) / 2
+    check(bool((moved <= ties.sum(dim=1)).all()),
+          f"K2 at the shrunk ({c}, {y.shape[1]}): counts differ on "
+          f"{int(moved.sum())} rows, near ties {int(ties.sum())}")
+    ring = torch.randn(c, d + 1, generator=torch.Generator().manual_seed(
+        5)).to(dev)
+    check(torch.equal(ck.ring_all_reduce_sum(ring),
+                      ck.ring_all_reduce_sum_reference(ring)),
+          f"K4 at ({c}, {d + 1}): not bitwise its plain version")
+    rows = {}
+    for name, kernel, plain, library, nbytes, flops, err, shape in (
+            ("weighted_average_clients",
+             lambda: ck.weighted_average_clients(params, w, broadcast=True),
+             lambda: ck.weighted_average_clients_reference(
+                 params, w, broadcast=True), None,
+             4 * (2 * params.numel() + c), 2.0 * params.numel(), e1,
+             f"survivor broadcast ({c}, {d}) fp32, data-size weights"),
+            ("fused_eval_confusion",
+             lambda: ck.fused_eval_confusion(params, dims, x, y, mask, k),
+             lambda: ck.fused_eval_confusion_reference(params, dims, x, y,
+                                                       mask, k), None,
+             4 * (params.numel() + live * (dims[0] + 1) + mask.numel()
+                  + c * k * k), mlp_flops(dims, live),
+             float((conf - ref).abs().max()),
+             f"survivor eval ({c}, {y.shape[1]}), {int(live)} real rows"),
+            ("ring_all_reduce_sum",
+             lambda: ck.ring_all_reduce_sum(ring),
+             lambda: ck.ring_all_reduce_sum_reference(ring),
+             lambda: ring.sum(dim=0), 2 * ring.numel() * 4,
+             float((c - 1) * ring.numel()), 0.0,
+             f"survivor ring, one process ({c}, {d + 1})")):
+        bnd, by = bound_ms(nbytes, flops)
+        rows[name] = {"shape": shape, "max_abs_err": err,
+                      "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                      "library_ms": library and time_ms(library),
+                      "bound_ms": bnd, "bound_by": by}
+        r = rows[name]
+        print(f"time {name} {shape}: kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library {r['library_ms']}  bound "
+              f"{bnd:.5f} ms ({by}); max abs err {err:.3e}; {CARD['smi']}",
+              flush=True)
+    # K1's broadcast has no one-call counterpart; the (D,) average that it
+    # broadcasts is one torch.matmul.
+    rows["weighted_average_clients"]["matmul_average_ms"] = time_ms(
+        lambda: torch.matmul(w / w.sum(), params))
+    print(f"time torch.matmul (D,) average at ({c}, {d}): "
+          f"{rows['weighted_average_clients']['matmul_average_ms']:.4f} ms",
+          flush=True)
+    return rows
+
+
+def elastic_chaos(procs: list, t0: float) -> dict:
+    """The four reshard and autoscale rows' reports (two a chaos child):
+    every row ok; each row's seconds, and mp_shrink_dead's restart
+    seconds, printed."""
+    rows = {}
+    for proc, names in zip(procs, ELASTIC_CHAOS):
+        out, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"chaos {names} rc {proc.returncode}: "
+              f"{out[-2000:]} {err[-2000:]}")
+        report = json.loads(out.strip().splitlines()[-1])
+        mine = {r["scenario"]: r for r in report["scenarios"]}
+        check(report["ok"] and sorted(mine) == sorted(names),
+              f"chaos elastic rows: {report}")
+        rows.update(mine)
+    times = {}
+    for name, row in rows.items():
+        times[name] = {k: row.get(k) for k in ("seconds", "restart_s")}
+        print(f"chaos {name}: ok, gang_restarts {row['gang_restarts']}, "
+              f"reshards {row['reshards']}, reshard_failures "
+              f"{row['reshard_failures']}"
+              + (f", spooled {row['spooled']}, lost_updates "
+                 f"{row['lost_updates']}, backlog {row['backlog']}, "
+                 f"slo_burn {row['slo_burn']}" if "spooled" in row else "")
+              + f"; {times[name]}", flush=True)
+    total = time.perf_counter() - t0
+    print(f"chaos reshard and autoscale rows (CLI, card): {total:.1f} s in "
+          f"all; {CARD['smi']}", flush=True)
+    return {"total_s": total, "rows": times}
+
+
+def phase_elastic_gang() -> tuple:
+    """Phase (w): the elastic gang on the card (the constants above). The
+    four chaos rows run as two children from the start, beside the psum
+    and ring shrink-and-grow gangs, K4 across a park, the signal path and
+    the elastic resume."""
+    import tempfile
+    numbers, seconds, by_path = {}, {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - clock[0], 2)
+        clock[0] = now
+
+    cli = [sys.executable, "-m", "fedtpu_torch.cli"]
+    k123 = ("weighted_average_clients", "fused_eval_confusion",
+            "fused_mlp_forward")
+    with tempfile.TemporaryDirectory() as directory:
+        t_chaos = time.perf_counter()
+        chaos = [subprocess.Popen(cli + [
+            "chaos", "--scenarios", ",".join(names), "--platform",
+            "default", "--num-clients", "8", "--hidden-sizes", "50,200",
+            "--synthetic-rows", "10000", "--json", "--quiet", "--workdir",
+            os.path.join(directory, f"chaos{i}"), "--timeout", "540"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for i, names in enumerate(ELASTIC_CHAOS)]
+        try:
+            numbers["psum"], paths = elastic_pair(
+                directory, "income-8 psum elastic gang",
+                ("income-8", ELASTIC_ROUNDS), 2, 4, k123)
+            by_path.update(paths)
+            lap("psum shrink and grow")
+            numbers["ring"], paths = elastic_pair(
+                directory, "income-32-noniid ring elastic gang",
+                ("income-32-noniid", ELASTIC_ROUNDS, "--aggregation",
+                 "ring"), 4, 16, k123[1:] + ("ring_all_reduce_sum",))
+            by_path.update(paths)
+            numbers["k4_park"] = k4_elastic_check(directory)
+            lap("ring shrink and grow, K4 across a park")
+            signal_run = elastic_signal(directory,
+                                        GANG_BASELINES["income-8"])
+            by_path.update({f"income-8 signal shrink, member {i}": m
+                            for i, m in enumerate(signal_run.pop(
+                                "launches"))})
+            numbers["signal"] = {k: v for k, v in signal_run.items()
+                                 if k != "ck"}
+            lap("signal path")
+            numbers["resume"] = elastic_resume(directory, signal_run)
+            lap("elastic resume")
+            numbers["kernel_rows"] = elastic_kernel_rows(signal_run)
+            lap("K1, K2, K4 at the survivor's shapes")
+            numbers["chaos"] = elastic_chaos(chaos, t_chaos)
+            lap("chaos (its wait)")
+        finally:
+            for p in chaos:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+    print(f"phase (w) seconds {json.dumps(seconds)}", flush=True)
     numbers["seconds"] = seconds
     return by_path, numbers
 
@@ -6964,6 +7552,13 @@ def main() -> None:
     print(f"phase (v) numbers {json.dumps(train_gang, default=float)}",
           flush=True)
     lap("(v)")
+    elastic_launches, elastic = phase_elastic_gang()
+    by_path.update(elastic_launches)
+    for name, row in elastic.pop("kernel_rows").items():
+        timings[name]["elastic"] = row
+    print(f"phase (w) numbers {json.dumps(elastic, default=float)}",
+          flush=True)
+    lap("(w)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -7012,7 +7607,8 @@ def main() -> None:
                 "marginal_us_per_round", "profile", "phases_us",
                 "delta_mean", "sweep", "cifar10_32", "bf16_fp16",
                 "sklearn_parity", "serve", "net_sim", "cohort",
-                "gateway_rows", "fuzz_rows", "gang", "train_gang_members")
+                "gateway_rows", "fuzz_rows", "gang", "train_gang_members",
+                "elastic")
                 if key in t},
             **({"mode": "sum: K1 unnormalised, the asynchronous tick's "
                 "psum(tensordot(disc, delta))"}

@@ -18,9 +18,9 @@ Two consumers of the same (SignalBus -> Policy) stack:
   polls the serving ``stats`` op for the machine-readable signals
   block, reads gang heartbeat files for membership, and executes
   decisions through the serving ``configure``/``pre_drain`` protocol
-  ops and SIGUSR1/SIGUSR2 to the gang supervisor (``fedtpu``'s reshard
-  notice path; the port's gang supervisor forwards them to a
-  gateway fleet; a training gang's live reshard is ROADMAP A10b).
+  ops and SIGUSR1/SIGUSR2 to the gang supervisor, which forwards them
+  to every member: a training gang's live reshard
+  (``fedtpu_torch.resilience.reshard``) or a gateway fleet.
   Preemption notices arrive through a notice FILE (``{"victim": p}``),
   so a drill and a real maintenance hook share one mechanism.
 

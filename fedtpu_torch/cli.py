@@ -12,15 +12,17 @@ against a running server or fleet), ``fedtpu autoscale`` (the SLO-driven
 control plane, simulated or live), the offline readers of a telemetry
 sink, ``fedtpu report`` and ``fedtpu timeline``, ``fedtpu supervise`` (one
 supervised child restarted with ``--resume``, or with ``--num-processes N``
-a gateway fleet as a gang), ``fedtpu chaos`` (the resilience scenario
-matrix: its single-process rows and its gateway, poisoning and wire
-rows), ``fedtpu fuzz`` (seeded composed fault campaigns against an
-in-process two-gateway gang, shrunk to reproducers) and ``fedtpu check``
+a training gang or a gateway fleet as a gang), ``fedtpu chaos`` (the
+resilience scenario matrix, every row of it), ``fedtpu fuzz`` (seeded
+composed fault campaigns against an in-process two-gateway gang, shrunk
+to reproducers) and ``fedtpu check``
 (the runtime probe that the round step replays without a recapture,
 with its simulation, fleet and corpus folds).
 
-``run`` exits 0 when done, 3 (``EXIT_DIVERGED``) on a divergence halt and
-75 (``EXIT_PREEMPTED``) after a SIGTERM drain, as ``fedtpu``'s.
+``run`` exits 0 when done, 3 (``EXIT_DIVERGED``) on a divergence halt,
+75 (``EXIT_PREEMPTED``) after a SIGTERM drain and 76 (``EXIT_RESHARDED``)
+as a gang member parked by an elastic shrink at the run's end, as
+``fedtpu``'s.
 
 Every flag is one that ``fedtpu.cli``'s parser also has, with the same
 meaning; ``--platform default`` means the GPU, ``--platform cpu`` the plain
@@ -346,6 +348,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in "
                         "--checkpoint-dir")
+    # run-only, as in fedtpu: the elastic reshard's partition window. A
+    # shrunk gang trains --num-clients C as the window [offset, offset+C)
+    # of a P-client partition, its shards bitwise the full-width run's.
+    p.add_argument("--partition-clients", type=int, default=None,
+                   help="shard the dataset as if for this many clients "
+                        "and keep only the --num-clients window starting "
+                        "at --partition-offset (elastic-reshard data "
+                        "layout; default: no window)")
+    p.add_argument("--partition-offset", type=_nonnegative_int,
+                   default=None,
+                   help="first global client row of the partition window "
+                        "(requires --partition-clients)")
     p.add_argument("--init-weights", default=None, metavar="NPZ",
                    help="warm-start every client from a saved weights "
                         "artifact (the sweep's --save-weights output); "
@@ -963,6 +977,12 @@ def config_from_args(args):
         shard = dataclasses.replace(shard, num_clients=args.num_clients)
     if args.shard_strategy is not None:
         shard = dataclasses.replace(shard, strategy=args.shard_strategy)
+    if getattr(args, "partition_clients", None) is not None:
+        shard = dataclasses.replace(shard,
+                                    partition_clients=args.partition_clients)
+    if getattr(args, "partition_offset", None) is not None:
+        shard = dataclasses.replace(shard,
+                                    partition_offset=args.partition_offset)
     if args.hidden_sizes is not None:
         model = dataclasses.replace(model, hidden_sizes=args.hidden_sizes)
     if args.compute_dtype is not None:
@@ -1590,7 +1610,7 @@ def main(argv=None) -> int:
         gang = multihost.initialize_from_env(args.platform)
     elif os.environ.get(ENV_COORDINATOR):
         from fedtpu_torch.config import _not_ported
-        _not_ported(f"{args.command} in a training gang", "A10b")
+        _not_ported(f"{args.command} in a training gang", "A10d")
     cfg = config_from_args(args)
     device = "cpu" if args.platform == "cpu" else "cuda"
     if args.command in ("sweep", "parity"):

@@ -72,13 +72,12 @@ class ShardConfig:
     unseeded_per_client_bug: bool = False
     strategy: str = "contiguous"         # 'contiguous' | 'label_sort' | 'dirichlet'
     dirichlet_alpha: float = 0.5
-    # fedtpu's partition view for elastic-reshard runs; 0 = off.
+    # The partition view (fedtpu's, for elastic-reshard runs): shard the
+    # data as if ``partition_clients`` clients existed and keep the
+    # ``num_clients`` window starting at ``partition_offset``
+    # (fedtpu_torch.data.sharding); 0 = off.
     partition_clients: int = 0
     partition_offset: int = 0
-
-    def __post_init__(self):
-        _refuse_unported(self, {"partition_clients": "A10b",
-                                "partition_offset": "A10b"})
 
 
 @dataclasses.dataclass(frozen=True)

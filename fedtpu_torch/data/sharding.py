@@ -4,6 +4,13 @@ Seeded numpy on both sides, so the packed arrays are bitwise ``fedtpu``'s.
 Every shard is padded to the longest one (rounded up to ``pad_multiple``)
 with a ``(clients, samples)`` validity mask and the true per-client counts,
 which drive the data-size-weighted FedAvg.
+
+The partition view (``ShardConfig.partition_clients``) shards as if
+``partition_clients`` clients existed and keeps the ``num_clients`` window
+at ``partition_offset``, with the pad length taken over every shard of the
+partition: each kept client's packed rows, padding included, are bitwise
+its rows of the full pack. An elastic shrink rebuilds the survivors' data
+through it (``fedtpu_torch.orchestration.loop``).
 """
 
 from __future__ import annotations
@@ -42,8 +49,30 @@ def _contiguous_bounds(num_samples: int, num_clients: int):
     return bounds
 
 
+def _partition_view(cfg: ShardConfig):
+    """``(full_cfg, offset)`` of the partition window: the config of the
+    whole partition (window fields cleared) and the window's first client;
+    ``(None, 0)`` when the view is off. A window outside the partition
+    raises, with ``fedtpu``'s message."""
+    if cfg.partition_clients <= 0:
+        return None, 0
+    if not (0 <= cfg.partition_offset and cfg.partition_offset
+            + cfg.num_clients <= cfg.partition_clients):
+        raise ValueError(
+            f"partition window [{cfg.partition_offset}, "
+            f"{cfg.partition_offset + cfg.num_clients}) exceeds "
+            f"partition_clients={cfg.partition_clients}")
+    full = dataclasses.replace(cfg, num_clients=cfg.partition_clients,
+                               partition_clients=0, partition_offset=0)
+    return full, cfg.partition_offset
+
+
 def shard_indices(y: np.ndarray, cfg: ShardConfig) -> List[np.ndarray]:
-    """Return per-client index arrays into the train set."""
+    """Return per-client index arrays into the train set (the window's,
+    under the partition view)."""
+    full, offset = _partition_view(cfg)
+    if full is not None:
+        return shard_indices(y, full)[offset:offset + cfg.num_clients]
     n = len(y)
     c = cfg.num_clients
     rng = np.random.default_rng(cfg.shard_seed)
@@ -80,9 +109,15 @@ def shard_indices(y: np.ndarray, cfg: ShardConfig) -> List[np.ndarray]:
 
 def pack_clients(x: np.ndarray, y: np.ndarray, cfg: ShardConfig,
                  pad_multiple: int = 8) -> ClientBatch:
-    """Shard then pack into padded dense arrays (see module docstring)."""
-    idx = shard_indices(y, cfg)
-    max_n = max((len(i) for i in idx), default=0)
+    """Shard then pack into padded dense arrays (see module docstring);
+    under the partition view the pad length is the whole partition's."""
+    full, offset = _partition_view(cfg)
+    if full is not None:
+        every = shard_indices(y, full)
+        idx = every[offset:offset + cfg.num_clients]
+    else:
+        every = idx = shard_indices(y, cfg)
+    max_n = max((len(i) for i in every), default=0)
     max_n = max(1, -(-max_n // pad_multiple) * pad_multiple)
 
     c = cfg.num_clients

@@ -20,8 +20,11 @@ shards it owns: member i of P writes its own clients' rows as
 ``state.p<i>-of-<P>``, the members meet at a barrier, and process 0 then
 writes ``meta`` (the history, the gang's client count, ``num_processes``).
 Such a round is complete when ``meta`` and all P parts are there. A gang of
-the same size restores it bit for bit, each member its own part; another
-size (or one process) raises, naming ROADMAP A10b.
+the same size restores it bit for bit, each member its own part. A gang of
+another size, or one process, restores it too (an elastic resume, or the
+resume of a shrunk gang's round): each member reads the parts that cover
+its rows and takes its rows of them, bit for bit; a one-process round
+restores into a gang the same way.
 
 The default telemetry registry counts ``checkpoint_saves``,
 ``checkpoint_bytes_written`` (the saved state's tensor bytes),
@@ -222,14 +225,58 @@ def load_meta(directory: str, step: Optional[int] = None) -> dict:
     return _read(os.path.join(_ckpt_path(directory, step), "meta"))
 
 
+def _client_rows(tree: dict, num_clients: int, pick) -> dict:
+    """``tree`` with each per-client tensor (``round.per_client_view``'s
+    rule at ``num_clients``) replaced by ``pick(tensor)``."""
+    from fedtpu_torch.parallel.round import _per_client_slots
+    flags = {path: pc for path, _, pc in _per_client_slots(tree,
+                                                           num_clients)}
+
+    def walk(t, prefix):
+        return {k: (walk(v, prefix + (k,)) if isinstance(v, dict)
+                    else pick(v) if flags.get(prefix + (k,)) else v)
+                for k, v in t.items()}
+    return walk(tree, ())
+
+
+def _read_rows(path: str, saved: int, num_clients: int, lo: int,
+               hi: int) -> dict:
+    """Client rows ``[lo, hi)`` of a round saved by ``saved`` processes:
+    the parts that cover them, each holding ``num_clients / saved`` rows,
+    concatenated in member order; the replicated entries from the first
+    of them."""
+    held = num_clients // saved
+    if saved == 1:
+        parts, base = [_read(os.path.join(path, "state"))], 0
+    else:
+        first, last = lo // held, -(-hi // held)
+        parts = [_read(os.path.join(path, part_name(j, saved)))
+                 for j in range(first, last)]
+        base = first * held
+    # Each part's per-client tensors wrapped in a list, so that the join
+    # below can tell them from the replicated ones.
+    lists = [_client_rows(p, held, lambda t: [t]) for p in parts]
+
+    def join(trees):
+        return {k: (join([t[k] for t in trees])
+                    if isinstance(trees[0][k], dict)
+                    else torch.cat([t[k][0] for t in trees])
+                    if isinstance(trees[0][k], list) else trees[0][k])
+                for k in trees[0]}
+    return _client_rows(join(lists), held * len(parts),
+                        lambda t: t[lo - base:hi - base].clone())
+
+
 def load_checkpoint_raw(directory: str, step: Optional[int] = None,
                         part: Optional[tuple] = None
                         ) -> Tuple[dict, dict, int]:
-    """``(state, history, step)`` of a checkpoint as saved: CPU tensors at
-    the saved client count; the newest complete one by default. ``part``
-    ``(process_index, process_count)``: a gang member's own rows of a
-    gang's round; a round of another gang size, or of one process, raises
-    (restoring into another size is ROADMAP A10b)."""
+    """``(state, history, step)`` of a checkpoint as saved: CPU tensors;
+    the newest complete one by default. ``part`` ``(process_index,
+    process_count)``: a gang member's rows (its block of the saved client
+    count), else every client. A round saved by a gang of the same size
+    gives each member its own part; any other layout (one process, or a
+    gang of another size) gives the rows from the parts that cover them,
+    bit for bit."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -238,13 +285,14 @@ def load_checkpoint_raw(directory: str, step: Optional[int] = None,
     meta = _read(os.path.join(path, "meta"))
     saved = int(meta.get("num_processes", 1))
     procs = 1 if part is None else int(part[1])
-    if saved != procs:
-        from fedtpu_torch.config import _not_ported
-        _not_ported(f"restoring round {step}, saved by {saved} process(es), "
-                    f"into {procs} process(es) (a gang checkpoint restores "
-                    "into a gang of its own size)", "A10b")
-    state = _read(os.path.join(path, "state" if part is None
-                               else part_name(*part)))
+    if saved == procs:
+        state = _read(os.path.join(path, "state" if part is None
+                                   else part_name(*part)))
+    else:
+        num_clients = int(meta["num_clients"])
+        per = num_clients // procs
+        lo = 0 if part is None else int(part[0]) * per
+        state = _read_rows(path, saved, num_clients, lo, lo + per)
     default_registry().counter("checkpoint_restores").inc()
     return state, _history(meta), int(meta["step"])
 
@@ -261,16 +309,13 @@ def load_checkpoint_fallback(directory: str, part: Optional[tuple] = None,
     ``max_step``: a gang's agreed step) that actually loads, walking back
     past rounds that fail to (a commit proves both files were renamed into
     place, not that their bytes are intact). Each failure warns. Raises
-    FileNotFoundError when none loads. ``part``: ``load_checkpoint_raw``'s.
-    A round of another gang size raises at once."""
+    FileNotFoundError when none loads. ``part``: ``load_checkpoint_raw``'s."""
     steps = [s for s in complete_steps(directory)
              if max_step is None or s <= max_step]
     last_err: Optional[Exception] = None
     for step in reversed(steps):
         try:
             return load_checkpoint_raw(directory, step, part=part)
-        except NotImplementedError:
-            raise
         except Exception as e:
             last_err = e
             default_registry().counter("checkpoint_restore_corrupt").inc()

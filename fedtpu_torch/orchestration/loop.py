@@ -68,8 +68,26 @@ checkpoint into the live state tensors (no re-capture), truncates every
 history, optionally excludes the offending clients at weight 0
 (``rollback_exclude``) and perturbs the params from the second retry on.
 The ``fault``, ``rollback``, ``exclusion`` and ``preempted`` events, their
-counters and the manifest's plan digest go to the sink. Not ported
-(ROADMAP A10b): the elastic reshard's fault kinds.
+counters and the manifest's plan digest go to the sink.
+
+The live elastic reshard (``fedtpu_torch.resilience.reshard``), as
+``fedtpu``'s loop runs it: a plan's ``preempt_notice`` / ``preempt_cancel``
+or a SIGUSR1 / SIGUSR2 notice resizes the run at a loop-top, with no
+restart. A shrink moves the state with the wire-free plan
+(``fedtpu_torch.parallel.reshard``), rebuilds the experiment at the target
+width through the partition view (the survivors' window of the data, bitwise
+their rows of the full pack), captures new CUDA graphs for it, and keeps the
+original build (graphs, exchange, process group) on a stack; in a gang the
+departing member parks and the survivors run over their own process group
+(``multihost.split``), or, a survivor alone, the one-process round. A grow
+copies the grown state into the original graphs' static state tensors in
+place and replays them: nothing is captured again. It needs
+``rounds_per_step`` 1 and no pipelined stop (a gang's plan also a
+checkpoint dir); a plan under another config raises at start, and a signal
+under one drains instead (``reshard_degraded``). A failed reshard raises
+``ReshardFailed``, the gang-restart path. The ``reshard_begin``,
+``reshard_done`` and ``reshard_failed`` events and the ``reshard_move`` and
+``reshard_build`` spans go to the sink.
 
 A training gang (``fedtpu_torch.parallel.multihost``: ``run`` under
 ``supervise --num-processes N``) runs this loop on every member, each over
@@ -85,8 +103,11 @@ common step (``resilience.distributed.agree_resume_step``) and checks
 that every member restored it, and ``collective_timeout`` arms the
 collective watchdog around the blocking windows. Early stop and the
 divergence halt stay consensual: every member reads the same gathered
-metrics. Not in a gang yet (ROADMAP A10b): cohort mode, pipelined stop,
-rollback, personalization, a warm start and the client-targeted faults.
+metrics. A gang's checkpoint restores into a gang of another size, or into
+one process, and the other way round: at the same client count each member
+its rows, bitwise; at another, the elastic resume. Not in a gang yet
+(ROADMAP A10d): cohort mode, pipelined stop, rollback, personalization, a
+warm start and the client-targeted faults.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
 with no GPU and no such request they raise rather than fall back.
@@ -130,7 +151,7 @@ from fedtpu_torch.parallel.async_fed import (async_global_params,
                                              record_tick_telemetry)
 from fedtpu_torch.parallel.mesh import ClientMesh, make_mesh
 from fedtpu_torch.parallel.ring import GangExchange
-from fedtpu_torch.parallel.round import (assemble_metrics,
+from fedtpu_torch.parallel.round import (_per_client_slots, assemble_metrics,
                                          build_eval_fn, build_round_fn,
                                          capture_gang_step,
                                          capture_round_step, check_knobs,
@@ -425,9 +446,11 @@ def check_resilience_config(cfg: ExperimentConfig) -> None:
                 "average in at weight 1)")
 
 
-# The fault kinds a training gang applies; the others target clients or
-# files by index, which a gang member would have to map onto its own block.
-GANG_FAULT_KINDS = ("process_kill", "collective_hang", "straggler")
+# The fault kinds a training gang applies (the reshard kinds are the
+# reshard controller's); the others target clients or files by index,
+# which a gang member would have to map onto its own block.
+GANG_FAULT_KINDS = ("process_kill", "collective_hang", "straggler",
+                    "preempt_notice", "preempt_cancel")
 
 
 def check_gang_config(cfg: ExperimentConfig) -> None:
@@ -443,7 +466,7 @@ def check_gang_config(cfg: ExperimentConfig) -> None:
             (fed.personalize_steps > 0, "personalize_steps"),
             (bool(fed.init_weights_npz), "init_weights_npz")):
         if on:
-            _not_ported(f"{what} in a training gang", "A10b")
+            _not_ported(f"{what} in a training gang", "A10d")
     if run.fault_plan:
         from fedtpu_torch.resilience.faults import FaultPlan
         plan = FaultPlan.load(run.fault_plan,
@@ -453,7 +476,7 @@ def check_gang_config(cfg: ExperimentConfig) -> None:
                         if f.kind not in GANG_FAULT_KINDS})
         if kinds:
             _not_ported(f"fault kind(s) {kinds} in a training gang (it "
-                        f"applies {list(GANG_FAULT_KINDS)})", "A10b")
+                        f"applies {list(GANG_FAULT_KINDS)})", "A10d")
 
 
 def _copy_state_into(live: dict, restored: dict) -> None:
@@ -468,10 +491,15 @@ def _copy_state_into(live: dict, restored: dict) -> None:
             live[k] = v
 
 
+# build_experiment's default gang: this process's (multihost.current()).
+_CURRENT = object()
+
+
 def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                      device="cuda", init_params=None,
                      participation_masks=None, dp_noise=None,
-                     arrival_masks=None) -> Experiment:
+                     arrival_masks=None, mesh: Optional[ClientMesh] = None,
+                     gang=_CURRENT) -> Experiment:
     """Wire data -> device -> mesh -> model -> optimizer -> round factory
     (the tick factory under ``FedConfig.async_mode``).
 
@@ -492,8 +520,13 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     process (the asynchronous engine's shared start from all of them), on
     its own device; every mask and arrival table stays the gang's, the
     member taking its columns. The round exchanges through one
-    ``GangExchange``, built here once."""
-    gang = multihost.current()
+    ``GangExchange``, built here once.
+
+    ``mesh`` and ``gang``: a live reshard's rebuild (the shrunk mesh,
+    ``parallel.mesh.submesh``, and the survivors' gang or None for a
+    survivor alone) instead of ``make_mesh`` over this process's gang."""
+    if gang is _CURRENT:
+        gang = multihost.current()
     dev = resolve_device(device)
     if gang is not None:
         if (dev.type == "cpu") != (gang.device.type == "cpu"):
@@ -536,7 +569,8 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             fed.byzantine_clients, fed.scaffold)
 
     params = None if init_params is None else params_from_jax(init_params)
-    mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev, gang=gang)
+    if mesh is None:
+        mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev, gang=gang)
     rows = multihost.local_client_slice(mesh)
     exchange = None
     if gang is not None:
@@ -880,6 +914,12 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     # The host's copy of the sample mask (the client-mean metrics' empty
     # shards): its own tensor, since faults edit the device mask in place;
     # in a gang, every member's rows.
+    if cfg.run.checkpoint_dir and proc == 0:
+        # A dead gang's reshard records never reach this run: process 0
+        # clears them before the gang's first collective (the gather
+        # below), so no peer has published one of this run's yet.
+        from fedtpu_torch.resilience.distributed import clear_reshard_records
+        clear_reshard_records(cfg.run.checkpoint_dir)
     mask_host = multihost.gather_rows(gang, batch["mask"]).cpu().clone()
     exchange = exp.exchange
     x_test = torch.from_numpy(ds.x_test).to(dev)
@@ -889,6 +929,9 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     # Supervisor restart generation (FEDTPU_RESTARTS): in the manifest, and
     # it disarms the plan's once-per-run faults.
     restart_count = int(os.environ.get("FEDTPU_RESTARTS", "0") or 0)
+    # The live reshard fires at an exact round boundary, between chunks of
+    # one round, with the synchronous stop path.
+    reshard_live = cfg.run.rounds_per_step == 1 and not cfg.run.pipelined_stop
     injector = None
     if cfg.run.fault_plan:
         from fedtpu_torch.resilience.faults import (RESHARD_KINDS,
@@ -896,8 +939,18 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         plan = FaultPlan.load(cfg.run.fault_plan, num_clients=num_clients,
                               rounds=cfg.fed.rounds)
         if any(f.kind in RESHARD_KINDS for f in plan.faults):
-            _not_ported("a fault plan's preempt_notice/preempt_cancel (the "
-                        "live elastic reshard)", "A10b")
+            # fedtpu's refusals, with its messages: the plan promised an
+            # exact-round reshard the config cannot deliver.
+            if not reshard_live:
+                raise ValueError("preempt_notice/preempt_cancel faults "
+                                 "require rounds_per_step=1 and "
+                                 "pipelined_stop off: the reshard fires at "
+                                 "an exact round boundary")
+            if gang is not None and not ckpt_dir:
+                raise ValueError("multi-process elastic reshard needs "
+                                 "checkpoint_dir: the commit barrier and "
+                                 "grow spool live under "
+                                 "<checkpoint_dir>/.reshard")
         injector = FaultInjector(plan, restart_count=restart_count,
                                  tracer=tracer, registry=registry,
                                  process_index=proc)
@@ -926,6 +979,22 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             cfg.run.collective_timeout, events_path=tel.events_path,
             process_index=proc, heartbeat=heartbeat,
             restart_count=restart_count).start()
+
+    # The live elastic reshard's protocol (fedtpu_torch.resilience.reshard):
+    # the plan's notices, SIGUSR1 / SIGUSR2 and the records of a gang.
+    from fedtpu_torch.resilience.distributed import ENV_LAUNCH_ID
+    from fedtpu_torch.resilience.reshard import ReshardController
+    reshard_ctl = ReshardController(
+        plan=injector.plan if injector is not None else None,
+        process_index=proc,
+        process_count=1 if gang is None else gang.process_count,
+        launch_id=os.environ.get(ENV_LAUNCH_ID) or None,
+        restart_count=restart_count, checkpoint_dir=ckpt_dir or None,
+        ack_timeout=cfg.run.collective_timeout or 60.0, tracer=tracer,
+        registry=registry, heartbeat=cfg.run.heartbeat_file or None)
+    reshard_ctl.install_signal_handlers()
+    # The builds a shrink replaced, newest last, for the grow back.
+    reshard_stack: List[dict] = []
 
     def guard(phase: str, rnd: Optional[int] = None):
         if watchdog is None:
@@ -989,37 +1058,35 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 "matching engine, or warm-start a fresh run from exported "
                 "weights")
         saved_c = int(meta["num_clients"])
+        part = None if gang is None else (proc, gang.process_count)
         if saved_c == num_clients:
+            # Each member's own rows, whatever gang size (or one process)
+            # wrote the round: the parts covering them, bit for bit.
             raw, restored_history, start_round = load_checkpoint_fallback(
-                ckpt_dir, max_step=agreed_step,
-                part=None if gang is None else (proc, gang.process_count))
+                ckpt_dir, max_step=agreed_step, part=part)
+            if engine_async and ("global" in state) != ("global" in raw):
+                # A gang's asynchronous state carries the global; one
+                # process's derives it: the freshest anchor of the round.
+                if "global" in state:
+                    raw["global"] = async_global_params(load_checkpoint_raw(
+                        ckpt_dir, step=start_round)[0])
+                else:
+                    del raw["global"]
             state = _restore_state(raw, state, dev)
             log.info(f"Resumed from checkpoint at round {start_round}.")
             # The ledger's curve comes from the round actually restored.
             restored_meta = load_meta(ckpt_dir, step=start_round)
-            if gang is not None:
-                # The agreement bounds the step; the restore is each
-                # member's own, and a member whose agreed round failed to
-                # load walked back: refuse to train desynced.
-                with guard("resume_verify"):
-                    rounds = gang.all_gather(torch.tensor([start_round]))
-                if int(rounds.min()) != int(rounds.max()):
-                    raise RuntimeError(
-                        "post-restore desync: the gang restored different "
-                        f"rounds {rounds.flatten().tolist()} (agreed step: "
-                        f"{agreed_step}); refusing to train desynced")
-        elif gang is not None:
-            _not_ported(f"an elastic resume of a training gang ({saved_c} "
-                        f"-> {num_clients} clients)", "A10b")
         else:
             # Elastic resume: a periodic checkpoint holds a post-average
             # state, every slot the global model; its mean over the slots
-            # goes into every slot of the new count, and each client starts
-            # fresh optimizer state (moments cannot be re-shaped across
-            # counts). The server optimizer's state and the adaptive clip
-            # do not depend on the count and carry over; the per-client
-            # control variates restart at zero, like the moments.
-            raw, restored_history, start_round = load_checkpoint_raw(ckpt_dir)
+            # goes into every slot of the new count (a gang member's
+            # slots), and each client starts fresh optimizer state
+            # (moments cannot be re-shaped across counts). The server
+            # optimizer's state and the adaptive clip do not depend on the
+            # count and carry over; the per-client control variates restart
+            # at zero, like the moments.
+            raw, restored_history, start_round = load_checkpoint_raw(
+                ckpt_dir, step=agreed_step)
             restored_meta = load_meta(ckpt_dir, step=start_round)
             if engine_async != ("anchors" in raw):
                 raise ValueError(
@@ -1031,6 +1098,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                     f"{saved_c}), or warm-start a fresh run from exported "
                     "weights")
             dtype = state["params"].dtype
+            slots_n = state["params"].shape[0]
             if engine_async:
                 # A restart is every client re-pulling the current global,
                 # the freshest anchor (the slots hold distinct local
@@ -1038,23 +1106,25 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 # tick, fresh optimizer state, and the pending K-buffer
                 # dropped (its deltas reference a cohort that is gone).
                 g = async_global_params(raw).to(device=dev, dtype=dtype)
-                slots = g.expand(num_clients, -1).contiguous()
+                slots = g.expand(slots_n, -1).contiguous()
                 state = {**state, "params": slots.clone(), "anchors": slots,
                          "pull_tick": torch.full(
-                             (num_clients,), start_round, dtype=torch.int32,
+                             (slots_n,), start_round, dtype=torch.int32,
                              device=dev),
                          "round": start_round}
+                if "global" in state:
+                    state["global"] = g.clone()
                 dropped = float(raw.get("buf_count", 0.0))
                 buf_note = (f", {int(dropped)} pending buffered updates "
                             "dropped" if dropped > 0 else "")
                 log.info(f"Async elastic resume at tick {start_round}: "
-                    f"{saved_c} -> {num_clients} clients (freshest-anchor "
-                         "global carried over, every client re-pulled, "
-                         f"fresh optimizer state{buf_note}).")
+                         f"{saved_c} -> {num_clients} clients (freshest-"
+                         "anchor global carried over, every client "
+                         f"re-pulled, fresh optimizer state{buf_note}).")
             else:
                 g = raw["params"].to(torch.float32).numpy().mean(axis=0)
                 params = torch.from_numpy(np.ascontiguousarray(
-                    np.broadcast_to(g, (num_clients, g.shape[0])))).to(
+                    np.broadcast_to(g, (slots_n, g.shape[0])))).to(
                         device=dev, dtype=dtype)
                 state = {**state, "params": params,
                          "opt_state": exp.tx.init(params),
@@ -1068,6 +1138,17 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                          f"{saved_num_clients(raw)} -> {num_clients} "
                          "clients (global model carried over, fresh client "
                          f"optimizer state{cv_note}).")
+        if gang is not None:
+            # The agreement bounds the step; the restore is each member's
+            # own, and a member whose agreed round failed to load walked
+            # back: refuse to train desynced.
+            with guard("resume_verify"):
+                rounds = gang.all_gather(torch.tensor([start_round]))
+            if int(rounds.min()) != int(rounds.max()):
+                raise RuntimeError(
+                    "post-restore desync: the gang restored different "
+                    f"rounds {rounds.flatten().tolist()} (agreed step: "
+                    f"{agreed_step}); refusing to train desynced")
     if restored_history is not None:
         # A gang member stamps its wall clock: the chaos rows time a gang
         # restart from the supervisor's relaunch to it.
@@ -1231,16 +1312,21 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             steps[width] = exp.make_step(width)
         return steps[width]
 
-    # Client sampling, and the asynchronous engine's arrivals: every
-    # round's on the device up front, so a chunk's are a device-to-device
-    # copy (into the graph's buffer); so is its first tick.
-    draw = (get_step(chunk).draw_arrivals if engine_async
-            else get_step(chunk).draw_masks)
-    mask_table = (draw(0, cfg.fed.rounds).to(dev)
-                  if draw is not None and cfg.fed.rounds > 0 else None)
+    def step_tables():
+        """Client sampling, and the asynchronous engine's arrivals: every
+        round's on the device up front, so a chunk's are a device-to-device
+        copy (into the graph's buffer); and the DP noise's draw. Drawn
+        again for a reshard's rebuild."""
+        draw = (get_step(chunk).draw_arrivals if engine_async
+                else get_step(chunk).draw_masks)
+        return ((draw(0, cfg.fed.rounds).to(dev)
+                 if draw is not None and cfg.fed.rounds > 0 else None),
+                None if engine_async else get_step(chunk).draw_noise)
+
+    mask_table, draw_noise = step_tables()
+    # So is a chunk's first tick.
     tick_table = (torch.arange(cfg.fed.rounds + 1, dtype=torch.int32,
                                device=dev) if engine_async else None)
-    draw_noise = None if engine_async else get_step(chunk).draw_noise
     noise_ahead: Dict[tuple, torch.Tensor] = {}
 
     def chunk_noise(rnd: int, take: int) -> Optional[torch.Tensor]:
@@ -1423,6 +1509,331 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 termination_count = cfg.fed.termination_patience
         sp_stop.end()
 
+    # ---- The live elastic reshard (fedtpu's loop :1563-1845) ----------
+    def join_fn(join_map: dict, tick_round: int):
+        """A join row's values (``reshard_state``'s ``join_rows``): the
+        live global model for params and anchors, the current round for
+        ``pull_tick``, zeros (fresh moments and variates) for the rest,
+        as an elastic resume's joiner starts."""
+        def rows(path, count, row_shape, dtype):
+            if path in join_map:
+                return torch.as_tensor(join_map[path]).to(dtype).expand(
+                    (count,) + row_shape)
+            if path == "pull_tick":
+                return torch.full((count,) + row_shape, tick_round,
+                                  dtype=dtype)
+            return torch.zeros((count,) + row_shape, dtype=dtype)
+        return rows
+
+    def to_host(t: torch.Tensor) -> np.ndarray:
+        """A spooled tensor: numpy, 16-bit floats as float32 (exact)."""
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.to(torch.float32)
+        return t.detach().cpu().numpy()
+
+    def match_layout(moved: dict, like: dict, glob) -> dict:
+        """``moved`` held to the target build's layout: the asynchronous
+        gang state's ``global`` (which one process derives from the
+        freshest anchor) added as ``glob``, the live global (None: the
+        moved state's freshest anchor), or dropped; any other difference
+        raises ReshardFailed."""
+        from fedtpu_torch.resilience.reshard import ReshardFailed
+        if "global" in like and "global" not in moved:
+            moved["global"] = (glob if glob is not None
+                               else async_global_params(moved)).clone()
+        elif "global" in moved and "global" not in like:
+            del moved["global"]
+        if _state_layout(moved) != _state_layout(like):
+            raise ReshardFailed(
+                f"the moved state {_state_layout(moved)} does not fit the "
+                f"rebuilt round's {_state_layout(like)}")
+        return moved
+
+    def reshard_done(mode: str, rnd: int, steps_done, waits: dict,
+                     **payload) -> None:
+        reshard_ctl.event("reshard_done", rnd, mode=mode,
+                          steps=[x.to_json() for x in steps_done],
+                          barrier_s=waits, **payload)
+        beat("running", rnd)
+        # The reshard is not a round's time.
+        lap[0] = time.perf_counter()
+
+    def do_reshard(req, rnd: int) -> int:
+        """Run one agreed reshard at loop-top ``rnd`` and return the round
+        to go on from (the parked victim's: the grow round). A shrink moves
+        the state with the wire-free plan, rebuilds the experiment for the
+        kept shards and keeps the original build on ``reshard_stack``; a
+        grow moves the state back into the original graphs' static state
+        tensors and replays them. A participant that dies mid-protocol
+        times the barrier out: ReshardFailed, the gang-restart path."""
+        nonlocal state, batch, exp, gang, exchange, cfg, num_clients
+        nonlocal mask_host, steps, graphs, mask_table, draw_noise
+        nonlocal fault_weights, prev_metric, termination_count
+        from fedtpu_torch.parallel.mesh import submesh
+        from fedtpu_torch.parallel.reshard import (grow_row_map,
+                                                   reshard_state,
+                                                   shrink_row_map)
+        from fedtpu_torch.resilience.reshard import ReshardFailed
+        ctl = reshard_ctl
+        seq = ctl.seq
+        waits: dict = {}
+
+        def acks(phase: str, participants) -> None:
+            ctl.publish_ack(seq, phase, rnd)
+            t0 = time.perf_counter()
+            ctl.await_acks(seq, phase, participants)
+            waits[phase] = time.perf_counter() - t0
+
+        try:
+            if req.mode == "shrink":
+                mesh, cps = exp.mesh, exp.mesh.clients_per_shard
+                target = req.target_clients
+                survivors = (proc,)
+                if gang is not None:
+                    if ctl.parked_victim is not None:
+                        log.warning("Ignoring shrink notice: a member is "
+                                    "parked already (one reshard of a gang "
+                                    "at a time).")
+                        return rnd
+                    survivors = tuple(p for p in ctl.active
+                                      if p != req.victim)
+                    kept = len(survivors) * mesh.local_shards
+                    target = target or cps * kept
+                    if (target != cps * kept or not survivors
+                            or req.victim not in ctl.active):
+                        raise ReshardFailed(
+                            f"shrink target {target} does not match the "
+                            f"surviving shards ({kept} shards x {cps} "
+                            "clients/shard)")
+                elif not target:
+                    log.warning("Ignoring shrink notice: a single-process "
+                                "signal shrink needs a fault-plan "
+                                "target_clients.")
+                    return rnd
+                elif target % cps:
+                    # A shard stands for one of fedtpu's devices: one
+                    # process keeps whole shards, the first target / cps.
+                    raise ReshardFailed(
+                        f"shrink target {target} is not a whole number of "
+                        f"shards ({mesh.num_shards} shards x {cps} "
+                        "clients/shard; raise mesh_devices)")
+                ctl.event("reshard_begin", rnd, mode="shrink",
+                          victim=req.victim, target=target,
+                          notices=[list(n) for n in req.notices])
+                beat("resharding", rnd)
+                ctl.maybe_crash()
+                # Phase A: every member is at this loop-top with no
+                # collective in flight. A victim that died first fails it,
+                # before the group below is made.
+                acks("a", ctl.active)
+                new_gang = None
+                if gang is not None:
+                    # Every process of the world, in the same order.
+                    new_gang = multihost.split(gang, survivors)
+                    if proc == req.victim:
+                        ctl.committed("shrink", req.victim)
+                        log.info(f"Preempted member parking at round {rnd} "
+                                 "(state handed off; will rejoin on "
+                                 "grow).")
+                        return victim_grow(ctl.park(seq, rnd))
+                try:
+                    dst_mesh, kept_shards = submesh(
+                        mesh, process_indices=(survivors if gang is not None
+                                               else None),
+                        num_shards=target // cps, num_clients=target)
+                except ValueError as e:
+                    raise ReshardFailed(str(e)) from e
+                rows = [r for sh in kept_shards
+                        for r in range(sh * cps, (sh + 1) * cps)]
+                if rows != list(range(rows[0], rows[0] + target)):
+                    raise ReshardFailed(
+                        f"surviving client rows {rows} are not one "
+                        f"contiguous block of {target}; a shard is the "
+                        "unit of a reshard (mesh_devices), and the "
+                        "wire-free plan cannot renumber them")
+                block_start = rows[0]
+                with tracer.span("reshard_move", round=rnd):
+                    try:
+                        moved, done = reshard_state(
+                            state,
+                            src_rows=multihost.local_client_slice(mesh),
+                            dst_rows=multihost.local_client_slice(dst_mesh),
+                            row_map=shrink_row_map(block_start, target))
+                    except ValueError as e:
+                        raise ReshardFailed(str(e)) from e
+                # The survivors' data through the partition view: sharded
+                # as the original population, their window kept, each
+                # kept client's packed rows bitwise its rows before.
+                whole = cfg.shard.partition_clients or num_clients
+                cfg2 = dataclasses.replace(cfg, shard=dataclasses.replace(
+                    cfg.shard, num_clients=target, partition_clients=whole,
+                    partition_offset=(cfg.shard.partition_offset
+                                      + block_start)))
+                reshard_stack.append({
+                    "cfg": cfg, "exp": exp, "gang": gang,
+                    "exchange": exchange, "state": state, "batch": batch,
+                    "steps": steps, "graphs": graphs,
+                    "mask_table": mask_table, "draw_noise": draw_noise,
+                    "mask_host": mask_host, "num_clients": num_clients,
+                    "fault_weights": fault_weights,
+                    "block_start": block_start})
+                with tracer.span("reshard_build", round=rnd):
+                    exp2 = build_experiment(cfg2, exp.dataset, device=dev,
+                                            mesh=dst_mesh, gang=new_gang)
+                src_c = num_clients
+                state = match_layout(moved, exp2.state, None)
+                cfg, exp, gang, exchange = cfg2, exp2, new_gang, exp2.exchange
+                batch, num_clients = exp2.batch, target
+                steps, graphs = {}, {}
+                mask_table, draw_noise = step_tables()
+                noise_ahead.clear()
+                mask_host = multihost.gather_rows(
+                    gang, batch["mask"]).cpu().clone()
+                fault_weights = (exp.client_weights
+                                 if cfg.fed.weighting == "data_size"
+                                 and not engine_async else None)
+                # Phase B: every survivor holds the moved state; only then
+                # does anyone run a round of the shrunk gang.
+                acks("b", survivors)
+                ctl.committed("shrink", req.victim)
+                if history[METRIC_NAMES[0]]:
+                    prev_metric = [history[k][-1] for k in METRIC_NAMES]
+                termination_count = cfg.fed.termination_patience
+                reshard_done("shrink", rnd, done, waits, target=target,
+                             block_start=block_start)
+                log.info(f"Elastic shrink at round {rnd}: {src_c} -> "
+                         f"{target} clients (block offset {block_start}), "
+                         "no restart.")
+                return rnd
+
+            # ---- grow -------------------------------------------------
+            if not reshard_stack:
+                log.warning("Ignoring grow notice: nothing shrunk.")
+                return rnd
+            st = reshard_stack[-1]
+            orig_c, src_c = st["num_clients"], num_clients
+            ctl.event("reshard_begin", rnd, mode="grow", victim=req.victim,
+                      target=orig_c, notices=[list(n) for n in req.notices])
+            beat("resharding", rnd)
+            ctl.maybe_crash()
+            glob = exp.global_fn(state)
+            join_map = {k: glob for k in ("params", "anchors") if k in state}
+            multi = st["gang"] is not None
+            if multi and proc == min(ctl.active):
+                # The leader spools what the rejoiner needs BEFORE the
+                # grow record its park loop polls: the record's
+                # visibility implies the spool's completeness.
+                repl = {".".join(path): to_host(t) for path, t, pc in
+                        _per_client_slots(state, exp.mesh.local_clients)
+                        if not pc}
+                if "global" in st["state"] and "global" not in repl:
+                    repl["global"] = to_host(glob)
+                ctl.write_spool(ctl.seq, {k: to_host(v) for k, v in
+                                          join_map.items()}, repl, {
+                    "round": rnd,
+                    "history": {k: [float(v) for v in history[k]]
+                                for k in METRIC_NAMES},
+                    "prev_metric": prev_metric,
+                    "termination_count": termination_count,
+                    "ledger": {k: np.asarray(v).tolist() for k, v in
+                               ledger.checkpoint_meta(rnd).items()}})
+                ctl.publish_grow(ctl.seq, rnd, {
+                    "src_clients": src_c, "block_start": st["block_start"]})
+            participants = (tuple(sorted(set(ctl.active) | {req.victim}))
+                            if multi and req.victim >= 0 else ctl.active)
+            acks("a", participants)
+            with tracer.span("reshard_move", round=rnd):
+                grown, done = reshard_state(
+                    state, src_rows=multihost.local_client_slice(exp.mesh),
+                    dst_rows=multihost.local_client_slice(st["exp"].mesh),
+                    row_map=grow_row_map(src_c, orig_c, st["block_start"]),
+                    join_rows=join_fn(join_map, rnd))
+            grown = match_layout(grown, st["state"], glob)
+            acks("b", participants)
+            if exchange is not None:
+                # The survivors' exchange (their own IPC buffers, their
+                # group's barrier); the original one comes back.
+                exchange.close()
+            reshard_stack.pop()
+            cfg, exp, gang, exchange = (st["cfg"], st["exp"], st["gang"],
+                                        st["exchange"])
+            batch, num_clients = st["batch"], st["num_clients"]
+            steps, graphs = st["steps"], st["graphs"]
+            mask_table, draw_noise = st["mask_table"], st["draw_noise"]
+            mask_host, fault_weights = st["mask_host"], st["fault_weights"]
+            noise_ahead.clear()
+            # Into the original graphs' static state tensors, in place:
+            # their replays go on, nothing is captured again.
+            _copy_state_into(st["state"], grown)
+            state = st["state"]
+            ctl.committed("grow", req.victim if multi else -1)
+            if history[METRIC_NAMES[0]]:
+                prev_metric = [history[k][-1] for k in METRIC_NAMES]
+            termination_count = cfg.fed.termination_patience
+            reshard_done("grow", rnd, done, waits, target=orig_c)
+            log.info(f"Elastic grow at round {rnd}: {src_c} -> {orig_c} "
+                     "clients, no restart, no recompile.")
+            return rnd
+        except ReshardFailed as e:
+            ctl.event("reshard_failed", rnd, error=str(e))
+            beat("reshard_failed", rnd)
+            log.warning(f"Elastic reshard failed ({e}); degrading to the "
+                        "gang-restart contract.")
+            raise
+
+    def victim_grow(rec: dict) -> int:
+        """The parked member's rejoin: its rows of the grown state from
+        the leader's spool (join rows and replicated values over its parked
+        state's structure), copied into its own graphs' static state
+        tensors; the host state (history, early-stop comparator, DP
+        ledger) from the spool's control blob; it goes on at the grow
+        round, its graphs and exchange untouched."""
+        nonlocal state, prev_metric, termination_count, rounds_run, ledger
+        from fedtpu_torch.parallel.reshard import grow_row_map, reshard_state
+        ctl = reshard_ctl
+        seq = ctl.seq           # advanced past the shrink by committed()
+        r_grow = int(rec["round"])
+        join_map, repl, control = ctl.read_spool(seq)
+        ctl.event("reshard_begin", r_grow, mode="grow_rejoin", victim=proc,
+                  target=num_clients)
+        beat("resharding", r_grow)
+        participants = tuple(sorted(set(ctl.active) | {proc}))
+        waits: dict = {}
+        for phase in ("a", "b"):
+            if phase == "b":
+                mine = multihost.local_client_slice(exp.mesh)
+                with tracer.span("reshard_move", round=r_grow):
+                    grown, done = reshard_state(
+                        state, src_rows=mine, dst_rows=mine,
+                        row_map=grow_row_map(int(rec["src_clients"]),
+                                             num_clients,
+                                             int(rec["block_start"])),
+                        join_rows=join_fn(join_map, r_grow),
+                        replicated_values={k: torch.from_numpy(v)
+                                           for k, v in repl.items()})
+            ctl.publish_ack(seq, phase, r_grow)
+            t0 = time.perf_counter()
+            ctl.await_acks(seq, phase, participants)
+            waits[phase] = time.perf_counter() - t0
+        _copy_state_into(state, grown)
+        ctl.committed("grow", proc)
+        for k in METRIC_NAMES:
+            if control.get("history", {}).get(k) is not None:
+                history[k] = list(control["history"][k])
+        # The survivors' rule after a grow (do_reshard), not the spooled
+        # pre-grow comparator: the early stop must stay consensual.
+        prev_metric = ([history[k][-1] for k in METRIC_NAMES]
+                       if history[METRIC_NAMES[0]] else None)
+        termination_count = cfg.fed.termination_patience
+        if control.get("ledger"):
+            ledger = PrivacyLedger(
+                cfg.fed, start_round=r_grow,
+                restored_meta={k: np.asarray(v) for k, v in
+                               control["ledger"].items()})
+        rounds_run = r_grow
+        reshard_done("grow_rejoin", r_grow, done, waits)
+        return r_grow
+
     ckpt_every = cfg.run.checkpoint_every
     # Pipelined stop: chunk k+1 is dispatched before chunk k's outputs are
     # read. The history is the synchronous run's; a stop leaves the state one
@@ -1466,6 +1877,31 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                     beat("preempted", rnd)
                     raise Preempted(rnd)
                 break
+            if reshard_ctl.pending:
+                if not reshard_live or (gang is not None and not ckpt_dir):
+                    # A config that cannot reshard live (a plan entry
+                    # refused at start, so only a SIGNAL gets here):
+                    # degrade the notice to the drain, checkpoint + exit 75
+                    # + a gang restart at the new size.
+                    reshard_ctl.clear_signal()
+                    if ckpt_dir:
+                        tracer.event("reshard_degraded", round=rnd)
+                        registry.counter("reshard_degraded").inc()
+                        log.warning("Preemption notice under a config that "
+                                    "cannot live-reshard (rounds_per_step"
+                                    ">1, pipelined_stop, or no checkpoint_"
+                                    "dir); draining via the preempt path.")
+                        preempt["sig"] = getattr(signal, "SIGUSR1", 10)
+                        continue
+                    log.warning("Ignoring preemption notice: no "
+                                "checkpoint_dir to drain to and no "
+                                "live-reshard support in this config.")
+                else:
+                    req = reshard_ctl.poll(rnd)
+                    if req is not None:
+                        rnd = do_reshard(req, rnd)
+                        last = None
+                        continue
             take = min(chunk, cfg.fed.rounds - rnd)
             chunk_mask = mask_host
             if injector is not None:
@@ -1570,6 +2006,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 and cfg.run.halt_on_nonfinite and last is not None \
                 and not last.finite():
             halt_diverged(f"params/optimizer state after round {rnd}", rnd)
+        # A member still parked leaves with EXIT_RESHARDED (76) rather than
+        # wait for a grow that will not come. Only at a clean end: on a
+        # crash the supervisor's teardown collects it.
+        reshard_ctl.finish()
     finally:
         if watchdog is not None:
             # The epilogue (final params, the exchange's teardown) runs

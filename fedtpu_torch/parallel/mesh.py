@@ -52,6 +52,21 @@ def trim_to_divisor(n: int, num_clients: int) -> int:
     return n
 
 
+def check_gang_shape(shards: int, processes: int, num_clients: int) -> None:
+    """The one divisibility rule of a gang's mesh (``make_mesh``) and of a
+    shrunk one (``submesh``): the clients split evenly over the shards and
+    the shards over the processes. A shape that does not raises, naming
+    it."""
+    if shards % processes or not shards or (num_clients
+                                            and num_clients % shards):
+        raise ValueError(
+            f"a gang of {processes} processes lays {shards} shards over "
+            f"{num_clients} clients: the clients must split evenly over the "
+            f"shards and the shards over the processes (clients "
+            f"{num_clients} = processes {processes} x shards per process "
+            f"{shards / processes:g} x clients per shard)")
+
+
 @dataclasses.dataclass(frozen=True)
 class ClientMesh:
     """``num_shards`` shards of ``clients_per_shard`` clients each; shard
@@ -113,14 +128,8 @@ def make_mesh(num_devices: int = 0, num_clients: int = 0,
     n = num_devices or procs * (per_process or len(visible))
     if gang is None:
         n = trim_to_divisor(n, num_clients)
-    elif n % procs or (num_clients and num_clients % n):
-        raise ValueError(
-            f"a gang of {procs} processes lays {n} shards over "
-            f"{num_clients} clients: the clients must split evenly over the "
-            f"shards and the shards over the processes (clients "
-            f"{num_clients} = processes {procs} x shards per process "
-            f"{n // procs if n % procs == 0 else n / procs:g} x clients per "
-            "shard)")
+    else:
+        check_gang_shape(n, procs, num_clients)
     local = n // procs
     return ClientMesh(
         num_shards=n,
@@ -128,3 +137,45 @@ def make_mesh(num_devices: int = 0, num_clients: int = 0,
         devices=tuple(visible[d % len(visible)] for d in range(local)),
         num_processes=procs,
         process_index=0 if gang is None else gang.process_index)
+
+
+def submesh(mesh: ClientMesh, process_indices=None, num_shards: int = 0,
+            num_clients: int = 0) -> Tuple[ClientMesh, Tuple[int, ...]]:
+    """A live reshard's mesh (``fedtpu``'s ``submesh``) over a subset of
+    ``mesh``'s shards, in their original order, and the source shards it
+    keeps. ``process_indices``: a gang's survivors keep their own shards,
+    and become members ``0..k-1`` of a gang of ``k``; this process must be
+    one of them. Otherwise the first ``num_shards`` shards (all when 0).
+    Either way the extent is trimmed to divide ``num_clients`` when given,
+    and a gang's shrunk shape obeys ``check_gang_shape``. A shard stands
+    for one of ``fedtpu``'s devices, so a target client count is a whole
+    number of shards: the caller checks that the kept shards hold it."""
+    local = mesh.local_shards
+    if process_indices is not None:
+        members = sorted(set(int(p) for p in process_indices))
+        if mesh.process_index not in members:
+            raise ValueError(f"submesh: process {mesh.process_index} is not "
+                             f"among the survivors {members}")
+        shards = [p * local + j for p in members for j in range(local)]
+    else:
+        members = None
+        shards = list(range(mesh.num_shards))
+    if not shards:
+        raise ValueError("submesh: no shards left for the requested "
+                         f"process set {members}")
+    n = trim_to_divisor(min(num_shards or len(shards), len(shards)),
+                        num_clients)
+    kept = tuple(shards[:n])
+    cps = num_clients // n if num_clients else mesh.clients_per_shard
+    if members is not None and len(members) > 1:
+        check_gang_shape(n, len(members), num_clients)
+        return ClientMesh(num_shards=n, clients_per_shard=cps,
+                          devices=mesh.devices[:n // len(members)],
+                          num_processes=len(members),
+                          process_index=members.index(mesh.process_index)
+                          ), kept
+    return ClientMesh(num_shards=n, clients_per_shard=cps,
+                      devices=mesh.devices[:n]
+                      if mesh.num_processes == 1 else
+                      tuple(mesh.devices[j % len(mesh.devices)]
+                            for j in range(n))), kept

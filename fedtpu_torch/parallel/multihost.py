@@ -20,6 +20,17 @@ processes of ``run``, each holding a contiguous block of the clients:
   (``local_client_slice``, ``fedtpu``'s rule: the contiguous block of the
   member's shards), so ``fedtpu``'s ``safe_put`` has no counterpart.
 
+After a live reshard's shrink (``fedtpu_torch.resilience.reshard``) the
+survivors run as a gang over a SUBGROUP (``split``): every collective of
+the loop goes to the survivors' group, since one on the world group would
+wait for the parked member forever. ``torch.distributed.new_group`` must be
+called by every process of the world in the same order, members or not,
+so ``split`` runs after the reshard's phase-A barrier, while the departing
+member is still at its loop-top. The world group is never destroyed: a
+grow back takes it up again. A process that split does not destroy the
+process group at its end (``shutdown``): a parked or departed member
+would be waited on.
+
 Every collective here is a host call between the round's pieces
 (``fedtpu_torch.parallel.round``), never inside a CUDA graph. Members
 exchange in a fixed order, so every member ends a collective with the same
@@ -37,18 +48,25 @@ import torch
 
 class Gang:
     """This process's membership: ``process_index`` of ``process_count``,
-    the ``backend`` and the member's ``device`` (its card, or the CPU)."""
+    the ``backend`` and the member's ``device`` (its card, or the CPU).
+    ``group``: the process group its collectives use (None: the world);
+    ``ranks``: the world ranks of its members, in member order."""
 
     def __init__(self, process_index: int, process_count: int, backend: str,
-                 device: torch.device):
+                 device: torch.device, group=None, ranks=None):
         self.process_index = int(process_index)
         self.process_count = int(process_count)
         self.backend = backend
         self.device = device
+        self.group = group
+        self.ranks = (tuple(int(r) for r in ranks) if ranks is not None
+                      else tuple(range(self.process_count)))
 
     def __repr__(self) -> str:
         return (f"Gang(process {self.process_index} of "
-                f"{self.process_count}, {self.backend}, {self.device})")
+                f"{self.process_count}, {self.backend}, {self.device}"
+                + (f", world ranks {list(self.ranks)}"
+                   if self.group is not None else "") + ")")
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` where the backend takes it: the host under gloo (staging
@@ -62,28 +80,31 @@ class Gang:
         import torch.distributed as dist
         src = self._wire(t)
         parts = [torch.empty_like(src) for _ in range(self.process_count)]
-        dist.all_gather(parts, src)
+        dist.all_gather(parts, src, group=self.group)
         return torch.stack(parts).to(t.device)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Member ``src``'s ``t`` on every member (a fresh tensor)."""
         import torch.distributed as dist
         buf = self._wire(t).clone()
-        dist.broadcast(buf, src=src)
+        dist.broadcast(buf, src=self.ranks[src], group=self.group)
         return buf.to(t.device)
 
     def all_gather_object(self, obj) -> list:
         import torch.distributed as dist
         out = [None] * self.process_count
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.group)
         return out
 
     def barrier(self) -> None:
         import torch.distributed as dist
-        dist.barrier()
+        dist.barrier(group=self.group)
 
 
 _GANG: Optional[Gang] = None
+# Set once this process took part in a split (a live reshard): its end
+# does not destroy the process group.
+_SPLIT = False
 
 
 def current() -> Optional[Gang]:
@@ -151,13 +172,40 @@ def initialize_from_env(platform: str = "default") -> Optional[Gang]:
                       int(os.environ[ENV_PROCESS_ID]), platform=platform)
 
 
+def split(gang: Gang, members) -> Optional[Gang]:
+    """The gang of ``members`` (member indices of the world gang ``gang``,
+    kept in order as members ``0..k-1``) over a new process group; None for
+    a process outside it, and for a lone member (one process is no gang:
+    it runs the one-process round, and no group is made). Every process of
+    the world calls it, in the same order, members or not
+    (``torch.distributed.new_group``'s rule)."""
+    global _SPLIT
+    import torch.distributed as dist
+    if gang.group is not None:
+        raise ValueError(f"split: {gang} is not the world gang")
+    members = sorted(int(m) for m in members)
+    _SPLIT = True
+    if len(members) < 2:
+        return None
+    ranks = [gang.ranks[m] for m in members]
+    group = dist.new_group(ranks=ranks, backend=gang.backend)
+    if gang.process_index not in members:
+        return None
+    return Gang(members.index(gang.process_index), len(members),
+                gang.backend, gang.device, group=group, ranks=ranks)
+
+
 def shutdown() -> None:
-    """Leave the gang (destroys the process group)."""
-    global _GANG
+    """Leave the gang: destroys the process group, unless this process took
+    part in a split (a destroy could wait on a parked or departed
+    member; the group goes with the process)."""
+    global _GANG, _SPLIT
     import torch.distributed as dist
     if _GANG is not None:
         _GANG = None
-        dist.destroy_process_group()
+        if not _SPLIT:
+            dist.destroy_process_group()
+        _SPLIT = False
 
 
 def local_client_slice(mesh) -> slice:

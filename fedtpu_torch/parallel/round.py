@@ -322,7 +322,7 @@ def check_gang_knobs(server_opt, dp_clip_norm, dp_noise_multiplier,
     if branches:
         from fedtpu_torch.config import _not_ported
         _not_ported(f"{', '.join(branches)} in a training gang (plain "
-                    "FedAvg runs across processes)", "A10b")
+                    "FedAvg runs across processes)", "A10d")
 
 
 def check_knobs(weighting, participation_rate, aggregation, server_opt,

@@ -18,10 +18,12 @@ restart and divergence rollback (``fedtpu.resilience``).
   failures ddmin-shrunk to reproducers; the committed corpus gate.
 * ``netfaults`` / ``net_sim`` — the wire-fault plan and its deterministic
   replay; ``distributed`` — the gang's identity variables, the heartbeat
-  path rule, the collective watchdog and the checkpoint agreement of a
-  training gang (``run`` under ``supervise --num-processes N``).
-
-Not ported yet: the elastic reshard's protocol (ROADMAP A10b).
+  path rule, the collective watchdog, the checkpoint agreement and the
+  reshard records of a training gang (``run`` under ``supervise
+  --num-processes N``).
+* ``reshard`` — the live elastic reshard's protocol: the plan's and the
+  signals' notices, their agreement, the two-phase ack barrier, the grow
+  spool and the parked member's wait (exit 76).
 """
 
 from fedtpu_torch.resilience.distributed import heartbeat_path_for

@@ -90,9 +90,38 @@ at ``MP_COLLECTIVE_TIMEOUT``:
                        checkpoint at the same round, exits 75, and the gang
                        resumes without backoff. Same bar.
 
-The registry holds every row of ``fedtpu``'s matrix; the elastic-reshard
-and autoscale rows (``reshard``, ``autoscale``) raise when asked for,
-naming ROADMAP A10b. With no ``scenarios`` every row the port runs runs.
+The ELASTIC rows run the live reshard (``fedtpu_torch.resilience.
+reshard``) against the same gang baseline: a preemption NOTICE arrives
+for worker 1 and the gang resizes with no restart. The bar is zero gang
+restarts, a completed reshard in the events and a bitwise pre-notice
+history (the rounds after it differ: the client set changed):
+
+  mp_shrink       A plan notice preempts worker 1; the gang shrinks onto
+                  process 0, which runs the one-process round; worker 1
+                  parks and exits 76 at the run's end.
+  mp_grow         mp_shrink plus a cancel two rounds later: the parked
+                  worker rejoins from the leader's spool and the gang grows
+                  back, replaying its original graphs. Two reshards.
+  mp_shrink_dead  The preempted worker DIES mid-reshard (before its
+                  phase-A ack): the survivor's barrier times out
+                  (``MP_RESHARD_DEAD_TIMEOUT``), the reshard aborts
+                  (``reshard_failed``) and the gang restarts and resumes,
+                  the history then FULLY bitwise.
+
+The AUTOSCALE row closes the loop through the control plane: the port's
+``serve`` under driven load, a 2-process training gang and the live
+``autoscale`` controller side by side; the harness writes a preemption
+notice file and the CONTROLLER pre-drains the server's pending updates to
+a spool and fires the shrink (SIGUSR1 through the gang supervisor):
+
+  mp_autoscale_preempt  Zero gang restarts, >= 1 reshard, a nonzero
+                        pre-drain spool, no lost admitted updates after the
+                        final drain (admitted == incorporated, backlog 0),
+                        SLO burn within ``AUTOSCALE_BURN_BUDGET``. No
+                        history bar: the signal's round is wall-clock.
+
+The registry holds every row of ``fedtpu``'s matrix, and the port runs
+them all; with no ``scenarios`` every row runs.
 
 "History" is the ``--metrics-jsonl`` per-round record with timing
 stripped. Restarted and rolled-back runs append re-executed rounds to the
@@ -180,7 +209,7 @@ SCENARIOS = tuple(n for n, _, _ in SCENARIO_REGISTRY)
 # One process each (under the single supervisor).
 SINGLE_PROCESS_SCENARIOS = tuple(n for n, fams, _ in SCENARIO_REGISTRY
                                  if not fams)
-# The training-gang rows: 2-process gangs; the reshard subset is A10b.
+# The training-gang rows: 2-process gangs, the reshard subset among them.
 MP_SCENARIOS = _family("mp")
 RESHARD_SCENARIOS = _family("reshard")
 AUTOSCALE_SCENARIO = _family("autoscale")[0]
@@ -219,26 +248,25 @@ POISON_DEGRADE_MIN = 0.05
 MP_PROCESSES = 2
 MP_SHARDS_PER_PROC = 2
 MP_COLLECTIVE_TIMEOUT = 12.0
-# The training-gang rows the port runs (not the reshard subset).
+# mp_shrink_dead only: the reshard's ack barrier takes the collective
+# timeout as its budget, and the survivor must time out (and log
+# reshard_failed) BEFORE the gang supervisor's teardown grace kills it.
+MP_RESHARD_DEAD_TIMEOUT = 6.0
+# mp_autoscale_preempt's SLO ceiling (fedtpu's).
+AUTOSCALE_BURN_BUDGET = 2.0
+# The training-gang rows that restart the gang (the reshard rows resize it
+# instead); every row of MP_SCENARIOS is held to the gang baseline.
 GANG_SCENARIOS = tuple(n for n in MP_SCENARIOS
                        if n not in RESHARD_SCENARIOS)
 # The fleet rows: each carries its own baseline inside the scenario.
 FLEET_SCENARIOS = GATEWAY_SCENARIOS + (POISON_SCENARIO,) + NET_SCENARIOS
-# The rows the port runs, in the registry's order (the default matrix).
-PORTED_SCENARIOS = tuple(n for n in SCENARIOS
-                         if n in SINGLE_PROCESS_SCENARIOS
-                         or n in GANG_SCENARIOS or n in FLEET_SCENARIOS)
+# The rows the port runs, in the registry's order (the default matrix):
+# all of them.
+PORTED_SCENARIOS = SCENARIOS
 
 # Metric-history fields compared across runs (sec_per_round is wall
 # clock — the one thing faults are ALLOWED to change).
 _HIST_KEYS = ("client_mean", "pooled", "loss_mean")
-
-
-def _not_ported_row(name: str) -> None:
-    """Raise for a row the port does not run yet (an elastic-reshard or
-    autoscale row), naming its item."""
-    from fedtpu_torch.config import _not_ported
-    _not_ported(f"chaos scenario {name!r}", "A10b")
 
 
 def _fault_round(rounds: int) -> int:
@@ -247,8 +275,12 @@ def _fault_round(rounds: int) -> int:
     return max(2, rounds // 2 + 1)
 
 
-def _plan(rounds: int, kind: str) -> str:
+def _plan(rounds: int, kind: str, num_clients: int = 4) -> str:
     k = _fault_round(rounds)
+    # The elastic notice: worker 1 is preempted; the survivor keeps its
+    # own shards, so the shrunk width is half the clients.
+    notice = {"kind": "preempt_notice", "round": k,
+              "target_clients": num_clients // 2, "process_index": 1}
     faults = {
         "sigkill": [{"kind": "process_kill", "round": k,
                      "signal": "SIGKILL"}],
@@ -268,6 +300,12 @@ def _plan(rounds: int, kind: str) -> str:
         # process_index -1 = every process: the whole-slice preemption.
         "mp_preempt": [{"kind": "process_kill", "round": k,
                         "signal": "SIGTERM", "process_index": -1}],
+        "mp_shrink": [notice],
+        "mp_shrink_dead": [notice],
+        # Cancel two rounds after the notice: the parked worker rejoins
+        # and the tail of the run trains at full width again.
+        "mp_grow": [notice, {"kind": "preempt_cancel",
+                             "round": min(k + 2, rounds)}],
     }[kind]
     return json.dumps({"seed": 0, "faults": faults})
 
@@ -356,6 +394,178 @@ def _resilience(events_path: str) -> dict:
     from fedtpu_torch.telemetry.report import aggregate, load_events
     events, bad = load_events(events_path)
     return aggregate(events, malformed=bad).get("resilience") or {}
+
+
+def _wait_for_round(path: str, rnd: int, proc, timeout_s: float) -> bool:
+    """Poll a metrics JSONL until a record reaches round ``rnd``; False
+    when ``proc`` exits or the budget runs out first."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        hist = _history(path)
+        if hist and max(hist) >= rnd:
+            return True
+        if proc.poll() is not None:
+            return False
+        time.sleep(0.05)
+    return False
+
+
+def _run_autoscale_preempt(workdir: str, rounds: int, num_clients: int,
+                           platform: str, timeout: int,
+                           hidden_sizes: Sequence[int] = (16,),
+                           synthetic_rows: Optional[int] = None) -> dict:
+    """The control-plane drill (module docstring
+    ``mp_autoscale_preempt``): serve under driven load, a 2-process gang
+    and the live controller. The harness only writes the notice file;
+    every action, the pre-drain spool and the SIGUSR1 shrink, is the
+    controller's."""
+    import signal as _signal
+
+    from fedtpu_torch.serving.protocol import Connection
+    from fedtpu_torch.serving.traces import synthesize_trace, write_trace
+    name = AUTOSCALE_SCENARIO
+    trace = os.path.join(workdir, f"{name}.trace.jsonl")
+    port_file = os.path.join(workdir, f"{name}.port")
+    notice = os.path.join(workdir, f"{name}.notice.json")
+    spool = os.path.join(workdir, f"{name}.spool.jsonl")
+    hb = os.path.join(workdir, f"{name}.hb")
+    serve_events = os.path.join(workdir, f"{name}.serve.events.jsonl")
+    ctl_events = os.path.join(workdir, f"{name}.ctl.events.jsonl")
+    header, t, user, lat = synthesize_trace(200, 3000, 20.0, seed=3)
+    write_trace(trace, header, t, user, lat)
+
+    row = {"scenario": name, "rc": -1, "survived": False,
+           "history_match": True, "faults": 0, "restarts": 0,
+           "rollbacks": 0, "gang_restarts": 0, "collective_hangs": 0,
+           "reshards": 0, "reshard_failures": 0, "spooled": 0,
+           "acted": {}, "backlog": None, "slo_burn": None,
+           "lost_updates": None, "ok": False}
+    serve = gang = None
+    stderr_parts = []
+    try:
+        serve = subprocess.Popen(
+            [sys.executable, "-m", "fedtpu_torch.cli", "serve",
+             "--platform", platform, "--port-file", port_file,
+             "--checkpoint-dir", os.path.join(workdir, f"{name}.serve.ck"),
+             "--events", serve_events, "--quiet", "--json"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        # Driven load: the whole trace, NO drain, so the pending backlog
+        # is there for the controller's pre-drain.
+        load = subprocess.run(
+            [sys.executable, "-m", "fedtpu_torch.cli", "loadgen", trace,
+             "--port-file", port_file, "--no-drain", "--retries", "30",
+             "--quiet"], capture_output=True, text=True, timeout=timeout)
+        if load.returncode != 0:
+            row["error"] = "loadgen failed"
+            stderr_parts.append(load.stderr or "")
+            return row
+        # A straggler on every round after the first keeps the run alive
+        # long enough for the wall-clock notice to land with rounds to
+        # spare after the shrink.
+        pace = [{"kind": "straggler", "round": r, "clients": [0],
+                 "delay_s": 0.4} for r in range(2, rounds + 1)]
+        run_args = _run_args(workdir, name, rounds, num_clients, platform,
+                             hidden_sizes, synthetic_rows)
+        run_args += ["--fault-plan", json.dumps({"seed": 0, "faults": pace}),
+                     "--checkpoint-dir", os.path.join(workdir, f"{name}.ck"),
+                     "--checkpoint-every", "2",
+                     "--collective-timeout", str(MP_COLLECTIVE_TIMEOUT)]
+        gang = subprocess.Popen(
+            [sys.executable, "-m", "fedtpu_torch.cli", "supervise",
+             "--heartbeat", hb, "--num-processes", str(MP_PROCESSES),
+             "--max-restarts", "2", "--grace", "10",
+             "--events", os.path.join(workdir, f"{name}.events.jsonl"),
+             "--", *run_args],
+            env=_mp_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        # The notice goes down once the gang is mid-run (its signal
+        # handlers are installed before round 0), so the controller's
+        # first control tick sees it and the drill never depends on the
+        # threshold policy's dynamics.
+        if not _wait_for_round(
+                os.path.join(workdir, f"{name}.metrics.jsonl"), 2, gang,
+                timeout):
+            row["error"] = "gang never reached round 2"
+            return row
+        tmp = f"{notice}.tmp.{os.getpid()}"
+        with open(tmp, "w") as fh:
+            json.dump({"victim": 1}, fh)
+        os.replace(tmp, notice)
+        ctl = subprocess.run(
+            [sys.executable, "-m", "fedtpu_torch.cli", "autoscale",
+             "--port-file", port_file, "--heartbeat", hb,
+             "--num-processes", str(MP_PROCESSES),
+             "--supervisor-pid", str(gang.pid), "--notice-file", notice,
+             "--spool-path", spool, "--interval", "0.2",
+             "--stop-after-notice", "--events", ctl_events,
+             "--quiet", "--json"],
+            capture_output=True, text=True, timeout=timeout)
+        if ctl.returncode != 0:
+            row["error"] = "controller failed"
+            stderr_parts.append(ctl.stderr or "")
+            return row
+        try:
+            gang_rc = gang.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            gang.kill()
+            row["error"] = "gang timed out after the shrink"
+            return row
+        row["rc"] = gang_rc
+        # The final drain and the signals block off the wire: the
+        # no-lost-updates and SLO bars read what the controller polls.
+        with open(port_file) as fh:
+            port = int(fh.read().strip())
+        with Connection("127.0.0.1", port) as conn:
+            conn.hello()
+            conn.request({"op": "drain"})
+            signals = conn.request({"op": "stats"}).get("signals") or {}
+        serve.send_signal(_signal.SIGTERM)
+        serve_rc = serve.wait(timeout=60)
+        row["slo_burn"] = signals.get("slo_burn")
+        row["lost_updates"] = (int(signals.get("admitted") or 0)
+                               - int(signals.get("incorporated") or 0))
+        res = _resilience(os.path.join(workdir, f"{name}.events.jsonl"))
+        row["restarts"] = res.get("restarts") or 0
+        row["gang_restarts"] = res.get("gang_restarts") or 0
+        row["reshards"] = len(res.get("reshards") or [])
+        row["reshard_failures"] = len(res.get("reshard_failures") or [])
+        from fedtpu_torch.telemetry.report import aggregate, load_events
+        ev, bad = load_events(serve_events)
+        asc = aggregate(ev, malformed=bad).get("autoscale") or {}
+        row["spooled"] = sum(int(p.get("spooled") or 0)
+                             for p in asc.get("serve_pre_drains") or [])
+        ev, bad = load_events(ctl_events)
+        acted = (aggregate(ev, malformed=bad).get("autoscale")
+                 or {}).get("acted") or {}
+        row["acted"] = dict(acted)
+        row["backlog"] = int(signals.get("backlog") or 0)
+        row["survived"] = gang_rc == 0 and serve_rc in (0, 75)
+        row["ok"] = (row["survived"]
+                     and row["gang_restarts"] == 0
+                     and row["reshards"] >= 1
+                     and row["reshard_failures"] == 0
+                     and row["spooled"] > 0
+                     and row["lost_updates"] == 0
+                     and row["backlog"] == 0
+                     and acted.get("pre_drain", 0) >= 1
+                     and acted.get("shrink", 0) >= 1
+                     and row["slo_burn"] is not None
+                     and row["slo_burn"] <= AUTOSCALE_BURN_BUDGET)
+        if not row["ok"]:
+            stderr_parts.append((gang.stderr.read() or "")
+                                if gang.stderr else "")
+        return row
+    except (subprocess.TimeoutExpired, OSError, ConnectionError,
+            ValueError) as e:
+        row["error"] = f"{type(e).__name__}: {e}"
+        return row
+    finally:
+        for proc in (gang, serve):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        if stderr_parts:
+            row["stderr_tail"] = "\n".join(stderr_parts)[-2000:]
 
 
 def _gateway_row(name: str) -> dict:
@@ -967,22 +1177,41 @@ def run_scenario(name: str, workdir: str, baseline: dict, rounds: int,
         return _run_poison_campaign(workdir, platform, timeout)
     if name == "mp_store_shard_kill":
         return _run_store_shard_kill(workdir, platform, timeout)
-    if name not in SINGLE_PROCESS_SCENARIOS and name not in GANG_SCENARIOS:
-        _not_ported_row(name)
-    gang = name in GANG_SCENARIOS
+    if name == AUTOSCALE_SCENARIO:
+        return _run_autoscale_preempt(workdir, rounds, num_clients,
+                                      platform, timeout, hidden_sizes,
+                                      synthetic_rows)
+    gang = name in MP_SCENARIOS
+    reshard = name in RESHARD_SCENARIOS
     ck = os.path.join(workdir, f"{name}.ck")
     events = os.path.join(workdir, f"{name}.events.jsonl")
     run_args = _run_args(workdir, name, rounds, num_clients, platform,
                          hidden_sizes, synthetic_rows)
-    run_args += ["--fault-plan", _plan(rounds, name),
+    run_args += ["--fault-plan", _plan(rounds, name, num_clients),
                  "--checkpoint-dir", ck, "--checkpoint-every", "2"]
     if name == "nan_rollback":
         run_args += ["--on-divergence", "rollback", "--rollback-retries", "2"]
+    env = None
     if gang:
         # Every gang row carries the watchdog: a hang anywhere becomes a
-        # restart, never a hung row (mp_hang depends on it).
-        run_args += ["--collective-timeout", str(MP_COLLECTIVE_TIMEOUT)]
+        # restart, never a hung row (mp_hang depends on it). It is the
+        # reshard's ack budget too, shorter on mp_shrink_dead, whose
+        # survivor must log the barrier's timeout before the teardown.
+        ct = (MP_RESHARD_DEAD_TIMEOUT if name == "mp_shrink_dead"
+              else MP_COLLECTIVE_TIMEOUT)
+        run_args += ["--collective-timeout", str(ct)]
         argv = _gang_argv(run_args, 2, events)
+        if reshard:
+            # The parked victim reports through its heartbeat, and the
+            # supervisor's all-parked SIGTERM (the backstop of a missed
+            # run-done marker) reads the per-process heartbeat files.
+            argv[1:1] = ["--heartbeat", os.path.join(workdir, f"{name}.hb")]
+        env = _mp_env()
+        if name == "mp_shrink_dead":
+            # The victim SIGKILLs itself inside the reshard, after its
+            # begin event and before its phase-A ack.
+            from fedtpu_torch.resilience.reshard import ENV_RESHARD_CRASH
+            env[ENV_RESHARD_CRASH] = "1"
     elif name in ("sigkill", "preempt"):
         argv = ["supervise", "--max-restarts", "2", "--events", events,
                 "--", *run_args]
@@ -990,17 +1219,20 @@ def run_scenario(name: str, workdir: str, baseline: dict, rounds: int,
         argv = run_args
     out = subprocess.run([sys.executable, "-m", "fedtpu_torch.cli", *argv],
                          capture_output=True, text=True, timeout=timeout,
-                         env=_mp_env() if gang else None)
+                         env=env)
 
     hist = _history(os.path.join(workdir, f"{name}.metrics.jsonl"))
     res = _resilience(events)
     k = _fault_round(rounds)
-    if name == "dropout":
-        # The dropped round must CHANGE the aggregate at the fault round,
-        # while the pre-fault prefix stays bitwise.
+    if name in ("dropout", "mp_shrink", "mp_grow"):
+        # The dropped round, or the resized gang, must CHANGE the
+        # aggregate at the fault round (identical would mean it did not
+        # apply), while the prefix before it stays bitwise.
         hist_verdict = oracles.history_bitwise(
             hist, baseline, mode="prefix_divergent", fault_round=k)
     else:
+        # mp_shrink_dead too: the aborted reshard leaves no trace in the
+        # math, the restart's resume replays the tail bitwise.
         hist_verdict = oracles.history_bitwise(hist, baseline, mode="full")
     row = {
         "scenario": name,
@@ -1023,16 +1255,25 @@ def run_scenario(name: str, workdir: str, baseline: dict, rounds: int,
         row["restart_s"] = _gang_restart_seconds(events)
         row["resumed_together"] = (all(r == resumes[0] for r in resumes)
                                    and bool(resumes[0]))
+    # The notice rows inject no fault the injector applies (the reshard
+    # controller takes the notice), and the live ones must NOT
+    # gang-restart: that zero is the point of the elastic reshard.
+    live = name in ("mp_shrink", "mp_grow")
     row["ok"] = (row["survived"] and row["history_match"]
-                 and row["faults"] >= 1
+                 and (row["faults"] >= 1 if not reshard else True)
                  and (row["restarts"] >= 1
                       if name in ("sigkill", "preempt") else True)
-                 and (row["gang_restarts"] >= 1
+                 and (row["gang_restarts"] == 0 if live
+                      else row["gang_restarts"] >= 1
                       and row["resumed_together"] if gang else True)
                  and (row["collective_hangs"] >= 1
                       if name == "mp_hang" else True)
                  and (row["rollbacks"] >= 1
-                      if name == "nan_rollback" else True))
+                      if name == "nan_rollback" else True)
+                 and (row["reshards"] >= 1 if name == "mp_shrink" else True)
+                 and (row["reshards"] >= 2 if name == "mp_grow" else True)
+                 and (row["reshards"] == 0 and row["reshard_failures"] >= 1
+                      if name == "mp_shrink_dead" else True))
     if not row["ok"]:
         row["stderr_tail"] = (out.stderr or "")[-2000:]
     return row
@@ -1042,9 +1283,16 @@ def _detail(row: dict) -> str:
     """A gang or fleet row's own numbers for its verbose line
     (fedtpu's)."""
     name = row["scenario"]
-    if name in GANG_SCENARIOS:
+    if name in MP_SCENARIOS:
         return (f" gang_restarts={row['gang_restarts']} "
-                f"collective_hangs={row['collective_hangs']}")
+                f"collective_hangs={row['collective_hangs']} "
+                f"reshards={row['reshards']} "
+                f"reshard_failures={row['reshard_failures']}")
+    if name == AUTOSCALE_SCENARIO:
+        return (f" gang_restarts={row['gang_restarts']} "
+                f"reshards={row['reshards']} spooled={row['spooled']} "
+                f"lost_updates={row['lost_updates']} "
+                f"backlog={row['backlog']} slo_burn={row['slo_burn']}")
     if name == "mp_gateway_kill":
         return (f" gang_restarts={row['gang_restarts']} "
                 f"retried={row['retried']} "
@@ -1088,9 +1336,6 @@ def run_chaos(scenarios: Optional[Sequence[str]] = None, rounds: int = 10,
     if unknown:
         raise ValueError(f"unknown chaos scenario(s) {unknown}; "
                          f"pick from {list(SCENARIOS)}")
-    for n in names:
-        if n not in PORTED_SCENARIOS:
-            _not_ported_row(n)
     if rounds < 4:
         raise ValueError("chaos needs --rounds >= 4: a checkpoint must "
                          "precede the mid-run fault round")
@@ -1117,7 +1362,7 @@ def run_chaos(scenarios: Optional[Sequence[str]] = None, rounds: int = 10,
                         "scenarios": [], "workdir": wd}
             baseline = _history(os.path.join(wd, "baseline.metrics.jsonl"))
         mp_baseline: dict = {}
-        if any(n in GANG_SCENARIOS for n in names):
+        if any(n in MP_SCENARIOS for n in names):
             shards = MP_PROCESSES * MP_SHARDS_PER_PROC
             if num_clients % shards:
                 raise ValueError(
@@ -1148,7 +1393,7 @@ def run_chaos(scenarios: Optional[Sequence[str]] = None, rounds: int = 10,
                 print(f"[chaos] scenario {name} ...", flush=True)
             t0 = time.monotonic()
             row = run_scenario(name, wd,
-                               mp_baseline if name in GANG_SCENARIOS
+                               mp_baseline if name in MP_SCENARIOS
                                else baseline, rounds, num_clients,
                                platform, timeout, hidden_sizes,
                                synthetic_rows)

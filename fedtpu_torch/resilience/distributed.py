@@ -21,8 +21,11 @@ making no progress. These make a gang restartable as a unit:
   the launch-unique generation, waits for every peer and restores the
   minimum; any member seeing none makes the whole gang start fresh.
 
-The elastic reshard's protocol records (``fedtpu``'s ``.reshard``) are
-ROADMAP A10b.
+* **Reshard records** — the live elastic reshard's protocol
+  (``fedtpu_torch.resilience.reshard``): notice candidates, the two-phase
+  acks and the grow announcement, one file a record under
+  ``<checkpoint_dir>/.reshard``, tagged with the same generation as the
+  agreement.
 
 Torch-free on purpose: the gang supervisor's parent imports this module.
 """
@@ -62,6 +65,11 @@ AGREEMENT_DIR = ".agreement"
 
 # Sentinel step meaning "this process sees no complete checkpoint".
 NO_CHECKPOINT = -1
+
+# Subdirectory of the checkpoint dir holding the elastic reshard's records
+# and its grow spool; invisible to resume and retention, like the
+# agreement's.
+RESHARD_DIR = ".reshard"
 
 
 def heartbeat_path_for(base: str, process_index: int) -> str:
@@ -323,3 +331,94 @@ def agree_resume_step(checkpoint_dir: str, process_index: int,
                 "restoring without agreement could desync the gang")
         time.sleep(poll)
     return min(steps.values())
+
+
+# --------------------------------------------------- reshard protocol
+
+def reshard_dir(checkpoint_dir: str) -> str:
+    return os.path.join(os.path.abspath(checkpoint_dir), RESHARD_DIR)
+
+
+def _reshard_file(checkpoint_dir: str, name: str, process_index: int) -> str:
+    return os.path.join(reshard_dir(checkpoint_dir),
+                        f"{name}.p{process_index}.json")
+
+
+def publish_reshard_record(checkpoint_dir: str, name: str,
+                           process_index: int, payload: dict,
+                           restart_count: int = 0,
+                           launch_id: Optional[str] = None) -> str:
+    """Atomically publish one elastic-reshard record (a notice candidate,
+    a commit ack, a grow announcement) for the current generation, with
+    ``publish_local_step``'s tmp-then-rename discipline. The generation tag
+    (``launch_id``, ``restart_count``) keeps a relaunched gang from acting
+    on a previous life's records."""
+    path = _reshard_file(checkpoint_dir, name, process_index)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as fh:
+        json.dump(dict(payload, restarts=int(restart_count),
+                       launch=launch_id, pid=os.getpid(),
+                       time=time.time()), fh)
+    os.replace(tmp, path)
+    return path
+
+
+def read_reshard_record(checkpoint_dir: str, name: str, process_index: int,
+                        restart_count: int = 0,
+                        launch_id: Optional[str] = None) -> Optional[dict]:
+    """A peer's published reshard record for THIS generation, or None
+    (absent, mid-write, or of another generation or launch)."""
+    try:
+        with open(_reshard_file(checkpoint_dir, name, process_index)) as fh:
+            rec = json.load(fh)
+    except (OSError, ValueError):
+        return None
+    if rec.get("restarts") != restart_count:
+        return None
+    if rec.get("launch") != launch_id:
+        return None
+    return rec
+
+
+def await_reshard_records(checkpoint_dir: str, name: str, processes,
+                          restart_count: int = 0,
+                          launch_id: Optional[str] = None,
+                          timeout: float = 60.0,
+                          poll: float = 0.05) -> dict:
+    """Block until every process in ``processes`` has published ``name``
+    for this generation; ``{process_index: record}``. A missing peer is a
+    ``TimeoutError``: the reshard's commit barrier, where a peer that dies
+    mid-reshard surfaces as a loud failure the caller turns into the
+    gang-restart path, never a half-resharded gang."""
+    deadline = time.monotonic() + timeout
+    missing = set(processes)
+    records = {}
+    while missing:
+        for i in sorted(missing):
+            rec = read_reshard_record(checkpoint_dir, name, i,
+                                      restart_count, launch_id=launch_id)
+            if rec is not None:
+                records[i] = rec
+                missing.discard(i)
+        if not missing:
+            break
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"reshard record '{name}' missing from process(es) "
+                f"{sorted(missing)} after {timeout:.0f}s under "
+                f"{checkpoint_dir}/{RESHARD_DIR} (generation "
+                f"{restart_count}, launch {launch_id})")
+        time.sleep(poll)
+    return records
+
+
+def clear_reshard_records(checkpoint_dir: str) -> None:
+    """Remove the reshard directory (the spool included): process 0's
+    hygiene at a run's start, so a later launch in the same directory never
+    sees a dead gang's notices."""
+    import shutil
+    try:
+        shutil.rmtree(reshard_dir(checkpoint_dir))
+    except OSError:
+        pass

@@ -46,9 +46,10 @@ The kinds, on the port's flat state (``params (C, D)``):
   about forever) before the round; in a training gang its peers then stall
   in the round's exchange until their collective watchdog fires.
   ``process_index: -1`` on it or on ``process_kill`` means every process.
-* ``preempt_notice`` / ``preempt_cancel`` — the elastic-reshard schedule:
-  a plan holding them loads (its digest equal to fedtpu's), and the loop
-  refuses it at start (ROADMAP A10b).
+* ``preempt_notice`` / ``preempt_cancel`` — the elastic-reshard schedule,
+  consumed by the reshard controller (``fedtpu_torch.resilience.reshard``):
+  a live shrink to ``target_clients`` and the grow back, with no
+  restart.
 
 Only the in-loop edits touch torch (the plan itself is numpy and JSON)."""
 
@@ -74,7 +75,7 @@ KINDS = ("client_dropout", "straggler", "nan_update", "process_kill",
 ONCE_KINDS = ("process_kill", "ckpt_corrupt", "collective_hang",
               "preempt_notice", "preempt_cancel")
 
-# Kinds consumed by the elastic-reshard controller (ROADMAP A10b), never
+# Kinds consumed by the elastic-reshard controller, never
 # applied by the injector; their rounds still bound the chunk width.
 RESHARD_KINDS = ("preempt_notice", "preempt_cancel")
 

@@ -11,7 +11,8 @@ The contract between the round loop, the CLI and the supervisor:
   drained to a checkpoint and exited; the supervisor restarts at once with
   ``--resume`` (no backoff: the exit was graceful).
 * ``EXIT_RESHARDED`` (76) — a gang member's clean departure through an
-  elastic reshard (ROADMAP A10b): never a failure, never restarted.
+  elastic reshard (``fedtpu_torch.resilience.reshard``: parked, and the
+  run ended): never a failure, never restarted.
 * anything else — a crash (SIGKILL shows as a negative returncode): a
   restart with ``--resume`` under bounded exponential backoff, whose
   exponent follows the crash streak; a child that stayed up past
@@ -56,7 +57,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 EXIT_OK = 0
 EXIT_DIVERGED = 3
 EXIT_PREEMPTED = 75          # EX_TEMPFAIL: drained to checkpoint, resumable
-# A gang member's completed elastic-reshard departure (ROADMAP A10b).
+# A gang member's completed elastic-reshard departure.
 EXIT_RESHARDED = 76
 
 

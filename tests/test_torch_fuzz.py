@@ -347,24 +347,23 @@ def test_supervise_gang_is_fedtpus(case, tmp_path):
 def test_chaos_fleet_families_equal_fedtpus():
     """The family tuples, the fleet rows' constants and the wire plans are
     fedtpu's; the fleet rows run by default beside the single-process
-    ones and the training-gang rows; the reshard and autoscale rows
-    refuse, naming ROADMAP A10b."""
+    ones, the training-gang rows and the reshard and autoscale rows, with
+    fedtpu's reshard timeout and SLO budget."""
     for name in ("MP_SCENARIOS", "RESHARD_SCENARIOS", "AUTOSCALE_SCENARIO",
                  "GATEWAY_SCENARIOS", "NET_SCENARIOS", "POISON_SCENARIO",
                  "GATEWAY_BURN_BUDGET", "NET_BURN_BUDGET", "POISON_USERS",
                  "POISON_ARRIVALS", "POISON_HORIZON_S", "POISON_TRACE_SEED",
                  "POISON_FRAC", "POISON_SCALE", "POISON_ACCURACY_TOL",
                  "POISON_DEGRADE_MIN", "_NET_PLANS", "MP_PROCESSES",
-                 "MP_COLLECTIVE_TIMEOUT"):
+                 "MP_COLLECTIVE_TIMEOUT", "MP_RESHARD_DEAD_TIMEOUT",
+                 "AUTOSCALE_BURN_BUDGET"):
         assert getattr(t_chaos, name) == getattr(j_chaos, name), name
     assert t_chaos.MP_SHARDS_PER_PROC == j_chaos.MP_DEVICES_PER_PROC
     assert t_chaos.scenarios_help() == j_chaos.scenarios_help()
     assert set(t_chaos.PORTED_SCENARIOS) == set(
         t_chaos.SINGLE_PROCESS_SCENARIOS + t_chaos.GANG_SCENARIOS
-        + t_chaos.FLEET_SCENARIOS)
-    for name in t_chaos.RESHARD_SCENARIOS + (t_chaos.AUTOSCALE_SCENARIO,):
-        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10b\)"):
-            t_chaos.run_chaos([name], workdir="unused")
+        + t_chaos.RESHARD_SCENARIOS + (t_chaos.AUTOSCALE_SCENARIO,)
+        + t_chaos.FLEET_SCENARIOS) == set(j_chaos.SCENARIOS)
 
 
 _ROW_BARS = {

@@ -17,6 +17,7 @@ torch.set_num_threads(1)
 import json  # noqa: E402
 import os  # noqa: E402
 import pickle  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
@@ -137,8 +138,8 @@ def test_gang_checkpoint_resumes_bitwise(tmp_path):
     """Each member writes its own part of a gang round
     (``state.p<i>-of-2``, process 0 the meta); a gang of two resumes from
     it after agreeing on the step, and ends bitwise the one process's
-    uninterrupted ring run; a one-process resume of the gang's round
-    raises, naming A10b."""
+    uninterrupted ring run; so does one process resuming the gang's round
+    (each part's rows, concatenated)."""
     ck = str(tmp_path / "ck")
     spec = {"aggregation": "ring", "dir": ck, "every": 2}
     _gang(tmp_path, {**spec, "rounds": 2}, "first")
@@ -149,9 +150,14 @@ def test_gang_checkpoint_resumes_bitwise(tmp_path):
     one = _one_process({"aggregation": "ring"})
     assert resumed[0]["history"] == one["history"]
     assert np.array_equal(_flat(resumed[0]["params"]), _flat(one["params"]))
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10b\)"):
-        run_experiment(worker.gang_config({**spec, "rounds": 6}),
-                       verbose=False, device="cpu", resume=True)
+    ck_one = str(tmp_path / "ck_one")
+    shutil.copytree(os.path.join(ck, "round_000002"),
+                    os.path.join(ck_one, "round_000002"))
+    alone = worker.result_record(run_experiment(
+        worker.gang_config({**spec, "dir": ck_one}), verbose=False,
+        device="cpu", resume=True))
+    assert alone["history"] == one["history"]
+    assert np.array_equal(_flat(alone["params"]), _flat(one["params"]))
 
 
 def test_resume_agreement_equals_fedtpus(tmp_path):

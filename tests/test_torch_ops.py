@@ -312,12 +312,11 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(partition_clients=2), dict(model_parallel=2), dict(mpmd=True),
+    dict(model_parallel=2), dict(mpmd=True),
     dict(overlap_compile=True), dict(compilation_cache="cache")])
 def test_unported_knobs_raise_naming_their_roadmap_item(kw):
-    cls = tcfg.ShardConfig if "partition_clients" in kw else tcfg.RunConfig
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        cls(**kw)
+        tcfg.RunConfig(**kw)
 
 
 # The cohort engine's knobs (fedtpu_torch.cohort.scheduler), each off its
@@ -341,7 +340,6 @@ _CONFIGS = ("DataConfig", "ShardConfig", "ModelConfig", "OptimConfig",
 # The knobs of fedtpu that the port does not run yet, and the ROADMAP item
 # of each.
 _UNPORTED = {
-    "ShardConfig": {"partition_clients": "A10b", "partition_offset": "A10b"},
     "RunConfig": {
         **{k: "A10c" for k in ("mpmd", "model_parallel")},
         **{k: "A11c" for k in ("compilation_cache", "overlap_compile")}},
@@ -456,7 +454,8 @@ def test_ported_knobs_take_other_values():
                                "dataset_name"},
                 "ShardConfig": {"num_clients", "shuffle", "shard_seed",
                                 "unseeded_per_client_bug", "strategy",
-                                "dirichlet_alpha"},
+                                "dirichlet_alpha", "partition_clients",
+                                "partition_offset"},
                 "ModelConfig": {"hidden_sizes", "num_classes", "input_dim",
                                 "use_pallas", "kind", "image_shape",
                                 "conv_channels", "compute_dtype",
@@ -939,8 +938,6 @@ def test_port_imports_nothing_of_jax_or_fedtpu():
 _CLI_NOT_PORTED = {
     "--model-parallel": ("run", "model_parallel", 2, "A10c"),
     "--mpmd": ("run", "mpmd", True, "A10c"),
-    "--partition-clients": ("shard", "partition_clients", 2, "A10b"),
-    "--partition-offset": ("shard", "partition_offset", 1, "A10b"),
     "--compilation-cache": ("run", "compilation_cache", "x", "A11c"),
     "--overlap-compile": ("run", "overlap_compile", True, "A11c"),
 }

@@ -196,11 +196,17 @@ def test_resilience_validation_equals_fedtpus(row, tmp_path):
 
 
 def test_reshard_kinds_and_cohort_mode_refuse_a_plan(tmp_path):
-    """A plan with the reshard kinds loads but the loop refuses it, naming
-    A10b; cohort mode refuses a plan and rollback with fedtpu's words."""
-    _, t_cfg = _cfgs(fault_plan=json.dumps(_SPECS["reshard"]))
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10b\)"):
+    """A plan with the reshard kinds under a config that cannot reshard
+    live (two rounds a chunk) is refused at start with fedtpu's words;
+    cohort mode refuses a plan and rollback with fedtpu's words."""
+    j_cfg, t_cfg = _cfgs(fault_plan=json.dumps(_SPECS["reshard"]),
+                         rounds_per_step=2)
+    with pytest.raises(ValueError) as j_err:
+        j_loop.run_experiment(j_cfg, verbose=False)
+    with pytest.raises(ValueError) as t_err:
         _t_run(t_cfg)
+    assert str(t_err.value) == str(j_err.value)
+    assert "rounds_per_step=1" in str(t_err.value)
     for run in (dict(fault_plan=_SPECS["inline"]),
                 dict(on_divergence="rollback", checkpoint_every=2,
                      checkpoint_dir=str(tmp_path / "ck"))):
@@ -534,7 +540,7 @@ def test_supervisor_imports_neither_torch_nor_numpy(monkeypatch):
     """The supervising parent (``supervise``, ``chaos``, the CLI's parser)
     imports neither torch nor numpy, so a restart holds no second CUDA
     context; a command other than ``run`` launched into a gang (a
-    ``sweep`` member) names A10b."""
+    ``sweep`` member) names A10d."""
     import subprocess
     code = ("import sys; import fedtpu_torch.cli as c; "
             "import fedtpu_torch.resilience.supervisor, "
@@ -546,18 +552,18 @@ def test_supervisor_imports_neither_torch_nor_numpy(monkeypatch):
     assert out.stdout.strip() == "[]"
     from fedtpu_torch.cli import main as t_main
     monkeypatch.setenv("FEDTPU_COORDINATOR", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10b\)"):
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10d\)"):
         t_main(["sweep", "--platform", "cpu"])
 
 
 # ------------------------------------------------------- chaos and oracles
 
 def test_chaos_registry_and_help_equal_fedtpus():
-    """The registry, its help and the single-process and training-gang
-    plans are fedtpu's; the reshard and autoscale rows refuse naming A10b
-    (the gateway, poisoning and wire rows run: tests/test_torch_fuzz.py;
-    the gang rows: tests/test_torch_gang.py); an unknown row is
-    refused."""
+    """The registry, its help and the single-process, training-gang and
+    reshard plans are fedtpu's (at fedtpu's client counts); every row
+    runs (the gateway, poisoning and wire rows: tests/test_torch_fuzz.py;
+    the gang rows: tests/test_torch_gang.py; the reshard and autoscale
+    rows: tests/test_torch_reshard.py); an unknown row is refused."""
     assert t_chaos.SCENARIO_REGISTRY == j_chaos.SCENARIO_REGISTRY
     assert t_chaos.scenarios_help() == j_chaos.scenarios_help()
     assert t_chaos.SCENARIOS == j_chaos.SCENARIOS
@@ -565,12 +571,13 @@ def test_chaos_registry_and_help_equal_fedtpus():
                  "straggler") + t_chaos.GANG_SCENARIOS:
         assert json.loads(t_chaos._plan(10, name)) == \
             json.loads(j_chaos._plan(10, name))
-    for name in ("mp_shrink", "mp_autoscale_preempt"):
-        with pytest.raises(NotImplementedError,
-                           match=r"\(ROADMAP A10b\)"):
-            t_chaos.run_chaos([name], workdir="unused")
+    for name in t_chaos.RESHARD_SCENARIOS:
+        for clients in (4, 8):
+            assert json.loads(t_chaos._plan(10, name, clients)) == \
+                json.loads(j_chaos._plan(10, name, clients))
     assert {"mp_gateway_kill", "mp_poison_campaign", "mp_torn_frame",
-            "mp_kill_worker", "mp_hang"} <= set(t_chaos.PORTED_SCENARIOS)
+            "mp_kill_worker", "mp_hang", "mp_shrink",
+            "mp_autoscale_preempt"} <= set(t_chaos.PORTED_SCENARIOS)
     with pytest.raises(ValueError, match="unknown chaos scenario"):
         t_chaos.run_chaos(["nope"])
 

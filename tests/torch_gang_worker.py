@@ -25,22 +25,29 @@ ROUNDS = 4
 
 def gang_config(spec: dict):
     """The small income run of ``spec``: ``aggregation``, ``async``,
-    ``rounds``, and the checkpoint ``dir`` / ``every``."""
+    ``rounds``, the checkpoint ``dir`` / ``every``, and for the elastic
+    runs ``clients``, ``shards``, ``rounds_per_step``, the fault ``plan``
+    and the ``collective_timeout``."""
     from fedtpu_torch import config as tcfg
     fed = dict(rounds=spec.get("rounds", ROUNDS), termination_patience=100,
                aggregation=spec.get("aggregation", "psum"))
     if spec.get("async"):
         fed.update(async_mode=True, weighting="uniform",
                    async_arrival_rate=0.5, async_buffer_size=2)
-    run = dict(mesh_devices=SHARDS, rounds_per_step=2)
+    run = dict(mesh_devices=spec.get("shards", SHARDS),
+               rounds_per_step=spec.get("rounds_per_step", 2))
     if spec.get("dir"):
         run.update(checkpoint_dir=spec["dir"],
                    checkpoint_every=spec.get("every", 2))
     if spec.get("events"):
         run["telemetry"] = tcfg.TelemetryConfig(events_path=spec["events"])
+    if spec.get("plan"):
+        run["fault_plan"] = spec["plan"]
+    if spec.get("collective_timeout"):
+        run["collective_timeout"] = spec["collective_timeout"]
     return tcfg.ExperimentConfig(
         data=tcfg.DataConfig(csv_path=None, synthetic_rows=ROWS),
-        shard=tcfg.ShardConfig(num_clients=NUM_CLIENTS),
+        shard=tcfg.ShardConfig(num_clients=spec.get("clients", NUM_CLIENTS)),
         model=tcfg.ModelConfig(hidden_sizes=HIDDEN),
         fed=tcfg.FedConfig(**fed), run=tcfg.RunConfig(**run))
 
