@@ -47,7 +47,7 @@ Phases, in order; any failure exits non-zero before the result line:
    over 8 shards, fedavgm and the trimmed mean, each against the CPU; DP
    and SCAFFOLD captured against uncaptured at R = 10, bitwise; DP resumed
    20 -> 40 bitwise with the same privacy spend; the noise draw's host
-   cost; K1's (D,) mode at the delta path's shape.
+   cost; K1's sum mode at the delta path's shape.
    (f) the hyperparameter grid: the reference's 90 configs at full width
    (400 steps, income-8 at 10,000 rows) in 2 launches, K1 and K2 once
    each a launch and held against their plain versions at the depth-2
@@ -1397,7 +1397,7 @@ def a6_config(rounds: int = A6_ROUNDS, rate: float = 1.0, **fed):
 
 def a6_cases() -> dict:
     """label -> (config, expected launches) of the A6 phase; the delta
-    path means through K1's (D,) mode once a round, the robust rules and
+    path sums through K1's sum mode once a round, the robust rules and
     the int8 exchange never launch K1."""
     return {
         "fedadam": (a6_config(server_opt="fedadam", server_lr=0.01), PSUM),
@@ -1415,39 +1415,6 @@ def a6_cases() -> dict:
         "trimmed_mean": (a6_config(20, weighting="uniform",
                                    robust_aggregation="trimmed_mean"),
                          NO_K1)}
-
-
-def k1_delta_mean(dp_cfg) -> dict:
-    """K1's (D,) mode as the DP delta path calls it: the clipped deltas of
-    income-32-noniid's 32 clients under a round's 0/1 participation
-    weights, against its plain version (1e-5) and timed beside it, its
-    bound and ``torch.matmul``."""
-    from fedtpu_torch.ops import cuda_kernels as ck
-    from fedtpu_torch.orchestration.loop import build_experiment
-    from fedtpu_torch.parallel.round import participation_mask
-    exp = build_experiment(dp_cfg, device="cuda")
-    c, d = exp.state["params"].shape
-    gen = torch.Generator().manual_seed(2)
-    delta = (torch.randn(c, d, generator=gen) * 4e-3).to("cuda")
-    w = participation_mask(c, 0.5, 0, 0).to("cuda")
-    out = ck.weighted_average_clients(delta, w)
-    ref = ck.weighted_average_clients_reference(delta, w)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    check(err <= 1e-5, f"K1 delta mean ({c}, {d}): max abs err {err}")
-    b, by = bound_ms(4 * (delta.numel() + c + d), 2.0 * delta.numel())
-    row = {"shape": [c, d], "participants": int(w.sum()), "max_abs_err": err,
-           "ms": time_ms(lambda: ck.weighted_average_clients(delta, w)),
-           "plain_ms": time_ms(
-               lambda: ck.weighted_average_clients_reference(delta, w)),
-           "library_ms": time_ms(lambda: torch.matmul(w / w.sum(), delta)),
-           "bound_ms": b, "bound_by": by}
-    print(f"time K1 (D,) delta mean ({c}, {d}), {row['participants']} "
-          f"participants: kernel {row['ms']:.4f} ms  plain "
-          f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms  "
-          f"bound {b:.5f} ms ({by}); max abs err {err:.3e}; {CARD['smi']}",
-          flush=True)
-    return row
 
 
 def noise_draw_cost(dp_cfg, width: int = 10, chunks: int = 30) -> float:
@@ -1482,13 +1449,26 @@ def phase_a6() -> dict:
     CPU; the DP and SCAFFOLD runs at R = 10 captured against uncaptured,
     bitwise, with the median s/round of both; the DP run resumed 20 -> 40
     bitwise the uninterrupted run, with the same privacy spend; the noise
-    draw's host cost; K1's (D,) mode at the delta path's shape. Returns
-    each run's launches by label and K1's row."""
+    draw's host cost; K1's sum mode at the delta path's (32, 11,352)
+    under 0/1 weights. Returns each run's launches by label and K1's
+    row."""
     cases = a6_cases()
     by_path = {}
-    for label, (cfg, expect) in cases.items():
-        label = f"income-32-noniid {label}"
-        gpu, by_path[label] = phase_run(label, cfg, expect)
+    for name, (cfg, expect) in cases.items():
+        label = f"income-32-noniid {name}"
+        card_cfg = cfg
+        if name in BRANCH_GANGS:
+            # Phase (x)'s oracle: this run with its checkpoints and
+            # metrics (neither changes a round's math).
+            d = os.path.join(branch_dir(), name.split(",")[0])
+            os.makedirs(d)
+            card_cfg = with_run(cfg, checkpoint_dir=os.path.join(d, "ck"),
+                                checkpoint_every=TRAIN_GANG_CKPT_EVERY,
+                                metrics_jsonl=os.path.join(d, "m.jsonl"))
+        gpu, by_path[label] = phase_run(label, card_cfg, expect)
+        if name in BRANCH_GANGS:
+            BRANCH_ORACLES[name] = {"result": gpu, "launches": by_path[label],
+                                    "dir": d, "cfg": cfg}
         phase_card_vs_cpu(cfg, gpu, label=f"{label} card vs CPU")
         if gpu.final_dp_clip is not None:
             print(f"{label}: final adaptive clip {gpu.final_dp_clip:.6e}, "
@@ -1530,7 +1510,10 @@ def phase_a6() -> dict:
           f"(epsilon {spent['epsilon']:.6f} at delta {spent['delta']}, "
           f"{spent['rounds']} rounds), final clip equal", flush=True)
     noise_draw_cost(dp_cfg)
-    return by_path, k1_delta_mean(dp_cfg)
+    from fedtpu_torch.models.mlp import param_count
+    return by_path, k1_sum_row(torch.device("cuda"), param_count(INCOME_DIMS),
+                               "the one-process delta path "
+                               "(income-32-noniid)", rows=32, binary=True)
 
 
 def sweep_config():
@@ -4142,18 +4125,20 @@ def fleet_cli_check(box: dict) -> dict:
 
 
 def k1_sum_row(dev: torch.device, d: int, label: str,
-               rows: int = 8) -> dict:
+               rows: int = 8, binary: bool = False) -> dict:
     """K1's sum mode at (``rows``, ``d``) (cohort 8: the net sim's and the
     fuzz gang's 6 -> 8 -> 2 at 74, the gateway rows' 6 -> 16 -> 8 -> 2 at
-    266; a training-gang member's 4 or 2 clients at income-8's 11,352)
-    against its plain version, timed beside it, ``torch.matmul`` and its
-    bound."""
+    266; a training-gang member's 4 or 2 clients at income-8's 11,352, or
+    16 at income-32-noniid's) against its plain version, timed beside it,
+    ``torch.matmul`` and its bound. ``binary``: 0/1 weights (a DP member's
+    uniform weights under its round's mask)."""
     from fedtpu_torch.ops import cuda_kernels as ck
     gen = torch.Generator().manual_seed(4)
     x = (torch.randn(rows, d, generator=gen) * 1e-2).to(dev)
-    w = ((torch.rand(rows, generator=gen) < 0.5).to(torch.float32)
-         * (1.0 + torch.randint(0, 6, (rows,), generator=gen)) ** -0.5
-         ).to(dev)
+    w = (torch.rand(rows, generator=gen) < 0.5).to(torch.float32)
+    if not binary:
+        w = w * (1.0 + torch.randint(0, 6, (rows,), generator=gen)) ** -0.5
+    w = w.to(dev)
     out = ck.weighted_sum_clients(x, w)
     ref = ck.weighted_sum_clients_reference(x, w)
     err = float((out - ref).abs().max())
@@ -6423,13 +6408,20 @@ def gang_cli(argv: list, n: int, directory: str, shards: int = 0,
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    check(out.returncode == 0, f"gang of {n} {argv[:6]}: rc "
-          f"{out.returncode}: {out.stdout[-2000:]} {out.stderr[-3000:]}")
-    summary = [json.loads(line) for line in out.stdout.splitlines()
+    return gang_outcome(argv, n, directory, out.returncode, out.stdout,
+                        out.stderr, time.perf_counter() - t0)
+
+
+def gang_outcome(argv: list, n: int, directory: str, rc: int, stdout: str,
+                 stderr: str, wall: float) -> dict:
+    """A finished gang's rc (0 or a failed check), its wall seconds,
+    process 0's summary and each member's launches (the last life's)."""
+    check(rc == 0, f"gang of {n} {argv[:6]}: rc {rc}: {stdout[-2000:]} "
+          f"{stderr[-3000:]}")
+    summary = [json.loads(line) for line in stdout.splitlines()
                if line.startswith("{") and "rounds_run" in line]
     check(len(summary) == 1, f"gang of {n}: process 0 prints one summary, "
-          f"got {out.stdout[-1500:]}")
+          f"got {stdout[-1500:]}")
     restarts = max(int(f.split(".")[1]) for f in os.listdir(directory)
                    if f.startswith("launches."))
     launches = []
@@ -6681,13 +6673,9 @@ def train_gang_member_rows() -> dict:
     packed batch (clients 0-3 and 0-1) with random params, its counts the
     plain version's except on near-tie rows; each timed beside its plain
     version, with its bound."""
-    from fedtpu_torch.models.mlp import (mlp_apply, mlp_init, param_count,
-                                         unflatten)
-    from fedtpu_torch.ops import cuda_kernels as ck
-    from fedtpu_torch.ops.metrics import near_tie_rows
+    from fedtpu_torch.models.mlp import param_count
     from fedtpu_torch.orchestration.loop import build_experiment
     dev = torch.device("cuda")
-    dims, k = INCOME_DIMS, INCOME_DIMS[-1]
     batch = build_experiment(main_path_config(), device="cpu").batch
     gen = torch.Generator().manual_seed(9)
     out = {"weighted_sum_clients": {}, "fused_eval_confusion": {}}
@@ -6695,37 +6683,49 @@ def train_gang_member_rows() -> dict:
         c = batch["x"].shape[0] // members
         tag = f"member of {members}"
         out["weighted_sum_clients"][tag] = k1_sum_row(
-            dev, param_count(dims), f"a training-gang {tag}", rows=c)
-        x, y, mask = (batch[key][:c].to(dev) for key in ("x", "y", "mask"))
-        params = torch.stack([mlp_init(gen, dims[0], dims[1:-1], k)
-                              for _ in range(c)]).to(dev)
-        conf = ck.fused_eval_confusion(params, dims, x, y, mask, k)
-        ref = ck.fused_eval_confusion_reference(params, dims, x, y, mask, k)
-        ties = near_tie_rows(mlp_apply(unflatten(params, dims), x)) & (
-            mask > 0)
-        moved = (conf - ref).abs().sum(dim=(1, 2)) / 2
-        check(bool((moved <= ties.sum(dim=1)).all()),
-              f"K2 at a training-gang {tag} {tuple(y.shape)}: counts differ "
-              f"on {moved.tolist()} rows per client, near ties "
-              f"{ties.sum(dim=1).tolist()}")
-        live = float(mask.sum())
-        b, by = bound_ms(4 * (params.numel() + live * (dims[0] + 1)
-                              + mask.numel() + c * k * k),
-                         mlp_flops(dims, live))
-        row = {"shape": f"({c}, {y.shape[1]}), {int(live)} real rows",
-               "max_abs_err": float((conf - ref).abs().max()),
-               "ms": time_ms(lambda: ck.fused_eval_confusion(
-                   params, dims, x, y, mask, k)),
-               "plain_ms": time_ms(lambda: ck.fused_eval_confusion_reference(
-                   params, dims, x, y, mask, k)),
-               "library_ms": None, "bound_ms": b, "bound_by": by}
-        out["fused_eval_confusion"][tag] = row
-        print(f"time fused_eval_confusion at a training-gang {tag} "
-              f"{row['shape']}: kernel {row['ms']:.4f} ms  plain "
-              f"{row['plain_ms']:.4f} ms  bound {b:.5f} ms ({by}); rows "
-              f"differing from plain {int(moved.sum())}; {CARD['smi']}",
-              flush=True)
+            dev, param_count(INCOME_DIMS), f"a training-gang {tag}", rows=c)
+        out["fused_eval_confusion"][tag] = k2_member_row(
+            batch, c, f"a training-gang {tag}", gen)
     return out
+
+
+def k2_member_row(batch: dict, c: int, tag: str, gen) -> dict:
+    """K2 over the first ``c`` clients of ``batch`` (a member's block of
+    its packed rows) with random params at income width, on the card:
+    its counts the plain version's except on near-tie rows, timed beside
+    it, with its bound."""
+    from fedtpu_torch.models.mlp import mlp_apply, mlp_init, unflatten
+    from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.ops.metrics import near_tie_rows
+    dev = torch.device("cuda")
+    dims, k = INCOME_DIMS, INCOME_DIMS[-1]
+    x, y, mask = (batch[key][:c].to(dev) for key in ("x", "y", "mask"))
+    params = torch.stack([mlp_init(gen, dims[0], dims[1:-1], k)
+                          for _ in range(c)]).to(dev)
+    conf = ck.fused_eval_confusion(params, dims, x, y, mask, k)
+    ref = ck.fused_eval_confusion_reference(params, dims, x, y, mask, k)
+    ties = near_tie_rows(mlp_apply(unflatten(params, dims), x)) & (mask > 0)
+    moved = (conf - ref).abs().sum(dim=(1, 2)) / 2
+    check(bool((moved <= ties.sum(dim=1)).all()),
+          f"K2 at {tag} {tuple(y.shape)}: counts differ on "
+          f"{moved.tolist()} rows per client, near ties "
+          f"{ties.sum(dim=1).tolist()}")
+    live = float(mask.sum())
+    b, by = bound_ms(4 * (params.numel() + live * (dims[0] + 1)
+                          + mask.numel() + c * k * k),
+                     mlp_flops(dims, live))
+    row = {"shape": f"({c}, {y.shape[1]}), {int(live)} real rows",
+           "max_abs_err": float((conf - ref).abs().max()),
+           "ms": time_ms(lambda: ck.fused_eval_confusion(
+               params, dims, x, y, mask, k)),
+           "plain_ms": time_ms(lambda: ck.fused_eval_confusion_reference(
+               params, dims, x, y, mask, k)),
+           "library_ms": None, "bound_ms": b, "bound_by": by}
+    print(f"time fused_eval_confusion at {tag} {row['shape']}: kernel "
+          f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+          f"{b:.5f} ms ({by}); rows differing from plain "
+          f"{int(moved.sum())}; {CARD['smi']}", flush=True)
+    return row
 
 
 def train_gang_chaos(procs: list, t0: float) -> dict:
@@ -7436,6 +7436,270 @@ def phase_elastic_gang() -> tuple:
     return by_path, numbers
 
 
+# The aggregation branches in a training gang (phase (x)): five psum gangs
+# of 2 members x 4 shards on phase (e)'s income-32-noniid configs, each held
+# to phase (e)'s one-process card run of the same config.
+BRANCH_GANGS = {
+    "fedadam": ("--server-opt", "fedadam", "--server-lr", "0.01"),
+    "DP-FedAvg": ("--weighting", "uniform", "--participation-rate", "0.5",
+                  "--dp-clip-norm", "1.0", "--dp-noise-multiplier", "1.0",
+                  "--dp-adaptive-clip", "--dp-count-noise-multiplier",
+                  "2.0"),
+    "krum, 3 Byzantine": ("--weighting", "uniform", "--robust-aggregation",
+                          "krum", "--krum-f", "3", "--byzantine-clients",
+                          "3"),
+    "SCAFFOLD": ("--weighting", "uniform", "--scaffold", "--local-steps",
+                 "3"),
+    "int8 over 8 shards": ("--compress", "int8")}
+BRANCH_MEMBER_SHARDS = 4
+BRANCH_EXCHANGE_REPS = 50
+# The branch gang run again alone on the card after the five, for its
+# s/round without the other four.
+BRANCH_ALONE = "fedadam"
+# Phase (e)'s card runs of BRANCH_GANGS' configs (result, launches, the
+# directory of their checkpoints and metrics, config), phase (x)'s oracles.
+BRANCH_ORACLES: dict = {}
+_BRANCH_DIR: list = []
+
+
+def branch_dir() -> str:
+    """The directory phase (e) keeps its branch runs in for phase (x),
+    made once and removed when the script ends."""
+    if not _BRANCH_DIR:
+        import atexit
+        import shutil
+        import tempfile
+        _BRANCH_DIR.append(tempfile.mkdtemp(prefix="branch-oracles-"))
+        atexit.register(shutil.rmtree, _BRANCH_DIR[0], True)
+    return _BRANCH_DIR[0]
+
+
+def branch_argv(directory: str, name: str) -> list:
+    return gang_argv(directory, "income-32-noniid", A6_ROUNDS,
+                     "--eval-test-every", "10", *BRANCH_GANGS[name])
+
+
+def branch_config(name: str):
+    """The CLI config of ``name``'s gang as one process runs it: 8 mesh
+    shards (the gang's 2 x 4), no checkpoints, metrics or sink."""
+    from fedtpu_torch.cli import build_parser, config_from_args
+    cfg = config_from_args(build_parser().parse_args(
+        branch_argv("unused", name)))
+    return cfg.replace(run=dataclasses.replace(
+        cfg.run, mesh_devices=2 * BRANCH_MEMBER_SHARDS, checkpoint_dir=None,
+        checkpoint_every=0, metrics_jsonl=None, collective_timeout=None,
+        telemetry=type(cfg.run.telemetry)()))
+
+
+def branch_oracle(directory: str, name: str) -> dict:
+    """Phase (e)'s card run of ``name``'s config when it ran and its
+    config is the gang's, else this config's own one-process run."""
+    known = BRANCH_ORACLES.get(name)
+    if known is not None and known["cfg"] == branch_config(name):
+        print(f"phase (x) {name}: oracle is phase (e)'s run of the same "
+              "config", flush=True)
+        return known
+    print(f"phase (x) {name}: oracle is its own one-process run "
+          f"({'phase (e) did not run' if known is None else 'config differs from phase (e)'})",
+          flush=True)
+    return one_process_run(os.path.join(directory, f"one-{name[:4]}"),
+                           ("income-32-noniid", A6_ROUNDS, "--eval-test-every",
+                            "10", *BRANCH_GANGS[name]),
+                           shards=2 * BRANCH_MEMBER_SHARDS)
+
+
+def branch_exchange_member() -> None:
+    """One member of phase (x)'s exchange check (``python -c "import
+    chip_smoke as cs; cs.branch_exchange_member()" STORE RANK``): joins a
+    gang of 2 on the card, builds each BRANCH_GANGS config's experiment
+    (its exchange, a ``GangExchange`` or a ``GangGather``, as the gang's
+    run builds it), stages payloads that differ by member and prints one
+    JSON line: each exchange's kind, the dtype, shape and bytes a member
+    sends a round, the gathered or reduced result against every member's
+    payload (the int8 block bitwise, as int8), and the host ms of its
+    collective (median of BRANCH_EXCHANGE_REPS)."""
+    store, rank = sys.argv[1], int(sys.argv[2])
+    from fedtpu_torch.orchestration.loop import build_experiment
+    from fedtpu_torch.parallel import multihost
+    os.environ["FEDTPU_SHARDS_PER_PROCESS"] = str(BRANCH_MEMBER_SHARDS)
+    gang = multihost.initialize(f"file://{store}", 2, rank)
+    out = {"rank": rank, "backend": gang.backend, "exchanges": {}}
+    for name in BRANCH_GANGS:
+        ex = build_experiment(branch_config(name), device="cuda").exchange
+        send = ex.send
+        gen = torch.Generator().manual_seed(100 + rank)
+        payload = (torch.randint(-127, 128, send.shape, generator=gen,
+                                 dtype=torch.int8)
+                   if send.dtype == torch.int8
+                   else torch.randn(send.shape, generator=gen))
+        ex.stage(payload)
+        times = []
+        for _ in range(BRANCH_EXCHANGE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex.host()
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = ex.reduce().cpu()
+        peers = gang.all_gather(payload)
+        same = bool(torch.equal(got, peers.reshape(got.shape))
+                    and got.dtype == payload.dtype if ex.kind == "gather"
+                    else torch.equal(got, peers[0] + peers[1]))
+        out["exchanges"][name] = {
+            "kind": ex.kind, "dtype": str(send.dtype),
+            "shape": list(send.shape),
+            "bytes_sent": send.numel() * send.element_size(),
+            "exact": same, "host_ms": statistics.median(times)}
+        ex.close()
+        gang.barrier()
+    multihost.shutdown()
+    print(json.dumps(out), flush=True)
+
+
+def branch_member_rows() -> dict:
+    """K1's sum mode at the DP member's (16, 11,352) under 0/1 weights and
+    K2 at a member's (16, 1104) block of income-32-noniid's batch, on the
+    card with nothing else on it."""
+    from fedtpu_torch.models.mlp import param_count
+    from fedtpu_torch.orchestration.loop import build_experiment
+    c = 32 // 2
+    batch = build_experiment(sharded_config("psum", 1.0, 1),
+                             device="cpu").batch
+    tag = "a branch-gang member (income-32-noniid over 2)"
+    return {"weighted_sum_clients": k1_sum_row(
+                torch.device("cuda"), param_count(INCOME_DIMS), tag, rows=c,
+                binary=True),
+            "fused_eval_confusion": k2_member_row(
+                batch, c, tag, torch.Generator().manual_seed(9))}
+
+
+def median_s_round(path: str):
+    """The median s/round of a run's metrics JSONL, round 1 (the graphs'
+    warm-up and capture) left out."""
+    with open(path) as fh:
+        rows = [json.loads(line) for line in fh]
+    return statistics.median(r["sec_per_round"] for r in rows[1:])
+
+
+def phase_branch_gangs() -> tuple:
+    """Phase (x): the aggregation branches in a training gang on the card.
+    K1's sum mode and K2 at a member's shapes first, alone; then the five
+    gangs (BRANCH_GANGS, 2 members x 4 shards, their members' launches
+    counted) run side by side as children while the oracles are taken
+    (phase (e)'s runs); each gang held to its oracle as phase (v) holds a
+    gang (``gang_vs_one``: the stop round, the history, the state at every
+    checkpoint, the members' round events, a member's K1/K2/K3 launches
+    one process's); then BRANCH_ALONE's gang again, alone on the card, held
+    the same way, for its s/round without the others; last, alone, the
+    exchange check (``branch_exchange_member``)."""
+    import tempfile
+    numbers, seconds, by_path = {}, {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - clock[0], 2)
+        clock[0] = now
+
+    k123 = ("weighted_average_clients", "fused_eval_confusion",
+            "fused_mlp_forward")
+    numbers["member_rows"] = branch_member_rows()
+    lap("K1 and K2 at a member's shapes")
+    with tempfile.TemporaryDirectory() as directory:
+        gangs = {}
+        for i, name in enumerate(BRANCH_GANGS):
+            d = os.path.join(directory, f"g{i}")
+            gangs[name] = (d, time.perf_counter(), gang_popen(
+                branch_argv(d, name), d, BRANCH_MEMBER_SHARDS))
+        members = []
+        try:
+            oracles = {name: branch_oracle(directory, name)
+                       for name in BRANCH_GANGS}
+            lap("oracles")
+            for name, (d, t0, proc) in gangs.items():
+                o, e = proc.communicate(timeout=900)
+                gang = gang_outcome(branch_argv(d, name), 2, d,
+                                    proc.returncode, o, e,
+                                    time.perf_counter() - t0)
+                label = f"income-32-noniid {name} gang of 2 (4 shards each)"
+                row = gang_vs_one(label, gang, oracles[name], d, 2, True,
+                                  k123)
+                row["median_s_round"] = {
+                    "gang": median_s_round(os.path.join(d, "m.jsonl")),
+                    "one": median_s_round(os.path.join(oracles[name]["dir"],
+                                                       "m.jsonl"))}
+                numbers[name] = row
+                for i, mem in enumerate(gang["launches"]):
+                    by_path[f"{label}, member {i}"] = mem
+                print(f"{label}: median s/round gang "
+                      f"{row['median_s_round']['gang']:.4e} (five gangs "
+                      f"side by side on the card) vs one process "
+                      f"{row['median_s_round']['one']:.4e} (its oracle "
+                      f"run); {CARD['smi']}", flush=True)
+            lap("gangs")
+            d = os.path.join(directory, "alone")
+            gangs["alone"] = (d, time.perf_counter(), gang_popen(
+                branch_argv(d, BRANCH_ALONE), d, BRANCH_MEMBER_SHARDS))
+            _, t0, proc = gangs["alone"]
+            o, e = proc.communicate(timeout=600)
+            gang = gang_outcome(branch_argv(d, BRANCH_ALONE), 2, d,
+                                proc.returncode, o, e,
+                                time.perf_counter() - t0)
+            label = (f"income-32-noniid {BRANCH_ALONE} gang of 2 (4 shards "
+                     "each), alone on the card")
+            row = gang_vs_one(label, gang, oracles[BRANCH_ALONE], d, 2, True,
+                              k123)
+            row["median_s_round"] = {
+                "gang": median_s_round(os.path.join(d, "m.jsonl")),
+                "one": median_s_round(os.path.join(
+                    oracles[BRANCH_ALONE]["dir"], "m.jsonl"))}
+            numbers[f"{BRANCH_ALONE}, alone"] = row
+            print(f"{label}: median s/round gang "
+                  f"{row['median_s_round']['gang']:.4e} vs one process "
+                  f"{row['median_s_round']['one']:.4e}; {CARD['smi']}",
+                  flush=True)
+            lap("a gang alone")
+            # The exchange check alone on the card, after the gangs.
+            store = os.path.join(directory, "exchange.store")
+            members = [subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke as cs; "
+                 "cs.branch_exchange_member()", store, str(r)], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(2)]
+            rows = []
+            for proc in members:
+                o, e = proc.communicate(timeout=300)
+                check(proc.returncode == 0, f"exchange member rc "
+                      f"{proc.returncode}: {o[-1000:]} {e[-2000:]}")
+                rows.append(json.loads(o.strip().splitlines()[-1]))
+            exchanges = {}
+            for name in BRANCH_GANGS:
+                mine = [r["exchanges"][name] for r in rows]
+                check(all(m["exact"] for m in mine),
+                      f"exchange of {name}: a member's result differs from "
+                      f"its peers' payloads: {mine}")
+                exchanges[name] = {**{k: mine[0][k] for k in (
+                    "kind", "dtype", "shape", "bytes_sent")},
+                    "host_ms": [m["host_ms"] for m in mine]}
+                print(f"exchange {name}: {json.dumps(exchanges[name])} "
+                      f"({rows[0]['backend']}); {CARD['smi']}", flush=True)
+            check(exchanges["int8 over 8 shards"]["dtype"] == "torch.int8",
+                  f"the int8 gang sends {exchanges['int8 over 8 shards']}")
+            numbers["exchanges"] = exchanges
+            lap("exchange check")
+        finally:
+            for _, _, proc in gangs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+            for proc in members:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+    print(f"phase (x) seconds {json.dumps(seconds)}", flush=True)
+    numbers["seconds"] = seconds
+    return by_path, numbers
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
     clock, seconds = [time.perf_counter()], {}
@@ -7480,7 +7744,7 @@ def main() -> None:
     by_path.update(phase_capture(composed))
     phase_resume()
     lap("(a)-(d)")
-    a6_launches, timings["weighted_average_clients"]["delta_mean"] = \
+    a6_launches, timings["weighted_average_clients"]["delta_sum"] = \
         phase_a6()
     by_path.update(a6_launches)
     lap("(e)")
@@ -7559,6 +7823,13 @@ def main() -> None:
     print(f"phase (w) numbers {json.dumps(elastic, default=float)}",
           flush=True)
     lap("(w)")
+    branch_launches, branch = phase_branch_gangs()
+    by_path.update(branch_launches)
+    for name, row in branch.pop("member_rows").items():
+        timings[name]["branch_gang_member"] = row
+    print(f"phase (x) numbers {json.dumps(branch, default=float)}",
+          flush=True)
+    lap("(x)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -7605,10 +7876,10 @@ def main() -> None:
                 "empty_launch_ms", "empty_back_to_back_ms", "ms_by_threads",
                 "ms_by_tile_x_threads", "composed_round_device_ms",
                 "marginal_us_per_round", "profile", "phases_us",
-                "delta_mean", "sweep", "cifar10_32", "bf16_fp16",
+                "delta_sum", "sweep", "cifar10_32", "bf16_fp16",
                 "sklearn_parity", "serve", "net_sim", "cohort",
                 "gateway_rows", "fuzz_rows", "gang", "train_gang_members",
-                "elastic")
+                "elastic", "branch_gang_member")
                 if key in t},
             **({"mode": "sum: K1 unnormalised, the asynchronous tick's "
                 "psum(tensordot(disc, delta))"}

@@ -1610,7 +1610,7 @@ def main(argv=None) -> int:
         gang = multihost.initialize_from_env(args.platform)
     elif os.environ.get(ENV_COORDINATOR):
         from fedtpu_torch.config import _not_ported
-        _not_ported(f"{args.command} in a training gang", "A10d")
+        _not_ported(f"{args.command} in a training gang", "A10d-3")
     cfg = config_from_args(args)
     device = "cpu" if args.platform == "cpu" else "cuda"
     if args.command in ("sweep", "parity"):

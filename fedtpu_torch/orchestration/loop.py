@@ -103,11 +103,17 @@ common step (``resilience.distributed.agree_resume_step``) and checks
 that every member restored it, and ``collective_timeout`` arms the
 collective watchdog around the blocking windows. Early stop and the
 divergence halt stay consensual: every member reads the same gathered
-metrics. A gang's checkpoint restores into a gang of another size, or into
-one process, and the other way round: at the same client count each member
+metrics. Every aggregation branch runs in a gang (``round.
+build_round_fn``'s two halves around the exchange): the server optimizers, central DP (its noise one
+seeded draw that every member makes, its ledger on every member), the
+int8 exchange, the robust rules, Byzantine injection and SCAFFOLD, their
+state replicated on every member beside the member's per-client rows. A
+gang's checkpoint restores into a gang of another size, or into one
+process, and the other way round: at the same client count each member
 its rows, bitwise; at another, the elastic resume. Not in a gang yet
-(ROADMAP A10d): cohort mode, pipelined stop, rollback, personalization, a
-warm start and the client-targeted faults.
+(ROADMAP A10d-2): pipelined stop, rollback, personalization, a warm
+start and the client-targeted faults; cohort mode stays refused (a
+multi-process cohort gather is fedtpu's future work too).
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
 with no GPU and no such request they raise rather than fall back.
@@ -152,13 +158,13 @@ from fedtpu_torch.parallel.async_fed import (async_global_params,
 from fedtpu_torch.parallel.mesh import ClientMesh, make_mesh
 from fedtpu_torch.parallel.ring import GangExchange
 from fedtpu_torch.parallel.round import (_per_client_slots, assemble_metrics,
-                                         build_eval_fn, build_round_fn,
-                                         capture_gang_step,
+                                         build_eval_fn, build_gang_exchange,
+                                         build_round_fn, capture_gang_step,
                                          capture_round_step, check_knobs,
                                          client_init_seeds, client_inits,
                                          global_params, init_federated_state,
-                                         pack_outputs, unpack_outputs,
-                                         warm_up_round)
+                                         pack_outputs, round_branch,
+                                         unpack_outputs, warm_up_round)
 from fedtpu_torch.resilience.distributed import heartbeat_path_for
 from fedtpu_torch.resilience.supervisor import Preempted, write_heartbeat
 from fedtpu_torch.telemetry.log import TelemetryLogger
@@ -455,8 +461,8 @@ GANG_FAULT_KINDS = ("process_kill", "collective_hang", "straggler",
 
 def check_gang_config(cfg: ExperimentConfig) -> None:
     """What a training gang does not run yet raises, before any build,
-    naming the ROADMAP item that brings it (the aggregation branches
-    besides plain FedAvg raise in ``round.check_gang_knobs``)."""
+    naming the ROADMAP item that brings it (A10d-2; cohort mode, which
+    fedtpu refuses across processes too, under the same item)."""
     fed, run = cfg.fed, cfg.run
     for on, what in (
             (fed.cohort_size > 0, "cohort mode (the multi-process cohort "
@@ -466,7 +472,7 @@ def check_gang_config(cfg: ExperimentConfig) -> None:
             (fed.personalize_steps > 0, "personalize_steps"),
             (bool(fed.init_weights_npz), "init_weights_npz")):
         if on:
-            _not_ported(f"{what} in a training gang", "A10d")
+            _not_ported(f"{what} in a training gang", "A10d-2")
     if run.fault_plan:
         from fedtpu_torch.resilience.faults import FaultPlan
         plan = FaultPlan.load(run.fault_plan,
@@ -476,7 +482,7 @@ def check_gang_config(cfg: ExperimentConfig) -> None:
                         if f.kind not in GANG_FAULT_KINDS})
         if kinds:
             _not_ported(f"fault kind(s) {kinds} in a training gang (it "
-                        f"applies {list(GANG_FAULT_KINDS)})", "A10d")
+                        f"applies {list(GANG_FAULT_KINDS)})", "A10d-2")
 
 
 def _copy_state_into(live: dict, restored: dict) -> None:
@@ -548,7 +554,7 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     num_clients = cfg.shard.num_clients
     fed = cfg.fed
 
-    server = None
+    server, delta_path = None, False
     if fed.async_mode:
         check_async_config(fed)
     else:
@@ -560,7 +566,7 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         # fedtpu's refusals, before the state is built, and the delta
         # path's server optimizer, decided once for the state and the
         # round.
-        _, server, _, _ = check_knobs(
+        delta_path, server, _, _ = check_knobs(
             fed.weighting, fed.participation_rate, fed.aggregation, server,
             fed.dp_clip_norm, fed.dp_noise_multiplier, fed.dp_adaptive_clip,
             fed.dp_target_quantile, fed.dp_clip_lr,
@@ -572,7 +578,7 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     if mesh is None:
         mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev, gang=gang)
     rows = multihost.local_client_slice(mesh)
-    exchange = None
+    exchange = shared_g0 = None
     if gang is not None:
         if dev.type == "cuda":
             # Built before the gang's first collective, so that no member
@@ -588,10 +594,19 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             # Every client starts from the whole gang's shared global.
             params = init_async_state(None, num_clients, model, tx,
                                       params=params)["anchors"]
+        elif server is not None or fed.compress != "none":
+            # The delta path's and int8's shared start: the mean over the
+            # whole gang's clients, as one process takes it.
+            shared_g0 = params.to(device=dev, dtype=model.param_dtype
+                                  ).contiguous().mean(dim=0)
         params = params[rows]
-        exchange = GangExchange("psum" if fed.async_mode else
-                                fed.aggregation, gang, mesh,
-                                model.param_count + 1, dev)
+        exchange = (GangExchange("psum", gang, mesh, model.param_count + 1,
+                                 dev) if fed.async_mode
+                    else build_gang_exchange(
+                        round_branch(delta_path, fed.compress,
+                                     fed.robust_aggregation),
+                        fed.aggregation, model, mesh, fed.scaffold, gang,
+                        dev))
         num_clients = mesh.local_clients
         packed_rows = {k: getattr(packed, k)[rows]
                        for k in ("x", "y", "mask", "counts")}
@@ -637,7 +652,7 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             device=dev, params=params, server_opt=server,
             shared_start=fed.compress != "none", scaffold=fed.scaffold,
             adaptive_clip_init=(fed.dp_clip_norm if fed.dp_adaptive_clip
-                                else None))
+                                else None), g0=shared_g0)
         make_step = lambda r: build_round_fn(
             model, tx, ds.num_classes, client_weights, rounds_per_step=r,
             mesh=mesh, aggregation=fed.aggregation,
@@ -1677,9 +1692,16 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                     "mask_host": mask_host, "num_clients": num_clients,
                     "fault_weights": fault_weights,
                     "block_start": block_start})
+                # The caller's draws go on: the noise as it is, the masks
+                # of the rebuilt mesh's clients by their index in it, as
+                # fedtpu draws them for its shrunk mesh.
+                masks2 = (None if participation_masks is None else
+                          lambda r: np.asarray(participation_masks(r))[:target])
                 with tracer.span("reshard_build", round=rnd):
                     exp2 = build_experiment(cfg2, exp.dataset, device=dev,
-                                            mesh=dst_mesh, gang=new_gang)
+                                            mesh=dst_mesh, gang=new_gang,
+                                            participation_masks=masks2,
+                                            dp_noise=dp_noise)
                 src_c = num_clients
                 state = match_layout(moved, exp2.state, None)
                 cfg, exp, gang, exchange = cfg2, exp2, new_gang, exp2.exchange
@@ -1816,6 +1838,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             ctl.await_acks(seq, phase, participants)
             waits[phase] = time.perf_counter() - t0
         _copy_state_into(state, grown)
+        # The round counter passed through the move from the parked state:
+        # the rejoiner goes on at the grow round (its rounds_trained, and
+        # so its privacy spend, are the survivors').
+        state["round"] = r_grow
         ctl.committed("grow", proc)
         for k in METRIC_NAMES:
             if control.get("history", {}).get(k) is not None:

@@ -13,8 +13,13 @@ A leaf is one tensor of ``fedtpu``'s pytree, i.e. one layer's ``w`` or
 ``b``: here a segment of the flat ``(D,)`` row (the model spec's
 ``leaf_bounds``, ``fedtpu_torch.models.registry``), each with its own
 scale. The error is at most ``scale_s / 2`` per element of each partial
-sum. The shards of the port's mesh share one device, so the "wire" is a
-tensor; the arithmetic is ``fedtpu``'s.
+sum. A round quantizes its shards' partial sums (``quantize_partials``)
+and dequantizes and sums every shard's (``dequantized_mean``). The shards
+of one process's mesh share one device, so there the "wire" is a tensor;
+in a training gang each member quantizes its own shards and the int8
+rows and scales are gathered across the processes as one int8 block a
+shard (``fedtpu_torch.parallel.ring.GangGather``). The arithmetic is
+``fedtpu``'s.
 """
 
 from __future__ import annotations
@@ -45,20 +50,26 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor,
     return q.to(torch.float32) * per_elem
 
 
-def quantized_weighted_mean(delta: torch.Tensor, w: torch.Tensor,
-                            shards: int, model) -> torch.Tensor:
-    """The weighted mean of ``delta (C, D)`` with weights ``w (C,)`` over a
-    mesh of ``shards`` shards (contiguous blocks of clients), each shard's
-    partial sum exchanged as int8 with one scale per leaf of ``model`` (a
-    ``registry.FlatModel`` or the float32 MLP's widths): ``(D,)`` float32,
-    or zeros when the weights sum to 0 (``0 / max(0, 1)``). A bfloat16 or
-    float16 delta is summed and quantized from float32, as in ``fedtpu``."""
+def quantize_partials(delta: torch.Tensor, w: torch.Tensor, shards: int,
+                      model):
+    """Each of ``shards`` shards' (contiguous blocks of ``delta (C,
+    D)``'s clients) weighted partial sum with weights ``w (C,)``, summed
+    from float32 (a 16-bit delta too, as in ``fedtpu``), as int8 with one
+    scale per leaf of ``model`` (a ``registry.FlatModel`` or the float32
+    MLP's widths): ``(q int8 (shards, D), scales (shards, leaves))``, what
+    crosses the wire (a gang member quantizes its own shards)."""
     c, d = delta.shape
     cb = c // shards
     partial = torch.bmm(w.view(shards, 1, cb),
                         delta.to(torch.float32).view(shards, cb, d)
                         ).view(shards, d)
-    bounds = as_model(model).leaf_bounds
-    q, scales = quantize_leaves(partial, bounds)
-    total = dequantize(q, scales, bounds).sum(dim=0)
-    return total / torch.clamp(w.sum(), min=1.0)
+    return quantize_leaves(partial, as_model(model).leaf_bounds)
+
+
+def dequantized_mean(q: torch.Tensor, scales: torch.Tensor,
+                     total_w: torch.Tensor, model) -> torch.Tensor:
+    """Every shard's ``q``/``scales`` dequantized and summed in shard
+    order, over ``max(total_w, 1)``: ``(D,)`` float32, zeros when the
+    weights sum to 0."""
+    total = dequantize(q, scales, as_model(model).leaf_bounds).sum(dim=0)
+    return total / torch.clamp(total_w, min=1.0)

@@ -19,7 +19,8 @@ the results equal ``fedtpu``'s bit for bit:
 - ``make_all_reduce('psum')``: the plain sum over shards, on every row.
 
 ``GangExchange`` is the same reductions across the processes of a training
-gang, each member holding its own shards' rows.
+gang, each member holding its own shards' rows; ``GangGather`` is the
+gather that the robust rules and the int8 exchange need there.
 """
 
 from __future__ import annotations
@@ -217,3 +218,39 @@ class GangExchange:
         self._peer_ptrs = []
         cuda_kernels.ipc_free(self._own_ptr, self.device)
         self._own_ptr = None
+
+
+class GangGather:
+    """One round's gather of a training gang's ``(rows, width)`` blocks of
+    ``dtype``, ``fedtpu``'s ``all_gather``: every member gets the ``(N *
+    rows, width)`` stack of the members' blocks in member order, in that
+    dtype, staged through the host under gloo (the robust rules' float32
+    rows; the int8 exchange's int8 block, whose bytes are what crosses the
+    wire). The same four calls as ``GangExchange``: ``stage`` and
+    ``reduce`` may be captured in CUDA graphs, ``host`` (the gather) and
+    ``after`` (nothing) never are."""
+
+    kind = "gather"
+
+    def __init__(self, gang, rows: int, width: int, dtype: torch.dtype,
+                 device: torch.device):
+        self.gang = gang
+        self.send = torch.zeros((rows, width), dtype=dtype, device=device)
+        self.stack = torch.zeros((gang.process_count * rows, width),
+                                 dtype=dtype, device=device)
+
+    def stage(self, payload: torch.Tensor) -> None:
+        self.send.copy_(payload)
+
+    def host(self) -> None:
+        self.stack.copy_(self.gang.all_gather(self.send).reshape(
+            self.stack.shape))
+
+    def reduce(self) -> torch.Tensor:
+        return self.stack
+
+    def after(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -28,10 +28,11 @@ The aggregation branches, as ``fedtpu``'s ``build_round_fn`` selects them:
   ring``: K4 on the card for ``ring``), then each shard divides by its own
   total and broadcasts its own global into its own clients' slots.
 - **The delta path** (a server optimizer, central DP or SCAFFOLD): the
-  weighted mean of the clients' updates ``trained_i - g`` (K1 in ``(D,)``
-  mode), optionally per-client clipped and noised, is a pseudo-gradient for
-  a server optimizer (``fedtpu_torch.ops.server_opt``) whose state lives
-  beside the params.
+  weighted sum of the clients' updates ``trained_i - g`` (K1's sum mode)
+  over the realized weight total, or over the fixed ``q*C`` under DP with
+  sampling, optionally per-client clipped and noised, is a pseudo-gradient
+  for a server optimizer (``fedtpu_torch.ops.server_opt``) whose state
+  lives beside the params.
 - **int8 exchange**: each mesh shard's weighted partial sum of updates,
   int8-quantized per leaf (``fedtpu_torch.parallel.compress``).
 - **Robust rules**: coordinate-wise median / trimmed mean (mask-aware under
@@ -89,9 +90,11 @@ from fedtpu_torch.ops.optim import Optimizer
 from fedtpu_torch.ops.server_opt import (ServerOptimizer, clip_by_global_norm,
                                          identity_server_optimizer,
                                          unit_normals)
-from fedtpu_torch.parallel.compress import quantized_weighted_mean
+from fedtpu_torch.parallel.compress import (dequantized_mean,
+                                           quantize_partials)
 from fedtpu_torch.parallel.mesh import ClientMesh
-from fedtpu_torch.parallel.ring import make_all_reduce
+from fedtpu_torch.parallel.ring import (GangExchange, GangGather,
+                                       make_all_reduce)
 from fedtpu_torch.training.client import (make_local_eval_step,
                                           make_local_train_step)
 
@@ -150,7 +153,8 @@ def init_federated_state(init_seed: Optional[int], num_clients: int,
                          server_opt: Optional[ServerOptimizer] = None,
                          shared_start: bool = False,
                          scaffold: bool = False,
-                         adaptive_clip_init: Optional[float] = None) -> dict:
+                         adaptive_clip_init: Optional[float] = None,
+                         g0: Optional[torch.Tensor] = None) -> dict:
     """Client-stacked params ``(C, D)`` + optimizer state on ``device``.
 
     ``model``: a ``registry.FlatModel``, or the float32 MLP's widths.
@@ -159,7 +163,9 @@ def init_federated_state(init_seed: Optional[int], num_clients: int,
     reference's unseeded per-rank init; all clients share one draw when
     ``same_init``). ``params`` (``(C, D)``) replaces the draw, e.g. with
     ``fedtpu``'s own init through ``fedtpu_torch.convert.params_from_jax``;
-    ``init_seed`` may then be None.
+    ``init_seed`` may then be None. ``g0``: the shared start in place of
+    the mean of ``params``, for a gang member whose ``params`` are its
+    block only (the mean over every client of the gang, on the device).
 
     As in ``fedtpu``: ``server_opt`` (the delta path) or ``shared_start``
     (the int8 exchange, which rebuilds the global as start + mean delta)
@@ -181,7 +187,8 @@ def init_federated_state(init_seed: Optional[int], num_clients: int,
                        dtype=as_model(model).param_dtype).contiguous()
     state = {"params": params, "round": 0}
     if server_opt is not None or shared_start:
-        g0 = params.mean(dim=0)
+        if g0 is None:
+            g0 = params.mean(dim=0)
         state["params"] = params = g0.expand(num_clients, -1).contiguous()
         # The marker a compressed round checks for (no tensor).
         state["shared_start"] = True
@@ -305,24 +312,6 @@ class RoundStep:
         return tuple(None if w is None else
                      torch.zeros((self.rounds, w), dtype=torch.float32,
                                  device=params.device) for w in widths)
-
-
-def check_gang_knobs(server_opt, dp_clip_norm, dp_noise_multiplier,
-                     compress, robust_aggregation, byzantine_clients,
-                     scaffold) -> None:
-    """A training gang runs plain FedAvg: the other aggregation branches
-    raise, naming the item that brings them to a gang."""
-    branches = [name for name, on in (
-        ("a server optimizer", server_opt is not None),
-        ("central DP", dp_clip_norm > 0 or dp_noise_multiplier > 0),
-        ("the int8 exchange", compress != "none"),
-        ("a robust rule", robust_aggregation != "none"),
-        ("Byzantine injection", byzantine_clients > 0),
-        ("SCAFFOLD", scaffold)) if on]
-    if branches:
-        from fedtpu_torch.config import _not_ported
-        _not_ported(f"{', '.join(branches)} in a training gang (plain "
-                    "FedAvg runs across processes)", "A10d")
 
 
 def check_knobs(weighting, participation_rate, aggregation, server_opt,
@@ -645,6 +634,49 @@ def robust_average(rule: str, agg: torch.Tensor, part, trim_ratio: float,
     return torch.where(part.sum() > 0, out, agg.to(slot_dtype))
 
 
+def round_branch(delta_path: bool, compress: str,
+                 robust_aggregation: str) -> str:
+    """The aggregation branch of a synchronous round, in ``fedtpu``'s order
+    (``fedtpu/parallel/round.py:602-875``): ``delta`` (a server optimizer,
+    central DP or SCAFFOLD), ``int8``, ``robust`` or the plain
+    ``average``."""
+    if delta_path:
+        return "delta"
+    if compress == "int8":
+        return "int8"
+    return "robust" if robust_aggregation != "none" else "average"
+
+
+def build_gang_exchange(branch: str, aggregation: str, model,
+                        mesh: ClientMesh, scaffold: bool, gang,
+                        device: torch.device):
+    """The exchange a gang member's round of ``branch`` (``round_branch``)
+    goes through, the counterpart of ``fedtpu``'s collectives of that
+    branch (``build_round_fn``'s ``pre`` builds the payload):
+
+    - ``delta``: a ``GangExchange`` psum of ``D + 3`` floats, the weighted
+      sum of the clipped deltas, the weight total, the participant count
+      and the adaptive clip's ``b_sum`` (``fedtpu``'s four ``psum``s), and
+      under SCAFFOLD ``D`` more, the sum of the variates' changes;
+    - ``int8``: a ``GangGather`` of one int8 block a shard: the shard's
+      int8 row, then the bytes of its float32 scales and weight total
+      (``fedtpu``'s ``all_gather`` of the payloads and scales, one gather);
+    - ``robust``: a ``GangGather`` of the member's submitted float32 rows;
+    - ``average``: the ``aggregation`` kind's ``GangExchange`` of ``D + 1``
+      floats, the psum's partial sum and total or each shard's."""
+    model = as_model(model)
+    d = model.param_count
+    if branch == "int8":
+        # The side's float32 scales (one a leaf) and total, 4 bytes each.
+        side = 4 * (len(model.leaf_bounds) + 1)
+        return GangGather(gang, mesh.local_shards, d + side, torch.int8,
+                          device)
+    if branch == "robust":
+        return GangGather(gang, mesh.local_clients, d, torch.float32, device)
+    width = (2 * d + 3 if scaffold else d + 3) if branch == "delta" else d + 1
+    return GangExchange(aggregation, gang, mesh, width, device)
+
+
 def build_round_fn(model, tx: Optimizer, num_classes: int,
                    client_weights: torch.Tensor,
                    rounds_per_step: int = 1,
@@ -671,7 +703,7 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
                    krum_f: int = 0,
                    byzantine_clients: int = 0,
                    scaffold: bool = False,
-                   exchange=None) -> RoundStep:
+                   exchange=None):
     """Returns ``round_step(state, batch, masks=None, noise=None) -> (state,
     raw)`` running ``rounds_per_step`` rounds of ``model`` (a
     ``registry.FlatModel``, or the float32 MLP's widths); ``raw`` holds the
@@ -702,43 +734,49 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
     ``(dp_seed, stream, round)``, or ``dp_noise(round) -> (D + 1,)``, e.g.
     ``fedtpu``'s own draws, when given).
 
-    A ``mesh`` of a training gang (``mesh.num_processes > 1``) builds the
-    member's round (``build_gang_round_fn``) over its ``client_weights``,
-    exchanging through ``exchange`` (``ring.GangExchange``); only plain
-    FedAvg runs in a gang."""
+    A round is two halves around the reduction of its payload: ``pre``
+    trains and evaluates this process's clients, injects the Byzantine
+    rows (those whose index in the whole mesh is below
+    ``byzantine_clients``) and builds the branch's payload; ``post``
+    computes the new global, the server state, SCAFFOLD's server variate
+    and the clip from the reduced payload. One process reduces its payload
+    in process (as it is, or the ring's all-reduce over its shards; plain
+    psum FedAvg keeps K1's broadcast mode, one launch into every slot). A
+    ``mesh`` of a training gang (``mesh.num_processes > 1``) makes the
+    member's round, a ``GangStep`` over its block of ``client_weights``,
+    the exchange between the halves (``exchange``, from
+    ``build_gang_exchange``) giving every member the same reduced values,
+    so that every member computes the same global, server state and clip;
+    every refusal, the fixed denominator and every draw are the whole
+    gang's (masks and noise: every member draws the gang's rows from the
+    seed, with no collective). The exact branches (the rings, the robust
+    rules, int8) reduce the same rows in the same order as one process;
+    the psum and the delta path add per-member partial sums: float32
+    tolerance. On the card a batched GEMM's bits can depend on its batch
+    count (a member trains ``C_local`` clients a batch): float32 tolerance
+    there for every branch."""
     if not 0.0 < participation_rate <= 1.0:
         raise ValueError(f"participation_rate must be in (0, 1], got "
                          f"{participation_rate}")
-    num_clients = client_weights.shape[0]
     dev = client_weights.device
     if mesh is None:
-        mesh = ClientMesh(1, num_clients, (dev,))
-    if mesh.num_processes > 1:
-        check_knobs(weighting, participation_rate, aggregation, server_opt,
-                    dp_clip_norm, dp_noise_multiplier, dp_adaptive_clip,
-                    dp_target_quantile, dp_clip_lr,
-                    dp_count_noise_multiplier, compress, robust_aggregation,
-                    trim_ratio, krum_f, byzantine_clients, scaffold)
-        check_gang_knobs(server_opt, dp_clip_norm, dp_noise_multiplier,
-                         compress, robust_aggregation, byzantine_clients,
-                         scaffold)
-        check_ring_devices(aggregation, mesh, dev)
-        return build_gang_round_fn(
-            model, tx, num_classes, client_weights, exchange, mesh,
-            rounds_per_step, aggregation, participation_rate,
-            participation_seed, participation_masks, local_steps, prox_mu)
-    if mesh.num_shards * mesh.clients_per_shard != num_clients:
+        mesh = ClientMesh(1, client_weights.shape[0], (dev,))
+    gang = mesh.num_processes > 1
+    # The whole mesh's C (a gang's); this process's clients are its block.
+    num_clients = mesh.num_shards * mesh.clients_per_shard
+    c_local = mesh.local_clients
+    if client_weights.shape[0] != c_local:
         raise ValueError(f"a mesh of {mesh.num_shards} x "
-                         f"{mesh.clients_per_shard} clients for "
-                         f"{num_clients} clients")
+                         f"{mesh.clients_per_shard} clients over "
+                         f"{mesh.num_processes} process(es) for "
+                         f"{client_weights.shape[0]} client weights")
     check_ring_devices(aggregation, mesh, dev)
     delta_path, server_opt, dp_z_delta, dp_fixed_denom = check_knobs(
         weighting, participation_rate, aggregation, server_opt,
         dp_clip_norm, dp_noise_multiplier, dp_adaptive_clip,
         dp_target_quantile, dp_clip_lr, dp_count_noise_multiplier, compress,
         robust_aggregation, trim_ratio, krum_f, byzantine_clients, scaffold)
-    robust = robust_aggregation != "none"
-    shards, cb = mesh.num_shards, mesh.clients_per_shard
+    branch = round_branch(delta_path, compress, robust_aggregation)
     k_trim = int(round(trim_ratio * num_clients))
     if robust_aggregation == "trimmed_mean" and 2 * k_trim >= num_clients:
         raise ValueError(f"trim_ratio={trim_ratio} removes all "
@@ -748,9 +786,10 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
                          f"(got C={num_clients}, krum_f={krum_f})")
     sampling = participation_rate < 1.0 or participation_masks is not None
     noisy = dp_noise_multiplier > 0
+    shards, cb = mesh.local_shards, mesh.clients_per_shard
     # The fixed public denominator q*C of DP under sampling, as fedtpu
-    # computes it from its mesh.
-    fixed_denom = participation_rate * cb * shards
+    # computes it from its (whole) mesh.
+    fixed_denom = participation_rate * cb * mesh.num_shards
     model = as_model(model)
     d_params = model.param_count
     slot_dtype = model.param_dtype
@@ -766,15 +805,26 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
     local_train = make_local_train_step(model, tx, local_steps, prox_mu,
                                         scaffold, wide=wide)
     local_eval = make_local_eval_step(model, num_classes)
-    bad = (torch.arange(num_clients, device=dev)
+    first = mesh.first_shard * cb
+    cols = slice(first, first + c_local)
+    # Byzantine injection: the clients of index below k in the whole mesh
+    # submit s - 10 (t - s).
+    bad = ((first + torch.arange(c_local, device=dev))
            < byzantine_clients)[:, None]
+    # One process's plain psum FedAvg: K1's broadcast mode.
+    average = (make_average(aggregation, mesh, slot_dtype, wide_agg)
+               if not gang and branch == "average" and aggregation == "psum"
+               else None)
 
     def draw_masks(first_round: int, count: int) -> torch.Tensor:
+        # The whole mesh's masks; a gang member takes its columns.
         return draw_participation(num_clients, participation_rate,
                                   participation_seed, participation_masks,
                                   first_round, count)
 
     def draw_noise(first_round: int, count: int) -> torch.Tensor:
+        # A pure function of the seed and the round: every member of a
+        # gang draws the same rows.
         def one(r):
             if dp_noise is not None:
                 return np.asarray(dp_noise(r), dtype=np.float32)
@@ -786,128 +836,202 @@ def build_round_fn(model, tx: Optimizer, num_classes: int,
         return torch.from_numpy(np.stack([one(first_round + j)
                                           for j in range(count)]))
 
-    def broadcast(g):
-        return broadcast_global(g, num_clients, slot_dtype)
-
-    average = make_average(aggregation, mesh, slot_dtype, wide_agg)
-
-    def delta_round(agg, start, w, sstate, dpc, noise):
-        """The delta path (``fedtpu/parallel/round.py:602-705``): new
-        params, server optimizer state and adaptive clip."""
-        total_w = w.sum()
-        delta = agg - start
-        clip_t = dpc if dp_adaptive_clip else dp_clip_norm
-        if dp_clip_norm > 0:
-            delta, dnorms = clip_by_global_norm(delta, clip_t)
-        # K1's (D,) mean divides by the realized weight total; the fixed
-        # denominator q*C rescales it (sum w = 0 gives 0 either way).
-        mean_delta = weighted_average_clients(delta, w)
-        if dp_fixed_denom:
-            denom = fixed_denom
-            mean_delta = mean_delta * (total_w / fixed_denom)
-        else:
-            denom = torch.clamp(total_w, min=1.0)
-        if noisy:
-            std = dp_z_delta * clip_t / denom
-            mean_delta = mean_delta + noise[:d_params] * std
-        if dp_adaptive_clip:
-            present = (w > 0).to(torch.float32)
-            count = present.sum()
-            denom_b = (fixed_denom if dp_fixed_denom
-                       else torch.clamp(count, min=1.0))
-            # The recentred count sum_i(indicator_i - 1/2): sensitivity 1/2.
-            b_sum = (present * ((dnorms <= clip_t).to(torch.float32)
-                                - 0.5)).sum()
-            if dp_count_noise_multiplier > 0:
-                b_sum = b_sum + dp_count_noise_multiplier * noise[d_params]
-            b = b_sum / denom_b + 0.5
-            dpc_new = dpc * torch.exp(-dp_clip_lr * (b - dp_target_quantile))
-            if dp_count_noise_multiplier == 0:
-                # A round with no participant observed nothing: hold the
-                # clip (with count noise the release is consumed as drawn).
-                dpc_new = torch.where(count > 0, dpc_new, dpc)
-            dpc = dpc_new
-        step, new_sstate = server_opt.update(mean_delta, sstate)
-        if sampling and not dp_fixed_denom:
-            # Plain FedOpt under sampling: a round with no participant
-            # leaves the server model and its momentum untouched.
-            keep = total_w > 0
-            step = torch.where(keep, step, torch.zeros_like(step))
-            new_sstate = {k: torch.where(keep, v, sstate[k])
-                          for k, v in new_sstate.items()}
-        return broadcast(start[0] + step), new_sstate, dpc
-
-    def int8_round(agg, start, w, params):
-        """The int8 exchange (``fedtpu/parallel/round.py:706-721``)."""
-        mean_delta = quantized_weighted_mean(agg - start, w, shards, model)
-        return torch.where(w.sum() > 0, broadcast(start[0] + mean_delta),
-                           params)
-
-    def robust_round(agg, part):
-        return robust_average(robust_aggregation, agg, part, trim_ratio,
-                              k_trim, krum_f, slot_dtype)
-
-    def round_step(state, batch, masks=None, noise=None):
+    def pre(state, batch, part_all, noise):
+        """Train, evaluate, the submitted rows and the round's payload;
+        ``part_all``: the round's ``(C,)`` mask of the whole mesh, or
+        None. Returns ``(carry, payload, outs)``."""
         _check_state(state, delta_path, compress, scaffold, dp_adaptive_clip)
         x, y, mask = batch["x"], batch["y"], batch["mask"]
-        params, opt_state = state["params"], state["opt_state"]
-        sstate = state.get("server_opt_state")
-        ccv, scv = state.get("client_cv"), state.get("server_cv")
-        dpc = state.get("dp_clip")
+        part = part_all[cols] if sampling else None
+        # On the delta path and under int8 every slot holds the server
+        # model.
+        start = state["params"]
+        carry = {}
+        if scaffold:
+            ccv, scv = state["client_cv"], state["server_cv"]
+            params, opt_state, loss, new_ccv = local_train(
+                start, state["opt_state"], x, y, mask, part, scv[None] - ccv)
+            # Variates refresh to the CE gradient at the round start
+            # (option I), the first update's; absentees keep theirs.
+            if part is not None:
+                new_ccv = torch.where(part[:, None] > 0, new_ccv, ccv)
+            carry["client_cv"] = new_ccv
+        else:
+            params, opt_state, loss = local_train(
+                start, state["opt_state"], x, y, mask, part)
+        conf = local_eval(params, x, y, mask)
+        if wide and not wide_agg:
+            params = params.to(slot_dtype)
+        w = client_weights * part if sampling else client_weights
+        agg = (torch.where(bad, start - 10.0 * (params - start), params)
+               if byzantine_clients > 0 else params)
+        carry.update(params=params, opt_state=opt_state, agg=agg, w=w)
+        if branch == "delta":
+            delta = agg - start
+            clip_t = state["dp_clip"] if dp_adaptive_clip else dp_clip_norm
+            count = b_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            if dp_clip_norm > 0:
+                delta, dnorms = clip_by_global_norm(delta, clip_t)
+                if dp_adaptive_clip:
+                    # The participant count and the recentred count
+                    # sum_i(indicator_i - 1/2): sensitivity 1/2.
+                    present = (w > 0).to(torch.float32)
+                    count = present.sum()
+                    b_sum = (present * ((dnorms <= clip_t).to(torch.float32)
+                                        - 0.5)).sum()
+            # K1's sum mode over the clipped deltas (fedtpu's tensordot
+            # before its psum); SCAFFOLD's variate change summed in float32.
+            payload = torch.cat((
+                weighted_sum_clients(delta.to(torch.float32), w),
+                torch.stack((w.sum(), count, b_sum)),
+                *(((new_ccv - ccv).to(torch.float32).sum(dim=0),)
+                  if scaffold else ())))
+        elif branch == "int8":
+            q, scales = quantize_partials(agg - start, w, shards, model)
+            side = torch.cat((scales, w.view(shards, cb).sum(
+                dim=1, keepdim=True)), dim=1)
+            payload = torch.cat((q, side.view(torch.int8)), dim=1)
+        elif branch == "robust":
+            payload = agg.to(torch.float32)
+        elif aggregation != "psum":
+            payload = shard_partials(w, agg.to(torch.float32), shards, cb)
+        elif gang:
+            payload = torch.cat((weighted_sum_clients(
+                agg.to(torch.float32), w), w.sum().reshape(1)))
+        else:
+            payload = None
+        return carry, payload, {"loss": loss, "conf": conf}
+
+    def post(state, carry, acc, part_all, noise):
+        """The new state from the reduced payload ``acc``, the same on
+        every member of a gang."""
+        start = state["params"]
+        new_state = {k: state[k] for k in ("server_opt_state", "server_cv",
+                                           "dp_clip", "shared_start")
+                     if k in state}
+        new_state.update(opt_state=carry["opt_state"], round=state["round"])
+        if scaffold:
+            new_state["client_cv"] = carry["client_cv"]
+        d = d_params
+        if branch == "delta":
+            # fedtpu/parallel/round.py:602-705.
+            total_w, count, b_sum = acc[d], acc[d + 1], acc[d + 2]
+            denom = (fixed_denom if dp_fixed_denom
+                     else torch.clamp(total_w, min=1.0))
+            mean_delta = acc[:d] / denom
+            dpc = state.get("dp_clip")
+            clip_t = dpc if dp_adaptive_clip else dp_clip_norm
+            if noisy:
+                std = dp_z_delta * clip_t / denom
+                mean_delta = mean_delta + noise[:d] * std
+            if dp_adaptive_clip:
+                denom_b = (fixed_denom if dp_fixed_denom
+                           else torch.clamp(count, min=1.0))
+                if dp_count_noise_multiplier > 0:
+                    b_sum = b_sum + dp_count_noise_multiplier * noise[d]
+                b = b_sum / denom_b + 0.5
+                dpc_new = dpc * torch.exp(-dp_clip_lr
+                                          * (b - dp_target_quantile))
+                if dp_count_noise_multiplier == 0:
+                    # A round with no participant observed nothing: hold
+                    # the clip (with count noise the release is consumed
+                    # as drawn).
+                    dpc_new = torch.where(count > 0, dpc_new, dpc)
+                new_state["dp_clip"] = dpc_new
+            sstate = state["server_opt_state"]
+            step, new_sstate = server_opt.update(mean_delta, sstate)
+            if sampling and not dp_fixed_denom:
+                # Plain FedOpt under sampling: a round with no participant
+                # leaves the server model and its momentum untouched.
+                keep = total_w > 0
+                step = torch.where(keep, step, torch.zeros_like(step))
+                new_sstate = {k: torch.where(keep, v, sstate[k])
+                              for k, v in new_sstate.items()}
+            new_state["server_opt_state"] = new_sstate
+            if scaffold:
+                # c moves by the mean over ALL the mesh's clients of the
+                # change, so c == mean_i(c_i); cast back to its dtype.
+                scv = state["server_cv"]
+                new_state["server_cv"] = (scv + acc[d + 3:]
+                                          / num_clients).to(scv.dtype)
+            params = broadcast_global(start[0] + step, c_local, slot_dtype)
+        elif branch == "int8":
+            # fedtpu/parallel/round.py:706-721: every shard's int8 row and
+            # side, dequantized and summed in shard order.
+            side = acc[:, d:].contiguous().view(torch.float32)
+            total_w = side[:, -1].sum()
+            mean_delta = dequantized_mean(acc[:, :d], side[:, :-1], total_w,
+                                          model)
+            params = torch.where(total_w > 0, broadcast_global(
+                start[0] + mean_delta, c_local, slot_dtype), carry["params"])
+        elif branch == "robust":
+            glob = _robust_global(robust_aggregation, acc, part_all,
+                                  trim_ratio, k_trim, krum_f)
+            params = broadcast_global(glob, c_local, slot_dtype)
+            if sampling:
+                params = torch.where(part_all.sum() > 0, params,
+                                     carry["agg"].to(slot_dtype))
+        elif average is not None:
+            params = average(carry["agg"], carry["w"])
+        elif aggregation != "psum":
+            params = shard_globals(acc, carry["agg"], shards, cb, slot_dtype)
+        else:
+            tot = acc[d]
+            glob = (acc[:d] / tot.clamp_min(1.0)).to(slot_dtype)
+            params = torch.where(tot > 0, glob.expand(c_local, -1),
+                                 carry["agg"].to(slot_dtype))
+        new_state["params"] = params
+        return new_state
+
+    if gang:
+        def round_buffers(state):
+            return (torch.zeros(num_clients, dtype=torch.float32, device=dev)
+                    if sampling else None,
+                    torch.zeros(d_params + 1, dtype=torch.float32, device=dev)
+                    if noisy else None)
+
+        def load_round(state, bufs, j, masks, noise):
+            for buf, chunk, draw in ((bufs[0], masks, draw_masks),
+                                     (bufs[1], noise, draw_noise)):
+                if buf is not None:
+                    buf.copy_(chunk[j] if chunk is not None
+                              else draw(state["round"] + j, 1)[0])
+
+        def chunk_buffers(state):
+            return tuple(None if buf is None else
+                         torch.zeros((rounds_per_step,) + tuple(buf.shape),
+                                     dtype=torch.float32, device=dev)
+                         for buf in round_buffers(state))
+
+        return GangStep(rounds_per_step, pre, post, exchange, round_buffers,
+                        load_round, chunk_buffers, _state_tensors, ((), ()),
+                        draw_masks=draw_masks if sampling else None,
+                        draw_noise=draw_noise if noisy else None)
+
+    # One process reduces in process: the ring's all-reduce over its
+    # shards, every other payload as it is.
+    reduce = (make_all_reduce(aggregation, shards)
+              if branch == "average" and aggregation != "psum"
+              else (lambda payload: payload))
+
+    def round_step(state, batch, masks=None, noise=None):
         if sampling and masks is None:
             masks = draw_masks(state["round"], rounds_per_step).to(dev)
         if noisy and noise is None:
             noise = draw_noise(state["round"], rounds_per_step).to(dev)
+        end = state["round"] + rounds_per_step
         losses, confs = [], []
         for j in range(rounds_per_step):
             part = masks[j] if sampling else None
-            # On the delta path every slot holds the server model.
-            start = params
-            if scaffold:
-                params, opt_state, loss, new_ccv = local_train(
-                    params, opt_state, x, y, mask, part, scv[None] - ccv)
-                # Variates refresh to the CE gradient at the round start
-                # (option I), the first update's; absentees keep theirs. c
-                # moves by the mean over ALL clients of the change, so
-                # c == mean_i(c_i).
-                if part is not None:
-                    new_ccv = torch.where(part[:, None] > 0, new_ccv, ccv)
-                # The mean in float32, cast back to the variates' dtype.
-                scv = (scv + (new_ccv - ccv).to(torch.float32).sum(dim=0)
-                       / num_clients).to(scv.dtype)
-                ccv = new_ccv
-            else:
-                params, opt_state, loss = local_train(params, opt_state, x,
-                                                      y, mask, part)
-            confs.append(local_eval(params, x, y, mask))
-            losses.append(loss)
-            if wide and not wide_agg:
-                params = params.to(slot_dtype)
-            w = client_weights * part if sampling else client_weights
-            # Byzantine injection: what the first k clients submit.
-            agg = (torch.where(bad, start - 10.0 * (params - start), params)
-                   if byzantine_clients > 0 else params)
-            if delta_path:
-                params, sstate, dpc = delta_round(
-                    agg, start, w, sstate, dpc,
-                    noise[j] if noisy else None)
-            elif compress == "int8":
-                params = int8_round(agg, start, w, params)
-            elif robust:
-                params = robust_round(agg, part)
-            else:
-                params = average(agg, w)
-        new_state = {"params": params, "opt_state": opt_state,
-                     "round": state["round"] + rounds_per_step}
-        for key, value in (("server_opt_state", sstate), ("client_cv", ccv),
-                           ("server_cv", scv), ("dp_clip", dpc)):
-            if value is not None:
-                new_state[key] = value
-        if "shared_start" in state:
-            new_state["shared_start"] = True
-        return new_state, {"loss": torch.stack(losses),
-                           "conf": torch.stack(confs),
-                           "finite": state_finite(new_state)}
+            z = noise[j] if noisy else None
+            carry, payload, outs = pre(state, batch, part, z)
+            state = post(state, carry, reduce(payload), part, z)
+            losses.append(outs["loss"])
+            confs.append(outs["conf"])
+        state = {**state, "round": end}
+        return state, {"loss": torch.stack(losses),
+                       "conf": torch.stack(confs),
+                       "finite": state_finite(state)}
 
     return RoundStep(round_step, rounds_per_step,
                      draw_masks if sampling else None,
@@ -1042,7 +1166,8 @@ def capture_round_step(step: RoundStep, state: dict,
 class GangStep:
     """``rounds`` rounds of one member of a training gang
     (``fedtpu_torch.parallel.multihost``), each in two pieces around the
-    exchange of the round's payload (``ring.GangExchange``):
+    exchange of the round's payload (``ring.GangExchange`` or
+    ``ring.GangGather``):
     ``pre(state, batch, *round_inputs) -> (carry, payload, outs)`` (train,
     in-round eval, the partial sums) and ``post(state, carry, reduced,
     *round_inputs) -> state`` (the divide and the broadcast into the
@@ -1051,14 +1176,17 @@ class GangStep:
     as its own graph and a round replays piece 1, runs the exchange's host
     part, then replays piece 2. ``fn`` runs the same rounds uncaptured. The
     host loop takes it as it takes a ``RoundStep`` (``input_buffers``,
-    ``state_tensors``, ``outputs``, ``pack``); its inputs are the member's
-    columns of the chunk's masks or arrivals."""
+    ``state_tensors``, ``outputs``, ``pack``); its inputs are the chunk's
+    masks (the gang's whole rows) and DP noise (``draw_masks``,
+    ``draw_noise``: the gang's one draw, on every member), or the member's
+    columns of the arrivals."""
 
     def __init__(self, rounds: int, pre: Callable, post: Callable,
                  exchange, round_buffers: Callable, load_round: Callable,
                  chunk_buffers: Callable, state_tensors: Callable,
                  outputs: tuple, draw_masks: Optional[Callable] = None,
-                 draw_arrivals: Optional[Callable] = None):
+                 draw_arrivals: Optional[Callable] = None,
+                 draw_noise: Optional[Callable] = None):
         self.rounds, self.pre, self.post = rounds, pre, post
         self.exchange = exchange
         self.round_buffers, self.load_round = round_buffers, load_round
@@ -1066,7 +1194,7 @@ class GangStep:
         self.state_tensors = state_tensors
         self.outputs = outputs
         self.draw_masks, self.draw_arrivals = draw_masks, draw_arrivals
-        self.draw_noise = None
+        self.draw_noise = draw_noise
         self.out_keys = ("loss", "conf") + outputs[0] + outputs[1]
 
     def pack(self, raw: dict):
@@ -1156,102 +1284,6 @@ def capture_gang_step(step: GangStep, state: dict,
     return CapturedGang(step, (pre_graph, post_graph), bufs,
                         {k: outs[k] for k in step.out_keys}, finite,
                         (dict(pre_launches), dict(post_launches)))
-
-
-def build_gang_round_fn(model, tx: Optimizer, num_classes: int,
-                        client_weights: torch.Tensor, exchange,
-                        mesh: ClientMesh, rounds_per_step: int = 1,
-                        aggregation: str = "psum",
-                        participation_rate: float = 1.0,
-                        participation_seed: int = 0,
-                        participation_masks: Optional[Callable] = None,
-                        local_steps: int = 1,
-                        prox_mu: float = 0.0) -> GangStep:
-    """The synchronous FedAvg round of one member of a training gang, a
-    ``GangStep`` over the member's ``client_weights (C_local,)`` (its block
-    of ``mesh``):
-
-    - ``psum``: K1's sum mode over the member's trained params gives the
-      ``(D,)`` partial sum, with the member's weight total appended; the
-      exchange sums the members' ``(D + 1,)`` in member order; every slot
-      takes the sum over the total, or keeps its trained params when the
-      total is 0 (as K1's broadcast mode does). Its add order is not one
-      process's K1 broadcast: float32 tolerance.
-    - ``ring`` / ``ring-rsag``: each of the member's shards' partial sum
-      and total as in ``make_average``; the exchange all-reduces them over
-      every shard of the gang (K4 across processes on the card); each shard
-      divides by its own total. The reduction is bitwise one process's on
-      the same rows (K4 folds in the same order); the member trains its
-      clients as one batch of ``C_local``, and on the card a batched
-      GEMM's bits can depend on its batch count: float32 tolerance there.
-
-    The participation masks are drawn for all ``C`` clients, as in one
-    process, and the member takes its columns."""
-    model = as_model(model)
-    slot_dtype = model.param_dtype
-    c_local = client_weights.shape[0]
-    if c_local != mesh.local_clients:
-        raise ValueError(f"{c_local} client weights for a member of "
-                         f"{mesh.local_clients} clients")
-    num_clients = mesh.num_shards * mesh.clients_per_shard
-    cols = slice(mesh.first_shard * mesh.clients_per_shard,
-                 mesh.first_shard * mesh.clients_per_shard + c_local)
-    sampling = participation_rate < 1.0 or participation_masks is not None
-    shards, cb = mesh.local_shards, mesh.clients_per_shard
-    local_train = make_local_train_step(model, tx, local_steps, prox_mu)
-    local_eval = make_local_eval_step(model, num_classes)
-    dev = client_weights.device
-
-    def draw_masks(first_round: int, count: int) -> torch.Tensor:
-        # The gang's masks, as one process draws them; the member's columns.
-        return draw_participation(num_clients, participation_rate,
-                                  participation_seed, participation_masks,
-                                  first_round, count)[:, cols]
-
-    def pre(state, batch, part):
-        params, opt_state, loss = local_train(
-            state["params"], state["opt_state"], batch["x"], batch["y"],
-            batch["mask"], part)
-        conf = local_eval(params, batch["x"], batch["y"], batch["mask"])
-        w = client_weights * part if sampling else client_weights
-        wide = params.to(torch.float32)
-        if aggregation == "psum":
-            payload = torch.cat((weighted_sum_clients(wide, w),
-                                 w.sum().reshape(1)))
-        else:
-            payload = shard_partials(w, wide, shards, cb)
-        return ({"params": params, "opt_state": opt_state}, payload,
-                {"loss": loss, "conf": conf})
-
-    def post(state, carry, acc, part):
-        trained = carry["params"]
-        d = trained.shape[1]
-        if aggregation == "psum":
-            tot = acc[d]
-            glob = (acc[:d] / tot.clamp_min(1.0)).to(slot_dtype)
-            params = torch.where(tot > 0, glob.expand(c_local, -1),
-                                 trained.to(slot_dtype))
-        else:
-            params = shard_globals(acc, trained, shards, cb, slot_dtype)
-        return {"params": params, "opt_state": carry["opt_state"],
-                "round": state["round"]}
-
-    def round_buffers(state):
-        return (torch.zeros(c_local, dtype=torch.float32, device=dev)
-                if sampling else None,)
-
-    def load_round(state, bufs, j, masks, noise):
-        if sampling:
-            bufs[0].copy_(masks[j] if masks is not None else
-                          draw_masks(state["round"] + j, 1)[0])
-
-    def chunk_buffers(state):
-        return (torch.zeros((rounds_per_step, c_local), dtype=torch.float32,
-                            device=dev) if sampling else None, None)
-
-    return GangStep(rounds_per_step, pre, post, exchange, round_buffers,
-                    load_round, chunk_buffers, _state_tensors, ((), ()),
-                    draw_masks=draw_masks if sampling else None)
 
 
 def masked_client_mean(per_client: dict, mask: torch.Tensor) -> dict:

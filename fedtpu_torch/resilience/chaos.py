@@ -221,6 +221,13 @@ GATEWAY_SCENARIOS = _family("gateway")
 # incorporation for the whole restart window, so the tier's burn budget
 # sits above the autoscale drill's (2.0).
 GATEWAY_BURN_BUDGET = 2.5
+# mp_gateway_kill's loadgen retry ladder (base 0.1 s, capped at the
+# client's 2 s): 30 retries wait 26.5-79.7 s on a gateway before failing
+# over, so the client outlasts the gang's restart (SIGTERM grace, restart
+# backoff, and each relaunched gateway's torch import, CUDA start and WAL
+# replay: 12-17 s on an H100 in chip_smoke.py, longer while other
+# processes share its host). fedtpu's 10 (6.6-19.7 s) can run out first.
+GATEWAY_KILL_RETRIES = 30
 # The wire-fault rows (fedtpu_torch.resilience.netfaults / serving.
 # netproxy): a 2-gateway fleet fronted by deterministic fault proxies — no
 # process dies, the WIRE does.
@@ -620,7 +627,7 @@ def _run_gateway_kill(workdir: str, platform: str, timeout: int) -> dict:
         load = subprocess.run(
             [sys.executable, "-m", "fedtpu_torch.cli", "loadgen", trace,
              "--port-file", port_base, "--num-gateways", "2",
-             "--batch", "512", "--retries", "10",
+             "--batch", "512", "--retries", str(GATEWAY_KILL_RETRIES),
              "--retry-backoff", "0.1", "--quiet", "--json"],
             capture_output=True, text=True,
             timeout=timeout)
@@ -628,6 +635,11 @@ def _run_gateway_kill(workdir: str, platform: str, timeout: int) -> dict:
         if load.returncode != 0:
             row["error"] = "loadgen failed"
             stderr_parts.append(load.stderr or "")
+            sup.send_signal(_signal.SIGTERM)
+            try:
+                stderr_parts.append(sup.communicate(timeout=60)[1] or "")
+            except subprocess.TimeoutExpired:
+                pass
             return row
         summary = json.loads(load.stdout.strip().splitlines()[-1])
         row["retried"] = int(summary.get("retried") or 0)
@@ -682,7 +694,7 @@ def _run_gateway_kill(workdir: str, platform: str, timeout: int) -> dict:
             sup.kill()
             sup.wait(timeout=30)
         if stderr_parts:
-            row["stderr_tail"] = "\n".join(stderr_parts)[-2000:]
+            row["stderr_tail"] = "\n".join(p[-2000:] for p in stderr_parts)
 
 
 def _restart_seconds(sup_events: str, port_base: str) -> Optional[float]:

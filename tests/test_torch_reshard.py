@@ -43,6 +43,8 @@ from fedtpu_torch.resilience import faults as t_faults  # noqa: E402
 from fedtpu_torch.resilience import reshard as t_reshard  # noqa: E402
 
 import torch_gang_worker as worker  # noqa: E402
+from test_torch_gang import (_fedtpu_inputs,  # noqa: E402
+                             assert_one_process_is_fedtpus)
 
 # The conftest's guard wants a quick-tier pick in every test module; this
 # module names its own (the row maps: milliseconds, no process).
@@ -238,15 +240,23 @@ def test_partition_view_equals_fedtpus(strategy):
 
 # ------------------------------------------------------ one process
 
-def _one_configs(plan=None, events=None):
+# DP-FedAvg under fedadam: uniform weights, sampling 0.5, an adaptive clip
+# with count noise, the server optimizer's state beside it.
+DP_FEDADAM = {"weighting": "uniform", "participation_rate": 0.5,
+              "dp_clip_norm": 1.0, "dp_noise_multiplier": 1.0,
+              "dp_adaptive_clip": True, "dp_count_noise_multiplier": 2.0,
+              "server_opt": "fedadam", "server_lr": 0.01}
+
+
+def _one_configs(plan=None, events=None, **fed):
     """fedtpu's test_reshard config (8 clients, 512 synthetic rows, 6
     rounds, no held-out eval) and the port's over 8 shards (fedtpu's 8
-    virtual devices)."""
+    virtual devices); ``fed``: more FedConfig knobs."""
     return tuple(m.ExperimentConfig(
         data=m.DataConfig(csv_path=None, synthetic_rows=512),
         shard=m.ShardConfig(num_clients=CLIENTS),
         fed=m.FedConfig(rounds=ROUNDS, termination_patience=10,
-                        tolerance=1e-12),
+                        tolerance=1e-12, **fed),
         run=m.RunConfig(eval_test_every=0, fault_plan=plan,
                         telemetry=m.TelemetryConfig(events_path=events),
                         **extra))
@@ -262,24 +272,27 @@ def _reshard_events(path) -> list:
             for e in events if e["kind"] == "reshard_done"]
 
 
-def test_one_process_shrink_grow_equals_fedtpus(tmp_path):
+@pytest.mark.parametrize("fed", [{}, DP_FEDADAM],
+                         ids=["plain", "dp-fedadam"])
+def test_one_process_shrink_grow_equals_fedtpus(fed, tmp_path):
     """fedtpu's single-process reshard (tests/test_reshard.py): 8 clients
     shrink to 4 at round 3 and grow back at round 5, with fedtpu's init
-    injected: the same rounds and confusion counts, the metrics within the
-    port's float32 tolerance, the same reshard_done modes, targets and join
-    rows; the rounds before the notice bitwise the port's run without
-    one."""
+    injected (under DP + fedadam its masks and noise too, the shrunk
+    mesh's masks by the clients' index in it): the same rounds and
+    confusion counts, the metrics within the port's float32 tolerance, the
+    same reshard_done modes, targets and join rows; the rounds before the
+    notice bitwise the port's run without one. Under DP + fedadam also
+    the final params within 1e-5, the clip within 1e-5 relative and the
+    same privacy spend."""
     plan = _plan({k: v for k, v in NOTICE.items() if k != "process_index"},
                  CANCEL)
-    j_cfg, t_cfg = _one_configs(plan, str(tmp_path / "j.jsonl"))
-    init = jax.tree.map(np.asarray, j_loop.build_experiment(j_cfg)
-                        .state["params"])
+    j_cfg, t_cfg = _one_configs(plan, str(tmp_path / "j.jsonl"), **fed)
+    inputs = _fedtpu_inputs(j_cfg)
     rj = j_loop.run_experiment(j_cfg, verbose=False)
-    _, t_cfg = _one_configs(plan, str(tmp_path / "t.jsonl"))
-    rt = run_experiment(t_cfg, verbose=False, device="cpu",
-                        init_params=init)
-    base = run_experiment(_one_configs()[1], verbose=False, device="cpu",
-                          init_params=init)
+    _, t_cfg = _one_configs(plan, str(tmp_path / "t.jsonl"), **fed)
+    rt = run_experiment(t_cfg, verbose=False, device="cpu", **inputs)
+    base = run_experiment(_one_configs(**fed)[1], verbose=False,
+                          device="cpu", **inputs)
     assert rt.rounds_run == rj.rounds_run == ROUNDS
     # The per-client metrics come from the rounds' confusion counts (a
     # count apart moves one by more than 1e-3 at these shard sizes).
@@ -296,6 +309,14 @@ def test_one_process_shrink_grow_equals_fedtpus(tmp_path):
     assert got == [("shrink", 4, [0]), ("grow", 8, [4])]
     acc, bacc = rt.global_metrics["accuracy"], base.global_metrics["accuracy"]
     assert acc[:2] == bacc[:2] and acc[2] != bacc[2]
+    if fed:
+        np.testing.assert_allclose(
+            _flat(rt.final_params),
+            _flat(jax.tree.map(np.asarray, rj.final_params)), rtol=0,
+            atol=1e-5)
+        np.testing.assert_allclose(rt.final_dp_clip, rj.final_dp_clip,
+                                   rtol=1e-5)
+        assert rt.privacy_spent() == rj.privacy_spent()
 
 
 # ------------------------------------------------------------- gangs
@@ -336,11 +357,14 @@ def _flat(params) -> np.ndarray:
                            jax.tree.leaves(params)])
 
 
-@pytest.mark.parametrize("aggregation,faults", [
-    ("psum", (NOTICE,)), ("ring", (NOTICE, CANCEL))],
-    ids=["psum-shrink", "ring-shrink-grow"])
+
+
+@pytest.mark.parametrize("aggregation,faults,fed", [
+    ("psum", (NOTICE,), {}), ("ring", (NOTICE, CANCEL), {}),
+    ("psum", (NOTICE, CANCEL), DP_FEDADAM)],
+    ids=["psum-shrink", "ring-shrink-grow", "dp-fedadam-shrink-grow"])
 def test_gang_reshard_matches_the_one_process_reshard(aggregation, faults,
-                                                      tmp_path):
+                                                      fed, tmp_path):
     """A gang of two (two shards a member) on a plan: member 1 parks at
     round 3 and exits 76 when the run ends without a cancel, or rejoins at
     round 5; the rounds before the notice bitwise the gang's baseline, the
@@ -348,31 +372,49 @@ def test_gang_reshard_matches_the_one_process_reshard(aggregation, faults,
     plan over the same four shards (whose first two the survivor keeps).
     The ring gang is bitwise one process on the CPU (tests/test_torch_gang.
     py), so its baseline is the one-process run, held bit for bit over the
-    whole run, the grow included."""
+    whole run, the grow included. Under DP + fedadam the survivor keeps
+    the server state, the clip and the ledger through its one-process
+    rounds (the fixed denominator over its own C), the rejoiner takes them
+    from the spool: the privacy spend is one process's (the rejoiner's
+    flagged as composed over a restored segment), the final clip within
+    1e-6 relative of it, both members' the same."""
     ev = str(tmp_path / "ev.jsonl")
     plan = _plan(*faults)
     grow = len(faults) > 1
     gang = _gang(tmp_path, _elastic_spec(
-        tmp_path, "g", aggregation=aggregation, plan=plan, events=ev),
-        "g", codes=(0, 0) if grow else (0, 76))
+        tmp_path, "g", aggregation=aggregation, plan=plan, events=ev,
+        fed=fed), "g", codes=(0, 0) if grow else (0, 76))
     one = _one(_elastic_spec(tmp_path, "o", aggregation=aggregation,
-                             plan=plan))
+                             plan=plan, fed=fed))
+    if fed:
+        assert_one_process_is_fedtpus(_elastic_spec(tmp_path, "f", fed=fed))
     got = gang[0]
     assert got["rounds_run"] == one["rounds_run"] == ROUNDS
     if aggregation == "ring":
         assert got["history"] == one["history"]
         assert np.array_equal(_flat(got["params"]), _flat(one["params"]))
     else:
-        base = _gang(tmp_path, _elastic_spec(tmp_path, "b"), "b")[0]
+        base = _gang(tmp_path, _elastic_spec(tmp_path, "b", fed=fed),
+                     "b")[0]
         for k, v in base["history"].items():
             assert got["history"][k][:2] == v[:2]
     for k, v in one["history"].items():
         np.testing.assert_allclose(got["history"][k], v, rtol=0, atol=1e-5)
     np.testing.assert_allclose(_flat(got["params"]), _flat(one["params"]),
                                rtol=0, atol=1e-5)
+    assert got["privacy"] == one["privacy"]
+    if one["dp_clip"] is not None:
+        assert abs(got["dp_clip"] - one["dp_clip"]) <= 1e-6 * one["dp_clip"]
     if grow:
-        assert gang[1]["history"] == got["history"]
+        for key in ("history", "dp_clip"):
+            assert gang[1][key] == got[key]
         assert np.array_equal(_flat(gang[1]["params"]), _flat(got["params"]))
+        # The rejoiner's ledger comes from the spool, a restored segment
+        # (as fedtpu's rejoiner's): the same spend, flagged as composed.
+        spent = dict(gang[1]["privacy"])
+        assert spent.pop("composed_over_resumed_segments",
+                         False) == bool(fed)
+        assert spent == got["privacy"]
     with open(ev) as fh:
         modes = [e["payload"]["mode"] for e in map(json.loads, fh)
                  if e["kind"] == "reshard_done"]

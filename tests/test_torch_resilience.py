@@ -540,7 +540,7 @@ def test_supervisor_imports_neither_torch_nor_numpy(monkeypatch):
     """The supervising parent (``supervise``, ``chaos``, the CLI's parser)
     imports neither torch nor numpy, so a restart holds no second CUDA
     context; a command other than ``run`` launched into a gang (a
-    ``sweep`` member) names A10d."""
+    ``sweep`` member) names A10d-3."""
     import subprocess
     code = ("import sys; import fedtpu_torch.cli as c; "
             "import fedtpu_torch.resilience.supervisor, "
@@ -552,7 +552,7 @@ def test_supervisor_imports_neither_torch_nor_numpy(monkeypatch):
     assert out.stdout.strip() == "[]"
     from fedtpu_torch.cli import main as t_main
     monkeypatch.setenv("FEDTPU_COORDINATOR", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10d\)"):
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP A10d-3\)"):
         t_main(["sweep", "--platform", "cpu"])
 
 

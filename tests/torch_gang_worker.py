@@ -4,15 +4,18 @@ Run as ``python tests/torch_gang_worker.py STORE WORLD RANK SPEC OUT``:
 joins the gloo gang through the ``file://`` store ``STORE`` (no port to
 race for under xdist), runs ``run_experiment`` on the CPU with the config
 that the JSON ``SPEC`` describes (``gang_config``), and pickles its history,
-confusion counts, losses and final params into ``OUT.<rank>``. It imports
-torch and the port only.
+confusion counts, losses, final params, privacy spend, final clip and the
+DP noise rows its rounds loaded into ``OUT.<rank>``. It imports torch and
+the port only.
 """
 
+import contextlib
 import json
 import os
 import pickle
 import sys
 
+import numpy as np
 import torch
 
 # Shared with the test's one-process runs, so the two cannot drift.
@@ -23,14 +26,21 @@ ROWS = 512
 ROUNDS = 4
 
 
+def fed_knobs(spec: dict) -> dict:
+    """The FedConfig fields of ``spec``'s run (fedtpu's names)."""
+    return dict(rounds=spec.get("rounds", ROUNDS), termination_patience=100,
+                aggregation=spec.get("aggregation", "psum"),
+                **spec.get("fed", {}))
+
+
 def gang_config(spec: dict):
     """The small income run of ``spec``: ``aggregation``, ``async``,
-    ``rounds``, the checkpoint ``dir`` / ``every``, and for the elastic
-    runs ``clients``, ``shards``, ``rounds_per_step``, the fault ``plan``
-    and the ``collective_timeout``."""
+    ``rounds``, the checkpoint ``dir`` / ``every``, ``fed``, a dict of
+    FedConfig overrides (an aggregation branch's knobs), and for the
+    elastic runs ``clients``, ``shards``, ``rounds_per_step``, the fault
+    ``plan`` and the ``collective_timeout``."""
     from fedtpu_torch import config as tcfg
-    fed = dict(rounds=spec.get("rounds", ROUNDS), termination_patience=100,
-               aggregation=spec.get("aggregation", "psum"))
+    fed = fed_knobs(spec)
     if spec.get("async"):
         fed.update(async_mode=True, weighting="uniform",
                    async_arrival_rate=0.5, async_buffer_size=2)
@@ -55,21 +65,70 @@ def gang_config(spec: dict):
 def result_record(res) -> dict:
     return {"history": res.global_metrics, "rounds_run": res.rounds_run,
             "stopped_early": res.stopped_early, "loss": res.loss,
-            "confusion": res.confusion, "params": res.final_params}
+            "confusion": res.confusion, "params": res.final_params,
+            "privacy": res.privacy_spent(), "dp_clip": res.final_dp_clip}
+
+
+@contextlib.contextmanager
+def recording_noise(rows: list):
+    """While open, every round step the loop builds appends the DP noise
+    row each of its rounds takes to ``rows``: a gang member's as its round
+    loads it into the round's buffer, one process's from the chunk it is
+    given."""
+    from fedtpu_torch.orchestration import loop
+    from fedtpu_torch.parallel.round import GangStep
+    build = loop.build_round_fn
+
+    def recorded(*args, **kw):
+        step = build(*args, **kw)
+        if step.draw_noise is None:
+            return step
+        if isinstance(step, GangStep):
+            load = step.load_round
+
+            def load_round(state, bufs, j, masks, noise):
+                load(state, bufs, j, masks, noise)
+                rows.append(bufs[1].numpy().copy())
+            step.load_round = load_round
+        else:
+            fn = step.fn
+
+            def run(state, batch, masks=None, noise=None):
+                if noise is None:
+                    noise = step.draw_noise(state["round"], step.rounds)
+                rows.extend(noise.numpy().copy())
+                return fn(state, batch, masks, noise)
+            step.fn = run
+        return step
+
+    loop.build_round_fn = recorded
+    try:
+        yield rows
+    finally:
+        loop.build_round_fn = build
+
+
+def run_recorded(spec: dict, **kw) -> dict:
+    """``result_record`` of ``spec``'s run on the CPU, with ``noise``: the
+    DP noise rows its rounds took (None without DP noise)."""
+    from fedtpu_torch.orchestration.loop import run_experiment
+    with recording_noise([]) as rows:
+        record = result_record(run_experiment(
+            gang_config(spec), verbose=False, device="cpu", **kw))
+    record["noise"] = np.stack(rows) if rows else None
+    return record
 
 
 def main(store: str, world: int, rank: int, spec: dict, out: str) -> None:
     torch.set_num_threads(1)
-    from fedtpu_torch.orchestration.loop import run_experiment
     from fedtpu_torch.parallel import multihost
     multihost.initialize(f"file://{store}", world, rank, platform="cpu")
     try:
-        res = run_experiment(gang_config(spec), verbose=False, device="cpu",
-                             resume=bool(spec.get("resume")))
+        record = run_recorded(spec, resume=bool(spec.get("resume")))
     finally:
         multihost.shutdown()
     with open(f"{out}.{rank}", "wb") as fh:
-        pickle.dump(result_record(res), fh)
+        pickle.dump(record, fh)
 
 
 if __name__ == "__main__":
