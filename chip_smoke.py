@@ -151,10 +151,10 @@ Phases, in order; any failure exits non-zero before the result line:
    width on 1,000,000 synthetic rows: income-8 at full participation
    (cohorts of 8 of 8) bitwise its synchronous run, both captured; 100,000
    clients (the memory store, about 8 train rows a client) in cohorts of
-   256, 10 a chunk, 30 rounds, a held-out eval every 10, launches counted
+   256, 10 a chunk, 20 rounds, a held-out eval every 10, launches counted
    from zero (K1 = K2 = cohorts run + the warm-up cohort, K3 = evals):
    captured bitwise uncaptured (state and every touched store record),
-   stopped at 20 on the mmap store and resumed to 30, bitwise the
+   stopped at 10 on the mmap store and resumed to 20, bitwise the
    uninterrupted memory-store run; a captured chunk profiled; against the
    CPU cohort by cohort (each from the same inputs, slot params and Adam
    state within 1e-4) and as whole runs (the same ids, losses within
@@ -220,6 +220,13 @@ Phases, in order; any failure exits non-zero before the result line:
    member, the drain and the gang's ``--resume``, bitwise the
    uninterrupted gang; and the four training-gang chaos rows through the
    CLI, two chaos children beside the rest.
+   Later, the loop's features in a gang, (y) (``phase_feature_gangs``):
+   four gangs of 2 side by side at full width (a pipelined fedadam gang
+   with personalization and a warm start, the same gang without the
+   pipelined stop, and psum and ring gangs under rollback with a dropout,
+   a corrupt checkpoint and a NaN update of member-1 clients), each held
+   to one process of the same CLI config, then the rollback's agreed walk
+   timed.
 
 The line before the last is the ``kernels`` JSON; the last line is the
 result JSON. Imports nothing of JAX or of the ``fedtpu`` package (nor does
@@ -4332,7 +4339,8 @@ COHORT_MILLION = 1_000_000
 COHORT_ROWS = 1_000_000
 COHORT_K = 256
 COHORT_S = 10
-COHORT_ROUNDS = 30
+COHORT_ROUNDS = 20
+COHORT_MMAP_STOP = 10     # the mmap run's checkpoint, its resume's start
 COHORT_TOL = 1e-4
 COHORT_SHORT = 5          # rounds (one chunk) of the ring, median and trace
 COHORT_METRICS = ("accuracy", "precision", "recall", "f1")
@@ -4885,22 +4893,24 @@ def phase_cohort() -> tuple:
     del b
     with tempfile.TemporaryDirectory() as directory:
         # The mmap store (<checkpoint_dir>/client_store.bin), stopped at
-        # round 20 and resumed to 30: bitwise the uninterrupted run on the
-        # memory store.
+        # round COHORT_MMAP_STOP and resumed to COHORT_ROUNDS: bitwise the
+        # uninterrupted run on the memory store.
+        stop, evals = COHORT_MMAP_STOP, COHORT_MMAP_STOP // 10
         mm_cfg = base.replace(
             fed=dataclasses.replace(base.fed, client_store="mmap"),
-            run=dataclasses.replace(base.run, checkpoint_every=20,
+            run=dataclasses.replace(base.run, checkpoint_every=stop,
                                     checkpoint_dir=os.path.join(
                                         directory, "ckpt")))
-        cohort_run("cohort 100,000 mmap to round 20", mm_cfg.replace(
-            fed=dataclasses.replace(mm_cfg.fed, rounds=20)), ds)
+        cohort_run(f"cohort 100,000 mmap to round {stop}", mm_cfg.replace(
+            fed=dataclasses.replace(mm_cfg.fed, rounds=stop)), ds)
         steps = complete_steps(mm_cfg.run.checkpoint_dir)
-        check(steps == [20], f"cohort resume: checkpoints {steps}")
-        resumed, _, _ = cohort_run("cohort 100,000 mmap resumed 20 -> 30",
-                                   mm_cfg, ds, resume=True)
-        same_cohort_runs("cohort 100,000 mmap resumed 20 -> 30 vs the "
-                         "uninterrupted memory-store run", resumed, a,
-                         skip=20, skip_evals=2)
+        check(steps == [stop], f"cohort resume: checkpoints {steps}")
+        resumed, _, _ = cohort_run(
+            f"cohort 100,000 mmap resumed {stop} -> {COHORT_ROUNDS}",
+            mm_cfg, ds, resume=True)
+        same_cohort_runs(f"cohort 100,000 mmap resumed {stop} -> "
+                         f"{COHORT_ROUNDS} vs the uninterrupted memory-store "
+                         "run", resumed, a, skip=stop, skip_evals=evals)
         del resumed
     numbers["profile"] = cohort_profile(
         base, ds, numbers["s_per_round"]["captured"] * COHORT_S * 1e3)
@@ -6372,20 +6382,32 @@ GANG_BASELINES: dict = {}
 
 
 def gang_member() -> None:
-    """A gang member of phase (v): the port's CLI on ``sys.argv[1:]``, then
-    its kernel launches into ``$GANG_LAUNCHES/launches.<restart>.<i>``."""
+    """A gang member of phases (v)-(y): the port's CLI on ``sys.argv[1:]``,
+    then its kernel launches into ``$GANG_LAUNCHES/launches.<restart>.<i>``
+    and its result's ``result_dump`` into ``result.<restart>.<i>``."""
     from fedtpu_torch.cli import main as cli_main
     from fedtpu_torch.ops import cuda_kernels as ck
+    from fedtpu_torch.orchestration import loop
+    run, results = loop.run_experiment, []
+
+    def recorded(*args, **kw):
+        results.append(run(*args, **kw))
+        return results[-1]
+    loop.run_experiment = recorded
     try:
         rc = cli_main(sys.argv[1:])
     except SystemExit as e:
         # A member parked by an elastic shrink leaves with 76.
         rc = e.code
-    path = os.path.join(os.environ["GANG_LAUNCHES"], "launches."
-                        f"{os.environ['FEDTPU_RESTARTS']}."
-                        f"{os.environ['FEDTPU_PROCESS_ID']}")
+    tag = f"{os.environ['FEDTPU_RESTARTS']}.{os.environ['FEDTPU_PROCESS_ID']}"
+    path = os.path.join(os.environ["GANG_LAUNCHES"], f"launches.{tag}")
     with open(path, "w") as fh:
         json.dump(dict(ck.LAUNCHES, exit_code=rc), fh)
+    if results:
+        # The member's result (phase (y) reads it).
+        with open(os.path.join(os.environ["GANG_LAUNCHES"],
+                               f"result.{tag}"), "w") as fh:
+            json.dump(result_dump(results[-1]), fh)
     sys.exit(rc)
 
 
@@ -6473,8 +6495,11 @@ def member_rounds(ev: str, n: int) -> list:
     out = []
     for i in range(n):
         rows = read_sink(ev if i == 0 else f"{ev}.p{i}")
+        # A diverged round's NaN loss mean compares as "nan" (one NaN is
+        # never equal to another).
         out.append([(e["round"], e["payload"]["accuracy"],
-                     e["payload"]["loss_mean"])
+                     e["payload"]["loss_mean"]
+                     if math.isfinite(e["payload"]["loss_mean"]) else "nan")
                     for e in rows if e["kind"] == "round"])
     return out
 
@@ -7700,6 +7725,364 @@ def phase_branch_gangs() -> tuple:
     return by_path, numbers
 
 
+# ------------------------------------------ (y) the loop's features
+# The loop's features in a training gang on the card, three gangs of 2 at
+# full width beside one another, each held to one process of the same CLI
+# config: y1, income-32-noniid's fedadam psum over 2 x 4 shards under a
+# pipelined stop at R = 5, personalization and a warm start (its artifact
+# the final global of phase (x)'s fedadam oracle); y2, income-8 psum (4
+# clients a member) at R = 1 under rollback, with a member-1 client's
+# dropout, a corrupt checkpoint and a member-1 client's NaN update right
+# after it, so that the rollback walks past the corrupt round; y3, y2's
+# plan on income-32-noniid's ring over 2 x 4 shards. What the pipelined
+# stop buys y1 is timed apart (``pipelining_pairs``): each gang alone, in
+# PIPELINING_ORDER, pipelined or not.
+FEATURE_R = 5
+FEATURE_CKPT_EVERY = 10     # so that half the chunk ends do not drain the pipe
+FEATURE_ARGS = ("--server-opt", "fedadam", "--server-lr", "0.01",
+                "--rounds-per-step", str(FEATURE_R), "--personalize-steps",
+                "5", "--checkpoint-every", str(FEATURE_CKPT_EVERY))
+FAULT_ROUNDS = 10
+FAULT_DROPOUT = 3           # 1-based rounds of the plan
+FAULT_STRIKE = 7            # ckpt_corrupt of round 6, then the NaN update
+FAULT_RESTORED = 4          # the round the rollback walks back to
+FAULT_GANGS = {
+    # name: (preset, member-1 clients (dropped, poisoned), extra args,
+    #        shards a member, one process's shards)
+    "income-8 psum": ("income-8", (6, 5), (), 0, 2),
+    "income-32-noniid ring": ("income-32-noniid", (22, 21),
+                              ("--aggregation", "ring"), 4, 8)}
+WALK_REPS = 10
+AGREE_REPS = 50
+PIPELINING_ORDER = (True, False, False, True) * 2
+
+
+def fault_plan(dropped: int, poisoned: int) -> str:
+    return json.dumps({"seed": 0, "faults": [
+        {"kind": "client_dropout", "round": FAULT_DROPOUT,
+         "clients": [dropped]},
+        {"kind": "ckpt_corrupt", "round": FAULT_STRIKE},
+        {"kind": "nan_update", "round": FAULT_STRIKE,
+         "clients": [poisoned]}]})
+
+
+def fault_spec(name: str) -> tuple:
+    preset, (dropped, poisoned), extra, _, _ = FAULT_GANGS[name]
+    return (preset, FAULT_ROUNDS, *extra, "--rounds-per-step", "1",
+            "--checkpoint-every", "2", "--on-divergence", "rollback",
+            "--fault-plan", fault_plan(dropped, poisoned))
+
+
+def feature_spec(npz: str, pipelined: bool = True) -> tuple:
+    return ("income-32-noniid", A6_ROUNDS, *FEATURE_ARGS, "--init-weights",
+            npz, *(("--pipelined-stop",) if pipelined else ()))
+
+
+def member_results(directory: str, n: int = 2) -> list:
+    """Each member's result record (``gang_member``'s dump)."""
+    out = []
+    for i in range(n):
+        with open(os.path.join(directory, f"result.0.{i}")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def result_dump(res) -> dict:
+    """What phase (y) reads of a run's result: per-round confusion counts,
+    the rounds trained, rollbacks, personalized metrics and a digest of
+    the final global model."""
+    import hashlib
+    leaves = [np.ascontiguousarray(x).tobytes()
+              for x in param_leaves(res.final_params)]
+    pm = res.personalized_metrics
+    return {"confusion": [np.asarray(c).tolist() for c in res.confusion],
+            "rounds_run": res.rounds_run,
+            "rounds_trained": res.rounds_trained,
+            "rollbacks": res.rollbacks, "diverged": res.diverged,
+            "personalized": {part: {k: np.asarray(v).tolist()
+                                    for k, v in pm[part].items()}
+                             for part in pm},
+            "params_sha": hashlib.sha256(b"".join(leaves)).hexdigest()}
+
+
+def rollback_events(ev: str, n: int) -> list:
+    """Each member's ``rollback`` events: (restored round, attempt)."""
+    return [[(e["payload"]["restored_round"], e["payload"]["attempt"])
+             for e in read_sink(ev if i == 0 else f"{ev}.p{i}")
+             if e["kind"] == "rollback"] for i in range(n)]
+
+
+def feature_checks(label: str, directory: str, one: dict, gang: dict) -> dict:
+    """Phase (y)'s holds beyond ``gang_vs_one``: the members' results
+    bitwise equal to each other; the rounds trained and rollbacks one
+    process's; the personalized client mean within TRAIN_GANG_DRIFT_TOL;
+    one rollback to FAULT_RESTORED on both members and in one process;
+    the dropped client's counts zero in its round."""
+    res = one["result"]
+    mine = member_results(directory)
+    for key in ("confusion", "rounds_run", "rounds_trained", "rollbacks",
+                "diverged", "personalized", "params_sha"):
+        check(all(m[key] == mine[0][key] for m in mine),
+              f"{label}: the members' {key} differ")
+    got = mine[0]
+    check((got["rounds_trained"], got["rollbacks"])
+          == (res.rounds_trained, res.rollbacks),
+          f"{label}: rounds trained / rollbacks {got['rounds_trained']}, "
+          f"{got['rollbacks']} vs one process's {res.rounds_trained}, "
+          f"{res.rollbacks}")
+    out = {"rounds_trained": got["rounds_trained"],
+           "rollbacks": got["rollbacks"]}
+    if res.personalized_metrics:
+        err = max(abs(got["personalized"]["client_mean"][k] - v)
+                  for k, v in res.personalized_metrics["client_mean"].items())
+        check(err <= TRAIN_GANG_DRIFT_TOL, f"{label}: personalized client "
+              f"mean {err:.3g} from one process's")
+        out["personalized_err"] = err
+    if res.rollbacks:
+        rb = rollback_events(os.path.join(directory, "ev.jsonl"), 2)
+        want = rollback_events(os.path.join(one["dir"], "ev.jsonl"), 1)[0]
+        check(want == [(FAULT_RESTORED, 1)] and all(r == want for r in rb),
+              f"{label}: rollbacks {rb} vs one process's {want}")
+        dropped = json.loads(gang["argv"][gang["argv"].index(
+            "--fault-plan") + 1])["faults"][0]["clients"][0]
+        counts = np.asarray(got["confusion"][FAULT_DROPOUT - 1])[dropped]
+        check(not counts.any(), f"{label}: client {dropped} counted "
+              f"{counts.tolist()} in its dropout round")
+        out["restored_round"] = want[0][0]
+    return out
+
+
+def rollback_walk_member() -> None:
+    """One member of phase (y)'s walk timing (``python -c "import
+    chip_smoke as cs; cs.rollback_walk_member()" STORE RANK DIR``): joins a
+    gang of 2 on the card over income-8's main path, saves rounds 2 and 4
+    collectively, has process 0 stomp round 4's largest part, then times
+    the rollback's host work as the loop does it: the agreed fallback walk
+    (the hit member's failed load, every member's load of round 2, the
+    agreement collectives) and the restore into the live tensors, and,
+    alone, the agreement collective (``all_gather`` of ``(step, ok)``).
+    Prints one JSON line."""
+    store, rank, directory = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+    import warnings
+    from fedtpu_torch.orchestration.checkpoint import (
+        load_checkpoint_fallback, save_checkpoint)
+    from fedtpu_torch.orchestration.loop import (_copy_state_into,
+                                                 _restore_state,
+                                                 build_experiment)
+    from fedtpu_torch.parallel import multihost
+    from fedtpu_torch.resilience.faults import corrupt_checkpoint
+    from fedtpu_torch.telemetry.metrics import default_registry
+    gang = multihost.initialize(f"file://{store}", 2, rank)
+    exp = build_experiment(main_path_config(), device="cuda")
+    state, ck = exp.state, os.path.join(directory, "walk")
+    for step in (2, 4):
+        save_checkpoint(ck, state, {}, step, gang=gang)
+    if rank == 0:
+        corrupt_checkpoint(ck)
+    gang.barrier()
+    default_registry().reset()
+    walk, copy = [], []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for _ in range(WALK_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raw, _, step = load_checkpoint_fallback(ck, part=(rank, 2),
+                                                    gang=gang)
+            t1 = time.perf_counter()
+            _copy_state_into(state, _restore_state(raw, state, exp.device))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            walk.append((t1 - t0) * 1e3)
+            copy.append((t2 - t1) * 1e3)
+    agree = []
+    flag = torch.tensor([4, 1], dtype=torch.int64)
+    for _ in range(AGREE_REPS):
+        t0 = time.perf_counter()
+        gang.all_gather(flag)
+        agree.append((time.perf_counter() - t0) * 1e3)
+    corrupt = default_registry().snapshot()["counters"].get(
+        "checkpoint_restore_corrupt", 0)
+    multihost.shutdown()
+    print(json.dumps({"rank": rank, "step": step, "corrupt_loads": corrupt,
+                      "walk_ms": statistics.median(walk),
+                      "copy_ms": statistics.median(copy),
+                      "restore_ms": statistics.median(
+                          [a + b for a, b in zip(walk, copy)]),
+                      "agree_ms": statistics.median(agree)}), flush=True)
+
+
+def rollback_walk(directory: str) -> dict:
+    """``rollback_walk_member`` as a gang of 2, alone on the card: both
+    members restore round 2, the stomped part's member counted its failed
+    load of round 4 on every walk, the other none."""
+    store = os.path.join(directory, "walk.store")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as cs; "
+         "cs.rollback_walk_member()", store, str(r), directory], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    rows = []
+    try:
+        for proc in procs:
+            o, e = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"walk member rc {proc.returncode}: "
+                  f"{o[-1000:]} {e[-2000:]}")
+            rows.append(json.loads(o.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    check([r["step"] for r in rows] == [2, 2]
+          and sorted(r["corrupt_loads"] for r in rows) == [0, WALK_REPS],
+          f"the agreed walk: {rows}")
+    print("rollback in a gang of 2 (income-8, round 4's largest part "
+          "stomped): both members restore round 2; host ms (median of "
+          f"{WALK_REPS}) agreed walk {[r['walk_ms'] for r in rows]}, copy "
+          f"into the live tensors {[r['copy_ms'] for r in rows]}, the two "
+          f"together {[r['restore_ms'] for r in rows]}; the agreement "
+          f"collective alone {[r['agree_ms'] for r in rows]} (median of "
+          f"{AGREE_REPS}); {CARD['smi']}", flush=True)
+    return {k: [r[k] for r in rows] for k in ("walk_ms", "copy_ms",
+                                              "restore_ms", "agree_ms")}
+
+
+def warm_start_npz(directory: str) -> str:
+    """y1's warm start: an artifact written with ``save_best_weights``
+    from phase (x)'s fedadam oracle (its own run when (x) did not run)."""
+    from fedtpu_torch.sweep.grid import save_best_weights
+    npz = os.path.join(directory, "warm.npz")
+    source = branch_oracle(directory, "fedadam")["result"]
+    save_best_weights(npz, {
+        "weights": source.final_params,
+        "params": {"hidden_layer_sizes": list(INCOME_DIMS[1:-1]),
+                   "learning_rate": source.config.optim.learning_rate},
+        "metrics": source.global_metrics, "accuracy":
+            source.global_metrics["accuracy"][-1]})
+    return npz
+
+
+def phase_feature_gangs() -> tuple:
+    """Phase (y): the loop's features in a training gang on the card.
+    Writes the warm start's artifact (``warm_start_npz``), starts the
+    three gangs side by side (y1, y2, y3), takes the one-process oracles
+    while they run, holds each gang to its oracle (``gang_vs_one`` and
+    ``feature_checks``) and last, alone, times the rollback's host work
+    (``rollback_walk``). What the pipelined stop buys a gang is timed
+    apart, each gang alone (``pipelining_pairs``)."""
+    import tempfile
+    numbers, seconds, by_path = {}, {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - clock[0], 2)
+        clock[0] = now
+
+    k123 = ("weighted_average_clients", "fused_eval_confusion",
+            "fused_mlp_forward")
+    with tempfile.TemporaryDirectory() as directory:
+        npz = warm_start_npz(directory)
+        lap("warm start artifact")
+        runs = {"y1 features": (feature_spec(npz), BRANCH_MEMBER_SHARDS,
+                                2 * BRANCH_MEMBER_SHARDS, True)}
+        for name, (_, _, extra, shards, one_shards) in FAULT_GANGS.items():
+            runs[name] = (fault_spec(name), shards, one_shards,
+                          "ring" not in extra)
+        gangs = {}
+        try:
+            for i, (name, (spec, shards, _, _)) in enumerate(runs.items()):
+                d = os.path.join(directory, f"g{i}")
+                argv = gang_argv(d, *spec)
+                gangs[name] = (d, argv, time.perf_counter(), gang_popen(
+                    argv, d, shards))
+            oracles = {name: one_process_run(
+                os.path.join(directory, f"one{i}"), spec, shards=one_shards)
+                for i, (name, (spec, _, one_shards, _)) in enumerate(
+                    runs.items())}
+            lap("oracles")
+            outcomes = {}
+            for name, (d, argv, t0, proc) in gangs.items():
+                o, e = proc.communicate(timeout=900)
+                outcomes[name] = gang_outcome(argv, 2, d, proc.returncode,
+                                              o, e, time.perf_counter() - t0)
+                outcomes[name]["argv"] = argv
+            lap("gangs")
+        finally:
+            for _, _, _, proc in gangs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+        for name, one in oracles.items():
+            d = gangs[name][0]
+            psum = runs[name][3]
+            kernels = k123 if psum else k123[1:] + ("ring_all_reduce_sum",)
+            label = f"phase (y) {name} gang of 2"
+            row = gang_vs_one(label, outcomes[name], one, d, 2, psum,
+                              kernels)
+            row.update(feature_checks(label, d, one, outcomes[name]))
+            row["median_s_round"] = {
+                "gang": median_s_round(os.path.join(d, "m.jsonl")),
+                "one": median_s_round(os.path.join(one["dir"], "m.jsonl"))}
+            numbers[name] = row
+            for i, mem in enumerate(outcomes[name]["launches"]):
+                by_path[f"{label}, member {i}"] = mem
+            print(f"{label}: {json.dumps(row, default=float)}; "
+                  f"{CARD['smi']}", flush=True)
+        lap("holds")
+        numbers["rollback_walk"] = rollback_walk(directory)
+        lap("rollback walk")
+    print(f"phase (y) seconds {json.dumps(seconds)}", flush=True)
+    numbers["seconds"] = seconds
+    return by_path, numbers
+
+
+def pipelining_pairs() -> None:
+    """``python3 chip_smoke.py pipelining-pairs``: phase (y)'s y1 gang
+    of 2 with the pipelined stop and without it, each gang alone on the
+    card, in PIPELINING_ORDER (alternating, so that drift over the call
+    falls on both): every history equal, and each gang's median s/round.
+    Prints the numbers as one JSON line, last. Not part of the default
+    run: its four gangs run one after another."""
+    import tempfile
+    import fedtpu_torch  # noqa: F401  (fails outside a checkout)
+    phase_device()
+    phase_build()
+    s_round = {True: [], False: []}
+    with tempfile.TemporaryDirectory() as directory:
+        npz = warm_start_npz(directory)
+        history = None
+        for i, pipelined in enumerate(PIPELINING_ORDER):
+            d = os.path.join(directory, f"g{i}")
+            argv = gang_argv(d, *feature_spec(npz, pipelined))
+            t0 = time.perf_counter()
+            proc = gang_popen(argv, d, BRANCH_MEMBER_SHARDS)
+            try:
+                o, e = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+            gang_outcome(argv, 2, d, proc.returncode, o, e,
+                         time.perf_counter() - t0)
+            got = gang_history(os.path.join(d, "m.jsonl"))
+            check(history is None or got == history,
+                  f"y1 gang {i} (pipelined {pipelined}): its history "
+                  "differs from the first gang's")
+            history = got
+            s_round[pipelined].append(median_s_round(
+                os.path.join(d, "m.jsonl")))
+    pipe, sync = (statistics.mean(s_round[k]) for k in (True, False))
+    print(f"y1 gang of 2 alone, median s/round by gang in order "
+          f"{PIPELINING_ORDER}: pipelined {s_round[True]}, not "
+          f"{s_round[False]}; pipelined / not {pipe / sync:.4f} (histories "
+          f"equal); {CARD['smi']}", flush=True)
+    print(json.dumps({"pipelined_s_round": s_round[True],
+                      "not_pipelined_s_round": s_round[False],
+                      "ratio": pipe / sync, "card": CARD["smi"]}), flush=True)
+
+
 def main() -> None:
     import fedtpu_torch  # noqa: F401  (fails outside a checkout)
     clock, seconds = [time.perf_counter()], {}
@@ -7830,6 +8213,11 @@ def main() -> None:
     print(f"phase (x) numbers {json.dumps(branch, default=float)}",
           flush=True)
     lap("(x)")
+    feature_launches, feature = phase_feature_gangs()
+    by_path.update(feature_launches)
+    print(f"phase (y) numbers {json.dumps(feature, default=float)}",
+          flush=True)
+    lap("(y)")
     print(f"phase seconds {json.dumps(seconds)}, total "
           f"{sum(seconds.values()):.1f} s", flush=True)
     # Each kernel's launches come from the path it was ported for: K1-K3
@@ -7891,4 +8279,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["pipelining-pairs"]:
+        pipelining_pairs()
+    else:
+        check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; "
+              "pass none, or pipelining-pairs")
+        main()

@@ -19,7 +19,9 @@ as ``fedtpu``'s orbax save does with each process persisting the client
 shards it owns: member i of P writes its own clients' rows as
 ``state.p<i>-of-<P>``, the members meet at a barrier, and process 0 then
 writes ``meta`` (the history, the gang's client count, ``num_processes``).
-Such a round is complete when ``meta`` and all P parts are there. A gang of
+Such a round is complete when ``meta`` and all P parts are there, and a
+gang's fallback walk past a round that fails to load is one decision of
+the whole gang (``load_checkpoint_fallback(gang=)``). A gang of
 the same size restores it bit for bit, each member its own part. A gang of
 another size, or one process, restores it too (an elastic resume, or the
 resume of a shrunk gang's round): each member reads the parts that cover
@@ -53,6 +55,17 @@ def state_file(directory: str, step: int) -> str:
     """The state archive of round ``step`` (``<dir>/round_<step>/state``):
     what a ``ckpt_corrupt`` fault truncates and the fallback walk skips."""
     return os.path.join(_ckpt_path(directory, step), "state")
+
+
+def state_files(directory: str, step: int) -> list:
+    """Every state archive of round ``step``: its one ``state``, or a gang
+    round's parts ``state.p<i>-of-<P>`` in member order (``P`` from its
+    meta)."""
+    path = _ckpt_path(directory, step)
+    procs = int(_read(os.path.join(path, "meta")).get("num_processes", 1))
+    if procs == 1:
+        return [os.path.join(path, "state")]
+    return [os.path.join(path, part_name(i, procs)) for i in range(procs)]
 
 
 def _to_cpu(tree):
@@ -303,26 +316,50 @@ def saved_num_clients(raw_state: dict) -> int:
 
 
 def load_checkpoint_fallback(directory: str, part: Optional[tuple] = None,
-                             max_step: Optional[int] = None
+                             max_step: Optional[int] = None, gang=None
                              ) -> Tuple[dict, dict, int]:
     """``load_checkpoint_raw`` of the NEWEST complete round (at most
     ``max_step``: a gang's agreed step) that actually loads, walking back
     past rounds that fail to (a commit proves both files were renamed into
-    place, not that their bytes are intact). Each failure warns. Raises
-    FileNotFoundError when none loads. ``part``: ``load_checkpoint_raw``'s."""
+    place, not that their bytes are intact). Each failure warns and counts
+    ``checkpoint_restore_corrupt``. Raises FileNotFoundError when none
+    loads. ``part``: ``load_checkpoint_raw``'s.
+
+    In a ``gang`` the walk is one decision, as ``fedtpu``'s one collective
+    orbax read is: every member tries its own part of its newest candidate,
+    and one ``all_gather`` of ``(candidate, loaded)`` bounds the next try
+    by the newest step every member loaded; a member that loaded a newer
+    step than that drops it. Every member returns the same step, or every
+    member raises."""
     steps = [s for s in complete_steps(directory)
              if max_step is None or s <= max_step]
     last_err: Optional[Exception] = None
-    for step in reversed(steps):
-        try:
-            return load_checkpoint_raw(directory, step, part=part)
-        except Exception as e:
-            last_err = e
-            default_registry().counter("checkpoint_restore_corrupt").inc()
-            warnings.warn(f"checkpoint round {step} failed to restore "
-                          f"({type(e).__name__}: {e}); falling back to the "
-                          "previous round", RuntimeWarning)
+    bound = None
+    while True:
+        cand = [s for s in steps if bound is None or s <= bound]
+        step = cand[-1] if cand else -1
+        got = None
+        if step >= 0:
+            try:
+                got = load_checkpoint_raw(directory, step, part=part)
+            except Exception as e:
+                last_err = e
+                default_registry().counter("checkpoint_restore_corrupt").inc()
+                warnings.warn(f"checkpoint round {step} failed to restore "
+                              f"({type(e).__name__}: {e}); falling back to "
+                              "the previous round", RuntimeWarning)
+        # (candidate, loaded) of every member, in member order.
+        tried = [(step, int(got is not None))]
+        if gang is not None:
+            tried = gang.all_gather(torch.tensor(tried[0])).tolist()
+        if min(s for s, _ in tried) < 0:
+            break
+        if all(ok for _, ok in tried) and len({s for s, _ in tried}) == 1:
+            return got
+        # The newest step every member may still load.
+        bound = min(s if ok else s - 1 for s, ok in tried)
     raise FileNotFoundError(
         f"no restorable checkpoint under {directory} "
-        f"({len(steps)} complete-looking round(s) all failed to load)"
+        f"({len(steps)} complete-looking round(s) all failed to load"
+        + ("" if gang is None else " on some member of the gang") + ")"
     ) from last_err

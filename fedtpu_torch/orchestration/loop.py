@@ -110,10 +110,24 @@ int8 exchange, the robust rules, Byzantine injection and SCAFFOLD, their
 state replicated on every member beside the member's per-client rows. A
 gang's checkpoint restores into a gang of another size, or into one
 process, and the other way round: at the same client count each member
-its rows, bitwise; at another, the elastic resume. Not in a gang yet
-(ROADMAP A10d-2): pipelined stop, rollback, personalization, a warm
-start and the client-targeted faults; cohort mode stays refused (a
-multi-process cohort gather is fedtpu's future work too).
+its rows, bitwise; at another, the elastic resume. A restore walks back
+past a round that fails to load as one decision of the gang
+(``load_checkpoint_fallback(gang=)``), at resume and at a rollback.
+
+The loop's features run in a gang too, each a decision every member makes
+the same way: pipelined stop (every finiteness decision reads the gang's
+agreed flag, the overshoot chunk's gathered before the deferred check);
+rollback, each member restoring its part of the agreed round into its
+live tensors, the offenders excluded by their index in the whole run on
+the member that owns them, the second retry's perturbation the whole
+run's draw, each member's rows of it; personalization, each member
+fine-tuning its clients and the per-client rows gathered in member order
+for the gang's client mean; the warm start, applied before the gang's
+shared start and the member's slice; and the client-targeted faults, each
+applied by the member that owns the client (``FaultInjector(rows=)``),
+with the host masks the gang's rows. Cohort mode stays refused with
+fedtpu's message (a multi-process cohort gather is fedtpu's future work
+too).
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
 with no GPU and no such request they raise rather than fall back.
@@ -134,7 +148,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from fedtpu_torch.config import ExperimentConfig, _not_ported
+from fedtpu_torch.config import ExperimentConfig
 from fedtpu_torch.convert import params_from_jax, params_to_numpy
 from fedtpu_torch.data import load_dataset
 from fedtpu_torch.data.sharding import pack_clients
@@ -163,8 +177,9 @@ from fedtpu_torch.parallel.round import (_per_client_slots, assemble_metrics,
                                          capture_round_step, check_knobs,
                                          client_init_seeds, client_inits,
                                          global_params, init_federated_state,
-                                         pack_outputs, round_branch,
-                                         unpack_outputs, warm_up_round)
+                                         masked_client_mean, pack_outputs,
+                                         round_branch, unpack_outputs,
+                                         warm_up_round)
 from fedtpu_torch.resilience.distributed import heartbeat_path_for
 from fedtpu_torch.resilience.supervisor import Preempted, write_heartbeat
 from fedtpu_torch.telemetry.log import TelemetryLogger
@@ -452,37 +467,15 @@ def check_resilience_config(cfg: ExperimentConfig) -> None:
                 "average in at weight 1)")
 
 
-# The fault kinds a training gang applies (the reshard kinds are the
-# reshard controller's); the others target clients or files by index,
-# which a gang member would have to map onto its own block.
-GANG_FAULT_KINDS = ("process_kill", "collective_hang", "straggler",
-                    "preempt_notice", "preempt_cancel")
-
-
 def check_gang_config(cfg: ExperimentConfig) -> None:
-    """What a training gang does not run yet raises, before any build,
-    naming the ROADMAP item that brings it (A10d-2; cohort mode, which
-    fedtpu refuses across processes too, under the same item)."""
-    fed, run = cfg.fed, cfg.run
-    for on, what in (
-            (fed.cohort_size > 0, "cohort mode (the multi-process cohort "
-                                  "gather, fedtpu's future work too)"),
-            (run.pipelined_stop, "pipelined_stop"),
-            (run.on_divergence == "rollback", "on_divergence='rollback'"),
-            (fed.personalize_steps > 0, "personalize_steps"),
-            (bool(fed.init_weights_npz), "init_weights_npz")):
-        if on:
-            _not_ported(f"{what} in a training gang", "A10d-2")
-    if run.fault_plan:
-        from fedtpu_torch.resilience.faults import FaultPlan
-        plan = FaultPlan.load(run.fault_plan,
-                              num_clients=cfg.shard.num_clients,
-                              rounds=fed.rounds)
-        kinds = sorted({f.kind for f in plan.faults
-                        if f.kind not in GANG_FAULT_KINDS})
-        if kinds:
-            _not_ported(f"fault kind(s) {kinds} in a training gang (it "
-                        f"applies {list(GANG_FAULT_KINDS)})", "A10d-2")
+    """A training gang's one refusal, before any build, with ``fedtpu``'s
+    message (``fedtpu/cohort/scheduler.py:704-708``): cohort mode runs one
+    process."""
+    if cfg.fed.cohort_size > 0:
+        raise ValueError("cohort mode is single-process for now; the "
+                         "store shards by id (ClientStateStore num_shards) "
+                         "but the multi-host gather path is future work "
+                         "(ROADMAP)")
 
 
 def _copy_state_into(live: dict, restored: dict) -> None:
@@ -575,6 +568,12 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             fed.byzantine_clients, fed.scaffold)
 
     params = None if init_params is None else params_from_jax(init_params)
+    if fed.init_weights_npz:
+        # Every slot holds the warm start, before anything derives from the
+        # slots (a gang's shared start and the member's block; the
+        # asynchronous engine's anchors, whose clients pulled it).
+        params = warm_start_params(fed.init_weights_npz, model).expand(
+            num_clients, -1)
     if mesh is None:
         mesh = make_mesh(cfg.run.mesh_devices, num_clients, dev, gang=gang)
     rows = multihost.local_client_slice(mesh)
@@ -613,11 +612,6 @@ def build_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
     else:
         packed_rows = {k: getattr(packed, k)
                        for k in ("x", "y", "mask", "counts")}
-    if fed.init_weights_npz:
-        # The asynchronous engine's clients have pulled the warm start:
-        # its anchors hold it too (init_async_state).
-        params = warm_start_params(fed.init_weights_npz, model).expand(
-            num_clients, -1)
     batch = {k: torch.from_numpy(np.ascontiguousarray(packed_rows[k])).to(
         dev) for k in ("x", "y", "mask")}
     weights = (packed_rows["counts"].astype(np.float32)
@@ -926,16 +920,28 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         raise ValueError(f"capture=True needs the card; the run is on {dev}")
     ds, state, batch = exp.dataset, exp.state, exp.batch
     num_clients, num_classes = cfg.shard.num_clients, ds.num_classes
-    # The host's copy of the sample mask (the client-mean metrics' empty
-    # shards): its own tensor, since faults edit the device mask in place;
-    # in a gang, every member's rows.
     if cfg.run.checkpoint_dir and proc == 0:
         # A dead gang's reshard records never reach this run: process 0
-        # clears them before the gang's first collective (the gather
-        # below), so no peer has published one of this run's yet.
+        # clears them before the gang's first collective (the mask's
+        # gather below), so no peer has published one of this run's yet.
         from fedtpu_torch.resilience.distributed import clear_reshard_records
         clear_reshard_records(cfg.run.checkpoint_dir)
-    mask_host = multihost.gather_rows(gang, batch["mask"]).cpu().clone()
+
+    def member_rows() -> tuple:
+        """This member's block of the clients, ``(first, count)``: every
+        row, ``(0, num_clients)``, outside a gang."""
+        if gang is None:
+            return 0, num_clients
+        rows = multihost.local_client_slice(exp.mesh)
+        return rows.start, rows.stop - rows.start
+
+    def gang_mask() -> torch.Tensor:
+        """The host's copy of the device mask as it stands: in a gang,
+        every member's rows (a collective, on a round that every member
+        reaches: a fault's, an exclusion's)."""
+        with guard("mask_gather"):
+            return multihost.gather_rows(gang, batch["mask"]).cpu().clone()
+
     exchange = exp.exchange
     x_test = torch.from_numpy(ds.x_test).to(dev)
     y_test = torch.from_numpy(ds.y_test).to(dev)
@@ -968,7 +974,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                                  "<checkpoint_dir>/.reshard")
         injector = FaultInjector(plan, restart_count=restart_count,
                                  tracer=tracer, registry=registry,
-                                 process_index=proc)
+                                 process_index=proc, rows=member_rows())
         log.info(f"Fault plan {plan.digest}: {len(plan.faults)} fault(s), "
                  f"{injector.armed_count} armed"
                  + (f" (restart {restart_count})" if restart_count else "")
@@ -1015,6 +1021,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         if watchdog is None:
             return contextlib.nullcontext()
         return watchdog.guard(phase, rnd)
+
+    # The host's copy of the sample mask (the client-mean metrics' empty
+    # shards): its own tensor, since faults edit the device mask in place.
+    mask_host = gang_mask()
 
     def beat(status: str, rnd: int) -> None:
         """The liveness heartbeat (an atomic host-side rewrite): the
@@ -1076,9 +1086,13 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         part = None if gang is None else (proc, gang.process_count)
         if saved_c == num_clients:
             # Each member's own rows, whatever gang size (or one process)
-            # wrote the round: the parts covering them, bit for bit.
-            raw, restored_history, start_round = load_checkpoint_fallback(
-                ckpt_dir, max_step=agreed_step, part=part)
+            # wrote the round: the parts covering them, bit for bit; a
+            # round that fails to load on any member is walked past by the
+            # whole gang.
+            with guard("resume_fallback"):
+                raw, restored_history, start_round = \
+                    load_checkpoint_fallback(ckpt_dir, max_step=agreed_step,
+                                             part=part, gang=gang)
             if engine_async and ("global" in state) != ("global" in raw):
                 # A gang's asynchronous state carries the global; one
                 # process's derives it: the freshest anchor of the round.
@@ -1154,9 +1168,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                          "clients (global model carried over, fresh client "
                          f"optimizer state{cv_note}).")
         if gang is not None:
-            # The agreement bounds the step; the restore is each member's
-            # own, and a member whose agreed round failed to load walked
-            # back: refuse to train desynced.
+            # The agreement bounds the step and the fallback walk is the
+            # gang's; this stays as the guard: refuse to train desynced.
             with guard("resume_verify"):
                 rounds = gang.all_gather(torch.tensor([start_round]))
             if int(rounds.min()) != int(rounds.max()):
@@ -1256,7 +1269,11 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                         f"({cfg.run.rollback_retries}); halting.")
             return False
         try:
-            raw, hist2, j = load_checkpoint_fallback(ckpt_dir)
+            # A gang member's own part of the round the whole gang loads
+            # (one agreed walk).
+            raw, hist2, j = load_checkpoint_fallback(
+                ckpt_dir, gang=gang, part=None if gang is None
+                else (gang.process_index, gang.process_count))
         except FileNotFoundError:
             return False
         rollback["attempts"] += 1
@@ -1284,9 +1301,13 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             fresh = sorted(set(offenders) - excluded)
             if fresh:
                 excluded.update(fresh)
-                from fedtpu_torch.resilience.faults import drop_clients
-                drop_clients(batch["mask"], fresh, fault_weights)
-                mask_host = batch["mask"].cpu().clone()
+                from fedtpu_torch.resilience.faults import (drop_clients,
+                                                            local_rows)
+                # The offenders are indices in the whole run (the gang's
+                # gathered rows); each member zeroes the ones it owns.
+                drop_clients(batch["mask"], local_rows(fresh, member_rows()),
+                             fault_weights)
+                mask_host = gang_mask()
                 if injector is not None:
                     # A departed client cannot re-inject: a sticky NaN
                     # source would otherwise defeat the retry.
@@ -1297,8 +1318,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                             "aggregation (mask weight 0) for the retry.")
         if rollback["attempts"] >= 2 and cfg.run.rollback_perturb > 0:
             from fedtpu_torch.resilience.faults import perturb_params
+            # The whole run's draw, a gang member taking its rows.
             perturb_params(state["params"], rollback["attempts"],
-                           cfg.run.rollback_perturb)
+                           cfg.run.rollback_perturb,
+                           rows=(member_rows()[0], num_clients))
         tracer.event("rollback", round=label_round, restored_round=j,
                      attempt=rollback["attempts"], reason=reason,
                      excluded=sorted(excluded))
@@ -1709,8 +1732,9 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 steps, graphs = {}, {}
                 mask_table, draw_noise = step_tables()
                 noise_ahead.clear()
-                mask_host = multihost.gather_rows(
-                    gang, batch["mask"]).cpu().clone()
+                mask_host = gang_mask()
+                if injector is not None:
+                    injector.rows = member_rows()
                 fault_weights = (exp.client_weights
                                  if cfg.fed.weighting == "data_size"
                                  and not engine_async else None)
@@ -1783,6 +1807,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             steps, graphs = st["steps"], st["graphs"]
             mask_table, draw_noise = st["mask_table"], st["draw_noise"]
             mask_host, fault_weights = st["mask_host"], st["fault_weights"]
+            if injector is not None:
+                injector.rows = member_rows()
             noise_ahead.clear()
             # Into the original graphs' static state tensors, in place:
             # their replays go on, nothing is captured again.
@@ -1860,6 +1886,20 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         reshard_done("grow_rejoin", r_grow, done, waits)
         return r_grow
 
+    def state_finite(fetched: _Fetch) -> bool:
+        """A chunk-end state's finiteness flag, which every decision on it
+        reads: in a gang every member's, agreed when the chunk's metrics
+        were gathered or, for a chunk whose never were (a pipelined stop's
+        dropped overshoot chunk), by one small collective here. A member's
+        own flag alone can differ from its peers' (a poisoned client's
+        optimizer moments stay on its member)."""
+        if gang is not None and fetched.agreed is None:
+            with guard("finite_agree", rnd):
+                flags = gang.all_gather(torch.tensor(
+                    [1.0 if fetched.finite() else 0.0]))
+            fetched.agreed = bool((flags > 0).all())
+        return fetched.finite()
+
     ckpt_every = cfg.run.checkpoint_every
     # Pipelined stop: chunk k+1 is dispatched before chunk k's outputs are
     # read. The history is the synchronous run's; a stop leaves the state one
@@ -1892,7 +1932,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                     pending = None
                 if not flags["stopped_early"]:
                     if not (cfg.run.halt_on_nonfinite and last is not None
-                            and not last.finite()):
+                            and not state_finite(last)):
                         with tracer.span("checkpoint", round=rnd):
                             save(ckpt_dir, rnd)
                             retain_after_save(rnd)
@@ -1940,8 +1980,9 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 dropout = any(f.kind == "client_dropout" for f in due)
                 if dropout:
                     # The host reads the device mask the injector left:
-                    # the round's own (one sync, on a width-1 round).
-                    chunk_mask = batch["mask"].cpu().clone()
+                    # the round's own (one sync, on a width-1 round; in a
+                    # gang every member's rows).
+                    chunk_mask = gang_mask()
             with guard("round_dispatch", rnd):
                 last = dispatch(rnd, take, chunk_mask)
             if injector is not None:
@@ -1952,7 +1993,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
                 if dropout:
                     # What post_round leaves holds for good (a sticky
                     # dropout that no non-sticky one undid).
-                    mask_host = batch["mask"].cpu().clone()
+                    mask_host = gang_mask()
             if pipelined:
                 if pending is not None:
                     process_chunk(*pending, state_round=rnd + take)
@@ -1993,7 +2034,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
             # pre-update), so no checkpoint or eval takes a poisoned state.
             if cfg.run.halt_on_nonfinite and (
                     not pipelined or ckpt_due or eval_due) \
-                    and not last.finite():
+                    and not state_finite(last):
                 # Offenders unknown here (the poison is in the state, not
                 # a client's metric): rollback without exclusion.
                 if try_rollback(
@@ -2030,7 +2071,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         # nowhere else).
         if (pipelined or flags["stopped_early"]) and not flags["diverged"] \
                 and cfg.run.halt_on_nonfinite and last is not None \
-                and not last.finite():
+                and not state_finite(last):
             halt_diverged(f"params/optimizer state after round {rnd}", rnd)
         # A member still parked leaves with EXIT_RESHARDED (76) rather than
         # wait for a grow that will not come. Only at a clean end: on a
@@ -2057,12 +2098,23 @@ def run_experiment(cfg: ExperimentConfig, dataset: Optional[Dataset] = None,
         # the personalized models are reported, not kept (final_params stay
         # the global model).
         _, pm = exp.personalize_fn(state["params"], batch)
+        per_client, client_mean = pm["per_client"], pm["client_mean"]
+        if gang is not None:
+            # Each member fine-tuned its own clients: the per-client rows
+            # in member order (one gather), their mean over the gang's
+            # non-empty clients.
+            names = sorted(per_client)
+            stack = gang.all_gather(torch.stack([per_client[k]
+                                                 for k in names]))
+            stack = stack.transpose(0, 1).reshape(len(names), -1)
+            per_client = dict(zip(names, stack))
+            client_mean = masked_client_mean(per_client, mask_host.to(dev))
         # Metric names sorted, as fedtpu's come out of its jit.
         personalized = {
-            "per_client": {k: pm["per_client"][k].cpu().numpy()
-                           for k in sorted(pm["per_client"])},
-            "client_mean": {k: float(pm["client_mean"][k])
-                            for k in sorted(pm["client_mean"])},
+            "per_client": {k: per_client[k].cpu().numpy()
+                           for k in sorted(per_client)},
+            "client_mean": {k: float(client_mean[k])
+                            for k in sorted(client_mean)},
         }
         vals = ", ".join(f"{k}: {v:.4f}"
                          for k, v in personalized["client_mean"].items())

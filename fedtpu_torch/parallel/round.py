@@ -520,8 +520,12 @@ def _robust_global(rule: str, flat: torch.Tensor, part, trim_ratio: float,
         srt = torch.sort(flat, dim=0).values
         if rule == "median":
             # jnp.median's midpoint: (lo + hi) * 0.5 (torch.median would
-            # take the lower middle value for an even count).
-            return (srt[(c - 1) // 2] + srt[c // 2]) * 0.5
+            # take the lower middle value for an even count), NaN wherever
+            # a client's value is, as jnp.median's (the sort puts NaN last,
+            # so the midpoint alone would pass a NaN update over).
+            mid = (srt[(c - 1) // 2] + srt[c // 2]) * 0.5
+            return torch.where(torch.isnan(srt[-1]),
+                               torch.full_like(mid, float("nan")), mid)
         if k_trim:
             srt = srt[k_trim:c - k_trim]
         return srt.mean(dim=0)

@@ -40,8 +40,8 @@ The kinds, on the port's flat state (``params (C, D)``):
 * ``process_kill`` — ``os.kill(self, signal)`` when this process's index
   matches: SIGKILL dies mid-round, SIGTERM exercises the drain.
 * ``ckpt_corrupt`` — truncate and stomp the latest complete checkpoint's
-  state file (one ``torch.save`` archive), caught only by the restore's
-  fallback walk.
+  largest state file (its one ``torch.save`` archive, or a gang round's
+  largest part), caught only by the restore's fallback walk.
 * ``collective_hang`` — the matching process sleeps ``delay_s`` (default:
   about forever) before the round; in a training gang its peers then stall
   in the round's exchange until their collective watchdog fires.
@@ -50,6 +50,13 @@ The kinds, on the port's flat state (``params (C, D)``):
   consumed by the reshard controller (``fedtpu_torch.resilience.reshard``):
   a live shrink to ``target_clients`` and the grow back, with no
   restart.
+
+A plan names clients by their index in the whole run. In a training gang
+every member holds the whole plan and applies a client's fault only to the
+rows it owns (``FaultInjector(rows=)``): a dropout zeroes the owner's mask
+and weight rows, a ``nan_update`` poisons the owner's params rows, and the
+gang's own consensus (the chunk's gathered metrics and finiteness flag)
+makes the rest of the decision the same on every member.
 
 Only the in-loop edits touch torch (the plan itself is numpy and JSON)."""
 
@@ -217,6 +224,14 @@ def _rows(clients: Sequence[int], device):
     return torch.as_tensor(tuple(clients), dtype=torch.long, device=device)
 
 
+def local_rows(clients: Sequence[int], rows: Tuple[int, int]) -> list:
+    """The run's ``clients`` that a training gang member owns, as its own
+    row indices: ``rows`` ``(first, count)`` is its block (``(0, C)``, all
+    of them unmoved, outside a gang)."""
+    first, count = rows
+    return [c - first for c in clients if first <= c < first + count]
+
+
 def drop_clients(mask, clients: Sequence[int], weights=None) -> None:
     """Zero the named clients' sample-mask rows IN PLACE (and their rows of
     ``weights``, the data-size FedAvg weights, when given): exact weight-0
@@ -233,19 +248,28 @@ def poison_client_slots(params, clients: Sequence[int]) -> None:
     params.index_fill_(0, _rows(clients, params.device), float("nan"))
 
 
-def perturb_params(params, attempt: int, scale: float, uniform=None) -> None:
+def perturb_params(params, attempt: int, scale: float, *,
+                   rows: Tuple[int, int], uniform=None) -> None:
     """Rollback retry #``attempt``'s restart point, in place:
     ``params * (1 + scale * (2u - 1))``, ``u ~ U[0, 1)``. ``uniform``
     (the draw, shaped like ``params``) replaces the port's own, e.g. with
     ``fedtpu``'s ``jax.random`` draw in the flat layout; the port's own
     follows the same law from a ``torch.Generator`` seeded by ``attempt``
-    on the state's device, so every re-run perturbs identically."""
+    on the state's device, so every re-run perturbs identically. ``rows``
+    ``(first, total)``: ``params`` are the block of a run of ``total``
+    clients starting at row ``first`` (``(0, C)`` in one process); the
+    draw is the whole run's ``(total, D)``, one process's, of which a gang
+    member takes its rows (as ``fedtpu``'s one key over the whole
+    tree)."""
     import torch
     if uniform is None:
+        first, total = rows
         gen = torch.Generator(device=params.device)
         gen.manual_seed(int(attempt))
-        uniform = torch.rand(params.shape, generator=gen,
-                             dtype=params.dtype, device=params.device)
+        uniform = torch.rand((total,) + tuple(params.shape[1:]),
+                             generator=gen, dtype=params.dtype,
+                             device=params.device)[
+                                 first:first + params.shape[0]]
     else:
         uniform = torch.as_tensor(uniform).to(device=params.device,
                                               dtype=params.dtype)
@@ -255,9 +279,11 @@ def perturb_params(params, attempt: int, scale: float, uniform=None) -> None:
 def corrupt_checkpoint(directory: str, step: Optional[int] = None,
                        mode: str = "stomp", fraction: Optional[float] = None,
                        seed: int = 0) -> Optional[int]:
-    """In-place corruption of the latest complete checkpoint's state file
-    (the port's ``round_<N>/state``, one ``torch.save`` archive: the
-    largest file of the round). ``mode='stomp'``: truncate it to half and
+    """In-place corruption of the latest complete checkpoint's largest
+    state file, as ``fedtpu`` picks the largest file under the round's
+    state: the port's ``round_<N>/state`` (one ``torch.save`` archive), or
+    a gang round's largest ``state.p<i>-of-<P>`` part, ties to the lowest
+    part. ``mode='stomp'``: truncate it to half and
     stomp its header. ``mode='torn'``: a torn write, truncated to a seeded
     fraction of its bytes (``fraction``, or uniform on [0.05, 0.6) by
     ``seed``), the prefix left intact. The round still looks committed, so
@@ -267,14 +293,13 @@ def corrupt_checkpoint(directory: str, step: Optional[int] = None,
     if mode not in ("stomp", "torn"):
         raise ValueError(f"corrupt_checkpoint mode {mode!r}: "
                          "pick 'stomp' or 'torn'")
-    from fedtpu_torch.orchestration.checkpoint import latest_step, state_file
+    from fedtpu_torch.orchestration.checkpoint import latest_step, state_files
     if step is None:
         step = latest_step(directory)
     if step is None:
         return None
-    target = state_file(directory, step)
-    if not os.path.isfile(target):
-        return None
+    # max keeps the first of equal sizes: ties go to the lowest part.
+    target = max(state_files(directory, step), key=os.path.getsize)
     size = os.path.getsize(target)
     with open(target, "r+b") as fh:
         if mode == "torn":
@@ -303,10 +328,16 @@ class FaultInjector:
     The port's edits are in place: the mask, the data-size weights and the
     params are static inputs of the round's CUDA graph, which a rebinding
     would leave reading the old buffers. ``post_round`` copies the saved
-    rows back on the same stream, after the round's replay is queued."""
+    rows back on the same stream, after the round's replay is queued.
+
+    ``rows`` ``(first, count)``: a training gang member's block of the
+    clients; a client fault edits only the rows of the clients in it
+    (every fault still emits its event on every member). None: the plan's
+    client indices are the rows themselves."""
 
     def __init__(self, plan: FaultPlan, restart_count: int = 0,
-                 tracer=None, registry=None, process_index: int = 0):
+                 tracer=None, registry=None, process_index: int = 0,
+                 rows: Optional[Tuple[int, int]] = None):
         self.plan = plan
         self._armed = [f for f in plan.faults
                        if f.kind not in RESHARD_KINDS
@@ -317,6 +348,9 @@ class FaultInjector:
         self._tracer = tracer
         self._registry = registry
         self._proc = process_index
+        # The member's block (first, count); the loop sets it again after
+        # a live reshard moves it.
+        self.rows = rows
         self._saved = None
 
     @property
@@ -353,6 +387,7 @@ class FaultInjector:
         if not due:
             return due
         self._armed = [f for f in self._armed if f.round - 1 != rnd]
+        mine = self.rows or (0, batch["mask"].shape[0])
         for f in due:
             # The event before the fault: SIGKILL never returns, and the
             # sink flushes per event.
@@ -362,11 +397,13 @@ class FaultInjector:
                     self._saved = (batch["mask"].clone(),
                                    None if weights is None
                                    else weights.clone())
-                drop_clients(batch["mask"], f.clients, weights)
+                drop_clients(batch["mask"], local_rows(f.clients, mine),
+                             weights)
             elif f.kind == "straggler":
                 time.sleep(f.delay_s)
             elif f.kind == "nan_update":
-                poison_client_slots(state["params"], f.clients)
+                poison_client_slots(state["params"],
+                                    local_rows(f.clients, mine))
             elif f.kind == "process_kill":
                 if f.process_index in (self._proc, ALL_PROCESSES):
                     os.kill(os.getpid(), getattr(_signal, f.signal))

@@ -387,7 +387,8 @@ def test_gang_reshard_matches_the_one_process_reshard(aggregation, faults,
     one = _one(_elastic_spec(tmp_path, "o", aggregation=aggregation,
                              plan=plan, fed=fed))
     if fed:
-        assert_one_process_is_fedtpus(_elastic_spec(tmp_path, "f", fed=fed))
+        assert_one_process_is_fedtpus(_elastic_spec(tmp_path, "f", fed=fed),
+                                      tmp_path)
     got = gang[0]
     assert got["rounds_run"] == one["rounds_run"] == ROUNDS
     if aggregation == "ring":

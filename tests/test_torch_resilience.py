@@ -359,10 +359,10 @@ def test_second_retry_with_fedtpus_draw_matches(tmp_path, monkeypatch):
     own_perturb = t_faults.perturb_params
     attempts = []
 
-    def fedtpus_draw(params, attempt, scale, uniform=None):
+    def fedtpus_draw(params, attempt, scale, **kw):
         attempts.append(attempt)
         own_perturb(params, attempt, scale,
-                    uniform=_fedtpu_draw(j_cfg, attempt))
+                    **{**kw, "uniform": _fedtpu_draw(j_cfg, attempt)})
 
     with monkeypatch.context() as m:
         m.setattr(t_faults, "perturb_params", fedtpus_draw)

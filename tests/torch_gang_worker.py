@@ -4,9 +4,10 @@ Run as ``python tests/torch_gang_worker.py STORE WORLD RANK SPEC OUT``:
 joins the gloo gang through the ``file://`` store ``STORE`` (no port to
 race for under xdist), runs ``run_experiment`` on the CPU with the config
 that the JSON ``SPEC`` describes (``gang_config``), and pickles its history,
-confusion counts, losses, final params, privacy spend, final clip and the
-DP noise rows its rounds loaded into ``OUT.<rank>``. It imports torch and
-the port only.
+confusion counts, losses, final params, privacy spend, final clip, the
+DP noise rows its rounds loaded, its personalized metrics, rollbacks,
+rounds trained and restore counters into ``OUT.<rank>``. It imports torch
+and the port only.
 """
 
 import contextlib
@@ -28,18 +29,23 @@ ROUNDS = 4
 
 def fed_knobs(spec: dict) -> dict:
     """The FedConfig fields of ``spec``'s run (fedtpu's names)."""
-    return dict(rounds=spec.get("rounds", ROUNDS), termination_patience=100,
-                aggregation=spec.get("aggregation", "psum"),
-                **spec.get("fed", {}))
+    return {"rounds": spec.get("rounds", ROUNDS), "termination_patience": 100,
+            "aggregation": spec.get("aggregation", "psum"),
+            **spec.get("fed", {})}
 
 
-def gang_config(spec: dict):
+def gang_config(spec: dict, config=None):
     """The small income run of ``spec``: ``aggregation``, ``async``,
-    ``rounds``, the checkpoint ``dir`` / ``every``, ``fed``, a dict of
-    FedConfig overrides (an aggregation branch's knobs), and for the
-    elastic runs ``clients``, ``shards``, ``rounds_per_step``, the fault
-    ``plan`` and the ``collective_timeout``."""
-    from fedtpu_torch import config as tcfg
+    ``rounds``, the checkpoint ``dir`` / ``every``, the ``events`` sink,
+    ``fed``, a dict of FedConfig overrides (an aggregation branch's knobs,
+    personalization, a warm start), ``run``, a dict of RunConfig overrides
+    (pipelined stop, the divergence policy), and ``clients``, ``shards``,
+    ``rounds_per_step``, the fault ``plan`` and the
+    ``collective_timeout``. ``config``: the module of the config classes,
+    the port's ``fedtpu_torch.config`` by default (a test passes
+    ``fedtpu``'s, whose fields are the same, for the same run there)."""
+    if config is None:
+        from fedtpu_torch import config
     fed = fed_knobs(spec)
     if spec.get("async"):
         fed.update(async_mode=True, weighting="uniform",
@@ -50,23 +56,30 @@ def gang_config(spec: dict):
         run.update(checkpoint_dir=spec["dir"],
                    checkpoint_every=spec.get("every", 2))
     if spec.get("events"):
-        run["telemetry"] = tcfg.TelemetryConfig(events_path=spec["events"])
+        run["telemetry"] = config.TelemetryConfig(events_path=spec["events"])
     if spec.get("plan"):
         run["fault_plan"] = spec["plan"]
     if spec.get("collective_timeout"):
         run["collective_timeout"] = spec["collective_timeout"]
-    return tcfg.ExperimentConfig(
-        data=tcfg.DataConfig(csv_path=None, synthetic_rows=ROWS),
-        shard=tcfg.ShardConfig(num_clients=spec.get("clients", NUM_CLIENTS)),
-        model=tcfg.ModelConfig(hidden_sizes=HIDDEN),
-        fed=tcfg.FedConfig(**fed), run=tcfg.RunConfig(**run))
+    run.update(spec.get("run", {}))
+    return config.ExperimentConfig(
+        data=config.DataConfig(csv_path=None, synthetic_rows=ROWS),
+        shard=config.ShardConfig(num_clients=spec.get("clients", NUM_CLIENTS)),
+        model=config.ModelConfig(hidden_sizes=HIDDEN),
+        fed=config.FedConfig(**fed), run=config.RunConfig(**run))
 
 
 def result_record(res) -> dict:
+    from fedtpu_torch.telemetry.metrics import default_registry
+    counters = default_registry().snapshot()["counters"]
     return {"history": res.global_metrics, "rounds_run": res.rounds_run,
             "stopped_early": res.stopped_early, "loss": res.loss,
             "confusion": res.confusion, "params": res.final_params,
-            "privacy": res.privacy_spent(), "dp_clip": res.final_dp_clip}
+            "privacy": res.privacy_spent(), "dp_clip": res.final_dp_clip,
+            "personalized": res.personalized_metrics,
+            "rollbacks": res.rollbacks, "diverged": res.diverged,
+            "rounds_trained": res.rounds_trained,
+            "restore_corrupt": counters.get("checkpoint_restore_corrupt", 0)}
 
 
 @contextlib.contextmanager
